@@ -1,0 +1,119 @@
+"""Import hygiene of the PyTorch port.
+
+The port's runtime must never load JAX or Flax, and its model path not even
+the JAX package: on the GPU machine the port runs alone. Each check runs in
+a fresh interpreter, so that this test process (which has JAX loaded)
+cannot hide an import.
+"""
+import json
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "video_tokenizer_tpu_torch"
+
+_NO_JAX = """
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
+assert not bad, bad
+"""
+# the model path does not run the JAX package's __init__s either
+_NO_JAX_PACKAGE = """
+bad = sorted(m for m in sys.modules if m.split(".")[0] == "video_tokenizer_tpu")
+assert not bad, bad
+"""
+
+
+def _run(code: str) -> str:
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=240,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    return proc.stdout
+
+
+def test_import_and_cpu_forward_load_no_jax():
+    out = _run("""
+import sys, torch
+import video_tokenizer_tpu_torch as vt
+m = vt.flagship_tokenizer(
+    dtype=torch.float32, generator=torch.Generator().manual_seed(0),
+    encoder_depth=1, decoder_depth=1, encoder_hidden_size=64, decoder_hidden_size=64,
+    encoder_num_heads=1, decoder_num_heads=1, bottleneck_token_num=16,
+    input_size=32, frame_num=8)
+with torch.inference_mode():
+    out = m(torch.rand(1, 3, 8, 32, 32))
+assert out["pred_frames"].shape == (1, 3, 8, 32, 32)
+""" + _NO_JAX + _NO_JAX_PACKAGE + "print('ok')")
+    assert out.strip().endswith("ok")
+
+
+def test_reconstruct_cli_runs_one_cpu_batch():
+    out = _run("""
+import runpy, sys
+sys.argv = ["reconstruct", "--device", "cpu", "--dtype", "fp32", "--batch_size", "1",
+            "--num_batches", "1", "--input_size", "32", "--frame_num", "8", "--opts",
+            "model.args.encoder_depth", "1", "model.args.decoder_depth", "1",
+            "model.args.encoder_hidden_size", "64", "model.args.decoder_hidden_size", "64",
+            "model.args.encoder_num_heads", "1", "model.args.decoder_num_heads", "1",
+            "model.args.bottleneck_token_num", "16",
+            "model.args.bottleneck.args.regularizer.args.codebook_size", "64"]
+runpy.run_module("video_tokenizer_tpu_torch.reconstruct", run_name="__main__")
+""" + _NO_JAX)
+    result = json.loads(out.strip().splitlines()[-1])
+    assert result["clips"] == 1 and result["device"] == "cpu"
+    assert 0.0 < result["mse"] < 1.0 and 0.0 < result["psnr"] < 100.0
+
+
+def _code(path: Path, stop: str = None) -> str:
+    """A module's text after its docstring, up to `stop` if given."""
+    text = path.read_text()
+    code = text[text.index('"""', 3) + 3:]
+    return code[:code.index(stop)] if stop else code
+
+
+# (copy in the port, original in the JAX package, where the shared code ends)
+COPIES = [
+    ("ops/sincos.py", "ops/sincos.py", None),
+    ("registry.py", "registry.py", '\n\nmodels = Registry("model")'),
+]
+
+
+@pytest.mark.parametrize("copy,original,stop", COPIES, ids=[c[0] for c in COPIES])
+def test_copies_equal_their_originals(copy, original, stop):
+    """The port keeps copies of two JAX-free files of the JAX package (its
+    `ops/__init__.py` imports JAX); their code may not drift from it."""
+    assert _code(PORT / copy, stop) == _code(REPO / "video_tokenizer_tpu" / original, stop)
+
+
+def test_registry_is_the_ports_own():
+    from video_tokenizer_tpu import registry as jax_registry
+    from video_tokenizer_tpu_torch import models, registry
+
+    assert registry.models is not jax_registry.models
+    assert registry.models["larp_tokenizer"] is models.LARPTokenizer
+    assert registry.models["vq"] is models.SimpleVectorQuantizer
+
+
+def test_port_sources_name_no_jax():
+    for path in PORT.rglob("*.py"):
+        for line in path.read_text().splitlines():
+            words = line.replace(",", " ").split()
+            if words[:1] in (["import"], ["from"]):
+                roots = {w.split(".")[0] for w in words[1:] if w not in ("import", "as")}
+                assert not roots & {"jax", "jaxlib", "flax"}, f"{path}: {line}"
+
+
+def test_chip_smoke_refuses_without_a_card_or_the_package(tmp_path):
+    """chip_smoke.py has no CPU fallback: without CUDA, or copied away from
+    the package, it exits nonzero and prints no result line."""
+    lone = tmp_path / "chip_smoke.py"
+    shutil.copy(REPO / "chip_smoke.py", lone)
+    for script in (REPO / "chip_smoke.py", lone):
+        proc = subprocess.run([sys.executable, str(script)], cwd=script.parent,
+                              capture_output=True, text=True, timeout=240)
+        assert proc.returncode != 0, proc.stdout
+        assert '"ok"' not in proc.stdout

@@ -1,0 +1,69 @@
+"""video_tokenizer_tpu_torch: the PyTorch/CUDA port of video_tokenizer_tpu.
+
+The JAX package beside it is the reference. This package imports `torch`
+and never `jax`. Its hot path runs two hand-written CUDA kernels
+(`csrc/flash_attn_fwd.cu`, `csrc/vq_lookup.cu`), built with `nvcc` at first
+use on a card; on CPU tensors their plain PyTorch versions run instead.
+Covered so far: inference through the LARP tokenizer with the 'vq'
+bottleneck (encode, VQ, decode).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import models  # noqa: F401  (registers the models)
+from .models import LARPTokenizer
+
+__version__ = "0.1.0"
+
+FLAGSHIP_VQ = {
+    "name": "bottleneck",
+    "args": {
+        "bottleneck_dim": 8,
+        "norm": "none",
+        "regularizer": {
+            "name": "vq",
+            "args": {
+                "codebook_size": 8192,
+                "commitment_loss_weight": 0.25,
+                "codebook_loss_weight": 1.0,
+                "l2_normalized": True,
+                "stochastic": True,
+                "stochastic_temperature": 0.03,
+            },
+        },
+    },
+}
+
+
+def flagship_tokenizer(dtype: torch.dtype = torch.bfloat16,
+                       generator: Optional[torch.Generator] = None, device=None,
+                       **overrides) -> LARPTokenizer:
+    """LARP-L-long geometry: 16x128x128 clips, patch (4, 8, 8), d = 768,
+    12 + 12 layers of 12 heads, 1024 latent tokens, VQ-8192 of dim 8.
+    The same arguments as the JAX package's `__graft_entry__.flagship_tokenizer`."""
+    args = dict(
+        bottleneck=FLAGSHIP_VQ,
+        prior_model={"name": "none"},
+        bottleneck_token_num=1024,
+        input_size=128,
+        frame_num=16,
+        temporal_patch_size=4,
+        patch_size=8,
+        decoder_temporal_patch_size=4,
+        decoder_patch_size=8,
+        bottleneck_type="vq",
+        encoder_hidden_size=768,
+        decoder_hidden_size=768,
+        encoder_num_heads=12,
+        decoder_num_heads=12,
+        encoder_depth=12,
+        decoder_depth=12,
+        dtype=dtype,
+        generator=generator,
+        device=device,
+    )
+    args.update(overrides)
+    return LARPTokenizer(**args)

@@ -1,0 +1,9 @@
+from ..registry import models  # noqa: F401
+from . import transformer  # noqa: F401  (registers the stacks)
+from . import bottleneck  # noqa: F401  (registers bottleneck, vq)
+from . import larp_tokenizer  # noqa: F401  (registers larp_tokenizer)
+
+from .bottleneck import Bottleneck, SimpleVectorQuantizer  # noqa: F401
+from .embed import PatchEmbed3D, VideoPatchEmbed  # noqa: F401
+from .larp_tokenizer import LARPTokenizer, OutputLayer  # noqa: F401
+from .transformer import ViTBlock, ViTStack  # noqa: F401

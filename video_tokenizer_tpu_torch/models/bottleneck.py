@@ -1,0 +1,201 @@
+"""Bottleneck projections and the VQ regularizer.
+
+Counterpart of `video_tokenizer_tpu/models/bottleneck.py`:
+  * `Bottleneck`: in/out projections around a regularizer, optional
+    LayerNorm (`ln_d`, `ln_d_na`), returns the same dict as the JAX module.
+  * `SimpleVectorQuantizer` ("vq"): l2-normalised (x / (|x| + 1e-12)) or raw
+    codebook, nearest-code lookup through `ops.vq` (the CUDA kernel on the
+    card), commitment / codebook / entropy losses, straight-through estimator.
+    Deterministic lookup only: stochastic sampling is not ported yet.
+  * `entropy_loss`.
+The whole bottleneck computes in fp32, whatever the model's compute dtype.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+from torch import nn
+
+from ..ops.vq import vq_lookup
+from ..registry import models
+from .layers import Dense, LayerNorm
+
+
+def entropy_loss(affinity: torch.Tensor, loss_type: str = "softmax", temperature: float = 0.01):
+    """Sample entropy minus codebook entropy of softmaxed affinities."""
+    flat = affinity.reshape(-1, affinity.shape[-1]) / temperature
+    probs = torch.softmax(flat, dim=-1)
+    log_probs = torch.log_softmax(flat + 1e-5, dim=-1)
+    if loss_type == "softmax":
+        target_probs = probs
+    elif loss_type == "argmax":
+        onehots = nn.functional.one_hot(flat.argmax(-1), flat.shape[-1]).to(flat.dtype)
+        target_probs = probs - (probs - onehots).detach()
+    else:
+        raise ValueError(f"Entropy loss {loss_type} not supported")
+    avg_probs = target_probs.mean(0)
+    avg_entropy = -torch.sum(avg_probs * torch.log(avg_probs + 1e-5))
+    sample_entropy = -torch.mean(torch.sum(target_probs * log_probs, dim=-1))
+    return sample_entropy - avg_entropy, sample_entropy, avg_entropy
+
+
+def _l2_normalise(x: torch.Tensor) -> torch.Tensor:
+    # not F.normalize: the JAX package divides by |x| + 1e-12
+    return x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-12)
+
+
+@models.register("vq")
+class SimpleVectorQuantizer(nn.Module):
+    def __init__(self, dim: int, codebook_size: int, commitment_loss_weight: float = 0.25,
+                 entropy_loss_weight: float = 0.0, entropy_loss_temperature: float = 0.01,
+                 l2_normalized: bool = False, stochastic: bool = False,
+                 stochastic_temperature: float = 1.0, codebook_loss_weight: float = 1.0,
+                 eval_deterministic: bool = True, token_nums: int = 0,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        if stochastic and not l2_normalized:
+            raise ValueError("stochastic VQ sampling requires l2_normalized")
+        self.dim, self.codebook_size = dim, codebook_size
+        self.commitment_loss_weight = commitment_loss_weight
+        self.codebook_loss_weight = codebook_loss_weight
+        self.entropy_loss_weight = entropy_loss_weight
+        self.entropy_loss_temperature = entropy_loss_temperature
+        self.l2_normalized, self.stochastic = l2_normalized, stochastic
+        self.eval_deterministic = eval_deterministic
+        self.embedding = nn.Embedding(codebook_size, dim, device=device)
+        with torch.no_grad():  # U(+-sqrt(6 / dim)), torch's kaiming_uniform_
+            nn.init.kaiming_uniform_(self.embedding.weight, generator=generator)
+        if stochastic and stochastic_temperature <= 0:  # learnable inverse temperature
+            self.stochastic_temperature_inv = nn.Parameter(torch.tensor(10.0, device=device))
+
+    def get_emb(self) -> torch.Tensor:
+        emb = self.embedding.weight.float()
+        return _l2_normalise(emb) if self.l2_normalized else emb
+
+    def forward(self, z: torch.Tensor, train: bool = False) -> Dict[str, Any]:
+        if z.ndim != 3:
+            raise ValueError("Input shape must be (batch, n_tokens, e_dim)")
+        if self.stochastic and (train or not self.eval_deterministic):
+            raise NotImplementedError(
+                "stochastic VQ sampling is not ported yet "
+                "(ROADMAP.md, 'Still to port', item 3)"
+            )
+        z = z.float()
+        if self.l2_normalized:
+            z = _l2_normalise(z)
+        emb = self.get_emb()
+        if not self.stochastic:
+            q_indices = vq_lookup(z, emb, metric="l2")
+        elif hasattr(self, "stochastic_temperature_inv"):
+            # a learnable temperature is folded into z, as the JAX module does
+            q_indices = vq_lookup(z * self.stochastic_temperature_inv.detach(), emb, metric="cos")
+        else:  # a fixed temperature does not move a deterministic argmax
+            q_indices = vq_lookup(z, emb, metric="cos")
+        quantized = emb[q_indices.long()]
+
+        loss_commit = torch.mean((quantized.detach() - z) ** 2)
+        loss_codebook = torch.mean((quantized - z.detach()) ** 2)
+        zero = torch.zeros((), device=z.device)
+        loss_entropy = sample_entropy = avg_entropy = zero
+        if self.entropy_loss_weight > 0:
+            zf = z.reshape(-1, self.dim)
+            d = (
+                torch.sum(zf**2, dim=1, keepdim=True)
+                + torch.sum(emb**2, dim=1)[None, :]
+                - 2.0 * zf @ emb.T
+            )
+            loss_entropy, sample_entropy, avg_entropy = entropy_loss(
+                -d, temperature=self.entropy_loss_temperature
+            )
+        loss = (
+            self.commitment_loss_weight * loss_commit
+            + self.codebook_loss_weight * loss_codebook
+            + self.entropy_loss_weight * loss_entropy
+        )
+        quantized = z + (quantized - z).detach()  # straight-through estimator
+        return {
+            "unregularized_z": z,
+            "emb": emb,
+            "regularized_z": quantized,
+            "bottleneck_rep": q_indices,
+            "loss_q": loss,
+            "loss_commit": loss_commit,
+            "loss_codebook": loss_codebook,
+            "loss_entropy": loss_entropy,
+            "per_sample_entropy": sample_entropy,
+            "codebook_entropy": avg_entropy,
+        }
+
+    def decode(self, indices: torch.Tensor) -> torch.Tensor:
+        return self.get_emb()[indices.long()]
+
+
+@models.register("skl")
+def _summed_kl_regularizer(**_):
+    raise NotImplementedError(
+        "the summed-KL ('skl') regularizer is not ported yet "
+        "(ROADMAP.md, 'Still to port', item 4)"
+    )
+
+
+@models.register("bottleneck")
+class Bottleneck(nn.Module):
+    """Linear in/out projections around a latent regularizer (fp32)."""
+
+    def __init__(self, bottleneck_dim: int, input_dim: int, output_dim: int,
+                 token_nums: int, norm: Optional[str] = None,
+                 regularizer: Optional[Dict[str, Any]] = None,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        norm = (norm or "none").lower()
+        self._norm = None if norm in ("no", "none") else norm
+        if bottleneck_dim > 0:
+            bdim = bottleneck_dim
+            self.in_linear = Dense(input_dim, bdim, init="lecun_normal", generator=generator, device=device)
+            self.out_linear = Dense(bdim, output_dim, init="lecun_normal", generator=generator, device=device)
+        else:
+            if input_dim != output_dim:
+                raise ValueError("bottleneck_dim <= 0 needs input_dim == output_dim")
+            bdim = input_dim
+            self.in_linear = self.out_linear = nn.Identity()
+        if self._norm == "ln_d":
+            self.norm_layer = LayerNorm(bdim, device=device)
+        elif self._norm == "ln_d_na":
+            self.norm_layer = LayerNorm(bdim, affine=False)
+        elif self._norm is not None:
+            raise NotImplementedError(
+                f"bottleneck norm '{self._norm}' is not ported yet "
+                "(ROADMAP.md, 'Still to port', item 4)"
+            )
+        self.regularizer = None
+        if regularizer is not None and regularizer["name"].lower() not in ("no", "none"):
+            self.regularizer = models.make(
+                regularizer,
+                args={"dim": bdim, "token_nums": token_nums, "generator": generator, "device": device},
+            )
+
+    def project_in(self, x: torch.Tensor) -> torch.Tensor:
+        z = self.in_linear(x)
+        return z if self._norm is None else self.norm_layer(z.float())
+
+    def decode(self, bottleneck_rep: torch.Tensor) -> torch.Tensor:
+        return self.out_linear(self.regularizer.decode(bottleneck_rep))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> Dict[str, Any]:
+        input_norm_first = torch.linalg.vector_norm(x[:, 0, :], dim=-1).mean()
+        input_norm_last = torch.linalg.vector_norm(x[:, -1, :], dim=-1).mean()
+        z = self.project_in(x)
+        if self.regularizer is not None:
+            reg_out = dict(self.regularizer(z, train=train))
+        else:
+            reg_out = {"regularized_z": z, "bottleneck_rep": z}
+        x_hat = self.out_linear(reg_out["regularized_z"])
+        return {
+            "output": x_hat,
+            "bottleneck_rep": reg_out.pop("bottleneck_rep"),
+            "projected_z": z,
+            "input_norm_first": input_norm_first,
+            "input_norm_last": input_norm_last,
+            **reg_out,
+        }

@@ -1,0 +1,125 @@
+"""ViT stacks for the tokenizer encoder and decoder.
+
+Counterpart of `video_tokenizer_tpu/models/transformer.py` (timm `Block`
+semantics): pre-LN blocks x + Attn(LN(x)); x + MLP(LN(x)), LayerNorm eps
+1e-5, MLP ratio 4 with exact GELU, qkv without bias, output projection with
+bias. Attention runs through `ops.attention`, the CUDA flash forward on the
+card. Module and parameter names are the upstream torch names
+(`blocks.{i}.attn.qkv.weight`, ...).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention import attention
+from ..registry import models
+from .layers import Dense, LayerNorm
+
+
+class MultiHeadAttention(nn.Module):
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = False,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.qkv = Dense(dim, 3 * dim, bias=qkv_bias, dtype=dtype, generator=generator, device=device)
+        self.proj = Dense(dim, dim, dtype=dtype, generator=generator, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, N, C = x.shape
+        qkv = self.qkv(x).view(B, N, 3, self.num_heads, C // self.num_heads)
+        # strided views (row stride 3*C): the kernel reads them in place
+        q, k, v = qkv.unbind(2)
+        return self.proj(attention(q, k, v).reshape(B, N, C))
+
+
+class Mlp(nn.Module):
+    def __init__(self, dim: int, hidden_dim: int, dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.fc1 = Dense(dim, hidden_dim, dtype=dtype, generator=generator, device=device)
+        self.fc2 = Dense(hidden_dim, dim, dtype=dtype, generator=generator, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.gelu(self.fc1(x), approximate="none"))
+
+
+class ViTBlock(nn.Module):
+    """Pre-LN transformer block (timm `Block`)."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = False, norm_eps: float = 1e-5,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.norm1 = LayerNorm(dim, norm_eps, dtype=dtype, device=device)
+        self.attn = MultiHeadAttention(dim, num_heads, qkv_bias, dtype, generator, device)
+        self.norm2 = LayerNorm(dim, norm_eps, dtype=dtype, device=device)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, generator, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # the residual keeps x's dtype where x is wider than the branch
+        # (fp32 decoder stream + bf16 branch -> fp32), as JAX promotes
+        x = x + self.attn(self.norm1(x))
+        return x + self.mlp(self.norm2(x))
+
+
+class ViTStack(nn.Module):
+    def __init__(self, dim: int, depth: int, num_heads: int,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.blocks = nn.ModuleList(
+            ViTBlock(dim, num_heads, dtype=dtype, generator=generator, device=device)
+            for _ in range(depth)
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for block in self.blocks:
+            x = block(x)
+        return x
+
+
+@models.register("transformer_encoder_parallel")
+class TransformerEncoderParallel(nn.Module):
+    """[context || query] full self-attention; returns the query outputs."""
+
+    def __init__(self, dim: int, depth: int, n_head: int, head_dim: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.stack = ViTStack(dim, depth, n_head, dtype, generator, device)
+
+    def forward(self, context: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
+        h = self.stack(torch.cat([context, query], dim=1))
+        return h[:, -query.shape[1]:, :]
+
+
+@models.register("transformer_encoder_fused")
+class TransformerEncoderFused(nn.Module):
+    def __init__(self, dim: int, depth: int, n_head: int, head_dim: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.stack = ViTStack(dim, depth, n_head, dtype, generator, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.stack(x)
+
+
+@models.register("DEC")
+class DEC(nn.Module):
+    """Plain self-attention stack used as an auxiliary pixel-decoder head."""
+
+    def __init__(self, dim: int, depth: int, n_head: int, head_dim: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.stack = ViTStack(dim, depth, n_head, dtype, generator, device)
+
+    def forward(self, query: torch.Tensor) -> torch.Tensor:
+        return self.stack(query)

@@ -1,0 +1,14 @@
+"""Kernels of the port and their plain PyTorch versions.
+
+Importing this package builds nothing: `_build` compiles the CUDA sources
+at the first launch on a card. `sincos` (the fixed positional-embedding
+tables) is numpy only.
+"""
+from . import sincos
+from .attention import attention, attention_reference, attention_with_lse, flash_attn_fwd
+from .vq import vq_argmax, vq_lookup, vq_lookup_reference
+
+__all__ = [
+    "attention", "attention_reference", "attention_with_lse", "flash_attn_fwd",
+    "vq_argmax", "vq_lookup", "vq_lookup_reference", "sincos",
+]

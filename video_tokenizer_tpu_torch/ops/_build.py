@@ -1,0 +1,107 @@
+"""Builds the port's CUDA kernels at first use and binds them with ctypes.
+
+Every `csrc/*.cu` file is compiled by `nvcc` into ONE shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds, not
+minutes) for `sm_90a`. The library lands in `build/torch_kernels/<hash>/`
+under the checkout, keyed by a hash of the sources and the flags, so an
+edited kernel is rebuilt and an unchanged one is reused. Importing this
+module builds nothing and needs no `nvcc`: the first kernel launch does.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import NamedTuple
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+LIB_NAME = "libvtt_kernels.so"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-lineinfo",
+    "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # registers, shared memory and spills per kernel
+)
+
+
+class Build(NamedTuple):
+    path: Path
+    seconds: float  # 0.0 when the library was already built
+    log: str
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin): the CUDA kernels cannot be "
+        "built on this machine"
+    )
+
+
+def build() -> Build:
+    """Compiles csrc/*.cu unless a library for these sources exists."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    out_dir = BUILD_ROOT / digest.hexdigest()[:16]
+    lib_path = out_dir / LIB_NAME
+    log_path = out_dir / "build.log"
+    if lib_path.exists():
+        return Build(lib_path, 0.0, log_path.read_text() if log_path.exists() else "")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+    log_path.write_text(log)
+    os.replace(tmp, lib_path)  # atomic: a reader never sees half a library
+    return Build(lib_path, seconds, log)
+
+
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# (argtypes, restype) of every `extern "C"` entry point in csrc/. Pointers and
+# the stream are c_void_p: without a declaration ctypes would pass them as
+# 32-bit ints. tests/test_torch_ops.py checks this table against the sources.
+SIGNATURES = {
+    "vtt_flash_attn_fwd": ([_P] * 7 + [_I] * 7 + [_LL] * 9 + [_I, _I, _F, _P], _I),
+    "vtt_vq_argmax": ([_P] * 4 + [_I] * 3 + [_P], _I),
+    "vtt_error_string": ([_I], ctypes.c_char_p),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The built kernels, with every C entry point's signature declared."""
+    lib = ctypes.CDLL(str(build().path))
+    for name, (argtypes, restype) in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, restype
+    return lib
+
+
+def check(code: int, kernel: str) -> None:
+    """Raises if a C entry point reported a CUDA error for its launch."""
+    if code != 0:
+        msg = library().vtt_error_string(code).decode()
+        raise RuntimeError(f"{kernel}: CUDA error {code} at launch: {msg}")

@@ -1,0 +1,107 @@
+"""Weight bridge: the JAX package's Flax parameters -> the port's state_dict.
+
+`state_dict_from_jax(params, model)` takes the Flax parameter tree of a
+`video_tokenizer_tpu` LARP tokenizer as nested dicts of numpy arrays (no JAX
+needed) and returns the state_dict of the matching port model, under the
+upstream torch names (the dict `tools/export_reference_tokenizer.py`
+writes):
+  * Flax Dense kernel [in, out] -> `weight` [out, in];
+  * LayerNorm `scale` -> `weight`;
+  * the patch kernel [(pt p p c), D] -> the Conv3d-shaped [D, C, pt, p, p];
+  * fixed sin-cos PEs -> the model's own buffers (regenerated from `sincos`).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+
+def _f32(x) -> np.ndarray:
+    return np.array(x, np.float32)  # a writable copy (torch.from_numpy shares it)
+
+
+def linear_from_jax(sd: Dict[str, np.ndarray], prefix: str, tree: Dict[str, Any]) -> None:
+    sd[f"{prefix}.weight"] = _f32(tree["kernel"]).T
+    if "bias" in tree:
+        sd[f"{prefix}.bias"] = _f32(tree["bias"])
+
+
+def layernorm_from_jax(sd: Dict[str, np.ndarray], prefix: str, tree: Dict[str, Any]) -> None:
+    if "scale" in tree:
+        sd[f"{prefix}.weight"] = _f32(tree["scale"])
+    if "bias" in tree:
+        sd[f"{prefix}.bias"] = _f32(tree["bias"])
+
+
+def vit_stack_from_jax(sd: Dict[str, np.ndarray], prefix: str, tree: Dict[str, Any]) -> None:
+    i = 0
+    while f"blocks_{i}" in tree:
+        block, p = tree[f"blocks_{i}"], f"{prefix}.blocks.{i}"
+        layernorm_from_jax(sd, f"{p}.norm1", block["norm1"])
+        linear_from_jax(sd, f"{p}.attn.qkv", block["attn"]["qkv"])
+        linear_from_jax(sd, f"{p}.attn.proj", block["attn"]["proj"])
+        layernorm_from_jax(sd, f"{p}.norm2", block["norm2"])
+        linear_from_jax(sd, f"{p}.mlp.fc1", block["mlp"]["fc1"])
+        linear_from_jax(sd, f"{p}.mlp.fc2", block["mlp"]["fc2"])
+        i += 1
+
+
+def patch_embed_from_jax(sd: Dict[str, np.ndarray], prefix: str, tree: Dict[str, Any],
+                         patch: tuple, in_channels: int) -> None:
+    """Dense patch kernel [(patch... c), D] -> conv weight [D, c, patch...]."""
+    k = _f32(tree["kernel"])
+    w = k.reshape(*patch, in_channels, k.shape[1])
+    sd[f"{prefix}.weight"] = w.transpose(w.ndim - 1, w.ndim - 2, *range(len(patch)))
+    if "bias" in tree:
+        sd[f"{prefix}.bias"] = _f32(tree["bias"])
+
+
+def bottleneck_from_jax(sd: Dict[str, np.ndarray], prefix: str, tree: Dict[str, Any]) -> None:
+    for name in ("in_linear", "out_linear"):
+        if name in tree:
+            linear_from_jax(sd, f"{prefix}.{name}", tree[name])
+    if "norm_layer" in tree:
+        layernorm_from_jax(sd, f"{prefix}.norm_layer", tree["norm_layer"])
+    reg = tree["reg"]
+    sd[f"{prefix}.regularizer.embedding.weight"] = _f32(reg["embedding"])
+    if "stochastic_temperature_inv" in reg:
+        sd[f"{prefix}.regularizer.stochastic_temperature_inv"] = _f32(
+            reg["stochastic_temperature_inv"]
+        )
+
+
+def state_dict_from_jax(params: Dict[str, Any], model) -> Dict[str, torch.Tensor]:
+    """Flax LARPTokenizer params (nested dicts of arrays) -> `model`'s state_dict."""
+    sd: Dict[str, np.ndarray] = {}
+    patch = (model.patch_size,) * 2
+    if model.temporal_patch_size != 1:
+        patch = (model.temporal_patch_size, *patch)
+    patch_embed_from_jax(sd, "x_embedder.proj", params["x_embedder"]["proj"], patch,
+                         model.in_channels)
+    vit_stack_from_jax(sd, "encoder", params["encoder"])
+    vit_stack_from_jax(sd, "decoder", params["decoder"])
+
+    # learned embeddings (upstream spells the learned w table 'encode_w_embed')
+    renamed = {"encoder_w_embed": "encode_w_embed"}
+    for name in (
+        "encoder_h_embed", "encoder_w_embed", "encoder_t_embed",
+        "decoder_h_embed", "decoder_w_embed", "decoder_t_embed",
+        "encoder_latent_query_embed", "decoder_latent_pe",
+        "encoder_patch_token_type_embed", "encoder_latent_query_token_type_embed",
+        "decoder_latent_token_type_embed", "decoder_patch_query_token_type_embed",
+    ):
+        if name in params:
+            sd[renamed.get(name, name)] = _f32(params[name])
+
+    bottleneck_from_jax(sd, "bottleneck", params["bottleneck_module"])
+
+    layernorm_from_jax(sd, "final_layer.norm_final", params["final_layer"]["norm_final"])
+    linear_from_jax(sd, "final_layer.linear", params["final_layer"]["linear"])
+
+    out = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+    # the fixed sin-cos tables are the model's own persistent buffers
+    for name, buf in model.named_buffers():
+        out.setdefault(name, buf.detach().cpu().clone())
+    return out
