@@ -4,16 +4,35 @@
   python3 chip_smoke.py
 
 Phases, each of which raises on failure (exit code 1, no result line):
-  1. build the CUDA kernels from csrc/ with nvcc for sm_90a;
+  1. build the CUDA kernels from csrc/ with nvcc for sm_90a (one nvcc per
+     source, all started together);
   2. the flash-attention forward kernel against its plain PyTorch version
-     on the card (flagship shape from strided qkv views, causal with an
-     offset, segments with a no-match query, GQA, ragged Sk, fp32, LSE);
+     on the card (the tokenizer's shape and the prior's causal NLL-forward
+     shape, both from strided qkv views; causal with an offset, segments
+     with a no-match query, GQA, ragged Sk, fp32, LSE);
   3. the VQ nearest-code kernel against its plain version (cos, l2, ragged);
-  4. end to end in fp32 (TF32 off): the full-width flagship tokenizer,
-     seeded and perturbed, on the card against the same weights on the CPU
-     through the plain versions;
-  5. end to end in bf16: batch-8 reconstruction throughput, with the launch
-     counters showing that every attention and VQ call ran the kernels.
+  4. the decode-attention kernel against its plain version at the 632M
+     prior's sampling geometry (B = 16, H = 20, D = 64, S = 1152; bf16, int8
+     and fp32 caches; pos 0, 511, 1024), plus GQA and key-valid cases,
+     within about one ulp of the output, a bound that the plain version at
+     pos - 1 or pos + 1 exceeds;
+  5. the int8 weight-matmul kernel against its plain version at the prior's
+     five projection shapes for M = 16, and at M = 8192, for bf16 and fp32 x;
+  6. tokenizer end to end in fp32 (TF32 off): the full-width flagship
+     tokenizer, seeded and perturbed, on the card against the same weights
+     on the CPU through the plain versions;
+  7. tokenizer end to end in bf16: batch-8 reconstruction throughput, with
+     the launch counters showing that every attention and VQ call ran the
+     kernels;
+  8. AR prior in fp32 (TF32 off): the full-width 632M llama-abs-LP prior,
+     seeded and perturbed, prefill and 16 decode steps forced to the CPU's
+     greedy tokens, card against CPU, with fp32 weights, int8 weights, and
+     int8 weights + an int8 KV cache;
+  9. AR sampling in bf16: class -> 1024 codes -> video at batch 8 with CFG
+     1.5 and top-k 100, with bf16 weights, int8 weights, and int8 weights +
+     int8 KV cache: tokens/s, device time per decode step (one step replayed
+     as a CUDA graph, timed by CUDA events) against host wall time, the NLL
+     forward and decode_from_bottleneck, and exact launch counts.
 Prints the card's name and power limit, one JSON line with every kernel's
 numbers, and last {"ok": true, "device": {...}}. Needs one CUDA device.
 """
@@ -56,6 +75,33 @@ def median_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, launches: int = 20, replays: int = 10) -> float:
+    """Device time of one fn() with no host gaps: `launches` calls captured in
+    a CUDA graph, replayed, timed by CUDA events. For kernels shorter than
+    the host's launch path, where events around eager calls time the host."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):  # warm-up outside the capture (allocator, cuBLAS)
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (replays * launches)
+
+
 def phase_build() -> None:
     from video_tokenizer_tpu_torch.ops import _build
 
@@ -83,6 +129,7 @@ def phase_flash(records: dict) -> None:
     # sides, P rounded to bf16 in the kernel): 2e-2. fp32: 1e-4.
     cases = [
         ("flagship", 8, 2048, 2048, 12, 12, 64, torch.bfloat16, False, None, False, False, 2e-2),
+        ("ar_nll_causal", 8, 1024, 1024, 20, 20, 64, torch.bfloat16, True, None, False, False, 2e-2),
         ("causal_offset", 2, 384, 512, 4, 4, 64, torch.bfloat16, True, 100, False, False, 2e-2),
         ("segments_no_match", 2, 512, 512, 4, 4, 64, torch.bfloat16, False, None, True, False, 2e-2),
         ("gqa_4_over_2", 2, 512, 512, 4, 2, 64, torch.bfloat16, False, None, False, False, 2e-2),
@@ -92,7 +139,7 @@ def phase_flash(records: dict) -> None:
         ("lse_bf16", 2, 384, 512, 4, 4, 32, torch.bfloat16, False, None, True, True, 2e-2),
     ]
     for name, B, Sq, Sk, H, Hkv, D, dtype, causal, offset, with_seg, lse, tol in cases:
-        if name == "flagship":
+        if name in ("flagship", "ar_nll_causal"):
             # q, k, v as strided views of one [B, S, 3, H, D] qkv projection
             qkv = randn(B, Sq, 3, H, D, dtype=dtype)
             q, k, v = qkv.unbind(2)
@@ -124,6 +171,10 @@ def phase_flash(records: dict) -> None:
             log(f"[flash] flagship: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
                 f"with LSE {lse_ms:.3f} ms, plain (out and LSE) {plain_ms:.3f} ms (median)")
             records["flash_attn_fwd"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        if name == "ar_nll_causal":
+            ms = median_ms(lambda: flash_attn_fwd(q, k, v, causal=True))
+            plain_ms = median_ms(lambda: attention_reference(q, k, v, True), iters=5)
+            log(f"[flash] ar_nll_causal: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (median)")
 
 
 def _vq_gap(z, emb, bias, a, b):
@@ -174,6 +225,126 @@ def phase_vq(records: dict) -> None:
             plain_ms = median_ms(lambda: vq_lookup_reference(z, emb, bias))
             log(f"[vq] flagship: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median)")
             records["vq_argmax"] = {"max_abs_err": gap, "ms": ms, "plain_ms": plain_ms}
+
+
+def phase_decode_attention(records: dict) -> None:
+    import torch
+
+    from video_tokenizer_tpu_torch.ops.decode_attention import (
+        _quantize_rows, decode_attention, decode_attention_reference,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    # The kernel and the plain version both compute in fp32 and round the
+    # output once, so they differ by about one ulp of the output's dtype:
+    # the bound is relative to max|plain| (bf16 1e-2, above its ulp of 2^-7
+    # of a value; fp32 1e-5), capped by the JAX interpret tests' absolute
+    # bounds (bf16 2e-2, int8 cache 5e-2, fp32 1e-4). It must be tight
+    # enough to fail a kernel that reads one key too few or too many: the
+    # plain version at pos - 1 and pos + 1 has to miss it.
+    tols = {torch.bfloat16: (2e-2, 1e-2), torch.int8: (5e-2, 1e-2), torch.float32: (1e-4, 1e-5)}
+    B, S = 16, 1152  # CFG-doubled batch 8, cache for 1 + 1024 positions
+    for name, H, Hkv, D, cache_dtype, key_valid, positions in (
+        ("lp_bf16", 20, 20, 64, torch.bfloat16, False, (0, 511, 1024)),
+        ("lp_int8", 20, 20, 64, torch.int8, False, (0, 511, 1024)),
+        ("lp_fp32", 20, 20, 64, torch.float32, False, (1024,)),
+        ("gqa_20_over_5", 20, 5, 64, torch.bfloat16, False, (0, 1024)),
+        ("key_valid", 20, 20, 64, torch.bfloat16, True, (3, 1024)),
+        ("d128_gqa_int8", 8, 2, 128, torch.int8, True, (700,)),
+    ):
+        q_dtype = torch.float32 if cache_dtype == torch.float32 else torch.bfloat16
+        q = torch.randn(B, H, D, generator=gen, device="cuda").to(q_dtype)
+        kf = torch.randn(B, S, Hkv * D, generator=gen, device="cuda")
+        vf = torch.randn(B, S, Hkv * D, generator=gen, device="cuda")
+        ks = vs = None
+        if cache_dtype == torch.int8:
+            (k, ks), (v, vs) = _quantize_rows(kf), _quantize_rows(vf)
+        else:
+            k, v = kf.to(cache_dtype), vf.to(cache_dtype)
+        valid = None
+        if key_valid:
+            valid = torch.rand(B, S, generator=gen, device="cuda") > 0.3
+            valid[:, : max(positions) + 1 : 97] = True  # every row keeps valid keys
+        for pos in positions:
+            pos_t = torch.full((1,), pos, dtype=torch.int32, device="cuda")
+            kw = dict(key_valid=valid, k_scale=ks, v_scale=vs, kv_heads=Hkv)
+            if valid is not None:
+                valid[:, pos] = True
+            got = decode_attention(q, k, v, pos_t, **kw)
+            torch.cuda.synchronize()
+            want = decode_attention_reference(q, k, v, pos_t, **kw)
+            err = (got.float() - want.float()).abs().max().item()
+            cap, rel = tols[cache_dtype]
+            tol = min(cap, rel * want.float().abs().max().item())
+            near = min(
+                (got.float() - decode_attention_reference(q, k, v, p, **kw).float()).abs().max().item()
+                for p in (pos - 1, pos + 1) if p >= 0
+            )
+            log(f"[decode] {name}: B={B} H={H} Hkv={Hkv} D={D} S={S} {str(cache_dtype)[6:]} cache, "
+                f"pos {pos}: max|kernel-plain| {err:.3e} (tol {tol:.3e}); the plain version "
+                f"at pos -/+ 1 misses by >= {near:.3e}")
+            require(torch.isfinite(got).all().item(), f"decode {name} pos {pos}: non-finite output")
+            require(err <= tol, f"decode {name} pos {pos}: error {err} > {tol}")
+            require(near > tol, f"decode {name} pos {pos}: the bound {tol} does not tell pos "
+                                f"from pos -/+ 1 ({near})")
+            if pos == 1024 and name in ("lp_bf16", "lp_int8"):
+                ms = graph_ms(lambda: decode_attention(q, k, v, pos_t, **kw))
+                plain_ms = graph_ms(lambda: decode_attention_reference(q, k, v, pos_t, **kw))
+                call_ms = median_ms(lambda: decode_attention(q, k, v, pos_t, **kw), iters=50)
+                live = B * (pos + 1) * Hkv * D * 2 * k.element_size()
+                log(f"[decode] {name} at pos 1024: kernel {ms:.4f} ms ({live / ms / 1e6:.0f} GB/s "
+                    f"of live K+V), plain {plain_ms:.4f} ms (device time, CUDA-graph replay); "
+                    f"one eager call with its host launch path {call_ms:.4f} ms (median)")
+                if name == "lp_bf16":
+                    records["decode_attention"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                else:
+                    records["decode_attention"].update(int8_ms=ms, int8_plain_ms=plain_ms)
+
+
+def phase_w8_matmul(records: dict) -> None:
+    import torch
+
+    from video_tokenizer_tpu_torch.ops.quant_matmul import w8_matmul, w8_matmul_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    # (name, M, K, N): the 632M prior's projections at decode M = 16 (a
+    # CFG-doubled batch 8) and the prefill/NLL M = 8192 for wqkv
+    shapes = [("wqkv", 16, 1280, 3840), ("wo", 16, 1280, 1280), ("w1_w3", 16, 1280, 3584),
+              ("w2", 16, 3584, 1280), ("output", 16, 1280, 8192), ("wqkv_nll", 8192, 1280, 3840),
+              ("ragged", 37, 200, 77)]
+    worst_abs = worst_rel = 0.0
+    for name, M, K, N in shapes:
+        x32 = torch.randn(M, K, generator=gen, device="cuda")
+        w = torch.randint(-127, 128, (N, K), generator=gen, device="cuda", dtype=torch.int8)
+        scale = torch.rand(N, generator=gen, device="cuda") * 2e-3 + 1e-4
+        # bf16 x: bf16 outputs rounded once on each side, sums in another
+        # order, 1e-2 of the output's scale; fp32 x: the kernel's products
+        # are exact (x split into three bf16 parts), fp32 sums in another
+        # order, 1e-5 of it (measured on an H100: at most 2.3e-6)
+        for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
+            x = x32.to(dtype)
+            rel = abs_err = 0.0
+            for double_round in (True, False):
+                got = w8_matmul(x, w.t(), scale, double_round)
+                torch.cuda.synchronize()
+                want = w8_matmul_reference(x, w.t(), scale, double_round)
+                err = (got.float() - want.float()).abs().max().item()
+                rel, abs_err = max(rel, err / want.float().abs().max().item()), max(abs_err, err)
+                require(torch.isfinite(got).all().item(), f"w8 {name}: non-finite output")
+            require(rel <= tol, f"w8 {name} {dtype}: error {rel} of the output's scale > {tol}")
+            n = 20 if M <= 16 else 3
+            ms = graph_ms(lambda: w8_matmul(x, w.t(), scale, True), launches=n)
+            plain_ms = graph_ms(lambda: w8_matmul_reference(x, w.t(), scale, True), launches=n)
+            rate = (f"{K * N / ms / 1e6:.0f} GB/s of int8 weights" if M <= 16
+                    else f"{2 * M * K * N / ms / 1e9:.1f} TFLOP/s")
+            log(f"[w8] {name}: [{M}, {K}] {str(dtype)[6:]} x [{K}, {N}] int8, "
+                f"max|kernel-plain|/max|plain| {rel:.2e} (tol {tol:g}); kernel {ms:.4f} ms "
+                f"({rate}), plain {plain_ms:.4f} ms (device time, CUDA-graph replay)")
+            if dtype == torch.bfloat16:
+                worst_abs, worst_rel = max(worst_abs, abs_err), max(worst_rel, rel)
+                if name == "wqkv":
+                    records["w8_matmul"] = {"ms": ms, "plain_ms": plain_ms}
+    records["w8_matmul"].update(max_abs_err=worst_abs, max_rel_err=worst_rel)
 
 
 def _perturb(model, seed: int) -> None:
@@ -269,6 +440,159 @@ def phase_e2e_bf16(model_fp32, records: dict) -> None:
             f"launch counts {launches}")
     for name, n in launches.items():
         records[name]["launches"] = n
+    return model
+
+
+def phase_ar_fp32():
+    """Full-width prior in fp32, card vs CPU: prefill + 16 decode steps whose
+    inputs are the CPU's greedy tokens on both sides, so that a difference
+    in one step does not compound. Three ways: fp32 weights; int8 weights
+    (`quantize_model`, fp32 activations); int8 weights with an int8 KV
+    cache, whose rows are quantised on the device and written at a device
+    position. Returns the fp32 card model."""
+    import torch
+
+    from video_tokenizer_tpu_torch import flagship_ar
+    from video_tokenizer_tpu_torch.models.larp_ar import quantize_model
+
+    model = flagship_ar(torch.float32, torch.Generator().manual_seed(SEED + 20))
+    _perturb(model, SEED + 21)
+    qmodel = quantize_model(model)
+    n_params = sum(p.numel() for p in model.parameters())
+    cond = torch.tensor([3, 7, 50, 101])  # 101 is the null (CFG) class
+    steps = 16
+
+    def run(m, device, cache_dtype, tokens=None):
+        logits_all, chosen = [], []
+        with torch.inference_mode():
+            cache = m.init_cache(len(cond), 1 + 1024, cache_dtype)
+            logits, _ = m.prefill(cond.to(device), cache)
+            logits_all.append(logits[:, -1].cpu())
+            for i in range(1, steps + 1):
+                tok = logits_all[-1].argmax(-1, keepdim=True).int() if tokens is None else tokens[i - 1]
+                chosen.append(tok)
+                logits, _ = m.decode_step(tok.to(device), i, cache)
+                logits_all.append(logits[:, -1].cpu())
+        return torch.stack(logits_all), chosen, {k: t.cpu() for k, t in cache[0].items()}
+
+    # fp32 cache: the same sums in another order, 1e-3 of the logit scale
+    # and >= 99% argmax agreement. int8 cache: a ~1e-6 card-vs-CPU
+    # difference moves a few int8 K/V values across a rounding boundary, a
+    # step of 1/127 of the row's amax; the layers after it see inputs that
+    # differ by that much and flip more, so the two sides end up as two
+    # int8 quantisations of one computation (measured on an H100: 9.6e-3 of
+    # the logit scale, 98.5% argmax agreement). Bound 3e-2 and >= 95%; what
+    # the cascade hides is checked where it cannot reach, in layer 0's cache
+    # (its inputs are the same tokens on both sides), below.
+    for name, m, cache_dtype, tol, min_agree in (
+        ("fp32", model, torch.float32, 1e-3, 0.99),
+        ("int8 weights", qmodel, torch.float32, 1e-3, 0.99),
+        ("int8 weights + int8 KV", qmodel, torch.int8, 3e-2, 0.95),
+    ):
+        t0 = time.perf_counter()
+        m.cpu()
+        ref, tokens, ref_lc = run(m, "cpu", cache_dtype)
+        cpu_s = time.perf_counter() - t0
+        m.cuda()
+        got, _, got_lc = run(m, "cuda", cache_dtype, tokens)
+        err = (got - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+        log(f"[ar fp32] {name}: llama-abs-LP {n_params:,} params, batch {len(cond)}, prefill + "
+            f"{steps} forced decode steps, TF32 off; CPU plain path {cpu_s:.1f} s")
+        log(f"[ar fp32] {name}: max|card-cpu| logit {err:.3e} = {err / scale:.2e} of "
+            f"max|logit| {scale:.3e} (tol {tol:g}); argmax agreement {agree:.2%} "
+            f"(tol >= {min_agree:.0%})")
+        require(torch.isfinite(got).all().item(), f"AR {name}: non-finite logits")
+        require(err <= tol * scale, f"AR {name}: logit error {err} > {tol * scale}")
+        require(agree >= min_agree, f"AR {name}: argmax agreement {agree}")
+        if cache_dtype == torch.int8:
+            # layer 0's int8 rows at positions 0..16, written on the card at a
+            # device position: the same int8 values but for rounding-boundary
+            # flips of one step, the same row scales to 1e-5, nothing past 16
+            live = steps + 1
+            flips = max_step = scale_err = 0.0
+            for q8, sname in (("k", "ks"), ("v", "vs")):
+                d = (got_lc[q8].int() - ref_lc[q8].int()).abs()
+                flips = max(flips, (d[:, :live] > 0).float().mean().item())
+                max_step = max(max_step, d.max().item())
+                rel = (got_lc[sname][:, :live] - ref_lc[sname][:, :live]).abs() / ref_lc[sname][:, :live]
+                scale_err = max(scale_err, rel.max().item())
+                require(not got_lc[q8][:, live:].any() and not got_lc[sname][:, live:].any(),
+                        f"AR {name}: layer 0's cache written past position {live - 1}")
+                require(bool((ref_lc[sname][:, :live] > 0).all()), f"AR {name}: a row scale is 0")
+            log(f"[ar fp32] {name}: layer 0 cache rows 0..{live - 1}, card vs CPU: {flips:.2e} "
+                f"of int8 values differ, by at most {max_step:g} (tol 1e-3, 1); row scales "
+                f"{scale_err:.2e} (tol 1e-5); rows past {live - 1} untouched")
+            require(flips <= 1e-3 and max_step <= 1 and scale_err <= 1e-5,
+                    f"AR {name}: layer 0's int8 cache differs: {flips}, {max_step}, {scale_err}")
+    del qmodel
+    return model
+
+
+def phase_ar_sampling(model_fp32, tokenizer, records: dict) -> None:
+    import torch
+
+    from video_tokenizer_tpu_torch.generation import generate
+    from video_tokenizer_tpu_torch.models.larp_ar import quantize_model
+    from video_tokenizer_tpu_torch.ops.attention import flash_attn_fwd
+    from video_tokenizer_tpu_torch.ops.decode_attention import decode_attention
+    from video_tokenizer_tpu_torch.ops.quant_matmul import w8_matmul
+
+    bf16 = model_fp32.to(torch.bfloat16)  # in place: the same perturbed weights
+    int8 = quantize_model(bf16)
+    B, new = 8, 1024
+    labels = torch.tensor([0, 5, 17, 33, 50, 64, 88, 100], device="cuda")
+    kernels = (flash_attn_fwd, decode_attention, w8_matmul)
+    results = {}
+    for name, model, kv in (("bf16", bf16, None), ("int8", int8, None),
+                            ("int8_kv8", int8, torch.int8)):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+        kw = dict(cfg_scale=1.5, top_k=100, cache_dtype=kv)
+        generate(model, labels, 8, gen, **kw)  # warm-up
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        seq = generate(model, labels, new, gen, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with torch.inference_mode():
+            t1 = time.perf_counter()
+            _, nll = model(seq[:, :-1], labels, targets=seq)
+            torch.cuda.synchronize()
+            nll_s = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            video = tokenizer.decode_from_bottleneck(seq)
+            torch.cuda.synchronize()
+            dec_s = time.perf_counter() - t1
+        launches = {k.__name__: k.launches for k in kernels}
+        with torch.inference_mode():  # one step at the mean cache length
+            cache = model.init_cache(2 * B, 1 + new, kv or torch.bfloat16)
+            pos = torch.full((1,), 512, dtype=torch.int32, device="cuda")
+            tok = seq[:, :1].repeat(2, 1)
+            step_ms = graph_ms(lambda: model.decode_step(tok, pos, cache), launches=1)
+        tok_s = B * new / wall
+        wall_ms = wall * 1e3 / new
+        idle = 1.0 - step_ms / wall_ms
+        want = {"flash_attn_fwd": 30 + 30 + 12, "decode_attention": 30 * (new - 1),
+                "w8_matmul": 151 * (new + 1) if model is int8 else 0}
+        log(f"[sample {name}] batch {B}, CFG 1.5, top-k 100, {new} tokens: {wall:.3f} s = "
+            f"{tok_s:.1f} tokens/s, {wall_ms:.3f} ms per decode step (host wall); device "
+            f"{step_ms:.3f} ms per step (CUDA-graph replay at pos 512): idle {idle:.1%}")
+        in_range = ((video >= 0) & (video <= 1)).float().mean().item()
+        log(f"[sample {name}] NLL forward {nll_s * 1e3:.1f} ms (NLL {nll.item():.4f}), "
+            f"decode_from_bottleneck {dec_s * 1e3:.1f} ms ({in_range:.1%} of pixels in [0, 1] "
+            f"before clipping); launches {launches} (expect {want})")
+        require(tuple(seq.shape) == (B, new) and int(seq.min()) >= 0 and int(seq.max()) < 8192,
+                f"sample {name}: codes {tuple(seq.shape)} out of range")
+        require(torch.isfinite(nll).item(), f"sample {name}: non-finite NLL")
+        require(tuple(video.shape) == (B, 3, 16, 128, 128), f"sample {name}: video {tuple(video.shape)}")
+        require(torch.isfinite(video).all().item(), f"sample {name}: non-finite video")
+        require(launches == want, f"sample {name}: launch counts {launches}, expected {want}")
+        results[name] = launches
+    records["decode_attention"]["launches"] = results["int8_kv8"]["decode_attention"]
+    records["w8_matmul"]["launches"] = results["int8"]["w8_matmul"]
 
 
 def main() -> int:
@@ -298,8 +622,13 @@ def main() -> int:
     phase_build()
     phase_flash(records)
     phase_vq(records)
+    phase_decode_attention(records)
+    phase_w8_matmul(records)
     model_fp32 = phase_e2e_fp32()
-    phase_e2e_bf16(model_fp32, records)
+    tokenizer = phase_e2e_bf16(model_fp32, records)
+    del model_fp32
+    ar_model = phase_ar_fp32()
+    phase_ar_sampling(ar_model, tokenizer, records)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 
     sources = {
@@ -307,6 +636,10 @@ def main() -> int:
                            "video_tokenizer_tpu/ops/attention.py:166"),
         "vq_argmax": ("video_tokenizer_tpu_torch/csrc/vq_lookup.cu",
                       "video_tokenizer_tpu/ops/vq.py:35"),
+        "decode_attention": ("video_tokenizer_tpu_torch/csrc/decode_attention.cu",
+                             "video_tokenizer_tpu/ops/decode_attention.py:80"),
+        "w8_matmul": ("video_tokenizer_tpu_torch/csrc/w8_matmul.cu",
+                      "video_tokenizer_tpu/ops/quant_matmul.py:51"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, **records[name]}

@@ -5,6 +5,10 @@ tokens, 8 x 32 x 32 clips, VQ 64 codes of dim 8) is initialised in JAX, every
 weight of rank >= 2 is perturbed by 0.02 * N(0, 1) with numpy (the output
 layer is zero-initialised, so a fresh model would decode zeros), and the
 same weights reach the port through `state_dict_from_jax`.
+
+A tiny LARP AR prior (2 layers, dim 128, 2 heads of 64, vocab 64, 10
+classes, max_seq_len 16, dropouts 0, fp32) is made the same way and reaches
+the port through `ar_state_dict_from_jax`.
 """
 import jax
 import jax.numpy as jnp
@@ -80,6 +84,34 @@ def port_tokenizer(params, dtype=torch.float32, **overrides):
     model = LARPTokenizer(**{**TINY_ARGS, **overrides}, dtype=dtype,
                           generator=torch.Generator().manual_seed(0))
     model.load_state_dict(state_dict_from_jax(params, model), strict=True)
+    return model.eval()
+
+
+TINY_AR = dict(
+    n_layer=2, n_head=2, dim=128, vocab_size=64, num_classes=10, max_seq_len=16,
+    token_dropout_p=0.0, resid_dropout_p=0.0, ffn_dropout_p=0.0,
+)
+
+
+def jax_ar(prompt_len=4, **overrides):
+    """(Flax LARP_AR, perturbed numpy params). A frame-prediction prior is
+    initialised on [1, prompt_len] prompt tokens."""
+    from video_tokenizer_tpu.models.larp_ar import LARP_AR, ModelArgs
+
+    cfg = ModelArgs(**{**TINY_AR, **overrides})
+    model = LARP_AR(cfg)
+    cond = jnp.zeros((1, prompt_len) if cfg.frame_prediction else (1,), jnp.int32)
+    variables = model.init({"params": jax.random.PRNGKey(0)}, jnp.zeros((1, 4), jnp.int32), cond)
+    return model, perturb(variables["params"])
+
+
+def port_ar(params, **overrides):
+    """The port's LARP_AR with the JAX params loaded (strict), in eval mode."""
+    from video_tokenizer_tpu_torch.models.larp_ar import LARP_AR, ModelArgs
+    from video_tokenizer_tpu_torch.utils.convert import ar_state_dict_from_jax
+
+    model = LARP_AR(ModelArgs(**{**TINY_AR, **overrides}), generator=torch.Generator().manual_seed(0))
+    model.load_state_dict(ar_state_dict_from_jax(params, model), strict=True)
     return model.eval()
 
 

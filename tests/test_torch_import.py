@@ -11,6 +11,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 REPO = Path(__file__).resolve().parent.parent
@@ -66,6 +67,60 @@ runpy.run_module("video_tokenizer_tpu_torch.reconstruct", run_name="__main__")
     result = json.loads(out.strip().splitlines()[-1])
     assert result["clips"] == 1 and result["device"] == "cpu"
     assert 0.0 < result["mse"] < 1.0 and 0.0 < result["psnr"] < 100.0
+
+
+def test_ar_sampling_cpu_path_loads_no_jax():
+    out = _run("""
+import sys, torch
+from video_tokenizer_tpu_torch import ModelArgs, LARP_AR
+from video_tokenizer_tpu_torch.generation import generate
+from video_tokenizer_tpu_torch.models.larp_ar import quantize_model
+m = LARP_AR(ModelArgs(n_layer=1, n_head=2, dim=128, vocab_size=32, num_classes=4,
+                      max_seq_len=8), generator=torch.Generator().manual_seed(0)).eval()
+q = quantize_model(m.to(torch.bfloat16))
+seq = generate(q, torch.tensor([1, 2]), 8, torch.Generator().manual_seed(0), cfg_scale=1.5,
+               top_k=5, cache_dtype=torch.int8)
+assert seq.shape == (2, 8) and seq.dtype == torch.int32
+""" + _NO_JAX + _NO_JAX_PACKAGE + "print('ok')")
+    assert out.strip().endswith("ok")
+
+
+def test_sample_cli_runs_one_cpu_batch(tmp_path):
+    """The sampling CLI end to end on the CPU, from upstream-format `.pth`
+    files of a tiny prior and tokenizer (vocab = codebook 64, 32 codes per
+    clip), with int8 weights and an int8 KV cache."""
+    out = _run(f"""
+import runpy, sys, torch
+from video_tokenizer_tpu_torch import FLAGSHIP_VQ, LARP_AR, ModelArgs, flagship_tokenizer
+gen = torch.Generator().manual_seed(0)
+ar_args = dict(n_layer=1, n_head=2, dim=128, vocab_size=64, num_classes=5, max_seq_len=32)
+ar = LARP_AR(ModelArgs(**ar_args), generator=gen)
+torch.save({{"model": {{"name": "larp_ar", "args": ar_args, "sd": ar.state_dict()}}}},
+           "{tmp_path}/ar.pth")
+reg = dict(FLAGSHIP_VQ["args"]["regularizer"])
+reg["args"] = dict(reg["args"], codebook_size=64)
+tok_args = dict(bottleneck=dict(FLAGSHIP_VQ, args=dict(FLAGSHIP_VQ["args"], regularizer=reg)),
+                prior_model={{"name": "none"}}, bottleneck_token_num=32, input_size=32,
+                frame_num=8, temporal_patch_size=4, patch_size=8, decoder_temporal_patch_size=4,
+                decoder_patch_size=8, bottleneck_type="vq", encoder_hidden_size=64,
+                decoder_hidden_size=64, encoder_num_heads=1, decoder_num_heads=1,
+                encoder_depth=1, decoder_depth=1)
+tok = flagship_tokenizer(torch.float32, gen, **tok_args)
+torch.save({{"model": {{"name": "larp_tokenizer", "args": tok_args, "sd": tok.state_dict()}}}},
+           "{tmp_path}/tok.pth")
+sys.argv = ["sample", "--device", "cpu", "--ar_model", "{tmp_path}/ar.pth",
+            "--tokenizer", "{tmp_path}/tok.pth", "--dtype", "int8", "--kv_dtype", "int8",
+            "--cfg_scale", "1.5", "--top_k", "10", "--batch_size", "2", "--num_samples", "3",
+            "--output_dir", "{tmp_path}/out"]
+runpy.run_module("video_tokenizer_tpu_torch.sample", run_name="__main__")
+""" + _NO_JAX)
+    result = json.loads(out.strip().splitlines()[-1])
+    assert result["samples"] == 3 and result["device"] == "cpu"
+    assert result["video_shape"] == [3, 8, 32, 32] and 0.0 < result["nll"] < 10.0
+    videos = sorted((tmp_path / "out" / "videos").glob("*.npy"))
+    assert len(videos) == 3
+    v = np.load(videos[0])
+    assert v.shape == (3, 8, 32, 32) and v.min() >= 0.0 and v.max() <= 1.0
 
 
 def _code(path: Path, stop: str = None) -> str:

@@ -1,11 +1,14 @@
 """video_tokenizer_tpu_torch: the PyTorch/CUDA port of video_tokenizer_tpu.
 
 The JAX package beside it is the reference. This package imports `torch`
-and never `jax`. Its hot path runs two hand-written CUDA kernels
-(`csrc/flash_attn_fwd.cu`, `csrc/vq_lookup.cu`), built with `nvcc` at first
-use on a card; on CPU tensors their plain PyTorch versions run instead.
-Covered so far: inference through the LARP tokenizer with the 'vq'
-bottleneck (encode, VQ, decode).
+and never `jax`. Its hot paths run four hand-written CUDA kernels
+(`csrc/flash_attn_fwd.cu`, `csrc/vq_lookup.cu`, `csrc/decode_attention.cu`,
+`csrc/w8_matmul.cu`), built with `nvcc` at first use on a card; on CPU
+tensors their plain PyTorch versions run instead. Covered so far:
+inference through the LARP tokenizer with the 'vq' bottleneck (encode, VQ,
+decode), and class-conditional (or frame-prediction) sampling from the LARP
+AR prior with CFG, top-k/top-p, int8 weights and an int8 KV cache
+(`generation.generate`, `sample.py`).
 """
 from __future__ import annotations
 
@@ -14,7 +17,8 @@ from typing import Optional
 import torch
 
 from . import models  # noqa: F401  (registers the models)
-from .models import LARPTokenizer
+from .models import LARP_AR, LARPTokenizer, ModelArgs
+from .models.larp_ar import quantize_model
 
 __version__ = "0.1.0"
 
@@ -67,3 +71,27 @@ def flagship_tokenizer(dtype: torch.dtype = torch.bfloat16,
     )
     args.update(overrides)
     return LARPTokenizer(**args)
+
+
+def flagship_ar(dtype: torch.dtype = torch.bfloat16,
+                generator: Optional[torch.Generator] = None, device=None,
+                quantized: bool = False, **overrides) -> LARP_AR:
+    """The 632M `llama-abs-LP` prior at the geometry of the JAX package's AR
+    sampling benchmark (`bench.py:394-398`): 30 layers, dim 1280, 20 heads of
+    64 (MHA), SwiGLU hidden 3584, vocab 8192, 101 classes, max_seq_len 1024,
+    dropouts 0; 631,975,680 parameters. Built on the CPU from `generator`,
+    cast to `dtype` (bf16 serving casts every float tensor, as the JAX
+    `sample.py` does), then with `quantized=True` every projection is
+    converted to int8 weights + fp32 per-channel scales (`--dtype int8`),
+    and moved to `device`. Weights are random (the output head starts at
+    zero); load trained ones with `LARP_AR.from_checkpoint`."""
+    args = dict(n_layer=30, n_head=20, dim=1280, vocab_size=8192, num_classes=101,
+                max_seq_len=1024, token_dropout_p=0.0, resid_dropout_p=0.0,
+                ffn_dropout_p=0.0)
+    args.update(overrides)
+    model = LARP_AR(ModelArgs(**args), generator=generator).to(dtype)
+    if quantized:
+        model = quantize_model(model)
+    if device is not None:
+        model = model.to(device)
+    return model.eval()

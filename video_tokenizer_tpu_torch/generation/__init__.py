@@ -1,0 +1,1 @@
+from .generate import generate, sample_from_logits, top_k_top_p_filtering  # noqa: F401

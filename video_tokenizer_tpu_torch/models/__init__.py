@@ -2,8 +2,10 @@ from ..registry import models  # noqa: F401
 from . import transformer  # noqa: F401  (registers the stacks)
 from . import bottleneck  # noqa: F401  (registers bottleneck, vq)
 from . import larp_tokenizer  # noqa: F401  (registers larp_tokenizer)
+from . import larp_ar  # noqa: F401  (registers larp_ar and the llama-abs zoo)
 
 from .bottleneck import Bottleneck, SimpleVectorQuantizer  # noqa: F401
-from .embed import PatchEmbed3D, VideoPatchEmbed  # noqa: F401
+from .embed import LabelEmbedder, PatchEmbed3D, VideoPatchEmbed  # noqa: F401
+from .larp_ar import LARP_AR, ModelArgs, QuantDense, quantize_params  # noqa: F401
 from .larp_tokenizer import LARPTokenizer, OutputLayer  # noqa: F401
 from .transformer import ViTBlock, ViTStack  # noqa: F401

@@ -1,10 +1,10 @@
-"""Video patch embeddings (counterpart of `video_tokenizer_tpu/models/embed.py`).
+"""Video patch and class-label embeddings (counterpart of `video_tokenizer_tpu/models/embed.py`).
 
 A stride == kernel Conv3d is a matmul over flattened tubelets, so the patch
 embedding is a rearrange and one GEMM. The weight keeps the upstream Conv3d
 shape [D, C, pt, p, p] (Conv2d [D, C, p, p] for per-frame patches), so an
 upstream checkpoint loads as it is; the forward reads it as [D, (pt p p c)].
-Video tensors are BCTHW.
+Video tensors are BCTHW. `LabelEmbedder` is the AR prior's class embedding.
 """
 from __future__ import annotations
 
@@ -83,3 +83,22 @@ class VideoPatchEmbed(nn.Module):
             x, "b c t (h p1) (w p2) -> b (t h w) (p1 p2 c)", p1=self.p, p2=self.p
         )
         return self.proj(tokens)
+
+
+class LabelEmbedder(nn.Module):
+    """Class-label embedding. The table always has num_classes + 1 rows: the
+    last is the null class that CFG sampling and negative labels select.
+    Inference only: the class dropout of training is not ported yet
+    (ROADMAP.md, 'Still to port', item 4)."""
+
+    def __init__(self, num_classes: int, hidden_size: int,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.num_classes = num_classes
+        self.embedding_table = nn.Embedding(num_classes + 1, hidden_size, device=device)
+        with torch.no_grad():
+            nn.init.normal_(self.embedding_table.weight, std=0.02, generator=generator)
+
+    def forward(self, labels: torch.Tensor) -> torch.Tensor:
+        # negative labels -> the unconditional class
+        return self.embedding_table(torch.where(labels < 0, self.num_classes, labels))

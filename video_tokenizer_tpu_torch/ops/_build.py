@@ -1,8 +1,9 @@
 """Builds the port's CUDA kernels at first use and binds them with ctypes.
 
-Every `csrc/*.cu` file is compiled by `nvcc` into ONE shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds, not
-minutes) for `sm_90a`. The library lands in `build/torch_kernels/<hash>/`
+Every `csrc/*.cu` file is compiled by its own `nvcc`, all of them started
+together, and the objects are linked into ONE shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds, not minutes) for
+`sm_90a`. The library lands in `build/torch_kernels/<hash>/`
 under the checkout, keyed by a hash of the sources and the flags, so an
 edited kernel is rebuilt and an unchanged one is reused. Importing this
 module builds nothing and needs no `nvcc`: the first kernel launch does.
@@ -25,7 +26,7 @@ LIB_NAME = "libvtt_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills per kernel
 )
 
@@ -66,14 +67,33 @@ def build() -> Build:
     if lib_path.exists():
         return Build(lib_path, 0.0, log_path.read_text() if log_path.exists() else "")
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    tag = f"{os.getpid()}.tmp"
+    tmp = out_dir / f"{LIB_NAME}.{tag}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    compiles = []
+    for src in _sources():
+        obj = out_dir / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        compiles.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = "", None
+    for cmd, _, proc in compiles:
+        out = proc.communicate()[0]
+        log += out
+        if proc.returncode != 0 and failed is None:
+            failed = f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}"
+    if failed is None:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in compiles)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            failed = f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}"
+    for _, obj, _ in compiles:
+        obj.unlink(missing_ok=True)
+    if failed is not None:
+        raise RuntimeError(failed)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
     log_path.write_text(log)
     os.replace(tmp, lib_path)  # atomic: a reader never sees half a library
     return Build(lib_path, seconds, log)
@@ -86,6 +106,8 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 SIGNATURES = {
     "vtt_flash_attn_fwd": ([_P] * 7 + [_I] * 7 + [_LL] * 9 + [_I, _I, _F, _P], _I),
     "vtt_vq_argmax": ([_P] * 4 + [_I] * 3 + [_P], _I),
+    "vtt_decode_attention": ([_P] * 10 + [_I] * 8 + [_LL, _F, _P], _I),
+    "vtt_w8_matmul": ([_P] * 4 + [_I] * 5 + [_P], _I),
     "vtt_error_string": ([_I], ctypes.c_char_p),
 }
 

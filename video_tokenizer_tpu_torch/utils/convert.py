@@ -9,6 +9,12 @@ writes):
   * LayerNorm `scale` -> `weight`;
   * the patch kernel [(pt p p c), D] -> the Conv3d-shaped [D, C, pt, p, p];
   * fixed sin-cos PEs -> the model's own buffers (regenerated from `sincos`).
+
+`ar_state_dict_from_jax(params, model)` does the same for a `LARP_AR` prior,
+under the names `export_larp_ar` writes: Dense kernels -> `weight` [out, in],
+RMSNorm `scale` -> `weight`, the token and class tables, `abs_pe`; a
+quantized tree {kernel int8 [in, out], scale [out]} -> a `QuantDense`'s int8
+`weight` [out, in] and fp32 `scale`.
 """
 from __future__ import annotations
 
@@ -104,4 +110,42 @@ def state_dict_from_jax(params: Dict[str, Any], model) -> Dict[str, torch.Tensor
     # the fixed sin-cos tables are the model's own persistent buffers
     for name, buf in model.named_buffers():
         out.setdefault(name, buf.detach().cpu().clone())
+    return out
+
+
+def _ar_linear(sd: Dict[str, np.ndarray], prefix: str, tree: Dict[str, Any]) -> None:
+    kernel = np.asarray(tree["kernel"])
+    if kernel.dtype == np.int8:  # QuantDense
+        sd[f"{prefix}.weight"] = np.array(kernel.T, np.int8)
+        sd[f"{prefix}.scale"] = _f32(tree["scale"])
+    else:
+        linear_from_jax(sd, prefix, tree)
+
+
+def ar_state_dict_from_jax(params: Dict[str, Any], model) -> Dict[str, torch.Tensor]:
+    """Flax LARP_AR params (nested dicts of arrays) -> `model`'s state_dict."""
+    sd: Dict[str, np.ndarray] = {
+        "tok_embeddings.weight": _f32(params["tok_embeddings"]["embedding"]),
+        "norm.weight": _f32(params["norm"]["scale"]),
+    }
+    _ar_linear(sd, "output", params["output"])
+    if "abs_pe" in params:
+        sd["abs_pe"] = _f32(params["abs_pe"])
+    if "cls_embedding" in params:
+        sd["cls_embedding.embedding_table.weight"] = _f32(
+            params["cls_embedding"]["embedding_table"]["embedding"]
+        )
+    i = 0
+    while f"layers_{i}" in params:
+        t, p = params[f"layers_{i}"], f"layers.{i}"
+        _ar_linear(sd, f"{p}.attention.wqkv", t["attention"]["wqkv"])
+        _ar_linear(sd, f"{p}.attention.wo", t["attention"]["wo"])
+        for w in ("w1", "w2", "w3"):
+            _ar_linear(sd, f"{p}.feed_forward.{w}", t["feed_forward"][w])
+        sd[f"{p}.attention_norm.weight"] = _f32(t["attention_norm"]["scale"])
+        sd[f"{p}.ffn_norm.weight"] = _f32(t["ffn_norm"]["scale"])
+        i += 1
+    out = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+    if "abs_pe" not in out:  # fixed sin-cos PE: the model's own buffer
+        out["abs_pe"] = model.abs_pe.detach().cpu().float().clone()
     return out

@@ -1,7 +1,7 @@
-"""Loading a tokenizer from an upstream-format `.pth` checkpoint.
+"""Loading a tokenizer or an AR prior from an upstream-format `.pth` checkpoint.
 
 The layout is the upstream reference's, which the JAX package's
-`tools/export_reference_tokenizer.py` also writes:
+`tools/export_reference_tokenizer.py` (`tokenizer` and `ar`) also writes:
 `{"model": {"name": ..., "args": {...}, "sd": {name: tensor}}}`. The port's
 parameter and buffer names are the upstream ones, so the state dict loads
 with `strict=True`.
@@ -31,6 +31,33 @@ def load_tokenizer_checkpoint(path: str, version: str = "sd", *,
         args={"dtype": dtype, "generator": generator or torch.Generator().manual_seed(0)},
     )
     model.load_state_dict(spec[version], strict=True)
+    if device is not None:
+        model = model.to(device)
+    return model.eval()
+
+
+def load_ar_checkpoint(path: str, version: str = "sd", *,
+                       dtype: torch.dtype = torch.float32, device=None,
+                       quantized: bool = False,
+                       generator: Optional[torch.Generator] = None):
+    """`.pth` -> LARP_AR in eval mode, its float tensors cast to `dtype`;
+    `quantized=True` then converts every projection to int8 (`quantize_params`),
+    as the JAX `sample.py --dtype int8` does after its bf16 cast."""
+    from .. import models as _models  # noqa: F401  (registry population)
+    from ..models.larp_ar import quantize_model
+
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    spec = ckpt["model"]
+    args = dict(spec.get("args") or {})
+    args.pop("dtype", None)
+    model = models.make(
+        {"name": spec.get("name") or "larp_ar", "args": args},
+        args={"generator": generator or torch.Generator().manual_seed(0)},
+    )
+    model.load_state_dict(spec[version], strict=True)
+    model = model.to(dtype)
+    if quantized:
+        model = quantize_model(model)
     if device is not None:
         model = model.to(device)
     return model.eval()
