@@ -6,10 +6,11 @@
 Phases, each of which raises on failure (exit code 1, no result line):
   1. build the CUDA kernels from csrc/ with nvcc for sm_90a (one nvcc per
      source, all started together);
-  2. the flash-attention forward kernel against its plain PyTorch version
-     on the card (the tokenizer's shape and the prior's causal NLL-forward
-     shape, both from strided qkv views; causal with an offset, segments
-     with a no-match query, GQA, ragged Sk, fp32, LSE);
+  2. the flash-attention forward kernel, out and LSE, against its plain
+     PyTorch version on the card (the tokenizer's shape, the
+     discriminator's ragged S = 1025 and the prior's causal NLL-forward
+     shape, all from strided qkv views; causal with an offset, segments
+     with a no-match query, GQA, ragged Sk, fp32);
   3. the VQ nearest-code kernel against its plain version (cos, l2, ragged);
   4. the decode-attention kernel against its plain version at the 632M
      prior's sampling geometry (B = 16, H = 20, D = 64, S = 1152; bf16, int8
@@ -32,9 +33,26 @@ Phases, each of which raises on failure (exit code 1, no result line):
      1.5 and top-k 100, with bf16 weights, int8 weights, and int8 weights +
      int8 KV cache: tokens/s, device time per decode step (one step replayed
      as a CUDA graph, timed by CUDA events) against host wall time, the NLL
-     forward and decode_from_bottleneck, and exact launch counts.
-Prints the card's name and power limit, one JSON line with every kernel's
-numbers, and last {"ok": true, "device": {...}}. Needs one CUDA device.
+     forward and decode_from_bottleneck, and exact launch counts;
+ 10. the flash backward kernels (dQ; dK/dV, after phase 2) against their
+     plain backward: the tokenizer's shape from strided views, the
+     discriminator's ragged S = 1025, the prior's causal shape, GQA 20/5,
+     segments with a no-match query, causal with an offset, fp32, each also
+     against the plain backward of the plain forward's out and LSE; gradients
+     through `attention` under autograd; `attention_with_lse` refusing grad.
+     The VQ kernel's stochastic mode (in phase 3): index for index against
+     the plain Philox draw, and by frequency against softmax;
+ 11. tokenizer training in fp32 (TF32 off): one step of the full-width
+     flagship generator, discriminator and LPIPS (`cfgs/larp_tokenizer.yaml`)
+     at batch 1, card against CPU from the same weights and generators:
+     losses, VQ indices, named gradients;
+ 12. tokenizer training through the port's trainer at batch 8, bf16 and
+     fp32: s/step, clips/s, peak memory, exact launch counts of the four
+     training-path kernels, device idle share and time by kernel category
+     from torch.profiler.
+Prints the training numbers and every kernel's numbers as JSON lines, the
+card's name and power limit, and last {"ok": true, "device": {...}}. Needs
+one CUDA device.
 """
 from __future__ import annotations
 
@@ -42,6 +60,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -124,22 +143,25 @@ def phase_flash(records: dict) -> None:
     def randn(*shape, dtype):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
-    # (name, B, Sq, Sk, H, Hkv, D, dtype, causal, offset, segments, lse, tol)
-    # bf16 kernel vs the fp32 plain version (output rounded to bf16 on both
-    # sides, P rounded to bf16 in the kernel): 2e-2. fp32: 1e-4.
+    # (name, B, Sq, Sk, H, Hkv, D, dtype, causal, offset, segments, tol), out
+    # and the fp32 LSE both held to tol. bf16 kernel vs the fp32 plain version
+    # (output rounded to bf16 on both sides, P rounded to bf16 in the
+    # kernel): 2e-2. fp32: 1e-4. "discriminator" is the training path's
+    # ragged S = 1 + 1024 (a partial last query and key tile).
     cases = [
-        ("flagship", 8, 2048, 2048, 12, 12, 64, torch.bfloat16, False, None, False, False, 2e-2),
-        ("ar_nll_causal", 8, 1024, 1024, 20, 20, 64, torch.bfloat16, True, None, False, False, 2e-2),
-        ("causal_offset", 2, 384, 512, 4, 4, 64, torch.bfloat16, True, 100, False, False, 2e-2),
-        ("segments_no_match", 2, 512, 512, 4, 4, 64, torch.bfloat16, False, None, True, False, 2e-2),
-        ("gqa_4_over_2", 2, 512, 512, 4, 2, 64, torch.bfloat16, False, None, False, False, 2e-2),
-        ("ragged_sk", 2, 300, 1000, 4, 4, 64, torch.bfloat16, False, None, False, False, 2e-2),
-        ("fp32", 1, 2048, 2048, 12, 12, 64, torch.float32, False, None, False, False, 1e-4),
-        ("lse_fp32", 2, 384, 200, 4, 2, 128, torch.float32, True, 50, True, True, 1e-4),
-        ("lse_bf16", 2, 384, 512, 4, 4, 32, torch.bfloat16, False, None, True, True, 2e-2),
+        ("flagship", 8, 2048, 2048, 12, 12, 64, torch.bfloat16, False, None, False, 2e-2),
+        ("discriminator", 8, 1025, 1025, 12, 12, 32, torch.bfloat16, False, None, False, 2e-2),
+        ("ar_nll_causal", 8, 1024, 1024, 20, 20, 64, torch.bfloat16, True, None, False, 2e-2),
+        ("causal_offset", 2, 384, 512, 4, 4, 64, torch.bfloat16, True, 100, False, 2e-2),
+        ("segments_no_match", 2, 512, 512, 4, 4, 64, torch.bfloat16, False, None, True, 2e-2),
+        ("gqa_4_over_2", 2, 512, 512, 4, 2, 64, torch.bfloat16, False, None, False, 2e-2),
+        ("ragged_sk", 2, 300, 1000, 4, 4, 64, torch.bfloat16, False, None, False, 2e-2),
+        ("fp32", 1, 2048, 2048, 12, 12, 64, torch.float32, False, None, False, 1e-4),
+        ("lse_fp32", 2, 384, 200, 4, 2, 128, torch.float32, True, 50, True, 1e-4),
+        ("lse_bf16", 2, 384, 512, 4, 4, 32, torch.bfloat16, False, None, True, 2e-2),
     ]
-    for name, B, Sq, Sk, H, Hkv, D, dtype, causal, offset, with_seg, lse, tol in cases:
-        if name in ("flagship", "ar_nll_causal"):
+    for name, B, Sq, Sk, H, Hkv, D, dtype, causal, offset, with_seg, tol in cases:
+        if name in ("flagship", "discriminator", "ar_nll_causal"):
             # q, k, v as strided views of one [B, S, 3, H, D] qkv projection
             qkv = randn(B, Sq, 3, H, D, dtype=dtype)
             q, k, v = qkv.unbind(2)
@@ -156,13 +178,13 @@ def phase_flash(records: dict) -> None:
         torch.cuda.synchronize()
         want, want_lse = attention_reference(q, k, v, causal, q_seg, k_seg, None, offset)
         err = (got.float() - want.float()).abs().max().item()
-        lse_err = (got_lse - want_lse).abs().max().item() if lse else 0.0
-        require(torch.isfinite(got).all().item(), f"flash {name}: non-finite output")
+        lse_err = (got_lse - want_lse).abs().max().item()
+        require(torch.isfinite(got).all().item() and torch.isfinite(got_lse).all().item(),
+                f"flash {name}: non-finite output")
         log(f"[flash] {name}: B={B} Sq={Sq} Sk={Sk} H={H} Hkv={Hkv} D={D} {str(dtype)[6:]} "
-            f"max|kernel-plain| {err:.3e} (tol {tol:g})" + (f", lse {lse_err:.3e}" if lse else ""))
+            f"max|kernel-plain| {err:.3e}, lse {lse_err:.3e} (tol {tol:g})")
         require(err <= tol and lse_err <= tol, f"flash {name}: error {err}, lse {lse_err} > {tol}")
-        if not lse:
-            require(torch.equal(flash_attn_fwd(q, k, v, **kw), got), f"flash {name}: lse changes out")
+        require(torch.equal(flash_attn_fwd(q, k, v, **kw), got), f"flash {name}: lse changes out")
         if name == "flagship":
             ms = median_ms(lambda: flash_attn_fwd(q, k, v))
             plain_ms = median_ms(lambda: attention_reference(q, k, v), iters=5)
@@ -175,6 +197,122 @@ def phase_flash(records: dict) -> None:
             ms = median_ms(lambda: flash_attn_fwd(q, k, v, causal=True))
             plain_ms = median_ms(lambda: attention_reference(q, k, v, True), iters=5)
             log(f"[flash] ar_nll_causal: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (median)")
+
+
+def phase_flash_bwd(records: dict) -> None:
+    """The flash backward kernels (dQ; dK/dV) against their plain version on
+    the card at the shapes the training path gives them: once from the
+    kernel forward's out and LSE (both sides read the same inputs), once
+    against the plain backward of the plain forward's own out and LSE (so a
+    wrong LSE from the forward kernel cannot pass). Plus the autograd path
+    and the refusal of attention_with_lse under grad."""
+    import torch
+
+    from video_tokenizer_tpu_torch.ops.attention import (
+        attention, attention_bwd_reference, attention_reference, attention_with_lse,
+        flash_attn_bwd, flash_attn_bwd_dkv, flash_attn_bwd_dq, flash_attn_fwd,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    # bounds relative to max|plain| of each gradient: bf16 (the kernels round
+    # P and dS to bf16 before their products and return bf16 gradients; the
+    # plain version computes in fp32 and rounds once) 2e-2; fp32 1e-4
+    # (name, B, Sq, Sk, H, Hkv, D, dtype, causal, offset, segments, tol)
+    cases = [
+        ("tokenizer", 8, 2048, 2048, 12, 12, 64, torch.bfloat16, False, None, False, 2e-2),
+        ("discriminator", 8, 1025, 1025, 12, 12, 32, torch.bfloat16, False, None, False, 2e-2),
+        ("prior_causal", 8, 1024, 1024, 20, 20, 64, torch.bfloat16, True, None, False, 2e-2),
+        ("gqa_20_over_5", 2, 512, 512, 20, 5, 64, torch.bfloat16, True, None, False, 2e-2),
+        ("segments_no_match", 2, 300, 300, 4, 4, 64, torch.bfloat16, False, None, True, 2e-2),
+        ("causal_offset", 2, 384, 512, 4, 2, 128, torch.bfloat16, True, 100, False, 2e-2),
+        ("fp32", 2, 1025, 1025, 12, 12, 32, torch.float32, False, None, False, 1e-4),
+        ("fp32_causal_gqa_seg", 2, 200, 333, 4, 2, 128, torch.float32, True, 50, True, 1e-4),
+    ]
+    for name, B, Sq, Sk, H, Hkv, D, dtype, causal, offset, with_seg, tol in cases:
+        if Sq == Sk and H == Hkv:
+            # q, k, v and dO as strided views of [B, S, 3, H, D] projections
+            q, k, v = randn(B, Sq, 3, H, D, dtype=dtype).unbind(2)
+            do = randn(B, Sq, 3, H, D, dtype=dtype)[:, :, 1]
+        else:
+            q, do = randn(B, Sq, H, D, dtype=dtype), randn(B, Sq, H, D, dtype=dtype)
+            k, v = randn(B, Sk, Hkv, D, dtype=dtype), randn(B, Sk, Hkv, D, dtype=dtype)
+        q_seg = k_seg = None
+        if with_seg:
+            k_seg = (torch.arange(Sk, device="cuda") >= Sk // 3).int().expand(B, Sk).contiguous()
+            q_seg = (torch.arange(Sq, device="cuda") >= Sq // 3).int().expand(B, Sq).contiguous()
+            q_seg[:, 5] = 7  # matches no key: its dv share is do / Sk on every key
+        kw = dict(causal=causal, segment_ids=q_seg, kv_segment_ids=k_seg, causal_offset=offset)
+        out, lse = flash_attn_fwd(q, k, v, return_lse=True, **kw)
+        got = flash_attn_bwd(q, k, v, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        want = attention_bwd_reference(q, k, v, out, lse, do, causal, q_seg, k_seg, None, offset)
+        plain_out, plain_lse = attention_reference(q, k, v, causal, q_seg, k_seg, None, offset)
+        want_plain = attention_bwd_reference(q, k, v, plain_out, plain_lse, do, causal, q_seg,
+                                             k_seg, None, offset)
+        errs, abs_errs, plain_errs = [], [], []
+        for gname, g, w, wp in zip(("dq", "dk", "dv"), got, want, want_plain):
+            require(g.shape == w.shape and g.dtype == w.dtype, f"flash bwd {name} {gname}: "
+                    f"{tuple(g.shape)} {g.dtype} vs {tuple(w.shape)} {w.dtype}")
+            require(torch.isfinite(g).all().item(), f"flash bwd {name}: non-finite {gname}")
+            abs_errs.append((g.float() - w.float()).abs().max().item())
+            errs.append(abs_errs[-1] / w.float().abs().max().item())
+            plain_errs.append((g.float() - wp.float()).abs().max().item()
+                              / wp.float().abs().max().item())
+        log(f"[flash bwd] {name}: B={B} Sq={Sq} Sk={Sk} H={H} Hkv={Hkv} D={D} {str(dtype)[6:]}"
+            f"{' causal' if causal else ''}{f' offset {offset}' if offset is not None else ''}"
+            f"{' segments' if with_seg else ''}: max|kernel-plain|/max|plain| dq {errs[0]:.2e}, "
+            f"dk {errs[1]:.2e}, dv {errs[2]:.2e}; against the plain forward's out and LSE "
+            f"dq {plain_errs[0]:.2e}, dk {plain_errs[1]:.2e}, dv {plain_errs[2]:.2e} (tol {tol:g})")
+        require(max(errs) <= tol and max(plain_errs) <= tol,
+                f"flash bwd {name}: errors {errs}, from the plain forward {plain_errs} > {tol}")
+        del plain_out, plain_lse, want_plain
+        if name in ("tokenizer", "discriminator"):
+            # the two kernels alone (delta and the GQA sum are torch ops)
+            delta = torch.einsum("bqhd,bqhd->bhq", out.float(), do.float()).contiguous()
+            scale = D ** -0.5
+            dq_ms = median_ms(lambda: flash_attn_bwd_dq(q, k, v, do, lse, delta, None, None,
+                                                        False, 0, scale))
+            dkv_ms = median_ms(lambda: flash_attn_bwd_dkv(q, k, v, do, lse, delta, None, None,
+                                                          False, 0, scale))
+            plain_ms = median_ms(lambda: attention_bwd_reference(q, k, v, out, lse, do), iters=5)
+            flops = 10 * B * H * Sq * Sk * D  # five S-sized products (2 flops a MAC)
+            log(f"[flash bwd] {name}: dQ kernel {dq_ms:.3f} ms, dK/dV kernel {dkv_ms:.3f} ms "
+                f"({flops / (dq_ms + dkv_ms) / 1e9:.1f} TFLOP/s of the backward's 5 products "
+                f"over both), plain backward (dq, dk, dv) {plain_ms:.3f} ms (median)")
+            if name == "tokenizer":
+                records["flash_attn_bwd_dq"] = {"max_abs_err": abs_errs[0], "max_rel_err": errs[0],
+                                                "ms": dq_ms, "plain_ms": plain_ms}
+                records["flash_attn_bwd_dkv"] = {"max_abs_err": max(abs_errs[1:]),
+                                                 "max_rel_err": max(errs[1:]), "ms": dkv_ms,
+                                                 "plain_ms": plain_ms}
+            else:
+                records["flash_attn_bwd_dq"].update(disc_ms=dq_ms, disc_plain_ms=plain_ms)
+                records["flash_attn_bwd_dkv"].update(disc_ms=dkv_ms, disc_plain_ms=plain_ms)
+
+    # autograd: `attention` at the tokenizer's shape is differentiable on the
+    # card (its output used to carry no grad_fn, silently dropping gradients)
+    qkv = randn(8, 2048, 3, 12, 64, dtype=torch.bfloat16).requires_grad_()
+    flash_attn_bwd_dq.launches = flash_attn_bwd_dkv.launches = 0
+    out = attention(*qkv.unbind(2))
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    grads = [qkv.grad[:, :, i].float().abs().max().item() for i in range(3)]
+    launches = (flash_attn_bwd_dq.launches, flash_attn_bwd_dkv.launches)
+    log(f"[flash bwd] autograd at the tokenizer's shape: max|q.grad| {grads[0]:.3e}, "
+        f"max|k.grad| {grads[1]:.3e}, max|v.grad| {grads[2]:.3e}; backward launches "
+        f"dQ {launches[0]}, dK/dV {launches[1]}")
+    require(out.grad_fn is not None and all(g > 0 for g in grads), "attention: no gradient")
+    require(launches == (1, 1), f"attention backward launches {launches}")
+    try:
+        attention_with_lse(*qkv.unbind(2))
+    except NotImplementedError:
+        log("[flash bwd] attention_with_lse under grad on the card raises NotImplementedError")
+    else:
+        raise AssertionError("attention_with_lse under grad returned detached outputs")
 
 
 def _vq_gap(z, emb, bias, a, b):
@@ -225,6 +363,67 @@ def phase_vq(records: dict) -> None:
             plain_ms = median_ms(lambda: vq_lookup_reference(z, emb, bias))
             log(f"[vq] flagship: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median)")
             records["vq_argmax"] = {"max_abs_err": gap, "ms": ms, "plain_ms": plain_ms}
+
+    # stochastic (Gumbel-max) mode: the kernel and the plain version draw the
+    # same Philox bits, so they agree index for index but for rows whose top
+    # two perturbed scores are within a few fp32 ulps (fmaf chains against a
+    # matmul's sums, logf against torch.log)
+    M = K = 8192
+    inv_temp = 1.0 / 0.03
+    z = torch.randn(M, 8, generator=gen, device="cuda")
+    emb = torch.randn(K, 8, generator=gen, device="cuda")
+    z, emb = z / (z.norm(dim=-1, keepdim=True) + 1e-12), emb / (emb.norm(dim=-1, keepdim=True) + 1e-12)
+    seed = 1234567890123
+    got = vq_argmax(z, emb, stochastic=True, inv_temp=inv_temp, seed=seed)
+    again = vq_argmax(z, emb, stochastic=True, inv_temp=inv_temp, seed=seed)
+    other = vq_argmax(z, emb, stochastic=True, inv_temp=inv_temp, seed=seed + 1)
+    torch.cuda.synchronize()
+    want = vq_lookup_reference(z, emb, stochastic=True, inv_temp=inv_temp, seed=seed)
+    det = vq_lookup_reference(z, emb)
+    diff = got != want
+    n_diff = int(diff.sum().item())
+    agree = 1.0 - n_diff / M
+    gap = 0.0
+    if n_diff:
+        from video_tokenizer_tpu_torch.ops.vq import gumbel_noise
+
+        rows = diff.nonzero()[:, 0]
+        g = gumbel_noise(M, K, seed, "cuda")[rows].double()
+        s = (z[rows].double() @ emb.double().T) * inv_temp + g
+        pick = lambda idx: s.gather(1, idx[rows].long()[:, None])[:, 0]  # noqa: E731
+        gap = (pick(got) - pick(want)).abs().max().item()
+    changed = (got != det).float().mean().item()
+    log(f"[vq stochastic] M={M} K={K} d=8 cos, inv_temp 1/0.03: kernel vs plain {n_diff} of "
+        f"{M} indices differ (agreement {agree:.4%}, tol >= 99.9%; largest perturbed-score gap "
+        f"{gap:.2e}, tol 1e-4); the same seed twice equal: {torch.equal(got, again)}; another "
+        f"seed changes {(got != other).float().mean().item():.1%} of rows; "
+        f"{changed:.1%} of rows leave the argmax")
+    require(agree >= 0.999 and gap < 1e-4, f"vq stochastic: {n_diff} differ, gap {gap}")
+    require(torch.equal(got, again), "vq stochastic: the same seed gives other indices")
+    require((got != other).any().item(), "vq stochastic: the seed does not move the draw")
+    ms = median_ms(lambda: vq_argmax(z, emb, stochastic=True, inv_temp=inv_temp, seed=seed))
+    plain_ms = median_ms(lambda: vq_lookup_reference(z, emb, stochastic=True, inv_temp=inv_temp,
+                                                     seed=seed), iters=5)
+    log(f"[vq stochastic] flagship: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median)")
+    records["vq_argmax"].update(stochastic_ms=ms, stochastic_plain_ms=plain_ms,
+                                stochastic_agreement=agree, stochastic_gap=gap)
+
+    # frequencies at a small K: one z row drawn 2**16 times against
+    # softmax(score * inv_temp), by a chi-square test
+    from scipy.stats import chi2
+
+    K_small, n, it = 16, 1 << 16, 3.0
+    emb_s = torch.randn(K_small, 8, generator=gen, device="cuda")
+    emb_s = emb_s / emb_s.norm(dim=-1, keepdim=True)
+    z_s = emb_s[3:4].repeat(n, 1).contiguous()
+    idx = vq_argmax(z_s, emb_s, stochastic=True, inv_temp=it, seed=77)
+    counts = torch.bincount(idx.long(), minlength=K_small).double()
+    p = torch.softmax((z_s[0] @ emb_s.T).double() * it, dim=0)
+    stat = (((counts - n * p) ** 2) / (n * p)).sum().item()
+    p_value = chi2.sf(stat, K_small - 1)
+    log(f"[vq stochastic] K={K_small}, one row drawn {n} times at inv_temp {it}: chi-square "
+        f"{stat:.2f} on {K_small - 1} dof against softmax, p = {p_value:.3f} (tol p > 1e-3)")
+    require(p_value > 1e-3, f"vq stochastic frequencies: chi-square p = {p_value}")
 
 
 def phase_decode_attention(records: dict) -> None:
@@ -401,7 +600,8 @@ def phase_e2e_bf16(model_fp32, records: dict) -> None:
     from video_tokenizer_tpu_torch import flagship_tokenizer
     from video_tokenizer_tpu_torch.ops.attention import flash_attn_fwd
     from video_tokenizer_tpu_torch.ops.vq import vq_argmax
-    from video_tokenizer_tpu_torch.reconstruct import make_clips, psnr_from_mse, reconstruct
+    from video_tokenizer_tpu_torch.reconstruct import make_clips, reconstruct
+    from video_tokenizer_tpu_torch.utils.common import psnr_from_mse
 
     model = flagship_tokenizer(dtype=torch.bfloat16, generator=torch.Generator().manual_seed(SEED))
     model.load_state_dict(model_fp32.state_dict())
@@ -595,6 +795,209 @@ def phase_ar_sampling(model_fp32, tokenizer, records: dict) -> None:
     records["w8_matmul"]["launches"] = results["int8"]["w8_matmul"]
 
 
+def _train_cfg(save_dir, batch: int, use_amp: bool, **over) -> dict:
+    """cfgs/larp_tokenizer.yaml at full width, its $vars$ filled as the train
+    CLI fills them (16 frames of 128 x 128, fake null128 clips, no loader
+    workers), for the port's trainer."""
+    import yaml
+
+    text = (ROOT / "cfgs" / "larp_tokenizer.yaml").read_text()
+    for key, value in (("frame_num", 16), ("input_size", 128), ("csv_file", "null128"),
+                       ("batch_size", batch), ("num_workers", 0)):
+        text = text.replace(f"${key}$", str(value))
+    cfg = yaml.safe_load(text)
+    cfg.update(save_dir=str(save_dir), manualSeed=SEED, use_amp=use_amp, max_epoch=1)
+    cfg.update(over)
+    return cfg
+
+
+def _trainer(cfg: dict, device: str):
+    """The port's trainer at epoch 1, built as `train.py` builds it."""
+    import video_tokenizer_tpu_torch.data  # noqa: F401
+    import video_tokenizer_tpu_torch.trainers  # noqa: F401
+    from video_tokenizer_tpu_torch.registry import trainers
+
+    tr = trainers.make({"name": cfg["trainer"]}, args={"cfg": cfg, "device": device})
+    tr.make_datasets()
+    tr.epoch = 1
+    tr.make_model()
+    tr.n_steps_per_epoch = tr.steps_per_epoch()
+    return tr
+
+
+def phase_train_fp32(tmp: Path) -> None:
+    """One train step of the full-width flagship generator, discriminator and
+    LPIPS in fp32 (TF32 off) at batch 1, on the card and on the CPU (the plain
+    versions) from the same perturbed weights and the same generators (so the
+    same VQ seed and label noise); the discriminator trains on this step."""
+    import numpy as np
+    import torch
+
+    cfg = _train_cfg(tmp, 1, False)
+    cfg["loss"]["args"]["d_update_freq"] = 1
+    trainers = {}
+    for device in ("cpu", "cuda"):
+        cfg = {**cfg, "save_dir": str(tmp / f"fp32_{device}")}
+        trainers[device] = _trainer(cfg, device)
+    cpu, gpu = trainers["cpu"], trainers["cuda"]
+    _perturb(cpu.model, SEED + 40)
+    _perturb(cpu.disc, SEED + 41)
+    gpu.model.load_state_dict(cpu.model.state_dict())
+    gpu.loss_mod.load_state_dict(cpu.loss_mod.state_dict())
+    clip = np.random.default_rng(SEED + 42).integers(0, 256, (1, 3, 16, 128, 128), dtype=np.uint8)
+    reps, infos, secs = {}, {}, {}
+    for device, tr in trainers.items():
+        hook = tr.model.bottleneck.register_forward_hook(
+            lambda m, i, o, d=device: reps.__setitem__(d, o["bottleneck_rep"].cpu()))
+        t0 = time.perf_counter()
+        keys, packed = tr.train_step({"gt": torch.from_numpy(clip)})
+        infos[device] = dict(zip(keys, packed.tolist()))
+        secs[device] = time.perf_counter() - t0
+        hook.remove()
+    agree = (reps["cuda"] == reps["cpu"]).float().mean().item()
+    loss_keys = ("loss", "rec_loss", "perceptual_loss", "g_loss", "d_loss", "loss_q",
+                 "logits_real", "logits_fake")
+    loss_err = max(abs(infos["cuda"][k] - infos["cpu"][k]) / max(abs(infos["cpu"][k]), 1e-6)
+                   for k in loss_keys)
+    log(f"[train fp32] flagship generator {sum(p.numel() for p in cpu.model.parameters()):,} + "
+        f"discriminator {sum(p.numel() for p in cpu.disc.parameters()):,} + LPIPS params, batch 1, "
+        f"TF32 off: CPU step (plain versions) {secs['cpu']:.1f} s, card step {secs['cuda']:.2f} s")
+    log(f"[train fp32] VQ indices agree on {agree:.4%} (tol >= 99.9%); losses "
+        + ", ".join(f"{k} {infos['cuda'][k]:.6g}/{infos['cpu'][k]:.6g}" for k in loss_keys)
+        + f" (card/CPU; largest relative difference {loss_err:.2e}, tol 2e-4)")
+    require(set(infos["cuda"]) == set(infos["cpu"]), "train fp32: info keys differ")
+    require(all(np.isfinite(v) for v in infos["cuda"].values()), "train fp32: non-finite info")
+    require(agree >= 0.999, f"train fp32: VQ agreement {agree}")
+    # bounds: ~10x the readings on an H100 (losses 1.6e-5 apart, gradients at
+    # most 7.1e-5 of their scale, with 100% of the VQ indices equal)
+    require(loss_err <= 2e-4, f"train fp32: losses differ by {loss_err}")
+    named = ("x_embedder.proj.weight", "encoder.blocks.6.attn.qkv.weight",
+             "bottleneck.regularizer.embedding.weight", "decoder.blocks.11.mlp.fc2.weight",
+             "final_layer.linear.weight")
+    worst = 0.0
+    for mod, names in ((("model", gpu.model, cpu.model), named),
+                       (("disc", gpu.disc, cpu.disc), ("transformer_encoder.blocks.3.attn.qkv.weight",
+                                                       "x_embedder.proj.weight"))):
+        tag, gm, cm = mod
+        gp, cp = dict(gm.named_parameters()), dict(cm.named_parameters())
+        for name in names:
+            g, c = gp[name].grad, cp[name].grad
+            require(g is not None and c is not None, f"train fp32: no gradient for {tag} {name}")
+            rel = (g.cpu() - c).abs().max().item() / c.abs().max().item()
+            worst = max(worst, rel)
+            log(f"[train fp32] grad {tag} {name}: max|card-cpu|/max|cpu| {rel:.2e} "
+                f"(max|g| {c.abs().max().item():.3e}; tol 1e-3)")
+    require(worst <= 1e-3, f"train fp32: gradients differ by {worst} of their scale")
+    del trainers, cpu, gpu
+    torch.cuda.empty_cache()
+
+
+_KERNEL_CATEGORIES = (  # first match wins, on the kernel's lower-cased name
+    ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
+    ("flash_fwd", ("flash_fwd_kernel",)),
+    ("vq_argmax", ("vq_argmax_kernel",)),
+    ("conv (LPIPS)", ("conv", "cudnn", "implicit", "winograd", "fprop", "dgrad", "wgrad")),
+    ("gemm", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
+    ("layer_norm", ("layer_norm",)),
+    ("optimizer", ("adam", "multi_tensor")),
+)
+
+
+def _category(name: str) -> str:
+    low = name.lower()
+    return next((cat for cat, keys in _KERNEL_CATEGORIES if any(k in low for k in keys)),
+                "other elementwise/copy")
+
+
+def phase_train_throughput(tmp: Path, records: dict) -> None:
+    """Training through the port's trainer at batch 8, full width, on fake
+    null128 clips from its own loader: bf16 (`use_amp: true`) and the config's
+    fp32. 2 warm-up steps, 5 timed steps (one of them a discriminator step, as
+    `d_update_freq: 5` gives), exact kernel launch counts over the timed
+    steps, peak memory, then 5 more steps under torch.profiler for the
+    device's idle share and time by kernel category."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from video_tokenizer_tpu_torch.ops.attention import (
+        flash_attn_bwd_dkv, flash_attn_bwd_dq, flash_attn_fwd,
+    )
+    from video_tokenizer_tpu_torch.ops.vq import vq_argmax
+
+    kernels = (flash_attn_fwd, flash_attn_bwd_dq, flash_attn_bwd_dkv, vq_argmax)
+    B, warm, timed = 8, 2, 5
+    for name, use_amp in (("bf16", True), ("fp32", False)):
+        tr = _trainer(_train_cfg(tmp / name, B, use_amp), "cuda")
+        batches = tr.train_loader(1)
+        fetch_s = []  # host time in the loader, per step (read beside the idle share)
+
+        def step():
+            t0 = time.perf_counter()
+            batch = next(batches)
+            fetch_s.append(time.perf_counter() - t0)
+            return tr.train_step(batch)
+
+        for _ in range(warm):
+            step()
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        times, infos = [], []
+        fetch_s.clear()
+        d_steps = sum((tr.step + i + 1) % tr.loss_mod.d_update_freq == 0 for i in range(timed))
+        for _ in range(timed):
+            t0 = time.perf_counter()
+            infos.append(step())
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launches = {k.__name__: k.launches for k in kernels}
+        loader_s = statistics.mean(fetch_s)
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(timed):
+                step()
+            torch.cuda.synchronize()
+            prof_wall_ms = (time.perf_counter() - t0) * 1e3
+        per_cat: dict = {}
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        for e in events:
+            per_cat[_category(e.name)] = per_cat.get(_category(e.name), 0.0) + e.time_range.elapsed_us()
+        busy_ms = sum(per_cat.values()) / 1e3
+        idle = 1.0 - busy_ms / prof_wall_ms
+        mean_s = statistics.mean(times)
+        want = {"flash_attn_fwd": 48 * timed, "flash_attn_bwd_dq": 32 * timed + 16 * d_steps,
+                "flash_attn_bwd_dkv": 32 * timed + 16 * d_steps, "vq_argmax": timed}
+        finite = all(torch.isfinite(packed).all().item() for _, packed in infos)
+        keys, last = infos[-1]
+        last = dict(zip(keys, last.tolist()))
+        log(f"[train {name}] batch {B} clips [8,3,16,128,128], {timed} steps ({d_steps} with a "
+            f"discriminator step): {', '.join(f'{t:.3f}' for t in times)} s; mean {mean_s:.3f} "
+            f"s/step = {B / mean_s:.2f} clips/s (median {statistics.median(times):.3f} s); "
+            f"loader {loader_s * 1e3:.1f} ms per step on the host ({loader_s / mean_s:.1%} of "
+            f"the step, {tr.train_workers} workers); peak memory {peak_gb:.2f} GiB")
+        log(f"[train {name}] launches over the timed steps {launches} (expect {want}); losses "
+            f"finite: {finite}; last step loss {last['loss']:.4f}, rec {last['rec_loss']:.4f}, "
+            f"perceptual {last['perceptual_loss']:.4f}, d_loss {last['d_loss']:.4f}, "
+            f"psnr {last['psnr']:.2f}")
+        log(f"[train {name}] profiled {timed} steps: wall {prof_wall_ms / timed:.1f} ms per step, "
+            f"device busy {busy_ms / timed:.1f} ms, idle {idle:.1%}, {len(events) / timed:.0f} "
+            f"kernels per step; device ms per step by category: "
+            + ", ".join(f"{c} {us / 1e3 / timed:.1f} ({us / 1e3 / busy_ms:.1%})"
+                        for c, us in sorted(per_cat.items(), key=lambda kv: -kv[1])))
+        require(finite, f"train {name}: non-finite losses")
+        require(launches == want, f"train {name}: launch counts {launches}, expected {want}")
+        records[f"train_{name}"] = {"s_per_step": mean_s, "clips_per_s": B / mean_s,
+                                    "peak_gib": peak_gb, "idle": idle, "loader_s": loader_s}
+        if name == "bf16":
+            for k in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+                records[k]["launches"] = launches[k]
+        del tr, batches
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not (ROOT / "video_tokenizer_tpu_torch").is_dir():
         print("chip_smoke.py: the video_tokenizer_tpu_torch package is not beside this script",
@@ -621,6 +1024,7 @@ def main() -> int:
     records: dict = {}
     phase_build()
     phase_flash(records)
+    phase_flash_bwd(records)
     phase_vq(records)
     phase_decode_attention(records)
     phase_w8_matmul(records)
@@ -629,11 +1033,20 @@ def main() -> int:
     del model_fp32
     ar_model = phase_ar_fp32()
     phase_ar_sampling(ar_model, tokenizer, records)
+    del ar_model, tokenizer
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:  # the trainers' logs and cfg.yaml
+        phase_train_fp32(Path(tmp))
+        phase_train_throughput(Path(tmp), records)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 
     sources = {
         "flash_attn_fwd": ("video_tokenizer_tpu_torch/csrc/flash_attn_fwd.cu",
                            "video_tokenizer_tpu/ops/attention.py:166"),
+        "flash_attn_bwd_dq": ("video_tokenizer_tpu_torch/csrc/flash_attn_bwd.cu",
+                              "video_tokenizer_tpu/ops/attention.py:387"),
+        "flash_attn_bwd_dkv": ("video_tokenizer_tpu_torch/csrc/flash_attn_bwd.cu",
+                               "video_tokenizer_tpu/ops/attention.py:447"),
         "vq_argmax": ("video_tokenizer_tpu_torch/csrc/vq_lookup.cu",
                       "video_tokenizer_tpu/ops/vq.py:35"),
         "decode_attention": ("video_tokenizer_tpu_torch/csrc/decode_attention.cu",
@@ -645,6 +1058,7 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": src, "replaces": rep, **records[name]}
         for name, (src, rep) in sources.items()
     ]
+    print(json.dumps({"train": {k: v for k, v in records.items() if k.startswith("train_")}}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

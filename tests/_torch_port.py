@@ -115,6 +115,114 @@ def port_ar(params, **overrides):
     return model.eval()
 
 
+def trainer_cfg(save_dir, **over):
+    """A tiny tokenizer-trainer config (the geometry of tests/test_trainers.py's
+    `_tok_cfg`) with deterministic VQ and the hinge GAN loss, so that no draw
+    differs between the JAX trainer and the port's; LeCam on."""
+    from video_tokenizer_tpu.config import ConfigDict
+
+    cfg = {
+        "save_dir": str(save_dir), "manualSeed": 0, "max_epoch": 1, "eval_epoch": 10,
+        "vis_epoch": 10, "latest_interval": 1, "loss_q_weight": 0.1, "use_amp": False,
+        "ema_decay": "0.999",
+        "train_dataset": {
+            "name": "video_dataset",
+            "args": {"root_path": str(save_dir), "split": "train", "frame_num": 8,
+                     "csv_file": "null128", "crop_size": 32, "cls_vid_num": "-1_-1"},
+            "loader": {"batch_size": 2, "num_workers": 0},
+        },
+        "model": {"name": "larp_tokenizer", "args": {
+            "bottleneck": {"name": "bottleneck", "args": {
+                "bottleneck_dim": 8, "norm": "none",
+                "regularizer": {"name": "vq", "args": {
+                    "codebook_size": 64, "l2_normalized": True, "stochastic": False}},
+            }},
+            "prior_model": {"name": "none"}, "bottleneck_token_num": 16, "input_size": 32,
+            "frame_num": 8, "encoder_hidden_size": 64, "decoder_hidden_size": 64,
+            "encoder_num_heads": 2, "decoder_num_heads": 2, "encoder_depth": 1,
+            "decoder_depth": 1,
+        }},
+        "loss": {"name": "lpips_disc_loss", "args": {
+            "disc_start": 0, "disc_loss": "hinge", "disc_weight": 0.3, "d_update_freq": 1,
+            "lecam_weight": 0.001, "disc_tran_hidden_size": 64, "disc_tran_n_heads": 2,
+            "disc_tran_n_layers": 1, "disc_tran_temporal_patch_size": 4,
+            "disc_tran_patch_size": 8, "input_spatial_size": 32, "frame_num": 8,
+        }},
+        "optimizer": {
+            "name": "adam", "args": {"lr": 1e-4, "betas": [0.5, 0.9]},
+            "loss_args": {"lr": 3e-5, "betas": [0.5, 0.9]},
+            "lr_type": "cosine", "warmup_epoch": 1, "min_lr_mult": 0.01,
+        },
+    }
+    cfg.update(over)
+    return ConfigDict(cfg)
+
+
+def jax_trainer(cfg, capture_grads=False):
+    """The JAX LARPTokenizerTrainer at epoch 1 with perturbed weights (the
+    EMA starts from them). With `capture_grads`, both optimizers are replaced
+    by transforms that apply no update and keep the step's gradients as
+    their state (`opt_g['g']`, and the discriminator's masked tree)."""
+    import optax
+
+    import video_tokenizer_tpu.data  # noqa: F401
+    import video_tokenizer_tpu.models  # noqa: F401
+    import video_tokenizer_tpu.trainers  # noqa: F401
+    from video_tokenizer_tpu.parallel import replicated_sharding
+    from video_tokenizer_tpu.registry import trainers
+
+    tr = trainers.make({"name": "larp_tokenizer_trainer"}, args={"cfg": cfg})
+    tr.make_datasets()
+    tr.n_steps_per_epoch = 4
+    tr.epoch = 1
+    tr.make_model()
+    state = dict(tr.state)
+    state["params"] = perturb(state["params"], seed=11)
+    state["loss_params"] = perturb(state["loss_params"], seed=12)
+    state["ema_params"] = {d: state["params"] for d in state["ema_params"]}
+    if capture_grads:
+        def capture():
+            zeros = lambda t: jax.tree_util.tree_map(jnp.zeros_like, t)  # noqa: E731
+            return optax.GradientTransformation(
+                lambda p: {"g": zeros(p)}, lambda g, s, p=None: (zeros(g), {"g": g}))
+        tr.g_tx = capture()
+        tr.d_tx = optax.multi_transform(
+            {"train": capture(), "freeze": optax.set_to_zero()},
+            lambda p: {k: "train" if k == "discriminator" else "freeze" for k in p})
+        state["opt_g"] = tr.g_tx.init(state["params"])
+        state["opt_d"] = tr.d_tx.init(state["loss_params"])
+    tr.state = jax.device_put(state, replicated_sharding(tr.mesh))
+    return tr
+
+
+def port_trainer(cfg, jax_tr):
+    """The port's LARPTokenizerTrainer on the CPU, at epoch 1, with the JAX
+    trainer's weights, LeCam EMAs and EMA parameters."""
+    import video_tokenizer_tpu_torch.data  # noqa: F401
+    import video_tokenizer_tpu_torch.trainers  # noqa: F401
+    from video_tokenizer_tpu_torch.registry import trainers
+    from video_tokenizer_tpu_torch.utils.convert import (
+        loss_state_dict_from_jax, state_dict_from_jax,
+    )
+
+    tr = trainers.make({"name": "larp_tokenizer_trainer"}, args={"cfg": cfg, "device": "cpu"})
+    tr.make_datasets()
+    tr.n_steps_per_epoch = 4
+    tr.epoch = 1
+    tr.make_model()
+    host = jax.device_get(jax_tr.state)
+    tr.model.load_state_dict(state_dict_from_jax(host["params"], tr.model), strict=True)
+    tr.loss_mod.load_state_dict(
+        loss_state_dict_from_jax(host["loss_params"], host["loss_ema"], tr.loss_mod), strict=True)
+    tr.ema_params = {d: {n: p.detach().clone() for n, p in tr.model.named_parameters()}
+                     for d in tr.ema_params}
+    return tr
+
+
+def train_batch(seed=0, batch=2):
+    return {"gt": clips(seed, batch), "label": np.zeros(batch, np.int32)}
+
+
 def clips(seed=0, batch=2, frames=8, size=32):
     return np.random.RandomState(seed).rand(batch, 3, frames, size, size).astype(np.float32)
 

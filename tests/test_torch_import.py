@@ -52,6 +52,21 @@ assert out["pred_frames"].shape == (1, 3, 8, 32, 32)
     assert out.strip().endswith("ok")
 
 
+def test_training_modules_import_without_jax():
+    """The training path (losses, LPIPS, statistics, data, checkpoints,
+    trainers, the train CLI) loads neither JAX nor the JAX package."""
+    out = _run("""
+import sys
+import video_tokenizer_tpu_torch.train, video_tokenizer_tpu_torch.trainers
+import video_tokenizer_tpu_torch.data, video_tokenizer_tpu_torch.models.loss
+import video_tokenizer_tpu_torch.models.lpips, video_tokenizer_tpu_torch.metrics.statistics
+import video_tokenizer_tpu_torch.utils.checkpoint, video_tokenizer_tpu_torch.utils.common
+from video_tokenizer_tpu_torch.registry import datasets, trainers
+assert "video_dataset" in datasets and "larp_tokenizer_trainer" in trainers
+""" + _NO_JAX + _NO_JAX_PACKAGE + "print('ok')")
+    assert out.strip().endswith("ok")
+
+
 def test_reconstruct_cli_runs_one_cpu_batch():
     out = _run("""
 import runpy, sys
@@ -134,13 +149,15 @@ def _code(path: Path, stop: str = None) -> str:
 COPIES = [
     ("ops/sincos.py", "ops/sincos.py", None),
     ("registry.py", "registry.py", '\n\nmodels = Registry("model")'),
+    ("data/video_dataset.py", "data/video_dataset.py", None),
 ]
 
 
 @pytest.mark.parametrize("copy,original,stop", COPIES, ids=[c[0] for c in COPIES])
 def test_copies_equal_their_originals(copy, original, stop):
-    """The port keeps copies of two JAX-free files of the JAX package (its
-    `ops/__init__.py` imports JAX); their code may not drift from it."""
+    """The port keeps copies of three JAX-free files of the JAX package (its
+    `ops/__init__.py` and `data/__init__.py` import JAX); their code may not
+    drift from it."""
     assert _code(PORT / copy, stop) == _code(REPO / "video_tokenizer_tpu" / original, stop)
 
 
@@ -151,6 +168,8 @@ def test_registry_is_the_ports_own():
     assert registry.models is not jax_registry.models
     assert registry.models["larp_tokenizer"] is models.LARPTokenizer
     assert registry.models["vq"] is models.SimpleVectorQuantizer
+    assert registry.datasets is not jax_registry.datasets
+    assert registry.trainers is not jax_registry.trainers
 
 
 def test_port_sources_name_no_jax():

@@ -83,6 +83,7 @@ def test_unported_branches_name_their_roadmap_item():
                                           "regularizer": {"name": "skl", "args": {}}}}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LARPTokenizer(**{**TINY_ARGS, "bottleneck": skl})
-    tm = LARPTokenizer(**TINY_ARGS)
+    bn = {"name": "bottleneck", "args": {"bottleneck_dim": 8, "norm": "bn_b",
+                                         "regularizer": {"name": "vq", "args": {"codebook_size": 64}}}}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm(torch.zeros(1, 3, 8, 32, 32), train=True)  # stochastic VQ sampling
+        LARPTokenizer(**{**TINY_ARGS, "bottleneck": bn})  # the BatchNorm bottleneck norms

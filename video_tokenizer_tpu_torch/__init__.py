@@ -1,14 +1,16 @@
 """video_tokenizer_tpu_torch: the PyTorch/CUDA port of video_tokenizer_tpu.
 
 The JAX package beside it is the reference. This package imports `torch`
-and never `jax`. Its hot paths run four hand-written CUDA kernels
-(`csrc/flash_attn_fwd.cu`, `csrc/vq_lookup.cu`, `csrc/decode_attention.cu`,
-`csrc/w8_matmul.cu`), built with `nvcc` at first use on a card; on CPU
-tensors their plain PyTorch versions run instead. Covered so far:
-inference through the LARP tokenizer with the 'vq' bottleneck (encode, VQ,
-decode), and class-conditional (or frame-prediction) sampling from the LARP
-AR prior with CFG, top-k/top-p, int8 weights and an int8 KV cache
-(`generation.generate`, `sample.py`).
+and never `jax`. Its hot paths run hand-written CUDA kernels
+(`csrc/flash_attn_fwd.cu`, `csrc/flash_attn_bwd.cu`, `csrc/vq_lookup.cu`,
+`csrc/decode_attention.cu`, `csrc/w8_matmul.cu`), built with `nvcc` at
+first use on a card; on CPU tensors their plain PyTorch versions run
+instead. Covered so far: inference through the LARP tokenizer with the 'vq'
+bottleneck (encode, VQ, decode); class-conditional (or frame-prediction)
+sampling from the LARP AR prior with CFG, top-k/top-p, int8 weights and an
+int8 KV cache (`generation.generate`, `sample.py`); and GAN training of the
+tokenizer with LPIPS and a transformer discriminator (`trainers`,
+`train.py`).
 """
 from __future__ import annotations
 

@@ -3,6 +3,7 @@ from . import transformer  # noqa: F401  (registers the stacks)
 from . import bottleneck  # noqa: F401  (registers bottleneck, vq)
 from . import larp_tokenizer  # noqa: F401  (registers larp_tokenizer)
 from . import larp_ar  # noqa: F401  (registers larp_ar and the llama-abs zoo)
+from . import loss  # noqa: F401  (registers lpips_disc_loss)
 
 from .bottleneck import Bottleneck, SimpleVectorQuantizer  # noqa: F401
 from .embed import LabelEmbedder, PatchEmbed3D, VideoPatchEmbed  # noqa: F401

@@ -4,9 +4,13 @@ Counterpart of `video_tokenizer_tpu/models/bottleneck.py`:
   * `Bottleneck`: in/out projections around a regularizer, optional
     LayerNorm (`ln_d`, `ln_d_na`), returns the same dict as the JAX module.
   * `SimpleVectorQuantizer` ("vq"): l2-normalised (x / (|x| + 1e-12)) or raw
-    codebook, nearest-code lookup through `ops.vq` (the CUDA kernel on the
-    card), commitment / codebook / entropy losses, straight-through estimator.
-    Deterministic lookup only: stochastic sampling is not ported yet.
+    codebook, nearest-code lookup or (stochastic, in training or with
+    `eval_deterministic=False`) a sample of softmax(cos * inv_temp) through
+    `ops.vq` (the CUDA kernel on the card), commitment / codebook / entropy
+    losses, straight-through estimator. Each sampling call draws its 64-bit
+    seed from the module's own `torch.Generator` (`sample_generator`), seeded
+    from the init generator: one draw per call, as the JAX module draws one
+    seed from its 'vq' key.
   * `entropy_loss`.
 The whole bottleneck computes in fp32, whatever the model's compute dtype.
 """
@@ -66,8 +70,12 @@ class SimpleVectorQuantizer(nn.Module):
         self.embedding = nn.Embedding(codebook_size, dim, device=device)
         with torch.no_grad():  # U(+-sqrt(6 / dim)), torch's kaiming_uniform_
             nn.init.kaiming_uniform_(self.embedding.weight, generator=generator)
+        self.stochastic_temperature = stochastic_temperature
         if stochastic and stochastic_temperature <= 0:  # learnable inverse temperature
             self.stochastic_temperature_inv = nn.Parameter(torch.tensor(10.0, device=device))
+        # the sampling seeds' generator, on the host: one draw per call
+        seed = 0 if generator is None else int(torch.randint(2**62, (), generator=generator))
+        self.sample_generator = torch.Generator().manual_seed(seed)
 
     def get_emb(self) -> torch.Tensor:
         emb = self.embedding.weight.float()
@@ -76,22 +84,22 @@ class SimpleVectorQuantizer(nn.Module):
     def forward(self, z: torch.Tensor, train: bool = False) -> Dict[str, Any]:
         if z.ndim != 3:
             raise ValueError("Input shape must be (batch, n_tokens, e_dim)")
-        if self.stochastic and (train or not self.eval_deterministic):
-            raise NotImplementedError(
-                "stochastic VQ sampling is not ported yet "
-                "(ROADMAP.md, 'Still to port', item 3)"
-            )
         z = z.float()
         if self.l2_normalized:
             z = _l2_normalise(z)
         emb = self.get_emb()
         if not self.stochastic:
             q_indices = vq_lookup(z, emb, metric="l2")
-        elif hasattr(self, "stochastic_temperature_inv"):
-            # a learnable temperature is folded into z, as the JAX module does
-            q_indices = vq_lookup(z * self.stochastic_temperature_inv.detach(), emb, metric="cos")
-        else:  # a fixed temperature does not move a deterministic argmax
-            q_indices = vq_lookup(z, emb, metric="cos")
+        else:
+            sample = train or not self.eval_deterministic
+            seed = self.draw_seed() if sample else 0
+            if hasattr(self, "stochastic_temperature_inv"):
+                # a learnable temperature is folded into z, as the JAX module does
+                q_indices = vq_lookup(z * self.stochastic_temperature_inv.detach(), emb,
+                                      metric="cos", stochastic=sample, seed=seed)
+            else:  # (a fixed temperature does not move a deterministic argmax)
+                q_indices = vq_lookup(z, emb, metric="cos", stochastic=sample,
+                                      inv_temp=1.0 / self.stochastic_temperature, seed=seed)
         quantized = emb[q_indices.long()]
 
         loss_commit = torch.mean((quantized.detach() - z) ** 2)
@@ -127,6 +135,10 @@ class SimpleVectorQuantizer(nn.Module):
             "codebook_entropy": avg_entropy,
         }
 
+    def draw_seed(self) -> int:
+        """The next sampling seed (0 <= seed < 2**62) from `sample_generator`."""
+        return int(torch.randint(2**62, (), generator=self.sample_generator))
+
     def decode(self, indices: torch.Tensor) -> torch.Tensor:
         return self.get_emb()[indices.long()]
 
@@ -135,7 +147,7 @@ class SimpleVectorQuantizer(nn.Module):
 def _summed_kl_regularizer(**_):
     raise NotImplementedError(
         "the summed-KL ('skl') regularizer is not ported yet "
-        "(ROADMAP.md, 'Still to port', item 4)"
+        "(ROADMAP.md, 'Still to port', item 3)"
     )
 
 
@@ -166,7 +178,7 @@ class Bottleneck(nn.Module):
         elif self._norm is not None:
             raise NotImplementedError(
                 f"bottleneck norm '{self._norm}' is not ported yet "
-                "(ROADMAP.md, 'Still to port', item 4)"
+                "(ROADMAP.md, 'Still to port', item 3)"
             )
         self.regularizer = None
         if regularizer is not None and regularizer["name"].lower() not in ("no", "none"):

@@ -24,7 +24,7 @@ The KV cache is a list of per-layer dicts {'k', 'v': [B, S, Hkv * D]}, plus
 `prefill` and `decode_step` (JAX returns new arrays). A decode position is
 a 1-element int32 tensor on the model's device, so that a step needs no
 host synchronisation. Not here: training (dropouts, DropPath, class
-dropout, the backward kernels: ROADMAP.md, 'Still to port', item 4),
+dropout, the AR trainer: ROADMAP.md, 'Still to port', item 4),
 `decode_chunk` (speculative decoding, item 5), remat and sequence-parallel
 constraints.
 """

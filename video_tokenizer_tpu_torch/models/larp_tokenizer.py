@@ -107,7 +107,7 @@ class LARPTokenizer(nn.Module):
             )
         if str((prior_model or {}).get("name", "none") or "none").lower() != "none":
             raise NotImplementedError(
-                "the gptc prior is not ported yet (ROADMAP.md, 'Still to port', item 4)"
+                "the gptc prior is not ported yet (ROADMAP.md, 'Still to port', item 3)"
             )
         self.bottleneck_token_num = bottleneck_token_num
         self.input_size, self.frame_num, self.in_channels = input_size, frame_num, in_channels

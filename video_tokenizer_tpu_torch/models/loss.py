@@ -1,0 +1,222 @@
+"""Tokenizer training losses: pixel + LPIPS + GAN with a transformer discriminator.
+
+Counterpart of `video_tokenizer_tpu/models/loss.py`:
+  * `TransformerDiscriminator`: patch embed + fixed 3D sin-cos PE + cls
+    token + ViT stack (attention through `ops.attention`: the flash forward
+    and backward kernels on the card) + LayerNorm + linear head -> [B, 1].
+  * `VQLPIPSWithDiscriminator` ("lpips_disc_loss"): L1/L2 pixel + LPIPS
+    perceptual (frozen), hinge / non-saturating / ns_smooth (one-side label
+    smoothing) GAN losses, disc_start gating, LeCam regularisation against
+    EMAs of the mean logits, kept as buffers. As in the JAX package the LeCam
+    weight is applied once (the reference applies it twice).
+  * `measure_perplexity`, `lecam_reg` and the loss functions.
+ns_smooth's label noise draws from the module's own `noise_generator`.
+Not ported yet (ROADMAP.md, 'Still to port', item 3): the R1 gradient
+penalty (`r1_gp_weight > 0`, which needs a double backward) and
+`spectral_norm`; both raise.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import einops
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops import sincos
+from ..registry import models
+from .embed import PatchEmbed3D, VideoPatchEmbed
+from .layers import Dense, LayerNorm
+from .lpips import LPIPS
+from .transformer import ViTStack
+
+
+def hinge_d_loss(logits_real, logits_fake):
+    return 0.5 * (torch.mean(F.relu(1.0 - logits_real)) + torch.mean(F.relu(1.0 + logits_fake)))
+
+
+def hinge_g_loss(logits_fake):
+    return -torch.mean(logits_fake)
+
+
+def _bce_logits(logits, targets):
+    return torch.mean(
+        torch.clamp(logits, min=0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
+    )
+
+
+def ns_d_loss(logits_real, logits_fake):
+    return (_bce_logits(logits_real, torch.ones_like(logits_real))
+            + _bce_logits(logits_fake, torch.zeros_like(logits_fake)))
+
+
+def smooth_targets(shape, generator: torch.Generator, device=None):
+    """One-side smoothed labels: real 1 - 0.15 |N| (>= 0.7), fake 0.15 |N| (<= 0.3)."""
+    n = torch.randn((2, *shape), generator=generator).to(device)
+    return (torch.clamp(1.0 - n[0].abs() * 0.15, min=0.7),
+            torch.clamp(n[1].abs() * 0.15, max=0.3))
+
+
+def ns_d_loss_single_side_smooth(logits_real, logits_fake, generator: torch.Generator):
+    real_target, fake_target = smooth_targets(logits_real.shape, generator, logits_real.device)
+    return _bce_logits(logits_real, real_target) + _bce_logits(logits_fake, fake_target)
+
+
+def ns_g_loss(logits_fake):
+    return -torch.mean(F.logsigmoid(logits_fake))
+
+
+def lecam_reg(real_pred, fake_pred, ema_real_pred, ema_fake_pred):
+    return (torch.mean(F.relu(real_pred - ema_fake_pred) ** 2)
+            + torch.mean(F.relu(ema_real_pred - fake_pred) ** 2))
+
+
+def measure_perplexity(predicted_indices: torch.Tensor, n_embed: int):
+    """Codebook usage perplexity and the number of codes used."""
+    avg_probs = torch.bincount(predicted_indices.reshape(-1).long(), minlength=n_embed).float()
+    avg_probs = avg_probs / predicted_indices.numel()
+    perplexity = torch.exp(-torch.sum(avg_probs * torch.log(avg_probs + 1e-10)))
+    return perplexity, torch.sum(avg_probs > 0)
+
+
+class TransformerDiscriminator(nn.Module):
+    """Video discriminator: BCTHW -> logits [B, 1]."""
+
+    def __init__(self, hidden_size: int = 384, n_heads: int = 12, n_layers: int = 8,
+                 input_size: int = 128, temporal_patch_size: int = 4, patch_size: int = 8,
+                 in_channels: int = 3, frame_num: int = 16, dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.in_channels, self.hidden_size = in_channels, hidden_size
+        kw = dict(dtype=dtype, generator=generator, device=device)
+        if temporal_patch_size == 1:
+            self.x_embedder = VideoPatchEmbed(patch_size, in_channels, hidden_size, **kw)
+            token_t = frame_num
+        else:
+            self.x_embedder = PatchEmbed3D(patch_size, temporal_patch_size, in_channels,
+                                           hidden_size, **kw)
+            token_t = frame_num // temporal_patch_size
+        pe = sincos.sincos_3d(hidden_size, input_size // patch_size, token_t)
+        self.register_buffer("pe", torch.from_numpy(pe).reshape(1, -1, hidden_size).to(device),
+                             persistent=False)
+        self.cls_token = nn.Parameter(torch.empty(1, 1, hidden_size, device=device))
+        bound = math.sqrt(6.0 / (1 + hidden_size))  # Flax xavier_uniform of (1, 1, D)
+        with torch.no_grad():
+            nn.init.uniform_(self.cls_token, -bound, bound, generator=generator)
+        self.transformer_encoder = ViTStack(hidden_size, n_layers, n_heads, **kw)
+        self.norm_final = LayerNorm(hidden_size, 1e-6, device=device)
+        self.fc = Dense(hidden_size, 1, generator=generator, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[1] != self.in_channels:
+            raise ValueError(f"discriminator built for {self.in_channels} channels, got {x.shape[1]}")
+        tokens = self.x_embedder(x)
+        tokens = tokens + self.pe.to(tokens.dtype)
+        cls = self.cls_token.to(tokens.dtype).expand(tokens.shape[0], 1, self.hidden_size)
+        z = self.transformer_encoder(torch.cat([cls, tokens], dim=1))
+        return self.fc(self.norm_final(z[:, 0]))
+
+
+@models.register("lpips_disc_loss")
+class VQLPIPSWithDiscriminator(nn.Module):
+    def __init__(self, disc_start: int = 0, disc_self_start: Optional[int] = None,
+                 pixelloss_weight: float = 1.0, disc_type: str = "transformer",
+                 disc_in_channels: int = 3, disc_factor: float = 1.0, disc_weight: float = 1.0,
+                 perceptual_weight: float = 1.0, disc_loss: str = "hinge",
+                 disc_tran_hidden_size: int = 256, disc_tran_n_heads: int = 8,
+                 disc_tran_n_layers: int = 6, disc_tran_temporal_patch_size: int = 1,
+                 disc_tran_patch_size: int = 16, frame_num: int = 16,
+                 perceptual_loss: str = "lpips", pixel_loss: str = "l1",
+                 lecam_weight: float = 0.0, input_spatial_size: int = 128,
+                 r1_gp_weight: float = 0.0, d_update_freq: int = 1,
+                 d_update_loss_threshold: float = -1.0e6, spectral_norm: bool = False,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        if disc_loss not in ("hinge", "ns", "ns_smooth"):
+            raise ValueError(f"disc_loss {disc_loss}")
+        if pixel_loss not in ("l1", "l2"):
+            raise ValueError(f"pixel_loss {pixel_loss}")
+        if disc_type.lower() != "transformer" or perceptual_loss != "lpips":
+            raise ValueError(f"disc_type {disc_type}, perceptual_loss {perceptual_loss}")
+        if r1_gp_weight > 0.0:
+            raise NotImplementedError(
+                "the R1 gradient penalty (r1_gp_weight > 0) is not ported yet "
+                "(ROADMAP.md, 'Still to port', item 3)")
+        if spectral_norm:
+            raise NotImplementedError(
+                "spectral_norm is not ported yet (ROADMAP.md, 'Still to port', item 3)")
+        self.disc_start, self.disc_factor, self.disc_weight = disc_start, disc_factor, disc_weight
+        self.disc_self_start = (disc_self_start if disc_self_start is not None
+                                and disc_self_start >= 0 else disc_start)
+        self.pixelloss_weight, self.perceptual_weight = pixelloss_weight, perceptual_weight
+        self.disc_loss, self.pixel_loss, self.lecam_weight = disc_loss, pixel_loss, lecam_weight
+        self.d_update_freq, self.d_update_loss_threshold = d_update_freq, d_update_loss_threshold
+        self.perceptual = LPIPS(dtype, generator, device).requires_grad_(False)
+        self.discriminator = TransformerDiscriminator(
+            disc_tran_hidden_size, disc_tran_n_heads, disc_tran_n_layers, input_spatial_size,
+            disc_tran_temporal_patch_size, disc_tran_patch_size, disc_in_channels, frame_num,
+            dtype, generator, device,
+        )
+        self.register_buffer("lecam_ema_real", torch.zeros((), device=device))
+        self.register_buffer("lecam_ema_fake", torch.zeros((), device=device))
+        seed = 0 if generator is None else int(torch.randint(2**62, (), generator=generator))
+        self.noise_generator = torch.Generator().manual_seed(seed)
+
+    def _pixel(self, x, y):
+        return (x - y).abs() if self.pixel_loss == "l1" else (x - y) ** 2
+
+    @staticmethod
+    def _frames(v):
+        return einops.rearrange(v, "b c t h w -> (b t) c h w")
+
+    def generator_loss(self, inputs, reconstructions, global_step
+                       ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """NLL (pixel + perceptual) + adversarial generator loss."""
+        input_frames, recon_frames = self._frames(inputs), self._frames(reconstructions)
+        disc_factor = self.disc_factor if global_step >= self.disc_start else 0.0
+        zero = torch.zeros((), device=inputs.device)
+        rec_loss = (torch.mean(self._pixel(input_frames, recon_frames))
+                    if self.pixelloss_weight > 0 else zero)
+        p_loss = (torch.mean(self.perceptual(input_frames, recon_frames, normalize=True))
+                  if self.perceptual_weight > 0 else zero)
+        nll_loss = self.pixelloss_weight * rec_loss + self.perceptual_weight * p_loss
+        logits_fake = self.discriminator(reconstructions)
+        g_loss = hinge_g_loss(logits_fake) if self.disc_loss == "hinge" else ns_g_loss(logits_fake)
+        g_loss_weight = self.disc_weight * disc_factor
+        loss = nll_loss + g_loss_weight * g_loss
+        info = {"rec_loss": rec_loss, "perceptual_loss": p_loss, "rp_loss": nll_loss,
+                "g_loss": g_loss,
+                "g_loss_weight": torch.tensor(float(g_loss_weight), device=inputs.device)}
+        return loss, info
+
+    def discriminator_loss(self, inputs, reconstructions, global_step, train: bool = True,
+                           update_ema: bool = True) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """D loss on real clips and detached reconstructions. With `train` and
+        `update_ema` the LeCam EMAs advance (after the regulariser used them)."""
+        disc_factor = self.disc_factor if global_step >= self.disc_self_start else 0.0
+        logits_real = self.discriminator(inputs)
+        logits_fake = self.discriminator(reconstructions.detach())
+        real_mean, fake_mean = torch.mean(logits_real.float()), torch.mean(logits_fake.float())
+        if self.lecam_weight > 0.0:
+            lecam_loss = self.lecam_weight * lecam_reg(
+                real_mean, fake_mean, self.lecam_ema_real, self.lecam_ema_fake)
+            if train and update_ema:
+                decay = 0.999
+                with torch.no_grad():
+                    self.lecam_ema_real.mul_(decay).add_(real_mean.detach() * (1 - decay))
+                    self.lecam_ema_fake.mul_(decay).add_(fake_mean.detach() * (1 - decay))
+        else:
+            lecam_loss = torch.zeros((), device=inputs.device)
+        if self.disc_loss == "hinge":
+            d_loss = hinge_d_loss(logits_real, logits_fake)
+        elif self.disc_loss == "ns":
+            d_loss = ns_d_loss(logits_real, logits_fake)
+        else:
+            d_loss = ns_d_loss_single_side_smooth(logits_real, logits_fake, self.noise_generator)
+        total_loss = (d_loss + lecam_loss) * (1.0 if disc_factor > 0.0 else 0.0)
+        info = {"d_total_loss": total_loss, "d_lecam_loss": lecam_loss, "d_loss": d_loss,
+                "logits_real": real_mean, "logits_fake": fake_mean}
+        return total_loss, info

@@ -105,7 +105,8 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # 32-bit ints. tests/test_torch_ops.py checks this table against the sources.
 SIGNATURES = {
     "vtt_flash_attn_fwd": ([_P] * 7 + [_I] * 7 + [_LL] * 9 + [_I, _I, _F, _P], _I),
-    "vtt_vq_argmax": ([_P] * 4 + [_I] * 3 + [_P], _I),
+    "vtt_flash_attn_bwd": ([_I] + [_P] * 10 + [_I] * 7 + [_LL] * 12 + [_I, _I, _F, _P], _I),
+    "vtt_vq_argmax": ([_P] * 4 + [_I] * 4 + [_F, _LL, _P], _I),
     "vtt_decode_attention": ([_P] * 10 + [_I] * 8 + [_LL, _F, _P], _I),
     "vtt_w8_matmul": ([_P] * 4 + [_I] * 5 + [_P], _I),
     "vtt_error_string": ([_I], ctypes.c_char_p),

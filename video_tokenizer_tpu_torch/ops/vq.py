@@ -1,39 +1,90 @@
-"""Nearest-code lookup for the VQ bottleneck: the CUDA kernel and its plain version.
+"""Codebook lookup for the VQ bottleneck: the CUDA kernel and its plain version.
 
 Counterpart of `video_tokenizer_tpu/ops/vq.py`.
 
 * `vq_argmax` wraps `csrc/vq_lookup.cu`, which replaces the TPU kernel
-  `_vq_kernel` in its deterministic mode. On a CUDA tensor it launches the
-  kernel or raises; on a CPU tensor it runs `vq_lookup_reference`.
+  `_vq_kernel` in both of its modes. On a CUDA tensor it launches the kernel
+  or raises; on a CPU tensor it runs `vq_lookup_reference`.
 * `vq_lookup_reference` is the plain version, the JAX package's
   `vq_lookup_xla`: fp32 scores, then argmax (the first maximum on ties).
-
-Stochastic (Gumbel-max) sampling is not ported yet (ROADMAP.md, 'Still to
-port', item 3).
+* Stochastic mode samples codes from softmax(score * inv_temp) by Gumbel-max:
+  argmax_k (score * inv_temp + g), g = -log(-log(u + 1e-10) + 1e-10) with u
+  uniform from 24 random bits. The bits come from a counter-based
+  Philox4x32-10 keyed by a 64-bit seed; `philox4x32_10` computes in PyTorch
+  exactly the bits the kernel computes, so the two can be held index for
+  index. (The JAX package draws from the TPU core's PRNG or
+  `jax.random.gumbel`, so the port and JAX agree in distribution only.)
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
 
 _CODE_DIMS = (4, 8, 16, 32)
+_MASK32 = 0xFFFFFFFF
+# Philox4x32 multipliers and Weyl key increments (Salmon et al., SC 2011)
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 
 
-def vq_lookup_reference(z, emb, score_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """argmax_k (z @ emb.T + score_bias[k]) in fp32. z: [M, d] -> int32 [M]."""
+def _mulhilo(a: int, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(high, low) 32-bit words of a * b for a 32-bit constant a and int64 b
+    holding 32-bit values, without overflowing int64 (16-bit halves of b)."""
+    b_hi, b_lo = b >> 16, b & 0xFFFF
+    hi_part, lo_part = a * b_hi, a * b_lo  # each < 2**48
+    hi = (hi_part + (lo_part >> 16)) >> 16
+    lo = (((hi_part & 0xFFFF) << 16) + lo_part) & _MASK32
+    return hi, lo
+
+
+def philox4x32_10(c0, c1, c2, c3, seed: int):
+    """Philox4x32-10 of counters (c0, c1, c2, c3) (int64 tensors of 32-bit
+    values) under the 64-bit `seed`; returns four int64 tensors of 32 bits."""
+    k0, k1 = seed & _MASK32, (seed >> 32) & _MASK32
+    for i in range(10):
+        if i:
+            k0, k1 = (k0 + _PHILOX_W[0]) & _MASK32, (k1 + _PHILOX_W[1]) & _MASK32
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def gumbel_noise(M: int, K: int, seed: int, device=None) -> torch.Tensor:
+    """The kernel's Gumbel noise g[m, k] (fp32 [M, K]): Philox on the counter
+    (k // 4, m, 0, 0) gives the bits of codes 4 * (k // 4) + 0..3 of row m."""
+    groups = (K + 3) // 4
+    c0 = torch.arange(groups, device=device, dtype=torch.int64)[None, :].expand(M, groups)
+    c1 = torch.arange(M, device=device, dtype=torch.int64)[:, None].expand(M, groups)
+    zero = torch.zeros((), device=device, dtype=torch.int64)
+    bits = torch.stack(philox4x32_10(c0, c1, zero, zero, seed), dim=-1).reshape(M, 4 * groups)
+    u = (bits[:, :K] & 0xFFFFFF).float() * (1.0 / 16777216.0)
+    return -torch.log(-torch.log(u + 1e-10) + 1e-10)
+
+
+def vq_lookup_reference(z, emb, score_bias: Optional[torch.Tensor] = None, *,
+                        stochastic: bool = False, inv_temp: float = 1.0,
+                        seed: int = 0) -> torch.Tensor:
+    """argmax_k (z @ emb.T + score_bias[k]) in fp32 (times inv_temp, plus the
+    Gumbel noise of `seed`, if stochastic). z: [M, d] -> int32 [M]."""
     s = z.float() @ emb.float().T
     if score_bias is not None:
         s = s + score_bias.float()[None, :]
+    if stochastic:
+        s = s * inv_temp + gumbel_noise(s.shape[0], s.shape[1], seed, s.device)
     return torch.argmax(s, dim=-1).to(torch.int32)
 
 
-def vq_argmax(z, emb, score_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Nearest-code kernel. z: [M, d] fp32, emb: [K, d] fp32, bias: [K] fp32."""
+def vq_argmax(z, emb, score_bias: Optional[torch.Tensor] = None, *, stochastic: bool = False,
+              inv_temp: float = 1.0, seed: int = 0) -> torch.Tensor:
+    """Codebook kernel. z: [M, d] fp32, emb: [K, d] fp32, bias: [K] fp32;
+    `seed` (0 <= seed < 2**63) keys the Gumbel noise of stochastic mode."""
     if z.device.type == "cpu":
-        return vq_lookup_reference(z, emb, score_bias)
+        return vq_lookup_reference(z, emb, score_bias, stochastic=stochastic,
+                                   inv_temp=inv_temp, seed=seed)
     if z.device.type != "cuda":
         raise ValueError(f"vq_argmax: no kernel for device {z.device}")
     operands = [("z", z), ("emb", emb)] + ([("bias", score_bias)] if score_bias is not None else [])
@@ -49,13 +100,15 @@ def vq_argmax(z, emb, score_bias: Optional[torch.Tensor] = None) -> torch.Tensor
         raise ValueError(f"vq_argmax: z {tuple(z.shape)}, emb {tuple(emb.shape)}; d in {_CODE_DIMS}")
     if score_bias is not None and score_bias.shape != (K,):
         raise ValueError(f"vq_argmax: bias {tuple(score_bias.shape)} != {(K,)}")
+    if not 0 <= seed < 2**63:
+        raise ValueError(f"vq_argmax: seed {seed} outside [0, 2**63)")
     idx = torch.empty((M,), dtype=torch.int32, device=z.device)
     if M:
         with torch.cuda.device(z.device):
             code = _build.library().vtt_vq_argmax(
                 z.data_ptr(), emb.data_ptr(),
                 score_bias.data_ptr() if score_bias is not None else None,
-                idx.data_ptr(), M, K, d,
+                idx.data_ptr(), M, K, d, int(stochastic), float(inv_temp), int(seed),
                 torch.cuda.current_stream(z.device).cuda_stream,
             )
         _build.check(code, "vq_argmax")
@@ -66,11 +119,14 @@ def vq_argmax(z, emb, score_bias: Optional[torch.Tensor] = None) -> torch.Tensor
 vq_argmax.launches = 0  # kernel launches, read by chip_smoke.py
 
 
-def vq_lookup(z, emb, *, metric: str = "l2") -> torch.Tensor:
-    """Deterministic nearest-code lookup. z: [..., d] -> int32 indices [...].
+def vq_lookup(z, emb, *, metric: str = "l2", stochastic: bool = False, inv_temp: float = 1.0,
+              seed: int = 0) -> torch.Tensor:
+    """Nearest-code lookup, or sampling. z: [..., d] -> int32 indices [...].
 
     metric='l2' : argmin |z - e|^2 == argmax (z.e - |e|^2 / 2).
-    metric='cos': argmax z.e (the caller pre-normalises z and emb)."""
+    metric='cos': argmax z.e (the caller pre-normalises z and emb).
+    stochastic  : a sample of softmax(score * inv_temp) by Gumbel-max, the
+                  noise keyed by `seed`."""
     batch_shape = z.shape[:-1]
     zf = z.detach().reshape(-1, z.shape[-1]).float().contiguous()
     emb = emb.detach().float().contiguous()
@@ -80,4 +136,5 @@ def vq_lookup(z, emb, *, metric: str = "l2") -> torch.Tensor:
         bias = None
     else:
         raise ValueError(metric)
-    return vq_argmax(zf, emb, bias).reshape(batch_shape)
+    idx = vq_argmax(zf, emb, bias, stochastic=stochastic, inv_temp=inv_temp, seed=seed)
+    return idx.reshape(batch_shape)

@@ -25,6 +25,7 @@ import torch
 
 from . import models as _models  # noqa: F401  (registry population)
 from .registry import models
+from .utils.common import psnr_from_mse
 
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
@@ -39,10 +40,6 @@ def reconstruct(model, x: torch.Tensor) -> torch.Tensor:
 
 def make_clips(rng: np.random.Generator, batch: int, frames: int, size: int) -> np.ndarray:
     return rng.random((batch, 3, frames, size, size), dtype=np.float32)
-
-
-def psnr_from_mse(mse: torch.Tensor, max_val: float = 1.0) -> torch.Tensor:
-    return 10.0 * torch.log10(max_val**2 / torch.clamp(mse, min=1e-10))
 
 
 def build_model(cfg_path: str, checkpoint: Optional[str], dtype: torch.dtype, device,

@@ -4,8 +4,9 @@
 copy of the class in the JAX package's `video_tokenizer_tpu/registry.py`:
 the code below this docstring is the original's, byte for byte, and
 `tests/test_torch_import.py` holds the two equal. The port keeps its own
-copy so that it imports nothing of the JAX package, and its own `models`
-instance, so its names never collide with the JAX package's.
+copy so that it imports nothing of the JAX package, and its own `models`,
+`datasets` and `trainers` instances, so its names never collide with the
+JAX package's.
 """
 from __future__ import annotations
 
@@ -73,3 +74,5 @@ class Registry:
 
 
 models = Registry("model")
+datasets = Registry("dataset")
+trainers = Registry("trainer")

@@ -1,0 +1,3 @@
+from ..registry import trainers  # noqa: F401
+from .base_trainer import BaseTrainer  # noqa: F401
+from .tokenizer_trainer import LARPTokenizerTrainer  # noqa: F401  (registers the trainers)

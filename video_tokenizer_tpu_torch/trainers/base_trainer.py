@@ -1,0 +1,300 @@
+"""BaseTrainer: the epoch loop of the port's trainers, on one device.
+
+Counterpart of `video_tokenizer_tpu/trainers/base_trainer.py`:
+  * cosine-with-warmup and constant ('step') learning-rate schedules, as
+    functions of the global step (`make_lr_schedule`), and `ema_update`;
+  * the epoch loop: train an epoch, then eval / save on their intervals,
+    `log.txt`, `results.csv`, the slim `epoch-final` export at the end;
+  * resume from `<save_dir>/epoch-last` (parameters, both optimizers, EMA,
+    RNG states, step) and warm start from `init_checkpoint`.
+The step's telemetry stays on the device and is fetched once per epoch.
+One process drives one device (`device`, explicit; there is no CPU
+fallback when it is a card that is missing). Not ported: meshes, FSDP and
+TP (`mesh_model`, `mesh_pipe`, `mesh_seq`, `param_placement`: ROADMAP.md,
+'Still to port', item 8), TensorBoard/wandb writers, the preemption
+handler and the profiler hook.
+"""
+from __future__ import annotations
+
+import csv as _csv
+import math
+import os
+import time
+from typing import Any, Callable, Dict
+
+import numpy as np
+import torch
+import yaml
+
+from .. import registry
+from ..data.loader import make_loader
+from ..utils import checkpoint as ckpt_lib
+from ..utils import common
+
+
+def cosine_warmup_schedule(base_lr: float, warmup_steps: int, max_steps: int,
+                           min_lr_mult: float) -> Callable[[int], float]:
+    def schedule(step: int) -> float:
+        if step <= warmup_steps:
+            return base_lr * (min_lr_mult + (1.0 - min_lr_mult) * step / max(warmup_steps, 1))
+        progress = (step - warmup_steps) / max(max_steps - warmup_steps, 1)
+        return base_lr * (min_lr_mult + (1.0 - min_lr_mult) * 0.5 * (math.cos(math.pi * progress) + 1.0))
+
+    return schedule
+
+
+def make_lr_schedule(opt_cfg, base_lr: float, steps_per_epoch: int,
+                     max_epoch: int) -> Callable[[int], float]:
+    lr_type = opt_cfg.get("lr_type", "cosine")
+    if lr_type == "cosine":
+        return cosine_warmup_schedule(
+            base_lr, warmup_steps=opt_cfg.get("warmup_epoch", 0) * steps_per_epoch,
+            max_steps=steps_per_epoch * max_epoch, min_lr_mult=opt_cfg.get("min_lr_mult", 0.1),
+        )
+    if lr_type == "step":  # the reference never applies its step multiplier: constant
+        return lambda step: base_lr
+    raise NotImplementedError(f"lr_type {lr_type}")
+
+
+@torch.no_grad()
+def ema_update(ema: Dict[str, torch.Tensor], params: Dict[str, torch.Tensor], decay: float) -> None:
+    """ema = ema * decay + params * (1 - decay), in place, in the EMA's dtype."""
+    for name, e in ema.items():
+        e.mul_(decay).add_(params[name].to(e.dtype), alpha=1.0 - decay)
+
+
+def _plain(cfg):
+    """A config (dicts, lists, scalars) as plain Python containers."""
+    if isinstance(cfg, dict):
+        return {k: _plain(v) for k, v in cfg.items()}
+    if isinstance(cfg, (list, tuple)):
+        return [_plain(v) for v in cfg]
+    return cfg
+
+
+class BaseTrainer:
+    def __init__(self, cfg, device=None):
+        self.cfg = cfg
+        self.device = torch.device(device if device is not None else cfg.get("device", "cuda"))
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"device {self.device} requested, but torch sees no CUDA device")
+        for knob in ("mesh_model", "mesh_pipe", "mesh_seq"):
+            if int(cfg.get(knob, 1)) > 1:
+                raise NotImplementedError(
+                    f"{knob} > 1 is not ported yet (ROADMAP.md, 'Still to port', item 8)")
+        if str(cfg.get("param_placement", "replicated")) != "replicated":
+            raise NotImplementedError(
+                "param_placement other than 'replicated' is not ported yet "
+                "(ROADMAP.md, 'Still to port', item 8)")
+        self.save_dir = cfg.get("save_dir", cfg.get("out_path", "save/run"))
+        common.ensure_path(self.save_dir)
+        with open(os.path.join(self.save_dir, "cfg.yaml"), "w") as f:
+            yaml.safe_dump(_plain(cfg), f, sort_keys=False)
+        self.logger = common.set_logger(os.path.join(self.save_dir, "log.txt"))
+
+        self.seed = int(cfg.get("manualSeed", 0) or 0)
+        np.random.seed(self.seed)
+        self.epoch = 0
+        self.global_step = 0
+        self.log_buffer = []
+        self.train_psnr = []
+        self.train_loss = []
+        ema_raw = str(cfg.get("ema_decay", "_"))
+        self.ema_decays = [float(x) for x in ema_raw.split("_") if x not in ("", "none")]
+
+    def log(self, msg: str):
+        self.logger.info(msg)
+
+    # ------------------------------------------------------------------- data
+
+    def make_datasets(self):
+        train_spec = self.cfg["train_dataset"]
+        self.train_dataset = registry.datasets.make(train_spec)
+        loader_cfg = train_spec.get("loader", {})
+        self.train_batch_size = int(loader_cfg.get("batch_size", 8))
+        self.train_workers = int(loader_cfg.get("num_workers", 0))
+        self.log(f"train dataset: {len(self.train_dataset)} samples, batch {self.train_batch_size}")
+        self.test_datasets: Dict[str, Any] = {}
+        test_spec = self.cfg.get("test_dataset")
+        if test_spec is not None:
+            for name, csv_path in test_spec.get("csv_paths", {}).items():
+                if not csv_path:
+                    continue
+                spec = {"name": test_spec["name"],
+                        "args": {**dict(test_spec.get("args", {})), "csv_file": csv_path,
+                                 "split": "test"}}
+                self.test_datasets[name] = registry.datasets.make(spec)
+                self.log(f"test dataset {name}: {len(self.test_datasets[name])} samples")
+            loader = test_spec.get("loader", {})
+            self.test_batch_size = int(loader.get("batch_size", self.train_batch_size))
+            self.test_workers = int(loader.get("num_workers", 0))
+
+    def train_loader(self, epoch: int):
+        """One epoch of batches; the order is a function of (manualSeed, epoch)."""
+        if getattr(self, "_train_loader", None) is None:
+            self._train_gen = torch.Generator()
+            self._train_loader = make_loader(self.train_dataset, self.train_batch_size,
+                                             self.train_workers, shuffle=True,
+                                             generator=self._train_gen)
+        self._train_gen.manual_seed(self.seed * 1_000_003 + epoch)
+        return iter(self._train_loader)
+
+    def test_loader(self, name: str):
+        return make_loader(self.test_datasets[name], self.test_batch_size, self.test_workers,
+                           shuffle=False, drop_last=False)
+
+    def steps_per_epoch(self) -> int:
+        """ONE definition of epoch length: the schedules and the loop agree on it."""
+        return max(len(self.train_dataset) // self.train_batch_size, 1)
+
+    # ------------------------------------------------------------ state hooks
+
+    def make_model(self):
+        raise NotImplementedError
+
+    def train_step(self, batch):
+        raise NotImplementedError
+
+    def evaluate_step(self, batch) -> Dict[str, float]:
+        raise NotImplementedError
+
+    def visualize_epoch(self):
+        pass
+
+    def state_for_checkpoint(self) -> Dict[str, Any]:
+        raise NotImplementedError
+
+    def load_state(self, state: Dict[str, Any]):
+        raise NotImplementedError
+
+    def checkpoint_meta(self) -> Dict[str, Any]:
+        return {"epoch": self.epoch, "global_step": self.global_step, "cfg": _plain(self.cfg)}
+
+    # ------------------------------------------------------------ checkpoints
+
+    def save_checkpoint(self, name: str):
+        path = os.path.join(self.save_dir, name)
+        t0 = time.time()
+        # the position goes into state.pth itself, so resume never pairs a
+        # state with the meta.json of another save
+        state = {**self.state_for_checkpoint(), "epoch": self.epoch,
+                 "global_step": self.global_step}
+        ckpt_lib.save_checkpoint(path, state, self.checkpoint_meta())
+        self.log(f"checkpoint saved to {path} ({time.time() - t0:.1f}s)")
+
+    def save_final_checkpoint(self):
+        """Slim export: parameters, EMA, loss parameters and step; no
+        optimizer or RNG state. `params` is the model's state_dict."""
+        state = self.state_for_checkpoint()
+        keep = {k: v for k, v in state.items()
+                if k in ("params", "ema_params", "loss_params", "step")}
+        path = os.path.join(self.save_dir, "epoch-final")
+        ckpt_lib.save_checkpoint(path, keep, self.checkpoint_meta())
+        self.log(f"final slim checkpoint saved to {path}")
+
+    def try_resume(self) -> bool:
+        path = os.path.join(self.save_dir, "epoch-last")
+        if not ckpt_lib.checkpoint_exists(path) or self.cfg.get("replace", False):
+            return False
+        state = ckpt_lib.restore_checkpoint(path)
+        self.load_state(state)
+        self.epoch = int(state["epoch"])
+        self.global_step = int(state["global_step"])
+        self.log(f"resumed from {path} at epoch {self.epoch}")
+        return True
+
+    def try_init_checkpoint(self):
+        """Warm start of the parameters (not the optimizers, not the epoch)
+        from cfg.init_checkpoint."""
+        path = str(self.cfg.get("init_checkpoint", "") or "")
+        if not path or not ckpt_lib.checkpoint_exists(path):
+            return
+        state = ckpt_lib.restore_checkpoint(path)
+        warm = self.state_for_checkpoint()
+        for k in ("params", "loss_params", "ema_params"):
+            if k in state and k in warm:
+                warm[k] = state[k]
+        self.load_state(warm)
+        self.log(f"warm-started params from {path}")
+
+    # ------------------------------------------------------------------ loops
+
+    def run(self):
+        self.make_datasets()
+        self.make_model()
+        resumed = self.try_resume()
+        if not resumed:
+            self.try_init_checkpoint()
+        self.starting_epoch = self.epoch + 1 if resumed else 1
+        self.train()
+
+    def train(self):
+        cfg = self.cfg
+        max_epoch = int(cfg["max_epoch"])
+        eval_epoch = int(cfg.get("eval_epoch", max_epoch + 1))
+        vis_epoch = int(cfg.get("vis_epoch", max_epoch + 1))
+        save_epoch = int(cfg.get("save_epoch", max_epoch + 1))
+        latest_interval = int(cfg.get("latest_interval", 1))
+        timer = common.EpochTimer(max_epoch)
+        self.n_steps_per_epoch = self.steps_per_epoch()
+        for epoch in range(self.starting_epoch, max_epoch + 1):
+            self.epoch = epoch
+            self.global_step = (epoch - 1) * self.n_steps_per_epoch
+            self.log_buffer = [f"Epoch {epoch}"]
+            self.t_data, self.t_model = 0.0, 0.0
+            st = time.time()
+            self.train_epoch()
+            self.log(f"Epoch {epoch} training done. Time: {time.time() - st:.2f}s")
+            if epoch % eval_epoch == 0:
+                self.evaluate_epoch()
+            if epoch % vis_epoch == 0:
+                self.visualize_epoch()
+            if epoch % save_epoch == 0:
+                self.save_checkpoint(f"epoch-{epoch}")
+            if epoch % latest_interval == 0:
+                self.save_checkpoint("epoch-last")
+            epoch_time, tot_time, est_time = timer.epoch_done()
+            d_ratio = self.t_data / (self.t_data + self.t_model + 1e-6)
+            self.log_buffer.append(f"{epoch_time} (d {d_ratio:.2f}) {tot_time}/{est_time}")
+            self.log(", ".join(self.log_buffer))
+        self.dump_csv()
+        if max_epoch >= self.starting_epoch:
+            self.save_final_checkpoint()
+
+    def train_epoch(self):
+        deferred = []  # (keys, device tensor): fetched once, at the end of the epoch
+        t1 = time.time()
+        for _, batch in zip(range(self.n_steps_per_epoch), self.train_loader(self.epoch)):
+            self.global_step += 1
+            t0 = time.time()
+            self.t_data += t0 - t1
+            deferred.append(self.train_step(batch))
+            self.t_model += time.time() - t0
+            t1 = time.time()
+        ave: Dict[str, common.Averager] = {}
+        for keys, packed in deferred:
+            for k, v in zip(keys, packed.tolist()):
+                ave.setdefault(k, common.Averager()).add(v)
+        self.log_buffer.append("train:" + "".join(f" {k}={v.item():.4f}" for k, v in ave.items()))
+        if "psnr" in ave:
+            self.train_psnr.append(ave["psnr"].item())
+        if "loss" in ave:
+            self.train_loss.append(ave["loss"].item())
+
+    def evaluate_epoch(self):
+        for name in self.test_datasets:
+            ave: Dict[str, common.Averager] = {}
+            for batch in self.test_loader(name):
+                for k, v in self.evaluate_step(batch).items():
+                    ave.setdefault(k, common.Averager()).add(float(v), n=len(batch["gt"]))
+            logtext = f"eval {name}:" + "".join(f" {k}={v.item():.4f}" for k, v in ave.items())
+            self.log_buffer.append(logtext)
+            self.log(logtext)
+
+    def dump_csv(self):
+        with open(os.path.join(self.save_dir, "results.csv"), "w", newline="") as f:
+            w = _csv.writer(f)
+            w.writerow(["epoch", "train_psnr", "train_loss"])
+            for i, (p, l) in enumerate(zip(self.train_psnr or [None] * len(self.train_loss),
+                                           self.train_loss or [None] * len(self.train_psnr))):
+                w.writerow([i + 1, p, l])

@@ -10,6 +10,9 @@ writes):
   * the patch kernel [(pt p p c), D] -> the Conv3d-shaped [D, C, pt, p, p];
   * fixed sin-cos PEs -> the model's own buffers (regenerated from `sincos`).
 
+`loss_state_dict_from_jax(loss_params, loss_ema, module)` does the same for
+the tokenizer trainer's loss module (discriminator, LPIPS, LeCam EMAs).
+
 `ar_state_dict_from_jax(params, model)` does the same for a `LARP_AR` prior,
 under the names `export_larp_ar` writes: Dense kernels -> `weight` [out, in],
 RMSNorm `scale` -> `weight`, the token and class tables, `abs_pe`; a
@@ -111,6 +114,39 @@ def state_dict_from_jax(params: Dict[str, Any], model) -> Dict[str, torch.Tensor
     for name, buf in model.named_buffers():
         out.setdefault(name, buf.detach().cpu().clone())
     return out
+
+
+def loss_state_dict_from_jax(loss_params: Dict[str, Any], loss_ema: Dict[str, Any],
+                             module) -> Dict[str, torch.Tensor]:
+    """Flax `VQLPIPSWithDiscriminator` params and its 'ema' collection ->
+    the state_dict of the port's `module`: the transformer discriminator, the
+    LPIPS VGG convs (HWIO -> OIHW, under the lpips package's
+    `net.slice{n}.{torchvision index}` names), the `lin{i}` heads, and the
+    LeCam EMAs."""
+    from ..models.lpips import CONV_INDICES, SLICE_ENDS
+
+    sd: Dict[str, np.ndarray] = {}
+    disc, p = loss_params["discriminator"], "discriminator"
+    embed = module.discriminator.x_embedder
+    patch = (embed.p, embed.p) if not hasattr(embed, "pt") else (embed.pt, embed.p, embed.p)
+    patch_embed_from_jax(sd, f"{p}.x_embedder.proj", disc["x_embedder"]["proj"], patch,
+                         module.discriminator.in_channels)
+    sd[f"{p}.cls_token"] = _f32(disc["cls_token"])
+    vit_stack_from_jax(sd, f"{p}.transformer_encoder", disc["transformer_encoder"])
+    layernorm_from_jax(sd, f"{p}.norm_final", disc["norm_final"])
+    linear_from_jax(sd, f"{p}.fc", disc["fc"])
+
+    lp = loss_params["perceptual"]
+    for ci, idx in enumerate(CONV_INDICES):
+        n = next(i for i, end in enumerate(SLICE_ENDS) if idx < end) + 1
+        conv = lp["net"][f"conv{ci}"]
+        sd[f"perceptual.net.slice{n}.{idx}.weight"] = _f32(conv["kernel"]).transpose(3, 2, 0, 1)
+        sd[f"perceptual.net.slice{n}.{idx}.bias"] = _f32(conv["bias"])
+    for i in range(len(SLICE_ENDS)):
+        sd[f"perceptual.lin{i}.model.1.weight"] = _f32(lp[f"lin{i}"]).reshape(1, -1, 1, 1)
+    for name in ("lecam_ema_real", "lecam_ema_fake"):
+        sd[name] = _f32(loss_ema[name])
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
 
 
 def _ar_linear(sd: Dict[str, np.ndarray], prefix: str, tree: Dict[str, Any]) -> None:
