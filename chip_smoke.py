@@ -49,14 +49,43 @@ Phases, each of which raises on failure (exit code 1, no result line):
  12. tokenizer training through the port's trainer at batch 8, bf16 and
      fp32: s/step, clips/s, peak memory, exact launch counts of the four
      training-path kernels, device idle share and time by kernel category
-     from torch.profiler.
-Prints the training numbers and every kernel's numbers as JSON lines, the
+     from torch.profiler;
+ 13. the chunk-attention kernel (the verify forward of speculative decoding)
+     against its plain version at the 632M prior's verify shape (B = 16,
+     G = 5, H = 20, D = 64, S = 1152) and the draft's (H = 12, G = 1 and 2),
+     rows at positions 0..1024, bf16, fp32 and int8 caches, GQA, key-valid,
+     each row within about one ulp of its output, a bound that the plain
+     version at pos - 1 or pos + 1 exceeds;
+ 14. the per-row KV row-write kernel against its plain version: bf16, fp32
+     and int8 caches, G = 1, 2, 5, uneven positions, strided row views: whole
+     buffers equal bit for bit (the written rows and scales, and every other
+     byte unchanged);
+ 15. `decode_chunk` against sequential `decode_step`s on the full-width prior
+     in fp32 (TF32 off), forced tokens, rows at different positions, fp32 and
+     int8 KV caches; greedy fp32 speculative decoding against `generate`;
+ 16. speculative sampling with the full-width pair (632M target, 8 x 768
+     draft), batch 8, CFG 1.5, top-k 100, 1024 tokens, gamma 4, bf16 and int8
+     weights + int8 KV: the acceptance ceiling (zero heads: acceptance 1.0 in
+     exactly 205 iterations), the floor (independent sharp heads) and
+     self-drafting with the prior's first 8 layers: tokens/s beside plain
+     `generate`'s, acceptance, ms per iteration, device time of one
+     iteration's forwards, exact launch counts (no one-token decode
+     attention), one host wait per iteration, the crossover acceptance;
+ 17. distillation of the full-width draft against the prior, 10 steps: the
+     soft cross-entropy falls; launch counts of the flash forward, dQ and
+     dK/dV kernels from the draft's 8 layers.
+Every kernel phase also times one PyTorch call that computes the same
+function (`library_ms`: SDPA and its autograd backward, a matmul + argmax,
+`index_put_`), which the port uses nowhere, and computes the kernel's bound
+from the published peaks (3.35 TB/s, 989 TFLOP/s bf16, 67 TFLOP/s fp32).
+Prints the training, sampling and every kernel's numbers as JSON lines, the
 card's name and power limit, and last {"ok": true, "device": {...}}. Needs
 one CUDA device.
 """
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -121,6 +150,22 @@ def graph_ms(fn, launches: int = 20, replays: int = 10) -> float:
     return start.elapsed_time(end) / (replays * launches)
 
 
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published peaks (dense)
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+
+
+def bound(n_bytes: float, flops: float = 0.0, kind: str = "bf16") -> dict:
+    """The least time the card could take: the larger of the bytes the
+    function must move (each input read once, each output written once) over
+    the memory rate and its operations over the peak rate for their type."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[kind] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
 def phase_build() -> None:
     from video_tokenizer_tpu_torch.ops import _build
 
@@ -135,6 +180,7 @@ def phase_build() -> None:
 
 def phase_flash(records: dict) -> None:
     import torch
+    import torch.nn.functional as F
 
     from video_tokenizer_tpu_torch.ops.attention import attention_reference, flash_attn_fwd
 
@@ -190,9 +236,17 @@ def phase_flash(records: dict) -> None:
             plain_ms = median_ms(lambda: attention_reference(q, k, v), iters=5)
             lse_ms = median_ms(lambda: flash_attn_fwd(q, k, v, return_lse=True))
             flops = 4 * B * H * Sq * Sk * D
+            # one PyTorch call for the same function, timed here and used
+            # nowhere in the port
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            library_ms = median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+            bnd = bound(_nbytes(q, k, v, got), flops)
             log(f"[flash] flagship: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
-                f"with LSE {lse_ms:.3f} ms, plain (out and LSE) {plain_ms:.3f} ms (median)")
-            records["flash_attn_fwd"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                f"with LSE {lse_ms:.3f} ms, bound {bnd['bound_ms']:.3f} ms ({bnd['bound_by']}), "
+                f"plain (out and LSE) {plain_ms:.3f} ms, library call (SDPA) {library_ms:.3f} ms "
+                f"(median)")
+            records["flash_attn_fwd"] = {"max_abs_err": err, "ms": ms, "lse_ms": lse_ms,
+                                         "plain_ms": plain_ms, "library_ms": library_ms, **bnd}
         if name == "ar_nll_causal":
             ms = median_ms(lambda: flash_attn_fwd(q, k, v, causal=True))
             plain_ms = median_ms(lambda: attention_reference(q, k, v, True), iters=5)
@@ -207,6 +261,7 @@ def phase_flash_bwd(records: dict) -> None:
     wrong LSE from the forward kernel cannot pass). Plus the autograd path
     and the refusal of attention_with_lse under grad."""
     import torch
+    import torch.nn.functional as F
 
     from video_tokenizer_tpu_torch.ops.attention import (
         attention, attention_bwd_reference, attention_reference, attention_with_lse,
@@ -284,11 +339,28 @@ def phase_flash_bwd(records: dict) -> None:
                 f"({flops / (dq_ms + dkv_ms) / 1e9:.1f} TFLOP/s of the backward's 5 products "
                 f"over both), plain backward (dq, dk, dv) {plain_ms:.3f} ms (median)")
             if name == "tokenizer":
+                # the library's call for the same gradients: autograd through
+                # SDPA, ONE backward for dq, dk and dv together (both kernels'
+                # rows carry its time); timed here, used nowhere in the port
+                ql, kl, vl = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
+                out_l, do_l = F.scaled_dot_product_attention(ql, kl, vl), do.transpose(1, 2)
+                library_ms = median_ms(
+                    lambda: torch.autograd.grad(out_l, (ql, kl, vl), do_l, retain_graph=True))
+                del out_l
+                # dQ recomputes S and dP and forms dQ (three products), dK/dV
+                # S, dP, dV and dK (four); each reads q, k, v, dO, LSE, delta
+                unit, read = 2 * B * H * Sq * Sk * D, _nbytes(q, k, v, do, lse, delta)
+                bnd_dq, bnd_dkv = bound(read + _nbytes(q), 3 * unit), bound(read + _nbytes(k, v), 4 * unit)
+                log(f"[flash bwd] tokenizer: bounds dQ {bnd_dq['bound_ms']:.3f} ms, dK/dV "
+                    f"{bnd_dkv['bound_ms']:.3f} ms (operations); library call (autograd through "
+                    f"SDPA, dq + dk + dv in one backward) {library_ms:.3f} ms (median)")
                 records["flash_attn_bwd_dq"] = {"max_abs_err": abs_errs[0], "max_rel_err": errs[0],
-                                                "ms": dq_ms, "plain_ms": plain_ms}
+                                                "ms": dq_ms, "plain_ms": plain_ms,
+                                                "library_ms": library_ms, **bnd_dq}
                 records["flash_attn_bwd_dkv"] = {"max_abs_err": max(abs_errs[1:]),
                                                  "max_rel_err": max(errs[1:]), "ms": dkv_ms,
-                                                 "plain_ms": plain_ms}
+                                                 "plain_ms": plain_ms, "library_ms": library_ms,
+                                                 **bnd_dkv}
             else:
                 records["flash_attn_bwd_dq"].update(disc_ms=dq_ms, disc_plain_ms=plain_ms)
                 records["flash_attn_bwd_dkv"].update(disc_ms=dkv_ms, disc_plain_ms=plain_ms)
@@ -361,8 +433,13 @@ def phase_vq(records: dict) -> None:
         if name == "flagship_cos":
             ms = median_ms(lambda: vq_argmax(z, emb, bias))
             plain_ms = median_ms(lambda: vq_lookup_reference(z, emb, bias))
-            log(f"[vq] flagship: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median)")
-            records["vq_argmax"] = {"max_abs_err": gap, "ms": ms, "plain_ms": plain_ms}
+            library_ms = median_ms(lambda: (z @ emb.T).argmax(-1))  # timed here, used nowhere
+            bnd = bound(_nbytes(z, emb, got), 2 * M * K * d, "fp32")
+            log(f"[vq] flagship: kernel {ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+                f"({bnd['bound_by']}, fp32), plain {plain_ms:.4f} ms, library call "
+                f"((z @ e.T).argmax) {library_ms:.4f} ms (median)")
+            records["vq_argmax"] = {"max_abs_err": gap, "ms": ms, "plain_ms": plain_ms,
+                                    "library_ms": library_ms, **bnd}
 
     # stochastic (Gumbel-max) mode: the kernel and the plain version draw the
     # same Philox bits, so they agree index for index but for rows whose top
@@ -428,6 +505,7 @@ def phase_vq(records: dict) -> None:
 
 def phase_decode_attention(records: dict) -> None:
     import torch
+    import torch.nn.functional as F
 
     from video_tokenizer_tpu_torch.ops.decode_attention import (
         _quantize_rows, decode_attention, decode_attention_reference,
@@ -490,14 +568,218 @@ def phase_decode_attention(records: dict) -> None:
                 ms = graph_ms(lambda: decode_attention(q, k, v, pos_t, **kw))
                 plain_ms = graph_ms(lambda: decode_attention_reference(q, k, v, pos_t, **kw))
                 call_ms = median_ms(lambda: decode_attention(q, k, v, pos_t, **kw), iters=50)
-                live = B * (pos + 1) * Hkv * D * 2 * k.element_size()
-                log(f"[decode] {name} at pos 1024: kernel {ms:.4f} ms ({live / ms / 1e6:.0f} GB/s "
-                    f"of live K+V), plain {plain_ms:.4f} ms (device time, CUDA-graph replay); "
-                    f"one eager call with its host launch path {call_ms:.4f} ms (median)")
+                live = B * (pos + 1) * (Hkv * D * 2 * k.element_size() + (8 if ks is not None else 0))
+                bnd = bound(live + _nbytes(q, got))
+                library_ms = None
                 if name == "lp_bf16":
-                    records["decode_attention"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                    # one PyTorch call for the same function: SDPA on [B, H, S, D]
+                    # views of the cache with a [B, 1, 1, S] boolean mask (none for
+                    # an int8 cache); timed here, used nowhere in the port
+                    qt = q[:, :, None]
+                    kt, vt = (t.view(B, S, Hkv, D).transpose(1, 2) for t in (k, v))
+                    mask = (torch.arange(S, device="cuda") <= pos).expand(B, 1, 1, S)
+                    library_ms = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+                log(f"[decode] {name} at pos 1024: kernel {ms:.4f} ms ({live / ms / 1e6:.0f} GB/s "
+                    f"of live K+V), bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), plain "
+                    f"{plain_ms:.4f} ms, library call (SDPA with a mask) "
+                    f"{'none for int8' if library_ms is None else f'{library_ms:.4f} ms'} (device "
+                    f"time, CUDA-graph replay); one eager call with its host launch path "
+                    f"{call_ms:.4f} ms (median)")
+                if name == "lp_bf16":
+                    records["decode_attention"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                                   "library_ms": library_ms, **bnd}
                 else:
-                    records["decode_attention"].update(int8_ms=ms, int8_plain_ms=plain_ms)
+                    records["decode_attention"].update(int8_ms=ms, int8_plain_ms=plain_ms,
+                                                       int8_bound_ms=bnd["bound_ms"])
+
+
+def phase_chunk_attention(records: dict) -> None:
+    """The chunk-attention kernel against its plain version at the verify and
+    draft shapes of speculative decoding with the 632M prior: B = 16 rows at
+    uneven positions, S = 1152, queries read in place from a fused qkv
+    projection."""
+    import torch
+    import torch.nn.functional as F
+
+    from video_tokenizer_tpu_torch.ops.decode_attention import (
+        _quantize_rows, chunk_attention, chunk_attention_reference,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    # As for the one-token kernel: both sides compute in fp32 and round the
+    # output once, so the bound is relative to max|plain| (bf16 and int8
+    # caches 1e-2, fp32 1e-5), capped by the JAX interpret tests' absolute
+    # bounds, here PER ROW: a row at pos 1024 has outputs ~30x smaller than a
+    # row at pos 0, and its bound must still fail a kernel that reads one key
+    # too few or too many (the plain version at pos - 1 and pos + 1 misses it).
+    tols = {torch.bfloat16: (2e-2, 1e-2), torch.int8: (5e-2, 1e-2), torch.float32: (1e-4, 1e-5)}
+    B, S = 16, 1152
+    # 0, around the 128-key splits, rows that differ by hundreds, the end
+    pos = torch.tensor([0, 1, 127, 128, 129, 255, 256, 300, 511, 512, 640, 767, 900, 1023, 1024,
+                        1024], dtype=torch.int32, device="cuda")
+    for name, G, H, Hkv, D, cache_dtype, key_valid in (
+        ("verify_bf16", 5, 20, 20, 64, torch.bfloat16, False),
+        ("verify_int8", 5, 20, 20, 64, torch.int8, False),
+        ("verify_fp32", 5, 20, 20, 64, torch.float32, False),
+        ("draft_g1_bf16", 1, 12, 12, 64, torch.bfloat16, False),
+        ("draft_g2_int8", 2, 12, 12, 64, torch.int8, False),
+        ("gqa_20_over_5", 5, 20, 5, 64, torch.bfloat16, False),
+        ("key_valid", 5, 20, 20, 64, torch.bfloat16, True),
+        ("d128_gqa_int8_valid", 3, 8, 2, 128, torch.int8, True),
+    ):
+        q_dtype = torch.float32 if cache_dtype == torch.float32 else torch.bfloat16
+        qkv = torch.randn(B, G, (H + 2 * Hkv) * D, generator=gen, device="cuda").to(q_dtype)
+        q = qkv[..., : H * D].unflatten(-1, (H, D))  # a strided view, as the model gives it
+        kf = torch.randn(B, S, Hkv * D, generator=gen, device="cuda")
+        vf = torch.randn(B, S, Hkv * D, generator=gen, device="cuda")
+        ks = vs = None
+        if cache_dtype == torch.int8:
+            (k, ks), (v, vs) = _quantize_rows(kf), _quantize_rows(vf)
+        else:
+            k, v = kf.to(cache_dtype), vf.to(cache_dtype)
+        valid = None
+        if key_valid:
+            valid = torch.rand(B, S, generator=gen, device="cuda") > 0.3
+            own = pos[:, None].long() + torch.arange(G, device="cuda")
+            valid.scatter_(1, own, True)  # the chunk's own keys stay valid
+        kw = dict(key_valid=valid, k_scale=ks, v_scale=vs, kv_heads=Hkv)
+        got = chunk_attention(q, k, v, pos, **kw)
+        torch.cuda.synchronize()
+        want = chunk_attention_reference(q, k, v, pos, **kw)
+        require(got.shape == want.shape and got.dtype == want.dtype, f"chunk {name}: shape or dtype")
+        require(torch.isfinite(got).all().item(), f"chunk {name}: non-finite output")
+        cap, rel = tols[cache_dtype]
+        err = (got.float() - want.float()).abs().flatten(1).amax(1)  # [B]
+        tol = torch.clamp(rel * want.float().abs().flatten(1).amax(1), max=cap)
+        near = torch.minimum(*(
+            (got.float() - chunk_attention_reference(q, k, v, p, **kw).float()).abs().flatten(1).amax(1)
+            for p in ((pos - 1).clamp(min=0), pos + 1)))
+        near = torch.where(pos > 0, near, torch.inf)  # pos - 1 of row 0 is row 0 itself
+        worst = int((err / tol).argmax())
+        log(f"[chunk] {name}: B={B} G={G} H={H} Hkv={Hkv} D={D} S={S} {str(cache_dtype)[6:]} "
+            f"cache, pos {pos.min().item()}..{pos.max().item()} per row: max|kernel-plain| "
+            f"{err.max().item():.3e}; closest to its row's bound at pos {pos[worst].item()}: "
+            f"{err[worst].item():.3e} (tol {tol[worst].item():.3e}); the plain version at pos "
+            f"-/+ 1 misses each row's bound by a factor >= {(near / tol).min().item():.1f}")
+        require(bool((err <= tol).all()), f"chunk {name}: errors {err.tolist()} > {tol.tolist()}")
+        require(bool((near > tol).all()), f"chunk {name}: a row's bound does not tell pos from pos -/+ 1")
+        if name in ("verify_bf16", "verify_int8"):
+            # every row at the end of a 1024-token sample: pos + G = 1029 live keys
+            full = torch.full((B,), 1024, dtype=torch.int32, device="cuda")
+            ms = graph_ms(lambda: chunk_attention(q, k, v, full, **kw))
+            plain_ms = graph_ms(lambda: chunk_attention_reference(q, k, v, full, **kw), launches=5)
+            live = B * (1024 + G) * (Hkv * D * 2 * k.element_size() + (8 if ks is not None else 0))
+            bnd = bound(live + _nbytes(got, got, full))  # + the queries and the output
+            library_ms = None
+            if cache_dtype == torch.bfloat16:
+                # one PyTorch call for the same function: SDPA on [B, H, S, D]
+                # views of the cache with a [B, 1, G, S] boolean mask (there is
+                # none for an int8 cache); timed here, used nowhere in the port
+                qt = q.transpose(1, 2)
+                kt, vt = (t.view(B, S, Hkv, D).transpose(1, 2) for t in (k, v))
+                mask = (torch.arange(S, device="cuda") <=
+                        (full[:, None] + torch.arange(G, device="cuda"))[:, :, None])[:, None]
+                lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask).transpose(1, 2)
+                lib_err = (lib.float() - chunk_attention(q, k, v, full, **kw).float()).abs().max().item()
+                require(lib_err <= 2e-2, f"chunk {name}: the library call computes another function ({lib_err})")
+                library_ms = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+            log(f"[chunk] {name}, every row at pos 1024: kernel {ms:.4f} ms "
+                f"({live / ms / 1e6:.0f} GB/s of live K+V), bound {bnd['bound_ms']:.4f} ms "
+                f"({bnd['bound_by']}), plain {plain_ms:.4f} ms, library call (SDPA with a mask) "
+                f"{'none for int8' if library_ms is None else f'{library_ms:.4f} ms'} "
+                f"(device time, CUDA-graph replay)")
+            if name == "verify_bf16":
+                records["chunk_attention"] = {"max_abs_err": err.max().item(), "ms": ms,
+                                              "plain_ms": plain_ms, "library_ms": library_ms, **bnd}
+            else:
+                records["chunk_attention"].update(int8_ms=ms, int8_plain_ms=plain_ms,
+                                                  int8_bound_ms=bnd["bound_ms"])
+
+
+def phase_cache_update(records: dict) -> None:
+    """The per-row KV row-write kernel against its plain version: the written
+    rows and scales equal bit for bit and every other byte of the caches
+    unchanged (whole buffers are compared), rows read in place from a fused
+    qkv projection, uneven positions, one row that runs past the cache."""
+    import torch
+
+    from video_tokenizer_tpu_torch.ops.cache_update import write_rows_per_row, write_rows_reference
+    from video_tokenizer_tpu_torch.ops.decode_attention import _quantize_rows
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    B, S = 16, 1152
+    pos = torch.tensor([0, 1, 127, 128, 129, 255, 256, 300, 511, 512, 640, 767, 900, 1023, 1024,
+                        S - 2], dtype=torch.int32, device="cuda")  # the last row runs past S for G > 2
+    n_cases = 0
+    for KV, H in ((1280, 20), (768, 12)):
+        for cache_dtype, rows_dtype in ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+                                        (torch.int8, torch.bfloat16), (torch.int8, torch.float32),
+                                        (torch.bfloat16, torch.float32)):
+            for G in (1, 2, 5):
+                qkv = (torch.randn(B, G, 3 * KV, generator=gen, device="cuda") * 3).to(rows_dtype)
+                if cache_dtype == torch.int8:
+                    qkv[0, 0, KV : 2 * KV] = 0  # an all-zero row: the 1e-8 scale floor
+                rows_k, rows_v = qkv[..., KV : 2 * KV], qkv[..., 2 * KV :]
+                lc = {}
+                for name in ("k", "v"):  # caches full of other values, to see what is touched
+                    old = torch.randn(B, S, KV, generator=gen, device="cuda")
+                    if cache_dtype == torch.int8:
+                        lc[name], lc[name + "s"] = _quantize_rows(old)
+                    else:
+                        lc[name] = old.to(cache_dtype)
+                want = write_rows_reference({n: t.clone() for n, t in lc.items()}, rows_k, rows_v, pos)
+                before = {n: t.clone() for n, t in lc.items()}
+                write_rows_per_row(lc, rows_k, rows_v, pos)
+                torch.cuda.synchronize()
+                for n in lc:
+                    require(torch.equal(lc[n], want[n]),
+                            f"cache update KV={KV} {cache_dtype} from {rows_dtype} G={G}: '{n}' differs "
+                            f"from the plain version in {(lc[n] != want[n]).sum().item()} places")
+                    require(not torch.equal(lc[n], before[n]), f"cache update: '{n}' was not written")
+                n_cases += 1
+    log(f"[cache update] {n_cases} cases (KV 1280 and 768; bf16, fp32 and int8 caches from bf16 and "
+        f"fp32 rows; G = 1, 2, 5; B={B}, S={S}, uneven pos, a row past the end skipped): K, V and "
+        f"scale buffers equal the plain version's bit for bit, whole buffers compared")
+
+    # times at the verify shape: G = 5 rows of 1280 into bf16 and int8 caches
+    pos = torch.full((B,), 1020, dtype=torch.int32, device="cuda")
+    G, KV = 5, 1280
+    qkv = torch.randn(B, G, 3 * KV, generator=gen, device="cuda").bfloat16()
+    rows_k, rows_v = qkv[..., KV : 2 * KV], qkv[..., 2 * KV :]
+    bidx = torch.arange(B, device="cuda")[:, None].expand(B, G)
+    at = pos[:, None].long() + torch.arange(G, device="cuda")
+    for name, cache_dtype in (("bf16", torch.bfloat16), ("int8", torch.int8)):
+        lc = {n: torch.zeros(B, S, KV, dtype=cache_dtype, device="cuda") for n in ("k", "v")}
+        if cache_dtype == torch.int8:
+            lc.update(ks=torch.zeros(B, S, device="cuda"), vs=torch.zeros(B, S, device="cuda"))
+
+        def library():  # one index_put_ per buffer, after the port's _quantize_rows for int8
+            for n, rows in (("k", rows_k), ("v", rows_v)):
+                if cache_dtype == torch.int8:
+                    q8, scale = _quantize_rows(rows)
+                    lc[n].index_put_((bidx, at), q8)
+                    lc[n + "s"].index_put_((bidx, at), scale)
+                else:
+                    lc[n].index_put_((bidx, at), rows)
+
+        ms = graph_ms(lambda: write_rows_per_row(lc, rows_k, rows_v, pos))
+        library_ms = graph_ms(library)
+        # the plain version selects the in-range rows with a boolean mask, which
+        # waits for the device: it cannot be captured, so its time is an eager
+        # call's, host launch path included
+        plain_ms = median_ms(lambda: write_rows_reference(lc, rows_k, rows_v, pos), iters=20)
+        moved = 2 * B * G * KV * (2 + lc["k"].element_size()) + (2 * B * G * 4 if "ks" in lc else 0)
+        bnd = bound(moved + _nbytes(pos))
+        log(f"[cache update] {name} cache, [16, 5, 1280] bf16 rows: kernel {ms:.4f} ms, bound "
+            f"{bnd['bound_ms']:.6f} ms ({bnd['bound_by']}: {moved / 1e6:.2f} MB), library call "
+            f"(index_put_{' after _quantize_rows' if 'ks' in lc else ''}) {library_ms:.4f} ms "
+            f"(device time, CUDA-graph replay); plain {plain_ms:.4f} ms (one eager call)")
+        if name == "bf16":
+            records["cache_update"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                                       "library_ms": library_ms, **bnd}
+        else:
+            records["cache_update"].update(int8_ms=ms, int8_plain_ms=plain_ms,
+                                           int8_library_ms=library_ms, int8_bound_ms=bnd["bound_ms"])
 
 
 def phase_w8_matmul(records: dict) -> None:
@@ -542,7 +824,14 @@ def phase_w8_matmul(records: dict) -> None:
             if dtype == torch.bfloat16:
                 worst_abs, worst_rel = max(worst_abs, abs_err), max(worst_rel, rel)
                 if name == "wqkv":
-                    records["w8_matmul"] = {"ms": ms, "plain_ms": plain_ms}
+                    # one PyTorch expression for the same function (it writes a
+                    # bf16 copy of the weight); timed here, used nowhere in the port
+                    library_ms = graph_ms(lambda: (x @ w.t().to(torch.bfloat16)) * scale, launches=n)
+                    bnd = bound(_nbytes(x, w, scale, got), 2 * M * K * N)
+                    log(f"[w8] wqkv: bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}: the int8 "
+                        f"weight read once), library call (x @ w8.to(bf16) * s) {library_ms:.4f} ms")
+                    records["w8_matmul"] = {"ms": ms, "plain_ms": plain_ms,
+                                            "library_ms": library_ms, **bnd}
     records["w8_matmul"].update(max_abs_err=worst_abs, max_rel_err=worst_rel)
 
 
@@ -791,8 +1080,298 @@ def phase_ar_sampling(model_fp32, tokenizer, records: dict) -> None:
         require(torch.isfinite(video).all().item(), f"sample {name}: non-finite video")
         require(launches == want, f"sample {name}: launch counts {launches}, expected {want}")
         results[name] = launches
+        records.setdefault("sampling", {})[name] = tok_s
     records["decode_attention"]["launches"] = results["int8_kv8"]["decode_attention"]
     records["w8_matmul"]["launches"] = results["int8"]["w8_matmul"]
+
+
+def phase_decode_chunk_fp32(model) -> None:
+    """`decode_chunk` against sequential `decode_step`s on the full-width prior
+    in fp32 (TF32 off), forced tokens, rows at different positions: a batch-4
+    cache is grown by 12 uniform steps, then one chunk of 5 tokens goes to
+    positions pos[b].. of each row; each row alone (batch 1, grown to its own
+    pos by one-token steps, then 5 more) is the reference."""
+    import torch
+
+    cond = torch.tensor([3, 7, 50, 101], device="cuda")
+    gen = torch.Generator().manual_seed(SEED + 50)
+    pre = torch.randint(0, 8192, (4, 12), generator=gen).cuda()
+    toks = torch.randint(0, 8192, (4, 5), generator=gen).cuda()
+    pos = torch.tensor([1, 4, 9, 13], dtype=torch.int32, device="cuda")  # T = 1: pos <= 1 + 12
+    # fp32 cache: sums in another order (GEMMs of 20 rows against 1), 1e-3 of
+    # the logit scale as phase 8. int8 cache: a rounding flip of an int8 K/V
+    # value moves later layers' inputs by 1/127 of a row's amax and cascades:
+    # 3e-2, as phase 8 measured and bounds it.
+    for name, cache_dtype, tol in (("fp32 cache", torch.float32, 1e-3), ("int8 KV", torch.int8, 3e-2)):
+        with torch.inference_mode():
+            cache = model.init_cache(4, 1 + 1024 + 4, cache_dtype)
+            model.prefill(cond, cache)
+            for g in range(12):
+                model.decode_step(pre[:, g : g + 1], 1 + g, cache)
+            got, _ = model.decode_chunk(toks, pos, cache)
+            want = []
+            for r in range(4):
+                solo = model.init_cache(1, 1 + 1024 + 4, cache_dtype)
+                model.prefill(cond[r : r + 1], solo)
+                for g in range(int(pos[r]) - 1):
+                    model.decode_step(pre[r : r + 1, g : g + 1], 1 + g, solo)
+                want.append(torch.cat([
+                    model.decode_step(toks[r : r + 1, g : g + 1], int(pos[r]) + g, solo)[0]
+                    for g in range(5)], dim=1))
+            want = torch.cat(want)
+        torch.cuda.synchronize()
+        err, scale = (got - want).abs().max().item(), want.abs().max().item()
+        agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+        log(f"[chunk fp32] {name}: decode_chunk of 5 tokens at pos {pos.tolist()} vs 5 decode_steps "
+            f"per row: max|chunk-steps| logit {err:.3e} = {err / scale:.2e} of max|logit| "
+            f"{scale:.3e} (tol {tol:g}); argmax agreement {agree:.2%}")
+        require(tuple(got.shape) == (4, 5, 8192) and torch.isfinite(got).all().item(),
+                f"decode_chunk {name}: shape or non-finite logits")
+        require(err <= tol * scale, f"decode_chunk {name}: logit error {err} > {tol * scale}")
+
+
+def _set_head(model, weight) -> None:
+    """Overwrites the output head (zero-initialised in a fresh model) in place."""
+    import torch
+
+    with torch.no_grad():
+        model.output.weight.copy_(weight)
+
+
+def _sharp_heads():
+    """Independent sharp output heads for the target and the draft (std 0.11,
+    the head_std of the JAX package's speculative benchmark)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED + 60)
+    return 0.11 * torch.randn(8192, 1280, generator=gen), 0.11 * torch.randn(8192, 768, generator=gen)
+
+
+def phase_speculative_greedy(ar_fp32, draft_fp32) -> None:
+    """Greedy decoding in fp32 (TF32 off) with sharp heads, 64 tokens at batch
+    8: speculative == `generate` token for token, but for near-ties of the
+    target's top two logits (the verify chunk and the single step are GEMMs
+    of other shapes, so a tie may break the other way and the rows then part).
+    The target's own head is put back afterwards."""
+    import torch
+
+    from video_tokenizer_tpu_torch.generation import generate, speculative_generate
+
+    B, gamma = 8, 4
+    labels = torch.tensor([0, 5, 17, 33, 50, 64, 88, 100], device="cuda")
+    sharp_t, sharp_d = _sharp_heads()
+    own_head = ar_fp32.output.weight.detach().clone()
+    _set_head(ar_fp32, sharp_t)
+    _set_head(draft_fp32, sharp_d)
+    want = generate(ar_fp32, labels, 64, sample_logits=False)
+    with torch.inference_mode():
+        logits, _ = ar_fp32(want[:, :-1], labels)  # [B, 64, V]: row i predicts token i
+    scale = logits.abs().max().item()
+    # the separate draft never guesses the target's argmax (every token is a
+    # correction at slot 0); the target as its own draft has every proposal
+    # accepted, so the verify chunk's later slots and the bonus draw decide
+    for name, dm in (("separate draft", draft_fp32), ("the target as its own draft", ar_fp32)):
+        got, stats = speculative_generate(ar_fp32, dm, labels, 64, gamma=gamma,
+                                          sample_logits=False, return_stats=True)
+        differ, worst_gap = 0, 0.0
+        for b in range(B):
+            idx = (got[b] != want[b]).nonzero()
+            if len(idx):
+                i = int(idx[0])
+                gap = (logits[b, i, want[b, i]] - logits[b, i, got[b, i]]).abs().item()
+                differ, worst_gap = differ + 1, max(worst_gap, gap)
+        log(f"[spec greedy fp32] {name}, 64 tokens, batch {B}: {B - differ} of {B} rows equal "
+            f"generate token for token; the others first differ at a logit gap of at most "
+            f"{worst_gap:.2e} (tol 1e-3 of max|logit| {scale:.2f}); acceptance "
+            f"{float(stats['acceptance_rate']):.3f}, {stats['iterations']} iterations")
+        require(worst_gap <= 1e-3 * scale,
+                f"greedy speculative ({name}) differs from generate at a gap {worst_gap}")
+    _set_head(ar_fp32, own_head)
+
+
+def phase_speculative(target, draft, tokenizer, records: dict) -> None:
+    """Speculative sampling with the full-width pair (632M llama-abs-LP target,
+    ~70M draft of 8 layers x 768), batch 8, CFG 1.5, top-k 100, 1024 tokens,
+    gamma 4, in bf16 and with int8 weights + int8 KV, three constructions that
+    bracket the acceptance rate a trained pair would have:
+      ceiling     both output heads zero: both distributions uniform, every
+                  proposal accepted, ceil(1023 / 5) = 205 iterations;
+      floor       independent sharp heads (std 0.11): uncorrelated peaked
+                  distributions, acceptance near 0;
+      self_draft  the target's own first 8 layers and its sharp head.
+    `target` and `draft` arrive on the card and are cast to bf16 in place.
+    Also: two short runs under the CUDA sync debug mode (the loop reads one
+    scalar per iteration on the host)."""
+    import warnings
+
+    import torch
+
+    from video_tokenizer_tpu_torch.generation import self_draft, speculative_generate
+    from video_tokenizer_tpu_torch.models.larp_ar import quantize_model
+    from video_tokenizer_tpu_torch.ops.attention import flash_attn_fwd
+    from video_tokenizer_tpu_torch.ops.cache_update import write_rows_per_row
+    from video_tokenizer_tpu_torch.ops.decode_attention import chunk_attention, decode_attention
+    from video_tokenizer_tpu_torch.ops.quant_matmul import w8_matmul
+
+    kernels = (flash_attn_fwd, decode_attention, w8_matmul, chunk_attention, write_rows_per_row)
+    B, new, gamma = 8, 1024, 4
+    labels = torch.tensor([0, 5, 17, 33, 50, 64, 88, 100], device="cuda")
+    sharp_t, sharp_d = _sharp_heads()
+    t_bf16, d_bf16 = target.to(torch.bfloat16), draft.to(torch.bfloat16)  # in place
+    plain = records["sampling"]  # tokens/s of plain `generate` in this run (phase 9)
+    out = {}
+    for con in ("ceiling", "floor", "self_draft"):
+        _set_head(t_bf16, torch.zeros_like(sharp_t) if con == "ceiling" else sharp_t)
+        _set_head(d_bf16, torch.zeros_like(sharp_d) if con == "ceiling" else sharp_d)
+        for prec in ("bf16", "int8_kv8"):
+            if prec == "bf16":
+                tm, kv = t_bf16, None
+                dm = self_draft(tm, 8) if con == "self_draft" else d_bf16
+            else:
+                tm, kv = quantize_model(t_bf16), torch.int8
+                dm = self_draft(tm, 8) if con == "self_draft" else quantize_model(d_bf16)
+            kw = dict(gamma=gamma, cfg_scale=1.5, top_k=100, cache_dtype=kv, draft_cache_dtype=kv,
+                      return_stats=True)
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 61)
+            speculative_generate(tm, dm, labels, 12, gen, **kw)  # warm-up
+            torch.cuda.synchronize()
+            for k in kernels:
+                k.launches = 0
+            t0 = time.perf_counter()
+            seq, stats = speculative_generate(tm, dm, labels, new, gen, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k.__name__: k.launches for k in kernels}
+            iters, acc = stats["iterations"], float(stats["acceptance_rate"])
+            with torch.inference_mode():
+                video = tokenizer.decode_from_bottleneck(seq)
+                # one iteration's forwards at the mean cache length, no host gaps
+                tc = tm.init_cache(2 * B, 1 + new + gamma, kv or torch.bfloat16)
+                dc = dm.init_cache(2 * B, 1 + new + gamma, kv or torch.bfloat16)
+                pn = torch.full((2 * B,), 512, dtype=torch.int32, device="cuda")
+                t1, t2, t5 = (seq[:, :g].repeat(2, 1) for g in (1, 2, gamma + 1))
+
+                def one_iteration():
+                    dm.decode_chunk(t2, pn - 1, dc)
+                    for g in range(1, gamma):
+                        dm.decode_chunk(t1, pn + g, dc)
+                    tm.decode_chunk(t5, pn, tc)
+
+                dev_ms = graph_ms(one_iteration, launches=1)
+                del tc, dc
+            iter_ms = wall * 1e3 / iters
+            # per iteration gamma draft forwards and one target forward, each
+            # with one row write and one chunk attention per layer and, with
+            # int8 weights, five projections per layer and the head
+            n_d, n_t = len(dm.layers), len(tm.layers)
+            per_iter, w8_d, w8_t = gamma * n_d + n_t, 5 * n_d + 1, 5 * n_t + 1
+            want_launches = {
+                "flash_attn_fwd": n_t + n_d, "decode_attention": 0,  # the two prefills
+                "w8_matmul": ((gamma * w8_d + w8_t) * iters + w8_d + w8_t
+                              if prec == "int8_kv8" else 0),
+                "chunk_attention": per_iter * iters, "write_rows_per_row": per_iter * iters,
+            }
+            tok_s = B * new / wall
+            log(f"[spec {con} {prec}] batch {B}, CFG 1.5, top-k 100, {new} tokens, gamma {gamma}: "
+                f"{wall:.3f} s = {tok_s:.1f} tokens/s (plain generate in this run: "
+                f"{plain[prec]:.1f}); acceptance {acc:.4f}, {iters} iterations, {iter_ms:.3f} ms "
+                f"per iteration (host wall); device {dev_ms:.3f} ms per iteration's forwards "
+                f"(CUDA-graph replay at pos 512): idle {1 - dev_ms / iter_ms:.1%}")
+            log(f"[spec {con} {prec}] launches {launches} (expect {want_launches})")
+            require(tuple(seq.shape) == (B, new) and int(seq.min()) >= 0 and int(seq.max()) < 8192,
+                    f"spec {con} {prec}: codes {tuple(seq.shape)} out of range")
+            require(tuple(video.shape) == (B, 3, 16, 128, 128) and torch.isfinite(video).all().item(),
+                    f"spec {con} {prec}: video {tuple(video.shape)} or non-finite")
+            require(launches == want_launches,
+                    f"spec {con} {prec}: launch counts {launches}, expected {want_launches}")
+            if con == "ceiling":
+                require(acc == 1.0 and iters == -(-(new - 1) // (gamma + 1)),
+                        f"spec ceiling {prec}: acceptance {acc}, {iters} iterations")
+            out[f"{con}_{prec}"] = {"tokens_per_s": tok_s, "acceptance": acc, "iterations": iters,
+                                    "iter_ms": iter_ms, "device_iter_ms": dev_ms,
+                                    "plain_tokens_per_s": plain[prec]}
+            if con == "floor":  # the separate draft's run carries the kernels' counts
+                key = "launches" if prec == "bf16" else "launches_int8_kv8"
+                records["chunk_attention"][key] = launches["chunk_attention"]
+                records["cache_update"][key] = launches["write_rows_per_row"]
+            if con == "floor" and prec == "bf16":
+                # the loop may wait for the device once per iteration (has the
+                # slowest row finished?) and nowhere else: every wait warns here.
+                # Two lengths: what is left after iterations + 1 loop tests (one
+                # more to leave) is outside the loop, and must be the same
+                outside = []
+                for n_tok in (17, 49):
+                    torch.cuda.set_sync_debug_mode("warn")
+                    try:
+                        with warnings.catch_warnings(record=True) as caught:
+                            warnings.simplefilter("always")
+                            _, st = speculative_generate(tm, dm, labels, n_tok, gen, **kw)
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+                    waits = sum("synchroniz" in str(w.message).lower() for w in caught)
+                    outside.append(waits - (st["iterations"] + 1))
+                    log(f"[spec sync] {n_tok} tokens, {st['iterations']} iterations: {waits} host "
+                        f"waits for the device = one per loop test + {outside[-1]} outside the loop")
+                require(outside[0] == outside[1] and outside[0] >= 0,
+                        f"speculative loop: host waits beyond one per iteration: {outside}")
+            del tm, dm
+    records["speculative"] = out
+    # the crossover acceptance of this run: E(a) = (1 - a^(gamma+1)) / (1 - a)
+    # tokens per row per iteration must exceed plain tokens/s * T_iter / batch
+    for prec in ("bf16", "int8_kv8"):
+        t_iter = statistics.mean(out[f"{c}_{prec}"]["iter_ms"] for c in ("ceiling", "floor")) / 1e3
+        need = plain[prec] * t_iter / B
+        lo, hi = 0.0, 1.0
+        for _ in range(50):
+            mid = (lo + hi) / 2
+            e = (1 - mid ** (gamma + 1)) / (1 - mid)
+            lo, hi = (mid, hi) if e < need else (lo, mid)
+        cross = f"a* = {hi:.3f}" if need < gamma + 1 else "none: it loses at any acceptance"
+        log(f"[spec crossover {prec}] T_iter {t_iter * 1e3:.2f} ms, plain generate "
+            f"{plain[prec]:.1f} tokens/s: speculative wins above E(a) = {need:.3f} tokens per "
+            f"row per iteration, {cross}")
+        out[f"crossover_{prec}"] = {"t_iter_ms": t_iter * 1e3, "need_tokens_per_iter": need,
+                                    "acceptance": hi if need < gamma + 1 else None}
+
+
+def phase_distill(target, draft, records: dict) -> None:
+    """Distillation of the full-width draft against the full-width target on
+    the card, short: 10 AdamW steps at batch 8 on 256-token sequences sampled
+    from the target, the targets refreshed every 2 steps. The draft's forward
+    and backward run the causal flash forward, dQ and dK/dV kernels."""
+    import torch
+
+    from video_tokenizer_tpu_torch.ops.attention import (
+        flash_attn_bwd_dkv, flash_attn_bwd_dq, flash_attn_fwd,
+    )
+    from video_tokenizer_tpu_torch.tools.distill_draft import distill
+
+    kernels = (flash_attn_fwd, flash_attn_bwd_dq, flash_attn_bwd_dkv)
+    steps, n_draft, n_target = 10, len(draft.layers), len(target.layers)
+    for k in kernels:
+        k.launches = 0
+    lines = []
+    t0 = time.perf_counter()
+    trained, stats = distill(target, draft, torch.Generator(device="cuda").manual_seed(SEED + 70),
+                             steps=steps, batch=8, seq_len=256, lr=1e-3, log=lines.append)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    refreshes = -(-steps // max(steps // 5, 1))
+    # forwards: the draft's per step; per refresh the target's prefill (in
+    # generate) and its teacher-forcing forward
+    want = {"flash_attn_fwd": n_draft * steps + 2 * n_target * refreshes,
+            "flash_attn_bwd_dq": n_draft * steps, "flash_attn_bwd_dkv": n_draft * steps}
+    log(f"[distill] {steps} steps, batch 8, seq 256, {refreshes} refreshes of the targets: "
+        f"{wall:.1f} s; soft-CE {stats['first_loss']:.4f} -> {stats['last_loss']:.4f}; launches "
+        f"{launches} (expect {want})")
+    require(math.isfinite(stats["first_loss"]) and math.isfinite(stats["last_loss"]),
+            "distill: non-finite soft-CE")
+    require(stats["last_loss"] < stats["first_loss"], f"distill: the soft-CE did not fall: {stats}")
+    require(launches == want, f"distill: launch counts {launches}, expected {want}")
+    require(all(p.dtype == torch.bfloat16 for p in trained.parameters()), "distill: draft not bf16")
+    records["distill"] = {"steps": steps, "wall_s": wall, "first_loss": stats["first_loss"],
+                          "last_loss": stats["last_loss"]}
 
 
 def _train_cfg(save_dir, batch: int, use_amp: bool, **over) -> dict:
@@ -1027,13 +1606,24 @@ def main() -> int:
     phase_flash_bwd(records)
     phase_vq(records)
     phase_decode_attention(records)
+    phase_chunk_attention(records)
+    phase_cache_update(records)
     phase_w8_matmul(records)
     model_fp32 = phase_e2e_fp32()
     tokenizer = phase_e2e_bf16(model_fp32, records)
     del model_fp32
     ar_model = phase_ar_fp32()
-    phase_ar_sampling(ar_model, tokenizer, records)
-    del ar_model, tokenizer
+    phase_decode_chunk_fp32(ar_model)
+    from video_tokenizer_tpu_torch import flagship_draft
+
+    draft = flagship_draft(torch.float32, torch.Generator().manual_seed(SEED + 22))
+    _perturb(draft, SEED + 23)
+    draft.cuda()
+    phase_speculative_greedy(ar_model, draft)
+    phase_ar_sampling(ar_model, tokenizer, records)  # casts the prior to bf16 in place
+    phase_speculative(ar_model, draft, tokenizer, records)
+    phase_distill(ar_model, draft, records)
+    del ar_model, draft, tokenizer
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:  # the trainers' logs and cfg.yaml
         phase_train_fp32(Path(tmp))
@@ -1053,12 +1643,22 @@ def main() -> int:
                              "video_tokenizer_tpu/ops/decode_attention.py:80"),
         "w8_matmul": ("video_tokenizer_tpu_torch/csrc/w8_matmul.cu",
                       "video_tokenizer_tpu/ops/quant_matmul.py:51"),
+        "chunk_attention": ("video_tokenizer_tpu_torch/csrc/chunk_attention.cu",
+                            "video_tokenizer_tpu/ops/decode_attention.py:330"),
+        "cache_update": ("video_tokenizer_tpu_torch/csrc/cache_update.cu",
+                         "video_tokenizer_tpu/ops/cache_update.py:60"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, **records[name]}
         for name, (src, rep) in sources.items()
     ]
+    for k in kernels:
+        missing = {"launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                   "library_ms"} - set(k)
+        require(not missing and k["launches"] > 0, f"kernel {k['name']}: {missing or 'never launched'}")
     print(json.dumps({"train": {k: v for k, v in records.items() if k.startswith("train_")}}))
+    print(json.dumps({"sampling_tokens_per_s": records["sampling"],
+                      "speculative": records["speculative"], "distill": records["distill"]}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,8 @@ from video_tokenizer_tpu.models.larp_ar import QuantDense as FlaxQuantDense
 from video_tokenizer_tpu.models.larp_ar import quantize_params as jax_quantize_params
 from video_tokenizer_tpu_torch.models.larp_ar import QuantDense, quantize_params
 from video_tokenizer_tpu_torch.ops.decode_attention import (
-    _quantize_rows, decode_attention, decode_attention_reference,
+    _quantize_rows, chunk_attention, chunk_attention_reference, decode_attention,
+    decode_attention_reference,
 )
 from video_tokenizer_tpu_torch.ops.quant_matmul import w8_matmul, w8_matmul_reference
 
@@ -139,6 +140,92 @@ def test_decode_attention_bf16_query_int8_cache_matches_jax(interpret_mode):
         assert _bf16_ulps(got.float().numpy(), np.asarray(want, np.float32)) <= 1.0
 
 
+# The chunk (speculative verify) form, at the shapes the Pallas kernel runs at
+# in interpret mode (tests/test_pallas_interpret.py:175-222): B = 8, S = 256,
+# Hkv = 2, D = 64, G = 5, per-row positions that include 0 and S - G.
+# (name, rep, key_valid, cache: "fp32", "bf16" or "int8")
+CHUNK_CASES = [
+    ("mha", 1, False, "fp32"),
+    ("gqa_3", 3, False, "fp32"),
+    ("key_valid", 1, True, "fp32"),
+    ("gqa_key_valid", 3, True, "fp32"),
+    ("bf16", 2, False, "bf16"),
+    ("int8", 2, False, "int8"),
+    ("int8_gqa_key_valid", 3, True, "int8"),
+]
+
+
+@pytest.mark.parametrize("case", CHUNK_CASES, ids=[c[0] for c in CHUNK_CASES])
+def test_chunk_attention_matches_jax(case, interpret_mode):
+    _, rep, with_valid, cache = case
+    B, S, Hkv, D, G = 8, 256, 2, 64, 5
+    H = Hkv * rep
+    rng = np.random.RandomState(rep + 10 * with_valid + 100 * len(cache))
+    q = rng.randn(B, G, H, D).astype(np.float32)
+    kc = rng.randn(B, S, Hkv * D).astype(np.float32)
+    vc = rng.randn(B, S, Hkv * D).astype(np.float32)
+    pos = rng.randint(0, S - G, size=(B,)).astype(np.int32)
+    pos[0], pos[1], pos[2], pos[3] = 0, S - G, 127, 128
+    kv = None
+    if with_valid:
+        # every chunk token keeps its own key: a query with no valid key has
+        # no defined answer on either side
+        kv = rng.rand(B, S) > 0.3
+        for g in range(G):
+            kv[np.arange(B), pos + g] = True
+    t = lambda x: None if x is None else torch.from_numpy(x)  # noqa: E731
+    j = lambda x: None if x is None else jnp.asarray(x)  # noqa: E731
+    tq, tk, tv, jq, jk, jv = t(q), t(kc), t(vc), j(q), j(kc), j(vc)
+    tkw, jkw = dict(key_valid=t(kv), kv_heads=Hkv), dict(key_valid=j(kv), kv_heads=Hkv)
+    if cache == "bf16":
+        tq, tk, tv = tq.bfloat16(), tk.bfloat16(), tv.bfloat16()
+        jq, jk, jv = (jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (tq, tk, tv))
+    if cache == "int8":
+        tq = tq.bfloat16()  # the serving combination: a bf16 query over an int8 cache
+        jq = jnp.asarray(tq.float().numpy(), jnp.bfloat16)
+        (tk, ks), (tv, vs) = _quantize_rows(tk), _quantize_rows(tv)
+        jk, jv = jnp.asarray(tk.numpy()), jnp.asarray(tv.numpy())
+        tkw.update(k_scale=ks, v_scale=vs)
+        jkw.update(k_scale=_planes(ks.numpy()), v_scale=_planes(vs.numpy()))
+    got = chunk_attention_reference(tq, tk, tv, t(pos), **tkw)
+    assert got.shape == (B, G, H, D) and got.dtype == tq.dtype and torch.isfinite(got).all()
+    # the wrapper takes the plain path on CPU tensors
+    assert torch.equal(chunk_attention(tq, tk, tv, t(pos), **tkw), got)
+    want_xla = np.asarray(_DEC.xla_chunk_attention(jq, jk, jv, j(pos), **jkw), np.float32)
+    want_pl = np.asarray(_DEC.chunk_attention(jq, jk, jv, j(pos), use_pallas=True, **jkw), np.float32)
+    got = got.float().numpy()
+    if cache == "fp32":
+        # fp32 on both sides; sums over <= 256 keys and D = 64 in other orders
+        np.testing.assert_allclose(got, want_xla, atol=1e-5)
+    else:
+        # bf16 outputs of fp32 math rounded once: one bf16 ulp (2**-7 of the
+        # value) from the XLA form, or the fp32 sums' 1e-5 where the value is
+        # a near-zero remainder of cancelling terms
+        np.testing.assert_allclose(got, want_xla, rtol=2.0**-7, atol=1e-5)
+    # the Pallas chunk kernel keeps bf16 temporaries whatever the input type
+    # (it misses its own XLA form by up to 8e-3 here); the bounds are those of
+    # its own tests: 2e-2, and 5e-2 over an int8 cache
+    np.testing.assert_allclose(got, want_pl, atol=5e-2 if cache == "int8" else 2e-2)
+
+
+def test_chunk_attention_is_per_row_and_causal_inside_the_chunk():
+    """Row b's chunk token g equals one-token decode attention at pos[b] + g:
+    the chunk form is G decode steps over a cache that already holds the
+    chunk's rows."""
+    B, S, Hkv, rep, D, G = 3, 128, 2, 2, 16, 4
+    rng = np.random.RandomState(3)
+    q = torch.from_numpy(rng.randn(B, G, Hkv * rep, D).astype(np.float32))
+    kc = torch.from_numpy(rng.randn(B, S, Hkv * D).astype(np.float32))
+    vc = torch.from_numpy(rng.randn(B, S, Hkv * D).astype(np.float32))
+    pos = torch.tensor([0, 57, S - G], dtype=torch.int32)
+    got = chunk_attention(q, kc, vc, pos, kv_heads=Hkv)
+    for b in range(B):
+        for g in range(G):
+            want = decode_attention_reference(q[b : b + 1, g], kc[b : b + 1], vc[b : b + 1],
+                                              int(pos[b]) + g, kv_heads=Hkv)
+            np.testing.assert_allclose(got[b, g].numpy(), want[0].numpy(), atol=1e-6)
+
+
 # (M, K, N): a decode-sized and a prefill-sized M, and a ragged M
 W8_SHAPES = [(16, 256, 384), (64, 128, 256), (5, 384, 128)]
 
@@ -240,15 +327,19 @@ def test_wrappers_refuse_devices_without_a_kernel():
     with pytest.raises(ValueError, match="no kernel"):
         decode_attention(q, cache, cache, 0)
     with pytest.raises(ValueError, match="no kernel"):
+        chunk_attention(q[:, None], cache, cache, torch.zeros(1, dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match="no kernel"):
         w8_matmul(torch.zeros(2, 64, device="meta"),
                   torch.zeros(32, 64, dtype=torch.int8, device="meta").t(),
                   torch.zeros(32, device="meta"))
 
 
 def test_wrappers_count_no_launch_on_cpu():
-    decode_attention.launches = w8_matmul.launches = 0
+    decode_attention.launches = w8_matmul.launches = chunk_attention.launches = 0
     q = torch.randn(2, 2, 64)
     cache = torch.randn(2, 128, 128)
     decode_attention(q, cache, cache, 5)
+    chunk_attention(q[:, None], cache, cache, torch.tensor([5, 9], dtype=torch.int32))
+    assert chunk_attention.launches == 0
     w8_matmul(torch.randn(3, 64), torch.zeros(32, 64, dtype=torch.int8).t(), torch.ones(32))
     assert decode_attention.launches == 0 and w8_matmul.launches == 0

@@ -84,6 +84,28 @@ runpy.run_module("video_tokenizer_tpu_torch.reconstruct", run_name="__main__")
     assert 0.0 < result["mse"] < 1.0 and 0.0 < result["psnr"] < 100.0
 
 
+def test_speculative_modules_import_without_jax():
+    """Speculative decoding (its two kernel wrappers, the loop, the
+    distillation tool) and the copied config and RandAugment modules load
+    neither JAX nor the JAX package, and a tiny speculative run works."""
+    out = _run("""
+import sys, torch
+import video_tokenizer_tpu_torch.ops.cache_update, video_tokenizer_tpu_torch.generation.speculative
+import video_tokenizer_tpu_torch.tools.distill_draft, video_tokenizer_tpu_torch.config
+import video_tokenizer_tpu_torch.data.rand_augment
+from video_tokenizer_tpu_torch import ModelArgs, LARP_AR
+from video_tokenizer_tpu_torch.generation import self_draft, speculative_generate
+m = LARP_AR(ModelArgs(n_layer=2, n_head=2, dim=128, vocab_size=32, num_classes=4,
+                      max_seq_len=8), generator=torch.Generator().manual_seed(0)).eval()
+seq, stats = speculative_generate(m, self_draft(m, 1), torch.tensor([1, 2]), 8,
+                                  torch.Generator().manual_seed(0), gamma=2, cfg_scale=1.5,
+                                  top_k=5, cache_dtype=torch.int8, draft_cache_dtype=torch.int8,
+                                  return_stats=True)
+assert seq.shape == (2, 8) and seq.dtype == torch.int32 and stats["iterations"] >= 3
+""" + _NO_JAX + _NO_JAX_PACKAGE + "print('ok')")
+    assert out.strip().endswith("ok")
+
+
 def test_ar_sampling_cpu_path_loads_no_jax():
     out = _run("""
 import sys, torch
@@ -138,6 +160,55 @@ runpy.run_module("video_tokenizer_tpu_torch.sample", run_name="__main__")
     assert v.shape == (3, 8, 32, 32) and v.min() >= 0.0 and v.max() <= 1.0
 
 
+def test_sample_cli_speculative_on_cpu_and_its_refusals(tmp_path):
+    """`--self_draft_layers` end to end on the CPU (a 2-layer prior drafting
+    with its own first layer), and the flag combinations the CLI refuses
+    before it builds a model."""
+    out = _run(f"""
+import runpy, sys, torch
+from video_tokenizer_tpu_torch import FLAGSHIP_VQ, LARP_AR, ModelArgs, flagship_tokenizer
+gen = torch.Generator().manual_seed(0)
+ar_args = dict(n_layer=2, n_head=2, dim=128, vocab_size=64, num_classes=5, max_seq_len=32)
+ar = LARP_AR(ModelArgs(**ar_args), generator=gen)
+with torch.no_grad():
+    ar.output.weight.normal_(std=0.3, generator=gen)
+torch.save({{"model": {{"name": "larp_ar", "args": ar_args, "sd": ar.state_dict()}}}},
+           "{tmp_path}/ar.pth")
+reg = dict(FLAGSHIP_VQ["args"]["regularizer"])
+reg["args"] = dict(reg["args"], codebook_size=64)
+tok_args = dict(bottleneck=dict(FLAGSHIP_VQ, args=dict(FLAGSHIP_VQ["args"], regularizer=reg)),
+                prior_model={{"name": "none"}}, bottleneck_token_num=32, input_size=32,
+                frame_num=8, temporal_patch_size=4, patch_size=8, decoder_temporal_patch_size=4,
+                decoder_patch_size=8, bottleneck_type="vq", encoder_hidden_size=64,
+                decoder_hidden_size=64, encoder_num_heads=1, decoder_num_heads=1,
+                encoder_depth=1, decoder_depth=1)
+tok = flagship_tokenizer(torch.float32, gen, **tok_args)
+torch.save({{"model": {{"name": "larp_tokenizer", "args": tok_args, "sd": tok.state_dict()}}}},
+           "{tmp_path}/tok.pth")
+sys.argv = ["sample", "--device", "cpu", "--ar_model", "{tmp_path}/ar.pth",
+            "--tokenizer", "{tmp_path}/tok.pth", "--dtype", "float32", "--kv_dtype", "int8",
+            "--cfg_scale", "1.5", "--top_k", "10", "--batch_size", "2", "--num_samples", "2",
+            "--self_draft_layers", "1", "--gamma", "3", "--output_dir", "{tmp_path}/out"]
+runpy.run_module("video_tokenizer_tpu_torch.sample", run_name="__main__")
+""" + _NO_JAX)
+    lines = out.strip().splitlines()
+    result = json.loads(lines[-1])
+    assert result["samples"] == 2 and result["video_shape"] == [3, 8, 32, 32]
+    assert 0.0 <= result["acceptance_rate"] <= 1.0 and 0.0 < result["nll"] < 10.0
+    assert any("speculative acceptance rate" in line and "verify iterations" in line for line in lines)
+    assert len(list((tmp_path / "out" / "videos").glob("*.npy"))) == 2
+
+    from video_tokenizer_tpu_torch.sample import main
+
+    for flags, message in (
+        (["--self_draft_layers", "1", "--draft_model", "d.pth"], "mutually exclusive"),
+        (["--self_draft_layers", "1", "--cfg_interval", "3"], "--self_draft_layers is incompatible"),
+        (["--draft_model", "d.pth", "--cfg_interval", "0"], "--draft_model is incompatible"),
+    ):
+        with pytest.raises(SystemExit, match=message):
+            main(["--device", "cpu", *flags])
+
+
 def _code(path: Path, stop: str = None) -> str:
     """A module's text after its docstring, up to `stop` if given."""
     text = path.read_text()
@@ -150,14 +221,16 @@ COPIES = [
     ("ops/sincos.py", "ops/sincos.py", None),
     ("registry.py", "registry.py", '\n\nmodels = Registry("model")'),
     ("data/video_dataset.py", "data/video_dataset.py", None),
+    ("config.py", "config.py", None),
+    ("data/rand_augment.py", "data/rand_augment.py", None),
 ]
 
 
 @pytest.mark.parametrize("copy,original,stop", COPIES, ids=[c[0] for c in COPIES])
 def test_copies_equal_their_originals(copy, original, stop):
-    """The port keeps copies of three JAX-free files of the JAX package (its
-    `ops/__init__.py` and `data/__init__.py` import JAX); their code may not
-    drift from it."""
+    """The port keeps copies of JAX-free files of the JAX package (the port
+    imports nothing of that package, whose `ops/__init__.py` and
+    `data/__init__.py` import JAX); their code may not drift from it."""
     assert _code(PORT / copy, stop) == _code(REPO / "video_tokenizer_tpu" / original, stop)
 
 
@@ -173,12 +246,14 @@ def test_registry_is_the_ports_own():
 
 
 def test_port_sources_name_no_jax():
-    for path in PORT.rglob("*.py"):
+    """No import statement of the port or of chip_smoke.py names JAX, Flax or
+    the JAX package (docstrings may name a counterpart file)."""
+    for path in [*PORT.rglob("*.py"), REPO / "chip_smoke.py"]:
         for line in path.read_text().splitlines():
             words = line.replace(",", " ").split()
             if words[:1] in (["import"], ["from"]):
                 roots = {w.split(".")[0] for w in words[1:] if w not in ("import", "as")}
-                assert not roots & {"jax", "jaxlib", "flax"}, f"{path}: {line}"
+                assert not roots & {"jax", "jaxlib", "flax", "video_tokenizer_tpu"}, f"{path}: {line}"
 
 
 def test_chip_smoke_refuses_without_a_card_or_the_package(tmp_path):

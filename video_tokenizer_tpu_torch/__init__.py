@@ -3,14 +3,16 @@
 The JAX package beside it is the reference. This package imports `torch`
 and never `jax`. Its hot paths run hand-written CUDA kernels
 (`csrc/flash_attn_fwd.cu`, `csrc/flash_attn_bwd.cu`, `csrc/vq_lookup.cu`,
-`csrc/decode_attention.cu`, `csrc/w8_matmul.cu`), built with `nvcc` at
-first use on a card; on CPU tensors their plain PyTorch versions run
-instead. Covered so far: inference through the LARP tokenizer with the 'vq'
-bottleneck (encode, VQ, decode); class-conditional (or frame-prediction)
-sampling from the LARP AR prior with CFG, top-k/top-p, int8 weights and an
-int8 KV cache (`generation.generate`, `sample.py`); and GAN training of the
-tokenizer with LPIPS and a transformer discriminator (`trainers`,
-`train.py`).
+`csrc/decode_attention.cu`, `csrc/w8_matmul.cu`, `csrc/chunk_attention.cu`,
+`csrc/cache_update.cu`), built with `nvcc` at first use on a card; on CPU
+tensors their plain PyTorch versions run instead. Covered so far: inference
+through the LARP tokenizer with the 'vq' bottleneck (encode, VQ, decode);
+class-conditional (or frame-prediction) sampling from the LARP AR prior with
+CFG, top-k/top-p, int8 weights and an int8 KV cache (`generation.generate`,
+`sample.py`), also speculatively with a draft model or the prior's own first
+layers (`generation.speculative_generate`, `tools/distill_draft.py`); and GAN
+training of the tokenizer with LPIPS and a transformer discriminator
+(`trainers`, `train.py`).
 """
 from __future__ import annotations
 
@@ -97,3 +99,14 @@ def flagship_ar(dtype: torch.dtype = torch.bfloat16,
     if device is not None:
         model = model.to(device)
     return model.eval()
+
+
+def flagship_draft(dtype: torch.dtype = torch.bfloat16,
+                   generator: Optional[torch.Generator] = None, device=None,
+                   quantized: bool = False, **overrides) -> LARP_AR:
+    """The ~60M draft that the JAX package's speculative benchmark pairs with
+    the 632M prior (`bench.py:468`): 8 layers, dim 768, 12 heads of 64, the
+    target's other arguments (`flagship_ar`); 70,083,840 parameters."""
+    args = dict(n_layer=8, n_head=12, dim=768)
+    args.update(overrides)
+    return flagship_ar(dtype, generator, device, quantized, **args)

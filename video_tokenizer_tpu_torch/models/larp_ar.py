@@ -3,12 +3,16 @@
 Counterpart of `video_tokenizer_tpu/models/larp_ar.py`: token + class
 embeddings, learned or fixed sin-cos absolute PE, blocks of RMSNorm ->
 fused-wqkv GQA attention -> SwiGLU feed-forward, a zero-initialised output
-head, and the size zoo llama-abs-S ... XXXL. Three modes:
+head, and the size zoo llama-abs-S ... XXXL. Four modes:
   * `forward`: teacher forcing, causal attention through the CUDA flash
     forward (`ops/attention.py`);
   * `prefill`: the conditioning prefix, writing the KV cache;
   * `decode_step`: one token against the cache, through the CUDA decode
-    kernel (`ops/decode_attention.py`).
+    kernel (`ops/decode_attention.py`);
+  * `decode_chunk`: G tokens per row at per-row positions (the draft and
+    verify forwards of speculative decoding), through the CUDA row-write
+    kernel (`ops/cache_update.py`) and the CUDA chunk-attention kernel
+    (`ops/decode_attention.py`).
 With `quantized=True` every projection is a `QuantDense` (int8 weight and
 fp32 per-channel scale) that runs the CUDA int8 matmul (`ops/quant_matmul.py`).
 
@@ -21,12 +25,12 @@ computes in the promoted type of its input and its parameters.
 
 The KV cache is a list of per-layer dicts {'k', 'v': [B, S, Hkv * D]}, plus
 {'ks', 'vs': [B, S] fp32} row scales for an int8 cache, updated IN PLACE by
-`prefill` and `decode_step` (JAX returns new arrays). A decode position is
-a 1-element int32 tensor on the model's device, so that a step needs no
-host synchronisation. Not here: training (dropouts, DropPath, class
-dropout, the AR trainer: ROADMAP.md, 'Still to port', item 4),
-`decode_chunk` (speculative decoding, item 5), remat and sequence-parallel
-constraints.
+`prefill`, `decode_step` and `decode_chunk` (JAX returns new arrays). A
+decode position is a 1-element int32 tensor on the model's device (a [B]
+int32 tensor for `decode_chunk`), so that a step needs no host
+synchronisation. Not here: training (dropouts, DropPath, class dropout, the
+AR trainer: ROADMAP.md, 'Still to port', item 4), remat and
+sequence-parallel constraints.
 """
 from __future__ import annotations
 
@@ -40,7 +44,8 @@ from torch import nn
 
 from ..ops import sincos
 from ..ops.attention import attention
-from ..ops.decode_attention import _quantize_rows, decode_attention
+from ..ops.cache_update import write_rows_per_row
+from ..ops.decode_attention import _quantize_rows, chunk_attention, decode_attention
 from ..ops.quant_matmul import w8_matmul
 from ..registry import models
 from .embed import LabelEmbedder
@@ -252,6 +257,21 @@ class Attention(nn.Module):
         out = out.reshape(B, 1, self.n_head * self.head_dim).to(x.dtype)
         return self.wo(out), lc
 
+    def decode_chunk(self, x: torch.Tensor, pos: torch.Tensor, lc, key_valid=None):
+        """G tokens x [B, G, dim], the g-th of row b at position pos[b] + g
+        (pos [B] int32): writes the chunk's K/V rows at the per-row positions,
+        then attends each chunk token causally over its row's live prefix and
+        the chunk tokens before it."""
+        B, G, _ = x.shape
+        q, k, v = self._split_qkv(x)
+        write_rows_per_row(lc, k.reshape(B, G, -1), v.reshape(B, G, -1), pos)
+        out = chunk_attention(
+            q, lc["k"], lc["v"], pos, key_valid=key_valid, k_scale=lc.get("ks"),
+            v_scale=lc.get("vs"), kv_heads=self.n_kv_head,
+        )
+        out = out.reshape(B, G, self.n_head * self.head_dim).to(x.dtype)
+        return self.wo(out), lc
+
 
 def ar_sequence_loss(logits: torch.Tensor, targets: torch.Tensor,
                      valid: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -286,6 +306,11 @@ class TransformerBlock(nn.Module):
 
     def decode_step(self, x, input_pos, lc, key_valid=None):
         a, lc = self.attention.decode_step(self.attention_norm(x), input_pos, lc, key_valid)
+        h = x + a
+        return h + self.feed_forward(self.ffn_norm(h)), lc
+
+    def decode_chunk(self, x, pos, lc, key_valid=None):
+        a, lc = self.attention.decode_chunk(self.attention_norm(x), pos, lc, key_valid)
         h = x + a
         return h + self.feed_forward(self.ffn_norm(h)), lc
 
@@ -425,6 +450,24 @@ class LARP_AR(nn.Module):
         h = h + self.abs_pe[0].index_select(0, pos).to(h.dtype)
         for layer, lc in zip(self.layers, cache):
             h, _ = layer.decode_step(h, pos, lc, key_valid)
+        return self.output(self.norm(h)), cache
+
+    def decode_chunk(self, idx: torch.Tensor, pos: torch.Tensor, cache: Cache,
+                     key_valid: Optional[torch.Tensor] = None):
+        """Multi-token decode for speculative decoding: idx [B, G] chunk
+        tokens, the g-th of row b at absolute position pos[b] + g (pos [B]
+        int32 on the model's device: rows advance unevenly). Returns
+        ([B, G, V], cache): logits[:, g] condition on the prefix and chunk
+        tokens 0..g, and the cache holds the chunk's K/V at the per-row
+        positions. PE lookups clip to the table (chunk slots past the end of
+        generation give logits that the caller never commits)."""
+        h = self.tok_embeddings(idx)
+        pe_len = self.abs_pe.shape[1]
+        p = torch.clamp(pos[:, None] + torch.arange(idx.shape[1], device=pos.device),
+                        0, pe_len - 1)
+        h = h + self.abs_pe[0][p].to(h.dtype)
+        for layer, lc in zip(self.layers, cache):
+            h, _ = layer.decode_chunk(h, pos, lc, key_valid)
         return self.output(self.norm(h)), cache
 
 

@@ -109,6 +109,8 @@ SIGNATURES = {
     "vtt_vq_argmax": ([_P] * 4 + [_I] * 4 + [_F, _LL, _P], _I),
     "vtt_decode_attention": ([_P] * 10 + [_I] * 8 + [_LL, _F, _P], _I),
     "vtt_w8_matmul": ([_P] * 4 + [_I] * 5 + [_P], _I),
+    "vtt_chunk_attention": ([_P] * 10 + [_I] * 9 + [_LL, _LL, _F, _P], _I),
+    "vtt_write_rows": ([_P] * 7 + [_I] * 6 + [_LL, _LL, _P], _I),
     "vtt_error_string": ([_I], ctypes.c_char_p),
 }
 

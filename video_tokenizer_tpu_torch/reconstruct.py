@@ -48,7 +48,7 @@ def build_model(cfg_path: str, checkpoint: Optional[str], dtype: torch.dtype, de
         from .utils.model_io import load_tokenizer_checkpoint
 
         return load_tokenizer_checkpoint(checkpoint, dtype=dtype, device=device)
-    from video_tokenizer_tpu.config import load_config
+    from .config import load_config
 
     cfg = load_config(cfg_path, {"input_size": input_size, "frame_num": frame_num}, list(opts))
     model = models.make(

@@ -40,7 +40,7 @@ def parse_args(argv: Optional[Sequence[str]] = None):
 
 
 def make_cfg(args):
-    from video_tokenizer_tpu.config import load_config
+    from .config import load_config
 
     variables = {
         "csv_file": args.csv_file, "batch_size": args.batch_size,
