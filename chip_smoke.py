@@ -5,12 +5,16 @@
 
 Phases, each of which raises on failure (exit code 1, no result line):
   1. build the CUDA kernels from csrc/ with nvcc for sm_90a (one nvcc per
-     source, all started together);
-  2. the flash-attention forward kernel, out and LSE, against its plain
-     PyTorch version on the card (the tokenizer's shape, the
-     discriminator's ragged S = 1025 and the prior's causal NLL-forward
-     shape, all from strided qkv views; causal with an offset, segments
-     with a no-match query, GQA, ragged Sk, fp32);
+     source, all started together); registers and spill bytes of the
+     wgmma kernels, which may not spill;
+  2. the flash-attention forward kernels, out and LSE, against their plain
+     PyTorch version on the card: the wgmma kernel (bf16, head dim 32 or 64,
+     no segment ids) at the tokenizer's shape, the discriminator's ragged
+     S = 1025 and the prior's causal NLL-forward shape, all from strided qkv
+     views, causal with an offset, GQA, ragged Sk, D = 32 causal ragged, one
+     row past a 128-row block, rows that see no key; the mma.sync / FMA
+     kernel on fp32, D = 128 and segments with a no-match query; each case
+     must run the kernel the dispatch rule names;
   3. the VQ nearest-code kernel against its plain version (cos, l2, ragged);
   4. the decode-attention kernel against its plain version at the 632M
      prior's sampling geometry (B = 16, H = 20, D = 64, S = 1152; bf16, int8
@@ -38,7 +42,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
      plain backward: the tokenizer's shape from strided views, the
      discriminator's ragged S = 1025, the prior's causal shape, GQA 20/5,
      segments with a no-match query, causal with an offset, fp32, each also
-     against the plain backward of the plain forward's out and LSE; gradients
+     against the plain backward of the plain forward's out and LSE, dK/dV by
+     the wgmma kernel wherever the dispatch rule says so (plus D = 32 causal
+     ragged, Sq = 129 / Sk = 257, rows that see no key); gradients
      through `attention` under autograd; `attention_with_lse` refusing grad.
      The VQ kernel's stochastic mode (in phase 3): index for index against
      the plain Philox draw, and by frequency against softmax;
@@ -48,8 +54,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
      losses, VQ indices, named gradients;
  12. tokenizer training through the port's trainer at batch 8, bf16 and
      fp32: s/step, clips/s, peak memory, exact launch counts of the four
-     training-path kernels, device idle share and time by kernel category
-     from torch.profiler;
+     training-path kernels (in bf16 every flash forward and dK/dV launch on
+     the wgmma kernels, in fp32 none), device idle share and time by kernel
+     category from torch.profiler, the card's clock and power under load;
  13. the chunk-attention kernel (the verify forward of speculative decoding)
      against its plain version at the 632M prior's verify shape (B = 16,
      G = 5, H = 20, D = 64, S = 1152) and the draft's (H = 12, G = 1 and 2),
@@ -86,6 +93,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -176,23 +184,36 @@ def phase_build() -> None:
     for line in build.log.splitlines():
         if "Used" in line or ("spill" in line and " 0 bytes spill stores" not in line):
             log(f"[build]   {line.strip()}")
+    # the wgmma kernels, per head dim: accumulators spilled to local memory
+    # would be re-read on every product
+    seen = []
+    for name, (regs, spill) in sorted(_build.kernel_resources(build.log).items()):
+        if m := re.search(r"(flash_(?:fwd|bwd_dkv)_sm90_kernel)ILi(\d+)E+v", name):
+            seen.append(f"{m.group(1)}<{m.group(2)}>")
+            log(f"[build]   {seen[-1]}: {regs} registers, {spill} spill bytes")
+            require(spill == 0, f"{seen[-1]} spills {spill} bytes")
+    require(len(seen) == 4, f"expected 2 wgmma kernels x 2 head dims in the build log, found {seen}")
 
 
 def phase_flash(records: dict) -> None:
     import torch
     import torch.nn.functional as F
 
-    from video_tokenizer_tpu_torch.ops.attention import attention_reference, flash_attn_fwd
+    from video_tokenizer_tpu_torch.ops.attention import (
+        DEFAULT_MASK_VALUE, attention_reference, flash_attn_fwd,
+    )
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     def randn(*shape, dtype):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
-    # (name, B, Sq, Sk, H, Hkv, D, dtype, causal, offset, segments, tol), out
-    # and the fp32 LSE both held to tol. bf16 kernel vs the fp32 plain version
-    # (output rounded to bf16 on both sides, P rounded to bf16 in the
-    # kernel): 2e-2. fp32: 1e-4. "discriminator" is the training path's
+    # (name, B, Sq, Sk, H, Hkv, D, dtype, causal, offset, segments, tol). out is
+    # held to tol of max|plain| (at S = 2048 a typical |out| is a few 1e-2, so
+    # an absolute bound would pass a wrong P.V): bf16 kernel vs the fp32 plain
+    # version (output rounded to bf16 on both sides, P rounded to bf16 in the
+    # kernel) 2e-2, fp32 1e-4. The LSE is fp32 from fp32 sums in every case
+    # and is held to 1e-4 absolute. "discriminator" is the training path's
     # ragged S = 1 + 1024 (a partial last query and key tile).
     cases = [
         ("flagship", 8, 2048, 2048, 12, 12, 64, torch.bfloat16, False, None, False, 2e-2),
@@ -205,7 +226,17 @@ def phase_flash(records: dict) -> None:
         ("fp32", 1, 2048, 2048, 12, 12, 64, torch.float32, False, None, False, 1e-4),
         ("lse_fp32", 2, 384, 200, 4, 2, 128, torch.float32, True, 50, True, 1e-4),
         ("lse_bf16", 2, 384, 512, 4, 4, 32, torch.bfloat16, False, None, True, 2e-2),
+        ("causal_ragged_d32", 2, 300, 333, 4, 4, 32, torch.bfloat16, True, None, False, 2e-2),
+        # one query row and one key past a 128-row block / a 64-key tile
+        ("edge_129_257", 2, 129, 257, 4, 4, 64, torch.bfloat16, False, None, False, 2e-2),
+        # queries 0..69 see no key: uniform attention, LSE = the mask value
+        ("causal_no_key_rows", 1, 300, 300, 2, 2, 64, torch.bfloat16, True, -70, False, 2e-2),
     ]
+    # the cases that must run the wgmma kernel (bf16, D = 32 or 64, no segment
+    # ids); fp32, D = 128 and segment ids stay on the mma.sync / FMA kernel
+    sm90_cases = {"flagship", "discriminator", "ar_nll_causal", "causal_offset", "gqa_4_over_2",
+                  "ragged_sk", "causal_ragged_d32", "edge_129_257", "causal_no_key_rows"}
+    lse_tol = 1e-4
     for name, B, Sq, Sk, H, Hkv, D, dtype, causal, offset, with_seg, tol in cases:
         if name in ("flagship", "discriminator", "ar_nll_causal"):
             # q, k, v as strided views of one [B, S, 3, H, D] qkv projection
@@ -222,35 +253,50 @@ def phase_flash(records: dict) -> None:
         kw = dict(causal=causal, segment_ids=q_seg, kv_segment_ids=k_seg, causal_offset=offset)
         got, got_lse = flash_attn_fwd(q, k, v, return_lse=True, **kw)
         torch.cuda.synchronize()
+        kernel = flash_attn_fwd.last_kernel
         want, want_lse = attention_reference(q, k, v, causal, q_seg, k_seg, None, offset)
         err = (got.float() - want.float()).abs().max().item()
+        rel_err = err / want.float().abs().max().item()
         lse_err = (got_lse - want_lse).abs().max().item()
         require(torch.isfinite(got).all().item() and torch.isfinite(got_lse).all().item(),
                 f"flash {name}: non-finite output")
         log(f"[flash] {name}: B={B} Sq={Sq} Sk={Sk} H={H} Hkv={Hkv} D={D} {str(dtype)[6:]} "
-            f"max|kernel-plain| {err:.3e}, lse {lse_err:.3e} (tol {tol:g})")
-        require(err <= tol and lse_err <= tol, f"flash {name}: error {err}, lse {lse_err} > {tol}")
+            f"{kernel}: max|kernel-plain| {err:.3e} = {rel_err:.3e} of max|plain| (tol {tol:g}), "
+            f"lse {lse_err:.3e} (tol {lse_tol:g})")
+        require(kernel == ("flash_fwd_sm90_kernel" if name in sm90_cases else "flash_fwd_kernel"),
+                f"flash {name}: ran {kernel}")
+        require(rel_err <= tol and lse_err <= lse_tol,
+                f"flash {name}: error {rel_err} of max|plain| > {tol} or lse {lse_err} > {lse_tol}")
+        # queries that see no key: LSE = the mask value (their out, the mean of V, is
+        # held by the comparison above)
+        blind = [5] if with_seg else list(range(-offset)) if causal and (offset or 0) < 0 else []
+        require((got_lse[:, :, blind] == DEFAULT_MASK_VALUE).all().item(),
+                f"flash {name}: LSE of the rows that see no key is not the mask value")
         require(torch.equal(flash_attn_fwd(q, k, v, **kw), got), f"flash {name}: lse changes out")
-        if name == "flagship":
-            ms = median_ms(lambda: flash_attn_fwd(q, k, v))
-            plain_ms = median_ms(lambda: attention_reference(q, k, v), iters=5)
-            lse_ms = median_ms(lambda: flash_attn_fwd(q, k, v, return_lse=True))
-            flops = 4 * B * H * Sq * Sk * D
+        if name in ("flagship", "discriminator", "ar_nll_causal", "fp32"):
+            ms = median_ms(lambda: flash_attn_fwd(q, k, v, causal=causal))
+            lse_ms = median_ms(lambda: flash_attn_fwd(q, k, v, causal=causal, return_lse=True))
+            plain_ms = median_ms(lambda: attention_reference(q, k, v, causal), iters=5)
+            flops = 4 * B * H * Sq * Sk * D * (0.5 if causal else 1.0)  # what the mask leaves
             # one PyTorch call for the same function, timed here and used
             # nowhere in the port
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            library_ms = median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
-            bnd = bound(_nbytes(q, k, v, got), flops)
-            log(f"[flash] flagship: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
-                f"with LSE {lse_ms:.3f} ms, bound {bnd['bound_ms']:.3f} ms ({bnd['bound_by']}), "
-                f"plain (out and LSE) {plain_ms:.3f} ms, library call (SDPA) {library_ms:.3f} ms "
-                f"(median)")
-            records["flash_attn_fwd"] = {"max_abs_err": err, "ms": ms, "lse_ms": lse_ms,
-                                         "plain_ms": plain_ms, "library_ms": library_ms, **bnd}
-        if name == "ar_nll_causal":
-            ms = median_ms(lambda: flash_attn_fwd(q, k, v, causal=True))
-            plain_ms = median_ms(lambda: attention_reference(q, k, v, True), iters=5)
-            log(f"[flash] ar_nll_causal: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (median)")
+            library_ms = median_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal))
+            bnd = bound(_nbytes(q, k, v, got), flops, "fp32" if dtype == torch.float32 else "bf16")
+            tflops = flops / ms / 1e9
+            log(f"[flash] {name}: {kernel} {ms:.3f} ms ({tflops:.1f} TFLOP/s), with LSE "
+                f"{lse_ms:.3f} ms, bound {bnd['bound_ms']:.3f} ms ({bnd['bound_by']}), plain (out "
+                f"and LSE) {plain_ms:.3f} ms, library call (SDPA) {library_ms:.3f} ms (median)")
+            rec = {"max_abs_err": err, "max_rel_err": rel_err, "ms": ms, "lse_ms": lse_ms, "plain_ms": plain_ms,
+                   "library_ms": library_ms, "tflops": tflops, **bnd}
+            if name == "flagship":
+                records["flash_attn_fwd"] = rec
+            elif name == "fp32":
+                records["flash_attn_fwd_mma"] = rec  # the kernel that keeps fp32, D = 128, segments
+            else:
+                records["flash_attn_fwd"][f"{name}_ms"] = ms
+                records["flash_attn_fwd"][f"{name}_library_ms"] = library_ms
 
 
 def phase_flash_bwd(records: dict) -> None:
@@ -286,7 +332,17 @@ def phase_flash_bwd(records: dict) -> None:
         ("causal_offset", 2, 384, 512, 4, 2, 128, torch.bfloat16, True, 100, False, 2e-2),
         ("fp32", 2, 1025, 1025, 12, 12, 32, torch.float32, False, None, False, 1e-4),
         ("fp32_causal_gqa_seg", 2, 200, 333, 4, 2, 128, torch.float32, True, 50, True, 1e-4),
+        ("causal_offset_d64", 2, 384, 512, 4, 2, 64, torch.bfloat16, True, 100, False, 2e-2),
+        ("causal_ragged_d32", 2, 300, 333, 4, 4, 32, torch.bfloat16, True, None, False, 2e-2),
+        # one query row and one key past a 128-row block / a 64-row tile
+        ("edge_129_257", 2, 129, 257, 4, 4, 64, torch.bfloat16, False, None, False, 2e-2),
+        # queries 0..69 see no key: each adds do / Sk to every key's dv
+        ("causal_no_key_rows", 1, 300, 300, 2, 2, 64, torch.bfloat16, True, -70, False, 2e-2),
     ]
+    # the cases whose dK/dV must run the wgmma kernel (bf16, D = 32 or 64, no
+    # segment ids); the forward that feeds them follows the same rule
+    sm90_cases = {"tokenizer", "discriminator", "prior_causal", "gqa_20_over_5",
+                  "causal_offset_d64", "causal_ragged_d32", "edge_129_257", "causal_no_key_rows"}
     for name, B, Sq, Sk, H, Hkv, D, dtype, causal, offset, with_seg, tol in cases:
         if Sq == Sk and H == Hkv:
             # q, k, v and dO as strided views of [B, S, 3, H, D] projections
@@ -304,6 +360,7 @@ def phase_flash_bwd(records: dict) -> None:
         out, lse = flash_attn_fwd(q, k, v, return_lse=True, **kw)
         got = flash_attn_bwd(q, k, v, out, lse, do, **kw)
         torch.cuda.synchronize()
+        kernel = flash_attn_bwd_dkv.last_kernel
         want = attention_bwd_reference(q, k, v, out, lse, do, causal, q_seg, k_seg, None, offset)
         plain_out, plain_lse = attention_reference(q, k, v, causal, q_seg, k_seg, None, offset)
         want_plain = attention_bwd_reference(q, k, v, plain_out, plain_lse, do, causal, q_seg,
@@ -319,51 +376,66 @@ def phase_flash_bwd(records: dict) -> None:
                               / wp.float().abs().max().item())
         log(f"[flash bwd] {name}: B={B} Sq={Sq} Sk={Sk} H={H} Hkv={Hkv} D={D} {str(dtype)[6:]}"
             f"{' causal' if causal else ''}{f' offset {offset}' if offset is not None else ''}"
-            f"{' segments' if with_seg else ''}: max|kernel-plain|/max|plain| dq {errs[0]:.2e}, "
+            f"{' segments' if with_seg else ''}, dK/dV by {kernel}: "
+            f"max|kernel-plain|/max|plain| dq {errs[0]:.2e}, "
             f"dk {errs[1]:.2e}, dv {errs[2]:.2e}; against the plain forward's out and LSE "
             f"dq {plain_errs[0]:.2e}, dk {plain_errs[1]:.2e}, dv {plain_errs[2]:.2e} (tol {tol:g})")
+        require(kernel == ("flash_bwd_dkv_sm90_kernel" if name in sm90_cases
+                           else "flash_bwd_dkv_kernel"), f"flash bwd {name}: dK/dV ran {kernel}")
         require(max(errs) <= tol and max(plain_errs) <= tol,
                 f"flash bwd {name}: errors {errs}, from the plain forward {plain_errs} > {tol}")
         del plain_out, plain_lse, want_plain
-        if name in ("tokenizer", "discriminator"):
+        if name in ("tokenizer", "discriminator", "prior_causal", "fp32"):
             # the two kernels alone (delta and the GQA sum are torch ops)
             delta = torch.einsum("bqhd,bqhd->bhq", out.float(), do.float()).contiguous()
             scale = D ** -0.5
             dq_ms = median_ms(lambda: flash_attn_bwd_dq(q, k, v, do, lse, delta, None, None,
-                                                        False, 0, scale))
+                                                        causal, 0, scale))
             dkv_ms = median_ms(lambda: flash_attn_bwd_dkv(q, k, v, do, lse, delta, None, None,
-                                                          False, 0, scale))
-            plain_ms = median_ms(lambda: attention_bwd_reference(q, k, v, out, lse, do), iters=5)
-            flops = 10 * B * H * Sq * Sk * D  # five S-sized products (2 flops a MAC)
-            log(f"[flash bwd] {name}: dQ kernel {dq_ms:.3f} ms, dK/dV kernel {dkv_ms:.3f} ms "
-                f"({flops / (dq_ms + dkv_ms) / 1e9:.1f} TFLOP/s of the backward's 5 products "
-                f"over both), plain backward (dq, dk, dv) {plain_ms:.3f} ms (median)")
+                                                          causal, 0, scale))
+            plain_ms = median_ms(
+                lambda: attention_bwd_reference(q, k, v, out, lse, do, causal), iters=5)
+            # a product over what the mask leaves (2 flops a MAC); the backward has five
+            unit = 2 * B * H * Sq * Sk * D * (0.5 if causal else 1.0)
+            # the library's call for the same gradients: autograd through
+            # SDPA, ONE backward for dq, dk and dv together (both kernels'
+            # rows carry its time); timed here, used nowhere in the port
+            ql, kl, vl = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
+            out_l = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
+            do_l = do.transpose(1, 2)
+            library_ms = median_ms(
+                lambda: torch.autograd.grad(out_l, (ql, kl, vl), do_l, retain_graph=True))
+            del out_l
+            # dQ recomputes S and dP and forms dQ (three products), dK/dV
+            # S, dP, dV and dK (four); each reads q, k, v, dO, LSE, delta
+            read = _nbytes(q, k, v, do, lse, delta)
+            kind = "fp32" if dtype == torch.float32 else "bf16"
+            bnd_dq = bound(read + _nbytes(q), 3 * unit, kind)
+            bnd_dkv = bound(read + _nbytes(k, v), 4 * unit, kind)
+            dkv_tflops = 4 * unit / dkv_ms / 1e9
+            log(f"[flash bwd] {name}: dQ kernel {dq_ms:.3f} ms (bound {bnd_dq['bound_ms']:.3f}), "
+                f"dK/dV {kernel} {dkv_ms:.3f} ms ({dkv_tflops:.1f} TFLOP/s of its 4 products, "
+                f"bound {bnd_dkv['bound_ms']:.3f}, {bnd_dkv['bound_by']}), plain backward (dq, "
+                f"dk, dv) {plain_ms:.3f} ms, library call (autograd through SDPA, dq + dk + dv "
+                f"in one backward) {library_ms:.3f} ms (median)")
+            rec_dq = {"max_abs_err": abs_errs[0], "max_rel_err": errs[0], "ms": dq_ms,
+                      "plain_ms": plain_ms, "library_ms": library_ms, **bnd_dq}
+            rec_dkv = {"max_abs_err": max(abs_errs[1:]), "max_rel_err": max(errs[1:]),
+                       "ms": dkv_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                       "tflops": dkv_tflops, **bnd_dkv}
             if name == "tokenizer":
-                # the library's call for the same gradients: autograd through
-                # SDPA, ONE backward for dq, dk and dv together (both kernels'
-                # rows carry its time); timed here, used nowhere in the port
-                ql, kl, vl = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
-                out_l, do_l = F.scaled_dot_product_attention(ql, kl, vl), do.transpose(1, 2)
-                library_ms = median_ms(
-                    lambda: torch.autograd.grad(out_l, (ql, kl, vl), do_l, retain_graph=True))
-                del out_l
-                # dQ recomputes S and dP and forms dQ (three products), dK/dV
-                # S, dP, dV and dK (four); each reads q, k, v, dO, LSE, delta
-                unit, read = 2 * B * H * Sq * Sk * D, _nbytes(q, k, v, do, lse, delta)
-                bnd_dq, bnd_dkv = bound(read + _nbytes(q), 3 * unit), bound(read + _nbytes(k, v), 4 * unit)
-                log(f"[flash bwd] tokenizer: bounds dQ {bnd_dq['bound_ms']:.3f} ms, dK/dV "
-                    f"{bnd_dkv['bound_ms']:.3f} ms (operations); library call (autograd through "
-                    f"SDPA, dq + dk + dv in one backward) {library_ms:.3f} ms (median)")
-                records["flash_attn_bwd_dq"] = {"max_abs_err": abs_errs[0], "max_rel_err": errs[0],
-                                                "ms": dq_ms, "plain_ms": plain_ms,
-                                                "library_ms": library_ms, **bnd_dq}
-                records["flash_attn_bwd_dkv"] = {"max_abs_err": max(abs_errs[1:]),
-                                                 "max_rel_err": max(errs[1:]), "ms": dkv_ms,
-                                                 "plain_ms": plain_ms, "library_ms": library_ms,
-                                                 **bnd_dkv}
+                records["flash_attn_bwd_dq"] = rec_dq
+                records["flash_attn_bwd_dkv"] = rec_dkv
+            elif name == "fp32":
+                # the kernel that keeps fp32, D = 128 and segment ids
+                records["flash_attn_bwd_dkv_mma"] = rec_dkv
             else:
-                records["flash_attn_bwd_dq"].update(disc_ms=dq_ms, disc_plain_ms=plain_ms)
-                records["flash_attn_bwd_dkv"].update(disc_ms=dkv_ms, disc_plain_ms=plain_ms)
+                short = "disc" if name == "discriminator" else "causal"
+                records["flash_attn_bwd_dq"].update({f"{short}_ms": dq_ms,
+                                                     f"{short}_plain_ms": plain_ms})
+                records["flash_attn_bwd_dkv"].update({f"{short}_ms": dkv_ms,
+                                                      f"{short}_plain_ms": plain_ms,
+                                                      f"{short}_library_ms": library_ms})
 
     # autograd: `attention` at the tokenizer's shape is differentiable on the
     # card (its output used to carry no grad_fn, silently dropping gradients)
@@ -901,7 +973,7 @@ def phase_e2e_bf16(model_fp32, records: dict) -> None:
     torch.cuda.synchronize()
 
     iters = 5
-    flash_attn_fwd.launches = vq_argmax.launches = 0
+    flash_attn_fwd.launches = flash_attn_fwd.launches_sm90 = vq_argmax.launches = 0
     times = []
     for _ in range(iters):
         t0 = time.perf_counter()
@@ -909,6 +981,7 @@ def phase_e2e_bf16(model_fp32, records: dict) -> None:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     launches = {"flash_attn_fwd": flash_attn_fwd.launches, "vq_argmax": vq_argmax.launches}
+    sm90_launches = flash_attn_fwd.launches_sm90
 
     clips_per_s = B / statistics.median(times)
     mse = torch.mean((rec - x).reshape(B, -1) ** 2, dim=-1)
@@ -918,7 +991,8 @@ def phase_e2e_bf16(model_fp32, records: dict) -> None:
         f"over {iters} iterations = {clips_per_s:.2f} clips/s; "
         f"mse {mse.mean().item():.5f}, psnr {psnr_from_mse(mse).mean().item():.3f} dB")
     log(f"[e2e bf16] launches in {iters} forwards: flash {launches['flash_attn_fwd']}, "
-        f"vq {launches['vq_argmax']} (expect {24 * iters} and {iters}); "
+        f"vq {launches['vq_argmax']} (expect {24 * iters} and {iters}), of the flash launches "
+        f"{sm90_launches} the wgmma kernel (expect all); "
         f"mean|bf16 - fp32| of clip 0: {bf16_vs_fp32:.3e} (tol 1e-2)")
     require(tuple(rec.shape) == (B, 3, 16, 128, 128), "bf16 reconstruction shape")
     require(torch.isfinite(rec).all().item() and torch.isfinite(mse).all().item(), "non-finite output")
@@ -927,6 +1001,7 @@ def phase_e2e_bf16(model_fp32, records: dict) -> None:
     require(bf16_vs_fp32 <= 1e-2, f"bf16 drifts from fp32 by {bf16_vs_fp32} on average")
     require(launches == {"flash_attn_fwd": 24 * iters, "vq_argmax": iters},
             f"launch counts {launches}")
+    require(sm90_launches == 24 * iters, f"{sm90_launches} of the flash launches ran the wgmma kernel")
     for name, n in launches.items():
         records[name]["launches"] = n
     return model
@@ -1472,9 +1547,9 @@ def phase_train_fp32(tmp: Path) -> None:
 
 
 _KERNEL_CATEGORIES = (  # first match wins, on the kernel's lower-cased name
-    ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    ("flash_bwd_dkv", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_sm90_kernel")),
     ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
-    ("flash_fwd", ("flash_fwd_kernel",)),
+    ("flash_fwd", ("flash_fwd_kernel", "flash_fwd_sm90_kernel")),
     ("vq_argmax", ("vq_argmax_kernel",)),
     ("conv (LPIPS)", ("conv", "cudnn", "implicit", "winograd", "fprop", "dgrad", "wgrad")),
     ("gemm", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
@@ -1522,6 +1597,7 @@ def phase_train_throughput(tmp: Path, records: dict) -> None:
         torch.cuda.synchronize()
         for k in kernels:
             k.launches = 0
+        flash_attn_fwd.launches_sm90 = flash_attn_bwd_dkv.launches_sm90 = 0
         torch.cuda.reset_peak_memory_stats()
         times, infos = [], []
         fetch_s.clear()
@@ -1532,6 +1608,8 @@ def phase_train_throughput(tmp: Path, records: dict) -> None:
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         launches = {k.__name__: k.launches for k in kernels}
+        sm90 = {"flash_attn_fwd": flash_attn_fwd.launches_sm90,
+                "flash_attn_bwd_dkv": flash_attn_bwd_dkv.launches_sm90}
         loader_s = statistics.mean(fetch_s)
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1540,6 +1618,21 @@ def phase_train_throughput(tmp: Path, records: dict) -> None:
                 step()
             torch.cuda.synchronize()
             prof_wall_ms = (time.perf_counter() - t0) * 1e3
+        # the card's clock, power and temperature while it works: two more
+        # steps with one query in flight (a step time read beside a lower
+        # clock is the card's, not the code's)
+        smi = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu",
+             "--format=csv,noheader"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        try:
+            under_load = smi.communicate(timeout=60)[0].strip() or "not available"
+        except subprocess.TimeoutExpired:
+            smi.kill()
+            smi.communicate()
+            under_load = "not available"
         per_cat: dict = {}
         events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         for e in events:
@@ -1557,7 +1650,10 @@ def phase_train_throughput(tmp: Path, records: dict) -> None:
             f"s/step = {B / mean_s:.2f} clips/s (median {statistics.median(times):.3f} s); "
             f"loader {loader_s * 1e3:.1f} ms per step on the host ({loader_s / mean_s:.1%} of "
             f"the step, {tr.train_workers} workers); peak memory {peak_gb:.2f} GiB")
-        log(f"[train {name}] launches over the timed steps {launches} (expect {want}); losses "
+        # bf16 runs the wgmma forward and dK/dV kernels on every launch, fp32 never
+        want_sm90 = {k: want[k] if use_amp else 0 for k in sm90}
+        log(f"[train {name}] launches over the timed steps {launches} (expect {want}), of which "
+            f"the wgmma kernels {sm90} (expect {want_sm90}); losses "
             f"finite: {finite}; last step loss {last['loss']:.4f}, rec {last['rec_loss']:.4f}, "
             f"perceptual {last['perceptual_loss']:.4f}, d_loss {last['d_loss']:.4f}, "
             f"psnr {last['psnr']:.2f}")
@@ -1566,13 +1662,19 @@ def phase_train_throughput(tmp: Path, records: dict) -> None:
             f"kernels per step; device ms per step by category: "
             + ", ".join(f"{c} {us / 1e3 / timed:.1f} ({us / 1e3 / busy_ms:.1%})"
                         for c, us in sorted(per_cat.items(), key=lambda kv: -kv[1])))
+        log(f"[train {name}] the card during two further steps (SM clock, its maximum, power "
+            f"draw, temperature): {under_load}")
         require(finite, f"train {name}: non-finite losses")
         require(launches == want, f"train {name}: launch counts {launches}, expected {want}")
+        require(sm90 == want_sm90, f"train {name}: wgmma launches {sm90}, expected {want_sm90}")
         records[f"train_{name}"] = {"s_per_step": mean_s, "clips_per_s": B / mean_s,
                                     "peak_gib": peak_gb, "idle": idle, "loader_s": loader_s}
         if name == "bf16":
             for k in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
                 records[k]["launches"] = launches[k]
+        else:  # the fp32 path is where the mma.sync / FMA flash kernels still run
+            records["flash_attn_fwd_mma"]["launches"] = launches["flash_attn_fwd"]
+            records["flash_attn_bwd_dkv_mma"]["launches"] = launches["flash_attn_bwd_dkv"]
         del tr, batches
         torch.cuda.empty_cache()
 
@@ -1631,12 +1733,16 @@ def main() -> int:
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 
     sources = {
-        "flash_attn_fwd": ("video_tokenizer_tpu_torch/csrc/flash_attn_fwd.cu",
+        "flash_attn_fwd": ("video_tokenizer_tpu_torch/csrc/flash_attn_fwd_sm90.cu",
                            "video_tokenizer_tpu/ops/attention.py:166"),
+        "flash_attn_fwd_mma": ("video_tokenizer_tpu_torch/csrc/flash_attn_fwd.cu",
+                               "video_tokenizer_tpu/ops/attention.py:166"),
         "flash_attn_bwd_dq": ("video_tokenizer_tpu_torch/csrc/flash_attn_bwd.cu",
                               "video_tokenizer_tpu/ops/attention.py:387"),
-        "flash_attn_bwd_dkv": ("video_tokenizer_tpu_torch/csrc/flash_attn_bwd.cu",
+        "flash_attn_bwd_dkv": ("video_tokenizer_tpu_torch/csrc/flash_attn_bwd_dkv_sm90.cu",
                                "video_tokenizer_tpu/ops/attention.py:447"),
+        "flash_attn_bwd_dkv_mma": ("video_tokenizer_tpu_torch/csrc/flash_attn_bwd.cu",
+                                   "video_tokenizer_tpu/ops/attention.py:447"),
         "vq_argmax": ("video_tokenizer_tpu_torch/csrc/vq_lookup.cu",
                       "video_tokenizer_tpu/ops/vq.py:35"),
         "decode_attention": ("video_tokenizer_tpu_torch/csrc/decode_attention.cu",

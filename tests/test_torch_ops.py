@@ -189,6 +189,22 @@ def test_wrappers_refuse_devices_without_a_kernel():
         vq_argmax(torch.zeros(4, 8, device="meta"), torch.zeros(16, 8, device="meta"))
 
 
+def test_build_digest_covers_headers(tmp_path):
+    """The library is keyed by its sources AND the headers they include: an
+    edited `.cuh` must not reuse a library built from the old one."""
+    (tmp_path / "kernel.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("constexpr int kTile = 64;\n")
+    first = _build.source_digest(tmp_path)
+    assert first == _build.source_digest(tmp_path)
+    (tmp_path / "common.cuh").write_text("constexpr int kTile = 128;\n")
+    second = _build.source_digest(tmp_path)
+    assert second != first
+    (tmp_path / "kernel.cu").write_text('#include "common.cuh"\n// edited\n')
+    assert _build.source_digest(tmp_path) not in (first, second)
+    # the package's own headers are part of its digest
+    assert any(_build.CSRC.glob("*.cuh"))
+
+
 def _ctype(decl: str):
     """C parameter or return type -> the ctypes type that must declare it."""
     decl = decl.strip()

@@ -27,7 +27,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import torch  # noqa: E402
 
 CATEGORIES = (  # first match wins, on the lower-cased kernel name
-    ("flash_attn_fwd", ("flash_fwd_kernel",)),
+    ("flash_attn_fwd", ("flash_fwd_kernel", "flash_fwd_sm90_kernel")),
     ("vq_argmax", ("vq_argmax_kernel",)),
     ("gemm", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
     ("layer_norm", ("layer_norm",)),

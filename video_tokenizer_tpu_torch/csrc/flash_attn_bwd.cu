@@ -1,4 +1,10 @@
 // Flash-attention backward for Hopper (sm_90a), bf16 and fp32: dQ and dK/dV.
+// The dQ kernel serves every call. The dK/dV kernel here serves fp32 inputs,
+// head dim 128 and segment ids; bf16 at head dim 32 or 64 without segment ids
+// (every shape of the bf16 training paths) runs
+// csrc/flash_attn_bwd_dkv_sm90.cu instead, which computes the same function
+// with wgmma; ops/attention.py::flash_kernels chooses, by dtype, head dim and
+// masks only.
 //
 // Replaces two TPU kernels of the JAX package:
 //   * video_tokenizer_tpu/ops/attention.py::_bwd_dq_kernel  (dQ), and
@@ -49,12 +55,15 @@
 // fragment helpers are repeated below).
 //
 // What bounds it: the backward does 2.5x the forward's flops (five S-sized
-// products instead of two) over the same bytes, so at the flagship shape it
-// is compute-bound like the forward. What this simple design leaves on the
-// table: no wgmma, no TMA or cp.async pipelining (each tile load stalls the
-// block), A fragments gathered from shared memory with 32-bit loads instead
-// of ldmatrix, and the dK/dV kernel recomputes S and dP that the dQ kernel
-// also computes (a fused kernel would add dQ with atomics instead).
+// products instead of two) over the same bytes, so it is bound by operations
+// like the forward: tensor-core operations in bf16, fp32 FMAs on the CUDA
+// cores in fp32. What this simple design leaves on the table, for the dQ
+// kernel and for the bf16 shapes the dK/dV kernel still takes: no wgmma, no
+// asynchronous tile ring (each tile load stalls the block), A fragments
+// gathered from shared memory with 32-bit loads, expf instead of exp2 (what
+// csrc/flash_attn_bwd_dkv_sm90.cu does for its shapes); and S and dP are
+// computed twice, once in each kernel (a fused kernel would add dQ with
+// atomics instead).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -1,0 +1,257 @@
+// Building blocks for Hopper (sm_90a) kernels: asynchronous 16-byte copies
+// into 128-byte-swizzled shared-memory tiles, shared-memory matrix
+// descriptors, and warpgroup matrix products (wgmma) with their fences.
+// Used by flash_attn_fwd_sm90.cu and flash_attn_bwd_dkv_sm90.cu.
+//
+// The one tile layout used everywhere ("row tile"): R rows of 128 bytes (64
+// bf16), row r at byte r * 128, its 16-byte chunk c stored at chunk position
+// c ^ (r & 7). That is the 128-byte swizzle of the wgmma descriptor, for which
+// the tile must start at a multiple of 1024 bytes. A head dim of 32 fills
+// chunks 0..3 of every row and leaves the rest unused, so one layout serves
+// D = 32 and D = 64. The same tile is read
+//   * K-major (the 64 values of a row are the product's inner dimension):
+//     Q.K^T reads Q and K this way, rows being the M or N index; a step of 16
+//     along the inner dimension is 32 bytes;
+//   * MN-major (rows are the inner dimension, the row's values the N index):
+//     P.V reads V this way, with no transposed copy; a step of 16 along the
+//     inner dimension is 16 rows, 2048 bytes.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace sm90 {
+
+constexpr int kRowBytes = 128;   // one row of a row tile
+constexpr int kAtomBytes = 1024; // 8 rows: the swizzle repeats, tiles align to it
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of 16-byte chunk `chunk` of row `row` inside a row tile.
+__device__ __forceinline__ uint32_t swizzled(int row, int chunk) {
+  return row * kRowBytes + ((chunk ^ (row & 7)) << 4);
+}
+
+// 16 bytes global -> shared, asynchronously, past L1; `bytes` = 0 writes zeros
+// (src must still be a valid address).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// 4 bytes global -> shared, asynchronously; `bytes` = 0 writes zeros.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most kPending of this thread's committed groups are in flight.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Makes this thread's shared-memory writes (cp.async included) visible to the
+// asynchronous proxy through which wgmma reads its operands. Each writer
+// runs it before the barrier that hands the tile to the readers.
+__device__ __forceinline__ void fence_async_proxy() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// One thread's share of copying kRows-row tiles of a [len, D] bf16 matrix (row
+// stride `row_stride` elements) into row tiles, with kThreads threads: the
+// thread always copies the same 16-byte chunk of rows r0, r0 + kStep, ..., so
+// its source pointer, its swizzled destination offset and the row stride are
+// computed once and a tile costs a pointer add and a bounds test per copy.
+template <int D, int kRows, int kThreads>
+struct RowTileLoader {
+  static constexpr int kChunks = D / 8;            // 16-byte chunks in a row
+  static constexpr int kStep = kThreads / kChunks;  // rows covered by one pass of all threads
+  static constexpr int kPasses = (kRows + kStep - 1) / kStep;
+  static_assert(kThreads % kChunks == 0 && kStep % 8 == 0, "a pass keeps each thread's swizzle");
+
+  const __nv_bfloat16* base;  // row 0 (the source of zero-filled copies must be valid)
+  const __nv_bfloat16* src;   // this thread's chunk of row r0
+  long long row_stride, pass_stride;
+  int len, r0;
+  uint32_t dst_off;
+
+  __device__ __forceinline__ RowTileLoader(const __nv_bfloat16* matrix, long long stride, int rows)
+      : base(matrix), row_stride(stride), pass_stride(kStep * stride), len(rows) {
+    const int chunk = threadIdx.x % kChunks;
+    r0 = threadIdx.x / kChunks;
+    src = matrix + r0 * stride + chunk * 8;
+    dst_off = swizzled(r0, chunk);
+  }
+
+  // Rows [row0, row0 + kRows) into the row tile at shared address `dst`; rows at
+  // or past `len` are zero-filled (len > 0).
+  __device__ __forceinline__ void load(uint32_t dst, int row0) const {
+    const __nv_bfloat16* from = src + row0 * row_stride;
+    const int left = len - row0 - r0;  // rows from this thread's first one to the end
+#pragma unroll
+    for (int i = 0; i < kPasses; ++i) {
+      if (kRows % kStep != 0 && r0 + i * kStep >= kRows) break;
+      const bool in = i * kStep < left;
+      cp_async16(dst + dst_off + i * kStep * kRowBytes, in ? from : base, in ? 16 : 0);
+      from += pass_stride;
+    }
+  }
+};
+
+// The 64-bit wgmma descriptor of a row tile (or of a part of one that starts
+// at a multiple of 1024 bytes): start address, 128-byte swizzle, 1024 bytes
+// from one group of 8 rows to the next. The same descriptor serves the
+// K-major and the MN-major reading; the instruction's transpose flag chooses.
+__device__ __forceinline__ uint64_t row_tile_desc(uint32_t addr) {
+  uint64_t desc = (addr & 0x3FFFF) >> 4;            // bits 0-13: address / 16
+  desc |= (uint64_t)1 << 16;                        // bits 16-29: leading offset (unused here)
+  desc |= (uint64_t)(kAtomBytes >> 4) << 32;        // bits 32-45: stride between 8-row groups
+  desc |= (uint64_t)1 << 62;                        // bits 62-63: 128-byte swizzle
+  return desc;
+}
+
+// Descriptor steps of 16 along the inner dimension (the address field counts
+// 16-byte units).
+constexpr uint64_t kStepKMajor = 32 >> 4;             // 16 bf16 along a row
+constexpr uint64_t kStepMNMajor = (16 * kRowBytes) >> 4;  // 16 rows
+
+// Orders earlier register writes (accumulators, A fragments) and shared-memory
+// writes of this warpgroup before the wgmma operations that follow.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Waits until at most kPending committed groups of products are in flight.
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
+}
+
+// wgmma writes its accumulators (and reads register A fragments) after the
+// instruction has started; the compiler does not know. Naming the registers in
+// an empty volatile asm after the wait (and before the start) keeps it from
+// moving their reads and writes across.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 2^x by the special-function unit: 2^-inf = +0, denormal results flushed.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Accumulator layout of every product below, for thread t of the warpgroup
+// (warp w = t / 32, g = (t % 32) / 4, tig = t % 4): d[i] is row
+// 16 w + g + 8 ((i / 2) % 2), column 8 (i / 4) + 2 tig + (i % 2): the
+// mma.sync m16n8 C layout, repeated along N. The register A fragment of a
+// 16-deep step kk is {pack(d[8kk], d[8kk+1]), pack(d[8kk+2], d[8kk+3]),
+// pack(d[8kk+4], d[8kk+5]), pack(d[8kk+6], d[8kk+7])} of a previous product's
+// accumulator, so a probability tile never leaves registers.
+
+// D[64 x 64] = (scale_d ? D : 0) + A[64 x 16] B[16 x 64], A and B K-major in
+// shared memory.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64 x 32] = (scale_d ? D : 0) + A[64 x 16] B[16 x 32], A from registers, B
+// in shared memory, K-major (kTransB = 0) or MN-major (kTransB = 1).
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n"
+      "}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d),
+        "n"(kTransB));
+}
+
+// D[64 x 64] = (scale_d ? D : 0) + A[64 x 16] B[16 x 64], A from registers, B
+// in shared memory, K-major (kTransB = 0) or MN-major (kTransB = 1).
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
+      "}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d),
+        "n"(kTransB));
+}
+
+}  // namespace sm90

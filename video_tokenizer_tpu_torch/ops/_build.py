@@ -4,9 +4,10 @@ Every `csrc/*.cu` file is compiled by its own `nvcc`, all of them started
 together, and the objects are linked into ONE shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds, not minutes) for
 `sm_90a`. The library lands in `build/torch_kernels/<hash>/`
-under the checkout, keyed by a hash of the sources and the flags, so an
-edited kernel is rebuilt and an unchanged one is reused. Importing this
-module builds nothing and needs no `nvcc`: the first kernel launch does.
+under the checkout, keyed by a hash of the sources, the headers they include
+(`csrc/*.cuh`) and the flags, so an edited kernel or header is rebuilt and an
+unchanged one is reused. Importing this module builds nothing and needs no
+`nvcc`: the first kernel launch does.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -37,8 +39,18 @@ class Build(NamedTuple):
     log: str
 
 
-def _sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu"))
+def _sources(csrc: Path = CSRC) -> list[Path]:
+    return sorted(csrc.glob("*.cu"))
+
+
+def source_digest(csrc: Path = CSRC) -> str:
+    """Hash of everything the library is built from: the flags, every
+    `*.cu` source and every `*.cuh` header of `csrc`, by name and bytes."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted([*_sources(csrc), *csrc.glob("*.cuh")]):
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return digest.hexdigest()[:16]
 
 
 def _nvcc() -> str:
@@ -56,12 +68,8 @@ def _nvcc() -> str:
 
 
 def build() -> Build:
-    """Compiles csrc/*.cu unless a library for these sources exists."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
-        digest.update(src.name.encode())
-        digest.update(src.read_bytes())
-    out_dir = BUILD_ROOT / digest.hexdigest()[:16]
+    """Compiles csrc/*.cu unless a library for these sources and headers exists."""
+    out_dir = BUILD_ROOT / source_digest()
     lib_path = out_dir / LIB_NAME
     log_path = out_dir / "build.log"
     if lib_path.exists():
@@ -99,13 +107,30 @@ def build() -> Build:
     return Build(lib_path, seconds, log)
 
 
+def kernel_resources(log: str) -> dict[str, tuple[int, int]]:
+    """{mangled kernel name: (registers, spill bytes)} from a build's
+    `-Xptxas -v` output (spill bytes: stores + loads)."""
+    found, name, spills = {}, None, 0
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name, spills = line.split("'")[1], 0
+        elif "bytes spill stores" in line:
+            spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill", line))
+        elif name is not None and (m := re.search(r"Used (\d+) registers", line)):
+            found[name] = (int(m.group(1)), spills)
+            name = None
+    return found
+
+
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # (argtypes, restype) of every `extern "C"` entry point in csrc/. Pointers and
 # the stream are c_void_p: without a declaration ctypes would pass them as
 # 32-bit ints. tests/test_torch_ops.py checks this table against the sources.
 SIGNATURES = {
     "vtt_flash_attn_fwd": ([_P] * 7 + [_I] * 7 + [_LL] * 9 + [_I, _I, _F, _P], _I),
+    "vtt_flash_attn_fwd_sm90": ([_P] * 5 + [_I] * 6 + [_LL] * 9 + [_I, _I, _F, _P], _I),
     "vtt_flash_attn_bwd": ([_I] + [_P] * 10 + [_I] * 7 + [_LL] * 12 + [_I, _I, _F, _P], _I),
+    "vtt_flash_attn_bwd_dkv_sm90": ([_P] * 8 + [_I] * 6 + [_LL] * 12 + [_I, _I, _F, _P], _I),
     "vtt_vq_argmax": ([_P] * 4 + [_I] * 4 + [_F, _LL, _P], _I),
     "vtt_decode_attention": ([_P] * 10 + [_I] * 8 + [_LL, _F, _P], _I),
     "vtt_w8_matmul": ([_P] * 4 + [_I] * 5 + [_P], _I),

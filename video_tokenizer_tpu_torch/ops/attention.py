@@ -4,21 +4,28 @@ Counterpart of `video_tokenizer_tpu/ops/attention.py`. Tensors are [B, S, H, D]
 (the JAX package's layout); K/V may carry fewer heads than Q (grouped-query
 attention: head h reads KV head h // (H // Hkv)).
 
-* `flash_attn_fwd` wraps `csrc/flash_attn_fwd.cu`, which replaces both TPU
-  forward kernels (`_fwd_kernel_packed` and `_fwd_kernel`). On a CUDA tensor
-  it launches the kernel or raises; on a CPU tensor it runs
-  `attention_reference`. Nothing else chooses between the two.
+* `flash_attn_fwd` wraps `csrc/flash_attn_fwd_sm90.cu` (wgmma; bf16, head dim
+  32 or 64, no segment ids) and `csrc/flash_attn_fwd.cu` (fp32, head dim 128,
+  segment ids), which replace both TPU forward kernels (`_fwd_kernel_packed`
+  and `_fwd_kernel`). On a CUDA tensor it launches the kernel that
+  `flash_kernels` names or raises; on a CPU tensor it runs
+  `attention_reference`. Nothing else chooses.
 * `attention_reference` is the plain version, the JAX package's
   `_xla_attention_lse`: fp32 logits, masked pairs at -0.7 * float32.max,
   LSE. One deliberate difference: a query that matches no key attends
   uniformly (the mean of V), as the TPU kernels and the CUDA kernel do. The
   XLA form computes exp(logits - lse) there, and lse = MASK + log(Sk)
   rounds to MASK in fp32, so it returns the SUM of the V rows instead.
-* `flash_attn_bwd` wraps `csrc/flash_attn_bwd.cu` (`flash_attn_bwd_dq` and
-  `flash_attn_bwd_dkv`, which replace the TPU kernels `_bwd_dq_kernel` and
-  `_bwd_dkv_kernel`); on a CPU tensor it runs `attention_bwd_reference`, the
-  same recompute from the forward's LSE in plain PyTorch. Both give exactly
-  the gradient of `attention_reference`, the no-match rows included.
+* `flash_attn_bwd` wraps `csrc/flash_attn_bwd.cu` (`flash_attn_bwd_dq`, and
+  `flash_attn_bwd_dkv` for fp32, head dim 128 and segment ids) and
+  `csrc/flash_attn_bwd_dkv_sm90.cu` (`flash_attn_bwd_dkv` otherwise), which
+  replace the TPU kernels `_bwd_dq_kernel` and `_bwd_dkv_kernel`; on a CPU
+  tensor it runs `attention_bwd_reference`, the same recompute from the
+  forward's LSE in plain PyTorch. Both give exactly the gradient of
+  `attention_reference`, the no-match rows included.
+* `attention_tiled_reference` and `attention_bwd_dkv_tiled_reference` repeat
+  the wgmma kernels' arithmetic tile by tile in plain PyTorch, for the CPU
+  tests (`tests/test_torch_flash_tiled.py`); nothing else calls them.
 * `attention` is differentiable through `FlashAttention`, a
   `torch.autograd.Function` whose forward is the flash forward with LSE and
   whose backward is `flash_attn_bwd`. `attention_with_lse` has no backward
@@ -34,6 +41,20 @@ from . import _build
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 _HEAD_DIMS = (32, 64, 128)
+_SM90_HEAD_DIMS = (32, 64)  # head dims of the wgmma kernels (one 128-byte row per head)
+
+
+def flash_kernels(dtype: torch.dtype, head_dim: int, has_segments: bool) -> Tuple[str, str]:
+    """(forward kernel, dK/dV kernel) that a call on the card launches.
+
+    The one place where the choice is made, by dtype, head dim and masks
+    only: bf16 at D = 32 or 64 without segment ids runs the wgmma kernels
+    (`csrc/flash_attn_fwd_sm90.cu`, `csrc/flash_attn_bwd_dkv_sm90.cu`); fp32
+    (tensor cores would round it to TF32), D = 128 and segment ids stay on
+    the mma.sync / FMA kernels. No call falls back from one to the other."""
+    if dtype == torch.bfloat16 and head_dim in _SM90_HEAD_DIMS and not has_segments:
+        return "flash_fwd_sm90_kernel", "flash_bwd_dkv_sm90_kernel"
+    return "flash_fwd_kernel", "flash_bwd_dkv_kernel"
 
 
 def attention_reference(
@@ -107,6 +128,143 @@ def attention_bwd_reference(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+_LOG2E = 1.4426950408889634
+_WARPGROUP_ROWS = 64  # rows of a wgmma accumulator: one warpgroup's share of a block
+
+
+def _expand_kv(k, v, H: int):
+    if k.shape[2] != H:  # GQA: broadcast each KV head over its query group
+        rep = H // k.shape[2]
+        k, v = k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2)
+    return k.float(), v.float()
+
+
+def attention_tiled_reference(
+    q, k, v, causal: bool = False, segment_ids=None, kv_segment_ids=None,
+    sm_scale: Optional[float] = None, causal_offset: Optional[int] = None,
+    block_m: int = 128, block_n: int = 64,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The arithmetic of `flash_fwd_sm90_kernel`, tile by tile, in plain PyTorch
+    (tests only). Same contract as `attention_reference`.
+
+    What it repeats of the kernel: key tiles of `block_n`; per 64-row
+    warpgroup the choice between the fast path (running max of the raw
+    scores, P = exp2(s * scale * log2(e) - max * log2(e))) on tiles that
+    need no mask and the masked path (mask value and max kept in the
+    natural-log domain, P = exp2((x - max) * log2(e)), so the mask value
+    never meets the folded scale); keys past Sk are no keys; P rounded to
+    the input dtype before P.V; fp32 max, sum and accumulator; the causal
+    tile skip per `block_m`-row block and per warpgroup, only where every row
+    sees key 0; LSE = max + ln(sum), the mask value on rows that see no key.
+    Segment ids (which the kernel leaves to `flash_fwd_kernel`) take the
+    masked path on every tile."""
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    kf, vf = _expand_kv(k, v, H)
+    qf = q.float()
+    scale = sm_scale if sm_scale is not None else D ** -0.5
+    off = causal_offset if causal_offset is not None else Sk - Sq
+    has_seg = segment_ids is not None
+    mask = _mask(B, Sq, Sk, causal, segment_ids, kv_segment_ids, off, q.device)
+    rows = torch.arange(Sq, device=q.device)
+    wg_row0 = rows // _WARPGROUP_ROWS * _WARPGROUP_ROWS
+    block_row0 = rows // block_m * block_m
+    num_tiles = -(-Sk // block_n)
+    # tiles each row's warpgroup multiplies
+    tiles_row = torch.full((Sq,), num_tiles, device=q.device)
+    if causal and not has_seg:
+        visible = (wg_row0 + _WARPGROUP_ROWS - 1 + off) // block_n + 1
+        tiles_row = torch.where(block_row0 + off >= 0, visible.clamp(max=num_tiles), tiles_row)
+    m = torch.full((B, H, Sq), float("-inf"), device=q.device)
+    l = torch.zeros((B, H, Sq), device=q.device)
+    o = torch.zeros((B, H, Sq, D), device=q.device)
+    for t in range(num_tiles):
+        k0, k1 = t * block_n, min((t + 1) * block_n, Sk)
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kf[:, k0:k1])  # raw scores, fp32
+        active = (t < tiles_row)[None, None, :]
+        masked_path = torch.full((Sq,), k0 + block_n > Sk or scale <= 0 or has_seg,
+                                 device=q.device)
+        if causal:
+            masked_path = masked_path | (k0 + block_n - 1 > wg_row0 + off)
+        masked_path = masked_path[None, None, :]
+        x = torch.where(mask[:, :, :, k0:k1], s * scale, DEFAULT_MASK_VALUE)
+        tile_max = torch.where(masked_path, x.amax(-1), s.amax(-1) * scale)
+        m_new = torch.maximum(m, tile_max)
+        alpha = torch.exp2((m - m_new) * _LOG2E)
+        p = torch.where(masked_path[..., None],
+                        torch.exp2((x - m_new[..., None]) * _LOG2E),
+                        torch.exp2(s * (scale * _LOG2E) - (m_new * _LOG2E)[..., None]))
+        pv = torch.einsum("bhqk,bkhd->bhqd", p.to(q.dtype).float(), vf[:, k0:k1])
+        m = torch.where(active, m_new, m)
+        l = torch.where(active, l * alpha + p.sum(-1), l)
+        o = torch.where(active[..., None], o * alpha[..., None] + pv, o)
+    l = torch.where(l == 0, 1.0, l)
+    out = (o / l[..., None]).permute(0, 2, 1, 3)
+    return out.to(q.dtype), m + torch.log(l)
+
+
+def attention_bwd_dkv_tiled_reference(
+    q, k, v, out, lse, do, causal: bool = False, segment_ids=None, kv_segment_ids=None,
+    sm_scale: Optional[float] = None, causal_offset: Optional[int] = None,
+    block_q: int = 64,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The arithmetic of `flash_bwd_dkv_sm90_kernel`, tile by tile, in plain
+    PyTorch (tests only): (dk, dv) as `attention_bwd_reference` returns them.
+
+    What it repeats of the kernel: query tiles of `block_q` against 64-key
+    warpgroups; P^T = exp2(s * scale * log2(e) - lse * log2(e)) from the
+    natural-log LSE; dS^T = P^T (dP^T - delta); on tiles that need a mask
+    (causal diagonal, ragged ends, segment ids) masked pairs get 0, except
+    that a query whose LSE is the mask value gives 1/Sk to every key's dV;
+    P^T and dS^T rounded to the input dtype before their products; fp32 sums;
+    the causal skip of query tiles wholly before a warpgroup's keys, only
+    where every row sees key 0; dK scaled at the end; GQA groups summed."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    kf, vf = _expand_kv(k, v, H)
+    qf, dof = q.float(), do.float()
+    scale = sm_scale if sm_scale is not None else D ** -0.5
+    off = causal_offset if causal_offset is not None else Sk - Sq
+    has_seg = segment_ids is not None
+    mask = _mask(B, Sq, Sk, causal, segment_ids, kv_segment_ids, off, q.device)
+    mask_t = mask.transpose(2, 3)  # [B, 1, Sk, Sq]
+    delta = torch.einsum("bqhd,bqhd->bhq", out.float(), dof)
+    lse = lse.float()
+    wg_key0 = torch.arange(Sk, device=q.device) // _WARPGROUP_ROWS * _WARPGROUP_ROWS
+    skip_ok = causal and off >= 0 and not has_seg
+    dk = torch.zeros((B, Sk, H, D), device=q.device)
+    dv = torch.zeros((B, Sk, H, D), device=q.device)
+    for t in range(-(-Sq // block_q)):
+        q0, q1 = t * block_q, min((t + 1) * block_q, Sq)
+        s = torch.einsum("bkhd,bqhd->bhkq", kf, qf[:, q0:q1])  # raw scores^T, fp32
+        dp = torch.einsum("bkhd,bqhd->bhkq", vf, dof[:, q0:q1])
+        active = torch.ones((Sk,), dtype=torch.bool, device=q.device)
+        if skip_ok:
+            active = ~(q0 + block_q - 1 + off < wg_key0)
+        masked_path = torch.full((Sk,), q0 + block_q > Sq or has_seg, device=q.device)
+        masked_path = masked_path | (wg_key0 + _WARPGROUP_ROWS - 1 >= Sk)
+        if causal:
+            masked_path = masked_path | (q0 + off < wg_key0 + _WARPGROUP_ROWS - 1)
+        lse_t, delta_t = lse[:, :, None, q0:q1], delta[:, :, None, q0:q1]
+        p_any = torch.exp2(s * (scale * _LOG2E) - lse_t * _LOG2E)
+        ds_any = p_any * (dp - delta_t)
+        keep = mask_t[:, :, :, q0:q1]
+        no_match = torch.where(lse_t < 0.5 * DEFAULT_MASK_VALUE, 1.0 / Sk, 0.0).expand_as(p_any)
+        on_masked = masked_path[None, None, :, None]
+        p = torch.where(on_masked, torch.where(keep, p_any, no_match), p_any)
+        ds = torch.where(on_masked, torch.where(keep, ds_any, 0.0), ds_any)
+        live = active[None, None, :, None]
+        p, ds = torch.where(live, p, 0.0), torch.where(live, ds, 0.0)
+        dv += torch.einsum("bhkq,bqhd->bkhd", p.to(q.dtype).float(), dof[:, q0:q1])
+        dk += torch.einsum("bhkq,bqhd->bkhd", ds.to(q.dtype).float(), qf[:, q0:q1])
+    dk = dk * scale
+    if Hkv != H:
+        rep = H // Hkv
+        dk = dk.reshape(B, Sk, Hkv, rep, D).sum(3)
+        dv = dv.reshape(B, Sk, Hkv, rep, D).sum(3)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _check_operand(kernel: str, name: str, x: torch.Tensor, dtype: torch.dtype) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{kernel}: {name} is on {x.device}, the others on cuda")
@@ -171,23 +329,32 @@ def flash_attn_fwd(
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if return_lse else None
     if out.numel() and Sk:
+        kernel = flash_kernels(q.dtype, D, q_seg is not None)[0]
+        strides = (q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
+                   v.stride(0), v.stride(1), v.stride(2))
+        stream = torch.cuda.current_stream(q.device).cuda_stream
         with torch.cuda.device(q.device):
-            code = _build.library().vtt_flash_attn_fwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(q_seg), _ptr(k_seg),
-                out.data_ptr(), _ptr(lse), int(q.dtype == torch.bfloat16),
-                B, H, Hkv, Sq, Sk, D,
-                q.stride(0), q.stride(1), q.stride(2),
-                k.stride(0), k.stride(1), k.stride(2),
-                v.stride(0), v.stride(1), v.stride(2),
-                int(causal), offset, scale,
-                torch.cuda.current_stream(q.device).cuda_stream,
-            )
-        _build.check(code, "flash_attn_fwd")
+            if kernel == "flash_fwd_sm90_kernel":
+                code = _build.library().vtt_flash_attn_fwd_sm90(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse),
+                    B, H, Hkv, Sq, Sk, D, *strides, int(causal), offset, scale, stream,
+                )
+            else:
+                code = _build.library().vtt_flash_attn_fwd(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(q_seg), _ptr(k_seg),
+                    out.data_ptr(), _ptr(lse), int(q.dtype == torch.bfloat16),
+                    B, H, Hkv, Sq, Sk, D, *strides, int(causal), offset, scale, stream,
+                )
+        _build.check(code, kernel)
         flash_attn_fwd.launches += 1
+        flash_attn_fwd.launches_sm90 += kernel == "flash_fwd_sm90_kernel"
+        flash_attn_fwd.last_kernel = kernel
     return (out, lse) if return_lse else out
 
 
-flash_attn_fwd.launches = 0  # kernel launches, read by chip_smoke.py
+flash_attn_fwd.launches = 0  # kernel launches (either kernel), read by chip_smoke.py
+flash_attn_fwd.launches_sm90 = 0  # of which the wgmma kernel
+flash_attn_fwd.last_kernel = None  # name of the kernel the last call launched
 
 
 def _bwd_launch(dkv: bool, q, k, v, do, lse, delta, q_seg, k_seg, out0, out1,
@@ -223,17 +390,37 @@ def flash_attn_bwd_dkv(q, k, v, do, lse, delta, q_seg, k_seg, causal: bool, offs
                        scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dK/dV kernel: dk, dv [B, Sk, H, D], one slice per QUERY head."""
     B, Sq, H, D = q.shape
-    shape = (B, k.shape[1], H, D)
+    Sk, Hkv = k.shape[1], k.shape[2]
+    shape = (B, Sk, H, D)
     dk = torch.empty(shape, dtype=k.dtype, device=q.device)
     dv = torch.empty(shape, dtype=v.dtype, device=q.device)
-    _bwd_launch(True, q, k, v, do, lse, delta, q_seg, k_seg, dk, dv,
-                causal, offset, scale)
+    kernel = flash_kernels(q.dtype, D, q_seg is not None)[1]
+    if kernel == "flash_bwd_dkv_sm90_kernel":
+        with torch.cuda.device(q.device):
+            code = _build.library().vtt_flash_attn_bwd_dkv_sm90(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, Hkv, Sq, Sk, D,
+                q.stride(0), q.stride(1), q.stride(2),
+                k.stride(0), k.stride(1), k.stride(2),
+                v.stride(0), v.stride(1), v.stride(2),
+                do.stride(0), do.stride(1), do.stride(2),
+                int(causal), offset, scale,
+                torch.cuda.current_stream(q.device).cuda_stream,
+            )
+        _build.check(code, kernel)
+    else:
+        _bwd_launch(True, q, k, v, do, lse, delta, q_seg, k_seg, dk, dv,
+                    causal, offset, scale)
     flash_attn_bwd_dkv.launches += 1
+    flash_attn_bwd_dkv.launches_sm90 += kernel == "flash_bwd_dkv_sm90_kernel"
+    flash_attn_bwd_dkv.last_kernel = kernel
     return dk, dv
 
 
 flash_attn_bwd_dq.launches = 0  # kernel launches, read by chip_smoke.py
-flash_attn_bwd_dkv.launches = 0
+flash_attn_bwd_dkv.launches = 0  # either dK/dV kernel
+flash_attn_bwd_dkv.launches_sm90 = 0  # of which the wgmma kernel
+flash_attn_bwd_dkv.last_kernel = None  # name of the kernel the last call launched
 
 
 def flash_attn_bwd(
