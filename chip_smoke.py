@@ -6,7 +6,8 @@
 Phases, each of which raises on failure (exit code 1, no result line):
   1. build the CUDA kernels from csrc/ with nvcc for sm_90a (one nvcc per
      source, all started together); registers and spill bytes of the
-     wgmma kernels, which may not spill;
+     tensor-core kernels (the three wgmma flash kernels, the chunk-attention
+     kernel), which may not spill;
   2. the flash-attention forward kernels, out and LSE, against their plain
      PyTorch version on the card: the wgmma kernel (bf16, head dim 32 or 64,
      no segment ids) at the tokenizer's shape, the discriminator's ragged
@@ -42,9 +43,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
      plain backward: the tokenizer's shape from strided views, the
      discriminator's ragged S = 1025, the prior's causal shape, GQA 20/5,
      segments with a no-match query, causal with an offset, fp32, each also
-     against the plain backward of the plain forward's out and LSE, dK/dV by
-     the wgmma kernel wherever the dispatch rule says so (plus D = 32 causal
-     ragged, Sq = 129 / Sk = 257, rows that see no key); gradients
+     against the plain backward of the plain forward's out and LSE, dQ and
+     dK/dV by the wgmma kernels wherever the dispatch rule says so (plus D =
+     32 causal ragged, Sq = 129 / Sk = 257, rows that see no key), the wgmma
+     dQ kernel timed beside the earlier one; gradients
      through `attention` under autograd; `attention_with_lse` refusing grad.
      The VQ kernel's stochastic mode (in phase 3): index for index against
      the plain Philox draw, and by frequency against softmax;
@@ -54,15 +56,17 @@ Phases, each of which raises on failure (exit code 1, no result line):
      losses, VQ indices, named gradients;
  12. tokenizer training through the port's trainer at batch 8, bf16 and
      fp32: s/step, clips/s, peak memory, exact launch counts of the four
-     training-path kernels (in bf16 every flash forward and dK/dV launch on
-     the wgmma kernels, in fp32 none), device idle share and time by kernel
+     training-path kernels (in bf16 every flash forward, dQ and dK/dV launch
+     on the wgmma kernels, in fp32 none), device idle share and time by kernel
      category from torch.profiler, the card's clock and power under load;
  13. the chunk-attention kernel (the verify forward of speculative decoding)
      against its plain version at the 632M prior's verify shape (B = 16,
      G = 5, H = 20, D = 64, S = 1152) and the draft's (H = 12, G = 1 and 2),
      rows at positions 0..1024, bf16, fp32 and int8 caches, GQA, key-valid,
-     each row within about one ulp of its output, a bound that the plain
-     version at pos - 1 or pos + 1 exceeds;
+     each row within 1e-2 of its output's scale, a bound that the plain
+     version at pos - 1 or pos + 1 exceeds; bf16 and int8 caches at head dim
+     64 on the tensor-core kernel, timed beside the earlier kernel, which
+     keeps fp32 caches and head dim 128;
  14. the per-row KV row-write kernel against its plain version: bf16, fp32
      and int8 caches, G = 1, 2, 5, uneven positions, strided row views: whole
      buffers equal bit for bit (the written rows and scales, and every other
@@ -71,13 +75,14 @@ Phases, each of which raises on failure (exit code 1, no result line):
      in fp32 (TF32 off), forced tokens, rows at different positions, fp32 and
      int8 KV caches; greedy fp32 speculative decoding against `generate`;
  16. speculative sampling with the full-width pair (632M target, 8 x 768
-     draft), batch 8, CFG 1.5, top-k 100, 1024 tokens, gamma 4, bf16 and int8
-     weights + int8 KV: the acceptance ceiling (zero heads: acceptance 1.0 in
-     exactly 205 iterations), the floor (independent sharp heads) and
-     self-drafting with the prior's first 8 layers: tokens/s beside plain
-     `generate`'s, acceptance, ms per iteration, device time of one
+     draft), batch 8, CFG 1.5, top-k 100, gamma 4, bf16 and int8 weights +
+     int8 KV: the acceptance ceiling (zero heads, 1024 tokens: acceptance 1.0
+     in exactly 205 iterations), the floor (independent sharp heads, 512
+     tokens) and self-drafting with the prior's first 8 layers (256 tokens):
+     tokens/s beside plain `generate`'s, acceptance, ms per iteration, device time of one
      iteration's forwards, exact launch counts (no one-token decode
-     attention), one host wait per iteration, the crossover acceptance;
+     attention, every chunk attention on the tensor-core kernel), one host
+     wait per iteration, the crossover acceptance;
  17. distillation of the full-width draft against the prior, 10 steps: the
      soft cross-entropy falls; launch counts of the flash forward, dQ and
      dK/dV kernels from the draft's 8 layers.
@@ -184,15 +189,24 @@ def phase_build() -> None:
     for line in build.log.splitlines():
         if "Used" in line or ("spill" in line and " 0 bytes spill stores" not in line):
             log(f"[build]   {line.strip()}")
-    # the wgmma kernels, per head dim: accumulators spilled to local memory
-    # would be re-read on every product
-    seen = []
+    # the tensor-core kernels: the wgmma flash kernels per head dim, the chunk
+    # kernel per cache type and number of 16-row tiles; accumulators spilled to
+    # local memory would be re-read on every product
+    expected = {f"flash_{k}_sm90_kernel<{d}>" for k in ("fwd", "bwd_dq", "bwd_dkv") for d in (32, 64)}
+    expected |= {f"chunk_attn_sm90_kernel<{c}, {m}>" for c in ("bf16", "int8") for m in (1, 2)}
+    seen = set()
     for name, (regs, spill) in sorted(_build.kernel_resources(build.log).items()):
-        if m := re.search(r"(flash_(?:fwd|bwd_dkv)_sm90_kernel)ILi(\d+)E+v", name):
-            seen.append(f"{m.group(1)}<{m.group(2)}>")
-            log(f"[build]   {seen[-1]}: {regs} registers, {spill} spill bytes")
-            require(spill == 0, f"{seen[-1]} spills {spill} bytes")
-    require(len(seen) == 4, f"expected 2 wgmma kernels x 2 head dims in the build log, found {seen}")
+        if m := re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_sm90_kernel)ILi(\d+)E+v", name):
+            kernel = f"{m.group(1)}<{m.group(2)}>"
+        elif m := re.search(r"(chunk_attn_sm90_kernel)I(13__nv_bfloat16|a)Li(\d+)E+v", name):
+            kernel = f"{m.group(1)}<{'int8' if m.group(2) == 'a' else 'bf16'}, {m.group(3)}>"
+        else:
+            continue
+        seen.add(kernel)
+        log(f"[build]   {kernel}: {regs} registers, {spill} spill bytes")
+        require(spill == 0, f"{kernel} spills {spill} bytes")
+    require(seen == expected, f"tensor-core kernels in the build log: {sorted(seen)}, "
+                              f"expected {sorted(expected)}")
 
 
 def phase_flash(records: dict) -> None:
@@ -310,7 +324,7 @@ def phase_flash_bwd(records: dict) -> None:
     import torch.nn.functional as F
 
     from video_tokenizer_tpu_torch.ops.attention import (
-        attention, attention_bwd_reference, attention_reference, attention_with_lse,
+        _bwd_launch, attention, attention_bwd_reference, attention_reference, attention_with_lse,
         flash_attn_bwd, flash_attn_bwd_dkv, flash_attn_bwd_dq, flash_attn_fwd,
     )
 
@@ -339,8 +353,8 @@ def phase_flash_bwd(records: dict) -> None:
         # queries 0..69 see no key: each adds do / Sk to every key's dv
         ("causal_no_key_rows", 1, 300, 300, 2, 2, 64, torch.bfloat16, True, -70, False, 2e-2),
     ]
-    # the cases whose dK/dV must run the wgmma kernel (bf16, D = 32 or 64, no
-    # segment ids); the forward that feeds them follows the same rule
+    # the cases whose dQ and dK/dV must run the wgmma kernels (bf16, D = 32 or
+    # 64, no segment ids); the forward that feeds them follows the same rule
     sm90_cases = {"tokenizer", "discriminator", "prior_causal", "gqa_20_over_5",
                   "causal_offset_d64", "causal_ragged_d32", "edge_129_257", "causal_no_key_rows"}
     for name, B, Sq, Sk, H, Hkv, D, dtype, causal, offset, with_seg, tol in cases:
@@ -360,7 +374,7 @@ def phase_flash_bwd(records: dict) -> None:
         out, lse = flash_attn_fwd(q, k, v, return_lse=True, **kw)
         got = flash_attn_bwd(q, k, v, out, lse, do, **kw)
         torch.cuda.synchronize()
-        kernel = flash_attn_bwd_dkv.last_kernel
+        kernel, dq_kernel = flash_attn_bwd_dkv.last_kernel, flash_attn_bwd_dq.last_kernel
         want = attention_bwd_reference(q, k, v, out, lse, do, causal, q_seg, k_seg, None, offset)
         plain_out, plain_lse = attention_reference(q, k, v, causal, q_seg, k_seg, None, offset)
         want_plain = attention_bwd_reference(q, k, v, plain_out, plain_lse, do, causal, q_seg,
@@ -376,12 +390,14 @@ def phase_flash_bwd(records: dict) -> None:
                               / wp.float().abs().max().item())
         log(f"[flash bwd] {name}: B={B} Sq={Sq} Sk={Sk} H={H} Hkv={Hkv} D={D} {str(dtype)[6:]}"
             f"{' causal' if causal else ''}{f' offset {offset}' if offset is not None else ''}"
-            f"{' segments' if with_seg else ''}, dK/dV by {kernel}: "
+            f"{' segments' if with_seg else ''}, dQ by {dq_kernel}, dK/dV by {kernel}: "
             f"max|kernel-plain|/max|plain| dq {errs[0]:.2e}, "
             f"dk {errs[1]:.2e}, dv {errs[2]:.2e}; against the plain forward's out and LSE "
             f"dq {plain_errs[0]:.2e}, dk {plain_errs[1]:.2e}, dv {plain_errs[2]:.2e} (tol {tol:g})")
         require(kernel == ("flash_bwd_dkv_sm90_kernel" if name in sm90_cases
                            else "flash_bwd_dkv_kernel"), f"flash bwd {name}: dK/dV ran {kernel}")
+        require(dq_kernel == ("flash_bwd_dq_sm90_kernel" if name in sm90_cases
+                              else "flash_bwd_dq_kernel"), f"flash bwd {name}: dQ ran {dq_kernel}")
         require(max(errs) <= tol and max(plain_errs) <= tol,
                 f"flash bwd {name}: errors {errs}, from the plain forward {plain_errs} > {tol}")
         del plain_out, plain_lse, want_plain
@@ -391,6 +407,10 @@ def phase_flash_bwd(records: dict) -> None:
             scale = D ** -0.5
             dq_ms = median_ms(lambda: flash_attn_bwd_dq(q, k, v, do, lse, delta, None, None,
                                                         causal, 0, scale))
+            # the earlier (mma.sync) dQ kernel through its own entry, in the same run
+            dq_earlier = torch.empty_like(got[0])
+            dq_earlier_ms = median_ms(lambda: _bwd_launch(
+                False, q, k, v, do, lse, delta, None, None, dq_earlier, None, causal, 0, scale))
             dkv_ms = median_ms(lambda: flash_attn_bwd_dkv(q, k, v, do, lse, delta, None, None,
                                                           causal, 0, scale))
             plain_ms = median_ms(
@@ -413,25 +433,33 @@ def phase_flash_bwd(records: dict) -> None:
             bnd_dq = bound(read + _nbytes(q), 3 * unit, kind)
             bnd_dkv = bound(read + _nbytes(k, v), 4 * unit, kind)
             dkv_tflops = 4 * unit / dkv_ms / 1e9
-            log(f"[flash bwd] {name}: dQ kernel {dq_ms:.3f} ms (bound {bnd_dq['bound_ms']:.3f}), "
+            log(f"[flash bwd] {name}: dQ {dq_kernel} {dq_ms:.3f} ms ({3 * unit / dq_ms / 1e9:.1f} "
+                f"TFLOP/s of its 3 products; the earlier flash_bwd_dq_kernel {dq_earlier_ms:.3f} "
+                f"ms; bound {bnd_dq['bound_ms']:.3f}), "
                 f"dK/dV {kernel} {dkv_ms:.3f} ms ({dkv_tflops:.1f} TFLOP/s of its 4 products, "
                 f"bound {bnd_dkv['bound_ms']:.3f}, {bnd_dkv['bound_by']}), plain backward (dq, "
                 f"dk, dv) {plain_ms:.3f} ms, library call (autograd through SDPA, dq + dk + dv "
                 f"in one backward) {library_ms:.3f} ms (median)")
             rec_dq = {"max_abs_err": abs_errs[0], "max_rel_err": errs[0], "ms": dq_ms,
-                      "plain_ms": plain_ms, "library_ms": library_ms, **bnd_dq}
+                      "earlier_ms": dq_earlier_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                      **bnd_dq}
             rec_dkv = {"max_abs_err": max(abs_errs[1:]), "max_rel_err": max(errs[1:]),
                        "ms": dkv_ms, "plain_ms": plain_ms, "library_ms": library_ms,
                        "tflops": dkv_tflops, **bnd_dkv}
             if name == "tokenizer":
+                require(dq_ms < dq_earlier_ms, f"flash bwd: the wgmma dQ kernel ({dq_ms} ms) is "
+                        f"no faster than the earlier one ({dq_earlier_ms} ms)")
                 records["flash_attn_bwd_dq"] = rec_dq
                 records["flash_attn_bwd_dkv"] = rec_dkv
             elif name == "fp32":
-                # the kernel that keeps fp32, D = 128 and segment ids
+                # the kernels that keep fp32, D = 128 and segment ids
+                del rec_dq["earlier_ms"]  # the same kernel
+                records["flash_attn_bwd_dq_mma"] = rec_dq
                 records["flash_attn_bwd_dkv_mma"] = rec_dkv
             else:
                 short = "disc" if name == "discriminator" else "causal"
                 records["flash_attn_bwd_dq"].update({f"{short}_ms": dq_ms,
+                                                     f"{short}_earlier_ms": dq_earlier_ms,
                                                      f"{short}_plain_ms": plain_ms})
                 records["flash_attn_bwd_dkv"].update({f"{short}_ms": dkv_ms,
                                                       f"{short}_plain_ms": plain_ms,
@@ -674,14 +702,15 @@ def phase_chunk_attention(records: dict) -> None:
     import torch.nn.functional as F
 
     from video_tokenizer_tpu_torch.ops.decode_attention import (
-        _quantize_rows, chunk_attention, chunk_attention_reference,
+        _chunk_launch, _quantize_rows, chunk_attention, chunk_attention_reference, chunk_kernel,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
-    # As for the one-token kernel: both sides compute in fp32 and round the
-    # output once, so the bound is relative to max|plain| (bf16 and int8
-    # caches 1e-2, fp32 1e-5), capped by the JAX interpret tests' absolute
-    # bounds, here PER ROW: a row at pos 1024 has outputs ~30x smaller than a
+    # As for the one-token kernel, the bound is relative to max|plain| (bf16
+    # and int8 caches 1e-2: the tensor-core kernel rounds q and P to bf16
+    # before its products, as the TPU kernel does, where the plain version
+    # computes in fp32 and rounds once; fp32 1e-5), capped by the JAX
+    # interpret tests' absolute bounds, here PER ROW: a row at pos 1024 has outputs ~30x smaller than a
     # row at pos 0, and its bound must still fail a kernel that reads one key
     # too few or too many (the plain version at pos - 1 and pos + 1 misses it).
     tols = {torch.bfloat16: (2e-2, 1e-2), torch.int8: (5e-2, 1e-2), torch.float32: (1e-4, 1e-5)}
@@ -717,6 +746,10 @@ def phase_chunk_attention(records: dict) -> None:
         kw = dict(key_valid=valid, k_scale=ks, v_scale=vs, kv_heads=Hkv)
         got = chunk_attention(q, k, v, pos, **kw)
         torch.cuda.synchronize()
+        kernel = chunk_attention.last_kernel
+        require(kernel == chunk_kernel(cache_dtype, D) == (
+            "chunk_split_kernel" if cache_dtype == torch.float32 or D == 128
+            else "chunk_attn_sm90_kernel"), f"chunk {name}: ran {kernel}")
         want = chunk_attention_reference(q, k, v, pos, **kw)
         require(got.shape == want.shape and got.dtype == want.dtype, f"chunk {name}: shape or dtype")
         require(torch.isfinite(got).all().item(), f"chunk {name}: non-finite output")
@@ -729,21 +762,41 @@ def phase_chunk_attention(records: dict) -> None:
         near = torch.where(pos > 0, near, torch.inf)  # pos - 1 of row 0 is row 0 itself
         worst = int((err / tol).argmax())
         log(f"[chunk] {name}: B={B} G={G} H={H} Hkv={Hkv} D={D} S={S} {str(cache_dtype)[6:]} "
-            f"cache, pos {pos.min().item()}..{pos.max().item()} per row: max|kernel-plain| "
+            f"cache, {kernel}, pos {pos.min().item()}..{pos.max().item()} per row: max|kernel-plain| "
             f"{err.max().item():.3e}; closest to its row's bound at pos {pos[worst].item()}: "
             f"{err[worst].item():.3e} (tol {tol[worst].item():.3e}); the plain version at pos "
             f"-/+ 1 misses each row's bound by a factor >= {(near / tol).min().item():.1f}")
         require(bool((err <= tol).all()), f"chunk {name}: errors {err.tolist()} > {tol.tolist()}")
         require(bool((near > tol).all()), f"chunk {name}: a row's bound does not tell pos from pos -/+ 1")
-        if name in ("verify_bf16", "verify_int8"):
+        if name in ("verify_bf16", "verify_int8", "verify_fp32", "draft_g1_bf16"):
             # every row at the end of a 1024-token sample: pos + G = 1029 live keys
             full = torch.full((B,), 1024, dtype=torch.int32, device="cuda")
             ms = graph_ms(lambda: chunk_attention(q, k, v, full, **kw))
+            at_full = chunk_attention(q, k, v, full, **kw).float()
+            want_full = chunk_attention_reference(q, k, v, full, **kw).float()
+            err_full = ((at_full - want_full).abs().max() / want_full.abs().max()).item()
+            require(err_full <= rel, f"chunk {name}, every row at pos 1024: {err_full} of "
+                                     f"max|plain| > {rel}")
+            earlier_ms = None
+            if kernel != "chunk_split_kernel":
+                # the earlier kernel through its own entry, in the same run
+                earlier = torch.empty_like(got)
+                earlier_ms = graph_ms(lambda: _chunk_launch("chunk_split_kernel", q, k, v, full,
+                                                            valid, ks, vs, Hkv, earlier))
+                err_earlier = (earlier.float() - at_full).abs().max().item()
+                require(err_earlier <= 2e-2, f"chunk {name}: the two kernels differ by {err_earlier}")
+                require(ms < earlier_ms, f"chunk {name}: {kernel} ({ms} ms) is no faster than the "
+                                         f"earlier kernel ({earlier_ms} ms)")
+            if name == "draft_g1_bf16":
+                log(f"[chunk] {name}, every row at pos 1024: {kernel} {ms:.4f} ms, the earlier "
+                    f"chunk_split_kernel {earlier_ms:.4f} ms (device time, CUDA-graph replay)")
+                records["chunk_attention"].update(draft_g1_ms=ms, draft_g1_earlier_ms=earlier_ms)
+                continue
             plain_ms = graph_ms(lambda: chunk_attention_reference(q, k, v, full, **kw), launches=5)
             live = B * (1024 + G) * (Hkv * D * 2 * k.element_size() + (8 if ks is not None else 0))
             bnd = bound(live + _nbytes(got, got, full))  # + the queries and the output
             library_ms = None
-            if cache_dtype == torch.bfloat16:
+            if cache_dtype != torch.int8:
                 # one PyTorch call for the same function: SDPA on [B, H, S, D]
                 # views of the cache with a [B, 1, G, S] boolean mask (there is
                 # none for an int8 cache); timed here, used nowhere in the port
@@ -752,19 +805,26 @@ def phase_chunk_attention(records: dict) -> None:
                 mask = (torch.arange(S, device="cuda") <=
                         (full[:, None] + torch.arange(G, device="cuda"))[:, :, None])[:, None]
                 lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask).transpose(1, 2)
-                lib_err = (lib.float() - chunk_attention(q, k, v, full, **kw).float()).abs().max().item()
+                lib_err = (lib.float() - at_full).abs().max().item()
                 require(lib_err <= 2e-2, f"chunk {name}: the library call computes another function ({lib_err})")
                 library_ms = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
-            log(f"[chunk] {name}, every row at pos 1024: kernel {ms:.4f} ms "
-                f"({live / ms / 1e6:.0f} GB/s of live K+V), bound {bnd['bound_ms']:.4f} ms "
-                f"({bnd['bound_by']}), plain {plain_ms:.4f} ms, library call (SDPA with a mask) "
+            log(f"[chunk] {name}, every row at pos 1024: {kernel} {ms:.4f} ms "
+                f"({live / ms / 1e6:.0f} GB/s of live K+V), "
+                + (f"the earlier chunk_split_kernel {earlier_ms:.4f} ms, " if earlier_ms else "")
+                + f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), plain {plain_ms:.4f} ms, "
+                f"library call (SDPA with a mask) "
                 f"{'none for int8' if library_ms is None else f'{library_ms:.4f} ms'} "
                 f"(device time, CUDA-graph replay)")
+            rec = {"max_abs_err": err.max().item(), "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": library_ms, **bnd}
             if name == "verify_bf16":
-                records["chunk_attention"] = {"max_abs_err": err.max().item(), "ms": ms,
-                                              "plain_ms": plain_ms, "library_ms": library_ms, **bnd}
+                records["chunk_attention"] = {**rec, "earlier_ms": earlier_ms}
+            elif name == "verify_fp32":
+                # the kernel that keeps fp32 caches and D = 128
+                records["chunk_attention_split"] = rec
             else:
-                records["chunk_attention"].update(int8_ms=ms, int8_plain_ms=plain_ms,
+                records["chunk_attention"].update(int8_ms=ms, int8_earlier_ms=earlier_ms,
+                                                  int8_plain_ms=plain_ms,
                                                   int8_bound_ms=bnd["bound_ms"])
 
 
@@ -1222,17 +1282,20 @@ def _sharp_heads():
     return 0.11 * torch.randn(8192, 1280, generator=gen), 0.11 * torch.randn(8192, 768, generator=gen)
 
 
-def phase_speculative_greedy(ar_fp32, draft_fp32) -> None:
+def phase_speculative_greedy(ar_fp32, draft_fp32, records: dict) -> None:
     """Greedy decoding in fp32 (TF32 off) with sharp heads, 64 tokens at batch
     8: speculative == `generate` token for token, but for near-ties of the
     target's top two logits (the verify chunk and the single step are GEMMs
     of other shapes, so a tie may break the other way and the rows then part).
-    The target's own head is put back afterwards."""
+    The target's own head is put back afterwards. The fp32 caches keep every
+    chunk attention on the earlier kernel."""
     import torch
 
     from video_tokenizer_tpu_torch.generation import generate, speculative_generate
+    from video_tokenizer_tpu_torch.ops.decode_attention import chunk_attention
 
     B, gamma = 8, 4
+    chunk_attention.launches = chunk_attention.launches_sm90 = 0
     labels = torch.tensor([0, 5, 17, 33, 50, 64, 88, 100], device="cuda")
     sharp_t, sharp_d = _sharp_heads()
     own_head = ar_fp32.output.weight.detach().clone()
@@ -1262,6 +1325,12 @@ def phase_speculative_greedy(ar_fp32, draft_fp32) -> None:
         require(worst_gap <= 1e-3 * scale,
                 f"greedy speculative ({name}) differs from generate at a gap {worst_gap}")
     _set_head(ar_fp32, own_head)
+    launches = chunk_attention.launches
+    log(f"[spec greedy fp32] {launches} chunk attentions, {chunk_attention.launches_sm90} of them "
+        f"by chunk_attn_sm90_kernel (expect 0: fp32 caches)")
+    require(launches > 0 and chunk_attention.launches_sm90 == 0,
+            "greedy fp32 speculative: chunk attention off the earlier kernel")
+    records["chunk_attention_split"]["launches"] = launches
 
 
 def phase_speculative(target, draft, tokenizer, records: dict) -> None:
@@ -1272,8 +1341,10 @@ def phase_speculative(target, draft, tokenizer, records: dict) -> None:
       ceiling     both output heads zero: both distributions uniform, every
                   proposal accepted, ceil(1023 / 5) = 205 iterations;
       floor       independent sharp heads (std 0.11): uncorrelated peaked
-                  distributions, acceptance near 0;
-      self_draft  the target's own first 8 layers and its sharp head.
+                  distributions, acceptance near 0 (512 tokens: one iteration
+                  per token, and the host sets each one's time);
+      self_draft  the target's own first 8 layers and its sharp head (256
+                  tokens, for the same reason).
     `target` and `draft` arrive on the card and are cast to bf16 in place.
     Also: two short runs under the CUDA sync debug mode (the loop reads one
     scalar per iteration on the host)."""
@@ -1289,13 +1360,14 @@ def phase_speculative(target, draft, tokenizer, records: dict) -> None:
     from video_tokenizer_tpu_torch.ops.quant_matmul import w8_matmul
 
     kernels = (flash_attn_fwd, decode_attention, w8_matmul, chunk_attention, write_rows_per_row)
-    B, new, gamma = 8, 1024, 4
+    B, gamma = 8, 4
     labels = torch.tensor([0, 5, 17, 33, 50, 64, 88, 100], device="cuda")
     sharp_t, sharp_d = _sharp_heads()
     t_bf16, d_bf16 = target.to(torch.bfloat16), draft.to(torch.bfloat16)  # in place
     plain = records["sampling"]  # tokens/s of plain `generate` in this run (phase 9)
     out = {}
     for con in ("ceiling", "floor", "self_draft"):
+        new = {"ceiling": 1024, "floor": 512, "self_draft": 256}[con]
         _set_head(t_bf16, torch.zeros_like(sharp_t) if con == "ceiling" else sharp_t)
         _set_head(d_bf16, torch.zeros_like(sharp_d) if con == "ceiling" else sharp_d)
         for prec in ("bf16", "int8_kv8"):
@@ -1312,17 +1384,20 @@ def phase_speculative(target, draft, tokenizer, records: dict) -> None:
             torch.cuda.synchronize()
             for k in kernels:
                 k.launches = 0
+            chunk_attention.launches_sm90 = 0
             t0 = time.perf_counter()
             seq, stats = speculative_generate(tm, dm, labels, new, gen, **kw)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = {k.__name__: k.launches for k in kernels}
+            chunk_sm90 = chunk_attention.launches_sm90
             iters, acc = stats["iterations"], float(stats["acceptance_rate"])
             with torch.inference_mode():
-                video = tokenizer.decode_from_bottleneck(seq)
+                # (the decoder takes whole samples of 1024 codes)
+                video = tokenizer.decode_from_bottleneck(seq) if new == 1024 else None
                 # one iteration's forwards at the mean cache length, no host gaps
-                tc = tm.init_cache(2 * B, 1 + new + gamma, kv or torch.bfloat16)
-                dc = dm.init_cache(2 * B, 1 + new + gamma, kv or torch.bfloat16)
+                tc = tm.init_cache(2 * B, 1 + 1024 + gamma, kv or torch.bfloat16)
+                dc = dm.init_cache(2 * B, 1 + 1024 + gamma, kv or torch.bfloat16)
                 pn = torch.full((2 * B,), 512, dtype=torch.int32, device="cuda")
                 t1, t2, t5 = (seq[:, :g].repeat(2, 1) for g in (1, 2, gamma + 1))
 
@@ -1352,17 +1427,24 @@ def phase_speculative(target, draft, tokenizer, records: dict) -> None:
                 f"{plain[prec]:.1f}); acceptance {acc:.4f}, {iters} iterations, {iter_ms:.3f} ms "
                 f"per iteration (host wall); device {dev_ms:.3f} ms per iteration's forwards "
                 f"(CUDA-graph replay at pos 512): idle {1 - dev_ms / iter_ms:.1%}")
-            log(f"[spec {con} {prec}] launches {launches} (expect {want_launches})")
+            log(f"[spec {con} {prec}] launches {launches} (expect {want_launches}), of the chunk "
+                f"attentions {chunk_sm90} by chunk_attn_sm90_kernel (expect all: a "
+                f"{'int8' if kv else 'bf16'} cache at head dim 64)")
             require(tuple(seq.shape) == (B, new) and int(seq.min()) >= 0 and int(seq.max()) < 8192,
                     f"spec {con} {prec}: codes {tuple(seq.shape)} out of range")
-            require(tuple(video.shape) == (B, 3, 16, 128, 128) and torch.isfinite(video).all().item(),
-                    f"spec {con} {prec}: video {tuple(video.shape)} or non-finite")
+            require(video is None or (tuple(video.shape) == (B, 3, 16, 128, 128)
+                                      and torch.isfinite(video).all().item()),
+                    f"spec {con} {prec}: video shape or non-finite")
             require(launches == want_launches,
                     f"spec {con} {prec}: launch counts {launches}, expected {want_launches}")
+            require(chunk_sm90 == launches["chunk_attention"],
+                    f"spec {con} {prec}: {chunk_sm90} of {launches['chunk_attention']} chunk "
+                    f"attentions ran chunk_attn_sm90_kernel")
             if con == "ceiling":
                 require(acc == 1.0 and iters == -(-(new - 1) // (gamma + 1)),
                         f"spec ceiling {prec}: acceptance {acc}, {iters} iterations")
-            out[f"{con}_{prec}"] = {"tokens_per_s": tok_s, "acceptance": acc, "iterations": iters,
+            out[f"{con}_{prec}"] = {"tokens": new, "tokens_per_s": tok_s, "acceptance": acc,
+                                    "iterations": iters,
                                     "iter_ms": iter_ms, "device_iter_ms": dev_ms,
                                     "plain_tokens_per_s": plain[prec]}
             if con == "floor":  # the separate draft's run carries the kernels' counts
@@ -1424,7 +1506,7 @@ def phase_distill(target, draft, records: dict) -> None:
     kernels = (flash_attn_fwd, flash_attn_bwd_dq, flash_attn_bwd_dkv)
     steps, n_draft, n_target = 10, len(draft.layers), len(target.layers)
     for k in kernels:
-        k.launches = 0
+        k.launches = k.launches_sm90 = 0
     lines = []
     t0 = time.perf_counter()
     trained, stats = distill(target, draft, torch.Generator(device="cuda").manual_seed(SEED + 70),
@@ -1432,6 +1514,7 @@ def phase_distill(target, draft, records: dict) -> None:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k.__name__: k.launches for k in kernels}
+    sm90 = {k.__name__: k.launches_sm90 for k in kernels}
     refreshes = -(-steps // max(steps // 5, 1))
     # forwards: the draft's per step; per refresh the target's prefill (in
     # generate) and its teacher-forcing forward
@@ -1439,11 +1522,12 @@ def phase_distill(target, draft, records: dict) -> None:
             "flash_attn_bwd_dq": n_draft * steps, "flash_attn_bwd_dkv": n_draft * steps}
     log(f"[distill] {steps} steps, batch 8, seq 256, {refreshes} refreshes of the targets: "
         f"{wall:.1f} s; soft-CE {stats['first_loss']:.4f} -> {stats['last_loss']:.4f}; launches "
-        f"{launches} (expect {want})")
+        f"{launches} (expect {want}), of which the wgmma kernels {sm90} (expect all: bf16)")
     require(math.isfinite(stats["first_loss"]) and math.isfinite(stats["last_loss"]),
             "distill: non-finite soft-CE")
     require(stats["last_loss"] < stats["first_loss"], f"distill: the soft-CE did not fall: {stats}")
     require(launches == want, f"distill: launch counts {launches}, expected {want}")
+    require(sm90 == want, f"distill: wgmma launches {sm90}, expected {want}")
     require(all(p.dtype == torch.bfloat16 for p in trained.parameters()), "distill: draft not bf16")
     records["distill"] = {"steps": steps, "wall_s": wall, "first_loss": stats["first_loss"],
                           "last_loss": stats["last_loss"]}
@@ -1548,7 +1632,7 @@ def phase_train_fp32(tmp: Path) -> None:
 
 _KERNEL_CATEGORIES = (  # first match wins, on the kernel's lower-cased name
     ("flash_bwd_dkv", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_sm90_kernel")),
-    ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
+    ("flash_bwd_dq", ("flash_bwd_dq_kernel", "flash_bwd_dq_sm90_kernel")),
     ("flash_fwd", ("flash_fwd_kernel", "flash_fwd_sm90_kernel")),
     ("vq_argmax", ("vq_argmax_kernel",)),
     ("conv (LPIPS)", ("conv", "cudnn", "implicit", "winograd", "fprop", "dgrad", "wgrad")),
@@ -1597,7 +1681,8 @@ def phase_train_throughput(tmp: Path, records: dict) -> None:
         torch.cuda.synchronize()
         for k in kernels:
             k.launches = 0
-        flash_attn_fwd.launches_sm90 = flash_attn_bwd_dkv.launches_sm90 = 0
+        for k in kernels[:3]:
+            k.launches_sm90 = 0
         torch.cuda.reset_peak_memory_stats()
         times, infos = [], []
         fetch_s.clear()
@@ -1608,8 +1693,7 @@ def phase_train_throughput(tmp: Path, records: dict) -> None:
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         launches = {k.__name__: k.launches for k in kernels}
-        sm90 = {"flash_attn_fwd": flash_attn_fwd.launches_sm90,
-                "flash_attn_bwd_dkv": flash_attn_bwd_dkv.launches_sm90}
+        sm90 = {k.__name__: k.launches_sm90 for k in kernels[:3]}
         loader_s = statistics.mean(fetch_s)
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1650,7 +1734,7 @@ def phase_train_throughput(tmp: Path, records: dict) -> None:
             f"s/step = {B / mean_s:.2f} clips/s (median {statistics.median(times):.3f} s); "
             f"loader {loader_s * 1e3:.1f} ms per step on the host ({loader_s / mean_s:.1%} of "
             f"the step, {tr.train_workers} workers); peak memory {peak_gb:.2f} GiB")
-        # bf16 runs the wgmma forward and dK/dV kernels on every launch, fp32 never
+        # bf16 runs the wgmma forward, dQ and dK/dV kernels on every launch, fp32 never
         want_sm90 = {k: want[k] if use_amp else 0 for k in sm90}
         log(f"[train {name}] launches over the timed steps {launches} (expect {want}), of which "
             f"the wgmma kernels {sm90} (expect {want_sm90}); losses "
@@ -1674,6 +1758,7 @@ def phase_train_throughput(tmp: Path, records: dict) -> None:
                 records[k]["launches"] = launches[k]
         else:  # the fp32 path is where the mma.sync / FMA flash kernels still run
             records["flash_attn_fwd_mma"]["launches"] = launches["flash_attn_fwd"]
+            records["flash_attn_bwd_dq_mma"]["launches"] = launches["flash_attn_bwd_dq"]
             records["flash_attn_bwd_dkv_mma"]["launches"] = launches["flash_attn_bwd_dkv"]
         del tr, batches
         torch.cuda.empty_cache()
@@ -1721,7 +1806,7 @@ def main() -> int:
     draft = flagship_draft(torch.float32, torch.Generator().manual_seed(SEED + 22))
     _perturb(draft, SEED + 23)
     draft.cuda()
-    phase_speculative_greedy(ar_model, draft)
+    phase_speculative_greedy(ar_model, draft, records)
     phase_ar_sampling(ar_model, tokenizer, records)  # casts the prior to bf16 in place
     phase_speculative(ar_model, draft, tokenizer, records)
     phase_distill(ar_model, draft, records)
@@ -1737,8 +1822,10 @@ def main() -> int:
                            "video_tokenizer_tpu/ops/attention.py:166"),
         "flash_attn_fwd_mma": ("video_tokenizer_tpu_torch/csrc/flash_attn_fwd.cu",
                                "video_tokenizer_tpu/ops/attention.py:166"),
-        "flash_attn_bwd_dq": ("video_tokenizer_tpu_torch/csrc/flash_attn_bwd.cu",
+        "flash_attn_bwd_dq": ("video_tokenizer_tpu_torch/csrc/flash_attn_bwd_dq_sm90.cu",
                               "video_tokenizer_tpu/ops/attention.py:387"),
+        "flash_attn_bwd_dq_mma": ("video_tokenizer_tpu_torch/csrc/flash_attn_bwd.cu",
+                                  "video_tokenizer_tpu/ops/attention.py:387"),
         "flash_attn_bwd_dkv": ("video_tokenizer_tpu_torch/csrc/flash_attn_bwd_dkv_sm90.cu",
                                "video_tokenizer_tpu/ops/attention.py:447"),
         "flash_attn_bwd_dkv_mma": ("video_tokenizer_tpu_torch/csrc/flash_attn_bwd.cu",
@@ -1749,8 +1836,10 @@ def main() -> int:
                              "video_tokenizer_tpu/ops/decode_attention.py:80"),
         "w8_matmul": ("video_tokenizer_tpu_torch/csrc/w8_matmul.cu",
                       "video_tokenizer_tpu/ops/quant_matmul.py:51"),
-        "chunk_attention": ("video_tokenizer_tpu_torch/csrc/chunk_attention.cu",
+        "chunk_attention": ("video_tokenizer_tpu_torch/csrc/chunk_attention_sm90.cu",
                             "video_tokenizer_tpu/ops/decode_attention.py:330"),
+        "chunk_attention_split": ("video_tokenizer_tpu_torch/csrc/chunk_attention.cu",
+                                  "video_tokenizer_tpu/ops/decode_attention.py:330"),
         "cache_update": ("video_tokenizer_tpu_torch/csrc/cache_update.cu",
                          "video_tokenizer_tpu/ops/cache_update.py:60"),
     }

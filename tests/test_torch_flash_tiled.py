@@ -1,7 +1,8 @@
 """The arithmetic of the port's wgmma flash kernels, tile by tile, on the CPU.
 
-`csrc/flash_attn_fwd_sm90.cu` and `csrc/flash_attn_bwd_dkv_sm90.cu` cannot be
-built here; what they compute can be. `attention_tiled_reference` and
+`csrc/flash_attn_fwd_sm90.cu`, `csrc/flash_attn_bwd_dq_sm90.cu` and
+`csrc/flash_attn_bwd_dkv_sm90.cu` cannot be built here; what they compute can
+be. `attention_tiled_reference`, `attention_bwd_dq_tiled_reference` and
 `attention_bwd_dkv_tiled_reference` repeat the kernels' arithmetic in plain
 PyTorch: their tile sizes, exp2 with log2(e) folded into the scale, the mask
 value kept in the natural-log domain on the tiles that need a mask, P and dS
@@ -28,9 +29,10 @@ import torch
 
 import video_tokenizer_tpu.ops.attention  # noqa: F401
 from video_tokenizer_tpu_torch.ops.attention import (
-    DEFAULT_MASK_VALUE, attention_bwd_dkv_tiled_reference, attention_bwd_reference,
-    attention_reference, attention_tiled_reference, flash_kernels,
+    DEFAULT_MASK_VALUE, attention_bwd_dkv_tiled_reference, attention_bwd_dq_tiled_reference,
+    attention_bwd_reference, attention_reference, attention_tiled_reference, flash_kernels,
 )
+from video_tokenizer_tpu_torch.ops.decode_attention import chunk_kernel
 
 _ATT = sys.modules["video_tokenizer_tpu.ops.attention"]
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
@@ -151,6 +153,45 @@ def test_tiled_dkv_gives_a_row_that_sees_no_key_its_share_of_dv():
     assert dk.abs().max().item() == 0.0
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_tiled_dq_matches_plain(case, dtype):
+    (q, k, v, do), args, _, sees_key = _case(case, dtype, seed=5)
+    out, lse = attention_reference(q, k, v, *args)
+    want, _, _ = attention_bwd_reference(q, k, v, out, lse, do, *args)
+    got = attention_bwd_dq_tiled_reference(q, k, v, out, lse, do, *args)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.isfinite(got.float()).all()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= TOL[dtype] * want.float().abs().max().item(), err
+    # a row that sees no key: its forward is the mean of V, whatever q is
+    assert got[:, torch.from_numpy(~sees_key)].abs().sum().item() == 0.0
+
+
+@pytest.mark.parametrize("block_m, block_n", [(64, 64), (128, 128)])
+def test_tiled_dq_does_not_depend_on_the_tiles(block_m, block_n):
+    (q, k, v, do), args, _, _ = _case(CASES[IDS.index("causal_ragged_d32")], torch.float32, seed=6)
+    out, lse = attention_reference(q, k, v, *args)
+    want, _, _ = attention_bwd_reference(q, k, v, out, lse, do, *args)
+    got = attention_bwd_dq_tiled_reference(q, k, v, out, lse, do, *args, block_m=block_m,
+                                           block_n=block_n)
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+def test_tiled_dq_of_a_row_that_sees_no_key_is_zero():
+    """Its LSE is the mask value, which exp2 must never meet: every pair of
+    the row is masked, so no exponential is taken and dQ is exactly 0, in
+    the causal rows before offset 0 as for the segment that matches no key."""
+    for name in ("causal_negative_offset", "segments_no_match"):
+        (q, k, v, do), args, _, sees_key = _case(CASES[IDS.index(name)], torch.bfloat16, seed=7)
+        assert (~sees_key).any()
+        out, lse = attention_reference(q, k, v, *args)
+        got = attention_bwd_dq_tiled_reference(q, k, v, out, lse, do, *args)
+        assert torch.isfinite(got.float()).all()
+        blind = torch.from_numpy(~sees_key)
+        assert (got[:, blind] == 0).all() and got[:, ~blind].abs().max().item() > 0
+
+
 def _jax_forward(q, k, v, causal, offset, seg):
     q_seg, k_seg = (None, None) if seg is None else map(jnp.asarray, seg)
     out, lse = _ATT.attention_with_lse(
@@ -214,8 +255,31 @@ def test_tiled_dkv_matches_jax_pallas_bf16(name, interpret_mode):
         assert err <= 2e-2 * np.abs(w).max(), f"{name_g}: {err}"
 
 
-SM90 = ("flash_fwd_sm90_kernel", "flash_bwd_dkv_sm90_kernel")
-EARLIER = ("flash_fwd_kernel", "flash_bwd_dkv_kernel")
+@pytest.mark.parametrize("case", JAX_BWD_CASES, ids=[c[0] for c in JAX_BWD_CASES])
+def test_tiled_dq_matches_jax_pallas(case, interpret_mode):
+    """fp32: the JAX package's `_bwd_dq_kernel` in interpret mode through
+    `jax.vjp` of its `attention`, 1e-5 of the gradient's max."""
+    (q, k, v, do), args, _, _ = _case(case, torch.float32, seed=8)
+    out, lse = attention_reference(q, k, v, *args)
+    got = attention_bwd_dq_tiled_reference(q, k, v, out, lse, do, *args)
+    want, _, _ = _jax_grads(q.numpy(), k.numpy(), v.numpy(), do.numpy(), args[0], jnp.float32)
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("name", ["flagship_like", "gqa_4_over_2", "ragged_257_d32"])
+def test_tiled_dq_matches_jax_pallas_bf16(name, interpret_mode):
+    """bf16: both sides round dS to bf16 before its product: 2e-2."""
+    case = CASES[IDS.index(name)]
+    (q, k, v, do), args, _, _ = _case(case, torch.bfloat16, seed=9)
+    out, lse = attention_reference(q, k, v, *args)
+    got = attention_bwd_dq_tiled_reference(q, k, v, out, lse, do, *args)
+    arrays = [x.float().numpy() for x in (q, k, v, do)]
+    want, _, _ = _jax_grads(*arrays, args[0], jnp.bfloat16)
+    assert np.abs(got.float().numpy() - want).max() <= 2e-2 * np.abs(want).max()
+
+
+SM90 = ("flash_fwd_sm90_kernel", "flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel")
+EARLIER = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
 
 
 @pytest.mark.parametrize("dtype, head_dim, has_segments, want", [
@@ -230,3 +294,14 @@ EARLIER = ("flash_fwd_kernel", "flash_bwd_dkv_kernel")
 ])
 def test_the_kernel_is_chosen_by_dtype_head_dim_and_masks(dtype, head_dim, has_segments, want):
     assert flash_kernels(dtype, head_dim, has_segments) == want
+
+
+@pytest.mark.parametrize("cache_dtype, head_dim, want", [
+    (torch.bfloat16, 64, "chunk_attn_sm90_kernel"),  # the prior and its draft
+    (torch.int8, 64, "chunk_attn_sm90_kernel"),      # int8 KV serving
+    (torch.float32, 64, "chunk_split_kernel"),       # tensor cores would round an fp32 cache
+    (torch.bfloat16, 128, "chunk_split_kernel"),
+    (torch.int8, 128, "chunk_split_kernel"),
+])
+def test_the_chunk_kernel_is_chosen_by_cache_dtype_and_head_dim(cache_dtype, head_dim, want):
+    assert chunk_kernel(cache_dtype, head_dim) == want

@@ -1,5 +1,11 @@
 // G-token chunk attention over a KV cache with per-row positions, for Hopper
-// (sm_90a): the verify forward of speculative decoding.
+// (sm_90a): the verify forward of speculative decoding. This kernel serves
+// fp32 caches (the parity path: everything stays fp32) and head dim 128; bf16
+// and int8 caches at head dim 64 (every model of the port) run
+// csrc/chunk_attention_sm90.cu instead, which computes the same function with
+// tensor-core products; ops/decode_attention.py::chunk_kernel chooses, by
+// cache dtype and head dim only. It still takes all three cache types (the
+// smoke run times it beside the other kernel on the same inputs).
 //
 // Replaces the TPU kernel video_tokenizer_tpu/ops/decode_attention.py::
 // _chunk_kernel: for cache row b, chunk token g and query head h, attention
@@ -36,9 +42,11 @@
 // the scales are read from device memory by both kernels, and splits that
 // start past pos[b] + G - 1 exit at once: no host scalar, no
 // synchronisation, so an iteration can be captured in a CUDA graph. What it
-// leaves on the table: no cp.async/TMA pipeline, no tensor cores (G * rep
-// rows is far below an mma tile's 16 for MHA), and the partials make a round
-// trip through memory.
+// leaves on the table (and csrc/chunk_attention_sm90.cu takes up): no
+// cp.async pipeline, so no V byte is in flight during the scores; a row loop
+// with a run-time trip count that pays three shuffles, a division and a
+// shared store per (key, row); no tensor cores; two block barriers per query
+// row in the P.V epilogue; and the partials make a round trip through memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -1,8 +1,8 @@
 // Flash-attention backward for Hopper (sm_90a), bf16 and fp32: dQ and dK/dV.
-// The dQ kernel serves every call. The dK/dV kernel here serves fp32 inputs,
-// head dim 128 and segment ids; bf16 at head dim 32 or 64 without segment ids
-// (every shape of the bf16 training paths) runs
-// csrc/flash_attn_bwd_dkv_sm90.cu instead, which computes the same function
+// Both kernels here serve fp32 inputs, head dim 128 and segment ids; bf16 at
+// head dim 32 or 64 without segment ids (every shape of the bf16 training
+// paths) runs csrc/flash_attn_bwd_dq_sm90.cu and
+// csrc/flash_attn_bwd_dkv_sm90.cu instead, which compute the same functions
 // with wgmma; ops/attention.py::flash_kernels chooses, by dtype, head dim and
 // masks only.
 //
@@ -57,13 +57,12 @@
 // What bounds it: the backward does 2.5x the forward's flops (five S-sized
 // products instead of two) over the same bytes, so it is bound by operations
 // like the forward: tensor-core operations in bf16, fp32 FMAs on the CUDA
-// cores in fp32. What this simple design leaves on the table, for the dQ
-// kernel and for the bf16 shapes the dK/dV kernel still takes: no wgmma, no
-// asynchronous tile ring (each tile load stalls the block), A fragments
-// gathered from shared memory with 32-bit loads, expf instead of exp2 (what
-// csrc/flash_attn_bwd_dkv_sm90.cu does for its shapes); and S and dP are
-// computed twice, once in each kernel (a fused kernel would add dQ with
-// atomics instead).
+// cores in fp32. What this simple design leaves on the table for the bf16
+// shapes it still takes: no wgmma, no asynchronous tile ring (each tile load
+// stalls the block), A fragments gathered from shared memory with 32-bit
+// loads, expf instead of exp2 (what the two wgmma kernels do for their
+// shapes); and S and dP are computed twice, once in each kernel (a fused
+// kernel would add dQ with atomics instead).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

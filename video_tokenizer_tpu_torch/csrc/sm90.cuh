@@ -1,7 +1,10 @@
 // Building blocks for Hopper (sm_90a) kernels: asynchronous 16-byte copies
 // into 128-byte-swizzled shared-memory tiles, shared-memory matrix
-// descriptors, and warpgroup matrix products (wgmma) with their fences.
-// Used by flash_attn_fwd_sm90.cu and flash_attn_bwd_dkv_sm90.cu.
+// descriptors, and warpgroup matrix products (wgmma) with their fences; and,
+// for the kernels whose row count is far below a warpgroup's 64, the warp
+// matrix product (mma.sync) with its 8x8 matrix loads.
+// Used by flash_attn_fwd_sm90.cu, flash_attn_bwd_dkv_sm90.cu,
+// flash_attn_bwd_dq_sm90.cu and chunk_attention_sm90.cu.
 //
 // The one tile layout used everywhere ("row tile"): R rows of 128 bytes (64
 // bf16), row r at byte r * 128, its 16-byte chunk c stored at chunk position
@@ -252,6 +255,36 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d),
         "n"(kTransB));
+}
+
+// ---- warp-level products, for tiles of 16 rows
+// D(16 x 8 fp32) += A(16 x 16 bf16, row-major) B(16 x 8 bf16, column-major).
+// Thread (g = lane / 4, tig = lane % 4) holds a = {A[g][2tig..], A[g+8][2tig..],
+// A[g][2tig+8..], A[g+8][2tig+8..]}, b0 = B[2tig..][g], b1 = B[2tig+8..][g] (two
+// consecutive inner indices each) and d = {D[g][2tig], D[g][2tig+1],
+// D[g+8][2tig], D[g+8][2tig+1]}.
+__device__ __forceinline__ void mma_m16n8k16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                             uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory: lane l gives the address of row
+// l % 8 of matrix l / 8 (16 bytes); r[i] is this thread's pair of matrix i:
+// row g, columns 2tig, 2tig+1, or, transposed, rows 2tig, 2tig+1 of column g.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
 }
 
 }  // namespace sm90

@@ -16,16 +16,17 @@ attention: head h reads KV head h // (H // Hkv)).
   uniformly (the mean of V), as the TPU kernels and the CUDA kernel do. The
   XLA form computes exp(logits - lse) there, and lse = MASK + log(Sk)
   rounds to MASK in fp32, so it returns the SUM of the V rows instead.
-* `flash_attn_bwd` wraps `csrc/flash_attn_bwd.cu` (`flash_attn_bwd_dq`, and
-  `flash_attn_bwd_dkv` for fp32, head dim 128 and segment ids) and
-  `csrc/flash_attn_bwd_dkv_sm90.cu` (`flash_attn_bwd_dkv` otherwise), which
-  replace the TPU kernels `_bwd_dq_kernel` and `_bwd_dkv_kernel`; on a CPU
-  tensor it runs `attention_bwd_reference`, the same recompute from the
-  forward's LSE in plain PyTorch. Both give exactly the gradient of
-  `attention_reference`, the no-match rows included.
-* `attention_tiled_reference` and `attention_bwd_dkv_tiled_reference` repeat
-  the wgmma kernels' arithmetic tile by tile in plain PyTorch, for the CPU
-  tests (`tests/test_torch_flash_tiled.py`); nothing else calls them.
+* `flash_attn_bwd` wraps `csrc/flash_attn_bwd_dq_sm90.cu` and
+  `csrc/flash_attn_bwd_dkv_sm90.cu` (wgmma; bf16, head dim 32 or 64, no
+  segment ids) and `csrc/flash_attn_bwd.cu` (both gradients for fp32, head
+  dim 128 and segment ids), which replace the TPU kernels `_bwd_dq_kernel`
+  and `_bwd_dkv_kernel`; on a CPU tensor it runs `attention_bwd_reference`,
+  the same recompute from the forward's LSE in plain PyTorch. Both give
+  exactly the gradient of `attention_reference`, the no-match rows included.
+* `attention_tiled_reference`, `attention_bwd_dq_tiled_reference` and
+  `attention_bwd_dkv_tiled_reference` repeat the wgmma kernels' arithmetic
+  tile by tile in plain PyTorch, for the CPU tests
+  (`tests/test_torch_flash_tiled.py`); nothing else calls them.
 * `attention` is differentiable through `FlashAttention`, a
   `torch.autograd.Function` whose forward is the flash forward with LSE and
   whose backward is `flash_attn_bwd`. `attention_with_lse` has no backward
@@ -44,17 +45,19 @@ _HEAD_DIMS = (32, 64, 128)
 _SM90_HEAD_DIMS = (32, 64)  # head dims of the wgmma kernels (one 128-byte row per head)
 
 
-def flash_kernels(dtype: torch.dtype, head_dim: int, has_segments: bool) -> Tuple[str, str]:
-    """(forward kernel, dK/dV kernel) that a call on the card launches.
+def flash_kernels(dtype: torch.dtype, head_dim: int,
+                  has_segments: bool) -> Tuple[str, str, str]:
+    """(forward kernel, dQ kernel, dK/dV kernel) that a call on the card launches.
 
     The one place where the choice is made, by dtype, head dim and masks
     only: bf16 at D = 32 or 64 without segment ids runs the wgmma kernels
-    (`csrc/flash_attn_fwd_sm90.cu`, `csrc/flash_attn_bwd_dkv_sm90.cu`); fp32
-    (tensor cores would round it to TF32), D = 128 and segment ids stay on
-    the mma.sync / FMA kernels. No call falls back from one to the other."""
+    (`csrc/flash_attn_fwd_sm90.cu`, `csrc/flash_attn_bwd_dq_sm90.cu`,
+    `csrc/flash_attn_bwd_dkv_sm90.cu`); fp32 (tensor cores would round it to
+    TF32), D = 128 and segment ids stay on the mma.sync / FMA kernels. No
+    call falls back from one to the other."""
     if dtype == torch.bfloat16 and head_dim in _SM90_HEAD_DIMS and not has_segments:
-        return "flash_fwd_sm90_kernel", "flash_bwd_dkv_sm90_kernel"
-    return "flash_fwd_kernel", "flash_bwd_dkv_kernel"
+        return "flash_fwd_sm90_kernel", "flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel"
+    return "flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"
 
 
 def attention_reference(
@@ -201,6 +204,59 @@ def attention_tiled_reference(
     l = torch.where(l == 0, 1.0, l)
     out = (o / l[..., None]).permute(0, 2, 1, 3)
     return out.to(q.dtype), m + torch.log(l)
+
+
+def attention_bwd_dq_tiled_reference(
+    q, k, v, out, lse, do, causal: bool = False, segment_ids=None, kv_segment_ids=None,
+    sm_scale: Optional[float] = None, causal_offset: Optional[int] = None,
+    block_m: int = 64, block_n: int = 64,
+) -> torch.Tensor:
+    """The arithmetic of `flash_bwd_dq_sm90_kernel`, tile by tile, in plain
+    PyTorch (tests only): dq as `attention_bwd_reference` returns it.
+
+    What it repeats of the kernel: key tiles of `block_n` against 64-row
+    warpgroups of `block_m`-row blocks; P = exp2(s * scale * log2(e) -
+    lse * log2(e)) from the natural-log LSE; dS = P (dP - delta); on tiles
+    that need a mask (the causal diagonal, the ragged last key tile, segment
+    ids) masked pairs get 0 and no exponential is taken for them, so a row
+    that sees no key (LSE = the mask value) gets dq = 0; dS rounded to the
+    input dtype before dS.K; fp32 sums; the causal stop at each warpgroup's
+    last visible key; dq scaled at the end."""
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    kf, vf = _expand_kv(k, v, H)
+    qf, dof = q.float(), do.float()
+    scale = sm_scale if sm_scale is not None else D ** -0.5
+    off = causal_offset if causal_offset is not None else Sk - Sq
+    has_seg = segment_ids is not None
+    mask = _mask(B, Sq, Sk, causal, segment_ids, kv_segment_ids, off, q.device)
+    delta = torch.einsum("bqhd,bqhd->bhq", out.float(), dof)[..., None]
+    neg_lse = -lse.float()[..., None] * _LOG2E
+    rows = torch.arange(Sq, device=q.device)
+    wg_row0 = rows // _WARPGROUP_ROWS * _WARPGROUP_ROWS
+    num_tiles = -(-Sk // block_n)
+    tiles_row = torch.full((Sq,), num_tiles, device=q.device)  # tiles each row's warpgroup takes
+    if causal and not has_seg:
+        block_last = rows // block_m * block_m + block_m - 1 + off
+        wg_last = wg_row0 + _WARPGROUP_ROWS - 1 + off
+        visible = torch.minimum(torch.div(block_last, block_n, rounding_mode="floor"),
+                                torch.div(wg_last, block_n, rounding_mode="floor")) + 1
+        tiles_row = torch.where(wg_last < 0, 0, visible.clamp(max=num_tiles))
+    dq = torch.zeros((B, H, Sq, D), device=q.device)
+    for t in range(num_tiles):
+        k0, k1 = t * block_n, min((t + 1) * block_n, Sk)
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kf[:, k0:k1])  # raw scores, fp32
+        dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf[:, k0:k1])
+        masked_path = torch.full((Sq,), k0 + block_n > Sk or has_seg, device=q.device)
+        if causal:
+            masked_path = masked_path | (k0 + block_n - 1 > wg_row0 + off)
+        keep = mask[:, :, :, k0:k1] | ~masked_path[None, None, :, None]
+        # masked pairs: no exponential (the mask value as an LSE would overflow it)
+        p = torch.exp2(torch.where(keep, s * (scale * _LOG2E) + neg_lse, 0.0))
+        ds = torch.where(keep, p * (dp - delta), 0.0)
+        ds = torch.where((t < tiles_row)[None, None, :, None], ds, 0.0)
+        dq += torch.einsum("bhqk,bkhd->bhqd", ds.to(q.dtype).float(), kf[:, k0:k1])
+    return (dq * scale).permute(0, 2, 1, 3).to(q.dtype)
 
 
 def attention_bwd_dkv_tiled_reference(
@@ -366,23 +422,48 @@ def _bwd_launch(dkv: bool, q, k, v, do, lse, delta, q_seg, k_seg, out0, out1,
             int(dkv), q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), _ptr(q_seg), _ptr(k_seg), out0.data_ptr(), _ptr(out1),
             int(q.dtype == torch.bfloat16), B, H, Hkv, Sq, Sk, D,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            do.stride(0), do.stride(1), do.stride(2),
-            int(causal), offset, scale,
+            *_bwd_strides(q, k, v, do), int(causal), offset, scale,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(code, "flash_attn_bwd_dkv" if dkv else "flash_attn_bwd_dq")
+
+
+def _bwd_strides(q, k, v, do):
+    return (q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2), do.stride(0), do.stride(1), do.stride(2))
+
+
+def _bwd_launch_sm90(entry: str, q, k, v, do, lse, delta, outs, causal: bool, offset: int,
+                     scale: float) -> None:
+    """Launches a wgmma backward kernel on checked bf16 operands:
+    `vtt_flash_attn_bwd_dq_sm90` writes outs = (dq,), `vtt_flash_attn_bwd_dkv_sm90`
+    outs = (dk, dv)."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    with torch.cuda.device(q.device):
+        code = getattr(_build.library(), entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), *(t.data_ptr() for t in outs), B, H, Hkv, Sq, Sk, D,
+            *_bwd_strides(q, k, v, do), int(causal), offset, scale,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check(code, entry)
 
 
 def flash_attn_bwd_dq(q, k, v, do, lse, delta, q_seg, k_seg, causal: bool, offset: int,
                       scale: float) -> torch.Tensor:
     """The dQ kernel: dq [B, Sq, H, D] (checked operands, see flash_attn_bwd)."""
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _bwd_launch(False, q, k, v, do, lse, delta, q_seg, k_seg, dq, None,
-                causal, offset, scale)
+    kernel = flash_kernels(q.dtype, q.shape[3], q_seg is not None)[1]
+    if kernel == "flash_bwd_dq_sm90_kernel":
+        _bwd_launch_sm90("vtt_flash_attn_bwd_dq_sm90", q, k, v, do, lse, delta, (dq,),
+                         causal, offset, scale)
+    else:
+        _bwd_launch(False, q, k, v, do, lse, delta, q_seg, k_seg, dq, None,
+                    causal, offset, scale)
     flash_attn_bwd_dq.launches += 1
+    flash_attn_bwd_dq.launches_sm90 += kernel == "flash_bwd_dq_sm90_kernel"
+    flash_attn_bwd_dq.last_kernel = kernel
     return dq
 
 
@@ -390,24 +471,13 @@ def flash_attn_bwd_dkv(q, k, v, do, lse, delta, q_seg, k_seg, causal: bool, offs
                        scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dK/dV kernel: dk, dv [B, Sk, H, D], one slice per QUERY head."""
     B, Sq, H, D = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
-    shape = (B, Sk, H, D)
+    shape = (B, k.shape[1], H, D)
     dk = torch.empty(shape, dtype=k.dtype, device=q.device)
     dv = torch.empty(shape, dtype=v.dtype, device=q.device)
-    kernel = flash_kernels(q.dtype, D, q_seg is not None)[1]
+    kernel = flash_kernels(q.dtype, D, q_seg is not None)[2]
     if kernel == "flash_bwd_dkv_sm90_kernel":
-        with torch.cuda.device(q.device):
-            code = _build.library().vtt_flash_attn_bwd_dkv_sm90(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, Hkv, Sq, Sk, D,
-                q.stride(0), q.stride(1), q.stride(2),
-                k.stride(0), k.stride(1), k.stride(2),
-                v.stride(0), v.stride(1), v.stride(2),
-                do.stride(0), do.stride(1), do.stride(2),
-                int(causal), offset, scale,
-                torch.cuda.current_stream(q.device).cuda_stream,
-            )
-        _build.check(code, kernel)
+        _bwd_launch_sm90("vtt_flash_attn_bwd_dkv_sm90", q, k, v, do, lse, delta, (dk, dv),
+                         causal, offset, scale)
     else:
         _bwd_launch(True, q, k, v, do, lse, delta, q_seg, k_seg, dk, dv,
                     causal, offset, scale)
@@ -417,10 +487,10 @@ def flash_attn_bwd_dkv(q, k, v, do, lse, delta, q_seg, k_seg, causal: bool, offs
     return dk, dv
 
 
-flash_attn_bwd_dq.launches = 0  # kernel launches, read by chip_smoke.py
-flash_attn_bwd_dkv.launches = 0  # either dK/dV kernel
-flash_attn_bwd_dkv.launches_sm90 = 0  # of which the wgmma kernel
-flash_attn_bwd_dkv.last_kernel = None  # name of the kernel the last call launched
+for _kernel in (flash_attn_bwd_dq, flash_attn_bwd_dkv):
+    _kernel.launches = 0  # kernel launches (either kernel), read by chip_smoke.py
+    _kernel.launches_sm90 = 0  # of which the wgmma kernel
+    _kernel.last_kernel = None  # name of the kernel the last call launched
 
 
 def flash_attn_bwd(

@@ -15,9 +15,15 @@ KV head h // (H // Hkv).
 * `chunk_attention` is the G-token form for speculative decoding: q
   [B, G, H, D], `pos` [B] int32 with ONE position per row (rows advance
   unevenly), chunk token g of row b sees keys 0..pos[b] + g. It wraps
-  `csrc/chunk_attention.cu`, which replaces the TPU kernel `_chunk_kernel`;
-  `chunk_attention_reference` is its plain version, the JAX package's
-  `xla_chunk_attention`. Both compute P.V from fp32 probabilities.
+  `csrc/chunk_attention_sm90.cu` (bf16 and int8 caches at head dim 64:
+  tensor-core products with bf16 operands, as the TPU kernel's) and
+  `csrc/chunk_attention.cu` (fp32 caches, head dim 128: fp32 throughout),
+  which replace the TPU kernel `_chunk_kernel`; `chunk_kernel` names the one
+  a call launches. `chunk_attention_reference` is the plain version, the JAX
+  package's `xla_chunk_attention`, with P.V from fp32 probabilities.
+* `chunk_attention_tiled_reference` repeats the arithmetic of
+  `csrc/chunk_attention_sm90.cu` tile by tile in plain PyTorch, for the CPU
+  tests (`tests/test_torch_chunk_tiled.py`); nothing else calls it.
 
 Two TPU layout devices are not copied: int8 scales are [B, S] fp32 here, not
 [S, 128] planes with the batch in the lanes, and the cache's last dim is not
@@ -35,6 +41,12 @@ from . import _build
 from .attention import DEFAULT_MASK_VALUE
 
 _CHUNK = 128  # keys per split of the CUDA kernel (kChunk in the source)
+_LOG2E = 1.4426950408889634
+# csrc/chunk_attention_sm90.cu: a warp's tile, the warps of a block, the most
+# query rows (G * H / Hkv) of a KV head it has an instance for, and the number
+# of blocks that gives each of the card's 132 SMs one (a cache that brings 192
+# or 320 blocks of its own was fastest unsplit at every position measured)
+_SM90_TILE, _SM90_WARPS, _SM90_MAX_ROWS, _SM90_BLOCKS = 16, 4, 32, 132
 _HEAD_DIMS = (64, 128)
 _CACHE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -109,6 +121,107 @@ def chunk_attention_reference(
     if v_scale is not None:
         probs = probs * v_scale.float()[:, None, None, None, :]
     out = torch.einsum("bhrgs,bshd->bghrd", probs, vh)
+    return out.reshape(B, G, H, D).to(q.dtype)
+
+
+def chunk_kernel(cache_dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel a `chunk_attention` call on the card launches. The one place
+    where the choice is made, by cache dtype and head dim only: bf16 and int8
+    caches at D = 64 (every model of the port) run the tensor-core kernel of
+    `csrc/chunk_attention_sm90.cu`; fp32 caches (the parity path: tensor
+    cores would round them) and D = 128 stay on `csrc/chunk_attention.cu`.
+    No call falls back from one to the other."""
+    if cache_dtype in (torch.bfloat16, torch.int8) and head_dim == 64:
+        return "chunk_attn_sm90_kernel"
+    return "chunk_split_kernel"
+
+
+def chunk_splits(kernel: str, B: int, Hkv: int, S: int) -> int:
+    """Blocks per (cache row, KV head) of a chunk kernel. It follows from the
+    shapes only, never from `pos`, which the host does not know."""
+    if kernel == "chunk_split_kernel":
+        return -(-S // _CHUNK)
+    rounds = -(-S // (_SM90_TILE * _SM90_WARPS))  # 64-key rounds of one block
+    return max(1, min(-(-_SM90_BLOCKS // (B * Hkv)), rounds))
+
+
+def _merge_partials(m, l, o):
+    """Merges online-softmax partials stacked on dim 0 (max in the log2 domain,
+    sum, unnormalised output); a partial that saw nothing has max -inf."""
+    top = m.amax(0)
+    w = torch.where(m == float("-inf"), 0.0, torch.exp2(m - top))
+    return top, (l * w).sum(0), (o * w[..., None]).sum(0)
+
+
+def chunk_attention_tiled_reference(
+    q, k_cache, v_cache, pos, key_valid=None, k_scale=None, v_scale=None,
+    kv_heads: Optional[int] = None, n_splits: int = 1,
+) -> torch.Tensor:
+    """The arithmetic of `chunk_attn_sm90_kernel`, tile by tile, in plain
+    PyTorch (tests only). Same contract as `chunk_attention_reference`.
+
+    What it repeats of the kernel: both products take bf16 operands (q
+    rounded, int8 values exact) with fp32 sums when the cache is bf16 or int8
+    (an fp32 cache, which the kernel leaves to `chunk_split_kernel`, keeps
+    fp32 operands); scores in the log2 domain, s * (scale * log2(e) *
+    k_scale[key]); keys past a query's limit and invalid keys at the mask
+    value, never multiplied; 16-key tiles dealt round-robin over the 4 warps
+    of `n_splits` blocks, each warp with its own online softmax over its
+    tiles up to the chunk's last key; P times the V scale rounded to the
+    operand dtype before P.V; the merge of a block's warps, then of the
+    blocks that ran (first key within the chunk's last limit) and hold a key
+    of the query (first key within its own limit)."""
+    B, G, H, D = q.shape
+    S = k_cache.shape[1]
+    Hkv = kv_heads or k_cache.shape[2] // D
+    rep = H // Hkv
+    dev = q.device
+    op = torch.float32 if k_cache.dtype == torch.float32 else torch.bfloat16
+    qg = q.to(op).float().reshape(B, G, Hkv, rep, D)
+    kh = k_cache.to(op).float().reshape(B, S, Hkv, D)
+    vh = v_cache.to(op).float().reshape(B, S, Hkv, D)
+    c = torch.full((B, S), D ** -0.5 * _LOG2E, device=dev)
+    if k_scale is not None:
+        c = c * k_scale.float()
+    vsc = v_scale.float() if v_scale is not None else torch.ones((B, S), device=dev)
+    limit = (pos.reshape(B, 1).long() + torch.arange(G, device=dev)).clamp(0, S - 1)  # [B, G]
+    last = limit[:, -1]
+    visible = torch.arange(S, device=dev) <= limit[:, :, None]  # [B, G, S]
+    if key_valid is not None:
+        visible = visible & key_valid[:, None, :]
+    y = torch.einsum("bghrd,bshd->bhrgs", qg, kh) * c[:, None, None, None, :]
+    y = torch.where(visible[:, None, None], y, DEFAULT_MASK_VALUE)
+    rows = (B, Hkv, rep, G)
+    block_keys = _SM90_TILE * _SM90_WARPS
+    n_tiles = -(-S // _SM90_TILE)
+    blocks = []
+    for split in range(n_splits):
+        warps = []
+        for warp in range(_SM90_WARPS):
+            m = torch.full(rows, float("-inf"), device=dev)
+            l = torch.zeros(rows, device=dev)
+            o = torch.zeros(rows + (D,), device=dev)
+            for t in range(split * _SM90_WARPS + warp, n_tiles, _SM90_WARPS * n_splits):
+                k0, k1 = t * _SM90_TILE, min((t + 1) * _SM90_TILE, S)
+                active = (k0 <= last)[:, None, None, None]
+                m_new = torch.maximum(m, y[..., k0:k1].amax(-1))
+                alpha = torch.exp2(m - m_new)
+                p = torch.exp2(y[..., k0:k1] - m_new[..., None])
+                pv = torch.einsum("bhrgs,bshd->bhrgd",
+                                  (p * vsc[:, None, None, None, k0:k1]).to(op).float(),
+                                  vh[:, k0:k1])
+                l = torch.where(active, l * alpha + p.sum(-1), l)
+                o = torch.where(active[..., None], o * alpha[..., None] + pv, o)
+                m = torch.where(active, m_new, m)
+            warps.append((m, l, o))
+        blocks.append(_merge_partials(*(torch.stack(x) for x in zip(*warps))))
+    m, l, o = (torch.stack(x) for x in zip(*blocks))  # [n_splits, B, Hkv, rep, G(, D)]
+    if n_splits > 1:
+        n_live = (limit // block_keys + 1).clamp(max=n_splits)  # [B, G]
+        dead = torch.arange(n_splits, device=dev)[:, None, None] >= n_live  # [n_splits, B, G]
+        m = torch.where(dead[:, :, None, None, :], float("-inf"), m)
+    _, l, o = _merge_partials(m, l, o)
+    out = (o / l[..., None]).permute(0, 3, 1, 2, 4)
     return out.reshape(B, G, H, D).to(q.dtype)
 
 
@@ -226,24 +339,50 @@ def chunk_attention(
         raise ValueError(f"chunk_attention: q needs strides (*, *, {D}, 1), got {q.stride()}")
     device = q.device
     _check("pos", pos, device, torch.int32, (B,), align=4, op="chunk_attention")
-    n_splits = -(-S // _CHUNK)
-    part_o = torch.empty((B, G, H, n_splits, D), dtype=torch.float32, device=device)
-    part_ml = torch.empty((B, G, H, n_splits, 2), dtype=torch.float32, device=device)
     out = torch.empty((B, G, H, D), dtype=q.dtype, device=device)
     if out.numel() and S:
-        ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
-        with torch.cuda.device(device):
-            code = _build.library().vtt_chunk_attention(
-                q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
-                ptr(key_valid), ptr(k_scale), ptr(v_scale),
-                part_o.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
-                _CACHE_DTYPES[k_cache.dtype], int(q.dtype == torch.bfloat16),
-                B, G, H, Hkv, S, D, n_splits, q.stride(0), q.stride(1), D ** -0.5,
-                torch.cuda.current_stream(device).cuda_stream,
-            )
-        _build.check(code, "chunk_attention")
+        kernel = chunk_kernel(k_cache.dtype, D)
+        _chunk_launch(kernel, q, k_cache, v_cache, pos, key_valid, k_scale, v_scale, Hkv, out)
         chunk_attention.launches += 1
+        chunk_attention.launches_sm90 += kernel == "chunk_attn_sm90_kernel"
+        chunk_attention.last_kernel = kernel
     return out
 
 
-chunk_attention.launches = 0  # kernel launches, read by chip_smoke.py
+def _chunk_launch(kernel: str, q, k_cache, v_cache, pos, key_valid, k_scale, v_scale, Hkv: int,
+                  out) -> None:
+    """Launches the named chunk kernel on checked operands (see `chunk_attention`)."""
+    B, G, H, D = q.shape
+    S = k_cache.shape[1]
+    device = q.device
+    sm90 = kernel == "chunk_attn_sm90_kernel"
+    if sm90:
+        if G * (H // Hkv) > _SM90_MAX_ROWS:
+            raise ValueError(f"chunk_attention: {G} tokens x {H // Hkv} heads per KV head: "
+                             f"{kernel} has no instance above {_SM90_MAX_ROWS} query rows")
+        if q.data_ptr() % 16 or q.stride(0) % 8 or q.stride(1) % 8:
+            raise ValueError(f"chunk_attention: q needs a 16-byte-aligned start and strides in "
+                             f"multiples of 8, got {q.stride()}")
+    n_splits = chunk_splits(kernel, B, Hkv, S)
+    part_o = part_ml = None
+    if n_splits > 1 or not sm90:
+        part_o = torch.empty((B, G, H, n_splits, D), dtype=torch.float32, device=device)
+        part_ml = torch.empty((B, G, H, n_splits, 2), dtype=torch.float32, device=device)
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    lib = _build.library()
+    entry = lib.vtt_chunk_attention_sm90 if sm90 else lib.vtt_chunk_attention
+    with torch.cuda.device(device):
+        code = entry(
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
+            ptr(key_valid), ptr(k_scale), ptr(v_scale),
+            ptr(part_o), ptr(part_ml), out.data_ptr(),
+            _CACHE_DTYPES[k_cache.dtype], int(q.dtype == torch.bfloat16),
+            B, G, H, Hkv, S, D, n_splits, q.stride(0), q.stride(1), D ** -0.5,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    _build.check(code, kernel)
+
+
+chunk_attention.launches = 0  # kernel launches (either kernel), read by chip_smoke.py
+chunk_attention.launches_sm90 = 0  # of which the tensor-core kernel
+chunk_attention.last_kernel = None  # name of the kernel the last call launched
