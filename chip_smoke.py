@@ -17,13 +17,20 @@ Phases, each of which raises on failure (exit code 1, no result line):
      kernel on fp32, D = 128 and segments with a no-match query; each case
      must run the kernel the dispatch rule names;
   3. the VQ nearest-code kernel against its plain version (cos, l2, ragged);
-  4. the decode-attention kernel against its plain version at the 632M
+  4. the decode-attention kernels against their plain version at the 632M
      prior's sampling geometry (B = 16, H = 20, D = 64, S = 1152; bf16, int8
      and fp32 caches; pos 0, 511, 1024), plus GQA and key-valid cases,
      within about one ulp of the output, a bound that the plain version at
-     pos - 1 or pos + 1 exceeds;
-  5. the int8 weight-matmul kernel against its plain version at the prior's
-     five projection shapes for M = 16, and at M = 8192, for bf16 and fp32 x;
+     pos - 1 or pos + 1 exceeds; a bf16 query over bf16 and int8 caches on
+     the tensor-core kernel, fp32 and D = 128 on the earlier one; the new
+     kernel timed cold (30 layers' caches) at pos 0, 511 and 1024, with two
+     splits, beside the earlier kernel and SDPA;
+  5. the int8 weight-matmul kernels against their plain version at every
+     projection shape of the prior (M = 16 and 80) and its draft (M = 16),
+     the NLL forward's M = 8192 and ragged shapes, bf16 and fp32 x, both
+     epilogues, each on the kernel the rule names and repeatable bit for
+     bit; one decode step's projections timed cold (distinct weights, 620 MB
+     for the prior) beside the earlier kernel and cuBLAS on bf16 copies;
   6. tokenizer end to end in fp32 (TF32 off): the full-width flagship
      tokenizer, seeded and perturbed, on the card against the same weights
      on the CPU through the plain versions;
@@ -37,8 +44,11 @@ Phases, each of which raises on failure (exit code 1, no result line):
   9. AR sampling in bf16: class -> 1024 codes -> video at batch 8 with CFG
      1.5 and top-k 100, with bf16 weights, int8 weights, and int8 weights +
      int8 KV cache: tokens/s, device time per decode step (one step replayed
-     as a CUDA graph, timed by CUDA events) against host wall time, the NLL
-     forward and decode_from_bottleneck, and exact launch counts;
+     as a CUDA graph, timed by CUDA events) against host wall time, kernels
+     per step (torch.profiler), the NLL forward and decode_from_bottleneck,
+     and exact launch counts (every decode attention on the tensor-core
+     kernel, every decode-step projection on the streaming int8 kernel, one
+     row write per layer and step);
  10. the flash backward kernels (dQ; dK/dV, after phase 2) against their
      plain backward: the tokenizer's shape from strided views, the
      discriminator's ragged S = 1025, the prior's causal shape, GQA 20/5,
@@ -190,16 +200,23 @@ def phase_build() -> None:
         if "Used" in line or ("spill" in line and " 0 bytes spill stores" not in line):
             log(f"[build]   {line.strip()}")
     # the tensor-core kernels: the wgmma flash kernels per head dim, the chunk
-    # kernel per cache type and number of 16-row tiles; accumulators spilled to
-    # local memory would be re-read on every product
+    # kernel per cache type and number of 16-row tiles, the decode kernel per
+    # cache type and KV heads per block, the streaming int8 matmul per x type
+    # and number of 8-row tiles; accumulators spilled to local memory would be
+    # re-read on every product
     expected = {f"flash_{k}_sm90_kernel<{d}>" for k in ("fwd", "bwd_dq", "bwd_dkv") for d in (32, 64)}
     expected |= {f"chunk_attn_sm90_kernel<{c}, {m}>" for c in ("bf16", "int8") for m in (1, 2)}
+    expected |= {f"decode_attn_sm90_kernel<{c}, {h}>" for c in ("bf16", "int8") for h in (1, 2)}
+    expected |= {f"w8_stream_kernel<{x}, {t}>" for x in ("bf16", "fp32")
+                 for t in (1, 2, 4, 6, 8, 10, 16)}
+    types = {"13__nv_bfloat16": "bf16", "a": "int8", "f": "fp32"}
     seen = set()
     for name, (regs, spill) in sorted(_build.kernel_resources(build.log).items()):
         if m := re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_sm90_kernel)ILi(\d+)E+v", name):
             kernel = f"{m.group(1)}<{m.group(2)}>"
-        elif m := re.search(r"(chunk_attn_sm90_kernel)I(13__nv_bfloat16|a)Li(\d+)E+v", name):
-            kernel = f"{m.group(1)}<{'int8' if m.group(2) == 'a' else 'bf16'}, {m.group(3)}>"
+        elif m := re.search(r"(chunk_attn_sm90_kernel|w8_stream_kernel|decode_attn_sm90_kernel)"
+                            r"I(13__nv_bfloat16|a|f)Li(\d+)E+v", name):
+            kernel = f"{m.group(1)}<{types[m.group(2)]}, {m.group(3)}>"
         else:
             continue
         seen.add(kernel)
@@ -297,20 +314,28 @@ def phase_flash(records: dict) -> None:
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             library_ms = median_ms(
                 lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal))
+            # with the LSE (row 2's function): PyTorch's flash attention op,
+            # which returns the output and the logsumexp; bf16 only
+            lse_library_ms = None if dtype == torch.float32 else median_ms(
+                lambda: torch.ops.aten._scaled_dot_product_flash_attention(qt, kt, vt, 0.0, causal))
             bnd = bound(_nbytes(q, k, v, got), flops, "fp32" if dtype == torch.float32 else "bf16")
             tflops = flops / ms / 1e9
             log(f"[flash] {name}: {kernel} {ms:.3f} ms ({tflops:.1f} TFLOP/s), with LSE "
                 f"{lse_ms:.3f} ms, bound {bnd['bound_ms']:.3f} ms ({bnd['bound_by']}), plain (out "
-                f"and LSE) {plain_ms:.3f} ms, library call (SDPA) {library_ms:.3f} ms (median)")
+                f"and LSE) {plain_ms:.3f} ms, library call (SDPA) {library_ms:.3f} ms, with LSE "
+                f"(aten._scaled_dot_product_flash_attention) "
+                f"{'none for fp32' if lse_library_ms is None else f'{lse_library_ms:.3f} ms'} (median)")
             rec = {"max_abs_err": err, "max_rel_err": rel_err, "ms": ms, "lse_ms": lse_ms, "plain_ms": plain_ms,
-                   "library_ms": library_ms, "tflops": tflops, **bnd}
+                   "library_ms": library_ms, "lse_library_ms": lse_library_ms, "tflops": tflops, **bnd}
             if name == "flagship":
                 records["flash_attn_fwd"] = rec
             elif name == "fp32":
                 records["flash_attn_fwd_mma"] = rec  # the kernel that keeps fp32, D = 128, segments
             else:
                 records["flash_attn_fwd"][f"{name}_ms"] = ms
+                records["flash_attn_fwd"][f"{name}_lse_ms"] = lse_ms
                 records["flash_attn_fwd"][f"{name}_library_ms"] = library_ms
+                records["flash_attn_fwd"][f"{name}_lse_library_ms"] = lse_library_ms
 
 
 def phase_flash_bwd(records: dict) -> None:
@@ -604,21 +629,26 @@ def phase_vq(records: dict) -> None:
 
 
 def phase_decode_attention(records: dict) -> None:
+    """The decode-attention kernels against their plain version at the 632M
+    prior's sampling geometry, then timed cold: a decode step's 30 layers
+    read 30 distinct caches, so the graph that times a kernel walks 30 of
+    them (2.5 GB in bf16) and no cache is in the 50 MB L2 when it is read."""
     import torch
     import torch.nn.functional as F
 
     from video_tokenizer_tpu_torch.ops.decode_attention import (
-        _quantize_rows, decode_attention, decode_attention_reference,
+        _quantize_rows, decode_attention, decode_attention_reference, decode_kernel,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    # The kernel and the plain version both compute in fp32 and round the
-    # output once, so they differ by about one ulp of the output's dtype:
-    # the bound is relative to max|plain| (bf16 1e-2, above its ulp of 2^-7
-    # of a value; fp32 1e-5), capped by the JAX interpret tests' absolute
-    # bounds (bf16 2e-2, int8 cache 5e-2, fp32 1e-4). It must be tight
-    # enough to fail a kernel that reads one key too few or too many: the
-    # plain version at pos - 1 and pos + 1 has to miss it.
+    # Both kernels and the plain version compute in fp32 (the tensor-core
+    # kernel's operands are exact: a bf16 q, bf16 or int8 cache values, P as
+    # two bf16 parts) and round the output once, so they differ by about one
+    # ulp of the output's dtype: the bound is relative to max|plain| (bf16
+    # 1e-2, above its ulp of 2^-7 of a value; fp32 1e-5), capped by the JAX
+    # interpret tests' absolute bounds (bf16 2e-2, int8 cache 5e-2, fp32 1e-4).
+    # It must be tight enough to fail a kernel that reads one key too few or
+    # too many: the plain version at pos - 1 and pos + 1 has to miss it.
     tols = {torch.bfloat16: (2e-2, 1e-2), torch.int8: (5e-2, 1e-2), torch.float32: (1e-4, 1e-5)}
     B, S = 16, 1152  # CFG-doubled batch 8, cache for 1 + 1024 positions
     for name, H, Hkv, D, cache_dtype, key_valid, positions in (
@@ -649,6 +679,10 @@ def phase_decode_attention(records: dict) -> None:
                 valid[:, pos] = True
             got = decode_attention(q, k, v, pos_t, **kw)
             torch.cuda.synchronize()
+            kernel = decode_attention.last_kernel
+            require(kernel == decode_kernel(cache_dtype, q_dtype, D) == (
+                "decode_split_kernel" if cache_dtype == torch.float32 or D == 128
+                else "decode_attn_sm90_kernel"), f"decode {name}: ran {kernel}")
             want = decode_attention_reference(q, k, v, pos_t, **kw)
             err = (got.float() - want.float()).abs().max().item()
             cap, rel = tols[cache_dtype]
@@ -658,39 +692,113 @@ def phase_decode_attention(records: dict) -> None:
                 for p in (pos - 1, pos + 1) if p >= 0
             )
             log(f"[decode] {name}: B={B} H={H} Hkv={Hkv} D={D} S={S} {str(cache_dtype)[6:]} cache, "
-                f"pos {pos}: max|kernel-plain| {err:.3e} (tol {tol:.3e}); the plain version "
-                f"at pos -/+ 1 misses by >= {near:.3e}")
+                f"pos {pos}, {kernel}: max|kernel-plain| {err:.3e} (tol {tol:.3e}); the plain "
+                f"version at pos -/+ 1 misses by >= {near:.3e}")
             require(torch.isfinite(got).all().item(), f"decode {name} pos {pos}: non-finite output")
             require(err <= tol, f"decode {name} pos {pos}: error {err} > {tol}")
             require(near > tol, f"decode {name} pos {pos}: the bound {tol} does not tell pos "
                                 f"from pos -/+ 1 ({near})")
-            if pos == 1024 and name in ("lp_bf16", "lp_int8"):
-                ms = graph_ms(lambda: decode_attention(q, k, v, pos_t, **kw))
-                plain_ms = graph_ms(lambda: decode_attention_reference(q, k, v, pos_t, **kw))
-                call_ms = median_ms(lambda: decode_attention(q, k, v, pos_t, **kw), iters=50)
-                live = B * (pos + 1) * (Hkv * D * 2 * k.element_size() + (8 if ks is not None else 0))
-                bnd = bound(live + _nbytes(q, got))
-                library_ms = None
-                if name == "lp_bf16":
-                    # one PyTorch call for the same function: SDPA on [B, H, S, D]
-                    # views of the cache with a [B, 1, 1, S] boolean mask (none for
-                    # an int8 cache); timed here, used nowhere in the port
-                    qt = q[:, :, None]
-                    kt, vt = (t.view(B, S, Hkv, D).transpose(1, 2) for t in (k, v))
-                    mask = (torch.arange(S, device="cuda") <= pos).expand(B, 1, 1, S)
-                    library_ms = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
-                log(f"[decode] {name} at pos 1024: kernel {ms:.4f} ms ({live / ms / 1e6:.0f} GB/s "
-                    f"of live K+V), bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), plain "
-                    f"{plain_ms:.4f} ms, library call (SDPA with a mask) "
-                    f"{'none for int8' if library_ms is None else f'{library_ms:.4f} ms'} (device "
-                    f"time, CUDA-graph replay); one eager call with its host launch path "
-                    f"{call_ms:.4f} ms (median)")
-                if name == "lp_bf16":
-                    records["decode_attention"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                                                   "library_ms": library_ms, **bnd}
-                else:
-                    records["decode_attention"].update(int8_ms=ms, int8_plain_ms=plain_ms,
-                                                       int8_bound_ms=bnd["bound_ms"])
+            if kernel == "decode_attn_sm90_kernel":
+                # the kernel repeats itself bit for bit (a split cache is merged
+                # in split order, whichever block comes last)
+                require(torch.equal(decode_attention(q, k, v, pos_t, **kw), got),
+                        f"decode {name} pos {pos}: two launches differ")
+        if name == "lp_fp32":
+            # the earlier kernel, which keeps fp32 (the parity path) and D = 128
+            pos_t = torch.full((1,), 1024, dtype=torch.int32, device="cuda")
+            ms = graph_ms(lambda: decode_attention(q, k, v, pos_t, kv_heads=Hkv))
+            plain_ms = graph_ms(lambda: decode_attention_reference(q, k, v, pos_t, kv_heads=Hkv))
+            qt = q[:, :, None]
+            kt, vt = (t.view(B, S, Hkv, D).transpose(1, 2) for t in (k, v))
+            mask = (torch.arange(S, device="cuda") <= 1024).expand(B, 1, 1, S)
+            library_ms = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+            bnd = bound(B * 1025 * Hkv * D * 2 * 4 + _nbytes(q, got), 4 * B * H * 1025 * D, "fp32")
+            log(f"[decode] lp_fp32 at pos 1024: decode_split_kernel {ms:.4f} ms, bound "
+                f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), plain {plain_ms:.4f} ms, library "
+                f"call (SDPA with a mask, fp32) {library_ms:.4f} ms (device time, CUDA-graph replay)")
+            records["decode_attention_split"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                                 "library_ms": library_ms, **bnd}
+        if name in ("lp_bf16", "lp_int8"):
+            _decode_cold(records, name, q, k, v, ks, vs, Hkv)
+
+
+def _decode_cold(records: dict, name: str, q, k, v, ks, vs, Hkv: int) -> None:
+    """Cold times at the sampling shape: 30 layers' caches (copies of the
+    checked one: the same work per layer), one launch per layer in a graph,
+    time per launch; the new kernel, the earlier kernel and SDPA with a mask
+    on the same caches."""
+    import torch
+    import torch.nn.functional as F
+
+    from video_tokenizer_tpu_torch.ops.decode_attention import (
+        _decode_launch, decode_attention, decode_attention_reference,
+    )
+
+    B, H, D = q.shape
+    S = k.shape[1]
+    layers = 30
+    caches = [(k.clone(), v.clone(), None if ks is None else ks.clone(),
+               None if vs is None else vs.clone()) for _ in range(layers)]
+    out = torch.empty_like(q)
+    rec: dict = {}
+    for pos in (0, 511, 1024):
+        pos_t = torch.full((1,), pos, dtype=torch.int32, device="cuda")
+
+        def run(kernel):
+            def step():
+                for kc, vc, ksc, vsc in caches:
+                    _decode_launch(kernel, q, kc, vc, pos_t, None, ksc, vsc, Hkv, out)
+            return graph_ms(step, launches=1, replays=5) / layers
+
+        ms = run("decode_attn_sm90_kernel")
+        earlier_ms = run("decode_split_kernel")
+        ms_again = run("decode_attn_sm90_kernel")
+        live = B * (pos + 1) * (Hkv * D * 2 * k.element_size() + (8 if ks is not None else 0))
+        bnd = bound(live + 2 * _nbytes(q))
+        log(f"[decode cold] {name} at pos {pos}, {layers} layers' caches: decode_attn_sm90_kernel "
+            f"{ms:.4f} / {ms_again:.4f} ms ({live / min(ms, ms_again) / 1e6:.0f} GB/s of live K+V), "
+            f"the earlier decode_split_kernel {earlier_ms:.4f} ms, bound "
+            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) (device time per launch, CUDA-graph replay)")
+        rec[pos] = dict(ms=min(ms, ms_again), earlier_ms=earlier_ms, **bnd)
+    pos_t = torch.full((1,), 1024, dtype=torch.int32, device="cuda")
+    kw = dict(k_scale=ks, v_scale=vs, kv_heads=Hkv)
+    plain_ms = graph_ms(lambda: decode_attention_reference(q, k, v, pos_t, **kw))
+    got = decode_attention(q, k, v, pos_t, **kw)
+    err = (got.float() - decode_attention_reference(q, k, v, pos_t, **kw).float()).abs().max().item()
+    library_ms = None
+    if ks is None:
+        # one PyTorch call for the same function: SDPA on [B, H, S, D] views of
+        # each layer's cache with a [B, 1, 1, S] boolean mask (none for an int8
+        # cache); timed here, used nowhere in the port
+        qt = q[:, :, None]
+        mask = (torch.arange(S, device="cuda") <= 1024).expand(B, 1, 1, S)
+        views = [tuple(t.view(B, S, Hkv, D).transpose(1, 2) for t in c[:2]) for c in caches]
+
+        def sdpa():
+            for kt, vt in views:
+                F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+        library_ms = graph_ms(sdpa, launches=1, replays=5) / layers
+    log(f"[decode cold] {name} at pos 1024: plain {plain_ms:.4f} ms (warm), library call (SDPA "
+        f"with a mask, cold) {'none for int8' if library_ms is None else f'{library_ms:.4f} ms'}")
+    top = rec[1024]
+    if top["ms"] >= top["earlier_ms"]:
+        log(f"[decode cold] {name}: decode_attn_sm90_kernel ({top['ms']:.4f} ms) is NOT faster than "
+            f"the earlier kernel ({top['earlier_ms']:.4f} ms) at pos 1024")
+    if name == "lp_bf16":
+        records["decode_attention"] = {
+            "max_abs_err": err, "ms": top["ms"], "earlier_ms": top["earlier_ms"],
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "pos_0_ms": rec[0]["ms"], "pos_511_ms": rec[511]["ms"],
+            "pos_0_earlier_ms": rec[0]["earlier_ms"], "pos_511_earlier_ms": rec[511]["earlier_ms"]}
+    else:
+        records["decode_attention"].update(
+            int8_ms=top["ms"], int8_earlier_ms=top["earlier_ms"],
+            int8_plain_ms=plain_ms, int8_bound_ms=top["bound_ms"], int8_pos_0_ms=rec[0]["ms"],
+            int8_pos_511_ms=rec[511]["ms"], int8_pos_0_earlier_ms=rec[0]["earlier_ms"],
+            int8_pos_511_earlier_ms=rec[511]["earlier_ms"])
+    del caches
 
 
 def phase_chunk_attention(records: dict) -> None:
@@ -914,57 +1022,178 @@ def phase_cache_update(records: dict) -> None:
                                            int8_library_ms=library_ms, int8_bound_ms=bnd["bound_ms"])
 
 
+# (K, N) of the projections of one decode step, in layer order: 30 layers of
+# the 632M prior (wqkv, wo, w1, w3, w2) and its output head; the draft's 8
+# layers and head
+LP_PROJ = [(1280, 3840), (1280, 1280), (1280, 3584), (1280, 3584), (3584, 1280)] * 30 + [(1280, 8192)]
+DRAFT_PROJ = [(768, 2304), (768, 768), (768, 2048), (768, 2048), (2048, 768)] * 8 + [(768, 8192)]
+
+
 def phase_w8_matmul(records: dict) -> None:
+    """The int8 matmul kernels against their plain version at every shape of
+    the prior and its draft at the decode (M = 16), draft-chunk and
+    self-draft (M = 32) and verify (M = 80) row counts, the NLL forward's M =
+    8192 and ragged shapes, with every row-count instance of the streaming
+    kernel (8-row tiles 1, 2, 4, 6, 8, 10, 16: M = 1, 16, 32, 37, 64, 80,
+    128) launched at least once; then one decode step's 151 projections
+    timed cold (distinct weights, 620 MB)."""
     import torch
 
-    from video_tokenizer_tpu_torch.ops.quant_matmul import w8_matmul, w8_matmul_reference
+    from video_tokenizer_tpu_torch.ops.quant_matmul import (
+        _w8_launch, w8_kernel, w8_matmul, w8_matmul_reference, w8_streams,
+    )
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
-    # (name, M, K, N): the 632M prior's projections at decode M = 16 (a
-    # CFG-doubled batch 8) and the prefill/NLL M = 8192 for wqkv
-    shapes = [("wqkv", 16, 1280, 3840), ("wo", 16, 1280, 1280), ("w1_w3", 16, 1280, 3584),
-              ("w2", 16, 3584, 1280), ("output", 16, 1280, 8192), ("wqkv_nll", 8192, 1280, 3840),
-              ("ragged", 37, 200, 77)]
-    worst_abs = worst_rel = 0.0
-    for name, M, K, N in shapes:
+    shapes = sorted({(M, K, N) for M in (16, 32, 80) for K, N in set(LP_PROJ)}
+                    | {(M, K, N) for M in (16, 32) for K, N in set(DRAFT_PROJ)}
+                    | {(8192, 1280, 3840), (37, 200, 77), (37, 208, 77), (1, 1280, 1280),
+                       (64, 1280, 3584), (128, 768, 2304)})
+    worst = {}  # kernel -> (max abs error, max error of the output's scale), bf16 x
+    for M, K, N in shapes:
         x32 = torch.randn(M, K, generator=gen, device="cuda")
         w = torch.randint(-127, 128, (N, K), generator=gen, device="cuda", dtype=torch.int8)
         scale = torch.rand(N, generator=gen, device="cuda") * 2e-3 + 1e-4
+        chosen = w8_kernel(M, K)
+        require(chosen == ("w8_matmul_kernel" if M > 128 or K % 16 or (M <= 16 and K <= 2048)
+                           else "w8_stream_kernel"), f"w8 {M}x{K}x{N}: the chooser names {chosen}")
+        # the kernel the chooser names, through `w8_matmul`, and at every shape
+        # the streaming kernel has an instance for, the other one as well
+        kernels = [chosen] + [k for k in ("w8_stream_kernel", "w8_matmul_kernel") if k != chosen
+                              and (k == "w8_matmul_kernel" or w8_streams(M, K))]
         # bf16 x: bf16 outputs rounded once on each side, sums in another
         # order, 1e-2 of the output's scale; fp32 x: the kernel's products
         # are exact (x split into three bf16 parts), fp32 sums in another
         # order, 1e-5 of it (measured on an H100: at most 2.3e-6)
         for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
             x = x32.to(dtype)
-            rel = abs_err = 0.0
-            for double_round in (True, False):
-                got = w8_matmul(x, w.t(), scale, double_round)
-                torch.cuda.synchronize()
-                want = w8_matmul_reference(x, w.t(), scale, double_round)
-                err = (got.float() - want.float()).abs().max().item()
-                rel, abs_err = max(rel, err / want.float().abs().max().item()), max(abs_err, err)
-                require(torch.isfinite(got).all().item(), f"w8 {name}: non-finite output")
-            require(rel <= tol, f"w8 {name} {dtype}: error {rel} of the output's scale > {tol}")
-            n = 20 if M <= 16 else 3
-            ms = graph_ms(lambda: w8_matmul(x, w.t(), scale, True), launches=n)
-            plain_ms = graph_ms(lambda: w8_matmul_reference(x, w.t(), scale, True), launches=n)
-            rate = (f"{K * N / ms / 1e6:.0f} GB/s of int8 weights" if M <= 16
-                    else f"{2 * M * K * N / ms / 1e9:.1f} TFLOP/s")
-            log(f"[w8] {name}: [{M}, {K}] {str(dtype)[6:]} x [{K}, {N}] int8, "
-                f"max|kernel-plain|/max|plain| {rel:.2e} (tol {tol:g}); kernel {ms:.4f} ms "
-                f"({rate}), plain {plain_ms:.4f} ms (device time, CUDA-graph replay)")
-            if dtype == torch.bfloat16:
-                worst_abs, worst_rel = max(worst_abs, abs_err), max(worst_rel, rel)
-                if name == "wqkv":
-                    # one PyTorch expression for the same function (it writes a
-                    # bf16 copy of the weight); timed here, used nowhere in the port
-                    library_ms = graph_ms(lambda: (x @ w.t().to(torch.bfloat16)) * scale, launches=n)
-                    bnd = bound(_nbytes(x, w, scale, got), 2 * M * K * N)
-                    log(f"[w8] wqkv: bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}: the int8 "
-                        f"weight read once), library call (x @ w8.to(bf16) * s) {library_ms:.4f} ms")
-                    records["w8_matmul"] = {"ms": ms, "plain_ms": plain_ms,
-                                            "library_ms": library_ms, **bnd}
-    records["w8_matmul"].update(max_abs_err=worst_abs, max_rel_err=worst_rel)
+            for kernel in kernels:
+                rel = abs_err = 0.0
+                for double_round in (True, False):
+                    def run():
+                        if kernel == chosen:
+                            return w8_matmul(x, w.t(), scale, double_round)
+                        out = torch.empty(M, N, dtype=dtype, device="cuda")
+                        _w8_launch(kernel, x, w, scale, out, double_round)
+                        return out
+
+                    got = run()
+                    torch.cuda.synchronize()
+                    if kernel == chosen:
+                        require(w8_matmul.last_kernel == chosen,
+                                f"w8 {M}x{K}x{N}: ran {w8_matmul.last_kernel}, not {chosen}")
+                    want = w8_matmul_reference(x, w.t(), scale, double_round)
+                    err = (got.float() - want.float()).abs().max().item()
+                    rel, abs_err = max(rel, err / want.float().abs().max().item()), max(abs_err, err)
+                    require(torch.isfinite(got).all().item(), f"w8 {M}x{K}x{N}: non-finite output")
+                    # split K is summed in a fixed order: a launch repeats bit for bit
+                    require(torch.equal(run(), got), f"w8 {M}x{K}x{N} {kernel}: two launches differ")
+                log(f"[w8] [{M}, {K}] {str(dtype)[6:]} x [{K}, {N}] int8, {kernel}"
+                    f"{' (chosen)' if kernel == chosen else ''}: max|kernel-plain|/max|plain| "
+                    f"{rel:.2e} (tol {tol:g}), both epilogues")
+                require(rel <= tol,
+                        f"w8 {M}x{K}x{N} {dtype} {kernel}: error {rel} of the output's scale > {tol}")
+                if dtype == torch.bfloat16:
+                    a, r = worst.get(kernel, (0.0, 0.0))
+                    worst[kernel] = (max(a, abs_err), max(r, rel))
+        if (M, K, N) == (8192, 1280, 3840):
+            # the earlier kernel at the NLL forward's wqkv, which it keeps
+            x = x32.to(torch.bfloat16)
+            ms = graph_ms(lambda: w8_matmul(x, w.t(), scale, True), launches=3)
+            plain_ms = graph_ms(lambda: w8_matmul_reference(x, w.t(), scale, True), launches=3)
+            library_ms = graph_ms(lambda: (x @ w.t().to(torch.bfloat16)) * scale, launches=3)
+            bnd = bound(_nbytes(x, w, scale) + M * N * 2, 2 * M * K * N)
+            log(f"[w8] wqkv at M = 8192: w8_matmul_kernel {ms:.4f} ms ({2 * M * K * N / ms / 1e9:.1f} "
+                f"TFLOP/s), bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), plain {plain_ms:.4f} "
+                f"ms, library call (x @ w8.to(bf16) * s) {library_ms:.4f} ms (device time, CUDA-graph "
+                f"replay)")
+            records["w8_matmul_mma"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **bnd}
+    for kernel, (a, r) in worst.items():
+        key = "w8_matmul" if kernel == "w8_stream_kernel" else "w8_matmul_mma"
+        records.setdefault(key, {}).update(max_abs_err=a, max_rel_err=r)
+    for name, M, proj in (("lp_m16", 16, LP_PROJ), ("lp_m80", 80, LP_PROJ),
+                          ("draft_m16", 16, DRAFT_PROJ)):
+        _w8_step_cold(records, name, M, proj, gen)
+
+
+def _w8_step_cold(records: dict, name: str, M: int, proj, gen) -> None:
+    """One decode step's projections with distinct weights (620 MB of int8 for
+    the prior: none of them is in the 50 MB L2 when it is read), in layer
+    order, one graph: all on the streaming kernel, all on the earlier kernel,
+    each on the kernel `w8_kernel` names (as the model runs them), the plain
+    version, and cuBLAS on bf16 copies of the weights. The three also with an
+    elementwise kernel writing x before each product, as in the model (timed
+    alone as well). Kernels in turn, twice."""
+    import torch
+
+    from video_tokenizer_tpu_torch.ops.quant_matmul import (
+        _w8_launch, w8_kernel, w8_matmul, w8_matmul_reference,
+    )
+
+    ws = [torch.randint(-127, 128, (N, K), generator=gen, device="cuda", dtype=torch.int8)
+          for K, N in proj]
+    scales = [torch.rand(N, generator=gen, device="cuda") * 2e-3 + 1e-4 for _, N in proj]
+    xs = {K: torch.randn(M, K, generator=gen, device="cuda").bfloat16() for K, _ in set(proj)}
+    outs = [torch.empty(M, N, dtype=torch.bfloat16, device="cuda") for _, N in proj]
+    n_bytes = sum(w.numel() for w in ws)
+    chosen = {}
+    for K, _ in proj:
+        chosen[w8_kernel(M, K)] = chosen.get(w8_kernel(M, K), 0) + 1
+
+    def step(kernel, touch=False):
+        def run():
+            for (K, _), w, s, o in zip(proj, ws, scales, outs):
+                if touch:
+                    xs[K].mul_(1.0)  # an elementwise kernel writes x first, as in the model
+                if kernel == "chosen":
+                    w8_matmul(xs[K], w.t(), s, True)
+                elif kernel != "none":
+                    _w8_launch(kernel, xs[K], w, s, o, True)
+        return run
+
+    kernels = ("w8_stream_kernel", "w8_matmul_kernel", "chosen")
+    times = {(k, t): [] for t in (False, True) for k in kernels}
+    for _ in range(2):
+        for (kernel, touch), ms in times.items():
+            ms.append(graph_ms(step(kernel, touch), launches=1, replays=5))
+    touch_ms = graph_ms(step("none", touch=True), launches=1, replays=5)
+    best = {key: min(ms) for key, ms in times.items()}
+    wb = [w.to(torch.bfloat16) for w in ws]  # cuBLAS's bf16 copies: twice the bytes
+
+    def cublas():
+        for (K, _), w in zip(proj, wb):
+            torch.matmul(xs[K], w.t())
+
+    library_ms = graph_ms(cublas, launches=1, replays=5)
+    del wb
+    plain_ms = median_ms(lambda: [w8_matmul_reference(xs[K], w.t(), s, True)
+                                  for (K, _), w, s in zip(proj, ws, scales)], iters=3, warmup=1)
+    flops = sum(2 * M * K * N for K, N in proj)
+    bnd = bound(n_bytes + sum(_nbytes(s, o) for s, o in zip(scales, outs)), flops)
+    ms = best[("w8_stream_kernel", False)]
+    for touch in (False, True):
+        log(f"[w8 cold] {name}: one step's {len(proj)} projections at M = {M}, {n_bytes / 1e6:.0f} MB "
+            f"of int8 weights, {'each after an elementwise kernel, as in the model' if touch else 'back to back'}: "
+            + ", ".join(f"{'as w8_kernel names them ' + str(chosen) if k == 'chosen' else 'all on ' + k} "
+                        + " / ".join(f"{t:.4f}" for t in times[(k, touch)]) + " ms" for k in kernels)
+            + (f" (in turn; the {len(proj)} elementwise kernels alone {touch_ms:.4f} ms)" if touch else
+               f"; w8_stream_kernel {n_bytes / ms / 1e6:.0f} GB/s; cuBLAS on bf16 copies "
+               f"({2 * n_bytes / 1e6:.0f} MB) {library_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+               f"({bnd['bound_by']}) (device time, CUDA-graph replay); plain {plain_ms:.2f} ms (eager)"))
+        new, old = best[("w8_stream_kernel", touch)], best[("w8_matmul_kernel", touch)]
+        if new >= old:
+            log(f"[w8 cold] {name}, {'after elementwise kernels' if touch else 'back to back'}: "
+                f"w8_stream_kernel ({new:.4f} ms) is NOT faster than the earlier kernel ({old:.4f} ms)")
+    rec = {"ms": ms, "earlier_ms": best[("w8_matmul_kernel", False)],
+           "chosen_ms": best[("chosen", False)],
+           "after_elementwise_ms": best[("w8_stream_kernel", True)],
+           "after_elementwise_earlier_ms": best[("w8_matmul_kernel", True)],
+           "after_elementwise_chosen_ms": best[("chosen", True)], "elementwise_alone_ms": touch_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms, **bnd}
+    if name == "lp_m16":
+        records.setdefault("w8_matmul", {}).update(rec)
+    else:
+        records["w8_matmul"].update({f"{name}_{k}": v for k, v in rec.items() if k != "bound_by"})
+    del ws
 
 
 def _perturb(model, seed: int) -> None:
@@ -1067,7 +1296,7 @@ def phase_e2e_bf16(model_fp32, records: dict) -> None:
     return model
 
 
-def phase_ar_fp32():
+def phase_ar_fp32(records: dict):
     """Full-width prior in fp32, card vs CPU: prefill + 16 decode steps whose
     inputs are the CPU's greedy tokens on both sides, so that a difference
     in one step does not compound. Three ways: fp32 weights; int8 weights
@@ -1078,7 +1307,9 @@ def phase_ar_fp32():
 
     from video_tokenizer_tpu_torch import flagship_ar
     from video_tokenizer_tpu_torch.models.larp_ar import quantize_model
+    from video_tokenizer_tpu_torch.ops.decode_attention import decode_attention
 
+    decode_attention.launches = decode_attention.launches_sm90 = 0
     model = flagship_ar(torch.float32, torch.Generator().manual_seed(SEED + 20))
     _perturb(model, SEED + 21)
     qmodel = quantize_model(model)
@@ -1150,8 +1381,74 @@ def phase_ar_fp32():
                 f"{scale_err:.2e} (tol 1e-5); rows past {live - 1} untouched")
             require(flips <= 1e-3 and max_step <= 1 and scale_err <= 1e-5,
                     f"AR {name}: layer 0's int8 cache differs: {flips}, {max_step}, {scale_err}")
+    # fp32 queries: every decode attention of the parity path on the earlier kernel
+    n, n_sm90 = decode_attention.launches, decode_attention.launches_sm90
+    log(f"[ar fp32] {n} decode attentions on the card, {n_sm90} by decode_attn_sm90_kernel "
+        f"(expect {3 * steps * 30} and 0: fp32 queries)")
+    require(n == 3 * steps * 30 and n_sm90 == 0, "AR fp32: decode attention off the earlier kernel")
+    records["decode_attention_split"]["launches"] = n
     del qmodel
     return model
+
+
+def _kernels_in(fn) -> dict:
+    """{kernel name: launches} of the device work of one fn(), by torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    found: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            found[e.name] = found.get(e.name, 0) + 1
+    return found
+
+
+def _w8_streamed(model, M: int) -> int:
+    """How many of one forward's int8 projections at M rows `w8_kernel` puts
+    on w8_stream_kernel."""
+    from video_tokenizer_tpu_torch.models.larp_ar import QuantDense
+    from video_tokenizer_tpu_torch.ops.quant_matmul import w8_kernel
+
+    return sum(w8_kernel(M, m.weight.shape[1]) == "w8_stream_kernel"
+               for m in model.modules() if isinstance(m, QuantDense))
+
+
+def _step_ms_by_w8_kernel(model, tok, pos, cache) -> dict:
+    """{choice: [ms, ms]}: the device time of one decode step (graph replay)
+    with its int8 projections on the kernels `w8_kernel` names ("chosen"),
+    all on the earlier w8_matmul_kernel, and all on w8_stream_kernel, the
+    chooser replaced for the capture; in turn, twice."""
+    import importlib
+
+    from video_tokenizer_tpu_torch.models.larp_ar import QuantDense
+
+    qm = importlib.import_module("video_tokenizer_tpu_torch.ops.quant_matmul")
+    chooser = qm.w8_kernel
+    choices = {
+        "chosen": chooser,
+        "w8_matmul_kernel": lambda M, K: "w8_matmul_kernel",
+        "w8_stream_kernel": lambda M, K: "w8_stream_kernel" if qm.w8_streams(M, K) else chooser(M, K),
+    }
+    streamed = {"chosen": _w8_streamed(model, tok.shape[0]), "w8_matmul_kernel": 0,
+                "w8_stream_kernel": sum(isinstance(m, QuantDense) for m in model.modules())}
+    times: dict = {c: [] for c in choices}
+    try:
+        for _ in range(2):
+            for choice, ms in times.items():
+                qm.w8_kernel = choices[choice]
+                ms.append(graph_ms(lambda: model.decode_step(tok, pos, cache), launches=1, replays=50))
+                before = qm.w8_matmul.launches_stream
+                model.decode_step(tok, pos, cache)
+                ran = qm.w8_matmul.launches_stream - before
+                require(ran == streamed[choice],
+                        f"step as {choice}: {ran} projections on w8_stream_kernel, not {streamed[choice]}")
+    finally:
+        qm.w8_kernel = chooser
+    return times
 
 
 def phase_ar_sampling(model_fp32, tokenizer, records: dict) -> None:
@@ -1160,6 +1457,7 @@ def phase_ar_sampling(model_fp32, tokenizer, records: dict) -> None:
     from video_tokenizer_tpu_torch.generation import generate
     from video_tokenizer_tpu_torch.models.larp_ar import quantize_model
     from video_tokenizer_tpu_torch.ops.attention import flash_attn_fwd
+    from video_tokenizer_tpu_torch.ops.cache_update import write_rows_per_row
     from video_tokenizer_tpu_torch.ops.decode_attention import decode_attention
     from video_tokenizer_tpu_torch.ops.quant_matmul import w8_matmul
 
@@ -1167,8 +1465,8 @@ def phase_ar_sampling(model_fp32, tokenizer, records: dict) -> None:
     int8 = quantize_model(bf16)
     B, new = 8, 1024
     labels = torch.tensor([0, 5, 17, 33, 50, 64, 88, 100], device="cuda")
-    kernels = (flash_attn_fwd, decode_attention, w8_matmul)
-    results = {}
+    kernels = (flash_attn_fwd, decode_attention, w8_matmul, write_rows_per_row)
+    results, step_ms_of = {}, {}
     for name, model, kv in (("bf16", bf16, None), ("int8", int8, None),
                             ("int8_kv8", int8, torch.int8)):
         gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
@@ -1177,6 +1475,7 @@ def phase_ar_sampling(model_fp32, tokenizer, records: dict) -> None:
         torch.cuda.synchronize()
         for k in kernels:
             k.launches = 0
+        decode_attention.launches_sm90 = w8_matmul.launches_stream = 0
         t0 = time.perf_counter()
         seq = generate(model, labels, new, gen, **kw)
         torch.cuda.synchronize()
@@ -1191,33 +1490,76 @@ def phase_ar_sampling(model_fp32, tokenizer, records: dict) -> None:
             torch.cuda.synchronize()
             dec_s = time.perf_counter() - t1
         launches = {k.__name__: k.launches for k in kernels}
+        decode_sm90, w8_stream = decode_attention.launches_sm90, w8_matmul.launches_stream
         with torch.inference_mode():  # one step at the mean cache length
             cache = model.init_cache(2 * B, 1 + new, kv or torch.bfloat16)
             pos = torch.full((1,), 512, dtype=torch.int32, device="cuda")
             tok = seq[:, :1].repeat(2, 1)
             step_ms = graph_ms(lambda: model.decode_step(tok, pos, cache), launches=1)
+            per_step = _kernels_in(lambda: model.decode_step(tok, pos, cache))
+            by_w8 = _step_ms_by_w8_kernel(model, tok, pos, cache) if model is int8 else None
         tok_s = B * new / wall
         wall_ms = wall * 1e3 / new
         idle = 1.0 - step_ms / wall_ms
+        # per sample: 1023 decode steps of 30 layers, each one row write and one
+        # decode attention; with int8 weights 151 projections in the prefill and
+        # in each step (M = 16: the 30 w2 products on the streaming kernel, the
+        # rest on the earlier one, as `w8_kernel` names them) and 151 in the NLL
+        # forward (M = 8192, the earlier kernel)
         want = {"flash_attn_fwd": 30 + 30 + 12, "decode_attention": 30 * (new - 1),
-                "w8_matmul": 151 * (new + 1) if model is int8 else 0}
+                "w8_matmul": 151 * (new + 1) if model is int8 else 0,
+                "write_rows_per_row": 30 * (new - 1)}
+        want_w8_stream = _w8_streamed(model, 2 * B) * new
+        top = sorted(per_step.items(), key=lambda kv: -kv[1])[:6]
         log(f"[sample {name}] batch {B}, CFG 1.5, top-k 100, {new} tokens: {wall:.3f} s = "
             f"{tok_s:.1f} tokens/s, {wall_ms:.3f} ms per decode step (host wall); device "
-            f"{step_ms:.3f} ms per step (CUDA-graph replay at pos 512): idle {idle:.1%}")
-        in_range = ((video >= 0) & (video <= 1)).float().mean().item()
+            f"{step_ms:.3f} ms per step (CUDA-graph replay at pos 512): idle {idle:.1%}; "
+            f"{sum(per_step.values())} kernels per step (torch.profiler), most launched: "
+            + ", ".join(f"{n[:60]} x{c}" for n, c in top))
         log(f"[sample {name}] NLL forward {nll_s * 1e3:.1f} ms (NLL {nll.item():.4f}), "
-            f"decode_from_bottleneck {dec_s * 1e3:.1f} ms ({in_range:.1%} of pixels in [0, 1] "
-            f"before clipping); launches {launches} (expect {want})")
+            f"decode_from_bottleneck {dec_s * 1e3:.1f} ms ({in_range(video):.1%} of pixels in "
+            f"[0, 1] before clipping); launches {launches} (expect {want}); of the decode "
+            f"attentions {decode_sm90} by decode_attn_sm90_kernel (expect all), of the int8 "
+            f"matmuls {w8_stream} by w8_stream_kernel (expect {want_w8_stream})")
+        if by_w8 is not None:
+            best = {c: min(t) for c, t in by_w8.items()}
+            log(f"[sample {name}] device time per step at pos 512 with the int8 projections as "
+                f"w8_kernel names them ({want_w8_stream // new} of 151 on w8_stream_kernel) "
+                + " / ".join(f"{t:.4f}" for t in by_w8["chosen"]) + " ms, all on the earlier "
+                "w8_matmul_kernel " + " / ".join(f"{t:.4f}" for t in by_w8["w8_matmul_kernel"])
+                + " ms, all on w8_stream_kernel "
+                + " / ".join(f"{t:.4f}" for t in by_w8["w8_stream_kernel"]) + " ms (in turn): the "
+                f"choice {'saves' if best['chosen'] < best['w8_matmul_kernel'] else 'does NOT save'} "
+                f"{best['w8_matmul_kernel'] - best['chosen']:.4f} ms per step against the earlier "
+                f"kernel alone")
+            records["w8_matmul"][f"{name}_step_ms"] = best["chosen"]
+            records["w8_matmul"][f"{name}_step_earlier_ms"] = best["w8_matmul_kernel"]
+            records["w8_matmul"][f"{name}_step_stream_ms"] = best["w8_stream_kernel"]
         require(tuple(seq.shape) == (B, new) and int(seq.min()) >= 0 and int(seq.max()) < 8192,
                 f"sample {name}: codes {tuple(seq.shape)} out of range")
         require(torch.isfinite(nll).item(), f"sample {name}: non-finite NLL")
         require(tuple(video.shape) == (B, 3, 16, 128, 128), f"sample {name}: video {tuple(video.shape)}")
         require(torch.isfinite(video).all().item(), f"sample {name}: non-finite video")
         require(launches == want, f"sample {name}: launch counts {launches}, expected {want}")
-        results[name] = launches
+        require(decode_sm90 == want["decode_attention"] and w8_stream == want_w8_stream,
+                f"sample {name}: {decode_sm90} decode_attn_sm90_kernel, {w8_stream} w8_stream_kernel")
+        results[name] = dict(launches, w8_stream=w8_stream, decode_sm90=decode_sm90)
+        step_ms_of[name] = (step_ms, sum(per_step.values()))
         records.setdefault("sampling", {})[name] = tok_s
-    records["decode_attention"]["launches"] = results["int8_kv8"]["decode_attention"]
-    records["w8_matmul"]["launches"] = results["int8"]["w8_matmul"]
+    log("[sample] device time per decode step at pos 512, bf16 / int8 weights / int8 weights + "
+        "int8 KV: " + " / ".join(f"{ms:.3f} ms ({n} kernels)" for ms, n in step_ms_of.values())
+        + f"; int8 {'below' if step_ms_of['int8'][0] < step_ms_of['bf16'][0] else 'NOT below'} bf16")
+    records["sampling_device_step_ms"] = {k: v[0] for k, v in step_ms_of.items()}
+    records["sampling_kernels_per_step"] = {k: v[1] for k, v in step_ms_of.items()}
+    records["decode_attention"]["launches"] = results["int8_kv8"]["decode_sm90"]
+    records["w8_matmul"]["launches"] = results["int8"]["w8_stream"]
+    records["w8_matmul_mma"]["launches"] = results["int8"]["w8_matmul"] - results["int8"]["w8_stream"]
+    records["cache_update"]["decode_step_launches"] = results["int8_kv8"]["write_rows_per_row"]
+
+
+def in_range(video) -> float:
+    """Share of a decoded video's pixels in [0, 1] before clipping."""
+    return ((video >= 0) & (video <= 1)).float().mean().item()
 
 
 def phase_decode_chunk_fp32(model) -> None:
@@ -1384,13 +1726,13 @@ def phase_speculative(target, draft, tokenizer, records: dict) -> None:
             torch.cuda.synchronize()
             for k in kernels:
                 k.launches = 0
-            chunk_attention.launches_sm90 = 0
+            chunk_attention.launches_sm90 = w8_matmul.launches_stream = 0
             t0 = time.perf_counter()
             seq, stats = speculative_generate(tm, dm, labels, new, gen, **kw)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = {k.__name__: k.launches for k in kernels}
-            chunk_sm90 = chunk_attention.launches_sm90
+            chunk_sm90, w8_stream = chunk_attention.launches_sm90, w8_matmul.launches_stream
             iters, acc = stats["iterations"], float(stats["acceptance_rate"])
             with torch.inference_mode():
                 # (the decoder takes whole samples of 1024 codes)
@@ -1421,6 +1763,13 @@ def phase_speculative(target, draft, tokenizer, records: dict) -> None:
                               if prec == "int8_kv8" else 0),
                 "chunk_attention": per_iter * iters, "write_rows_per_row": per_iter * iters,
             }
+            # on the streaming kernel, as `w8_kernel` names them: the verify
+            # chunks (80 rows), the draft's width-2 chunks (32 rows; width 1 in
+            # iteration 0) and, at 16 rows, the projections with K > 2048
+            want_w8_stream = (iters * (_w8_streamed(tm, 2 * B * (gamma + 1))
+                                       + (gamma - 1) * _w8_streamed(dm, 2 * B))
+                              + (iters - 1) * _w8_streamed(dm, 4 * B) + 2 * _w8_streamed(dm, 2 * B)
+                              + _w8_streamed(tm, 2 * B))
             tok_s = B * new / wall
             log(f"[spec {con} {prec}] batch {B}, CFG 1.5, top-k 100, {new} tokens, gamma {gamma}: "
                 f"{wall:.3f} s = {tok_s:.1f} tokens/s (plain generate in this run: "
@@ -1429,7 +1778,11 @@ def phase_speculative(target, draft, tokenizer, records: dict) -> None:
                 f"(CUDA-graph replay at pos 512): idle {1 - dev_ms / iter_ms:.1%}")
             log(f"[spec {con} {prec}] launches {launches} (expect {want_launches}), of the chunk "
                 f"attentions {chunk_sm90} by chunk_attn_sm90_kernel (expect all: a "
-                f"{'int8' if kv else 'bf16'} cache at head dim 64)")
+                f"{'int8' if kv else 'bf16'} cache at head dim 64), of the int8 matmuls "
+                f"{w8_stream} by w8_stream_kernel (expect {want_w8_stream})")
+            require(w8_stream == want_w8_stream,
+                    f"spec {con} {prec}: {w8_stream} of {launches['w8_matmul']} int8 matmuls ran "
+                    f"w8_stream_kernel, not {want_w8_stream}")
             require(tuple(seq.shape) == (B, new) and int(seq.min()) >= 0 and int(seq.max()) < 8192,
                     f"spec {con} {prec}: codes {tuple(seq.shape)} out of range")
             require(video is None or (tuple(video.shape) == (B, 3, 16, 128, 128)
@@ -1799,7 +2152,7 @@ def main() -> int:
     model_fp32 = phase_e2e_fp32()
     tokenizer = phase_e2e_bf16(model_fp32, records)
     del model_fp32
-    ar_model = phase_ar_fp32()
+    ar_model = phase_ar_fp32(records)
     phase_decode_chunk_fp32(ar_model)
     from video_tokenizer_tpu_torch import flagship_draft
 
@@ -1832,10 +2185,14 @@ def main() -> int:
                                    "video_tokenizer_tpu/ops/attention.py:447"),
         "vq_argmax": ("video_tokenizer_tpu_torch/csrc/vq_lookup.cu",
                       "video_tokenizer_tpu/ops/vq.py:35"),
-        "decode_attention": ("video_tokenizer_tpu_torch/csrc/decode_attention.cu",
+        "decode_attention": ("video_tokenizer_tpu_torch/csrc/decode_attention_sm90.cu",
                              "video_tokenizer_tpu/ops/decode_attention.py:80"),
-        "w8_matmul": ("video_tokenizer_tpu_torch/csrc/w8_matmul.cu",
+        "decode_attention_split": ("video_tokenizer_tpu_torch/csrc/decode_attention.cu",
+                                   "video_tokenizer_tpu/ops/decode_attention.py:80"),
+        "w8_matmul": ("video_tokenizer_tpu_torch/csrc/w8_matmul_stream.cu",
                       "video_tokenizer_tpu/ops/quant_matmul.py:51"),
+        "w8_matmul_mma": ("video_tokenizer_tpu_torch/csrc/w8_matmul.cu",
+                          "video_tokenizer_tpu/ops/quant_matmul.py:51"),
         "chunk_attention": ("video_tokenizer_tpu_torch/csrc/chunk_attention_sm90.cu",
                             "video_tokenizer_tpu/ops/decode_attention.py:330"),
         "chunk_attention_split": ("video_tokenizer_tpu_torch/csrc/chunk_attention.cu",
@@ -1853,6 +2210,8 @@ def main() -> int:
         require(not missing and k["launches"] > 0, f"kernel {k['name']}: {missing or 'never launched'}")
     print(json.dumps({"train": {k: v for k, v in records.items() if k.startswith("train_")}}))
     print(json.dumps({"sampling_tokens_per_s": records["sampling"],
+                      "sampling_device_step_ms": records["sampling_device_step_ms"],
+                      "sampling_kernels_per_step": records["sampling_kernels_per_step"],
                       "speculative": records["speculative"], "distill": records["distill"]}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,19 +1,27 @@
-"""Times tilings of the two Hopper kernels whose tiling is a set of constants.
+"""Times tilings of the Hopper kernels whose tiling is a set of constants.
 
-  python3 tools/tune_torch_kernels.py [chunk] [dq]     (needs one CUDA device and nvcc)
+  python3 tools/tune_torch_kernels.py [chunk] [dq] [decode] [w8] [w8_step]   (one CUDA device, nvcc)
 
-`csrc/chunk_attention_sm90.cu` and `csrc/flash_attn_bwd_dq_sm90.cu` fix their
+`csrc/chunk_attention_sm90.cu`, `csrc/flash_attn_bwd_dq_sm90.cu`,
+`csrc/decode_attention_sm90.cu` and `csrc/w8_matmul_stream.cu` fix their
 tiling in `constexpr int` constants at the head of the file. This script
 copies `csrc/` to `build/variants/<name>/`, substitutes the constants of each
 variant below in the copy, compiles that one source with the port's nvcc
 flags into a library of its own, binds the entry point with the port's
 signature table, and times every variant in one process on one card, beside
 the earlier kernel, with its registers, spill bytes and its error against the
-plain version (chunk) or the earlier kernel (dQ): the chunk kernel for 1, 2,
-3, 4 and 6 splits of the cache at the verify and draft shapes of the 632M
-prior at positions 1024 and 512 (CUDA-graph replays), the dQ kernel at the
-tokenizer's, the discriminator's and the prior's causal shape (CUDA events,
-two rounds). Nothing here is used by the port; the sources keep one tiling.
+plain version (chunk, decode, w8) or the earlier kernel (dQ): the chunk kernel
+for 1, 2, 3, 4 and 6 splits of the cache at the verify and draft shapes of the
+632M prior at positions 1024 and 512 (CUDA-graph replays), the dQ kernel at
+the tokenizer's, the discriminator's and the prior's causal shape (CUDA
+events, two rounds), the one-token decode kernel cold over 30 layers' caches
+(bf16 and int8, one or two KV heads per block, 1 or 2 splits, pos 1024, 512
+and 0), and the streaming int8 matmul over one decode step's 151 (or the
+draft's 41) distinct weights, cold, back to back and after an elementwise
+kernel, under `w8_plan`'s plan and others (`w8_plans`), then each projection
+shape alone; and (`w8_step`) one decode step of the int8 prior with its
+projections on the earlier kernel and under each of those plans. Nothing here
+is used by the port; the sources keep one tiling.
 """
 import ctypes
 import importlib
@@ -21,6 +29,7 @@ import re
 import shutil
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -33,7 +42,9 @@ from video_tokenizer_tpu_torch.ops import _build  # noqa: E402
 # the ops package exports functions under its modules' names
 A = importlib.import_module("video_tokenizer_tpu_torch.ops.attention")
 DA = importlib.import_module("video_tokenizer_tpu_torch.ops.decode_attention")
+QM = importlib.import_module("video_tokenizer_tpu_torch.ops.quant_matmul")
 
+W8_PLAN = QM.w8_plan  # the port's own, whatever tune_w8_step puts in its place
 ROOT = REPO / "build" / "variants"
 CSRC = _build.CSRC
 
@@ -172,11 +183,237 @@ def tune_chunk():
                 print(f"[chunk pos {pos_val}] {name} {n}: " + ", ".join(line), flush=True)
 
 
+def compile_variants(source, variants, entry):
+    """compile_variant for every variant of one source, all nvcc runs at once."""
+    with ThreadPoolExecutor(len(variants)) as pool:
+        futures = {n: pool.submit(compile_variant, n, source, s, entry) for n, s in variants.items()}
+    return {n: f.result() for n, f in futures.items()}
+
+
+def tune_decode():
+    """The one-token decode kernel at the 632M prior's sampling shape, cold
+    (30 layers' caches per graph replay), bf16 and int8 caches, pos 1024, 512
+    and 0, one and two KV heads per block (int8), 1 and 2 splits, beside the
+    earlier kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    B, S, H, D, layers = 16, 1152, 20, 64, 30
+    q = torch.randn(B, H, D, generator=gen, device="cuda").bfloat16()
+    variants = {
+        "w4_st4": dict(kWarps=4, kStages=4),
+        "w8_st4": dict(kWarps=8, kStages=4),
+        "w4_st6": dict(kWarps=4, kStages=6),
+        "w2_st6": dict(kWarps=2, kStages=6),
+    }
+    fns = compile_variants("decode_attention_sm90.cu", variants, "vtt_decode_attention_sm90")
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    arrived = torch.zeros(B * H, dtype=torch.int32, device="cuda")
+    for dt in (torch.bfloat16, torch.int8):
+        caches = []
+        for _ in range(layers):
+            kf = torch.randn(B, S, H * D, generator=gen, device="cuda")
+            vf = torch.randn(B, S, H * D, generator=gen, device="cuda")
+            if dt == torch.int8:
+                (k, ks), (v, vs) = DA._quantize_rows(kf), DA._quantize_rows(vf)
+            else:
+                k, v, ks, vs = kf.bfloat16(), vf.bfloat16(), None, None
+            caches.append((k, v, ks, vs))
+        for pos_val in (1024, 512, 0):
+            pos = torch.full((1,), pos_val, dtype=torch.int32, device="cuda")
+            out = torch.empty_like(q)
+
+            def earlier():
+                for k, v, ks, vs in caches:
+                    DA._decode_launch("decode_split_kernel", q, k, v, pos, None, ks, vs, H, out)
+
+            e_ms = c.graph_ms(earlier, launches=1, replays=5) / layers
+            print(f"[decode {str(dt)[6:]} pos {pos_val}] earlier {e_ms:.4f} ms", flush=True)
+            k, v, ks, vs = caches[-1]
+            want = DA.decode_attention_reference(q, k, v, pos, k_scale=ks, v_scale=vs, kv_heads=H)
+            for n, fn in fns.items():
+                if fn is None:
+                    continue
+                line = []
+                for hpb in ((1, 2) if dt == torch.int8 else (1,)):
+                    for n_splits in ((1, 2) if n == "w4_st4" else (1,)):
+                        po = torch.empty((B, H, n_splits, D), dtype=torch.float32, device="cuda")
+                        pm = torch.empty((B, H, n_splits, 2), dtype=torch.float32, device="cuda")
+
+                        def run():
+                            for k, v, ks, vs in caches:
+                                code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+                                          None, ptr(ks), ptr(vs), po.data_ptr(), pm.data_ptr(),
+                                          arrived.data_ptr(), out.data_ptr(), DA._CACHE_DTYPES[dt],
+                                          B, H, H, S, D, n_splits, hpb, q.stride(0), D ** -0.5,
+                                          torch.cuda.current_stream().cuda_stream)
+                                assert code == 0, code
+
+                        ms = c.graph_ms(run, launches=1, replays=5) / layers
+                        err = (out.float() - want.float()).abs().max().item() / want.float().abs().max().item()
+                        line.append(f"hpb{hpb} s{n_splits} {ms:.4f} ({err:.0e})")
+                print(f"[decode {str(dt)[6:]} pos {pos_val}] {n}: " + ", ".join(line), flush=True)
+        del caches
+
+
+def w8_plans(M, N, K):
+    """Plans of the streaming int8 matmul beside `w8_plan`'s own ("plan"):
+    64-channel blocks of 4 warps (fewer where even 8 splits leave an SM
+    without a block) with `factor` times the splits that give each SM a block
+    as one cluster ("clusters_x<factor>")."""
+    stages = -(-K // 128)
+    least = -(-stages // QM._stages_that_fit(QM._rows(M)))
+    plans = {"plan": W8_PLAN(M, N, K)}
+    for factor in (1, 2):
+        for warps in (4, 2, 1):
+            groups = -(-N // (16 * warps))
+            once = min(stages, 8, max(least, -(-132 // groups)))
+            if groups * once >= 132:
+                break
+        plans[f"clusters_x{factor}"] = QM.W8Plan(warps, groups, min(stages, 8, max(least, factor * once)),
+                                                 QM._rows(M))
+    return plans
+
+
+def tune_w8_step():
+    """The device time of one decode step of the 632M prior with int8 weights
+    (graph replay at pos 512, replays of 50) with its projections on the
+    kernels `w8_kernel` names, all on the earlier kernel, and all on the
+    streaming kernel under each plan of `w8_plans`, two rounds in turn."""
+    from video_tokenizer_tpu_torch import flagship_ar
+    from video_tokenizer_tpu_torch.models.larp_ar import quantize_model
+
+    bf16 = flagship_ar(torch.float32, torch.Generator().manual_seed(1)).cuda().to(torch.bfloat16)
+    int8 = quantize_model(bf16)
+    del bf16
+    tok = torch.randint(0, 8192, (16, 1), device="cuda", generator=torch.Generator("cuda").manual_seed(2))
+    pos = torch.full((1,), 512, dtype=torch.int32, device="cuda")
+    chooser, planner = QM.w8_kernel, W8_PLAN
+    options = ["chosen", "earlier", *w8_plans(16, 1280, 1280)]
+    with torch.inference_mode():
+        for kv in (None, torch.int8):
+            cache = int8.init_cache(16, 1025, kv or torch.bfloat16)
+            times = {o: [] for o in options}
+            try:
+                for _ in range(2):
+                    for o, t in times.items():
+                        if o == "chosen":
+                            QM.w8_kernel, QM.w8_plan = chooser, planner
+                        elif o == "earlier":
+                            QM.w8_kernel, QM.w8_plan = (lambda M, K: "w8_matmul_kernel"), planner
+                        else:  # every projection on the streaming kernel, under plan o
+                            QM.w8_kernel = lambda M, K: ("w8_stream_kernel" if QM.w8_streams(M, K)
+                                                         else "w8_matmul_kernel")
+                            QM.w8_plan = lambda M, N, K, o=o: w8_plans(M, N, K)[o]
+                        t.append(c.graph_ms(lambda: int8.decode_step(tok, pos, cache), launches=1,
+                                            replays=50))
+            finally:
+                QM.w8_kernel, QM.w8_plan = chooser, planner
+            print(f"[w8 step {'int8 + int8 KV' if kv else 'int8'}] " + ", ".join(
+                f"{o} " + " / ".join(f"{x:.4f}" for x in t) for o, t in times.items()) + " ms",
+                flush=True)
+
+
+def tune_w8():
+    """The streaming int8 matmul over one decode step's projections (distinct
+    weights, cold), back to back and with an elementwise kernel writing x
+    before each product (as in the model), for each variant under each plan
+    of `w8_plans`, beside the earlier kernel and cuBLAS on bf16 copies; then,
+    for the first variant, each projection shape alone (30 distinct weights
+    of it per replay)."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    variants = {
+        "base": {},
+        "st4": dict(kStages=4),
+    }
+    fns = compile_variants("w8_matmul_stream.cu", variants, "vtt_w8_matmul_stream")
+    def stream_run(fn, M, proj, xs, ws, scales, outs, plans, touch):
+        def run():
+            for (K, N), w, s, o, (plan, splits) in zip(proj, ws, scales, outs, plans):
+                if touch:
+                    xs[K].mul_(1.0)  # an elementwise kernel writes x first
+                code = fn(xs[K].data_ptr(), w.data_ptr(), s.data_ptr(), o.data_ptr(), 1, M, N, K,
+                          plan.warps, splits, 1, torch.cuda.current_stream().cuda_stream)
+                assert code == 0, code
+        return run
+
+    for name, M, proj in (("lp_m16", 16, c.LP_PROJ), ("lp_m80", 80, c.LP_PROJ),
+                          ("draft_m16", 16, c.DRAFT_PROJ)):
+        ws = [torch.randint(-127, 128, (N, K), generator=gen, device="cuda", dtype=torch.int8)
+              for K, N in proj]
+        scales = [torch.rand(N, generator=gen, device="cuda") * 2e-3 + 1e-4 for _, N in proj]
+        xs = {K: torch.randn(M, K, generator=gen, device="cuda").bfloat16() for K, _ in set(proj)}
+        outs = [torch.empty(M, N, dtype=torch.bfloat16, device="cuda") for _, N in proj]
+        wants = [QM.w8_matmul_reference(xs[K], w.t(), s, True) for (K, _), w, s in zip(proj, ws, scales)]
+        nbytes = sum(w.numel() for w in ws)
+
+        def earlier(touch):
+            def run():
+                for (K, _), w, s, o in zip(proj, ws, scales, outs):
+                    if touch:
+                        xs[K].mul_(1.0)
+                    QM._w8_launch("w8_matmul_kernel", xs[K], w, s, o, True)
+            return run
+
+        e_ms = c.graph_ms(earlier(False), launches=1, replays=5)
+        et_ms = c.graph_ms(earlier(True), launches=1, replays=5)
+        wb = [w.to(torch.bfloat16) for w in ws]
+
+        def cublas():
+            for (K, _), w in zip(proj, wb):
+                torch.matmul(xs[K], w.t())
+
+        l_ms = c.graph_ms(cublas, launches=1, replays=5)
+        del wb
+        print(f"[w8 {name}] {nbytes / 1e6:.0f} MB: earlier {e_ms:.4f} ms (after elementwise "
+              f"{et_ms:.4f} ms), cuBLAS bf16 {l_ms:.4f} ms, "
+              f"bound {nbytes / c.HBM_BYTES_PER_S * 1e3:.4f} ms", flush=True)
+        for n, fn in fns.items():
+            if fn is None:
+                continue
+            for option in w8_plans(16, 1280, 1280):
+                plans = [(pl, pl.splits) for pl in (w8_plans(M, N, K)[option] for K, N in proj)]
+                line = []
+                for touch in (False, True):
+                    ms = c.graph_ms(stream_run(fn, M, proj, xs, ws, scales, outs, plans, touch),
+                                    launches=1, replays=5)
+                    line.append(f"{'after elementwise' if touch else 'back to back'} {ms:.4f} ms")
+                stream_run(fn, M, proj, xs, ws, scales, outs, plans, False)()
+                torch.cuda.synchronize()
+                err = max((o.float() - w_.float()).abs().max().item() / w_.float().abs().max().item()
+                          for o, w_ in zip(outs, wants))
+                print(f"[w8 {name}] {n}, {option}: "
+                      + ", ".join(line)
+                      + f" (err {err:.1e})", flush=True)
+        fn = next(f for f in fns.values() if f is not None)
+        for K, N in sorted(set(proj)):
+            idx = [i for i, kn in enumerate(proj) if kn == (K, N)][:30]
+            sub = [proj[i] for i in idx]
+            sw, ss, so = [ws[i] for i in idx], [scales[i] for i in idx], [outs[i] for i in idx]
+            plan = QM.w8_plan(M, N, K)
+            plans = [(plan, plan.splits)] * len(idx)
+            ms = c.graph_ms(stream_run(fn, M, sub, xs, sw, ss, so, plans, False), launches=1,
+                            replays=5) / len(idx)
+
+            def earlier_one():
+                for w, s, o in zip(sw, ss, so):
+                    QM._w8_launch("w8_matmul_kernel", xs[K], w, s, o, True)
+
+            e1 = c.graph_ms(earlier_one, launches=1, replays=5) / len(idx)
+            print(f"[w8 {name}] {K}x{N} ({len(idx)} distinct, {plan}): {ms * 1e3:.2f} us per product, "
+                  f"earlier {e1 * 1e3:.2f} us, bound {K * N / c.HBM_BYTES_PER_S * 1e6:.2f} us", flush=True)
+        del ws
+
+
 if __name__ == "__main__":
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
     _build.library()
-    which = sys.argv[1:] or ["dq", "chunk"]
+    which = sys.argv[1:] or ["dq", "chunk", "decode", "w8", "w8_step"]
+    if "w8_step" in which:
+        tune_w8_step()
+    if "w8" in which:
+        tune_w8()
+    if "decode" in which:
+        tune_decode()
     if "chunk" in which:
         tune_chunk()
     if "dq" in which:

@@ -90,55 +90,8 @@ struct Params {
   float sm_scale;
 };
 
-// A warp's tile of 16 cache rows of one KV head in shared memory.
 template <typename TC>
-struct Tile;
-
-template <>
-struct Tile<__nv_bfloat16> {
-  static constexpr bool kInt8 = false;
-  static constexpr int kRowBytes = 128, kChunks = 8;
-  static constexpr int kBytes = kTileKeys * kRowBytes;
-  static constexpr int kStageBytes = 2 * kBytes;
-  // 16-byte chunk c of row r: the swizzle ldmatrix wants (8 rows, one chunk
-  // position each)
-  __device__ static uint32_t at(int r, int c) { return r * kRowBytes + ((c ^ (r & 7)) << 4); }
-  // head-dim index of inner index 2 tig + 8 half of k-step ks of Q.K^T
-  __device__ static int q_col(int ks, int tig, int half) { return 16 * ks + 2 * tig + 8 * half; }
-  // head-dim index of column c of output n-tile n
-  __device__ static int o_col(int n, int c) { return 8 * n + c; }
-};
-
-template <>
-struct Tile<int8_t> {
-  static constexpr bool kInt8 = true;
-  static constexpr int kRowBytes = 64, kChunks = 4;
-  static constexpr int kBytes = kTileKeys * kRowBytes;
-  static constexpr int kStageBytes = 2 * kBytes + 2 * kTileKeys * (int)sizeof(float);  // + scales
-  // two rows share 128 bytes; the slot of a chunk is XORed with 2 * ((r / 2) % 4),
-  // so that the K read (rows g of an n-tile, chunk tig, 16 bytes) and the V read
-  // (rows 2 tig + const, 8 bytes at 8 g) each cover all banks once
-  __device__ static uint32_t at(int r, int c) {
-    return (r >> 1) * 128 + (((((r & 1) << 2) | c) ^ (((r >> 1) & 3) << 1)) << 4);
-  }
-  // thread tig converts bytes 16 tig .. 16 tig + 15 of a key: word ks of them is
-  // the four inner indices 2 tig, 2 tig + 1, 2 tig + 8, 2 tig + 9 of k-step ks
-  __device__ static int q_col(int ks, int tig, int half) { return 16 * tig + 4 * ks + 2 * half; }
-  // thread g converts bytes 8 g .. 8 g + 7 of a V row: byte n is column g of n-tile n
-  __device__ static int o_col(int n, int c) { return 8 * c + n; }
-};
-
-// Two int8 values (bytes lo and hi of w ^ 0x80808080) as a bf16 pair, exactly:
-// the byte lands in the mantissa of 2^23, 2^23 + 128 is subtracted, and the
-// result (|x| <= 128) fits bf16's 8 significant bits.
-__device__ __forceinline__ uint32_t int8_pair_to_bf16(uint32_t biased_lo, int byte_lo,
-                                                      uint32_t biased_hi, int byte_hi) {
-  const float lo =
-      __uint_as_float(__byte_perm(biased_lo, 0x4B000000u, 0x7650 + byte_lo)) - 8388736.f;
-  const float hi =
-      __uint_as_float(__byte_perm(biased_hi, 0x4B000000u, 0x7650 + byte_hi)) - 8388736.f;
-  return pack_bf16(lo, hi);
-}
+using Tile = KvTile<TC>;
 
 template <typename TC, int MT>
 __global__ void __launch_bounds__(kThreads) chunk_attn_sm90_kernel(const Params p) {

@@ -1,4 +1,11 @@
-// One-token decode attention over a KV cache, for Hopper (sm_90a).
+// One-token decode attention over a KV cache, for Hopper (sm_90a). This
+// kernel serves fp32 queries and caches (the parity path: everything stays
+// fp32) and head dim 128; a bf16 query over bf16 and int8 caches at head dim
+// 64 (the sampling path of every model of the port) runs
+// csrc/decode_attention_sm90.cu instead, which computes the same function with
+// tensor-core products in one launch; ops/decode_attention.py::decode_kernel
+// chooses, by cache dtype, query dtype and head dim only. It still takes every
+// case (the smoke run times it beside the other kernel on the same inputs).
 //
 // Replaces the TPU kernel video_tokenizer_tpu/ops/decode_attention.py::
 // _decode_kernel: for each cache row b and query head h, attention of the

@@ -4,7 +4,8 @@
 // for the kernels whose row count is far below a warpgroup's 64, the warp
 // matrix product (mma.sync) with its 8x8 matrix loads.
 // Used by flash_attn_fwd_sm90.cu, flash_attn_bwd_dkv_sm90.cu,
-// flash_attn_bwd_dq_sm90.cu and chunk_attention_sm90.cu.
+// flash_attn_bwd_dq_sm90.cu, chunk_attention_sm90.cu and
+// decode_attention_sm90.cu; the K/V cache tiles at the end by the last two.
 //
 // The one tile layout used everywhere ("row tile"): R rows of 128 bytes (64
 // bf16), row r at byte r * 128, its 16-byte chunk c stored at chunk position
@@ -59,6 +60,27 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int kPending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// ---- thread block clusters: the blocks of a cluster read each other's
+// shared memory. All threads of every block of the cluster arrive; a block's
+// writes before it are seen by the cluster's reads after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The address in the shared memory of the cluster's block `rank` that
+// corresponds to `addr` in this block's.
+__device__ __forceinline__ uint32_t map_cluster_rank(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
 }
 
 // Makes this thread's shared-memory writes (cp.async included) visible to the
@@ -285,6 +307,63 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t add
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
+}
+
+// ---- K/V cache tiles for the mma.sync attention kernels (chunk and decode)
+// A warp's tile of 16 cache rows of one KV head at head dim 64 in shared
+// memory, K and V of a tile together in one stage (and, for an int8 cache, the
+// tile's 16 K and 16 V row scales after them).
+constexpr int kKvTileKeys = 16;
+
+template <typename TC>
+struct KvTile;
+
+template <>
+struct KvTile<__nv_bfloat16> {
+  static constexpr bool kInt8 = false;
+  static constexpr int kRowBytes = 128, kChunks = 8;
+  static constexpr int kBytes = kKvTileKeys * kRowBytes;
+  static constexpr int kStageBytes = 2 * kBytes;
+  // 16-byte chunk c of row r: the swizzle ldmatrix wants (8 rows, one chunk
+  // position each)
+  __device__ static uint32_t at(int r, int c) { return r * kRowBytes + ((c ^ (r & 7)) << 4); }
+  // head-dim index of inner index 2 tig + 8 half of k-step ks of Q.K^T
+  __device__ static int q_col(int ks, int tig, int half) { return 16 * ks + 2 * tig + 8 * half; }
+  // head-dim index of column c of output n-tile n
+  __device__ static int o_col(int n, int c) { return 8 * n + c; }
+};
+
+template <>
+struct KvTile<int8_t> {
+  static constexpr bool kInt8 = true;
+  static constexpr int kRowBytes = 64, kChunks = 4;
+  static constexpr int kBytes = kKvTileKeys * kRowBytes;
+  static constexpr int kStageBytes = 2 * kBytes + 2 * kKvTileKeys * (int)sizeof(float);  // + scales
+  // two rows share 128 bytes; the slot of a chunk is XORed with 2 * ((r / 2) % 4),
+  // so that the K read (rows g of an n-tile, chunk tig, 16 bytes) and the V read
+  // (rows 2 tig + const, 8 bytes at 8 g) each cover all banks once
+  __device__ static uint32_t at(int r, int c) {
+    return (r >> 1) * 128 + (((((r & 1) << 2) | c) ^ (((r >> 1) & 3) << 1)) << 4);
+  }
+  // thread tig converts bytes 16 tig .. 16 tig + 15 of a key: word ks of them is
+  // the four inner indices 2 tig, 2 tig + 1, 2 tig + 8, 2 tig + 9 of k-step ks
+  __device__ static int q_col(int ks, int tig, int half) { return 16 * tig + 4 * ks + 2 * half; }
+  // thread g converts bytes 8 g .. 8 g + 7 of a V row: byte n is column g of n-tile n
+  __device__ static int o_col(int n, int c) { return 8 * c + n; }
+};
+
+// Two int8 values (bytes lo and hi of w ^ 0x80808080) as a bf16 pair, exactly:
+// the byte lands in the mantissa of 2^23, 2^23 + 128 is subtracted, and the
+// result (|x| <= 128) fits bf16's 8 significant bits, so its fp32 bits end in
+// 16 zeros and the pair is the two upper halves (a byte permute, not a
+// conversion).
+__device__ __forceinline__ uint32_t int8_pair_to_bf16(uint32_t biased_lo, int byte_lo,
+                                                      uint32_t biased_hi, int byte_hi) {
+  const float lo =
+      __uint_as_float(__byte_perm(biased_lo, 0x4B000000u, 0x7650 + byte_lo)) - 8388736.f;
+  const float hi =
+      __uint_as_float(__byte_perm(biased_hi, 0x4B000000u, 0x7650 + byte_hi)) - 8388736.f;
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
 }
 
 }  // namespace sm90

@@ -183,13 +183,9 @@ class FeedForward(nn.Module):
         return self.w2(F.silu(self.w1(x)) * self.w3(x))
 
 
-def _write_rows(buf: torch.Tensor, rows: torch.Tensor, start: Union[int, torch.Tensor]) -> None:
-    """buf[:, start : start + T] = rows (rows [B, T, ...]). A tensor `start`
-    (a 1-element int32 tensor, T == 1) is an index on the device: no sync."""
-    if isinstance(start, torch.Tensor):
-        buf[:, start] = rows
-    else:
-        buf[:, start : start + rows.shape[1]] = rows
+def _write_rows(buf: torch.Tensor, rows: torch.Tensor, start: int) -> None:
+    """buf[:, start : start + T] = rows (rows [B, T, ...])."""
+    buf[:, start : start + rows.shape[1]] = rows
 
 
 class Attention(nn.Module):
@@ -219,9 +215,10 @@ class Attention(nn.Module):
         q, k, v = self._split_qkv(x)
         return self.wo(attention(q, k, v, causal=True).reshape(B, S, -1))
 
-    def _store(self, lc: Dict[str, torch.Tensor], rows_k, rows_v, start_pos) -> None:
+    def _store(self, lc: Dict[str, torch.Tensor], rows_k, rows_v, start_pos: int) -> None:
         """Writes [B, T, KV] K/V rows at row `start_pos` of the layer cache, in
-        place; an int8 cache quantises each (batch, position) row first."""
+        place; an int8 cache quantises each (batch, position) row first
+        (`prefill`'s write)."""
         for name, sname, rows in (("k", "ks", rows_k), ("v", "vs", rows_v)):
             if sname in lc:
                 q8, scale = _quantize_rows(rows)
@@ -245,12 +242,20 @@ class Attention(nn.Module):
         return self.wo(out.reshape(B, S, -1)), lc
 
     def decode_step(self, x: torch.Tensor, input_pos: torch.Tensor, lc, key_valid=None):
-        """One token x [B, 1, dim] at position input_pos (1-element int32)."""
+        """One token x [B, 1, dim] at position input_pos: a 1-element int32
+        tensor, or that position repeated for every row as a contiguous [B]
+        int32 tensor (what `LARP_AR.decode_step` makes once per step). The K/V
+        row goes in through the per-row write kernel with G = 1, as
+        `decode_chunk`'s rows do: one launch for K and V, quantised there for
+        an int8 cache (the same bits as `_store`)."""
         B = x.shape[0]
+        pos = input_pos.reshape(-1)
+        if pos.numel() != B:
+            pos = pos.expand(B).contiguous()
         q, k, v = self._split_qkv(x)
-        self._store(lc, k.reshape(B, 1, -1), v.reshape(B, 1, -1), input_pos)
+        write_rows_per_row(lc, k.reshape(B, 1, -1), v.reshape(B, 1, -1), pos)
         out = decode_attention(
-            q.reshape(B, self.n_head, self.head_dim), lc["k"], lc["v"], input_pos,
+            q.reshape(B, self.n_head, self.head_dim), lc["k"], lc["v"], pos[:1],
             key_valid=key_valid, k_scale=lc.get("ks"), v_scale=lc.get("vs"),
             kv_heads=self.n_kv_head,
         )
@@ -448,8 +453,9 @@ class LARP_AR(nn.Module):
             pos = torch.full((1,), int(input_pos), dtype=torch.int32, device=device)
         h = self.tok_embeddings(idx)
         h = h + self.abs_pe[0].index_select(0, pos).to(h.dtype)
+        rows_pos = pos.expand(idx.shape[0]).contiguous()  # the row write's [B] positions
         for layer, lc in zip(self.layers, cache):
-            h, _ = layer.decode_step(h, pos, lc, key_valid)
+            h, _ = layer.decode_step(h, rows_pos, lc, key_valid)
         return self.output(self.norm(h)), cache
 
     def decode_chunk(self, idx: torch.Tensor, pos: torch.Tensor, cache: Cache,

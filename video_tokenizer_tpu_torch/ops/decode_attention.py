@@ -6,9 +6,14 @@ query [B, H, D]; `pos` is the position of the current token, whose K/V row
 is already in the cache, so keys 0..pos are live. GQA: query head h reads
 KV head h // (H // Hkv).
 
-* `decode_attention` wraps `csrc/decode_attention.cu`, which replaces the
-  TPU kernel `_decode_kernel`. On a CUDA tensor it launches the kernel or
-  raises; on a CPU tensor it runs `decode_attention_reference`.
+* `decode_attention` wraps `csrc/decode_attention_sm90.cu` (a bf16 query
+  over bf16 and int8 caches at head dim 64: one block per cache row and KV
+  head, tensor-core products with P split into two bf16 parts, one launch)
+  and `csrc/decode_attention.cu` (fp32 queries, fp32 caches, head dim 128:
+  fp32 throughout), which replace the TPU kernel `_decode_kernel`;
+  `decode_kernel` names the one a call launches. On a CUDA tensor it
+  launches that kernel or raises; on a CPU tensor it runs
+  `decode_attention_reference`.
 * `decode_attention_reference` is the plain version, the JAX package's
   `xla_decode_attention`: fp32 scores, masked keys at DEFAULT_MASK_VALUE,
   softmax, int8 row scales folded into the scores (K) and probabilities (V).
@@ -21,9 +26,11 @@ KV head h // (H // Hkv).
   which replace the TPU kernel `_chunk_kernel`; `chunk_kernel` names the one
   a call launches. `chunk_attention_reference` is the plain version, the JAX
   package's `xla_chunk_attention`, with P.V from fp32 probabilities.
-* `chunk_attention_tiled_reference` repeats the arithmetic of
-  `csrc/chunk_attention_sm90.cu` tile by tile in plain PyTorch, for the CPU
-  tests (`tests/test_torch_chunk_tiled.py`); nothing else calls it.
+* `chunk_attention_tiled_reference` and `decode_attention_tiled_reference`
+  repeat the arithmetic of `csrc/chunk_attention_sm90.cu` and
+  `csrc/decode_attention_sm90.cu` tile by tile in plain PyTorch, for the CPU
+  tests (`tests/test_torch_chunk_tiled.py`, `tests/test_torch_decode_tiled.py`);
+  nothing else calls them.
 
 Two TPU layout devices are not copied: int8 scales are [B, S] fp32 here, not
 [S, 128] planes with the batch in the lanes, and the cache's last dim is not
@@ -47,6 +54,7 @@ _LOG2E = 1.4426950408889634
 # of blocks that gives each of the card's 132 SMs one (a cache that brings 192
 # or 320 blocks of its own was fastest unsplit at every position measured)
 _SM90_TILE, _SM90_WARPS, _SM90_MAX_ROWS, _SM90_BLOCKS = 16, 4, 32, 132
+_SM90_MAX_DECODE_ROWS = 16  # csrc/decode_attention_sm90.cu: query heads per KV head
 _HEAD_DIMS = (64, 128)
 _CACHE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -136,13 +144,43 @@ def chunk_kernel(cache_dtype: torch.dtype, head_dim: int) -> str:
     return "chunk_split_kernel"
 
 
+def decode_kernel(cache_dtype: torch.dtype, q_dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel a `decode_attention` call on the card launches. The one place
+    where the choice is made, by cache dtype, query dtype and head dim only: a
+    bf16 query over a bf16 or int8 cache at D = 64 (the sampling path of every
+    model of the port) runs `csrc/decode_attention_sm90.cu`; fp32 queries and
+    caches (the parity path: its operands would be rounded) and D = 128 stay on
+    `csrc/decode_attention.cu`. No call falls back from one to the other."""
+    if (cache_dtype in (torch.bfloat16, torch.int8) and q_dtype == torch.bfloat16
+            and head_dim == 64):
+        return "decode_attn_sm90_kernel"
+    return "decode_split_kernel"
+
+
+def decode_heads_per_block(cache_dtype: torch.dtype, H: int, Hkv: int) -> int:
+    """KV heads of one block of `decode_attn_sm90_kernel`: two adjacent heads
+    for an int8 cache (a tile then copies 128 contiguous bytes of each key,
+    where one head's are 64), when Hkv is even and H / Hkv <= 8; else one."""
+    if cache_dtype == torch.int8 and Hkv % 2 == 0 and H // Hkv <= 8:
+        return 2
+    return 1
+
+
+def decode_splits(B: int, Hkv: int, S: int, heads_per_block: int = 1) -> int:
+    """Blocks per (cache row, group of `heads_per_block` KV heads) of
+    `decode_attn_sm90_kernel`: one where those B * Hkv / heads_per_block
+    blocks fill the card's 132 SMs, else enough to fill them, at most one per
+    64 keys. From the shapes only, never from `pos`."""
+    rounds = -(-S // (_SM90_TILE * _SM90_WARPS))
+    return max(1, min(-(-_SM90_BLOCKS // (B * Hkv // heads_per_block)), rounds))
+
+
 def chunk_splits(kernel: str, B: int, Hkv: int, S: int) -> int:
     """Blocks per (cache row, KV head) of a chunk kernel. It follows from the
     shapes only, never from `pos`, which the host does not know."""
     if kernel == "chunk_split_kernel":
         return -(-S // _CHUNK)
-    rounds = -(-S // (_SM90_TILE * _SM90_WARPS))  # 64-key rounds of one block
-    return max(1, min(-(-_SM90_BLOCKS // (B * Hkv)), rounds))
+    return decode_splits(B, Hkv, S)
 
 
 def _merge_partials(m, l, o):
@@ -155,10 +193,12 @@ def _merge_partials(m, l, o):
 
 def chunk_attention_tiled_reference(
     q, k_cache, v_cache, pos, key_valid=None, k_scale=None, v_scale=None,
-    kv_heads: Optional[int] = None, n_splits: int = 1,
+    kv_heads: Optional[int] = None, n_splits: int = 1, p_parts: int = 1,
 ) -> torch.Tensor:
     """The arithmetic of `chunk_attn_sm90_kernel`, tile by tile, in plain
     PyTorch (tests only). Same contract as `chunk_attention_reference`.
+    `p_parts=2` is `decode_attn_sm90_kernel`'s P.V (see
+    `decode_attention_tiled_reference`).
 
     What it repeats of the kernel: both products take bf16 operands (q
     rounded, int8 values exact) with fp32 sums when the cache is bf16 or int8
@@ -208,7 +248,7 @@ def chunk_attention_tiled_reference(
                 alpha = torch.exp2(m - m_new)
                 p = torch.exp2(y[..., k0:k1] - m_new[..., None])
                 pv = torch.einsum("bhrgs,bshd->bhrgd",
-                                  (p * vsc[:, None, None, None, k0:k1]).to(op).float(),
+                                  _operand_parts(p * vsc[:, None, None, None, k0:k1], op, p_parts),
                                   vh[:, k0:k1])
                 l = torch.where(active, l * alpha + p.sum(-1), l)
                 o = torch.where(active[..., None], o * alpha[..., None] + pv, o)
@@ -223,6 +263,35 @@ def chunk_attention_tiled_reference(
     _, l, o = _merge_partials(m, l, o)
     out = (o / l[..., None]).permute(0, 3, 1, 2, 4)
     return out.reshape(B, G, H, D).to(q.dtype)
+
+
+def _operand_parts(p: torch.Tensor, op: torch.dtype, parts: int) -> torch.Tensor:
+    """p as the sum of `parts` values of the operand dtype, each the rounding
+    of what the ones before it left over (one part: p rounded once)."""
+    out = torch.zeros_like(p)
+    for _ in range(parts):
+        out = out + (p - out).to(op).float()
+    return out
+
+
+def decode_attention_tiled_reference(
+    q, k_cache, v_cache, pos, key_valid=None, k_scale=None, v_scale=None,
+    kv_heads: Optional[int] = None, n_splits: int = 1,
+) -> torch.Tensor:
+    """The arithmetic of `decode_attn_sm90_kernel`, tile by tile, in plain
+    PyTorch (tests only). Same contract as `decode_attention_reference`.
+
+    The kernel is the chunk kernel's loop at one token (16-key tiles dealt
+    round-robin over the 4 warps of `n_splits` blocks, one online softmax per
+    warp in the log2 domain, bf16 operands with fp32 sums, the merge of warps
+    and of the blocks that ran), but P times the V scale enters P.V as two
+    bf16 parts, hi + lo, instead of rounded once: the TPU kernel keeps P in
+    fp32."""
+    B = q.shape[0]
+    pos_b = torch.as_tensor(pos, device=q.device).reshape(-1).expand(B)
+    return chunk_attention_tiled_reference(
+        q[:, None], k_cache, v_cache, pos_b, key_valid, k_scale, v_scale, kv_heads,
+        n_splits=n_splits, p_parts=2)[:, 0]
 
 
 def _check(name: str, x: torch.Tensor, device, dtype=None, shape=None, align: int = 16,
@@ -292,27 +361,66 @@ def decode_attention(
         _check("pos", pos_t, device, torch.int32, align=4)
     else:
         pos_t = torch.full((1,), int(pos), dtype=torch.int32, device=device)
-    n_splits = -(-S // _CHUNK)
-    part_o = torch.empty((B, H, n_splits, D), dtype=torch.float32, device=device)
-    part_ml = torch.empty((B, H, n_splits, 2), dtype=torch.float32, device=device)
     out = torch.empty((B, H, D), dtype=q.dtype, device=device)
     if out.numel() and S:
-        ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+        kernel = decode_kernel(k_cache.dtype, q.dtype, D)
+        _decode_launch(kernel, q, k_cache, v_cache, pos_t, key_valid, k_scale, v_scale, Hkv, out)
+        decode_attention.launches += 1
+        decode_attention.launches_sm90 += kernel == "decode_attn_sm90_kernel"
+        decode_attention.last_kernel = kernel
+    return out
+
+
+def _decode_launch(kernel: str, q, k_cache, v_cache, pos_t, key_valid, k_scale, v_scale,
+                   Hkv: int, out) -> None:
+    """Launches the named decode kernel on checked operands (see `decode_attention`)."""
+    B, H, D = q.shape
+    S = k_cache.shape[1]
+    device = q.device
+    sm90 = kernel == "decode_attn_sm90_kernel"
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    lib = _build.library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if sm90:
+        if H // Hkv > _SM90_MAX_DECODE_ROWS:
+            raise ValueError(f"decode_attention: {H // Hkv} query heads per KV head: {kernel} "
+                             f"has no instance above {_SM90_MAX_DECODE_ROWS}")
+        if q.data_ptr() % 16 or q.stride(0) % 8:
+            raise ValueError(f"decode_attention: q needs a 16-byte-aligned start and a batch "
+                             f"stride in multiples of 8, got {q.stride()}")
+        hpb = decode_heads_per_block(k_cache.dtype, H, Hkv)
+        n_splits = decode_splits(B, Hkv, S, hpb)
+        part_o = part_ml = arrived = None
+        if n_splits > 1:
+            # partials and the per-(cache row, KV head) arrival counts of the
+            # in-kernel merge, made with each launch on its stream (the counts
+            # zeroed there), so that no two launches share them
+            part_o = torch.empty((B, H, n_splits, D), dtype=torch.float32, device=device)
+            part_ml = torch.empty((B, H, n_splits, 2), dtype=torch.float32, device=device)
+            arrived = torch.zeros(B * Hkv, dtype=torch.int32, device=device)
         with torch.cuda.device(device):
-            code = _build.library().vtt_decode_attention(
+            code = lib.vtt_decode_attention_sm90(
+                q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos_t.data_ptr(),
+                ptr(key_valid), ptr(k_scale), ptr(v_scale), ptr(part_o), ptr(part_ml),
+                ptr(arrived), out.data_ptr(), _CACHE_DTYPES[k_cache.dtype],
+                B, H, Hkv, S, D, n_splits, hpb, q.stride(0), D ** -0.5, stream)
+    else:
+        n_splits = -(-S // _CHUNK)
+        part_o = torch.empty((B, H, n_splits, D), dtype=torch.float32, device=device)
+        part_ml = torch.empty((B, H, n_splits, 2), dtype=torch.float32, device=device)
+        with torch.cuda.device(device):
+            code = lib.vtt_decode_attention(
                 q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos_t.data_ptr(),
                 ptr(key_valid), ptr(k_scale), ptr(v_scale),
                 part_o.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
                 _CACHE_DTYPES[k_cache.dtype], int(q.dtype == torch.bfloat16),
-                B, H, Hkv, S, D, n_splits, q.stride(0), D ** -0.5,
-                torch.cuda.current_stream(device).cuda_stream,
-            )
-        _build.check(code, "decode_attention")
-        decode_attention.launches += 1
-    return out
+                B, H, Hkv, S, D, n_splits, q.stride(0), D ** -0.5, stream)
+    _build.check(code, kernel)
 
 
-decode_attention.launches = 0  # kernel launches, read by chip_smoke.py
+decode_attention.launches = 0  # kernel launches (either kernel), read by chip_smoke.py
+decode_attention.launches_sm90 = 0  # of which decode_attn_sm90_kernel
+decode_attention.last_kernel = None  # name of the kernel the last call launched
 
 
 def chunk_attention(

@@ -6,9 +6,13 @@ y = (x @ w8) * scale with x [..., K] bf16 or fp32, w8 [K, N] int8, scale
 bf16 x gives the TPU kernel's product, an fp32 x the fp32 product of the JAX
 package's `QuantDense` (an fp32 dot; the TPU kernel would round x to bf16).
 
-* `w8_matmul` wraps `csrc/w8_matmul.cu`, which replaces the TPU kernel
-  `_w8_kernel`. On a CUDA tensor it launches the kernel or raises; on a CPU
-  tensor it runs `w8_matmul_reference`.
+* `w8_matmul` wraps `csrc/w8_matmul_stream.cu` (M <= 128 rows with K a
+  multiple of 16: speculative chunks and a decode step's longest-K product,
+  one pass over the weights, blocks and split-K by `w8_plan`) and
+  `csrc/w8_matmul.cu` (the rest: the other decode projections, prefill and
+  NLL forwards), which replace the TPU kernel `_w8_kernel`;
+  `w8_kernel` names the one a call launches. On a CUDA tensor it launches
+  that kernel or raises; on a CPU tensor it runs `w8_matmul_reference`.
 * `w8_matmul_reference` is the plain version: (x @ w8) in fp32, then the
   epilogue.
 
@@ -27,9 +31,22 @@ The kernel reads the weight one output channel at a time (K contiguous):
 """
 from __future__ import annotations
 
+from typing import List, NamedTuple, Tuple
+
 import torch
 
 from . import _build
+
+# csrc/w8_matmul_stream.cu: output channels of a warp, the K of one ring
+# stage, the most x rows it has an instance for, the most blocks of a cluster
+# (the splits of K), the bytes of a block's staged x rows; and the number of
+# blocks that gives each of the card's 132 SMs one
+_STREAM_WARP_N, _STREAM_STAGE_K, _STREAM_MAX_M, _STREAM_MAX_SPLITS = 16, 128, 128, 8
+_STREAM_X_BYTES = 160 * 1024
+_STREAM_BLOCKS = 132
+# csrc/w8_matmul.cu at M <= 16: the 8 warps of a 16-channel block walk K in
+# 512-wide chunks, one weight round trip each; up to 4 of them it is the faster
+_EARLIER_MAX_K = 4 * 512
 
 
 def w8_matmul_reference(x, w8, scale, double_round: bool = False) -> torch.Tensor:
@@ -38,6 +55,81 @@ def w8_matmul_reference(x, w8, scale, double_round: bool = False) -> torch.Tenso
     if double_round:
         return acc.to(x.dtype) * scale.to(x.dtype)
     return (acc * scale.float()).to(x.dtype)
+
+
+def w8_kernel(M: int, K: int) -> str:
+    """The kernel a `w8_matmul` call on the card launches, by the number of x
+    rows M and the inner dimension K only: M <= 128 with K a multiple of 16
+    (the decode and verify projections of the port's models), where 8 splits
+    of K bring a block's x rows within its shared memory, streams the weights
+    through `csrc/w8_matmul_stream.cu`; larger M (prefill, the NLL forward)
+    and other K stay on `csrc/w8_matmul.cu`, and so do M <= 16 at K <= 2048
+    (a decode step's projections but the prior's w2, a draft's one-token
+    chunks): there the earlier kernel's blocks own whole rows of K in at most
+    four round trips and finish before the streaming kernel's split sums do
+    (`PERF.md` §6). No call falls back from one to the other."""
+    if 1 <= M <= 16 and K <= _EARLIER_MAX_K:
+        return "w8_matmul_kernel"
+    return "w8_stream_kernel" if w8_streams(M, K) else "w8_matmul_kernel"
+
+
+def w8_streams(M: int, K: int) -> bool:
+    """Whether `csrc/w8_matmul_stream.cu` has an instance for M rows and K:
+    M <= 128, K a multiple of 16, and 8 splits of K that bring a block's x
+    rows within its shared memory."""
+    if not (1 <= M <= _STREAM_MAX_M and K % 16 == 0):
+        return False
+    stages = -(-K // _STREAM_STAGE_K)
+    return -(-stages // _STREAM_MAX_SPLITS) <= _stages_that_fit(_rows(M))
+
+
+def _rows(M: int) -> int:
+    """x rows of the kernel instance for M: the least number of its 8-row tiles."""
+    tiles = -(-M // 8)
+    return 8 * next(t for t in (1, 2, 4, 6, 8, 10, 16) if t >= tiles)
+
+
+def _stages_that_fit(rows: int) -> int:
+    """128-wide K stages of one block whose x rows (bf16, 16 bytes of padding
+    each) fit in the kernel's shared memory for them."""
+    return (_STREAM_X_BYTES // rows - 16) // (2 * _STREAM_STAGE_K)
+
+
+class W8Plan(NamedTuple):
+    warps: int   # warps of a block, _STREAM_WARP_N output channels each
+    groups: int  # blocks along N
+    splits: int  # blocks along K per channel group
+    rows: int    # x rows of the kernel instance (M rounded up to its 8-row tiles)
+
+    @property
+    def blocks(self) -> int:
+        return self.groups * self.splits
+
+
+def w8_plan(M: int, N: int, K: int) -> W8Plan:
+    """Blocks of `w8_stream_kernel` from the shapes only: 4 warps of 16
+    output channels each (2, then 1, where even 8 splits leave an SM without
+    a block), and K split across the blocks of a cluster (in 128-wide
+    stages, at most 8 splits): twice the splits that give each of the card's
+    SMs a block, and at least enough that a block's x rows fit in its shared
+    memory. Twice was the faster of the two on the card (`PERF.md` §6)."""
+    rows = _rows(M)
+    stages = -(-K // _STREAM_STAGE_K)
+    least = -(-stages // _stages_that_fit(rows))
+    for warps in (4, 2, 1):
+        groups = -(-N // (_STREAM_WARP_N * warps))
+        splits = min(stages, _STREAM_MAX_SPLITS, max(least, -(-_STREAM_BLOCKS // groups)))
+        if groups * splits >= _STREAM_BLOCKS:
+            break
+    return W8Plan(warps, groups, min(stages, _STREAM_MAX_SPLITS, max(least, 2 * splits)), rows)
+
+
+def w8_slices(splits: int, K: int) -> List[Tuple[int, int]]:
+    """The K range [k0, k1) of each split of `w8_stream_kernel`, in split
+    order: the kernel deals the 128-wide stages of K this way."""
+    stages = -(-K // _STREAM_STAGE_K)
+    bounds = [stages * i // splits * _STREAM_STAGE_K for i in range(splits + 1)]
+    return [(min(a, K), min(b, K)) for a, b in zip(bounds, bounds[1:])]
 
 
 def w8_matmul(x, w8, scale, double_round: bool = False) -> torch.Tensor:
@@ -66,15 +158,33 @@ def w8_matmul(x, w8, scale, double_round: bool = False) -> torch.Tensor:
     M = x2.shape[0]
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M:
-        with torch.cuda.device(x.device):
-            code = _build.library().vtt_w8_matmul(
-                x2.data_ptr(), wt.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                int(x.dtype == torch.bfloat16), M, N, K, int(double_round),
-                torch.cuda.current_stream(x.device).cuda_stream,
-            )
-        _build.check(code, "w8_matmul")
+        kernel = w8_kernel(M, K)
+        _w8_launch(kernel, x2, wt, scale, out, double_round)
         w8_matmul.launches += 1
+        w8_matmul.launches_stream += kernel == "w8_stream_kernel"
+        w8_matmul.last_kernel = kernel
     return out.reshape(*x.shape[:-1], N)
 
 
-w8_matmul.launches = 0  # kernel launches, read by chip_smoke.py
+def _w8_launch(kernel: str, x2, wt, scale, out, double_round: bool) -> None:
+    """Launches the named kernel on checked operands: x2 [M, K], wt [N, K] int8,
+    out [M, N] (see `w8_matmul`)."""
+    (M, K), N = x2.shape, wt.shape[0]
+    lib = _build.library()
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    x_bf16 = int(x2.dtype == torch.bfloat16)
+    with torch.cuda.device(x2.device):
+        if kernel == "w8_stream_kernel":
+            plan = w8_plan(M, N, K)
+            code = lib.vtt_w8_matmul_stream(
+                x2.data_ptr(), wt.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                x_bf16, M, N, K, plan.warps, plan.splits, int(double_round), stream)
+        else:
+            code = lib.vtt_w8_matmul(x2.data_ptr(), wt.data_ptr(), scale.data_ptr(),
+                                     out.data_ptr(), x_bf16, M, N, K, int(double_round), stream)
+    _build.check(code, kernel)
+
+
+w8_matmul.launches = 0  # kernel launches (either kernel), read by chip_smoke.py
+w8_matmul.launches_stream = 0  # of which w8_stream_kernel
+w8_matmul.last_kernel = None  # name of the kernel the last call launched
