@@ -6,16 +6,22 @@
 Phases, each of which raises on failure (exit code 1, no result line):
   1. build the CUDA kernels from csrc/ with nvcc for sm_90a (one nvcc per
      source, all started together); registers and spill bytes of the
-     tensor-core kernels (the three wgmma flash kernels, the chunk-attention
-     kernel), which may not spill;
+     tensor-core kernels (the three wgmma flash kernels, the 3xTF32 flash
+     forward, the chunk and decode kernels, the streaming and the wgmma int8
+     matmuls), which may not spill;
   2. the flash-attention forward kernels, out and LSE, against their plain
      PyTorch version on the card: the wgmma kernel (bf16, head dim 32 or 64,
      no segment ids) at the tokenizer's shape, the discriminator's ragged
      S = 1025 and the prior's causal NLL-forward shape, all from strided qkv
      views, causal with an offset, GQA, ragged Sk, D = 32 causal ragged, one
-     row past a 128-row block, rows that see no key; the mma.sync / FMA
-     kernel on fp32, D = 128 and segments with a no-match query; each case
-     must run the kernel the dispatch rule names;
+     row past a 128-row block, rows that see no key; the 3xTF32 kernel
+     (fp32, D 32 or 64, no segment ids) at the tokenizer's B = 1 and
+     training B = 8 shapes from strided views, the discriminator's, causal
+     with an offset, GQA, ragged Sk, D = 32 causal ragged, the block edge and
+     rows that see no key, timed beside the earlier FMA kernel, SDPA fp32 and
+     the efficient op with its LSE; the mma.sync / FMA kernel on D = 128 and
+     segments with a no-match query; each case must run the kernel the
+     dispatch rule names;
   3. the VQ nearest-code kernel against its plain version (cos, l2, ragged);
   4. the decode-attention kernels against their plain version at the 632M
      prior's sampling geometry (B = 16, H = 20, D = 64, S = 1152; bf16, int8
@@ -27,10 +33,13 @@ Phases, each of which raises on failure (exit code 1, no result line):
      splits, beside the earlier kernel and SDPA;
   5. the int8 weight-matmul kernels against their plain version at every
      projection shape of the prior (M = 16 and 80) and its draft (M = 16),
-     the NLL forward's M = 8192 and ragged shapes, bf16 and fp32 x, both
-     epilogues, each on the kernel the rule names and repeatable bit for
-     bit; one decode step's projections timed cold (distinct weights, 620 MB
-     for the prior) beside the earlier kernel and cuBLAS on bf16 copies;
+     the NLL forward's M = 8192 and ragged M > 128 (200, 1000, 4097), bf16
+     and fp32 x, both epilogues, each on the kernel the rule names (bf16 at
+     M > 128 on the wgmma kernel, also held beside the earlier one) and
+     repeatable bit for bit; wqkv at M = 8192 timed on the wgmma kernel,
+     the earlier kernel and cuBLAS on a bf16 copy; one decode step's
+     projections timed cold (distinct weights, 620 MB for the prior) beside
+     the earlier kernel and cuBLAS on bf16 copies;
   6. tokenizer end to end in fp32 (TF32 off): the full-width flagship
      tokenizer, seeded and perturbed, on the card against the same weights
      on the CPU through the plain versions;
@@ -47,8 +56,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
      as a CUDA graph, timed by CUDA events) against host wall time, kernels
      per step (torch.profiler), the NLL forward and decode_from_bottleneck,
      and exact launch counts (every decode attention on the tensor-core
-     kernel, every decode-step projection on the streaming int8 kernel, one
-     row write per layer and step);
+     kernel, the decode-step projections on the int8 kernels the rule names,
+     the NLL forward's 151 on the wgmma int8 kernel, one row write per layer
+     and step); and 16 tokens with `emb_masks` (prompt positions masked as
+     keys), whose prefill runs the segment-id flash forward;
  10. the flash backward kernels (dQ; dK/dV, after phase 2) against their
      plain backward: the tokenizer's shape from strided views, the
      discriminator's ragged S = 1025, the prior's causal shape, GQA 20/5,
@@ -56,7 +67,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
      against the plain backward of the plain forward's out and LSE, dQ and
      dK/dV by the wgmma kernels wherever the dispatch rule says so (plus D =
      32 causal ragged, Sq = 129 / Sk = 257, rows that see no key), the wgmma
-     dQ kernel timed beside the earlier one; gradients
+     dQ kernel timed beside the earlier one, the fp32 kernels at the
+     tokenizer's shape beside SDPA's fp32 backward (efficient backend); gradients
      through `attention` under autograd; `attention_with_lse` refusing grad.
      The VQ kernel's stochastic mode (in phase 3): index for index against
      the plain Philox draw, and by frequency against softmax;
@@ -67,7 +79,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
  12. tokenizer training through the port's trainer at batch 8, bf16 and
      fp32: s/step, clips/s, peak memory, exact launch counts of the four
      training-path kernels (in bf16 every flash forward, dQ and dK/dV launch
-     on the wgmma kernels, in fp32 none), device idle share and time by kernel
+     on the wgmma kernels; in fp32 every forward on the 3xTF32 kernel and no
+     launch on the wgmma ones), device idle share and time by kernel
      category from torch.profiler, the card's clock and power under load;
  13. the chunk-attention kernel (the verify forward of speculative decoding)
      against its plain version at the 632M prior's verify shape (B = 16,
@@ -99,7 +112,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
 Every kernel phase also times one PyTorch call that computes the same
 function (`library_ms`: SDPA and its autograd backward, a matmul + argmax,
 `index_put_`), which the port uses nowhere, and computes the kernel's bound
-from the published peaks (3.35 TB/s, 989 TFLOP/s bf16, 67 TFLOP/s fp32).
+from the published peaks (3.35 TB/s, 989 TFLOP/s bf16, 67 TFLOP/s fp32, and
+for the 3xTF32 kernel three TF32 products per product at 494.7 TFLOP/s).
 Prints the training, sampling and every kernel's numbers as JSON lines, the
 card's name and power limit, and last {"ok": true, "device": {...}}. Needs
 one CUDA device.
@@ -174,7 +188,8 @@ def graph_ms(fn, launches: int = 20, replays: int = 10) -> float:
 
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published peaks (dense)
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+# "tf32x3": an fp32 product as three TF32 products, at 494.7 TFLOP/s dense TF32
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12, "tf32x3": 494.7e12 / 3}
 
 
 def bound(n_bytes: float, flops: float = 0.0, kind: str = "bf16") -> dict:
@@ -197,23 +212,28 @@ def phase_build() -> None:
     log(f"[build] {build.path.relative_to(ROOT)} built by nvcc for sm_90a "
         f"in {build.seconds:.1f} s from {', '.join(s.name for s in _build._sources())}")
     for line in build.log.splitlines():
-        if "Used" in line or ("spill" in line and " 0 bytes spill stores" not in line):
+        if ("Used" in line or ("spill" in line and " 0 bytes spill stores" not in line)
+                or "Performance Loss" in line):  # e.g. wgmma serialised by ptxas
             log(f"[build]   {line.strip()}")
-    # the tensor-core kernels: the wgmma flash kernels per head dim, the chunk
-    # kernel per cache type and number of 16-row tiles, the decode kernel per
-    # cache type and KV heads per block, the streaming int8 matmul per x type
-    # and number of 8-row tiles; accumulators spilled to local memory would be
-    # re-read on every product
+    # the tensor-core kernels: the wgmma and 3xTF32 flash kernels per head
+    # dim, the chunk kernel per cache type and number of 16-row tiles, the
+    # decode kernel per cache type and KV heads per block, the streaming int8
+    # matmul per x type and number of 8-row tiles, the wgmma int8 matmul;
+    # accumulators spilled to local memory would be re-read on every product
     expected = {f"flash_{k}_sm90_kernel<{d}>" for k in ("fwd", "bwd_dq", "bwd_dkv") for d in (32, 64)}
     expected |= {f"chunk_attn_sm90_kernel<{c}, {m}>" for c in ("bf16", "int8") for m in (1, 2)}
     expected |= {f"decode_attn_sm90_kernel<{c}, {h}>" for c in ("bf16", "int8") for h in (1, 2)}
     expected |= {f"w8_stream_kernel<{x}, {t}>" for x in ("bf16", "fp32")
                  for t in (1, 2, 4, 6, 8, 10, 16)}
+    expected |= {f"flash_fwd_tf32x3_kernel<{d}>" for d in (32, 64)} | {"w8_sm90_kernel"}
     types = {"13__nv_bfloat16": "bf16", "a": "int8", "f": "fp32"}
     seen = set()
     for name, (regs, spill) in sorted(_build.kernel_resources(build.log).items()):
-        if m := re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_sm90_kernel)ILi(\d+)E+v", name):
+        if m := re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_sm90_kernel|flash_fwd_tf32x3_kernel)"
+                          r"ILi(\d+)E+v", name):
             kernel = f"{m.group(1)}<{m.group(2)}>"
+        elif "w8_sm90_kernel" in name:
+            kernel = "w8_sm90_kernel"
         elif m := re.search(r"(chunk_attn_sm90_kernel|w8_stream_kernel|decode_attn_sm90_kernel)"
                             r"I(13__nv_bfloat16|a|f)Li(\d+)E+v", name):
             kernel = f"{m.group(1)}<{types[m.group(2)]}, {m.group(3)}>"
@@ -231,7 +251,7 @@ def phase_flash(records: dict) -> None:
     import torch.nn.functional as F
 
     from video_tokenizer_tpu_torch.ops.attention import (
-        DEFAULT_MASK_VALUE, attention_reference, flash_attn_fwd,
+        DEFAULT_MASK_VALUE, _fwd_launch, attention_reference, flash_attn_fwd,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -255,6 +275,18 @@ def phase_flash(records: dict) -> None:
         ("gqa_4_over_2", 2, 512, 512, 4, 2, 64, torch.bfloat16, False, None, False, 2e-2),
         ("ragged_sk", 2, 300, 1000, 4, 4, 64, torch.bfloat16, False, None, False, 2e-2),
         ("fp32", 1, 2048, 2048, 12, 12, 64, torch.float32, False, None, False, 1e-4),
+        # fp32 at D 32 / 64 without segment ids: the training shape (B = 8),
+        # the discriminator's, the prior's causal one, then the mask cases
+        ("fp32_train", 8, 2048, 2048, 12, 12, 64, torch.float32, False, None, False, 1e-4),
+        ("fp32_discriminator", 8, 1025, 1025, 12, 12, 32, torch.float32, False, None, False, 1e-4),
+        ("fp32_prior_causal", 2, 1024, 1024, 20, 20, 64, torch.float32, True, None, False, 1e-4),
+        ("fp32_causal_offset", 2, 384, 512, 4, 4, 64, torch.float32, True, 100, False, 1e-4),
+        ("fp32_gqa_4_over_2", 2, 512, 512, 4, 2, 64, torch.float32, False, None, False, 1e-4),
+        ("fp32_ragged_sk", 2, 300, 1000, 4, 4, 64, torch.float32, False, None, False, 1e-4),
+        ("fp32_causal_ragged_d32", 2, 300, 333, 4, 4, 32, torch.float32, True, None, False, 1e-4),
+        ("fp32_edge_129_257", 2, 129, 257, 4, 4, 64, torch.float32, False, None, False, 1e-4),
+        ("fp32_causal_no_key_rows", 1, 300, 300, 2, 2, 64, torch.float32, True, -70, False, 1e-4),
+        ("fp32_segments", 2, 512, 512, 4, 4, 64, torch.float32, False, None, True, 1e-4),
         ("lse_fp32", 2, 384, 200, 4, 2, 128, torch.float32, True, 50, True, 1e-4),
         ("lse_bf16", 2, 384, 512, 4, 4, 32, torch.bfloat16, False, None, True, 2e-2),
         ("causal_ragged_d32", 2, 300, 333, 4, 4, 32, torch.bfloat16, True, None, False, 2e-2),
@@ -264,12 +296,16 @@ def phase_flash(records: dict) -> None:
         ("causal_no_key_rows", 1, 300, 300, 2, 2, 64, torch.bfloat16, True, -70, False, 2e-2),
     ]
     # the cases that must run the wgmma kernel (bf16, D = 32 or 64, no segment
-    # ids); fp32, D = 128 and segment ids stay on the mma.sync / FMA kernel
+    # ids) and the 3xTF32 kernel (the same in fp32); D = 128 and segment ids
+    # stay on the mma.sync / FMA kernel
     sm90_cases = {"flagship", "discriminator", "ar_nll_causal", "causal_offset", "gqa_4_over_2",
                   "ragged_sk", "causal_ragged_d32", "edge_129_257", "causal_no_key_rows"}
+    tf32x3_cases = {c[0] for c in cases if c[7] == torch.float32 and c[6] != 128 and not c[10]}
+    strided = {"flagship", "discriminator", "ar_nll_causal", "fp32_train", "fp32_discriminator",
+               "fp32_prior_causal"}
     lse_tol = 1e-4
     for name, B, Sq, Sk, H, Hkv, D, dtype, causal, offset, with_seg, tol in cases:
-        if name in ("flagship", "discriminator", "ar_nll_causal"):
+        if name in strided:
             # q, k, v as strided views of one [B, S, 3, H, D] qkv projection
             qkv = randn(B, Sq, 3, H, D, dtype=dtype)
             q, k, v = qkv.unbind(2)
@@ -294,7 +330,8 @@ def phase_flash(records: dict) -> None:
         log(f"[flash] {name}: B={B} Sq={Sq} Sk={Sk} H={H} Hkv={Hkv} D={D} {str(dtype)[6:]} "
             f"{kernel}: max|kernel-plain| {err:.3e} = {rel_err:.3e} of max|plain| (tol {tol:g}), "
             f"lse {lse_err:.3e} (tol {lse_tol:g})")
-        require(kernel == ("flash_fwd_sm90_kernel" if name in sm90_cases else "flash_fwd_kernel"),
+        require(kernel == ("flash_fwd_sm90_kernel" if name in sm90_cases else
+                           "flash_fwd_tf32x3_kernel" if name in tf32x3_cases else "flash_fwd_kernel"),
                 f"flash {name}: ran {kernel}")
         require(rel_err <= tol and lse_err <= lse_tol,
                 f"flash {name}: error {rel_err} of max|plain| > {tol} or lse {lse_err} > {lse_tol}")
@@ -304,33 +341,69 @@ def phase_flash(records: dict) -> None:
         require((got_lse[:, :, blind] == DEFAULT_MASK_VALUE).all().item(),
                 f"flash {name}: LSE of the rows that see no key is not the mask value")
         require(torch.equal(flash_attn_fwd(q, k, v, **kw), got), f"flash {name}: lse changes out")
-        if name in ("flagship", "discriminator", "ar_nll_causal", "fp32"):
-            ms = median_ms(lambda: flash_attn_fwd(q, k, v, causal=causal))
-            lse_ms = median_ms(lambda: flash_attn_fwd(q, k, v, causal=causal, return_lse=True))
+        if name in ("flagship", "discriminator", "ar_nll_causal", "fp32", "fp32_train"):
+            # device time: CUDA-graph replays (CUDA events around one eager
+            # call would add the host's launch path, ~0.05 ms)
+            ms = graph_ms(lambda: flash_attn_fwd(q, k, v, causal=causal), launches=5, replays=5)
+            lse_ms = graph_ms(lambda: flash_attn_fwd(q, k, v, causal=causal, return_lse=True),
+                              launches=5, replays=5)
             plain_ms = median_ms(lambda: attention_reference(q, k, v, causal), iters=5)
             flops = 4 * B * H * Sq * Sk * D * (0.5 if causal else 1.0)  # what the mask leaves
             # one PyTorch call for the same function, timed here and used
             # nowhere in the port
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            library_ms = median_ms(
-                lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal))
-            # with the LSE (row 2's function): PyTorch's flash attention op,
-            # which returns the output and the logsumexp; bf16 only
-            lse_library_ms = None if dtype == torch.float32 else median_ms(
-                lambda: torch.ops.aten._scaled_dot_product_flash_attention(qt, kt, vt, 0.0, causal))
-            bnd = bound(_nbytes(q, k, v, got), flops, "fp32" if dtype == torch.float32 else "bf16")
+            library_ms = graph_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal),
+                launches=5, replays=5)
+            # with the LSE (row 2's function): PyTorch's flash attention op in
+            # bf16, its memory-efficient op (3xTF32 products) in fp32; each
+            # returns the output and the logsumexp
+            if dtype == torch.float32:
+                lse_op, lse_library_ms = "_scaled_dot_product_efficient_attention", graph_ms(
+                    lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
+                        qt, kt, vt, None, True, 0.0, causal), launches=5, replays=5)
+            else:
+                lse_op, lse_library_ms = "_scaled_dot_product_flash_attention", graph_ms(
+                    lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+                        qt, kt, vt, 0.0, causal), launches=5, replays=5)
+            kind = "tf32x3" if dtype == torch.float32 else "bf16"
+            bnd = bound(_nbytes(q, k, v, got), flops, kind)
             tflops = flops / ms / 1e9
+            rec = {"max_abs_err": err, "max_rel_err": rel_err, "ms": ms, "lse_ms": lse_ms,
+                   "plain_ms": plain_ms, "library_ms": library_ms,
+                   "lse_library_ms": lse_library_ms, "tflops": tflops, **bnd}
+            earlier = ""
+            if dtype == torch.float32:
+                # the earlier FMA kernel on the same inputs, through its own
+                # entry, held against the plain version too; and its bound
+                fma_bnd = bound(_nbytes(q, k, v, got), flops, "fp32")
+                out_e = torch.empty(q.shape, dtype=q.dtype, device="cuda")
+                args = (q, k, v, None, None, out_e, None, causal, Sk - Sq, D ** -0.5)
+                earlier_ms = graph_ms(lambda: _fwd_launch("flash_fwd_kernel", *args),
+                                      launches=5, replays=5)
+                err_e = (out_e - want).abs().max().item()
+                require(err_e <= tol * want.abs().max().item(),
+                        f"flash {name}: flash_fwd_kernel error {err_e}")
+                rec.update(earlier_ms=earlier_ms, fma_bound_ms=fma_bnd["bound_ms"])
+                earlier = (f"; the earlier flash_fwd_kernel {earlier_ms:.3f} ms (max|kernel-plain| "
+                           f"{err_e:.3e}, FMA bound {fma_bnd['bound_ms']:.3f} ms)")
             log(f"[flash] {name}: {kernel} {ms:.3f} ms ({tflops:.1f} TFLOP/s), with LSE "
-                f"{lse_ms:.3f} ms, bound {bnd['bound_ms']:.3f} ms ({bnd['bound_by']}), plain (out "
-                f"and LSE) {plain_ms:.3f} ms, library call (SDPA) {library_ms:.3f} ms, with LSE "
-                f"(aten._scaled_dot_product_flash_attention) "
-                f"{'none for fp32' if lse_library_ms is None else f'{lse_library_ms:.3f} ms'} (median)")
-            rec = {"max_abs_err": err, "max_rel_err": rel_err, "ms": ms, "lse_ms": lse_ms, "plain_ms": plain_ms,
-                   "library_ms": library_ms, "lse_library_ms": lse_library_ms, "tflops": tflops, **bnd}
+                f"{lse_ms:.3f} ms, bound {bnd['bound_ms']:.3f} ms ({bnd['bound_by']}, {kind}), "
+                f"plain (out and LSE) {plain_ms:.3f} ms, library call (SDPA) {library_ms:.3f} ms, "
+                f"with LSE (aten.{lse_op}) {lse_library_ms:.3f} ms (CUDA-graph replays; the plain "
+                f"version median of eager calls){earlier}")
             if name == "flagship":
                 records["flash_attn_fwd"] = rec
             elif name == "fp32":
-                records["flash_attn_fwd_mma"] = rec  # the kernel that keeps fp32, D = 128, segments
+                records["flash_attn_fwd_tf32x3"] = rec
+                # the kernel that keeps D = 128 and segment ids, at the fp32
+                # shape it ran before the 3xTF32 kernel took fp32
+                records["flash_attn_fwd_mma"] = {
+                    "max_abs_err": err_e, "ms": earlier_ms, "plain_ms": plain_ms,
+                    "library_ms": library_ms, **fma_bnd}
+            elif name == "fp32_train":
+                records["flash_attn_fwd_tf32x3"].update(
+                    {f"b8_{k}": v for k, v in rec.items() if k != "bound_by"})
             else:
                 records["flash_attn_fwd"][f"{name}_ms"] = ms
                 records["flash_attn_fwd"][f"{name}_lse_ms"] = lse_ms
@@ -347,6 +420,7 @@ def phase_flash_bwd(records: dict) -> None:
     and the refusal of attention_with_lse under grad."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
     from video_tokenizer_tpu_torch.ops.attention import (
         _bwd_launch, attention, attention_bwd_reference, attention_reference, attention_with_lse,
@@ -370,6 +444,7 @@ def phase_flash_bwd(records: dict) -> None:
         ("segments_no_match", 2, 300, 300, 4, 4, 64, torch.bfloat16, False, None, True, 2e-2),
         ("causal_offset", 2, 384, 512, 4, 2, 128, torch.bfloat16, True, 100, False, 2e-2),
         ("fp32", 2, 1025, 1025, 12, 12, 32, torch.float32, False, None, False, 1e-4),
+        ("fp32_tokenizer", 8, 2048, 2048, 12, 12, 64, torch.float32, False, None, False, 1e-4),
         ("fp32_causal_gqa_seg", 2, 200, 333, 4, 2, 128, torch.float32, True, 50, True, 1e-4),
         ("causal_offset_d64", 2, 384, 512, 4, 2, 64, torch.bfloat16, True, 100, False, 2e-2),
         ("causal_ragged_d32", 2, 300, 333, 4, 4, 32, torch.bfloat16, True, None, False, 2e-2),
@@ -426,7 +501,7 @@ def phase_flash_bwd(records: dict) -> None:
         require(max(errs) <= tol and max(plain_errs) <= tol,
                 f"flash bwd {name}: errors {errs}, from the plain forward {plain_errs} > {tol}")
         del plain_out, plain_lse, want_plain
-        if name in ("tokenizer", "discriminator", "prior_causal", "fp32"):
+        if name in ("tokenizer", "discriminator", "prior_causal", "fp32", "fp32_tokenizer"):
             # the two kernels alone (delta and the GQA sum are torch ops)
             delta = torch.einsum("bqhd,bqhd->bhq", out.float(), do.float()).contiguous()
             scale = D ** -0.5
@@ -446,7 +521,11 @@ def phase_flash_bwd(records: dict) -> None:
             # SDPA, ONE backward for dq, dk and dv together (both kernels'
             # rows carry its time); timed here, used nowhere in the port
             ql, kl, vl = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
-            out_l = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
+            if dtype == torch.float32:  # the memory-efficient backend (3xTF32 products)
+                with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+                    out_l = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
+            else:
+                out_l = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
             do_l = do.transpose(1, 2)
             library_ms = median_ms(
                 lambda: torch.autograd.grad(out_l, (ql, kl, vl), do_l, retain_graph=True))
@@ -481,6 +560,12 @@ def phase_flash_bwd(records: dict) -> None:
                 del rec_dq["earlier_ms"]  # the same kernel
                 records["flash_attn_bwd_dq_mma"] = rec_dq
                 records["flash_attn_bwd_dkv_mma"] = rec_dkv
+            elif name == "fp32_tokenizer":
+                # the fp32 training step's shape, beside SDPA's fp32 backward
+                for key, rec in (("flash_attn_bwd_dq_mma", rec_dq),
+                                 ("flash_attn_bwd_dkv_mma", rec_dkv)):
+                    records[key].update({f"tokenizer_{k}": v for k, v in rec.items()
+                                         if k in ("ms", "plain_ms", "library_ms", "bound_ms")})
             else:
                 short = "disc" if name == "discriminator" else "causal"
                 records["flash_attn_bwd_dq"].update({f"{short}_ms": dq_ms,
@@ -1033,10 +1118,11 @@ def phase_w8_matmul(records: dict) -> None:
     """The int8 matmul kernels against their plain version at every shape of
     the prior and its draft at the decode (M = 16), draft-chunk and
     self-draft (M = 32) and verify (M = 80) row counts, the NLL forward's M =
-    8192 and ragged shapes, with every row-count instance of the streaming
-    kernel (8-row tiles 1, 2, 4, 6, 8, 10, 16: M = 1, 16, 32, 37, 64, 80,
-    128) launched at least once; then one decode step's 151 projections
-    timed cold (distinct weights, 620 MB)."""
+    8192 and ragged shapes (M > 128: 200, 1000, 4097, odd N), with every
+    row-count instance of the streaming kernel (8-row tiles 1, 2, 4, 6, 8,
+    10, 16: M = 1, 16, 32, 37, 64, 80, 128) launched at least once; wqkv at M
+    = 8192 timed on the wgmma kernel, the earlier one and cuBLAS; then one
+    decode step's 151 projections timed cold (distinct weights, 620 MB)."""
     import torch
 
     from video_tokenizer_tpu_torch.ops.quant_matmul import (
@@ -1047,24 +1133,28 @@ def phase_w8_matmul(records: dict) -> None:
     shapes = sorted({(M, K, N) for M in (16, 32, 80) for K, N in set(LP_PROJ)}
                     | {(M, K, N) for M in (16, 32) for K, N in set(DRAFT_PROJ)}
                     | {(8192, 1280, 3840), (37, 200, 77), (37, 208, 77), (1, 1280, 1280),
-                       (64, 1280, 3584), (128, 768, 2304)})
+                       (64, 1280, 3584), (128, 768, 2304), (200, 1280, 3840), (1000, 3584, 1280),
+                       (4097, 1280, 1280), (333, 768, 2305), (129, 200, 77)})
     worst = {}  # kernel -> (max abs error, max error of the output's scale), bf16 x
     for M, K, N in shapes:
         x32 = torch.randn(M, K, generator=gen, device="cuda")
         w = torch.randint(-127, 128, (N, K), generator=gen, device="cuda", dtype=torch.int8)
         scale = torch.rand(N, generator=gen, device="cuda") * 2e-3 + 1e-4
-        chosen = w8_kernel(M, K)
-        require(chosen == ("w8_matmul_kernel" if M > 128 or K % 16 or (M <= 16 and K <= 2048)
-                           else "w8_stream_kernel"), f"w8 {M}x{K}x{N}: the chooser names {chosen}")
-        # the kernel the chooser names, through `w8_matmul`, and at every shape
-        # the streaming kernel has an instance for, the other one as well
-        kernels = [chosen] + [k for k in ("w8_stream_kernel", "w8_matmul_kernel") if k != chosen
-                              and (k == "w8_matmul_kernel" or w8_streams(M, K))]
         # bf16 x: bf16 outputs rounded once on each side, sums in another
         # order, 1e-2 of the output's scale; fp32 x: the kernel's products
         # are exact (x split into three bf16 parts), fp32 sums in another
         # order, 1e-5 of it (measured on an H100: at most 2.3e-6)
         for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
+            chosen = w8_kernel(M, K, dtype)
+            rule = ("w8_sm90_kernel" if M > 128 and dtype == torch.bfloat16 and K % 64 == 0 else
+                    "w8_matmul_kernel" if M > 128 or K % 16 or (M <= 16 and K <= 2048) else
+                    "w8_stream_kernel")
+            require(chosen == rule, f"w8 {M}x{K}x{N} {dtype}: the chooser names {chosen}")
+            # the kernel the chooser names, through `w8_matmul`, and at every
+            # shape the streaming kernel has an instance for, the other one as
+            # well; beside the wgmma kernel, the earlier one
+            kernels = [chosen] + [k for k in ("w8_stream_kernel", "w8_matmul_kernel") if k != chosen
+                                  and (k == "w8_matmul_kernel" or w8_streams(M, K))]
             x = x32.to(dtype)
             for kernel in kernels:
                 rel = abs_err = 0.0
@@ -1096,20 +1186,30 @@ def phase_w8_matmul(records: dict) -> None:
                     a, r = worst.get(kernel, (0.0, 0.0))
                     worst[kernel] = (max(a, abs_err), max(r, rel))
         if (M, K, N) == (8192, 1280, 3840):
-            # the earlier kernel at the NLL forward's wqkv, which it keeps
+            # the NLL forward's wqkv on the wgmma kernel, on the earlier kernel
+            # (through its own entry) and as cuBLAS on a bf16 copy of the weights
             x = x32.to(torch.bfloat16)
+            out = torch.empty(M, N, dtype=torch.bfloat16, device="cuda")
             ms = graph_ms(lambda: w8_matmul(x, w.t(), scale, True), launches=3)
+            earlier_ms = graph_ms(lambda: _w8_launch("w8_matmul_kernel", x, w, scale, out, True),
+                                  launches=3)
             plain_ms = graph_ms(lambda: w8_matmul_reference(x, w.t(), scale, True), launches=3)
             library_ms = graph_ms(lambda: (x @ w.t().to(torch.bfloat16)) * scale, launches=3)
             bnd = bound(_nbytes(x, w, scale) + M * N * 2, 2 * M * K * N)
-            log(f"[w8] wqkv at M = 8192: w8_matmul_kernel {ms:.4f} ms ({2 * M * K * N / ms / 1e9:.1f} "
-                f"TFLOP/s), bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), plain {plain_ms:.4f} "
-                f"ms, library call (x @ w8.to(bf16) * s) {library_ms:.4f} ms (device time, CUDA-graph "
-                f"replay)")
-            records["w8_matmul_mma"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **bnd}
+            log(f"[w8] wqkv at M = 8192: w8_sm90_kernel {ms:.4f} ms ({2 * M * K * N / ms / 1e9:.1f} "
+                f"TFLOP/s), the earlier w8_matmul_kernel {earlier_ms:.4f} ms, bound "
+                f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), plain {plain_ms:.4f} ms, library "
+                f"call (x @ w8.to(bf16) * s) {library_ms:.4f} ms (device time, CUDA-graph replay)")
+            records["w8_matmul_sm90"] = {"ms": ms, "earlier_ms": earlier_ms, "plain_ms": plain_ms,
+                                         "library_ms": library_ms, **bnd}
+            # the earlier kernel keeps fp32 x, other K and the decode shapes;
+            # its row at the shape it ran before the wgmma kernel took it
+            records["w8_matmul_mma"] = {"ms": earlier_ms, "plain_ms": plain_ms,
+                                        "library_ms": library_ms, **bnd}
+    keys = {"w8_stream_kernel": "w8_matmul", "w8_matmul_kernel": "w8_matmul_mma",
+            "w8_sm90_kernel": "w8_matmul_sm90"}
     for kernel, (a, r) in worst.items():
-        key = "w8_matmul" if kernel == "w8_stream_kernel" else "w8_matmul_mma"
-        records.setdefault(key, {}).update(max_abs_err=a, max_rel_err=r)
+        records.setdefault(keys[kernel], {}).update(max_abs_err=a, max_rel_err=r)
     for name, M, proj in (("lp_m16", 16, LP_PROJ), ("lp_m80", 80, LP_PROJ),
                           ("draft_m16", 16, DRAFT_PROJ)):
         _w8_step_cold(records, name, M, proj, gen)
@@ -1137,7 +1237,8 @@ def _w8_step_cold(records: dict, name: str, M: int, proj, gen) -> None:
     n_bytes = sum(w.numel() for w in ws)
     chosen = {}
     for K, _ in proj:
-        chosen[w8_kernel(M, K)] = chosen.get(w8_kernel(M, K), 0) + 1
+        kernel = w8_kernel(M, K, torch.bfloat16)
+        chosen[kernel] = chosen.get(kernel, 0) + 1
 
     def step(kernel, touch=False):
         def run():
@@ -1407,13 +1508,15 @@ def _kernels_in(fn) -> dict:
     return found
 
 
-def _w8_streamed(model, M: int) -> int:
-    """How many of one forward's int8 projections at M rows `w8_kernel` puts
-    on w8_stream_kernel."""
+def _w8_streamed(model, M: int, kernel: str = "w8_stream_kernel") -> int:
+    """How many of one forward's int8 projections at M rows of bf16 x
+    `w8_kernel` puts on `kernel`."""
+    import torch
+
     from video_tokenizer_tpu_torch.models.larp_ar import QuantDense
     from video_tokenizer_tpu_torch.ops.quant_matmul import w8_kernel
 
-    return sum(w8_kernel(M, m.weight.shape[1]) == "w8_stream_kernel"
+    return sum(w8_kernel(M, m.weight.shape[1], torch.bfloat16) == kernel
                for m in model.modules() if isinstance(m, QuantDense))
 
 
@@ -1430,8 +1533,9 @@ def _step_ms_by_w8_kernel(model, tok, pos, cache) -> dict:
     chooser = qm.w8_kernel
     choices = {
         "chosen": chooser,
-        "w8_matmul_kernel": lambda M, K: "w8_matmul_kernel",
-        "w8_stream_kernel": lambda M, K: "w8_stream_kernel" if qm.w8_streams(M, K) else chooser(M, K),
+        "w8_matmul_kernel": lambda M, K, dtype: "w8_matmul_kernel",
+        "w8_stream_kernel": lambda M, K, dtype: ("w8_stream_kernel" if qm.w8_streams(M, K)
+                                                 else chooser(M, K, dtype)),
     }
     streamed = {"chosen": _w8_streamed(model, tok.shape[0]), "w8_matmul_kernel": 0,
                 "w8_stream_kernel": sum(isinstance(m, QuantDense) for m in model.modules())}
@@ -1475,7 +1579,7 @@ def phase_ar_sampling(model_fp32, tokenizer, records: dict) -> None:
         torch.cuda.synchronize()
         for k in kernels:
             k.launches = 0
-        decode_attention.launches_sm90 = w8_matmul.launches_stream = 0
+        decode_attention.launches_sm90 = w8_matmul.launches_stream = w8_matmul.launches_sm90 = 0
         t0 = time.perf_counter()
         seq = generate(model, labels, new, gen, **kw)
         torch.cuda.synchronize()
@@ -1491,6 +1595,7 @@ def phase_ar_sampling(model_fp32, tokenizer, records: dict) -> None:
             dec_s = time.perf_counter() - t1
         launches = {k.__name__: k.launches for k in kernels}
         decode_sm90, w8_stream = decode_attention.launches_sm90, w8_matmul.launches_stream
+        w8_sm90 = w8_matmul.launches_sm90
         with torch.inference_mode():  # one step at the mean cache length
             cache = model.init_cache(2 * B, 1 + new, kv or torch.bfloat16)
             pos = torch.full((1,), 512, dtype=torch.int32, device="cuda")
@@ -1505,11 +1610,12 @@ def phase_ar_sampling(model_fp32, tokenizer, records: dict) -> None:
         # decode attention; with int8 weights 151 projections in the prefill and
         # in each step (M = 16: the 30 w2 products on the streaming kernel, the
         # rest on the earlier one, as `w8_kernel` names them) and 151 in the NLL
-        # forward (M = 8192, the earlier kernel)
+        # forward (M = 8192, the wgmma kernel)
         want = {"flash_attn_fwd": 30 + 30 + 12, "decode_attention": 30 * (new - 1),
                 "w8_matmul": 151 * (new + 1) if model is int8 else 0,
                 "write_rows_per_row": 30 * (new - 1)}
         want_w8_stream = _w8_streamed(model, 2 * B) * new
+        want_w8_sm90 = _w8_streamed(model, B * new, "w8_sm90_kernel") if model is int8 else 0
         top = sorted(per_step.items(), key=lambda kv: -kv[1])[:6]
         log(f"[sample {name}] batch {B}, CFG 1.5, top-k 100, {new} tokens: {wall:.3f} s = "
             f"{tok_s:.1f} tokens/s, {wall_ms:.3f} ms per decode step (host wall); device "
@@ -1520,7 +1626,8 @@ def phase_ar_sampling(model_fp32, tokenizer, records: dict) -> None:
             f"decode_from_bottleneck {dec_s * 1e3:.1f} ms ({in_range(video):.1%} of pixels in "
             f"[0, 1] before clipping); launches {launches} (expect {want}); of the decode "
             f"attentions {decode_sm90} by decode_attn_sm90_kernel (expect all), of the int8 "
-            f"matmuls {w8_stream} by w8_stream_kernel (expect {want_w8_stream})")
+            f"matmuls {w8_stream} by w8_stream_kernel (expect {want_w8_stream}) and {w8_sm90} by "
+            f"w8_sm90_kernel (expect {want_w8_sm90}: the NLL forward's)")
         if by_w8 is not None:
             best = {c: min(t) for c, t in by_w8.items()}
             log(f"[sample {name}] device time per step at pos 512 with the int8 projections as "
@@ -1541,9 +1648,12 @@ def phase_ar_sampling(model_fp32, tokenizer, records: dict) -> None:
         require(tuple(video.shape) == (B, 3, 16, 128, 128), f"sample {name}: video {tuple(video.shape)}")
         require(torch.isfinite(video).all().item(), f"sample {name}: non-finite video")
         require(launches == want, f"sample {name}: launch counts {launches}, expected {want}")
-        require(decode_sm90 == want["decode_attention"] and w8_stream == want_w8_stream,
-                f"sample {name}: {decode_sm90} decode_attn_sm90_kernel, {w8_stream} w8_stream_kernel")
-        results[name] = dict(launches, w8_stream=w8_stream, decode_sm90=decode_sm90)
+        require(decode_sm90 == want["decode_attention"] and w8_stream == want_w8_stream
+                and w8_sm90 == want_w8_sm90,
+                f"sample {name}: {decode_sm90} decode_attn_sm90_kernel, {w8_stream} "
+                f"w8_stream_kernel, {w8_sm90} w8_sm90_kernel")
+        results[name] = dict(launches, w8_stream=w8_stream, w8_sm90=w8_sm90,
+                             decode_sm90=decode_sm90)
         step_ms_of[name] = (step_ms, sum(per_step.values()))
         records.setdefault("sampling", {})[name] = tok_s
     log("[sample] device time per decode step at pos 512, bf16 / int8 weights / int8 weights + "
@@ -1553,8 +1663,34 @@ def phase_ar_sampling(model_fp32, tokenizer, records: dict) -> None:
     records["sampling_kernels_per_step"] = {k: v[1] for k, v in step_ms_of.items()}
     records["decode_attention"]["launches"] = results["int8_kv8"]["decode_sm90"]
     records["w8_matmul"]["launches"] = results["int8"]["w8_stream"]
-    records["w8_matmul_mma"]["launches"] = results["int8"]["w8_matmul"] - results["int8"]["w8_stream"]
+    records["w8_matmul_sm90"]["launches"] = results["int8"]["w8_sm90"]
+    records["w8_matmul_mma"]["launches"] = (results["int8"]["w8_matmul"] - results["int8"]["w8_stream"]
+                                            - results["int8"]["w8_sm90"])
     records["cache_update"]["decode_step_launches"] = results["int8_kv8"]["write_rows_per_row"]
+
+    # sampling with a prompt mask (`emb_masks`: prompt positions that are not
+    # valid are masked as keys): the prefill's attention takes segment ids,
+    # which stay on the earlier flash_fwd_kernel; with every position valid
+    # the codes are those of the same draw without a mask
+    n = 16
+    mask = torch.ones(B, 1, dtype=torch.bool, device="cuda")
+    with_mask = {}
+    for m in (None, mask):
+        flash_attn_fwd.launches = flash_attn_fwd.launches_sm90 = flash_attn_fwd.launches_tf32x3 = 0
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+        with_mask[m is not None] = generate(bf16, labels, n, gen, cfg_scale=1.5, top_k=100,
+                                            emb_masks=m)
+        torch.cuda.synchronize()
+    seq = with_mask[True]
+    n_fwd, n_new = flash_attn_fwd.launches, flash_attn_fwd.launches_sm90 + flash_attn_fwd.launches_tf32x3
+    same = (seq == with_mask[False]).float().mean().item()
+    log(f"[sample bf16, emb_masks] batch {B}, {n} tokens with every prompt position valid: "
+        f"{n_fwd} flash forwards (expect 30, the prefill's), {n_new} of them on the wgmma or "
+        f"3xTF32 kernels (expect 0: segment ids); codes equal to the unmasked draw's: {same:.1%}")
+    require(tuple(seq.shape) == (B, n) and int(seq.min()) >= 0 and int(seq.max()) < 8192,
+            f"sample emb_masks: codes {tuple(seq.shape)} out of range")
+    require(n_fwd == 30 and n_new == 0, f"sample emb_masks: {n_fwd} flash launches, {n_new} new")
+    records["flash_attn_fwd_mma"]["launches"] = n_fwd
 
 
 def in_range(video) -> float:
@@ -1986,7 +2122,7 @@ def phase_train_fp32(tmp: Path) -> None:
 _KERNEL_CATEGORIES = (  # first match wins, on the kernel's lower-cased name
     ("flash_bwd_dkv", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_sm90_kernel")),
     ("flash_bwd_dq", ("flash_bwd_dq_kernel", "flash_bwd_dq_sm90_kernel")),
-    ("flash_fwd", ("flash_fwd_kernel", "flash_fwd_sm90_kernel")),
+    ("flash_fwd", ("flash_fwd_kernel", "flash_fwd_sm90_kernel", "flash_fwd_tf32x3_kernel")),
     ("vq_argmax", ("vq_argmax_kernel",)),
     ("conv (LPIPS)", ("conv", "cudnn", "implicit", "winograd", "fprop", "dgrad", "wgrad")),
     ("gemm", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
@@ -2036,6 +2172,7 @@ def phase_train_throughput(tmp: Path, records: dict) -> None:
             k.launches = 0
         for k in kernels[:3]:
             k.launches_sm90 = 0
+        flash_attn_fwd.launches_tf32x3 = 0
         torch.cuda.reset_peak_memory_stats()
         times, infos = [], []
         fetch_s.clear()
@@ -2047,6 +2184,7 @@ def phase_train_throughput(tmp: Path, records: dict) -> None:
             times.append(time.perf_counter() - t0)
         launches = {k.__name__: k.launches for k in kernels}
         sm90 = {k.__name__: k.launches_sm90 for k in kernels[:3]}
+        tf32x3 = flash_attn_fwd.launches_tf32x3
         loader_s = statistics.mean(fetch_s)
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2087,10 +2225,13 @@ def phase_train_throughput(tmp: Path, records: dict) -> None:
             f"s/step = {B / mean_s:.2f} clips/s (median {statistics.median(times):.3f} s); "
             f"loader {loader_s * 1e3:.1f} ms per step on the host ({loader_s / mean_s:.1%} of "
             f"the step, {tr.train_workers} workers); peak memory {peak_gb:.2f} GiB")
-        # bf16 runs the wgmma forward, dQ and dK/dV kernels on every launch, fp32 never
+        # bf16 runs the wgmma forward, dQ and dK/dV kernels on every launch,
+        # fp32 never; fp32 runs every forward on the 3xTF32 kernel
         want_sm90 = {k: want[k] if use_amp else 0 for k in sm90}
+        want_tf32x3 = 0 if use_amp else want["flash_attn_fwd"]
         log(f"[train {name}] launches over the timed steps {launches} (expect {want}), of which "
-            f"the wgmma kernels {sm90} (expect {want_sm90}); losses "
+            f"the wgmma kernels {sm90} (expect {want_sm90}) and the 3xTF32 forward {tf32x3} "
+            f"(expect {want_tf32x3}); losses "
             f"finite: {finite}; last step loss {last['loss']:.4f}, rec {last['rec_loss']:.4f}, "
             f"perceptual {last['perceptual_loss']:.4f}, d_loss {last['d_loss']:.4f}, "
             f"psnr {last['psnr']:.2f}")
@@ -2104,13 +2245,15 @@ def phase_train_throughput(tmp: Path, records: dict) -> None:
         require(finite, f"train {name}: non-finite losses")
         require(launches == want, f"train {name}: launch counts {launches}, expected {want}")
         require(sm90 == want_sm90, f"train {name}: wgmma launches {sm90}, expected {want_sm90}")
+        require(tf32x3 == want_tf32x3, f"train {name}: 3xTF32 launches {tf32x3}, expected "
+                f"{want_tf32x3}")
         records[f"train_{name}"] = {"s_per_step": mean_s, "clips_per_s": B / mean_s,
                                     "peak_gib": peak_gb, "idle": idle, "loader_s": loader_s}
         if name == "bf16":
             for k in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
                 records[k]["launches"] = launches[k]
-        else:  # the fp32 path is where the mma.sync / FMA flash kernels still run
-            records["flash_attn_fwd_mma"]["launches"] = launches["flash_attn_fwd"]
+        else:  # fp32: the 3xTF32 forward, and the FMA backward kernels
+            records["flash_attn_fwd_tf32x3"]["launches"] = tf32x3
             records["flash_attn_bwd_dq_mma"]["launches"] = launches["flash_attn_bwd_dq"]
             records["flash_attn_bwd_dkv_mma"]["launches"] = launches["flash_attn_bwd_dkv"]
         del tr, batches
@@ -2173,6 +2316,8 @@ def main() -> int:
     sources = {
         "flash_attn_fwd": ("video_tokenizer_tpu_torch/csrc/flash_attn_fwd_sm90.cu",
                            "video_tokenizer_tpu/ops/attention.py:166"),
+        "flash_attn_fwd_tf32x3": ("video_tokenizer_tpu_torch/csrc/flash_attn_fwd_tf32x3.cu",
+                                  "video_tokenizer_tpu/ops/attention.py:166"),
         "flash_attn_fwd_mma": ("video_tokenizer_tpu_torch/csrc/flash_attn_fwd.cu",
                                "video_tokenizer_tpu/ops/attention.py:166"),
         "flash_attn_bwd_dq": ("video_tokenizer_tpu_torch/csrc/flash_attn_bwd_dq_sm90.cu",
@@ -2191,6 +2336,8 @@ def main() -> int:
                                    "video_tokenizer_tpu/ops/decode_attention.py:80"),
         "w8_matmul": ("video_tokenizer_tpu_torch/csrc/w8_matmul_stream.cu",
                       "video_tokenizer_tpu/ops/quant_matmul.py:51"),
+        "w8_matmul_sm90": ("video_tokenizer_tpu_torch/csrc/w8_matmul_sm90.cu",
+                           "video_tokenizer_tpu/ops/quant_matmul.py:51"),
         "w8_matmul_mma": ("video_tokenizer_tpu_torch/csrc/w8_matmul.cu",
                           "video_tokenizer_tpu/ops/quant_matmul.py:51"),
         "chunk_attention": ("video_tokenizer_tpu_torch/csrc/chunk_attention_sm90.cu",

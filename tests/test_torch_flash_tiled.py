@@ -280,6 +280,8 @@ def test_tiled_dq_matches_jax_pallas_bf16(name, interpret_mode):
 
 SM90 = ("flash_fwd_sm90_kernel", "flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel")
 EARLIER = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+# fp32: the forward as three TF32 products on the tensor cores, the backward on FMAs
+TF32X3 = ("flash_fwd_tf32x3_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
 
 
 @pytest.mark.parametrize("dtype, head_dim, has_segments, want", [
@@ -288,9 +290,11 @@ EARLIER = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
     (torch.bfloat16, 128, False, EARLIER),
     (torch.bfloat16, 64, True, EARLIER),
     (torch.bfloat16, 32, True, EARLIER),
-    (torch.float32, 64, False, EARLIER),  # tensor cores would round fp32 to TF32
-    (torch.float32, 32, False, EARLIER),
+    (torch.float32, 64, False, TF32X3),  # fp32 training: the tokenizer, the prior
+    (torch.float32, 32, False, TF32X3),  # the discriminator in fp32
     (torch.float32, 128, True, EARLIER),
+    (torch.float32, 64, True, EARLIER),
+    (torch.float32, 128, False, EARLIER),
 ])
 def test_the_kernel_is_chosen_by_dtype_head_dim_and_masks(dtype, head_dim, has_segments, want):
     assert flash_kernels(dtype, head_dim, has_segments) == want

@@ -1,9 +1,11 @@
 """Times tilings of the Hopper kernels whose tiling is a set of constants.
 
-  python3 tools/tune_torch_kernels.py [chunk] [dq] [decode] [w8] [w8_step]   (one CUDA device, nvcc)
+  python3 tools/tune_torch_kernels.py [chunk] [dq] [decode] [w8] [w8_step] [flash_fp32] [w8_large]
+  (one CUDA device, nvcc)
 
 `csrc/chunk_attention_sm90.cu`, `csrc/flash_attn_bwd_dq_sm90.cu`,
-`csrc/decode_attention_sm90.cu` and `csrc/w8_matmul_stream.cu` fix their
+`csrc/decode_attention_sm90.cu`, `csrc/w8_matmul_stream.cu`,
+`csrc/flash_attn_fwd_tf32x3.cu` and `csrc/w8_matmul_sm90.cu` fix their
 tiling in `constexpr int` constants at the head of the file. This script
 copies `csrc/` to `build/variants/<name>/`, substitutes the constants of each
 variant below in the copy, compiles that one source with the port's nvcc
@@ -20,8 +22,14 @@ and 0), and the streaming int8 matmul over one decode step's 151 (or the
 draft's 41) distinct weights, cold, back to back and after an elementwise
 kernel, under `w8_plan`'s plan and others (`w8_plans`), then each projection
 shape alone; and (`w8_step`) one decode step of the int8 prior with its
-projections on the earlier kernel and under each of those plans. Nothing here
-is used by the port; the sources keep one tiling.
+projections on the earlier kernel and under each of those plans; the 3xTF32
+flash forward (`flash_fp32`: warps a block, ring stages, blocks an SM, the
+way an operand is split) at the fp32 tokenizer's B = 1 and B = 8 and the
+prior's causal shape beside the earlier FMA kernel and SDPA (CUDA events, two
+rounds); and the wgmma int8 matmul (`w8_large`: output channels a block, ring
+stages) at the NLL forward's M = 8192 shapes beside the earlier kernel and
+cuBLAS on a bf16 copy (CUDA-graph replays, two rounds). Nothing here is used
+by the port; the sources keep one tiling.
 """
 import ctypes
 import importlib
@@ -49,14 +57,28 @@ ROOT = REPO / "build" / "variants"
 CSRC = _build.CSRC
 
 
-def compile_variant(name, source, subs, entry):
+def compile_variant(name, source, subs, entry, header=None):
     """Builds `source` of a copy of csrc/ with the `constexpr int` constants of
-    `subs` replaced; returns the bound entry point, or None if nvcc refuses it."""
+    `subs` replaced; returns the bound entry point, or None if nvcc refuses it.
+    A key "text" takes (old, new) pairs of source text instead: diagnostic
+    variants that leave part of a kernel's work out, to time the rest."""
     d = ROOT / name
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(CSRC, d)
     text = (d / source).read_text()
     for key, val in subs.items():
+        if key == "text":
+            target = d / (header or source)
+            body = target.read_text() if header else text
+            for old, new in val:
+                if body.count(old) != 1:
+                    raise ValueError(f"{target.name}: {old!r} is not there once")
+                body = body.replace(old, new)
+            if header:
+                target.write_text(body)
+            else:
+                text = body
+            continue
         text, n = re.subn(rf"constexpr int {key} = [^;]+;", f"constexpr int {key} = {val};", text, count=1)
         if n != 1:
             raise ValueError(f"{source}: no constant {key}")
@@ -67,6 +89,9 @@ def compile_variant(name, source, subs, entry):
     if proc.returncode != 0:
         print(f"[{name}] nvcc failed:\n{proc.stdout}{proc.stderr}"[-3000:], flush=True)
         return None
+    for line in (proc.stdout + proc.stderr).splitlines():
+        if "Performance Loss" in line:  # e.g. wgmma serialised by ptxas
+            print(f"[{name}] {line.strip()}"[:400], flush=True)
     res = _build.kernel_resources(proc.stdout + proc.stderr)
     short = {re.sub(r"^_ZN\d+_GLOBAL__N__[0-9a-f_]+", "", k)[:60]: v for k, v in res.items()}
     print(f"[{name}] {subs} regs/spills: {short}", flush=True)
@@ -183,10 +208,12 @@ def tune_chunk():
                 print(f"[chunk pos {pos_val}] {name} {n}: " + ", ".join(line), flush=True)
 
 
-def compile_variants(source, variants, entry):
-    """compile_variant for every variant of one source, all nvcc runs at once."""
+def compile_variants(source, variants, entry, header=None):
+    """compile_variant for every variant of one source, all nvcc runs at once;
+    "text" substitutions go to `header` if given."""
     with ThreadPoolExecutor(len(variants)) as pool:
-        futures = {n: pool.submit(compile_variant, n, source, s, entry) for n, s in variants.items()}
+        futures = {n: pool.submit(compile_variant, n, source, s, entry, header)
+                   for n, s in variants.items()}
     return {n: f.result() for n, f in futures.items()}
 
 
@@ -298,10 +325,10 @@ def tune_w8_step():
                         if o == "chosen":
                             QM.w8_kernel, QM.w8_plan = chooser, planner
                         elif o == "earlier":
-                            QM.w8_kernel, QM.w8_plan = (lambda M, K: "w8_matmul_kernel"), planner
+                            QM.w8_kernel, QM.w8_plan = (lambda M, K, dtype: "w8_matmul_kernel"), planner
                         else:  # every projection on the streaming kernel, under plan o
-                            QM.w8_kernel = lambda M, K: ("w8_stream_kernel" if QM.w8_streams(M, K)
-                                                         else "w8_matmul_kernel")
+                            QM.w8_kernel = lambda M, K, dtype: (
+                                "w8_stream_kernel" if QM.w8_streams(M, K) else "w8_matmul_kernel")
                             QM.w8_plan = lambda M, N, K, o=o: w8_plans(M, N, K)[o]
                         t.append(c.graph_ms(lambda: int8.decode_step(tok, pos, cache), launches=1,
                                             replays=50))
@@ -403,11 +430,129 @@ def tune_w8():
         del ws
 
 
+def tune_flash_fp32():
+    """The 3xTF32 flash forward's tilings at the fp32 training path's shapes."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    shapes = {"tok_b1": (1, 2048, 12, 64, False), "tok_b8": (8, 2048, 12, 64, False),
+              "disc_b8": (8, 1025, 12, 32, False), "prior_causal": (2, 1024, 20, 64, True)}
+    data = {}
+    for name, (B, S, H, D, causal) in shapes.items():
+        q, k, v = torch.randn(B, S, 3, H, D, generator=gen, device="cuda").unbind(2)
+        want, _ = A.attention_reference(q, k, v, causal)
+        data[name] = (q, k, v, want, causal)
+    # lo rounded by cvt.rna, as the first version did (sm90.cuh now leaves
+    # it to the tensor core's truncation)
+    rna = ("  lo = __float_as_uint(x - __uint_as_float(hi));",
+           '  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));')
+    variants = {
+        "w4_st3_mb2": dict(kWarps=4, kStages=3, kMinBlocks=2),
+        "w4_st3_mb2_rna_lo": dict(kWarps=4, kStages=3, kMinBlocks=2, text=[rna]),
+        "w4_st2_mb2": dict(kWarps=4, kStages=2, kMinBlocks=2),
+        "w8_st3_mb1": dict(kWarps=8, kStages=3, kMinBlocks=1),
+        "w4_n32_st4_mb3": dict(kWarps=4, kBlockN=32, kStages=4, kMinBlocks=3),
+    }
+    fns = compile_variants("flash_attn_fwd_tf32x3.cu", variants, "vtt_flash_attn_fwd_tf32x3",
+                           header="sm90.cuh")
+    for rnd in range(2):
+        for n, fn in fns.items():
+            if fn is None:
+                continue
+            line = []
+            for name, (q, k, v, want, causal) in data.items():
+                B, S, H, D = q.shape
+                out = torch.empty(q.shape, device="cuda")
+                strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+                stream = torch.cuda.current_stream().cuda_stream
+
+                def run():
+                    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
+                              B, H, H, S, S, D, *strides, int(causal), 0, D ** -0.5, stream)
+                    assert code == 0, code
+
+                ms = c.median_ms(run)
+                err = (out - want).abs().max().item() / want.abs().max().item()
+                line.append(f"{name} {ms:.3f} ms (err {err:.1e})")
+            print(f"[flash_fp32 round {rnd}] {n}: " + ", ".join(line), flush=True)
+        for name, (q, k, v, want, causal) in data.items():
+            out = torch.empty(q.shape, device="cuda")
+            D = q.shape[-1]
+            args = (q, k, v, None, None, out, None, causal, 0, D ** -0.5)
+            e = c.median_ms(lambda: A._fwd_launch("flash_fwd_kernel", *args))
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            lib = c.median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal))
+            print(f"[flash_fp32 round {rnd}] {name}: earlier flash_fwd_kernel {e:.3f} ms, "
+                  f"SDPA {lib:.3f} ms", flush=True)
+
+
+def tune_w8_large():
+    """The wgmma int8 matmul's tilings at the NLL forward's shapes (M = 8192)."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    M = 8192
+    data = {}
+    for name, (K, N) in {"wqkv": (1280, 3840), "w2": (3584, 1280), "head": (1280, 8192)}.items():
+        x = torch.randn(M, K, generator=gen, device="cuda").bfloat16()
+        w = torch.randint(-127, 128, (N, K), generator=gen, device="cuda", dtype=torch.int8)
+        s = torch.rand(N, generator=gen, device="cuda") * 2e-3 + 1e-4
+        data[name] = (x, w, s, QM.w8_matmul_reference(x, w.t(), s, True))
+    # diagnostics: the same kernel without the int8 -> bf16 conversion (its
+    # products read a stale tile), and without the products: what the loads
+    # (and the conversion) take alone
+    no_convert = [("for (int it = 0; it < kBlockN * 4 / kThreads; ++it) {\n"
+                   "      const int i = threadIdx.x + it * kThreads, r = i / 4, c = i % 4;\n"
+                   "      const uint4 v",
+                   "for (int it = 0; it < 0; ++it) {\n"
+                   "      const int i = threadIdx.x + it * kThreads, r = i / 4, c = i % 4;\n"
+                   "      const uint4 v")]
+    no_products = [("        wgmma_ss(acc[hh], desc_x", "        if (steps < 0) wgmma_ss(acc[hh], desc_x")]
+    variants = {
+        "n256_st4": dict(kBlockN=256, kStages=4),
+        "n256_st5": dict(kBlockN=256, kStages=5),
+        "n128_st6": dict(kBlockN=128, kStages=6),
+        "n256_st4_no_products": dict(kBlockN=256, kStages=4, text=no_products),
+        "n256_st4_loads_only": dict(kBlockN=256, kStages=4, text=no_products + no_convert),
+    }
+    fns = compile_variants("w8_matmul_sm90.cu", variants, "vtt_w8_matmul_sm90")
+    for rnd in range(2):
+        for n, fn in fns.items():
+            if fn is None:
+                continue
+            line = []
+            for name, (x, w, s, want) in data.items():
+                (M, K), N = x.shape, w.shape[0]
+                out = torch.empty(M, N, dtype=torch.bfloat16, device="cuda")
+
+                def run():  # on the stream current at the call: graph_ms captures a side stream
+                    code = fn(x.data_ptr(), w.data_ptr(), s.data_ptr(), out.data_ptr(), M, N, K, 1,
+                              torch.cuda.current_stream().cuda_stream)
+                    assert code == 0, code
+
+                ms = c.graph_ms(run, launches=3)
+                err = (out.float() - want.float()).abs().max().item() / want.float().abs().max().item()
+                line.append(f"{name} {ms:.4f} ms (err {err:.1e})")
+            print(f"[w8_large round {rnd}] {n}: " + ", ".join(line), flush=True)
+        for name, (x, w, s, want) in data.items():
+            (M, K), N = x.shape, w.shape[0]
+            out = torch.empty(M, N, dtype=torch.bfloat16, device="cuda")
+            e = c.graph_ms(lambda: QM._w8_launch("w8_matmul_kernel", x, w, s, out, True), launches=3)
+            lib = c.graph_ms(lambda: (x @ w.t().to(torch.bfloat16)) * s, launches=3)
+            wb = w.to(torch.bfloat16)
+            mm = c.graph_ms(lambda: x @ wb.t(), launches=3)
+            print(f"[w8_large round {rnd}] {name}: earlier w8_matmul_kernel {e:.4f} ms, cuBLAS "
+                  f"on a bf16 copy {lib:.4f} ms (the matmul alone {mm:.4f}), bound "
+                  f"{2 * M * K * N / 989e9:.4f} ms", flush=True)
+
+
 if __name__ == "__main__":
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
     _build.library()
-    which = sys.argv[1:] or ["dq", "chunk", "decode", "w8", "w8_step"]
+    which = sys.argv[1:] or ["dq", "chunk", "decode", "w8", "w8_step", "flash_fp32", "w8_large"]
+    if "flash_fp32" in which:
+        tune_flash_fp32()
+    if "w8_large" in which:
+        tune_w8_large()
     if "w8_step" in which:
         tune_w8_step()
     if "w8" in which:

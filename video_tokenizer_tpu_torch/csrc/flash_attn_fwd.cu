@@ -1,8 +1,9 @@
 // Flash-attention forward for Hopper (sm_90a), bf16 and fp32: the kernel for
-// fp32 inputs, head dim 128 and segment ids. bf16 at head dim 32 or 64 without
-// segment ids (every flash shape of the tokenizer, the discriminator, the
-// prior and the draft) runs csrc/flash_attn_fwd_sm90.cu instead, which
-// computes the same function with wgmma; ops/attention.py::flash_kernels
+// head dim 128 and segment ids. At head dim 32 or 64 without segment ids
+// (every flash shape of the tokenizer, the discriminator, the prior and the
+// draft) bf16 runs csrc/flash_attn_fwd_sm90.cu (wgmma) and fp32
+// csrc/flash_attn_fwd_tf32x3.cu (three TF32 products on the tensor cores)
+// instead, which compute the same function; ops/attention.py::flash_kernels
 // chooses, by dtype, head dim and masks only.
 //
 // Replaces two TPU kernels of the JAX package:
@@ -35,9 +36,8 @@
 // What bounds it: attention does 4 * S^2 * D flops per (batch row, head)
 // against 4 * S * D * sizeof(T) bytes of q/k/v/o, hundreds of flops per byte:
 // operations, at every shape it is given. With fp32 inputs those are fp32 FMAs
-// on the CUDA cores (67 TFLOP/s on this card), which is what its main path,
-// fp32 training, pays for full precision. What this simple design leaves on
-// the table for the bf16 shapes it still takes (D = 128, segment ids): no
+// on the CUDA cores (67 TFLOP/s on this card). What this simple design leaves
+// on the table for the shapes it still takes (D = 128, segment ids): no
 // wgmma, no asynchronous tile ring (each tile load stalls the block), V
 // fragments gathered with 16-bit shared loads, expf instead of exp2 with a
 // folded log2(e): what csrc/flash_attn_fwd_sm90.cu does for its shapes.

@@ -2,10 +2,14 @@
 // into 128-byte-swizzled shared-memory tiles, shared-memory matrix
 // descriptors, and warpgroup matrix products (wgmma) with their fences; and,
 // for the kernels whose row count is far below a warpgroup's 64, the warp
-// matrix product (mma.sync) with its 8x8 matrix loads.
+// matrix product (mma.sync) with its 8x8 matrix loads; and fp32 products on
+// the tensor cores as three TF32 products ("3xTF32").
 // Used by flash_attn_fwd_sm90.cu, flash_attn_bwd_dkv_sm90.cu,
-// flash_attn_bwd_dq_sm90.cu, chunk_attention_sm90.cu and
-// decode_attention_sm90.cu; the K/V cache tiles at the end by the last two.
+// flash_attn_bwd_dq_sm90.cu, chunk_attention_sm90.cu,
+// decode_attention_sm90.cu, flash_attn_fwd_tf32x3.cu and w8_matmul_sm90.cu;
+// the K/V cache tiles by the chunk and decode kernels, the int8 -> bf16
+// conversion by those two and the int8 matmul, the TMA copies and
+// transaction barriers by the int8 matmul.
 //
 // The one tile layout used everywhere ("row tile"): R rows of 128 bytes (64
 // bf16), row r at byte r * 128, its 16-byte chunk c stored at chunk position
@@ -81,6 +85,56 @@ __device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
   float v;
   asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
   return v;
+}
+
+// ---- the Tensor Memory Accelerator (TMA) and transaction barriers
+// One thread asks for a whole tile; the copy lands through the asynchronous
+// proxy (the one wgmma reads through: no proxy fence needed for it) and
+// reports its bytes to an mbarrier in shared memory, which completes a phase
+// once its expected arrivals and bytes are in.
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// The barrier inits visible to the asynchronous proxy (and the cluster)
+// before any copy reports to them; the block synchronises after it.
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// This thread's arrival, expecting `bytes` more of copies in the phase.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Spins until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// The box of a 2D tensor map (`map`: the address of a __grid_constant__
+// CUtensorMap kernel parameter) at element coordinates (c0 innermost, c1)
+// into shared memory at `dst`, its bytes reported to `bar`. Elements outside
+// the tensor arrive as zeros and count as bytes all the same.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map, int c0, int c1,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
 }
 
 // Makes this thread's shared-memory writes (cp.async included) visible to the
@@ -227,6 +281,45 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// D[64 x 128] = (scale_d ? D : 0) + A[64 x 16] B[16 x 128], A and B K-major in
+// shared memory (the int8 matmul: x rows by 128 output channels).
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // D[64 x 32] = (scale_d ? D : 0) + A[64 x 16] B[16 x 32], A from registers, B
 // in shared memory, K-major (kTransB = 0) or MN-major (kTransB = 1).
 template <int kTransB>
@@ -307,6 +400,49 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t add
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
+}
+
+// ---- fp32 products on the tensor cores: three TF32 products ("3xTF32")
+// A TF32 value is an fp32 bit pattern of which the tensor cores read the
+// upper 19 bits (11 significant bits); they ignore the low 13 mantissa bits of
+// an operand, which truncates it. An fp32 x splits into hi = x rounded to
+// nearest, ties away from zero, to TF32 (the bits of cvt.rna.tf32.f32, by an
+// integer add and a mask) and lo = x - hi (exact in fp32), which the tensor
+// core truncates to TF32 as it reads it: hi + lo is x within 2^-21 of |x| for
+// a normal x. Rounding lo with cvt.rna as well took 1.7x the kernel time of
+// csrc/flash_attn_fwd_tf32x3.cu at no measurable gain in accuracy (PERF.md).
+// A product a.b is then lo_a.hi_b + hi_a.lo_b + hi_a.hi_b, the small terms
+// first, in fp32 accumulation: each partial product is exact (11 x 11 bits),
+// lo_a.lo_b (~2^-22 of |a.b|) is left out. ops/attention.py::split_tf32 is the
+// same split in PyTorch, lo as the tensor core reads it.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// D(16 x 8 fp32) += A(16 x 8 tf32, row-major) B(8 x 8 tf32, column-major).
+// Thread (g = lane / 4, tig = lane % 4) holds a = {A[g][tig], A[g+8][tig],
+// A[g][tig+4], A[g+8][tig+4]}, b0 = B[tig][g], b1 = B[tig+4][g] and d as for
+// m16n8k16: {D[g][2tig], D[g][2tig+1], D[g+8][2tig], D[g+8][2tig+1]}. The
+// accumulator's columns 2tig, 2tig+1 are not A's columns tig, tig+4: a kernel
+// that feeds a product's result into the next one permutes the inner index.
+__device__ __forceinline__ void mma_m16n8k8_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                                 uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += A.B for fp32 A and B given as their TF32 parts: lo.hi + hi.lo, then hi.hi.
+__device__ __forceinline__ void mma_m16n8k8_tf32x3(float (&d)[4], const uint32_t (&a_hi)[4],
+                                                   const uint32_t (&a_lo)[4], uint32_t b0_hi,
+                                                   uint32_t b1_hi, uint32_t b0_lo,
+                                                   uint32_t b1_lo) {
+  mma_m16n8k8_tf32(d, a_lo, b0_hi, b1_hi);
+  mma_m16n8k8_tf32(d, a_hi, b0_lo, b1_lo);
+  mma_m16n8k8_tf32(d, a_hi, b0_hi, b1_hi);
 }
 
 // ---- K/V cache tiles for the mma.sync attention kernels (chunk and decode)

@@ -1,12 +1,14 @@
 // Weight-only int8 matrix product for Hopper (sm_90a): y = (x @ w8) * scale.
-// This kernel serves more than 128 rows of x (prefill, the NLL forward), K
-// not a multiple of 16, and at most 16 rows with K <= 2048 (a decode step's
-// projections but the prior's w2, a draft's one-token chunks: there its
-// blocks, which own whole rows of K, measured faster). The other products of
-// at most 128 rows (verify and width-2 draft chunks, the prior's w2) run
+// This kernel serves more than 128 rows of an fp32 x or with K not a multiple
+// of 64, K not a multiple of 16, and at most 16 rows with K <= 2048 (a decode
+// step's projections but the prior's w2, a draft's one-token chunks: there
+// its blocks, which own whole rows of K, measured faster). The other products
+// of at most 128 rows (verify and width-2 draft chunks, the prior's w2) run
 // csrc/w8_matmul_stream.cu, which computes the same function in one pass over
-// the weights; ops/quant_matmul.py::w8_kernel chooses, by M and K only. Each
-// kernel still takes every shape (the smoke run checks and times both on the
+// the weights, and bf16 products of more than 128 rows (prefill, the NLL
+// forward) csrc/w8_matmul_sm90.cu (wgmma); ops/quant_matmul.py::w8_kernel
+// chooses, by M, K and x's dtype only. Each kernel still takes every shape
+// it has an instance for (the smoke run checks them side by side on the
 // same inputs).
 //
 // Replaces the TPU kernel video_tokenizer_tpu/ops/quant_matmul.py::_w8_kernel:

@@ -5,11 +5,13 @@ Counterpart of `video_tokenizer_tpu/ops/attention.py`. Tensors are [B, S, H, D]
 attention: head h reads KV head h // (H // Hkv)).
 
 * `flash_attn_fwd` wraps `csrc/flash_attn_fwd_sm90.cu` (wgmma; bf16, head dim
-  32 or 64, no segment ids) and `csrc/flash_attn_fwd.cu` (fp32, head dim 128,
-  segment ids), which replace both TPU forward kernels (`_fwd_kernel_packed`
-  and `_fwd_kernel`). On a CUDA tensor it launches the kernel that
-  `flash_kernels` names or raises; on a CPU tensor it runs
-  `attention_reference`. Nothing else chooses.
+  32 or 64, no segment ids), `csrc/flash_attn_fwd_tf32x3.cu` (fp32, head dim
+  32 or 64, no segment ids: mma.sync with each product as three TF32
+  products) and `csrc/flash_attn_fwd.cu` (head dim 128, segment ids), which
+  replace both TPU forward kernels (`_fwd_kernel_packed` and `_fwd_kernel`).
+  On a CUDA tensor it launches the kernel that `flash_kernels` names or
+  raises; on a CPU tensor it runs `attention_reference`. Nothing else
+  chooses.
 * `attention_reference` is the plain version, the JAX package's
   `_xla_attention_lse`: fp32 logits, masked pairs at -0.7 * float32.max,
   LSE. One deliberate difference: a query that matches no key attends
@@ -25,7 +27,8 @@ attention: head h reads KV head h // (H // Hkv)).
   exactly the gradient of `attention_reference`, the no-match rows included.
 * `attention_tiled_reference`, `attention_bwd_dq_tiled_reference` and
   `attention_bwd_dkv_tiled_reference` repeat the wgmma kernels' arithmetic
-  tile by tile in plain PyTorch, for the CPU tests
+  tile by tile in plain PyTorch, and `attention_tf32x3_tiled_reference`
+  (with `split_tf32`) that of the 3xTF32 forward, for the CPU tests
   (`tests/test_torch_flash_tiled.py`); nothing else calls them.
 * `attention` is differentiable through `FlashAttention`, a
   `torch.autograd.Function` whose forward is the flash forward with LSE and
@@ -52,11 +55,16 @@ def flash_kernels(dtype: torch.dtype, head_dim: int,
     The one place where the choice is made, by dtype, head dim and masks
     only: bf16 at D = 32 or 64 without segment ids runs the wgmma kernels
     (`csrc/flash_attn_fwd_sm90.cu`, `csrc/flash_attn_bwd_dq_sm90.cu`,
-    `csrc/flash_attn_bwd_dkv_sm90.cu`); fp32 (tensor cores would round it to
-    TF32), D = 128 and segment ids stay on the mma.sync / FMA kernels. No
-    call falls back from one to the other."""
-    if dtype == torch.bfloat16 and head_dim in _SM90_HEAD_DIMS and not has_segments:
-        return "flash_fwd_sm90_kernel", "flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel"
+    `csrc/flash_attn_bwd_dkv_sm90.cu`); fp32 at D = 32 or 64 without segment
+    ids runs its forward on the tensor cores as three TF32 products per
+    product (`csrc/flash_attn_fwd_tf32x3.cu`: fp32 accuracy, not TF32's) and
+    its backward on the FMA kernels; D = 128 and segment ids stay on the
+    mma.sync / FMA kernels. No call falls back from one to the other."""
+    if head_dim in _SM90_HEAD_DIMS and not has_segments:
+        if dtype == torch.bfloat16:
+            return "flash_fwd_sm90_kernel", "flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel"
+        if dtype == torch.float32:
+            return "flash_fwd_tf32x3_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"
     return "flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"
 
 
@@ -161,6 +169,61 @@ def attention_tiled_reference(
     sees key 0; LSE = max + ln(sum), the mask value on rows that see no key.
     Segment ids (which the kernel leaves to `flash_fwd_kernel`) take the
     masked path on every tile."""
+    return _fwd_tiles(q, k, v, causal, segment_ids, kv_segment_ids, sm_scale, causal_offset,
+                      block_m, block_n, _WARPGROUP_ROWS, torch.einsum)
+
+
+def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 x as its two TF32 parts, as `csrc/sm90.cuh::split_tf32` makes them
+    and the tensor core reads them: hi = x rounded to nearest, ties away from
+    zero, to TF32's 11 significant bits (the bits of `cvt.rna.tf32.f32`), lo =
+    x - hi (exact in fp32) truncated to TF32, as the tensor core truncates an
+    operand. hi + lo is x within 2^-21 of |x| for a normal x."""
+    bits = x.float().contiguous().view(torch.int32)
+    # sign and magnitude: adding half the weight of the 13 dropped bits to the
+    # magnitude and dropping them rounds half away from zero (an exponent
+    # carry is the right result; past the largest TF32 value it is inf)
+    hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    lo = ((x.float() - hi).contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+    return hi, lo
+
+
+def _einsum_tf32x3(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """An fp32 product as the kernel's three TF32 products: lo.hi + hi.lo + hi.hi."""
+    (ah, al), (bh, bl) = split_tf32(a), split_tf32(b)
+    return torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl) + torch.einsum(eq, ah, bh)
+
+
+_TF32X3_WARP_ROWS = 16  # csrc/flash_attn_fwd_tf32x3.cu: query rows of a warp
+
+
+def attention_tf32x3_tiled_reference(
+    q, k, v, causal: bool = False, segment_ids=None, kv_segment_ids=None,
+    sm_scale: Optional[float] = None, causal_offset: Optional[int] = None,
+    block_m: int = 64, block_n: int = 64,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The arithmetic of `flash_fwd_tf32x3_kernel`, tile by tile, in plain
+    PyTorch (tests only): fp32 q, k, v, no segment ids (the kernel takes
+    none); otherwise the contract of `attention_reference`.
+
+    What it repeats of the kernel: both products as three TF32 products of
+    the operands' parts (`split_tf32`: Q, K, P and V split, lo.hi + hi.lo +
+    hi.hi in fp32), key tiles of `block_n`, the softmax of
+    `attention_tiled_reference` decided per 16-row warp (fast path on tiles
+    that need no mask, the masked path with the mask value in the
+    natural-log domain on the others), the causal tile skip per
+    `block_m`-row block and per warp, only where every row sees key 0."""
+    if q.dtype != torch.float32 or segment_ids is not None:
+        raise ValueError("flash_fwd_tf32x3_kernel takes fp32 inputs without segment ids")
+    return _fwd_tiles(q, k, v, causal, None, None, sm_scale, causal_offset, block_m, block_n,
+                      _TF32X3_WARP_ROWS, _einsum_tf32x3)
+
+
+def _fwd_tiles(q, k, v, causal, segment_ids, kv_segment_ids, sm_scale, causal_offset,
+               block_m: int, block_n: int, group_rows: int, product):
+    """The flash forward's online softmax over key tiles of `block_n`, decided
+    per `group_rows` query rows (a warpgroup's or a warp's), with `product`
+    for Q.K^T and P.V (P rounded to the input dtype first)."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     kf, vf = _expand_kv(k, v, H)
@@ -170,25 +233,25 @@ def attention_tiled_reference(
     has_seg = segment_ids is not None
     mask = _mask(B, Sq, Sk, causal, segment_ids, kv_segment_ids, off, q.device)
     rows = torch.arange(Sq, device=q.device)
-    wg_row0 = rows // _WARPGROUP_ROWS * _WARPGROUP_ROWS
+    group_row0 = rows // group_rows * group_rows
     block_row0 = rows // block_m * block_m
     num_tiles = -(-Sk // block_n)
-    # tiles each row's warpgroup multiplies
+    # tiles each row's group multiplies
     tiles_row = torch.full((Sq,), num_tiles, device=q.device)
     if causal and not has_seg:
-        visible = (wg_row0 + _WARPGROUP_ROWS - 1 + off) // block_n + 1
+        visible = (group_row0 + group_rows - 1 + off) // block_n + 1
         tiles_row = torch.where(block_row0 + off >= 0, visible.clamp(max=num_tiles), tiles_row)
     m = torch.full((B, H, Sq), float("-inf"), device=q.device)
     l = torch.zeros((B, H, Sq), device=q.device)
     o = torch.zeros((B, H, Sq, D), device=q.device)
     for t in range(num_tiles):
         k0, k1 = t * block_n, min((t + 1) * block_n, Sk)
-        s = torch.einsum("bqhd,bkhd->bhqk", qf, kf[:, k0:k1])  # raw scores, fp32
+        s = product("bqhd,bkhd->bhqk", qf, kf[:, k0:k1])  # raw scores, fp32
         active = (t < tiles_row)[None, None, :]
         masked_path = torch.full((Sq,), k0 + block_n > Sk or scale <= 0 or has_seg,
                                  device=q.device)
         if causal:
-            masked_path = masked_path | (k0 + block_n - 1 > wg_row0 + off)
+            masked_path = masked_path | (k0 + block_n - 1 > group_row0 + off)
         masked_path = masked_path[None, None, :]
         x = torch.where(mask[:, :, :, k0:k1], s * scale, DEFAULT_MASK_VALUE)
         tile_max = torch.where(masked_path, x.amax(-1), s.amax(-1) * scale)
@@ -197,7 +260,7 @@ def attention_tiled_reference(
         p = torch.where(masked_path[..., None],
                         torch.exp2((x - m_new[..., None]) * _LOG2E),
                         torch.exp2(s * (scale * _LOG2E) - (m_new * _LOG2E)[..., None]))
-        pv = torch.einsum("bhqk,bkhd->bhqd", p.to(q.dtype).float(), vf[:, k0:k1])
+        pv = product("bhqk,bkhd->bhqd", p.to(q.dtype).float(), vf[:, k0:k1])
         m = torch.where(active, m_new, m)
         l = torch.where(active, l * alpha + p.sum(-1), l)
         o = torch.where(active[..., None], o * alpha[..., None] + pv, o)
@@ -386,30 +449,43 @@ def flash_attn_fwd(
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if return_lse else None
     if out.numel() and Sk:
         kernel = flash_kernels(q.dtype, D, q_seg is not None)[0]
-        strides = (q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
-                   v.stride(0), v.stride(1), v.stride(2))
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        with torch.cuda.device(q.device):
-            if kernel == "flash_fwd_sm90_kernel":
-                code = _build.library().vtt_flash_attn_fwd_sm90(
-                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse),
-                    B, H, Hkv, Sq, Sk, D, *strides, int(causal), offset, scale, stream,
-                )
-            else:
-                code = _build.library().vtt_flash_attn_fwd(
-                    q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(q_seg), _ptr(k_seg),
-                    out.data_ptr(), _ptr(lse), int(q.dtype == torch.bfloat16),
-                    B, H, Hkv, Sq, Sk, D, *strides, int(causal), offset, scale, stream,
-                )
-        _build.check(code, kernel)
+        _fwd_launch(kernel, q, k, v, q_seg, k_seg, out, lse, causal, offset, scale)
         flash_attn_fwd.launches += 1
         flash_attn_fwd.launches_sm90 += kernel == "flash_fwd_sm90_kernel"
+        flash_attn_fwd.launches_tf32x3 += kernel == "flash_fwd_tf32x3_kernel"
         flash_attn_fwd.last_kernel = kernel
     return (out, lse) if return_lse else out
 
 
-flash_attn_fwd.launches = 0  # kernel launches (either kernel), read by chip_smoke.py
+def _fwd_launch(kernel: str, q, k, v, q_seg, k_seg, out, lse, causal: bool, offset: int,
+                scale: float) -> None:
+    """Launches the named forward kernel on checked operands (see
+    `flash_attn_fwd`): out [B, Sq, H, D] and, if not None, lse [B, H, Sq]."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    strides = (q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
+               v.stride(0), v.stride(1), v.stride(2))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        if kernel in ("flash_fwd_sm90_kernel", "flash_fwd_tf32x3_kernel"):
+            entry = ("vtt_flash_attn_fwd_sm90" if kernel == "flash_fwd_sm90_kernel"
+                     else "vtt_flash_attn_fwd_tf32x3")
+            code = getattr(_build.library(), entry)(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse),
+                B, H, Hkv, Sq, Sk, D, *strides, int(causal), offset, scale, stream,
+            )
+        else:
+            code = _build.library().vtt_flash_attn_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(q_seg), _ptr(k_seg),
+                out.data_ptr(), _ptr(lse), int(q.dtype == torch.bfloat16),
+                B, H, Hkv, Sq, Sk, D, *strides, int(causal), offset, scale, stream,
+            )
+    _build.check(code, kernel)
+
+
+flash_attn_fwd.launches = 0  # kernel launches (any of the three), read by chip_smoke.py
 flash_attn_fwd.launches_sm90 = 0  # of which the wgmma kernel
+flash_attn_fwd.launches_tf32x3 = 0  # of which the 3xTF32 kernel
 flash_attn_fwd.last_kernel = None  # name of the kernel the last call launched
 
 

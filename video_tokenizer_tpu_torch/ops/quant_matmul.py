@@ -6,15 +6,19 @@ y = (x @ w8) * scale with x [..., K] bf16 or fp32, w8 [K, N] int8, scale
 bf16 x gives the TPU kernel's product, an fp32 x the fp32 product of the JAX
 package's `QuantDense` (an fp32 dot; the TPU kernel would round x to bf16).
 
-* `w8_matmul` wraps `csrc/w8_matmul_stream.cu` (M <= 128 rows with K a
-  multiple of 16: speculative chunks and a decode step's longest-K product,
-  one pass over the weights, blocks and split-K by `w8_plan`) and
-  `csrc/w8_matmul.cu` (the rest: the other decode projections, prefill and
-  NLL forwards), which replace the TPU kernel `_w8_kernel`;
-  `w8_kernel` names the one a call launches. On a CUDA tensor it launches
-  that kernel or raises; on a CPU tensor it runs `w8_matmul_reference`.
+* `w8_matmul` wraps `csrc/w8_matmul_sm90.cu` (bf16 x with M > 128 rows and
+  K a multiple of 64: the NLL forward and long prefills, wgmma with the
+  weights converted to bf16 on chip), `csrc/w8_matmul_stream.cu` (M <= 128
+  rows with K a multiple of 16: speculative chunks and a decode step's
+  longest-K product, one pass over the weights, blocks and split-K by
+  `w8_plan`) and `csrc/w8_matmul.cu` (the rest: the other decode
+  projections, fp32 x and other K at M > 128), which replace the TPU kernel
+  `_w8_kernel`; `w8_kernel` names the one a call launches. On a CUDA tensor
+  it launches that kernel or raises; on a CPU tensor it runs
+  `w8_matmul_reference`.
 * `w8_matmul_reference` is the plain version: (x @ w8) in fp32, then the
-  epilogue.
+  epilogue. `w8_matmul_sm90_tiled_reference` repeats the wgmma kernel's
+  order of summation for the CPU tests (`tests/test_torch_w8_plan.py`).
 
 `double_round=False` is the TPU kernel's epilogue, dtype(acc * scale).
 `double_round=True` is the order of rounding of the JAX package's
@@ -47,6 +51,8 @@ _STREAM_BLOCKS = 132
 # csrc/w8_matmul.cu at M <= 16: the 8 warps of a 16-channel block walk K in
 # 512-wide chunks, one weight round trip each; up to 4 of them it is the faster
 _EARLIER_MAX_K = 4 * 512
+# csrc/w8_matmul_sm90.cu: the K of one step (one 128-byte row of bf16)
+_SM90_BLOCK_K = 64
 
 
 def w8_matmul_reference(x, w8, scale, double_round: bool = False) -> torch.Tensor:
@@ -57,17 +63,23 @@ def w8_matmul_reference(x, w8, scale, double_round: bool = False) -> torch.Tenso
     return (acc * scale.float()).to(x.dtype)
 
 
-def w8_kernel(M: int, K: int) -> str:
+def w8_kernel(M: int, K: int, dtype: torch.dtype) -> str:
     """The kernel a `w8_matmul` call on the card launches, by the number of x
-    rows M and the inner dimension K only: M <= 128 with K a multiple of 16
-    (the decode and verify projections of the port's models), where 8 splits
-    of K bring a block's x rows within its shared memory, streams the weights
-    through `csrc/w8_matmul_stream.cu`; larger M (prefill, the NLL forward)
-    and other K stay on `csrc/w8_matmul.cu`, and so do M <= 16 at K <= 2048
-    (a decode step's projections but the prior's w2, a draft's one-token
-    chunks): there the earlier kernel's blocks own whole rows of K in at most
-    four round trips and finish before the streaming kernel's split sums do
+    rows M, the inner dimension K and x's dtype only: bf16 x with M > 128
+    and K a multiple of 64 (the NLL forward, long prefills) runs the wgmma
+    kernel `csrc/w8_matmul_sm90.cu`; fp32 x there (whose three bf16 parts
+    would triple its products) and other K stay on `csrc/w8_matmul.cu`. At
+    M <= 128 with K a multiple of 16 (the decode and verify projections of
+    the port's models), where 8 splits of K bring a block's x rows within
+    its shared memory, `csrc/w8_matmul_stream.cu` streams the weights; other
+    K stay on `csrc/w8_matmul.cu`, and so do M <= 16 at K <= 2048 (a decode
+    step's projections but the prior's w2, a draft's one-token chunks):
+    there the earlier kernel's blocks own whole rows of K in at most four
+    round trips and finish before the streaming kernel's split sums do
     (`PERF.md` §6). No call falls back from one to the other."""
+    if M > _STREAM_MAX_M:
+        sm90 = dtype == torch.bfloat16 and K % _SM90_BLOCK_K == 0
+        return "w8_sm90_kernel" if sm90 else "w8_matmul_kernel"
     if 1 <= M <= 16 and K <= _EARLIER_MAX_K:
         return "w8_matmul_kernel"
     return "w8_stream_kernel" if w8_streams(M, K) else "w8_matmul_kernel"
@@ -132,6 +144,23 @@ def w8_slices(splits: int, K: int) -> List[Tuple[int, int]]:
     return [(min(a, K), min(b, K)) for a, b in zip(bounds, bounds[1:])]
 
 
+def w8_matmul_sm90_tiled_reference(x, w8, scale, double_round: bool = False) -> torch.Tensor:
+    """The arithmetic of `w8_sm90_kernel` (tests only): bf16 x [M, K] and
+    int8 w8 [K, N] as exact fp32 values, the product summed in fp32 one
+    64-deep step after the other, as the kernel's accumulators take the
+    steps, then `w8_matmul_reference`'s epilogue. K must be a multiple of 64."""
+    K = w8.shape[0]
+    if K % _SM90_BLOCK_K:
+        raise ValueError(f"w8_sm90_kernel: K = {K} is no multiple of {_SM90_BLOCK_K}")
+    xf, wf = x.float(), w8.float()
+    acc = torch.zeros((*x.shape[:-1], w8.shape[1]), dtype=torch.float32, device=x.device)
+    for k0 in range(0, K, _SM90_BLOCK_K):
+        acc += xf[..., k0:k0 + _SM90_BLOCK_K] @ wf[k0:k0 + _SM90_BLOCK_K]
+    if double_round:
+        return acc.to(x.dtype) * scale.to(x.dtype)
+    return (acc * scale.float()).to(x.dtype)
+
+
 def w8_matmul(x, w8, scale, double_round: bool = False) -> torch.Tensor:
     """y = (x @ w8) * scale. x [..., K] bf16 or fp32; w8 [K, N] int8, the
     transpose view of a contiguous [N, K] tensor; scale [N] fp32."""
@@ -158,10 +187,11 @@ def w8_matmul(x, w8, scale, double_round: bool = False) -> torch.Tensor:
     M = x2.shape[0]
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M:
-        kernel = w8_kernel(M, K)
+        kernel = w8_kernel(M, K, x.dtype)
         _w8_launch(kernel, x2, wt, scale, out, double_round)
         w8_matmul.launches += 1
         w8_matmul.launches_stream += kernel == "w8_stream_kernel"
+        w8_matmul.launches_sm90 += kernel == "w8_sm90_kernel"
         w8_matmul.last_kernel = kernel
     return out.reshape(*x.shape[:-1], N)
 
@@ -179,12 +209,19 @@ def _w8_launch(kernel: str, x2, wt, scale, out, double_round: bool) -> None:
             code = lib.vtt_w8_matmul_stream(
                 x2.data_ptr(), wt.data_ptr(), scale.data_ptr(), out.data_ptr(),
                 x_bf16, M, N, K, plan.warps, plan.splits, int(double_round), stream)
+        elif kernel == "w8_sm90_kernel":
+            if not x_bf16 or K % _SM90_BLOCK_K:
+                raise ValueError(f"w8_sm90_kernel: bf16 x and K a multiple of {_SM90_BLOCK_K} "
+                                 f"only (got {x2.dtype}, K = {K})")
+            code = lib.vtt_w8_matmul_sm90(x2.data_ptr(), wt.data_ptr(), scale.data_ptr(),
+                                          out.data_ptr(), M, N, K, int(double_round), stream)
         else:
             code = lib.vtt_w8_matmul(x2.data_ptr(), wt.data_ptr(), scale.data_ptr(),
                                      out.data_ptr(), x_bf16, M, N, K, int(double_round), stream)
     _build.check(code, kernel)
 
 
-w8_matmul.launches = 0  # kernel launches (either kernel), read by chip_smoke.py
+w8_matmul.launches = 0  # kernel launches (any of the three), read by chip_smoke.py
 w8_matmul.launches_stream = 0  # of which w8_stream_kernel
+w8_matmul.launches_sm90 = 0  # of which w8_sm90_kernel
 w8_matmul.last_kernel = None  # name of the kernel the last call launched
