@@ -6,9 +6,9 @@
 Phases, each of which raises on failure (exit code 1, no result line):
   1. build the CUDA kernels from csrc/ with nvcc for sm_90a (one nvcc per
      source, all started together); registers and spill bytes of the
-     tensor-core kernels (the three wgmma flash kernels, the 3xTF32 flash
-     forward, the chunk and decode kernels, the streaming and the wgmma int8
-     matmuls), which may not spill;
+     tensor-core kernels (the three wgmma flash kernels, the three 3xTF32
+     flash kernels, the chunk and decode kernels, the streaming and the wgmma
+     int8 matmuls), which may not spill;
   2. the flash-attention forward kernels, out and LSE, against their plain
      PyTorch version on the card: the wgmma kernel (bf16, head dim 32 or 64,
      no segment ids) at the tokenizer's shape, the discriminator's ragged
@@ -63,12 +63,15 @@ Phases, each of which raises on failure (exit code 1, no result line):
  10. the flash backward kernels (dQ; dK/dV, after phase 2) against their
      plain backward: the tokenizer's shape from strided views, the
      discriminator's ragged S = 1025, the prior's causal shape, GQA 20/5,
-     segments with a no-match query, causal with an offset, fp32, each also
+     segments with a no-match query, causal with an offset, each also
      against the plain backward of the plain forward's out and LSE, dQ and
-     dK/dV by the wgmma kernels wherever the dispatch rule says so (plus D =
-     32 causal ragged, Sq = 129 / Sk = 257, rows that see no key), the wgmma
-     dQ kernel timed beside the earlier one, the fp32 kernels at the
-     tokenizer's shape beside SDPA's fp32 backward (efficient backend); gradients
+     dK/dV by the wgmma kernels (bf16) and the 3xTF32 kernels (fp32) wherever
+     the dispatch rule says so (plus D = 32 causal ragged, Sq = 129 / Sk =
+     257, rows that see no key, in both types), D = 128 and segment ids on
+     the mma.sync / FMA kernels; timed by CUDA-graph replays beside the
+     earlier kernels at the tokenizer's, discriminator's and prior's shapes,
+     the 3xTF32 kernels at the fp32 tokenizer's and discriminator's beside
+     SDPA's fp32 backward (efficient backend); gradients
      through `attention` under autograd; `attention_with_lse` refusing grad.
      The VQ kernel's stochastic mode (in phase 3): index for index against
      the plain Philox draw, and by frequency against softmax;
@@ -79,8 +82,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
  12. tokenizer training through the port's trainer at batch 8, bf16 and
      fp32: s/step, clips/s, peak memory, exact launch counts of the four
      training-path kernels (in bf16 every flash forward, dQ and dK/dV launch
-     on the wgmma kernels; in fp32 every forward on the 3xTF32 kernel and no
-     launch on the wgmma ones), device idle share and time by kernel
+     on the wgmma kernels; in fp32 every forward, dQ and dK/dV on the 3xTF32
+     kernels and none on the wgmma or FMA ones), device idle share and time by kernel
      category from torch.profiler, the card's clock and power under load;
  13. the chunk-attention kernel (the verify forward of speculative decoding)
      against its plain version at the 632M prior's verify shape (B = 16,
@@ -215,8 +218,8 @@ def phase_build() -> None:
         if ("Used" in line or ("spill" in line and " 0 bytes spill stores" not in line)
                 or "Performance Loss" in line):  # e.g. wgmma serialised by ptxas
             log(f"[build]   {line.strip()}")
-    # the tensor-core kernels: the wgmma and 3xTF32 flash kernels per head
-    # dim, the chunk kernel per cache type and number of 16-row tiles, the
+    # the tensor-core kernels: the wgmma and 3xTF32 flash kernels (forward,
+    # dQ, dK/dV) per head dim, the chunk kernel per cache type and number of 16-row tiles, the
     # decode kernel per cache type and KV heads per block, the streaming int8
     # matmul per x type and number of 8-row tiles, the wgmma int8 matmul;
     # accumulators spilled to local memory would be re-read on every product
@@ -225,12 +228,13 @@ def phase_build() -> None:
     expected |= {f"decode_attn_sm90_kernel<{c}, {h}>" for c in ("bf16", "int8") for h in (1, 2)}
     expected |= {f"w8_stream_kernel<{x}, {t}>" for x in ("bf16", "fp32")
                  for t in (1, 2, 4, 6, 8, 10, 16)}
-    expected |= {f"flash_fwd_tf32x3_kernel<{d}>" for d in (32, 64)} | {"w8_sm90_kernel"}
+    expected |= {f"flash_{k}_tf32x3_kernel<{d}>" for k in ("fwd", "bwd_dq", "bwd_dkv")
+                 for d in (32, 64)} | {"w8_sm90_kernel"}
     types = {"13__nv_bfloat16": "bf16", "a": "int8", "f": "fp32"}
     seen = set()
     for name, (regs, spill) in sorted(_build.kernel_resources(build.log).items()):
-        if m := re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_sm90_kernel|flash_fwd_tf32x3_kernel)"
-                          r"ILi(\d+)E+v", name):
+        if m := re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_(?:sm90|tf32x3)_kernel)ILi(\d+)E+v",
+                          name):
             kernel = f"{m.group(1)}<{m.group(2)}>"
         elif "w8_sm90_kernel" in name:
             kernel = "w8_sm90_kernel"
@@ -443,8 +447,8 @@ def phase_flash_bwd(records: dict) -> None:
         ("gqa_20_over_5", 2, 512, 512, 20, 5, 64, torch.bfloat16, True, None, False, 2e-2),
         ("segments_no_match", 2, 300, 300, 4, 4, 64, torch.bfloat16, False, None, True, 2e-2),
         ("causal_offset", 2, 384, 512, 4, 2, 128, torch.bfloat16, True, 100, False, 2e-2),
-        ("fp32", 2, 1025, 1025, 12, 12, 32, torch.float32, False, None, False, 1e-4),
         ("fp32_tokenizer", 8, 2048, 2048, 12, 12, 64, torch.float32, False, None, False, 1e-4),
+        ("fp32", 2, 1025, 1025, 12, 12, 32, torch.float32, False, None, False, 1e-4),
         ("fp32_causal_gqa_seg", 2, 200, 333, 4, 2, 128, torch.float32, True, 50, True, 1e-4),
         ("causal_offset_d64", 2, 384, 512, 4, 2, 64, torch.bfloat16, True, 100, False, 2e-2),
         ("causal_ragged_d32", 2, 300, 333, 4, 4, 32, torch.bfloat16, True, None, False, 2e-2),
@@ -452,11 +456,24 @@ def phase_flash_bwd(records: dict) -> None:
         ("edge_129_257", 2, 129, 257, 4, 4, 64, torch.bfloat16, False, None, False, 2e-2),
         # queries 0..69 see no key: each adds do / Sk to every key's dv
         ("causal_no_key_rows", 1, 300, 300, 2, 2, 64, torch.bfloat16, True, -70, False, 2e-2),
+        # fp32 at the shapes of the bf16 cases above (the AR trainer's causal GQA at D = 64)
+        ("fp32_prior_causal", 8, 1024, 1024, 20, 20, 64, torch.float32, True, None, False, 1e-4),
+        ("fp32_gqa_20_over_5", 2, 512, 512, 20, 5, 64, torch.float32, True, None, False, 1e-4),
+        ("fp32_causal_offset_d64", 2, 384, 512, 4, 2, 64, torch.float32, True, 100, False, 1e-4),
+        ("fp32_causal_no_key_rows", 1, 300, 300, 2, 2, 64, torch.float32, True, -70, False, 1e-4),
+        ("fp32_edge_129_257", 2, 129, 257, 4, 4, 64, torch.float32, False, None, False, 1e-4),
+        ("fp32_causal_ragged_d32", 2, 300, 333, 4, 4, 32, torch.float32, True, None, False, 1e-4),
     ]
-    # the cases whose dQ and dK/dV must run the wgmma kernels (bf16, D = 32 or
-    # 64, no segment ids); the forward that feeds them follows the same rule
+    # the kernels each case's dQ and dK/dV must run: the wgmma kernels (bf16,
+    # D = 32 or 64, no segment ids), the 3xTF32 kernels (the same in fp32),
+    # else the mma.sync / FMA kernels of csrc/flash_attn_bwd.cu; the forward
+    # that feeds them follows the same rule
     sm90_cases = {"tokenizer", "discriminator", "prior_causal", "gqa_20_over_5",
                   "causal_offset_d64", "causal_ragged_d32", "edge_129_257", "causal_no_key_rows"}
+    tf32x3_cases = {"fp32", "fp32_tokenizer", "fp32_prior_causal", "fp32_gqa_20_over_5",
+                    "fp32_causal_offset_d64", "fp32_causal_no_key_rows", "fp32_edge_129_257",
+                    "fp32_causal_ragged_d32"}
+    fma_launches = [0, 0]  # dQ, dK/dV launches of csrc/flash_attn_bwd.cu by the cases
     for name, B, Sq, Sk, H, Hkv, D, dtype, causal, offset, with_seg, tol in cases:
         if Sq == Sk and H == Hkv:
             # q, k, v and dO as strided views of [B, S, 3, H, D] projections
@@ -475,6 +492,8 @@ def phase_flash_bwd(records: dict) -> None:
         got = flash_attn_bwd(q, k, v, out, lse, do, **kw)
         torch.cuda.synchronize()
         kernel, dq_kernel = flash_attn_bwd_dkv.last_kernel, flash_attn_bwd_dq.last_kernel
+        fma_launches[0] += dq_kernel == "flash_bwd_dq_kernel"
+        fma_launches[1] += kernel == "flash_bwd_dkv_kernel"
         want = attention_bwd_reference(q, k, v, out, lse, do, causal, q_seg, k_seg, None, offset)
         plain_out, plain_lse = attention_reference(q, k, v, causal, q_seg, k_seg, None, offset)
         want_plain = attention_bwd_reference(q, k, v, plain_out, plain_lse, do, causal, q_seg,
@@ -494,86 +513,129 @@ def phase_flash_bwd(records: dict) -> None:
             f"max|kernel-plain|/max|plain| dq {errs[0]:.2e}, "
             f"dk {errs[1]:.2e}, dv {errs[2]:.2e}; against the plain forward's out and LSE "
             f"dq {plain_errs[0]:.2e}, dk {plain_errs[1]:.2e}, dv {plain_errs[2]:.2e} (tol {tol:g})")
-        require(kernel == ("flash_bwd_dkv_sm90_kernel" if name in sm90_cases
-                           else "flash_bwd_dkv_kernel"), f"flash bwd {name}: dK/dV ran {kernel}")
-        require(dq_kernel == ("flash_bwd_dq_sm90_kernel" if name in sm90_cases
-                              else "flash_bwd_dq_kernel"), f"flash bwd {name}: dQ ran {dq_kernel}")
+        family = "sm90" if name in sm90_cases else "tf32x3" if name in tf32x3_cases else None
+        want_dq, want_dkv = ((f"flash_bwd_dq_{family}_kernel", f"flash_bwd_dkv_{family}_kernel")
+                             if family else ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"))
+        require(kernel == want_dkv, f"flash bwd {name}: dK/dV ran {kernel}, not {want_dkv}")
+        require(dq_kernel == want_dq, f"flash bwd {name}: dQ ran {dq_kernel}, not {want_dq}")
         require(max(errs) <= tol and max(plain_errs) <= tol,
                 f"flash bwd {name}: errors {errs}, from the plain forward {plain_errs} > {tol}")
         del plain_out, plain_lse, want_plain
-        if name in ("tokenizer", "discriminator", "prior_causal", "fp32", "fp32_tokenizer"):
-            # the two kernels alone (delta and the GQA sum are torch ops)
+        if name in ("tokenizer", "discriminator", "prior_causal", "fp32", "fp32_tokenizer",
+                    "fp32_causal_gqa_seg"):
+            # the two kernels alone (delta and the GQA sum are torch ops), by
+            # CUDA-graph replays (events around one eager call would add the
+            # host's launch path, ~0.05 ms)
             delta = torch.einsum("bqhd,bqhd->bhq", out.float(), do.float()).contiguous()
             scale = D ** -0.5
-            dq_ms = median_ms(lambda: flash_attn_bwd_dq(q, k, v, do, lse, delta, None, None,
-                                                        causal, 0, scale))
-            # the earlier (mma.sync) dQ kernel through its own entry, in the same run
-            dq_earlier = torch.empty_like(got[0])
-            dq_earlier_ms = median_ms(lambda: _bwd_launch(
-                False, q, k, v, do, lse, delta, None, None, dq_earlier, None, causal, 0, scale))
-            dkv_ms = median_ms(lambda: flash_attn_bwd_dkv(q, k, v, do, lse, delta, None, None,
-                                                          causal, 0, scale))
+            off = offset if offset is not None else Sk - Sq
+            args = (q, k, v, do, lse, delta, q_seg, k_seg, causal, off, scale)
+            dq_ms = graph_ms(lambda: flash_attn_bwd_dq(*args), launches=5, replays=5)
+            dkv_ms = graph_ms(lambda: flash_attn_bwd_dkv(*args), launches=5, replays=5)
+            # the earlier (mma.sync / FMA) kernels through their own entry, in
+            # the same run, held against the plain version too
+            dq_e = torch.empty(q.shape, dtype=dtype, device="cuda")
+            dk_e = torch.empty((B, Sk, H, D), dtype=dtype, device="cuda")
+            dv_e = torch.empty((B, Sk, H, D), dtype=dtype, device="cuda")
+            fma = (q, k, v, do, lse, delta, q_seg, k_seg)
+            dq_earlier_ms = graph_ms(lambda: _bwd_launch(False, *fma, dq_e, None, causal, off,
+                                                         scale), launches=5, replays=5)
+            dkv_earlier_ms = graph_ms(lambda: _bwd_launch(True, *fma, dk_e, dv_e, causal, off,
+                                                          scale), launches=5, replays=5)
+            if Hkv != H:
+                rep = H // Hkv
+                dk_e = dk_e.float().reshape(B, Sk, Hkv, rep, D).sum(3).to(dtype)
+                dv_e = dv_e.float().reshape(B, Sk, Hkv, rep, D).sum(3).to(dtype)
+            earlier_errs = [(g.float() - w.float()).abs().max().item() / w.float().abs().max().item()
+                            for g, w in zip((dq_e, dk_e, dv_e), want)]
+            require(max(earlier_errs) <= tol, f"flash bwd {name}: the earlier kernels' errors "
+                    f"{earlier_errs} > {tol}")
             plain_ms = median_ms(
-                lambda: attention_bwd_reference(q, k, v, out, lse, do, causal), iters=5)
+                lambda: attention_bwd_reference(q, k, v, out, lse, do, causal, q_seg, k_seg,
+                                                None, offset), iters=5)
             # a product over what the mask leaves (2 flops a MAC); the backward has five
             unit = 2 * B * H * Sq * Sk * D * (0.5 if causal else 1.0)
             # the library's call for the same gradients: autograd through
             # SDPA, ONE backward for dq, dk and dv together (both kernels'
             # rows carry its time); timed here, used nowhere in the port
-            ql, kl, vl = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
-            if dtype == torch.float32:  # the memory-efficient backend (3xTF32 products)
-                with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            library_ms = None
+            if not with_seg:
+                ql, kl, vl = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
+                if dtype == torch.float32:  # the memory-efficient backend (3xTF32 products)
+                    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+                        out_l = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
+                else:
                     out_l = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
-            else:
-                out_l = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
-            do_l = do.transpose(1, 2)
-            library_ms = median_ms(
-                lambda: torch.autograd.grad(out_l, (ql, kl, vl), do_l, retain_graph=True))
-            del out_l
+                do_l = do.transpose(1, 2)
+                library_ms = median_ms(
+                    lambda: torch.autograd.grad(out_l, (ql, kl, vl), do_l, retain_graph=True))
+                del out_l
             # dQ recomputes S and dP and forms dQ (three products), dK/dV
             # S, dP, dV and dK (four); each reads q, k, v, dO, LSE, delta
             read = _nbytes(q, k, v, do, lse, delta)
-            kind = "fp32" if dtype == torch.float32 else "bf16"
-            bnd_dq = bound(read + _nbytes(q), 3 * unit, kind)
-            bnd_dkv = bound(read + _nbytes(k, v), 4 * unit, kind)
+            kind = {"sm90": "bf16", "tf32x3": "tf32x3"}.get(family, "fp32")
+            bnd_dq = bound(read + _nbytes(got[0]), 3 * unit, kind)
+            bnd_dkv = bound(read + _nbytes(got[1], got[2]), 4 * unit, kind)
             dkv_tflops = 4 * unit / dkv_ms / 1e9
+            lib = f"{library_ms:.3f} ms (median)" if library_ms is not None else "none"
             log(f"[flash bwd] {name}: dQ {dq_kernel} {dq_ms:.3f} ms ({3 * unit / dq_ms / 1e9:.1f} "
-                f"TFLOP/s of its 3 products; the earlier flash_bwd_dq_kernel {dq_earlier_ms:.3f} "
-                f"ms; bound {bnd_dq['bound_ms']:.3f}), "
-                f"dK/dV {kernel} {dkv_ms:.3f} ms ({dkv_tflops:.1f} TFLOP/s of its 4 products, "
-                f"bound {bnd_dkv['bound_ms']:.3f}, {bnd_dkv['bound_by']}), plain backward (dq, "
-                f"dk, dv) {plain_ms:.3f} ms, library call (autograd through SDPA, dq + dk + dv "
-                f"in one backward) {library_ms:.3f} ms (median)")
+                f"TFLOP/s of its 3 products; bound {bnd_dq['bound_ms']:.3f}, "
+                f"{bnd_dq['bound_by']}, {kind}), dK/dV {kernel} {dkv_ms:.3f} ms ({dkv_tflops:.1f} "
+                f"TFLOP/s of its 4 products, bound {bnd_dkv['bound_ms']:.3f}); the earlier "
+                f"flash_bwd_dq_kernel {dq_earlier_ms:.3f} ms, flash_bwd_dkv_kernel "
+                f"{dkv_earlier_ms:.3f} ms (max|kernel-plain|/max|plain| "
+                f"{max(earlier_errs):.2e}); plain backward (dq, dk, dv) {plain_ms:.3f} ms, "
+                f"library call (autograd through SDPA, dq + dk + dv in one backward) {lib} "
+                f"(kernels: CUDA-graph replays)")
             rec_dq = {"max_abs_err": abs_errs[0], "max_rel_err": errs[0], "ms": dq_ms,
                       "earlier_ms": dq_earlier_ms, "plain_ms": plain_ms, "library_ms": library_ms,
                       **bnd_dq}
             rec_dkv = {"max_abs_err": max(abs_errs[1:]), "max_rel_err": max(errs[1:]),
-                       "ms": dkv_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                       "tflops": dkv_tflops, **bnd_dkv}
+                       "ms": dkv_ms, "earlier_ms": dkv_earlier_ms, "plain_ms": plain_ms,
+                       "library_ms": library_ms, "tflops": dkv_tflops, **bnd_dkv}
+            if name in ("tokenizer", "fp32_tokenizer"):  # the training shape
+                slower = [f"{k} {ms:.3f} ms against {e:.3f}" for k, ms, e in (
+                    ("dQ", dq_ms, dq_earlier_ms), ("dK/dV", dkv_ms, dkv_earlier_ms))
+                    if ms >= e and (family == "tf32x3" or k == "dQ")]
+                require(not slower, f"flash bwd {name}: no faster than the earlier kernels: "
+                        f"{slower}")
             if name == "tokenizer":
-                require(dq_ms < dq_earlier_ms, f"flash bwd: the wgmma dQ kernel ({dq_ms} ms) is "
-                        f"no faster than the earlier one ({dq_earlier_ms} ms)")
                 records["flash_attn_bwd_dq"] = rec_dq
                 records["flash_attn_bwd_dkv"] = rec_dkv
-            elif name == "fp32":
-                # the kernels that keep fp32, D = 128 and segment ids
-                del rec_dq["earlier_ms"]  # the same kernel
-                records["flash_attn_bwd_dq_mma"] = rec_dq
-                records["flash_attn_bwd_dkv_mma"] = rec_dkv
             elif name == "fp32_tokenizer":
                 # the fp32 training step's shape, beside SDPA's fp32 backward
+                fma_bnd = {k: bound(read + _nbytes(*g), n * unit, "fp32")["bound_ms"]
+                           for k, g, n in (("dq", got[:1], 3), ("dkv", got[1:], 4))}
+                log(f"[flash bwd] {name}: dQ + dK/dV {dq_ms + dkv_ms:.3f} ms against SDPA's "
+                    f"whole fp32 backward (efficient backend) {library_ms:.3f} ms; FMA bounds "
+                    f"dQ {fma_bnd['dq']:.3f}, dK/dV {fma_bnd['dkv']:.3f} ms")
+                rec_dq["fma_bound_ms"], rec_dkv["fma_bound_ms"] = fma_bnd["dq"], fma_bnd["dkv"]
+                records["flash_attn_bwd_dq_tf32x3"] = rec_dq
+                records["flash_attn_bwd_dkv_tf32x3"] = rec_dkv
+            elif name == "fp32_causal_gqa_seg":
+                # the kernels that keep D = 128 and segment ids: no PyTorch call
+                # takes segment ids, so no library time here
                 for key, rec in (("flash_attn_bwd_dq_mma", rec_dq),
                                  ("flash_attn_bwd_dkv_mma", rec_dkv)):
-                    records[key].update({f"tokenizer_{k}": v for k, v in rec.items()
-                                         if k in ("ms", "plain_ms", "library_ms", "bound_ms")})
+                    del rec["earlier_ms"]  # the same kernel
+                    records[key] = rec
             else:
-                short = "disc" if name == "discriminator" else "causal"
-                records["flash_attn_bwd_dq"].update({f"{short}_ms": dq_ms,
-                                                     f"{short}_earlier_ms": dq_earlier_ms,
-                                                     f"{short}_plain_ms": plain_ms})
-                records["flash_attn_bwd_dkv"].update({f"{short}_ms": dkv_ms,
-                                                      f"{short}_plain_ms": plain_ms,
-                                                      f"{short}_library_ms": library_ms})
+                short = {"discriminator": "disc", "prior_causal": "causal", "fp32": "disc"}[name]
+                suffix = "_tf32x3" if family == "tf32x3" else ""
+                records[f"flash_attn_bwd_dq{suffix}"].update({
+                    f"{short}_ms": dq_ms, f"{short}_earlier_ms": dq_earlier_ms,
+                    f"{short}_plain_ms": plain_ms, f"{short}_library_ms": library_ms,
+                    f"{short}_bound_ms": bnd_dq["bound_ms"]})
+                records[f"flash_attn_bwd_dkv{suffix}"].update({
+                    f"{short}_ms": dkv_ms, f"{short}_earlier_ms": dkv_earlier_ms,
+                    f"{short}_plain_ms": plain_ms, f"{short}_library_ms": library_ms,
+                    f"{short}_bound_ms": bnd_dkv["bound_ms"]})
+    # csrc/flash_attn_bwd.cu is on no main path: no trainer takes segment ids
+    # or D = 128; its launches are those of the cases above that need it
+    records["flash_attn_bwd_dq_mma"]["launches"] = fma_launches[0]
+    records["flash_attn_bwd_dkv_mma"]["launches"] = fma_launches[1]
+    log(f"[flash bwd] csrc/flash_attn_bwd.cu (D = 128, segment ids; on no main path): "
+        f"{fma_launches[0]} dQ and {fma_launches[1]} dK/dV launches by the cases above")
 
     # autograd: `attention` at the tokenizer's shape is differentiable on the
     # card (its output used to carry no grad_fn, silently dropping gradients)
@@ -691,8 +753,18 @@ def phase_vq(records: dict) -> None:
     ms = median_ms(lambda: vq_argmax(z, emb, stochastic=True, inv_temp=inv_temp, seed=seed))
     plain_ms = median_ms(lambda: vq_lookup_reference(z, emb, stochastic=True, inv_temp=inv_temp,
                                                      seed=seed), iters=5)
-    log(f"[vq stochastic] flagship: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median)")
+    # its bound: operations on the SM's 128 fp32 lanes, of which 64 take
+    # 32-bit integer multiplies: the product's 8 FMAs a code and the Philox
+    # draw's 5 wide 32-bit multiplies a code (ten rounds of two per four
+    # codes), each at half the FMA rate, so 2 FMA slots; the two logf a code
+    # are left out. No single PyTorch call draws the same function (its noise
+    # is this Philox stream), so it has no library time.
+    st_bnd = bound(_nbytes(z, emb, got), 2 * (8 * M * K + 2 * 5 * M * K), "fp32")
+    log(f"[vq stochastic] flagship: kernel {ms:.4f} ms, bound {st_bnd['bound_ms']:.4f} ms "
+        f"({st_bnd['bound_by']}: the product and the Philox multiplies), plain {plain_ms:.4f} "
+        f"ms (median); no library call draws the same function")
     records["vq_argmax"].update(stochastic_ms=ms, stochastic_plain_ms=plain_ms,
+                                stochastic_bound_ms=st_bnd["bound_ms"],
                                 stochastic_agreement=agree, stochastic_gap=gap)
 
     # frequencies at a small K: one z row drawn 2**16 times against
@@ -2120,8 +2192,10 @@ def phase_train_fp32(tmp: Path) -> None:
 
 
 _KERNEL_CATEGORIES = (  # first match wins, on the kernel's lower-cased name
-    ("flash_bwd_dkv", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_sm90_kernel")),
-    ("flash_bwd_dq", ("flash_bwd_dq_kernel", "flash_bwd_dq_sm90_kernel")),
+    ("flash_bwd_dkv", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_sm90_kernel",
+                       "flash_bwd_dkv_tf32x3_kernel")),
+    ("flash_bwd_dq", ("flash_bwd_dq_kernel", "flash_bwd_dq_sm90_kernel",
+                      "flash_bwd_dq_tf32x3_kernel")),
     ("flash_fwd", ("flash_fwd_kernel", "flash_fwd_sm90_kernel", "flash_fwd_tf32x3_kernel")),
     ("vq_argmax", ("vq_argmax_kernel",)),
     ("conv (LPIPS)", ("conv", "cudnn", "implicit", "winograd", "fprop", "dgrad", "wgrad")),
@@ -2171,8 +2245,7 @@ def phase_train_throughput(tmp: Path, records: dict) -> None:
         for k in kernels:
             k.launches = 0
         for k in kernels[:3]:
-            k.launches_sm90 = 0
-        flash_attn_fwd.launches_tf32x3 = 0
+            k.launches_sm90 = k.launches_tf32x3 = 0
         torch.cuda.reset_peak_memory_stats()
         times, infos = [], []
         fetch_s.clear()
@@ -2184,7 +2257,7 @@ def phase_train_throughput(tmp: Path, records: dict) -> None:
             times.append(time.perf_counter() - t0)
         launches = {k.__name__: k.launches for k in kernels}
         sm90 = {k.__name__: k.launches_sm90 for k in kernels[:3]}
-        tf32x3 = flash_attn_fwd.launches_tf32x3
+        tf32x3 = {k.__name__: k.launches_tf32x3 for k in kernels[:3]}
         loader_s = statistics.mean(fetch_s)
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2226,11 +2299,12 @@ def phase_train_throughput(tmp: Path, records: dict) -> None:
             f"loader {loader_s * 1e3:.1f} ms per step on the host ({loader_s / mean_s:.1%} of "
             f"the step, {tr.train_workers} workers); peak memory {peak_gb:.2f} GiB")
         # bf16 runs the wgmma forward, dQ and dK/dV kernels on every launch,
-        # fp32 never; fp32 runs every forward on the 3xTF32 kernel
+        # fp32 never; fp32 runs every forward, dQ and dK/dV on the 3xTF32
+        # kernels, and so none on csrc/flash_attn_bwd.cu's FMA kernels
         want_sm90 = {k: want[k] if use_amp else 0 for k in sm90}
-        want_tf32x3 = 0 if use_amp else want["flash_attn_fwd"]
+        want_tf32x3 = {k: 0 if use_amp else want[k] for k in tf32x3}
         log(f"[train {name}] launches over the timed steps {launches} (expect {want}), of which "
-            f"the wgmma kernels {sm90} (expect {want_sm90}) and the 3xTF32 forward {tf32x3} "
+            f"the wgmma kernels {sm90} (expect {want_sm90}) and the 3xTF32 kernels {tf32x3} "
             f"(expect {want_tf32x3}); losses "
             f"finite: {finite}; last step loss {last['loss']:.4f}, rec {last['rec_loss']:.4f}, "
             f"perceptual {last['perceptual_loss']:.4f}, d_loss {last['d_loss']:.4f}, "
@@ -2252,10 +2326,9 @@ def phase_train_throughput(tmp: Path, records: dict) -> None:
         if name == "bf16":
             for k in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
                 records[k]["launches"] = launches[k]
-        else:  # fp32: the 3xTF32 forward, and the FMA backward kernels
-            records["flash_attn_fwd_tf32x3"]["launches"] = tf32x3
-            records["flash_attn_bwd_dq_mma"]["launches"] = launches["flash_attn_bwd_dq"]
-            records["flash_attn_bwd_dkv_mma"]["launches"] = launches["flash_attn_bwd_dkv"]
+        else:  # fp32: the 3xTF32 forward, dQ and dK/dV
+            for k in kernels[:3]:
+                records[f"{k.__name__}_tf32x3"]["launches"] = tf32x3[k.__name__]
         del tr, batches
         torch.cuda.empty_cache()
 
@@ -2324,8 +2397,13 @@ def main() -> int:
                               "video_tokenizer_tpu/ops/attention.py:387"),
         "flash_attn_bwd_dq_mma": ("video_tokenizer_tpu_torch/csrc/flash_attn_bwd.cu",
                                   "video_tokenizer_tpu/ops/attention.py:387"),
+        "flash_attn_bwd_dq_tf32x3": ("video_tokenizer_tpu_torch/csrc/flash_attn_bwd_dq_tf32x3.cu",
+                                     "video_tokenizer_tpu/ops/attention.py:387"),
         "flash_attn_bwd_dkv": ("video_tokenizer_tpu_torch/csrc/flash_attn_bwd_dkv_sm90.cu",
                                "video_tokenizer_tpu/ops/attention.py:447"),
+        "flash_attn_bwd_dkv_tf32x3": (
+            "video_tokenizer_tpu_torch/csrc/flash_attn_bwd_dkv_tf32x3.cu",
+            "video_tokenizer_tpu/ops/attention.py:447"),
         "flash_attn_bwd_dkv_mma": ("video_tokenizer_tpu_torch/csrc/flash_attn_bwd.cu",
                                    "video_tokenizer_tpu/ops/attention.py:447"),
         "vq_argmax": ("video_tokenizer_tpu_torch/csrc/vq_lookup.cu",

@@ -280,8 +280,8 @@ def test_tiled_dq_matches_jax_pallas_bf16(name, interpret_mode):
 
 SM90 = ("flash_fwd_sm90_kernel", "flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel")
 EARLIER = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
-# fp32: the forward as three TF32 products on the tensor cores, the backward on FMAs
-TF32X3 = ("flash_fwd_tf32x3_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+# fp32: the forward, dQ and dK/dV as three TF32 products on the tensor cores
+TF32X3 = ("flash_fwd_tf32x3_kernel", "flash_bwd_dq_tf32x3_kernel", "flash_bwd_dkv_tf32x3_kernel")
 
 
 @pytest.mark.parametrize("dtype, head_dim, has_segments, want", [
@@ -292,6 +292,10 @@ TF32X3 = ("flash_fwd_tf32x3_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kerne
     (torch.bfloat16, 32, True, EARLIER),
     (torch.float32, 64, False, TF32X3),  # fp32 training: the tokenizer, the prior
     (torch.float32, 32, False, TF32X3),  # the discriminator in fp32
+    # causal masks choose nothing: the AR trainer (causal GQA, D = 64) and a
+    # causal D = 32 run the same kernels in fp32
+    pytest.param(torch.float32, 64, False, TF32X3, id="fp32-64-causal-ar-trainer"),
+    pytest.param(torch.float32, 32, False, TF32X3, id="fp32-32-causal"),
     (torch.float32, 128, True, EARLIER),
     (torch.float32, 64, True, EARLIER),
     (torch.float32, 128, False, EARLIER),

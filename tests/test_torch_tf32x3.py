@@ -25,9 +25,23 @@ other operands). Held here:
       eligible: H * D a multiple of 128), 1e-5;
   (d) one TF32 product is not enough: its error is hundreds of times the
       three products'.
+The same for the 3xTF32 backward kernels (`csrc/flash_attn_bwd_dq_tf32x3.cu`,
+`csrc/flash_attn_bwd_dkv_tf32x3.cu`): `attention_bwd_dq_tf32x3_tiled_reference`
+and `attention_bwd_dkv_tf32x3_tiled_reference` repeat their arithmetic (every
+product split into TF32 parts, the causal stop and the masked path decided
+per 16-row warp, each tile's dS.K, P^T.dO and dS^T.Q summed apart) and are held
+  (e) against `attention_bwd_reference` in fp32, 1e-5 of max|plain| per
+      gradient (the kernels are held to 1e-4 of it on the card);
+  (f) against the JAX package's `_bwd_dq_kernel` and `_bwd_dkv_kernel` in
+      interpret mode, through `jax.vjp` of its `attention` (which aligns a
+      causal mask at Sk - Sq and takes no other offset), 1e-5 of each
+      gradient's max;
+  (g) on rows that see no key: dQ exactly 0, dO / Sk on every key's dV;
+      whatever the tile sizes; and refusing bf16 and segment ids.
 """
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -35,7 +49,9 @@ import torch
 
 import video_tokenizer_tpu.ops.attention  # noqa: F401
 from video_tokenizer_tpu_torch.ops.attention import (
-    DEFAULT_MASK_VALUE, attention_reference, attention_tf32x3_tiled_reference, split_tf32,
+    DEFAULT_MASK_VALUE, attention_bwd_dkv_tf32x3_tiled_reference,
+    attention_bwd_dq_tf32x3_tiled_reference, attention_bwd_reference, attention_reference,
+    attention_tf32x3_tiled_reference, split_tf32,
 )
 
 _ATT = sys.modules["video_tokenizer_tpu.ops.attention"]
@@ -190,3 +206,124 @@ def test_tf32x3_tiled_forward_matches_jax_pallas(case, interpret_mode):
     if offset is None:
         packed = _ATT.attention(jq, jk, jv, causal=causal, use_pallas=True)
         np.testing.assert_allclose(got.numpy(), np.asarray(packed), atol=1e-5)
+
+
+def _bwd_case(case, seed):
+    """fp32 tensors q, k, v, dO, the forward's out and LSE, the mask arguments
+    and the rows that see a key."""
+    (q, k, v), args, sees_key = _case(case, seed)
+    rng = np.random.RandomState(seed + 100)
+    q, k, v = map(torch.from_numpy, (q, k, v))
+    do = torch.from_numpy(rng.randn(*q.shape).astype(np.float32))
+    out, lse = attention_reference(q, k, v, *args)
+    return (q, k, v, out, lse, do), args, sees_key
+
+
+def _assert_close(name, got, want, tol=1e-5):
+    assert got.dtype == torch.float32 and got.shape == want.shape, name
+    assert torch.isfinite(got).all(), name
+    err = (got - want).abs().max().item()
+    assert err <= tol * want.abs().max().item(), f"{name}: {err}"
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_tf32x3_tiled_dq_matches_plain(case):
+    inputs, args, sees_key = _bwd_case(case, seed=3)
+    want, _, _ = attention_bwd_reference(*inputs, *args)
+    got = attention_bwd_dq_tf32x3_tiled_reference(*inputs, *args)
+    _assert_close("dq", got, want)
+    # a row that sees no key: its forward is the mean of V, whatever q is
+    assert got[:, torch.from_numpy(~sees_key)].abs().sum().item() == 0.0
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_tf32x3_tiled_dkv_matches_plain(case):
+    inputs, args, _ = _bwd_case(case, seed=4)
+    _, want_dk, want_dv = attention_bwd_reference(*inputs, *args)
+    got_dk, got_dv = attention_bwd_dkv_tf32x3_tiled_reference(*inputs, *args)
+    _assert_close("dk", got_dk, want_dk)
+    _assert_close("dv", got_dv, want_dv)
+
+
+def test_tf32x3_tiled_backward_of_rows_that_see_no_key():
+    """Queries 0..69 see no key (causal offset -70): their LSE is the mask
+    value, which exp2 must never meet. With dO zero on every other row,
+    dQ and dK are exactly 0 and dV is the blind rows' dO / Sk on every key."""
+    inputs, args, sees_key = _bwd_case(CASES[IDS.index("causal_negative_offset")], seed=5)
+    q, k, v, out, lse, do = inputs
+    blind = torch.from_numpy(~sees_key)
+    assert blind.any() and (lse[:, :, blind] == np.float32(DEFAULT_MASK_VALUE)).all()
+    do_blind = torch.where(blind[None, :, None, None], do, 0.0)
+    dq = attention_bwd_dq_tf32x3_tiled_reference(q, k, v, out, lse, do_blind, *args)
+    dk, dv = attention_bwd_dkv_tf32x3_tiled_reference(q, k, v, out, lse, do_blind, *args)
+    assert dq.abs().max().item() == 0.0 and dk.abs().max().item() == 0.0
+    want_dv = (do_blind.sum(1, keepdim=True) / k.shape[1]).expand_as(dv)
+    np.testing.assert_allclose(dv.numpy(), want_dv.numpy(), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("block_m, block_n", [(64, 32), (128, 64)])
+def test_tf32x3_tiled_dq_does_not_depend_on_the_tiles(block_m, block_n):
+    inputs, args, _ = _bwd_case(CASES[IDS.index("causal_ragged_d32")], seed=6)
+    want, _, _ = attention_bwd_reference(*inputs, *args)
+    got = attention_bwd_dq_tf32x3_tiled_reference(*inputs, *args, block_m=block_m,
+                                                  block_n=block_n)
+    _assert_close("dq", got, want)
+
+
+@pytest.mark.parametrize("block_q", [64, 128])
+def test_tf32x3_tiled_dkv_does_not_depend_on_the_tiles(block_q):
+    inputs, args, _ = _bwd_case(CASES[IDS.index("causal_ragged_d32")], seed=7)
+    _, want_dk, want_dv = attention_bwd_reference(*inputs, *args)
+    got_dk, got_dv = attention_bwd_dkv_tf32x3_tiled_reference(*inputs, *args, block_q=block_q)
+    _assert_close("dk", got_dk, want_dk)
+    _assert_close("dv", got_dv, want_dv)
+
+
+@pytest.mark.parametrize("reference", [attention_bwd_dq_tf32x3_tiled_reference,
+                                       attention_bwd_dkv_tf32x3_tiled_reference],
+                         ids=["dq", "dkv"])
+def test_tf32x3_tiled_backward_takes_fp32_without_segment_ids_only(reference):
+    inputs, _, _ = _bwd_case(CASES[0], seed=8)
+    with pytest.raises(ValueError):
+        reference(*(x.bfloat16() for x in inputs))
+    seg = torch.zeros(inputs[0].shape[:2], dtype=torch.int32)
+    with pytest.raises(ValueError):
+        reference(*inputs, False, seg, seg)
+
+
+# the JAX entry with a gradient through its Pallas backward is `attention`,
+# which aligns causal masks at Sk - Sq and takes no other offset (so no row
+# that sees no key either: its backward has no rule for them)
+JAX_BWD_CASES = [c for c in CASES if c[8] is None]
+
+
+def _jax_grads(q, k, v, do, causal):
+    def f(q, k, v):
+        return _ATT.attention(q, k, v, causal=causal, use_pallas=True)
+
+    _, vjp = jax.vjp(f, *map(jnp.asarray, (q, k, v)))
+    return [np.asarray(g) for g in vjp(jnp.asarray(do))]
+
+
+@pytest.mark.parametrize("case", JAX_BWD_CASES, ids=[c[0] for c in JAX_BWD_CASES])
+def test_tf32x3_tiled_dq_matches_jax_pallas(case, interpret_mode):
+    """fp32 on both sides: the JAX package's `_bwd_dq_kernel` in interpret
+    mode, 1e-5 of the gradient's max."""
+    inputs, args, _ = _bwd_case(case, seed=9)
+    q, k, v, _, _, do = inputs
+    got = attention_bwd_dq_tf32x3_tiled_reference(*inputs, *args)
+    want, _, _ = _jax_grads(q.numpy(), k.numpy(), v.numpy(), do.numpy(), args[0])
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("case", JAX_BWD_CASES, ids=[c[0] for c in JAX_BWD_CASES])
+def test_tf32x3_tiled_dkv_matches_jax_pallas(case, interpret_mode):
+    """fp32 on both sides: the JAX package's `_bwd_dkv_kernel` in interpret
+    mode (its GQA group sum outside the kernel), 1e-5 of each gradient's max."""
+    inputs, args, _ = _bwd_case(case, seed=10)
+    q, k, v, _, _, do = inputs
+    got_dk, got_dv = attention_bwd_dkv_tf32x3_tiled_reference(*inputs, *args)
+    _, want_dk, want_dv = _jax_grads(q.numpy(), k.numpy(), v.numpy(), do.numpy(), args[0])
+    for name, g, w in (("dk", got_dk, want_dk), ("dv", got_dv, want_dv)):
+        err = np.abs(g.numpy() - w).max()
+        assert err <= 1e-5 * np.abs(w).max(), f"{name}: {err}"

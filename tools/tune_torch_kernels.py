@@ -1,11 +1,13 @@
 """Times tilings of the Hopper kernels whose tiling is a set of constants.
 
   python3 tools/tune_torch_kernels.py [chunk] [dq] [decode] [w8] [w8_step] [flash_fp32] [w8_large]
+      [flash_bwd_fp32]
   (one CUDA device, nvcc)
 
 `csrc/chunk_attention_sm90.cu`, `csrc/flash_attn_bwd_dq_sm90.cu`,
 `csrc/decode_attention_sm90.cu`, `csrc/w8_matmul_stream.cu`,
-`csrc/flash_attn_fwd_tf32x3.cu` and `csrc/w8_matmul_sm90.cu` fix their
+`csrc/flash_attn_fwd_tf32x3.cu`, `csrc/w8_matmul_sm90.cu`,
+`csrc/flash_attn_bwd_dq_tf32x3.cu` and `csrc/flash_attn_bwd_dkv_tf32x3.cu` fix their
 tiling in `constexpr int` constants at the head of the file. This script
 copies `csrc/` to `build/variants/<name>/`, substitutes the constants of each
 variant below in the copy, compiles that one source with the port's nvcc
@@ -28,7 +30,12 @@ way an operand is split) at the fp32 tokenizer's B = 1 and B = 8 and the
 prior's causal shape beside the earlier FMA kernel and SDPA (CUDA events, two
 rounds); and the wgmma int8 matmul (`w8_large`: output channels a block, ring
 stages) at the NLL forward's M = 8192 shapes beside the earlier kernel and
-cuBLAS on a bf16 copy (CUDA-graph replays, two rounds). Nothing here is used
+cuBLAS on a bf16 copy (CUDA-graph replays, two rounds); and the 3xTF32 flash
+backward kernels (`flash_bwd_fp32`: the streamed tile, ring stages and
+blocks an SM of dQ and of dK/dV) at the fp32 tokenizer's, discriminator's and
+AR trainer's causal shapes at batch 8 beside the FMA kernels and SDPA's fp32
+backward (kernels by CUDA-graph replays, SDPA by CUDA events, two rounds).
+Nothing here is used
 by the port; the sources keep one tiling.
 """
 import ctypes
@@ -486,6 +493,87 @@ def tune_flash_fp32():
                   f"SDPA {lib:.3f} ms", flush=True)
 
 
+def tune_flash_bwd_fp32():
+    """The 3xTF32 flash backward kernels' tilings (`flash_bwd_fp32`: key
+    tile, ring stages and blocks an SM of dQ; query tile, ring stages and
+    blocks an SM of dK/dV) at the fp32 training path's shapes: the
+    tokenizer's, the discriminator's and the AR trainer's causal one, beside
+    the FMA kernels and SDPA's fp32 backward (efficient backend)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    shapes = {"tok_b8": (8, 2048, 12, 64, False), "disc_b8": (8, 1025, 12, 32, False),
+              "prior_causal": (8, 1024, 20, 64, True)}
+    data = {}
+    for name, (B, S, H, D, causal) in shapes.items():
+        q, k, v = torch.randn(B, S, 3, H, D, generator=gen, device="cuda").unbind(2)
+        do = torch.randn(B, S, H, D, generator=gen, device="cuda")
+        out, lse = A.attention_reference(q, k, v, causal)
+        delta = torch.einsum("bqhd,bqhd->bhq", out, do).contiguous()
+        want = A.attention_bwd_reference(q, k, v, out, lse, do, causal)
+        data[name] = (q, k, v, do, lse, delta, want, causal)
+    dq_variants = {
+        "n64_st2_mb2": dict(kBlockN=64, kStages=2, kMinBlocks=2),
+        "n64_st3_mb1": dict(kBlockN=64, kStages=3, kMinBlocks=1),
+        "n32_st3_mb2": dict(kBlockN=32, kStages=3, kMinBlocks=2),
+        "n32_st4_mb2": dict(kBlockN=32, kStages=4, kMinBlocks=2),
+    }
+    dkv_variants = {
+        "q64_st2_mb2": dict(kBlockQ=64, kStages=2, kMinBlocks=2),
+        "q64_st3_mb1": dict(kBlockQ=64, kStages=3, kMinBlocks=1),
+        "q32_st3_mb2": dict(kBlockQ=32, kStages=3, kMinBlocks=2),
+        "q32_st4_mb2": dict(kBlockQ=32, kStages=4, kMinBlocks=2),
+    }
+    fns = {("dq", n): f for n, f in compile_variants(
+        "flash_attn_bwd_dq_tf32x3.cu", {f"dq_{n}": v for n, v in dq_variants.items()},
+        "vtt_flash_attn_bwd_dq_tf32x3").items()}
+    fns |= {("dkv", n): f for n, f in compile_variants(
+        "flash_attn_bwd_dkv_tf32x3.cu", {f"dkv_{n}": v for n, v in dkv_variants.items()},
+        "vtt_flash_attn_bwd_dkv_tf32x3").items()}
+    for rnd in range(2):
+        for (which, n), fn in fns.items():
+            if fn is None:
+                continue
+            line = []
+            for name, (q, k, v, do, lse, delta, want, causal) in data.items():
+                B, S, H, D = q.shape
+                outs = [torch.empty(q.shape, device="cuda") for _ in range(1 if which == "dq" else 2)]
+
+                def run():
+                    # the stream of the call: a CUDA-graph capture runs on one of its own
+                    stream = torch.cuda.current_stream().cuda_stream
+                    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                              lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
+                              B, H, H, S, S, D, *A._bwd_strides(q, k, v, do), int(causal), 0,
+                              D ** -0.5, stream)
+                    assert code == 0, code
+
+                ms = c.graph_ms(run, launches=3, replays=5)
+                ref = want[:1] if which == "dq" else want[1:]
+                err = max((o - w).abs().max().item() / w.abs().max().item()
+                          for o, w in zip(outs, ref))
+                line.append(f"{name} {ms:.3f} ms (err {err:.1e})")
+            print(f"[flash_bwd_fp32 round {rnd}] {n}: " + ", ".join(line), flush=True)
+        for name, (q, k, v, do, lse, delta, want, causal) in data.items():
+            B, S, H, D = q.shape
+            dq_e, dk_e, dv_e = (torch.empty(q.shape, device="cuda") for _ in range(3))
+            fma = (q, k, v, do, lse, delta, None, None)
+            e_dq = c.graph_ms(lambda: A._bwd_launch(False, *fma, dq_e, None, causal, 0, D ** -0.5),
+                              launches=3, replays=5)
+            e_dkv = c.graph_ms(lambda: A._bwd_launch(True, *fma, dk_e, dv_e, causal, 0, D ** -0.5),
+                               launches=3, replays=5)
+            ql, kl, vl = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
+            with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+                out_l = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
+            do_l = do.transpose(1, 2)
+            lib = c.median_ms(
+                lambda: torch.autograd.grad(out_l, (ql, kl, vl), do_l, retain_graph=True))
+            print(f"[flash_bwd_fp32 round {rnd}] {name}: FMA flash_bwd_dq_kernel {e_dq:.3f} ms, "
+                  f"flash_bwd_dkv_kernel {e_dkv:.3f} ms; SDPA's fp32 backward (efficient "
+                  f"backend, dq + dk + dv) {lib:.3f} ms", flush=True)
+
+
 def tune_w8_large():
     """The wgmma int8 matmul's tilings at the NLL forward's shapes (M = 8192)."""
     gen = torch.Generator(device="cuda").manual_seed(6)
@@ -548,7 +636,10 @@ if __name__ == "__main__":
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
     _build.library()
-    which = sys.argv[1:] or ["dq", "chunk", "decode", "w8", "w8_step", "flash_fp32", "w8_large"]
+    which = sys.argv[1:] or ["dq", "chunk", "decode", "w8", "w8_step", "flash_fp32", "w8_large",
+                             "flash_bwd_fp32"]
+    if "flash_bwd_fp32" in which:
+        tune_flash_bwd_fp32()
     if "flash_fp32" in which:
         tune_flash_fp32()
     if "w8_large" in which:

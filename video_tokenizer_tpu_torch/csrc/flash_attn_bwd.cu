@@ -1,10 +1,12 @@
 // Flash-attention backward for Hopper (sm_90a), bf16 and fp32: dQ and dK/dV.
-// Both kernels here serve fp32 inputs, head dim 128 and segment ids; bf16 at
-// head dim 32 or 64 without segment ids (every shape of the bf16 training
-// paths) runs csrc/flash_attn_bwd_dq_sm90.cu and
+// Both kernels here serve head dim 128 and segment ids, in bf16 and in fp32;
+// at head dim 32 or 64 without segment ids (every shape of the training
+// paths) bf16 runs csrc/flash_attn_bwd_dq_sm90.cu and
 // csrc/flash_attn_bwd_dkv_sm90.cu instead, which compute the same functions
-// with wgmma; ops/attention.py::flash_kernels chooses, by dtype, head dim and
-// masks only.
+// with wgmma, and fp32 csrc/flash_attn_bwd_dq_tf32x3.cu and
+// csrc/flash_attn_bwd_dkv_tf32x3.cu, on the tensor cores as three TF32
+// products per product; ops/attention.py::flash_kernels chooses, by dtype,
+// head dim and masks only.
 //
 // Replaces two TPU kernels of the JAX package:
 //   * video_tokenizer_tpu/ops/attention.py::_bwd_dq_kernel  (dQ), and
@@ -35,8 +37,9 @@
 //     per QUERY head ([B, Sk, H, D]); the caller sums each group, as the JAX
 //     package does outside its kernel.
 //   * bf16: P and dS are rounded to bf16 before their products (as the TPU
-//     kernels round them to the operand dtype); every sum is fp32. fp32: all
-//     products are fp32 FMAs (tensor cores would round to TF32).
+//     kernels round them to the operand dtype); every sum is fp32. fp32 (head
+//     dim 128 or segment ids): all products are fp32 FMAs (one TF32 product
+//     on the tensor cores would keep three decimal digits).
 //   Outputs are contiguous: dQ [B, Sq, H, D], dK and dV [B, Sk, H, D], in the
 //   input dtype. q, k, v and dO are read through element strides, so the
 //   strided q/k/v views of a fused qkv projection need no copy.
@@ -57,12 +60,13 @@
 // What bounds it: the backward does 2.5x the forward's flops (five S-sized
 // products instead of two) over the same bytes, so it is bound by operations
 // like the forward: tensor-core operations in bf16, fp32 FMAs on the CUDA
-// cores in fp32. What this simple design leaves on the table for the bf16
-// shapes it still takes: no wgmma, no asynchronous tile ring (each tile load
-// stalls the block), A fragments gathered from shared memory with 32-bit
-// loads, expf instead of exp2 (what the two wgmma kernels do for their
-// shapes); and S and dP are computed twice, once in each kernel (a fused
-// kernel would add dQ with atomics instead).
+// cores in fp32. What this simple design leaves on the table for the shapes
+// it still takes (head dim 128 and segment ids, on no training path): no
+// wgmma or 3xTF32 products, no asynchronous tile ring (each tile load stalls
+// the block), A fragments gathered from shared memory with 32-bit loads, expf
+// instead of exp2 (what the tensor-core kernels do for their shapes); and S
+// and dP are computed twice, once in each kernel (a fused kernel would add dQ
+// with atomics instead).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -6,7 +6,10 @@
 // the tensor cores as three TF32 products ("3xTF32").
 // Used by flash_attn_fwd_sm90.cu, flash_attn_bwd_dkv_sm90.cu,
 // flash_attn_bwd_dq_sm90.cu, chunk_attention_sm90.cu,
-// decode_attention_sm90.cu, flash_attn_fwd_tf32x3.cu and w8_matmul_sm90.cu;
+// decode_attention_sm90.cu, flash_attn_fwd_tf32x3.cu,
+// flash_attn_bwd_dq_tf32x3.cu, flash_attn_bwd_dkv_tf32x3.cu and
+// w8_matmul_sm90.cu (the fp32 tiles read both ways by the two 3xTF32
+// backward kernels);
 // the K/V cache tiles by the chunk and decode kernels, the int8 -> bf16
 // conversion by those two and the int8 matmul, the TMA copies and
 // transaction barriers by the int8 matmul.
@@ -443,6 +446,171 @@ __device__ __forceinline__ void mma_m16n8k8_tf32x3(float (&d)[4], const uint32_t
   mma_m16n8k8_tf32(d, a_lo, b0_hi, b1_hi);
   mma_m16n8k8_tf32(d, a_hi, b0_lo, b1_lo);
   mma_m16n8k8_tf32(d, a_hi, b0_hi, b1_hi);
+}
+
+// ---- fp32 tiles read both ways (the 3xTF32 flash backward kernels)
+// Rows of D fp32 values (D = 32 or 64), row r at byte r * D * 4, its 16-byte
+// chunk c at chunk position c ^ swizzle(r). A product reads such a tile in one
+// of two orientations, 16 bytes a thread, and both hit every bank group once
+// in each quarter warp (lanes g = 2 q, 2 q + 1, tig = 0..3):
+//   * along D, the tile's rows being the product's N index (K in Q.K^T):
+//     chunk 4 p + tig of rows 8 n + g. Two rows of opposite parity: bit 2 of
+//     the swizzle flips with the parity;
+//   * along the rows, the rows being the inner index (K in dS.K): chunk
+//     (D / 32) g + c of rows 8 j + 2 tig + e, four rows of one parity. The
+//     swizzle's other bit is tig's low bit (r >> 1) and bit 2 carries its high
+//     bit (r >> 2), so tig spreads the chunks over the bank groups that g
+//     leaves free (bits 0 and 2 at D = 64, bits 1 and 2 at D = 32).
+template <int D>
+struct Fp32Tile {
+  static constexpr int kChunks = D / 4;  // 16-byte chunks of a row
+  static constexpr int kRowBytes = D * 4;
+  __device__ static int at(int r, int c) {
+    const int flip = ((r >> 2) ^ r) & 1;
+    const int s = (((r >> 1) & 1) << (D == 64 ? 0 : 1)) | (flip << 2);
+    return r * kRowBytes + ((c ^ s) << 4);
+  }
+};
+
+// One thread's share (of kThreads) of the 16-byte asynchronous copies of kRows
+// rows, from row0, of a [len, D] fp32 matrix (row stride `stride` elements)
+// into an Fp32Tile<D> at dst; rows past len are zero-filled.
+template <int D, int kRows, int kThreads>
+__device__ __forceinline__ void fp32_tile_load(uint32_t dst, const float* src, long long stride,
+                                               int row0, int len) {
+  using T = Fp32Tile<D>;
+  static_assert(kRows * T::kChunks % kThreads == 0, "every thread copies as many chunks");
+#pragma unroll
+  for (int it = 0; it < kRows * T::kChunks / kThreads; ++it) {
+    const int i = threadIdx.x + it * kThreads;
+    const int r = i / T::kChunks, c = i % T::kChunks;
+    const bool in = row0 + r < len;
+    const long long row = in ? row0 + r : 0;
+    cp_async16(dst + T::at(r, c), src + row * stride + c * 4, in ? 16 : 0);
+  }
+}
+
+// The two warp-level products of the 3xTF32 flash backward kernels, on
+// Fp32Tile<D> tiles; accumulators in the mma C layout (element e of n-tile n:
+// row g + 8 (e >> 1), column 8 n + 2 tig + (e & 1)).
+//
+// acc = A.B^T over D for rows a_row0 .. a_row0 + 15 of sA and the kCols rows of
+// sB, both read along D: slot tig (+4) of k-step 2 kp + i is head-dim value
+// 16 kp + 4 tig + 2 i (+1), so a thread's four slots of a pair of k-steps are
+// one 16-byte read of each tile (S = Q.K^T, dP = dO.V^T, and transposed).
+template <int D, int kCols>
+__device__ __forceinline__ void tf32x3_rows_dot_rows(float (&acc)[kCols / 8][4],
+                                                     const unsigned char* sA, int a_row0,
+                                                     const unsigned char* sB, int g, int tig) {
+  using T = Fp32Tile<D>;
+#pragma unroll
+  for (int n = 0; n < kCols / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll
+  for (int kp = 0; kp < D / 16; ++kp) {
+    const float4 x0 = *reinterpret_cast<const float4*>(sA + T::at(a_row0 + g, 4 * kp + tig));
+    const float4 x1 = *reinterpret_cast<const float4*>(sA + T::at(a_row0 + g + 8, 4 * kp + tig));
+    const float a[2][4] = {{x0.x, x1.x, x0.y, x1.y}, {x0.z, x1.z, x0.w, x1.w}};
+    uint32_t ah[2][4], al[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) split_tf32(a[i][j], ah[i][j], al[i][j]);
+#pragma unroll
+    for (int n = 0; n < kCols / 8; ++n) {
+      const float4 y = *reinterpret_cast<const float4*>(sB + T::at(8 * n + g, 4 * kp + tig));
+      uint32_t bh[4], bl[4];
+      split_tf32(y.x, bh[0], bl[0]);
+      split_tf32(y.y, bh[1], bl[1]);
+      split_tf32(y.z, bh[2], bl[2]);
+      split_tf32(y.w, bh[3], bl[3]);
+      mma_m16n8k8_tf32x3(acc[n], ah[0], al[0], bh[0], bh[1], bl[0], bl[1]);
+      mma_m16n8k8_tf32x3(acc[n], ah[1], al[1], bh[2], bh[3], bl[2], bl[3]);
+    }
+  }
+}
+
+// out += P.B for a warp's 16 x kCols block P in the C layout and the kCols
+// rows of sB read along the rows (dQ += dS.K, dV += P^T.dO, dK += dS^T.Q).
+// k-step j: slots tig and tig + 4 are rows 8 j + 2 tig and 8 j + 2 tig + 1 of
+// sB, the columns this thread holds of P's n-tile j, so P is the A operand
+// with no shuffle. The output's columns are permuted: column g of n-tile n is
+// head-dim value (D / 8) g + n, so a thread reads D / 8 consecutive values of
+// an sB row, and holds D / 8 consecutive values (D / 8) (2 tig + h) + n of its
+// output rows. The tile's product goes to an accumulator of its own, joined
+// to `out` by a rounded add: the tensor core does not round the sums it adds
+// into an accumulator to nearest, and over all the tiles of S = 2048 in one
+// accumulator that error grows with S (PERF.md: 2.2e-5 of max|out| in the
+// fp32 forward, against 3.4e-6 per tile).
+template <int D, int kCols>
+__device__ __forceinline__ void tf32x3_probs_times_rows(float (&out)[D / 8][4],
+                                                        const float (&pm)[kCols / 8][4],
+                                                        const unsigned char* sB, int g, int tig) {
+  using T = Fp32Tile<D>;
+  constexpr int kNT = D / 8;
+  float acc[kNT][4];
+#pragma unroll
+  for (int n = 0; n < kNT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < kCols / 8; ++j) {
+    uint32_t ah[4], al[4];
+    split_tf32(pm[j][0], ah[0], al[0]);
+    split_tf32(pm[j][2], ah[1], al[1]);
+    split_tf32(pm[j][1], ah[2], al[2]);
+    split_tf32(pm[j][3], ah[3], al[3]);
+    // head-dim values kNT g .. kNT g + kNT - 1 of the two sB rows
+    float br[2][kNT];
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int c = 0; c < kNT / 4; ++c) {
+        const float4 x =
+            *reinterpret_cast<const float4*>(sB + T::at(8 * j + 2 * tig + e, (kNT / 4) * g + c));
+        br[e][4 * c] = x.x;
+        br[e][4 * c + 1] = x.y;
+        br[e][4 * c + 2] = x.z;
+        br[e][4 * c + 3] = x.w;
+      }
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      uint32_t b0h, b0l, b1h, b1l;
+      split_tf32(br[0][n], b0h, b0l);
+      split_tf32(br[1][n], b1h, b1l);
+      mma_m16n8k8_tf32x3(acc[n], ah, al, b0h, b1h, b0l, b1l);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < kNT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) out[n][e] += acc[n][e];
+}
+
+// Stores a warp's 16 x D accumulator (columns permuted as
+// tf32x3_probs_times_rows leaves them) times `scale` to rows rows[0], rows[1]
+// of a contiguous [B, S, H, D] fp32 tensor, 16 bytes a store; rows past S
+// are not written.
+template <int D>
+__device__ __forceinline__ void tf32x3_store_rows(float* dst, const float (&acc)[D / 8][4],
+                                                  float scale, int b, int h, int H, int S,
+                                                  const int (&rows)[2], int tig) {
+  constexpr int kNT = D / 8;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= S) continue;
+    float* row = dst + (((long long)b * S + rows[r]) * H + h) * D + 2 * kNT * tig;
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+#pragma unroll
+      for (int c = 0; c < kNT / 4; ++c) {
+        const int e = 2 * r + half;
+        *reinterpret_cast<float4*>(row + kNT * half + 4 * c) =
+            make_float4(acc[4 * c][e] * scale, acc[4 * c + 1][e] * scale,
+                        acc[4 * c + 2][e] * scale, acc[4 * c + 3][e] * scale);
+      }
+  }
 }
 
 // ---- K/V cache tiles for the mma.sync attention kernels (chunk and decode)

@@ -141,6 +141,8 @@ SIGNATURES = {
     "vtt_chunk_attention": ([_P] * 10 + [_I] * 9 + [_LL, _LL, _F, _P], _I),
     "vtt_chunk_attention_sm90": ([_P] * 10 + [_I] * 9 + [_LL, _LL, _F, _P], _I),
     "vtt_flash_attn_bwd_dq_sm90": ([_P] * 7 + [_I] * 6 + [_LL] * 12 + [_I, _I, _F, _P], _I),
+    "vtt_flash_attn_bwd_dq_tf32x3": ([_P] * 7 + [_I] * 6 + [_LL] * 12 + [_I, _I, _F, _P], _I),
+    "vtt_flash_attn_bwd_dkv_tf32x3": ([_P] * 8 + [_I] * 6 + [_LL] * 12 + [_I, _I, _F, _P], _I),
     "vtt_write_rows": ([_P] * 7 + [_I] * 6 + [_LL, _LL, _P], _I),
     "vtt_error_string": ([_I], ctypes.c_char_p),
 }

@@ -20,16 +20,21 @@ attention: head h reads KV head h // (H // Hkv)).
   rounds to MASK in fp32, so it returns the SUM of the V rows instead.
 * `flash_attn_bwd` wraps `csrc/flash_attn_bwd_dq_sm90.cu` and
   `csrc/flash_attn_bwd_dkv_sm90.cu` (wgmma; bf16, head dim 32 or 64, no
-  segment ids) and `csrc/flash_attn_bwd.cu` (both gradients for fp32, head
-  dim 128 and segment ids), which replace the TPU kernels `_bwd_dq_kernel`
-  and `_bwd_dkv_kernel`; on a CPU tensor it runs `attention_bwd_reference`,
-  the same recompute from the forward's LSE in plain PyTorch. Both give
-  exactly the gradient of `attention_reference`, the no-match rows included.
+  segment ids), `csrc/flash_attn_bwd_dq_tf32x3.cu` and
+  `csrc/flash_attn_bwd_dkv_tf32x3.cu` (fp32, head dim 32 or 64, no segment
+  ids: mma.sync with each product as three TF32 products) and
+  `csrc/flash_attn_bwd.cu` (both gradients for head dim 128 and segment
+  ids), which replace the TPU kernels `_bwd_dq_kernel` and
+  `_bwd_dkv_kernel`; on a CPU tensor it runs `attention_bwd_reference`, the
+  same recompute from the forward's LSE in plain PyTorch. Both give exactly
+  the gradient of `attention_reference`, the no-match rows included.
 * `attention_tiled_reference`, `attention_bwd_dq_tiled_reference` and
   `attention_bwd_dkv_tiled_reference` repeat the wgmma kernels' arithmetic
-  tile by tile in plain PyTorch, and `attention_tf32x3_tiled_reference`
-  (with `split_tf32`) that of the 3xTF32 forward, for the CPU tests
-  (`tests/test_torch_flash_tiled.py`); nothing else calls them.
+  tile by tile in plain PyTorch, and `attention_tf32x3_tiled_reference`,
+  `attention_bwd_dq_tf32x3_tiled_reference` and
+  `attention_bwd_dkv_tf32x3_tiled_reference` (with `split_tf32`) that of
+  the 3xTF32 kernels, for the CPU tests (`tests/test_torch_flash_tiled.py`,
+  `tests/test_torch_tf32x3.py`); nothing else calls them.
 * `attention` is differentiable through `FlashAttention`, a
   `torch.autograd.Function` whose forward is the flash forward with LSE and
   whose backward is `flash_attn_bwd`. `attention_with_lse` has no backward
@@ -56,15 +61,17 @@ def flash_kernels(dtype: torch.dtype, head_dim: int,
     only: bf16 at D = 32 or 64 without segment ids runs the wgmma kernels
     (`csrc/flash_attn_fwd_sm90.cu`, `csrc/flash_attn_bwd_dq_sm90.cu`,
     `csrc/flash_attn_bwd_dkv_sm90.cu`); fp32 at D = 32 or 64 without segment
-    ids runs its forward on the tensor cores as three TF32 products per
-    product (`csrc/flash_attn_fwd_tf32x3.cu`: fp32 accuracy, not TF32's) and
-    its backward on the FMA kernels; D = 128 and segment ids stay on the
-    mma.sync / FMA kernels. No call falls back from one to the other."""
+    ids runs all three on the tensor cores as three TF32 products per
+    product (`csrc/flash_attn_fwd_tf32x3.cu`, `csrc/flash_attn_bwd_dq_tf32x3.cu`,
+    `csrc/flash_attn_bwd_dkv_tf32x3.cu`: fp32 accuracy, not TF32's); D = 128
+    and segment ids stay on the mma.sync / FMA kernels. No call falls back
+    from one to the other."""
     if head_dim in _SM90_HEAD_DIMS and not has_segments:
         if dtype == torch.bfloat16:
             return "flash_fwd_sm90_kernel", "flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel"
         if dtype == torch.float32:
-            return "flash_fwd_tf32x3_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"
+            return ("flash_fwd_tf32x3_kernel", "flash_bwd_dq_tf32x3_kernel",
+                    "flash_bwd_dkv_tf32x3_kernel")
     return "flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"
 
 
@@ -285,6 +292,35 @@ def attention_bwd_dq_tiled_reference(
     that sees no key (LSE = the mask value) gets dq = 0; dS rounded to the
     input dtype before dS.K; fp32 sums; the causal stop at each warpgroup's
     last visible key; dq scaled at the end."""
+    return _bwd_dq_tiles(q, k, v, out, lse, do, causal, segment_ids, kv_segment_ids, sm_scale,
+                         causal_offset, block_m, block_n, _WARPGROUP_ROWS, torch.einsum)
+
+
+def attention_bwd_dq_tf32x3_tiled_reference(
+    q, k, v, out, lse, do, causal: bool = False, segment_ids=None, kv_segment_ids=None,
+    sm_scale: Optional[float] = None, causal_offset: Optional[int] = None,
+    block_m: int = 64, block_n: int = 64,
+) -> torch.Tensor:
+    """The arithmetic of `flash_bwd_dq_tf32x3_kernel`, tile by tile, in plain
+    PyTorch (tests only): fp32 inputs without segment ids (the kernel takes
+    none); otherwise dq as `attention_bwd_reference` returns it.
+
+    What it repeats of the kernel: that of `attention_bwd_dq_tiled_reference`
+    with the causal stop and the choice of the masked path made per 16-row
+    warp, and S, dP and dS.K as three TF32 products of the operands' parts
+    (`split_tf32`), each tile's dS.K summed apart and added to dq."""
+    if q.dtype != torch.float32 or segment_ids is not None:
+        raise ValueError("flash_bwd_dq_tf32x3_kernel takes fp32 inputs without segment ids")
+    return _bwd_dq_tiles(q, k, v, out, lse, do, causal, None, None, sm_scale, causal_offset,
+                         block_m, block_n, _TF32X3_WARP_ROWS, _einsum_tf32x3)
+
+
+def _bwd_dq_tiles(q, k, v, out, lse, do, causal, segment_ids, kv_segment_ids, sm_scale,
+                  causal_offset, block_m: int, block_n: int, group_rows: int, product):
+    """dq over key tiles of `block_n`, the causal stop and the masked path
+    decided per `group_rows` query rows (a warpgroup's or a warp's) of
+    `block_m`-row blocks, with `product` for S, dP and dS.K (dS rounded to
+    the input dtype first); each tile's dS.K is summed apart, then added."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     kf, vf = _expand_kv(k, v, H)
@@ -296,29 +332,29 @@ def attention_bwd_dq_tiled_reference(
     delta = torch.einsum("bqhd,bqhd->bhq", out.float(), dof)[..., None]
     neg_lse = -lse.float()[..., None] * _LOG2E
     rows = torch.arange(Sq, device=q.device)
-    wg_row0 = rows // _WARPGROUP_ROWS * _WARPGROUP_ROWS
+    group_row0 = rows // group_rows * group_rows
     num_tiles = -(-Sk // block_n)
-    tiles_row = torch.full((Sq,), num_tiles, device=q.device)  # tiles each row's warpgroup takes
+    tiles_row = torch.full((Sq,), num_tiles, device=q.device)  # tiles each row's group takes
     if causal and not has_seg:
         block_last = rows // block_m * block_m + block_m - 1 + off
-        wg_last = wg_row0 + _WARPGROUP_ROWS - 1 + off
+        group_last = group_row0 + group_rows - 1 + off
         visible = torch.minimum(torch.div(block_last, block_n, rounding_mode="floor"),
-                                torch.div(wg_last, block_n, rounding_mode="floor")) + 1
-        tiles_row = torch.where(wg_last < 0, 0, visible.clamp(max=num_tiles))
+                                torch.div(group_last, block_n, rounding_mode="floor")) + 1
+        tiles_row = torch.where(group_last < 0, 0, visible.clamp(max=num_tiles))
     dq = torch.zeros((B, H, Sq, D), device=q.device)
     for t in range(num_tiles):
         k0, k1 = t * block_n, min((t + 1) * block_n, Sk)
-        s = torch.einsum("bqhd,bkhd->bhqk", qf, kf[:, k0:k1])  # raw scores, fp32
-        dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf[:, k0:k1])
+        s = product("bqhd,bkhd->bhqk", qf, kf[:, k0:k1])  # raw scores, fp32
+        dp = product("bqhd,bkhd->bhqk", dof, vf[:, k0:k1])
         masked_path = torch.full((Sq,), k0 + block_n > Sk or has_seg, device=q.device)
         if causal:
-            masked_path = masked_path | (k0 + block_n - 1 > wg_row0 + off)
+            masked_path = masked_path | (k0 + block_n - 1 > group_row0 + off)
         keep = mask[:, :, :, k0:k1] | ~masked_path[None, None, :, None]
         # masked pairs: no exponential (the mask value as an LSE would overflow it)
         p = torch.exp2(torch.where(keep, s * (scale * _LOG2E) + neg_lse, 0.0))
         ds = torch.where(keep, p * (dp - delta), 0.0)
         ds = torch.where((t < tiles_row)[None, None, :, None], ds, 0.0)
-        dq += torch.einsum("bhqk,bkhd->bhqd", ds.to(q.dtype).float(), kf[:, k0:k1])
+        dq += product("bhqk,bkhd->bhqd", ds.to(q.dtype).float(), kf[:, k0:k1])
     return (dq * scale).permute(0, 2, 1, 3).to(q.dtype)
 
 
@@ -338,6 +374,38 @@ def attention_bwd_dkv_tiled_reference(
     P^T and dS^T rounded to the input dtype before their products; fp32 sums;
     the causal skip of query tiles wholly before a warpgroup's keys, only
     where every row sees key 0; dK scaled at the end; GQA groups summed."""
+    return _bwd_dkv_tiles(q, k, v, out, lse, do, causal, segment_ids, kv_segment_ids, sm_scale,
+                          causal_offset, block_q, _WARPGROUP_ROWS, torch.einsum)
+
+
+def attention_bwd_dkv_tf32x3_tiled_reference(
+    q, k, v, out, lse, do, causal: bool = False, segment_ids=None, kv_segment_ids=None,
+    sm_scale: Optional[float] = None, causal_offset: Optional[int] = None,
+    block_q: int = 32,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The arithmetic of `flash_bwd_dkv_tf32x3_kernel`, tile by tile, in plain
+    PyTorch (tests only): fp32 inputs without segment ids (the kernel takes
+    none); otherwise (dk, dv) as `attention_bwd_reference` returns them.
+
+    What it repeats of the kernel: that of `attention_bwd_dkv_tiled_reference`
+    (64-key blocks, query tiles of `block_q`) with the choice of the masked
+    path made per 16-key warp,
+    and S^T, dP^T, P^T.dO and dS^T.Q as three TF32 products of the operands'
+    parts (`split_tf32`), each tile's dV and dK products summed apart and
+    added to dV and dK."""
+    if q.dtype != torch.float32 or segment_ids is not None:
+        raise ValueError("flash_bwd_dkv_tf32x3_kernel takes fp32 inputs without segment ids")
+    return _bwd_dkv_tiles(q, k, v, out, lse, do, causal, None, None, sm_scale, causal_offset,
+                          block_q, _TF32X3_WARP_ROWS, _einsum_tf32x3)
+
+
+def _bwd_dkv_tiles(q, k, v, out, lse, do, causal, segment_ids, kv_segment_ids, sm_scale,
+                   causal_offset, block_q: int, group_rows: int, product):
+    """(dk, dv) over query tiles of `block_q` against 64-key blocks, the
+    masked path decided per `group_rows` keys (a warpgroup's or a warp's),
+    with `product` for S^T, dP^T, P^T.dO and dS^T.Q (P^T and dS^T rounded to
+    the input dtype first); each tile's dV and dK products are summed apart,
+    then added."""
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     kf, vf = _expand_kv(k, v, H)
@@ -349,21 +417,23 @@ def attention_bwd_dkv_tiled_reference(
     mask_t = mask.transpose(2, 3)  # [B, 1, Sk, Sq]
     delta = torch.einsum("bqhd,bqhd->bhq", out.float(), dof)
     lse = lse.float()
-    wg_key0 = torch.arange(Sk, device=q.device) // _WARPGROUP_ROWS * _WARPGROUP_ROWS
+    keys = torch.arange(Sk, device=q.device)
+    block_key0 = keys // _WARPGROUP_ROWS * _WARPGROUP_ROWS  # both kernels' blocks: 64 keys
+    group_key0 = keys // group_rows * group_rows
     skip_ok = causal and off >= 0 and not has_seg
     dk = torch.zeros((B, Sk, H, D), device=q.device)
     dv = torch.zeros((B, Sk, H, D), device=q.device)
     for t in range(-(-Sq // block_q)):
         q0, q1 = t * block_q, min((t + 1) * block_q, Sq)
-        s = torch.einsum("bkhd,bqhd->bhkq", kf, qf[:, q0:q1])  # raw scores^T, fp32
-        dp = torch.einsum("bkhd,bqhd->bhkq", vf, dof[:, q0:q1])
+        s = product("bkhd,bqhd->bhkq", kf, qf[:, q0:q1])  # raw scores^T, fp32
+        dp = product("bkhd,bqhd->bhkq", vf, dof[:, q0:q1])
         active = torch.ones((Sk,), dtype=torch.bool, device=q.device)
         if skip_ok:
-            active = ~(q0 + block_q - 1 + off < wg_key0)
+            active = ~(q0 + block_q - 1 + off < block_key0)
         masked_path = torch.full((Sk,), q0 + block_q > Sq or has_seg, device=q.device)
-        masked_path = masked_path | (wg_key0 + _WARPGROUP_ROWS - 1 >= Sk)
+        masked_path = masked_path | (group_key0 + group_rows - 1 >= Sk)
         if causal:
-            masked_path = masked_path | (q0 + off < wg_key0 + _WARPGROUP_ROWS - 1)
+            masked_path = masked_path | (q0 + off < group_key0 + group_rows - 1)
         lse_t, delta_t = lse[:, :, None, q0:q1], delta[:, :, None, q0:q1]
         p_any = torch.exp2(s * (scale * _LOG2E) - lse_t * _LOG2E)
         ds_any = p_any * (dp - delta_t)
@@ -374,8 +444,8 @@ def attention_bwd_dkv_tiled_reference(
         ds = torch.where(on_masked, torch.where(keep, ds_any, 0.0), ds_any)
         live = active[None, None, :, None]
         p, ds = torch.where(live, p, 0.0), torch.where(live, ds, 0.0)
-        dv += torch.einsum("bhkq,bqhd->bkhd", p.to(q.dtype).float(), dof[:, q0:q1])
-        dk += torch.einsum("bhkq,bqhd->bkhd", ds.to(q.dtype).float(), qf[:, q0:q1])
+        dv += product("bhkq,bqhd->bkhd", p.to(q.dtype).float(), dof[:, q0:q1])
+        dk += product("bhkq,bqhd->bkhd", ds.to(q.dtype).float(), qf[:, q0:q1])
     dk = dk * scale
     if Hkv != H:
         rep = H // Hkv
@@ -509,10 +579,20 @@ def _bwd_strides(q, k, v, do):
             v.stride(0), v.stride(1), v.stride(2), do.stride(0), do.stride(1), do.stride(2))
 
 
-def _bwd_launch_sm90(entry: str, q, k, v, do, lse, delta, outs, causal: bool, offset: int,
-                     scale: float) -> None:
-    """Launches a wgmma backward kernel on checked bf16 operands:
-    `vtt_flash_attn_bwd_dq_sm90` writes outs = (dq,), `vtt_flash_attn_bwd_dkv_sm90`
+# the tensor-core backward kernels and their C entries; every other dQ and
+# dK/dV kernel name is `csrc/flash_attn_bwd.cu`'s, through `_bwd_launch`
+_BWD_ENTRIES = {
+    "flash_bwd_dq_sm90_kernel": "vtt_flash_attn_bwd_dq_sm90",
+    "flash_bwd_dkv_sm90_kernel": "vtt_flash_attn_bwd_dkv_sm90",
+    "flash_bwd_dq_tf32x3_kernel": "vtt_flash_attn_bwd_dq_tf32x3",
+    "flash_bwd_dkv_tf32x3_kernel": "vtt_flash_attn_bwd_dkv_tf32x3",
+}
+
+
+def _bwd_launch_tc(entry: str, q, k, v, do, lse, delta, outs, causal: bool, offset: int,
+                   scale: float) -> None:
+    """Launches a tensor-core backward kernel (wgmma in bf16, 3xTF32 in fp32)
+    on checked operands: a dQ entry writes outs = (dq,), a dK/dV entry
     outs = (dk, dv)."""
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
@@ -531,14 +611,15 @@ def flash_attn_bwd_dq(q, k, v, do, lse, delta, q_seg, k_seg, causal: bool, offse
     """The dQ kernel: dq [B, Sq, H, D] (checked operands, see flash_attn_bwd)."""
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     kernel = flash_kernels(q.dtype, q.shape[3], q_seg is not None)[1]
-    if kernel == "flash_bwd_dq_sm90_kernel":
-        _bwd_launch_sm90("vtt_flash_attn_bwd_dq_sm90", q, k, v, do, lse, delta, (dq,),
-                         causal, offset, scale)
+    if kernel in _BWD_ENTRIES:
+        _bwd_launch_tc(_BWD_ENTRIES[kernel], q, k, v, do, lse, delta, (dq,), causal, offset,
+                       scale)
     else:
         _bwd_launch(False, q, k, v, do, lse, delta, q_seg, k_seg, dq, None,
                     causal, offset, scale)
     flash_attn_bwd_dq.launches += 1
     flash_attn_bwd_dq.launches_sm90 += kernel == "flash_bwd_dq_sm90_kernel"
+    flash_attn_bwd_dq.launches_tf32x3 += kernel == "flash_bwd_dq_tf32x3_kernel"
     flash_attn_bwd_dq.last_kernel = kernel
     return dq
 
@@ -551,21 +632,23 @@ def flash_attn_bwd_dkv(q, k, v, do, lse, delta, q_seg, k_seg, causal: bool, offs
     dk = torch.empty(shape, dtype=k.dtype, device=q.device)
     dv = torch.empty(shape, dtype=v.dtype, device=q.device)
     kernel = flash_kernels(q.dtype, D, q_seg is not None)[2]
-    if kernel == "flash_bwd_dkv_sm90_kernel":
-        _bwd_launch_sm90("vtt_flash_attn_bwd_dkv_sm90", q, k, v, do, lse, delta, (dk, dv),
-                         causal, offset, scale)
+    if kernel in _BWD_ENTRIES:
+        _bwd_launch_tc(_BWD_ENTRIES[kernel], q, k, v, do, lse, delta, (dk, dv), causal, offset,
+                       scale)
     else:
         _bwd_launch(True, q, k, v, do, lse, delta, q_seg, k_seg, dk, dv,
                     causal, offset, scale)
     flash_attn_bwd_dkv.launches += 1
     flash_attn_bwd_dkv.launches_sm90 += kernel == "flash_bwd_dkv_sm90_kernel"
+    flash_attn_bwd_dkv.launches_tf32x3 += kernel == "flash_bwd_dkv_tf32x3_kernel"
     flash_attn_bwd_dkv.last_kernel = kernel
     return dk, dv
 
 
 for _kernel in (flash_attn_bwd_dq, flash_attn_bwd_dkv):
-    _kernel.launches = 0  # kernel launches (either kernel), read by chip_smoke.py
+    _kernel.launches = 0  # kernel launches (any of the three), read by chip_smoke.py
     _kernel.launches_sm90 = 0  # of which the wgmma kernel
+    _kernel.launches_tf32x3 = 0  # of which the 3xTF32 kernel
     _kernel.last_kernel = None  # name of the kernel the last call launched
 
 
