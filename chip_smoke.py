@@ -8,7 +8,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
      source, all started together); registers and spill bytes of the
      tensor-core kernels (the three wgmma flash kernels, the three 3xTF32
      flash kernels, the chunk and decode kernels, the streaming and the wgmma
-     int8 matmuls), which may not spill;
+     int8 matmuls, the 3xTF32 VQ search), which may not spill;
   2. the flash-attention forward kernels, out and LSE, against their plain
      PyTorch version on the card: the wgmma kernel (bf16, head dim 32 or 64,
      no segment ids) at the tokenizer's shape, the discriminator's ragged
@@ -22,7 +22,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
      the efficient op with its LSE; the mma.sync / FMA kernel on D = 128 and
      segments with a no-match query; each case must run the kernel the
      dispatch rule names;
-  3. the VQ nearest-code kernel against its plain version (cos, l2, ragged);
+  3. the VQ search (3xTF32 on the tensor cores, the codebook split over a
+     cluster) against its plain version (cos, l2, ragged, d = 4 to 32) and
+     beside the earlier FMA kernel, planted exact ties (the lowest index
+     wins across threads and splits), both bounds;
   4. the decode-attention kernels against their plain version at the 632M
      prior's sampling geometry (B = 16, H = 20, D = 64, S = 1152; bf16, int8
      and fp32 caches; pos 0, 511, 1024), plus GQA and key-valid cases,
@@ -57,9 +60,11 @@ Phases, each of which raises on failure (exit code 1, no result line):
      per step (torch.profiler), the NLL forward and decode_from_bottleneck,
      and exact launch counts (every decode attention on the tensor-core
      kernel, the decode-step projections on the int8 kernels the rule names,
-     the NLL forward's 151 on the wgmma int8 kernel, one row write per layer
-     and step); and 16 tokens with `emb_masks` (prompt positions masked as
-     keys), whose prefill runs the segment-id flash forward;
+     the NLL forward's 151 on the wgmma int8 kernel, every layer's row write
+     inside its decode attention, no separate row write), one step timed
+     and profiled with the row write fused and separate (30 kernels fewer);
+     and 16 tokens with `emb_masks` (prompt positions masked as keys), whose
+     prefill runs the segment-id flash forward;
  10. the flash backward kernels (dQ; dK/dV, after phase 2) against their
      plain backward: the tokenizer's shape from strided views, the
      discriminator's ragged S = 1025, the prior's causal shape, GQA 20/5,
@@ -96,7 +101,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
  14. the per-row KV row-write kernel against its plain version: bf16, fp32
      and int8 caches, G = 1, 2, 5, uneven positions, strided row views: whole
      buffers equal bit for bit (the written rows and scales, and every other
-     byte unchanged);
+     byte unchanged); then the row write fused into the decode and chunk
+     kernels against the separate write + unfused kernel, bit for bit
+     (buffers and outputs; B = 1, 2, 16, edge positions, masks), and its
+     excess over the attention alone, timed over 30 layers' caches;
  15. `decode_chunk` against sequential `decode_step`s on the full-width prior
      in fp32 (TF32 off), forced tokens, rows at different positions, fp32 and
      int8 KV caches; greedy fp32 speculative decoding against `generate`;
@@ -107,8 +115,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
      tokens) and self-drafting with the prior's first 8 layers (256 tokens):
      tokens/s beside plain `generate`'s, acceptance, ms per iteration, device time of one
      iteration's forwards, exact launch counts (no one-token decode
-     attention, every chunk attention on the tensor-core kernel), one host
-     wait per iteration, the crossover acceptance;
+     attention, every chunk attention on the tensor-core kernel with the row
+     write fused, no separate row write), one host wait per iteration, the
+     crossover acceptance;
  17. distillation of the full-width draft against the prior, 10 steps: the
      soft cross-entropy falls; launch counts of the flash forward, dQ and
      dK/dV kernels from the draft's 8 layers.
@@ -221,7 +230,8 @@ def phase_build() -> None:
     # the tensor-core kernels: the wgmma and 3xTF32 flash kernels (forward,
     # dQ, dK/dV) per head dim, the chunk kernel per cache type and number of 16-row tiles, the
     # decode kernel per cache type and KV heads per block, the streaming int8
-    # matmul per x type and number of 8-row tiles, the wgmma int8 matmul;
+    # matmul per x type and number of 8-row tiles, the wgmma int8 matmul, the
+    # 3xTF32 VQ search per code dim and mode;
     # accumulators spilled to local memory would be re-read on every product
     expected = {f"flash_{k}_sm90_kernel<{d}>" for k in ("fwd", "bwd_dq", "bwd_dkv") for d in (32, 64)}
     expected |= {f"chunk_attn_sm90_kernel<{c}, {m}>" for c in ("bf16", "int8") for m in (1, 2)}
@@ -230,6 +240,8 @@ def phase_build() -> None:
                  for t in (1, 2, 4, 6, 8, 10, 16)}
     expected |= {f"flash_{k}_tf32x3_kernel<{d}>" for k in ("fwd", "bwd_dq", "bwd_dkv")
                  for d in (32, 64)} | {"w8_sm90_kernel"}
+    expected |= {f"vq_tc_kernel<{d}, {mode}>" for d in (4, 8, 16, 32)
+                 for mode in ("argmax", "gumbel")}
     types = {"13__nv_bfloat16": "bf16", "a": "int8", "f": "fp32"}
     seen = set()
     for name, (regs, spill) in sorted(_build.kernel_resources(build.log).items()):
@@ -238,6 +250,8 @@ def phase_build() -> None:
             kernel = f"{m.group(1)}<{m.group(2)}>"
         elif "w8_sm90_kernel" in name:
             kernel = "w8_sm90_kernel"
+        elif m := re.search(r"vq_tc_kernelILi(\d+)ELb([01])E", name):
+            kernel = f"vq_tc_kernel<{m.group(1)}, {('argmax', 'gumbel')[int(m.group(2))]}>"
         elif m := re.search(r"(chunk_attn_sm90_kernel|w8_stream_kernel|decode_attn_sm90_kernel)"
                             r"I(13__nv_bfloat16|a|f)Li(\d+)E+v", name):
             kernel = f"{m.group(1)}<{types[m.group(2)]}, {m.group(3)}>"
@@ -670,9 +684,21 @@ def _vq_gap(z, emb, bias, a, b):
 
 
 def phase_vq(records: dict) -> None:
+    """The VQ search (`vq_tc_kernel`: 3xTF32 scores, the codebook split over a
+    cluster) against its plain version in both modes, planted exact ties,
+    and the flagship shape timed beside the earlier FMA kernel
+    (`vq_argmax_kernel`), one PyTorch call and both bounds."""
     import torch
 
-    from video_tokenizer_tpu_torch.ops.vq import vq_argmax, vq_lookup_reference
+    from video_tokenizer_tpu_torch.ops.vq import (
+        _vq_launch, vq_argmax, vq_kernel, vq_lookup_reference,
+    )
+
+    def earlier(z, emb, bias, **kw):  # the FMA kernel, by name
+        idx = torch.empty(z.shape[0], dtype=torch.int32, device="cuda")
+        _vq_launch("vq_argmax_kernel", z, emb, bias, idx, kw.get("stochastic", False),
+                   kw.get("inv_temp", 1.0), kw.get("seed", 0))
+        return idx
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     # indices equal, or different only at near-ties: a score gap under 1e-5
@@ -695,28 +721,70 @@ def phase_vq(records: dict) -> None:
             bias = -0.5 * (emb**2).sum(-1)
         got = vq_argmax(z, emb, bias)
         torch.cuda.synchronize()
+        kernel = vq_argmax.last_kernel
+        require(kernel == vq_kernel(d, False) == "vq_tc_kernel", f"vq {name}: ran {kernel}")
         want = vq_lookup_reference(z, emb, bias)
-        diff = got != want
-        n_diff = int(diff.sum().item())
-        gap = _vq_gap(z[diff], emb, bias, got[diff], want[diff]).max().item() if n_diff else 0.0
-        log(f"[vq] {name}: M={M} K={K} d={d} {metric}: {n_diff} of {M} indices differ "
-            f"(largest score gap {gap:.2e}, tol 1e-5)")
-        require(gap < 1e-5, f"vq {name}: index differs at a score gap {gap}")
+        gaps = {}
+        for who, idx in (("kernel", got), ("earlier", earlier(z, emb, bias))):
+            diff = idx != want
+            n_diff = int(diff.sum().item())
+            gap = _vq_gap(z[diff], emb, bias, idx[diff], want[diff]).max().item() if n_diff else 0.0
+            gaps[who] = (n_diff, gap)
+            require(gap < 1e-5, f"vq {name}: the {who} index differs at a score gap {gap}")
+        (n_diff, gap), (n_diff_e, gap_e) = gaps["kernel"], gaps["earlier"]
+        log(f"[vq] {name}: M={M} K={K} d={d} {metric}: {kernel} {n_diff} of {M} indices differ "
+            f"(largest score gap {gap:.2e}, tol 1e-5); the earlier vq_argmax_kernel {n_diff_e} "
+            f"({gap_e:.2e})")
         if name == "flagship_cos":
-            ms = median_ms(lambda: vq_argmax(z, emb, bias))
-            plain_ms = median_ms(lambda: vq_lookup_reference(z, emb, bias))
-            library_ms = median_ms(lambda: (z @ emb.T).argmax(-1))  # timed here, used nowhere
-            bnd = bound(_nbytes(z, emb, got), 2 * M * K * d, "fp32")
-            log(f"[vq] flagship: kernel {ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
-                f"({bnd['bound_by']}, fp32), plain {plain_ms:.4f} ms, library call "
-                f"((z @ e.T).argmax) {library_ms:.4f} ms (median)")
-            records["vq_argmax"] = {"max_abs_err": gap, "ms": ms, "plain_ms": plain_ms,
-                                    "library_ms": library_ms, **bnd}
+            ms = graph_ms(lambda: vq_argmax(z, emb, bias))
+            earlier_ms = graph_ms(lambda: earlier(z, emb, bias))
+            ms_again = graph_ms(lambda: vq_argmax(z, emb, bias))
+            plain_ms = graph_ms(lambda: vq_lookup_reference(z, emb, bias), launches=5)
+            # timed here, used nowhere
+            library_ms = graph_ms(lambda: (z @ emb.T).argmax(-1), launches=5)
+            flops = 2 * M * K * d
+            bnd = bound(_nbytes(z, emb, got), flops, "tf32x3")
+            fma_bnd = bound(_nbytes(z, emb, got), flops, "fp32")
+            ms = min(ms, ms_again)
+            log(f"[vq] flagship: {kernel} {ms:.4f} ms, the earlier vq_argmax_kernel "
+                f"{earlier_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, three "
+                f"TF32 products; as fp32 FMAs {fma_bnd['bound_ms']:.4f} ms), plain "
+                f"{plain_ms:.4f} ms, library call ((z @ e.T).argmax) {library_ms:.4f} ms "
+                f"(device time, CUDA-graph replay)")
+            records["vq_argmax"] = {"max_abs_err": gap, "ms": ms, "earlier_ms": earlier_ms,
+                                    "plain_ms": plain_ms, "library_ms": library_ms,
+                                    "fma_bound_ms": fma_bnd["bound_ms"], **bnd}
+
+    # planted exact ties: duplicate codes at indices in one thread's group of
+    # four, in other threads of a split and in other splits of the cluster
+    # (1024 codes each at K = 8192); a row equal to a duplicated code scores
+    # it exactly the same at every copy, and the lowest index must win
+    M, K = 64, 8192
+    for metric in ("cos", "l2"):
+        emb = torch.randn(K, 8, generator=gen, device="cuda")
+        if metric == "cos":
+            emb = emb / emb.norm(dim=-1, keepdim=True)
+        plants = {100: (101, 103, 130, 1100, 5000, 8191), 2000: (7000, 7001), 3000: (3005,),
+                  8190: (8191,)}
+        for lo, dups in plants.items():
+            emb[list(dups)] = emb[lo].clone()
+        z = emb[torch.tensor(list(plants), device="cuda").repeat_interleave(M // len(plants))]
+        bias = -0.5 * (emb**2).sum(-1) if metric == "l2" else None
+        want = torch.tensor(list(plants), dtype=torch.int32,
+                            device="cuda").repeat_interleave(M // len(plants))
+        got = vq_argmax(z.contiguous(), emb, bias)
+        torch.cuda.synchronize()
+        wrong = int((got != want).sum().item())
+        log(f"[vq ties] {metric}: {len(plants)} codes duplicated ({sum(map(len, plants.values()))} "
+            f"copies, within a thread's four, across threads and across the cluster's splits): "
+            f"{wrong} of {M} rows miss the lowest index")
+        require(wrong == 0, f"vq ties {metric}: {wrong} rows do not take the lowest index "
+                            f"({got.tolist()})")
 
     # stochastic (Gumbel-max) mode: the kernel and the plain version draw the
     # same Philox bits, so they agree index for index but for rows whose top
-    # two perturbed scores are within a few fp32 ulps (fmaf chains against a
-    # matmul's sums, logf against torch.log)
+    # two perturbed scores are within a few fp32 ulps (three TF32 products
+    # against a matmul's sums, logf against torch.log)
     M = K = 8192
     inv_temp = 1.0 / 0.03
     z = torch.randn(M, 8, generator=gen, device="cuda")
@@ -726,7 +794,10 @@ def phase_vq(records: dict) -> None:
     got = vq_argmax(z, emb, stochastic=True, inv_temp=inv_temp, seed=seed)
     again = vq_argmax(z, emb, stochastic=True, inv_temp=inv_temp, seed=seed)
     other = vq_argmax(z, emb, stochastic=True, inv_temp=inv_temp, seed=seed + 1)
+    got_e = earlier(z, emb, None, stochastic=True, inv_temp=inv_temp, seed=seed)
     torch.cuda.synchronize()
+    require(vq_argmax.last_kernel == vq_kernel(8, True) == "vq_tc_kernel",
+            f"vq stochastic: ran {vq_argmax.last_kernel}")
     want = vq_lookup_reference(z, emb, stochastic=True, inv_temp=inv_temp, seed=seed)
     det = vq_lookup_reference(z, emb)
     diff = got != want
@@ -746,13 +817,16 @@ def phase_vq(records: dict) -> None:
         f"{M} indices differ (agreement {agree:.4%}, tol >= 99.9%; largest perturbed-score gap "
         f"{gap:.2e}, tol 1e-4); the same seed twice equal: {torch.equal(got, again)}; another "
         f"seed changes {(got != other).float().mean().item():.1%} of rows; "
-        f"{changed:.1%} of rows leave the argmax")
+        f"{changed:.1%} of rows leave the argmax; the earlier kernel differs from the plain "
+        f"draw in {int((got_e != want).sum().item())} rows")
     require(agree >= 0.999 and gap < 1e-4, f"vq stochastic: {n_diff} differ, gap {gap}")
     require(torch.equal(got, again), "vq stochastic: the same seed gives other indices")
     require((got != other).any().item(), "vq stochastic: the seed does not move the draw")
-    ms = median_ms(lambda: vq_argmax(z, emb, stochastic=True, inv_temp=inv_temp, seed=seed))
-    plain_ms = median_ms(lambda: vq_lookup_reference(z, emb, stochastic=True, inv_temp=inv_temp,
-                                                     seed=seed), iters=5)
+    kw = dict(stochastic=True, inv_temp=inv_temp, seed=seed)
+    ms = graph_ms(lambda: vq_argmax(z, emb, **kw))
+    earlier_ms = graph_ms(lambda: earlier(z, emb, None, **kw))
+    ms = min(ms, graph_ms(lambda: vq_argmax(z, emb, **kw)))
+    plain_ms = median_ms(lambda: vq_lookup_reference(z, emb, **kw), iters=5)
     # its bound: operations on the SM's 128 fp32 lanes, of which 64 take
     # 32-bit integer multiplies: the product's 8 FMAs a code and the Philox
     # draw's 5 wide 32-bit multiplies a code (ten rounds of two per four
@@ -760,10 +834,12 @@ def phase_vq(records: dict) -> None:
     # are left out. No single PyTorch call draws the same function (its noise
     # is this Philox stream), so it has no library time.
     st_bnd = bound(_nbytes(z, emb, got), 2 * (8 * M * K + 2 * 5 * M * K), "fp32")
-    log(f"[vq stochastic] flagship: kernel {ms:.4f} ms, bound {st_bnd['bound_ms']:.4f} ms "
-        f"({st_bnd['bound_by']}: the product and the Philox multiplies), plain {plain_ms:.4f} "
-        f"ms (median); no library call draws the same function")
-    records["vq_argmax"].update(stochastic_ms=ms, stochastic_plain_ms=plain_ms,
+    log(f"[vq stochastic] flagship: vq_tc_kernel {ms:.4f} ms, the earlier vq_argmax_kernel "
+        f"{earlier_ms:.4f} ms (device time, CUDA-graph replay), bound "
+        f"{st_bnd['bound_ms']:.4f} ms ({st_bnd['bound_by']}: the product and the Philox "
+        f"multiplies), plain {plain_ms:.4f} ms (median); no library call draws the same function")
+    records["vq_argmax"].update(stochastic_ms=ms, stochastic_earlier_ms=earlier_ms,
+                                stochastic_plain_ms=plain_ms,
                                 stochastic_bound_ms=st_bnd["bound_ms"],
                                 stochastic_agreement=agree, stochastic_gap=gap)
 
@@ -1179,6 +1255,227 @@ def phase_cache_update(records: dict) -> None:
                                            int8_library_ms=library_ms, int8_bound_ms=bnd["bound_ms"])
 
 
+def phase_fused_write(records: dict) -> None:
+    """The KV row write fused into the tensor-core decode and chunk kernels
+    (`decode_attention_write`, `chunk_attention_write`) against
+    `write_rows_per_row` followed by the unfused kernel on the same inputs:
+    whole K, V and scale buffers and the outputs equal bit for bit, bf16 and
+    int8 caches, B = 1, 2, 16 (the split kernels below 132 blocks), keys at
+    tile, warp and block edges, chunks at uneven positions with rows past the
+    cache, a key-valid mask that masks the new rows; then 30 layers' worth of
+    each, cold, by graph replay: the fused call's excess over the attention
+    alone is the row write's time."""
+    import torch
+
+    from video_tokenizer_tpu_torch.ops.cache_update import write_rows_per_row, write_rows_reference
+    from video_tokenizer_tpu_torch.ops.decode_attention import (
+        _quantize_rows, chunk_attention, chunk_attention_write, chunk_splits, decode_attention,
+        decode_attention_write, decode_heads_per_block, decode_splits,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    S, D = 1152, 64
+
+    def caches(B, KV, cache_dtype):  # full of other values, to see what is touched
+        lc = {}
+        for n in ("k", "v"):
+            old = torch.randn(B, S, KV, generator=gen, device="cuda")
+            if cache_dtype == torch.int8:
+                lc[n], lc[n + "s"] = _quantize_rows(old)
+            else:
+                lc[n] = old.to(cache_dtype)
+        return lc
+
+    def qkv_of(B, G, H, Hkv, dtype):
+        qkv = (torch.randn(B, G, (H + 2 * Hkv) * D, generator=gen, device="cuda") * 3).to(dtype)
+        return (qkv[..., : H * D].unflatten(-1, (H, D)), qkv[..., H * D : (H + Hkv) * D],
+                qkv[..., (H + Hkv) * D :])
+
+    def masking(B, new_keys):  # random keys masked, key 0 kept, the new keys masked
+        valid = torch.rand(B, S, generator=gen, device="cuda") > 0.3
+        valid[:, 0] = True
+        valid.scatter_(1, new_keys.clamp(max=S - 1), False)
+        valid[:, 0] |= new_keys.min(1).values == 0  # a row whose only key is new keeps it
+        return valid
+
+    def check(what, fused_lc, sep_lc, got, want, before):
+        for n in sep_lc:
+            require(torch.equal(fused_lc[n], sep_lc[n]),
+                    f"fused write {what}: '{n}' differs from write_rows_per_row's in "
+                    f"{(fused_lc[n] != sep_lc[n]).sum().item()} places")
+        require(not torch.equal(fused_lc["k"], before["k"]), f"fused write {what}: nothing written")
+        require(torch.equal(got, want), f"fused write {what}: outputs differ by "
+                                        f"{(got.float() - want.float()).abs().max().item()}")
+
+    H = Hkv = 20
+    n_dec = 0
+    splits_seen = set()
+    for cache_dtype in (torch.bfloat16, torch.int8):
+        for B in (1, 2, 16):
+            lc0 = caches(B, Hkv * D, cache_dtype)
+            q, rows_k, rows_v = qkv_of(B, 1, H, Hkv, torch.bfloat16)
+            q = q[:, 0]
+            splits_seen.add(decode_splits(B, Hkv, S, decode_heads_per_block(cache_dtype, H, Hkv)))
+            for pos in (0, 15, 16, 63, 64, 511, 1023, S - 1):
+                pos_t = torch.full((1,), pos, dtype=torch.int32, device="cuda")
+                pos_b = pos_t.expand(B).contiguous()
+                for masked in (False, True):
+                    valid = masking(B, pos_b[:, None].long()) if masked else None
+                    fused = {n: t.clone() for n, t in lc0.items()}
+                    sep = {n: t.clone() for n, t in lc0.items()}
+                    got = decode_attention_write(q, rows_k, rows_v, fused, pos_t, key_valid=valid,
+                                                 kv_heads=Hkv)
+                    write_rows_per_row(sep, rows_k, rows_v, pos_b)
+                    want = decode_attention(q, sep["k"], sep["v"], pos_t, key_valid=valid,
+                                            k_scale=sep.get("ks"), v_scale=sep.get("vs"),
+                                            kv_heads=Hkv)
+                    torch.cuda.synchronize()
+                    check(f"decode {str(cache_dtype)[6:]} B={B} pos {pos} mask {masked}",
+                          fused, sep, got, want, lc0)
+                    n_dec += 1
+            del lc0
+    log(f"[fused write] decode: {n_dec} cases (bf16 and int8 caches, B = 1, 2, 16: "
+        f"{sorted(splits_seen)} splits; pos 0, 15, 16, 63, 64, 511, 1023, {S - 1}; with and "
+        f"without a key-valid mask that masks the new row): K, V and scale buffers and outputs "
+        f"equal write_rows_per_row + decode_attention bit for bit")
+
+    n_chunk = 0
+    edges = [0, 15, 16, 63, 64, 511, 1023, S - 1, S - 3, 100, 200, 300, 12, 14, 60, 62]
+    for name, H, Hkv, cache_dtype, q_dtype, Gs in (
+        ("verify", 20, 20, torch.bfloat16, torch.bfloat16, (1, 5)),
+        ("verify", 20, 20, torch.int8, torch.bfloat16, (1, 5)),
+        ("verify fp32 q", 20, 20, torch.bfloat16, torch.float32, (5,)),
+        ("draft", 12, 12, torch.int8, torch.bfloat16, (2,)),
+    ):
+        for B in (1, 2, 16):
+            lc0 = caches(B, Hkv * D, cache_dtype)
+            for G in Gs:
+                q, rows_k, rows_v = qkv_of(B, G, H, Hkv, q_dtype)
+                for at in range(0, len(edges), B):  # every edge position in some row
+                    pos = torch.tensor((edges * 2)[at : at + B], dtype=torch.int32, device="cuda")
+                    new = pos[:, None].long() + torch.arange(G, device="cuda")
+                    for masked in (False, True):
+                        valid = masking(B, new) if masked else None
+                        fused = {n: t.clone() for n, t in lc0.items()}
+                        sep = {n: t.clone() for n, t in lc0.items()}
+                        got = chunk_attention_write(q, rows_k, rows_v, fused, pos, key_valid=valid,
+                                                    kv_heads=Hkv)
+                        write_rows_per_row(sep, rows_k, rows_v, pos)
+                        want = chunk_attention(q, sep["k"], sep["v"], pos, key_valid=valid,
+                                               k_scale=sep.get("ks"), v_scale=sep.get("vs"),
+                                               kv_heads=Hkv)
+                        torch.cuda.synchronize()
+                        check(f"chunk {name} {str(cache_dtype)[6:]} B={B} G={G} pos "
+                              f"{pos.tolist()} mask {masked}", fused, sep, got, want, lc0)
+                        n_chunk += 1
+            del lc0
+    log(f"[fused write] chunk: {n_chunk} cases (the verify shape G = 1 and 5 with bf16 and int8 "
+        f"caches, fp32 queries and rows over a bf16 cache, the draft's G = 2 with an int8 cache; "
+        f"B = 1, 2, 16: {chunk_splits('chunk_attn_sm90_kernel', 1, 20, S)} / "
+        f"{chunk_splits('chunk_attn_sm90_kernel', 2, 20, S)} / 1 splits; uneven positions at "
+        f"tile, warp and block edges, rows past the cache; with and without a mask on the new "
+        f"rows): buffers and outputs equal write_rows_per_row + chunk_attention bit for bit")
+
+    # a fused launch captured in a CUDA graph (its shared memory includes the
+    # staged rows) still replays after unfused launches of the same kernel
+    B, H, Hkv = 16, 20, 20
+    for cache_dtype in (torch.bfloat16, torch.int8):
+        lc = caches(B, Hkv * D, cache_dtype)
+        q, rows_k, rows_v = qkv_of(B, 1, H, Hkv, torch.bfloat16)
+        q = q[:, 0]
+        pos_t = torch.full((1,), 700, dtype=torch.int32, device="cuda")
+        want = decode_attention_write(q, rows_k, rows_v, lc, pos_t, kv_heads=Hkv)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            decode_attention_write(q, rows_k, rows_v, lc, pos_t, kv_heads=Hkv)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = decode_attention_write(q, rows_k, rows_v, lc, pos_t, kv_heads=Hkv)
+        decode_attention(q, lc["k"], lc["v"], pos_t, k_scale=lc.get("ks"), v_scale=lc.get("vs"),
+                         kv_heads=Hkv)
+        graph.replay()
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"fused write {cache_dtype}: the captured launch, "
+                                        f"replayed after an unfused one, differs")
+    log("[fused write] a captured fused launch replays after unfused launches of the same "
+        "kernel (bf16 and int8 caches): same output")
+
+    # 30 layers' caches (distinct: cold, as a step reads them), one call per
+    # layer in a graph; in turn: fused, attention alone, separate write +
+    # attention, and back
+    B, H, Hkv, layers = 16, 20, 20, 30
+    rec: dict = {}
+    for cache_dtype in (torch.bfloat16, torch.int8):
+        lcs = [caches(B, Hkv * D, cache_dtype) for _ in range(layers)]
+        tag = str(cache_dtype)[6:]
+        for kind, G in (("decode", 1), ("chunk", 5)):
+            q, rows_k, rows_v = qkv_of(B, G, H, Hkv, torch.bfloat16)
+            for pos in (512, 1024):
+                pos_t = torch.full((1,), pos, dtype=torch.int32, device="cuda")
+                pos_b = pos_t.expand(B).contiguous()
+
+                def attend(lc):
+                    kw = dict(k_scale=lc.get("ks"), v_scale=lc.get("vs"), kv_heads=Hkv)
+                    if kind == "decode":
+                        return decode_attention(q[:, 0], lc["k"], lc["v"], pos_t, **kw)
+                    return chunk_attention(q, lc["k"], lc["v"], pos_b, **kw)
+
+                def fused():
+                    for lc in lcs:
+                        if kind == "decode":
+                            decode_attention_write(q[:, 0], rows_k, rows_v, lc, pos_t, kv_heads=Hkv)
+                        else:
+                            chunk_attention_write(q, rows_k, rows_v, lc, pos_b, kv_heads=Hkv)
+
+                def alone():
+                    for lc in lcs:
+                        attend(lc)
+
+                def separate():
+                    for lc in lcs:
+                        write_rows_per_row(lc, rows_k, rows_v, pos_b)
+                        attend(lc)
+
+                runs = {"fused": fused, "alone": alone, "separate": separate}
+                times: dict = {k: [] for k in runs}
+                for k in ("fused", "alone", "separate", "separate", "alone", "fused"):
+                    times[k].append(graph_ms(runs[k], launches=1, replays=5) / layers)
+                t = {k: min(v) for k, v in times.items()}
+                excess, sep_cost = t["fused"] - t["alone"], t["separate"] - t["alone"]
+                log(f"[fused write] {kind} {tag} cache, B={B} G={G} at pos {pos}, {layers} layers' "
+                    f"caches, per layer: fused {t['fused'] * 1e3:.2f} us, attention alone "
+                    f"{t['alone'] * 1e3:.2f}, separate write + attention {t['separate'] * 1e3:.2f} "
+                    f"(in turn: " + ", ".join(f"{k} {' / '.join(f'{x * 1e3:.2f}' for x in v)}"
+                                             for k, v in times.items())
+                    + f"): the fused write's excess {excess * 1e3:.2f} us against "
+                    f"{sep_cost * 1e3:.2f} us for the separate launch; {layers} layers save "
+                    f"{(t['separate'] - t['fused']) * layers * 1e3:.1f} us (device time, CUDA-graph "
+                    f"replay)")
+                rec[f"{kind}_{tag}_{pos}"] = dict(excess_ms=excess, separate_ms=sep_cost,
+                                                  fused_ms=t["fused"], alone_ms=t["alone"])
+        del lcs
+    # what the write alone moves, one decode step's rows (the bound), its plain
+    # version (eager: its boolean mask waits for the device) and index_put_
+    lc = caches(B, Hkv * D, torch.bfloat16)
+    _, rows_k, rows_v = qkv_of(B, 1, H, Hkv, torch.bfloat16)
+    pos_b = torch.full((B,), 512, dtype=torch.int32, device="cuda")
+    bidx, at = torch.arange(B, device="cuda")[:, None], pos_b[:, None].long()
+    plain_ms = median_ms(lambda: write_rows_reference(lc, rows_k, rows_v, pos_b), iters=20)
+    library_ms = graph_ms(lambda: (lc["k"].index_put_((bidx, at), rows_k),
+                                   lc["v"].index_put_((bidx, at), rows_v)))
+    bnd = bound(2 * _nbytes(rows_k, rows_v) + _nbytes(pos_b))
+    head = rec["decode_bfloat16_512"]
+    records["kv_row_write_fused"] = {
+        "max_abs_err": 0.0, "ms": head["excess_ms"], "earlier_ms": head["separate_ms"],
+        "plain_ms": plain_ms, "library_ms": library_ms, **bnd,
+        **{f"{k}_{m}": v[m] for k, v in rec.items() for m in ("excess_ms", "separate_ms")}}
+    log(f"[fused write] one decode step's rows [16, 1, 1280] bf16: bound {bnd['bound_ms']:.6f} ms "
+        f"({bnd['bound_by']}), plain {plain_ms:.4f} ms (one eager call), library call "
+        f"(index_put_ on K and V) {library_ms:.4f} ms (CUDA-graph replay)")
+
+
 # (K, N) of the projections of one decode step, in layer order: 30 layers of
 # the 632M prior (wqkv, wo, w1, w3, w2) and its output head; the draft's 8
 # layers and head
@@ -1435,7 +1732,8 @@ def phase_e2e_bf16(model_fp32, records: dict) -> None:
     torch.cuda.synchronize()
 
     iters = 5
-    flash_attn_fwd.launches = flash_attn_fwd.launches_sm90 = vq_argmax.launches = 0
+    flash_attn_fwd.launches = flash_attn_fwd.launches_sm90 = 0
+    vq_argmax.launches = vq_argmax.launches_tc = 0
     times = []
     for _ in range(iters):
         t0 = time.perf_counter()
@@ -1443,7 +1741,7 @@ def phase_e2e_bf16(model_fp32, records: dict) -> None:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     launches = {"flash_attn_fwd": flash_attn_fwd.launches, "vq_argmax": vq_argmax.launches}
-    sm90_launches = flash_attn_fwd.launches_sm90
+    sm90_launches, vq_tc = flash_attn_fwd.launches_sm90, vq_argmax.launches_tc
 
     clips_per_s = B / statistics.median(times)
     mse = torch.mean((rec - x).reshape(B, -1) ** 2, dim=-1)
@@ -1454,8 +1752,8 @@ def phase_e2e_bf16(model_fp32, records: dict) -> None:
         f"mse {mse.mean().item():.5f}, psnr {psnr_from_mse(mse).mean().item():.3f} dB")
     log(f"[e2e bf16] launches in {iters} forwards: flash {launches['flash_attn_fwd']}, "
         f"vq {launches['vq_argmax']} (expect {24 * iters} and {iters}), of the flash launches "
-        f"{sm90_launches} the wgmma kernel (expect all); "
-        f"mean|bf16 - fp32| of clip 0: {bf16_vs_fp32:.3e} (tol 1e-2)")
+        f"{sm90_launches} the wgmma kernel (expect all), of the VQ launches {vq_tc} "
+        f"vq_tc_kernel (expect all); mean|bf16 - fp32| of clip 0: {bf16_vs_fp32:.3e} (tol 1e-2)")
     require(tuple(rec.shape) == (B, 3, 16, 128, 128), "bf16 reconstruction shape")
     require(torch.isfinite(rec).all().item() and torch.isfinite(mse).all().item(), "non-finite output")
     # bf16 activations through 24 layers against the fp32 card path: about
@@ -1464,6 +1762,7 @@ def phase_e2e_bf16(model_fp32, records: dict) -> None:
     require(launches == {"flash_attn_fwd": 24 * iters, "vq_argmax": iters},
             f"launch counts {launches}")
     require(sm90_launches == 24 * iters, f"{sm90_launches} of the flash launches ran the wgmma kernel")
+    require(vq_tc == iters, f"{vq_tc} of the VQ launches ran vq_tc_kernel")
     for name, n in launches.items():
         records[name]["launches"] = n
     return model
@@ -1480,9 +1779,11 @@ def phase_ar_fp32(records: dict):
 
     from video_tokenizer_tpu_torch import flagship_ar
     from video_tokenizer_tpu_torch.models.larp_ar import quantize_model
+    from video_tokenizer_tpu_torch.ops.cache_update import write_rows_per_row
     from video_tokenizer_tpu_torch.ops.decode_attention import decode_attention
 
     decode_attention.launches = decode_attention.launches_sm90 = 0
+    decode_attention.launches_fused = write_rows_per_row.launches = 0
     model = flagship_ar(torch.float32, torch.Generator().manual_seed(SEED + 20))
     _perturb(model, SEED + 21)
     qmodel = quantize_model(model)
@@ -1554,12 +1855,17 @@ def phase_ar_fp32(records: dict):
                 f"{scale_err:.2e} (tol 1e-5); rows past {live - 1} untouched")
             require(flips <= 1e-3 and max_step <= 1 and scale_err <= 1e-5,
                     f"AR {name}: layer 0's int8 cache differs: {flips}, {max_step}, {scale_err}")
-    # fp32 queries: every decode attention of the parity path on the earlier kernel
+    # fp32 queries: every decode attention of the parity path on the earlier
+    # kernel, each after its layer's row write by csrc/cache_update.cu
     n, n_sm90 = decode_attention.launches, decode_attention.launches_sm90
+    n_rows, n_fused = write_rows_per_row.launches, decode_attention.launches_fused
     log(f"[ar fp32] {n} decode attentions on the card, {n_sm90} by decode_attn_sm90_kernel "
-        f"(expect {3 * steps * 30} and 0: fp32 queries)")
+        f"(expect {3 * steps * 30} and 0: fp32 queries); {n_rows} row writes by "
+        f"write_rows_per_row, {n_fused} fused (expect {3 * steps * 30} and 0)")
     require(n == 3 * steps * 30 and n_sm90 == 0, "AR fp32: decode attention off the earlier kernel")
+    require(n_rows == 3 * steps * 30 and n_fused == 0, "AR fp32: row writes off write_rows_per_row")
     records["decode_attention_split"]["launches"] = n
+    records["cache_update"]["launches"] = n_rows
     del qmodel
     return model
 
@@ -1627,6 +1933,34 @@ def _step_ms_by_w8_kernel(model, tok, pos, cache) -> dict:
     return times
 
 
+def _step_fused_vs_separate(model, tok, pos, cache) -> dict:
+    """{"fused" / "separate": ([ms, ms], kernels, [kernels of each profile])}:
+    the device time of one decode step (graph replay, in turn, twice) and its
+    kernels (the most frequent count of three torch.profiler runs: a run can
+    drop events) with the K/V rows written inside the decode attention as
+    `fuses_row_write` says, and with that chooser answering no, so that each
+    layer's rows go through `write_rows_per_row` first."""
+    import importlib
+
+    ar = importlib.import_module("video_tokenizer_tpu_torch.models.larp_ar")
+    chooser = ar.fuses_row_write
+    choices = {"fused": chooser, "separate": lambda *a, **k: False}
+    out: dict = {c: ([], 0) for c in choices}
+    try:
+        for _ in range(2):
+            for c, (ms, _) in out.items():
+                ar.fuses_row_write = choices[c]
+                ms.append(graph_ms(lambda: model.decode_step(tok, pos, cache), launches=1, replays=50))
+        for c in choices:
+            ar.fuses_row_write = choices[c]
+            counts = [sum(_kernels_in(lambda: model.decode_step(tok, pos, cache)).values())
+                      for _ in range(3)]
+            out[c] = (out[c][0], statistics.mode(counts), counts)
+    finally:
+        ar.fuses_row_write = chooser
+    return out
+
+
 def phase_ar_sampling(model_fp32, tokenizer, records: dict) -> None:
     import torch
 
@@ -1652,6 +1986,7 @@ def phase_ar_sampling(model_fp32, tokenizer, records: dict) -> None:
         for k in kernels:
             k.launches = 0
         decode_attention.launches_sm90 = w8_matmul.launches_stream = w8_matmul.launches_sm90 = 0
+        decode_attention.launches_fused = 0
         t0 = time.perf_counter()
         seq = generate(model, labels, new, gen, **kw)
         torch.cuda.synchronize()
@@ -1667,7 +2002,7 @@ def phase_ar_sampling(model_fp32, tokenizer, records: dict) -> None:
             dec_s = time.perf_counter() - t1
         launches = {k.__name__: k.launches for k in kernels}
         decode_sm90, w8_stream = decode_attention.launches_sm90, w8_matmul.launches_stream
-        w8_sm90 = w8_matmul.launches_sm90
+        w8_sm90, decode_fused = w8_matmul.launches_sm90, decode_attention.launches_fused
         with torch.inference_mode():  # one step at the mean cache length
             cache = model.init_cache(2 * B, 1 + new, kv or torch.bfloat16)
             pos = torch.full((1,), 512, dtype=torch.int32, device="cuda")
@@ -1675,17 +2010,19 @@ def phase_ar_sampling(model_fp32, tokenizer, records: dict) -> None:
             step_ms = graph_ms(lambda: model.decode_step(tok, pos, cache), launches=1)
             per_step = _kernels_in(lambda: model.decode_step(tok, pos, cache))
             by_w8 = _step_ms_by_w8_kernel(model, tok, pos, cache) if model is int8 else None
+            by_write = _step_fused_vs_separate(model, tok, pos, cache)
         tok_s = B * new / wall
         wall_ms = wall * 1e3 / new
         idle = 1.0 - step_ms / wall_ms
-        # per sample: 1023 decode steps of 30 layers, each one row write and one
-        # decode attention; with int8 weights 151 projections in the prefill and
-        # in each step (M = 16: the 30 w2 products on the streaming kernel, the
-        # rest on the earlier one, as `w8_kernel` names them) and 151 in the NLL
-        # forward (M = 8192, the wgmma kernel)
+        # per sample: 1023 decode steps of 30 layers, each one decode attention
+        # that also writes the layer's K/V row (no separate row write); with
+        # int8 weights 151 projections in the prefill and in each step (M = 16:
+        # the 30 w2 products on the streaming kernel, the rest on the earlier
+        # one, as `w8_kernel` names them) and 151 in the NLL forward (M = 8192,
+        # the wgmma kernel)
         want = {"flash_attn_fwd": 30 + 30 + 12, "decode_attention": 30 * (new - 1),
                 "w8_matmul": 151 * (new + 1) if model is int8 else 0,
-                "write_rows_per_row": 30 * (new - 1)}
+                "write_rows_per_row": 0}
         want_w8_stream = _w8_streamed(model, 2 * B) * new
         want_w8_sm90 = _w8_streamed(model, B * new, "w8_sm90_kernel") if model is int8 else 0
         top = sorted(per_step.items(), key=lambda kv: -kv[1])[:6]
@@ -1697,9 +2034,20 @@ def phase_ar_sampling(model_fp32, tokenizer, records: dict) -> None:
         log(f"[sample {name}] NLL forward {nll_s * 1e3:.1f} ms (NLL {nll.item():.4f}), "
             f"decode_from_bottleneck {dec_s * 1e3:.1f} ms ({in_range(video):.1%} of pixels in "
             f"[0, 1] before clipping); launches {launches} (expect {want}); of the decode "
-            f"attentions {decode_sm90} by decode_attn_sm90_kernel (expect all), of the int8 "
+            f"attentions {decode_sm90} by decode_attn_sm90_kernel and {decode_fused} with the row "
+            f"write fused (expect all), of the int8 "
             f"matmuls {w8_stream} by w8_stream_kernel (expect {want_w8_stream}) and {w8_sm90} by "
             f"w8_sm90_kernel (expect {want_w8_sm90}: the NLL forward's)")
+        (fused_ms, fused_n, fused_all), (sep_ms, sep_n, sep_all) = (by_write["fused"],
+                                                                    by_write["separate"])
+        log(f"[sample {name}] one step at pos 512 with the K/V rows written inside the decode "
+            f"attention: " + " / ".join(f"{t:.4f}" for t in fused_ms) + f" ms, {fused_n} kernels "
+            f"(profiles {fused_all}); with a separate row write per layer: "
+            + " / ".join(f"{t:.4f}" for t in sep_ms)
+            + f" ms, {sep_n} kernels (profiles {sep_all}) (in turn, CUDA-graph replay): the fusion saves "
+            f"{(min(sep_ms) - min(fused_ms)) * 1e3:.1f} us and {sep_n - fused_n} kernels a step")
+        require(sep_n - fused_n == 30, f"sample {name}: the fused step has {fused_n} kernels, the "
+                                       f"separate one {sep_n}: not 30 fewer")
         if by_w8 is not None:
             best = {c: min(t) for c, t in by_w8.items()}
             log(f"[sample {name}] device time per step at pos 512 with the int8 projections as "
@@ -1720,13 +2068,16 @@ def phase_ar_sampling(model_fp32, tokenizer, records: dict) -> None:
         require(tuple(video.shape) == (B, 3, 16, 128, 128), f"sample {name}: video {tuple(video.shape)}")
         require(torch.isfinite(video).all().item(), f"sample {name}: non-finite video")
         require(launches == want, f"sample {name}: launch counts {launches}, expected {want}")
-        require(decode_sm90 == want["decode_attention"] and w8_stream == want_w8_stream
-                and w8_sm90 == want_w8_sm90,
-                f"sample {name}: {decode_sm90} decode_attn_sm90_kernel, {w8_stream} "
-                f"w8_stream_kernel, {w8_sm90} w8_sm90_kernel")
+        require(decode_sm90 == want["decode_attention"] == decode_fused
+                and w8_stream == want_w8_stream and w8_sm90 == want_w8_sm90,
+                f"sample {name}: {decode_sm90} decode_attn_sm90_kernel, {decode_fused} fused, "
+                f"{w8_stream} w8_stream_kernel, {w8_sm90} w8_sm90_kernel")
         results[name] = dict(launches, w8_stream=w8_stream, w8_sm90=w8_sm90,
-                             decode_sm90=decode_sm90)
+                             decode_sm90=decode_sm90, decode_fused=decode_fused)
         step_ms_of[name] = (step_ms, sum(per_step.values()))
+        records.setdefault("sampling_write_fused", {})[name] = {
+            "fused_ms": min(fused_ms), "separate_ms": min(sep_ms), "fused_kernels": fused_n,
+            "separate_kernels": sep_n}
         records.setdefault("sampling", {})[name] = tok_s
     log("[sample] device time per decode step at pos 512, bf16 / int8 weights / int8 weights + "
         "int8 KV: " + " / ".join(f"{ms:.3f} ms ({n} kernels)" for ms, n in step_ms_of.values())
@@ -1738,7 +2089,7 @@ def phase_ar_sampling(model_fp32, tokenizer, records: dict) -> None:
     records["w8_matmul_sm90"]["launches"] = results["int8"]["w8_sm90"]
     records["w8_matmul_mma"]["launches"] = (results["int8"]["w8_matmul"] - results["int8"]["w8_stream"]
                                             - results["int8"]["w8_sm90"])
-    records["cache_update"]["decode_step_launches"] = results["int8_kv8"]["write_rows_per_row"]
+    records["kv_row_write_fused"]["launches"] = results["int8_kv8"]["decode_fused"]
 
     # sampling with a prompt mask (`emb_masks`: prompt positions that are not
     # valid are masked as keys): the prefill's attention takes segment ids,
@@ -1934,13 +2285,15 @@ def phase_speculative(target, draft, tokenizer, records: dict) -> None:
             torch.cuda.synchronize()
             for k in kernels:
                 k.launches = 0
-            chunk_attention.launches_sm90 = w8_matmul.launches_stream = 0
+            chunk_attention.launches_sm90 = chunk_attention.launches_fused = 0
+            w8_matmul.launches_stream = 0
             t0 = time.perf_counter()
             seq, stats = speculative_generate(tm, dm, labels, new, gen, **kw)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = {k.__name__: k.launches for k in kernels}
             chunk_sm90, w8_stream = chunk_attention.launches_sm90, w8_matmul.launches_stream
+            chunk_fused = chunk_attention.launches_fused
             iters, acc = stats["iterations"], float(stats["acceptance_rate"])
             with torch.inference_mode():
                 # (the decoder takes whole samples of 1024 codes)
@@ -1961,15 +2314,16 @@ def phase_speculative(target, draft, tokenizer, records: dict) -> None:
                 del tc, dc
             iter_ms = wall * 1e3 / iters
             # per iteration gamma draft forwards and one target forward, each
-            # with one row write and one chunk attention per layer and, with
-            # int8 weights, five projections per layer and the head
+            # with one chunk attention per layer, which writes the layer's K/V
+            # rows too, and, with int8 weights, five projections per layer and
+            # the head
             n_d, n_t = len(dm.layers), len(tm.layers)
             per_iter, w8_d, w8_t = gamma * n_d + n_t, 5 * n_d + 1, 5 * n_t + 1
             want_launches = {
                 "flash_attn_fwd": n_t + n_d, "decode_attention": 0,  # the two prefills
                 "w8_matmul": ((gamma * w8_d + w8_t) * iters + w8_d + w8_t
                               if prec == "int8_kv8" else 0),
-                "chunk_attention": per_iter * iters, "write_rows_per_row": per_iter * iters,
+                "chunk_attention": per_iter * iters, "write_rows_per_row": 0,
             }
             # on the streaming kernel, as `w8_kernel` names them: the verify
             # chunks (80 rows), the draft's width-2 chunks (32 rows; width 1 in
@@ -1985,7 +2339,8 @@ def phase_speculative(target, draft, tokenizer, records: dict) -> None:
                 f"per iteration (host wall); device {dev_ms:.3f} ms per iteration's forwards "
                 f"(CUDA-graph replay at pos 512): idle {1 - dev_ms / iter_ms:.1%}")
             log(f"[spec {con} {prec}] launches {launches} (expect {want_launches}), of the chunk "
-                f"attentions {chunk_sm90} by chunk_attn_sm90_kernel (expect all: a "
+                f"attentions {chunk_sm90} by chunk_attn_sm90_kernel and {chunk_fused} with the row "
+                f"write fused (expect all: a "
                 f"{'int8' if kv else 'bf16'} cache at head dim 64), of the int8 matmuls "
                 f"{w8_stream} by w8_stream_kernel (expect {want_w8_stream})")
             require(w8_stream == want_w8_stream,
@@ -1998,9 +2353,9 @@ def phase_speculative(target, draft, tokenizer, records: dict) -> None:
                     f"spec {con} {prec}: video shape or non-finite")
             require(launches == want_launches,
                     f"spec {con} {prec}: launch counts {launches}, expected {want_launches}")
-            require(chunk_sm90 == launches["chunk_attention"],
+            require(chunk_sm90 == chunk_fused == launches["chunk_attention"],
                     f"spec {con} {prec}: {chunk_sm90} of {launches['chunk_attention']} chunk "
-                    f"attentions ran chunk_attn_sm90_kernel")
+                    f"attentions ran chunk_attn_sm90_kernel, {chunk_fused} fused the row write")
             if con == "ceiling":
                 require(acc == 1.0 and iters == -(-(new - 1) // (gamma + 1)),
                         f"spec ceiling {prec}: acceptance {acc}, {iters} iterations")
@@ -2011,7 +2366,7 @@ def phase_speculative(target, draft, tokenizer, records: dict) -> None:
             if con == "floor":  # the separate draft's run carries the kernels' counts
                 key = "launches" if prec == "bf16" else "launches_int8_kv8"
                 records["chunk_attention"][key] = launches["chunk_attention"]
-                records["cache_update"][key] = launches["write_rows_per_row"]
+                records["kv_row_write_fused"][f"chunk_{key}"] = chunk_fused
             if con == "floor" and prec == "bf16":
                 # the loop may wait for the device once per iteration (has the
                 # slowest row finished?) and nowhere else: every wait warns here.
@@ -2197,7 +2552,7 @@ _KERNEL_CATEGORIES = (  # first match wins, on the kernel's lower-cased name
     ("flash_bwd_dq", ("flash_bwd_dq_kernel", "flash_bwd_dq_sm90_kernel",
                       "flash_bwd_dq_tf32x3_kernel")),
     ("flash_fwd", ("flash_fwd_kernel", "flash_fwd_sm90_kernel", "flash_fwd_tf32x3_kernel")),
-    ("vq_argmax", ("vq_argmax_kernel",)),
+    ("vq_argmax", ("vq_tc_kernel", "vq_argmax_kernel")),
     ("conv (LPIPS)", ("conv", "cudnn", "implicit", "winograd", "fprop", "dgrad", "wgrad")),
     ("gemm", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
     ("layer_norm", ("layer_norm",)),
@@ -2246,6 +2601,7 @@ def phase_train_throughput(tmp: Path, records: dict) -> None:
             k.launches = 0
         for k in kernels[:3]:
             k.launches_sm90 = k.launches_tf32x3 = 0
+        vq_argmax.launches_tc = 0
         torch.cuda.reset_peak_memory_stats()
         times, infos = [], []
         fetch_s.clear()
@@ -2258,6 +2614,7 @@ def phase_train_throughput(tmp: Path, records: dict) -> None:
         launches = {k.__name__: k.launches for k in kernels}
         sm90 = {k.__name__: k.launches_sm90 for k in kernels[:3]}
         tf32x3 = {k.__name__: k.launches_tf32x3 for k in kernels[:3]}
+        vq_tc = vq_argmax.launches_tc
         loader_s = statistics.mean(fetch_s)
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2304,8 +2661,8 @@ def phase_train_throughput(tmp: Path, records: dict) -> None:
         want_sm90 = {k: want[k] if use_amp else 0 for k in sm90}
         want_tf32x3 = {k: 0 if use_amp else want[k] for k in tf32x3}
         log(f"[train {name}] launches over the timed steps {launches} (expect {want}), of which "
-            f"the wgmma kernels {sm90} (expect {want_sm90}) and the 3xTF32 kernels {tf32x3} "
-            f"(expect {want_tf32x3}); losses "
+            f"the wgmma kernels {sm90} (expect {want_sm90}), the 3xTF32 kernels {tf32x3} "
+            f"(expect {want_tf32x3}) and vq_tc_kernel {vq_tc} (expect {timed}); losses "
             f"finite: {finite}; last step loss {last['loss']:.4f}, rec {last['rec_loss']:.4f}, "
             f"perceptual {last['perceptual_loss']:.4f}, d_loss {last['d_loss']:.4f}, "
             f"psnr {last['psnr']:.2f}")
@@ -2321,6 +2678,7 @@ def phase_train_throughput(tmp: Path, records: dict) -> None:
         require(sm90 == want_sm90, f"train {name}: wgmma launches {sm90}, expected {want_sm90}")
         require(tf32x3 == want_tf32x3, f"train {name}: 3xTF32 launches {tf32x3}, expected "
                 f"{want_tf32x3}")
+        require(vq_tc == timed, f"train {name}: {vq_tc} of {timed} VQ launches on vq_tc_kernel")
         records[f"train_{name}"] = {"s_per_step": mean_s, "clips_per_s": B / mean_s,
                                     "peak_gib": peak_gb, "idle": idle, "loader_s": loader_s}
         if name == "bf16":
@@ -2364,6 +2722,7 @@ def main() -> int:
     phase_decode_attention(records)
     phase_chunk_attention(records)
     phase_cache_update(records)
+    phase_fused_write(records)
     phase_w8_matmul(records)
     model_fp32 = phase_e2e_fp32()
     tokenizer = phase_e2e_bf16(model_fp32, records)
@@ -2406,7 +2765,7 @@ def main() -> int:
             "video_tokenizer_tpu/ops/attention.py:447"),
         "flash_attn_bwd_dkv_mma": ("video_tokenizer_tpu_torch/csrc/flash_attn_bwd.cu",
                                    "video_tokenizer_tpu/ops/attention.py:447"),
-        "vq_argmax": ("video_tokenizer_tpu_torch/csrc/vq_lookup.cu",
+        "vq_argmax": ("video_tokenizer_tpu_torch/csrc/vq_lookup_sm90.cu",
                       "video_tokenizer_tpu/ops/vq.py:35"),
         "decode_attention": ("video_tokenizer_tpu_torch/csrc/decode_attention_sm90.cu",
                              "video_tokenizer_tpu/ops/decode_attention.py:80"),
@@ -2424,6 +2783,10 @@ def main() -> int:
                                   "video_tokenizer_tpu/ops/decode_attention.py:330"),
         "cache_update": ("video_tokenizer_tpu_torch/csrc/cache_update.cu",
                          "video_tokenizer_tpu/ops/cache_update.py:60"),
+        # the row write inside the decode (and chunk) kernel: its ms is the
+        # fused call's excess over the attention alone
+        "kv_row_write_fused": ("video_tokenizer_tpu_torch/csrc/decode_attention_sm90.cu",
+                               "video_tokenizer_tpu/ops/cache_update.py:60"),
     }
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep, **records[name]}
@@ -2437,6 +2800,7 @@ def main() -> int:
     print(json.dumps({"sampling_tokens_per_s": records["sampling"],
                       "sampling_device_step_ms": records["sampling_device_step_ms"],
                       "sampling_kernels_per_step": records["sampling_kernels_per_step"],
+                      "sampling_write_fused": records["sampling_write_fused"],
                       "speculative": records["speculative"], "distill": records["distill"]}))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,7 @@
 """Times tilings of the Hopper kernels whose tiling is a set of constants.
 
   python3 tools/tune_torch_kernels.py [chunk] [dq] [decode] [w8] [w8_step] [flash_fp32] [w8_large]
-      [flash_bwd_fp32]
+      [flash_bwd_fp32] [vq] [parent=<csrc directory>]
   (one CUDA device, nvcc)
 
 `csrc/chunk_attention_sm90.cu`, `csrc/flash_attn_bwd_dq_sm90.cu`,
@@ -35,6 +35,17 @@ backward kernels (`flash_bwd_fp32`: the streamed tile, ring stages and
 blocks an SM of dQ and of dK/dV) at the fp32 tokenizer's, discriminator's and
 AR trainer's causal shapes at batch 8 beside the FMA kernels and SDPA's fp32
 backward (kernels by CUDA-graph replays, SDPA by CUDA events, two rounds).
+`vq`: the 3xTF32 VQ search (`csrc/vq_lookup_sm90.cu`: 16-row tiles a warp,
+warps a block, blocks a cluster, and two diagnostic variants that leave out
+the index pick or the products) at the flagship shape (M = K = 8192, d = 8,
+argmax and Gumbel-max; CUDA-graph replays, two rounds) beside the earlier FMA
+kernel.
+With `parent=DIR`, the decode and chunk attention kernels of DIR (the `csrc/`
+of a checkout from before their KV row write was fused in, built and bound
+with the entry points they had then) are timed beside this tree's, unfused
+and fused, on the same caches: 30 layers' caches cold, bf16 and int8, the
+one-token step and the G = 5 verify chunk at pos 512 and 1024 (CUDA-graph
+replays, in turn: parent, this tree, fused, fused, this tree, parent).
 Nothing here is used
 by the port; the sources keep one tiling.
 """
@@ -204,8 +215,9 @@ def tune_chunk():
 
                     def run():
                         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), None, ptr(ks), ptr(vs),
-                                  po.data_ptr(), pm.data_ptr(), out.data_ptr(), DA._CACHE_DTYPES[k.dtype], 1,
-                                  B, G, H, H, S, D, n_splits, q.stride(0), q.stride(1), D ** -0.5,
+                                  None, None, po.data_ptr(), pm.data_ptr(), out.data_ptr(),
+                                  DA._CACHE_DTYPES[k.dtype], 1, 0, B, G, H, H, S, D, n_splits,
+                                  q.stride(0), q.stride(1), 0, 0, D ** -0.5,
                                   torch.cuda.current_stream().cuda_stream)
                         assert code == 0, code
 
@@ -275,9 +287,10 @@ def tune_decode():
                         def run():
                             for k, v, ks, vs in caches:
                                 code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-                                          None, ptr(ks), ptr(vs), po.data_ptr(), pm.data_ptr(),
-                                          arrived.data_ptr(), out.data_ptr(), DA._CACHE_DTYPES[dt],
-                                          B, H, H, S, D, n_splits, hpb, q.stride(0), D ** -0.5,
+                                          None, ptr(ks), ptr(vs), None, None, po.data_ptr(),
+                                          pm.data_ptr(), arrived.data_ptr(), out.data_ptr(),
+                                          DA._CACHE_DTYPES[dt], 0, B, H, H, S, D, n_splits, hpb,
+                                          q.stride(0), 0, D ** -0.5,
                                           torch.cuda.current_stream().cuda_stream)
                                 assert code == 0, code
 
@@ -632,12 +645,158 @@ def tune_w8_large():
                   f"{2 * M * K * N / 989e9:.4f} ms", flush=True)
 
 
+def tune_vq():
+    VQ = importlib.import_module("video_tokenizer_tpu_torch.ops.vq")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    M = K = 8192
+    z = torch.randn(M, 8, generator=gen, device="cuda")
+    emb = torch.randn(K, 8, generator=gen, device="cuda")
+    z, emb = z / z.norm(dim=-1, keepdim=True), emb / emb.norm(dim=-1, keepdim=True)
+    src = "vq_lookup_sm90.cu"
+    mt = "  static constexpr int kMT = D <= 8 && !kStochastic ? 2 : 1;"
+    variants = {
+        "base": {},
+        "mt1": {"text": [(mt, mt.replace("D <= 8 && !kStochastic ? 2 : 1", "1"))]},
+        "mt2": {"text": [(mt, mt.replace("D <= 8 && !kStochastic ? 2 : 1", "D <= 8 ? 2 : 1"))]},
+        "warps4": dict(kWarps=4),
+        "cluster4": dict(kCluster=4),
+        "no_pick": {"text": [("if (__any_sync(0xffffffffu, up)) {",
+                              "if (__any_sync(0xffffffffu, up) && p.M < 0) {")]},
+        "no_mma": {"text": [
+            ("mma_m16n8k8_tf32x3(acc[mt][h], ahi[mt][0], alo[mt][0], f.x, f.y, f.z, f.w);",
+             "acc[mt][h][0] += __uint_as_float(f.x ^ ahi[mt][0][0]);")]},
+    }
+    fns = compile_variants(src, variants, "vtt_vq_argmax_sm90")
+    want = VQ.vq_lookup_reference(z, emb)
+    want_st = VQ.vq_lookup_reference(z, emb, stochastic=True, inv_temp=1 / 0.03, seed=11)
+    idx = torch.empty(M, dtype=torch.int32, device="cuda")
+    for rnd in range(2):
+        for st in (0, 1):
+            e_ms = c.graph_ms(lambda: VQ._vq_launch("vq_argmax_kernel", z, emb, None, idx, bool(st),
+                                                    1 / 0.03, 11))
+            line = [f"earlier {e_ms:.4f}"]
+            for n, fn in fns.items():
+                if fn is None:
+                    continue
+
+                def run():
+                    code = fn(z.data_ptr(), emb.data_ptr(), None, idx.data_ptr(), M, K, 8, st,
+                              1 / 0.03, 11, torch.cuda.current_stream().cuda_stream)
+                    assert code == 0, code
+
+                ms = c.graph_ms(run)
+                run()
+                wrong = int((idx != (want_st if st else want)).sum())
+                line.append(f"{n} {ms:.4f} ({wrong} differ)")
+            print(f"[vq {'gumbel' if st else 'argmax'} round {rnd}] " + ", ".join(line), flush=True)
+
+
+# the decode and chunk kernels' entry points before the KV row write was fused in
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+PARENT_SIGNATURES = {
+    "vtt_decode_attention_sm90": ([_P] * 11 + [_I] * 8 + [_LL, _F, _P], _I),
+    "vtt_chunk_attention_sm90": ([_P] * 10 + [_I] * 9 + [_LL, _LL, _F, _P], _I),
+}
+
+
+def compare_parent(csrc_dir):
+    """See the module docstring (`parent=DIR`)."""
+    d = ROOT / "parent"
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(Path(csrc_dir), d)
+    lib = d / "lib.so"
+    srcs = [str(d / "decode_attention_sm90.cu"), str(d / "chunk_attention_sm90.cu")]
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(lib), *srcs],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"parent: nvcc failed\n{proc.stdout}{proc.stderr}"[-3000:])
+    res = _build.kernel_resources(proc.stdout + proc.stderr)
+    print(f"[parent] regs/spills: { {k[-60:]: v for k, v in res.items() if 'attn' in k} }",
+          flush=True)
+    cdll = ctypes.CDLL(str(lib))
+    fns = {}
+    for name, (argtypes, restype) in PARENT_SIGNATURES.items():
+        fns[name] = getattr(cdll, name)
+        fns[name].argtypes, fns[name].restype = argtypes, restype
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    B, S, H, D, layers = 16, 1152, 20, 64, 30
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    for dt in (torch.bfloat16, torch.int8):
+        lcs = []
+        for _ in range(layers):
+            lc = {}
+            for n in ("k", "v"):
+                x = torch.randn(B, S, H * D, generator=gen, device="cuda")
+                if dt == torch.int8:
+                    lc[n], lc[n + "s"] = DA._quantize_rows(x)
+                else:
+                    lc[n] = x.bfloat16()
+            lcs.append(lc)
+        for kind, G in (("decode", 1), ("chunk", 5)):
+            qkv = torch.randn(B, G, 3 * H * D, generator=gen, device="cuda").bfloat16()
+            q = qkv[..., : H * D].unflatten(-1, (H, D))
+            rows_k, rows_v = qkv[..., H * D : 2 * H * D], qkv[..., 2 * H * D :]
+            out = torch.empty(B, G, H, D, dtype=torch.bfloat16, device="cuda")
+            hpb = DA.decode_heads_per_block(dt, H, H)
+            for pos_val in (512, 1024):
+                pos1 = torch.full((1,), pos_val, dtype=torch.int32, device="cuda")
+                posb = pos1.expand(B).contiguous()
+
+                def parent():
+                    for lc in lcs:
+                        if kind == "decode":
+                            code = fns["vtt_decode_attention_sm90"](
+                                q.data_ptr(), lc["k"].data_ptr(), lc["v"].data_ptr(), pos1.data_ptr(),
+                                None, ptr(lc.get("ks")), ptr(lc.get("vs")), None, None, None,
+                                out.data_ptr(), DA._CACHE_DTYPES[dt], B, H, H, S, D, 1, hpb,
+                                q.stride(0), D ** -0.5, stream())
+                        else:
+                            code = fns["vtt_chunk_attention_sm90"](
+                                q.data_ptr(), lc["k"].data_ptr(), lc["v"].data_ptr(), posb.data_ptr(),
+                                None, ptr(lc.get("ks")), ptr(lc.get("vs")), None, None,
+                                out.data_ptr(), DA._CACHE_DTYPES[dt], 1, B, G, H, H, S, D, 1,
+                                q.stride(0), q.stride(1), D ** -0.5, stream())
+                        assert code == 0, code
+
+                def this():
+                    for lc in lcs:
+                        args = (lc["k"], lc["v"])
+                        if kind == "decode":
+                            DA._decode_launch("decode_attn_sm90_kernel", q[:, 0], *args, pos1, None,
+                                              lc.get("ks"), lc.get("vs"), H, out[:, 0])
+                        else:
+                            DA._chunk_launch("chunk_attn_sm90_kernel", q, *args, posb, None,
+                                             lc.get("ks"), lc.get("vs"), H, out)
+
+                def fused():
+                    for lc in lcs:
+                        if kind == "decode":
+                            DA.decode_attention_write(q[:, 0], rows_k, rows_v, lc, pos1, kv_heads=H)
+                        else:
+                            DA.chunk_attention_write(q, rows_k, rows_v, lc, posb, kv_heads=H)
+
+                runs = {"parent": parent, "this": this, "fused": fused}
+                times = {n: [] for n in runs}
+                for n in ("parent", "this", "fused", "fused", "this", "parent"):
+                    times[n].append(c.graph_ms(runs[n], launches=1, replays=5) / layers)
+                print(f"[parent {kind} {str(dt)[6:]} pos {pos_val}] per layer, cold: "
+                      + ", ".join(f"{n} {' / '.join(f'{t * 1e3:.2f}' for t in ts)} us"
+                                  for n, ts in times.items()), flush=True)
+        del lcs
+
+
 if __name__ == "__main__":
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
     _build.library()
     which = sys.argv[1:] or ["dq", "chunk", "decode", "w8", "w8_step", "flash_fp32", "w8_large",
                              "flash_bwd_fp32"]
+    for arg in which:
+        if arg.startswith("parent="):
+            compare_parent(arg.split("=", 1)[1])
+    if "vq" in which:
+        tune_vq()
     if "flash_bwd_fp32" in which:
         tune_flash_bwd_fp32()
     if "flash_fp32" in which:

@@ -13,6 +13,14 @@
 // row with pos[b] + g outside [0, S) is skipped, as a dropped scatter index.
 // Held against write_rows_reference in ops/cache_update.py.
 //
+// Which paths launch it: those whose attention kernel does not write the
+// rows itself, as ops/decode_attention.py::fuses_row_write decides: fp32
+// caches (the fp32 parity decode and the fp32 greedy speculative run), fp32
+// decode queries over any cache, and head dim 128. On bf16 and int8 caches at
+// head dim 64 (every sampling path of the port) the rows are written inside
+// decode_attn_sm90_kernel (csrc/decode_attention_sm90.cu) and
+// chunk_attn_sm90_kernel (csrc/chunk_attention_sm90.cu), the same bytes.
+//
 // What bounds it: nothing but the launch. At the 632M prior's verify shape
 // (B = 16, G = 5, KV = 1280, K and V) one call moves ~0.8 MB, well under a
 // microsecond at 3.35 TB/s. The TPU kernel's 32-row aligned windows, its

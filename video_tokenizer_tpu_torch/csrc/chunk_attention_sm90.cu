@@ -51,6 +51,24 @@
 //     mask value is never multiplied, so it cannot overflow.
 // Blocks whose first key lies past pos[b] + G - 1 exit at once; `pos`, the mask
 // and the scales are read on the device: no host scalar, no synchronisation.
+//
+// The KV row write, fused (replaces, on this kernel's paths, the TPU kernel
+// video_tokenizer_tpu/ops/cache_update.py::_rows_kernel, which
+// csrc/cache_update.cu keeps for fp32 caches and D = 128). Given the chunk's
+// new rows (`rows_k`, `rows_v`: [B, G, Hkv * 64] rows of the strided qkv view),
+// the launch writes row g of cache row b at key pos[b] + g (rows past S are
+// skipped) and attends over the caches so written, as csrc/cache_update.cu
+// followed by this kernel would, bit for bit. It is done as in
+// csrc/decode_attention_sm90.cu (see there): the block whose tile holds a new
+// key writes that row's 64 columns of K and V of its KV head (an int8 cache:
+// the amax over the whole row, the scale written by every owning block with
+// the same bits) to the caches and to a patch area in shared memory, the
+// block's K and V rows dealt over its four warps, each staged by cp.async with
+// its warp's first tile, then one block barrier; tile copies stop at key
+// pos[b] - 1, and the owner warp copies the patch into its staged tile once
+// that tile has landed. The new keys pos[b] .. pos[b] + G - 1 lie in the last one
+// or two tiles of the row, each the last tile of its warp. The staged rows
+// take G x 2 x (64, or for an int8 cache Hkv x 64) values of shared memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -75,19 +93,31 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
   const void* q;                // [B, G, H, 64], strides (q_sb, q_sg, 64, 1)
-  const void* k;                // [B, S, Hkv * 64], contiguous
-  const void* v;                // [B, S, Hkv * 64], contiguous
+  void* k;                      // [B, S, Hkv * 64], contiguous
+  void* v;                      // [B, S, Hkv * 64], contiguous
   const int* pos;               // [B] position of chunk token 0 of each row
   const uint8_t* key_valid;     // [B, S] or null
-  const float* k_scale;         // [B, S] or null (int8 caches)
-  const float* v_scale;         // [B, S] or null
+  float* k_scale;               // [B, S] or null (int8 caches)
+  float* v_scale;               // [B, S] or null
+  const void* rows_k;           // [B, G, Hkv * 64] new K rows, strides (r_sb, r_sg, 1), or null
+  const void* rows_v;           // [B, G, Hkv * 64] new V rows, the same strides
   float* part_o;                // [B, G, H, n_splits, 64] (n_splits > 1)
   float* part_ml;               // [B, G, H, n_splits, 2]: max (log2 domain), sum
   void* out;                    // [B, G, H, 64], contiguous, q's dtype
   int B, G, H, Hkv, S, n_splits;
-  long long q_sb, q_sg;
-  int q_bf16;
+  long long q_sb, q_sg, r_sb, r_sg;
+  int q_bf16, rows_bf16;
   float sm_scale;
+};
+
+// After the warps' rings: the chunk's new rows of this KV head, K then V for
+// token g at g * kPatchRow * 2, then their scales, two floats per token.
+template <typename TC, int MT>
+struct Patch {
+  static constexpr int kRows = 16 * MT;  // chunk tokens: G <= G * rep <= 16 MT
+  static constexpr int kRow = kD * (int)sizeof(TC);
+  static constexpr int kScales = 2 * kRows * kRow;
+  static constexpr int kBytes = kScales + 2 * kRows * (int)sizeof(float);
 };
 
 template <typename TC>
@@ -106,6 +136,11 @@ __global__ void __launch_bounds__(kThreads) chunk_attn_sm90_kernel(const Params 
   const int posb = p.pos[b];
   const int last = max(min(posb + p.G - 1, p.S - 1), 0);  // the chunk's last token sees the most
   if (split * kBlockKeys > last) return;  // past every query's keys: the merge skips this split
+  // the fused row write: keys new_lo .. new_hi are new (then new_hi == last),
+  // and the tile copies stop short of them
+  const int new_lo = max(posb, 0), new_hi = min(posb + p.G - 1, p.S - 1);
+  const bool writes = p.rows_k != nullptr && new_lo <= new_hi;
+  const int load_last = writes ? new_lo - 1 : last;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tig = lane & 3;
   const int rep = p.H / p.Hkv;
@@ -168,7 +203,7 @@ __global__ void __launch_bounds__(kThreads) chunk_attn_sm90_kernel(const Params 
 #pragma unroll
     for (int i = 0; i < kTileKeys / kRowStep; ++i) {
       const int r = lr + i * kRowStep;
-      const bool in = key0 + r <= last;  // later rows are zero-filled, never read from memory
+      const bool in = key0 + r <= load_last;  // later rows are zero-filled, never read from memory
       const long long src = in ? (key0 + r) * row_bytes + lc * 16 : 0;
       cp_async16(stage + T::at(r, lc), kb + src, in ? 16 : 0);
       cp_async16(stage + T::kBytes + T::at(r, lc), vb + src, in ? 16 : 0);
@@ -176,7 +211,7 @@ __global__ void __launch_bounds__(kThreads) chunk_attn_sm90_kernel(const Params 
     if constexpr (T::kInt8) {
       // lanes 0..15: the K scales of the tile's keys, lanes 16..31: the V scales
       const int key = key0 + (lane & 15);
-      const bool in = key <= last;
+      const bool in = key <= load_last;
       const float* src = (lane < 16 ? p.k_scale : p.v_scale) + (in ? bs + key : 0);
       cp_async4(stage + 2 * T::kBytes + lane * 4, src, in ? 4 : 0);
     }
@@ -194,12 +229,61 @@ __global__ void __launch_bounds__(kThreads) chunk_attn_sm90_kernel(const Params 
     return bits;
   };
 
+  // the new keys whose tiles are this block's (contiguous: the new keys span
+  // at most three tiles, and a block holds four consecutive ones a round):
+  // their K and V rows ("halves") are dealt round-robin over the warps, each
+  // staged behind the patch area in its warp's first copy group
+  using Pt = Patch<TC, MT>;
+  unsigned char* patch = smem_raw + kWarps * kRingBytes;
+  float* patch_scale = reinterpret_cast<float*>(patch + Pt::kScales);
+  unsigned char* staged = patch + Pt::kBytes;
+  const int elem = p.rows_bf16 ? 2 : 4;
+  const int staged_cols = T::kInt8 ? p.Hkv * kD : kD;  // int8: the whole row, for its amax
+  const int staged_bytes = staged_cols * elem;
+  int mine_lo = 0, mine_hi = -1;  // this block's new keys
+  if (writes) {
+    for (int tt = new_lo / kTileKeys; tt <= new_hi / kTileKeys; ++tt) {
+      if ((tt / kWarps) % p.n_splits != split) continue;
+      if (mine_lo > mine_hi) mine_lo = max(new_lo, tt * kTileKeys);
+      mine_hi = min(new_hi, tt * kTileKeys + kTileKeys - 1);
+    }
+  }
+  const int halves = 2 * (mine_hi - mine_lo + 1);  // 0 when the block has no new key
+  for (int i = warp; i < halves; i += kWarps) {
+    const int gi = mine_lo + i / 2 - posb, kv = i & 1;
+    const long long at = (b * p.r_sb + gi * p.r_sg + (T::kInt8 ? 0 : hk * kD)) * elem;
+    kv_row_stage(smem_addr(staged) + (2 * gi + kv) * staged_bytes,
+                 static_cast<const unsigned char*>(kv ? p.rows_v : p.rows_k) + at, staged_bytes,
+                 lane);
+  }
+
 #pragma unroll
   for (int it = 0; it < kStages - 1; ++it) {
     if (it < count) load_tile(it);
     cp_async_commit();
   }
   uint32_t valid_next = load_valid(0);
+
+  // ---- the block's new rows, once staged (with the warps' first tiles): each
+  // half by its warp, to the caches in device memory and to the patch area;
+  // the block barrier hands the patch to the owner warps
+  if (halves > 0) {
+    if (warp < halves) {
+      cp_async_wait<kStages - 2>();
+      __syncwarp();
+      for (int i = warp; i < halves; i += kWarps) {
+        const int key = mine_lo + i / 2, gi = key - posb, kv = i & 1;
+        const long long cache_row = ((long long)b * p.S + key) * p.Hkv * kD + hk * kD;
+        const float sc = kv_row_convert<TC, kD>(
+            staged + (2 * gi + kv) * staged_bytes, p.rows_bf16, staged_cols,
+            T::kInt8 ? hk * kD : 0, static_cast<TC*>(kv ? p.v : p.k) + cache_row,
+            T::kInt8 ? (kv ? p.v_scale : p.k_scale) + bs + key : nullptr,
+            reinterpret_cast<TC*>(patch + (2 * gi + kv) * Pt::kRow), lane);
+        if (lane == 0) patch_scale[2 * gi + kv] = sc;
+      }
+    }
+    __syncthreads();
+  }
 
   float m_run[MT][2], l_run[MT][2];  // running max (log2 domain); this thread's share of the sum
   float o[MT][kD / 8][4];
@@ -228,6 +312,25 @@ __global__ void __launch_bounds__(kThreads) chunk_attn_sm90_kernel(const Params 
     const int stage_off = warp * kRingBytes + (it % kStages) * T::kStageBytes;
     const uint32_t sK = smem_addr(smem_raw) + stage_off;
     const uint32_t sV = sK + T::kBytes;
+    if (writes && key0 + kTileKeys > new_lo) {
+      // a tile with new keys (its rows from new_lo on zero-filled) has landed:
+      // patch rows r_lo .. r_hi
+      const int r_lo = max(new_lo - key0, 0), n = min(new_hi - key0, kTileKeys - 1) - r_lo + 1;
+      for (int i = lane; i < n * 2 * T::kChunks; i += 32) {
+        const int r = r_lo + i / (2 * T::kChunks), kv = (i / T::kChunks) & 1, c = i % T::kChunks;
+        *reinterpret_cast<uint4*>(smem_raw + stage_off + kv * T::kBytes + T::at(r, c)) =
+            *reinterpret_cast<const uint4*>(patch + (2 * (key0 + r - posb) + kv) * Pt::kRow + c * 16);
+      }
+      if constexpr (T::kInt8) {
+        // lanes 0..15 the K scales of rows 0..15, lanes 16..31 the V scales
+        const int r = lane & 15;
+        if (r >= r_lo && r < r_lo + n) {
+          reinterpret_cast<float*>(smem_raw + stage_off + 2 * T::kBytes)[lane] =
+              patch_scale[2 * (key0 + r - posb) + (lane >> 4)];
+        }
+      }
+      __syncwarp();
+    }
 
     // ---- S[rows x 16 keys] = Q K^T; s[mt][j][e]: row g + 8 (e / 2), key 8 j + 2 tig + e % 2
     float s[MT][2][4];
@@ -458,12 +561,20 @@ __global__ void __launch_bounds__(kD) chunk_merge_sm90_kernel(const Params p) {
 template <typename TC, int MT>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   auto kernel = chunk_attn_sm90_kernel<TC, MT>;
-  constexpr int kSmemBytes = kWarps * kStages * Tile<TC>::kStageBytes;
-  // above 48 KB only as opted-in dynamic shared memory
+  // the rings, the patch area and (with rows) the staged K and V rows of the
+  // chunk; above 48 KB only as opted-in dynamic shared memory
+  const int staged = p.rows_k == nullptr ? 0
+                     : 2 * p.G * (sizeof(TC) == 1 ? p.Hkv : 1) * kD * (p.rows_bf16 ? 2 : 4);
+  const int smem = kWarps * kStages * Tile<TC>::kStageBytes + Patch<TC, MT>::kBytes + staged;
+  // the opt-in only ever grows: a launch captured in a CUDA graph with the
+  // staged rows must stay valid after a launch without them
+  static int allowed = 0;
+  const int opt_in = smem > allowed ? smem : allowed;
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, opt_in);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(p.n_splits, p.Hkv, p.B), kThreads, kSmemBytes, stream>>>(p);
+  allowed = opt_in;
+  kernel<<<dim3(p.n_splits, p.Hkv, p.B), kThreads, smem, stream>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess || p.n_splits == 1) return err;
   if (p.q_bf16) {
@@ -485,22 +596,29 @@ cudaError_t dispatch_rows(const Params& p, cudaStream_t stream) {
 }  // namespace
 
 // cache_dtype: 1 bf16, 2 int8 (then k_scale and v_scale are given). part_o and
-// part_ml may be null when n_splits is 1.
+// part_ml may be null when n_splits is 1. rows_k and rows_v (bf16 if
+// rows_bf16, else fp32; strides r_sb, r_sg elements, unit column stride) are
+// the chunk's new rows written at keys pos[b] + g first, or null: the caches
+// are only read.
 extern "C" int vtt_chunk_attention_sm90(
-    const void* q, const void* k, const void* v, const int* pos, const uint8_t* key_valid,
-    const float* k_scale, const float* v_scale, float* part_o, float* part_ml, void* out,
-    int cache_dtype, int q_bf16, int B, int G, int H, int Hkv, int S, int D, int n_splits,
-    long long q_sb, long long q_sg, float sm_scale, void* stream) {
+    const void* q, void* k, void* v, const int* pos, const uint8_t* key_valid, float* k_scale,
+    float* v_scale, const void* rows_k, const void* rows_v, float* part_o, float* part_ml,
+    void* out, int cache_dtype, int q_bf16, int rows_bf16, int B, int G, int H, int Hkv, int S,
+    int D, int n_splits, long long q_sb, long long q_sg, long long r_sb, long long r_sg,
+    float sm_scale, void* stream) {
   if (G < 1 || H % Hkv != 0 || D != kD || n_splits < 1 ||
       (n_splits > 1 && (part_o == nullptr || part_ml == nullptr)) ||
-      (cache_dtype == 2) != (k_scale != nullptr && v_scale != nullptr)) {
+      (cache_dtype == 2) != (k_scale != nullptr && v_scale != nullptr) ||
+      (rows_k == nullptr) != (rows_v == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
   p.q = q; p.k = k; p.v = v; p.pos = pos; p.key_valid = key_valid;
-  p.k_scale = k_scale; p.v_scale = v_scale; p.part_o = part_o; p.part_ml = part_ml;
+  p.k_scale = k_scale; p.v_scale = v_scale; p.rows_k = rows_k; p.rows_v = rows_v;
+  p.part_o = part_o; p.part_ml = part_ml;
   p.out = out; p.B = B; p.G = G; p.H = H; p.Hkv = Hkv; p.S = S; p.n_splits = n_splits;
-  p.q_sb = q_sb; p.q_sg = q_sg; p.q_bf16 = q_bf16; p.sm_scale = sm_scale;
+  p.q_sb = q_sb; p.q_sg = q_sg; p.r_sb = r_sb; p.r_sg = r_sg;
+  p.q_bf16 = q_bf16; p.rows_bf16 = rows_bf16; p.sm_scale = sm_scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (cache_dtype) {

@@ -45,6 +45,41 @@
 // Blocks whose first key lies past pos exit at once; `pos`, the mask and the
 // scales are read on the device: no host scalar, no synchronisation, one
 // launch, so a decode step can be captured in a CUDA graph.
+//
+// The KV row write, fused (replaces, on this kernel's paths, the TPU kernel
+// video_tokenizer_tpu/ops/cache_update.py::_rows_kernel, which
+// csrc/cache_update.cu keeps for fp32 caches and D = 128). Given the step's new
+// K and V rows (`rows_k`, `rows_v`: [B, Hkv * 64] rows of the strided qkv
+// view), the launch first writes them into the caches at key pos and then
+// attends over keys 0 .. pos, as csrc/cache_update.cu followed by this kernel
+// would, bit for bit. Alone, that write is a launch and nothing else: one step
+// writes 16 rows x 1280 x 2 bf16 (82 KB per layer, ~0.02 us of HBM time)
+// against ~2.6-3.2 us for the separate launch. Here:
+//   * the new row's key lies in the last tile of one warp of one block per
+//     (cache row, KV-head group): warp last_tile % 4 of split (last_tile / 4)
+//     % n_splits, which never exits early (pos is its last key). That warp
+//     writes the row's HP x 64 columns of K and V, which no other block reads
+//     (for an int8 cache it reads the whole K and V rows, 2 x 2.5 KB from
+//     L2, for the row's amax, and every owning block of the row computes and
+//     writes the same scale bits): no block waits on another's write;
+//   * no load latency on the owner warp's path: two warps of the owning
+//     block stage the new K and V rows in shared memory by cp.async in the
+//     same copy group as their first tiles (the rows are in L2: the qkv
+//     projection just wrote them), convert one each once that group has
+//     landed (for int8, the amax of the staged row), and store the block's
+//     columns to the caches in device memory and to a patch area in shared
+//     memory; one block barrier, and every warp goes on. Every tile copy
+//     stops at key pos - 1; when the owner warp reaches its last tile, after
+//     that tile's copies landed, it copies the patch (and the row's scales)
+//     into key pos of the staged tile. Patching the staged tile, rather than
+//     storing to global memory and copying the row in behind a barrier,
+//     keeps the write off the loads' path and needs no ordering between
+//     global stores and cp.async. (The owner warp alone converting both
+//     rows cost 1.2-1.6 us a call over the attention on int8 caches on an
+//     H100, against 0.6-0.9 with the rows dealt over two warps);
+//   * without rows (rows_k null) nothing is written and every tile copy runs
+//     to key pos, as before. A masked key is written all the same, and a pos
+//     outside [0, S) writes nothing.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,18 +105,21 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
   const __nv_bfloat16* q;       // [B, H, 64], strides (q_sb, 64, 1)
-  const void* k;                // [B, S, Hkv * 64], contiguous
-  const void* v;                // [B, S, Hkv * 64], contiguous
+  void* k;                      // [B, S, Hkv * 64], contiguous
+  void* v;                      // [B, S, Hkv * 64], contiguous
   const int* pos;               // [1] last live key, inclusive
   const uint8_t* key_valid;     // [B, S] or null
-  const float* k_scale;         // [B, S] or null (int8 caches)
-  const float* v_scale;         // [B, S] or null
+  float* k_scale;               // [B, S] or null (int8 caches)
+  float* v_scale;               // [B, S] or null
+  const void* rows_k;           // [B, Hkv * 64] new K rows, stride (r_sb, 1), or null: no write
+  const void* rows_v;           // [B, Hkv * 64] new V rows, the same strides
   float* part_o;                // [B, H, n_splits, 64] (n_splits > 1)
   float* part_ml;               // [B, H, n_splits, 2]: max (log2 domain), sum
   int* arrived;                 // [B * Hkv / HP] zeros, left at zero (n_splits > 1)
   __nv_bfloat16* out;           // [B, H, 64], contiguous
   int B, H, Hkv, S, n_splits;
-  long long q_sb;
+  long long q_sb, r_sb;
+  int rows_bf16;                // the rows are bf16 (else fp32)
   float sm_scale;
 };
 
@@ -99,6 +137,9 @@ struct Stage {
   static constexpr int kK = 0, kV = HP * T::kBytes;
   static constexpr int kScales = 2 * HP * T::kBytes;
   static constexpr int kBytes = kScales + (T::kInt8 ? 2 * kTileKeys * (int)sizeof(float) : 0);
+  // after the warps' rings: the new row's HP x 64 K values, then V, then their scales
+  static constexpr int kPatchRow = HP * kD * (int)sizeof(TC);
+  static constexpr int kPatchBytes = 2 * kPatchRow + 16;
 };
 
 // HP = 1: one KV head per block, its rep <= 16 query heads on rows 0 .. rep - 1.
@@ -117,8 +158,13 @@ __global__ void __launch_bounds__(kThreads) decode_attn_sm90_kernel(const Params
   __shared__ int is_last;
 
   const int split = blockIdx.x, hk0 = blockIdx.y * HP, b = blockIdx.z;
-  const int last = max(min(*p.pos, p.S - 1), 0);
+  const int pos = *p.pos;
+  const int last = max(min(pos, p.S - 1), 0);
   if (split * kBlockKeys > last) return;  // past the live prefix: not counted as arrived
+  // the fused row write: key pos is new (then last == pos), and the tile
+  // copies stop short of it
+  const bool writes = p.rows_k != nullptr && pos >= 0 && pos < p.S;
+  const int load_last = writes ? last - 1 : last;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tig = lane & 3;
   const int rep = p.H / p.Hkv;
@@ -169,7 +215,7 @@ __global__ void __launch_bounds__(kThreads) decode_attn_sm90_kernel(const Params
 #pragma unroll
     for (int i = 0; i < kTileKeys / kRowStep; ++i) {
       const int r = lr + i * kRowStep;
-      const bool in = key0 + r <= last;  // later rows are zero-filled, never read from memory
+      const bool in = key0 + r <= load_last;  // later rows are zero-filled, never read from memory
       const long long src = in ? (key0 + r) * row_bytes + (lh * T::kChunks + lc) * 16 : 0;
       cp_async16(stage + St::kK + sub + T::at(r, lc), kb + src, in ? 16 : 0);
       cp_async16(stage + St::kV + sub + T::at(r, lc), vb + src, in ? 16 : 0);
@@ -177,7 +223,7 @@ __global__ void __launch_bounds__(kThreads) decode_attn_sm90_kernel(const Params
     if constexpr (T::kInt8) {
       // lanes 0..15: the K scales of the tile's keys, lanes 16..31: the V scales
       const int key = key0 + (lane & 15);
-      const bool in = key <= last;
+      const bool in = key <= load_last;
       const float* src = (lane < 16 ? p.k_scale : p.v_scale) + (in ? bs + key : 0);
       cp_async4(stage + St::kScales + lane * 4, src, in ? 4 : 0);
     }
@@ -195,12 +241,48 @@ __global__ void __launch_bounds__(kThreads) decode_attn_sm90_kernel(const Params
     return bits;
   };
 
+  // the new row's block: the one whose tiles hold key pos; its owner warp
+  // (whose last tile that is) patches the row in. Warp 0 stages the K row,
+  // warp 1 the V row, behind the patch area in their first copy group
+  unsigned char* patch = smem_raw + kWarps * kRingBytes;
+  float* patch_scale = reinterpret_cast<float*>(patch + 2 * St::kPatchRow);
+  unsigned char* staged = patch + St::kPatchBytes;
+  const int elem = p.rows_bf16 ? 2 : 4;
+  const int staged_cols = T::kInt8 ? p.Hkv * kD : HP * kD;  // int8: the whole row, for its amax
+  const int staged_bytes = staged_cols * elem;
+  const bool owner_block = writes && split == (last_tile / kWarps) % p.n_splits;
+  const bool owner = owner_block && warp == last_tile % kWarps;
+  if (owner_block && warp < 2) {
+    const long long at = (b * p.r_sb + (T::kInt8 ? 0 : hk0 * kD)) * elem;
+    kv_row_stage(smem_addr(staged) + warp * staged_bytes,
+                 static_cast<const unsigned char*>(warp == 0 ? p.rows_k : p.rows_v) + at,
+                 staged_bytes, lane);
+  }
+
 #pragma unroll
   for (int it = 0; it < kStages - 1; ++it) {
     if (it < count) load_tile(it);
     cp_async_commit();
   }
   uint32_t valid_next = load_valid(0);
+
+  // ---- the new row, once staged (with the warps' first tiles): K by warp 0,
+  // V by warp 1, to the caches in device memory and to the patch area; the
+  // block barrier hands the patch to the owner warp
+  if (owner_block) {
+    if (warp < 2) {
+      cp_async_wait<kStages - 2>();
+      __syncwarp();
+      const long long cache_row = ((long long)b * p.S + pos) * p.Hkv * kD + hk0 * kD;
+      const float sc = kv_row_convert<TC, HP * kD>(
+          staged + warp * staged_bytes, p.rows_bf16, staged_cols, T::kInt8 ? hk0 * kD : 0,
+          static_cast<TC*>(warp == 0 ? p.k : p.v) + cache_row,
+          T::kInt8 ? (warp == 0 ? p.k_scale : p.v_scale) + bs + pos : nullptr,
+          reinterpret_cast<TC*>(patch + warp * St::kPatchRow), lane);
+      if (lane == 0) patch_scale[warp] = sc;
+    }
+    __syncthreads();
+  }
 
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
   float o[kD / 8][4];
@@ -223,6 +305,23 @@ __global__ void __launch_bounds__(kThreads) decode_attn_sm90_kernel(const Params
     const int stage_off = warp * kRingBytes + (it % kStages) * St::kBytes;
     const uint32_t sK = smem_addr(smem_raw) + stage_off + St::kK;
     const uint32_t sV = smem_addr(smem_raw) + stage_off + St::kV;
+    if (owner && it == count - 1) {
+      // the tile of key pos has landed (its row pos zero-filled): patch that row
+      const int r = pos - key0;
+      if (lane < 2 * HP * T::kChunks) {
+        const int kv = lane / (HP * T::kChunks), h = (lane / T::kChunks) % HP, c = lane % T::kChunks;
+        *reinterpret_cast<uint4*>(smem_raw + stage_off + (kv ? St::kV : St::kK) + h * T::kBytes +
+                                  T::at(r, c)) =
+            *reinterpret_cast<const uint4*>(patch + kv * St::kPatchRow + h * kD * sizeof(TC) + c * 16);
+      }
+      if constexpr (T::kInt8) {
+        if (lane >= 30) {
+          reinterpret_cast<float*>(smem_raw + stage_off + St::kScales)[(lane - 30) * kTileKeys + r] =
+              patch_scale[lane - 30];
+        }
+      }
+      __syncwarp();
+    }
 
     // ---- S[16 rows x 16 keys] = Q K^T; s[j][e]: row g + 8 (e / 2), key 8 j + 2 tig + e % 2.
     // With two heads each row keeps the product with its own head's K tile.
@@ -456,11 +555,19 @@ __global__ void __launch_bounds__(kThreads) decode_attn_sm90_kernel(const Params
 template <typename TC, int HP>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   auto kernel = decode_attn_sm90_kernel<TC, HP>;
-  constexpr int kSmemBytes = kWarps * kStages * Stage<TC, HP>::kBytes;
+  // the rings, the patch area, and (with rows) the staged K and V rows
+  const int staged = p.rows_k == nullptr ? 0
+                     : 2 * (sizeof(TC) == 1 ? p.Hkv : HP) * kD * (p.rows_bf16 ? 2 : 4);
+  const int smem = kWarps * kStages * Stage<TC, HP>::kBytes + Stage<TC, HP>::kPatchBytes + staged;
+  // the opt-in only ever grows: a launch captured in a CUDA graph with the
+  // staged rows must stay valid after a launch without them
+  static int allowed = 0;
+  const int opt_in = smem > allowed ? smem : allowed;
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, opt_in);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(p.n_splits, p.Hkv / HP, p.B), kThreads, kSmemBytes, stream>>>(p);
+  allowed = opt_in;
+  kernel<<<dim3(p.n_splits, p.Hkv / HP, p.B), kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -476,24 +583,29 @@ cudaError_t dispatch_heads(const Params& p, int heads_per_block, cudaStream_t st
 // cache_dtype: 1 bf16, 2 int8 (then k_scale and v_scale are given). q and out
 // are bf16. heads_per_block: 1, or 2 (Hkv even, H / Hkv <= 8). part_o, part_ml
 // and arrived may be null when n_splits is 1; `arrived` holds B * Hkv /
-// heads_per_block zeros and is left at zero.
+// heads_per_block zeros and is left at zero. rows_k and rows_v (bf16 if
+// rows_bf16, else fp32; batch stride r_sb elements, unit column stride) are the
+// new rows written at key pos first, or null: the caches are only read.
 extern "C" int vtt_decode_attention_sm90(
-    const void* q, const void* k, const void* v, const int* pos, const uint8_t* key_valid,
-    const float* k_scale, const float* v_scale, float* part_o, float* part_ml, int* arrived,
-    void* out, int cache_dtype, int B, int H, int Hkv, int S, int D, int n_splits,
-    int heads_per_block, long long q_sb, float sm_scale, void* stream) {
+    const void* q, void* k, void* v, const int* pos, const uint8_t* key_valid, float* k_scale,
+    float* v_scale, const void* rows_k, const void* rows_v, float* part_o, float* part_ml,
+    int* arrived, void* out, int cache_dtype, int rows_bf16, int B, int H, int Hkv, int S, int D,
+    int n_splits, int heads_per_block, long long q_sb, long long r_sb, float sm_scale,
+    void* stream) {
   if (H % Hkv != 0 || H / Hkv > kMaxRows || D != kD || n_splits < 1 ||
       (n_splits > 1 && (part_o == nullptr || part_ml == nullptr || arrived == nullptr)) ||
-      (cache_dtype == 2) != (k_scale != nullptr && v_scale != nullptr)) {
+      (cache_dtype == 2) != (k_scale != nullptr && v_scale != nullptr) ||
+      (rows_k == nullptr) != (rows_v == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
   p.q = static_cast<const __nv_bfloat16*>(q); p.k = k; p.v = v; p.pos = pos;
   p.key_valid = key_valid; p.k_scale = k_scale; p.v_scale = v_scale;
+  p.rows_k = rows_k; p.rows_v = rows_v;
   p.part_o = part_o; p.part_ml = part_ml; p.arrived = arrived;
   p.out = static_cast<__nv_bfloat16*>(out);
   p.B = B; p.H = H; p.Hkv = Hkv; p.S = S; p.n_splits = n_splits;
-  p.q_sb = q_sb; p.sm_scale = sm_scale;
+  p.q_sb = q_sb; p.r_sb = r_sb; p.rows_bf16 = rows_bf16; p.sm_scale = sm_scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (cache_dtype) {

@@ -7,12 +7,13 @@
 // Used by flash_attn_fwd_sm90.cu, flash_attn_bwd_dkv_sm90.cu,
 // flash_attn_bwd_dq_sm90.cu, chunk_attention_sm90.cu,
 // decode_attention_sm90.cu, flash_attn_fwd_tf32x3.cu,
-// flash_attn_bwd_dq_tf32x3.cu, flash_attn_bwd_dkv_tf32x3.cu and
-// w8_matmul_sm90.cu (the fp32 tiles read both ways by the two 3xTF32
-// backward kernels);
-// the K/V cache tiles by the chunk and decode kernels, the int8 -> bf16
-// conversion by those two and the int8 matmul, the TMA copies and
-// transaction barriers by the int8 matmul.
+// flash_attn_bwd_dq_tf32x3.cu, flash_attn_bwd_dkv_tf32x3.cu,
+// w8_matmul_sm90.cu and vq_lookup_sm90.cu (the fp32 tiles read both ways by
+// the two 3xTF32 backward kernels);
+// the K/V cache tiles and the fused KV row write by the chunk and decode
+// kernels, the int8 -> bf16 conversion by those two and the int8 matmul, the
+// TMA copies and transaction barriers by the int8 matmul, the cluster reads
+// by the int8 matmul and the VQ search.
 //
 // The one tile layout used everywhere ("row tile"): R rows of 128 bytes (64
 // bf16), row r at byte r * 128, its 16-byte chunk c stored at chunk position
@@ -87,6 +88,12 @@ __device__ __forceinline__ uint32_t map_cluster_rank(uint32_t addr, int rank) {
 __device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
   float v;
   asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ int ld_cluster_s32(uint32_t addr) {
+  int v;
+  asm volatile("ld.shared::cluster.s32 %0, [%1];\n" : "=r"(v) : "r"(addr) : "memory");
   return v;
 }
 
@@ -655,6 +662,101 @@ struct KvTile<int8_t> {
   // thread g converts bytes 8 g .. 8 g + 7 of a V row: byte n is column g of n-tile n
   __device__ static int o_col(int n, int c) { return 8 * c + n; }
 };
+
+// ---- the KV row write fused into the chunk and decode kernels
+// A new row of a layer's [B, S, KV] cache is written by the warp of the block
+// that owns its key, for the block's kCols (HP x 64) columns only. The warp
+// first stages the row in shared memory by cp.async, issued with its first
+// tile copies (the row sits in L2: the qkv projection just wrote it), so that
+// no load latency lands on its path: `cols` values of the row from column
+// `col0` (the whole row for an int8 cache, whose scale needs the amax of all
+// KV columns; the block's own columns for a bf16 one), bf16 or fp32 as the
+// projection left them (`bytes` = cols x 2 or 4, a multiple of 16; `src` 16-byte
+// aligned).
+__device__ __forceinline__ void kv_row_stage(uint32_t dst, const void* src, int bytes, int lane) {
+  for (int c = 16 * lane; c < bytes; c += 16 * 32)
+    cp_async16(dst + c, static_cast<const unsigned char*>(src) + c, 16);
+}
+
+// Then, once the copies have landed, kv_row_convert turns the staged row
+// (`raw`, `cols` values, the block's columns from value `own` on) into the
+// cache's type: to the cache row in device memory (`dst`: its first own
+// column) and to `patch` (shared memory, plain column order), and returns the
+// row's scale. An int8 cache quantises the row as csrc/cache_update.cu and
+// ops/decode_attention.py::_quantize_rows do, bit for bit: the scale is
+// max(amax / 127, 1e-8) over ALL KV columns (a true division), each value
+// clip(rint(x / scale), +-127); lane 0 stores the scale to `scale` (every
+// block that owns the row writes the same bits). A bf16 cache takes each
+// value rounded to bf16 (the identity on bf16 rows).
+__device__ __forceinline__ float staged_value(const unsigned char* raw, int at, bool bf16) {
+  return bf16 ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(raw)[at])
+              : reinterpret_cast<const float*>(raw)[at];
+}
+
+template <typename TC, int kCols>
+__device__ __forceinline__ float kv_row_convert(const unsigned char* raw, bool bf16, int cols,
+                                                int own, TC* dst, float* scale, TC* patch,
+                                                int lane) {
+  constexpr int kPer = kCols / 32;  // consecutive columns of a lane: 2 or 4
+  static_assert(kPer == 2 || kPer == 4, "a block writes 64 or 128 columns of a row");
+  float x[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) x[i] = staged_value(raw, own + lane * kPer + i, bf16);
+  if constexpr (sizeof(TC) == 1) {
+    // the amax, 16 bytes a lane and step (8 bf16 values, as pairs: the max of
+    // bf16 values is exact in bf16, and max ignores NaN as fmaxf does; or 4
+    // fp32 values)
+    float amax = 0.f;
+    if (bf16) {
+      __nv_bfloat162 m2 = __float2bfloat162_rn(0.f);
+#pragma unroll 4
+      for (int j = 8 * lane; j < cols; j += 256) {
+        const uint4 w = *reinterpret_cast<const uint4*>(raw + 2 * j);
+        const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          m2 = __hmax2(m2, __habs2(*reinterpret_cast<const __nv_bfloat162*>(&words[i])));
+      }
+      amax = fmaxf(__low2float(m2), __high2float(m2));
+    } else {
+#pragma unroll 4
+      for (int j = 4 * lane; j < cols; j += 128) {
+        const float4 w = *reinterpret_cast<const float4*>(raw + 4 * j);
+        amax = fmaxf(fmaxf(amax, fabsf(w.x)), fmaxf(fabsf(w.y), fmaxf(fabsf(w.z), fabsf(w.w))));
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    const float s = fmaxf(amax / 127.0f, 1e-8f);
+    uint32_t packed = 0u;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const float q = fminf(fmaxf(rintf(x[i] / s), -127.f), 127.f);
+      packed |= (static_cast<uint32_t>(static_cast<int>(q)) & 0xFFu) << (8 * i);
+    }
+    if constexpr (kPer == 2) {
+      *reinterpret_cast<uint16_t*>(dst + lane * kPer) = static_cast<uint16_t>(packed);
+      *reinterpret_cast<uint16_t*>(patch + lane * kPer) = static_cast<uint16_t>(packed);
+    } else {
+      *reinterpret_cast<uint32_t*>(dst + lane * kPer) = packed;
+      *reinterpret_cast<uint32_t*>(patch + lane * kPer) = packed;
+    }
+    if (lane == 0) *scale = s;
+    return s;
+  } else {
+    uint32_t w[kPer / 2];
+#pragma unroll
+    for (int i = 0; i < kPer / 2; ++i) w[i] = pack_bf16(x[2 * i], x[2 * i + 1]);
+    if constexpr (kPer == 2) {
+      *reinterpret_cast<uint32_t*>(dst + lane * kPer) = w[0];
+      *reinterpret_cast<uint32_t*>(patch + lane * kPer) = w[0];
+    } else {
+      *reinterpret_cast<uint2*>(dst + lane * kPer) = make_uint2(w[0], w[1]);
+      *reinterpret_cast<uint2*>(patch + lane * kPer) = make_uint2(w[0], w[1]);
+    }
+    return 1.f;
+  }
+}
 
 // Two int8 values (bytes lo and hi of w ^ 0x80808080) as a bf16 pair, exactly:
 // the byte lands in the mantissa of 2^23, 2^23 + 128 is subtracted, and the

@@ -1,5 +1,11 @@
 // Nearest-code search and Gumbel-max sampling for the VQ bottleneck on
-// Hopper (sm_90a), fp32.
+// Hopper (sm_90a), fp32 FMAs: the earlier kernel.
+//
+// Which paths launch it: none. csrc/vq_lookup_sm90.cu (the search on the
+// tensor cores, the codebook split over a thread-block cluster) replaced it on
+// every path: ops/vq.py::vq_kernel names that kernel for every code dim and
+// both modes. This one stays built as the yardstick that chip_smoke.py times
+// beside it, launched only through ops/vq.py::_vq_launch by name.
 //
 // Replaces the TPU kernel video_tokenizer_tpu/ops/vq.py::_vq_kernel in both
 // of its modes:
@@ -41,34 +47,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "philox.cuh"
+
 namespace {
 
 constexpr int kThreadsPerRow = 4;
 constexpr int kRowsPerBlock = 64;
 constexpr int kThreads = kThreadsPerRow * kRowsPerBlock;
 constexpr int kTileFloats = 8192;  // 32 KB of codebook per tile
-
-// Philox4x32-10 (Salmon et al., SC 2011): ten rounds, the key bumped by the
-// Weyl constants between rounds.
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0, uint32_t k1) {
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    if (i > 0) {
-      k0 += 0x9E3779B9u;
-      k1 += 0xBB67AE85u;
-    }
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
-  }
-  return c;
-}
-
-__device__ __forceinline__ float gumbel(uint32_t bits) {
-  // explicit roundings (no contraction into FMAs), as the plain version rounds
-  const float u = __fmul_rn((float)(bits & 0x00FFFFFFu), 1.0f / 16777216.0f);
-  return -logf(__fadd_rn(-logf(__fadd_rn(u, 1e-10f)), 1e-10f));
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)

@@ -8,11 +8,14 @@ head, and the size zoo llama-abs-S ... XXXL. Four modes:
     forward (`ops/attention.py`);
   * `prefill`: the conditioning prefix, writing the KV cache;
   * `decode_step`: one token against the cache, through the CUDA decode
-    kernel (`ops/decode_attention.py`);
+    kernel (`ops/decode_attention.py`), which also writes the token's K/V
+    row on bf16 and int8 caches at D = 64 (the CUDA row-write kernel of
+    `ops/cache_update.py` writes it first elsewhere);
   * `decode_chunk`: G tokens per row at per-row positions (the draft and
-    verify forwards of speculative decoding), through the CUDA row-write
-    kernel (`ops/cache_update.py`) and the CUDA chunk-attention kernel
-    (`ops/decode_attention.py`).
+    verify forwards of speculative decoding), through the CUDA chunk-attention
+    kernel (`ops/decode_attention.py`), which writes the chunk's K/V rows in
+    the same launch on bf16 and int8 caches at D = 64 (elsewhere the CUDA
+    row-write kernel of `ops/cache_update.py` first).
 With `quantized=True` every projection is a `QuantDense` (int8 weight and
 fp32 per-channel scale) that runs the CUDA int8 matmul (`ops/quant_matmul.py`).
 
@@ -45,7 +48,10 @@ from torch import nn
 from ..ops import sincos
 from ..ops.attention import attention
 from ..ops.cache_update import write_rows_per_row
-from ..ops.decode_attention import _quantize_rows, chunk_attention, decode_attention
+from ..ops.decode_attention import (
+    _quantize_rows, chunk_attention, chunk_attention_write, decode_attention,
+    decode_attention_write, fuses_row_write,
+)
 from ..ops.quant_matmul import w8_matmul
 from ..registry import models
 from .embed import LabelEmbedder
@@ -244,21 +250,28 @@ class Attention(nn.Module):
     def decode_step(self, x: torch.Tensor, input_pos: torch.Tensor, lc, key_valid=None):
         """One token x [B, 1, dim] at position input_pos: a 1-element int32
         tensor, or that position repeated for every row as a contiguous [B]
-        int32 tensor (what `LARP_AR.decode_step` makes once per step). The K/V
-        row goes in through the per-row write kernel with G = 1, as
-        `decode_chunk`'s rows do: one launch for K and V, quantised there for
-        an int8 cache (the same bits as `_store`)."""
+        int32 tensor (what `LARP_AR.decode_step` makes once per step). Where
+        `fuses_row_write` says so (a bf16 query over a bf16 or int8 cache at
+        D = 64) the K/V row is written inside the attention launch
+        (`decode_attention_write`); elsewhere it goes in through the per-row
+        write kernel with G = 1 first. Either way an int8 cache gets the same
+        bits as `_store`."""
         B = x.shape[0]
         pos = input_pos.reshape(-1)
         if pos.numel() != B:
             pos = pos.expand(B).contiguous()
         q, k, v = self._split_qkv(x)
-        write_rows_per_row(lc, k.reshape(B, 1, -1), v.reshape(B, 1, -1), pos)
-        out = decode_attention(
-            q.reshape(B, self.n_head, self.head_dim), lc["k"], lc["v"], pos[:1],
-            key_valid=key_valid, k_scale=lc.get("ks"), v_scale=lc.get("vs"),
-            kv_heads=self.n_kv_head,
-        )
+        q = q.reshape(B, self.n_head, self.head_dim)
+        rows_k, rows_v = k.reshape(B, 1, -1), v.reshape(B, 1, -1)
+        if fuses_row_write(lc["k"].dtype, q.dtype, self.head_dim):
+            out = decode_attention_write(q, rows_k, rows_v, lc, pos[:1], key_valid=key_valid,
+                                         kv_heads=self.n_kv_head)
+        else:
+            write_rows_per_row(lc, rows_k, rows_v, pos)
+            out = decode_attention(
+                q, lc["k"], lc["v"], pos[:1], key_valid=key_valid, k_scale=lc.get("ks"),
+                v_scale=lc.get("vs"), kv_heads=self.n_kv_head,
+            )
         out = out.reshape(B, 1, self.n_head * self.head_dim).to(x.dtype)
         return self.wo(out), lc
 
@@ -266,14 +279,20 @@ class Attention(nn.Module):
         """G tokens x [B, G, dim], the g-th of row b at position pos[b] + g
         (pos [B] int32): writes the chunk's K/V rows at the per-row positions,
         then attends each chunk token causally over its row's live prefix and
-        the chunk tokens before it."""
+        the chunk tokens before it; in one launch where `fuses_row_write(...,
+        chunk=True)` says so (bf16 and int8 caches at D = 64)."""
         B, G, _ = x.shape
         q, k, v = self._split_qkv(x)
-        write_rows_per_row(lc, k.reshape(B, G, -1), v.reshape(B, G, -1), pos)
-        out = chunk_attention(
-            q, lc["k"], lc["v"], pos, key_valid=key_valid, k_scale=lc.get("ks"),
-            v_scale=lc.get("vs"), kv_heads=self.n_kv_head,
-        )
+        rows_k, rows_v = k.reshape(B, G, -1), v.reshape(B, G, -1)
+        if fuses_row_write(lc["k"].dtype, q.dtype, self.head_dim, chunk=True):
+            out = chunk_attention_write(q, rows_k, rows_v, lc, pos, key_valid=key_valid,
+                                        kv_heads=self.n_kv_head)
+        else:
+            write_rows_per_row(lc, rows_k, rows_v, pos)
+            out = chunk_attention(
+                q, lc["k"], lc["v"], pos, key_valid=key_valid, k_scale=lc.get("ks"),
+                v_scale=lc.get("vs"), kv_heads=self.n_kv_head,
+            )
         out = out.reshape(B, G, self.n_head * self.head_dim).to(x.dtype)
         return self.wo(out), lc
 

@@ -133,13 +133,14 @@ SIGNATURES = {
     "vtt_flash_attn_bwd": ([_I] + [_P] * 10 + [_I] * 7 + [_LL] * 12 + [_I, _I, _F, _P], _I),
     "vtt_flash_attn_bwd_dkv_sm90": ([_P] * 8 + [_I] * 6 + [_LL] * 12 + [_I, _I, _F, _P], _I),
     "vtt_vq_argmax": ([_P] * 4 + [_I] * 4 + [_F, _LL, _P], _I),
+    "vtt_vq_argmax_sm90": ([_P] * 4 + [_I] * 4 + [_F, _LL, _P], _I),
     "vtt_decode_attention": ([_P] * 10 + [_I] * 8 + [_LL, _F, _P], _I),
-    "vtt_decode_attention_sm90": ([_P] * 11 + [_I] * 8 + [_LL, _F, _P], _I),
+    "vtt_decode_attention_sm90": ([_P] * 13 + [_I] * 9 + [_LL, _LL, _F, _P], _I),
     "vtt_w8_matmul": ([_P] * 4 + [_I] * 5 + [_P], _I),
     "vtt_w8_matmul_stream": ([_P] * 4 + [_I] * 7 + [_P], _I),
     "vtt_w8_matmul_sm90": ([_P] * 4 + [_I] * 4 + [_P], _I),
     "vtt_chunk_attention": ([_P] * 10 + [_I] * 9 + [_LL, _LL, _F, _P], _I),
-    "vtt_chunk_attention_sm90": ([_P] * 10 + [_I] * 9 + [_LL, _LL, _F, _P], _I),
+    "vtt_chunk_attention_sm90": ([_P] * 12 + [_I] * 10 + [_LL] * 4 + [_F, _P], _I),
     "vtt_flash_attn_bwd_dq_sm90": ([_P] * 7 + [_I] * 6 + [_LL] * 12 + [_I, _I, _F, _P], _I),
     "vtt_flash_attn_bwd_dq_tf32x3": ([_P] * 7 + [_I] * 6 + [_LL] * 12 + [_I, _I, _F, _P], _I),
     "vtt_flash_attn_bwd_dkv_tf32x3": ([_P] * 8 + [_I] * 6 + [_LL] * 12 + [_I, _I, _F, _P], _I),

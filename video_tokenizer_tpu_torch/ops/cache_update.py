@@ -11,7 +11,10 @@ it is updated IN PLACE (the JAX function returns new arrays).
   kernel `_rows_kernel`. On CUDA tensors it launches the kernel or raises;
   on CPU tensors it runs `write_rows_reference`. For an int8 cache the kernel
   also quantises the rows (the JAX package leaves that to XLA ahead of its
-  kernel) and writes their scales in the same launch.
+  kernel) and writes their scales in the same launch. `decode_step` and
+  `decode_chunk` call it only where their attention kernel does not write
+  the rows itself (`ops/decode_attention.py::fuses_row_write`: fp32 caches,
+  fp32 decode queries, head dim 128).
 * `write_rows_reference` is the plain version: `_quantize_rows` for an int8
   cache, then the index write `cache[b, pos[b] + g] = rows[b, g]`.
 

@@ -26,6 +26,14 @@ KV head h // (H // Hkv).
   which replace the TPU kernel `_chunk_kernel`; `chunk_kernel` names the one
   a call launches. `chunk_attention_reference` is the plain version, the JAX
   package's `xla_chunk_attention`, with P.V from fp32 probabilities.
+* `decode_attention_write` and `chunk_attention_write` fuse the KV row write
+  into those two tensor-core kernels: the step's (or chunk's) new K and V
+  rows go into the layer cache at `pos` in the same launch that attends over
+  it, with the bytes `ops/cache_update.py::write_rows_per_row` would write
+  (int8 rows quantised there, their scales too). `fuses_row_write` says where
+  they apply: exactly where `decode_kernel` / `chunk_kernel` name the
+  tensor-core kernels. Their plain version, on CPU tensors, is
+  `write_rows_reference` followed by the attention's plain version.
 * `chunk_attention_tiled_reference` and `decode_attention_tiled_reference`
   repeat the arithmetic of `csrc/chunk_attention_sm90.cu` and
   `csrc/decode_attention_sm90.cu` tile by tile in plain PyTorch, for the CPU
@@ -155,6 +163,19 @@ def decode_kernel(cache_dtype: torch.dtype, q_dtype: torch.dtype, head_dim: int)
             and head_dim == 64):
         return "decode_attn_sm90_kernel"
     return "decode_split_kernel"
+
+
+def fuses_row_write(cache_dtype: torch.dtype, q_dtype: torch.dtype, head_dim: int, *,
+                    chunk: bool = False) -> bool:
+    """Whether `decode_step` (or, with `chunk`, `decode_chunk`) writes its K/V
+    rows inside the attention launch (`decode_attention_write`,
+    `chunk_attention_write`): exactly where `decode_kernel` (`chunk_kernel`)
+    names the tensor-core kernel, which carries the write. Elsewhere (fp32
+    caches, fp32 decode queries, D = 128) the rows go through
+    `write_rows_per_row` first."""
+    if chunk:
+        return chunk_kernel(cache_dtype, head_dim) == "chunk_attn_sm90_kernel"
+    return decode_kernel(cache_dtype, q_dtype, head_dim) == "decode_attn_sm90_kernel"
 
 
 def decode_heads_per_block(cache_dtype: torch.dtype, H: int, Hkv: int) -> int:
@@ -345,35 +366,47 @@ def decode_attention(
         return decode_attention_reference(
             q, k_cache, v_cache, pos, key_valid, k_scale, v_scale, kv_heads
         )
+    return _decode("decode_attention", q, k_cache, v_cache, pos, key_valid, k_scale, v_scale,
+                   kv_heads)
+
+
+def _decode(op: str, q, k_cache, v_cache, pos, key_valid, k_scale, v_scale,
+            kv_heads: Optional[int], rows=None) -> torch.Tensor:
+    """A decode attention on the card (see `decode_attention`): checks the
+    operands, launches the kernel `decode_kernel` names (writing `rows`, the
+    checked new K and V rows, first) and counts the launch."""
     if q.device.type != "cuda":
-        raise ValueError(f"decode_attention: no kernel for device {q.device}")
+        raise ValueError(f"{op}: no kernel for device {q.device}")
     B, H, D = q.shape
     S = k_cache.shape[1]
-    Hkv = _check_caches("decode_attention", q, 2, k_cache, v_cache, key_valid, k_scale,
-                        v_scale, kv_heads)
+    Hkv = _check_caches(op, q, 2, k_cache, v_cache, key_valid, k_scale, v_scale, kv_heads)
     if q.stride(2) != 1 or q.stride(1) != D:
-        raise ValueError(f"decode_attention: q needs strides (*, {D}, 1), got {q.stride()}")
+        raise ValueError(f"{op}: q needs strides (*, {D}, 1), got {q.stride()}")
     device = q.device
     if isinstance(pos, torch.Tensor):
         pos_t = pos.reshape(-1)
         if pos_t.numel() != 1:
-            raise ValueError(f"decode_attention: pos has {pos_t.numel()} elements")
-        _check("pos", pos_t, device, torch.int32, align=4)
+            raise ValueError(f"{op}: pos has {pos_t.numel()} elements")
+        _check("pos", pos_t, device, torch.int32, align=4, op=op)
     else:
         pos_t = torch.full((1,), int(pos), dtype=torch.int32, device=device)
     out = torch.empty((B, H, D), dtype=q.dtype, device=device)
     if out.numel() and S:
         kernel = decode_kernel(k_cache.dtype, q.dtype, D)
-        _decode_launch(kernel, q, k_cache, v_cache, pos_t, key_valid, k_scale, v_scale, Hkv, out)
+        _decode_launch(kernel, q, k_cache, v_cache, pos_t, key_valid, k_scale, v_scale, Hkv, out,
+                       rows)
         decode_attention.launches += 1
         decode_attention.launches_sm90 += kernel == "decode_attn_sm90_kernel"
+        decode_attention.launches_fused += rows is not None
         decode_attention.last_kernel = kernel
     return out
 
 
 def _decode_launch(kernel: str, q, k_cache, v_cache, pos_t, key_valid, k_scale, v_scale,
-                   Hkv: int, out) -> None:
-    """Launches the named decode kernel on checked operands (see `decode_attention`)."""
+                   Hkv: int, out, rows=None) -> None:
+    """Launches the named decode kernel on checked operands (see `decode_attention`);
+    `rows` (checked [B, 1, KV] K and V rows) are written at pos first, by the
+    tensor-core kernel only."""
     B, H, D = q.shape
     S = k_cache.shape[1]
     device = q.device
@@ -398,13 +431,18 @@ def _decode_launch(kernel: str, q, k_cache, v_cache, pos_t, key_valid, k_scale, 
             part_o = torch.empty((B, H, n_splits, D), dtype=torch.float32, device=device)
             part_ml = torch.empty((B, H, n_splits, 2), dtype=torch.float32, device=device)
             arrived = torch.zeros(B * Hkv, dtype=torch.int32, device=device)
+        rows_k, rows_v = rows if rows is not None else (None, None)
+        rows_bf16 = int(rows_k is not None and rows_k.dtype == torch.bfloat16)
         with torch.cuda.device(device):
             code = lib.vtt_decode_attention_sm90(
                 q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos_t.data_ptr(),
-                ptr(key_valid), ptr(k_scale), ptr(v_scale), ptr(part_o), ptr(part_ml),
-                ptr(arrived), out.data_ptr(), _CACHE_DTYPES[k_cache.dtype],
-                B, H, Hkv, S, D, n_splits, hpb, q.stride(0), D ** -0.5, stream)
+                ptr(key_valid), ptr(k_scale), ptr(v_scale), ptr(rows_k), ptr(rows_v),
+                ptr(part_o), ptr(part_ml), ptr(arrived), out.data_ptr(),
+                _CACHE_DTYPES[k_cache.dtype], rows_bf16, B, H, Hkv, S, D, n_splits, hpb,
+                q.stride(0), rows_k.stride(0) if rows_k is not None else 0, D ** -0.5, stream)
     else:
+        if rows is not None:
+            raise ValueError(f"decode_attention: {kernel} writes no rows")
         n_splits = -(-S // _CHUNK)
         part_o = torch.empty((B, H, n_splits, D), dtype=torch.float32, device=device)
         part_ml = torch.empty((B, H, n_splits, 2), dtype=torch.float32, device=device)
@@ -420,7 +458,72 @@ def _decode_launch(kernel: str, q, k_cache, v_cache, pos_t, key_valid, k_scale, 
 
 decode_attention.launches = 0  # kernel launches (either kernel), read by chip_smoke.py
 decode_attention.launches_sm90 = 0  # of which decode_attn_sm90_kernel
+decode_attention.launches_fused = 0  # of which wrote the step's K/V rows (decode_attention_write)
 decode_attention.last_kernel = None  # name of the kernel the last call launched
+
+
+_STAGED_MAX = 96 * 1024  # bytes of new rows a fused launch stages in shared memory
+
+
+def _check_rows(op: str, rows_k, rows_v, lc, G: int, device) -> None:
+    """What a fused write asks of the new rows: [B, G, KV] fp32 or bf16 on the
+    caches' device, K and V with the same strides, a unit column stride and
+    16-byte aligned rows (the kernels stage them by 16-byte copies); the
+    staged rows (K and V of G tokens: whole rows for an int8 cache, one head's
+    64 columns for a bf16 one) within `_STAGED_MAX` bytes."""
+    B, _, KV = lc["k"].shape
+    if tuple(rows_k.shape) != (B, G, KV):
+        raise ValueError(f"{op}: rows {tuple(rows_k.shape)}, cache {tuple(lc['k'].shape)}, "
+                         f"{G} tokens")
+    if rows_k.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{op}: rows {rows_k.dtype}")
+    if (rows_v.device, rows_v.dtype, rows_v.shape, rows_v.stride()) != (
+            rows_k.device, rows_k.dtype, rows_k.shape, rows_k.stride()) or rows_k.stride(2) != 1 \
+            or rows_k.device != device:
+        raise ValueError(f"{op}: rows_k and rows_v must share the caches' device, a dtype, a "
+                         f"shape and strides (*, *, 1): {rows_k.stride()} and {rows_v.stride()}")
+    size = rows_k.element_size()
+    if any(t.data_ptr() % 16 for t in (rows_k, rows_v)) or any(
+            st * size % 16 for st in rows_k.stride()[:2]):
+        raise ValueError(f"{op}: rows need 16-byte aligned starts and row strides, got strides "
+                         f"{rows_k.stride()} of {size}-byte values")
+    staged = 2 * G * (KV if lc["k"].dtype == torch.int8 else 64) * size
+    if staged > _STAGED_MAX:
+        raise ValueError(f"{op}: {G} tokens' rows take {staged} bytes of shared memory to stage, "
+                         f"more than {_STAGED_MAX}")
+
+
+def _rows_reference(lc, rows_k, rows_v, pos):
+    from .cache_update import write_rows_reference  # cache_update imports this module
+
+    return write_rows_reference(lc, rows_k, rows_v, pos)
+
+
+def decode_attention_write(
+    q, rows_k, rows_v, lc, pos: torch.Tensor, key_valid=None, kv_heads: Optional[int] = None,
+) -> torch.Tensor:
+    """`write_rows_per_row(lc, rows_k, rows_v, pos)` then `decode_attention(q,
+    lc['k'], lc['v'], pos, ...)`, in one launch of `decode_attn_sm90_kernel`.
+    q [B,H,D] bf16; rows_k, rows_v [B,1,KV] (fp32 or bf16; strided views with a
+    unit last stride are read in place); lc the layer cache {'k', 'v': [B,S,KV]}
+    (+ {'ks', 'vs': [B,S] fp32} for int8), updated IN PLACE; pos a 1-element
+    int32 tensor on q's device, the same position for every row. Only where
+    `fuses_row_write(cache dtype, q dtype, D)`; on CPU tensors the plain
+    versions, one after the other."""
+    B = q.shape[0]
+    if q.device.type == "cpu":
+        _rows_reference(lc, rows_k, rows_v, pos.reshape(-1).expand(B))
+        return decode_attention_reference(q, lc["k"], lc["v"], pos, key_valid, lc.get("ks"),
+                                          lc.get("vs"), kv_heads)
+    op = "decode_attention_write"
+    if q.device.type != "cuda":
+        raise ValueError(f"{op}: no kernel for device {q.device}")
+    if not fuses_row_write(lc["k"].dtype, q.dtype, q.shape[-1]):
+        raise ValueError(f"{op}: no fused kernel for a {q.dtype} query over a {lc['k'].dtype} "
+                         f"cache at head dim {q.shape[-1]}")
+    _check_rows(op, rows_k, rows_v, lc, 1, q.device)
+    return _decode(op, q, lc["k"], lc["v"], pos, key_valid, lc.get("ks"), lc.get("vs"), kv_heads,
+                   rows=(rows_k, rows_v))
 
 
 def chunk_attention(
@@ -437,29 +540,41 @@ def chunk_attention(
         return chunk_attention_reference(
             q, k_cache, v_cache, pos, key_valid, k_scale, v_scale, kv_heads
         )
+    return _chunk("chunk_attention", q, k_cache, v_cache, pos, key_valid, k_scale, v_scale,
+                  kv_heads)
+
+
+def _chunk(op: str, q, k_cache, v_cache, pos, key_valid, k_scale, v_scale,
+           kv_heads: Optional[int], rows=None) -> torch.Tensor:
+    """A chunk attention on the card (see `chunk_attention`): checks the
+    operands, launches the kernel `chunk_kernel` names (writing `rows`, the
+    checked new K and V rows, first) and counts the launch."""
     if q.device.type != "cuda":
-        raise ValueError(f"chunk_attention: no kernel for device {q.device}")
+        raise ValueError(f"{op}: no kernel for device {q.device}")
     B, G, H, D = q.shape
     S = k_cache.shape[1]
-    Hkv = _check_caches("chunk_attention", q, 3, k_cache, v_cache, key_valid, k_scale,
-                        v_scale, kv_heads)
+    Hkv = _check_caches(op, q, 3, k_cache, v_cache, key_valid, k_scale, v_scale, kv_heads)
     if q.stride(3) != 1 or q.stride(2) != D:
-        raise ValueError(f"chunk_attention: q needs strides (*, *, {D}, 1), got {q.stride()}")
+        raise ValueError(f"{op}: q needs strides (*, *, {D}, 1), got {q.stride()}")
     device = q.device
-    _check("pos", pos, device, torch.int32, (B,), align=4, op="chunk_attention")
+    _check("pos", pos, device, torch.int32, (B,), align=4, op=op)
     out = torch.empty((B, G, H, D), dtype=q.dtype, device=device)
     if out.numel() and S:
         kernel = chunk_kernel(k_cache.dtype, D)
-        _chunk_launch(kernel, q, k_cache, v_cache, pos, key_valid, k_scale, v_scale, Hkv, out)
+        _chunk_launch(kernel, q, k_cache, v_cache, pos, key_valid, k_scale, v_scale, Hkv, out,
+                      rows)
         chunk_attention.launches += 1
         chunk_attention.launches_sm90 += kernel == "chunk_attn_sm90_kernel"
+        chunk_attention.launches_fused += rows is not None
         chunk_attention.last_kernel = kernel
     return out
 
 
 def _chunk_launch(kernel: str, q, k_cache, v_cache, pos, key_valid, k_scale, v_scale, Hkv: int,
-                  out) -> None:
-    """Launches the named chunk kernel on checked operands (see `chunk_attention`)."""
+                  out, rows=None) -> None:
+    """Launches the named chunk kernel on checked operands (see `chunk_attention`);
+    `rows` (checked [B, G, KV] K and V rows) are written at pos[b] + g first,
+    by the tensor-core kernel only."""
     B, G, H, D = q.shape
     S = k_cache.shape[1]
     device = q.device
@@ -478,19 +593,55 @@ def _chunk_launch(kernel: str, q, k_cache, v_cache, pos, key_valid, k_scale, v_s
         part_ml = torch.empty((B, G, H, n_splits, 2), dtype=torch.float32, device=device)
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     lib = _build.library()
-    entry = lib.vtt_chunk_attention_sm90 if sm90 else lib.vtt_chunk_attention
+    stream = torch.cuda.current_stream(device).cuda_stream
+    head = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
+            ptr(key_valid), ptr(k_scale), ptr(v_scale))
     with torch.cuda.device(device):
-        code = entry(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
-            ptr(key_valid), ptr(k_scale), ptr(v_scale),
-            ptr(part_o), ptr(part_ml), out.data_ptr(),
-            _CACHE_DTYPES[k_cache.dtype], int(q.dtype == torch.bfloat16),
-            B, G, H, Hkv, S, D, n_splits, q.stride(0), q.stride(1), D ** -0.5,
-            torch.cuda.current_stream(device).cuda_stream,
-        )
+        if sm90:
+            rows_k, rows_v = rows if rows is not None else (None, None)
+            r_sb, r_sg = rows_k.stride()[:2] if rows_k is not None else (0, 0)
+            code = lib.vtt_chunk_attention_sm90(
+                *head, ptr(rows_k), ptr(rows_v), ptr(part_o), ptr(part_ml), out.data_ptr(),
+                _CACHE_DTYPES[k_cache.dtype], int(q.dtype == torch.bfloat16),
+                int(rows_k is not None and rows_k.dtype == torch.bfloat16),
+                B, G, H, Hkv, S, D, n_splits, q.stride(0), q.stride(1), r_sb, r_sg, D ** -0.5,
+                stream)
+        elif rows is not None:
+            raise ValueError(f"chunk_attention: {kernel} writes no rows")
+        else:
+            code = lib.vtt_chunk_attention(
+                *head, ptr(part_o), ptr(part_ml), out.data_ptr(),
+                _CACHE_DTYPES[k_cache.dtype], int(q.dtype == torch.bfloat16),
+                B, G, H, Hkv, S, D, n_splits, q.stride(0), q.stride(1), D ** -0.5, stream)
     _build.check(code, kernel)
 
 
 chunk_attention.launches = 0  # kernel launches (either kernel), read by chip_smoke.py
 chunk_attention.launches_sm90 = 0  # of which the tensor-core kernel
+chunk_attention.launches_fused = 0  # of which wrote the chunk's K/V rows (chunk_attention_write)
 chunk_attention.last_kernel = None  # name of the kernel the last call launched
+
+
+def chunk_attention_write(
+    q, rows_k, rows_v, lc, pos: torch.Tensor, key_valid=None, kv_heads: Optional[int] = None,
+) -> torch.Tensor:
+    """`write_rows_per_row(lc, rows_k, rows_v, pos)` then `chunk_attention(q,
+    lc['k'], lc['v'], pos, ...)`, in one launch of `chunk_attn_sm90_kernel`.
+    q [B,G,H,D]; rows_k, rows_v [B,G,KV] (fp32 or bf16; strided views with a
+    unit last stride are read in place); lc the layer cache, updated IN
+    PLACE; pos [B] int32 on q's device. Rows past the cache are skipped. Only
+    where `fuses_row_write(cache dtype, q dtype, D, chunk=True)`; on CPU
+    tensors the plain versions, one after the other."""
+    if q.device.type == "cpu":
+        _rows_reference(lc, rows_k, rows_v, pos)
+        return chunk_attention_reference(q, lc["k"], lc["v"], pos, key_valid, lc.get("ks"),
+                                         lc.get("vs"), kv_heads)
+    op = "chunk_attention_write"
+    if q.device.type != "cuda":
+        raise ValueError(f"{op}: no kernel for device {q.device}")
+    if not fuses_row_write(lc["k"].dtype, q.dtype, q.shape[-1], chunk=True):
+        raise ValueError(f"{op}: no fused kernel for a {lc['k'].dtype} cache at head dim "
+                         f"{q.shape[-1]}")
+    _check_rows(op, rows_k, rows_v, lc, q.shape[1], q.device)
+    return _chunk(op, q, lc["k"], lc["v"], pos, key_valid, lc.get("ks"), lc.get("vs"), kv_heads,
+                  rows=(rows_k, rows_v))

@@ -2,9 +2,17 @@
 
 Counterpart of `video_tokenizer_tpu/ops/vq.py`.
 
-* `vq_argmax` wraps `csrc/vq_lookup.cu`, which replaces the TPU kernel
-  `_vq_kernel` in both of its modes. On a CUDA tensor it launches the kernel
-  or raises; on a CPU tensor it runs `vq_lookup_reference`.
+* `vq_argmax` wraps `csrc/vq_lookup_sm90.cu` (fp32 scores on the tensor
+  cores as three TF32 products, the codebook split over a thread-block
+  cluster), which replaces the TPU kernel `_vq_kernel` in both of its modes;
+  `vq_kernel` names the kernel a call launches (that one, for every code dim
+  and mode). `csrc/vq_lookup.cu`, the earlier fp32-FMA kernel, stays built and
+  is launched only by name through `_vq_launch`, to be timed beside it. On a
+  CUDA tensor `vq_argmax` launches the kernel or raises; on a CPU tensor it
+  runs `vq_lookup_reference`.
+* `vq_argmax_tf32x3_tiled_reference` repeats the new kernel's arithmetic in
+  plain PyTorch, for the CPU tests (`tests/test_torch_vq_tiled.py`); nothing
+  else calls it.
 * `vq_lookup_reference` is the plain version, the JAX package's
   `vq_lookup_xla`: fp32 scores, then argmax (the first maximum on ties).
 * Stochastic mode samples codes from softmax(score * inv_temp) by Gumbel-max:
@@ -22,8 +30,10 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from .attention import split_tf32
 
 _CODE_DIMS = (4, 8, 16, 32)
+_VQ_CLUSTER = 8  # csrc/vq_lookup_sm90.cu: blocks of a cluster, the codebook's splits
 _MASK32 = 0xFFFFFFFF
 # Philox4x32 multipliers and Weyl key increments (Salmon et al., SC 2011)
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -78,6 +88,89 @@ def vq_lookup_reference(z, emb, score_bias: Optional[torch.Tensor] = None, *,
     return torch.argmax(s, dim=-1).to(torch.int32)
 
 
+def vq_kernel(d: int, stochastic: bool) -> str:
+    """The kernel a `vq_argmax` call on the card launches: the tensor-core
+    kernel of `csrc/vq_lookup_sm90.cu` for every code dim (4, 8, 16, 32) and
+    both modes. The one place where the choice is made; no call falls back to
+    the earlier `vq_argmax_kernel`."""
+    if d not in _CODE_DIMS:
+        raise ValueError(f"vq_kernel: d {d} not in {_CODE_DIMS}")
+    return "vq_tc_kernel"
+
+
+def vq_tile_code(j: int, c: int) -> int:
+    """Code offset, within a codebook tile of `csrc/vq_lookup_sm90.cu`, of
+    column c of 8-code n-tile j (the kernel's `tile_code`): n-tiles go in
+    pairs of 16 codes, and the four columns 2 tig, 2 tig + 1 of both tiles of a
+    pair, which one thread holds of a row, are codes 16 p + 4 tig .. + 3: one
+    Philox group."""
+    return 16 * (j // 2) + 4 * (c // 2) + 2 * (j % 2) + c % 2
+
+
+def vq_argmax_tf32x3_tiled_reference(z, emb, score_bias: Optional[torch.Tensor] = None, *,
+                                     stochastic: bool = False, inv_temp: float = 1.0,
+                                     seed: int = 0, n_splits: int = _VQ_CLUSTER) -> torch.Tensor:
+    """The arithmetic of `vq_tc_kernel`, in plain PyTorch (tests only). Same
+    contract as `vq_lookup_reference`.
+
+    What it repeats of the kernel: z and the codes padded with zeros to whole
+    k-steps of 8 dims and split into TF32 parts (`split_tf32`); per k-step the
+    three products in the kernel's order, lo.hi, hi.lo, then hi.hi, added to
+    an accumulator that starts at the bias (first k-step) or at zero (the
+    others, joined to the first by an fp32 add); Gumbel noise as the kernel
+    draws it, one Philox group per thread's four codes of a pair of n-tiles;
+    the codebook cut into `n_splits` slices of ceil(K / n_splits) codes
+    rounded up to 16, the argmax of each (first maximum), and the merge of
+    the slices in order, a later slice winning only by a larger score."""
+    M, d = z.shape
+    K = emb.shape[0]
+    steps = max(1, d // 8)
+    pad = 8 * steps - d
+    zh, zl = split_tf32(torch.nn.functional.pad(z.float(), (0, pad)))
+    eh, el = split_tf32(torch.nn.functional.pad(emb.float(), (0, pad)))
+    s = None
+    for ks in range(steps):
+        c = slice(8 * ks, 8 * ks + 8)
+        acc = torch.zeros((M, K), device=z.device)
+        if ks == 0 and score_bias is not None:
+            acc = acc + score_bias.float()[None, :]
+        for a, b in ((zl, eh), (zh, el), (zh, eh)):
+            acc = acc + a[:, c] @ b[:, c].T
+        s = acc if s is None else s + acc
+    if stochastic:
+        s = s * inv_temp + _gumbel_by_thread(M, K, seed, s.device)
+    size = -(-K // n_splits)  # codes of a slice: ceil(K / n_splits), rounded up to 16
+    size = -(-size // 16) * 16
+    best = torch.full((M,), float("-inf"), device=z.device)
+    idx = torch.zeros((M,), dtype=torch.int64, device=z.device)
+    for lo in range(0, K, size):
+        part = s[:, lo : lo + size]
+        i = torch.argmax(part, dim=-1)
+        v = part.gather(1, i[:, None])[:, 0]
+        take = v > best
+        best, idx = torch.where(take, v, best), torch.where(take, lo + i, idx)
+    return idx.to(torch.int32)
+
+
+def _gumbel_by_thread(M: int, K: int, seed: int, device) -> torch.Tensor:
+    """The kernel's noise, drawn as its threads draw it: for each pair of
+    n-tiles p and thread column tig, one Philox call on the counter of the
+    codes `vq_tile_code` gives that thread, (code // 4, m, 0, 0), whose four
+    words are those four codes' bits in order."""
+    pairs = -(-K // 16)
+    codes = torch.tensor([[vq_tile_code(2 * p + h, 2 * tig + e) for h in (0, 1) for e in (0, 1)]
+                          for p in range(pairs) for tig in range(4)], dtype=torch.int64,
+                         device=device)  # [pairs * 4 threads, 4 codes], ascending per thread
+    c0 = (codes[:, 0] // 4)[None, :].expand(M, -1)
+    c1 = torch.arange(M, device=device, dtype=torch.int64)[:, None].expand_as(c0)
+    zero = torch.zeros((), device=device, dtype=torch.int64)
+    bits = torch.stack(philox4x32_10(c0, c1, zero, zero, seed), dim=-1)  # [M, threads, 4]
+    u = (bits & 0xFFFFFF).float() * (1.0 / 16777216.0)
+    g = torch.empty((M, 16 * pairs), device=device)
+    g[:, codes.reshape(-1)] = (-torch.log(-torch.log(u + 1e-10) + 1e-10)).reshape(M, -1)
+    return g[:, :K]
+
+
 def vq_argmax(z, emb, score_bias: Optional[torch.Tensor] = None, *, stochastic: bool = False,
               inv_temp: float = 1.0, seed: int = 0) -> torch.Tensor:
     """Codebook kernel. z: [M, d] fp32, emb: [K, d] fp32, bias: [K] fp32;
@@ -104,19 +197,33 @@ def vq_argmax(z, emb, score_bias: Optional[torch.Tensor] = None, *, stochastic: 
         raise ValueError(f"vq_argmax: seed {seed} outside [0, 2**63)")
     idx = torch.empty((M,), dtype=torch.int32, device=z.device)
     if M:
-        with torch.cuda.device(z.device):
-            code = _build.library().vtt_vq_argmax(
-                z.data_ptr(), emb.data_ptr(),
-                score_bias.data_ptr() if score_bias is not None else None,
-                idx.data_ptr(), M, K, d, int(stochastic), float(inv_temp), int(seed),
-                torch.cuda.current_stream(z.device).cuda_stream,
-            )
-        _build.check(code, "vq_argmax")
+        kernel = vq_kernel(d, stochastic)
+        _vq_launch(kernel, z, emb, score_bias, idx, stochastic, inv_temp, seed)
         vq_argmax.launches += 1
+        vq_argmax.launches_tc += kernel == "vq_tc_kernel"
+        vq_argmax.last_kernel = kernel
     return idx
 
 
-vq_argmax.launches = 0  # kernel launches, read by chip_smoke.py
+def _vq_launch(kernel: str, z, emb, score_bias, idx, stochastic: bool, inv_temp: float,
+               seed: int) -> None:
+    """Launches the named VQ kernel on checked operands (see `vq_argmax`)."""
+    M, d = z.shape
+    lib = _build.library()
+    entry = lib.vtt_vq_argmax_sm90 if kernel == "vq_tc_kernel" else lib.vtt_vq_argmax
+    with torch.cuda.device(z.device):
+        code = entry(
+            z.data_ptr(), emb.data_ptr(),
+            score_bias.data_ptr() if score_bias is not None else None,
+            idx.data_ptr(), M, emb.shape[0], d, int(stochastic), float(inv_temp), int(seed),
+            torch.cuda.current_stream(z.device).cuda_stream,
+        )
+    _build.check(code, kernel)
+
+
+vq_argmax.launches = 0  # kernel launches (either kernel), read by chip_smoke.py
+vq_argmax.launches_tc = 0  # of which vq_tc_kernel
+vq_argmax.last_kernel = None  # name of the kernel the last call launched
 
 
 def vq_lookup(z, emb, *, metric: str = "l2", stochastic: bool = False, inv_temp: float = 1.0,
