@@ -16,7 +16,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
      views, causal with an offset, GQA, ragged Sk, D = 32 causal ragged, one
      row past a 128-row block, rows that see no key; the 3xTF32 kernel
      (fp32, D 32 or 64, no segment ids) at the tokenizer's B = 1 and
-     training B = 8 shapes from strided views, the discriminator's, causal
+     training B = 8 shapes from strided views, the discriminator's, the
+     frame-prediction AR trainer's causal B = 8, S = 2048, H = 20, causal
      with an offset, GQA, ragged Sk, D = 32 causal ragged, the block edge and
      rows that see no key, timed beside the earlier FMA kernel, SDPA fp32 and
      the efficient op with its LSE; the mma.sync / FMA kernel on D = 128 and
@@ -62,12 +63,14 @@ Phases, each of which raises on failure (exit code 1, no result line):
      kernel, the decode-step projections on the int8 kernels the rule names,
      the NLL forward's 151 on the wgmma int8 kernel, every layer's row write
      inside its decode attention, no separate row write), one step timed
-     and profiled with the row write fused and separate (30 kernels fewer);
+     with the row write fused and separate, and its kernels counted exactly
+     as the kernel nodes of the step's captured CUDA graph (30 fewer fused);
      and 16 tokens with `emb_masks` (prompt positions masked as keys), whose
      prefill runs the segment-id flash forward;
  10. the flash backward kernels (dQ; dK/dV, after phase 2) against their
      plain backward: the tokenizer's shape from strided views, the
-     discriminator's ragged S = 1025, the prior's causal shape, GQA 20/5,
+     discriminator's ragged S = 1025, the prior's causal shape, the
+     frame-prediction AR trainer's (B = 8, S = 2048, H = 20), GQA 20/5,
      segments with a no-match query, causal with an offset, each also
      against the plain backward of the plain forward's out and LSE, dQ and
      dK/dV by the wgmma kernels (bf16) and the 3xTF32 kernels (fp32) wherever
@@ -120,7 +123,16 @@ Phases, each of which raises on failure (exit code 1, no result line):
      crossover acceptance;
  17. distillation of the full-width draft against the prior, 10 steps: the
      soft cross-entropy falls; launch counts of the flash forward, dQ and
-     dK/dV kernels from the draft's 8 layers.
+     dK/dV kernels from the draft's 8 layers;
+ 18. the AR prior's two trainers (cfgs/larp_ar.yaml, larp_ar_fp.yaml) at the
+     632M prior's full width, fed by the frozen flagship tokenizer from a
+     checkpoint directory the tokenizer trainer wrote, fp32 (TF32 off): one
+     step at batch 1, card against CPU (loss, top-1/top-5, named
+     gradients); batch 8 with the configured dropouts: s/step, training
+     tokens/s, clips/s, peak memory, idle share and time by kernel category,
+     exact launch counts (42 flash forwards, 30 dQ, 30 dK/dV, all 3xTF32,
+     one VQ search); the train CLI's entry through one epoch, eval and the
+     sample grid, whose `epoch-final` loads and samples on the card.
 Every kernel phase also times one PyTorch call that computes the same
 function (`library_ms`: SDPA and its autograd backward, a matmul + argmax,
 `index_put_`), which the port uses nowhere, and computes the kernel's bound
@@ -197,6 +209,42 @@ def graph_ms(fn, launches: int = 20, replays: int = 10) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (replays * launches)
+
+
+def graph_kernels(fn) -> int:
+    """The exact number of kernels one fn() launches: fn captured once as a
+    CUDA graph (kept, not instantiated), whose kernel nodes are counted
+    through libcuda (cuGraphGetNodes, cuGraphNodeGetType). Memset, copy
+    and event nodes are not kernels; a child-graph or conditional node is
+    refused, since its kernels would go uncounted."""
+    import ctypes
+
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):  # warm-up outside the capture (allocator, cuBLAS)
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cuda = ctypes.CDLL("libcuda.so.1")
+    raw, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    require(cuda.cuGraphGetNodes(raw, None, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    require(cuda.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
+    types = []
+    for node in nodes:
+        t = ctypes.c_int()
+        require(cuda.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)) == 0,
+                "cuGraphNodeGetType failed")
+        types.append(t.value)
+    # CUgraphNodeType: 0 kernel, 4 child graph, 13 conditional
+    require(not {4, 13} & set(types), f"captured graph has child-graph or conditional nodes: {types}")
+    graph.reset()
+    return types.count(0)
 
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published peaks (dense)
@@ -298,6 +346,8 @@ def phase_flash(records: dict) -> None:
         ("fp32_train", 8, 2048, 2048, 12, 12, 64, torch.float32, False, None, False, 1e-4),
         ("fp32_discriminator", 8, 1025, 1025, 12, 12, 32, torch.float32, False, None, False, 1e-4),
         ("fp32_prior_causal", 2, 1024, 1024, 20, 20, 64, torch.float32, True, None, False, 1e-4),
+        # the frame-prediction AR trainer's: 1025 condition + 1023 code tokens
+        ("fp32_ar_fp_train", 8, 2048, 2048, 20, 20, 64, torch.float32, True, None, False, 1e-4),
         ("fp32_causal_offset", 2, 384, 512, 4, 4, 64, torch.float32, True, 100, False, 1e-4),
         ("fp32_gqa_4_over_2", 2, 512, 512, 4, 2, 64, torch.float32, False, None, False, 1e-4),
         ("fp32_ragged_sk", 2, 300, 1000, 4, 4, 64, torch.float32, False, None, False, 1e-4),
@@ -320,7 +370,7 @@ def phase_flash(records: dict) -> None:
                   "ragged_sk", "causal_ragged_d32", "edge_129_257", "causal_no_key_rows"}
     tf32x3_cases = {c[0] for c in cases if c[7] == torch.float32 and c[6] != 128 and not c[10]}
     strided = {"flagship", "discriminator", "ar_nll_causal", "fp32_train", "fp32_discriminator",
-               "fp32_prior_causal"}
+               "fp32_prior_causal", "fp32_ar_fp_train"}
     lse_tol = 1e-4
     for name, B, Sq, Sk, H, Hkv, D, dtype, causal, offset, with_seg, tol in cases:
         if name in strided:
@@ -472,6 +522,8 @@ def phase_flash_bwd(records: dict) -> None:
         ("causal_no_key_rows", 1, 300, 300, 2, 2, 64, torch.bfloat16, True, -70, False, 2e-2),
         # fp32 at the shapes of the bf16 cases above (the AR trainer's causal GQA at D = 64)
         ("fp32_prior_causal", 8, 1024, 1024, 20, 20, 64, torch.float32, True, None, False, 1e-4),
+        # the frame-prediction AR trainer's: 1025 condition + 1023 code tokens
+        ("fp32_ar_fp_train", 8, 2048, 2048, 20, 20, 64, torch.float32, True, None, False, 1e-4),
         ("fp32_gqa_20_over_5", 2, 512, 512, 20, 5, 64, torch.float32, True, None, False, 1e-4),
         ("fp32_causal_offset_d64", 2, 384, 512, 4, 2, 64, torch.float32, True, 100, False, 1e-4),
         ("fp32_causal_no_key_rows", 1, 300, 300, 2, 2, 64, torch.float32, True, -70, False, 1e-4),
@@ -484,7 +536,8 @@ def phase_flash_bwd(records: dict) -> None:
     # that feeds them follows the same rule
     sm90_cases = {"tokenizer", "discriminator", "prior_causal", "gqa_20_over_5",
                   "causal_offset_d64", "causal_ragged_d32", "edge_129_257", "causal_no_key_rows"}
-    tf32x3_cases = {"fp32", "fp32_tokenizer", "fp32_prior_causal", "fp32_gqa_20_over_5",
+    tf32x3_cases = {"fp32", "fp32_tokenizer", "fp32_prior_causal", "fp32_ar_fp_train",
+                    "fp32_gqa_20_over_5",
                     "fp32_causal_offset_d64", "fp32_causal_no_key_rows", "fp32_edge_129_257",
                     "fp32_causal_ragged_d32"}
     fma_launches = [0, 0]  # dQ, dK/dV launches of csrc/flash_attn_bwd.cu by the cases
@@ -1934,12 +1987,12 @@ def _step_ms_by_w8_kernel(model, tok, pos, cache) -> dict:
 
 
 def _step_fused_vs_separate(model, tok, pos, cache) -> dict:
-    """{"fused" / "separate": ([ms, ms], kernels, [kernels of each profile])}:
-    the device time of one decode step (graph replay, in turn, twice) and its
-    kernels (the most frequent count of three torch.profiler runs: a run can
-    drop events) with the K/V rows written inside the decode attention as
-    `fuses_row_write` says, and with that chooser answering no, so that each
-    layer's rows go through `write_rows_per_row` first."""
+    """{"fused" / "separate": ([ms, ms], kernels)}: the device time of one
+    decode step (graph replay, in turn, twice) and its exact kernel count
+    (the kernel nodes of the step's captured graph, `graph_kernels`) with the
+    K/V rows written inside the decode attention as `fuses_row_write` says,
+    and with that chooser answering no, so that each layer's rows go through
+    `write_rows_per_row` first."""
     import importlib
 
     ar = importlib.import_module("video_tokenizer_tpu_torch.models.larp_ar")
@@ -1953,9 +2006,7 @@ def _step_fused_vs_separate(model, tok, pos, cache) -> dict:
                 ms.append(graph_ms(lambda: model.decode_step(tok, pos, cache), launches=1, replays=50))
         for c in choices:
             ar.fuses_row_write = choices[c]
-            counts = [sum(_kernels_in(lambda: model.decode_step(tok, pos, cache)).values())
-                      for _ in range(3)]
-            out[c] = (out[c][0], statistics.mode(counts), counts)
+            out[c] = (out[c][0], graph_kernels(lambda: model.decode_step(tok, pos, cache)))
     finally:
         ar.fuses_row_write = chooser
     return out
@@ -2029,7 +2080,8 @@ def phase_ar_sampling(model_fp32, tokenizer, records: dict) -> None:
         log(f"[sample {name}] batch {B}, CFG 1.5, top-k 100, {new} tokens: {wall:.3f} s = "
             f"{tok_s:.1f} tokens/s, {wall_ms:.3f} ms per decode step (host wall); device "
             f"{step_ms:.3f} ms per step (CUDA-graph replay at pos 512): idle {idle:.1%}; "
-            f"{sum(per_step.values())} kernels per step (torch.profiler), most launched: "
+            f"{sum(per_step.values())} device events per step (torch.profiler, which can drop "
+            f"some), most launched: "
             + ", ".join(f"{n[:60]} x{c}" for n, c in top))
         log(f"[sample {name}] NLL forward {nll_s * 1e3:.1f} ms (NLL {nll.item():.4f}), "
             f"decode_from_bottleneck {dec_s * 1e3:.1f} ms ({in_range(video):.1%} of pixels in "
@@ -2038,14 +2090,15 @@ def phase_ar_sampling(model_fp32, tokenizer, records: dict) -> None:
             f"write fused (expect all), of the int8 "
             f"matmuls {w8_stream} by w8_stream_kernel (expect {want_w8_stream}) and {w8_sm90} by "
             f"w8_sm90_kernel (expect {want_w8_sm90}: the NLL forward's)")
-        (fused_ms, fused_n, fused_all), (sep_ms, sep_n, sep_all) = (by_write["fused"],
-                                                                    by_write["separate"])
+        (fused_ms, fused_n), (sep_ms, sep_n) = by_write["fused"], by_write["separate"]
         log(f"[sample {name}] one step at pos 512 with the K/V rows written inside the decode "
             f"attention: " + " / ".join(f"{t:.4f}" for t in fused_ms) + f" ms, {fused_n} kernels "
-            f"(profiles {fused_all}); with a separate row write per layer: "
+            f"(kernel nodes of the captured step); with a separate row write per layer: "
             + " / ".join(f"{t:.4f}" for t in sep_ms)
-            + f" ms, {sep_n} kernels (profiles {sep_all}) (in turn, CUDA-graph replay): the fusion saves "
-            f"{(min(sep_ms) - min(fused_ms)) * 1e3:.1f} us and {sep_n - fused_n} kernels a step")
+            + f" ms, {sep_n} kernels (in turn, CUDA-graph replay): the fusion saves "
+            f"{(min(sep_ms) - min(fused_ms)) * 1e3:.1f} us and {sep_n - fused_n} kernels a step; "
+            f"torch.profiler saw {sum(per_step.values())} device events (kernels, copies, "
+            f"memsets) in the fused step")
         require(sep_n - fused_n == 30, f"sample {name}: the fused step has {fused_n} kernels, the "
                                        f"separate one {sep_n}: not 30 fewer")
         if by_w8 is not None:
@@ -2074,7 +2127,7 @@ def phase_ar_sampling(model_fp32, tokenizer, records: dict) -> None:
                 f"{w8_stream} w8_stream_kernel, {w8_sm90} w8_sm90_kernel")
         results[name] = dict(launches, w8_stream=w8_stream, w8_sm90=w8_sm90,
                              decode_sm90=decode_sm90, decode_fused=decode_fused)
-        step_ms_of[name] = (step_ms, sum(per_step.values()))
+        step_ms_of[name] = (step_ms, fused_n)  # the exact kernel count of the step
         records.setdefault("sampling_write_fused", {})[name] = {
             "fused_ms": min(fused_ms), "separate_ms": min(sep_ms), "fused_kernels": fused_n,
             "separate_kernels": sep_n}
@@ -2449,18 +2502,25 @@ def phase_distill(target, draft, records: dict) -> None:
                           "last_loss": stats["last_loss"]}
 
 
-def _train_cfg(save_dir, batch: int, use_amp: bool, **over) -> dict:
-    """cfgs/larp_tokenizer.yaml at full width, its $vars$ filled as the train
-    CLI fills them (16 frames of 128 x 128, fake null128 clips, no loader
-    workers), for the port's trainer."""
+def _load_cfg(name: str, save_dir, batch: int) -> dict:
+    """cfgs/<name>.yaml at full width, its $vars$ filled as the train CLI
+    fills them (16 frames of 128 x 128, fake null128 clips, no loader
+    workers), one epoch, seeded, for the port's trainers."""
     import yaml
 
-    text = (ROOT / "cfgs" / "larp_tokenizer.yaml").read_text()
+    text = (ROOT / "cfgs" / f"{name}.yaml").read_text()
     for key, value in (("frame_num", 16), ("input_size", 128), ("csv_file", "null128"),
                        ("batch_size", batch), ("num_workers", 0)):
         text = text.replace(f"${key}$", str(value))
     cfg = yaml.safe_load(text)
-    cfg.update(save_dir=str(save_dir), manualSeed=SEED, use_amp=use_amp, max_epoch=1)
+    cfg.update(save_dir=str(save_dir), manualSeed=SEED, max_epoch=1)
+    return cfg
+
+
+def _train_cfg(save_dir, batch: int, use_amp: bool, **over) -> dict:
+    """cfgs/larp_tokenizer.yaml (`_load_cfg`) in bf16 or fp32."""
+    cfg = _load_cfg("larp_tokenizer", save_dir, batch)
+    cfg["use_amp"] = use_amp
     cfg.update(over)
     return cfg
 
@@ -2566,6 +2626,39 @@ def _category(name: str) -> str:
                 "other elementwise/copy")
 
 
+def _profile_and_load(step, n: int):
+    """(wall ms, {category: device us}, device events, the card under load)
+    of n steps under torch.profiler, then the card's clock, power and
+    temperature during two more steps with one nvidia-smi query in flight (a
+    step time read beside a lower clock is the card's, not the code's)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    try:
+        under_load = smi.communicate(timeout=60)[0].strip() or "not available"
+    except subprocess.TimeoutExpired:
+        smi.kill()
+        smi.communicate()
+        under_load = "not available"
+    per_cat: dict = {}
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    for e in events:
+        per_cat[_category(e.name)] = per_cat.get(_category(e.name), 0.0) + e.time_range.elapsed_us()
+    return wall_ms, per_cat, len(events), under_load
+
+
 def phase_train_throughput(tmp: Path, records: dict) -> None:
     """Training through the port's trainer at batch 8, full width, on fake
     null128 clips from its own loader: bf16 (`use_amp: true`) and the config's
@@ -2574,7 +2667,6 @@ def phase_train_throughput(tmp: Path, records: dict) -> None:
     steps, peak memory, then 5 more steps under torch.profiler for the
     device's idle share and time by kernel category."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from video_tokenizer_tpu_torch.ops.attention import (
         flash_attn_bwd_dkv, flash_attn_bwd_dq, flash_attn_fwd,
@@ -2617,31 +2709,7 @@ def phase_train_throughput(tmp: Path, records: dict) -> None:
         vq_tc = vq_argmax.launches_tc
         loader_s = statistics.mean(fetch_s)
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(timed):
-                step()
-            torch.cuda.synchronize()
-            prof_wall_ms = (time.perf_counter() - t0) * 1e3
-        # the card's clock, power and temperature while it works: two more
-        # steps with one query in flight (a step time read beside a lower
-        # clock is the card's, not the code's)
-        smi = subprocess.Popen(
-            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu",
-             "--format=csv,noheader"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
-        for _ in range(2):
-            step()
-        torch.cuda.synchronize()
-        try:
-            under_load = smi.communicate(timeout=60)[0].strip() or "not available"
-        except subprocess.TimeoutExpired:
-            smi.kill()
-            smi.communicate()
-            under_load = "not available"
-        per_cat: dict = {}
-        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        for e in events:
-            per_cat[_category(e.name)] = per_cat.get(_category(e.name), 0.0) + e.time_range.elapsed_us()
+        prof_wall_ms, per_cat, n_events, under_load = _profile_and_load(step, timed)
         busy_ms = sum(per_cat.values()) / 1e3
         idle = 1.0 - busy_ms / prof_wall_ms
         mean_s = statistics.mean(times)
@@ -2667,7 +2735,7 @@ def phase_train_throughput(tmp: Path, records: dict) -> None:
             f"perceptual {last['perceptual_loss']:.4f}, d_loss {last['d_loss']:.4f}, "
             f"psnr {last['psnr']:.2f}")
         log(f"[train {name}] profiled {timed} steps: wall {prof_wall_ms / timed:.1f} ms per step, "
-            f"device busy {busy_ms / timed:.1f} ms, idle {idle:.1%}, {len(events) / timed:.0f} "
+            f"device busy {busy_ms / timed:.1f} ms, idle {idle:.1%}, {n_events / timed:.0f} "
             f"kernels per step; device ms per step by category: "
             + ", ".join(f"{c} {us / 1e3 / timed:.1f} ({us / 1e3 / busy_ms:.1%})"
                         for c, us in sorted(per_cat.items(), key=lambda kv: -kv[1])))
@@ -2689,6 +2757,264 @@ def phase_train_throughput(tmp: Path, records: dict) -> None:
                 records[f"{k.__name__}_tf32x3"]["launches"] = tf32x3[k.__name__]
         del tr, batches
         torch.cuda.empty_cache()
+
+
+def _ar_cfg(tmp: Path, name: str, vae_dir: Path, batch: int) -> dict:
+    """cfgs/<name>.yaml (larp_ar or larp_ar_fp, `_load_cfg`): the 632M
+    llama-abs-LP prior on the frozen tokenizer of the checkpoint directory
+    `vae_dir`."""
+    cfg = _load_cfg(name, tmp, batch)
+    cfg["vae"]["checkpoint"] = str(vae_dir)
+    return cfg
+
+
+def _read_png(path: Path):
+    """uint8 [H, W, 3] of an 8-bit RGB PNG whose rows all use filter 0 (what
+    `utils.common.save_png` writes); the card's machine has no cv2 or PIL."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    data = path.read_bytes()
+    require(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: not a PNG")
+    pos, idat, head = 8, b"", None
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            head = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h, depth, color = head[:4]
+    require((depth, color) == (8, 2), f"{path}: depth {depth}, colour type {color}")
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    require(not rows[:, 0].any(), f"{path}: a row with a filter other than 0")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def phase_ar_train(tmp: Path, records: dict) -> None:
+    """The AR prior's two trainers (class-conditional and frame-prediction)
+    at the 632M llama-abs-LP prior's full width, fed by the frozen flagship
+    tokenizer, fp32 (TF32 off), as `cfgs/larp_ar.yaml` and `larp_ar_fp.yaml`
+    configure them:
+      (a) the tokenizer checkpoint: the port's tokenizer trainer on
+          cfgs/larp_tokenizer.yaml, weights perturbed (its output layer
+          starts at zero), `epoch-final` saved with no epoch trained; every
+          AR trainer below loads it through `vae.checkpoint`;
+      (b) one step at batch 1, every dropout 0, card against CPU from the
+          same weights: loss, top-1/top-5 (2 of 1024 tokens), named gradients;
+      (c) batch 8 with the configured dropouts: 2 warm-up steps, 5 timed
+          (s/step, training tokens/s, clips/s, peak memory), 5 profiled (idle
+          share, device time by kernel category), the card under load;
+      (d) exact launch counts per step: 42 flash forwards (12 in the frozen
+          encoder, 30 in the prior), 30 dQ and 30 dK/dV, all on the 3xTF32
+          kernels, 1 VQ search on vq_tc_kernel, no int8 matmul;
+      (e) the train CLI's entry (`train.main`) on cfgs/larp_ar.yaml at batch 8
+          through one epoch of null128 (16 steps), eval and `vis_epoch`: the
+          sample grid decodes to 4 x 128 by 8 x 128 pixels and is not
+          constant, and `epoch-final` loads through `load_ar_checkpoint` and
+          samples 16 tokens on the card."""
+    import numpy as np
+    import torch
+
+    from video_tokenizer_tpu_torch.generation import generate
+    from video_tokenizer_tpu_torch.ops.attention import (
+        flash_attn_bwd_dkv, flash_attn_bwd_dq, flash_attn_fwd,
+    )
+    from video_tokenizer_tpu_torch.ops.cache_update import write_rows_per_row
+    from video_tokenizer_tpu_torch.ops.decode_attention import decode_attention
+    from video_tokenizer_tpu_torch.ops.quant_matmul import w8_matmul
+    from video_tokenizer_tpu_torch.ops.vq import vq_argmax
+    from video_tokenizer_tpu_torch.train import main as train_main
+    from video_tokenizer_tpu_torch.utils.model_io import load_ar_checkpoint
+
+    # (a) the frozen tokenizer's checkpoint directory
+    vae = _trainer(_train_cfg(tmp / "vae", 1, False), "cpu")
+    _perturb(vae.model, SEED + 80)
+    vae.save_final_checkpoint()
+    vae_dir = tmp / "vae" / "epoch-final"
+    del vae
+
+    # (b) one fp32 step, card against CPU
+    clip = np.random.default_rng(SEED + 81).integers(0, 256, (1, 3, 16, 128, 128), dtype=np.uint8)
+    batch = {"gt": torch.from_numpy(clip), "label": torch.tensor([5])}
+    named = ("tok_embeddings.weight", "abs_pe", "layers.0.attention.wqkv.weight",
+             "layers.15.feed_forward.w2.weight", "layers.29.attention.wo.weight", "output.weight")
+    for name in ("larp_ar", "larp_ar_fp"):
+        cfg = _ar_cfg(tmp / f"{name}_parity", name, vae_dir, 1)
+        cfg["model"]["args"].update(token_dropout_p=0.0, resid_dropout_p=0.0, ffn_dropout_p=0.0,
+                                    class_dropout_prob=0.0)
+        pair = {d: _trainer({**cfg, "save_dir": str(tmp / f"{name}_{d}")}, d)
+                for d in ("cpu", "cuda")}
+        cpu, gpu = pair["cpu"], pair["cuda"]
+        _perturb(cpu.model, SEED + 82)
+        gpu.model.load_state_dict(cpu.model.state_dict())
+        infos, secs = {}, {}
+        for d, tr in pair.items():
+            t0 = time.perf_counter()
+            keys, packed = tr.train_step(batch)
+            infos[d] = dict(zip(keys, packed.tolist()))
+            secs[d] = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in cpu.model.parameters())
+        loss_err = abs(infos["cuda"]["loss"] - infos["cpu"]["loss"]) / abs(infos["cpu"]["loss"])
+        topk_err = max(abs(infos["cuda"][k] - infos["cpu"][k]) for k in ("top1", "top5"))
+        log(f"[ar train fp32] {name}: prior {n_params:,} params ({cpu.model_cfg.n_layer} layers, "
+            f"S = {cpu.model_cfg.max_seq_len + cpu.model_cfg.cls_token_num - 1}), batch 1, dropouts "
+            f"0, TF32 off: CPU step (plain versions) {secs['cpu']:.1f} s, card step "
+            f"{secs['cuda']:.2f} s; loss {infos['cuda']['loss']:.6g}/{infos['cpu']['loss']:.6g} "
+            f"(card/CPU, relative difference {loss_err:.2e}, tol 2e-4), top1 "
+            f"{infos['cuda']['top1']:.4f}/{infos['cpu']['top1']:.4f}, top5 "
+            f"{infos['cuda']['top5']:.4f}/{infos['cpu']['top5']:.4f} (tol 2/1024)")
+        require(all(np.isfinite(v) for v in infos["cuda"].values()), f"{name}: non-finite info")
+        require(loss_err <= 2e-4, f"ar train {name}: losses differ by {loss_err}")
+        require(topk_err <= 2 / 1024, f"ar train {name}: top-k differs by {topk_err}")
+        gp, cp = dict(gpu.model.named_parameters()), dict(cpu.model.named_parameters())
+        worst = 0.0
+        for pname in named + (() if name == "larp_ar_fp" else ("cls_embedding.embedding_table.weight",)):
+            g, c = gp[pname].grad, cp[pname].grad
+            require(g is not None and c is not None, f"ar train {name}: no gradient for {pname}")
+            rel = (g.cpu() - c).abs().max().item() / c.abs().max().item()
+            worst = max(worst, rel)
+            log(f"[ar train fp32] {name} grad {pname}: max|card-cpu|/max|cpu| {rel:.2e} "
+                f"(max|g| {c.abs().max().item():.3e}; tol 1e-3)")
+        require(worst <= 1e-3, f"ar train {name}: gradients differ by {worst} of their scale")
+        records[f"train_{name[len('larp_'):]}"] = {"parity_loss_rel": loss_err, "parity_grad_rel": worst,
+                                    "parity_cpu_s": secs["cpu"]}
+        del pair, cpu, gpu, gp, cp
+        torch.cuda.empty_cache()
+
+    # (c) throughput and (d) launch counts, batch 8, dropouts as configured
+    kernels = (flash_attn_fwd, flash_attn_bwd_dq, flash_attn_bwd_dkv, vq_argmax, w8_matmul)
+    B, warm, timed = 8, 2, 5
+    for name in ("larp_ar", "larp_ar_fp"):
+        tr = _trainer(_ar_cfg(tmp / name, name, vae_dir, B), "cuda")
+        mc = tr.model_cfg
+        batches = tr.train_loader(1)
+        fetch_s = []
+
+        def step():
+            t0 = time.perf_counter()
+            b = next(batches)
+            fetch_s.append(time.perf_counter() - t0)
+            return tr.train_step(b)
+
+        for _ in range(warm):
+            step()
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        for k in kernels[:3]:
+            k.launches_sm90 = k.launches_tf32x3 = 0
+        vq_argmax.launches_tc = 0
+        torch.cuda.reset_peak_memory_stats()
+        fetch_s.clear()
+        times, infos = [], []
+        for _ in range(timed):
+            t0 = time.perf_counter()
+            infos.append(step())
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launches = {k.__name__: k.launches for k in kernels}
+        tf32x3 = {k.__name__: k.launches_tf32x3 for k in kernels[:3]}
+        sm90 = {k.__name__: k.launches_sm90 for k in kernels[:3]}
+        vq_tc = vq_argmax.launches_tc
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        loader_s = statistics.mean(fetch_s)
+        prof_wall_ms, per_cat, n_events, under_load = _profile_and_load(step, timed)
+        busy_ms = sum(per_cat.values()) / 1e3
+        idle = 1.0 - busy_ms / prof_wall_ms
+        mean_s = statistics.mean(times)
+        tokens = B * mc.max_seq_len  # targets a step
+        want = {"flash_attn_fwd": (12 + mc.n_layer) * timed,
+                "flash_attn_bwd_dq": mc.n_layer * timed, "flash_attn_bwd_dkv": mc.n_layer * timed,
+                "vq_argmax": timed, "w8_matmul": 0}
+        want_tf32x3 = {k: want[k] for k in tf32x3}
+        finite = all(torch.isfinite(packed).all().item() for _, packed in infos)
+        keys, last = infos[-1]
+        last = dict(zip(keys, last.tolist()))
+        log(f"[ar train {name}] batch {B}, {mc.n_layer} layers of {mc.dim}, "
+            f"S = {mc.max_seq_len + mc.cls_token_num - 1}, dropouts token "
+            f"{mc.token_dropout_p} resid {mc.resid_dropout_p} ffn {mc.ffn_dropout_p} class "
+            f"{mc.class_dropout_prob}, {timed} steps: {', '.join(f'{t:.3f}' for t in times)} s; "
+            f"mean {mean_s:.3f} s/step = {tokens / mean_s:.0f} training tokens/s = "
+            f"{B / mean_s:.2f} clips/s (median {statistics.median(times):.3f} s); loader "
+            f"{loader_s * 1e3:.1f} ms per step on the host; peak memory {peak_gb:.2f} GiB; last "
+            f"loss {last['loss']:.4f}, top1 {last['top1']:.4f}, top5 {last['top5']:.4f}")
+        log(f"[ar train {name}] launches over the timed steps {launches} (expect {want}), of which "
+            f"the 3xTF32 kernels {tf32x3} (expect {want_tf32x3}), the wgmma kernels {sm90} "
+            f"(expect 0) and vq_tc_kernel {vq_tc} (expect {timed})")
+        log(f"[ar train {name}] profiled {timed} steps: wall {prof_wall_ms / timed:.1f} ms per "
+            f"step, device busy {busy_ms / timed:.1f} ms, idle {idle:.1%}, {n_events / timed:.0f} "
+            f"device events per step; device ms per step by category: "
+            + ", ".join(f"{c} {us / 1e3 / timed:.1f} ({us / 1e3 / busy_ms:.1%})"
+                        for c, us in sorted(per_cat.items(), key=lambda kv: -kv[1])))
+        log(f"[ar train {name}] the card during two further steps (SM clock, its maximum, power "
+            f"draw, temperature): {under_load}")
+        require(finite, f"ar train {name}: non-finite losses")
+        require(launches == want, f"ar train {name}: launch counts {launches}, expected {want}")
+        require(tf32x3 == want_tf32x3, f"ar train {name}: 3xTF32 launches {tf32x3}")
+        require(not any(sm90.values()), f"ar train {name}: wgmma launches {sm90}")
+        require(vq_tc == timed, f"ar train {name}: {vq_tc} of {timed} VQ launches on vq_tc_kernel")
+        records[f"train_{name[len('larp_'):]}"].update(
+            batch=B, s_per_step=mean_s, tokens_per_s=tokens / mean_s, clips_per_s=B / mean_s,
+            peak_gib=peak_gb, idle=idle, loader_s=loader_s,
+            device_ms_per_step={c: us / 1e3 / timed for c, us in per_cat.items()})
+        for k in kernels[:3]:
+            row = records[f"{k.__name__}_tf32x3"]
+            row["launches"] += tf32x3[k.__name__]
+            row[f"{name}_launches"] = tf32x3[k.__name__]
+        records["vq_argmax"]["launches"] += vq_tc
+        records["vq_argmax"][f"{name}_launches"] = vq_tc
+        del tr, batches
+        torch.cuda.empty_cache()
+
+    # (e) the train CLI on cfgs/larp_ar.yaml through one epoch, eval and vis
+    for k in (decode_attention, write_rows_per_row):
+        k.launches = 0
+    out = tmp / "cli"
+    t0 = time.perf_counter()
+    tr = train_main(["--cfg", str(ROOT / "cfgs" / "larp_ar.yaml"), "--csv_file", "null128",
+                     "-b", "8", "-j", "0", "--device", "cuda", "--manualSeed", str(SEED),
+                     "--out_path", str(out), "--opts", "max_epoch", "1", "eval_epoch", "1",
+                     "vis_epoch", "1", "vae.checkpoint", str(vae_dir),
+                     "test_dataset.csv_paths.ucf101_val", "null128"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run = out / "larp_ar"
+    text = (run / "log.txt").read_text()
+    line = next((l for l in text.splitlines() if "Epoch 1, train:" in l), "")
+    losses = [float(x.split("=")[1].rstrip(",")) for x in line.split() if x.startswith("loss=")]
+    n_decode, n_rows = decode_attention.launches, write_rows_per_row.launches
+    grid_path = run / "vis" / "samples_ep1.png"
+    grid = _read_png(grid_path) if grid_path.exists() else None
+    grid_text = "missing" if grid is None else f"{grid.shape}, pixel std {grid.std():.4g}"
+    del tr
+    torch.cuda.empty_cache()
+    model = load_ar_checkpoint(str(run / "epoch-final"), device="cuda")
+    seq = generate(model, torch.tensor([3, 40], device="cuda"), 16,
+                   torch.Generator(device="cuda").manual_seed(SEED + 83))
+    torch.cuda.synchronize()
+    log(f"[ar train cli] train.main on cfgs/larp_ar.yaml, batch 8, one epoch of null128: "
+        f"{wall:.1f} s; train and eval losses {losses}; visualize_epoch sampled 4 x 1024 tokens "
+        f"with {n_decode} decode attentions and {n_rows} row writes (fp32 cache: the earlier "
+        f"kernels), grid {grid_text}; epoch-final loaded by "
+        f"load_ar_checkpoint, 16 tokens sampled: {seq[0].tolist()}")
+    require("visualize_epoch failed" not in text, "ar train cli: visualize_epoch failed")
+    require("Epoch 1 training done" in text and len(losses) == 2
+            and all(math.isfinite(v) for v in losses), f"ar train cli: losses {losses}")
+    require(grid is not None and grid.shape == (4 * 128, 8 * 128, 3) and grid.std() > 0,
+            f"ar train cli: sample grid {grid_text}")
+    require(n_decode == 30 * 1023 and n_rows == 30 * 1023,
+            f"ar train cli: {n_decode} decode attentions, {n_rows} row writes")
+    require(tuple(seq.shape) == (2, 16) and int(seq.min()) >= 0 and int(seq.max()) < 8192,
+            f"ar train cli: sampled codes {seq.tolist()}")
+    records["train_ar"]["cli_s"] = wall
+    for row, n in (("decode_attention_split", n_decode), ("cache_update", n_rows)):
+        records[row]["launches"] += n
+        records[row]["larp_ar_vis_launches"] = n
+    del model
 
 
 def main() -> int:
@@ -2743,6 +3069,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:  # the trainers' logs and cfg.yaml
         phase_train_fp32(Path(tmp))
         phase_train_throughput(Path(tmp), records)
+        phase_ar_train(Path(tmp), records)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 
     sources = {

@@ -115,6 +115,17 @@ def port_ar(params, **overrides):
     return model.eval()
 
 
+# `--opts` that shrink cfgs/larp_tokenizer.yaml to trainer_cfg's geometry
+TINY_TOKENIZER_OPTS = [
+    "model.args.encoder_depth", "1", "model.args.decoder_depth", "1",
+    "model.args.encoder_hidden_size", "64", "model.args.decoder_hidden_size", "64",
+    "model.args.encoder_num_heads", "2", "model.args.decoder_num_heads", "2",
+    "model.args.bottleneck_token_num", "16",
+    "model.args.bottleneck.args.regularizer.args.codebook_size", "64",
+    "loss.args.disc_tran_n_layers", "1", "loss.args.disc_tran_hidden_size", "64",
+    "loss.args.disc_tran_n_heads", "2"]
+
+
 def trainer_cfg(save_dir, **over):
     """A tiny tokenizer-trainer config (the geometry of tests/test_trainers.py's
     `_tok_cfg`) with deterministic VQ and the hinge GAN loss, so that no draw
@@ -156,6 +167,27 @@ def trainer_cfg(save_dir, **over):
     }
     cfg.update(over)
     return ConfigDict(cfg)
+
+
+def ar_trainer_cfg(save_dir, name="larp_ar_trainer", **over):
+    """A tiny AR-trainer config (the geometry of tests/test_trainers.py's
+    `_ar_cfg`): the tokenizer of `trainer_cfg` as an inline frozen vae (16
+    tokens, codebook 64), a prior of dim 64, 1 layer, 4 heads, every dropout
+    0; AdamW (lr 6e-4, weight decay 0.05) on a cosine warm-up; 8 frames, the
+    first 4 the frame-prediction condition."""
+    cfg = trainer_cfg(save_dir)
+    del cfg["loss"]
+    cfg["trainer"] = name
+    cfg["vae"] = {"name": "larp_tokenizer", "checkpoint": "",
+                  "args": cfg["model"]["args"].to_dict()}
+    cfg["model"] = {"name": "larp_ar", "args": {
+        "num_classes": 101, "token_dropout_p": 0.0, "resid_dropout_p": 0.0,
+        "ffn_dropout_p": 0.0, "class_dropout_prob": 0.0, "dim": 64, "n_layer": 1, "n_head": 4}}
+    cfg["ar"] = {"num_samples": 2, "sample_batch_size": 2, "num_frames": 8, "num_cond_frames": 4}
+    cfg["optimizer"] = {"name": "adamw", "args": {"lr": 6e-4, "weight_decay": 0.05},
+                        "lr_type": "cosine", "warmup_epoch": 1, "min_lr_mult": 0.1}
+    cfg.update(over)
+    return cfg
 
 
 def jax_trainer(cfg, capture_grads=False):
@@ -217,6 +249,56 @@ def port_trainer(cfg, jax_tr):
     tr.ema_params = {d: {n: p.detach().clone() for n, p in tr.model.named_parameters()}
                      for d in tr.ema_params}
     return tr
+
+
+def jax_ar_trainer(cfg):
+    """The JAX AR trainer (`cfg["trainer"]`) at epoch 1 with perturbed prior
+    weights (the EMA starts from them); its frozen vae is its seeded init."""
+    import video_tokenizer_tpu.data  # noqa: F401
+    import video_tokenizer_tpu.models  # noqa: F401
+    import video_tokenizer_tpu.trainers  # noqa: F401
+    from video_tokenizer_tpu.parallel import replicated_sharding
+    from video_tokenizer_tpu.registry import trainers
+
+    tr = trainers.make({"name": cfg["trainer"]}, args={"cfg": cfg})
+    tr.make_datasets()
+    tr.n_steps_per_epoch = 4
+    tr.epoch = 1
+    tr.make_model()
+    state = dict(tr.state)
+    state["params"] = perturb(state["params"], seed=11)
+    state["ema_params"] = {d: state["params"] for d in state["ema_params"]}
+    tr.state = jax.device_put(state, replicated_sharding(tr.mesh))
+    return tr
+
+
+def port_ar_trainer(cfg, jax_tr=None):
+    """The port's AR trainer on the CPU at epoch 1; with `jax_tr`, its vae
+    and prior weights are the JAX trainer's (the EMA starts from them)."""
+    import video_tokenizer_tpu_torch.data  # noqa: F401
+    import video_tokenizer_tpu_torch.trainers  # noqa: F401
+    from video_tokenizer_tpu_torch.registry import trainers
+    from video_tokenizer_tpu_torch.utils.convert import ar_state_dict_from_jax, state_dict_from_jax
+
+    tr = trainers.make({"name": cfg["trainer"]}, args={"cfg": cfg, "device": "cpu"})
+    tr.make_datasets()
+    tr.n_steps_per_epoch = 4
+    tr.epoch = 1
+    tr.make_model()
+    if jax_tr is not None:
+        host = jax.device_get(jax_tr.state)
+        tr.vae.load_state_dict(state_dict_from_jax(jax.device_get(jax_tr.vae_params), tr.vae),
+                               strict=True)
+        tr.model.load_state_dict(ar_state_dict_from_jax(host["params"], tr.model), strict=True)
+        tr.ema_params = {d: {n: p.detach().clone() for n, p in tr.model.named_parameters()}
+                         for d in tr.ema_params}
+    return tr
+
+
+def ar_batch(seed=0, batch=2):
+    """Clips and class labels of one AR-trainer batch (numpy)."""
+    rng = np.random.RandomState(seed)
+    return {"gt": clips(seed, batch), "label": rng.randint(0, 101, batch).astype(np.int32)}
 
 
 def train_batch(seed=0, batch=2):

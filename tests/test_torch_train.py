@@ -4,7 +4,8 @@ A tiny trainer (`tests/_torch_port.py::trainer_cfg`) takes real steps: a
 save / resume round trip restores the exact state (parameters, both
 optimizers, EMA, LeCam EMAs, the VQ sampling generator, step), so the next
 step is the same bit for bit; `epoch-final` loads into `LARPTokenizer`
-strictly; the CLI runs one short epoch; what is not ported raises.
+strictly; the CLI runs one short epoch; what is not ported raises (the
+STAT trainer; the AR trainers' remat and sample FVD).
 """
 import json
 import os
@@ -16,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import train_batch, trainer_cfg
+from _torch_port import TINY_TOKENIZER_OPTS, ar_trainer_cfg, train_batch, trainer_cfg
 import video_tokenizer_tpu_torch.data  # noqa: F401
 import video_tokenizer_tpu_torch.trainers  # noqa: F401
 from video_tokenizer_tpu_torch.models import LARPTokenizer
@@ -119,9 +120,17 @@ def test_unported_options_raise(tmp_path):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             trainers.make({"name": "larp_tokenizer_trainer"},
                           args={"cfg": trainer_cfg(tmp_path, **over), "device": "cpu"})
-    for name in ("larp_ar_trainer", "larp_ar_fp_trainer", "larp_tokenizer_trainer_stat"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        trainers.make({"name": "larp_tokenizer_trainer_stat"},
+                      args={"cfg": trainer_cfg(tmp_path), "device": "cpu"})
+    # the AR trainers: remat, and sample FVD against real statistics
+    remat = ar_trainer_cfg(tmp_path)
+    remat["model"]["args"]["remat"] = True
+    for cfg in (remat, ar_trainer_cfg(tmp_path, fvd_real_stats_path="real_stats.npz")):
+        tr = trainers.make({"name": "larp_ar_trainer"}, args={"cfg": cfg, "device": "cpu"})
+        tr.make_datasets()
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            trainers.make({"name": name}, args={"cfg": trainer_cfg(tmp_path), "device": "cpu"})
+            tr.make_model()
     cfg = trainer_cfg(tmp_path)
     cfg["loss"]["args"]["r1_gp_weight"] = 1.0
     tr = trainers.make({"name": "larp_tokenizer_trainer"}, args={"cfg": cfg, "device": "cpu"})
@@ -135,13 +144,7 @@ def test_train_cli_runs_one_short_epoch_on_the_cpu(tmp_path):
     tiny model: finite losses, the run's files written, and no JAX loaded;
     `--device cuda` on a machine without a card fails."""
     opts = ["max_epoch", "1", "eval_epoch", "99", "vis_epoch", "99", "latest_interval", "1",
-            "model.args.encoder_depth", "1", "model.args.decoder_depth", "1",
-            "model.args.encoder_hidden_size", "64", "model.args.decoder_hidden_size", "64",
-            "model.args.encoder_num_heads", "2", "model.args.decoder_num_heads", "2",
-            "model.args.bottleneck_token_num", "16",
-            "model.args.bottleneck.args.regularizer.args.codebook_size", "64",
-            "loss.args.disc_tran_n_layers", "1", "loss.args.disc_tran_hidden_size", "64",
-            "loss.args.disc_tran_n_heads", "2"]
+            *TINY_TOKENIZER_OPTS]
     code = f"""
 import sys
 from video_tokenizer_tpu_torch.train import main

@@ -10,9 +10,10 @@ through the LARP tokenizer with the 'vq' bottleneck (encode, VQ, decode);
 class-conditional (or frame-prediction) sampling from the LARP AR prior with
 CFG, top-k/top-p, int8 weights and an int8 KV cache (`generation.generate`,
 `sample.py`), also speculatively with a draft model or the prior's own first
-layers (`generation.speculative_generate`, `tools/distill_draft.py`); and GAN
-training of the tokenizer with LPIPS and a transformer discriminator
-(`trainers`, `train.py`).
+layers (`generation.speculative_generate`, `tools/distill_draft.py`); GAN
+training of the tokenizer with LPIPS and a transformer discriminator; and
+training of the AR prior, class-conditional or frame-prediction, on the
+codes of a frozen tokenizer (`trainers`, `train.py`).
 """
 from __future__ import annotations
 

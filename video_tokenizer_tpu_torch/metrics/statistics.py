@@ -1,7 +1,7 @@
-"""Scalar statistics that the tokenizer trainer logs: codebook telemetry and SSIM.
+"""Scalar statistics that the trainers log: codebook telemetry, SSIM, top-k accuracy.
 
 Counterpart of `video_tokenizer_tpu/metrics/statistics.py` (the functions the
-training step uses). Every function returns a 0-dim tensor on its input's
+training steps use). Every function returns a 0-dim tensor on its input's
 device, so a step's statistics are fetched to the host together.
 """
 from __future__ import annotations
@@ -28,6 +28,19 @@ def index_usage_percentage(hist: torch.Tensor) -> torch.Tensor:
 def perplexity(hist: torch.Tensor) -> torch.Tensor:
     p = hist / torch.clamp(hist.sum(), min=1.0)
     return torch.exp(-torch.sum(torch.where(p > 0, p * torch.log(p + 1e-10), 0.0)))
+
+
+def topk_accuracy(logits: torch.Tensor, targets: torch.Tensor, ks=(1, 5)) -> dict:
+    """logits [..., V], targets [...] -> {"top{k}": fp32 share of targets
+    among the k largest logits}. Ties rank as `jax.lax.top_k` orders them
+    (the lower index first): a target's rank is the count of logits above
+    its own plus the count of equal logits at lower indices."""
+    logits = logits.float()
+    t = targets.long().unsqueeze(-1)
+    mine = torch.gather(logits, -1, t)
+    lower = torch.arange(logits.shape[-1], device=logits.device) < t
+    rank = (logits > mine).sum(-1) + ((logits == mine) & lower).sum(-1)
+    return {f"top{k}": (rank < k).float().mean() for k in ks}
 
 
 def _gaussian_kernel(size: int = 11, sigma: float = 1.5, device=None) -> torch.Tensor:

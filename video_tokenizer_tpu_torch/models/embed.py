@@ -86,19 +86,32 @@ class VideoPatchEmbed(nn.Module):
 
 
 class LabelEmbedder(nn.Module):
-    """Class-label embedding. The table always has num_classes + 1 rows: the
-    last is the null class that CFG sampling and negative labels select.
-    Inference only: the class dropout of training is not ported yet
-    (ROADMAP.md, 'Still to port', item 4)."""
+    """Class-label embedding with the class dropout of CFG training. The
+    table always has num_classes + 1 rows: the last is the null class that
+    dropped labels, CFG sampling and negative labels select."""
 
-    def __init__(self, num_classes: int, hidden_size: int,
+    def __init__(self, num_classes: int, hidden_size: int, dropout_prob: float = 0.1,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         self.num_classes = num_classes
+        self.dropout_prob = dropout_prob
         self.embedding_table = nn.Embedding(num_classes + 1, hidden_size, device=device)
         with torch.no_grad():
             nn.init.normal_(self.embedding_table.weight, std=0.02, generator=generator)
 
-    def forward(self, labels: torch.Tensor) -> torch.Tensor:
+    def forward(self, labels: torch.Tensor, train: bool = False,
+                force_drop_ids: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """With `train` and a dropout probability p > 0, each label becomes the
+        null class where a uniform draw from `generator` is below p;
+        `force_drop_ids == 1` drops exactly those labels instead. Nothing is
+        drawn otherwise."""
+        if (train and self.dropout_prob > 0) or force_drop_ids is not None:
+            if force_drop_ids is None:
+                drop = torch.rand(labels.shape[0], generator=generator,
+                                  device=labels.device) < self.dropout_prob
+            else:
+                drop = force_drop_ids == 1
+            labels = torch.where(drop, self.num_classes, labels)
         # negative labels -> the unconditional class
         return self.embedding_table(torch.where(labels < 0, self.num_classes, labels))

@@ -1,11 +1,12 @@
-"""LARP_AR: the llama-style causal prior over tokenizer codes, for inference.
+"""LARP_AR: the llama-style causal prior over tokenizer codes.
 
 Counterpart of `video_tokenizer_tpu/models/larp_ar.py`: token + class
 embeddings, learned or fixed sin-cos absolute PE, blocks of RMSNorm ->
 fused-wqkv GQA attention -> SwiGLU feed-forward, a zero-initialised output
 head, and the size zoo llama-abs-S ... XXXL. Four modes:
   * `forward`: teacher forcing, causal attention through the CUDA flash
-    forward (`ops/attention.py`);
+    forward (`ops/attention.py`); with `train=True` also the training
+    regularisers (below) and, under autograd, the flash backward kernels;
   * `prefill`: the conditioning prefix, writing the KV cache;
   * `decode_step`: one token against the cache, through the CUDA decode
     kernel (`ops/decode_attention.py`), which also writes the token's K/V
@@ -31,9 +32,18 @@ The KV cache is a list of per-layer dicts {'k', 'v': [B, S, Hkv * D]}, plus
 `prefill`, `decode_step` and `decode_chunk` (JAX returns new arrays). A
 decode position is a 1-element int32 tensor on the model's device (a [B]
 int32 tensor for `decode_chunk`), so that a step needs no host
-synchronisation. Not here: training (dropouts, DropPath, class dropout, the
-AR trainer: ROADMAP.md, 'Still to port', item 4), remat and
-sequence-parallel constraints.
+synchronisation.
+
+Training (`forward(..., train=True, generator=g)`) applies, as the JAX
+package does: class dropout of the labels to the null class, token dropout
+on the [cond || tokens] embeddings before the absolute PE, dropout on each
+attention output (`resid_dropout_p`) and FFN output (`ffn_dropout_p`), and
+per-sample DropPath on both branches at rates `linspace(0, drop_path_rate,
+n_layer)`; `attn_dropout_p` is never applied, there either. Every mask is
+a bool tensor drawn from the one `torch.Generator` the caller passes, never
+from a default generator, so a run resumes exactly. Not here: remat
+(ROADMAP.md, 'Still to port', item 8: `torch.utils.checkpoint` would replay
+the default generators, not `g`) and the sequence-parallel constraints.
 """
 from __future__ import annotations
 
@@ -57,7 +67,8 @@ from ..registry import models
 from .embed import LabelEmbedder
 from .layers import Dense
 
-_TRAINING = "training of the AR prior is not ported yet: ROADMAP.md, 'Still to port', item 4"
+_REMAT = ("remat (recomputing blocks in the backward) is not ported yet: ROADMAP.md, 'Still to "
+          "port', item 8")
 
 Cache = List[Dict[str, torch.Tensor]]
 
@@ -69,8 +80,8 @@ def find_multiple(n: int, k: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class ModelArgs:
     """The JAX package's ModelArgs, field for field, so that checkpoint args
-    round-trip. The dropout, drop-path and remat fields belong to training
-    and have no effect here."""
+    round-trip. The dropout and drop-path fields act in `forward(...,
+    train=True)` only; `attn_dropout_p` nowhere, as in the JAX package."""
 
     dim: int = 4096
     n_layer: int = 32
@@ -158,6 +169,28 @@ def quantize_model(model: "LARP_AR") -> "LARP_AR":
     return qmodel.eval()
 
 
+def _dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Flax `nn.Dropout`: keep each element with probability 1 - p, scaled by
+    1 / (1 - p); the mask is bool, drawn from `generator`."""
+    if p <= 0.0:
+        return x
+    if p >= 1.0:
+        return torch.zeros_like(x)
+    keep = torch.empty(x.shape, dtype=torch.bool, device=x.device).bernoulli_(1.0 - p,
+                                                                             generator=generator)
+    return torch.where(keep, x / (1.0 - p), 0.0)
+
+
+def _drop_path(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """The JAX `DropPath`: one keep draw per sample ([B, 1, 1]), x * mask / keep."""
+    if rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.empty((x.shape[0],) + (1,) * (x.ndim - 1), dtype=torch.bool,
+                       device=x.device).bernoulli_(keep, generator=generator)
+    return x * mask / keep
+
+
 class RMSNorm(nn.Module):
     """Flax `nn.RMSNorm`: fp32 statistics, x * rsqrt(mean(x^2) + eps) * weight,
     output in the promoted type of x and the weight."""
@@ -181,12 +214,15 @@ class FeedForward(nn.Module):
             hidden = int(cfg.ffn_dim_multiplier * hidden)
         hidden = find_multiple(hidden, cfg.multiple_of)
         std = cfg.initializer_range
+        self.dropout_p = cfg.ffn_dropout_p
         self.w1 = _dense(cfg, cfg.dim, hidden, std, generator, device)
         self.w3 = _dense(cfg, cfg.dim, hidden, std, generator, device)
         self.w2 = _dense(cfg, hidden, cfg.dim, std, generator, device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.w2(F.silu(self.w1(x)) * self.w3(x))
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        out = self.w2(F.silu(self.w1(x)) * self.w3(x))
+        return _dropout(out, self.dropout_p, generator) if train else out
 
 
 def _write_rows(buf: torch.Tensor, rows: torch.Tensor, start: int) -> None:
@@ -202,6 +238,7 @@ class Attention(nn.Module):
         self.n_kv_head = cfg.n_kv_head or cfg.n_head
         total = (self.n_head + 2 * self.n_kv_head) * self.head_dim
         std = cfg.initializer_range
+        self.resid_dropout_p = cfg.resid_dropout_p
         self.wqkv = _dense(cfg, cfg.dim, total, std, generator, device)
         self.wo = _dense(cfg, cfg.dim, cfg.dim, std, generator, device)
 
@@ -215,11 +252,13 @@ class Attention(nn.Module):
         v = qkv[..., hd + kv :].unflatten(-1, (self.n_kv_head, self.head_dim))
         return q, k, v
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Teacher forcing: full causal self-attention."""
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Teacher forcing: full causal self-attention (+ residual dropout in training)."""
         B, S, _ = x.shape
         q, k, v = self._split_qkv(x)
-        return self.wo(attention(q, k, v, causal=True).reshape(B, S, -1))
+        out = self.wo(attention(q, k, v, causal=True).reshape(B, S, -1))
+        return _dropout(out, self.resid_dropout_p, generator) if train else out
 
     def _store(self, lc: Dict[str, torch.Tensor], rows_k, rows_v, start_pos: int) -> None:
         """Writes [B, T, KV] K/V rows at row `start_pos` of the layer cache, in
@@ -312,16 +351,20 @@ def ar_sequence_loss(logits: torch.Tensor, targets: torch.Tensor,
 
 
 class TransformerBlock(nn.Module):
-    def __init__(self, cfg: ModelArgs, generator=None, device=None):
+    def __init__(self, cfg: ModelArgs, generator=None, device=None, drop_path_rate: float = 0.0):
         super().__init__()
+        self.drop_path_rate = drop_path_rate
         self.attention = Attention(cfg, generator, device)
         self.feed_forward = FeedForward(cfg, generator, device)
         self.attention_norm = RMSNorm(cfg.dim, cfg.norm_eps, device)
         self.ffn_norm = RMSNorm(cfg.dim, cfg.norm_eps, device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = x + self.attention(self.attention_norm(x))
-        return h + self.feed_forward(self.ffn_norm(h))
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        rate = self.drop_path_rate if train else 0.0
+        h = x + _drop_path(self.attention(self.attention_norm(x), train, generator), rate, generator)
+        return h + _drop_path(self.feed_forward(self.ffn_norm(h), train, generator), rate,
+                              generator)
 
     def prefill(self, x, lc, cond_mask=None):
         a, lc = self.attention.prefill(self.attention_norm(x), lc, cond_mask)
@@ -352,14 +395,16 @@ class LARP_AR(nn.Module):
         else:
             if cfg.model_type != "class_cond":
                 raise ValueError(f"model_type {cfg.model_type!r}: only 'class_cond'")
-            self.cls_embedding = LabelEmbedder(cfg.num_classes, cfg.dim, generator, device)
+            self.cls_embedding = LabelEmbedder(cfg.num_classes, cfg.dim, cfg.class_dropout_prob,
+                                               generator, device)
             n_tok = cfg.vocab_size
         self.tok_embeddings = nn.Embedding(n_tok, cfg.dim, device=device)
         with torch.no_grad():
             nn.init.normal_(self.tok_embeddings.weight, std=cfg.initializer_range,
                             generator=generator)
+        dpr = np.linspace(0, cfg.drop_path_rate, cfg.n_layer)
         self.layers = nn.ModuleList(
-            TransformerBlock(cfg, generator, device) for _ in range(cfg.n_layer)
+            TransformerBlock(cfg, generator, device, float(dpr[i])) for i in range(cfg.n_layer)
         )
         self.norm = RMSNorm(cfg.dim, cfg.norm_eps, device)
         self.output = _dense(cfg, cfg.dim, cfg.vocab_size, 0.0, generator, device)  # zero init
@@ -400,28 +445,35 @@ class LARP_AR(nn.Module):
     def num_classes(self) -> int:
         return self.config.num_classes
 
-    def _cond_embeddings(self, cond_idx: torch.Tensor) -> torch.Tensor:
+    def _cond_embeddings(self, cond_idx: torch.Tensor, train: bool = False,
+                         generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.frame_prediction:
             return self.tok_embeddings(cond_idx)  # [B, T] frame tokens
-        emb = self.cls_embedding(cond_idx)
+        emb = self.cls_embedding(cond_idx, train=train, generator=generator)
         return emb[:, None, :][:, : self.cls_token_num]
 
-    def embed_inputs(self, idx: torch.Tensor, cond_idx: torch.Tensor) -> torch.Tensor:
-        """Conditioning + token embeddings + absolute PE (teacher forcing)."""
-        h = torch.cat([self._cond_embeddings(cond_idx), self.tok_embeddings(idx)], dim=1)
+    def embed_inputs(self, idx: torch.Tensor, cond_idx: torch.Tensor, train: bool = False,
+                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Conditioning + token embeddings (+ token dropout in training) + absolute PE."""
+        h = torch.cat([self._cond_embeddings(cond_idx, train, generator),
+                       self.tok_embeddings(idx)], dim=1)
+        if train:
+            h = _dropout(h, self.config.token_dropout_p, generator)
         return h + self.abs_pe[:, : h.shape[1]].to(h.dtype)
 
     def head(self, h: torch.Tensor) -> torch.Tensor:
         """Final norm + vocab projection + cls-token trim."""
         return self.output(self.norm(h))[:, self.cls_token_num - 1 :]
 
-    def forward(self, idx, cond_idx, targets=None, valid=None, train: bool = False):
-        """Teacher forcing: (logits [B, S, V], mean NLL of `targets` or None)."""
-        if train:
-            raise NotImplementedError(_TRAINING)
-        h = self.embed_inputs(idx, cond_idx)
+    def forward(self, idx, cond_idx, targets=None, valid=None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """Teacher forcing: (logits [B, S, V], mean NLL of `targets` or None).
+        `train=True` applies the dropouts, drawing from `generator`."""
+        if train and self.config.remat:
+            raise NotImplementedError(_REMAT)
+        h = self.embed_inputs(idx, cond_idx, train, generator)
         for layer in self.layers:
-            h = layer(h)
+            h = layer(h, train, generator)
         logits = self.head(h)
         loss = None
         if targets is not None:

@@ -18,8 +18,9 @@ With `--draft_model` (a smaller prior's `.pth`) or `--self_draft_layers N`
 speculatively (`generation.speculative_generate`): the same distribution,
 `--gamma` proposals per verify chunk, the acceptance rate printed per batch.
 
-`.pth` files are in the upstream layout (`tools/export_reference_tokenizer.py`).
-Without them the weights are a seeded random init of the 632M llama-abs-LP
+`--ar_model` and `--tokenizer` take `.pth` files in the upstream layout
+(`tools/export_reference_tokenizer.py`) or the port's trainer checkpoint
+directories (`epoch-final` of `train.py`). Without them the weights are a seeded random init of the 632M llama-abs-LP
 prior (`flagship_ar`, whose output head starts at zero: every code is then
 equally likely) and of the flagship tokenizer. Class labels are drawn from
 `--seed` over the prior's classes. Not here yet (ROADMAP.md, 'Still to
@@ -46,7 +47,8 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "int8": torch.bf
 
 
 def build_models(args, device: torch.device):
-    """(AR prior, tokenizer) from `.pth` files or seeded random inits."""
+    """(AR prior, tokenizer) from `.pth` files or checkpoint directories, or
+    seeded random inits."""
     dtype, quantized = DTYPES[args.dtype], args.dtype == "int8"
     gen = torch.Generator().manual_seed(args.seed)
     if args.ar_model:
@@ -90,8 +92,11 @@ def build_draft(args, ar, device: torch.device):
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--ar_model", default=None, help="upstream-format AR .pth")
-    ap.add_argument("--tokenizer", default=None, help="upstream-format tokenizer .pth")
+    ap.add_argument("--ar_model", default=None,
+                    help="upstream-format AR .pth or an AR trainer's checkpoint directory")
+    ap.add_argument("--tokenizer", default=None,
+                    help="upstream-format tokenizer .pth or a tokenizer trainer's checkpoint "
+                         "directory")
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="bfloat16",
                     help="bfloat16; float32; or int8 (bf16 with every projection "
                          "weight quantised to int8, per output channel)")

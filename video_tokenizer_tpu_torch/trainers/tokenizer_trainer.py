@@ -20,12 +20,16 @@ tensor. Attention runs through `ops.attention` (the flash forward and the
 dQ / dK-dV backward kernels on the card), VQ through `ops.vq`.
 `use_amp: true` computes the tokenizer, LPIPS and the discriminator in
 bf16 (the bottleneck stays fp32); `false` is fp32.
+`visualize_epoch` writes the JAX trainer's gt-over-reconstruction grid
+(`vis/epoch_<n>.png`, through the standard-library PNG writer) and logs any
+failure rather than stopping the run; its TensorBoard half is left out with
+the writers (ROADMAP.md, 'Still to port', item 3).
 Not ported (each raises NotImplementedError): `grad_accum_steps > 1`
-(ROADMAP.md, 'Still to port', item 3), eval FVD (item 6), the image grids
-of `visualize_epoch` (item 3).
+(ROADMAP.md, 'Still to port', item 3), eval FVD (item 6).
 """
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, List, Tuple
 
 import torch
@@ -238,10 +242,23 @@ class LARPTokenizerTrainer(BaseTrainer):
         return dict(zip(keys, packed.tolist()))
 
     def visualize_epoch(self):
-        if self.test_datasets:
-            raise NotImplementedError(
-                "visualize_epoch (image grids) is not ported yet (ROADMAP.md, 'Still to port', "
-                "item 3)")
+        """`vis/epoch_<epoch>.png`: for up to 4 clips of the first test set's
+        first batch, a row of ground-truth frames over a row of
+        reconstructed ones. A failure is logged: visualization never stops
+        training (the JAX trainer's rule)."""
+        if not self.test_datasets:
+            return
+        try:
+            batch = next(iter(self.test_loader(next(iter(self.test_datasets)))))
+            data = common.video_to_float(batch["gt"][:4].to(self.device))
+            with torch.no_grad():
+                pred = self.model(data, train=False)["pred_frames"].float()
+            vis_dir = common.ensure_path(os.path.join(self.save_dir, "vis"))
+            gt, pred = data.cpu().numpy(), pred.cpu().numpy()
+            common.save_video_grid(os.path.join(vis_dir, f"epoch_{self.epoch}.png"),
+                                   [v for pair in zip(gt, pred) for v in pair])
+        except Exception as e:  # visualization must never kill training
+            self.log(f"visualize_epoch failed: {e}")
 
     # ----------------------------------------------------------- checkpoints
 
@@ -275,9 +292,6 @@ class LARPTokenizerTrainer(BaseTrainer):
 
 
 @trainers.register("larp_tokenizer_trainer_stat")
-@trainers.register("larp_ar_trainer")
-@trainers.register("larp_ar_fp_trainer")
 def _unported_trainer(cfg=None, device=None):
     raise NotImplementedError(
-        "only larp_tokenizer_trainer is ported yet: the AR trainers are ROADMAP.md, 'Still to "
-        "port', item 4; the STAT trainer item 3")
+        "the STAT tokenizer trainer is not ported yet (ROADMAP.md, 'Still to port', item 3)")

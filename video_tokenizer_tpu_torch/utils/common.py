@@ -1,15 +1,19 @@
 """Shared training utilities.
 
 Counterpart of `video_tokenizer_tpu/utils/common.py`: logger (stream + file),
-parameter counting, `Averager`, `EpochTimer`, uint8 -> [0, 1] clips and
-PSNR.
+parameter counting, `Averager`, `EpochTimer`, uint8 -> [0, 1] clips,
+PSNR and `repeat_to_m_frames`. Also the trainers' image grids: `save_png`
+writes an 8-bit RGB PNG with the standard library alone (zlib + struct, no
+cv2 or PIL), and `save_video_grid` lays clips out as rows of frames.
 """
 from __future__ import annotations
 
 import logging
 import os
+import struct
 import time
-from typing import Iterable, Optional, Union
+import zlib
+from typing import Iterable, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -99,3 +103,46 @@ def video_to_float(x):
 
 def psnr_from_mse(mse: torch.Tensor, max_val: float = 1.0) -> torch.Tensor:
     return 10.0 * torch.log10(max_val**2 / torch.clamp(mse, min=1e-10))
+
+
+def repeat_to_m_frames(x: torch.Tensor, m: int = 16, axis: int = 2) -> torch.Tensor:
+    """Pad to m frames along `axis` by repeating the LAST frame; t >= m passes through."""
+    t = x.shape[axis]
+    if t >= m:
+        return x
+    reps = [1] * x.ndim
+    reps[axis] = m - t
+    return torch.cat([x, x.narrow(axis, t - 1, 1).repeat(*reps)], dim=axis)
+
+
+def save_png(path: str, img: np.ndarray) -> None:
+    """Writes a uint8 [H, W, 3] RGB image as a PNG: 8-bit RGB, filter 0 on
+    every row, one IDAT chunk. Written to a temporary name and renamed."""
+    img = np.ascontiguousarray(img)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"save_png takes uint8 [H, W, 3], not {img.dtype} {img.shape}")
+    h, w, _ = img.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * 3)], axis=1)
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    png = (b"\x89PNG\r\n\x1a\n"
+           + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+           + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+           + chunk(b"IEND", b""))
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(png)
+    os.replace(tmp, path)
+
+
+def save_video_grid(path: str, videos: Sequence[np.ndarray]) -> None:
+    """One row per video [C, T, H, W] in [0, 1] (its first min(T, 8) frames
+    side by side), rows stacked top to bottom, clipped to [0, 1] x 255,
+    written by `save_png`."""
+    rows = [np.concatenate([v[:, j] for j in range(min(v.shape[1], 8))], axis=-1)
+            for v in videos]
+    grid = np.concatenate(rows, axis=-2)  # [C, H*, W*]
+    save_png(path, np.clip(np.transpose(grid, (1, 2, 0)) * 255, 0, 255).astype(np.uint8))
