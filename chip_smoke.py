@@ -114,8 +114,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
  16. speculative sampling with the full-width pair (632M target, 8 x 768
      draft), batch 8, CFG 1.5, top-k 100, gamma 4, bf16 and int8 weights +
      int8 KV: the acceptance ceiling (zero heads, 1024 tokens: acceptance 1.0
-     in exactly 205 iterations), the floor (independent sharp heads, 512
-     tokens) and self-drafting with the prior's first 8 layers (256 tokens):
+     in exactly 205 iterations), the floor (independent sharp heads, 256
+     tokens) and self-drafting with the prior's first 8 layers (128 tokens):
      tokens/s beside plain `generate`'s, acceptance, ms per iteration, device time of one
      iteration's forwards, exact launch counts (no one-token decode
      attention, every chunk attention on the tensor-core kernel with the row
@@ -132,7 +132,22 @@ Phases, each of which raises on failure (exit code 1, no result line):
      tokens/s, clips/s, peak memory, idle share and time by kernel category,
      exact launch counts (42 flash forwards, 30 dQ, 30 dK/dV, all 3xTF32,
      one VQ search); the train CLI's entry through one epoch, eval and the
-     sample grid, whose `epoch-final` loads and samples on the card.
+     sample grid, whose `epoch-final` loads and samples on the card;
+ 19. the model_new family (conv-patchify, M-RoPE, FSQ) at full width
+     (`phase_model_new`): the four shipped configs through their yaml in
+     fp32 card against CPU (FSQ indices >= 99%, reconstruction within 1e-3
+     of its scale, decode_from_bottleneck == the forward's decode within
+     1e-5); bf16 reconstruction at batch 8 of autoencoder_large and
+     f256t768 (clips/s, peak memory, 48 and 36 wgmma flash forwards a
+     batch, device time by category); one fp32 training step of
+     cfgs/larp_tokenizer_large.yaml card against CPU (losses, FSQ indices,
+     named gradients); training throughput through the trainer, bf16 at
+     batch 8 and fp32 at batch 4 (72 flash forwards, 56 dQ + 56 dK/dV a
+     step, 72 + 72 on a discriminator step, all wgmma / all 3xTF32); the
+     train CLI with eval and vis, and the reconstruct CLI on its checkpoint.
+     Phases 2 and 10 hold the flash kernels at this family's shapes (H = 16
+     at S = 2048; H = 8 at 2304; H = 12 at 512 and 1792), v a strided view
+     of the 4C-wide q, k, v, gate projection.
 Every kernel phase also times one PyTorch call that computes the same
 function (`library_ms`: SDPA and its autograd backward, a matmul + argmax,
 `index_put_`), which the port uses nowhere, and computes the kernel's bound
@@ -362,12 +377,29 @@ def phase_flash(records: dict) -> None:
         ("edge_129_257", 2, 129, 257, 4, 4, 64, torch.bfloat16, False, None, False, 2e-2),
         # queries 0..69 see no key: uniform attention, LSE = the mask value
         ("causal_no_key_rows", 1, 300, 300, 2, 2, 64, torch.bfloat16, True, -70, False, 2e-2),
+        # the model_new stacks: autoencoder_large (H = 16, S = 2048), the
+        # f256t1024a decoder (H = 8, S = 2304), the f256t* first-frame
+        # encoders (H = 12, S = 512) and the f256t512 decoder (S = 1792);
+        # bf16 at the reconstruction batch, fp32 at batch 4 and 1
+        ("model_new_large", 8, 2048, 2048, 16, 16, 64, torch.bfloat16, False, None, False, 2e-2),
+        ("model_new_h8_s2304", 8, 2304, 2304, 8, 8, 64, torch.bfloat16, False, None, False, 2e-2),
+        ("model_new_h12_s512", 8, 512, 512, 12, 12, 64, torch.bfloat16, False, None, False, 2e-2),
+        ("model_new_h12_s1792", 8, 1792, 1792, 12, 12, 64, torch.bfloat16, False, None, False,
+         2e-2),
+        ("fp32_model_new_large", 4, 2048, 2048, 16, 16, 64, torch.float32, False, None, False,
+         1e-4),
+        ("fp32_model_new_h8_s2304", 1, 2304, 2304, 8, 8, 64, torch.float32, False, None, False,
+         1e-4),
+        ("fp32_model_new_h12_s512", 1, 512, 512, 12, 12, 64, torch.float32, False, None, False,
+         1e-4),
     ]
     # the cases that must run the wgmma kernel (bf16, D = 32 or 64, no segment
     # ids) and the 3xTF32 kernel (the same in fp32); D = 128 and segment ids
     # stay on the mma.sync / FMA kernel
     sm90_cases = {"flagship", "discriminator", "ar_nll_causal", "causal_offset", "gqa_4_over_2",
-                  "ragged_sk", "causal_ragged_d32", "edge_129_257", "causal_no_key_rows"}
+                  "ragged_sk", "causal_ragged_d32", "edge_129_257", "causal_no_key_rows",
+                  "model_new_large", "model_new_h8_s2304", "model_new_h12_s512",
+                  "model_new_h12_s1792"}
     tf32x3_cases = {c[0] for c in cases if c[7] == torch.float32 and c[6] != 128 and not c[10]}
     strided = {"flagship", "discriminator", "ar_nll_causal", "fp32_train", "fp32_discriminator",
                "fp32_prior_causal", "fp32_ar_fp_train"}
@@ -377,6 +409,11 @@ def phase_flash(records: dict) -> None:
             # q, k, v as strided views of one [B, S, 3, H, D] qkv projection
             qkv = randn(B, Sq, 3, H, D, dtype=dtype)
             q, k, v = qkv.unbind(2)
+        elif "model_new" in name:
+            # the gated block's: q and k fresh from LayerNorm + RoPE, v a view
+            # of the 4C-wide q, k, v, gate projection (row stride 4 * H * D)
+            q, k = randn(B, Sq, H, D, dtype=dtype), randn(B, Sk, H, D, dtype=dtype)
+            v = randn(B, Sk, 4, H, D, dtype=dtype)[:, :, 2]
         else:
             q = randn(B, Sq, H, D, dtype=dtype)
             k, v = randn(B, Sk, Hkv, D, dtype=dtype), randn(B, Sk, Hkv, D, dtype=dtype)
@@ -409,7 +446,8 @@ def phase_flash(records: dict) -> None:
         require((got_lse[:, :, blind] == DEFAULT_MASK_VALUE).all().item(),
                 f"flash {name}: LSE of the rows that see no key is not the mask value")
         require(torch.equal(flash_attn_fwd(q, k, v, **kw), got), f"flash {name}: lse changes out")
-        if name in ("flagship", "discriminator", "ar_nll_causal", "fp32", "fp32_train"):
+        if name in ("flagship", "discriminator", "ar_nll_causal", "fp32", "fp32_train",
+                    "model_new_large"):
             # device time: CUDA-graph replays (CUDA events around one eager
             # call would add the host's launch path, ~0.05 ms)
             ms = graph_ms(lambda: flash_attn_fwd(q, k, v, causal=causal), launches=5, replays=5)
@@ -529,20 +567,37 @@ def phase_flash_bwd(records: dict) -> None:
         ("fp32_causal_no_key_rows", 1, 300, 300, 2, 2, 64, torch.float32, True, -70, False, 1e-4),
         ("fp32_edge_129_257", 2, 129, 257, 4, 4, 64, torch.float32, False, None, False, 1e-4),
         ("fp32_causal_ragged_d32", 2, 300, 333, 4, 4, 32, torch.float32, True, None, False, 1e-4),
+        # the model_new stacks (see phase 2): v a view of the 4C-wide projection
+        ("model_new_large", 8, 2048, 2048, 16, 16, 64, torch.bfloat16, False, None, False, 2e-2),
+        ("model_new_h8_s2304", 2, 2304, 2304, 8, 8, 64, torch.bfloat16, False, None, False, 2e-2),
+        ("model_new_h12_s1792", 2, 1792, 1792, 12, 12, 64, torch.bfloat16, False, None, False,
+         2e-2),
+        ("fp32_model_new_large", 4, 2048, 2048, 16, 16, 64, torch.float32, False, None, False,
+         1e-4),
+        ("fp32_model_new_h12_s512", 2, 512, 512, 12, 12, 64, torch.float32, False, None, False,
+         1e-4),
     ]
     # the kernels each case's dQ and dK/dV must run: the wgmma kernels (bf16,
     # D = 32 or 64, no segment ids), the 3xTF32 kernels (the same in fp32),
     # else the mma.sync / FMA kernels of csrc/flash_attn_bwd.cu; the forward
     # that feeds them follows the same rule
     sm90_cases = {"tokenizer", "discriminator", "prior_causal", "gqa_20_over_5",
-                  "causal_offset_d64", "causal_ragged_d32", "edge_129_257", "causal_no_key_rows"}
+                  "causal_offset_d64", "causal_ragged_d32", "edge_129_257", "causal_no_key_rows",
+                  "model_new_large", "model_new_h8_s2304", "model_new_h12_s1792"}
     tf32x3_cases = {"fp32", "fp32_tokenizer", "fp32_prior_causal", "fp32_ar_fp_train",
                     "fp32_gqa_20_over_5",
                     "fp32_causal_offset_d64", "fp32_causal_no_key_rows", "fp32_edge_129_257",
-                    "fp32_causal_ragged_d32"}
+                    "fp32_causal_ragged_d32", "fp32_model_new_large", "fp32_model_new_h12_s512"}
     fma_launches = [0, 0]  # dQ, dK/dV launches of csrc/flash_attn_bwd.cu by the cases
     for name, B, Sq, Sk, H, Hkv, D, dtype, causal, offset, with_seg, tol in cases:
-        if Sq == Sk and H == Hkv:
+        if "model_new" in name:
+            # the gated block's: q, k fresh, v the view of the 4C-wide
+            # projection that the forward saved; dO (the gate product's
+            # gradient) fresh
+            q, k = randn(B, Sq, H, D, dtype=dtype), randn(B, Sk, H, D, dtype=dtype)
+            v = randn(B, Sk, 4, H, D, dtype=dtype)[:, :, 2]
+            do = randn(B, Sq, H, D, dtype=dtype)
+        elif Sq == Sk and H == Hkv:
             # q, k, v and dO as strided views of [B, S, 3, H, D] projections
             q, k, v = randn(B, Sq, 3, H, D, dtype=dtype).unbind(2)
             do = randn(B, Sq, 3, H, D, dtype=dtype)[:, :, 1]
@@ -2295,10 +2350,11 @@ def phase_speculative(target, draft, tokenizer, records: dict) -> None:
       ceiling     both output heads zero: both distributions uniform, every
                   proposal accepted, ceil(1023 / 5) = 205 iterations;
       floor       independent sharp heads (std 0.11): uncorrelated peaked
-                  distributions, acceptance near 0 (512 tokens: one iteration
-                  per token, and the host sets each one's time);
-      self_draft  the target's own first 8 layers and its sharp head (256
-                  tokens, for the same reason).
+                  distributions, acceptance near 0 (256 tokens: one iteration
+                  per token, and the host sets each one's time; 512 before
+                  the run grew by phase 19);
+      self_draft  the target's own first 8 layers and its sharp head (128
+                  tokens, for the same reason; 256 before).
     `target` and `draft` arrive on the card and are cast to bf16 in place.
     Also: two short runs under the CUDA sync debug mode (the loop reads one
     scalar per iteration on the host)."""
@@ -2321,7 +2377,7 @@ def phase_speculative(target, draft, tokenizer, records: dict) -> None:
     plain = records["sampling"]  # tokens/s of plain `generate` in this run (phase 9)
     out = {}
     for con in ("ceiling", "floor", "self_draft"):
-        new = {"ceiling": 1024, "floor": 512, "self_draft": 256}[con]
+        new = {"ceiling": 1024, "floor": 256, "self_draft": 128}[con]
         _set_head(t_bf16, torch.zeros_like(sharp_t) if con == "ceiling" else sharp_t)
         _set_head(d_bf16, torch.zeros_like(sharp_d) if con == "ceiling" else sharp_d)
         for prec in ("bf16", "int8_kv8"):
@@ -2659,13 +2715,18 @@ def _profile_and_load(step, n: int):
     return wall_ms, per_cat, len(events), under_load
 
 
-def phase_train_throughput(tmp: Path, records: dict) -> None:
-    """Training through the port's trainer at batch 8, full width, on fake
-    null128 clips from its own loader: bf16 (`use_amp: true`) and the config's
-    fp32. 2 warm-up steps, 5 timed steps (one of them a discriminator step, as
-    `d_update_freq: 5` gives), exact kernel launch counts over the timed
-    steps, peak memory, then 5 more steps under torch.profiler for the
-    device's idle share and time by kernel category."""
+def _train_throughput(tag: str, cfg: dict, flash: tuple, vq: int, warm: int = 2,
+                      timed: int = 5) -> dict:
+    """Training through the port's trainer on the card from `cfg` (batch and
+    dtype as it sets them), on fake null128 clips from its own loader: `warm`
+    warm-up steps, `timed` timed steps (d_update_freq 5 puts one
+    discriminator step among five), exact launch counts over the timed steps
+    against `flash` = (forwards, dQ and dK/dV each, extra dQ and dK/dV on a
+    discriminator step) per step and `vq` VQ searches per step, peak memory,
+    then `timed` more steps under torch.profiler for the device's idle share
+    and time by kernel category, and the card under load. In bf16 every
+    flash forward, dQ and dK/dV launch must run the wgmma kernels, in fp32
+    the 3xTF32 kernels (and so none the FMA ones). Returns the numbers."""
     import torch
 
     from video_tokenizer_tpu_torch.ops.attention import (
@@ -2674,89 +2735,102 @@ def phase_train_throughput(tmp: Path, records: dict) -> None:
     from video_tokenizer_tpu_torch.ops.vq import vq_argmax
 
     kernels = (flash_attn_fwd, flash_attn_bwd_dq, flash_attn_bwd_dkv, vq_argmax)
-    B, warm, timed = 8, 2, 5
-    for name, use_amp in (("bf16", True), ("fp32", False)):
-        tr = _trainer(_train_cfg(tmp / name, B, use_amp), "cuda")
-        batches = tr.train_loader(1)
-        fetch_s = []  # host time in the loader, per step (read beside the idle share)
+    use_amp, B = bool(cfg["use_amp"]), int(cfg["train_dataset"]["loader"]["batch_size"])
+    tr = _trainer(cfg, "cuda")
+    batches = tr.train_loader(1)
+    fetch_s = []  # host time in the loader, per step (read beside the idle share)
 
-        def step():
-            t0 = time.perf_counter()
-            batch = next(batches)
-            fetch_s.append(time.perf_counter() - t0)
-            return tr.train_step(batch)
+    def step():
+        t0 = time.perf_counter()
+        batch = next(batches)
+        fetch_s.append(time.perf_counter() - t0)
+        return tr.train_step(batch)
 
-        for _ in range(warm):
-            step()
+    for _ in range(warm):
+        step()
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    for k in kernels[:3]:
+        k.launches_sm90 = k.launches_tf32x3 = 0
+    vq_argmax.launches_tc = 0
+    torch.cuda.reset_peak_memory_stats()
+    times, infos = [], []
+    fetch_s.clear()
+    d_steps = sum((tr.step + i + 1) % tr.loss_mod.d_update_freq == 0 for i in range(timed))
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        infos.append(step())
         torch.cuda.synchronize()
-        for k in kernels:
-            k.launches = 0
-        for k in kernels[:3]:
-            k.launches_sm90 = k.launches_tf32x3 = 0
-        vq_argmax.launches_tc = 0
-        torch.cuda.reset_peak_memory_stats()
-        times, infos = [], []
-        fetch_s.clear()
-        d_steps = sum((tr.step + i + 1) % tr.loss_mod.d_update_freq == 0 for i in range(timed))
-        for _ in range(timed):
-            t0 = time.perf_counter()
-            infos.append(step())
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        launches = {k.__name__: k.launches for k in kernels}
-        sm90 = {k.__name__: k.launches_sm90 for k in kernels[:3]}
-        tf32x3 = {k.__name__: k.launches_tf32x3 for k in kernels[:3]}
-        vq_tc = vq_argmax.launches_tc
-        loader_s = statistics.mean(fetch_s)
-        peak_gb = torch.cuda.max_memory_allocated() / 2**30
-        prof_wall_ms, per_cat, n_events, under_load = _profile_and_load(step, timed)
-        busy_ms = sum(per_cat.values()) / 1e3
-        idle = 1.0 - busy_ms / prof_wall_ms
-        mean_s = statistics.mean(times)
-        want = {"flash_attn_fwd": 48 * timed, "flash_attn_bwd_dq": 32 * timed + 16 * d_steps,
-                "flash_attn_bwd_dkv": 32 * timed + 16 * d_steps, "vq_argmax": timed}
-        finite = all(torch.isfinite(packed).all().item() for _, packed in infos)
-        keys, last = infos[-1]
-        last = dict(zip(keys, last.tolist()))
-        log(f"[train {name}] batch {B} clips [8,3,16,128,128], {timed} steps ({d_steps} with a "
-            f"discriminator step): {', '.join(f'{t:.3f}' for t in times)} s; mean {mean_s:.3f} "
-            f"s/step = {B / mean_s:.2f} clips/s (median {statistics.median(times):.3f} s); "
-            f"loader {loader_s * 1e3:.1f} ms per step on the host ({loader_s / mean_s:.1%} of "
-            f"the step, {tr.train_workers} workers); peak memory {peak_gb:.2f} GiB")
-        # bf16 runs the wgmma forward, dQ and dK/dV kernels on every launch,
-        # fp32 never; fp32 runs every forward, dQ and dK/dV on the 3xTF32
-        # kernels, and so none on csrc/flash_attn_bwd.cu's FMA kernels
-        want_sm90 = {k: want[k] if use_amp else 0 for k in sm90}
-        want_tf32x3 = {k: 0 if use_amp else want[k] for k in tf32x3}
-        log(f"[train {name}] launches over the timed steps {launches} (expect {want}), of which "
-            f"the wgmma kernels {sm90} (expect {want_sm90}), the 3xTF32 kernels {tf32x3} "
-            f"(expect {want_tf32x3}) and vq_tc_kernel {vq_tc} (expect {timed}); losses "
-            f"finite: {finite}; last step loss {last['loss']:.4f}, rec {last['rec_loss']:.4f}, "
-            f"perceptual {last['perceptual_loss']:.4f}, d_loss {last['d_loss']:.4f}, "
-            f"psnr {last['psnr']:.2f}")
-        log(f"[train {name}] profiled {timed} steps: wall {prof_wall_ms / timed:.1f} ms per step, "
-            f"device busy {busy_ms / timed:.1f} ms, idle {idle:.1%}, {n_events / timed:.0f} "
-            f"kernels per step; device ms per step by category: "
-            + ", ".join(f"{c} {us / 1e3 / timed:.1f} ({us / 1e3 / busy_ms:.1%})"
-                        for c, us in sorted(per_cat.items(), key=lambda kv: -kv[1])))
-        log(f"[train {name}] the card during two further steps (SM clock, its maximum, power "
-            f"draw, temperature): {under_load}")
-        require(finite, f"train {name}: non-finite losses")
-        require(launches == want, f"train {name}: launch counts {launches}, expected {want}")
-        require(sm90 == want_sm90, f"train {name}: wgmma launches {sm90}, expected {want_sm90}")
-        require(tf32x3 == want_tf32x3, f"train {name}: 3xTF32 launches {tf32x3}, expected "
-                f"{want_tf32x3}")
-        require(vq_tc == timed, f"train {name}: {vq_tc} of {timed} VQ launches on vq_tc_kernel")
-        records[f"train_{name}"] = {"s_per_step": mean_s, "clips_per_s": B / mean_s,
-                                    "peak_gib": peak_gb, "idle": idle, "loader_s": loader_s}
+        times.append(time.perf_counter() - t0)
+    launches = {k.__name__: k.launches for k in kernels}
+    sm90 = {k.__name__: k.launches_sm90 for k in kernels[:3]}
+    tf32x3 = {k.__name__: k.launches_tf32x3 for k in kernels[:3]}
+    vq_tc = vq_argmax.launches_tc
+    loader_s = statistics.mean(fetch_s)
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    prof_wall_ms, per_cat, n_events, under_load = _profile_and_load(step, timed)
+    busy_ms = sum(per_cat.values()) / 1e3
+    idle = 1.0 - busy_ms / prof_wall_ms
+    mean_s = statistics.mean(times)
+    fwd, bwd, bwd_d = flash
+    want = {"flash_attn_fwd": fwd * timed, "flash_attn_bwd_dq": bwd * timed + bwd_d * d_steps,
+            "flash_attn_bwd_dkv": bwd * timed + bwd_d * d_steps, "vq_argmax": vq * timed}
+    finite = all(torch.isfinite(packed).all().item() for _, packed in infos)
+    keys, last = infos[-1]
+    last = dict(zip(keys, last.tolist()))
+    log(f"[{tag}] batch {B} clips [{B},3,16,128,128], {timed} steps ({d_steps} with a "
+        f"discriminator step): {', '.join(f'{t:.3f}' for t in times)} s; mean {mean_s:.3f} "
+        f"s/step = {B / mean_s:.2f} clips/s (median {statistics.median(times):.3f} s); "
+        f"loader {loader_s * 1e3:.1f} ms per step on the host ({loader_s / mean_s:.1%} of "
+        f"the step, {tr.train_workers} workers); peak memory {peak_gb:.2f} GiB")
+    # bf16 runs the wgmma forward, dQ and dK/dV kernels on every launch,
+    # fp32 never; fp32 runs every forward, dQ and dK/dV on the 3xTF32
+    # kernels, and so none on csrc/flash_attn_bwd.cu's FMA kernels
+    want_sm90 = {k: want[k] if use_amp else 0 for k in sm90}
+    want_tf32x3 = {k: 0 if use_amp else want[k] for k in tf32x3}
+    log(f"[{tag}] launches over the timed steps {launches} (expect {want}), of which "
+        f"the wgmma kernels {sm90} (expect {want_sm90}), the 3xTF32 kernels {tf32x3} "
+        f"(expect {want_tf32x3}) and vq_tc_kernel {vq_tc} (expect {vq * timed}); losses "
+        f"finite: {finite}; last step loss {last['loss']:.4f}, rec {last['rec_loss']:.4f}, "
+        f"perceptual {last['perceptual_loss']:.4f}, d_loss {last['d_loss']:.4f}, "
+        f"psnr {last['psnr']:.2f}")
+    log(f"[{tag}] profiled {timed} steps: wall {prof_wall_ms / timed:.1f} ms per step, "
+        f"device busy {busy_ms / timed:.1f} ms, idle {idle:.1%}, {n_events / timed:.0f} "
+        f"kernels per step; device ms per step by category: "
+        + ", ".join(f"{c} {us / 1e3 / timed:.1f} ({us / 1e3 / busy_ms:.1%})"
+                    for c, us in sorted(per_cat.items(), key=lambda kv: -kv[1])))
+    log(f"[{tag}] the card during two further steps (SM clock, its maximum, power "
+        f"draw, temperature): {under_load}")
+    require(finite, f"{tag}: non-finite losses")
+    require(launches == want, f"{tag}: launch counts {launches}, expected {want}")
+    require(sm90 == want_sm90, f"{tag}: wgmma launches {sm90}, expected {want_sm90}")
+    require(tf32x3 == want_tf32x3, f"{tag}: 3xTF32 launches {tf32x3}, expected {want_tf32x3}")
+    require(vq_tc == vq * timed, f"{tag}: {vq_tc} of {vq * timed} VQ launches on vq_tc_kernel")
+    del tr, batches
+    torch.cuda.empty_cache()
+    return {"batch": B, "s_per_step": mean_s, "clips_per_s": B / mean_s, "peak_gib": peak_gb,
+            "idle": idle, "loader_s": loader_s, "launches": launches, "tf32x3": tf32x3,
+            "device_ms_per_step": {c: us / 1e3 / timed for c, us in per_cat.items()},
+            "under_load": under_load}
+
+
+def phase_train_throughput(tmp: Path, records: dict) -> None:
+    """The flagship's training through the port's trainer at batch 8, full
+    width (`_train_throughput`), bf16 (`use_amp: true`) and the config's
+    fp32: per step 48 flash forwards, 32 dQ + 32 dK/dV (48 + 48 on a
+    discriminator step) and one VQ search."""
+    for name, use_amp in (("bf16", True), ("fp32", False)):
+        run = _train_throughput(f"train {name}", _train_cfg(tmp / name, 8, use_amp),
+                                (48, 32, 16), 1)
+        records[f"train_{name}"] = {k: run[k] for k in ("s_per_step", "clips_per_s", "peak_gib",
+                                                        "idle", "loader_s")}
         if name == "bf16":
             for k in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
-                records[k]["launches"] = launches[k]
+                records[k]["launches"] = run["launches"][k]
         else:  # fp32: the 3xTF32 forward, dQ and dK/dV
-            for k in kernels[:3]:
-                records[f"{k.__name__}_tf32x3"]["launches"] = tf32x3[k.__name__]
-        del tr, batches
-        torch.cuda.empty_cache()
+            for k, n in run["tf32x3"].items():
+                records[f"{k}_tf32x3"]["launches"] = n
 
 
 def _ar_cfg(tmp: Path, name: str, vae_dir: Path, batch: int) -> dict:
@@ -3017,6 +3091,348 @@ def phase_ar_train(tmp: Path, records: dict) -> None:
     del model
 
 
+_MODEL_NEW_CFGS = ("larp_tokenizer_large", "larp_tokenizerf256t1024", "larp_tokenizerf256t768",
+                   "larp_tokenizerf256t512")
+
+
+def _model_new(tmp: Path, name: str, dtype, seed: int, perturb: bool = True):
+    """cfgs/<name>.yaml's model_new autoencoder at full width, built from the
+    yaml as the trainer builds it (the int `patch_size: 8` read as (4, 8, 8)),
+    seeded (and perturbed), on the host; and its attention layers per forward."""
+    import torch
+
+    from video_tokenizer_tpu_torch.registry import models
+
+    cfg = _load_cfg(name, tmp, 1)
+    model = models.make(cfg["model"], args={"dtype": dtype,
+                                            "generator": torch.Generator().manual_seed(seed)})
+    if perturb:
+        _perturb(model, seed + 1)
+    stacks = (model.encoder, getattr(model, "encoder1", None), model.decoder)
+    return model, sum(m.blocks.depth for m in stacks if m is not None)
+
+
+def phase_model_new(tmp: Path, records: dict) -> None:
+    """The model_new family (conv-patchify, M-RoPE, FSQ) at full width:
+      (a) fp32 (TF32 off), batch 1, the four shipped configs built through
+          their yaml (cfgs/larp_tokenizer_large.yaml and
+          larp_tokenizerf256t{1024,768,512}.yaml), card against the same
+          weights on the CPU through the plain versions: FSQ indices (and the
+          first frame's) >= 99% equal; decode_from_bottleneck of the CPU's
+          indices within 1e-3 of the scale, or 5x the CPU's own change under a
+          1e-6 nudge of proj_in where these random weights amplify rounding
+          more; the decoder's first and last blocks on the CPU's inputs within
+          1e-5; on the card,
+          decode_from_bottleneck(indices[, first_indices]) equal to the
+          forward's decode within 1e-5 of the scale; exact flash launches per
+          forward, all on the 3xTF32 kernel;
+      (b) bf16 reconstruction at batch 8 through `reconstruct` for
+          autoencoder_large and autoencoder_first_token_f256t768: clips/s
+          (median of 5 batches after a warm-up), peak memory, exact launch
+          counts (48 and 36 flash forwards a batch, all on the wgmma kernel),
+          device time by kernel category;
+      (c) one fp32 training step at batch 1 of cfgs/larp_tokenizer_large.yaml
+          through the port's trainer (generator, transformer discriminator,
+          LPIPS), card against CPU from the same weights, at 8 + 8 of the
+          24 + 24 layers (`_model_new_train_parity` says why): losses, FSQ
+          indices, named gradients, with phase 11's bounds;
+      (d) training throughput through the trainer (`_train_throughput`):
+          bf16 at batch 8, the config's fp32 at batch 4; per step 72 flash
+          forwards (48 tokenizer, 24 discriminator), 56 dQ + 56 dK/dV (72 +
+          72 on a discriminator step), no VQ;
+      (e) the train CLI on cfgs/larp_tokenizer_large.yaml (null128, batch 2,
+          one epoch, eval, `visualize_epoch`): the grid decodes and is not
+          constant; the reconstruct CLI loads the run's `epoch-final` and
+          reconstructs on the card."""
+    weights = _model_new_parity(tmp, records)
+    _model_new_reconstruction(tmp, records, weights)
+    del weights
+    _model_new_train_parity(tmp, records)
+    _model_new_train_throughput(tmp, records)
+    _model_new_cli(tmp, records)
+
+
+def _fsq_indices(out: dict) -> list:
+    return [out[k] for k in ("bottleneck_rep", "first_rep") if k in out]
+
+
+def _model_new_parity(tmp: Path, records: dict) -> dict:
+    """Phase 19 (a); returns the fp32 weights of autoencoder_large and f256t768."""
+    import torch
+
+    from video_tokenizer_tpu_torch.ops.attention import flash_attn_fwd
+
+    fsq_indices = _fsq_indices
+    # (a) fp32, card against CPU, all four configs. At these random weights
+    # the deep models amplify fp32 rounding: a 1e-6 relative change of the
+    # decoder's proj_in weights moves autoencoder_large's reconstruction by
+    # ~2e-3 of its scale. So the end-to-end bound is 1e-3 of the scale or 5x
+    # that yardstick (measured here on the CPU; the card read 2.4x), and
+    # each decoder's first and last blocks are held on the CPU's own inputs
+    # to 1e-5 of their output's scale, where no depth amplifies anything
+    weights, layers = {}, {}
+    x = torch.rand(1, 3, 16, 128, 128, generator=torch.Generator().manual_seed(SEED + 100))
+    for i, name in enumerate(_MODEL_NEW_CFGS):
+        model, layers[name] = _model_new(tmp, name, torch.float32, SEED + 101 + 2 * i)
+        model.eval()
+        n_params = sum(p.numel() for p in model.parameters())
+        blocks = model.decoder.blocks
+        probe_names = ("attn_0", "ffd_0", f"attn_{blocks.depth - 1}", f"ffd_{blocks.depth - 1}")
+        probes = {}
+        hooks = [getattr(blocks, n).register_forward_hook(
+            lambda m, i, o, n=n: probes.__setitem__(n, (i, o))) for n in probe_names]
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            ref = model(x)
+            for h in hooks:
+                h.remove()
+            ref_dec = model.decode_from_bottleneck(*fsq_indices(ref))
+        cpu_s = time.perf_counter() - t0
+        with torch.inference_mode():  # the yardstick: proj_in's weights x (1 + 1e-6)
+            w = model.decoder.proj_in.weight
+            kept = w.clone()
+            w.mul_(1 + 1e-6)
+            nudged = model.decode_from_bottleneck(*fsq_indices(ref))
+            w.copy_(kept)
+        scale = ref_dec.abs().max().item()
+        yardstick = (nudged - ref_dec).abs().max().item() / scale
+        model.cuda()
+        flash_attn_fwd.launches = flash_attn_fwd.launches_tf32x3 = 0
+        with torch.inference_mode():
+            got = model(x.cuda())
+            n_fwd, n_tf32x3 = flash_attn_fwd.launches, flash_attn_fwd.launches_tf32x3
+            dec_cpu_idx = model.decode_from_bottleneck(*(i.cuda() for i in fsq_indices(ref)))
+            dec_own = model.decode_from_bottleneck(*fsq_indices(got))
+            block_errs = {}
+            for n, (args, out) in probes.items():
+                o = getattr(blocks, n)(*(a.cuda() for a in args))
+                block_errs[n] = (o.cpu() - out).abs().max().item() / out.abs().max().item()
+        torch.cuda.synchronize()
+        agree = [(g.cpu() == r).float().mean().item()
+                 for g, r in zip(fsq_indices(got), fsq_indices(ref))]
+        rec_err = (dec_cpu_idx.cpu() - ref_dec).abs().max().item() / scale
+        own_err = (dec_own - got["pred_frames"]).abs().max().item() / scale
+        pred_err = (got["pred_frames"].cpu() - ref["pred_frames"]).abs().max().item() / scale
+        rec_tol = max(1e-3, 5 * yardstick)
+        log(f"[model_new fp32] {name} ({_load_cfg(name, tmp, 1)['model']['name']}, "
+            f"patch {model.patch_size}, {n_params:,} params, {model.num_latent_tokens} latent "
+            f"tokens, FSQ-{model.codebook_size}), batch 1, TF32 off: CPU plain path {cpu_s:.1f} s; "
+            f"FSQ indices agree {', '.join(f'{a:.4%}' for a in agree)} (tol >= 99%); "
+            f"decode_from_bottleneck(CPU indices) max|card-cpu| {rec_err:.3e} of the scale "
+            f"{scale:.4g} (tol {rec_tol:.3e}: the CPU's own change under proj_in x (1 + 1e-6) "
+            f"{yardstick:.3e}); decoder blocks on the CPU's inputs "
+            + ", ".join(f"{n} {e:.2e}" for n, e in block_errs.items())
+            + f" (tol 1e-5); card decode_from_bottleneck(card indices) vs the forward's "
+            f"{own_err:.3e} (tol 1e-5); pred_frames max|card-cpu| {pred_err:.3e} of the scale; "
+            f"flash launches {n_fwd} (expect {layers[name]}), 3xTF32 {n_tf32x3}")
+        require(tuple(got["pred_frames"].shape) == (1, 3, 16, 128, 128), f"{name}: shape")
+        require(torch.isfinite(got["pred_frames"]).all().item(), f"{name}: non-finite output")
+        require(min(agree) >= 0.99, f"{name}: FSQ index agreement {agree}")
+        require(rec_err <= rec_tol, f"{name}: reconstruction error {rec_err} > {rec_tol}")
+        require(max(block_errs.values()) <= 1e-5, f"{name}: decoder blocks differ {block_errs}")
+        require(own_err <= 1e-5, f"{name}: decode_from_bottleneck differs by {own_err}")
+        require(n_fwd == n_tf32x3 == layers[name], f"{name}: flash launches {n_fwd}/{n_tf32x3}")
+        records[f"model_new_{name}"] = {
+            "params": n_params, "cpu_s": cpu_s, "index_agree": min(agree), "rec_err_rel": rec_err,
+            "yardstick": yardstick, "block_err_rel": max(block_errs.values()),
+            "flash_per_forward": n_fwd}
+        if name in ("larp_tokenizer_large", "larp_tokenizerf256t768"):
+            weights[name] = {k: v.cpu() for k, v in model.state_dict().items()}
+        del model, got, dec_cpu_idx, dec_own, probes
+        torch.cuda.empty_cache()
+    return weights
+
+
+def _model_new_reconstruction(tmp: Path, records: dict, weights: dict) -> None:
+    """Phase 19 (b): bf16 reconstruction at batch 8 of the models in `weights`."""
+    import numpy as np
+    import torch
+
+    from video_tokenizer_tpu_torch.ops.attention import flash_attn_fwd
+    from video_tokenizer_tpu_torch.reconstruct import make_clips, reconstruct
+
+    B, iters = 8, 5
+    clips = torch.from_numpy(make_clips(np.random.default_rng(SEED), B, 16, 128)).cuda()
+    for name, state in weights.items():
+        model, n_layers = _model_new(tmp, name, torch.bfloat16, SEED, perturb=False)
+        model.load_state_dict(state)
+        model.cuda().eval()
+        reconstruct(model, clips)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attn_fwd.launches = flash_attn_fwd.launches_sm90 = 0
+        times = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            rec = reconstruct(model, clips)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launches, sm90 = flash_attn_fwd.launches, flash_attn_fwd.launches_sm90
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        prof_wall_ms, per_cat, n_events, _ = _profile_and_load(lambda: reconstruct(model, clips), 3)
+        busy_ms = sum(per_cat.values()) / 1e3
+        clips_per_s = B / statistics.median(times)
+        mse = torch.mean((rec - clips).reshape(B, -1) ** 2).item()
+        log(f"[model_new bf16] {name} batch {B}: {', '.join(f'{t * 1e3:.1f}' for t in times)} ms; "
+            f"median {statistics.median(times) * 1e3:.2f} ms = {clips_per_s:.2f} clips/s; peak "
+            f"memory {peak_gb:.2f} GiB; mse {mse:.5f}; flash launches {launches} (expect "
+            f"{n_layers * iters}), wgmma {sm90}; profiled 3 batches: wall "
+            f"{prof_wall_ms / 3:.1f} ms, device busy {busy_ms / 3:.1f} ms, idle "
+            f"{1 - busy_ms / prof_wall_ms:.1%}, {n_events / 3:.0f} kernels per batch; device ms "
+            f"per batch by category: " + ", ".join(
+                f"{c} {us / 1e3 / 3:.2f} ({us / 1e3 / busy_ms:.1%})"
+                for c, us in sorted(per_cat.items(), key=lambda kv: -kv[1])))
+        require(tuple(rec.shape) == (B, 3, 16, 128, 128) and torch.isfinite(rec).all().item(),
+                f"{name} bf16: reconstruction")
+        require(launches == sm90 == n_layers * iters, f"{name} bf16: flash launches {launches}, "
+                f"wgmma {sm90}, expected {n_layers * iters}")
+        records[f"model_new_{name}"].update(
+            clips_per_s=clips_per_s, peak_gib=peak_gb, idle=1 - busy_ms / prof_wall_ms,
+            device_ms_per_batch={c: us / 1e3 / 3 for c, us in per_cat.items()},
+            bf16_flash_launches=launches)
+        del model, rec
+        torch.cuda.empty_cache()
+
+
+def _cut_depth(model, depth: int) -> None:
+    """Keeps the first `depth` blocks of each stack of a model_new autoencoder."""
+    for stack in (model.encoder, getattr(model, "encoder1", None), model.decoder):
+        if stack is not None:
+            for i in range(depth, stack.blocks.depth):
+                delattr(stack.blocks, f"attn_{i}")
+                delattr(stack.blocks, f"ffd_{i}")
+            stack.blocks.depth = depth
+
+
+def _model_new_train_parity(tmp: Path, records: dict) -> None:
+    """Phase 19 (c): one fp32 step of cfgs/larp_tokenizer_large.yaml, card
+    against CPU, at full width and 8 + 8 of the 24 + 24 layers: deep, these
+    random weights amplify fp32 rounding (phase (a)'s yardstick ~2e-3 of the
+    output at 24 + 24; in a 24 + 24 step 0.5% of the FSQ indices flipped and
+    the losses moved 6.5e-3; at 12 + 12 the indices and losses agreed, the
+    gradients to 7.6e-4 of their scale, near the 1e-3 bound)."""
+    import numpy as np
+    import torch
+
+    cfg = _load_cfg("larp_tokenizer_large", tmp, 1)
+    cfg["loss"]["args"]["d_update_freq"] = 1
+    pair = {d: _trainer({**cfg, "save_dir": str(tmp / f"model_new_fp32_{d}")}, d)
+            for d in ("cpu", "cuda")}
+    cpu, gpu = pair["cpu"], pair["cuda"]
+    for tr in (cpu, gpu):
+        _cut_depth(tr.model, 8)
+        tr.opt_g.param_groups[0]["params"] = list(tr.model.parameters())
+    _perturb(cpu.model, SEED + 110)
+    _perturb(cpu.disc, SEED + 111)
+    gpu.model.load_state_dict(cpu.model.state_dict())
+    gpu.loss_mod.load_state_dict(cpu.loss_mod.state_dict())
+    clip = np.random.default_rng(SEED + 112).integers(0, 256, (1, 3, 16, 128, 128), dtype=np.uint8)
+    reps, infos, secs = {}, {}, {}
+    for device, tr in pair.items():
+        hook = tr.model.quantize.register_forward_hook(
+            lambda m, i, o, d=device: reps.__setitem__(d, o[1]["indices"].cpu()))
+        t0 = time.perf_counter()
+        keys, packed = tr.train_step({"gt": torch.from_numpy(clip)})
+        infos[device] = dict(zip(keys, packed.tolist()))
+        secs[device] = time.perf_counter() - t0
+        hook.remove()
+    agree = (reps["cuda"] == reps["cpu"]).float().mean().item()
+    loss_keys = ("loss", "rec_loss", "perceptual_loss", "g_loss", "d_loss", "loss_q",
+                 "logits_real", "logits_fake")
+    loss_err = max(abs(infos["cuda"][k] - infos["cpu"][k]) / max(abs(infos["cpu"][k]), 1e-6)
+                   for k in loss_keys)
+    log(f"[model_new train fp32] autoencoder_large {sum(p.numel() for p in cpu.model.parameters()):,}"
+        f" + discriminator {sum(p.numel() for p in cpu.disc.parameters()):,} + LPIPS params, "
+        f"batch 1, 8 + 8 of the 24 + 24 layers, TF32 off: CPU step (plain versions) {secs['cpu']:.1f} s, "
+        f"card step {secs['cuda']:.2f} s; FSQ indices agree on {agree:.4%} (tol >= 99.9%); losses "
+        + ", ".join(f"{k} {infos['cuda'][k]:.6g}/{infos['cpu'][k]:.6g}" for k in loss_keys)
+        + f" (card/CPU; largest relative difference {loss_err:.2e}, tol 2e-4)")
+    require(set(infos["cuda"]) == set(infos["cpu"]), "model_new train fp32: info keys differ")
+    require(all(np.isfinite(v) for v in infos["cuda"].values()), "model_new train: non-finite")
+    require(agree >= 0.999, f"model_new train fp32: FSQ agreement {agree}")
+    require(loss_err <= 2e-4, f"model_new train fp32: losses differ by {loss_err}")
+    worst = 0.0
+    for tag, gm, cm, names in (
+            ("model", gpu.model, cpu.model, ("encoder.proj_in.weight",
+                                             "encoder.blocks.attn_4.to_qkv.weight",
+                                             "encoder.blocks.ffd_7.proj_out.weight",
+                                             "decoder.blocks.attn_0.q_norm.weight",
+                                             "decoder.blocks.ffd_7.proj_in.weight",
+                                             "decoder.proj_out.weight")),
+            ("disc", gpu.disc, cpu.disc, ("transformer_encoder.blocks.3.attn.qkv.weight",
+                                          "x_embedder.proj.weight"))):
+        gp, cp = dict(gm.named_parameters()), dict(cm.named_parameters())
+        for pname in names:
+            g, c = gp[pname].grad, cp[pname].grad
+            require(g is not None and c is not None, f"model_new train: no gradient for {pname}")
+            rel = (g.cpu() - c).abs().max().item() / c.abs().max().item()
+            worst = max(worst, rel)
+            log(f"[model_new train fp32] grad {tag} {pname}: max|card-cpu|/max|cpu| {rel:.2e} "
+                f"(max|g| {c.abs().max().item():.3e}; tol 1e-3)")
+    require(worst <= 1e-3, f"model_new train fp32: gradients differ by {worst} of their scale")
+    records["model_new_larp_tokenizer_large"].update(
+        train_parity_loss_rel=loss_err, train_parity_grad_rel=worst, train_parity_cpu_s=secs["cpu"])
+    del pair, cpu, gpu
+    torch.cuda.empty_cache()
+
+
+def _model_new_train_throughput(tmp: Path, records: dict) -> None:
+    """Phase 19 (d): bf16 at batch 8, the config's fp32 at batch 4."""
+    for dtype, use_amp, batch in (("bf16", True, 8), ("fp32", False, 4)):
+        cfg = _load_cfg("larp_tokenizer_large", tmp / f"model_new_{dtype}", batch)
+        cfg["use_amp"] = use_amp
+        run = _train_throughput(f"model_new train {dtype}", cfg, (72, 56, 16), 0)
+        records[f"train_model_new_{dtype}"] = {k: v for k, v in run.items() if k != "tf32x3"}
+        for k, n in run["launches"].items():
+            if k != "vq_argmax":
+                row = records[f"{k}_tf32x3" if dtype == "fp32" else k]
+                row[f"model_new_{dtype}_launches"] = n
+
+
+def _model_new_cli(tmp: Path, records: dict) -> None:
+    """Phase 19 (e): the train CLI through one short epoch with eval and vis;
+    the reconstruct CLI on its checkpoint."""
+    import torch
+
+    from video_tokenizer_tpu_torch.reconstruct import main as reconstruct_main
+    from video_tokenizer_tpu_torch.train import main as train_main
+
+    out = tmp / "model_new_cli"
+    t0 = time.perf_counter()
+    tr = train_main(["--cfg", str(ROOT / "cfgs" / "larp_tokenizer_large.yaml"), "--csv_file",
+                     "null128", "-b", "2", "-j", "0", "--device", "cuda", "--manualSeed", str(SEED),
+                     "--out_path", str(out), "--opts", "max_epoch", "1", "eval_epoch", "1",
+                     "vis_epoch", "1", "test_dataset.csv_paths.ucf101_val", "null128"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_steps = tr.step
+    del tr
+    torch.cuda.empty_cache()
+    run_dir = out / "larp_tokenizer_large"
+    text = (run_dir / "log.txt").read_text()
+    line = next((l for l in text.splitlines() if "Epoch 1, train:" in l), "")
+    losses = [float(x.split("=")[1].rstrip(",")) for x in line.split() if x.startswith("loss=")]
+    grid_path = run_dir / "vis" / "epoch_1.png"
+    grid = _read_png(grid_path) if grid_path.exists() else None
+    grid_text = "missing" if grid is None else f"{grid.shape}, pixel std {grid.std():.4g}"
+    t0 = time.perf_counter()
+    result = reconstruct_main(["--checkpoint", str(run_dir / "epoch-final"), "--device", "cuda",
+                               "--batch_size", "2", "--num_batches", "2"])
+    load_s = time.perf_counter() - t0
+    log(f"[model_new cli] train.main on cfgs/larp_tokenizer_large.yaml, batch 2, one epoch of "
+        f"null128 ({n_steps} fp32 steps), eval and vis: {wall:.1f} s; train and eval losses "
+        f"{losses}; vis grid {grid_text}; reconstruct --checkpoint epoch-final on the card "
+        f"({load_s:.1f} s with the load): {json.dumps(result)}")
+    require("visualize_epoch failed" not in text, "model_new cli: visualize_epoch failed")
+    require(n_steps == 64 and len(losses) == 2 and all(math.isfinite(v) for v in losses),
+            f"model_new cli: {n_steps} steps, losses {losses}")
+    require(grid is not None and grid.shape == (2 * 2 * 128, 8 * 128, 3) and grid.std() > 0,
+            f"model_new cli: vis grid {grid_text}")
+    require(result["clips"] == 4 and result["device"] == torch.cuda.get_device_name(0),
+            f"model_new cli: reconstruct {result}")
+    records["model_new_larp_tokenizer_large"]["cli_s"] = wall
+
+
 def main() -> int:
     if not (ROOT / "video_tokenizer_tpu_torch").is_dir():
         print("chip_smoke.py: the video_tokenizer_tpu_torch package is not beside this script",
@@ -3070,6 +3486,7 @@ def main() -> int:
         phase_train_fp32(Path(tmp))
         phase_train_throughput(Path(tmp), records)
         phase_ar_train(Path(tmp), records)
+        phase_model_new(Path(tmp), records)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 
     sources = {
@@ -3124,6 +3541,7 @@ def main() -> int:
                    "library_ms"} - set(k)
         require(not missing and k["launches"] > 0, f"kernel {k['name']}: {missing or 'never launched'}")
     print(json.dumps({"train": {k: v for k, v in records.items() if k.startswith("train_")}}))
+    print(json.dumps({"model_new": {k: v for k, v in records.items() if k.startswith("model_new_")}}))
     print(json.dumps({"sampling_tokens_per_s": records["sampling"],
                       "sampling_device_step_ms": records["sampling_device_step_ms"],
                       "sampling_kernels_per_step": records["sampling_kernels_per_step"],

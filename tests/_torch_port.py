@@ -227,15 +227,26 @@ def jax_trainer(cfg, capture_grads=False):
     return tr
 
 
+def tokenizer_state_dict_from_jax(params, model):
+    """The converter of `model`'s family: a model_new autoencoder's, else the
+    LARP tokenizer's."""
+    from video_tokenizer_tpu_torch.models import RoPEAutoEncoder
+    from video_tokenizer_tpu_torch.utils.convert import (
+        model_new_state_dict_from_jax, state_dict_from_jax,
+    )
+
+    convert = (model_new_state_dict_from_jax if isinstance(model, RoPEAutoEncoder)
+               else state_dict_from_jax)
+    return convert(params, model)
+
+
 def port_trainer(cfg, jax_tr):
     """The port's LARPTokenizerTrainer on the CPU, at epoch 1, with the JAX
     trainer's weights, LeCam EMAs and EMA parameters."""
     import video_tokenizer_tpu_torch.data  # noqa: F401
     import video_tokenizer_tpu_torch.trainers  # noqa: F401
     from video_tokenizer_tpu_torch.registry import trainers
-    from video_tokenizer_tpu_torch.utils.convert import (
-        loss_state_dict_from_jax, state_dict_from_jax,
-    )
+    from video_tokenizer_tpu_torch.utils.convert import loss_state_dict_from_jax
 
     tr = trainers.make({"name": "larp_tokenizer_trainer"}, args={"cfg": cfg, "device": "cpu"})
     tr.make_datasets()
@@ -243,7 +254,7 @@ def port_trainer(cfg, jax_tr):
     tr.epoch = 1
     tr.make_model()
     host = jax.device_get(jax_tr.state)
-    tr.model.load_state_dict(state_dict_from_jax(host["params"], tr.model), strict=True)
+    tr.model.load_state_dict(tokenizer_state_dict_from_jax(host["params"], tr.model), strict=True)
     tr.loss_mod.load_state_dict(
         loss_state_dict_from_jax(host["loss_params"], host["loss_ema"], tr.loss_mod), strict=True)
     tr.ema_params = {d: {n: p.detach().clone() for n, p in tr.model.named_parameters()}

@@ -13,7 +13,9 @@ CFG, top-k/top-p, int8 weights and an int8 KV cache (`generation.generate`,
 layers (`generation.speculative_generate`, `tools/distill_draft.py`); GAN
 training of the tokenizer with LPIPS and a transformer discriminator; and
 training of the AR prior, class-conditional or frame-prediction, on the
-codes of a frozen tokenizer (`trainers`, `train.py`).
+codes of a frozen tokenizer (`trainers`, `train.py`); and the model_new
+tokenizers (conv-patchify, M-RoPE, FSQ: `models/model_new.py`), for
+reconstruction and training.
 """
 from __future__ import annotations
 

@@ -2,12 +2,15 @@
 
 The reconstruction loop of the JAX package's tokenizer eval
 (`eval/rfvd_evaluator.py::_recon_impl`): encode_eval -> decode_eval ->
-clip to [0, 1]. Clips are made from `--seed` with numpy: real-video loading
-and the LPIPS/FVD metrics are not ported yet.
+clip to [0, 1] for the LARP tokenizer; a model without `encode_eval` (the
+model_new family) reconstructs through its forward's `pred_frames`, as the
+JAX trainer's `evaluate_step` does. Clips are made from `--seed` with
+numpy: real-video loading and the LPIPS/FVD metrics are not ported yet.
 
   python -m video_tokenizer_tpu_torch.reconstruct --cfg cfgs/larp_tokenizer.yaml \
       [--checkpoint tokenizer.pth] --batch_size 8 --num_batches 4 --seed 0 \
       --dtype bf16 --device cuda [--opts model.args.encoder_depth 2 ...]
+  python -m video_tokenizer_tpu_torch.reconstruct --cfg cfgs/larp_tokenizer_large.yaml --dtype bf16
 
 Without `--checkpoint` the weights are a seeded random init. The first batch
 warms up and is left out of clips/s when there is more than one.
@@ -33,8 +36,11 @@ DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 def reconstruct(model, x: torch.Tensor) -> torch.Tensor:
     """Clips [B,C,T,H,W] in [0,1] -> reconstructions, fp32, clipped to [0,1]."""
     with torch.inference_mode():
-        enc = model.encode_eval(x)
-        rec = model.decode_eval(enc["encoded"], enc["num_x_tokens"])
+        if hasattr(model, "encode_eval"):
+            enc = model.encode_eval(x)
+            rec = model.decode_eval(enc["encoded"], enc["num_x_tokens"])
+        else:
+            rec = model(x)["pred_frames"]
         return rec.float().clamp(0.0, 1.0)
 
 
@@ -61,7 +67,8 @@ def build_model(cfg_path: str, checkpoint: Optional[str], dtype: torch.dtype, de
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cfg", default="cfgs/larp_tokenizer.yaml")
-    ap.add_argument("--checkpoint", default=None, help="upstream-format .pth")
+    ap.add_argument("--checkpoint", default=None,
+                    help="upstream-format .pth or a trainer's checkpoint directory")
     ap.add_argument("--batch_size", type=int, default=8)
     ap.add_argument("--num_batches", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)

@@ -13,6 +13,12 @@ writes):
 `loss_state_dict_from_jax(loss_params, loss_ema, module)` does the same for
 the tokenizer trainer's loss module (discriminator, LPIPS, LeCam EMAs).
 
+`model_new_state_dict_from_jax(params, model)` does the same for a model_new
+`RoPEAutoEncoder` (`encoder`, `encoder1`, `decoder`: their `proj_in`,
+`proj_cond`, `mask_token`, `proj_out` and the block stacks' `attn_{i}`,
+`ffd_{i}` or the simple style's `ln1_/qkv_/proj_/ln2_/fc1_/fc2_{i}` and
+`final_norm`), whose module names are the Flax names.
+
 `ar_state_dict_from_jax(params, model)` does the same for a `LARP_AR` prior,
 under the names `export_larp_ar` writes: Dense kernels -> `weight` [out, in],
 RMSNorm `scale` -> `weight`, the token and class tables, `abs_pe`; a
@@ -114,6 +120,35 @@ def state_dict_from_jax(params: Dict[str, Any], model) -> Dict[str, torch.Tensor
     for name, buf in model.named_buffers():
         out.setdefault(name, buf.detach().cpu().clone())
     return out
+
+
+def _flax_tree_from_jax(sd: Dict[str, np.ndarray], prefix: str, tree: Dict[str, Any]) -> None:
+    """A Flax module tree under the same module names: Dense (`kernel`) ->
+    weight [out, in] (+ bias), LayerNorm (`scale`) -> weight and bias, any
+    other leaf (a mask token) as it is."""
+    if "kernel" in tree:
+        linear_from_jax(sd, prefix, tree)
+    elif "scale" in tree:
+        layernorm_from_jax(sd, prefix, tree)
+    else:
+        for name, sub in tree.items():
+            key = f"{prefix}.{name}" if prefix else name
+            if isinstance(sub, dict):
+                _flax_tree_from_jax(sd, key, sub)
+            else:
+                sd[key] = _f32(sub)
+
+
+def model_new_state_dict_from_jax(params: Dict[str, Any], model) -> Dict[str, torch.Tensor]:
+    """Flax RoPEAutoEncoder params (nested dicts of arrays) -> `model`'s
+    state_dict. The rotary tables and FSQ constants are non-persistent
+    buffers, rebuilt by the model, so every key here is a parameter."""
+    sd: Dict[str, np.ndarray] = {}
+    _flax_tree_from_jax(sd, "", params)
+    differ = sorted(set(sd) ^ set(model.state_dict()))
+    if differ:
+        raise ValueError(f"Flax tree and model differ in {differ}")
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
 
 
 def loss_state_dict_from_jax(loss_params: Dict[str, Any], loss_ema: Dict[str, Any],

@@ -48,8 +48,9 @@ def read_checkpoint(path: str, version: str = "sd") -> Tuple[Dict[str, Any], Dic
 def load_tokenizer_checkpoint(path: str, version: str = "sd", *,
                               dtype: torch.dtype = torch.float32, device=None,
                               generator: Optional[torch.Generator] = None):
-    """`.pth` or checkpoint directory -> LARPTokenizer in eval mode. `dtype`
-    is the compute dtype."""
+    """`.pth` or checkpoint directory -> the tokenizer its spec names (a LARP
+    tokenizer, a model_new autoencoder, ...) in eval mode. `dtype` is the
+    compute dtype."""
     from .. import models as _models  # noqa: F401  (registry population)
 
     spec, sd = read_checkpoint(path, version)
