@@ -147,7 +147,17 @@ Phases, each of which raises on failure (exit code 1, no result line):
      train CLI with eval and vis, and the reconstruct CLI on its checkpoint.
      Phases 2 and 10 hold the flash kernels at this family's shapes (H = 16
      at S = 2048; H = 8 at 2304; H = 12 at 512 and 1792), v a strided view
-     of the 4C-wide q, k, v, gate projection.
+     of the 4C-wide q, k, v, gate projection;
+ 20. FVD (`phase_fvd`, run before phase 18, which scores its AR samples
+     against this phase's real stats): the seeded full Kinetics-400 I3D
+     card against CPU (features, and each Mixed block on the CPU's input)
+     and its clips/s at batch 16; the eval CLI on the flagship tokenizer
+     (bf16, batch 16, null128: clips/s, device ms per batch by stage, peak
+     memory, 192 wgmma flash forwards and 8 VQ searches), after the
+     evaluator's first 2 clips in fp32 card against CPU; the merge CLI on
+     its stats in two shards; the tokenizer trainer's eval rFVD and best
+     checkpoint over two epochs; `sample.py --csv_file null128` as one job
+     (shards, flags, the report row, 30,690 decode attentions).
 Every kernel phase also times one PyTorch call that computes the same
 function (`library_ms`: SDPA and its autograd backward, a matmul + argmax,
 `index_put_`), which the port uses nowhere, and computes the kernel's bound
@@ -2868,7 +2878,7 @@ def _read_png(path: Path):
     return rows[:, 1:].reshape(h, w, 3)
 
 
-def phase_ar_train(tmp: Path, records: dict) -> None:
+def phase_ar_train(tmp: Path, records: dict, real_stats: Path) -> None:
     """The AR prior's two trainers (class-conditional and frame-prediction)
     at the 632M llama-abs-LP prior's full width, fed by the frozen flagship
     tokenizer, fp32 (TF32 off), as `cfgs/larp_ar.yaml` and `larp_ar_fp.yaml`
@@ -2888,8 +2898,10 @@ def phase_ar_train(tmp: Path, records: dict) -> None:
       (e) the train CLI's entry (`train.main`) on cfgs/larp_ar.yaml at batch 8
           through one epoch of null128 (16 steps), eval and `vis_epoch`: the
           sample grid decodes to 4 x 128 by 8 x 128 pixels and is not
-          constant, and `epoch-final` loads through `load_ar_checkpoint` and
-          samples 16 tokens on the card."""
+          constant, the samples' FVD against `real_stats` (phase 20's reals,
+          `fvd_real_stats_path` with `force_fvd`) is logged as
+          `sample gFVD:` with no failure, and `epoch-final` loads through
+          `load_ar_checkpoint` and samples 16 tokens on the card."""
     import numpy as np
     import torch
 
@@ -3053,7 +3065,8 @@ def phase_ar_train(tmp: Path, records: dict) -> None:
                      "-b", "8", "-j", "0", "--device", "cuda", "--manualSeed", str(SEED),
                      "--out_path", str(out), "--opts", "max_epoch", "1", "eval_epoch", "1",
                      "vis_epoch", "1", "vae.checkpoint", str(vae_dir),
-                     "test_dataset.csv_paths.ucf101_val", "null128"])
+                     "test_dataset.csv_paths.ucf101_val", "null128",
+                     "fvd_real_stats_path", str(real_stats), "force_fvd", "true"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     run = out / "larp_ar"
@@ -3064,6 +3077,7 @@ def phase_ar_train(tmp: Path, records: dict) -> None:
     grid_path = run / "vis" / "samples_ep1.png"
     grid = _read_png(grid_path) if grid_path.exists() else None
     grid_text = "missing" if grid is None else f"{grid.shape}, pixel std {grid.std():.4g}"
+    gfvd = [float(l.rsplit(" ", 1)[1]) for l in text.splitlines() if "sample gFVD:" in l]
     del tr
     torch.cuda.empty_cache()
     model = load_ar_checkpoint(str(run / "epoch-final"), device="cuda")
@@ -3073,9 +3087,11 @@ def phase_ar_train(tmp: Path, records: dict) -> None:
     log(f"[ar train cli] train.main on cfgs/larp_ar.yaml, batch 8, one epoch of null128: "
         f"{wall:.1f} s; train and eval losses {losses}; visualize_epoch sampled 4 x 1024 tokens "
         f"with {n_decode} decode attentions and {n_rows} row writes (fp32 cache: the earlier "
-        f"kernels), grid {grid_text}; epoch-final loaded by "
+        f"kernels), grid {grid_text}; sample gFVD {gfvd}; epoch-final loaded by "
         f"load_ar_checkpoint, 16 tokens sampled: {seq[0].tolist()}")
     require("visualize_epoch failed" not in text, "ar train cli: visualize_epoch failed")
+    require("gFVD computation failed" not in text and len(gfvd) == 1
+            and math.isfinite(gfvd[0]), f"ar train cli: sample gFVD {gfvd}")
     require("Epoch 1 training done" in text and len(losses) == 2
             and all(math.isfinite(v) for v in losses), f"ar train cli: losses {losses}")
     require(grid is not None and grid.shape == (4 * 128, 8 * 128, 3) and grid.std() > 0,
@@ -3085,6 +3101,7 @@ def phase_ar_train(tmp: Path, records: dict) -> None:
     require(tuple(seq.shape) == (2, 16) and int(seq.min()) >= 0 and int(seq.max()) < 8192,
             f"ar train cli: sampled codes {seq.tolist()}")
     records["train_ar"]["cli_s"] = wall
+    records["train_ar"]["cli_gfvd"] = gfvd[0]
     for row, n in (("decode_attention_split", n_decode), ("cache_update", n_rows)):
         records[row]["launches"] += n
         records[row]["larp_ar_vis_launches"] = n
@@ -3433,6 +3450,305 @@ def _model_new_cli(tmp: Path, records: dict) -> None:
     records["model_new_larp_tokenizer_large"]["cli_s"] = wall
 
 
+class _Timed:
+    """Wraps `owner.attr` (a function or method) while active: CUDA events
+    around each call, kept per name, and the results of the calls when
+    `keep` is set. The launch counters are untouched."""
+
+    def __init__(self, owner, attr: str, name: str, marks: dict, keep: list = None):
+        self.owner, self.attr, self.name, self.marks, self.keep = owner, attr, name, marks, keep
+
+    def __enter__(self):
+        import torch
+
+        self.inner = getattr(self.owner, self.attr)
+        inner, marks, name, keep = self.inner, self.marks, self.name, self.keep
+
+        def timed(*args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = inner(*args, **kwargs)
+            end.record()
+            marks.setdefault(name, []).append((start, end))
+            if keep is not None:
+                keep.append(out)
+            return out
+
+        setattr(self.owner, self.attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.attr, self.inner)
+
+
+def _events_ms(marks: dict) -> dict:
+    import torch
+
+    torch.cuda.synchronize()
+    return {k: [s.elapsed_time(e) for s, e in v] for k, v in marks.items()}
+
+
+def phase_fvd(tmp: Path, records: dict) -> Path:
+    """FVD on the card (phase 20). The I3D extractor is the port's seeded
+    full Kinetics-400 I3D (12,697,264 parameters, `random_variables(0)`, what
+    every entry point loads without `--i3d_weights`), fp32 without TF32:
+      (a) 2 clips of 16 x 128 x 128 through the extractor (resize included),
+          card against CPU: features within 1e-4 of their scale, and every
+          Mixed block on the CPU's own input within 1e-5 of its output's
+          scale; the extractor's clips/s and peak memory at batch 16;
+      (b) the eval CLI (`eval/eval_larp_tokenizer.py`) on the flagship
+          tokenizer, seeded and perturbed as in phase 6, saved as an
+          upstream-format `.pth` and read back through `--tokenizer`:
+          `--use_amp`, batch 16, `--csv_file null128` (8 batches): clips/s,
+          device ms per batch for reconstruction / LPIPS / I3D (events),
+          peak memory; exact launches, 24 x 8 of the bf16 wgmma flash forward
+          and 8 of the VQ search on vq_tc_kernel; FVD of the reals against
+          themselves <= 1e-6 of trace(C), the reconstruction FVD finite and
+          > 0; first, the evaluator on the first 2 clips in fp32 on the card
+          against the CPU: mse / psnr / lpips within 1e-3 of their scale;
+      (c) the merge CLI on (b)'s features saved as two shards (batches 0-3 and
+          4-7) prints (b)'s FVD;
+      (d) the tokenizer trainer (`train.main`, cfgs/larp_tokenizer.yaml, bf16,
+          batch 8, `force_fvd`, `save_best`, a null128 test set, two epochs):
+          `eval rFVD:` each epoch, no failed FVD line, exactly one
+          `best_fvd_*` directory, the lower FVD's (the AR trainer's
+          `sample gFVD:` is checked in phase 18, against (b)'s real stats);
+      (e) `sample.py --csv_file null128` as one job at full width: bf16, CFG
+          1.5, top-k 100, batch 8, 8 samples: both shards, `done_0.flag`,
+          `merged.flag`, one `fvd_report.csv` row whose finite FVD is the
+          merge CLI's over the same shards; 30 x 1023 decode attentions on
+          the tensor-core kernel, each writing its row.
+    Returns the path of (b)'s real stats."""
+    import contextlib
+    import csv
+    import io
+
+    import numpy as np
+    import torch
+
+    from video_tokenizer_tpu_torch import FLAGSHIP_TOKENIZER, flagship_tokenizer
+    from video_tokenizer_tpu_torch.eval import rfvd_evaluator
+    from video_tokenizer_tpu_torch.eval.calc_fvd_from_multiple_feature_stats import (
+        main as merge_main,
+    )
+    from video_tokenizer_tpu_torch.eval.eval_larp_tokenizer import main as eval_main
+    from video_tokenizer_tpu_torch.metrics.fvd import FeatureStats, frechet_distance
+    from video_tokenizer_tpu_torch.metrics.i3d import I3DFeatureExtractor
+    from video_tokenizer_tpu_torch.models.lpips import LPIPS
+    from video_tokenizer_tpu_torch.ops.attention import flash_attn_fwd
+    from video_tokenizer_tpu_torch.ops.decode_attention import decode_attention
+    from video_tokenizer_tpu_torch.ops.vq import vq_argmax
+    from video_tokenizer_tpu_torch.sample import main as sample_main
+    from video_tokenizer_tpu_torch.train import main as train_main
+    from video_tokenizer_tpu_torch.utils.common import no_tf32
+
+    out: dict = {}
+    t_phase = time.perf_counter()
+
+    # (a) I3D, card against CPU
+    gpu, cpu = I3DFeatureExtractor(None, "cuda"), I3DFeatureExtractor(None, "cpu")
+    n_params = sum(p.numel() for p in gpu.model.parameters())
+    x = torch.rand(2, 3, 16, 128, 128, generator=torch.Generator().manual_seed(SEED + 200))
+    seen = {}  # each Mixed block's input and output on the CPU
+    hooks = [getattr(cpu.model, name).register_forward_hook(
+        lambda mod, args, output, name=name: seen.__setitem__(name, (args[0], output)))
+        for name in cpu.model.plan if isinstance(name, str)]
+    t0 = time.perf_counter()
+    want = cpu(x)
+    cpu_s = time.perf_counter() - t0
+    for h in hooks:
+        h.remove()
+    got = gpu(x.cuda())
+    feat_err = float(np.abs(got - want).max() / np.abs(want).max())
+    block_err = {}
+    with torch.no_grad(), no_tf32():
+        for name, (inp, outp) in seen.items():
+            mine = getattr(gpu.model, name)(inp.cuda()).cpu()
+            block_err[name] = float((mine - outp).abs().max() / outp.abs().max())
+    log(f"[fvd i3d] seeded I3D {n_params:,} params, 2 clips [2,3,16,128,128] -> 224, fp32, TF32 "
+        f"off: max|card-cpu| {feat_err:.3e} of the feature scale {np.abs(want).max():.3f} (tol "
+        f"1e-4); CPU {cpu_s:.1f} s; per Mixed block on the CPU's input, worst "
+        f"{max(block_err.values()):.3e} (tol 1e-5): "
+        + ", ".join(f"{k} {v:.1e}" for k, v in block_err.items()))
+    require(n_params == 12_697_264, f"I3D has {n_params} parameters")
+    require(got.shape == (2, 400) and np.isfinite(got).all(), f"I3D features {got.shape}")
+    require(max(block_err.values()) <= 1e-5, f"I3D blocks card vs CPU {block_err}")
+    require(feat_err <= 1e-4, f"I3D features card vs CPU {feat_err}")
+    del cpu
+    xb = torch.rand(16, 3, 16, 128, 128, device="cuda")
+    gpu.features(xb)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    i3d_ms = median_ms(lambda: gpu.features(xb), iters=5, warmup=1)
+    i3d_gib = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[fvd i3d] batch 16: {i3d_ms:.2f} ms = {16e3 / i3d_ms:.1f} clips/s "
+        f"({48.6 * 16 / i3d_ms:.1f} TFLOP/s at 48.6 GFLOP a clip), peak {i3d_gib:.2f} GiB")
+    out["i3d"] = {"features_rel_err": feat_err, "block_rel_err": max(block_err.values()),
+                  "batch16_ms": i3d_ms, "clips_per_s": 16e3 / i3d_ms, "peak_gib": i3d_gib}
+    del gpu, xb
+
+    # (b) the flagship tokenizer as an upstream-format .pth
+    model = flagship_tokenizer(torch.float32, torch.Generator().manual_seed(SEED))
+    _perturb(model, SEED + 9)
+    pth = tmp / "fvd" / "tokenizer.pth"
+    pth.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"model": {"name": "larp_tokenizer", "args": FLAGSHIP_TOKENIZER,
+                          "sd": model.state_dict()}}, pth)
+
+    # (b) first: 2 clips in fp32 through the evaluator, card against CPU
+    from video_tokenizer_tpu_torch.data import datasets
+
+    ds = datasets.make({"name": "video_dataset", "args": {
+        "root_path": "data/metadata", "csv_file": "null128", "frame_num": 16, "crop_size": 128,
+        "cls_vid_num": "-1_-1", "split": "test", "use_all_frames": False}})
+    parity, secs = {}, {}
+    for dev in ("cpu", "cuda"):
+        lp = LPIPS(generator=torch.Generator().manual_seed(0))
+        ev = rfvd_evaluator.UCFrFVDEvaluator(model.to(dev).eval(), ds, batch_size=2, lpips=lp,
+                                             compute_fvd=False, device=dev)
+        t0 = time.perf_counter()
+        parity[dev] = ev.evaluate(max_batches=1)
+        secs[dev] = time.perf_counter() - t0
+    rel = {k: abs(parity["cuda"][k] - parity["cpu"][k]) / abs(parity["cpu"][k])
+           for k in ("mse", "psnr", "lpips")}
+    log(f"[fvd eval] fp32 evaluator, first 2 clips of null128: card {parity['cuda']} vs CPU "
+        f"{parity['cpu']}: relative {rel} (tol 1e-3); CPU {secs['cpu']:.1f} s")
+    require(max(rel.values()) <= 1e-3, f"evaluator card vs CPU {rel}")
+    del model, ev
+    torch.cuda.empty_cache()
+
+    # (b) the eval CLI, bf16, batch 16, 8 batches
+    marks, feats = {}, []
+    torch.cuda.reset_peak_memory_stats()
+    flash_attn_fwd.launches = flash_attn_fwd.launches_sm90 = 0
+    vq_argmax.launches = vq_argmax.launches_tc = 0
+    with contextlib.ExitStack() as stack:
+        for owner, attr, name, keep in (
+                (rfvd_evaluator.UCFrFVDEvaluator, "evaluate", "evaluate", None),
+                (rfvd_evaluator, "reconstruct", "reconstruction", None),
+                (rfvd_evaluator.UCFrFVDEvaluator, "lpips_mean", "lpips", None),
+                (I3DFeatureExtractor, "__call__", "i3d", feats)):
+            stack.enter_context(_Timed(owner, attr, name, marks, keep))
+        res = eval_main(["--tokenizer", str(pth), "--csv_path", "null128", "--frames", "16",
+                         "--input_size", "128", "--batch_size", "16", "--num_workers", "0",
+                         "--use_amp", "--device", "cuda"])
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    launches = {"flash_sm90": flash_attn_fwd.launches_sm90, "flash": flash_attn_fwd.launches,
+                "vq_tc": vq_argmax.launches_tc, "vq": vq_argmax.launches}
+    ms = _events_ms(marks)
+    evaluate_s = ms.pop("evaluate")[0] / 1e3  # it ends waiting for the card: its wall time
+    per_batch = {k: statistics.mean(v) * (2 if k == "i3d" else 1) for k, v in ms.items()}
+    fake, real = feats[0::2], feats[1::2]
+    real_all = FeatureStats(capture_mean_cov=True)
+    for f in real:
+        real_all.append(f)
+    mu, cov = real_all.get_mean_cov()
+    self_fvd = frechet_distance(mu, cov, mu, cov)
+    clips_s = 128 / evaluate_s
+    log(f"[fvd eval] eval CLI, flagship bf16 (--use_amp), batch 16, null128: {res}; "
+        f"{evaluate_s:.2f} s = {clips_s:.2f} clips/s (model load and builds excluded), peak "
+        f"{peak_gib:.2f} GiB; device ms per batch: reconstruction "
+        f"{per_batch['reconstruction']:.2f}, LPIPS {per_batch['lpips']:.2f}, I3D (two passes) "
+        f"{per_batch['i3d']:.2f}; launches {launches} (expect 192 wgmma flash, 8 vq_tc); "
+        f"FVD(reals, reals) {self_fvd:.3e} vs 1e-6 * trace(C) = {1e-6 * np.trace(cov):.3e}")
+    require(res["num_samples"] == 128 and len(fake) == len(real) == 8, f"eval CLI {res}")
+    require(all(math.isfinite(res[k]) for k in ("mse", "psnr", "lpips", "fvd")), f"eval {res}")
+    require(res["fvd"] > 0, f"reconstruction FVD {res['fvd']}")
+    require(abs(self_fvd) <= 1e-6 * np.trace(cov), f"FVD of the reals to themselves {self_fvd}")
+    require(launches == {"flash_sm90": 192, "flash": 192, "vq_tc": 8, "vq": 8},
+            f"eval CLI launches {launches}")
+    records["flash_attn_fwd"]["launches"] += launches["flash_sm90"]
+    records["flash_attn_fwd"]["eval_cli_launches"] = launches["flash_sm90"]
+    records["vq_argmax"]["launches"] += launches["vq_tc"]
+    records["vq_argmax"]["eval_cli_launches"] = launches["vq_tc"]
+    out["eval_cli"] = {"clips_per_s": clips_s, "seconds": evaluate_s, "peak_gib": peak_gib,
+                       "device_ms_per_batch": per_batch, "fvd": res["fvd"], "mse": res["mse"],
+                       "psnr": res["psnr"], "lpips": res["lpips"], "self_fvd": self_fvd,
+                       "parity_rel": rel, "parity_cpu_s": secs["cpu"]}
+
+    # (c) the merge CLI on two shards of (b)'s features
+    shards = tmp / "fvd" / "shards"
+    shards.mkdir(parents=True, exist_ok=True)
+    for kind, rows in (("gen", fake), ("real", real)):
+        for first in (0, 4):
+            st = FeatureStats(capture_mean_cov=True)
+            for f in rows[first:first + 4]:
+                st.append(f)
+            st.save(shards / f"{kind}_stats_{first}.pkl")
+    real_stats = tmp / "fvd" / "real_stats.pkl"
+    real_all.save(real_stats)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        merged = merge_main(["--feature_stats_dir", str(shards)])
+    printed = buf.getvalue()
+    log(f"[fvd merge] {printed.strip()!r} against (b)'s FVD {res['fvd']:.6f}")
+    require(printed == f"num_gen: 128, num_real: 128\nFVD: {merged:.4f}\n", f"merge {printed!r}")
+    require(abs(merged - res["fvd"]) <= 1e-6 * res["fvd"], f"merged {merged} vs {res['fvd']}")
+    out["merge_fvd"] = merged
+
+    # (d) the tokenizer trainer: eval rFVD each epoch, the best by FVD
+    t0 = time.perf_counter()
+    run_dir = tmp / "fvd" / "train"
+    train_main(["--cfg", str(ROOT / "cfgs" / "larp_tokenizer.yaml"), "--csv_file", "null128",
+                "-b", "8", "-j", "0", "--device", "cuda", "--manualSeed", str(SEED),
+                "--out_path", str(run_dir), "--opts", "max_epoch", "2", "eval_epoch", "1",
+                "vis_epoch", "99", "latest_interval", "1", "use_amp", "true", "force_fvd",
+                "true", "save_best", "true", "test_dataset.csv_paths.ucf101_val", "null128"])
+    train_s = time.perf_counter() - t0
+    text = (run_dir / "larp_tokenizer" / "log.txt").read_text()
+    rfvd = [float(line.rsplit(" ", 1)[1]) for line in text.splitlines() if "eval rFVD:" in line]
+    best = sorted(p.name for p in (run_dir / "larp_tokenizer").glob("best_fvd_*"))
+    log(f"[fvd train] train.main, cfgs/larp_tokenizer.yaml bf16, batch 8, 2 epochs of null128 "
+        f"with eval: {train_s:.1f} s; eval rFVD {rfvd}; best checkpoints {best}")
+    require(len(rfvd) == 2 and all(math.isfinite(v) for v in rfvd), f"eval rFVD lines {rfvd}")
+    require(not re.search(r"FVD.*failed|failed.*FVD", text), "a failed FVD line in the log")
+    require(best == [f"best_fvd_{min(rfvd):.2f}"], f"best checkpoints {best} for {rfvd}")
+    out["train_rfvd"] = rfvd
+    out["train_s"] = train_s
+    torch.cuda.empty_cache()
+
+    # (e) sample.py with FVD: one job at full width
+    samples = tmp / "fvd" / "sampling" / "run"
+    decode_attention.launches = decode_attention.launches_sm90 = 0
+    decode_attention.launches_fused = 0
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = sample_main(["--device", "cuda", "--dtype", "bfloat16", "--cfg_scale", "1.5",
+                              "--top_k", "100", "--batch_size", "8", "--num_samples", "8",
+                              "--csv_file", "null128", "--seed", str(SEED), "--output_dir",
+                              str(samples)])
+    sample_s = time.perf_counter() - t0
+    dec = {"all": decode_attention.launches, "sm90": decode_attention.launches_sm90,
+           "fused": decode_attention.launches_fused}
+    with open(samples.parent / "fvd_report.csv") as f:
+        rows = list(csv.reader(f))
+    buf2 = io.StringIO()
+    with contextlib.redirect_stdout(buf2):
+        merged_e = merge_main(["--feature_stats_dir", str(samples)])
+    files = sorted(p.name for p in samples.iterdir() if p.is_file())
+    log(f"[fvd sample] sample.py --csv_file null128, bf16, CFG 1.5, top-k 100, batch 8, 8 "
+        f"samples: {sample_s:.1f} s (the models' builds included); {buf.getvalue().strip()}; "
+        f"files {files}; report {rows}; merge CLI {buf2.getvalue().strip()!r}; decode "
+        f"attentions {dec} (expect 30690 each)")
+    require({"gen_stats_0.pkl", "real_stats_0.pkl", "done_0.flag", "merged.flag"} <= set(files),
+            f"sample.py files {files}")
+    require(len(rows) == 2 and rows[1][7] == "8", f"fvd_report.csv {rows}")
+    fvd_e = float(rows[1][-1])
+    require(math.isfinite(fvd_e) and result["fvd"] is not None
+            and abs(result["fvd"] - merged_e) <= 1e-9 * max(merged_e, 1.0)
+            and rows[1][-1] == f"{merged_e:.4f}", f"sample FVD {result['fvd']} vs merge {merged_e}")
+    require(dec == {"all": 30690, "sm90": 30690, "fused": 30690}, f"decode launches {dec}")
+    records["decode_attention"]["launches"] += dec["sm90"]
+    records["decode_attention"]["sample_fvd_launches"] = dec["sm90"]
+    out["sample"] = {"fvd": result["fvd"], "seconds": sample_s,
+                     "tokens_per_s": result["tokens_per_s"], "nll": result["nll"]}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[fvd] phase 20 in {out['seconds']:.1f} s")
+    records["fvd"] = out
+    return real_stats
+
+
 def main() -> int:
     if not (ROOT / "video_tokenizer_tpu_torch").is_dir():
         print("chip_smoke.py: the video_tokenizer_tpu_torch package is not beside this script",
@@ -3485,7 +3801,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:  # the trainers' logs and cfg.yaml
         phase_train_fp32(Path(tmp))
         phase_train_throughput(Path(tmp), records)
-        phase_ar_train(Path(tmp), records)
+        real_stats = phase_fvd(Path(tmp), records)
+        phase_ar_train(Path(tmp), records, real_stats)
         phase_model_new(Path(tmp), records)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 
@@ -3542,6 +3859,7 @@ def main() -> int:
         require(not missing and k["launches"] > 0, f"kernel {k['name']}: {missing or 'never launched'}")
     print(json.dumps({"train": {k: v for k, v in records.items() if k.startswith("train_")}}))
     print(json.dumps({"model_new": {k: v for k, v in records.items() if k.startswith("model_new_")}}))
+    print(json.dumps({"fvd": records["fvd"]}))
     print(json.dumps({"sampling_tokens_per_s": records["sampling"],
                       "sampling_device_step_ms": records["sampling_device_step_ms"],
                       "sampling_kernels_per_step": records["sampling_kernels_per_step"],

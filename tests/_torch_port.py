@@ -9,11 +9,39 @@ same weights reach the port through `state_dict_from_jax`.
 A tiny LARP AR prior (2 layers, dim 128, 2 heads of 64, vocab 64, 10
 classes, max_seq_len 16, dropouts 0, fp32) is made the same way and reaches
 the port through `ar_state_dict_from_jax`.
+
+For the FVD tests: `TinyClips`, a few seeded uint8 clips with labels as
+`video_dataset` gives them; `ProjectionFeatures`, a cheap stand-in for I3D
+where a test is about the flow around it.
+
+Importing this module gives the test process its share of the cores
+(`share_the_cores`).
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+
+
+def share_the_cores():
+    """Under pytest-xdist the workers share the machine's cores, so torch's
+    intra-op pool and numpy's BLAS pool each get this worker's share (one
+    thread for six workers on eight cores), not every core. Pools of every
+    worker spinning on every core starve each other: six port test files
+    took 371 s with them, 133 s with one thread each (six workers, eight
+    cores). A process outside xdist keeps every core."""
+    from threadpoolctl import threadpool_limits
+
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    if workers > 1:
+        share = max(1, (os.cpu_count() or 1) // workers)
+        torch.set_num_threads(share)
+        threadpool_limits(share, user_api="blas")
+
+
+share_the_cores()
 
 TINY_VQ = {
     "name": "bottleneck",
@@ -324,3 +352,32 @@ def f32(x):
     if isinstance(x, torch.Tensor):
         return x.detach().float().numpy()
     return np.asarray(x, np.float32)
+
+
+class ProjectionFeatures:
+    """A cheap stand-in for I3D: [B, C, T, H, W] in [0, 1] -> the frame
+    means [B, C * T] times a seeded [C * T, 400] matrix (host numpy fp32)."""
+
+    def __init__(self, frames: int = 16, seed: int = 0):
+        self.proj = np.random.default_rng(seed).standard_normal((3 * frames, 400)).astype(np.float32)
+
+    def __call__(self, x):
+        x = x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+        assert x.dtype == np.float32 and x.shape[1:3] == (3, self.proj.shape[0] // 3)
+        return x.mean(axis=(3, 4)).reshape(x.shape[0], -1) @ self.proj
+
+
+class TinyClips:
+    """n seeded uint8 clips [3, T, H, W] with labels, as `video_dataset` gives them."""
+
+    def __init__(self, n: int = 5, frames: int = 16, size: int = 8, seed: int = 0):
+        self.csv_file, self.n, self.frames, self.size, self.seed = "tiny.csv", n, frames, size, seed
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        rng = np.random.default_rng(self.seed * 1000 + i)
+        gt = rng.integers(0, 256, (3, self.frames, self.size, self.size), dtype=np.uint8)
+        return {"gt": gt, "label": i % 101, "path": f"clip{i}"}
+

@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_port  # noqa: F401  (this test worker's share of the cores)
+
 import video_tokenizer_tpu.ops.attention  # noqa: F401
 from video_tokenizer_tpu_torch.ops.attention import (
     FlashAttention, attention, attention_bwd_reference, attention_reference,

@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_port  # noqa: F401  (this test worker's share of the cores)
+
 import video_tokenizer_tpu.ops.attention  # noqa: F401
 import video_tokenizer_tpu.ops.decode_attention  # noqa: F401
 import video_tokenizer_tpu.ops.quant_matmul  # noqa: F401

@@ -24,6 +24,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_port  # noqa: F401  (this test worker's share of the cores)
+
 from video_tokenizer_tpu_torch.models.larp_ar import LARP_AR, ModelArgs
 from video_tokenizer_tpu_torch.ops.cache_update import write_rows_per_row
 from video_tokenizer_tpu_torch.ops.decode_attention import (

@@ -14,6 +14,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+import _torch_port  # noqa: F401  (this test worker's share of the cores)
+
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "video_tokenizer_tpu_torch"
 
@@ -223,6 +225,7 @@ COPIES = [
     ("data/video_dataset.py", "data/video_dataset.py", None),
     ("config.py", "config.py", None),
     ("data/rand_augment.py", "data/rand_augment.py", None),
+    ("metrics/fvd.py", "metrics/fvd.py", "\n\nclass FVDCalculator"),
 ]
 
 

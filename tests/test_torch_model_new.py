@@ -463,7 +463,7 @@ def test_int_patch_size_fault_of_the_reference():
     tm.load_state_dict(model_new_state_dict_from_jax(params, tm), strict=True)
     with torch.no_grad():
         got = tm.eval()(torch.from_numpy(x))
-    want = jm.apply({"params": params}, jnp.asarray(x))
+    want = jax.jit(lambda p, v: jm.apply({"params": p}, v))(params, jnp.asarray(x))
     assert _rel(got["pred_frames"], want["pred_frames"]) <= 1e-5
     np.testing.assert_array_equal(got["bottleneck_rep"].numpy(), np.asarray(want["bottleneck_rep"]))
     for bad in ((4, 8), [8]):

@@ -47,6 +47,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_port  # noqa: F401  (this test worker's share of the cores)
+
 import video_tokenizer_tpu.ops.attention  # noqa: F401
 from video_tokenizer_tpu_torch.ops.attention import (
     DEFAULT_MASK_VALUE, attention_bwd_dkv_tf32x3_tiled_reference,

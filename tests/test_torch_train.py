@@ -5,7 +5,8 @@ save / resume round trip restores the exact state (parameters, both
 optimizers, EMA, LeCam EMAs, the VQ sampling generator, step), so the next
 step is the same bit for bit; `epoch-final` loads into `LARPTokenizer`
 strictly; the CLI runs one short epoch; what is not ported raises (the
-STAT trainer; the AR trainers' remat and sample FVD).
+STAT trainer; the AR trainers' remat), and sample FVD against real
+statistics, ported since, builds.
 """
 import json
 import os
@@ -123,14 +124,17 @@ def test_unported_options_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         trainers.make({"name": "larp_tokenizer_trainer_stat"},
                       args={"cfg": trainer_cfg(tmp_path), "device": "cpu"})
-    # the AR trainers: remat, and sample FVD against real statistics
+    # the AR trainers: remat raises; sample FVD against real statistics builds
     remat = ar_trainer_cfg(tmp_path)
     remat["model"]["args"]["remat"] = True
-    for cfg in (remat, ar_trainer_cfg(tmp_path, fvd_real_stats_path="real_stats.npz")):
-        tr = trainers.make({"name": "larp_ar_trainer"}, args={"cfg": cfg, "device": "cpu"})
-        tr.make_datasets()
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tr.make_model()
+    tr = trainers.make({"name": "larp_ar_trainer"}, args={"cfg": remat, "device": "cpu"})
+    tr.make_datasets()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tr.make_model()
+    tr = trainers.make({"name": "larp_ar_trainer"}, args={
+        "cfg": ar_trainer_cfg(tmp_path, fvd_real_stats_path="real_stats.pkl"), "device": "cpu"})
+    tr.make_datasets()
+    tr.make_model()
     cfg = trainer_cfg(tmp_path)
     cfg["loss"]["args"]["r1_gp_weight"] = 1.0
     tr = trainers.make({"name": "larp_tokenizer_trainer"}, args={"cfg": cfg, "device": "cpu"})

@@ -14,6 +14,8 @@ import pytest
 import torch
 from scipy.stats import chi2, chi2_contingency
 
+import _torch_port  # noqa: F401  (this test worker's share of the cores)
+
 import video_tokenizer_tpu.ops.vq as jax_vq
 from video_tokenizer_tpu_torch.models.bottleneck import SimpleVectorQuantizer
 from video_tokenizer_tpu_torch.ops.vq import (

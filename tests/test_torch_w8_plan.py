@@ -22,6 +22,8 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_port  # noqa: F401  (this test worker's share of the cores)
+
 from video_tokenizer_tpu_torch.ops.quant_matmul import (
     w8_kernel, w8_matmul_reference, w8_matmul_sm90_tiled_reference, w8_plan, w8_slices, w8_streams,
 )

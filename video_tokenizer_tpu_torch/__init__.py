@@ -13,9 +13,12 @@ CFG, top-k/top-p, int8 weights and an int8 KV cache (`generation.generate`,
 layers (`generation.speculative_generate`, `tools/distill_draft.py`); GAN
 training of the tokenizer with LPIPS and a transformer discriminator; and
 training of the AR prior, class-conditional or frame-prediction, on the
-codes of a frozen tokenizer (`trainers`, `train.py`); and the model_new
+codes of a frozen tokenizer (`trainers`, `train.py`); the model_new
 tokenizers (conv-patchify, M-RoPE, FSQ: `models/model_new.py`), for
-reconstruction and training.
+reconstruction and training; and FVD (`metrics/i3d.py`, `metrics/fvd.py`):
+the rFVD evaluator and its CLI (`eval/`), the merge CLI of per-job stats,
+eval rFVD with the best checkpoint by FVD in the tokenizer trainer, sample
+gFVD in the AR trainer, and FVD in class-conditional `sample.py`.
 """
 from __future__ import annotations
 
@@ -49,33 +52,36 @@ FLAGSHIP_VQ = {
 }
 
 
+# the flagship tokenizer's constructor arguments (JSON-able: the `args` of an
+# upstream-format `.pth` spec)
+FLAGSHIP_TOKENIZER = dict(
+    bottleneck=FLAGSHIP_VQ,
+    prior_model={"name": "none"},
+    bottleneck_token_num=1024,
+    input_size=128,
+    frame_num=16,
+    temporal_patch_size=4,
+    patch_size=8,
+    decoder_temporal_patch_size=4,
+    decoder_patch_size=8,
+    bottleneck_type="vq",
+    encoder_hidden_size=768,
+    decoder_hidden_size=768,
+    encoder_num_heads=12,
+    decoder_num_heads=12,
+    encoder_depth=12,
+    decoder_depth=12,
+)
+
+
 def flagship_tokenizer(dtype: torch.dtype = torch.bfloat16,
                        generator: Optional[torch.Generator] = None, device=None,
                        **overrides) -> LARPTokenizer:
-    """LARP-L-long geometry: 16x128x128 clips, patch (4, 8, 8), d = 768,
-    12 + 12 layers of 12 heads, 1024 latent tokens, VQ-8192 of dim 8.
-    The same arguments as the JAX package's `__graft_entry__.flagship_tokenizer`."""
-    args = dict(
-        bottleneck=FLAGSHIP_VQ,
-        prior_model={"name": "none"},
-        bottleneck_token_num=1024,
-        input_size=128,
-        frame_num=16,
-        temporal_patch_size=4,
-        patch_size=8,
-        decoder_temporal_patch_size=4,
-        decoder_patch_size=8,
-        bottleneck_type="vq",
-        encoder_hidden_size=768,
-        decoder_hidden_size=768,
-        encoder_num_heads=12,
-        decoder_num_heads=12,
-        encoder_depth=12,
-        decoder_depth=12,
-        dtype=dtype,
-        generator=generator,
-        device=device,
-    )
+    """LARP-L-long geometry (`FLAGSHIP_TOKENIZER`): 16x128x128 clips, patch
+    (4, 8, 8), d = 768, 12 + 12 layers of 12 heads, 1024 latent tokens,
+    VQ-8192 of dim 8. The same arguments as the JAX package's
+    `__graft_entry__.flagship_tokenizer`."""
+    args = dict(FLAGSHIP_TOKENIZER, dtype=dtype, generator=generator, device=device)
     args.update(overrides)
     return LARPTokenizer(**args)
 

@@ -5,7 +5,7 @@ The reconstruction loop of the JAX package's tokenizer eval
 clip to [0, 1] for the LARP tokenizer; a model without `encode_eval` (the
 model_new family) reconstructs through its forward's `pred_frames`, as the
 JAX trainer's `evaluate_step` does. Clips are made from `--seed` with
-numpy: real-video loading and the LPIPS/FVD metrics are not ported yet.
+numpy; real clips with LPIPS and rFVD are `eval/eval_larp_tokenizer.py`'s.
 
   python -m video_tokenizer_tpu_torch.reconstruct --cfg cfgs/larp_tokenizer.yaml \
       [--checkpoint tokenizer.pth] --batch_size 8 --num_batches 4 --seed 0 \

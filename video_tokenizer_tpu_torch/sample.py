@@ -1,4 +1,4 @@
-"""Class-conditional video sampling: AR prior -> codes -> tokenizer decoder -> video.
+"""Class-conditional video sampling: AR prior -> codes -> tokenizer decoder -> video, with FVD.
 
 The per-batch pipeline of the JAX package's `sample.py` (`sample_videos`) on
 the port: sample 1024 codes per video from the LARP AR prior
@@ -13,6 +13,23 @@ a `.npy` array [3, T, H, W].
       --num_samples 16 --seed 0 --output_dir samples \\
       [--draft_model draft.pth | --self_draft_layers 8] [--gamma 4]
 
+With `--csv_file` (a dataset csv, or `null128` for 128 fake clips) it
+follows the JAX CLI's FVD flow: the labels come from the dataset, in the
+order of a `--split_seed` permutation, this job's slice from
+`--starting_index` (`--num_samples` of them, all when <= 0); each batch adds
+its generated and its real clips to I3D `FeatureStats`; the job writes
+`gen_stats_<i>.pkl`, `real_stats_<i>.pkl` and then `done_<i>.flag` (i the
+starting index) into `--output_dir`; the job that finds `--num_jobs` done
+flags (`--num_samples_total` sets it to ceil(total / num_samples)) merges
+every shard under a file lock, prints the FVD, appends a row to
+`fvd_report.csv` beside `--output_dir` (with the mean NLL of its own
+samples) and writes `merged.flag`. `--replace` clears a previous run's
+flags and shards first; videos are saved only with `--save_videos` and
+never with `--stats_only`. I3D runs in fp32 without TF32
+(`--i3d_weights`, else a seeded random I3D: a valid ordering for smoke
+tests only). The shards merge with the JAX package's and with
+`eval/calc_fvd_from_multiple_feature_stats.py`.
+
 With `--draft_model` (a smaller prior's `.pth`) or `--self_draft_layers N`
 (the prior's own first N layers with its shared head) the codes are sampled
 speculatively (`generation.speculative_generate`): the same distribution,
@@ -22,14 +39,15 @@ speculatively (`generation.speculative_generate`): the same distribution,
 (`tools/export_reference_tokenizer.py`) or the port's trainer checkpoint
 directories (`epoch-final` of `train.py`). Without them the weights are a seeded random init of the 632M llama-abs-LP
 prior (`flagship_ar`, whose output head starts at zero: every code is then
-equally likely) and of the flagship tokenizer. Class labels are drawn from
-`--seed` over the prior's classes. Not here yet (ROADMAP.md, 'Still to
-port', item 2): the dataset's label stream, mp4 writing, FVD, frame
-prediction from real clips and meshes.
+equally likely) and of the flagship tokenizer. Without `--csv_file` class
+labels are drawn from `--seed` over the prior's classes. Not here yet
+(ROADMAP.md, 'Still to port', item 2): mp4 writing, frame prediction from
+real clips and meshes.
 """
 from __future__ import annotations
 
 import argparse
+import csv
 import json
 import math
 import time
@@ -90,6 +108,77 @@ def build_draft(args, ar, device: torch.device):
     return draft
 
 
+def sample_batch(args, ar, tok, draft, labels: torch.Tensor, gen: torch.Generator):
+    """One batch: labels -> (videos [B, 3, T, H, W] fp32 in [0, 1] on the
+    device, teacher-forced NLL, acceptance rate or None)."""
+    cache_dtype = torch.int8 if args.kv_dtype == "int8" else None
+    acceptance = None
+    with torch.inference_mode():
+        if draft is not None:
+            seq, stats = speculative_generate(
+                ar, draft, labels, ar.max_seq_length, gen, gamma=args.gamma,
+                cfg_scale=args.cfg_scale, temperature=args.temperature, top_k=args.top_k,
+                top_p=args.top_p, cache_dtype=cache_dtype, draft_cache_dtype=cache_dtype,
+                return_stats=True)
+            acceptance = float(stats["acceptance_rate"])
+            print(f"  speculative acceptance rate: {acceptance:.3f} "
+                  f"({stats['iterations']} verify iterations)")
+        else:
+            seq = generate(ar, labels, ar.max_seq_length, gen, cfg_scale=args.cfg_scale,
+                           cfg_interval=args.cfg_interval, temperature=args.temperature,
+                           top_k=args.top_k, top_p=args.top_p, cache_dtype=cache_dtype)
+        _, nll = ar(seq[:, :-1], labels, targets=seq)  # teacher-forced NLL
+        videos = tok.decode_from_bottleneck(seq).float().clamp(0.0, 1.0)
+    return videos, nll.item(), acceptance
+
+
+def finalize_multi_job(args, out_dir: Path) -> Optional[float]:
+    """File-lock rendezvous: the job that finds `--num_jobs` done flags merges
+    every shard, prints the FVD, appends a row to `fvd_report.csv` beside
+    `out_dir` and writes `merged.flag`. Returns the FVD, or None."""
+    from filelock import FileLock
+
+    from .metrics.fvd import FeatureStats, frechet_distance
+
+    n_jobs = max(args.num_jobs, 1)
+    with FileLock(str(out_dir / "rendezvous.lock")):
+        if (out_dir / "merged.flag").exists():
+            print("already merged by another job; exiting")
+            return None
+        done_flags = list(out_dir.glob("done_*.flag"))
+        if len(done_flags) < n_jobs:
+            print(f"waiting: {len(done_flags)}/{n_jobs} jobs done; exiting")
+            return None
+        if len(done_flags) > n_jobs:
+            print(f"WARNING: {len(done_flags)} job shards in {out_dir} but num_jobs={n_jobs}: "
+                  "stale shards from a previous run will be folded into the FVD; use a fresh "
+                  "output_dir")
+        merged = {}
+        for kind in ("gen", "real"):
+            for p in sorted(out_dir.glob(f"{kind}_stats_*.pkl")):
+                st = FeatureStats.load(p)
+                merged[kind] = st if kind not in merged else merged[kind] + st
+        gen, real = merged["gen"], merged["real"]
+        fvd = frechet_distance(*gen.get_mean_cov(), *real.get_mean_cov())
+        print(f"FVD ({gen.num_items} gen / {real.num_items} real): {fvd:.4f}")
+
+        report = out_dir.parent / "fvd_report.csv"
+        with FileLock(str(report) + ".lock"):
+            exists = report.exists()
+            with open(report, "a", newline="") as f:
+                w = csv.writer(f)
+                if not exists:
+                    w.writerow(["time", "ar_model", "tokenizer", "cfg_scale", "top_k", "top_p",
+                                "temperature", "num_samples", "nll_sampled", "fvd"])
+                nll = getattr(args, "nll_sampled", None)
+                w.writerow([time.strftime("%Y-%m-%d %H:%M:%S"), args.ar_model, args.tokenizer,
+                            args.cfg_scale, args.top_k, args.top_p, args.temperature,
+                            gen.num_items, f"{nll:.4f}" if nll is not None else "",
+                            f"{fvd:.4f}"])
+        (out_dir / "merged.flag").touch()
+        return fvd
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--ar_model", default=None,
@@ -102,7 +191,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                          "weight quantised to int8, per output channel)")
     ap.add_argument("--kv_dtype", choices=["auto", "int8"], default="auto",
                     help="auto follows the prior's dtype; int8 quantises every cache row")
-    ap.add_argument("--cfg_scale", type=float, default=1.0)
+    ap.add_argument("--cfg_scale", "--cs", type=float, default=1.0)
     ap.add_argument("--cfg_interval", type=int, default=-1)
     ap.add_argument("--temperature", type=float, default=1.0)
     ap.add_argument("--top_k", type=int, default=0)
@@ -116,14 +205,47 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                          "prior's own first N layers with its shared head")
     ap.add_argument("--gamma", type=int, default=4,
                     help="draft tokens proposed per verification chunk")
-    ap.add_argument("--batch_size", type=int, default=8)
-    ap.add_argument("--num_samples", type=int, default=16)
+    ap.add_argument("--batch_size", "--sample_batch_size", type=int, default=8)
+    ap.add_argument("--num_samples", "--ns", type=int, default=16,
+                    help="samples of this job (with --csv_file, <= 0: the whole dataset)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--output_dir", default="samples")
     ap.add_argument("--device", default="cuda")
+    # the FVD flow of the JAX CLI (reference spellings as aliases)
+    ap.add_argument("--csv_file", "--dataset_csv", default=None,
+                    help="dataset csv (or null128) whose labels are sampled and whose clips "
+                         "are the FVD's reals")
+    ap.add_argument("--root_path", default="data/metadata")
+    ap.add_argument("--frame_num", type=int, default=16)
+    ap.add_argument("--input_size", type=int, default=128)
+    ap.add_argument("--use_all_frames", action="store_true")
+    ap.add_argument("--split_seed", "--dataset_split_seed", type=int, default=1234)
+    ap.add_argument("--starting_index", type=int, default=0)
+    ap.add_argument("--num_jobs", type=int, default=1)
+    ap.add_argument("--num_samples_total", type=int, default=None,
+                    help="samples across all jobs: num_jobs = ceil(total / num_samples)")
+    ap.add_argument("--i3d_weights", default=None)
+    ap.add_argument("--save_videos", action="store_true",
+                    help="with --csv_file, also save the videos (always saved without it)")
+    ap.add_argument("--stats_only", action="store_true",
+                    help="FVD stats only, never save videos (overrides --save_videos)")
+    ap.add_argument("--replace", action="store_true",
+                    help="clear a previous run's merged.flag, done flags and stats shards "
+                         "before sampling")
     args = ap.parse_args(argv)
 
     speculative = check_draft_args(args)
+    if args.num_samples_total is not None:
+        if args.num_samples <= 0:
+            raise SystemExit("--num_samples_total needs a positive per-job --num_samples")
+        args.num_jobs = math.ceil(args.num_samples_total / args.num_samples)
+    save_videos = (args.save_videos or not args.csv_file) and not args.stats_only
+    out_dir = Path(args.output_dir)
+    if args.replace:
+        for pat in ("merged.flag", "rendezvous.lock", "done_*.flag", "gen_stats_*.pkl",
+                    "real_stats_*.pkl"):
+            for p in out_dir.glob(pat):
+                p.unlink()
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda, but torch sees no CUDA device")
@@ -131,46 +253,62 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if ar.frame_prediction:
         raise SystemExit("frame-prediction priors need real clips: not in this CLI yet")
     draft = build_draft(args, ar, device) if speculative else None
-    video_dir = Path(args.output_dir) / "videos"
+    video_dir = out_dir / "videos"
     video_dir.mkdir(parents=True, exist_ok=True)
-    labels_all = torch.randint(0, ar.num_classes, (args.num_samples,),
-                               generator=torch.Generator().manual_seed(args.seed))
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    cache_dtype = torch.int8 if args.kv_dtype == "int8" else None
 
-    nlls, seconds, acceptance, n_done = [], [], [], 0
-    for start in range(0, args.num_samples, args.batch_size):
-        labels = labels_all[start : start + args.batch_size].to(device)
+    if args.csv_file:
+        from .data import datasets
+        from .metrics.fvd import FeatureStats, FVDCalculator
+        from .utils.common import video_to_float
+
+        dataset = datasets.make({"name": "video_dataset", "args": {
+            "root_path": args.root_path, "csv_file": args.csv_file,
+            "frame_num": args.frame_num, "crop_size": args.input_size, "cls_vid_num": "-1_-1",
+            "split": "test", "use_all_frames": args.use_all_frames}})
+        # this job's slice of a --split_seed permutation (all when --num_samples <= 0)
+        order = np.random.RandomState(args.split_seed).permutation(len(dataset))
+        end = args.starting_index + args.num_samples if args.num_samples > 0 else len(order)
+        indices = order[args.starting_index:min(end, len(order))]
+        fvd_calc = FVDCalculator(args.i3d_weights, device=device)
+        gen_stats = FeatureStats(capture_mean_cov=True)
+        real_stats = FeatureStats(capture_mean_cov=True)
+    else:
+        indices = np.arange(args.num_samples)
+        labels_all = torch.randint(0, ar.num_classes, (args.num_samples,),
+                                   generator=torch.Generator().manual_seed(args.seed))
+
+    nlls, seconds, acceptance, n_done, sizes = [], [], [], 0, []
+    for start in range(0, len(indices), args.batch_size):
+        chunk = indices[start:start + args.batch_size]
         t0 = time.perf_counter()
-        with torch.inference_mode():
-            if draft is not None:
-                seq, stats = speculative_generate(
-                    ar, draft, labels, ar.max_seq_length, gen, gamma=args.gamma,
-                    cfg_scale=args.cfg_scale, temperature=args.temperature, top_k=args.top_k,
-                    top_p=args.top_p, cache_dtype=cache_dtype, draft_cache_dtype=cache_dtype,
-                    return_stats=True)
-                acceptance.append(float(stats["acceptance_rate"]))
-                print(f"  speculative acceptance rate: {acceptance[-1]:.3f} "
-                      f"({stats['iterations']} verify iterations)")
-            else:
-                seq = generate(ar, labels, ar.max_seq_length, gen, cfg_scale=args.cfg_scale,
-                               cfg_interval=args.cfg_interval, temperature=args.temperature,
-                               top_k=args.top_k, top_p=args.top_p, cache_dtype=cache_dtype)
-            _, nll = ar(seq[:, :-1], labels, targets=seq)  # teacher-forced NLL
-            videos = tok.decode_from_bottleneck(seq).float().clamp(0.0, 1.0)
+        if args.csv_file:
+            # the ragged tail runs at its own size: no requested sample is dropped
+            items = [dataset[int(j)] for j in chunk]
+            labels = torch.tensor([it["label"] for it in items], device=device)
+        else:
+            labels = labels_all[start:start + args.batch_size].to(device)
+        videos, nll, acc = sample_batch(args, ar, tok, draft, labels, gen)
+        if args.csv_file:
+            gen_stats = fvd_calc.get_feature_stats_for_batch(videos, gen_stats)
+            reals = video_to_float(np.stack([it["gt"] for it in items]))
+            real_stats = fvd_calc.get_feature_stats_for_batch(reals, real_stats)
         videos = videos.cpu().numpy()  # waits for the device
         seconds.append(time.perf_counter() - t0)
-        nlls.append(nll.item())
-        for b, label in enumerate(labels.tolist()):
-            np.save(video_dir / f"sample_{start + b:06d}_cls{label}.npy", videos[b])
+        sizes.append(len(labels))
+        nlls.append(nll)
+        if acc is not None:
+            acceptance.append(acc)
+        if save_videos:
+            for b, (j, label) in enumerate(zip(chunk.tolist(), labels.tolist())):
+                np.save(video_dir / f"sample_{j:06d}_cls{label}.npy", videos[b])
         n_done += len(labels)
-        print(f"[{n_done}/{args.num_samples}] Samples per second: "
+        print(f"[{n_done}/{len(indices)}] Samples per second: "
               f"{len(labels) / seconds[-1]:.3f} (NLL {nlls[-1]:.4f})", flush=True)
 
     # the first batch builds the kernels and warms up: leave it out when there are more
     timed = seconds[1:] if len(seconds) > 1 else seconds
-    n_timed = sum(min(args.batch_size, args.num_samples - i * args.batch_size)
-                  for i in range(len(seconds) - len(timed), len(seconds)))
+    n_timed = sum(sizes[len(seconds) - len(timed):])
     result = {
         "samples": n_done,
         "nll": float(np.mean(nlls)),
@@ -186,6 +324,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if not math.isfinite(result["nll"]):
         raise SystemExit(f"non-finite NLL: {result}")
     print(f"NLL of sampled sequences: {result['nll']:.4f}")
+    if args.csv_file:
+        args.nll_sampled = result["nll"]
+        tag = args.starting_index
+        gen_stats.save(out_dir / f"gen_stats_{tag}.pkl")
+        real_stats.save(out_dir / f"real_stats_{tag}.pkl")
+        # the flag only after both shards are saved: the merge counts flags
+        (out_dir / f"done_{tag}.flag").touch()
+        result["fvd"] = finalize_multi_job(args, out_dir)
     print(json.dumps(result))
     return result
 

@@ -18,12 +18,14 @@ function (the replicated layout only):
     `num_cond_frames` frames repeated to `num_frames`, then the separator
     token `codebook_size`; `cls_token_num = seq_len + 1`;
   * `visualize_epoch`: `generation.generate` + `decode_from_bottleneck`,
-    written as `vis/samples_ep<n>.png`; a failure is logged, never raised.
+    written as `vis/samples_ep<n>.png`; then, with `fvd_real_stats_path`
+    set and pretrained I3D weights or `force_fvd: true`, the samples' FVD
+    against those real stats, logged as `sample gFVD: <value>`
+    (`_maybe_fvd`). A failure of either is logged, never raised.
 The JAX trainer computes in fp32 whatever `use_amp` says (it sets a compute
 dtype that nothing reads), and so does this one. Not ported (each raises
 NotImplementedError): meshes and sharded placements (in `BaseTrainer`),
-remat (ROADMAP.md, 'Still to port', item 8), sample FVD when
-`fvd_real_stats_path` is set (item 6).
+remat (ROADMAP.md, 'Still to port', item 8).
 """
 from __future__ import annotations
 
@@ -95,10 +97,6 @@ class _ARTrainerBase(BaseTrainer):
         self.vae = self.vae.to(self.device).eval().requires_grad_(False)
 
     def make_model(self):
-        if str(self.cfg.get("fvd_real_stats_path", "") or ""):
-            raise NotImplementedError(
-                "sample FVD (fvd_real_stats_path) is not ported yet (ROADMAP.md, 'Still to port', "
-                "item 6)")
         self._load_vae()
         seq_length = self.vae.bottleneck_token_num
         args = dict(self.cfg["model"].get("args", {}))
@@ -234,12 +232,35 @@ class _ARTrainerBase(BaseTrainer):
             cond = self._sample_conditions(min(self.sample_batch_size, 4))
             gen = torch.Generator(device=self.device).manual_seed(
                 self.seed * 1_000_003 + self.epoch)
-            videos = self.sample_videos(cond, gen).float().cpu().numpy()
+            videos = self.sample_videos(cond, gen).float()
             vis_dir = common.ensure_path(os.path.join(self.save_dir, "vis"))
             common.save_video_grid(os.path.join(vis_dir, f"samples_ep{self.epoch}.png"),
-                                   list(videos))
+                                   list(videos.cpu().numpy()))
+            self._maybe_fvd(videos)
         except Exception as e:  # visualization must never kill training
             self.log(f"visualize_epoch failed: {e}")
+
+    def _maybe_fvd(self, videos: torch.Tensor):
+        """gFVD of sampled videos [B, C, T, H, W] in [0, 1] against the real
+        stats of `fvd_real_stats_path` (a `FeatureStats` .pkl). A failure is
+        logged, never raised."""
+        stats_path = str(self.cfg.get("fvd_real_stats_path", "") or "")
+        if not stats_path or not os.path.exists(stats_path):
+            return
+        try:
+            from ..metrics.fvd import FeatureStats, FVDCalculator
+
+            if getattr(self, "_fvd_calc", None) is None:
+                weights = FVDCalculator.resolve_weights(self.cfg.get("i3d_weights"))
+                if weights is None and not self.cfg.get("force_fvd", False):
+                    return
+                self._fvd_calc = FVDCalculator(weights, device=self.device)
+            gen = self._fvd_calc.get_feature_stats_for_batch(videos)
+            real = FeatureStats.load(stats_path)
+            self.current_fvd = float(self._fvd_calc.calculate_fvd(gen, real))
+            self.log(f"sample gFVD: {self.current_fvd:.3f}")
+        except Exception as e:
+            self.log(f"gFVD computation failed: {e}")
 
     # ----------------------------------------------------------- checkpoints
 

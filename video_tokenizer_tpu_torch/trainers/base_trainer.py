@@ -5,6 +5,9 @@ Counterpart of `video_tokenizer_tpu/trainers/base_trainer.py`:
     functions of the global step (`make_lr_schedule`), and `ema_update`;
   * the epoch loop: train an epoch, then eval / save on their intervals,
     `log.txt`, `results.csv`, the slim `epoch-final` export at the end;
+  * with `save_best: true`, the `epoch-last` save also keeps the best
+    checkpoint by FVD: one `best_fvd_<value>` directory, replaced only by
+    a lower `current_fvd` (`_maybe_save_best`);
   * resume from `<save_dir>/epoch-last` (parameters, both optimizers, EMA,
     RNG states, step) and warm start from `init_checkpoint`.
 The step's telemetry stays on the device and is fetched once per epoch.
@@ -17,8 +20,10 @@ handler and the profiler hook.
 from __future__ import annotations
 
 import csv as _csv
+import glob
 import math
 import os
+import shutil
 import time
 from typing import Any, Callable, Dict
 
@@ -99,6 +104,8 @@ class BaseTrainer:
         self.log_buffer = []
         self.train_psnr = []
         self.train_loss = []
+        self.current_fvd = 99999.99  # the last eval's FVD (99999.99: none yet)
+        self.best_fvd = None
         ema_raw = str(cfg.get("ema_decay", "_"))
         self.ema_decays = [float(x) for x in ema_raw.split("_") if x not in ("", "none")]
 
@@ -172,15 +179,42 @@ class BaseTrainer:
 
     # ------------------------------------------------------------ checkpoints
 
-    def save_checkpoint(self, name: str):
-        path = os.path.join(self.save_dir, name)
-        t0 = time.time()
+    def _full_state(self) -> Dict[str, Any]:
         # the position goes into state.pth itself, so resume never pairs a
         # state with the meta.json of another save
-        state = {**self.state_for_checkpoint(), "epoch": self.epoch,
-                 "global_step": self.global_step}
-        ckpt_lib.save_checkpoint(path, state, self.checkpoint_meta())
+        return {**self.state_for_checkpoint(), "epoch": self.epoch,
+                "global_step": self.global_step}
+
+    def save_checkpoint(self, name: str, save_best: bool = False):
+        path = os.path.join(self.save_dir, name)
+        t0 = time.time()
+        ckpt_lib.save_checkpoint(path, self._full_state(), self.checkpoint_meta())
         self.log(f"checkpoint saved to {path} ({time.time() - t0:.1f}s)")
+        if save_best:
+            self._maybe_save_best()
+
+    def _maybe_save_best(self):
+        """Keeps a single `best_fvd_<value>` checkpoint: written when this
+        eval's FVD is below the value in the existing directory's name (or
+        there is none), which it then replaces."""
+        if self.current_fvd >= 99999.0:
+            return
+        existing = glob.glob(os.path.join(self.save_dir, "best_fvd_*"))
+        best_prev = None
+        for p in existing:
+            try:
+                best_prev = float(os.path.basename(p).split("_")[-1])
+            except ValueError:
+                continue
+        if best_prev is not None and self.current_fvd >= best_prev:
+            return
+        for p in existing:
+            shutil.rmtree(p, ignore_errors=True)
+        name = f"best_fvd_{self.current_fvd:.2f}"
+        ckpt_lib.save_checkpoint(os.path.join(self.save_dir, name), self._full_state(),
+                                 self.checkpoint_meta())
+        self.best_fvd = self.current_fvd
+        self.log(f"new best checkpoint: {name}")
 
     def save_final_checkpoint(self):
         """Slim export: parameters, EMA, loss parameters and step; no
@@ -252,7 +286,7 @@ class BaseTrainer:
             if epoch % save_epoch == 0:
                 self.save_checkpoint(f"epoch-{epoch}")
             if epoch % latest_interval == 0:
-                self.save_checkpoint("epoch-last")
+                self.save_checkpoint("epoch-last", save_best=bool(cfg.get("save_best", False)))
             epoch_time, tot_time, est_time = timer.epoch_done()
             d_ratio = self.t_data / (self.t_data + self.t_model + 1e-6)
             self.log_buffer.append(f"{epoch_time} (d {d_ratio:.2f}) {tot_time}/{est_time}")

@@ -24,8 +24,14 @@ bf16 (the bottleneck stays fp32); `false` is fp32.
 (`vis/epoch_<n>.png`, through the standard-library PNG writer) and logs any
 failure rather than stopping the run; its TensorBoard half is left out with
 the writers (ROADMAP.md, 'Still to port', item 3).
-Not ported (each raises NotImplementedError): `grad_accum_steps > 1`
-(ROADMAP.md, 'Still to port', item 3), eval FVD (item 6).
+Eval rFVD: with pretrained I3D weights (`i3d_weights`, or the default path
+of `metrics/fvd.py`) or `force_fvd: true`, `evaluate_step` adds I3D
+features of the reconstruction it already computed (clipped to [0, 1]) and
+of the real clips, and `evaluate_epoch` logs `eval rFVD: <value>`, the
+`current_fvd` that `save_best: true` keeps the best checkpoint by. A failed
+FVD pass is logged and training goes on (the JAX trainer's rule).
+Not ported (raises NotImplementedError): `grad_accum_steps > 1`
+(ROADMAP.md, 'Still to port', item 3).
 """
 from __future__ import annotations
 
@@ -78,8 +84,6 @@ class LARPTokenizerTrainer(BaseTrainer):
         if int(cfg.get("grad_accum_steps", 1)) > 1:
             raise NotImplementedError(
                 "grad_accum_steps > 1 is not ported yet (ROADMAP.md, 'Still to port', item 3)")
-        if cfg.get("force_fvd", False) or cfg.get("i3d_weights"):
-            raise NotImplementedError("eval FVD is not ported yet (ROADMAP.md, 'Still to port', item 6)")
         self.compute_dtype = torch.bfloat16 if cfg.get("use_amp", False) else torch.float32
         self.step = 0
 
@@ -124,6 +128,23 @@ class LARPTokenizerTrainer(BaseTrainer):
             str(d): {n: p.detach().float().clone() for n, p in named} for d in self.ema_decays
         }
         self.step = 0
+        self._setup_fvd()
+
+    def _setup_fvd(self):
+        """Eval-time FVD of reconstructions: on when the I3D weights are
+        pretrained or `force_fvd` is set."""
+        from ..metrics.fvd import FVDCalculator
+
+        self.fvd_calc = self._fake_stats = self._real_stats = None
+        weights = FVDCalculator.resolve_weights(self.cfg.get("i3d_weights"))
+        if weights is None and not self.cfg.get("force_fvd", False):
+            self.log("eval FVD disabled (no pretrained I3D weights)")
+            return
+        try:
+            self.fvd_calc = FVDCalculator(weights, device=self.device)
+            self.log("eval FVD enabled")
+        except Exception as e:
+            self.log(f"eval FVD unavailable: {e}")
 
     # ------------------------------------------------------------- schedules
 
@@ -239,7 +260,29 @@ class LARPTokenizerTrainer(BaseTrainer):
         info.update(g_info)
         self._metrics(info, data, pred, out, total)
         keys, packed = self._pack(info)
+        if self.fvd_calc is not None and data.shape[2] >= 10:
+            try:
+                self._fake_stats = self.fvd_calc.get_feature_stats_for_batch(
+                    pred.clamp(0.0, 1.0), self._fake_stats)
+                self._real_stats = self.fvd_calc.get_feature_stats_for_batch(
+                    data, self._real_stats)
+            except Exception as e:  # FVD never stops training
+                self.log(f"eval FVD feature pass failed: {e}")
+                self.fvd_calc = None
         return dict(zip(keys, packed.tolist()))
+
+    def evaluate_epoch(self):
+        self._fake_stats = self._real_stats = None
+        super().evaluate_epoch()
+        if (self.fvd_calc is not None and self._fake_stats is not None
+                and self._fake_stats.num_items > 1):
+            try:
+                fvd = self.fvd_calc.calculate_fvd(self._fake_stats, self._real_stats)
+            except Exception as e:  # recorded as 99999.99, as the reference does
+                self.log(f"FVD computation failed: {e}")
+                fvd = 99999.99
+            self.current_fvd = float(fvd)
+            self.log(f"eval rFVD: {self.current_fvd:.3f}")
 
     def visualize_epoch(self):
         """`vis/epoch_<epoch>.png`: for up to 4 clips of the first test set's

@@ -2,12 +2,14 @@
 
 Counterpart of `video_tokenizer_tpu/utils/common.py`: logger (stream + file),
 parameter counting, `Averager`, `EpochTimer`, uint8 -> [0, 1] clips,
-PSNR and `repeat_to_m_frames`. Also the trainers' image grids: `save_png`
+PSNR and `repeat_to_m_frames`; `no_tf32`, a scoped switch that keeps fp32
+convolutions and matmuls off TF32. Also the trainers' image grids: `save_png`
 writes an 8-bit RGB PNG with the standard library alone (zlib + struct, no
 cv2 or PIL), and `save_video_grid` lays clips out as rows of frames.
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import struct
@@ -99,6 +101,20 @@ def video_to_float(x):
     if x.dtype == np.uint8:
         return x.astype(np.float32) / np.float32(255.0)
     return x.astype(np.float32)
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """Inside the block, fp32 convolutions (cuDNN) and matmuls (cuBLAS) take
+    full fp32 operands, never TF32, whatever the process's switches say;
+    they are restored on exit. The metrics' networks (I3D, LPIPS in eval)
+    run under it: operand precision follows the input dtype."""
+    conv, mm = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = conv, mm
 
 
 def psnr_from_mse(mse: torch.Tensor, max_val: float = 1.0) -> torch.Tensor:

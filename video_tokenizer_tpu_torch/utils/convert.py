@@ -19,6 +19,10 @@ the tokenizer trainer's loss module (discriminator, LPIPS, LeCam EMAs).
 `ffd_{i}` or the simple style's `ln1_/qkv_/proj_/ln2_/fc1_/fc2_{i}` and
 `final_norm`), whose module names are the Flax names.
 
+`i3d_state_dict_from_jax(variables)` does the same for the FVD extractor's
+`InceptionI3D` (conv kernels (kT, kH, kW, Cin, Cout) -> (Cout, Cin, kT, kH,
+kW); BatchNorm scale, bias and `batch_stats` as they are).
+
 `ar_state_dict_from_jax(params, model)` does the same for a `LARP_AR` prior,
 under the names `export_larp_ar` writes: Dense kernels -> `weight` [out, in],
 RMSNorm `scale` -> `weight`, the token and class tables, `abs_pe`; a
@@ -181,6 +185,33 @@ def loss_state_dict_from_jax(loss_params: Dict[str, Any], loss_ema: Dict[str, An
         sd[f"perceptual.lin{i}.model.1.weight"] = _f32(lp[f"lin{i}"]).reshape(1, -1, 1, 1)
     for name in ("lecam_ema_real", "lecam_ema_fake"):
         sd[name] = _f32(loss_ema[name])
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
+def i3d_state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax `InceptionI3D` variables {"params", "batch_stats"} (the tree
+    `tools/convert_i3d.py` writes) -> the port's `InceptionI3D` state dict
+    under the same module names: conv kernels (kT, kH, kW, Cin, Cout) ->
+    `conv3d.weight` (Cout, Cin, kT, kH, kW), the logits conv's `bias` kept;
+    BatchNorm `scale` / `bias` -> `bn.weight` / `bn.bias`, `batch_stats`
+    `mean` / `var` -> `bn.running_mean` / `bn.running_var`."""
+    sd: Dict[str, np.ndarray] = {}
+
+    def walk(prefix: str, params: Dict[str, Any], stats: Dict[str, Any]) -> None:
+        if "conv3d" in params:
+            sd[f"{prefix}conv3d.weight"] = _f32(params["conv3d"]["kernel"]).transpose(4, 3, 0, 1, 2)
+            if "bias" in params["conv3d"]:
+                sd[f"{prefix}conv3d.bias"] = _f32(params["conv3d"]["bias"])
+            if "bn" in params:
+                sd[f"{prefix}bn.weight"] = _f32(params["bn"]["scale"])
+                sd[f"{prefix}bn.bias"] = _f32(params["bn"]["bias"])
+                sd[f"{prefix}bn.running_mean"] = _f32(stats["bn"]["mean"])
+                sd[f"{prefix}bn.running_var"] = _f32(stats["bn"]["var"])
+            return
+        for name, sub in params.items():
+            walk(f"{prefix}{name}.", sub, stats.get(name, {}))
+
+    walk("", variables["params"], variables.get("batch_stats", {}))
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
 
 
