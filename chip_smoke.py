@@ -55,8 +55,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
      greedy tokens, card against CPU, with fp32 weights, int8 weights, and
      int8 weights + an int8 KV cache;
   9. AR sampling in bf16: class -> 1024 codes -> video at batch 8 with CFG
-     1.5 and top-k 100, with bf16 weights, int8 weights, and int8 weights +
-     int8 KV cache: tokens/s, device time per decode step (one step replayed
+     1.5 and top-k 100 with bf16 weights, and 256 codes with int8 weights and
+     int8 weights + int8 KV cache: tokens/s, device time per decode step (one step replayed
      as a CUDA graph, timed by CUDA events) against host wall time, kernels
      per step (torch.profiler), the NLL forward and decode_from_bottleneck,
      and exact launch counts (every decode attention on the tensor-core
@@ -114,8 +114,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
  16. speculative sampling with the full-width pair (632M target, 8 x 768
      draft), batch 8, CFG 1.5, top-k 100, gamma 4, bf16 and int8 weights +
      int8 KV: the acceptance ceiling (zero heads, 1024 tokens: acceptance 1.0
-     in exactly 205 iterations), the floor (independent sharp heads, 256
-     tokens) and self-drafting with the prior's first 8 layers (128 tokens):
+     in exactly 205 iterations), the floor (independent sharp heads, 64
+     tokens) and self-drafting with the prior's first 8 layers (64 tokens):
      tokens/s beside plain `generate`'s, acceptance, ms per iteration, device time of one
      iteration's forwards, exact launch counts (no one-token decode
      attention, every chunk attention on the tensor-core kernel with the row
@@ -158,6 +158,19 @@ Phases, each of which raises on failure (exit code 1, no result line):
      its stats in two shards; the tokenizer trainer's eval rFVD and best
      checkpoint over two epochs; `sample.py --csv_file null128` as one job
      (shards, flags, the report row, 30,690 decode attentions).
+ 21. the STAT family and the LARP tokenizer's fsq and sq bottlenecks
+     (`phase_stat_lattice`, after phase 19): the VQ kernel at the Leech
+     codebook's shape (M = 8192 and 1024, K = 196,560, d = 24, cos) against
+     its plain version, timed beside `(z @ e.T).argmax`, planted ties;
+     cfgs/larp_tokenizer.yaml with bottleneck_type sq and fsq at full width
+     (176,778,648 and 172,035,078 parameters), fp32 card vs CPU and bf16
+     reconstruction at batch 8 (one VQ search per sq encode); the STAT model
+     of cfgs/larp_tokenizer_stat.yaml (185,850,633 parameters): fp32 card vs
+     CPU block by block, bf16 reconstruction, one fp32 training step card vs
+     CPU at 6 + 6 of its 12 + 12 layers, bf16 training at batch 8 and
+     `train.py` through the vanilla, random_drop and adaptive stages; LARP-sq
+     training through `train.py`, its frozen codebook unchanged and in no
+     optimizer; exact launch counts throughout.
 Every kernel phase also times one PyTorch call that computes the same
 function (`library_ms`: SDPA and its autograd backward, a matmul + argmax,
 `index_put_`), which the port uses nowhere, and computes the kernel's bound
@@ -313,7 +326,7 @@ def phase_build() -> None:
                  for t in (1, 2, 4, 6, 8, 10, 16)}
     expected |= {f"flash_{k}_tf32x3_kernel<{d}>" for k in ("fwd", "bwd_dq", "bwd_dkv")
                  for d in (32, 64)} | {"w8_sm90_kernel"}
-    expected |= {f"vq_tc_kernel<{d}, {mode}>" for d in (4, 8, 16, 32)
+    expected |= {f"vq_tc_kernel<{d}, {mode}>" for d in (4, 8, 16, 24, 32)
                  for mode in ("argmax", "gumbel")}
     types = {"13__nv_bfloat16": "bf16", "a": "int8", "f": "fp32"}
     seen = set()
@@ -1792,7 +1805,7 @@ def _perturb(model, seed: int) -> None:
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for p in model.parameters():
-            if p.ndim >= 2:
+            if p.ndim >= 2 and p.requires_grad:  # a frozen codebook stays as it is
                 p.add_(0.02 * torch.randn(p.shape, generator=gen))
 
 
@@ -2089,12 +2102,14 @@ def phase_ar_sampling(model_fp32, tokenizer, records: dict) -> None:
 
     bf16 = model_fp32.to(torch.bfloat16)  # in place: the same perturbed weights
     int8 = quantize_model(bf16)
-    B, new = 8, 1024
+    B = 8
     labels = torch.tensor([0, 5, 17, 33, 50, 64, 88, 100], device="cuda")
     kernels = (flash_attn_fwd, decode_attention, w8_matmul, write_rows_per_row)
     results, step_ms_of = {}, {}
-    for name, model, kv in (("bf16", bf16, None), ("int8", int8, None),
-                            ("int8_kv8", int8, torch.int8)):
+    # bf16 samples whole 1024-code videos; the int8 modes 256 codes each, the
+    # host setting the pace of every step (1024 before phase 21 ran)
+    for name, model, kv, new in (("bf16", bf16, None, 1024), ("int8", int8, None, 256),
+                                 ("int8_kv8", int8, torch.int8, 256)):
         gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
         kw = dict(cfg_scale=1.5, top_k=100, cache_dtype=kv)
         generate(model, labels, 8, gen, **kw)  # warm-up
@@ -2113,14 +2128,15 @@ def phase_ar_sampling(model_fp32, tokenizer, records: dict) -> None:
             torch.cuda.synchronize()
             nll_s = time.perf_counter() - t1
             t1 = time.perf_counter()
-            video = tokenizer.decode_from_bottleneck(seq)
+            # the decoder takes whole samples of 1024 codes
+            video = tokenizer.decode_from_bottleneck(seq) if new == 1024 else None
             torch.cuda.synchronize()
             dec_s = time.perf_counter() - t1
         launches = {k.__name__: k.launches for k in kernels}
         decode_sm90, w8_stream = decode_attention.launches_sm90, w8_matmul.launches_stream
         w8_sm90, decode_fused = w8_matmul.launches_sm90, decode_attention.launches_fused
         with torch.inference_mode():  # one step at the mean cache length
-            cache = model.init_cache(2 * B, 1 + new, kv or torch.bfloat16)
+            cache = model.init_cache(2 * B, 1 + 1024, kv or torch.bfloat16)
             pos = torch.full((1,), 512, dtype=torch.int32, device="cuda")
             tok = seq[:, :1].repeat(2, 1)
             step_ms = graph_ms(lambda: model.decode_step(tok, pos, cache), launches=1)
@@ -2136,7 +2152,8 @@ def phase_ar_sampling(model_fp32, tokenizer, records: dict) -> None:
         # the 30 w2 products on the streaming kernel, the rest on the earlier
         # one, as `w8_kernel` names them) and 151 in the NLL forward (M = 8192,
         # the wgmma kernel)
-        want = {"flash_attn_fwd": 30 + 30 + 12, "decode_attention": 30 * (new - 1),
+        want = {"flash_attn_fwd": 30 + 30 + (12 if video is not None else 0),
+                "decode_attention": 30 * (new - 1),
                 "w8_matmul": 151 * (new + 1) if model is int8 else 0,
                 "write_rows_per_row": 0}
         want_w8_stream = _w8_streamed(model, 2 * B) * new
@@ -2149,8 +2166,9 @@ def phase_ar_sampling(model_fp32, tokenizer, records: dict) -> None:
             f"some), most launched: "
             + ", ".join(f"{n[:60]} x{c}" for n, c in top))
         log(f"[sample {name}] NLL forward {nll_s * 1e3:.1f} ms (NLL {nll.item():.4f}), "
-            f"decode_from_bottleneck {dec_s * 1e3:.1f} ms ({in_range(video):.1%} of pixels in "
-            f"[0, 1] before clipping); launches {launches} (expect {want}); of the decode "
+            + (f"decode_from_bottleneck {dec_s * 1e3:.1f} ms ({in_range(video):.1%} of pixels in "
+               "[0, 1] before clipping); " if video is not None else "")
+            + f"launches {launches} (expect {want}); of the decode "
             f"attentions {decode_sm90} by decode_attn_sm90_kernel and {decode_fused} with the row "
             f"write fused (expect all), of the int8 "
             f"matmuls {w8_stream} by w8_stream_kernel (expect {want_w8_stream}) and {w8_sm90} by "
@@ -2183,8 +2201,9 @@ def phase_ar_sampling(model_fp32, tokenizer, records: dict) -> None:
         require(tuple(seq.shape) == (B, new) and int(seq.min()) >= 0 and int(seq.max()) < 8192,
                 f"sample {name}: codes {tuple(seq.shape)} out of range")
         require(torch.isfinite(nll).item(), f"sample {name}: non-finite NLL")
-        require(tuple(video.shape) == (B, 3, 16, 128, 128), f"sample {name}: video {tuple(video.shape)}")
-        require(torch.isfinite(video).all().item(), f"sample {name}: non-finite video")
+        require(video is None or (tuple(video.shape) == (B, 3, 16, 128, 128)
+                                  and torch.isfinite(video).all().item()),
+                f"sample {name}: video {None if video is None else tuple(video.shape)}")
         require(launches == want, f"sample {name}: launch counts {launches}, expected {want}")
         require(decode_sm90 == want["decode_attention"] == decode_fused
                 and w8_stream == want_w8_stream and w8_sm90 == want_w8_sm90,
@@ -2360,11 +2379,11 @@ def phase_speculative(target, draft, tokenizer, records: dict) -> None:
       ceiling     both output heads zero: both distributions uniform, every
                   proposal accepted, ceil(1023 / 5) = 205 iterations;
       floor       independent sharp heads (std 0.11): uncorrelated peaked
-                  distributions, acceptance near 0 (256 tokens: one iteration
+                  distributions, acceptance near 0 (64 tokens: one iteration
                   per token, and the host sets each one's time; 512 before
-                  the run grew by phase 19);
-      self_draft  the target's own first 8 layers and its sharp head (128
-                  tokens, for the same reason; 256 before).
+                  phase 19, 256 before phase 21);
+      self_draft  the target's own first 8 layers and its sharp head (64
+                  tokens, for the same reason; 256, then 128 before).
     `target` and `draft` arrive on the card and are cast to bf16 in place.
     Also: two short runs under the CUDA sync debug mode (the loop reads one
     scalar per iteration on the host)."""
@@ -2387,7 +2406,7 @@ def phase_speculative(target, draft, tokenizer, records: dict) -> None:
     plain = records["sampling"]  # tokens/s of plain `generate` in this run (phase 9)
     out = {}
     for con in ("ceiling", "floor", "self_draft"):
-        new = {"ceiling": 1024, "floor": 256, "self_draft": 128}[con]
+        new = {"ceiling": 1024, "floor": 64, "self_draft": 64}[con]
         _set_head(t_bf16, torch.zeros_like(sharp_t) if con == "ceiling" else sharp_t)
         _set_head(d_bf16, torch.zeros_like(sharp_d) if con == "ceiling" else sharp_d)
         for prec in ("bf16", "int8_kv8"):
@@ -3157,8 +3176,8 @@ def phase_model_new(tmp: Path, records: dict) -> None:
           bf16 at batch 8, the config's fp32 at batch 4; per step 72 flash
           forwards (48 tokenizer, 24 discriminator), 56 dQ + 56 dK/dV (72 +
           72 on a discriminator step), no VQ;
-      (e) the train CLI on cfgs/larp_tokenizer_large.yaml (null128, batch 2,
-          one epoch, eval, `visualize_epoch`): the grid decodes and is not
+      (e) the train CLI on cfgs/larp_tokenizer_large.yaml (null128, bf16,
+          batch 8, one epoch, eval, `visualize_epoch`): the grid decodes and is not
           constant; the reconstruct CLI loads the run's `epoch-final` and
           reconstructs on the card."""
     weights = _model_new_parity(tmp, records)
@@ -3407,8 +3426,10 @@ def _model_new_train_throughput(tmp: Path, records: dict) -> None:
 
 
 def _model_new_cli(tmp: Path, records: dict) -> None:
-    """Phase 19 (e): the train CLI through one short epoch with eval and vis;
-    the reconstruct CLI on its checkpoint."""
+    """Phase 19 (e): the train CLI through one short epoch with eval and vis,
+    bf16 at batch 8 (16 steps: fp32 at batch 2, 64 steps, before phase 21
+    needed the time; fp32 training is (c) and (d)); the reconstruct CLI on
+    its checkpoint."""
     import torch
 
     from video_tokenizer_tpu_torch.reconstruct import main as reconstruct_main
@@ -3417,9 +3438,10 @@ def _model_new_cli(tmp: Path, records: dict) -> None:
     out = tmp / "model_new_cli"
     t0 = time.perf_counter()
     tr = train_main(["--cfg", str(ROOT / "cfgs" / "larp_tokenizer_large.yaml"), "--csv_file",
-                     "null128", "-b", "2", "-j", "0", "--device", "cuda", "--manualSeed", str(SEED),
+                     "null128", "-b", "8", "-j", "0", "--device", "cuda", "--manualSeed", str(SEED),
                      "--out_path", str(out), "--opts", "max_epoch", "1", "eval_epoch", "1",
-                     "vis_epoch", "1", "test_dataset.csv_paths.ucf101_val", "null128"])
+                     "vis_epoch", "1", "use_amp", "true",
+                     "test_dataset.csv_paths.ucf101_val", "null128"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     n_steps = tr.step
@@ -3436,14 +3458,14 @@ def _model_new_cli(tmp: Path, records: dict) -> None:
     result = reconstruct_main(["--checkpoint", str(run_dir / "epoch-final"), "--device", "cuda",
                                "--batch_size", "2", "--num_batches", "2"])
     load_s = time.perf_counter() - t0
-    log(f"[model_new cli] train.main on cfgs/larp_tokenizer_large.yaml, batch 2, one epoch of "
-        f"null128 ({n_steps} fp32 steps), eval and vis: {wall:.1f} s; train and eval losses "
+    log(f"[model_new cli] train.main on cfgs/larp_tokenizer_large.yaml, batch 8, one epoch of "
+        f"null128 ({n_steps} bf16 steps), eval and vis: {wall:.1f} s; train and eval losses "
         f"{losses}; vis grid {grid_text}; reconstruct --checkpoint epoch-final on the card "
         f"({load_s:.1f} s with the load): {json.dumps(result)}")
     require("visualize_epoch failed" not in text, "model_new cli: visualize_epoch failed")
-    require(n_steps == 64 and len(losses) == 2 and all(math.isfinite(v) for v in losses),
+    require(n_steps == 16 and len(losses) == 2 and all(math.isfinite(v) for v in losses),
             f"model_new cli: {n_steps} steps, losses {losses}")
-    require(grid is not None and grid.shape == (2 * 2 * 128, 8 * 128, 3) and grid.std() > 0,
+    require(grid is not None and grid.shape == (2 * 4 * 128, 8 * 128, 3) and grid.std() > 0,
             f"model_new cli: vis grid {grid_text}")
     require(result["clips"] == 4 and result["device"] == torch.cuda.get_device_name(0),
             f"model_new cli: reconstruct {result}")
@@ -3749,6 +3771,520 @@ def phase_fvd(tmp: Path, records: dict) -> Path:
     return real_stats
 
 
+# ---------------------------------------------------------------- phase 21
+
+STAT_PARAMS, LARP_PARAMS = 185_850_633, {"sq": 176_778_648, "fsq": 172_035_078}
+
+
+def phase_stat_lattice(tmp: Path, records: dict) -> None:
+    """The STAT family and the LARP tokenizer's fsq and sq bottlenecks:
+      (a) the VQ kernel at the Leech codebook's shape (`_leech_vq`);
+      (b) the flagship LARP tokenizer with the sq and fsq bottlenecks at full
+          width: fp32 card vs CPU at batch 1, bf16 reconstruction at batch 8
+          (`_larp_fsq_sq`);
+      (c) the STAT model of cfgs/larp_tokenizer_stat.yaml: fp32 card vs CPU,
+          bf16 reconstruction, one fp32 training step card vs CPU at cut
+          depth, bf16 training throughput, and three stages through
+          `train.py` (`_stat_parity`, `_stat_train_parity`, `_stat_train`);
+      (d) LARP-sq training through `train.py`: the frozen codebook stays
+          bit for bit, in no optimizer (`_sq_train`)."""
+    _leech_vq(records)
+    _larp_fsq_sq(tmp, records)
+    _stat_parity(tmp, records)
+    _stat_train_parity(tmp, records)
+    _stat_train(tmp, records)
+    _sq_train(tmp, records)
+
+
+def _leech_vq(records: dict) -> None:
+    """Phase 21 (a): M = 8192 and 1024 unit rows against the 196,560
+    normalised Leech minimal vectors (d = 24, cos) on `vq_tc_kernel`, held
+    against `vq_lookup_reference` (indices equal but at score gaps under
+    1e-5, counted); CUDA-graph times of the kernel, the plain version and
+    `(z @ e.T).argmax` (TF32 off), both bounds; planted ties."""
+    import torch
+
+    from video_tokenizer_tpu_torch.models.fsq import leech_lattice_codebook
+    from video_tokenizer_tpu_torch.ops.vq import vq_argmax, vq_kernel, vq_lookup_reference
+
+    emb = torch.from_numpy(leech_lattice_codebook()).cuda()
+    K, d = emb.shape
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 140)
+    row = {}
+    for M in (8192, 1024):
+        z = torch.randn(M, d, generator=gen, device="cuda")
+        z = z / (z.norm(dim=-1, keepdim=True) + 1e-12)
+        got = vq_argmax(z, emb)
+        torch.cuda.synchronize()
+        kernel = vq_argmax.last_kernel
+        require(kernel == vq_kernel(d, False) == "vq_tc_kernel", f"vq leech: ran {kernel}")
+        want = vq_lookup_reference(z, emb)
+        diff = got != want
+        n_diff = int(diff.sum().item())
+        gap = _vq_gap(z[diff], emb, None, got[diff], want[diff]).max().item() if n_diff else 0.0
+        require(gap < 1e-5, f"vq leech M={M}: an index differs at a score gap {gap}")
+        ms = min(graph_ms(lambda: vq_argmax(z, emb), launches=10) for _ in range(2))
+        plain_ms = graph_ms(lambda: vq_lookup_reference(z, emb), launches=2, replays=3)
+        # timed here, used nowhere (TF32 off: an fp32 product)
+        library_ms = graph_ms(lambda: (z @ emb.T).argmax(-1), launches=2, replays=3)
+        flops = 2 * M * K * d
+        bnd = bound(_nbytes(z, emb, got), flops, "tf32x3")
+        fma = bound(_nbytes(z, emb, got), flops, "fp32")
+        log(f"[vq leech] M={M} K={K} d={d} cos: {kernel} {n_diff} of {M} indices differ from "
+            f"plain (largest score gap {gap:.2e}, tol 1e-5); {ms:.4f} ms, bound "
+            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, three TF32 products; as fp32 FMAs "
+            f"{fma['bound_ms']:.4f} ms), plain {plain_ms:.4f} ms, library call "
+            f"((z @ e.T).argmax, fp32) {library_ms:.4f} ms (device time, CUDA-graph replay)")
+        if M == 8192:
+            row = {"max_abs_err": gap, "differ": n_diff, "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": library_ms, "fma_bound_ms": fma["bound_ms"], **bnd}
+        else:
+            row.update(m1024_ms=ms, m1024_plain_ms=plain_ms, m1024_library_ms=library_ms,
+                       m1024_bound_ms=bnd["bound_ms"], m1024_differ=n_diff)
+    # planted exact ties: copies of a code within a thread's four, in other
+    # tiles of a split and in other splits of the cluster (24,576 codes each)
+    dup = emb.clone()
+    plants = {100: (101, 103, 700, 30_000, 100_000), 50_000: (50_001, 170_000), K - 2: (K - 1,)}
+    for lo, dups in plants.items():
+        dup[list(dups)] = dup[lo].clone()
+    rows = torch.tensor(list(plants) * 16, device="cuda")
+    got = vq_argmax(dup[rows].contiguous(), dup)
+    torch.cuda.synchronize()
+    wrong = int((got != rows.to(torch.int32)).sum().item())
+    log(f"[vq leech ties] codes 100, 50,000 and {K - 2} duplicated (within a thread's four, "
+        f"across tiles and across the cluster's splits): {wrong} of {len(rows)} rows miss the "
+        "lowest index")
+    require(wrong == 0, f"vq leech ties: {got.tolist()}")
+    records["vq_argmax_leech"] = row
+
+
+def _rel_max(a, b) -> float:
+    return (a.float().cpu() - b.float().cpu()).abs().max().item() / b.float().abs().max().item()
+
+
+def _reconstruction_rate(tag: str, model, n_flash: int, n_vq: int) -> dict:
+    """bf16 reconstruction at batch 8 through `reconstruct`: median of 5
+    batches after a warm-up, exact launch counts (every flash forward on the
+    wgmma kernel, every VQ on vq_tc_kernel), peak memory, device time by
+    kernel category over 3 profiled batches."""
+    import numpy as np
+    import torch
+
+    from video_tokenizer_tpu_torch.ops.attention import flash_attn_fwd
+    from video_tokenizer_tpu_torch.ops.vq import vq_argmax
+    from video_tokenizer_tpu_torch.reconstruct import make_clips, reconstruct
+
+    B, iters = 8, 5
+    clips = torch.from_numpy(make_clips(np.random.default_rng(SEED), B, 16, 128)).cuda()
+    reconstruct(model, clips)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attn_fwd.launches = flash_attn_fwd.launches_sm90 = 0
+    vq_argmax.launches = vq_argmax.launches_tc = 0
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        rec = reconstruct(model, clips)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    n = {"flash": flash_attn_fwd.launches, "wgmma": flash_attn_fwd.launches_sm90,
+         "vq": vq_argmax.launches, "vq_tc": vq_argmax.launches_tc}
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    wall_ms, per_cat, n_events, _ = _profile_and_load(lambda: reconstruct(model, clips), 3)
+    busy_ms = sum(per_cat.values()) / 1e3
+    clips_per_s = B / statistics.median(times)
+    mse = torch.mean((rec - clips) ** 2).item()
+    want = {"flash": n_flash * iters, "wgmma": n_flash * iters, "vq": n_vq * iters,
+            "vq_tc": n_vq * iters}
+    log(f"[{tag}] bf16 batch {B}: {', '.join(f'{t * 1e3:.1f}' for t in times)} ms; median "
+        f"{statistics.median(times) * 1e3:.2f} ms = {clips_per_s:.2f} clips/s; peak memory "
+        f"{peak_gb:.2f} GiB; mse {mse:.5f}; launches {n} (expect {want}); profiled 3 batches: "
+        f"wall {wall_ms / 3:.1f} ms, device busy {busy_ms / 3:.1f} ms, idle "
+        f"{1 - busy_ms / wall_ms:.1%}, {n_events / 3:.0f} kernels per batch; device ms per "
+        f"batch by category: " + ", ".join(
+            f"{c} {us / 1e3 / 3:.2f} ({us / 1e3 / busy_ms:.1%})"
+            for c, us in sorted(per_cat.items(), key=lambda kv: -kv[1])))
+    require(tuple(rec.shape) == (B, 3, 16, 128, 128) and torch.isfinite(rec).all().item(),
+            f"{tag}: reconstruction")
+    require(n == want, f"{tag}: launches {n}, expected {want}")
+    return {"clips_per_s": clips_per_s, "peak_gib": peak_gb, "idle": 1 - busy_ms / wall_ms,
+            "device_ms_per_batch": {c: us / 1e3 / 3 for c, us in per_cat.items()},
+            "launches": n}
+
+
+def _larp_fsq_sq(tmp: Path, records: dict) -> None:
+    """Phase 21 (b): cfgs/larp_tokenizer.yaml with `bottleneck_type` sq and
+    fsq, seeded and perturbed (the frozen Leech codebook left as it is): fp32
+    card vs CPU at batch 1 (indices >= 99% equal, decode_from_bottleneck of
+    the CPU's indices within 1e-3 of the scale, one VQ launch per encode on
+    the sq path), then bf16 reconstruction at batch 8 (`_reconstruction_rate`,
+    24 flash forwards a batch, one VQ search on the sq path)."""
+    import torch
+
+    from video_tokenizer_tpu_torch.ops.attention import flash_attn_fwd
+    from video_tokenizer_tpu_torch.ops.vq import vq_argmax
+    from video_tokenizer_tpu_torch.registry import models
+
+    x = torch.rand(1, 3, 16, 128, 128, generator=torch.Generator().manual_seed(SEED + 150))
+    for i, kind in enumerate(("sq", "fsq")):
+        spec = _load_cfg("larp_tokenizer", tmp, 1)["model"]
+        spec["args"]["bottleneck_type"] = kind
+        gen = lambda: torch.Generator().manual_seed(SEED + 151 + i)  # noqa: E731
+        model = models.make(spec, args={"dtype": torch.float32, "generator": gen()})
+        _perturb(model, SEED + 153 + i)
+        model.eval()
+        n_params = sum(p.numel() for p in model.parameters())
+        require(n_params == LARP_PARAMS[kind], f"larp {kind}: {n_params} parameters")
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            ref = model(x)
+            ref_dec = model.decode_from_bottleneck(ref["bottleneck_rep"])
+        cpu_s = time.perf_counter() - t0
+        model.cuda()
+        flash_attn_fwd.launches = vq_argmax.launches = 0
+        with torch.inference_mode():
+            got = model(x.cuda())
+            n_flash, n_vq = flash_attn_fwd.launches, vq_argmax.launches
+            dec = model.decode_from_bottleneck(ref["bottleneck_rep"].cuda())
+        torch.cuda.synchronize()
+        agree = (got["bottleneck_rep"].cpu() == ref["bottleneck_rep"]).float().mean().item()
+        dec_err = _rel_max(dec, ref_dec)
+        extra = ""
+        if kind == "sq":
+            extra = (f"; loss_q {got['loss_q'].item():.6g}/{ref['loss_q'].item():.6g}, codebook "
+                     f"entropy {got['codebook_entropy'].item():.6g}/"
+                     f"{ref['codebook_entropy'].item():.6g} (card/CPU)")
+        log(f"[larp {kind}] cfgs/larp_tokenizer.yaml with bottleneck_type {kind}: "
+            f"{n_params:,} params, codebook {model.codebook_size:,}; fp32 batch 1, TF32 off: CPU "
+            f"plain path {cpu_s:.1f} s; indices agree {agree:.4%} (tol >= 99%); "
+            f"decode_from_bottleneck(CPU indices) max|card-cpu| {dec_err:.3e} of the scale (tol "
+            f"1e-3); pred_frames {_rel_max(got['pred_frames'], ref['pred_frames']):.3e}; "
+            f"launches per forward: flash {n_flash}, VQ {n_vq}{extra}")
+        require(agree >= 0.99 and dec_err <= 1e-3, f"larp {kind}: {agree}, {dec_err}")
+        require(n_flash == 24 and n_vq == (kind == "sq"), f"larp {kind}: {n_flash}, {n_vq}")
+        state = model.state_dict()
+        del model, got, ref
+        bf16 = models.make(spec, args={"dtype": torch.bfloat16, "generator": gen()})
+        bf16.load_state_dict(state)
+        del state
+        run = _reconstruction_rate(f"larp {kind}", bf16.cuda().eval(), 24, int(kind == "sq"))
+        records[f"larp_{kind}"] = {"params": n_params, "index_agree": agree,
+                                   "dec_err_rel": dec_err, **run}
+        if kind == "sq":  # the main path of the d = 24 search: one launch per encode
+            records["vq_argmax_leech"]["launches"] = run["launches"]["vq"]
+        del bf16
+        torch.cuda.empty_cache()
+
+
+def _stat_model(tmp: Path, dtype, seed: int):
+    """cfgs/larp_tokenizer_stat.yaml's `autoencoder_stat` at full width, from
+    the yaml as the trainer builds it, seeded, on the host."""
+    import torch
+
+    from video_tokenizer_tpu_torch.registry import models
+
+    cfg = _load_cfg("larp_tokenizer_stat", tmp, 1)
+    return models.make(cfg["model"], args={"dtype": dtype,
+                                           "generator": torch.Generator().manual_seed(seed)})
+
+
+def _centre_keep_head(model, x) -> None:
+    """Sets the keep head's output bias to minus the median logit of x's
+    latents, so that about half of them are kept at probs > 0.5 (random
+    weights would put all of them on one side)."""
+    import torch
+
+    with torch.no_grad():
+        probs = model.encoder(x)[1].double()
+        model.encoder.prob_head.fc2.bias.fill_(-torch.logit(probs).median().item())
+
+
+def _stat_parity(tmp: Path, records: dict) -> None:
+    """Phase 21 (c), first half: the STAT model, 185,850,633 parameters,
+    perturbed, its keep head centred; fp32 eval ('adaptive': probs > 0.5)
+    card vs CPU at batch 1: FSQ indices >= 99%, keep masks, the encoder's
+    and the decoder's first and last blocks on the CPU's own inputs within
+    1e-5, decode_from_bottleneck of the CPU's indices within 1e-3 of the
+    scale or 5x the CPU's own change under a 1e-6 nudge of the decoder's
+    proj_in (phase 19's yardstick), 24 flash forwards on the 3xTF32 kernel;
+    then bf16 reconstruction at batch 8 (24 wgmma flash forwards a batch)."""
+    import torch
+
+    from video_tokenizer_tpu_torch.ops.attention import flash_attn_fwd
+
+    model = _stat_model(tmp, torch.float32, SEED + 160)
+    _perturb(model, SEED + 161)
+    model.eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    require(n_params == STAT_PARAMS, f"stat: {n_params} parameters")
+    x = torch.rand(1, 3, 16, 128, 128, generator=torch.Generator().manual_seed(SEED + 162))
+    _centre_keep_head(model, x)
+    probes, hooks = {}, []
+    for stack in ("encoder", "decoder"):
+        blocks = getattr(model, stack).blocks
+        for n in ("attn_0", "ffd_0", f"attn_{blocks.depth - 1}", f"ffd_{blocks.depth - 1}"):
+            hooks.append(getattr(blocks, n).register_forward_hook(
+                lambda m, i, o, k=f"{stack}.{n}": probes.__setitem__(k, (m, i, o))))
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        ref = model(x)
+        for h in hooks:
+            h.remove()
+        ref_dec = model.decode_from_bottleneck(ref["bottleneck_rep"])
+        w = model.decoder.proj_in.weight
+        kept = w.clone()
+        w.mul_(1 + 1e-6)
+        nudged = model.decode_from_bottleneck(ref["bottleneck_rep"])
+        w.copy_(kept)
+    cpu_s = time.perf_counter() - t0
+    yardstick = _rel_max(nudged, ref_dec)
+    model.cuda()
+    flash_attn_fwd.launches = flash_attn_fwd.launches_tf32x3 = 0
+    with torch.inference_mode():
+        got = model(x.cuda())
+        n_fwd, n_tf32x3 = flash_attn_fwd.launches, flash_attn_fwd.launches_tf32x3
+        dec = model.decode_from_bottleneck(ref["bottleneck_rep"].cuda())
+        block_errs = {k: _rel_max(m(*(a.cuda() for a in i)), o) for k, (m, i, o) in probes.items()}
+    torch.cuda.synchronize()
+    agree = (got["bottleneck_rep"].cpu() == ref["bottleneck_rep"]).float().mean().item()
+    mask_agree = (got["token_mask"].cpu() == ref["token_mask"]).float().mean().item()
+    kept_frac = ref["token_mask"].mean().item()
+    rec_err = _rel_max(dec, ref_dec)
+    rec_tol = max(1e-3, 5 * yardstick)
+    log(f"[stat fp32] cfgs/larp_tokenizer_stat.yaml: autoencoder_stat {n_params:,} params, patch "
+        f"{model.encoder.patch_size}, {model.num_latent_tokens} latents, FSQ-{model.codebook_size}"
+        f", batch 1, TF32 off: CPU plain path {cpu_s:.1f} s; kept (probs > 0.5) {kept_frac:.1%}, "
+        f"keep masks agree {mask_agree:.4%}; FSQ indices agree {agree:.4%} (tol >= 99%); "
+        f"decode_from_bottleneck(CPU indices) {rec_err:.3e} of the scale (tol {rec_tol:.3e}: the "
+        f"CPU's own change under proj_in x (1 + 1e-6) {yardstick:.3e}); blocks on the CPU's "
+        "inputs " + ", ".join(f"{k} {e:.2e}" for k, e in block_errs.items())
+        + f" (tol 1e-5); probs max|card-cpu| {_rel_max(got['probs'], ref['probs']):.2e} of "
+        f"the scale; flash launches {n_fwd}, 3xTF32 {n_tf32x3} (expect 24)")
+    require(tuple(got["pred_frames"].shape) == (1, 3, 16, 128, 128), "stat: shape")
+    require(torch.isfinite(got["pred_frames"]).all().item(), "stat: non-finite output")
+    require(0.0 < kept_frac < 1.0, f"stat: kept fraction {kept_frac}")
+    require(agree >= 0.99 and mask_agree >= 0.99, f"stat: agreement {agree}, masks {mask_agree}")
+    require(rec_err <= rec_tol, f"stat: reconstruction error {rec_err} > {rec_tol}")
+    require(all(e <= 1e-5 for e in block_errs.values()), f"stat: blocks differ {block_errs}")
+    require(n_fwd == n_tf32x3 == 24, f"stat: flash launches {n_fwd}/{n_tf32x3}")
+    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    del model, got, probes
+    torch.cuda.empty_cache()
+    bf16 = _stat_model(tmp, torch.bfloat16, SEED)
+    bf16.load_state_dict(state)
+    run = _reconstruction_rate("stat", bf16.cuda().eval(), 24, 0)
+    records["stat"] = {"params": n_params, "cpu_s": cpu_s, "index_agree": agree,
+                       "rec_err_rel": rec_err, "yardstick": yardstick,
+                       "block_err_rel": max(block_errs.values()), "kept": kept_frac, **run}
+    del bf16
+    torch.cuda.empty_cache()
+
+
+def _stat_train_parity(tmp: Path, records: dict) -> None:
+    """Phase 21 (c): one fp32 step ('adaptive': Bernoulli masks, the STAT
+    losses) of cfgs/larp_tokenizer_stat.yaml through the STAT trainer at
+    batch 1, card vs CPU from the same weights and generators, at full width
+    and 6 + 6 of the 12 + 12 layers (deep random stacks amplify fp32
+    rounding, phase 19 (c); the full depth is held block by block in
+    `_stat_parity`): losses 2e-4, FSQ indices >= 99.9%, gradients 1e-3."""
+    import numpy as np
+    import torch
+
+    cfg = _load_cfg("larp_tokenizer_stat", tmp, 1)
+    cfg["loss"]["args"]["d_update_freq"] = 1
+    pair = {d: _trainer({**cfg, "save_dir": str(tmp / f"stat_fp32_{d}")}, d)
+            for d in ("cpu", "cuda")}
+    cpu, gpu = pair["cpu"], pair["cuda"]
+    for tr in (cpu, gpu):
+        _cut_depth(tr.model, 6)
+        tr.opt_g.param_groups[0]["params"] = [p for p in tr.model.parameters() if p.requires_grad]
+    _perturb(cpu.model, SEED + 170)
+    _perturb(cpu.disc, SEED + 171)
+    clip = np.random.default_rng(SEED + 172).integers(0, 256, (1, 3, 16, 128, 128), dtype=np.uint8)
+    _centre_keep_head(cpu.model, torch.from_numpy(clip).float() / 255.0)
+    gpu.model.load_state_dict(cpu.model.state_dict())
+    gpu.loss_mod.load_state_dict(cpu.loss_mod.state_dict())
+    require(gpu._stage == cpu._stage == "adaptive", f"stat train: stage {cpu._stage}")
+    reps, infos, secs = {}, {}, {}
+    for device, tr in pair.items():
+        hook = tr.model.quantize.register_forward_hook(
+            lambda m, i, o, d=device: reps.__setitem__(d, o[1]["indices"].cpu()))
+        t0 = time.perf_counter()
+        keys, packed = tr.train_step({"gt": torch.from_numpy(clip)})
+        infos[device] = dict(zip(keys, packed.tolist()))
+        secs[device] = time.perf_counter() - t0
+        hook.remove()
+    agree = (reps["cuda"] == reps["cpu"]).float().mean().item()
+    loss_keys = ("loss", "rec_loss", "perceptual_loss", "g_loss", "d_loss", "logits_real",
+                 "logits_fake", "loss_content", "loss_decrease", "loss_sparse", "diversity_loss",
+                 "stat_target_sparsity")
+    loss_err = max(abs(infos["cuda"][k] - infos["cpu"][k]) / max(abs(infos["cpu"][k]), 1e-6)
+                   for k in loss_keys)
+    tokens = (infos["cuda"]["avg_tokens"], infos["cpu"]["avg_tokens"])
+    log(f"[stat train fp32] autoencoder_stat {sum(p.numel() for p in cpu.model.parameters()):,} + "
+        f"discriminator {sum(p.numel() for p in cpu.disc.parameters()):,} + LPIPS params, batch 1, "
+        f"6 + 6 of the 12 + 12 layers, TF32 off, stage {cpu._stage}: CPU step {secs['cpu']:.1f} s, "
+        f"card step {secs['cuda']:.2f} s; FSQ indices agree on {agree:.4%} (tol >= 99.9%); "
+        f"avg_tokens {tokens[0]:g}/{tokens[1]:g}; losses "
+        + ", ".join(f"{k} {infos['cuda'][k]:.6g}/{infos['cpu'][k]:.6g}" for k in loss_keys)
+        + f" (card/CPU; largest relative difference {loss_err:.2e}, tol 2e-4)")
+    require(set(infos["cuda"]) == set(infos["cpu"]), "stat train fp32: info keys differ")
+    require(all(np.isfinite(v) for v in infos["cuda"].values()), "stat train: non-finite")
+    require(agree >= 0.999, f"stat train fp32: FSQ agreement {agree}")
+    require(loss_err <= 2e-4, f"stat train fp32: losses differ by {loss_err}")
+    require(abs(tokens[0] - tokens[1]) <= 2, f"stat train fp32: avg_tokens {tokens}")
+    worst = 0.0
+    for tag, gm, cm, names in (
+            ("model", gpu.model, cpu.model, ("encoder.proj_in.weight", "encoder.mask_token",
+                                             "encoder.blocks.attn_2.to_qkv.weight",
+                                             "encoder.prob_head.fc1.weight",
+                                             "encoder.prob_head.fc2.weight",
+                                             "encoder.proj_out.weight",
+                                             "decoder.blocks.ffd_5.proj_in.weight",
+                                             "decoder.proj_out.weight")),
+            ("disc", gpu.disc, cpu.disc, ("transformer_encoder.blocks.3.attn.qkv.weight",
+                                          "x_embedder.proj.weight"))):
+        gp, cp = dict(gm.named_parameters()), dict(cm.named_parameters())
+        for pname in names:
+            g, c = gp[pname].grad, cp[pname].grad
+            require(g is not None and c is not None, f"stat train: no gradient for {pname}")
+            rel = _rel_max(g, c)
+            log(f"[stat train fp32] grad {tag} {pname}: max|card-cpu|/max|cpu| {rel:.2e} "
+                f"(max|g| {c.abs().max().item():.3e}; tol 1e-3)")
+            require(math.isfinite(rel), f"stat train fp32: gradient of {pname} not finite")
+            worst = max(worst, rel)
+    require(worst <= 1e-3, f"stat train fp32: gradients differ by {worst} of their scale")
+    records["stat"].update(train_parity_loss_rel=loss_err, train_parity_grad_rel=worst,
+                           train_parity_cpu_s=secs["cpu"])
+    del pair, cpu, gpu
+    torch.cuda.empty_cache()
+
+
+def _epoch_lines(log_text: str) -> dict:
+    """{epoch: (training seconds, train line)} of a trainer's log."""
+    out = {}
+    for line in log_text.splitlines():
+        if m := re.search(r"Epoch (\d+) training done\. Time: ([\d.]+)s", line):
+            out.setdefault(int(m.group(1)), [None, ""])[0] = float(m.group(2))
+        elif m := re.search(r"Epoch (\d+), train:", line):
+            out.setdefault(int(m.group(1)), [None, ""])[1] = line
+    return out
+
+
+def _cli_counts(run):
+    """Launch counts of the flash and VQ kernels over `run()`, from 0."""
+    from video_tokenizer_tpu_torch.ops.attention import (
+        flash_attn_bwd_dkv, flash_attn_bwd_dq, flash_attn_fwd,
+    )
+    from video_tokenizer_tpu_torch.ops.vq import vq_argmax
+
+    kernels = (flash_attn_fwd, flash_attn_bwd_dq, flash_attn_bwd_dkv, vq_argmax)
+    for k in kernels:
+        k.launches = 0
+    for k in kernels[:3]:
+        k.launches_sm90 = 0
+    vq_argmax.launches_tc = 0
+    result = run()
+    counts = {k.__name__: k.launches for k in kernels}
+    counts.update({f"{k.__name__}_sm90": k.launches_sm90 for k in kernels[:3]},
+                  vq_argmax_tc=vq_argmax.launches_tc)
+    return result, counts
+
+
+def _want_counts(steps: int, first_step: int, d_freq: int, vq: int) -> dict:
+    """A tokenizer step's launches (48 flash forwards, 32 dQ and dK/dV, 16
+    more on a discriminator step, `vq` VQ searches), all on the wgmma and
+    vq_tc kernels, over `steps` steps from step `first_step`."""
+    d_steps = sum((first_step + i + 1) % d_freq == 0 for i in range(steps))
+    want = {"flash_attn_fwd": 48 * steps, "flash_attn_bwd_dq": 32 * steps + 16 * d_steps,
+            "flash_attn_bwd_dkv": 32 * steps + 16 * d_steps, "vq_argmax": vq * steps}
+    want.update({f"{k}_sm90": want[k] for k in list(want)[:3]}, vq_argmax_tc=vq * steps)
+    return want
+
+
+def _stat_train(tmp: Path, records: dict) -> None:
+    """Phase 21 (c), training: bf16 at batch 8 through the STAT trainer
+    (`_train_throughput`, the config's 'adaptive' stage: per step 48 flash
+    forwards, 32 dQ + 32 dK/dV, 48 + 48 on a discriminator step, no VQ),
+    then `train.py` on cfgs/larp_tokenizer_stat.yaml over three epochs of
+    null128 (16 steps each), `vanilla_until_epoch 2`, `random_drop_until_epoch
+    3` (the trainers count epochs from 1): the three stage lines, s/step by
+    stage, exact launch counts over the 48 steps."""
+    import torch
+
+    from video_tokenizer_tpu_torch.train import main as train_main
+
+    cfg = _load_cfg("larp_tokenizer_stat", tmp / "stat_bf16", 8)
+    cfg["use_amp"] = True
+    run = _train_throughput("stat train bf16", cfg, (48, 32, 16), 0)
+    records["train_stat_bf16"] = {k: v for k, v in run.items() if k != "tf32x3"}
+    out = tmp / "stat_cli"
+    t0 = time.perf_counter()
+    tr, counts = _cli_counts(lambda: train_main([
+        "--cfg", str(ROOT / "cfgs" / "larp_tokenizer_stat.yaml"), "--csv_file", "null128", "-b",
+        "8", "-j", "0", "--device", "cuda", "--manualSeed", str(SEED), "--out_path", str(out),
+        "--opts", "max_epoch", "3", "eval_epoch", "99", "vis_epoch", "99", "use_amp", "true",
+        "model.args.vanilla_until_epoch", "2", "model.args.random_drop_until_epoch", "3"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps, d_freq = tr.step, tr.loss_mod.d_update_freq
+    del tr
+    torch.cuda.empty_cache()
+    text = (out / "larp_tokenizer_stat" / "log.txt").read_text()
+    stages = re.findall(r"STAT stage -> (\w+)", text)
+    epochs = _epoch_lines(text)
+    per_step = {e: t / 16 for e, (t, _) in epochs.items()}
+    want = _want_counts(48, 0, d_freq, 0)
+    tokens = [float(m) for m in re.findall(r"avg_tokens=([\d.]+)", epochs.get(3, [0, ""])[1])]
+    log(f"[stat cli] train.py on cfgs/larp_tokenizer_stat.yaml, bf16, batch 8, 3 epochs of "
+        f"null128 ({steps} steps) in {wall:.1f} s: stage lines {stages}; s/step by epoch "
+        + ", ".join(f"{e} ({s}) {per_step[e]:.3f}" for e, s in zip(sorted(per_step), stages))
+        + f"; epoch 3 avg_tokens {tokens}; launches {counts} (expect {want})")
+    require(stages == ["vanilla", "random_drop", "adaptive"], f"stat cli: stages {stages}")
+    require(steps == 48 and counts == want, f"stat cli: {steps} steps, launches {counts}")
+    require(len(tokens) == 1 and "avg_tokens" not in epochs[1][1], "stat cli: STAT losses")
+    records["train_stat_bf16"].update(cli_s=wall, cli_s_per_step=per_step, stages=stages)
+
+
+def _sq_train(tmp: Path, records: dict) -> None:
+    """Phase 21 (d): `train.py --opts model.args.bottleneck_type sq`, bf16,
+    batch 8, one epoch of null128 (16 steps): exact launch counts (one d = 24
+    VQ search a step), the Leech codebook bit for bit unchanged and held by
+    no optimizer group or state."""
+    import torch
+
+    from video_tokenizer_tpu_torch.models.fsq import leech_lattice_codebook
+    from video_tokenizer_tpu_torch.train import main as train_main
+
+    out = tmp / "sq_cli"
+    t0 = time.perf_counter()
+    tr, counts = _cli_counts(lambda: train_main([
+        "--cfg", str(ROOT / "cfgs" / "larp_tokenizer.yaml"), "--csv_file", "null128", "-b", "8",
+        "-j", "0", "--device", "cuda", "--manualSeed", str(SEED), "--out_path", str(out),
+        "--opts", "max_epoch", "1", "eval_epoch", "99", "vis_epoch", "99", "use_amp", "true",
+        "model.args.bottleneck_type", "sq"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    emb = tr.model.sq_quantizer.embedding
+    same = torch.equal(emb.detach().cpu(), torch.from_numpy(leech_lattice_codebook()))
+    held = {id(p) for g in tr.opt_g.param_groups for p in g["params"]}
+    in_opt = id(emb) in held or emb in tr.opt_g.state
+    steps, d_freq = tr.step, tr.loss_mod.d_update_freq
+    text = (out / "larp_tokenizer" / "log.txt").read_text()
+    epoch = _epoch_lines(text)[1]
+    loss_q = [float(m) for m in re.findall(r" loss_q=([\d.]+)", epoch[1])]
+    want = _want_counts(steps, 0, d_freq, 1)
+    log(f"[sq cli] train.py --opts model.args.bottleneck_type sq, bf16, batch 8, {steps} steps "
+        f"in {wall:.1f} s ({epoch[0] / steps:.3f} s/step in the epoch); codebook unchanged bit "
+        f"for bit: {same}; in opt_g: {in_opt}; loss_q {loss_q}; launches {counts} (expect {want})")
+    require(same and not in_opt, "sq cli: the frozen codebook moved or is optimised")
+    require(steps == 16 and counts == want, f"sq cli: {steps} steps, launches {counts}")
+    require(len(loss_q) == 1 and math.isfinite(loss_q[0]), f"sq cli: loss_q {loss_q}")
+    records["train_sq_bf16"] = {"s_per_step": epoch[0] / steps, "cli_s": wall}
+    del tr
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not (ROOT / "video_tokenizer_tpu_torch").is_dir():
         print("chip_smoke.py: the video_tokenizer_tpu_torch package is not beside this script",
@@ -3773,37 +4309,40 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     records: dict = {}
-    phase_build()
-    phase_flash(records)
-    phase_flash_bwd(records)
-    phase_vq(records)
-    phase_decode_attention(records)
-    phase_chunk_attention(records)
-    phase_cache_update(records)
-    phase_fused_write(records)
-    phase_w8_matmul(records)
-    model_fp32 = phase_e2e_fp32()
-    tokenizer = phase_e2e_bf16(model_fp32, records)
+
+    def run(fn, *args):  # a phase, and its wall time on a line of its own
+        t = time.perf_counter()
+        out = fn(*args)
+        log(f"[time] {fn.__name__}: {time.perf_counter() - t:.1f} s")
+        return out
+
+    run(phase_build)
+    for phase in (phase_flash, phase_flash_bwd, phase_vq, phase_decode_attention,
+                  phase_chunk_attention, phase_cache_update, phase_fused_write, phase_w8_matmul):
+        run(phase, records)
+    model_fp32 = run(phase_e2e_fp32)
+    tokenizer = run(phase_e2e_bf16, model_fp32, records)
     del model_fp32
-    ar_model = phase_ar_fp32(records)
-    phase_decode_chunk_fp32(ar_model)
+    ar_model = run(phase_ar_fp32, records)
+    run(phase_decode_chunk_fp32, ar_model)
     from video_tokenizer_tpu_torch import flagship_draft
 
     draft = flagship_draft(torch.float32, torch.Generator().manual_seed(SEED + 22))
     _perturb(draft, SEED + 23)
     draft.cuda()
-    phase_speculative_greedy(ar_model, draft, records)
-    phase_ar_sampling(ar_model, tokenizer, records)  # casts the prior to bf16 in place
-    phase_speculative(ar_model, draft, tokenizer, records)
-    phase_distill(ar_model, draft, records)
+    run(phase_speculative_greedy, ar_model, draft, records)
+    run(phase_ar_sampling, ar_model, tokenizer, records)  # casts the prior to bf16 in place
+    run(phase_speculative, ar_model, draft, tokenizer, records)
+    run(phase_distill, ar_model, draft, records)
     del ar_model, draft, tokenizer
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:  # the trainers' logs and cfg.yaml
-        phase_train_fp32(Path(tmp))
-        phase_train_throughput(Path(tmp), records)
-        real_stats = phase_fvd(Path(tmp), records)
-        phase_ar_train(Path(tmp), records, real_stats)
-        phase_model_new(Path(tmp), records)
+        run(phase_train_fp32, Path(tmp))
+        run(phase_train_throughput, Path(tmp), records)
+        real_stats = run(phase_fvd, Path(tmp), records)
+        run(phase_ar_train, Path(tmp), records, real_stats)
+        run(phase_model_new, Path(tmp), records)
+        run(phase_stat_lattice, Path(tmp), records)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 
     sources = {
@@ -3828,6 +4367,9 @@ def main() -> int:
                                    "video_tokenizer_tpu/ops/attention.py:447"),
         "vq_argmax": ("video_tokenizer_tpu_torch/csrc/vq_lookup_sm90.cu",
                       "video_tokenizer_tpu/ops/vq.py:35"),
+        # the same kernel at d = 24 over the Leech codebook (the sq bottleneck)
+        "vq_argmax_leech": ("video_tokenizer_tpu_torch/csrc/vq_lookup_sm90.cu",
+                            "video_tokenizer_tpu/ops/vq.py:35"),
         "decode_attention": ("video_tokenizer_tpu_torch/csrc/decode_attention_sm90.cu",
                              "video_tokenizer_tpu/ops/decode_attention.py:80"),
         "decode_attention_split": ("video_tokenizer_tpu_torch/csrc/decode_attention.cu",
@@ -3860,6 +4402,8 @@ def main() -> int:
     print(json.dumps({"train": {k: v for k, v in records.items() if k.startswith("train_")}}))
     print(json.dumps({"model_new": {k: v for k, v in records.items() if k.startswith("model_new_")}}))
     print(json.dumps({"fvd": records["fvd"]}))
+    print(json.dumps({"stat_lattice": {k: records[k] for k in (
+        "larp_sq", "larp_fsq", "stat", "train_stat_bf16", "train_sq_bf16", "vq_argmax_leech")}}))
     print(json.dumps({"sampling_tokens_per_s": records["sampling"],
                       "sampling_device_step_ms": records["sampling_device_step_ms"],
                       "sampling_kernels_per_step": records["sampling_kernels_per_step"],

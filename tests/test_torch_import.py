@@ -226,6 +226,7 @@ COPIES = [
     ("config.py", "config.py", None),
     ("data/rand_augment.py", "data/rand_augment.py", None),
     ("metrics/fvd.py", "metrics/fvd.py", "\n\nclass FVDCalculator"),
+    ("utils/leech.py", "utils/leech.py", None),
 ]
 
 

@@ -5,8 +5,8 @@ save / resume round trip restores the exact state (parameters, both
 optimizers, EMA, LeCam EMAs, the VQ sampling generator, step), so the next
 step is the same bit for bit; `epoch-final` loads into `LARPTokenizer`
 strictly; the CLI runs one short epoch; what is not ported raises (the
-STAT trainer; the AR trainers' remat), and sample FVD against real
-statistics, ported since, builds.
+AR trainers' remat), and what was ported since builds (the STAT trainer,
+sample FVD against real statistics).
 """
 import json
 import os
@@ -121,9 +121,12 @@ def test_unported_options_raise(tmp_path):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             trainers.make({"name": "larp_tokenizer_trainer"},
                           args={"cfg": trainer_cfg(tmp_path, **over), "device": "cpu"})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        trainers.make({"name": "larp_tokenizer_trainer_stat"},
-                      args={"cfg": trainer_cfg(tmp_path), "device": "cpu"})
+    # the STAT trainer, ported since, builds
+    from video_tokenizer_tpu_torch.trainers import LARPTokenizerTrainerStat
+
+    assert isinstance(trainers.make({"name": "larp_tokenizer_trainer_stat"},
+                                    args={"cfg": trainer_cfg(tmp_path), "device": "cpu"}),
+                      LARPTokenizerTrainerStat)
     # the AR trainers: remat raises; sample FVD against real statistics builds
     remat = ar_trainer_cfg(tmp_path)
     remat["model"]["args"]["remat"] = True

@@ -75,8 +75,10 @@ def test_upstream_pth_loads_and_matches_jax(variant, tmp_path):
 
 
 def test_unported_branches_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LARPTokenizer(**{**TINY_ARGS, "bottleneck_type": "fsq"})
+    # the fsq and sq bottlenecks are ported (tests/test_torch_lattice.py); an
+    # unknown one is refused by name
+    with pytest.raises(ValueError, match="bottleneck_type"):
+        LARPTokenizer(**{**TINY_ARGS, "bottleneck_type": "kl"})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LARPTokenizer(**{**TINY_ARGS, "prior_model": {"name": "gptc-S"}})
     skl = {"name": "bottleneck", "args": {"bottleneck_dim": 8,

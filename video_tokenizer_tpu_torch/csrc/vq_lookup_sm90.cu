@@ -32,7 +32,8 @@
 //     registers. A block is 8 warps; two blocks an SM. A tile's loads are
 //     issued in batches before the first is used;
 //   * tensor cores: a k-step of mma.sync m16n8k8 TF32 is 8 dims, so d = 8 is
-//     one step, d = 4 one step with zero padding, d = 16 and 32 two and four.
+//     one step, d = 4 one step with zero padding, d = 16, 24 (the Leech
+//     codebook of the sq bottleneck: K = 196,560) and 32 two, three and four.
 //     Each score is lo.hi + hi.lo + hi.hi (csrc/sm90.cuh); the bias is the
 //     accumulator's initial value, and each further k-step has an accumulator
 //     of its own, joined by a rounded add (the tensor core truncates what it
@@ -66,18 +67,26 @@ using namespace sm90;
 constexpr int kCluster = 8;  // blocks of a cluster: the codebook's splits (the portable most)
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kFragBytes = 64 * 1024;  // a codebook tile's TF32 fragments
-
 template <int D, bool kStochastic>
 struct Geometry {
+  static_assert(D == 4 || D % 8 == 0, "code dim: 4 or a multiple of 8");
   static constexpr int kSteps = D <= 8 ? 1 : D / 8;     // k-steps of 8 dims
   // 16-row tiles of a warp: two for the search at d <= 8 (one B fragment feeds
   // two products); one when sampling, whose time is the Philox and logf work
   // of each score, which more warps in flight hide better
   static constexpr int kMT = D <= 8 && !kStochastic ? 2 : 1;
   static constexpr int kRows = 16 * kMT * kWarps;       // rows of a cluster
-  static constexpr int kTileCodes = kFragBytes / (64 * kSteps);  // 64 B a code and k-step
+  // codes of a tile: 64 KB of TF32 fragments (64 B a code and k-step) where
+  // that divides, and 512 codes (96 KB) at d = 24, whose 65,536 / 192 = 341
+  // would not; two blocks an SM fit either way
+  static constexpr int kTileCodes = D == 24 ? 512 : 64 * 1024 / (64 * kSteps);
+  static constexpr int kFragBytes = kTileCodes * 64 * kSteps;
   static constexpr int kSmemBytes = kFragBytes + kTileCodes * 4 + kRows * 8;
+  // n-tiles go in pairs of 16 codes; each thread loads whole shares of a
+  // tile's bias values and fragments
+  static_assert(kTileCodes % 16 == 0 && kTileCodes % kThreads == 0, "tile of codes");
+  static_assert(kFragBytes % (16 * kThreads) == 0, "tile of fragments");
+  static_assert(2 * kSmemBytes <= 227 * 1024, "two blocks an SM");
 };
 
 struct Params {
@@ -103,7 +112,7 @@ __global__ void __launch_bounds__(kThreads, 2) vq_tc_kernel(const Params p) {
   constexpr int KS = Geo::kSteps, MT = Geo::kMT, TC = Geo::kTileCodes;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint4* frag = reinterpret_cast<uint4*>(smem_raw);                // [TC / 8][KS][32 lanes]
-  float* sbias = reinterpret_cast<float*>(smem_raw + kFragBytes);  // [TC] by tile position
+  float* sbias = reinterpret_cast<float*>(smem_raw + Geo::kFragBytes);  // [TC] by tile position
   float* best_s = sbias + TC;                                      // [kRows]
   int* best_i = reinterpret_cast<int*>(best_s + Geo::kRows);       // [kRows]
 
@@ -148,7 +157,8 @@ __global__ void __launch_bounds__(kThreads, 2) vq_tc_kernel(const Params p) {
     // tile_code(j, g); codes past the split or past K are zeros
     // (a thread's loads issued in batches of kBatch before the first is used:
     // a tile's fragments are kFill entries a thread, its bias kFillBias values)
-    constexpr int kFill = kFragBytes / 16 / kThreads, kFillBias = TC / kThreads, kBatch = 8;
+    constexpr int kFill = Geo::kFragBytes / 16 / kThreads, kFillBias = TC / kThreads, kBatch = 8;
+    static_assert(kFill % kBatch == 0, "whole batches of loads");
     const int n_frag = n16 / 8 * KS * 32;
     float eb[kFillBias];
 #pragma unroll
@@ -335,7 +345,7 @@ cudaError_t dispatch_mode(const Params& p, int stochastic, cudaStream_t stream) 
 }  // namespace
 
 // z [M, d], emb [K, d], bias [K] (or null) fp32 and contiguous, idx [M] int32;
-// d in {4, 8, 16, 32}, M >= 1, K >= 1; `seed` keys the noise of stochastic mode.
+// d in {4, 8, 16, 24, 32}, M >= 1, K >= 1; `seed` keys the noise of stochastic mode.
 extern "C" int vtt_vq_argmax_sm90(const float* z, const float* emb, const float* bias, int* idx,
                                   int M, int K, int d, int stochastic, float inv_temp,
                                   long long seed, void* stream) {
@@ -352,6 +362,7 @@ extern "C" int vtt_vq_argmax_sm90(const float* z, const float* emb, const float*
     case 4: err = dispatch_mode<4>(p, stochastic, s); break;
     case 8: err = dispatch_mode<8>(p, stochastic, s); break;
     case 16: err = dispatch_mode<16>(p, stochastic, s); break;
+    case 24: err = dispatch_mode<24>(p, stochastic, s); break;
     case 32: err = dispatch_mode<32>(p, stochastic, s); break;
     default: err = cudaErrorInvalidValue;
   }

@@ -1,11 +1,17 @@
 """LARP tokenizer: holistic query-token ViT video tokenizer (PyTorch).
 
-Counterpart of `video_tokenizer_tpu/models/larp_tokenizer.py` with the 'vq'
-bottleneck:
+Counterpart of `video_tokenizer_tpu/models/larp_tokenizer.py`:
   * 3D patch embed (one GEMM) + fixed 3D sin-cos PE;
   * encoder: self-attention over [patches || learned latent queries], keep
     the last `bottleneck_token_num` outputs;
-  * bottleneck (fp32): in-projection, deterministic VQ, out-projection;
+  * bottleneck (fp32), by `bottleneck_type`: 'vq' (in-projection, VQ,
+    out-projection: `models/bottleneck.py`); 'fsq' (`fsq_norm` LayerNorm,
+    `fsq_in_linear` d -> 6 with normal(0.02) init, FSQ (8,8,8,5,5,5),
+    `fsq_out_linear` 6 -> d; the `larp_tokenizer_ablation` registration
+    puts the LayerNorm after the in-projection and refuses 'sq'); 'sq'
+    (`sq_in_linear` d -> 24, the Leech-lattice `LatticeVectorQuantizer` of
+    `models/fsq.py`, whose search is the VQ kernel at d = 24, `sq_out_linear`
+    24 -> d); the fsq / sq modules under the JAX module's names;
   * decoder: latents + 1D sin-cos PE attend together with 3D-PE patch
     queries; `OutputLayer` (LN eps 1e-6 + zero-initialised Linear);
     unpatchify to BCTHW.
@@ -17,7 +23,8 @@ loads with `load_state_dict(strict=True)`.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import inspect
+from typing import Any, Dict, Optional, Sequence
 
 import einops
 import numpy as np
@@ -28,6 +35,7 @@ from ..ops import sincos
 from ..registry import models
 from .bottleneck import Bottleneck
 from .embed import PatchEmbed3D, VideoPatchEmbed
+from .fsq import FSQ, LatticeVectorQuantizer
 from .layers import Dense, LayerNorm
 from .transformer import ViTStack
 
@@ -92,6 +100,10 @@ class LARPTokenizer(nn.Module):
         use_decoder_latent_token_type_embed: bool = False,
         use_decoder_patch_query_token_type_embed: bool = False,
         encoder_query_gaussian_init: bool = True,
+        fsq_levels: Sequence[int] = (8, 8, 8, 5, 5, 5),
+        sq_n_embed: int = 196_560,
+        sq_embed_dim: int = 24,
+        fsq_norm_after_proj: bool = False,
         vq_eval_deterministic: bool = True,
         dtype: torch.dtype = torch.float32,
         generator: Optional[torch.Generator] = None,
@@ -100,15 +112,18 @@ class LARPTokenizer(nn.Module):
         super().__init__()
         if train_type != "simple":
             raise ValueError("mrope train_type maps to the model_new RoPE family")
-        if bottleneck_type != "vq":
-            raise NotImplementedError(
-                f"bottleneck_type '{bottleneck_type}' is not ported yet "
-                "(ROADMAP.md, 'Still to port', item 7)"
-            )
-        if str((prior_model or {}).get("name", "none") or "none").lower() != "none":
+        if bottleneck_type not in ("vq", "fsq", "sq"):
+            raise ValueError(f"bottleneck_type {bottleneck_type!r}: 'vq', 'fsq' or 'sq'")
+        prior_name = str((prior_model or {}).get("name", "none") or "none").lower()
+        if prior_name.startswith("gptc") and bottleneck_type != "vq":
+            # the prior's loss_latent_ce exists only in the vq branch
+            raise ValueError("prior_model co-training requires bottleneck_type 'vq' "
+                             f"(got '{bottleneck_type}')")
+        if prior_name != "none":
             raise NotImplementedError(
                 "the gptc prior is not ported yet (ROADMAP.md, 'Still to port', item 3)"
             )
+        self.bottleneck_type = bottleneck_type
         self.bottleneck_token_num = bottleneck_token_num
         self.input_size, self.frame_num, self.in_channels = input_size, frame_num, in_channels
         self.temporal_patch_size, self.patch_size = temporal_patch_size, patch_size
@@ -188,23 +203,41 @@ class LARPTokenizer(nn.Module):
         self.encoder = ViTStack(enc_d, encoder_depth, encoder_num_heads, **kw)
         self.decoder = ViTStack(dec_d, decoder_depth, decoder_num_heads, **kw)
 
-        bn_args = dict(bottleneck["args"])
-        self.bottleneck = Bottleneck(
-            bottleneck_dim=bn_args["bottleneck_dim"],
-            input_dim=enc_d,
-            output_dim=dec_d,
-            token_nums=n,
-            norm=bn_args.get("norm"),
-            regularizer={
-                **dict(bn_args["regularizer"]),
-                "args": {
-                    **dict(bn_args["regularizer"].get("args", {})),
-                    "eval_deterministic": vq_eval_deterministic,
+        self.fsq_norm_after_proj = fsq_norm_after_proj
+        if bottleneck_type == "vq":
+            bn_args = dict(bottleneck["args"])
+            self.bottleneck = Bottleneck(
+                bottleneck_dim=bn_args["bottleneck_dim"],
+                input_dim=enc_d,
+                output_dim=dec_d,
+                token_nums=n,
+                norm=bn_args.get("norm"),
+                regularizer={
+                    **dict(bn_args["regularizer"]),
+                    "args": {
+                        **dict(bn_args["regularizer"].get("args", {})),
+                        "eval_deterministic": vq_eval_deterministic,
+                    },
                 },
-            },
-            generator=generator,
-            device=device,
-        )
+                generator=generator,
+                device=device,
+            )
+        elif bottleneck_type == "fsq":
+            c = len(fsq_levels)
+            self.fsq_norm = LayerNorm(c if fsq_norm_after_proj else enc_d, 1e-6, device=device)
+            self.fsq_in_linear = Dense(enc_d, c, init="normal02", generator=generator,
+                                       device=device)
+            self.fsq_out_linear = Dense(c, dec_d, init="lecun_normal", generator=generator,
+                                        device=device)
+            self.fsq = FSQ(fsq_levels, device=device)
+        else:
+            self.sq_in_linear = Dense(enc_d, sq_embed_dim, init="lecun_normal",
+                                      generator=generator, device=device)
+            self.sq_out_linear = Dense(sq_embed_dim, dec_d, init="lecun_normal",
+                                       generator=generator, device=device)
+            self.sq_quantizer = LatticeVectorQuantizer(sq_n_embed, sq_embed_dim, l2_norm=True,
+                                                       beta=0.25, generator=generator,
+                                                       device=device)
         self.final_layer = OutputLayer(
             dec_d,
             decoder_temporal_patch_size * decoder_patch_size**2 * in_channels,
@@ -240,7 +273,9 @@ class LARPTokenizer(nn.Module):
 
     @property
     def codebook_size(self) -> int:
-        return self.bottleneck.regularizer.codebook_size
+        if self.bottleneck_type == "vq":
+            return self.bottleneck.regularizer.codebook_size
+        return (self.fsq if self.bottleneck_type == "fsq" else self.sq_quantizer).codebook_size
 
     # ---------------------------------------------------------------- PEs
 
@@ -290,8 +325,21 @@ class LARPTokenizer(nn.Module):
         return h[:, -self.bottleneck_token_num:, :], num_x_tokens
 
     def _bottleneck_forward(self, z: torch.Tensor, train: bool) -> Dict[str, Any]:
-        out = self.bottleneck(z.float(), train=train)
-        return {"encoded": out.pop("output"), **out}
+        z = z.float()
+        if self.bottleneck_type == "vq":
+            out = self.bottleneck(z, train=train)
+            return {"encoded": out.pop("output"), **out}
+        if self.bottleneck_type == "fsq":
+            if self.fsq_norm_after_proj:
+                z = self.fsq_norm(self.fsq_in_linear(z))
+            else:
+                z = self.fsq_in_linear(self.fsq_norm(z))
+            codes, info = self.fsq(z)
+            return {"encoded": self.fsq_out_linear(codes), "bottleneck_rep": info["indices"],
+                    "loss_q": torch.zeros((), device=z.device)}
+        out = self.sq_quantizer(self.sq_in_linear(z), train=train)
+        encoded = self.sq_out_linear(out.pop("output"))
+        return {"encoded": encoded, "loss_q": out.pop("loss_codebook"), **out}
 
     def encode(self, x: torch.Tensor, train: bool = False) -> Dict[str, Any]:
         z, _ = self._encode_latents(x)
@@ -339,7 +387,13 @@ class LARPTokenizer(nn.Module):
         return self._decode_tokens(z, num_x_tokens)
 
     def decode_from_bottleneck(self, bottleneck_rep: torch.Tensor) -> torch.Tensor:
-        return self.decode(self.bottleneck.decode(bottleneck_rep))
+        if self.bottleneck_type == "vq":
+            z = self.bottleneck.decode(bottleneck_rep)
+        elif self.bottleneck_type == "fsq":
+            z = self.fsq_out_linear(self.fsq.indices_to_codes(bottleneck_rep))
+        else:
+            z = self.sq_out_linear(self.sq_quantizer.decode(bottleneck_rep))
+        return self.decode(z)
 
     # ------------------------------------------------------------ forward
 
@@ -347,3 +401,19 @@ class LARPTokenizer(nn.Module):
         encode_output = self.encode(data, train=train)
         pred_frames = self.decode(encode_output["encoded"])
         return {"pred_frames": pred_frames, **encode_output}
+
+
+_FIELDS = set(inspect.signature(LARPTokenizer.__init__).parameters) - {"self"}
+
+
+def _ablation_factory(**overrides):
+    """`larp_tokenizer` without the 'sq' branch, with FSQ's LayerNorm on the
+    6-d projection (the JAX `larp_tokenizer_ablation` factory)."""
+    args = {k: v for k, v in overrides.items() if k in _FIELDS}
+    args["fsq_norm_after_proj"] = True
+    if args.get("bottleneck_type", "vq") == "sq":
+        raise ValueError("larp_tokenizer_ablation has no 'sq' bottleneck")
+    return LARPTokenizer(**args)
+
+
+models.update({"larp_tokenizer_ablation": _ablation_factory})

@@ -35,6 +35,8 @@ def init_kernel(weight: torch.Tensor, init: str, fan_in: int, fan_out: int,
         elif init == "trunc02":  # Flax truncated_normal(0.02 / _TRUNC_STD): std 0.02
             std = 0.02 / _TRUNC_STD
             nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std, generator=generator)
+        elif init == "normal02":  # Flax normal(0.02): not truncated
+            nn.init.normal_(weight, std=0.02, generator=generator)
         elif init == "zeros":
             nn.init.zeros_(weight)
         else:

@@ -9,6 +9,8 @@ Counterpart of `video_tokenizer_tpu/models/loss.py`:
     smoothing) GAN losses, disc_start gating, LeCam regularisation against
     EMAs of the mean logits, kept as buffers. As in the JAX package the LeCam
     weight is applied once (the reference applies it twice).
+  * `perceptual_per_sample`: LPIPS over the frames, the mean per clip [B]
+    (the STAT trainer's content term).
   * `measure_perplexity`, `lecam_reg` and the loss functions.
 ns_smooth's label noise draws from the module's own `noise_generator`.
 Not ported yet (ROADMAP.md, 'Still to port', item 3): the R1 gradient
@@ -171,6 +173,12 @@ class VQLPIPSWithDiscriminator(nn.Module):
     @staticmethod
     def _frames(v):
         return einops.rearrange(v, "b c t h w -> (b t) c h w")
+
+    def perceptual_per_sample(self, inputs, reconstructions) -> torch.Tensor:
+        """LPIPS of each clip [B]: the mean over its frames (the STAT trainer's
+        content term)."""
+        p = self.perceptual(self._frames(inputs), self._frames(reconstructions), normalize=True)
+        return p.reshape(inputs.shape[0], -1).mean(dim=1)
 
     def generator_loss(self, inputs, reconstructions, global_step
                        ) -> Tuple[torch.Tensor, Dict[str, Any]]:

@@ -4,7 +4,9 @@ Counterpart of `video_tokenizer_tpu/ops/vq.py`.
 
 * `vq_argmax` wraps `csrc/vq_lookup_sm90.cu` (fp32 scores on the tensor
   cores as three TF32 products, the codebook split over a thread-block
-  cluster), which replaces the TPU kernel `_vq_kernel` in both of its modes;
+  cluster; code dims 4, 8, 16, 24 and 32, 24 being the Leech codebook of
+  the sq bottleneck, K = 196,560), which replaces the TPU kernel
+  `_vq_kernel` in both of its modes;
   `vq_kernel` names the kernel a call launches (that one, for every code dim
   and mode). `csrc/vq_lookup.cu`, the earlier fp32-FMA kernel, stays built and
   is launched only by name through `_vq_launch`, to be timed beside it. On a
@@ -32,7 +34,7 @@ import torch
 from . import _build
 from .attention import split_tf32
 
-_CODE_DIMS = (4, 8, 16, 32)
+_CODE_DIMS = (4, 8, 16, 24, 32)  # 24: the Leech codebook of the sq bottleneck
 _VQ_CLUSTER = 8  # csrc/vq_lookup_sm90.cu: blocks of a cluster, the codebook's splits
 _MASK32 = 0xFFFFFFFF
 # Philox4x32 multipliers and Weyl key increments (Salmon et al., SC 2011)
@@ -90,12 +92,21 @@ def vq_lookup_reference(z, emb, score_bias: Optional[torch.Tensor] = None, *,
 
 def vq_kernel(d: int, stochastic: bool) -> str:
     """The kernel a `vq_argmax` call on the card launches: the tensor-core
-    kernel of `csrc/vq_lookup_sm90.cu` for every code dim (4, 8, 16, 32) and
-    both modes. The one place where the choice is made; no call falls back to
+    kernel of `csrc/vq_lookup_sm90.cu` for every code dim (4, 8, 16, 24, 32)
+    and both modes. The one place where the choice is made; no call falls back to
     the earlier `vq_argmax_kernel`."""
     if d not in _CODE_DIMS:
         raise ValueError(f"vq_kernel: d {d} not in {_CODE_DIMS}")
     return "vq_tc_kernel"
+
+
+def vq_tile_codes(d: int) -> int:
+    """Codes of one shared-memory tile of `vq_tc_kernel` at code dim d (its
+    `Geometry<D>::kTileCodes`): 64 KB of TF32 fragments, 64 bytes a code and
+    k-step of 8 dims, where that divides; 512 codes (96 KB) at d = 24."""
+    if d not in _CODE_DIMS:
+        raise ValueError(f"vq_tile_codes: d {d} not in {_CODE_DIMS}")
+    return 512 if d == 24 else 1024 // max(1, d // 8)
 
 
 def vq_tile_code(j: int, c: int) -> int:
@@ -120,8 +131,10 @@ def vq_argmax_tf32x3_tiled_reference(z, emb, score_bias: Optional[torch.Tensor] 
     others, joined to the first by an fp32 add); Gumbel noise as the kernel
     draws it, one Philox group per thread's four codes of a pair of n-tiles;
     the codebook cut into `n_splits` slices of ceil(K / n_splits) codes
-    rounded up to 16, the argmax of each (first maximum), and the merge of
-    the slices in order, a later slice winning only by a larger score."""
+    rounded up to 16, each scanned in tiles of `vq_tile_codes(d)` codes (the
+    argmax of a tile, first maximum, replacing the running best only by a
+    larger score), and the merge of the slices in order, a later slice
+    winning only by a larger score."""
     M, d = z.shape
     K = emb.shape[0]
     steps = max(1, d // 8)
@@ -141,14 +154,20 @@ def vq_argmax_tf32x3_tiled_reference(z, emb, score_bias: Optional[torch.Tensor] 
         s = s * inv_temp + _gumbel_by_thread(M, K, seed, s.device)
     size = -(-K // n_splits)  # codes of a slice: ceil(K / n_splits), rounded up to 16
     size = -(-size // 16) * 16
+    tile = vq_tile_codes(d) if d in _CODE_DIMS else size
     best = torch.full((M,), float("-inf"), device=z.device)
     idx = torch.zeros((M,), dtype=torch.int64, device=z.device)
-    for lo in range(0, K, size):
-        part = s[:, lo : lo + size]
-        i = torch.argmax(part, dim=-1)
-        v = part.gather(1, i[:, None])[:, 0]
-        take = v > best
-        best, idx = torch.where(take, v, best), torch.where(take, lo + i, idx)
+    for lo in range(0, K, size):  # a split: its tiles in ascending order
+        hi = min(lo + size, K)
+        s_best, s_idx = torch.full_like(best, float("-inf")), torch.zeros_like(idx)
+        for t in range(lo, hi, tile):
+            part = s[:, t : min(t + tile, hi)]
+            i = torch.argmax(part, dim=-1)
+            v = part.gather(1, i[:, None])[:, 0]
+            take = v > s_best
+            s_best, s_idx = torch.where(take, v, s_best), torch.where(take, t + i, s_idx)
+        take = s_best > best
+        best, idx = torch.where(take, s_best, best), torch.where(take, s_idx, idx)
     return idx.to(torch.int32)
 
 

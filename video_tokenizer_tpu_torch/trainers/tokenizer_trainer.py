@@ -11,12 +11,18 @@ step, in the JAX package's order:
      rate of the global step. On other steps the D loss is only evaluated
      (for the log) without a graph, and the D optimizer is not touched;
   3. the generator loss with the UPDATED discriminator: pixel + LPIPS
-     (frozen) + adversarial, + loss_q (warmed up by epoch) [+ loss_latent_ce].
+     (frozen) + adversarial, + loss_q (warmed up by epoch) [+ loss_latent_ce]
+     + the `_generator_extra_loss` hook (none here; the STAT trainer's
+     adaptive-token losses), in training and in eval as in the JAX step.
      The discriminator's parameters are frozen for this backward, so its
      gradient reaches the reconstruction only, never the D optimizer;
   4. the G optimizer steps (optional global-norm clip), then the EMAs.
 The step's scalars (the JAX step's packed keys) come back as one device
-tensor. Attention runs through `ops.attention` (the flash forward and the
+tensor. Every tokenizer forward goes through `_model_forward`, where a
+subclass passes its own arguments (the STAT trainer's stage and generator).
+The generator optimizer and the EMAs hold the parameters that require a
+gradient: a frozen codebook (the `sq` bottleneck's Leech lattice) stays
+out. Attention runs through `ops.attention` (the flash forward and the
 dQ / dK-dV backward kernels on the card), VQ through `ops.vq`.
 `use_amp: true` computes the tokenizer, LPIPS and the discriminator in
 bf16 (the bottleneck stays fp32); `false` is fp32.
@@ -36,7 +42,7 @@ Not ported (raises NotImplementedError): `grad_accum_steps > 1`
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -118,8 +124,9 @@ class LARPTokenizerTrainer(BaseTrainer):
             if float(opt_cfg.get(mult, 1.0)) != 1.0:
                 raise NotImplementedError(
                     f"{mult} != 1 is not ported yet (ROADMAP.md, 'Still to port', item 3)")
-        named = list(self.model.named_parameters())
-        self.opt_g = make_optimizer(opt_cfg.get("name", "adam"), self.model.parameters(),
+        # a frozen codebook (requires_grad False) is neither optimised nor averaged
+        named = [(n, p) for n, p in self.model.named_parameters() if p.requires_grad]
+        self.opt_g = make_optimizer(opt_cfg.get("name", "adam"), [p for _, p in named],
                                     opt_cfg["args"])
         # only the discriminator trains; LPIPS is frozen
         self.opt_d = make_optimizer(opt_cfg.get("loss_name", opt_cfg.get("name", "adam")),
@@ -168,6 +175,15 @@ class LARPTokenizerTrainer(BaseTrainer):
 
     # ------------------------------------------------------------------ step
 
+    def _model_forward(self, data: torch.Tensor, train: bool) -> Dict[str, Any]:
+        """The tokenizer's forward; a subclass adds its own arguments."""
+        return self.model(data, train=train)
+
+    def _generator_extra_loss(self, out, data, pred
+                              ) -> Tuple[Optional[torch.Tensor], Dict[str, Any]]:
+        """An extra generator-loss term (None: no term) and its scalars."""
+        return None, {}
+
     def _generator_total(self, data, pred, out, epoch) -> Tuple[torch.Tensor, Dict[str, Any]]:
         g_loss, info = self.loss_mod.generator_loss(data, pred, epoch)
         total = g_loss
@@ -177,7 +193,9 @@ class LARPTokenizerTrainer(BaseTrainer):
         if "loss_latent_ce" in out:
             total = total + out["loss_latent_ce"].float() * self.loss_latent_ce_weight
             info["loss_latent_ce"] = out["loss_latent_ce"]
-        return total, info
+        extra, extra_info = self._generator_extra_loss(out, data, pred)
+        info.update(extra_info)
+        return (total if extra is None else total + extra), info
 
     @torch.no_grad()
     def _metrics(self, info, data, pred, out, total) -> None:
@@ -210,7 +228,7 @@ class LARPTokenizerTrainer(BaseTrainer):
         """One GAN step; returns (keys, fp32 device tensor of the step's scalars)."""
         data = common.video_to_float(batch["gt"].to(self.device, non_blocking=True))
         epoch, step = self.epoch, self.step
-        out = self.model(data, train=True)
+        out = self._model_forward(data, train=True)
         pred, info = out["pred_frames"].float(), {}
 
         # --- the discriminator first, on the detached reconstructions
@@ -252,7 +270,7 @@ class LARPTokenizerTrainer(BaseTrainer):
     @torch.no_grad()
     def evaluate_step(self, batch) -> Dict[str, float]:
         data = common.video_to_float(batch["gt"].to(self.device, non_blocking=True))
-        out = self.model(data, train=False)
+        out = self._model_forward(data, train=False)
         pred, info = out["pred_frames"].float(), {}
         _, d_info = self.loss_mod.discriminator_loss(data, pred, self.epoch, train=False)
         info.update(d_info)
@@ -295,7 +313,7 @@ class LARPTokenizerTrainer(BaseTrainer):
             batch = next(iter(self.test_loader(next(iter(self.test_datasets)))))
             data = common.video_to_float(batch["gt"][:4].to(self.device))
             with torch.no_grad():
-                pred = self.model(data, train=False)["pred_frames"].float()
+                pred = self._model_forward(data, train=False)["pred_frames"].float()
             vis_dir = common.ensure_path(os.path.join(self.save_dir, "vis"))
             gt, pred = data.cpu().numpy(), pred.cpu().numpy()
             common.save_video_grid(os.path.join(vis_dir, f"epoch_{self.epoch}.png"),
@@ -332,9 +350,3 @@ class LARPTokenizerTrainer(BaseTrainer):
         gens = self._generators()
         for k, s in state.get("rng", {}).items():
             gens[k].set_state(s)
-
-
-@trainers.register("larp_tokenizer_trainer_stat")
-def _unported_trainer(cfg=None, device=None):
-    raise NotImplementedError(
-        "the STAT tokenizer trainer is not ported yet (ROADMAP.md, 'Still to port', item 3)")

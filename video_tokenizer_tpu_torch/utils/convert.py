@@ -19,6 +19,12 @@ the tokenizer trainer's loss module (discriminator, LPIPS, LeCam EMAs).
 `ffd_{i}` or the simple style's `ln1_/qkv_/proj_/ln2_/fc1_/fc2_{i}` and
 `final_norm`), whose module names are the Flax names.
 
+`stat_state_dict_from_jax(params, model)` does the same for the STAT
+family's `AutoEncoderStat`, whose names are the Flax names too. The LARP
+tokenizer's `fsq` (`fsq_norm`, `fsq_in_linear`, `fsq_out_linear`) and `sq`
+(`sq_in_linear`, `sq_out_linear`, `sq_quantizer.embedding`) bottlenecks come
+across in `state_dict_from_jax` under the JAX module's names.
+
 `i3d_state_dict_from_jax(variables)` does the same for the FVD extractor's
 `InceptionI3D` (conv kernels (kT, kH, kW, Cin, Cout) -> (Cout, Cin, kT, kH,
 kW); BatchNorm scale, bias and `batch_stats` as they are).
@@ -114,15 +120,27 @@ def state_dict_from_jax(params: Dict[str, Any], model) -> Dict[str, torch.Tensor
         if name in params:
             sd[renamed.get(name, name)] = _f32(params[name])
 
-    bottleneck_from_jax(sd, "bottleneck", params["bottleneck_module"])
+    if model.bottleneck_type == "vq":
+        bottleneck_from_jax(sd, "bottleneck", params["bottleneck_module"])
+    elif model.bottleneck_type == "fsq":
+        layernorm_from_jax(sd, "fsq_norm", params["fsq_norm"])
+        linear_from_jax(sd, "fsq_in_linear", params["fsq_in_linear"])
+        linear_from_jax(sd, "fsq_out_linear", params["fsq_out_linear"])
+    else:  # sq: the codebook as the JAX param holds it (normalised at use)
+        linear_from_jax(sd, "sq_in_linear", params["sq_in_linear"])
+        linear_from_jax(sd, "sq_out_linear", params["sq_out_linear"])
+        sd["sq_quantizer.embedding"] = _f32(params["sq_quantizer"]["embedding"])
 
     layernorm_from_jax(sd, "final_layer.norm_final", params["final_layer"]["norm_final"])
     linear_from_jax(sd, "final_layer.linear", params["final_layer"]["linear"])
 
     out = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
-    # the fixed sin-cos tables are the model's own persistent buffers
+    # the fixed sin-cos tables are the model's own persistent buffers (FSQ's
+    # constants are non-persistent: not in the state_dict)
+    persistent = set(model.state_dict())
     for name, buf in model.named_buffers():
-        out.setdefault(name, buf.detach().cpu().clone())
+        if name in persistent:
+            out.setdefault(name, buf.detach().cpu().clone())
     return out
 
 
@@ -153,6 +171,14 @@ def model_new_state_dict_from_jax(params: Dict[str, Any], model) -> Dict[str, to
     if differ:
         raise ValueError(f"Flax tree and model differ in {differ}")
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
+def stat_state_dict_from_jax(params: Dict[str, Any], model) -> Dict[str, torch.Tensor]:
+    """Flax `AutoEncoderStat` params -> `model`'s state_dict: the encoder's
+    `proj_in`, scalar `mask_token`, gated blocks, `prob_head.fc1/fc2` and
+    `proj_out`, and the model_new decoder, all under the Flax names (the
+    model_new mapping)."""
+    return model_new_state_dict_from_jax(params, model)
 
 
 def loss_state_dict_from_jax(loss_params: Dict[str, Any], loss_ema: Dict[str, Any],
