@@ -127,7 +127,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
  18. the AR prior's two trainers (cfgs/larp_ar.yaml, larp_ar_fp.yaml) at the
      632M prior's full width, fed by the frozen flagship tokenizer from a
      checkpoint directory the tokenizer trainer wrote, fp32 (TF32 off): one
-     step at batch 1, card against CPU (loss, top-1/top-5, named
+     step at batch 1 and 8 of the prior's 30 layers, card against CPU (loss, top-1/top-5, named
      gradients); batch 8 with the configured dropouts: s/step, training
      tokens/s, clips/s, peak memory, idle share and time by kernel category,
      exact launch counts (42 flash forwards, 30 dQ, 30 dK/dV, all 3xTF32,
@@ -135,7 +135,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
      sample grid, whose `epoch-final` loads and samples on the card;
  19. the model_new family (conv-patchify, M-RoPE, FSQ) at full width
      (`phase_model_new`): the four shipped configs through their yaml in
-     fp32 card against CPU (FSQ indices >= 99%, reconstruction within 1e-3
+     fp32 card against CPU at cut depth (FSQ indices >= 99%, reconstruction within 1e-3
      of its scale, decode_from_bottleneck == the forward's decode within
      1e-5); bf16 reconstruction at batch 8 of autoencoder_large and
      f256t768 (clips/s, peak memory, 48 and 36 wgmma flash forwards a
@@ -171,6 +171,25 @@ Phases, each of which raises on failure (exit code 1, no result line):
      `train.py` through the vanilla, random_drop and adaptive stages; LARP-sq
      training through `train.py`, its frozen codebook unchanged and in no
      optimizer; exact launch counts throughout.
+ 22. LARP's learned AR prior co-trained as scripts/train_larp_tokenizer.sh
+     trains it (`phase_prior`): gptc-S (12 layers of 384, 6 heads of 64) in
+     fp32 card against CPU (`compute_prior_loss` at B = 8 from 1024 latents
+     and every gradient, exactly 12 3xTF32 forwards, 12 dQ and 12 dK/dV;
+     `decode_step` against the full forward); one fp32 step of the recipe
+     through the trainer, card against CPU, at 2 + 2 tokenizer layers with
+     gptc-S and the 512 / 8 / 12 discriminator whole, `prior_lr_mult` 50 and
+     `emb_lr_mult` 2 (losses, VQ indices, gradients, the parameters after the
+     step per learning-rate group); a `grad_accum_steps` 2 step at batch 8
+     against the plain one; bf16 training at full width, batch 8 (s/step,
+     memory, idle share, the prior's share, exact launch counts: 60 wgmma
+     forwards, 36 + 36 wgmma dQ / dK/dV and 24 + 24 more on a discriminator
+     step, 12 + 12 + 12 3xTF32 for the prior); `train.py` with the script's
+     flags for one epoch, resumed from its `epoch-last`, its `epoch-final`
+     through `reconstruct` and as the AR trainer's frozen tokenizer. Phases
+     2 and 10 hold the flash kernels at the prior's shape (B = 8, S = 1023,
+     H = 6, D = 64, causal, fp32) and the 512-wide discriminator's (B = 8,
+     S = 1025, H = 8, D = 64, bf16), timed beside the efficient-attention
+     op / SDPA and their backward.
 Every kernel phase also times one PyTorch call that computes the same
 function (`library_ms`: SDPA and its autograd backward, a matmul + argmax,
 `index_put_`), which the port uses nowhere, and computes the kernel's bound
@@ -191,6 +210,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
@@ -415,6 +435,11 @@ def phase_flash(records: dict) -> None:
          1e-4),
         ("fp32_model_new_h12_s512", 1, 512, 512, 12, 12, 64, torch.float32, False, None, False,
          1e-4),
+        # the LARP recipe's (phase 22): the gptc-S prior, causal over the 1023
+        # shifted latents, fp32 whatever the tokenizer computes in, q, k, v
+        # from three projections; the 512-wide discriminator, 8 heads of 64
+        ("fp32_gptc_prior", 8, 1023, 1023, 6, 6, 64, torch.float32, True, None, False, 1e-4),
+        ("disc512", 8, 1025, 1025, 8, 8, 64, torch.bfloat16, False, None, False, 2e-2),
     ]
     # the cases that must run the wgmma kernel (bf16, D = 32 or 64, no segment
     # ids) and the 3xTF32 kernel (the same in fp32); D = 128 and segment ids
@@ -422,10 +447,10 @@ def phase_flash(records: dict) -> None:
     sm90_cases = {"flagship", "discriminator", "ar_nll_causal", "causal_offset", "gqa_4_over_2",
                   "ragged_sk", "causal_ragged_d32", "edge_129_257", "causal_no_key_rows",
                   "model_new_large", "model_new_h8_s2304", "model_new_h12_s512",
-                  "model_new_h12_s1792"}
+                  "model_new_h12_s1792", "disc512"}
     tf32x3_cases = {c[0] for c in cases if c[7] == torch.float32 and c[6] != 128 and not c[10]}
     strided = {"flagship", "discriminator", "ar_nll_causal", "fp32_train", "fp32_discriminator",
-               "fp32_prior_causal", "fp32_ar_fp_train"}
+               "fp32_prior_causal", "fp32_ar_fp_train", "disc512"}
     lse_tol = 1e-4
     for name, B, Sq, Sk, H, Hkv, D, dtype, causal, offset, with_seg, tol in cases:
         if name in strided:
@@ -470,7 +495,7 @@ def phase_flash(records: dict) -> None:
                 f"flash {name}: LSE of the rows that see no key is not the mask value")
         require(torch.equal(flash_attn_fwd(q, k, v, **kw), got), f"flash {name}: lse changes out")
         if name in ("flagship", "discriminator", "ar_nll_causal", "fp32", "fp32_train",
-                    "model_new_large"):
+                    "model_new_large", "fp32_gptc_prior", "disc512"):
             # device time: CUDA-graph replays (CUDA events around one eager
             # call would add the host's launch path, ~0.05 ms)
             ms = graph_ms(lambda: flash_attn_fwd(q, k, v, causal=causal), launches=5, replays=5)
@@ -533,11 +558,14 @@ def phase_flash(records: dict) -> None:
             elif name == "fp32_train":
                 records["flash_attn_fwd_tf32x3"].update(
                     {f"b8_{k}": v for k, v in rec.items() if k != "bound_by"})
-            else:
-                records["flash_attn_fwd"][f"{name}_ms"] = ms
-                records["flash_attn_fwd"][f"{name}_lse_ms"] = lse_ms
-                records["flash_attn_fwd"][f"{name}_library_ms"] = library_ms
-                records["flash_attn_fwd"][f"{name}_lse_library_ms"] = lse_library_ms
+            else:  # another shape of a main path, under its kernel's name
+                key = "flash_attn_fwd_tf32x3" if dtype == torch.float32 else "flash_attn_fwd"
+                records[key].update({
+                    f"{name}_shape": f"B={B} S={Sq} H={H} D={D}{' causal' if causal else ''}",
+                    f"{name}_ms": ms, f"{name}_lse_ms": lse_ms,
+                    f"{name}_max_abs_err": err, f"{name}_plain_ms": plain_ms,
+                    f"{name}_library_ms": library_ms, f"{name}_lse_library_ms": lse_library_ms,
+                    f"{name}_bound_ms": bnd["bound_ms"]})
 
 
 def phase_flash_bwd(records: dict) -> None:
@@ -599,6 +627,11 @@ def phase_flash_bwd(records: dict) -> None:
          1e-4),
         ("fp32_model_new_h12_s512", 2, 512, 512, 12, 12, 64, torch.float32, False, None, False,
          1e-4),
+        # the LARP recipe's (phase 22): the gptc-S prior (fp32, causal over
+        # 1023, q, k, v and dO from separate projections) and the 512-wide
+        # discriminator (8 heads of 64, strided qkv views)
+        ("fp32_gptc_prior", 8, 1023, 1023, 6, 6, 64, torch.float32, True, None, False, 1e-4),
+        ("disc512", 8, 1025, 1025, 8, 8, 64, torch.bfloat16, False, None, False, 2e-2),
     ]
     # the kernels each case's dQ and dK/dV must run: the wgmma kernels (bf16,
     # D = 32 or 64, no segment ids), the 3xTF32 kernels (the same in fp32),
@@ -606,9 +639,9 @@ def phase_flash_bwd(records: dict) -> None:
     # that feeds them follows the same rule
     sm90_cases = {"tokenizer", "discriminator", "prior_causal", "gqa_20_over_5",
                   "causal_offset_d64", "causal_ragged_d32", "edge_129_257", "causal_no_key_rows",
-                  "model_new_large", "model_new_h8_s2304", "model_new_h12_s1792"}
+                  "model_new_large", "model_new_h8_s2304", "model_new_h12_s1792", "disc512"}
     tf32x3_cases = {"fp32", "fp32_tokenizer", "fp32_prior_causal", "fp32_ar_fp_train",
-                    "fp32_gqa_20_over_5",
+                    "fp32_gqa_20_over_5", "fp32_gptc_prior",
                     "fp32_causal_offset_d64", "fp32_causal_no_key_rows", "fp32_edge_129_257",
                     "fp32_causal_ragged_d32", "fp32_model_new_large", "fp32_model_new_h12_s512"}
     fma_launches = [0, 0]  # dQ, dK/dV launches of csrc/flash_attn_bwd.cu by the cases
@@ -620,6 +653,8 @@ def phase_flash_bwd(records: dict) -> None:
             q, k = randn(B, Sq, H, D, dtype=dtype), randn(B, Sk, H, D, dtype=dtype)
             v = randn(B, Sk, 4, H, D, dtype=dtype)[:, :, 2]
             do = randn(B, Sq, H, D, dtype=dtype)
+        elif name == "fp32_gptc_prior":  # the prior's three projections: contiguous
+            q, k, v, do = (randn(B, Sq, H, D, dtype=dtype) for _ in range(4))
         elif Sq == Sk and H == Hkv:
             # q, k, v and dO as strided views of [B, S, 3, H, D] projections
             q, k, v = randn(B, Sq, 3, H, D, dtype=dtype).unbind(2)
@@ -667,7 +702,7 @@ def phase_flash_bwd(records: dict) -> None:
                 f"flash bwd {name}: errors {errs}, from the plain forward {plain_errs} > {tol}")
         del plain_out, plain_lse, want_plain
         if name in ("tokenizer", "discriminator", "prior_causal", "fp32", "fp32_tokenizer",
-                    "fp32_causal_gqa_seg"):
+                    "fp32_causal_gqa_seg", "fp32_gptc_prior", "disc512"):
             # the two kernels alone (delta and the GQA sum are torch ops), by
             # CUDA-graph replays (events around one eager call would add the
             # host's launch path, ~0.05 ms)
@@ -765,14 +800,19 @@ def phase_flash_bwd(records: dict) -> None:
                     del rec["earlier_ms"]  # the same kernel
                     records[key] = rec
             else:
-                short = {"discriminator": "disc", "prior_causal": "causal", "fp32": "disc"}[name]
+                short = {"discriminator": "disc", "prior_causal": "causal", "fp32": "disc",
+                         "fp32_gptc_prior": "gptc_prior", "disc512": "disc512"}[name]
                 suffix = "_tf32x3" if family == "tf32x3" else ""
+                shape = f"B={B} S={Sq} H={H} D={D}{' causal' if causal else ''}"
                 records[f"flash_attn_bwd_dq{suffix}"].update({
-                    f"{short}_ms": dq_ms, f"{short}_earlier_ms": dq_earlier_ms,
+                    f"{short}_shape": shape, f"{short}_ms": dq_ms,
+                    f"{short}_earlier_ms": dq_earlier_ms, f"{short}_max_abs_err": abs_errs[0],
                     f"{short}_plain_ms": plain_ms, f"{short}_library_ms": library_ms,
                     f"{short}_bound_ms": bnd_dq["bound_ms"]})
                 records[f"flash_attn_bwd_dkv{suffix}"].update({
-                    f"{short}_ms": dkv_ms, f"{short}_earlier_ms": dkv_earlier_ms,
+                    f"{short}_shape": shape, f"{short}_ms": dkv_ms,
+                    f"{short}_earlier_ms": dkv_earlier_ms,
+                    f"{short}_max_abs_err": max(abs_errs[1:]),
                     f"{short}_plain_ms": plain_ms, f"{short}_library_ms": library_ms,
                     f"{short}_bound_ms": bnd_dkv["bound_ms"]})
     # csrc/flash_attn_bwd.cu is on no main path: no trainer takes segment ids
@@ -1806,7 +1846,7 @@ def _perturb(model, seed: int) -> None:
     with torch.no_grad():
         for p in model.parameters():
             if p.ndim >= 2 and p.requires_grad:  # a frozen codebook stays as it is
-                p.add_(0.02 * torch.randn(p.shape, generator=gen))
+                p.add_(0.02 * torch.randn(p.shape, generator=gen).to(p.device))
 
 
 def phase_e2e_fp32():
@@ -2711,11 +2751,12 @@ def _category(name: str) -> str:
                 "other elementwise/copy")
 
 
-def _profile_and_load(step, n: int):
+def _profile_and_load(step, n: int, by_name: Optional[dict] = None):
     """(wall ms, {category: device us}, device events, the card under load)
     of n steps under torch.profiler, then the card's clock, power and
     temperature during two more steps with one nvidia-smi query in flight (a
-    step time read beside a lower clock is the card's, not the code's)."""
+    step time read beside a lower clock is the card's, not the code's).
+    `by_name`, if given, receives {kernel name: device us}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2741,11 +2782,14 @@ def _profile_and_load(step, n: int):
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     for e in events:
         per_cat[_category(e.name)] = per_cat.get(_category(e.name), 0.0) + e.time_range.elapsed_us()
+        if by_name is not None:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     return wall_ms, per_cat, len(events), under_load
 
 
 def _train_throughput(tag: str, cfg: dict, flash: tuple, vq: int, warm: int = 2,
-                      timed: int = 5) -> dict:
+                      timed: int = 5, fp32_flash: tuple = (0, 0),
+                      by_name: Optional[dict] = None) -> dict:
     """Training through the port's trainer on the card from `cfg` (batch and
     dtype as it sets them), on fake null128 clips from its own loader: `warm`
     warm-up steps, `timed` timed steps (d_update_freq 5 puts one
@@ -2753,9 +2797,12 @@ def _train_throughput(tag: str, cfg: dict, flash: tuple, vq: int, warm: int = 2,
     against `flash` = (forwards, dQ and dK/dV each, extra dQ and dK/dV on a
     discriminator step) per step and `vq` VQ searches per step, peak memory,
     then `timed` more steps under torch.profiler for the device's idle share
-    and time by kernel category, and the card under load. In bf16 every
-    flash forward, dQ and dK/dV launch must run the wgmma kernels, in fp32
-    the 3xTF32 kernels (and so none the FMA ones). Returns the numbers."""
+    and time by kernel category (and by kernel name into `by_name`), and the
+    card under load. In bf16 every flash forward, dQ and dK/dV launch of
+    `flash` must run the wgmma kernels, and `fp32_flash` = (forwards, dQ
+    and dK/dV each) per step of an fp32 module inside it (the gptc prior)
+    the 3xTF32 kernels; in fp32 every launch the 3xTF32 kernels (and so
+    none the FMA ones). Returns the numbers."""
     import torch
 
     from video_tokenizer_tpu_torch.ops.attention import (
@@ -2798,13 +2845,18 @@ def _train_throughput(tag: str, cfg: dict, flash: tuple, vq: int, warm: int = 2,
     vq_tc = vq_argmax.launches_tc
     loader_s = statistics.mean(fetch_s)
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    prof_wall_ms, per_cat, n_events, under_load = _profile_and_load(step, timed)
+    prof_wall_ms, per_cat, n_events, under_load = _profile_and_load(step, timed, by_name)
     busy_ms = sum(per_cat.values()) / 1e3
     idle = 1.0 - busy_ms / prof_wall_ms
     mean_s = statistics.mean(times)
     fwd, bwd, bwd_d = flash
-    want = {"flash_attn_fwd": fwd * timed, "flash_attn_bwd_dq": bwd * timed + bwd_d * d_steps,
-            "flash_attn_bwd_dkv": bwd * timed + bwd_d * d_steps, "vq_argmax": vq * timed}
+    p_fwd, p_bwd = fp32_flash
+    require(use_amp or fp32_flash == (0, 0), f"{tag}: fp32_flash is for a bf16 run")
+    want = {"flash_attn_fwd": (fwd + p_fwd) * timed,
+            "flash_attn_bwd_dq": (bwd + p_bwd) * timed + bwd_d * d_steps,
+            "flash_attn_bwd_dkv": (bwd + p_bwd) * timed + bwd_d * d_steps, "vq_argmax": vq * timed}
+    fp32_part = {"flash_attn_fwd": p_fwd * timed, "flash_attn_bwd_dq": p_bwd * timed,
+                 "flash_attn_bwd_dkv": p_bwd * timed}
     finite = all(torch.isfinite(packed).all().item() for _, packed in infos)
     keys, last = infos[-1]
     last = dict(zip(keys, last.tolist()))
@@ -2816,8 +2868,8 @@ def _train_throughput(tag: str, cfg: dict, flash: tuple, vq: int, warm: int = 2,
     # bf16 runs the wgmma forward, dQ and dK/dV kernels on every launch,
     # fp32 never; fp32 runs every forward, dQ and dK/dV on the 3xTF32
     # kernels, and so none on csrc/flash_attn_bwd.cu's FMA kernels
-    want_sm90 = {k: want[k] if use_amp else 0 for k in sm90}
-    want_tf32x3 = {k: 0 if use_amp else want[k] for k in tf32x3}
+    want_sm90 = {k: want[k] - fp32_part[k] if use_amp else 0 for k in sm90}
+    want_tf32x3 = {k: fp32_part[k] if use_amp else want[k] for k in tf32x3}
     log(f"[{tag}] launches over the timed steps {launches} (expect {want}), of which "
         f"the wgmma kernels {sm90} (expect {want_sm90}), the 3xTF32 kernels {tf32x3} "
         f"(expect {want_tf32x3}) and vq_tc_kernel {vq_tc} (expect {vq * timed}); losses "
@@ -2840,6 +2892,7 @@ def _train_throughput(tag: str, cfg: dict, flash: tuple, vq: int, warm: int = 2,
     torch.cuda.empty_cache()
     return {"batch": B, "s_per_step": mean_s, "clips_per_s": B / mean_s, "peak_gib": peak_gb,
             "idle": idle, "loader_s": loader_s, "launches": launches, "tf32x3": tf32x3,
+            "sm90": sm90, "busy_ms_per_step": busy_ms / timed,
             "device_ms_per_step": {c: us / 1e3 / timed for c, us in per_cat.items()},
             "under_load": under_load}
 
@@ -2907,7 +2960,9 @@ def phase_ar_train(tmp: Path, records: dict, real_stats: Path) -> None:
           starts at zero), `epoch-final` saved with no epoch trained; every
           AR trainer below loads it through `vae.checkpoint`;
       (b) one step at batch 1, every dropout 0, card against CPU from the
-          same weights: loss, top-1/top-5 (2 of 1024 tokens), named gradients;
+          same weights, at full width and 8 of the prior's 30 layers (the
+          CPU side of the whole depth took 27.5 and 58.4 s): loss,
+          top-1/top-5 (2 of 1024 tokens), named gradients;
       (c) batch 8 with the configured dropouts: 2 warm-up steps, 5 timed
           (s/step, training tokens/s, clips/s, peak memory), 5 profiled (idle
           share, device time by kernel category), the card under load;
@@ -2946,11 +3001,15 @@ def phase_ar_train(tmp: Path, records: dict, real_stats: Path) -> None:
     clip = np.random.default_rng(SEED + 81).integers(0, 256, (1, 3, 16, 128, 128), dtype=np.uint8)
     batch = {"gt": torch.from_numpy(clip), "label": torch.tensor([5])}
     named = ("tok_embeddings.weight", "abs_pe", "layers.0.attention.wqkv.weight",
-             "layers.15.feed_forward.w2.weight", "layers.29.attention.wo.weight", "output.weight")
+             "layers.4.feed_forward.w2.weight", "layers.7.attention.wo.weight", "output.weight")
     for name in ("larp_ar", "larp_ar_fp"):
         cfg = _ar_cfg(tmp / f"{name}_parity", name, vae_dir, 1)
         cfg["model"]["args"].update(token_dropout_p=0.0, resid_dropout_p=0.0, ffn_dropout_p=0.0,
                                     class_dropout_prob=0.0)
+        # llama-abs-LP's width and heads at 8 of its 30 layers (the zoo name
+        # fixes the depth; the flat registration takes it)
+        cfg["model"] = {"name": "larp_ar",
+                        "args": {**cfg["model"]["args"], "n_layer": 8, "n_head": 20, "dim": 1280}}
         pair = {d: _trainer({**cfg, "save_dir": str(tmp / f"{name}_{d}")}, d)
                 for d in ("cpu", "cuda")}
         cpu, gpu = pair["cpu"], pair["cuda"]
@@ -3129,6 +3188,8 @@ def phase_ar_train(tmp: Path, records: dict, real_stats: Path) -> None:
 
 _MODEL_NEW_CFGS = ("larp_tokenizer_large", "larp_tokenizerf256t1024", "larp_tokenizerf256t768",
                    "larp_tokenizerf256t512")
+_MODEL_NEW_PARITY_DEPTH = {"larp_tokenizer_large": 8, "larp_tokenizerf256t768": 4,
+                           "larp_tokenizerf256t512": 4}
 
 
 def _model_new(tmp: Path, name: str, dtype, seed: int, perturb: bool = True):
@@ -3153,7 +3214,9 @@ def phase_model_new(tmp: Path, records: dict) -> None:
       (a) fp32 (TF32 off), batch 1, the four shipped configs built through
           their yaml (cfgs/larp_tokenizer_large.yaml and
           larp_tokenizerf256t{1024,768,512}.yaml), card against the same
-          weights on the CPU through the plain versions: FSQ indices (and the
+          weights on the CPU through the plain versions, autoencoder_large at
+          8 + 8 of its 24 + 24 layers and f256t768 / t512 at 4 of each
+          stack's 12 (the run's budget; f256t1024a whole): FSQ indices (and the
           first frame's) >= 99% equal; decode_from_bottleneck of the CPU's
           indices within 1e-3 of the scale, or 5x the CPU's own change under a
           1e-6 nudge of proj_in where these random weights amplify rounding
@@ -3206,12 +3269,22 @@ def _model_new_parity(tmp: Path, records: dict) -> dict:
     # that yardstick (measured here on the CPU; the card read 2.4x), and
     # each decoder's first and last blocks are held on the CPU's own inputs
     # to 1e-5 of their output's scale, where no depth amplifies anything
+    # (the budget: the CPU forwards of the three deep configs run at cut depth,
+    # 8 of autoencoder_large's 24 + 24 layers and 4 of each f256t768 / t512
+    # stack's 12, at full width; the bf16 phases below keep the whole depth)
     weights, layers = {}, {}
     x = torch.rand(1, 3, 16, 128, 128, generator=torch.Generator().manual_seed(SEED + 100))
     for i, name in enumerate(_MODEL_NEW_CFGS):
-        model, layers[name] = _model_new(tmp, name, torch.float32, SEED + 101 + 2 * i)
+        model, full_layers = _model_new(tmp, name, torch.float32, SEED + 101 + 2 * i)
         model.eval()
         n_params = sum(p.numel() for p in model.parameters())
+        if name in ("larp_tokenizer_large", "larp_tokenizerf256t768"):
+            weights[name] = {k: v.clone() for k, v in model.state_dict().items()}
+        depth = _MODEL_NEW_PARITY_DEPTH.get(name)
+        if depth is not None:
+            _cut_depth(model, depth)
+        stacks = (model.encoder, getattr(model, "encoder1", None), model.decoder)
+        layers[name] = sum(m.blocks.depth for m in stacks if m is not None)
         blocks = model.decoder.blocks
         probe_names = ("attn_0", "ffd_0", f"attn_{blocks.depth - 1}", f"ffd_{blocks.depth - 1}")
         probes = {}
@@ -3252,7 +3325,8 @@ def _model_new_parity(tmp: Path, records: dict) -> dict:
         rec_tol = max(1e-3, 5 * yardstick)
         log(f"[model_new fp32] {name} ({_load_cfg(name, tmp, 1)['model']['name']}, "
             f"patch {model.patch_size}, {n_params:,} params, {model.num_latent_tokens} latent "
-            f"tokens, FSQ-{model.codebook_size}), batch 1, TF32 off: CPU plain path {cpu_s:.1f} s; "
+            f"tokens, FSQ-{model.codebook_size}), batch 1, TF32 off, "
+            f"{layers[name]} of its {full_layers} layers: CPU plain path {cpu_s:.1f} s; "
             f"FSQ indices agree {', '.join(f'{a:.4%}' for a in agree)} (tol >= 99%); "
             f"decode_from_bottleneck(CPU indices) max|card-cpu| {rec_err:.3e} of the scale "
             f"{scale:.4g} (tol {rec_tol:.3e}: the CPU's own change under proj_in x (1 + 1e-6) "
@@ -3271,9 +3345,7 @@ def _model_new_parity(tmp: Path, records: dict) -> dict:
         records[f"model_new_{name}"] = {
             "params": n_params, "cpu_s": cpu_s, "index_agree": min(agree), "rec_err_rel": rec_err,
             "yardstick": yardstick, "block_err_rel": max(block_errs.values()),
-            "flash_per_forward": n_fwd}
-        if name in ("larp_tokenizer_large", "larp_tokenizerf256t768"):
-            weights[name] = {k: v.cpu() for k, v in model.state_dict().items()}
+            "flash_per_forward": n_fwd, "layers": layers[name], "full_layers": full_layers}
         del model, got, dec_cpu_idx, dec_own, probes
         torch.cuda.empty_cache()
     return weights
@@ -3724,7 +3796,10 @@ def phase_fvd(tmp: Path, records: dict) -> Path:
         f"with eval: {train_s:.1f} s; eval rFVD {rfvd}; best checkpoints {best}")
     require(len(rfvd) == 2 and all(math.isfinite(v) for v in rfvd), f"eval rFVD lines {rfvd}")
     require(not re.search(r"FVD.*failed|failed.*FVD", text), "a failed FVD line in the log")
-    require(best == [f"best_fvd_{min(rfvd):.2f}"], f"best checkpoints {best} for {rfvd}")
+    # the directory's name has the FVD to 2 decimals, the log line to 3: the
+    # best is the lower epoch's within both roundings (0.005 + 0.0005)
+    require(len(best) == 1 and abs(float(best[0][len("best_fvd_"):]) - min(rfvd)) <= 0.0055 + 1e-9,
+            f"best checkpoints {best} for {rfvd}")
     out["train_rfvd"] = rfvd
     out["train_s"] = train_s
     torch.cuda.empty_cache()
@@ -4285,6 +4360,417 @@ def _sq_train(tmp: Path, records: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# the LARP recipe's flags (scripts/train_larp_tokenizer.sh), its data paths aside
+RECIPE_OPTS = [
+    "model.args.bottleneck_token_num", "1024", "model.args.encoder_hidden_size", "768",
+    "model.args.decoder_hidden_size", "768", "model.args.encoder_depth", "12",
+    "model.args.decoder_depth", "12", "model.args.encoder_num_heads", "12",
+    "model.args.decoder_num_heads", "12", "model.args.bottleneck.args.regularizer.name", "vq",
+    "model.args.prior_model.name", "gptc-S", "loss.args.disc_tran_hidden_size", "512",
+    "loss.args.disc_tran_n_heads", "8", "loss.args.disc_tran_n_layers", "12",
+    "optimizer.args.lr", "0.0001", "optimizer.loss_args.lr", "0.00003",
+    "optimizer.warmup_epoch", "8", "optimizer.min_lr_mult", "0.01",
+    "optimizer.prior_lr_mult", "50.0", "optimizer.lr_type", "cosine", "use_amp", "true",
+    "vis_epoch", "1", "eval_epoch", "1", "max_epoch", "150", "latest_interval", "1",
+    "save_best", "true",
+]
+
+
+def _recipe_argv(out: Path, batch: int, seed: int, *opts: str) -> list:
+    """train.py's arguments for the LARP recipe on null128 clips (16 x 128 x
+    128, no loader workers), then `opts` (a later key wins)."""
+    return ["--cfg", str(ROOT / "cfgs" / "larp_tokenizer.yaml"), "--manualSeed", str(seed),
+            "--csv_file", "null128", "--out_path", str(out), "--name", "larp_tokenizer",
+            "-b", str(batch), "-j", "0", "--frame_num", "16", "--input_size", "128",
+            "--opts", "test_dataset.csv_paths.ucf101_val", "null128", *RECIPE_OPTS, *opts]
+
+
+def _recipe_cfg(out: Path, batch: int, *opts: str) -> dict:
+    """The recipe's config as train.py builds it, one epoch, seeded."""
+    from video_tokenizer_tpu_torch.train import make_cfg, parse_args
+
+    return make_cfg(parse_args(_recipe_argv(out, batch, SEED, "max_epoch", "1", *opts))).to_dict()
+
+
+def _group_drift(a, b, step: int) -> dict:
+    """{group: share of its weights in trainer `a` more than 0.01 of the
+    group's learning rate at `step` away from trainer `b`'s}. Adam's first
+    update is about +-lr wherever |g| >> eps, so a weight whose gradient is
+    within rounding of 0 may flip; a wrong learning rate moves a whole group."""
+    pb = dict(b.model.named_parameters())
+    names = {id(p): n for n, p in a.model.named_parameters()}
+    out = {}
+    for g in a.opt_g.param_groups:
+        lr = a.g_sched(step) * g["lr_mult"]
+        off = sum(((p.detach().cpu() - pb[names[id(p)]].detach().cpu()).abs() > 0.01 * lr)
+                  .sum().item() for p in g["params"])
+        out[g["name"]] = off / sum(p.numel() for p in g["params"])
+    return out
+
+
+def phase_prior(tmp: Path, records: dict) -> None:
+    """Phase 22: LARP's learned AR prior (gptc-S, 12 layers of 384, 6 heads of
+    64) co-trained as scripts/train_larp_tokenizer.sh trains it, fp32 inside
+    the bf16 tokenizer, at 50x the learning rate:
+      (a) gptc-S in fp32 (TF32 off), perturbed: `compute_prior_loss` from
+          8 x 1024 latents and every gradient (its input's too), card against
+          CPU; exactly 12 3xTF32 forwards, 12 dQ and 12 dK/dV; its forward
+          and forward + backward timed; `decode_step` (6 rows, then 10 single
+          steps) against the card's own full forward;
+      (b) the recipe's attention shapes are phases 2 and 10's cases
+          `fp32_gptc_prior` (B = 8, S = 1023, H = 6, D = 64, causal, fp32) and
+          `disc512` (B = 8, S = 1025, H = 8, D = 64, bf16); their times are
+          copied here;
+      (c) one fp32 step of the recipe through the trainer at batch 1, card
+          against CPU, the tokenizer at 2 + 2 of its 12 + 12 layers, gptc-S
+          and the 512 / 8 / 12 discriminator whole, `prior_lr_mult` 50 and
+          `emb_lr_mult` 2 (three learning-rate groups): losses, VQ indices,
+          named gradients, the parameters after the step per group; then a
+          `grad_accum_steps` 2 step at batch 8 (deterministic VQ, the
+          discriminator gated off) against the plain step on the card;
+      (d) bf16 training of the recipe at full width, batch 8, five steps
+          (one with a discriminator step): s/step, peak memory, idle share,
+          device time by category and the prior's share, exact launch counts
+          (60 wgmma forwards, 36 wgmma dQ and dK/dV, 24 more on the
+          discriminator step; 12 + 12 + 12 3xTF32 launches for the prior; 1 VQ);
+      (e) `train.py` with the script's flags (and `optimizer.emb_lr_mult 2`,
+          so that the emb group exists) on null128 for one epoch (16 steps,
+          eval and vis), resumed from its `epoch-last` (the three groups, the
+          step, the Adam state equal), its `epoch-final` through
+          `reconstruct` and as the AR trainer's frozen tokenizer."""
+    rec = records["prior"] = {}
+    _prior_parity(rec)
+    for key, name in (("fwd", "flash_attn_fwd_tf32x3"), ("dq", "flash_attn_bwd_dq_tf32x3"),
+                      ("dkv", "flash_attn_bwd_dkv_tf32x3")):
+        r = records[name]
+        prefix = "fp32_gptc_prior" if key == "fwd" else "gptc_prior"
+        rec[f"flash_{key}"] = {k[len(prefix) + 1:]: v for k, v in r.items() if k.startswith(prefix)}
+    for key, name in (("fwd", "flash_attn_fwd"), ("dq", "flash_attn_bwd_dq"),
+                      ("dkv", "flash_attn_bwd_dkv")):
+        rec[f"disc512_{key}"] = {k[len("disc512_"):]: v for k, v in records[name].items()
+                                 if k.startswith("disc512_")}
+    _recipe_step_parity(tmp, rec)
+    _recipe_accum(tmp, rec)
+    _recipe_throughput(tmp, rec)
+    _recipe_cli(tmp, rec)
+
+
+def _prior_parity(rec: dict) -> None:
+    import numpy as np
+    import torch
+
+    import video_tokenizer_tpu_torch.models  # noqa: F401  (registers gptc-S)
+    from video_tokenizer_tpu_torch.ops.attention import (
+        flash_attn_bwd_dkv, flash_attn_bwd_dq, flash_attn_fwd,
+    )
+    from video_tokenizer_tpu_torch.registry import models
+
+    args = {"n_ind": 8, "max_seq_len": 1024, "embd_pdrop": 0.0, "resid_pdrop": 0.0}
+    pair = {d: models.make({"name": "gptc-S", "args": args},
+                           args={"generator": torch.Generator().manual_seed(SEED + 220)})
+            for d in ("cpu", "cuda")}
+    _perturb(pair["cpu"], SEED + 221)
+    pair["cuda"].load_state_dict(pair["cpu"].state_dict())
+    pair["cuda"].cuda()
+    x = torch.from_numpy(np.random.default_rng(SEED + 222).standard_normal((8, 1024, 8))
+                         .astype(np.float32))
+    kernels = (flash_attn_fwd, flash_attn_bwd_dq, flash_attn_bwd_dkv)
+    loss, xs, secs = {}, {}, {}
+    for d, m in pair.items():
+        xs[d] = x.to(d, copy=True).requires_grad_()
+        for k in kernels:
+            k.launches = k.launches_tf32x3 = 0
+        t0 = time.perf_counter()
+        loss[d] = m.compute_prior_loss(xs[d], train=True)
+        loss[d].backward()
+        if d == "cuda":
+            torch.cuda.synchronize()
+        secs[d] = time.perf_counter() - t0
+    counts = {k.__name__: (k.launches, k.launches_tf32x3) for k in kernels}
+    n_params = sum(p.numel() for p in pair["cpu"].parameters())
+    loss_rel = abs(loss["cuda"].item() - loss["cpu"].item()) / abs(loss["cpu"].item())
+    gp, cp = dict(pair["cuda"].named_parameters()), dict(pair["cpu"].named_parameters())
+    top = max(c.grad.abs().max().item() for c in cp.values())
+    worst, worst_name, key_bias = 0.0, "", 0.0
+    for name, c in cp.items():
+        g = gp[name].grad
+        require(g is not None and c.grad is not None, f"prior: no gradient for {name}")
+        if name.endswith("key.bias"):  # 0 in exact arithmetic: softmax is shift invariant
+            key_bias = max(key_bias, (g.cpu() - c.grad).abs().max().item() / top)
+            continue
+        rel = _rel_max(g, c.grad)
+        if rel > worst:
+            worst, worst_name = rel, name
+    x_rel = _rel_max(xs["cuda"].grad, xs["cpu"].grad)
+    log(f"[prior fp32] gptc-S {n_params:,} params, compute_prior_loss at B = 8 from 1024 "
+        f"latents, TF32 off: CPU {secs['cpu']:.1f} s, card {secs['cuda']:.2f} s (first call); "
+        f"loss {loss['cuda'].item():.6g}/{loss['cpu'].item():.6g} (card/CPU, relative "
+        f"{loss_rel:.2e}, tol 2e-4); gradients max|card-cpu|/max|cpu| {worst:.2e} ({worst_name}), "
+        f"input {x_rel:.2e}, key biases {key_bias:.2e} of the largest gradient (tol 1e-3); "
+        f"launches (all, 3xTF32) {counts} (expect 12 each, all 3xTF32)")
+    require(n_params == 21_694_088, f"prior: gptc-S has {n_params} parameters")
+    require(math.isfinite(loss["cuda"].item()) and loss_rel <= 2e-4, f"prior: loss {loss_rel}")
+    require(max(worst, x_rel, key_bias) <= 1e-3, f"prior: gradients {worst}, {x_rel}, {key_bias}")
+    require(all(v == (12, 12) for v in counts.values()), f"prior: launches {counts}")
+
+    m, xg = pair["cuda"], xs["cuda"].detach()
+    fwd_ms = median_ms(lambda: m.compute_prior_loss(xg), iters=5)
+    xr = xg.clone().requires_grad_()
+
+    def fwd_bwd():
+        m.compute_prior_loss(xr, train=True).backward()
+
+    step_ms = median_ms(fwd_bwd, iters=5)
+    gemm_flops = 2 * 8 * 1023 * sum(p.numel() for n, p in m.named_parameters()
+                                    if n.endswith("weight") and p.ndim == 2)
+    log(f"[prior fp32] card: forward (compute_prior_loss) {fwd_ms:.2f} ms, forward + backward "
+        f"{step_ms:.2f} ms (CUDA events, median of 5); its GEMMs {gemm_flops * 3 / 1e12:.3f} "
+        f"TFLOP forward + backward, {gemm_flops * 3 / step_ms / 1e9:.1f} TFLOP/s over the whole")
+
+    # decode_step: 6 rows, then 10 single steps, against the card's own forward
+    with torch.no_grad():
+        x16 = xg[:, :16]
+        full, _ = m(x16)
+        cache = m.init_cache(8, 16)
+        worst_dec = 0.0
+        for a, b in [(0, 6)] + [(t, t + 1) for t in range(6, 16)]:
+            pred, cache = m.decode_step(x16[:, a:b], a, cache)
+            worst_dec = max(worst_dec, _rel_max(pred, full[:, a:b]))
+    log(f"[prior fp32] decode_step (6 rows, then 10 steps; plain fp32 attention over the cache) "
+        f"against the full forward (3xTF32 flash): max|diff|/max|full| {worst_dec:.2e} (tol 1e-4)")
+    require(worst_dec <= 1e-4, f"prior: decode_step differs by {worst_dec}")
+    rec.update(params=n_params, parity_loss_rel=loss_rel, parity_grad_rel=worst,
+               parity_input_grad_rel=x_rel, parity_cpu_s=secs["cpu"], fwd_ms=fwd_ms,
+               fwd_bwd_ms=step_ms, gemm_tflop_fwd_bwd=gemm_flops * 3 / 1e12,
+               decode_rel=worst_dec)
+    del pair, m, xs, xg, xr
+    torch.cuda.empty_cache()
+
+
+def _recipe_step_parity(tmp: Path, rec: dict) -> None:
+    import numpy as np
+    import torch
+
+    cfg = _recipe_cfg(tmp / "recipe_parity", 1, "use_amp", "false", "model.args.encoder_depth",
+                      "2", "model.args.decoder_depth", "2", "loss.args.d_update_freq", "1",
+                      "optimizer.emb_lr_mult", "2.0")
+    pair = {d: _trainer({**cfg, "save_dir": str(tmp / f"recipe_{d}")}, d) for d in ("cpu", "cuda")}
+    cpu, gpu = pair["cpu"], pair["cuda"]
+    groups = [(g["name"], g["lr_mult"]) for g in cpu.opt_g.param_groups]
+    require(groups == [("base", 1.0), ("prior", 50.0), ("emb", 2.0)], f"recipe groups {groups}")
+    _perturb(cpu.model, SEED + 230)
+    _perturb(cpu.disc, SEED + 231)
+    gpu.model.load_state_dict(cpu.model.state_dict())
+    gpu.loss_mod.load_state_dict(cpu.loss_mod.state_dict())
+    clip = np.random.default_rng(SEED + 232).integers(0, 256, (1, 3, 16, 128, 128), dtype=np.uint8)
+    reps, infos, secs = {}, {}, {}
+    for device, tr in pair.items():
+        hook = tr.model.bottleneck.register_forward_hook(
+            lambda m, i, o, d=device: reps.__setitem__(d, o["bottleneck_rep"].cpu()))
+        t0 = time.perf_counter()
+        keys, packed = tr.train_step({"gt": torch.from_numpy(clip)})
+        infos[device] = dict(zip(keys, packed.tolist()))
+        secs[device] = time.perf_counter() - t0
+        hook.remove()
+    agree = (reps["cuda"] == reps["cpu"]).float().mean().item()
+    loss_keys = ("loss", "rec_loss", "perceptual_loss", "g_loss", "d_loss", "loss_q",
+                 "loss_latent_ce", "logits_real", "logits_fake")
+    loss_err = max(abs(infos["cuda"][k] - infos["cpu"][k]) / max(abs(infos["cpu"][k]), 1e-6)
+                   for k in loss_keys)
+    log(f"[recipe fp32] tokenizer at 2 + 2 layers {sum(p.numel() for p in cpu.model.parameters()):,}"
+        f" params (the prior {sum(p.numel() for p in cpu.model.prior.parameters()):,}) + "
+        f"discriminator 512/8/12 {sum(p.numel() for p in cpu.disc.parameters()):,} + LPIPS, "
+        f"batch 1, TF32 off, groups {groups}: CPU step {secs['cpu']:.1f} s, card step "
+        f"{secs['cuda']:.2f} s; VQ indices agree on {agree:.4%} (tol >= 99.9%); losses "
+        + ", ".join(f"{k} {infos['cuda'][k]:.6g}/{infos['cpu'][k]:.6g}" for k in loss_keys)
+        + f" (card/CPU; largest relative difference {loss_err:.2e}, tol 2e-4)")
+    require(set(infos["cuda"]) == set(infos["cpu"]), "recipe fp32: info keys differ")
+    require(all(np.isfinite(v) for v in infos["cuda"].values()), "recipe fp32: non-finite info")
+    require(agree >= 0.999, f"recipe fp32: VQ agreement {agree}")
+    require(loss_err <= 2e-4, f"recipe fp32: losses differ by {loss_err}")
+    worst = 0.0
+    for tag, gm, cm, names in (
+            ("model", gpu.model, cpu.model, (
+                "x_embedder.proj.weight", "encoder.blocks.0.attn.qkv.weight",
+                "encoder.blocks.1.mlp.fc2.weight", "encoder_latent_query_embed",
+                "bottleneck.in_linear.weight", "prior.input_proj.weight", "prior.pos_emb",
+                "prior.blocks.0.query.weight", "prior.blocks.11.mlp_proj.weight",
+                "prior.head.weight", "decoder.blocks.1.mlp.fc2.weight",
+                "final_layer.linear.weight")),
+            ("disc", gpu.disc, cpu.disc, ("transformer_encoder.blocks.11.attn.qkv.weight",
+                                          "x_embedder.proj.weight"))):
+        gp, cp = dict(gm.named_parameters()), dict(cm.named_parameters())
+        for pname in names:
+            g, c = gp[pname].grad, cp[pname].grad
+            require(g is not None and c is not None, f"recipe fp32: no gradient for {pname}")
+            rel = _rel_max(g, c)
+            log(f"[recipe fp32] grad {tag} {pname}: max|card-cpu|/max|cpu| {rel:.2e} "
+                f"(max|g| {c.abs().max().item():.3e}; tol 1e-3)")
+            require(math.isfinite(rel), f"recipe fp32: gradient of {pname} not finite")
+            worst = max(worst, rel)
+    require(worst <= 1e-3, f"recipe fp32: gradients differ by {worst} of their scale")
+    drift = _group_drift(gpu, cpu, 0)
+    log(f"[recipe fp32] parameters after the step, card against CPU: share of each group's "
+        f"weights more than 0.01 of its learning rate apart {drift} (tol 1e-3)")
+    require(all(v <= 1e-3 for v in drift.values()), f"recipe fp32: parameters drift {drift}")
+    rec.update(step_parity_loss_rel=loss_err, step_parity_grad_rel=worst,
+               step_parity_drift=drift, step_parity_cpu_s=secs["cpu"])
+    del pair, cpu, gpu
+    torch.cuda.empty_cache()
+
+
+def _recipe_accum(tmp: Path, rec: dict) -> None:
+    """`grad_accum_steps` 2 at batch 8 against the plain step at batch 8 on
+    the card: fp32, 2 + 2 tokenizer layers, deterministic VQ (a stochastic
+    one draws one seed per microbatch), the discriminator gated off (the
+    first step of a d_update_freq 5 cycle)."""
+    import numpy as np
+    import torch
+
+    opts = ("use_amp", "false", "model.args.encoder_depth", "2", "model.args.decoder_depth", "2",
+            "model.args.bottleneck.args.regularizer.args.stochastic", "false",
+            "optimizer.emb_lr_mult", "2.0")
+    plain = _trainer(_recipe_cfg(tmp / "recipe_plain", 8, *opts), "cuda")
+    accum = _trainer(_recipe_cfg(tmp / "recipe_accum", 8, *opts, "grad_accum_steps", "2"), "cuda")
+    require(accum.grad_accum == 2 and plain.loss_mod.d_update_freq == 5, "recipe accum: config")
+    _perturb(plain.model, SEED + 240)
+    _perturb(plain.disc, SEED + 241)
+    accum.model.load_state_dict(plain.model.state_dict())
+    accum.loss_mod.load_state_dict(plain.loss_mod.state_dict())
+    disc0 = {n: p.detach().clone() for n, p in plain.disc.named_parameters()}
+    clip = np.random.default_rng(SEED + 242).integers(0, 256, (8, 3, 16, 128, 128), dtype=np.uint8)
+    infos = {}
+    for tag, tr in (("plain", plain), ("accum", accum)):
+        keys, packed = tr.train_step({"gt": torch.from_numpy(clip)})
+        infos[tag] = dict(zip(keys, packed.tolist()))
+    torch.cuda.synchronize()
+    loss_keys = ("loss", "loss_latent_ce", "loss_q", "rec_loss", "perceptual_loss", "g_loss")
+    loss_err = max(abs(infos["accum"][k] - infos["plain"][k]) / abs(infos["plain"][k])
+                   for k in loss_keys)
+    drift = _group_drift(accum, plain, 0)
+    d_moved = [n for tr in (plain, accum) for n, p in tr.disc.named_parameters()
+               if not torch.equal(p, disc0[n])]
+    log(f"[recipe accum] grad_accum_steps 2 at batch 8 against the plain step at batch 8 (fp32, "
+        f"2 + 2 tokenizer layers, deterministic VQ, discriminator gated off): losses "
+        + ", ".join(f"{k} {infos['accum'][k]:.6g}/{infos['plain'][k]:.6g}" for k in loss_keys)
+        + f" (largest relative difference {loss_err:.2e}, tol 1e-4); share of each group's "
+        f"weights more than 0.01 of its learning rate apart {drift} (tol 1e-3); discriminator "
+        f"tensors moved: {len(d_moved)} (expect 0)")
+    require(loss_err <= 1e-4, f"recipe accum: losses differ by {loss_err}")
+    require(all(v <= 1e-3 for v in drift.values()), f"recipe accum: parameters drift {drift}")
+    require(not d_moved, f"recipe accum: the gated-off discriminator moved: {d_moved[:3]}")
+    rec.update(accum_loss_rel=loss_err, accum_drift=drift)
+    del plain, accum
+    torch.cuda.empty_cache()
+
+
+def _recipe_throughput(tmp: Path, rec: dict) -> None:
+    by_name: dict = {}
+    run = _train_throughput("recipe bf16", _recipe_cfg(tmp / "recipe_bf16", 8), (60, 36, 24), 1,
+                            fp32_flash=(12, 12), by_name=by_name)
+    timed = 5
+    busy = run["busy_ms_per_step"]
+    prior_flash = sum(us for n, us in by_name.items() if "tf32x3" in n) / 1e3 / timed
+    # the GEMMs with fp32 operands (cuBLAS's `..._f32f32_f32f32_f32_...` and
+    # sgemm kernels): the prior's and the bottleneck's two small projections;
+    # the tokenizer and the discriminator compute in bf16
+    fp32_gemm = {n: us / 1e3 / timed for n, us in by_name.items()
+                 if _category(n) == "gemm" and re.search(r"f32f32|sgemm", n.lower())}
+    top = sorted(fp32_gemm.items(), key=lambda kv: -kv[1])[:6]
+    prior_share = rec["fwd_bwd_ms"] / busy
+    log(f"[recipe bf16] device busy {busy:.1f} ms a step; the prior's 3xTF32 flash kernels "
+        f"{prior_flash:.2f} ms a step ({prior_flash / busy:.1%}); GEMMs with fp32 operands "
+        f"{sum(fp32_gemm.values()):.2f} ms a step ({sum(fp32_gemm.values()) / busy:.1%}), the "
+        f"largest: " + "; ".join(f"{n[:90]} {ms:.2f} ms" for n, ms in top)
+        + f"; the prior's forward + backward alone (phase 22 (a), fp32, B = 8) "
+        f"{rec['fwd_bwd_ms']:.2f} ms = {prior_share:.1%} of the busy step")
+    rec["train_bf16"] = {k: run[k] for k in ("s_per_step", "clips_per_s", "peak_gib", "idle",
+                                             "loader_s", "busy_ms_per_step",
+                                             "device_ms_per_step", "launches", "tf32x3",
+                                             "sm90")}
+    rec["train_bf16"].update(prior_flash_ms=prior_flash, fp32_gemm_ms=sum(fp32_gemm.values()),
+                             prior_share=prior_share)
+
+
+def _recipe_cli(tmp: Path, rec: dict) -> None:
+    import numpy as np
+    import torch
+
+    from video_tokenizer_tpu_torch.reconstruct import reconstruct
+    from video_tokenizer_tpu_torch.registry import trainers
+    from video_tokenizer_tpu_torch.train import main as train_main
+    from video_tokenizer_tpu_torch.utils.model_io import load_tokenizer_checkpoint
+
+    out = tmp / "recipe_cli"
+    t0 = time.perf_counter()
+    tr1 = train_main(["--device", "cuda", "--tag", "single_host",
+                      *_recipe_argv(out, 8, 66667, "max_epoch", "1", "optimizer.emb_lr_mult",
+                                    "2.0")])
+    cli_s = time.perf_counter() - t0
+    run = Path(tr1.save_dir)
+    log_text = (run / "log.txt").read_text()
+    groups = [(g["name"], g["lr_mult"], len(g["params"])) for g in tr1.opt_g.param_groups]
+    lines = [line.split("] ", 1)[-1] for line in log_text.splitlines()]
+    log(f"[recipe cli] train.py with the script's flags on null128, batch 8, one epoch: "
+        f"{cli_s:.1f} s, {tr1.step} steps, groups {groups}; " + " | ".join(
+            line[:160] for line in lines if line.startswith(("Epoch 1 training", "eval ")))
+        + "; train " + ", ".join(
+            kv for line in lines if line.startswith("Epoch 1,") for kv in line.split(" ")
+            if kv.startswith(("loss=", "loss_latent_ce=", "psnr=")))[:120])
+    require(tr1.step == 16, f"recipe cli: {tr1.step} steps")
+    require([g[:2] for g in groups] == [("base", 1.0), ("prior", 50.0), ("emb", 2.0)],
+            f"recipe cli: groups {groups}")
+    require("nan" not in log_text.lower(), "recipe cli: NaN in the log")
+    require((run / "vis" / "epoch_1.png").exists(), "recipe cli: no vis grid")
+    require(np.isfinite(float((run / "results.csv").read_text().splitlines()[1].split(",")[2])),
+            "recipe cli: train loss not finite")
+
+    # resume from epoch-last: the groups, the step and Adam's state
+    tr2 = trainers.make({"name": tr1.cfg["trainer"]}, args={"cfg": tr1.cfg, "device": "cuda"})
+    tr2.make_datasets()
+    tr2.make_model()
+    require(tr2.try_resume(), "recipe cli: no epoch-last to resume from")
+    same = tr2.step == tr1.step and len(tr2.opt_g.param_groups) == len(tr1.opt_g.param_groups)
+    for g1, g2 in zip(tr1.opt_g.param_groups, tr2.opt_g.param_groups):
+        same &= (g1["name"], g1["lr_mult"]) == (g2["name"], g2["lr_mult"])
+        for p1, p2 in zip(g1["params"], g2["params"]):
+            s1, s2 = tr1.opt_g.state[p1], tr2.opt_g.state[p2]
+            same &= torch.equal(p1, p2) and all(torch.equal(s1[k], s2[k])
+                                               for k in ("exp_avg", "exp_avg_sq", "step"))
+    keys, packed = tr2.train_step(next(tr2.train_loader(2)))
+    log(f"[recipe cli] resumed from epoch-last: step {tr2.step - 1}, groups, parameters and "
+        f"Adam state equal to the run's: {same}; the next step's loss "
+        f"{dict(zip(keys, packed.tolist()))['loss']:.4f}")
+    require(same, "recipe cli: the resumed state differs from the run's")
+    require(torch.isfinite(packed).all().item(), "recipe cli: the resumed step is not finite")
+    del tr1, tr2
+    torch.cuda.empty_cache()
+
+    # epoch-final: reconstruct, and the AR trainer's frozen tokenizer
+    final = run / "epoch-final"
+    model = load_tokenizer_checkpoint(str(final), dtype=torch.bfloat16, device="cuda")
+    clips = torch.from_numpy(np.random.default_rng(SEED + 250).random(
+        (2, 3, 16, 128, 128), dtype=np.float32)).cuda()
+    recon = reconstruct(model, clips)
+    require(model.prior is not None and recon.shape == clips.shape
+            and torch.isfinite(recon).all().item(), "recipe cli: epoch-final does not reconstruct")
+    del model
+    cfg = _ar_cfg(tmp / "recipe_ar", "larp_ar", final, 2)
+    cfg["model"] = {"name": "larp_ar", "args": {**cfg["model"]["args"], "n_layer": 2,
+                                                "n_head": 20, "dim": 1280}}
+    ar = _trainer(cfg, "cuda")
+    keys, packed = ar.train_step(next(ar.train_loader(1)))
+    log(f"[recipe cli] epoch-final reconstructs (bf16, 2 clips, max {recon.max().item():.3f}) and "
+        f"feeds the AR trainer as its frozen tokenizer (prior loaded: "
+        f"{ar.vae.prior is not None}; a 2-layer AR step's loss "
+        f"{dict(zip(keys, packed.tolist()))['loss']:.4f})")
+    require(ar.vae.prior is not None and torch.isfinite(packed).all().item(),
+            "recipe cli: the AR trainer's step on epoch-final")
+    rec["cli"] = {"seconds": cli_s, "steps": 16}
+    del ar
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not (ROOT / "video_tokenizer_tpu_torch").is_dir():
         print("chip_smoke.py: the video_tokenizer_tpu_torch package is not beside this script",
@@ -4343,6 +4829,7 @@ def main() -> int:
         run(phase_ar_train, Path(tmp), records, real_stats)
         run(phase_model_new, Path(tmp), records)
         run(phase_stat_lattice, Path(tmp), records)
+        run(phase_prior, Path(tmp), records)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 
     sources = {
@@ -4404,6 +4891,7 @@ def main() -> int:
     print(json.dumps({"fvd": records["fvd"]}))
     print(json.dumps({"stat_lattice": {k: records[k] for k in (
         "larp_sq", "larp_fsq", "stat", "train_stat_bf16", "train_sq_bf16", "vq_argmax_leech")}}))
+    print(json.dumps({"prior": records["prior"]}))
     print(json.dumps({"sampling_tokens_per_s": records["sampling"],
                       "sampling_device_step_ms": records["sampling_device_step_ms"],
                       "sampling_kernels_per_step": records["sampling_kernels_per_step"],

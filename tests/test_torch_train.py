@@ -117,10 +117,18 @@ def test_lr_schedule_follows_jax():
 
 
 def test_unported_options_raise(tmp_path):
-    for over in ({"grad_accum_steps": 2}, {"mesh_model": 2}, {"param_placement": "fsdp"}):
+    for over in ({"mesh_model": 2}, {"param_placement": "fsdp"}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             trainers.make({"name": "larp_tokenizer_trainer"},
                           args={"cfg": trainer_cfg(tmp_path, **over), "device": "cpu"})
+    # gradient accumulation and the per-group learning rates, ported since, build
+    cfg = trainer_cfg(tmp_path, grad_accum_steps=2)
+    cfg["optimizer"]["prior_lr_mult"], cfg["optimizer"]["emb_lr_mult"] = 50.0, 2.0
+    tr = trainers.make({"name": "larp_tokenizer_trainer"}, args={"cfg": cfg, "device": "cpu"})
+    tr.make_datasets()
+    tr.make_model()
+    assert tr.grad_accum == 2
+    assert [g["name"] for g in tr.opt_g.param_groups] == ["base", "emb"]
     # the STAT trainer, ported since, builds
     from video_tokenizer_tpu_torch.trainers import LARPTokenizerTrainerStat
 
@@ -138,12 +146,14 @@ def test_unported_options_raise(tmp_path):
         "cfg": ar_trainer_cfg(tmp_path, fvd_real_stats_path="real_stats.pkl"), "device": "cpu"})
     tr.make_datasets()
     tr.make_model()
-    cfg = trainer_cfg(tmp_path)
-    cfg["loss"]["args"]["r1_gp_weight"] = 1.0
-    tr = trainers.make({"name": "larp_tokenizer_trainer"}, args={"cfg": cfg, "device": "cpu"})
-    tr.make_datasets()
-    with pytest.raises(NotImplementedError, match="R1"):
-        tr.make_model()
+    # what still raises in tokenizer training: R1 and spectral_norm
+    for key, value, match in (("r1_gp_weight", 1.0, "R1"), ("spectral_norm", True, "spectral")):
+        cfg = trainer_cfg(tmp_path)
+        cfg["loss"]["args"][key] = value
+        tr = trainers.make({"name": "larp_tokenizer_trainer"}, args={"cfg": cfg, "device": "cpu"})
+        tr.make_datasets()
+        with pytest.raises(NotImplementedError, match=match):
+            tr.make_model()
 
 
 def test_train_cli_runs_one_short_epoch_on_the_cpu(tmp_path):

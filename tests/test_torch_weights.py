@@ -79,13 +79,25 @@ def test_unported_branches_name_their_roadmap_item():
     # unknown one is refused by name
     with pytest.raises(ValueError, match="bottleneck_type"):
         LARPTokenizer(**{**TINY_ARGS, "bottleneck_type": "kl"})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LARPTokenizer(**{**TINY_ARGS, "prior_model": {"name": "gptc-S"}})
+    # the gptc prior, skl and the bottleneck norms are ported
+    # (tests/test_torch_gptc.py, tests/test_torch_bottleneck_norms.py); an
+    # unknown norm is refused by name
+    assert LARPTokenizer(**{**TINY_ARGS, "prior_model": {"name": "gptc-XXS"}}).prior is not None
     skl = {"name": "bottleneck", "args": {"bottleneck_dim": 8,
                                           "regularizer": {"name": "skl", "args": {}}}}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LARPTokenizer(**{**TINY_ARGS, "bottleneck": skl})
-    bn = {"name": "bottleneck", "args": {"bottleneck_dim": 8, "norm": "bn_b",
-                                         "regularizer": {"name": "vq", "args": {"codebook_size": 64}}}}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LARPTokenizer(**{**TINY_ARGS, "bottleneck": bn})  # the BatchNorm bottleneck norms
+    assert LARPTokenizer(**{**TINY_ARGS, "bottleneck": skl}).bottleneck.in_linear.weight.shape[0] == 16
+    for norm in ("bn_b", "bn_bn", "ln_nd"):
+        bn = {"name": "bottleneck", "args": {"bottleneck_dim": 8, "norm": norm, "regularizer": {
+            "name": "vq", "args": {"codebook_size": 64}}}}
+        LARPTokenizer(**{**TINY_ARGS, "bottleneck": bn})
+    bn["args"]["norm"] = "gn"
+    with pytest.raises(ValueError, match="gn"):
+        LARPTokenizer(**{**TINY_ARGS, "bottleneck": bn})
+    # what still raises on the tokenizer's path names its item: R1 and
+    # spectral_norm in the loss
+    from video_tokenizer_tpu_torch.models.loss import VQLPIPSWithDiscriminator
+
+    for kwargs in ({"r1_gp_weight": 1.0}, {"spectral_norm": True}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            VQLPIPSWithDiscriminator(disc_tran_hidden_size=64, disc_tran_n_heads=2,
+                                     disc_tran_n_layers=1, **kwargs)

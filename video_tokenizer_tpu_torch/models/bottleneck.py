@@ -1,8 +1,13 @@
-"""Bottleneck projections and the VQ regularizer.
+"""Bottleneck projections, the VQ and summed-KL regularizers, the bottleneck norms.
 
 Counterpart of `video_tokenizer_tpu/models/bottleneck.py`:
-  * `Bottleneck`: in/out projections around a regularizer, optional
-    LayerNorm (`ln_d`, `ln_d_na`), returns the same dict as the JAX module.
+  * `Bottleneck`: in/out projections around a regularizer (the in-projection
+    twice as wide for a KL regularizer: mean and logvar interleaved), an
+    optional norm of the projected z: LayerNorm over the last dim (`ln_d`,
+    `ln_d_na` without scale and bias) or over (tokens, dim) with a (n, d)
+    scale and bias (`ln_nd`), or BatchNorm (`bn_bn` over [b * n, d], `bn_b`
+    over [b, n * d]; `FlaxBatchNorm`); returns the same dict as the JAX
+    module.
   * `SimpleVectorQuantizer` ("vq"): l2-normalised (x / (|x| + 1e-12)) or raw
     codebook, nearest-code lookup or (stochastic, in training or with
     `eval_deterministic=False`) a sample of softmax(cos * inv_temp) through
@@ -11,6 +16,11 @@ Counterpart of `video_tokenizer_tpu/models/bottleneck.py`:
     seed from the module's own `torch.Generator` (`sample_generator`), seeded
     from the init generator: one draw per call, as the JAX module draws one
     seed from its 'vq' key.
+  * `SummedKLDivergenceRegularizer` ("skl"): a diagonal Gaussian from the
+    interleaved (mean, logvar), logvar clipped to [-30, 20], a sample mean +
+    std * noise whose noise comes from the module's host generator
+    (`sample_generator`, so the card and the CPU draw the same noise), and
+    `loss_kl`, the KL to N(0, 1) summed per clip and averaged.
   * `entropy_loss`.
 The whole bottleneck computes in fp32, whatever the model's compute dtype.
 """
@@ -144,11 +154,59 @@ class SimpleVectorQuantizer(nn.Module):
 
 
 @models.register("skl")
-def _summed_kl_regularizer(**_):
-    raise NotImplementedError(
-        "the summed-KL ('skl') regularizer is not ported yet "
-        "(ROADMAP.md, 'Still to port', item 3)"
-    )
+class SummedKLDivergenceRegularizer(nn.Module):
+    """Diagonal-Gaussian KL regularizer; the input is (mean, logvar) interleaved."""
+
+    def __init__(self, dim: int, token_nums: int = 0,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.dim = dim
+        # the noise's generator, on the host (the JAX module draws from 'vq')
+        seed = 0 if generator is None else int(torch.randint(2**62, (), generator=generator))
+        self.sample_generator = torch.Generator().manual_seed(seed)
+
+    def forward(self, z: torch.Tensor, train: bool = False) -> Dict[str, Any]:
+        if z.shape[-1] != self.dim * 2:
+            raise ValueError(f"skl takes (mean, logvar) interleaved: last dim {2 * self.dim}, "
+                             f"got {z.shape[-1]}")
+        mean, logvar = z[..., ::2], z[..., 1::2]
+        logvar = logvar.clamp(-30.0, 20.0)
+        std, var = torch.exp(0.5 * logvar), torch.exp(logvar)
+        noise = torch.randn(mean.shape, generator=self.sample_generator, dtype=mean.dtype)
+        z_sampled = mean + std * noise.to(mean.device)
+        loss_kl = 0.5 * (mean**2 + var - 1.0 - logvar)
+        loss_kl = loss_kl.reshape(loss_kl.shape[0], -1).sum(dim=1).mean()
+        return {"regularized_z": z_sampled, "bottleneck_rep": mean, "loss_kl": loss_kl}
+
+    def decode(self, z_bottleneck: torch.Tensor) -> torch.Tensor:
+        return z_bottleneck
+
+
+class FlaxBatchNorm(nn.BatchNorm1d):
+    """Flax `nn.BatchNorm(momentum=0.9)` over x [N, F] under torch's names.
+
+    In training it normalises with the batch's mean and its BIASED variance,
+    E[x^2] - E[x]^2 clipped at 0 (Flax's fast variance), and moves the running
+    statistics by 0.1 toward them; `torch.nn.BatchNorm1d` would move
+    `running_var` toward the unbiased variance. Otherwise it normalises
+    with the running statistics. eps 1e-5, fp32."""
+
+    def __init__(self, num_features: int, device=None):
+        super().__init__(num_features, eps=1e-5, momentum=0.1, device=device)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = x.float()
+        if train:
+            mean = x.mean(dim=0)
+            var = torch.clamp((x * x).mean(dim=0) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
+                self.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m)
+                self.num_batches_tracked.add_(1)
+        else:
+            mean, var = self.running_mean, self.running_var
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
 
 
 @models.register("bottleneck")
@@ -164,32 +222,47 @@ class Bottleneck(nn.Module):
         self._norm = None if norm in ("no", "none") else norm
         if bottleneck_dim > 0:
             bdim = bottleneck_dim
-            self.in_linear = Dense(input_dim, bdim, init="lecun_normal", generator=generator, device=device)
-            self.out_linear = Dense(bdim, output_dim, init="lecun_normal", generator=generator, device=device)
         else:
             if input_dim != output_dim:
                 raise ValueError("bottleneck_dim <= 0 needs input_dim == output_dim")
             bdim = input_dim
+        reg_name = None if regularizer is None else regularizer["name"].lower()
+        # a KL regularizer takes mean and logvar: twice the width
+        pdim = bdim * 2 if reg_name and "kl" in reg_name and reg_name != "vqkl" else bdim
+        if bottleneck_dim > 0:
+            self.in_linear = Dense(input_dim, pdim, init="lecun_normal", generator=generator, device=device)
+            self.out_linear = Dense(bdim, output_dim, init="lecun_normal", generator=generator, device=device)
+        else:
             self.in_linear = self.out_linear = nn.Identity()
         if self._norm == "ln_d":
-            self.norm_layer = LayerNorm(bdim, device=device)
+            self.norm_layer = LayerNorm(pdim, device=device)
         elif self._norm == "ln_d_na":
-            self.norm_layer = LayerNorm(bdim, affine=False)
+            self.norm_layer = LayerNorm(pdim, affine=False)
+        elif self._norm == "ln_nd":
+            self.norm_layer = LayerNorm((token_nums, pdim), device=device)
+        elif self._norm == "bn_bn":
+            self.norm_layer = FlaxBatchNorm(pdim, device=device)
+        elif self._norm == "bn_b":
+            self.norm_layer = FlaxBatchNorm(token_nums * pdim, device=device)
         elif self._norm is not None:
-            raise NotImplementedError(
-                f"bottleneck norm '{self._norm}' is not ported yet "
-                "(ROADMAP.md, 'Still to port', item 3)"
-            )
+            raise ValueError(f"Normalization type {self._norm} not supported")
         self.regularizer = None
-        if regularizer is not None and regularizer["name"].lower() not in ("no", "none"):
+        if reg_name is not None and reg_name not in ("no", "none"):
             self.regularizer = models.make(
                 regularizer,
                 args={"dim": bdim, "token_nums": token_nums, "generator": generator, "device": device},
             )
 
-    def project_in(self, x: torch.Tensor) -> torch.Tensor:
+    def project_in(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         z = self.in_linear(x)
-        return z if self._norm is None else self.norm_layer(z.float())
+        if self._norm is None:
+            return z
+        z = z.float()
+        if not self._norm.startswith("bn"):
+            return self.norm_layer(z)
+        b, n, d = z.shape  # BatchNorm over [b * n, d] (bn_bn) or [b, n * d] (bn_b)
+        flat = z.reshape(b * n, d) if self._norm == "bn_bn" else z.reshape(b, n * d)
+        return self.norm_layer(flat, train).reshape(b, n, d)
 
     def decode(self, bottleneck_rep: torch.Tensor) -> torch.Tensor:
         return self.out_linear(self.regularizer.decode(bottleneck_rep))
@@ -197,7 +270,7 @@ class Bottleneck(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False) -> Dict[str, Any]:
         input_norm_first = torch.linalg.vector_norm(x[:, 0, :], dim=-1).mean()
         input_norm_last = torch.linalg.vector_norm(x[:, -1, :], dim=-1).mean()
-        z = self.project_in(x)
+        z = self.project_in(x, train)
         if self.regularizer is not None:
             reg_out = dict(self.regularizer(z, train=train))
         else:

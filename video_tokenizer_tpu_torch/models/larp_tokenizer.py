@@ -4,9 +4,15 @@ Counterpart of `video_tokenizer_tpu/models/larp_tokenizer.py`:
   * 3D patch embed (one GEMM) + fixed 3D sin-cos PE;
   * encoder: self-attention over [patches || learned latent queries], keep
     the last `bottleneck_token_num` outputs;
-  * bottleneck (fp32), by `bottleneck_type`: 'vq' (in-projection, VQ,
-    out-projection: `models/bottleneck.py`); 'fsq' (`fsq_norm` LayerNorm,
-    `fsq_in_linear` d -> 6 with normal(0.02) init, FSQ (8,8,8,5,5,5),
+  * bottleneck (fp32), by `bottleneck_type`: 'vq' (in-projection, an
+    optional norm, VQ or summed KL, out-projection: `models/bottleneck.py`),
+    with the learned AR prior when `prior_model` names a gptc (`prior`,
+    `models/gptc.py`: n_ind the bottleneck dim, max_seq_len the latent
+    count, dropouts 0 unless `no_dropout: false`), whose `loss_latent_ce`
+    (next-latent MSE of the regularized z, fp32 whatever `dtype` says)
+    reaches the encoder through the VQ's straight-through path; 'fsq'
+    (`fsq_norm` LayerNorm, `fsq_in_linear` d -> 6 with normal(0.02) init,
+    FSQ (8,8,8,5,5,5),
     `fsq_out_linear` 6 -> d; the `larp_tokenizer_ablation` registration
     puts the LayerNorm after the in-projection and refuses 'sq'); 'sq'
     (`sq_in_linear` d -> 24, the Leech-lattice `LatticeVectorQuantizer` of
@@ -19,7 +25,8 @@ Counterpart of `video_tokenizer_tpu/models/larp_tokenizer.py`:
 output layer (parameters stay fp32), mirroring the JAX module's casts one
 for one. Parameter and buffer names are the upstream torch checkpoint's,
 the fixed sin-cos PEs included (persistent buffers), so an upstream `.pth`
-loads with `load_state_dict(strict=True)`.
+loads with `load_state_dict(strict=True)`; the prior's are the Flax names
+under `prior.`.
 """
 from __future__ import annotations
 
@@ -119,10 +126,6 @@ class LARPTokenizer(nn.Module):
             # the prior's loss_latent_ce exists only in the vq branch
             raise ValueError("prior_model co-training requires bottleneck_type 'vq' "
                              f"(got '{bottleneck_type}')")
-        if prior_name != "none":
-            raise NotImplementedError(
-                "the gptc prior is not ported yet (ROADMAP.md, 'Still to port', item 3)"
-            )
         self.bottleneck_type = bottleneck_type
         self.bottleneck_token_num = bottleneck_token_num
         self.input_size, self.frame_num, self.in_channels = input_size, frame_num, in_channels
@@ -245,6 +248,20 @@ class LARPTokenizer(nn.Module):
             device=device,
         )
 
+        # the learned AR prior co-trained on the quantized latents (the LARP
+        # recipe: gptc-S, prior_lr_mult 50, loss_latent_ce_weight 0.06); the
+        # tokenizer's fields are forced, the user's args pass through
+        self.prior = None
+        if prior_name.startswith("gptc"):
+            prior_args = dict(prior_model.get("args") or {})
+            gptc_kwargs = {**prior_args, "n_ind": bottleneck["args"]["bottleneck_dim"],
+                           "max_seq_len": n,
+                           "l2_normalized": bool(prior_args.get("l2_normalized", True))}
+            if bool(prior_model.get("no_dropout", True)):
+                gptc_kwargs.update(embd_pdrop=0.0, resid_pdrop=0.0, attn_pdrop=0.0)
+            self.prior = models.make({"name": prior_model["name"], "args": gptc_kwargs},
+                                     args={"generator": generator, "device": device})
+
     # ----------------------------------------------------------- geometry
 
     @property
@@ -328,6 +345,12 @@ class LARPTokenizer(nn.Module):
         z = z.float()
         if self.bottleneck_type == "vq":
             out = self.bottleneck(z, train=train)
+            # the prior's loss in training and in the trainer's eval; a model
+            # in eval mode (`.eval()`, as the loaders return it) skips it:
+            # nothing at inference reads it (XLA drops it in the JAX package)
+            if self.prior is not None and "regularized_z" in out and (train or self.training):
+                out["loss_latent_ce"] = self.prior.compute_prior_loss(out["regularized_z"],
+                                                                      train=train)
             return {"encoded": out.pop("output"), **out}
         if self.bottleneck_type == "fsq":
             if self.fsq_norm_after_proj:

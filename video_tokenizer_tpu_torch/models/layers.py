@@ -65,19 +65,22 @@ class Dense(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm over the last dim; fp32 statistics, output in `dtype`."""
+    """LayerNorm over the last dim, or the last dims when `dim` is a tuple
+    (Flax `reduction_axes=feature_axes=(-2, -1)`: a scale and bias of that
+    shape); fp32 statistics, output in `dtype`."""
 
-    def __init__(self, dim: int, eps: float = 1e-6, *, affine: bool = True,
+    def __init__(self, dim, eps: float = 1e-6, *, affine: bool = True,
                  dtype: Optional[torch.dtype] = None, device=None):
         super().__init__()
         self.dim, self.eps, self.dtype = dim, eps, dtype
+        self.shape = tuple(dim) if isinstance(dim, (tuple, list)) else (dim,)
         if affine:
-            self.weight = nn.Parameter(torch.ones(dim, device=device))
-            self.bias = nn.Parameter(torch.zeros(dim, device=device))
+            self.weight = nn.Parameter(torch.ones(self.shape, device=device))
+            self.bias = nn.Parameter(torch.zeros(self.shape, device=device))
         else:
             self.register_parameter("weight", None)
             self.register_parameter("bias", None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(x.float(), (self.dim,), self.weight, self.bias, self.eps)
+        y = F.layer_norm(x.float(), self.shape, self.weight, self.bias, self.eps)
         return y.to(self.dtype or torch.promote_types(x.dtype, torch.float32))

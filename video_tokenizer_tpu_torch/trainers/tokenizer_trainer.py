@@ -3,7 +3,8 @@
 Counterpart of `video_tokenizer_tpu/trainers/tokenizer_trainer.py`. One
 step, in the JAX package's order:
   1. ONE tokenizer forward under autograd (stochastic VQ draws its seed from
-     the bottleneck's generator);
+     the bottleneck's generator; a BatchNorm bottleneck norm moves its
+     running statistics);
   2. the discriminator branch runs when epoch >= disc_self_start and
      (step + 1) % d_update_freq == 0: its loss on real clips and the
      detached reconstructions, the LeCam EMA advances, and the D optimizer
@@ -11,12 +12,28 @@ step, in the JAX package's order:
      rate of the global step. On other steps the D loss is only evaluated
      (for the log) without a graph, and the D optimizer is not touched;
   3. the generator loss with the UPDATED discriminator: pixel + LPIPS
-     (frozen) + adversarial, + loss_q (warmed up by epoch) [+ loss_latent_ce]
-     + the `_generator_extra_loss` hook (none here; the STAT trainer's
+     (frozen) + adversarial, + loss_q (warmed up by epoch) + loss_kl (an
+     skl bottleneck, weighted by `_kl_weight_for_step`: `loss_kl_weight`,
+     decaying linearly to 0 over `kl_decay_epoch` epochs when that is > 0)
+     + loss_latent_ce x `loss_latent_ce_weight` (the gptc prior) + the
+     `_generator_extra_loss` hook (none here; the STAT trainer's
      adaptive-token losses), in training and in eval as in the JAX step.
      The discriminator's parameters are frozen for this backward, so its
      gradient reaches the reconstruction only, never the D optimizer;
-  4. the G optimizer steps (optional global-norm clip), then the EMAs.
+  4. the G optimizer steps after ONE global-norm clip over all its
+     parameters (optional), then the EMAs of the parameters.
+The G optimizer has the JAX trainer's learning-rate groups: `base`, `prior`
+(every parameter of the tokenizer's prior, at `prior_lr_mult` x the
+schedule) and, when `emb_lr_mult` != 1, `emb` (the tokenizer's parameters
+at the top of its Flax tree, `utils/convert.py::top_level_param_names`, at
+`emb_lr_mult` x). With `grad_accum_steps: A` > 1 a step runs A equal
+microbatches (A must divide the batch): both optimizers' gradients are
+summed in fp32 and each optimizer applies one update from their mean; the
+generator loss sees the discriminator before its update, the LeCam EMA
+chains through the microbatches (kept only if the D branch runs), the D
+update is gated on the mean microbatch D loss and the plain step's
+epoch / frequency gate, and the logged scalars are microbatch means (the
+JAX `_accum_step_impl`).
 The step's scalars (the JAX step's packed keys) come back as one device
 tensor. Every tokenizer forward goes through `_model_forward`, where a
 subclass passes its own arguments (the STAT trainer's stage and generator).
@@ -25,7 +42,7 @@ gradient: a frozen codebook (the `sq` bottleneck's Leech lattice) stays
 out. Attention runs through `ops.attention` (the flash forward and the
 dQ / dK-dV backward kernels on the card), VQ through `ops.vq`.
 `use_amp: true` computes the tokenizer, LPIPS and the discriminator in
-bf16 (the bottleneck stays fp32); `false` is fp32.
+bf16 (the bottleneck and the prior stay fp32); `false` is fp32.
 `visualize_epoch` writes the JAX trainer's gt-over-reconstruction grid
 (`vis/epoch_<n>.png`, through the standard-library PNG writer) and logs any
 failure rather than stopping the run; its TensorBoard half is left out with
@@ -36,8 +53,10 @@ features of the reconstruction it already computed (clipped to [0, 1]) and
 of the real clips, and `evaluate_epoch` logs `eval rFVD: <value>`, the
 `current_fvd` that `save_best: true` keeps the best checkpoint by. A failed
 FVD pass is logged and training goes on (the JAX trainer's rule).
-Not ported (raises NotImplementedError): `grad_accum_steps > 1`
-(ROADMAP.md, 'Still to port', item 3).
+A checkpoint holds the parameters with the BatchNorm statistics (buffers of
+the model), both optimizers with their groups, the EMAs, the step and every
+generator's state, so a resumed run takes the steps an uninterrupted one
+takes.
 """
 from __future__ import annotations
 
@@ -50,10 +69,11 @@ from .. import registry
 from ..metrics import statistics as stats
 from ..registry import trainers
 from ..utils import common
+from ..utils.convert import top_level_param_names
 from .base_trainer import BaseTrainer, ema_update, make_lr_schedule
 
 # the tokenizer's outputs that the generator loss takes (not logged as aux scalars)
-_DIFF_KEYS = ("pred_frames", "loss_q", "loss_latent_ce")
+_DIFF_KEYS = ("pred_frames", "loss_q", "loss_kl", "loss_latent_ce")
 
 
 def make_optimizer(name: str, params, args) -> torch.optim.Optimizer:
@@ -73,8 +93,9 @@ def make_optimizer(name: str, params, args) -> torch.optim.Optimizer:
 
 
 def _set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
+    """Every group's learning rate: `lr` times the group's `lr_mult`."""
     for group in opt.param_groups:
-        group["lr"] = lr
+        group["lr"] = lr * group.get("lr_mult", 1.0)
 
 
 @trainers.register("larp_tokenizer_trainer")
@@ -85,11 +106,11 @@ class LARPTokenizerTrainer(BaseTrainer):
         warmup = str(cfg.get("loss_q_warmup", "1.0_1")).split("_")
         self.loss_q_starting_ratio = float(warmup[0])
         self.loss_q_warmup_epochs = int(warmup[1])
+        self.base_kl_weight = float(cfg.get("loss_kl_weight", 0.0))
+        self.kl_decay_epoch = int(cfg.get("kl_decay_epoch", -1))
         self.loss_latent_ce_weight = float(cfg.get("loss_latent_ce_weight", 0.0))
         self.clip_grad_max_norm = float(cfg.get("clip_grad_max_norm", 0.0))
-        if int(cfg.get("grad_accum_steps", 1)) > 1:
-            raise NotImplementedError(
-                "grad_accum_steps > 1 is not ported yet (ROADMAP.md, 'Still to port', item 3)")
+        self.grad_accum = int(cfg.get("grad_accum_steps", 1))
         self.compute_dtype = torch.bfloat16 if cfg.get("use_amp", False) else torch.float32
         self.step = 0
 
@@ -120,14 +141,14 @@ class LARPTokenizerTrainer(BaseTrainer):
         self.g_sched = make_lr_schedule(opt_cfg, float(opt_cfg["args"]["lr"]), steps_per_epoch,
                                         max_epoch)
         self.d_sched = make_lr_schedule(opt_cfg, float(d_args["lr"]), steps_per_epoch, max_epoch)
-        for mult in ("emb_lr_mult", "prior_lr_mult"):  # every config of the repo sets 1.0
-            if float(opt_cfg.get(mult, 1.0)) != 1.0:
-                raise NotImplementedError(
-                    f"{mult} != 1 is not ported yet (ROADMAP.md, 'Still to port', item 3)")
         # a frozen codebook (requires_grad False) is neither optimised nor averaged
         named = [(n, p) for n, p in self.model.named_parameters() if p.requires_grad]
-        self.opt_g = make_optimizer(opt_cfg.get("name", "adam"), [p for _, p in named],
-                                    opt_cfg["args"])
+        groups = self._param_groups(named, float(opt_cfg.get("prior_lr_mult", 1.0)),
+                                    float(opt_cfg.get("emb_lr_mult", 1.0)))
+        self.log("generator learning-rate groups: " + ", ".join(
+            f"{g['name']} {sum(p.numel() for p in g['params']):,} params x{g['lr_mult']:g}"
+            for g in groups))
+        self.opt_g = make_optimizer(opt_cfg.get("name", "adam"), groups, opt_cfg["args"])
         # only the discriminator trains; LPIPS is frozen
         self.opt_d = make_optimizer(opt_cfg.get("loss_name", opt_cfg.get("name", "adam")),
                                     self.disc.parameters(), d_args)
@@ -136,6 +157,18 @@ class LARPTokenizerTrainer(BaseTrainer):
         }
         self.step = 0
         self._setup_fvd()
+
+    def _param_groups(self, named, prior_mult: float, emb_mult: float) -> List[Dict[str, Any]]:
+        """The JAX trainer's labels as torch param groups: `prior` (under the
+        tokenizer's prior), `emb` (its top-level Flax parameters, only when
+        emb_mult != 1) and `base`; empty groups are left out."""
+        emb = top_level_param_names(self.model) if emb_mult != 1.0 else set()
+        members: Dict[str, list] = {"base": [], "prior": [], "emb": []}
+        for n, p in named:
+            label = "prior" if n.startswith("prior.") else "emb" if n in emb else "base"
+            members[label].append(p)
+        mults = {"base": 1.0, "prior": prior_mult, "emb": emb_mult}
+        return [{"params": ps, "name": k, "lr_mult": mults[k]} for k, ps in members.items() if ps]
 
     def _setup_fvd(self):
         """Eval-time FVD of reconstructions: on when the I3D weights are
@@ -163,12 +196,19 @@ class LARPTokenizerTrainer(BaseTrainer):
             w = ratio * w
         return w
 
+    def _kl_weight_for_step(self, step: int) -> float:
+        if self.kl_decay_epoch <= 0:
+            return self.base_kl_weight
+        cutoff = self.kl_decay_epoch * self.n_steps_per_epoch
+        return self.base_kl_weight * (1 - step / cutoff) if step < cutoff else 0.0
+
     def _generators(self) -> Dict[str, torch.Generator]:
-        """The modules' own generators (VQ seeds, ns_smooth label noise)."""
+        """The modules' own generators (VQ seeds, skl noise, ns_smooth label
+        noise, the prior's dropout seeds)."""
         gens = {}
         for root, mod in (("model", self.model), ("loss", self.loss_mod)):
             for name, m in mod.named_modules():
-                for attr in ("sample_generator", "noise_generator"):
+                for attr in ("sample_generator", "noise_generator", "dropout_generator"):
                     if isinstance(getattr(m, attr, None), torch.Generator):
                         gens[f"{root}.{name}.{attr}"] = getattr(m, attr)
         return gens
@@ -187,6 +227,10 @@ class LARPTokenizerTrainer(BaseTrainer):
     def _generator_total(self, data, pred, out, epoch) -> Tuple[torch.Tensor, Dict[str, Any]]:
         g_loss, info = self.loss_mod.generator_loss(data, pred, epoch)
         total = g_loss
+        if "loss_kl" in out:
+            klw = self._kl_weight_for_step(self.step)
+            total = total + out["loss_kl"].float() * klw
+            info["loss_kl"], info["kl_weight"] = out["loss_kl"], klw
         if "loss_q" in out:
             total = total + out["loss_q"].float() * self._loss_q_weight_for_epoch(epoch)
             info["loss_q"] = out["loss_q"]
@@ -227,6 +271,8 @@ class LARPTokenizerTrainer(BaseTrainer):
     def train_step(self, batch) -> Tuple[List[str], torch.Tensor]:
         """One GAN step; returns (keys, fp32 device tensor of the step's scalars)."""
         data = common.video_to_float(batch["gt"].to(self.device, non_blocking=True))
+        if self.grad_accum > 1:
+            return self._accum_train_step(data)
         epoch, step = self.epoch, self.step
         out = self._model_forward(data, train=True)
         pred, info = out["pred_frames"].float(), {}
@@ -254,6 +300,15 @@ class LARPTokenizerTrainer(BaseTrainer):
             total.backward()
         finally:
             self.disc.requires_grad_(True)
+        self._generator_update(step)
+        info.update(g_info)
+        self._metrics(info, data, pred, out, total)
+        self.step += 1
+        return self._pack(info)
+
+    def _generator_update(self, step: int) -> None:
+        """One global clip over every generator parameter, the G optimizer's
+        step at each group's learning rate, then the EMAs."""
         if self.clip_grad_max_norm > 0:
             torch.nn.utils.clip_grad_norm_(self.model.parameters(), self.clip_grad_max_norm)
         _set_lr(self.opt_g, self.g_sched(step))
@@ -262,10 +317,59 @@ class LARPTokenizerTrainer(BaseTrainer):
             params = dict(self.model.named_parameters())
             for d, ema in self.ema_params.items():
                 ema_update(ema, params, float(d))
-        info.update(g_info)
-        self._metrics(info, data, pred, out, total)
+
+    def _accum_train_step(self, data_all: torch.Tensor) -> Tuple[List[str], torch.Tensor]:
+        """`grad_accum_steps` A > 1: A equal microbatches against the
+        discriminator of the step's start; both optimizers' gradients summed
+        (fp32 parameters, so fp32 sums), then one update each from the mean."""
+        A, B = self.grad_accum, data_all.shape[0]
+        if B % A:
+            raise ValueError(f"grad_accum_steps={A} must divide the per-step batch {B}")
+        epoch, step, lm = self.epoch, self.step, self.loss_mod
+        should_run = epoch >= lm.disc_self_start and (step + 1) % lm.d_update_freq == 0
+        ema0 = (lm.lecam_ema_real.clone(), lm.lecam_ema_fake.clone())
+        self.opt_g.zero_grad(set_to_none=True)
+        self.opt_d.zero_grad(set_to_none=True)
+        d_losses, infos = [], []
+        for data in data_all.chunk(A):
+            out = self._model_forward(data, train=True)
+            pred, info = out["pred_frames"].float(), {}
+            # the LeCam EMA chains through the microbatches; kept if D runs
+            with torch.set_grad_enabled(should_run):
+                d_loss, d_info = lm.discriminator_loss(data, pred.detach(), epoch, train=True)
+            if should_run:
+                d_loss.backward()
+            info.update(d_info)
+            self.disc.requires_grad_(False)
+            try:
+                total, g_info = self._generator_total(data, pred, out, epoch)
+                total.backward()
+            finally:
+                self.disc.requires_grad_(True)
+            info.update(g_info)
+            self._metrics(info, data, pred, out, total)
+            d_losses.append(d_loss.detach())
+            infos.append(info)
+        if should_run and float(torch.stack(d_losses).mean()) > lm.d_update_loss_threshold:
+            for p in self.disc.parameters():
+                p.grad.div_(A)
+            if self.clip_grad_max_norm > 0:
+                torch.nn.utils.clip_grad_norm_(self.disc.parameters(), self.clip_grad_max_norm)
+            _set_lr(self.opt_d, self.d_sched(step))
+            self.opt_d.step()
+        self.opt_d.zero_grad(set_to_none=True)
+        if not should_run:
+            lm.lecam_ema_real.copy_(ema0[0])
+            lm.lecam_ema_fake.copy_(ema0[1])
+        for p in self.model.parameters():
+            if p.grad is not None:
+                p.grad.div_(A)
+        self._generator_update(step)
         self.step += 1
-        return self._pack(info)
+        keys, packed = zip(*(self._pack(info) for info in infos))
+        if any(k != keys[0] for k in keys):
+            raise RuntimeError(f"microbatches logged different keys: {keys}")
+        return keys[0], torch.stack(packed).mean(dim=0)
 
     @torch.no_grad()
     def evaluate_step(self, batch) -> Dict[str, float]:

@@ -1,14 +1,20 @@
 """Weight bridge: the JAX package's Flax parameters -> the port's state_dict.
 
-`state_dict_from_jax(params, model)` takes the Flax parameter tree of a
-`video_tokenizer_tpu` LARP tokenizer as nested dicts of numpy arrays (no JAX
-needed) and returns the state_dict of the matching port model, under the
-upstream torch names (the dict `tools/export_reference_tokenizer.py`
-writes):
+`state_dict_from_jax(params, model[, batch_stats])` takes the Flax parameter
+tree of a `video_tokenizer_tpu` LARP tokenizer as nested dicts of numpy
+arrays (no JAX needed) and returns the state_dict of the matching port model,
+under the upstream torch names (the dict
+`tools/export_reference_tokenizer.py` writes):
   * Flax Dense kernel [in, out] -> `weight` [out, in];
-  * LayerNorm `scale` -> `weight`;
+  * LayerNorm and BatchNorm `scale` -> `weight` (the bottleneck's `ln_nd`
+    scale and bias keep their (n, d) shape), a BatchNorm's `batch_stats`
+    mean / var -> `running_mean` / `running_var`;
   * the patch kernel [(pt p p c), D] -> the Conv3d-shaped [D, C, pt, p, p];
+  * the `prior` subtree (`gptc_from_jax`, `gptc_state_dict_from_jax` for a
+    bare GPTC) under its Flax names, `blocks_{i}` -> `blocks.{i}`;
   * fixed sin-cos PEs -> the model's own buffers (regenerated from `sincos`).
+`TOP_LEVEL_PARAMS` / `top_level_param_names` name the parameters at the top
+of the Flax tree (the JAX tokenizer trainer's `emb` learning-rate group).
 
 `loss_state_dict_from_jax(loss_params, loss_ema, module)` does the same for
 the tokenizer trainer's loss module (discriminator, LPIPS, LeCam EMAs).
@@ -37,7 +43,7 @@ quantized tree {kernel int8 [in, out], scale [out]} -> a `QuantDense`'s int8
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Set
 
 import numpy as np
 import torch
@@ -83,22 +89,86 @@ def patch_embed_from_jax(sd: Dict[str, np.ndarray], prefix: str, tree: Dict[str,
         sd[f"{prefix}.bias"] = _f32(tree["bias"])
 
 
-def bottleneck_from_jax(sd: Dict[str, np.ndarray], prefix: str, tree: Dict[str, Any]) -> None:
+def bottleneck_from_jax(sd: Dict[str, np.ndarray], prefix: str, tree: Dict[str, Any],
+                        stats: Optional[Dict[str, Any]] = None) -> None:
+    """The bottleneck's projections, its norm (LayerNorm or BatchNorm: `scale`
+    and `bias`; a BatchNorm's `batch_stats` mean / var -> running_mean /
+    running_var) and its regularizer (the VQ codebook; skl has none)."""
     for name in ("in_linear", "out_linear"):
         if name in tree:
             linear_from_jax(sd, f"{prefix}.{name}", tree[name])
     if "norm_layer" in tree:
         layernorm_from_jax(sd, f"{prefix}.norm_layer", tree["norm_layer"])
-    reg = tree["reg"]
-    sd[f"{prefix}.regularizer.embedding.weight"] = _f32(reg["embedding"])
+    if stats and "norm_layer" in stats:
+        sd[f"{prefix}.norm_layer.running_mean"] = _f32(stats["norm_layer"]["mean"])
+        sd[f"{prefix}.norm_layer.running_var"] = _f32(stats["norm_layer"]["var"])
+    reg = tree.get("reg", {})
+    if "embedding" in reg:
+        sd[f"{prefix}.regularizer.embedding.weight"] = _f32(reg["embedding"])
     if "stochastic_temperature_inv" in reg:
         sd[f"{prefix}.regularizer.stochastic_temperature_inv"] = _f32(
             reg["stochastic_temperature_inv"]
         )
 
 
-def state_dict_from_jax(params: Dict[str, Any], model) -> Dict[str, torch.Tensor]:
-    """Flax LARPTokenizer params (nested dicts of arrays) -> `model`'s state_dict."""
+def gptc_from_jax(sd: Dict[str, np.ndarray], prefix: str, tree: Dict[str, Any]) -> None:
+    """A Flax `GPTC` tree under `prefix` ("" for none): Dense kernels ->
+    weight [out, in], LayerNorm scale -> weight, `pos_emb` as it is,
+    `blocks_{i}` -> `blocks.{i}`."""
+    pre = f"{prefix}." if prefix else ""
+    linear_from_jax(sd, f"{pre}input_proj", tree["input_proj"])
+    sd[f"{pre}pos_emb"] = _f32(tree["pos_emb"])
+    i = 0
+    while f"blocks_{i}" in tree:
+        block, p = tree[f"blocks_{i}"], f"{pre}blocks.{i}"
+        for name in ("ln1", "ln2"):
+            layernorm_from_jax(sd, f"{p}.{name}", block[name])
+        for name in ("query", "key", "value", "proj", "mlp_fc", "mlp_proj"):
+            linear_from_jax(sd, f"{p}.{name}", block[name])
+        i += 1
+    layernorm_from_jax(sd, f"{pre}ln_f", tree["ln_f"])
+    linear_from_jax(sd, f"{pre}head", tree["head"])
+
+
+def gptc_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax `GPTC` params (nested dicts of arrays) -> the port's `GPTC` state_dict."""
+    sd: Dict[str, np.ndarray] = {}
+    gptc_from_jax(sd, "", params)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
+# the LARP tokenizer's top-level Flax parameters (path length 1) -> the port's
+# names (upstream spells the learned w table 'encode_w_embed')
+TOP_LEVEL_PARAMS = {
+    name: {"encoder_w_embed": "encode_w_embed"}.get(name, name) for name in (
+        "encoder_h_embed", "encoder_w_embed", "encoder_t_embed",
+        "decoder_h_embed", "decoder_w_embed", "decoder_t_embed",
+        "encoder_latent_query_embed", "decoder_latent_pe",
+        "encoder_patch_token_type_embed", "encoder_latent_query_token_type_embed",
+        "decoder_latent_token_type_embed", "decoder_patch_query_token_type_embed",
+    )
+}
+
+
+def top_level_param_names(model) -> Set[str]:
+    """The port's names of `model`'s parameters that sit at the top of its
+    Flax tree (path length 1, the JAX trainer's `emb` group): for the LARP
+    tokenizer those of `TOP_LEVEL_PARAMS` it has as parameters; for the
+    families whose port names are the Flax names (model_new, STAT), the
+    parameters named without a dot."""
+    from ..models.larp_tokenizer import LARPTokenizer
+
+    params = dict(model.named_parameters())
+    if isinstance(model, LARPTokenizer):
+        return {t for t in TOP_LEVEL_PARAMS.values() if t in params}
+    return {n for n in params if "." not in n}
+
+
+def state_dict_from_jax(params: Dict[str, Any], model,
+                        batch_stats: Optional[Dict[str, Any]] = None) -> Dict[str, torch.Tensor]:
+    """Flax LARPTokenizer params (nested dicts of arrays) -> `model`'s state_dict;
+    `batch_stats`, the Flax collection of a BatchNorm bottleneck norm, gives
+    its running statistics."""
     sd: Dict[str, np.ndarray] = {}
     patch = (model.patch_size,) * 2
     if model.temporal_patch_size != 1:
@@ -108,20 +178,15 @@ def state_dict_from_jax(params: Dict[str, Any], model) -> Dict[str, torch.Tensor
     vit_stack_from_jax(sd, "encoder", params["encoder"])
     vit_stack_from_jax(sd, "decoder", params["decoder"])
 
-    # learned embeddings (upstream spells the learned w table 'encode_w_embed')
-    renamed = {"encoder_w_embed": "encode_w_embed"}
-    for name in (
-        "encoder_h_embed", "encoder_w_embed", "encoder_t_embed",
-        "decoder_h_embed", "decoder_w_embed", "decoder_t_embed",
-        "encoder_latent_query_embed", "decoder_latent_pe",
-        "encoder_patch_token_type_embed", "encoder_latent_query_token_type_embed",
-        "decoder_latent_token_type_embed", "decoder_patch_query_token_type_embed",
-    ):
+    for name, port_name in TOP_LEVEL_PARAMS.items():  # the learned embeddings
         if name in params:
-            sd[renamed.get(name, name)] = _f32(params[name])
+            sd[port_name] = _f32(params[name])
 
     if model.bottleneck_type == "vq":
-        bottleneck_from_jax(sd, "bottleneck", params["bottleneck_module"])
+        bottleneck_from_jax(sd, "bottleneck", params["bottleneck_module"],
+                            (batch_stats or {}).get("bottleneck_module"))
+        if "prior" in params:
+            gptc_from_jax(sd, "prior", params["prior"])
     elif model.bottleneck_type == "fsq":
         layernorm_from_jax(sd, "fsq_norm", params["fsq_norm"])
         linear_from_jax(sd, "fsq_in_linear", params["fsq_in_linear"])
