@@ -163,21 +163,22 @@ Phases, each of which raises on failure (exit code 1, no result line):
      codebook's shape (M = 8192 and 1024, K = 196,560, d = 24, cos) against
      its plain version, timed beside `(z @ e.T).argmax`, planted ties;
      cfgs/larp_tokenizer.yaml with bottleneck_type sq and fsq at full width
-     (176,778,648 and 172,035,078 parameters), fp32 card vs CPU and bf16
-     reconstruction at batch 8 (one VQ search per sq encode); the STAT model
-     of cfgs/larp_tokenizer_stat.yaml (185,850,633 parameters): fp32 card vs
-     CPU block by block, bf16 reconstruction, one fp32 training step card vs
-     CPU at 6 + 6 of its 12 + 12 layers, bf16 training at batch 8 and
+     (176,778,648 and 172,035,078 parameters), fp32 card vs CPU at 4 + 4 of
+     the 12 + 12 layers and bf16 reconstruction at batch 8 (one VQ search per
+     sq encode); the STAT model of cfgs/larp_tokenizer_stat.yaml (185,850,633
+     parameters): fp32 card vs CPU block by block at 4 + 4 of its 12 + 12
+     layers, bf16 reconstruction, one fp32 training step card vs CPU at 4 + 4
+     layers, bf16 training at batch 8 and
      `train.py` through the vanilla, random_drop and adaptive stages; LARP-sq
      training through `train.py`, its frozen codebook unchanged and in no
      optimizer; exact launch counts throughout.
  22. LARP's learned AR prior co-trained as scripts/train_larp_tokenizer.sh
      trains it (`phase_prior`): gptc-S (12 layers of 384, 6 heads of 64) in
-     fp32 card against CPU (`compute_prior_loss` at B = 8 from 1024 latents
-     and every gradient, exactly 12 3xTF32 forwards, 12 dQ and 12 dK/dV;
-     `decode_step` against the full forward); one fp32 step of the recipe
+     fp32 card against CPU at 4 of its layers (`compute_prior_loss` at B = 8
+     from 1024 latents and every gradient, exactly 4 3xTF32 forwards, 4 dQ
+     and 4 dK/dV; `decode_step` against the full forward); one fp32 step of the recipe
      through the trainer, card against CPU, at 2 + 2 tokenizer layers with
-     gptc-S and the 512 / 8 / 12 discriminator whole, `prior_lr_mult` 50 and
+     gptc-S and the 512 / 8 / 12 discriminator at 4 of their 12 layers, `prior_lr_mult` 50 and
      `emb_lr_mult` 2 (losses, VQ indices, gradients, the parameters after the
      step per learning-rate group); a `grad_accum_steps` 2 step at batch 8
      against the plain one; bf16 training at full width, batch 8 (s/step,
@@ -190,6 +191,29 @@ Phases, each of which raises on failure (exit code 1, no result line):
      H = 6, D = 64, causal, fp32) and the 512-wide discriminator's (B = 8,
      S = 1025, H = 8, D = 64, bf16), timed beside the efficient-attention
      op / SDPA and their backward.
+ 23. the trainer's own behaviour, `spectral_norm` and R1, and the
+     model_basic family (`phase_trainer_basic`): (a) the flagship trainer
+     (bf16, batch 8, 4 steps an epoch, 2 epochs, the discriminator on) run
+     whole with `profile_steps: 2` and the TensorBoard writer, run again for
+     the spread of two runs, cut by SIGTERM in epoch 2 (SystemExit(0),
+     `epoch-last` with the rolled-back epoch, `resume_skip_steps` and
+     `preempted`) and resumed: the resumed run applies exactly the batches
+     the cut one had not, in the uninterrupted run's order, with Adam's step
+     counts equal and parameters within the spread; the trace holds 2 steps
+     with the wgmma flash and VQ kernels by name; the writer wrote `train/`
+     scalars or said it is unavailable; (b) the flagship's discriminator
+     (384 wide, 12 heads, 8 layers, S = 1025) in fp32 card against CPU at
+     batch 2 with `spectral_norm`, R1 (0.01) and both: D loss, `r1_gp` and
+     every gradient within 1e-3 of their scale; bf16 trainer steps at
+     batch 8 with each option alone beside the plain step, exact flash launches
+     (with R1 none in the discriminator, the tokenizer's unchanged); (c) the
+     five model_basic registrations at their full width (768 wide, 5 + 5
+     layers, 12 heads of 64) in fp32 card against CPU at batch 1 (FSQ
+     indices >= 99%, the decode within phase 19's rule, exact 3xTF32 flash
+     launches), bf16 reconstruction clips/s at batch 8 of `autoencoder` and
+     `autoencoder_dualpatch`, and bf16 training of `autoencoder` through the
+     tokenizer trainer with cfgs/larp_tokenizer_large.yaml's loss and
+     optimizer (s/step, exact dQ and dK/dV launches, the idle share).
 Every kernel phase also times one PyTorch call that computes the same
 function (`library_ms`: SDPA and its autograd backward, a matmul + argmax,
 `index_put_`), which the port uses nowhere, and computes the kernel's bound
@@ -201,6 +225,7 @@ one CUDA device.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import re
@@ -2778,13 +2803,22 @@ def _profile_and_load(step, n: int, by_name: Optional[dict] = None):
         smi.kill()
         smi.communicate()
         under_load = "not available"
+    # the device's events straight from Kineto's results: prof.events() also
+    # builds every CPU op's event and tree first, which took 87 us an event
+    # on the H100's host (14 s for 5 steps of 3400 kernels), and reads the
+    # same start and end of each kernel
     per_cat: dict = {}
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    for e in events:
-        per_cat[_category(e.name)] = per_cat.get(_category(e.name), 0.0) + e.time_range.elapsed_us()
+    n_events = 0
+    for e in prof.profiler.kineto_results.events():
+        hidden = getattr(e, "is_hidden_event", lambda: False)()  # as prof.events() skips
+        if e.device_type() != torch.autograd.DeviceType.CUDA or hidden:
+            continue
+        n_events += 1
+        us = (e.end_ns() - e.start_ns()) / 1e3
+        per_cat[_category(e.name())] = per_cat.get(_category(e.name()), 0.0) + us
         if by_name is not None:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    return wall_ms, per_cat, len(events), under_load
+            by_name[e.name()] = by_name.get(e.name(), 0.0) + us
+    return wall_ms, per_cat, n_events, under_load
 
 
 def _train_throughput(tag: str, cfg: dict, flash: tuple, vq: int, warm: int = 2,
@@ -2830,6 +2864,7 @@ def _train_throughput(tag: str, cfg: dict, flash: tuple, vq: int, warm: int = 2,
     for k in kernels[:3]:
         k.launches_sm90 = k.launches_tf32x3 = 0
     vq_argmax.launches_tc = 0
+    gc.collect()  # an earlier trainer in a reference cycle still holds its tensors
     torch.cuda.reset_peak_memory_stats()
     times, infos = [], []
     fetch_s.clear()
@@ -3402,14 +3437,39 @@ def _model_new_reconstruction(tmp: Path, records: dict, weights: dict) -> None:
         torch.cuda.empty_cache()
 
 
-def _cut_depth(model, depth: int) -> None:
-    """Keeps the first `depth` blocks of each stack of a model_new autoencoder."""
-    for stack in (model.encoder, getattr(model, "encoder1", None), model.decoder):
-        if stack is not None:
-            for i in range(depth, stack.blocks.depth):
-                delattr(stack.blocks, f"attn_{i}")
-                delattr(stack.blocks, f"ffd_{i}")
-            stack.blocks.depth = depth
+def _cut_depth(model, depth: int):
+    """Keeps the first `depth` blocks of every block stack of `model`, at full
+    width: the encoders and decoder of a LARP or model_new tokenizer (a
+    ModuleList, or the gated stack's `attn_i` / `ffd_i` and `depth`) and a
+    gptc prior's blocks. Returns a function that puts the whole stacks back."""
+    import torch
+
+    undo = []
+    for stack in (model, *(getattr(model, n, None) for n in ("encoder", "encoder1", "decoder"))):
+        blocks = getattr(stack, "blocks", None)
+        if isinstance(blocks, torch.nn.ModuleList):
+            stack.blocks = blocks[:depth]
+            undo.append(lambda s=stack, b=blocks: setattr(s, "blocks", b))
+        elif blocks is not None and hasattr(blocks, "depth"):
+            cut = {f"{k}_{i}": getattr(blocks, f"{k}_{i}")
+                   for i in range(depth, blocks.depth) for k in ("attn", "ffd")}
+            for name in cut:
+                delattr(blocks, name)
+            whole, blocks.depth = blocks.depth, depth
+
+            def put_back(b=blocks, cut=cut, whole=whole):
+                for name, m in cut.items():
+                    b.add_module(name, m)
+                b.depth = whole
+            undo.append(put_back)
+    return lambda: [f() for f in reversed(undo)]
+
+
+# the depth of each stack in the card-vs-CPU comparisons of phases 21 and 22,
+# at full width (the run's budget: the CPU side's time grows with depth, and
+# deep random stacks only amplify fp32 rounding, phase 19 (a)); the card's own
+# runs there keep the whole depth
+PARITY_DEPTH = 4
 
 
 def _model_new_train_parity(tmp: Path, records: dict) -> None:
@@ -3953,6 +4013,7 @@ def _reconstruction_rate(tag: str, model, n_flash: int, n_vq: int) -> dict:
     clips = torch.from_numpy(make_clips(np.random.default_rng(SEED), B, 16, 128)).cuda()
     reconstruct(model, clips)  # warm-up
     torch.cuda.synchronize()
+    gc.collect()  # an earlier trainer in a reference cycle still holds its tensors
     torch.cuda.reset_peak_memory_stats()
     flash_attn_fwd.launches = flash_attn_fwd.launches_sm90 = 0
     vq_argmax.launches = vq_argmax.launches_tc = 0
@@ -3990,10 +4051,13 @@ def _reconstruction_rate(tag: str, model, n_flash: int, n_vq: int) -> dict:
 def _larp_fsq_sq(tmp: Path, records: dict) -> None:
     """Phase 21 (b): cfgs/larp_tokenizer.yaml with `bottleneck_type` sq and
     fsq, seeded and perturbed (the frozen Leech codebook left as it is): fp32
-    card vs CPU at batch 1 (indices >= 99% equal, decode_from_bottleneck of
-    the CPU's indices within 1e-3 of the scale, one VQ launch per encode on
-    the sq path), then bf16 reconstruction at batch 8 (`_reconstruction_rate`,
-    24 flash forwards a batch, one VQ search on the sq path)."""
+    card vs CPU at batch 1 at full width and 4 of the 12 + 12 layers (the
+    run's budget; deep random stacks only amplify rounding, phase 19 (a))
+    (indices >= 99% equal, decode_from_bottleneck of the CPU's indices
+    within 1e-3 of the scale, one VQ launch per encode on the sq path), then
+    bf16 reconstruction at batch 8 of the whole depth from the same fp32
+    weights (`_reconstruction_rate`, 24 flash forwards a batch, one VQ search
+    on the sq path)."""
     import torch
 
     from video_tokenizer_tpu_torch.ops.attention import flash_attn_fwd
@@ -4010,6 +4074,8 @@ def _larp_fsq_sq(tmp: Path, records: dict) -> None:
         model.eval()
         n_params = sum(p.numel() for p in model.parameters())
         require(n_params == LARP_PARAMS[kind], f"larp {kind}: {n_params} parameters")
+        state = {k: v.clone() for k, v in model.state_dict().items()}  # the whole depth
+        _cut_depth(model, PARITY_DEPTH)
         t0 = time.perf_counter()
         with torch.inference_mode():
             ref = model(x)
@@ -4030,14 +4096,15 @@ def _larp_fsq_sq(tmp: Path, records: dict) -> None:
                      f"entropy {got['codebook_entropy'].item():.6g}/"
                      f"{ref['codebook_entropy'].item():.6g} (card/CPU)")
         log(f"[larp {kind}] cfgs/larp_tokenizer.yaml with bottleneck_type {kind}: "
-            f"{n_params:,} params, codebook {model.codebook_size:,}; fp32 batch 1, TF32 off: CPU "
+            f"{n_params:,} params, codebook {model.codebook_size:,}; fp32 batch 1, TF32 off, "
+            f"{PARITY_DEPTH} + {PARITY_DEPTH} of the 12 + 12 layers: CPU "
             f"plain path {cpu_s:.1f} s; indices agree {agree:.4%} (tol >= 99%); "
             f"decode_from_bottleneck(CPU indices) max|card-cpu| {dec_err:.3e} of the scale (tol "
             f"1e-3); pred_frames {_rel_max(got['pred_frames'], ref['pred_frames']):.3e}; "
             f"launches per forward: flash {n_flash}, VQ {n_vq}{extra}")
         require(agree >= 0.99 and dec_err <= 1e-3, f"larp {kind}: {agree}, {dec_err}")
-        require(n_flash == 24 and n_vq == (kind == "sq"), f"larp {kind}: {n_flash}, {n_vq}")
-        state = model.state_dict()
+        require(n_flash == 2 * PARITY_DEPTH and n_vq == (kind == "sq"),
+                f"larp {kind}: {n_flash}, {n_vq}")
         del model, got, ref
         bf16 = models.make(spec, args={"dtype": torch.bfloat16, "generator": gen()})
         bf16.load_state_dict(state)
@@ -4076,13 +4143,15 @@ def _centre_keep_head(model, x) -> None:
 
 def _stat_parity(tmp: Path, records: dict) -> None:
     """Phase 21 (c), first half: the STAT model, 185,850,633 parameters,
-    perturbed, its keep head centred; fp32 eval ('adaptive': probs > 0.5)
-    card vs CPU at batch 1: FSQ indices >= 99%, keep masks, the encoder's
-    and the decoder's first and last blocks on the CPU's own inputs within
-    1e-5, decode_from_bottleneck of the CPU's indices within 1e-3 of the
-    scale or 5x the CPU's own change under a 1e-6 nudge of the decoder's
-    proj_in (phase 19's yardstick), 24 flash forwards on the 3xTF32 kernel;
-    then bf16 reconstruction at batch 8 (24 wgmma flash forwards a batch)."""
+    perturbed; fp32 eval ('adaptive': probs > 0.5) card vs CPU at batch 1 at
+    full width and 4 of the 12 + 12 layers (the run's budget), the keep head
+    centred on that model: FSQ indices >= 99%, keep masks, the encoder's and
+    the decoder's first and last blocks on the CPU's own inputs within 1e-5,
+    decode_from_bottleneck of the CPU's indices within 1e-3 of the scale or
+    5x the CPU's own change under a 1e-6 nudge of the decoder's proj_in
+    (phase 19's yardstick), 8 flash forwards on the 3xTF32 kernel; then bf16
+    reconstruction at batch 8 of the whole depth (24 wgmma flash forwards a
+    batch)."""
     import torch
 
     from video_tokenizer_tpu_torch.ops.attention import flash_attn_fwd
@@ -4093,7 +4162,11 @@ def _stat_parity(tmp: Path, records: dict) -> None:
     n_params = sum(p.numel() for p in model.parameters())
     require(n_params == STAT_PARAMS, f"stat: {n_params} parameters")
     x = torch.rand(1, 3, 16, 128, 128, generator=torch.Generator().manual_seed(SEED + 162))
+    state = {k: v.clone() for k, v in model.state_dict().items()}  # the whole depth
+    _cut_depth(model, PARITY_DEPTH)
     _centre_keep_head(model, x)
+    head = "encoder.prob_head.fc2.bias"
+    state[head] = model.state_dict()[head].clone()
     probes, hooks = {}, []
     for stack in ("encoder", "decoder"):
         blocks = getattr(model, stack).blocks
@@ -4128,21 +4201,21 @@ def _stat_parity(tmp: Path, records: dict) -> None:
     rec_tol = max(1e-3, 5 * yardstick)
     log(f"[stat fp32] cfgs/larp_tokenizer_stat.yaml: autoencoder_stat {n_params:,} params, patch "
         f"{model.encoder.patch_size}, {model.num_latent_tokens} latents, FSQ-{model.codebook_size}"
-        f", batch 1, TF32 off: CPU plain path {cpu_s:.1f} s; kept (probs > 0.5) {kept_frac:.1%}, "
+        f", batch 1, TF32 off, {PARITY_DEPTH} + {PARITY_DEPTH} of the 12 + 12 layers: "
+        f"CPU plain path {cpu_s:.1f} s; kept (probs > 0.5) {kept_frac:.1%}, "
         f"keep masks agree {mask_agree:.4%}; FSQ indices agree {agree:.4%} (tol >= 99%); "
         f"decode_from_bottleneck(CPU indices) {rec_err:.3e} of the scale (tol {rec_tol:.3e}: the "
         f"CPU's own change under proj_in x (1 + 1e-6) {yardstick:.3e}); blocks on the CPU's "
         "inputs " + ", ".join(f"{k} {e:.2e}" for k, e in block_errs.items())
         + f" (tol 1e-5); probs max|card-cpu| {_rel_max(got['probs'], ref['probs']):.2e} of "
-        f"the scale; flash launches {n_fwd}, 3xTF32 {n_tf32x3} (expect 24)")
+        f"the scale; flash launches {n_fwd}, 3xTF32 {n_tf32x3} (expect {2 * PARITY_DEPTH})")
     require(tuple(got["pred_frames"].shape) == (1, 3, 16, 128, 128), "stat: shape")
     require(torch.isfinite(got["pred_frames"]).all().item(), "stat: non-finite output")
     require(0.0 < kept_frac < 1.0, f"stat: kept fraction {kept_frac}")
     require(agree >= 0.99 and mask_agree >= 0.99, f"stat: agreement {agree}, masks {mask_agree}")
     require(rec_err <= rec_tol, f"stat: reconstruction error {rec_err} > {rec_tol}")
     require(all(e <= 1e-5 for e in block_errs.values()), f"stat: blocks differ {block_errs}")
-    require(n_fwd == n_tf32x3 == 24, f"stat: flash launches {n_fwd}/{n_tf32x3}")
-    state = {k: v.cpu() for k, v in model.state_dict().items()}
+    require(n_fwd == n_tf32x3 == 2 * PARITY_DEPTH, f"stat: flash launches {n_fwd}/{n_tf32x3}")
     del model, got, probes
     torch.cuda.empty_cache()
     bf16 = _stat_model(tmp, torch.bfloat16, SEED)
@@ -4159,9 +4232,8 @@ def _stat_train_parity(tmp: Path, records: dict) -> None:
     """Phase 21 (c): one fp32 step ('adaptive': Bernoulli masks, the STAT
     losses) of cfgs/larp_tokenizer_stat.yaml through the STAT trainer at
     batch 1, card vs CPU from the same weights and generators, at full width
-    and 6 + 6 of the 12 + 12 layers (deep random stacks amplify fp32
-    rounding, phase 19 (c); the full depth is held block by block in
-    `_stat_parity`): losses 2e-4, FSQ indices >= 99.9%, gradients 1e-3."""
+    and 4 + 4 of the 12 + 12 layers (`PARITY_DEPTH`): losses 2e-4, FSQ
+    indices >= 99.9%, gradients 1e-3."""
     import numpy as np
     import torch
 
@@ -4171,7 +4243,7 @@ def _stat_train_parity(tmp: Path, records: dict) -> None:
             for d in ("cpu", "cuda")}
     cpu, gpu = pair["cpu"], pair["cuda"]
     for tr in (cpu, gpu):
-        _cut_depth(tr.model, 6)
+        _cut_depth(tr.model, PARITY_DEPTH)
         tr.opt_g.param_groups[0]["params"] = [p for p in tr.model.parameters() if p.requires_grad]
     _perturb(cpu.model, SEED + 170)
     _perturb(cpu.disc, SEED + 171)
@@ -4198,7 +4270,8 @@ def _stat_train_parity(tmp: Path, records: dict) -> None:
     tokens = (infos["cuda"]["avg_tokens"], infos["cpu"]["avg_tokens"])
     log(f"[stat train fp32] autoencoder_stat {sum(p.numel() for p in cpu.model.parameters()):,} + "
         f"discriminator {sum(p.numel() for p in cpu.disc.parameters()):,} + LPIPS params, batch 1, "
-        f"6 + 6 of the 12 + 12 layers, TF32 off, stage {cpu._stage}: CPU step {secs['cpu']:.1f} s, "
+        f"{PARITY_DEPTH} + {PARITY_DEPTH} of the 12 + 12 layers, TF32 off, "
+        f"stage {cpu._stage}: CPU step {secs['cpu']:.1f} s, "
         f"card step {secs['cuda']:.2f} s; FSQ indices agree on {agree:.4%} (tol >= 99.9%); "
         f"avg_tokens {tokens[0]:g}/{tokens[1]:g}; losses "
         + ", ".join(f"{k} {infos['cuda'][k]:.6g}/{infos['cpu'][k]:.6g}" for k in loss_keys)
@@ -4215,7 +4288,7 @@ def _stat_train_parity(tmp: Path, records: dict) -> None:
                                              "encoder.prob_head.fc1.weight",
                                              "encoder.prob_head.fc2.weight",
                                              "encoder.proj_out.weight",
-                                             "decoder.blocks.ffd_5.proj_in.weight",
+                                             "decoder.blocks.ffd_3.proj_in.weight",
                                              "decoder.proj_out.weight")),
             ("disc", gpu.disc, cpu.disc, ("transformer_encoder.blocks.3.attn.qkv.weight",
                                           "x_embedder.proj.weight"))):
@@ -4414,8 +4487,9 @@ def phase_prior(tmp: Path, records: dict) -> None:
     the bf16 tokenizer, at 50x the learning rate:
       (a) gptc-S in fp32 (TF32 off), perturbed: `compute_prior_loss` from
           8 x 1024 latents and every gradient (its input's too), card against
-          CPU; exactly 12 3xTF32 forwards, 12 dQ and 12 dK/dV; its forward
-          and forward + backward timed; `decode_step` (6 rows, then 10 single
+          CPU at 4 of its 12 layers (the run's budget); exactly 4 3xTF32
+          forwards, 4 dQ and 4 dK/dV; the whole model's forward and forward +
+          backward timed on the card; `decode_step` (6 rows, then 10 single
           steps) against the card's own full forward;
       (b) the recipe's attention shapes are phases 2 and 10's cases
           `fp32_gptc_prior` (B = 8, S = 1023, H = 6, D = 64, causal, fp32) and
@@ -4423,7 +4497,8 @@ def phase_prior(tmp: Path, records: dict) -> None:
           copied here;
       (c) one fp32 step of the recipe through the trainer at batch 1, card
           against CPU, the tokenizer at 2 + 2 of its 12 + 12 layers, gptc-S
-          and the 512 / 8 / 12 discriminator whole, `prior_lr_mult` 50 and
+          and the 512 / 8 / 12 discriminator at 4 of their 12 layers
+          (`PARITY_DEPTH`), `prior_lr_mult` 50 and
           `emb_lr_mult` 2 (three learning-rate groups): losses, VQ indices,
           named gradients, the parameters after the step per group; then a
           `grad_accum_steps` 2 step at batch 8 (deterministic VQ, the
@@ -4472,6 +4547,11 @@ def _prior_parity(rec: dict) -> None:
     _perturb(pair["cpu"], SEED + 221)
     pair["cuda"].load_state_dict(pair["cpu"].state_dict())
     pair["cuda"].cuda()
+    # card vs CPU at PARITY_DEPTH of the 12 layers; the timings and
+    # decode_step below take the card's whole model back
+    n_params = sum(p.numel() for p in pair["cpu"].parameters())
+    _cut_depth(pair["cpu"], PARITY_DEPTH)
+    whole = _cut_depth(pair["cuda"], PARITY_DEPTH)
     x = torch.from_numpy(np.random.default_rng(SEED + 222).standard_normal((8, 1024, 8))
                          .astype(np.float32))
     kernels = (flash_attn_fwd, flash_attn_bwd_dq, flash_attn_bwd_dkv)
@@ -4487,7 +4567,6 @@ def _prior_parity(rec: dict) -> None:
             torch.cuda.synchronize()
         secs[d] = time.perf_counter() - t0
     counts = {k.__name__: (k.launches, k.launches_tf32x3) for k in kernels}
-    n_params = sum(p.numel() for p in pair["cpu"].parameters())
     loss_rel = abs(loss["cuda"].item() - loss["cpu"].item()) / abs(loss["cpu"].item())
     gp, cp = dict(pair["cuda"].named_parameters()), dict(pair["cpu"].named_parameters())
     top = max(c.grad.abs().max().item() for c in cp.values())
@@ -4503,17 +4582,21 @@ def _prior_parity(rec: dict) -> None:
             worst, worst_name = rel, name
     x_rel = _rel_max(xs["cuda"].grad, xs["cpu"].grad)
     log(f"[prior fp32] gptc-S {n_params:,} params, compute_prior_loss at B = 8 from 1024 "
-        f"latents, TF32 off: CPU {secs['cpu']:.1f} s, card {secs['cuda']:.2f} s (first call); "
+        f"latents, TF32 off, {PARITY_DEPTH} of its 12 layers: CPU {secs['cpu']:.1f} s, "
+        f"card {secs['cuda']:.2f} s (first call); "
         f"loss {loss['cuda'].item():.6g}/{loss['cpu'].item():.6g} (card/CPU, relative "
         f"{loss_rel:.2e}, tol 2e-4); gradients max|card-cpu|/max|cpu| {worst:.2e} ({worst_name}), "
         f"input {x_rel:.2e}, key biases {key_bias:.2e} of the largest gradient (tol 1e-3); "
-        f"launches (all, 3xTF32) {counts} (expect 12 each, all 3xTF32)")
+        f"launches (all, 3xTF32) {counts} (expect {PARITY_DEPTH} each, all 3xTF32)")
     require(n_params == 21_694_088, f"prior: gptc-S has {n_params} parameters")
     require(math.isfinite(loss["cuda"].item()) and loss_rel <= 2e-4, f"prior: loss {loss_rel}")
     require(max(worst, x_rel, key_bias) <= 1e-3, f"prior: gradients {worst}, {x_rel}, {key_bias}")
-    require(all(v == (12, 12) for v in counts.values()), f"prior: launches {counts}")
+    want = (PARITY_DEPTH, PARITY_DEPTH)
+    require(all(v == want for v in counts.values()), f"prior: launches {counts}")
 
     m, xg = pair["cuda"], xs["cuda"].detach()
+    whole()
+    m.zero_grad(set_to_none=True)
     fwd_ms = median_ms(lambda: m.compute_prior_loss(xg), iters=5)
     xr = xg.clone().requires_grad_()
 
@@ -4553,9 +4636,14 @@ def _recipe_step_parity(tmp: Path, rec: dict) -> None:
 
     cfg = _recipe_cfg(tmp / "recipe_parity", 1, "use_amp", "false", "model.args.encoder_depth",
                       "2", "model.args.decoder_depth", "2", "loss.args.d_update_freq", "1",
-                      "optimizer.emb_lr_mult", "2.0")
+                      "optimizer.emb_lr_mult", "2.0", "loss.args.disc_tran_n_layers",
+                      str(PARITY_DEPTH))
     pair = {d: _trainer({**cfg, "save_dir": str(tmp / f"recipe_{d}")}, d) for d in ("cpu", "cuda")}
     cpu, gpu = pair["cpu"], pair["cuda"]
+    for tr in (cpu, gpu):  # gptc-S at PARITY_DEPTH of its 12 layers
+        _cut_depth(tr.model.prior, PARITY_DEPTH)
+        group = next(g for g in tr.opt_g.param_groups if g["name"] == "prior")
+        group["params"] = list(tr.model.prior.parameters())
     groups = [(g["name"], g["lr_mult"]) for g in cpu.opt_g.param_groups]
     require(groups == [("base", 1.0), ("prior", 50.0), ("emb", 2.0)], f"recipe groups {groups}")
     _perturb(cpu.model, SEED + 230)
@@ -4578,8 +4666,9 @@ def _recipe_step_parity(tmp: Path, rec: dict) -> None:
     loss_err = max(abs(infos["cuda"][k] - infos["cpu"][k]) / max(abs(infos["cpu"][k]), 1e-6)
                    for k in loss_keys)
     log(f"[recipe fp32] tokenizer at 2 + 2 layers {sum(p.numel() for p in cpu.model.parameters()):,}"
-        f" params (the prior {sum(p.numel() for p in cpu.model.prior.parameters()):,}) + "
-        f"discriminator 512/8/12 {sum(p.numel() for p in cpu.disc.parameters()):,} + LPIPS, "
+        f" params (the prior at {PARITY_DEPTH} of its 12 layers "
+        f"{sum(p.numel() for p in cpu.model.prior.parameters()):,}) + discriminator 512/8 at "
+        f"{PARITY_DEPTH} of its 12 layers {sum(p.numel() for p in cpu.disc.parameters()):,} + LPIPS, "
         f"batch 1, TF32 off, groups {groups}: CPU step {secs['cpu']:.1f} s, card step "
         f"{secs['cuda']:.2f} s; VQ indices agree on {agree:.4%} (tol >= 99.9%); losses "
         + ", ".join(f"{k} {infos['cuda'][k]:.6g}/{infos['cpu'][k]:.6g}" for k in loss_keys)
@@ -4594,10 +4683,10 @@ def _recipe_step_parity(tmp: Path, rec: dict) -> None:
                 "x_embedder.proj.weight", "encoder.blocks.0.attn.qkv.weight",
                 "encoder.blocks.1.mlp.fc2.weight", "encoder_latent_query_embed",
                 "bottleneck.in_linear.weight", "prior.input_proj.weight", "prior.pos_emb",
-                "prior.blocks.0.query.weight", "prior.blocks.11.mlp_proj.weight",
+                "prior.blocks.0.query.weight", "prior.blocks.3.mlp_proj.weight",
                 "prior.head.weight", "decoder.blocks.1.mlp.fc2.weight",
                 "final_layer.linear.weight")),
-            ("disc", gpu.disc, cpu.disc, ("transformer_encoder.blocks.11.attn.qkv.weight",
+            ("disc", gpu.disc, cpu.disc, ("transformer_encoder.blocks.3.attn.qkv.weight",
                                           "x_embedder.proj.weight"))):
         gp, cp = dict(gm.named_parameters()), dict(cm.named_parameters())
         for pname in names:
@@ -4771,6 +4860,343 @@ def _recipe_cli(tmp: Path, rec: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------- phase 23
+
+
+BASIC_NAMES = ("autoencoder", "autoencoder_dualpatch", "autoencoder_first_token",
+               "autoencoder_first_token_res", "autoencoder_design")
+BASIC_FLASH = {"autoencoder": 10, "autoencoder_dualpatch": 10, "autoencoder_first_token": 15,
+               "autoencoder_first_token_res": 15, "autoencoder_design": 15}
+FLASH_NAMES = ("flash_fwd_sm90_kernel", "flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel",
+               "vq_tc_kernel")
+
+
+def phase_trainer_basic(tmp: Path, records: dict) -> None:
+    """The trainer's own behaviour, `spectral_norm` and R1, and the
+    model_basic family:
+      (a) the flagship trainer of cfgs/larp_tokenizer.yaml (bf16, batch 8, 4
+          steps an epoch, 2 epochs, the discriminator on, seeded null128
+          clips) through `run()`: run A whole with `profile_steps: 2` and
+          the TensorBoard writer, run A' whole (the spread of two runs), run
+          B cut by a SIGTERM in epoch 2, run C resuming B (`_preempt_resume`);
+      (b) the flagship's discriminator with `spectral_norm`, R1 and both:
+          fp32 card vs CPU, then a bf16 trainer step each (`_r1_spectral`);
+      (c) the five model_basic registrations (`_model_basic`)."""
+    rec = records["trainer_basic"] = {}
+    _preempt_resume(tmp, rec)
+    _r1_spectral(tmp, rec, records)
+    _model_basic(tmp, rec)
+
+
+def _basic_run(cfg: dict, sigterm_at=None) -> dict:
+    """`run()` of the port's tokenizer trainer from `cfg` with 4 steps an
+    epoch; `sigterm_at` (epoch, i) sends this process a SIGTERM as the loader
+    is about to yield batch i of that epoch. Returns the trainer, the CRC of
+    every batch that reached `train_step`, and the SystemExit code (None when
+    run() returned)."""
+    import os
+    import signal
+    import zlib
+
+    import torch
+
+    import video_tokenizer_tpu_torch.data  # noqa: F401
+    import video_tokenizer_tpu_torch.trainers  # noqa: F401
+    from video_tokenizer_tpu_torch.registry import trainers
+
+    tr = trainers.make({"name": cfg["trainer"]}, args={"cfg": cfg, "device": "cuda"})
+    tr.steps_per_epoch = lambda: 4
+    loader, step, applied = tr.train_loader, tr.train_step, []
+
+    def signalling_loader(epoch):
+        for i, batch in enumerate(loader(epoch)):
+            if (epoch, i) == sigterm_at:
+                require(signal.getsignal(signal.SIGTERM) not in (signal.SIG_DFL, None),
+                        "preempt: the trainer's SIGTERM handler is not installed")
+                os.kill(os.getpid(), signal.SIGTERM)
+            yield batch
+
+    def counted_step(batch):
+        applied.append(zlib.crc32(batch["gt"].numpy().tobytes()))
+        return step(batch)
+
+    tr.train_loader, tr.train_step = signalling_loader, counted_step
+    code = None
+    t0 = time.perf_counter()
+    try:
+        tr.run()
+    except SystemExit as e:
+        code = e.code
+    torch.cuda.synchronize()
+    return {"trainer": tr, "applied": applied, "exit": code, "s": time.perf_counter() - t0}
+
+
+def _state_gap(a, b) -> float:
+    """max over the tensors of two trainers' generator and discriminator of
+    max|a - b| / max|b|."""
+    worst = 0.0
+    for ma, mb in ((a.model, b.model), (a.disc, b.disc)):
+        for (n, x), y in zip(ma.state_dict().items(), mb.state_dict().values()):
+            if x.is_floating_point():
+                scale = y.float().abs().max().item()
+                worst = max(worst, (x.float() - y.float()).abs().max().item() / max(scale, 1e-30))
+    return worst
+
+
+def _adam_steps(tr) -> list:
+    return [[int(s["step"]) for s in opt.state_dict()["state"].values()]
+            for opt in (tr.opt_g, tr.opt_d)]
+
+
+def _preempt_resume(tmp: Path, rec: dict) -> None:
+    """Phase 23 (a). Gates: B leaves through SystemExit(0) with `epoch-last`
+    holding epoch 1, resume_skip_steps 2 and preempted; C skips those 2 and
+    applies the rest, B's and C's batches together are A's in A's order
+    (CRCs of the clips), Adam's step counts equal A's, C's parameters are
+    within the spread of A and A' (bit for bit when A and A' are); A's trace
+    holds exactly 2 steps with the wgmma flash forward, dQ, dK/dV and VQ
+    kernels by name; the writer wrote `train/` scalars, or the log says it
+    is unavailable."""
+    import json
+
+    import torch
+
+    from video_tokenizer_tpu_torch.utils import checkpoint as ckpt_lib
+
+    def cfg(name, **over):
+        c = _train_cfg(tmp / name, 8, True, max_epoch=2, **over)
+        # seeded clips: the fake train split draws fresh entropy per clip,
+        # which no two runs could share
+        c["train_dataset"]["args"]["split"] = "val"
+        return c
+
+    a = _basic_run(cfg("pre_a", profile_steps=2, enable_tb=True))
+    a2 = _basic_run(cfg("pre_a2", enable_tb=False))
+    b = _basic_run(cfg("pre_b", enable_tb=False), sigterm_at=(2, 1))
+    last = tmp / "pre_b" / "epoch-last"
+    state = ckpt_lib.restore_checkpoint(str(last))
+    meta = json.loads((last / "meta.json").read_text())
+    position = {k: (state.get(k), meta.get(k))
+                for k in ("epoch", "global_step", "resume_skip_steps", "preempted")}
+    c = _basic_run(cfg("pre_b", enable_tb=False))
+    del state
+    spread, gap = _state_gap(a2["trainer"], a["trainer"]), _state_gap(c["trainer"], a["trainer"])
+    steps = {k: _adam_steps(r["trainer"]) for k, r in (("A", a), ("C", c))}
+    trace = json.loads((tmp / "pre_a" / "profile" / "trace.json").read_text())["traceEvents"]
+    annotated = sorted(e["name"] for e in trace if e.get("cat") == "user_annotation"
+                       and str(e.get("name", "")).startswith("train_step#"))
+    kernels = {k: sum(k in str(e.get("name", "")) for e in trace if e.get("cat") == "kernel")
+               for k in FLASH_NAMES}
+    tb_dir = tmp / "pre_a" / "tensorboard"
+    if a["trainer"].writer is not None:
+        events = b"".join(p.read_bytes() for p in tb_dir.glob("events.out.tfevents.*"))
+        writer = ("wrote " + ", ".join(t for t in ("train/loss", "train/d_loss", "train/psnr")
+                                       if t.encode() in events))
+        wrote = b"train/loss" in events
+    else:
+        text = (tmp / "pre_a" / "log.txt").read_text()
+        wrote = "TensorBoard writer unavailable" in text
+        writer = "unavailable, as the log says: " + next(
+            (l for l in text.splitlines() if "TensorBoard writer unavailable" in l), "")
+    log(f"[preempt] flagship bf16 batch 8, 4 steps an epoch, 2 epochs: run A {a['s']:.1f} s "
+        f"(profiled), A' {a2['s']:.1f} s, B {b['s']:.1f} s (SIGTERM before epoch 2's batch 1: "
+        f"SystemExit({b['exit']}), {len(b['applied'])} batches applied), C {c['s']:.1f} s "
+        f"(resumed, {len(c['applied'])} applied); epoch-last position (state.pth, meta.json) "
+        f"{position}; batches B + C == A: {b['applied'] + c['applied'] == a['applied']}, A == A': "
+        f"{a['applied'] == a2['applied']}; Adam steps (G, D) A {sorted(set(steps['A'][0]))}, "
+        f"{sorted(set(steps['A'][1]))}, C equal: {steps['A'] == steps['C']}; parameters: "
+        f"max|C - A|/max|A| {gap:.3e}, spread of two whole runs max|A' - A|/max|A| {spread:.3e} "
+        "(gate: C == A bit for bit when A' == A, else within 2x the spread)")
+    log(f"[preempt] A's trace ({len(trace)} events): profiled steps {annotated}; kernels by name "
+        f"{kernels}; TensorBoard writer: {writer}")
+    require(b["exit"] == 0, f"preempt: run B left with {b['exit']}")
+    want = {"epoch": (1, 1), "global_step": (6, 6), "resume_skip_steps": (2, 2),
+            "preempted": (True, True)}
+    require(position == want, f"preempt: position {position}")
+    require(len(a["applied"]) == 8 and len(c["applied"]) == 2, "preempt: batch counts")
+    require(b["applied"] + c["applied"] == a["applied"] == a2["applied"], "preempt: data order")
+    require(steps["A"] == steps["C"] and max(steps["A"][0]) == 8, f"preempt: Adam steps {steps}")
+    require(gap == 0.0 if spread == 0.0 else gap <= 2 * spread,
+            f"preempt: C is {gap} from A, the spread of two runs {spread}")
+    require(annotated == ["train_step#2", "train_step#3"], f"preempt: profiled {annotated}")
+    require(all(kernels.values()), f"preempt: kernels in the trace {kernels}")
+    require(wrote, f"preempt: writer {writer}")
+    rec["preempt"] = {"gap_rel": gap, "spread_rel": spread,
+                      "run_s": {"A": a["s"], "A2": a2["s"], "B": b["s"], "C": c["s"]},
+                      "trace_kernels": kernels, "writer": writer}
+    del a, a2, b, c, trace
+    torch.cuda.empty_cache()
+
+
+R1_OPTIONS = {"spectral_norm": {"spectral_norm": True}, "r1": {"r1_gp_weight": 0.01},
+              "both": {"spectral_norm": True, "r1_gp_weight": 0.01}}
+
+
+def _r1_spectral(tmp: Path, rec: dict, records: dict) -> None:
+    """Phase 23 (b). The discriminator of cfgs/larp_tokenizer.yaml (384 wide,
+    12 heads, 8 layers, temporal patch 4, patch 8: S = 1025), seeded and
+    perturbed, fp32 (TF32 off) at batch 2, card against CPU with each option:
+    the D loss, `r1_gp` and every discriminator gradient within 1e-3 of
+    their scale, 16 3xTF32 flash forwards, dQ and dK/dV without R1 and none
+    with it. Then bf16 trainer steps at batch 8 with each option alone
+    (`_train_throughput`): s/step beside phase 12's plain step, exact launch
+    counts: 48 forwards, 32 dQ and dK/dV, 16 more on a discriminator step
+    without R1; 24, 24 and 0 with it (the tokenizer's 24 forwards and 24
+    backward passes unchanged)."""
+    import numpy as np
+    import torch
+
+    from video_tokenizer_tpu_torch.ops.attention import (
+        flash_attn_bwd_dkv, flash_attn_bwd_dq, flash_attn_fwd,
+    )
+    from video_tokenizer_tpu_torch.registry import models
+
+    kernels = (flash_attn_fwd, flash_attn_bwd_dq, flash_attn_bwd_dkv)
+    loss_spec = _load_cfg("larp_tokenizer", tmp, 2)["loss"]
+    rng = np.random.default_rng(SEED + 230)
+    x = torch.from_numpy(rng.random((2, 3, 16, 128, 128), dtype=np.float32))
+    y = torch.from_numpy(rng.random((2, 3, 16, 128, 128), dtype=np.float32))
+    for i, (name, option) in enumerate(R1_OPTIONS.items()):
+        args = {**dict(loss_spec["args"]), **option, "dtype": torch.float32,
+                "generator": torch.Generator().manual_seed(SEED + 231)}
+        pair = {d: models.make({"name": loss_spec["name"], "args": args}) for d in ("cpu", "cuda")}
+        _perturb(pair["cpu"].discriminator, SEED + 232 + i)
+        pair["cuda"].load_state_dict(pair["cpu"].state_dict())
+        pair["cuda"].cuda()
+        out, secs = {}, {}
+        for d, m in pair.items():
+            for k in kernels:
+                k.launches = k.launches_tf32x3 = 0
+            t0 = time.perf_counter()
+            loss, info = m.discriminator_loss(x.to(d), y.to(d), 1, train=True)
+            loss.backward()
+            if d == "cuda":
+                torch.cuda.synchronize()
+            secs[d] = time.perf_counter() - t0
+            out[d] = (loss.item(), float(info.get("r1_gp", 0.0)))
+        counts = {k.__name__: (k.launches, k.launches_tf32x3) for k in kernels}
+        loss_rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+        r1_rel = abs(out["cuda"][1] - out["cpu"][1]) / max(abs(out["cpu"][1]), 1e-30)
+        gp = dict(pair["cuda"].discriminator.named_parameters())
+        worst, worst_name = 0.0, ""
+        for pname, c in pair["cpu"].discriminator.named_parameters():
+            require(c.grad is not None and gp[pname].grad is not None,
+                    f"{name}: no gradient for {pname}")
+            rel = _rel_max(gp[pname].grad, c.grad)
+            if not rel <= worst:
+                worst, worst_name = rel, pname
+        n = 0 if "r1_gp_weight" in option else 16
+        log(f"[disc {name}] the 384 / 12 / 8 discriminator (S = 1025) with {option}, fp32 batch 2, "
+            f"TF32 off: CPU {secs['cpu']:.1f} s, card {secs['cuda']:.2f} s (first call); D loss "
+            f"{out['cuda'][0]:.6g}/{out['cpu'][0]:.6g} (card/CPU, relative {loss_rel:.2e}), r1_gp "
+            f"{out['cuda'][1]:.6g}/{out['cpu'][1]:.6g} ({r1_rel:.2e}); gradients max|card-cpu|/"
+            f"max|cpu| {worst:.2e} ({worst_name}) (tol 1e-3 each); flash launches (all, 3xTF32) "
+            f"{counts} (expect {n} each)")
+        require(loss_rel <= 1e-3 and r1_rel <= 1e-3, f"{name}: losses {loss_rel}, {r1_rel}")
+        require(("r1_gp_weight" in option) == (out["cpu"][1] > 0), f"{name}: r1_gp {out}")
+        require(worst <= 1e-3, f"{name}: gradients differ by {worst} ({worst_name})")
+        require(all(v == (n, n) for v in counts.values()), f"{name}: launches {counts}")
+        rec[f"disc_{name}"] = {"loss_rel": loss_rel, "r1_rel": r1_rel, "grad_rel": worst,
+                               "cpu_s": secs["cpu"]}
+        del pair
+    torch.cuda.empty_cache()
+    plain = records["train_bf16"]["s_per_step"]
+    for name in ("spectral_norm", "r1"):
+        option = R1_OPTIONS[name]
+        cfg = _train_cfg(tmp / f"train_{name}", 8, True)
+        cfg["loss"]["args"].update(option)
+        flash = (24, 24, 0) if "r1_gp_weight" in option else (48, 32, 16)
+        run = _train_throughput(f"train bf16 {name}", cfg, flash, 1)
+        log(f"[train bf16 {name}] {run['s_per_step']:.3f} s/step beside the plain step's "
+            f"{plain:.3f} (phase 12, this run): x{run['s_per_step'] / plain:.2f}")
+        rec[f"train_{name}"] = {k: run[k] for k in ("s_per_step", "clips_per_s", "peak_gib",
+                                                    "idle", "launches", "busy_ms_per_step")}
+
+
+def _model_basic(tmp: Path, rec: dict) -> None:
+    """Phase 23 (c). Each of the five registrations at its full default
+    width (small_thin: 768 wide, 5 + 5 layers, 12 heads of 64; FSQ), seeded
+    and perturbed, fp32 (TF32 off) at batch 1, card against CPU: FSQ indices
+    (and the first frame's) >= 99% equal, decode_from_bottleneck of the CPU's
+    indices within 1e-3 of the scale or 5x the CPU's own change under a 1e-6
+    nudge of the decoder's proj_in (phase 19's rule), exact 3xTF32 flash
+    launches (10 a forward, 15 with the first-frame encoder); bf16
+    reconstruction at batch 8 of `autoencoder` and `autoencoder_dualpatch`
+    (`_reconstruction_rate`: 10 wgmma forwards a batch); one bf16 training
+    run of `autoencoder` through the tokenizer trainer with
+    cfgs/larp_tokenizer_large.yaml's loss and optimizer, the model swapped in
+    memory (`_train_throughput`: 34 forwards, 18 dQ and dK/dV a step, 16
+    more on a discriminator step)."""
+    import torch
+
+    from video_tokenizer_tpu_torch.ops.attention import flash_attn_fwd
+    from video_tokenizer_tpu_torch.registry import models
+
+    x = torch.rand(1, 3, 16, 128, 128, generator=torch.Generator().manual_seed(SEED + 240))
+    weights = {}
+    for i, name in enumerate(BASIC_NAMES):
+        model = models.make({"name": name}, args={
+            "dtype": torch.float32, "generator": torch.Generator().manual_seed(SEED + 241 + i)})
+        _perturb(model, SEED + 250 + i)
+        model.eval()
+        n_params = sum(p.numel() for p in model.parameters())
+        if name in ("autoencoder", "autoencoder_dualpatch"):
+            weights[name] = {k: v.clone() for k, v in model.state_dict().items()}
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            ref = model(x)
+            ref_dec = model.decode_from_bottleneck(*_fsq_indices(ref))
+            w = model.decoder.proj_in.weight
+            kept = w.clone()
+            w.mul_(1 + 1e-6)
+            nudged = model.decode_from_bottleneck(*_fsq_indices(ref))
+            w.copy_(kept)
+        cpu_s = time.perf_counter() - t0
+        yardstick = _rel_max(nudged, ref_dec)
+        model.cuda()
+        flash_attn_fwd.launches = flash_attn_fwd.launches_tf32x3 = 0
+        with torch.inference_mode():
+            got = model(x.cuda())
+            n_fwd, n_tf32x3 = flash_attn_fwd.launches, flash_attn_fwd.launches_tf32x3
+            dec = model.decode_from_bottleneck(*(i.cuda() for i in _fsq_indices(ref)))
+        torch.cuda.synchronize()
+        agree = [(g.cpu() == r).float().mean().item()
+                 for g, r in zip(_fsq_indices(got), _fsq_indices(ref))]
+        rec_err, rec_tol = _rel_max(dec, ref_dec), max(1e-3, 5 * yardstick)
+        log(f"[model_basic fp32] {name} ({model.arch}, {n_params:,} params, "
+            f"{model.num_latent_tokens} latents, FSQ-{model.codebook_size}), batch 1, TF32 off: "
+            f"CPU plain path {cpu_s:.1f} s; FSQ indices agree "
+            f"{', '.join(f'{a:.4%}' for a in agree)} (tol >= 99%); decode_from_bottleneck(CPU "
+            f"indices) {rec_err:.3e} of the scale (tol {rec_tol:.3e}: the CPU's own change under "
+            f"proj_in x (1 + 1e-6) {yardstick:.3e}); pred_frames "
+            f"{_rel_max(got['pred_frames'], ref['pred_frames']):.3e}; flash launches {n_fwd}, "
+            f"3xTF32 {n_tf32x3} (expect {BASIC_FLASH[name]})")
+        require(tuple(got["pred_frames"].shape) == (1, 3, 16, 128, 128), f"{name}: shape")
+        require(torch.isfinite(got["pred_frames"]).all().item(), f"{name}: non-finite output")
+        require(min(agree) >= 0.99, f"{name}: FSQ index agreement {agree}")
+        require(rec_err <= rec_tol, f"{name}: reconstruction error {rec_err} > {rec_tol}")
+        require(n_fwd == n_tf32x3 == BASIC_FLASH[name], f"{name}: flash {n_fwd}/{n_tf32x3}")
+        rec[name] = {"params": n_params, "cpu_s": cpu_s, "index_agree": min(agree),
+                     "rec_err_rel": rec_err, "yardstick": yardstick, "flash_per_forward": n_fwd}
+        del model, got, ref
+        torch.cuda.empty_cache()
+    for name, state in weights.items():
+        bf16 = models.make({"name": name}, args={
+            "dtype": torch.bfloat16, "generator": torch.Generator().manual_seed(SEED)})
+        bf16.load_state_dict(state)
+        rec[name].update(_reconstruction_rate(f"model_basic {name}", bf16.cuda().eval(),
+                                              BASIC_FLASH[name], 0))
+        del bf16
+        torch.cuda.empty_cache()
+    del weights
+    cfg = _load_cfg("larp_tokenizer_large", tmp / "basic_train", 8)
+    cfg["model"], cfg["use_amp"] = {"name": "autoencoder", "args": {}}, True
+    run = _train_throughput("model_basic train bf16", cfg, (34, 18, 16), 0)
+    rec["train_autoencoder_bf16"] = {k: run[k] for k in (
+        "s_per_step", "clips_per_s", "peak_gib", "idle", "launches", "busy_ms_per_step",
+        "device_ms_per_step")}
+
+
 def main() -> int:
     if not (ROOT / "video_tokenizer_tpu_torch").is_dir():
         print("chip_smoke.py: the video_tokenizer_tpu_torch package is not beside this script",
@@ -4830,6 +5256,7 @@ def main() -> int:
         run(phase_model_new, Path(tmp), records)
         run(phase_stat_lattice, Path(tmp), records)
         run(phase_prior, Path(tmp), records)
+        run(phase_trainer_basic, Path(tmp), records)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 
     sources = {
@@ -4892,6 +5319,7 @@ def main() -> int:
     print(json.dumps({"stat_lattice": {k: records[k] for k in (
         "larp_sq", "larp_fsq", "stat", "train_stat_bf16", "train_sq_bf16", "vq_argmax_leech")}}))
     print(json.dumps({"prior": records["prior"]}))
+    print(json.dumps({"trainer_basic": records["trainer_basic"]}))
     print(json.dumps({"sampling_tokens_per_s": records["sampling"],
                       "sampling_device_step_ms": records["sampling_device_step_ms"],
                       "sampling_kernels_per_step": records["sampling_kernels_per_step"],

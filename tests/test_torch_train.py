@@ -4,9 +4,9 @@ A tiny trainer (`tests/_torch_port.py::trainer_cfg`) takes real steps: a
 save / resume round trip restores the exact state (parameters, both
 optimizers, EMA, LeCam EMAs, the VQ sampling generator, step), so the next
 step is the same bit for bit; `epoch-final` loads into `LARPTokenizer`
-strictly; the CLI runs one short epoch; what is not ported raises (the
-AR trainers' remat), and what was ported since builds (the STAT trainer,
-sample FVD against real statistics).
+strictly; the CLI runs one short epoch; what is not ported raises (meshes,
+the AR trainers' remat), and what was ported since builds (the STAT trainer,
+sample FVD against real statistics, R1 and spectral_norm).
 """
 import json
 import os
@@ -146,14 +146,14 @@ def test_unported_options_raise(tmp_path):
         "cfg": ar_trainer_cfg(tmp_path, fvd_real_stats_path="real_stats.pkl"), "device": "cpu"})
     tr.make_datasets()
     tr.make_model()
-    # what still raises in tokenizer training: R1 and spectral_norm
-    for key, value, match in (("r1_gp_weight", 1.0, "R1"), ("spectral_norm", True, "spectral")):
+    # R1 and spectral_norm, ported since, build (tests/test_torch_r1_spectral.py)
+    for key, value in (("r1_gp_weight", 1.0), ("spectral_norm", True)):
         cfg = trainer_cfg(tmp_path)
         cfg["loss"]["args"][key] = value
         tr = trainers.make({"name": "larp_tokenizer_trainer"}, args={"cfg": cfg, "device": "cpu"})
         tr.make_datasets()
-        with pytest.raises(NotImplementedError, match=match):
-            tr.make_model()
+        tr.make_model()
+        assert getattr(tr.loss_mod, key) == value
 
 
 def test_train_cli_runs_one_short_epoch_on_the_cpu(tmp_path):

@@ -93,11 +93,12 @@ def test_unported_branches_name_their_roadmap_item():
     bn["args"]["norm"] = "gn"
     with pytest.raises(ValueError, match="gn"):
         LARPTokenizer(**{**TINY_ARGS, "bottleneck": bn})
-    # what still raises on the tokenizer's path names its item: R1 and
-    # spectral_norm in the loss
+    # R1 and spectral_norm in the loss are ported (tests/test_torch_r1_spectral.py):
+    # they build, and R1's discriminator is built on the plain attention
     from video_tokenizer_tpu_torch.models.loss import VQLPIPSWithDiscriminator
 
-    for kwargs in ({"r1_gp_weight": 1.0}, {"spectral_norm": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            VQLPIPSWithDiscriminator(disc_tran_hidden_size=64, disc_tran_n_heads=2,
-                                     disc_tran_n_layers=1, **kwargs)
+    for kwargs, plain in (({"r1_gp_weight": 1.0}, True), ({"spectral_norm": True}, False)):
+        loss = VQLPIPSWithDiscriminator(disc_tran_hidden_size=64, disc_tran_n_heads=2,
+                                        disc_tran_n_layers=1, **kwargs)
+        blocks = loss.discriminator.transformer_encoder.blocks
+        assert all(b.attn.plain_attention is plain for b in blocks)

@@ -12,10 +12,30 @@ Counterpart of `video_tokenizer_tpu/models/loss.py`:
   * `perceptual_per_sample`: LPIPS over the frames, the mean per clip [B]
     (the STAT trainer's content term).
   * `measure_perplexity`, `lecam_reg` and the loss functions.
+  * `spectral_norm: true`: every projection weight of the discriminator
+    (its patch embed's `proj`, each block's qkv, proj, fc1 and fc2, and
+    `fc`) divided by its top singular value on the way into the forward
+    (`spectral_normalize`, through `torch.func.functional_call`), as the
+    JAX `spectral_normalize_params` does through `nn.map_variables`:
+    stateless, 9 power iterations from v = 1/sqrt(n_out) on the weight as
+    the Flax kernel [in, out] (the port's weight transposed), u and v
+    detached, sigma = u^T W v differentiable, fp32, divided by max(sigma,
+    1e-12). LayerNorms, biases, `cls_token` and the PE pass through. This
+    is not `torch.nn.utils.spectral_norm`, which keeps a `u` buffer and
+    iterates once a call. The raw weights are what is stored, optimised,
+    checkpointed and carried from JAX, under the usual keys. The weights
+    are normalised once per `discriminator_loss` / `generator_loss` call
+    (the real and fake forwards of a D loss share them, as they share the
+    weights).
+  * `r1_gp_weight > 0`: in training, ONE forward of the real clips gives
+    both their logits and the gradient of the summed fp32 logits with
+    respect to the clips; `r1_gp` = the batch mean of its summed squares
+    x `r1_gp_weight`, added to the D total (under the disc_self_start
+    gate) and logged. With grad enabled the penalty keeps its graph
+    (`create_graph`), so the D backward is a double backward; such a
+    discriminator is built with `plain_attention` (the JAX loss's
+    `use_pallas=False` under R1), so it launches no flash kernel.
 ns_smooth's label noise draws from the module's own `noise_generator`.
-Not ported yet (ROADMAP.md, 'Still to port', item 3): the R1 gradient
-penalty (`r1_gp_weight > 0`, which needs a double backward) and
-`spectral_norm`; both raise.
 """
 from __future__ import annotations
 
@@ -29,7 +49,7 @@ from torch import nn
 
 from ..ops import sincos
 from ..registry import models
-from .embed import PatchEmbed3D, VideoPatchEmbed
+from .embed import PatchEmbed3D, PatchProjection, VideoPatchEmbed
 from .layers import Dense, LayerNorm
 from .lpips import LPIPS
 from .transformer import ViTStack
@@ -75,6 +95,43 @@ def lecam_reg(real_pred, fake_pred, ema_real_pred, ema_fake_pred):
             + torch.mean(F.relu(ema_real_pred - fake_pred) ** 2))
 
 
+def _power_iteration_sigma(w2d: torch.Tensor, n_iter: int = 9) -> torch.Tensor:
+    """Top singular value [...] of w2d [..., n_in, n_out] (a stack of
+    matrices), by `n_iter` power iterations from v = 1/sqrt(n_out); u and v
+    carry no gradient, sigma = u^T W v does."""
+    def unit(x):
+        return x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-12)
+
+    with torch.no_grad():
+        v = torch.full((*w2d.shape[:-2], w2d.shape[-1]), 1.0 / math.sqrt(w2d.shape[-1]),
+                       dtype=w2d.dtype, device=w2d.device)
+        for _ in range(n_iter):
+            u = unit((w2d @ v[..., None])[..., 0])
+            v = unit((w2d.transpose(-1, -2) @ u[..., None])[..., 0])
+        u = unit((w2d @ v[..., None])[..., 0])
+    return ((u[..., None, :] @ w2d)[..., 0, :] * v).sum(-1)
+
+
+def spectral_normalize(module: nn.Module) -> Dict[str, torch.Tensor]:
+    """{name: weight / sigma} for every `Dense` and patch-projection weight
+    under `module`, sigma from `_power_iteration_sigma` of the weight as the
+    Flax kernel (the port's [out, in...] read as [in, out]); weights of one
+    shape are iterated as one stack. For `torch.func.functional_call`."""
+    params = dict(module.named_parameters())
+    by_shape: Dict[tuple, list] = {}
+    for name, m in module.named_modules():
+        if isinstance(m, (Dense, PatchProjection)):
+            w = params[f"{name}.weight"]
+            by_shape.setdefault(tuple(w.shape), []).append(f"{name}.weight")
+    out = {}
+    for shape, names in by_shape.items():
+        w = torch.stack([params[n] for n in names]).float()
+        sigma = _power_iteration_sigma(w.reshape(len(names), shape[0], -1).transpose(-1, -2))
+        normed = w / sigma.clamp_min(1e-12).reshape(-1, *(1,) * len(shape))
+        out.update({n: normed[i].to(params[n].dtype) for i, n in enumerate(names)})
+    return out
+
+
 def measure_perplexity(predicted_indices: torch.Tensor, n_embed: int):
     """Codebook usage perplexity and the number of codes used."""
     avg_probs = torch.bincount(predicted_indices.reshape(-1).long(), minlength=n_embed).float()
@@ -89,7 +146,8 @@ class TransformerDiscriminator(nn.Module):
     def __init__(self, hidden_size: int = 384, n_heads: int = 12, n_layers: int = 8,
                  input_size: int = 128, temporal_patch_size: int = 4, patch_size: int = 8,
                  in_channels: int = 3, frame_num: int = 16, dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None, device=None):
+                 generator: Optional[torch.Generator] = None, device=None,
+                 plain_attention: bool = False):
         super().__init__()
         self.in_channels, self.hidden_size = in_channels, hidden_size
         kw = dict(dtype=dtype, generator=generator, device=device)
@@ -107,7 +165,8 @@ class TransformerDiscriminator(nn.Module):
         bound = math.sqrt(6.0 / (1 + hidden_size))  # Flax xavier_uniform of (1, 1, D)
         with torch.no_grad():
             nn.init.uniform_(self.cls_token, -bound, bound, generator=generator)
-        self.transformer_encoder = ViTStack(hidden_size, n_layers, n_heads, **kw)
+        self.transformer_encoder = ViTStack(hidden_size, n_layers, n_heads, **kw,
+                                            plain_attention=plain_attention)
         self.norm_final = LayerNorm(hidden_size, 1e-6, device=device)
         self.fc = Dense(hidden_size, 1, generator=generator, device=device)
 
@@ -143,13 +202,7 @@ class VQLPIPSWithDiscriminator(nn.Module):
             raise ValueError(f"pixel_loss {pixel_loss}")
         if disc_type.lower() != "transformer" or perceptual_loss != "lpips":
             raise ValueError(f"disc_type {disc_type}, perceptual_loss {perceptual_loss}")
-        if r1_gp_weight > 0.0:
-            raise NotImplementedError(
-                "the R1 gradient penalty (r1_gp_weight > 0) is not ported yet "
-                "(ROADMAP.md, 'Still to port', item 3)")
-        if spectral_norm:
-            raise NotImplementedError(
-                "spectral_norm is not ported yet (ROADMAP.md, 'Still to port', item 3)")
+        self.r1_gp_weight, self.spectral_norm = float(r1_gp_weight), bool(spectral_norm)
         self.disc_start, self.disc_factor, self.disc_weight = disc_start, disc_factor, disc_weight
         self.disc_self_start = (disc_self_start if disc_self_start is not None
                                 and disc_self_start >= 0 else disc_start)
@@ -160,12 +213,33 @@ class VQLPIPSWithDiscriminator(nn.Module):
         self.discriminator = TransformerDiscriminator(
             disc_tran_hidden_size, disc_tran_n_heads, disc_tran_n_layers, input_spatial_size,
             disc_tran_temporal_patch_size, disc_tran_patch_size, disc_in_channels, frame_num,
-            dtype, generator, device,
+            dtype, generator, device, plain_attention=self.r1_gp_weight > 0.0,
         )
         self.register_buffer("lecam_ema_real", torch.zeros((), device=device))
         self.register_buffer("lecam_ema_fake", torch.zeros((), device=device))
         seed = 0 if generator is None else int(torch.randint(2**62, (), generator=generator))
         self.noise_generator = torch.Generator().manual_seed(seed)
+
+    def _disc_weights(self) -> Optional[Dict[str, torch.Tensor]]:
+        """The spectrally normalised weights (None without spectral_norm)."""
+        return spectral_normalize(self.discriminator) if self.spectral_norm else None
+
+    def _discriminate(self, x: torch.Tensor, weights) -> torch.Tensor:
+        if weights is None:
+            return self.discriminator(x)
+        return torch.func.functional_call(self.discriminator, weights, (x,))
+
+    def _real_logits_and_r1(self, inputs, weights) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One forward of the real clips: their logits and the R1 penalty,
+        the batch mean of |d sum(logits) / d inputs|^2 x r1_gp_weight. The
+        penalty keeps its graph when grad is enabled."""
+        graph = torch.is_grad_enabled()
+        x = inputs.detach().requires_grad_(True)
+        with torch.enable_grad():
+            logits = self._discriminate(x, weights)
+            (grads,) = torch.autograd.grad(logits.float().sum(), x, create_graph=graph)
+        r1_gp = grads.reshape(grads.shape[0], -1).pow(2).sum(1).mean() * self.r1_gp_weight
+        return (logits, r1_gp) if graph else (logits.detach(), r1_gp.detach())
 
     def _pixel(self, x, y):
         return (x - y).abs() if self.pixel_loss == "l1" else (x - y) ** 2
@@ -191,7 +265,7 @@ class VQLPIPSWithDiscriminator(nn.Module):
         p_loss = (torch.mean(self.perceptual(input_frames, recon_frames, normalize=True))
                   if self.perceptual_weight > 0 else zero)
         nll_loss = self.pixelloss_weight * rec_loss + self.perceptual_weight * p_loss
-        logits_fake = self.discriminator(reconstructions)
+        logits_fake = self._discriminate(reconstructions, self._disc_weights())
         g_loss = hinge_g_loss(logits_fake) if self.disc_loss == "hinge" else ns_g_loss(logits_fake)
         g_loss_weight = self.disc_weight * disc_factor
         loss = nll_loss + g_loss_weight * g_loss
@@ -202,11 +276,17 @@ class VQLPIPSWithDiscriminator(nn.Module):
 
     def discriminator_loss(self, inputs, reconstructions, global_step, train: bool = True,
                            update_ema: bool = True) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        """D loss on real clips and detached reconstructions. With `train` and
-        `update_ema` the LeCam EMAs advance (after the regulariser used them)."""
+        """D loss on real clips and detached reconstructions, + the R1 penalty
+        in training when `r1_gp_weight` > 0. With `train` and `update_ema`
+        the LeCam EMAs advance (after the regulariser used them)."""
         disc_factor = self.disc_factor if global_step >= self.disc_self_start else 0.0
-        logits_real = self.discriminator(inputs)
-        logits_fake = self.discriminator(reconstructions.detach())
+        weights = self._disc_weights()
+        if train and self.r1_gp_weight > 0.0:
+            logits_real, r1_gp = self._real_logits_and_r1(inputs, weights)
+        else:
+            logits_real = self._discriminate(inputs, weights)
+            r1_gp = torch.zeros((), device=inputs.device)
+        logits_fake = self._discriminate(reconstructions.detach(), weights)
         real_mean, fake_mean = torch.mean(logits_real.float()), torch.mean(logits_fake.float())
         if self.lecam_weight > 0.0:
             lecam_loss = self.lecam_weight * lecam_reg(
@@ -224,7 +304,9 @@ class VQLPIPSWithDiscriminator(nn.Module):
             d_loss = ns_d_loss(logits_real, logits_fake)
         else:
             d_loss = ns_d_loss_single_side_smooth(logits_real, logits_fake, self.noise_generator)
-        total_loss = (d_loss + lecam_loss) * (1.0 if disc_factor > 0.0 else 0.0)
+        total_loss = (d_loss + lecam_loss + r1_gp) * (1.0 if disc_factor > 0.0 else 0.0)
         info = {"d_total_loss": total_loss, "d_lecam_loss": lecam_loss, "d_loss": d_loss,
                 "logits_real": real_mean, "logits_fake": fake_mean}
+        if self.r1_gp_weight > 0.0:
+            info["r1_gp"] = r1_gp
         return total_loss, info

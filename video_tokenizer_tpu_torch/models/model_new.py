@@ -76,8 +76,9 @@ class GatedRoPEAttention(nn.Module):
         B, L, C = x.shape
         shape = (B, L, self.heads, C // self.heads)
         q, k, v, gate = self.to_qkv(x).split(C, dim=-1)
-        q = apply_rotary(self.q_norm(q.view(shape)), cos, sin)
-        k = apply_rotary(self.k_norm(k.view(shape)), cos, sin)
+        q, k = self.q_norm(q.view(shape)), self.k_norm(k.view(shape))
+        if cos is not None:  # None: no rotation (model_basic's identity table)
+            q, k = apply_rotary(q, cos, sin), apply_rotary(k, cos, sin)
         # v stays a strided view of the 4C-wide projection: the kernel reads it in place
         out = attention(q, k, v.view(shape)).reshape(B, L, C)
         return self.out_proj(out * torch.sigmoid(gate))

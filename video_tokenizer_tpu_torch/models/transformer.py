@@ -6,6 +6,11 @@ semantics): pre-LN blocks x + Attn(LN(x)); x + MLP(LN(x)), LayerNorm eps
 bias. Attention runs through `ops.attention`, the CUDA flash forward on the
 card. Module and parameter names are the upstream torch names
 (`blocks.{i}.attn.qkv.weight`, ...).
+`plain_attention=True`, a choice made when the stack is built, routes every
+block to `attention_reference` instead: plain PyTorch ops, twice
+differentiable, for the R1 penalty's double backward through the
+discriminator (the JAX discriminator's `use_pallas=False` under R1). The
+kernel wrapper is not involved then, on the CPU or on the card.
 """
 from __future__ import annotations
 
@@ -15,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import attention
+from ..ops.attention import attention, attention_reference
 from ..registry import models
 from .layers import Dense, LayerNorm
 
@@ -23,9 +28,10 @@ from .layers import Dense, LayerNorm
 class MultiHeadAttention(nn.Module):
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = False,
                  dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None, device=None):
+                 generator: Optional[torch.Generator] = None, device=None,
+                 plain_attention: bool = False):
         super().__init__()
-        self.num_heads = num_heads
+        self.num_heads, self.plain_attention = num_heads, plain_attention
         self.qkv = Dense(dim, 3 * dim, bias=qkv_bias, dtype=dtype, generator=generator, device=device)
         self.proj = Dense(dim, dim, dtype=dtype, generator=generator, device=device)
 
@@ -34,7 +40,8 @@ class MultiHeadAttention(nn.Module):
         qkv = self.qkv(x).view(B, N, 3, self.num_heads, C // self.num_heads)
         # strided views (row stride 3*C): the kernel reads them in place
         q, k, v = qkv.unbind(2)
-        return self.proj(attention(q, k, v).reshape(B, N, C))
+        out = attention_reference(q, k, v)[0] if self.plain_attention else attention(q, k, v)
+        return self.proj(out.reshape(B, N, C))
 
 
 class Mlp(nn.Module):
@@ -54,10 +61,12 @@ class ViTBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = False, norm_eps: float = 1e-5,
                  dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None, device=None):
+                 generator: Optional[torch.Generator] = None, device=None,
+                 plain_attention: bool = False):
         super().__init__()
         self.norm1 = LayerNorm(dim, norm_eps, dtype=dtype, device=device)
-        self.attn = MultiHeadAttention(dim, num_heads, qkv_bias, dtype, generator, device)
+        self.attn = MultiHeadAttention(dim, num_heads, qkv_bias, dtype, generator, device,
+                                       plain_attention)
         self.norm2 = LayerNorm(dim, norm_eps, dtype=dtype, device=device)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, generator, device)
 
@@ -71,10 +80,12 @@ class ViTBlock(nn.Module):
 class ViTStack(nn.Module):
     def __init__(self, dim: int, depth: int, num_heads: int,
                  dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None, device=None):
+                 generator: Optional[torch.Generator] = None, device=None,
+                 plain_attention: bool = False):
         super().__init__()
         self.blocks = nn.ModuleList(
-            ViTBlock(dim, num_heads, dtype=dtype, generator=generator, device=device)
+            ViTBlock(dim, num_heads, dtype=dtype, generator=generator, device=device,
+                     plain_attention=plain_attention)
             for _ in range(depth)
         )
 

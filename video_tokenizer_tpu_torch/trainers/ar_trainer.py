@@ -20,8 +20,11 @@ function (the replicated layout only):
   * `visualize_epoch`: `generation.generate` + `decode_from_bottleneck`,
     written as `vis/samples_ep<n>.png`; then, with `fvd_real_stats_path`
     set and pretrained I3D weights or `force_fvd: true`, the samples' FVD
-    against those real stats, logged as `sample gFVD: <value>`
-    (`_maybe_fvd`). A failure of either is logged, never raised.
+    against those real stats, logged as `sample gFVD: <value>` and as the
+    scalar `eval/gfvd` (`_maybe_fvd`). A failure of either is logged, never
+    raised;
+  * the epoch loop, preemption, `profile_steps` and the writers are the
+    base trainer's (this trainer keeps its `train_epoch`).
 The JAX trainer computes in fp32 whatever `use_amp` says (it sets a compute
 dtype that nothing reads), and so does this one. Not ported (each raises
 NotImplementedError): meshes and sharded placements (in `BaseTrainer`),
@@ -259,6 +262,7 @@ class _ARTrainerBase(BaseTrainer):
             real = FeatureStats.load(stats_path)
             self.current_fvd = float(self._fvd_calc.calculate_fvd(gen, real))
             self.log(f"sample gFVD: {self.current_fvd:.3f}")
+            self.log_temp_scalar("eval/gfvd", self.current_fvd)
         except Exception as e:
             self.log(f"gFVD computation failed: {e}")
 

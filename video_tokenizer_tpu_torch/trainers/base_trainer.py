@@ -9,13 +9,34 @@ Counterpart of `video_tokenizer_tpu/trainers/base_trainer.py`:
     checkpoint by FVD: one `best_fvd_<value>` directory, replaced only by
     a lower `current_fvd` (`_maybe_save_best`);
   * resume from `<save_dir>/epoch-last` (parameters, both optimizers, EMA,
-    RNG states, step) and warm start from `init_checkpoint`.
+    RNG states, step) and warm start from `init_checkpoint`;
+  * `save_on_preempt` (default true): a SIGTERM sets a flag, which is
+    honoured at the next step boundary, between the epoch's phases and
+    after every eval step: `epoch-last` is saved with `preempted: true` and
+    the process leaves through `SystemExit(0)`. Mid-epoch the saved epoch
+    is rolled back one and `resume_skip_steps` counts the batches already
+    applied; the resumed run replays that epoch's (seeded) batches and
+    skips them without stepping, so it ends where an uninterrupted run
+    ends. The position goes into `state.pth` and `meta.json` alike. The
+    handler is installed only from the main thread, and the previous one
+    comes back when `train()` returns or raises;
+  * `profile_steps: N`: a torch.profiler trace of steps 2..N+1 of the
+    starting epoch (step 1 builds and first launches the kernels), each
+    step annotated `train_step#<global step>`, written after a synchronize
+    to `<save_dir>/profile/trace.json` (CUDA and CPU activity on the card,
+    CPU on the CPU);
+  * `enable_tb` (default true): a TensorBoard `SummaryWriter` under
+    `<save_dir>/tensorboard` (its event files written through tensorboard's
+    TensorFlow-free stub), `None` with one log line when
+    `torch.utils.tensorboard` does not import; `wandb_upload`: a wandb run,
+    online when api.wandb.ai answers and offline otherwise, `None` (and a
+    log line) without the package. `log_temp_scalar` writes to both: the
+    epoch means as `train/<key>`, each eval set's as `eval_<name>/<key>`.
 The step's telemetry stays on the device and is fetched once per epoch.
 One process drives one device (`device`, explicit; there is no CPU
 fallback when it is a card that is missing). Not ported: meshes, FSDP and
 TP (`mesh_model`, `mesh_pipe`, `mesh_seq`, `param_placement`: ROADMAP.md,
-'Still to port', item 8), TensorBoard/wandb writers, the preemption
-handler and the profiler hook.
+'Still to port', item 8).
 """
 from __future__ import annotations
 
@@ -24,7 +45,12 @@ import glob
 import math
 import os
 import shutil
+import signal
+import socket
+import sys
+import threading
 import time
+import types
 from typing import Any, Callable, Dict
 
 import numpy as np
@@ -68,6 +94,15 @@ def ema_update(ema: Dict[str, torch.Tensor], params: Dict[str, torch.Tensor], de
         e.mul_(decay).add_(params[name].to(e.dtype), alpha=1.0 - decay)
 
 
+def _wandb_online(timeout: float = 2.0) -> bool:
+    """True when api.wandb.ai accepts a connection (the JAX trainer's probe)."""
+    try:
+        socket.create_connection(("api.wandb.ai", 443), timeout=timeout).close()
+    except OSError:
+        return False
+    return True
+
+
 def _plain(cfg):
     """A config (dicts, lists, scalars) as plain Python containers."""
     if isinstance(cfg, dict):
@@ -96,6 +131,8 @@ class BaseTrainer:
         with open(os.path.join(self.save_dir, "cfg.yaml"), "w") as f:
             yaml.safe_dump(_plain(cfg), f, sort_keys=False)
         self.logger = common.set_logger(os.path.join(self.save_dir, "log.txt"))
+        self.writer = self._make_tb_writer()
+        self.wandb = self._make_wandb()
 
         self.seed = int(cfg.get("manualSeed", 0) or 0)
         np.random.seed(self.seed)
@@ -109,8 +146,60 @@ class BaseTrainer:
         ema_raw = str(cfg.get("ema_decay", "_"))
         self.ema_decays = [float(x) for x in ema_raw.split("_") if x not in ("", "none")]
 
+    # ------------------------------------------------------------------ infra
+
+    def _make_tb_writer(self):
+        if not self.cfg.get("enable_tb", True):
+            return None
+        # tensorboard's own stub does the event files' I/O: tensorboard picks
+        # its TF API once, when the first writer opens, and without the `notf`
+        # marker it imports TensorFlow where one is installed (and, through
+        # it, JAX); the marker is there only while this writer opens
+        notf = "tensorboard.compat.notf"
+        placed = notf not in sys.modules
+        if placed:
+            sys.modules[notf] = types.ModuleType(notf)
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+
+            return SummaryWriter(os.path.join(self.save_dir, "tensorboard"))
+        except Exception as e:  # no tensorboard package: scalars go to log.txt only
+            self.log(f"TensorBoard writer unavailable ({type(e).__name__}: {e}); "
+                     "scalars go to log.txt only")
+            return None
+        finally:
+            if placed:
+                del sys.modules[notf]
+
+    def _make_wandb(self):
+        if not self.cfg.get("wandb_upload", False):
+            return None
+        try:
+            import wandb
+
+            mode = "online" if _wandb_online() else "offline"
+            run = wandb.init(
+                project=self.cfg.get("wandb_project") or "video_tokenizer_tpu",
+                entity=self.cfg.get("wandb_entity"), name=os.path.basename(self.save_dir),
+                dir=self.save_dir, mode=mode, config=_plain(self.cfg), resume="allow",
+                id=self.cfg.get("wandb_run_id"),
+            )
+            self.log(f"wandb initialized (mode={mode})")
+            return run
+        except Exception as e:
+            self.log(f"wandb unavailable: {e}")
+            return None
+
     def log(self, msg: str):
         self.logger.info(msg)
+
+    def log_temp_scalar(self, k: str, v: float, t=None):
+        """A scalar to TensorBoard and wandb at step `t` (default: the epoch)."""
+        step = t if t is not None else self.epoch
+        if self.writer is not None:
+            self.writer.add_scalar(k, v, global_step=step)
+        if self.wandb is not None:
+            self.wandb.log({k: v}, step=step)
 
     # ------------------------------------------------------------------- data
 
@@ -234,7 +323,11 @@ class BaseTrainer:
         self.load_state(state)
         self.epoch = int(state["epoch"])
         self.global_step = int(state["global_step"])
-        self.log(f"resumed from {path} at epoch {self.epoch}")
+        # a mid-epoch preemption checkpoint: the interrupted epoch replays its
+        # seeded batches, the first `resume_skip_steps` consumed, not applied
+        self._resume_skip = int(state.get("resume_skip_steps", 0) or 0)
+        self.log(f"resumed from {path} at epoch {self.epoch}"
+                 + (f" (+{self._resume_skip} steps)" if self._resume_skip else ""))
         return True
 
     def try_init_checkpoint(self):
@@ -262,7 +355,71 @@ class BaseTrainer:
         self.starting_epoch = self.epoch + 1 if resumed else 1
         self.train()
 
+    # ------------------------------------------------------- preemption
+
+    def _install_preemption_handler(self):
+        """`save_on_preempt` (default true): a SIGTERM asks for a checkpoint at
+        the next step boundary. Installed only from the main thread; the
+        handler it replaces is kept for `_restore_preemption_handler`."""
+        self._preempt_requested = False
+        self._previous_sigterm = None
+        if not bool(self.cfg.get("save_on_preempt", True)):
+            return
+        if threading.current_thread() is not threading.main_thread():
+            return
+
+        def handler(signum, frame):
+            self._preempt_requested = True
+
+        previous = signal.getsignal(signal.SIGTERM)
+        try:
+            signal.signal(signal.SIGTERM, handler)
+        except (ValueError, OSError):
+            return
+        # a handler installed outside Python reads as None: restore the default
+        self._previous_sigterm = signal.SIG_DFL if previous is None else previous
+
+    def _restore_preemption_handler(self):
+        if self._previous_sigterm is not None:
+            signal.signal(signal.SIGTERM, self._previous_sigterm)
+            self._previous_sigterm = None
+
+    def _maybe_preempt(self):
+        """Checkpoint and exit if a SIGTERM is pending: called after every
+        step, after every eval step and between the epoch's phases."""
+        if getattr(self, "_preempt_requested", False):
+            self._checkpoint_on_preempt()
+
+    def _checkpoint_on_preempt(self):
+        """Saves a resumable `epoch-last` and leaves through SystemExit(0).
+        Mid-epoch the epoch is rolled back one and `resume_skip_steps`
+        counts the batches already applied; once the epoch's training is
+        done (a preemption in eval, vis or a save) the epoch stands."""
+        epoch_done = getattr(self, "_epoch_complete", False)
+        position = {"epoch": self.epoch if epoch_done else self.epoch - 1,
+                    "global_step": self.global_step, "preempted": True}
+        if not epoch_done:
+            position["resume_skip_steps"] = getattr(self, "_epoch_step", 0)
+        path = os.path.join(self.save_dir, "epoch-last")
+        ckpt_lib.save_checkpoint(path, {**self._full_state(), **position},
+                                 {**self.checkpoint_meta(), **position})
+        if self.writer is not None:
+            self.writer.flush()
+        self.log(f"preempted: checkpoint saved to {path}; exiting")
+        raise SystemExit(0)
+
+    # ------------------------------------------------------------------ loops
+
     def train(self):
+        self._install_preemption_handler()
+        try:
+            self._train_epochs()
+        finally:
+            self._restore_preemption_handler()
+            if self.writer is not None:  # a later scalar opens a new event file
+                self.writer.close()
+
+    def _train_epochs(self):
         cfg = self.cfg
         max_epoch = int(cfg["max_epoch"])
         eval_epoch = int(cfg.get("eval_epoch", max_epoch + 1))
@@ -277,16 +434,22 @@ class BaseTrainer:
             self.log_buffer = [f"Epoch {epoch}"]
             self.t_data, self.t_model = 0.0, 0.0
             st = time.time()
+            self._epoch_complete = False
             self.train_epoch()
+            self._epoch_complete = True
             self.log(f"Epoch {epoch} training done. Time: {time.time() - st:.2f}s")
+            self._maybe_preempt()
             if epoch % eval_epoch == 0:
                 self.evaluate_epoch()
+                self._maybe_preempt()
             if epoch % vis_epoch == 0:
                 self.visualize_epoch()
+                self._maybe_preempt()
             if epoch % save_epoch == 0:
                 self.save_checkpoint(f"epoch-{epoch}")
             if epoch % latest_interval == 0:
                 self.save_checkpoint("epoch-last", save_best=bool(cfg.get("save_best", False)))
+            self._maybe_preempt()
             epoch_time, tot_time, est_time = timer.epoch_done()
             d_ratio = self.t_data / (self.t_data + self.t_model + 1e-6)
             self.log_buffer.append(f"{epoch_time} (d {d_ratio:.2f}) {tot_time}/{est_time}")
@@ -295,20 +458,67 @@ class BaseTrainer:
         if max_epoch >= self.starting_epoch:
             self.save_final_checkpoint()
 
+    def _start_profile(self):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof, n_steps: int) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        out = common.ensure_path(os.path.join(self.save_dir, "profile"))
+        prof.export_chrome_trace(os.path.join(out, "trace.json"))
+        self.log(f"profiler trace ({n_steps} steps) -> {out}")
+
     def train_epoch(self):
         deferred = []  # (keys, device tensor): fetched once, at the end of the epoch
+        # `profile_steps: N` traces steps 2..N+1 of the starting epoch (step 1
+        # builds and first launches the kernels)
+        profile_steps = int(self.cfg.get("profile_steps", 0))
+        prof = None
+        epoch_step = 0
+        # the batches of an interrupted epoch that are already applied are
+        # consumed without stepping (`_checkpoint_on_preempt`)
+        skip, self._resume_skip = getattr(self, "_resume_skip", 0), 0
         t1 = time.time()
-        for _, batch in zip(range(self.n_steps_per_epoch), self.train_loader(self.epoch)):
-            self.global_step += 1
-            t0 = time.time()
-            self.t_data += t0 - t1
-            deferred.append(self.train_step(batch))
-            self.t_model += time.time() - t0
-            t1 = time.time()
+        try:
+            for _, batch in zip(range(self.n_steps_per_epoch), self.train_loader(self.epoch)):
+                self.global_step += 1
+                epoch_step += 1
+                self._epoch_step = epoch_step
+                if skip > 0:
+                    skip -= 1
+                    t1 = time.time()
+                    continue
+                if profile_steps and self.epoch == self.starting_epoch:
+                    if epoch_step == 2:
+                        prof = self._start_profile()
+                    elif prof is not None and epoch_step == 2 + profile_steps:
+                        self._stop_profile(prof, profile_steps)
+                        prof = None
+                t0 = time.time()
+                self.t_data += t0 - t1
+                if prof is not None:
+                    with torch.profiler.record_function(f"train_step#{self.global_step}"):
+                        deferred.append(self.train_step(batch))
+                else:
+                    deferred.append(self.train_step(batch))
+                self.t_model += time.time() - t0
+                self._maybe_preempt()
+                t1 = time.time()
+        finally:
+            if prof is not None:  # the epoch ended (or was preempted) inside the window
+                self._stop_profile(prof, epoch_step - 1)
         ave: Dict[str, common.Averager] = {}
         for keys, packed in deferred:
             for k, v in zip(keys, packed.tolist()):
                 ave.setdefault(k, common.Averager()).add(v)
+        for k, v in ave.items():
+            self.log_temp_scalar("train/" + k, v.item())
         self.log_buffer.append("train:" + "".join(f" {k}={v.item():.4f}" for k, v in ave.items()))
         if "psnr" in ave:
             self.train_psnr.append(ave["psnr"].item())
@@ -319,8 +529,12 @@ class BaseTrainer:
         for name in self.test_datasets:
             ave: Dict[str, common.Averager] = {}
             for batch in self.test_loader(name):
-                for k, v in self.evaluate_step(batch).items():
+                ret = self.evaluate_step(batch)
+                self._maybe_preempt()
+                for k, v in ret.items():
                     ave.setdefault(k, common.Averager()).add(float(v), n=len(batch["gt"]))
+            for k, v in ave.items():
+                self.log_temp_scalar(f"eval_{name}/{k}", v.item())
             logtext = f"eval {name}:" + "".join(f" {k}={v.item():.4f}" for k, v in ave.items())
             self.log_buffer.append(logtext)
             self.log(logtext)

@@ -44,13 +44,15 @@ dQ / dK-dV backward kernels on the card), VQ through `ops.vq`.
 `use_amp: true` computes the tokenizer, LPIPS and the discriminator in
 bf16 (the bottleneck and the prior stay fp32); `false` is fp32.
 `visualize_epoch` writes the JAX trainer's gt-over-reconstruction grid
-(`vis/epoch_<n>.png`, through the standard-library PNG writer) and logs any
-failure rather than stopping the run; its TensorBoard half is left out with
-the writers (ROADMAP.md, 'Still to port', item 3).
+(`vis/epoch_<n>.png`, through the standard-library PNG writer), and with a
+TensorBoard writer adds the same image as `vis/gt_vs_recon_grid` and tries
+`add_video` (which needs moviepy), as the JAX trainer does; any failure is
+logged rather than stopping the run.
 Eval rFVD: with pretrained I3D weights (`i3d_weights`, or the default path
 of `metrics/fvd.py`) or `force_fvd: true`, `evaluate_step` adds I3D
 features of the reconstruction it already computed (clipped to [0, 1]) and
-of the real clips, and `evaluate_epoch` logs `eval rFVD: <value>`, the
+of the real clips, and `evaluate_epoch` logs `eval rFVD: <value>` (and the
+scalar `eval/rfvd`), the
 `current_fvd` that `save_best: true` keeps the best checkpoint by. A failed
 FVD pass is logged and training goes on (the JAX trainer's rule).
 A checkpoint holds the parameters with the BatchNorm statistics (buffers of
@@ -63,6 +65,7 @@ from __future__ import annotations
 import os
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .. import registry
@@ -132,6 +135,12 @@ class LARPTokenizerTrainer(BaseTrainer):
                      "generator": gen},
         }).to(self.device)
         self.disc = self.loss_mod.discriminator
+        if self.loss_mod.r1_gp_weight > 0.0:
+            self.log(f"R1 penalty x{self.loss_mod.r1_gp_weight:g}: the discriminator runs the "
+                     "plain attention (twice differentiable), no flash kernel")
+        if self.loss_mod.spectral_norm:
+            self.log("spectral_norm: the discriminator's projection weights are divided by "
+                     "their top singular value at every loss call")
         self.log(f"model params: {common.compute_num_params(self.model)}; "
                  f"loss params: {common.compute_num_params(self.loss_mod)}")
 
@@ -405,6 +414,7 @@ class LARPTokenizerTrainer(BaseTrainer):
                 fvd = 99999.99
             self.current_fvd = float(fvd)
             self.log(f"eval rFVD: {self.current_fvd:.3f}")
+            self.log_temp_scalar("eval/rfvd", self.current_fvd)
 
     def visualize_epoch(self):
         """`vis/epoch_<epoch>.png`: for up to 4 clips of the first test set's
@@ -420,8 +430,19 @@ class LARPTokenizerTrainer(BaseTrainer):
                 pred = self._model_forward(data, train=False)["pred_frames"].float()
             vis_dir = common.ensure_path(os.path.join(self.save_dir, "vis"))
             gt, pred = data.cpu().numpy(), pred.cpu().numpy()
-            common.save_video_grid(os.path.join(vis_dir, f"epoch_{self.epoch}.png"),
-                                   [v for pair in zip(gt, pred) for v in pair])
+            grid = common.save_video_grid(os.path.join(vis_dir, f"epoch_{self.epoch}.png"),
+                                          [v for pair in zip(gt, pred) for v in pair])
+            if self.writer is not None:
+                self.writer.add_image("vis/gt_vs_recon_grid", grid, self.epoch,
+                                      dataformats="HWC")
+                try:  # [gt..., recon...] as [N, T, C, H, W] uint8
+                    vids = np.concatenate([gt, np.clip(pred, 0, 1)], axis=0)
+                    self.writer.add_video(
+                        "vis/gt_vs_recon",
+                        torch.from_numpy((vids.transpose(0, 2, 1, 3, 4) * 255).astype(np.uint8)),
+                        self.epoch)
+                except Exception:
+                    pass  # add_video needs moviepy
         except Exception as e:  # visualization must never kill training
             self.log(f"visualize_epoch failed: {e}")
 

@@ -16,7 +16,9 @@ forward's Bernoulli masks and random prefixes, and the target sparsity,
 uniform in [0.85, 0.99] each step. The STAT losses join the generator loss
 in the 'adaptive' stage, in training and in eval, as in the JAX step. The
 generator is saved with the checkpoint, so a resumed run draws what an
-uninterrupted one draws.
+uninterrupted one draws. `train_epoch` switches the stage and then runs the
+base trainer's loop, so the SIGTERM checkpoint, `resume_skip_steps` and
+`profile_steps` hold here too.
 """
 from __future__ import annotations
 

@@ -154,11 +154,13 @@ def save_png(path: str, img: np.ndarray) -> None:
     os.replace(tmp, path)
 
 
-def save_video_grid(path: str, videos: Sequence[np.ndarray]) -> None:
+def save_video_grid(path: str, videos: Sequence[np.ndarray]) -> np.ndarray:
     """One row per video [C, T, H, W] in [0, 1] (its first min(T, 8) frames
     side by side), rows stacked top to bottom, clipped to [0, 1] x 255,
-    written by `save_png`."""
+    written by `save_png`; returns the uint8 [H, W, 3] image."""
     rows = [np.concatenate([v[:, j] for j in range(min(v.shape[1], 8))], axis=-1)
             for v in videos]
     grid = np.concatenate(rows, axis=-2)  # [C, H*, W*]
-    save_png(path, np.clip(np.transpose(grid, (1, 2, 0)) * 255, 0, 255).astype(np.uint8))
+    img = np.clip(np.transpose(grid, (1, 2, 0)) * 255, 0, 255).astype(np.uint8)
+    save_png(path, img)
+    return img

@@ -17,13 +17,20 @@ under the upstream torch names (the dict
 of the Flax tree (the JAX tokenizer trainer's `emb` learning-rate group).
 
 `loss_state_dict_from_jax(loss_params, loss_ema, module)` does the same for
-the tokenizer trainer's loss module (discriminator, LPIPS, LeCam EMAs).
+the tokenizer trainer's loss module (discriminator, LPIPS, LeCam EMAs). With
+`spectral_norm` the Flax tree holds the raw weights under the same names
+(the normalisation happens on the way into the forward, on both sides), so
+they come across as they are.
 
 `model_new_state_dict_from_jax(params, model)` does the same for a model_new
 `RoPEAutoEncoder` (`encoder`, `encoder1`, `decoder`: their `proj_in`,
 `proj_cond`, `mask_token`, `proj_out` and the block stacks' `attn_{i}`,
 `ffd_{i}` or the simple style's `ln1_/qkv_/proj_/ln2_/fc1_/fc2_{i}` and
 `final_norm`), whose module names are the Flax names.
+
+It maps a model_basic `BasicAutoEncoder` too (`encoder`, `encoder1`,
+`decoder`: their projections, PEs, query tokens, unpatchify heads and
+`stack.blocks`), whose module names are the Flax names as well.
 
 `stat_state_dict_from_jax(params, model)` does the same for the STAT
 family's `AutoEncoderStat`, whose names are the Flax names too. The LARP
@@ -227,9 +234,10 @@ def _flax_tree_from_jax(sd: Dict[str, np.ndarray], prefix: str, tree: Dict[str, 
 
 
 def model_new_state_dict_from_jax(params: Dict[str, Any], model) -> Dict[str, torch.Tensor]:
-    """Flax RoPEAutoEncoder params (nested dicts of arrays) -> `model`'s
-    state_dict. The rotary tables and FSQ constants are non-persistent
-    buffers, rebuilt by the model, so every key here is a parameter."""
+    """Flax RoPEAutoEncoder or BasicAutoEncoder params (nested dicts of
+    arrays) -> `model`'s state_dict. The rotary tables and FSQ constants are
+    non-persistent buffers, rebuilt by the model, so every key here is a
+    parameter."""
     sd: Dict[str, np.ndarray] = {}
     _flax_tree_from_jax(sd, "", params)
     differ = sorted(set(sd) ^ set(model.state_dict()))
