@@ -7,22 +7,29 @@ Phases, each of which raises on failure (exit code 1, no result line):
   1. build the CUDA kernels from csrc/ with nvcc for sm_90a (one nvcc per
      source, all started together); registers and spill bytes of the
      tensor-core kernels (the three wgmma flash kernels, the three 3xTF32
-     flash kernels, the chunk and decode kernels, the streaming and the wgmma
-     int8 matmuls, the 3xTF32 VQ search), which may not spill;
+     flash kernels, the two forwards' instances with segment ids, the chunk
+     and decode kernels, the streaming and the wgmma int8 matmuls, the 3xTF32
+     VQ search), which may not spill;
   2. the flash-attention forward kernels, out and LSE, against their plain
-     PyTorch version on the card: the wgmma kernel (bf16, head dim 32 or 64,
-     no segment ids) at the tokenizer's shape, the discriminator's ragged
+     PyTorch version on the card: the wgmma kernel (bf16, head dim 32 or 64)
+     at the tokenizer's shape, the discriminator's ragged
      S = 1025 and the prior's causal NLL-forward shape, all from strided qkv
      views, causal with an offset, GQA, ragged Sk, D = 32 causal ragged, one
      row past a 128-row block, rows that see no key; the 3xTF32 kernel
-     (fp32, D 32 or 64, no segment ids) at the tokenizer's B = 1 and
+     (fp32, D 32 or 64) at the tokenizer's B = 1 and
      training B = 8 shapes from strided views, the discriminator's, the
      frame-prediction AR trainer's causal B = 8, S = 2048, H = 20, causal
      with an offset, GQA, ragged Sk, D = 32 causal ragged, the block edge and
      rows that see no key, timed beside the earlier FMA kernel, SDPA fp32 and
-     the efficient op with its LSE; the mma.sync / FMA kernel on D = 128 and
-     segments with a no-match query; each case must run the kernel the
-     dispatch rule names;
+     the efficient op with its LSE; segment ids on both tensor-core kernels
+     (bf16 and fp32): distinct query and key ids with a no-match query,
+     TiTok's three-clip pack (2048 + 1024 + 512 tokens, 12 heads over 4)
+     and the prior's causal prefill with `emb_masks` (ids 0 and -5 in no
+     order), timed windowed beside the same call over every key tile and,
+     for the pack, beside one unpacked clip and the three clips alone, with
+     the key tiles the windows visit and the bound on the visible pairs; the
+     mma.sync / FMA kernel on D = 128 (on no main path: its launches are
+     these cases'); each case must run the kernel the dispatch rule names;
   3. the VQ search (3xTF32 on the tensor cores, the codebook split over a
      cluster) against its plain version (cos, l2, ragged, d = 4 to 32) and
      beside the earlier FMA kernel, planted exact ties (the lowest index
@@ -66,7 +73,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
      with the row write fused and separate, and its kernels counted exactly
      as the kernel nodes of the step's captured CUDA graph (30 fewer fused);
      and 16 tokens with `emb_masks` (prompt positions masked as keys), whose
-     prefill runs the segment-id flash forward;
+     prefill's 30 flash forwards take segment ids, all on the wgmma kernel,
+     and whose codes equal the unmasked draw's;
  10. the flash backward kernels (dQ; dK/dV, after phase 2) against their
      plain backward: the tokenizer's shape from strided views, the
      discriminator's ragged S = 1025, the prior's causal shape, the
@@ -76,7 +84,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
      dK/dV by the wgmma kernels (bf16) and the 3xTF32 kernels (fp32) wherever
      the dispatch rule says so (plus D = 32 causal ragged, Sq = 129 / Sk =
      257, rows that see no key, in both types), D = 128 and segment ids on
-     the mma.sync / FMA kernels; timed by CUDA-graph replays beside the
+     the mma.sync / FMA kernels (TiTok's pack shape among them, from the
+     tensor-core forward's LSE); timed by CUDA-graph replays beside the
      earlier kernels at the tokenizer's, discriminator's and prior's shapes,
      the 3xTF32 kernels at the fp32 tokenizer's and discriminator's beside
      SDPA's fp32 backward (efficient backend); gradients
@@ -127,7 +136,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
  18. the AR prior's two trainers (cfgs/larp_ar.yaml, larp_ar_fp.yaml) at the
      632M prior's full width, fed by the frozen flagship tokenizer from a
      checkpoint directory the tokenizer trainer wrote, fp32 (TF32 off): one
-     step at batch 1 and 8 of the prior's 30 layers, card against CPU (loss, top-1/top-5, named
+     step at batch 1 and 4 of the prior's 30 layers, card against CPU (loss, top-1/top-5, named
      gradients); batch 8 with the configured dropouts: s/step, training
      tokens/s, clips/s, peak memory, idle share and time by kernel category,
      exact launch counts (42 flash forwards, 30 dQ, 30 dK/dV, all 3xTF32,
@@ -214,6 +223,18 @@ Phases, each of which raises on failure (exit code 1, no result line):
      `autoencoder_dualpatch`, and bf16 training of `autoencoder` through the
      tokenizer trainer with cfgs/larp_tokenizer_large.yaml's loss and
      optimizer (s/step, exact dQ and dK/dV launches, the idle share).
+ 24. TiTok, the packed-sequence tokenizer, at its registered base size (768
+     wide, 12 + 12 layers, 12 query heads over 4 KV heads of 64, FSQ-64000;
+     152,270,598 parameters; `phase_titok`, last): fp32 card against CPU at
+     PARITY_DEPTH + PARITY_DEPTH layers for batch 1 (packed, ids all 0), the
+     three-clip pack and a uniform batch of 2 (FSQ indices, the decode of the
+     CPU's indices, the decoder's first and last blocks, exact 3xTF32 flash
+     launches with and without ids, each clip of the pack equal to itself
+     alone); bf16 clips/s at batch 8 (batched, no ids) and 1 (packed, 24
+     wgmma forwards with ids), the pack's forward beside its clips alone,
+     device ms by category, peak memory; one fp32 trainer step card against
+     CPU at cut depth (the backward with ids on csrc/flash_attn_bwd.cu) and
+     bf16 training at batch 8 with exact launch counts.
 Every kernel phase also times one PyTorch call that computes the same
 function (`library_ms`: SDPA and its autograd backward, a matmul + argmax,
 `index_put_`), which the port uses nowhere, and computes the kernel's bound
@@ -225,6 +246,7 @@ one CUDA device.
 """
 from __future__ import annotations
 
+import copy
 import gc
 import json
 import math
@@ -365,6 +387,8 @@ def phase_build() -> None:
     # 3xTF32 VQ search per code dim and mode;
     # accumulators spilled to local memory would be re-read on every product
     expected = {f"flash_{k}_sm90_kernel<{d}>" for k in ("fwd", "bwd_dq", "bwd_dkv") for d in (32, 64)}
+    # the two forwards' instances with segment ids
+    expected |= {f"flash_fwd_{k}_kernel<{d}, seg>" for k in ("sm90", "tf32x3") for d in (32, 64)}
     expected |= {f"chunk_attn_sm90_kernel<{c}, {m}>" for c in ("bf16", "int8") for m in (1, 2)}
     expected |= {f"decode_attn_sm90_kernel<{c}, {h}>" for c in ("bf16", "int8") for h in (1, 2)}
     expected |= {f"w8_stream_kernel<{x}, {t}>" for x in ("bf16", "fp32")
@@ -376,9 +400,9 @@ def phase_build() -> None:
     types = {"13__nv_bfloat16": "bf16", "a": "int8", "f": "fp32"}
     seen = set()
     for name, (regs, spill) in sorted(_build.kernel_resources(build.log).items()):
-        if m := re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_(?:sm90|tf32x3)_kernel)ILi(\d+)E+v",
-                          name):
-            kernel = f"{m.group(1)}<{m.group(2)}>"
+        if m := re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_(?:sm90|tf32x3)_kernel)ILi(\d+)E"
+                          r"(?:Lb([01])E)?E*v", name):
+            kernel = f"{m.group(1)}<{m.group(2)}{', seg' if m.group(3) == '1' else ''}>"
         elif "w8_sm90_kernel" in name:
             kernel = "w8_sm90_kernel"
         elif m := re.search(r"vq_tc_kernelILi(\d+)ELb([01])E", name):
@@ -408,7 +432,11 @@ def phase_flash(records: dict) -> None:
     def randn(*shape, dtype):
         return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
 
-    # (name, B, Sq, Sk, H, Hkv, D, dtype, causal, offset, segments, tol). out is
+    # (name, B, Sq, Sk, H, Hkv, D, dtype, causal, offset, segments, tol);
+    # segments False, "no_match" (distinct query and key ids, query 5 in a
+    # segment no key has), "pack" (TiTok's three clips of 2048, 1024 and 512
+    # tokens, one id tensor) or "prefill" (the prior's prompt with
+    # `emb_masks`: ids 0 and -5 in no order, one tensor, causal). out is
     # held to tol of max|plain| (at S = 2048 a typical |out| is a few 1e-2, so
     # an absolute bound would pass a wrong P.V): bf16 kernel vs the fp32 plain
     # version (output rounded to bf16 on both sides, P rounded to bf16 in the
@@ -420,7 +448,8 @@ def phase_flash(records: dict) -> None:
         ("discriminator", 8, 1025, 1025, 12, 12, 32, torch.bfloat16, False, None, False, 2e-2),
         ("ar_nll_causal", 8, 1024, 1024, 20, 20, 64, torch.bfloat16, True, None, False, 2e-2),
         ("causal_offset", 2, 384, 512, 4, 4, 64, torch.bfloat16, True, 100, False, 2e-2),
-        ("segments_no_match", 2, 512, 512, 4, 4, 64, torch.bfloat16, False, None, True, 2e-2),
+        ("segments_no_match", 2, 512, 512, 4, 4, 64, torch.bfloat16, False, None, "no_match",
+         2e-2),
         ("gqa_4_over_2", 2, 512, 512, 4, 2, 64, torch.bfloat16, False, None, False, 2e-2),
         ("ragged_sk", 2, 300, 1000, 4, 4, 64, torch.bfloat16, False, None, False, 2e-2),
         ("fp32", 1, 2048, 2048, 12, 12, 64, torch.float32, False, None, False, 1e-4),
@@ -437,9 +466,9 @@ def phase_flash(records: dict) -> None:
         ("fp32_causal_ragged_d32", 2, 300, 333, 4, 4, 32, torch.float32, True, None, False, 1e-4),
         ("fp32_edge_129_257", 2, 129, 257, 4, 4, 64, torch.float32, False, None, False, 1e-4),
         ("fp32_causal_no_key_rows", 1, 300, 300, 2, 2, 64, torch.float32, True, -70, False, 1e-4),
-        ("fp32_segments", 2, 512, 512, 4, 4, 64, torch.float32, False, None, True, 1e-4),
-        ("lse_fp32", 2, 384, 200, 4, 2, 128, torch.float32, True, 50, True, 1e-4),
-        ("lse_bf16", 2, 384, 512, 4, 4, 32, torch.bfloat16, False, None, True, 2e-2),
+        ("fp32_segments", 2, 512, 512, 4, 4, 64, torch.float32, False, None, "no_match", 1e-4),
+        ("lse_fp32", 2, 384, 200, 4, 2, 128, torch.float32, True, 50, "no_match", 1e-4),
+        ("lse_bf16", 2, 384, 512, 4, 4, 32, torch.bfloat16, False, None, "no_match", 2e-2),
         ("causal_ragged_d32", 2, 300, 333, 4, 4, 32, torch.bfloat16, True, None, False, 2e-2),
         # one query row and one key past a 128-row block / a 64-key tile
         ("edge_129_257", 2, 129, 257, 4, 4, 64, torch.bfloat16, False, None, False, 2e-2),
@@ -465,15 +494,23 @@ def phase_flash(records: dict) -> None:
         # from three projections; the 512-wide discriminator, 8 heads of 64
         ("fp32_gptc_prior", 8, 1023, 1023, 6, 6, 64, torch.float32, True, None, False, 1e-4),
         ("disc512", 8, 1025, 1025, 8, 8, 64, torch.bfloat16, False, None, False, 2e-2),
+        # TiTok (phase 24): the three-clip pack, 12 query heads over 4 KV heads
+        ("titok_pack", 1, 3584, 3584, 12, 4, 64, torch.bfloat16, False, None, "pack", 2e-2),
+        ("fp32_titok_pack", 1, 3584, 3584, 12, 4, 64, torch.float32, False, None, "pack",
+         1e-4),
+        # the 632M prior's prefill with `emb_masks` (16 rows with CFG, 20 heads)
+        ("prefill_segments", 16, 256, 256, 20, 20, 64, torch.bfloat16, True, None, "prefill",
+         2e-2),
+        ("fp32_prefill_segments", 16, 256, 256, 20, 20, 64, torch.float32, True, None, "prefill",
+         1e-4),
     ]
-    # the cases that must run the wgmma kernel (bf16, D = 32 or 64, no segment
-    # ids) and the 3xTF32 kernel (the same in fp32); D = 128 and segment ids
-    # stay on the mma.sync / FMA kernel
-    sm90_cases = {"flagship", "discriminator", "ar_nll_causal", "causal_offset", "gqa_4_over_2",
-                  "ragged_sk", "causal_ragged_d32", "edge_129_257", "causal_no_key_rows",
-                  "model_new_large", "model_new_h8_s2304", "model_new_h12_s512",
-                  "model_new_h12_s1792", "disc512"}
-    tf32x3_cases = {c[0] for c in cases if c[7] == torch.float32 and c[6] != 128 and not c[10]}
+    # the cases that must run the wgmma kernel (bf16, D = 32 or 64, with or
+    # without segment ids) and the 3xTF32 kernel (the same in fp32); D = 128
+    # stays on the mma.sync / FMA kernel, whose launches here are the only
+    # ones it has (it is on no main path)
+    sm90_cases = {c[0] for c in cases if c[7] == torch.bfloat16 and c[6] != 128}
+    tf32x3_cases = {c[0] for c in cases if c[7] == torch.float32 and c[6] != 128}
+    mma_launches = 0
     strided = {"flagship", "discriminator", "ar_nll_causal", "fp32_train", "fp32_discriminator",
                "fp32_prior_causal", "fp32_ar_fp_train", "disc512"}
     lse_tol = 1e-4
@@ -491,11 +528,16 @@ def phase_flash(records: dict) -> None:
             q = randn(B, Sq, H, D, dtype=dtype)
             k, v = randn(B, Sk, Hkv, D, dtype=dtype), randn(B, Sk, Hkv, D, dtype=dtype)
         q_seg = k_seg = None
-        if with_seg:
+        if with_seg == "no_match":
             k_seg = (torch.arange(Sk, device="cuda") >= Sk // 3).int().expand(B, Sk).contiguous()
             q_seg = (torch.arange(Sq, device="cuda") >= Sq // 3).int().expand(B, Sq).contiguous()
             q_seg[:, 5] = 7  # matches no key: uniform attention
+        elif with_seg:
+            q_seg = (_titok_pack_ids() if with_seg == "pack" else torch.where(
+                torch.rand(B, Sq, generator=gen, device="cuda") < 0.85, 0, -5)).int()
         kw = dict(causal=causal, segment_ids=q_seg, kv_segment_ids=k_seg, causal_offset=offset)
+        mma_before = (flash_attn_fwd.launches - flash_attn_fwd.launches_sm90
+                      - flash_attn_fwd.launches_tf32x3)
         got, got_lse = flash_attn_fwd(q, k, v, return_lse=True, **kw)
         torch.cuda.synchronize()
         kernel = flash_attn_fwd.last_kernel
@@ -515,10 +557,15 @@ def phase_flash(records: dict) -> None:
                 f"flash {name}: error {rel_err} of max|plain| > {tol} or lse {lse_err} > {lse_tol}")
         # queries that see no key: LSE = the mask value (their out, the mean of V, is
         # held by the comparison above)
-        blind = [5] if with_seg else list(range(-offset)) if causal and (offset or 0) < 0 else []
+        blind = ([5] if with_seg == "no_match" else
+                 list(range(-offset)) if causal and (offset or 0) < 0 else [])
         require((got_lse[:, :, blind] == DEFAULT_MASK_VALUE).all().item(),
                 f"flash {name}: LSE of the rows that see no key is not the mask value")
         require(torch.equal(flash_attn_fwd(q, k, v, **kw), got), f"flash {name}: lse changes out")
+        mma_launches += (flash_attn_fwd.launches - flash_attn_fwd.launches_sm90
+                         - flash_attn_fwd.launches_tf32x3) - mma_before
+        if with_seg in ("pack", "prefill"):
+            _segment_timing(records, name, q, k, v, q_seg, causal, got, want, kernel)
         if name in ("flagship", "discriminator", "ar_nll_causal", "fp32", "fp32_train",
                     "model_new_large", "fp32_gptc_prior", "disc512"):
             # device time: CUDA-graph replays (CUDA events around one eager
@@ -591,6 +638,84 @@ def phase_flash(records: dict) -> None:
                     f"{name}_max_abs_err": err, f"{name}_plain_ms": plain_ms,
                     f"{name}_library_ms": library_ms, f"{name}_lse_library_ms": lse_library_ms,
                     f"{name}_bound_ms": bnd["bound_ms"]})
+    # the earlier kernel keeps D = 128 and is on no main path: its launches
+    # are this phase's D = 128 cases
+    log(f"[flash] flash_fwd_kernel (D = 128, on no main path): {mma_launches} launches here")
+    require(mma_launches > 0, "flash: no D = 128 case ran flash_fwd_kernel")
+    records["flash_attn_fwd_mma"].update(launches=mma_launches, on_no_main_path=True)
+
+
+# TiTok's three-clip pack, the encoder's lengths: 16 x 128 x 128 with 1024
+# latents, 8 x 128 x 128 with 512 and 16 x 64 x 64 with 256 ((4, 8, 8) patches)
+TITOK_PACK = (2048, 1024, 512)
+
+
+def _titok_pack_ids():
+    """[1, 3584] int32 segment ids of the three-clip pack (0, 1, 2 per clip)."""
+    import torch
+
+    return torch.cat([torch.full((n,), i, dtype=torch.int32, device="cuda")
+                      for i, n in enumerate(TITOK_PACK)])[None]
+
+
+def _segment_timing(records: dict, name: str, q, k, v, ids, causal: bool, got, want,
+                    kernel: str) -> None:
+    """Phase 2's segment-id cases on the tensor-core kernels: the kernel's time
+    on the windowed call (one id tensor for queries and keys) beside the same
+    call over every key tile (the same ids as a second tensor: no window) and,
+    for the pack, beside one unpacked 2048-token clip and the three clips
+    run alone; the key tiles the windows visit against the full grid; the
+    bound on the visible pairs (4 D flops each), not on all Sq x Sk."""
+    import torch
+
+    from video_tokenizer_tpu_torch.ops.attention import (
+        _mask, attention_reference, flash_attn_fwd, segment_key_windows,
+    )
+
+    B, Sq, H, D = q.shape
+    fp32 = q.dtype == torch.float32
+    block_m = 64 if fp32 else 128
+    lo, hi = segment_key_windows(ids, block_m, 64)
+    tiles, full = int((hi - lo).sum()), lo.numel() * -(-k.shape[1] // 64)
+    pairs = int(_mask(B, Sq, k.shape[1], causal, ids, None, None, q.device).sum())
+    ms = graph_ms(lambda: flash_attn_fwd(q, k, v, causal=causal, segment_ids=ids),
+                  launches=5, replays=5)
+    other = ids.clone()  # distinct q / kv tensors: every key tile, masked where ids differ
+    every_ms = graph_ms(lambda: flash_attn_fwd(q, k, v, causal=causal, segment_ids=ids,
+                                               kv_segment_ids=other), launches=5, replays=5)
+    plain_ms = median_ms(lambda: attention_reference(q, k, v, causal, ids), iters=3, warmup=1)
+    kind = "tf32x3" if fp32 else "bf16"
+    bnd = bound(_nbytes(q, k, v, got, ids), 4 * H * D * pairs, kind)
+    rec = {"shape": f"B={B} S={Sq} H={H} Hkv={k.shape[2]} D={D}{' causal' if causal else ''}, "
+                    "segment ids",
+           "ms": ms, "every_tile_ms": every_ms, "plain_ms": plain_ms,
+           "max_abs_err": (got.float() - want.float()).abs().max().item(),
+           "tiles_visited": tiles, "tiles_full": full, "visible_pairs": pairs, **bnd}
+    clip_note = ""
+    if name.endswith("titok_pack"):
+        def alone(n):
+            return flash_attn_fwd(q[:, :n].contiguous(), k[:, :n].contiguous(),
+                                  v[:, :n].contiguous())
+        clips_ms = [graph_ms(lambda n=n: alone(n), launches=5, replays=5) for n in TITOK_PACK]
+        qt, kt, vt = (t[:, :TITOK_PACK[0]].transpose(1, 2) for t in (q, k, v))
+        rep = H // k.shape[2]
+        kt, vt = kt.repeat_interleave(rep, 1), vt.repeat_interleave(rep, 1)
+        library_ms = graph_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt),
+                              launches=5, replays=5)
+        rec.update(clip_ms=clips_ms[0], three_clips_alone_ms=sum(clips_ms),
+                   clip_library_ms=library_ms)
+        clip_note = (f"; the same kernel on one unpacked 2048-token clip {clips_ms[0]:.3f} ms, "
+                     f"the three clips alone {sum(clips_ms):.3f} ms (pack / alone "
+                     f"{ms / sum(clips_ms):.2f}x); SDPA on the 2048-token clip (K/V repeated to "
+                     f"{H} heads) {library_ms:.3f} ms")
+    log(f"[flash] {name}: {kernel} with segment ids {ms:.3f} ms windowed, {every_ms:.3f} ms over "
+        f"every key tile ({ms / every_ms:.2f}x); key tiles visited {tiles} of {full} "
+        f"({tiles / full:.1%}; {block_m}-row blocks, 64-key tiles); visible pairs {pairs:,} of "
+        f"{B * Sq * k.shape[1]:,}; bound {bnd['bound_ms']:.3f} ms ({bnd['bound_by']}, {kind}, "
+        f"on the visible pairs); plain {plain_ms:.3f} ms{clip_note}")
+    require(tiles < full or name.endswith("prefill_segments"),
+            f"flash {name}: the windows visit all {full} tiles")
+    records["flash_attn_fwd_tf32x3" if fp32 else "flash_attn_fwd"][f"segments_{name}"] = rec
 
 
 def phase_flash_bwd(records: dict) -> None:
@@ -657,6 +782,11 @@ def phase_flash_bwd(records: dict) -> None:
         # discriminator (8 heads of 64, strided qkv views)
         ("fp32_gptc_prior", 8, 1023, 1023, 6, 6, 64, torch.float32, True, None, False, 1e-4),
         ("disc512", 8, 1025, 1025, 8, 8, 64, torch.bfloat16, False, None, False, 2e-2),
+        # TiTok's pack shape (12 query heads over 4 KV heads) with segment ids:
+        # the tensor-core forward's LSE into csrc/flash_attn_bwd.cu's backward,
+        # the pairing of phase 24 (c)'s packed fp32 step
+        ("titok_pack", 1, 3584, 3584, 12, 4, 64, torch.bfloat16, False, None, True, 2e-2),
+        ("fp32_titok_pack", 1, 3584, 3584, 12, 4, 64, torch.float32, False, None, True, 1e-4),
     ]
     # the kernels each case's dQ and dK/dV must run: the wgmma kernels (bf16,
     # D = 32 or 64, no segment ids), the 3xTF32 kernels (the same in fp32),
@@ -2295,8 +2425,10 @@ def phase_ar_sampling(model_fp32, tokenizer, records: dict) -> None:
 
     # sampling with a prompt mask (`emb_masks`: prompt positions that are not
     # valid are masked as keys): the prefill's attention takes segment ids,
-    # which stay on the earlier flash_fwd_kernel; with every position valid
-    # the codes are those of the same draw without a mask
+    # one tensor for queries and keys, on the wgmma kernel; with every
+    # position valid the ids are one value and the kernel runs the same tiles
+    # and arithmetic as without ids, so the codes are those of the same draw
+    # without a mask
     n = 16
     mask = torch.ones(B, 1, dtype=torch.bool, device="cuda")
     with_mask = {}
@@ -2307,15 +2439,17 @@ def phase_ar_sampling(model_fp32, tokenizer, records: dict) -> None:
                                             emb_masks=m)
         torch.cuda.synchronize()
     seq = with_mask[True]
-    n_fwd, n_new = flash_attn_fwd.launches, flash_attn_fwd.launches_sm90 + flash_attn_fwd.launches_tf32x3
+    n_fwd, n_sm90 = flash_attn_fwd.launches, flash_attn_fwd.launches_sm90
     same = (seq == with_mask[False]).float().mean().item()
     log(f"[sample bf16, emb_masks] batch {B}, {n} tokens with every prompt position valid: "
-        f"{n_fwd} flash forwards (expect 30, the prefill's), {n_new} of them on the wgmma or "
-        f"3xTF32 kernels (expect 0: segment ids); codes equal to the unmasked draw's: {same:.1%}")
+        f"{n_fwd} flash forwards (expect 30, the prefill's, with segment ids), {n_sm90} of them "
+        f"on the wgmma kernel (expect 30); codes equal to the unmasked draw's: {same:.1%} "
+        f"(expect 100%)")
     require(tuple(seq.shape) == (B, n) and int(seq.min()) >= 0 and int(seq.max()) < 8192,
             f"sample emb_masks: codes {tuple(seq.shape)} out of range")
-    require(n_fwd == 30 and n_new == 0, f"sample emb_masks: {n_fwd} flash launches, {n_new} new")
-    records["flash_attn_fwd_mma"]["launches"] = n_fwd
+    require(n_fwd == n_sm90 == 30, f"sample emb_masks: {n_fwd} flash launches, {n_sm90} wgmma")
+    require(same == 1.0, f"sample emb_masks: {same:.2%} of the codes equal the unmasked draw's")
+    records["flash_attn_fwd"]["emb_masks_segment_launches"] = n_sm90
 
 
 def in_range(video) -> float:
@@ -2995,8 +3129,8 @@ def phase_ar_train(tmp: Path, records: dict, real_stats: Path) -> None:
           starts at zero), `epoch-final` saved with no epoch trained; every
           AR trainer below loads it through `vae.checkpoint`;
       (b) one step at batch 1, every dropout 0, card against CPU from the
-          same weights, at full width and 8 of the prior's 30 layers (the
-          CPU side of the whole depth took 27.5 and 58.4 s): loss,
+          same weights, at full width and PARITY_DEPTH of the prior's 30
+          layers (the CPU side of the whole depth took 27.5 and 58.4 s): loss,
           top-1/top-5 (2 of 1024 tokens), named gradients;
       (c) batch 8 with the configured dropouts: 2 warm-up steps, 5 timed
           (s/step, training tokens/s, clips/s, peak memory), 5 profiled (idle
@@ -3035,16 +3169,18 @@ def phase_ar_train(tmp: Path, records: dict, real_stats: Path) -> None:
     # (b) one fp32 step, card against CPU
     clip = np.random.default_rng(SEED + 81).integers(0, 256, (1, 3, 16, 128, 128), dtype=np.uint8)
     batch = {"gt": torch.from_numpy(clip), "label": torch.tensor([5])}
+    last = PARITY_DEPTH - 1
     named = ("tok_embeddings.weight", "abs_pe", "layers.0.attention.wqkv.weight",
-             "layers.4.feed_forward.w2.weight", "layers.7.attention.wo.weight", "output.weight")
+             f"layers.{last - 1}.feed_forward.w2.weight", f"layers.{last}.attention.wo.weight",
+             "output.weight")
     for name in ("larp_ar", "larp_ar_fp"):
         cfg = _ar_cfg(tmp / f"{name}_parity", name, vae_dir, 1)
         cfg["model"]["args"].update(token_dropout_p=0.0, resid_dropout_p=0.0, ffn_dropout_p=0.0,
                                     class_dropout_prob=0.0)
-        # llama-abs-LP's width and heads at 8 of its 30 layers (the zoo name
-        # fixes the depth; the flat registration takes it)
-        cfg["model"] = {"name": "larp_ar",
-                        "args": {**cfg["model"]["args"], "n_layer": 8, "n_head": 20, "dim": 1280}}
+        # llama-abs-LP's width and heads at PARITY_DEPTH of its 30 layers (the
+        # zoo name fixes the depth; the flat registration takes it)
+        cfg["model"] = {"name": "larp_ar", "args": {
+            **cfg["model"]["args"], "n_layer": PARITY_DEPTH, "n_head": 20, "dim": 1280}}
         pair = {d: _trainer({**cfg, "save_dir": str(tmp / f"{name}_{d}")}, d)
                 for d in ("cpu", "cuda")}
         cpu, gpu = pair["cpu"], pair["cuda"]
@@ -3223,7 +3359,7 @@ def phase_ar_train(tmp: Path, records: dict, real_stats: Path) -> None:
 
 _MODEL_NEW_CFGS = ("larp_tokenizer_large", "larp_tokenizerf256t1024", "larp_tokenizerf256t768",
                    "larp_tokenizerf256t512")
-_MODEL_NEW_PARITY_DEPTH = {"larp_tokenizer_large": 8, "larp_tokenizerf256t768": 4,
+_MODEL_NEW_PARITY_DEPTH = {"larp_tokenizer_large": 4, "larp_tokenizerf256t768": 4,
                            "larp_tokenizerf256t512": 4}
 
 
@@ -3250,7 +3386,7 @@ def phase_model_new(tmp: Path, records: dict) -> None:
           their yaml (cfgs/larp_tokenizer_large.yaml and
           larp_tokenizerf256t{1024,768,512}.yaml), card against the same
           weights on the CPU through the plain versions, autoencoder_large at
-          8 + 8 of its 24 + 24 layers and f256t768 / t512 at 4 of each
+          4 + 4 of its 24 + 24 layers and f256t768 / t512 at 4 of each
           stack's 12 (the run's budget; f256t1024a whole): FSQ indices (and the
           first frame's) >= 99% equal; decode_from_bottleneck of the CPU's
           indices within 1e-3 of the scale, or 5x the CPU's own change under a
@@ -3305,7 +3441,7 @@ def _model_new_parity(tmp: Path, records: dict) -> dict:
     # each decoder's first and last blocks are held on the CPU's own inputs
     # to 1e-5 of their output's scale, where no depth amplifies anything
     # (the budget: the CPU forwards of the three deep configs run at cut depth,
-    # 8 of autoencoder_large's 24 + 24 layers and 4 of each f256t768 / t512
+    # 4 of autoencoder_large's 24 + 24 layers and 4 of each f256t768 / t512
     # stack's 12, at full width; the bf16 phases below keep the whole depth)
     weights, layers = {}, {}
     x = torch.rand(1, 3, 16, 128, 128, generator=torch.Generator().manual_seed(SEED + 100))
@@ -3439,9 +3575,10 @@ def _model_new_reconstruction(tmp: Path, records: dict, weights: dict) -> None:
 
 def _cut_depth(model, depth: int):
     """Keeps the first `depth` blocks of every block stack of `model`, at full
-    width: the encoders and decoder of a LARP or model_new tokenizer (a
-    ModuleList, or the gated stack's `attn_i` / `ffd_i` and `depth`) and a
-    gptc prior's blocks. Returns a function that puts the whole stacks back."""
+    width: the encoders and decoder of a LARP, model_new or TiTok tokenizer
+    (a ModuleList, or a stack of numbered children, `attn_i`, `ffd_i`,
+    `ffd_norm_i`, ..., with `depth`) and a gptc prior's blocks. Returns a
+    function that puts the whole stacks back."""
     import torch
 
     undo = []
@@ -3451,8 +3588,8 @@ def _cut_depth(model, depth: int):
             stack.blocks = blocks[:depth]
             undo.append(lambda s=stack, b=blocks: setattr(s, "blocks", b))
         elif blocks is not None and hasattr(blocks, "depth"):
-            cut = {f"{k}_{i}": getattr(blocks, f"{k}_{i}")
-                   for i in range(depth, blocks.depth) for k in ("attn", "ffd")}
+            cut = {name: m for name, m in blocks.named_children()
+                   if (i := re.fullmatch(r".*_(\d+)", name)) and int(i.group(1)) >= depth}
             for name in cut:
                 delattr(blocks, name)
             whole, blocks.depth = blocks.depth, depth
@@ -3465,8 +3602,9 @@ def _cut_depth(model, depth: int):
     return lambda: [f() for f in reversed(undo)]
 
 
-# the depth of each stack in the card-vs-CPU comparisons of phases 21 and 22,
-# at full width (the run's budget: the CPU side's time grows with depth, and
+# the depth of each stack in the card-vs-CPU comparisons of phases 21, 22 and
+# 24, of phase 18's two steps and of phase 19 (a)'s autoencoder_large, at full
+# width (the run's budget: the CPU side's time grows with depth, and
 # deep random stacks only amplify fp32 rounding, phase 19 (a)); the card's own
 # runs there keep the whole depth
 PARITY_DEPTH = 4
@@ -3479,22 +3617,38 @@ def _model_new_train_parity(tmp: Path, records: dict) -> None:
     output at 24 + 24; in a 24 + 24 step 0.5% of the FSQ indices flipped and
     the losses moved 6.5e-3; at 12 + 12 the indices and losses agreed, the
     gradients to 7.6e-4 of their scale, near the 1e-3 bound)."""
+    run = _train_step_parity(
+        "model_new train fp32", tmp / "model_new_fp32", _load_cfg("larp_tokenizer_large", tmp, 1),
+        8, "24 + 24", SEED + 110, (
+            "encoder.proj_in.weight", "encoder.blocks.attn_4.to_qkv.weight",
+            "encoder.blocks.ffd_7.proj_out.weight", "decoder.blocks.attn_0.q_norm.weight",
+            "decoder.blocks.ffd_7.proj_in.weight", "decoder.proj_out.weight"))
+    records["model_new_larp_tokenizer_large"].update(
+        train_parity_loss_rel=run["loss_rel"], train_parity_grad_rel=run["grad_rel"],
+        train_parity_cpu_s=run["cpu_s"])
+
+
+def _train_step_parity(tag: str, save_dir: Path, cfg: dict, depth: int, whole: str, seed: int,
+                       model_grads: tuple) -> dict:
+    """One fp32 step at batch 1 of `cfg` through the port's trainer (the
+    discriminator trains on it), card against CPU from the same perturbed
+    weights, at `depth` of each stack's `whole` layers: FSQ indices >= 99.9%
+    equal, losses within 2e-4 of each other, the tokenizer's `model_grads`
+    and two discriminator gradients within 1e-3 of their scale."""
     import numpy as np
     import torch
 
-    cfg = _load_cfg("larp_tokenizer_large", tmp, 1)
     cfg["loss"]["args"]["d_update_freq"] = 1
-    pair = {d: _trainer({**cfg, "save_dir": str(tmp / f"model_new_fp32_{d}")}, d)
-            for d in ("cpu", "cuda")}
+    pair = {d: _trainer({**cfg, "save_dir": str(save_dir / d)}, d) for d in ("cpu", "cuda")}
     cpu, gpu = pair["cpu"], pair["cuda"]
     for tr in (cpu, gpu):
-        _cut_depth(tr.model, 8)
+        _cut_depth(tr.model, depth)
         tr.opt_g.param_groups[0]["params"] = list(tr.model.parameters())
-    _perturb(cpu.model, SEED + 110)
-    _perturb(cpu.disc, SEED + 111)
+    _perturb(cpu.model, seed)
+    _perturb(cpu.disc, seed + 1)
     gpu.model.load_state_dict(cpu.model.state_dict())
     gpu.loss_mod.load_state_dict(cpu.loss_mod.state_dict())
-    clip = np.random.default_rng(SEED + 112).integers(0, 256, (1, 3, 16, 128, 128), dtype=np.uint8)
+    clip = np.random.default_rng(seed + 2).integers(0, 256, (1, 3, 16, 128, 128), dtype=np.uint8)
     reps, infos, secs = {}, {}, {}
     for device, tr in pair.items():
         hook = tr.model.quantize.register_forward_hook(
@@ -3509,39 +3663,34 @@ def _model_new_train_parity(tmp: Path, records: dict) -> None:
                  "logits_real", "logits_fake")
     loss_err = max(abs(infos["cuda"][k] - infos["cpu"][k]) / max(abs(infos["cpu"][k]), 1e-6)
                    for k in loss_keys)
-    log(f"[model_new train fp32] autoencoder_large {sum(p.numel() for p in cpu.model.parameters()):,}"
-        f" + discriminator {sum(p.numel() for p in cpu.disc.parameters()):,} + LPIPS params, "
-        f"batch 1, 8 + 8 of the 24 + 24 layers, TF32 off: CPU step (plain versions) {secs['cpu']:.1f} s, "
-        f"card step {secs['cuda']:.2f} s; FSQ indices agree on {agree:.4%} (tol >= 99.9%); losses "
+    log(f"[{tag}] {cfg['model']['name']} {sum(p.numel() for p in cpu.model.parameters()):,} + "
+        f"discriminator {sum(p.numel() for p in cpu.disc.parameters()):,} + LPIPS params, "
+        f"batch 1, {depth} + {depth} of the {whole} layers, TF32 off: CPU step (plain versions) "
+        f"{secs['cpu']:.1f} s, card step {secs['cuda']:.2f} s; FSQ indices agree on {agree:.4%} "
+        f"(tol >= 99.9%); losses "
         + ", ".join(f"{k} {infos['cuda'][k]:.6g}/{infos['cpu'][k]:.6g}" for k in loss_keys)
         + f" (card/CPU; largest relative difference {loss_err:.2e}, tol 2e-4)")
-    require(set(infos["cuda"]) == set(infos["cpu"]), "model_new train fp32: info keys differ")
-    require(all(np.isfinite(v) for v in infos["cuda"].values()), "model_new train: non-finite")
-    require(agree >= 0.999, f"model_new train fp32: FSQ agreement {agree}")
-    require(loss_err <= 2e-4, f"model_new train fp32: losses differ by {loss_err}")
+    require(set(infos["cuda"]) == set(infos["cpu"]), f"{tag}: info keys differ")
+    require(all(np.isfinite(v) for v in infos["cuda"].values()), f"{tag}: non-finite")
+    require(agree >= 0.999, f"{tag}: FSQ agreement {agree}")
+    require(loss_err <= 2e-4, f"{tag}: losses differ by {loss_err}")
     worst = 0.0
-    for tag, gm, cm, names in (
-            ("model", gpu.model, cpu.model, ("encoder.proj_in.weight",
-                                             "encoder.blocks.attn_4.to_qkv.weight",
-                                             "encoder.blocks.ffd_7.proj_out.weight",
-                                             "decoder.blocks.attn_0.q_norm.weight",
-                                             "decoder.blocks.ffd_7.proj_in.weight",
-                                             "decoder.proj_out.weight")),
+    for part, gm, cm, names in (
+            ("model", gpu.model, cpu.model, model_grads),
             ("disc", gpu.disc, cpu.disc, ("transformer_encoder.blocks.3.attn.qkv.weight",
                                           "x_embedder.proj.weight"))):
         gp, cp = dict(gm.named_parameters()), dict(cm.named_parameters())
         for pname in names:
             g, c = gp[pname].grad, cp[pname].grad
-            require(g is not None and c is not None, f"model_new train: no gradient for {pname}")
+            require(g is not None and c is not None, f"{tag}: no gradient for {pname}")
             rel = (g.cpu() - c).abs().max().item() / c.abs().max().item()
             worst = max(worst, rel)
-            log(f"[model_new train fp32] grad {tag} {pname}: max|card-cpu|/max|cpu| {rel:.2e} "
+            log(f"[{tag}] grad {part} {pname}: max|card-cpu|/max|cpu| {rel:.2e} "
                 f"(max|g| {c.abs().max().item():.3e}; tol 1e-3)")
-    require(worst <= 1e-3, f"model_new train fp32: gradients differ by {worst} of their scale")
-    records["model_new_larp_tokenizer_large"].update(
-        train_parity_loss_rel=loss_err, train_parity_grad_rel=worst, train_parity_cpu_s=secs["cpu"])
+    require(worst <= 1e-3, f"{tag}: gradients differ by {worst} of their scale")
     del pair, cpu, gpu
     torch.cuda.empty_cache()
+    return {"loss_rel": loss_err, "grad_rel": worst, "index_agree": agree, "cpu_s": secs["cpu"]}
 
 
 def _model_new_train_throughput(tmp: Path, records: dict) -> None:
@@ -5197,6 +5346,289 @@ def _model_basic(tmp: Path, rec: dict) -> None:
         "device_ms_per_step")}
 
 
+def _titok(dtype, seed: int, perturb: bool = True):
+    """TiTok at its registered base size (768 wide, 12 + 12 layers, 12 query
+    heads over 4 KV heads of 64, GEGLU 2048, FSQ 8,8,8,5,5,5, 1024 latents,
+    16 x 128 x 128 in (4, 8, 8) patches), seeded (and perturbed), on the host."""
+    import torch
+
+    from video_tokenizer_tpu_torch.registry import models
+
+    model = models.make({"name": "titok"}, args={
+        "dtype": dtype, "generator": torch.Generator().manual_seed(seed)})
+    if perturb:
+        _perturb(model, seed + 1)
+    return model
+
+
+def _titok_cfg(tmp: Path, batch: int, use_amp: bool) -> dict:
+    """cfgs/larp_tokenizer.yaml as phase 12 loads it, its model TiTok at the
+    registered base size (no yaml under cfgs/ names it)."""
+    cfg = _train_cfg(tmp, batch, use_amp)
+    cfg["model"] = {"name": "titok", "args": {}}
+    return cfg
+
+
+# (C, T, H, W) and latent tokens of the three-clip pack (TITOK_PACK's lengths)
+TITOK_CLIPS = (((3, 16, 128, 128), 1024), ((3, 8, 128, 128), 512), ((3, 16, 64, 64), 256))
+TITOK_PARAMS = 152_270_598  # the port's count, equal to the JAX init's (tests/test_torch_titok.py)
+
+
+def phase_titok(tmp: Path, records: dict) -> None:
+    """TiTok, the packed-sequence tokenizer, at its registered base size:
+      (a) fp32 (TF32 off), card against the same weights on the CPU through
+          the plain versions, at PARITY_DEPTH of each stack's 12 layers, for
+          batch 1 (packed, ids all 0), the three-clip pack (16 x 128 x 128
+          with 1024 tokens, 8 x 128 x 128 with 512, 16 x 64 x 64 with 256:
+          encoder lengths 2048 + 1024 + 512 = 3584) and a uniform batch of 2
+          (batched, no ids): FSQ indices >= 99% equal, the decode of the CPU's
+          indices within 1e-3 of the scale or 5x the CPU's own change under a
+          1e-6 nudge of the decoder's proj_in, the decoder's first and last
+          blocks on the CPU's inputs within 1e-5, exact flash launches (all
+          on the 3xTF32 kernel, with segment ids but for the batch of 2); on
+          the card each clip of the pack equal (1e-5 of scale) to the same
+          clip encoded and decoded alone;
+      (b) bf16 reconstruction at full width: clips/s at batch 8 (batched: 24
+          wgmma forwards a forward, none with segment ids; device ms by
+          category, peak memory after a gc.collect()), clips/s at batch 1
+          (packed: 24, all with segment ids on the wgmma kernel), the pack's
+          forward beside the three clips run alone;
+      (c) training through the port's tokenizer trainer on
+          cfgs/larp_tokenizer.yaml with TiTok as its model: one fp32 step at
+          batch 1 card against CPU at PARITY_DEPTH + PARITY_DEPTH layers
+          (losses 2e-4, gradients 1e-3, FSQ indices >= 99.9%); bf16 at batch
+          8 (`_train_throughput`: 48 flash forwards, 32 dQ and 32 dK/dV a
+          step, 16 more on a discriminator step, all wgmma, none with ids)."""
+    rec = records["titok"] = {}
+    weights = _titok_parity(rec)
+    _titok_reconstruction(rec, weights, records)
+    del weights
+    _titok_train_parity(tmp, rec)
+    _titok_train_throughput(tmp, rec, records)
+
+
+def _titok_inputs():
+    """Seeded clips on the host: batch 1, the pack's three, a batch of 2."""
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED + 300)
+    return {"b1": torch.rand(1, 3, 16, 128, 128, generator=gen),
+            "pack": [torch.rand(*shape, generator=gen) for shape, _ in TITOK_CLIPS],
+            "b2": torch.rand(2, 3, 16, 128, 128, generator=gen)}
+
+
+def _titok_run(model, case: str, x, idx=None):
+    """(indices, reconstruction) of `case` through the entry a user calls: the
+    forward for a batch, encode_packed / decode_packed for the pack; with
+    `idx`, only the decode of those indices (decode_from_bottleneck)."""
+    import torch
+
+    if case == "pack":
+        counts = [n for _, n in TITOK_CLIPS]
+        grids = [shape for shape, _ in TITOK_CLIPS]
+        if idx is not None:
+            return idx, torch.cat([v.flatten() for v in model.decode_from_bottleneck(
+                list(idx.split(counts)), grids)])
+        x_q, idx = model.encode_packed(x, counts)
+        return idx, torch.cat([v.flatten() for v in model.decode_packed(x_q, counts, grids)])
+    if idx is not None:
+        return idx, model.decode_from_bottleneck(idx)
+    out = model(x)
+    return out["bottleneck_rep"], out["pred_frames"]
+
+
+def _titok_parity(rec: dict) -> dict:
+    """Phase 24 (a); returns the fp32 weights at full depth."""
+    import torch
+
+    from video_tokenizer_tpu_torch.ops.attention import flash_attn_fwd
+
+    model = _titok(torch.float32, SEED + 301)
+    model.eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    require(n_params == TITOK_PARAMS, f"titok: {n_params:,} parameters, expected {TITOK_PARAMS:,}")
+    weights = {k: v.clone() for k, v in model.state_dict().items()}
+    _cut_depth(model, PARITY_DEPTH)
+    gpu = copy.deepcopy(model).cuda()
+    blocks = model.decoder.blocks
+    probe_names = ("attn_0", "ffd_in_0", f"attn_{blocks.depth - 1}", f"ffd_out_{blocks.depth - 1}")
+    inputs = _titok_inputs()
+    on_card = lambda a: a.cuda() if isinstance(a, torch.Tensor) else a  # noqa: E731
+    for case, x in inputs.items():
+        probes = {}
+        hooks = [getattr(blocks, n).register_forward_hook(
+            lambda m, i, o, n=n: probes.__setitem__(n, (i, o))) for n in probe_names]
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            ref_idx, ref = _titok_run(model, case, x)
+            for h in hooks:
+                h.remove()
+            _, ref_dec = _titok_run(model, case, x, ref_idx)
+            w = model.decoder.proj_in.weight  # the yardstick: proj_in x (1 + 1e-6)
+            kept = w.clone()
+            w.mul_(1 + 1e-6)
+            _, nudged = _titok_run(model, case, x, ref_idx)
+            w.copy_(kept)
+        cpu_s = time.perf_counter() - t0
+        yardstick = _rel_max(nudged, ref_dec)
+        x_card = [v.cuda() for v in x] if case == "pack" else x.cuda()
+        flash_attn_fwd.launches = flash_attn_fwd.launches_tf32x3 = 0
+        flash_attn_fwd.launches_segments = 0
+        with torch.inference_mode():
+            got_idx, got = _titok_run(gpu, case, x_card)
+            n = {"flash": flash_attn_fwd.launches, "tf32x3": flash_attn_fwd.launches_tf32x3,
+                 "segments": flash_attn_fwd.launches_segments}
+            _, dec = _titok_run(gpu, case, x_card, ref_idx.cuda())
+            block_errs = {}
+            for name, (args, out) in probes.items():
+                o = getattr(gpu.decoder.blocks, name)(*(on_card(a) for a in args))
+                block_errs[name] = _rel_max(o, out)
+        torch.cuda.synchronize()
+        agree = (got_idx.cpu() == ref_idx).float().mean().item()
+        rec_err, rec_tol = _rel_max(dec, ref_dec), max(1e-3, 5 * yardstick)
+        layers = 2 * PARITY_DEPTH
+        want = {"flash": layers, "tf32x3": layers, "segments": 0 if case == "b2" else layers}
+        alone_err = None
+        if case == "pack":  # each clip of the pack against the same clip alone, on the card
+            counts = [c for _, c in TITOK_CLIPS]
+            grids = [shape for shape, _ in TITOK_CLIPS]
+            with torch.inference_mode():
+                z_pack = gpu.encoder(x_card, counts).split(counts)
+                codes = gpu.quantize.indices_to_codes(got_idx).float()
+                v_pack = gpu.decoder(codes, counts, grids)
+                alone_err = 0.0
+                for i, (v, c, g) in enumerate(zip(x_card, counts, grids)):
+                    z = gpu.encoder([v], [c])
+                    vid = gpu.decoder(codes.split(counts)[i], [c], [g])[0]
+                    alone_err = max(alone_err, _rel_max(z_pack[i], z), _rel_max(v_pack[i], vid))
+        log(f"[titok fp32] {case} ({n_params:,} params at 12 + 12; here {PARITY_DEPTH} + "
+            f"{PARITY_DEPTH} layers, TF32 off): CPU plain path {cpu_s:.1f} s; FSQ indices agree "
+            f"{agree:.4%} (tol >= 99%); decode of the CPU's indices max|card-cpu| {rec_err:.3e} of "
+            f"the scale (tol {rec_tol:.3e}: the CPU's own change under proj_in x (1 + 1e-6) "
+            f"{yardstick:.3e}); decoder blocks on the CPU's inputs "
+            + ", ".join(f"{k} {e:.2e}" for k, e in block_errs.items())
+            + f" (tol 1e-5); reconstruction max|card-cpu| {_rel_max(got, ref):.3e} of the scale; "
+            f"flash launches {n} (expect {want})"
+            + ("" if alone_err is None else
+               f"; each clip of the pack against itself alone on the card {alone_err:.2e} (tol 1e-5)"))
+        require(torch.isfinite(got).all().item(), f"titok {case}: non-finite output")
+        require(agree >= 0.99, f"titok {case}: FSQ index agreement {agree}")
+        require(rec_err <= rec_tol, f"titok {case}: reconstruction error {rec_err} > {rec_tol}")
+        require(max(block_errs.values()) <= 1e-5, f"titok {case}: decoder blocks {block_errs}")
+        require(n == want, f"titok {case}: flash launches {n}, expected {want}")
+        require(alone_err is None or alone_err <= 1e-5, f"titok pack: clips differ by {alone_err}")
+        rec[f"fp32_{case}"] = {"cpu_s": cpu_s, "index_agree": agree, "rec_err_rel": rec_err,
+                               "yardstick": yardstick, "block_err_rel": max(block_errs.values()),
+                               "flash": n, "pack_vs_alone_rel": alone_err}
+    rec["params"] = n_params
+    del model, gpu
+    torch.cuda.empty_cache()
+    return weights
+
+
+def _titok_forward_ms(fn, iters: int = 5) -> float:
+    """Median host wall ms of fn() ending in a synchronize, after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _titok_reconstruction(rec: dict, weights: dict, records: dict) -> None:
+    """Phase 24 (b): bf16 at full width, batch 8 and 1, the pack."""
+    import numpy as np
+    import torch
+
+    from video_tokenizer_tpu_torch.ops.attention import flash_attn_fwd
+    from video_tokenizer_tpu_torch.reconstruct import make_clips, reconstruct
+
+    model = _titok(torch.bfloat16, SEED, perturb=False)
+    model.load_state_dict(weights)
+    model.cuda().eval()
+    flash_attn_fwd.launches_segments = 0
+    rec["bf16_b8"] = _reconstruction_rate("titok", model, 24, 0)
+    seg_b8 = flash_attn_fwd.launches_segments
+    require(seg_b8 == 0, f"titok bf16 batch 8: {seg_b8} flash launches with segment ids")
+    # batch 1: the packed path, every forward with segment ids on the wgmma kernel
+    one = torch.from_numpy(make_clips(np.random.default_rng(SEED + 1), 1, 16, 128)).cuda()
+    ms_b1 = _titok_forward_ms(lambda: reconstruct(model, one))
+    flash_attn_fwd.launches = flash_attn_fwd.launches_sm90 = flash_attn_fwd.launches_segments = 0
+    reconstruct(model, one)
+    torch.cuda.synchronize()
+    n_b1 = {"flash": flash_attn_fwd.launches, "wgmma": flash_attn_fwd.launches_sm90,
+            "segments": flash_attn_fwd.launches_segments}
+    # the pack beside its three clips alone (each a batch of one)
+    gen = torch.Generator().manual_seed(SEED + 302)
+    clips = [torch.rand(*shape, generator=gen).cuda() for shape, _ in TITOK_CLIPS]
+    counts = [c for _, c in TITOK_CLIPS]
+    grids = [shape for shape, _ in TITOK_CLIPS]
+
+    def pack():
+        with torch.inference_mode():
+            x_q, _ = model.encode_packed(clips, counts)
+            return model.decode_packed(x_q, counts, grids)
+
+    def alone():
+        with torch.inference_mode():
+            for v, c, g in zip(clips, counts, grids):
+                x_q, _ = model.encode_packed([v], [c])
+                model.decode_packed(x_q, [c], [g])
+
+    pack_ms, alone_ms = _titok_forward_ms(pack), _titok_forward_ms(alone)
+    videos = pack()
+    log(f"[titok bf16] batch 1 (packed, one segment): {ms_b1:.2f} ms = {1e3 / ms_b1:.2f} clips/s; "
+        f"launches {n_b1} (expect 24 each); the three-clip pack (3584 + 3584 tokens) "
+        f"{pack_ms:.2f} ms, its clips alone {alone_ms:.2f} ms (pack / alone "
+        f"{pack_ms / alone_ms:.2f}x); batch 8 {rec['bf16_b8']['clips_per_s']:.2f} clips/s")
+    require(n_b1 == {"flash": 24, "wgmma": 24, "segments": 24},
+            f"titok bf16 batch 1: launches {n_b1}")
+    require(all(tuple(v.shape) == g and torch.isfinite(v).all().item()
+                for v, g in zip(videos, grids)), "titok bf16 pack: videos")
+    rec["bf16_b1"] = {"ms": ms_b1, "clips_per_s": 1e3 / ms_b1, "launches": n_b1}
+    rec["bf16_pack"] = {"pack_ms": pack_ms, "alone_ms": alone_ms, "ratio": pack_ms / alone_ms}
+    records["flash_attn_fwd"]["titok_launches"] = (rec["bf16_b8"]["launches"]["wgmma"]
+                                                   + n_b1["wgmma"])
+    records["flash_attn_fwd"]["titok_segment_launches"] = n_b1["segments"]
+    del model
+    torch.cuda.empty_cache()
+
+
+def _titok_train_parity(tmp: Path, rec: dict) -> None:
+    """Phase 24 (c), first part: one fp32 step at batch 1 (TiTok's packed
+    path; its backward with segment ids on csrc/flash_attn_bwd.cu), card
+    against CPU, at PARITY_DEPTH + PARITY_DEPTH of the 12 + 12 layers."""
+    last = PARITY_DEPTH - 1
+    rec["train_parity"] = _train_step_parity(
+        "titok train fp32", tmp / "titok_fp32", _titok_cfg(tmp, 1, False), PARITY_DEPTH,
+        "12 + 12", SEED + 310, (
+            "encoder.mask_token", "encoder.proj_in.weight", "encoder.blocks.attn_1.to_qkv.weight",
+            f"encoder.blocks.ffd_out_{last}.weight", "decoder.blocks.attn_0.q_norm.weight",
+            f"decoder.blocks.ffd_in_{last}.weight", "decoder.proj_out.weight"))
+
+
+def _titok_train_throughput(tmp: Path, rec: dict, records: dict) -> None:
+    """Phase 24 (c), second part: bf16 at batch 8 through the trainer."""
+    from video_tokenizer_tpu_torch.ops.attention import flash_attn_fwd
+
+    flash_attn_fwd.launches_segments = 0
+    run = _train_throughput("titok train bf16", _titok_cfg(tmp / "titok_bf16", 8, True),
+                            (48, 32, 16), 0)
+    require(flash_attn_fwd.launches_segments == 0,
+            f"titok train: {flash_attn_fwd.launches_segments} flash launches with segment ids")
+    rec["train_bf16"] = {k: run[k] for k in (
+        "s_per_step", "clips_per_s", "peak_gib", "idle", "launches", "busy_ms_per_step",
+        "device_ms_per_step")}
+    for k in ("flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+        records[k]["titok_launches"] = run["launches"][k]
+
+
 def main() -> int:
     if not (ROOT / "video_tokenizer_tpu_torch").is_dir():
         print("chip_smoke.py: the video_tokenizer_tpu_torch package is not beside this script",
@@ -5257,6 +5689,7 @@ def main() -> int:
         run(phase_stat_lattice, Path(tmp), records)
         run(phase_prior, Path(tmp), records)
         run(phase_trainer_basic, Path(tmp), records)
+        run(phase_titok, Path(tmp), records)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 
     sources = {
@@ -5320,6 +5753,7 @@ def main() -> int:
         "larp_sq", "larp_fsq", "stat", "train_stat_bf16", "train_sq_bf16", "vq_argmax_leech")}}))
     print(json.dumps({"prior": records["prior"]}))
     print(json.dumps({"trainer_basic": records["trainer_basic"]}))
+    print(json.dumps({"titok": records["titok"]}))
     print(json.dumps({"sampling_tokens_per_s": records["sampling"],
                       "sampling_device_step_ms": records["sampling_device_step_ms"],
                       "sampling_kernels_per_step": records["sampling_kernels_per_step"],

@@ -7,7 +7,9 @@ be. `attention_tiled_reference`, `attention_bwd_dq_tiled_reference` and
 PyTorch: their tile sizes, exp2 with log2(e) folded into the scale, the mask
 value kept in the natural-log domain on the tiles that need a mask, P and dS
 rounded to the input dtype before their products, the causal tile skips, the
-rule for rows that see no key, the natural-log LSE. Here they are held
+rule for rows that see no key, the natural-log LSE, and with segment ids the
+forward's masked path per warpgroup and its window of key tiles per block.
+Here they are held
   (a) against the plain versions `attention_reference` /
       `attention_bwd_reference` (which the kernels are held against on the
       card by chip_smoke.py): fp32 1e-5 (sums in another order, exp2 for exp),
@@ -16,7 +18,11 @@ rule for rows that see no key, the natural-log LSE. Here they are held
       LSE 1e-5 and exactly the mask value on rows that see no key;
   (b) against the JAX package's Pallas kernels in interpret mode, on the same
       numpy-seeded inputs, with the tolerances and exclusions of
-      tests/test_torch_ops.py and tests/test_torch_attention_bwd.py.
+      tests/test_torch_ops.py and tests/test_torch_attention_bwd.py;
+  (c) with one id tensor for queries and keys (a packed sequence with a
+      ragged tail of -1, the prior's prefill with non-contiguous ids under
+      causal), the windowed forward against the same forward over every key
+      tile, bit for bit, and the windows against the ids they are made of.
 The rule that picks a kernel for a call is pure Python and is held here too.
 """
 import sys
@@ -33,6 +39,7 @@ import video_tokenizer_tpu.ops.attention  # noqa: F401
 from video_tokenizer_tpu_torch.ops.attention import (
     DEFAULT_MASK_VALUE, attention_bwd_dkv_tiled_reference, attention_bwd_dq_tiled_reference,
     attention_bwd_reference, attention_reference, attention_tiled_reference, flash_kernels,
+    segment_key_windows,
 )
 from video_tokenizer_tpu_torch.ops.decode_attention import chunk_kernel
 
@@ -49,7 +56,9 @@ def interpret_mode():
         _ATT._INTERPRET = False
 
 
-# (name, B, Sq, Sk, H, Hkv, D, causal, causal_offset, segments)
+# (name, B, Sq, Sk, H, Hkv, D, causal, causal_offset, segments): segments False,
+# "no_match" (distinct query and key ids, a query in a segment no key has),
+# "pack" or "prefill" (one id tensor for both, see _segments)
 CASES = [
     ("flagship_like", 1, 256, 256, 2, 2, 64, False, None, False),
     ("ragged_257_d32", 2, 257, 257, 2, 2, 32, False, None, False),  # S = 1025-like
@@ -59,10 +68,15 @@ CASES = [
     # keys such a row would otherwise average over too
     ("causal_negative_offset", 1, 256, 256, 2, 2, 64, True, -70, False),
     ("gqa_4_over_2", 1, 256, 256, 4, 2, 64, False, None, False),
-    ("segments_no_match", 2, 256, 256, 2, 2, 64, False, None, True),
+    ("segments_no_match", 2, 256, 256, 2, 2, 64, False, None, "no_match"),
     ("causal_ragged_d32", 1, 200, 300, 2, 2, 32, True, None, False),
     ("edge_129_257", 1, 129, 257, 2, 2, 64, False, None, False),  # one row past a 128-row block
+    # TiTok's packed sequence: three clips and a tail of padding (id -1), GQA
+    ("segments_pack", 1, 256, 256, 4, 2, 64, False, None, "pack"),
+    # the prior's prefill with `emb_masks`: ids 0 and -5 in no order, causal
+    ("segments_prefill_causal", 2, 256, 256, 2, 2, 64, True, None, "prefill"),
 ]
+SHARED = [c for c in CASES if c[9] in ("pack", "prefill")]
 IDS = [c[0] for c in CASES]
 
 
@@ -72,12 +86,26 @@ def _inputs(seed, B, Sq, Sk, H, Hkv, D):
             rng.randn(B, Sk, Hkv, D).astype(np.float32), rng.randn(B, Sq, H, D).astype(np.float32))
 
 
-def _segments(B, Sq, Sk):
-    """(query ids, key ids): two segments, and query 5 in a segment no key has."""
-    k_seg = np.where(np.arange(Sk)[None, :] < Sk // 3, 0, 1).repeat(B, 0).astype(np.int32)
-    q_seg = np.where(np.arange(Sq)[None, :] < Sq // 3, 0, 1).repeat(B, 0).astype(np.int32)
-    q_seg[:, 5] = 7
-    return q_seg, k_seg
+def _segments(kind, B, Sq, Sk, seed=0):
+    """(query ids, key ids). "no_match": two segments, and query 5 in a
+    segment no key has; "pack": segments of 120, 70 and 40 tokens, then -1
+    (the padding of `pack_segments`), the same ids for queries and keys;
+    "prefill": 0 on valid prompt positions and -5 on the others, drawn per
+    row (`where(cond_mask, 0, -5)`), the same for queries and keys."""
+    if kind == "no_match":
+        k_seg = np.where(np.arange(Sk)[None, :] < Sk // 3, 0, 1).repeat(B, 0).astype(np.int32)
+        q_seg = np.where(np.arange(Sq)[None, :] < Sq // 3, 0, 1).repeat(B, 0).astype(np.int32)
+        q_seg[:, 5] = 7
+        return q_seg, k_seg
+    assert Sq == Sk
+    if kind == "pack":
+        ids = np.full(Sq, -1, np.int32)
+        ids[:120], ids[120:190], ids[190:230] = 0, 1, 2
+        ids = ids[None].repeat(B, 0)
+    else:
+        valid = np.random.RandomState(seed + 50).rand(B, Sq) < 0.85
+        ids = np.where(valid, 0, -5).astype(np.int32)
+    return ids, ids
 
 
 def _case(case, dtype, seed=0):
@@ -85,8 +113,10 @@ def _case(case, dtype, seed=0):
     _, B, Sq, Sk, H, Hkv, D, causal, offset, with_seg = case
     arrays = _inputs(seed, B, Sq, Sk, H, Hkv, D)
     q, k, v, do = (torch.from_numpy(x).to(dtype) for x in arrays)
-    seg = _segments(B, Sq, Sk) if with_seg else None
+    seg = _segments(with_seg, B, Sq, Sk, seed) if with_seg else None
     q_seg, k_seg = (None, None) if seg is None else map(torch.from_numpy, seg)
+    if with_seg in ("pack", "prefill"):
+        k_seg = None  # one id tensor for queries and keys: the kernels' windows
     args = (causal, q_seg, k_seg, None, offset)
     sees_key = np.ones(Sq, bool)
     if causal:
@@ -286,12 +316,18 @@ EARLIER = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
 TF32X3 = ("flash_fwd_tf32x3_kernel", "flash_bwd_dq_tf32x3_kernel", "flash_bwd_dkv_tf32x3_kernel")
 
 
+# the forward takes segment ids on the tensor cores; their backward stays on
+# the earlier kernels (csrc/flash_attn_bwd.cu)
+SM90_SEG = (SM90[0],) + EARLIER[1:]
+TF32X3_SEG = (TF32X3[0],) + EARLIER[1:]
+
+
 @pytest.mark.parametrize("dtype, head_dim, has_segments, want", [
     (torch.bfloat16, 64, False, SM90),   # the tokenizer, the prior, the draft
     (torch.bfloat16, 32, False, SM90),   # the discriminator
     (torch.bfloat16, 128, False, EARLIER),
-    (torch.bfloat16, 64, True, EARLIER),
-    (torch.bfloat16, 32, True, EARLIER),
+    (torch.bfloat16, 64, True, SM90_SEG),  # TiTok's packed sequences, the prefill's emb_masks
+    (torch.bfloat16, 32, True, SM90_SEG),
     (torch.float32, 64, False, TF32X3),  # fp32 training: the tokenizer, the prior
     (torch.float32, 32, False, TF32X3),  # the discriminator in fp32
     # causal masks choose nothing: the AR trainer (causal GQA, D = 64) and a
@@ -299,11 +335,61 @@ TF32X3 = ("flash_fwd_tf32x3_kernel", "flash_bwd_dq_tf32x3_kernel", "flash_bwd_dk
     pytest.param(torch.float32, 64, False, TF32X3, id="fp32-64-causal-ar-trainer"),
     pytest.param(torch.float32, 32, False, TF32X3, id="fp32-32-causal"),
     (torch.float32, 128, True, EARLIER),
-    (torch.float32, 64, True, EARLIER),
+    (torch.float32, 64, True, TF32X3_SEG),  # TiTok in fp32
+    (torch.float32, 32, True, TF32X3_SEG),
     (torch.float32, 128, False, EARLIER),
+    (torch.bfloat16, 128, True, EARLIER),
 ])
 def test_the_kernel_is_chosen_by_dtype_head_dim_and_masks(dtype, head_dim, has_segments, want):
     assert flash_kernels(dtype, head_dim, has_segments) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", SHARED, ids=[c[0] for c in SHARED])
+def test_windowed_forward_equals_the_forward_over_every_tile(case, dtype):
+    """The key tiles a block's window leaves out hold no key equal to any of
+    its rows: their terms are exp(mask - max) = 0 and the windowed forward
+    is the forward over every tile, bit for bit (out and LSE)."""
+    (q, k, v, _), args, _, _ = _case(case, dtype)
+    got, got_lse = attention_tiled_reference(q, k, v, *args)
+    want, want_lse = attention_tiled_reference(q, k, v, *args, windows=False)
+    assert torch.equal(got, want) and torch.equal(got_lse, want_lse)
+
+
+@pytest.mark.parametrize("block_m, block_n", [(128, 64), (64, 64)])
+def test_segment_windows_hold_every_matching_key(block_m, block_n):
+    """`segment_key_windows` on packs of clips (TiTok's three-clip pack of
+    2048 + 1024 + 512 tokens, and ragged lengths with a tail of -1): every key
+    whose id equals a row's id lies in its block's window, and the windows
+    cover fewer tiles than every block times every tile."""
+    for lens, pad in (((2048, 1024, 512), 0), ((300, 77, 129), 94)):
+        ids = np.concatenate([np.full(n, i) for i, n in enumerate(lens)] + [np.full(pad, -1)])
+        S = len(ids)
+        lo, hi = (x[0].numpy() for x in segment_key_windows(torch.from_numpy(ids)[None],
+                                                            block_m, block_n))
+        nb, nt = -(-S // block_m), -(-S // block_n)
+        assert lo.shape == (nb,) and (lo < hi).all() and (hi <= nt).all()
+        for i in range(nb):
+            rows = ids[i * block_m:(i + 1) * block_m]
+            keys = np.flatnonzero(np.isin(ids, rows))
+            assert keys.min() // block_n >= lo[i] and keys.max() // block_n < hi[i]
+        assert (hi - lo).sum() < nb * nt
+        if pad == 0 and (block_m, block_n) == (128, 64):
+            # the clips' own tiles only: 2048^2 + 1024^2 + 512^2 of 3584^2 pairs
+            assert (hi - lo).sum() * block_m * block_n == sum(n * n for n in lens)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_one_segment_id_runs_the_arithmetic_without_ids(causal, dtype):
+    """Ids that are one value everywhere (a batch of one packed, the prefill
+    with every prompt position valid) take the same tiles and the same fast
+    and masked paths as no ids at all: the outputs are equal bit for bit."""
+    (q, k, v, _), _, _, _ = _case(CASES[IDS.index("flagship_like")], dtype, seed=5)
+    ids = torch.zeros(q.shape[:2], dtype=torch.int32)
+    got, got_lse = attention_tiled_reference(q, k, v, causal, ids)
+    want, want_lse = attention_tiled_reference(q, k, v, causal)
+    assert torch.equal(got, want) and torch.equal(got_lse, want_lse)
 
 
 @pytest.mark.parametrize("cache_dtype, head_dim, want", [

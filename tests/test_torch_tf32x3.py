@@ -1,7 +1,8 @@
 """The arithmetic of the port's 3xTF32 flash forward, on the CPU.
 
-`csrc/flash_attn_fwd_tf32x3.cu` (fp32, head dim 32 or 64, no segment ids)
-runs both products of attention on the tensor cores as three TF32 products:
+`csrc/flash_attn_fwd_tf32x3.cu` (fp32, head dim 32 or 64, with or without
+segment ids) runs both products of attention on the tensor cores as three
+TF32 products:
 each fp32 operand is split into a TF32 high and low part
 (`csrc/sm90.cuh::split_tf32`: hi rounded as `cvt.rna.tf32.f32` rounds, lo
 truncated as the tensor core reads it) and a product is lo.hi + hi.lo +
@@ -24,7 +25,13 @@ other operands). Held here:
       `_fwd_kernel_packed` (through `attention`, where the packed layout is
       eligible: H * D a multiple of 128), 1e-5;
   (d) one TF32 product is not enough: its error is hundreds of times the
-      three products'.
+      three products';
+  (e') with segment ids (a packed sequence with a tail of -1 and GQA, the
+      prior's causal prefill with non-contiguous ids, a query that matches
+      no key), against the plain version and both JAX forwards as in (b)
+      and (c), and, where one id tensor serves queries and keys, the
+      windowed forward against the forward over every key tile, bit for bit;
+      bf16 refused.
 The same for the 3xTF32 backward kernels (`csrc/flash_attn_bwd_dq_tf32x3.cu`,
 `csrc/flash_attn_bwd_dkv_tf32x3.cu`): `attention_bwd_dq_tf32x3_tiled_reference`
 and `attention_bwd_dkv_tf32x3_tiled_reference` repeat their arithmetic (every
@@ -183,13 +190,100 @@ def test_tf32x3_tiled_forward_does_not_depend_on_the_tiles(block_m, block_n):
 
 
 def test_tf32x3_tiled_forward_takes_fp32_without_segment_ids_only():
+    """The kernel takes fp32 only, and since it took segment ids the tiled
+    reference takes them too: bf16 is refused, ids are not (an id tensor of
+    one value gives the forward without ids, bit for bit)."""
     (q, k, v), args, _ = _case(CASES[0])
     q, k, v = map(torch.from_numpy, (q, k, v))
     with pytest.raises(ValueError):
         attention_tf32x3_tiled_reference(q.bfloat16(), k.bfloat16(), v.bfloat16())
     seg = torch.zeros(q.shape[:2], dtype=torch.int32)
-    with pytest.raises(ValueError):
-        attention_tf32x3_tiled_reference(q, k, v, False, seg, seg)
+    got, got_lse = attention_tf32x3_tiled_reference(q, k, v, False, seg, seg)
+    want, want_lse = attention_tf32x3_tiled_reference(q, k, v)
+    assert torch.equal(got, want) and torch.equal(got_lse, want_lse)
+
+
+# (name, B, S, H, Hkv, D, causal, ids): fp32 with segment ids. "pack" is
+# TiTok's packed sequence (clips of 120, 70 and 40 tokens and a tail of -1,
+# one id tensor for queries and keys), "prefill" the prior's prompt with
+# `emb_masks` (0 and -5 in no order, causal, one tensor), "no_match" distinct
+# query and key ids with query 5 in a segment no key has
+SEG_CASES = [
+    ("pack_gqa", 1, 256, 4, 2, 64, False, "pack"),
+    ("prefill_causal", 2, 256, 2, 2, 64, True, "prefill"),
+    # S a multiple of the JAX kernel's block, whose padded keys a row that
+    # matches no key would otherwise average over too
+    ("no_match_d32", 2, 256, 2, 2, 32, False, "no_match"),
+]
+SEG_IDS = [c[0] for c in SEG_CASES]
+
+
+def _seg_case(case, seed=0):
+    """fp32 q, k, v, (query ids, key ids or None for one tensor), causal, and
+    the rows that see a key."""
+    _, B, S, H, Hkv, D, causal, kind = case
+    rng = np.random.RandomState(seed)
+    q, k, v = (rng.randn(B, S, h, D).astype(np.float32) for h in (H, Hkv, Hkv))
+    if kind == "pack":
+        ids = np.full(S, -1, np.int32)
+        ids[:120], ids[120:190], ids[190:230] = 0, 1, 2
+        q_seg, k_seg = ids[None].repeat(B, 0), None
+    elif kind == "prefill":
+        q_seg, k_seg = np.where(rng.rand(B, S) < 0.85, 0, -5).astype(np.int32), None
+    else:
+        k_seg = np.where(np.arange(S) < S // 3, 0, 1)[None].repeat(B, 0).astype(np.int32)
+        q_seg = k_seg.copy()
+        q_seg[:, 5] = 7
+    sees_key = (q_seg[0][:, None] == (q_seg if k_seg is None else k_seg)[0][None]).any(1)
+    return (q, k, v), (q_seg, k_seg), causal, sees_key
+
+
+def _torch_ids(ids):
+    return tuple(None if x is None else torch.from_numpy(x) for x in ids)
+
+
+@pytest.mark.parametrize("case", SEG_CASES, ids=SEG_IDS)
+def test_tf32x3_tiled_forward_with_segment_ids_matches_plain(case):
+    (q, k, v), ids, causal, sees_key = _seg_case(case)
+    q, k, v = map(torch.from_numpy, (q, k, v))
+    args = (causal, *_torch_ids(ids))
+    want, want_lse = attention_reference(q, k, v, *args)
+    got, got_lse = attention_tf32x3_tiled_reference(q, k, v, *args)
+    assert torch.isfinite(got).all() and torch.isfinite(got_lse).all()
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    np.testing.assert_allclose(got_lse.numpy(), want_lse.numpy(), atol=1e-5, rtol=1e-6)
+    blind = torch.from_numpy(~sees_key)
+    assert blind.any() == (case[7] == "no_match")
+    assert (got_lse[:, :, blind] == np.float32(DEFAULT_MASK_VALUE)).all()
+
+
+@pytest.mark.parametrize("case", SEG_CASES, ids=SEG_IDS)
+def test_tf32x3_tiled_forward_with_segment_ids_matches_jax_pallas(case, interpret_mode):
+    """fp32 on both sides, in interpret mode: the JAX package's `_fwd_kernel`
+    (through `attention_with_lse`) and its inference entry (`attention`: the
+    lane-packed `_fwd_kernel_packed` where H * D is a multiple of 128), 1e-5."""
+    (q, k, v), (q_seg, k_seg), causal, _ = _seg_case(case, seed=1)
+    got, got_lse = attention_tf32x3_tiled_reference(
+        *map(torch.from_numpy, (q, k, v)), causal, *_torch_ids((q_seg, k_seg)))
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    kw = dict(causal=causal, segment_ids=jnp.asarray(q_seg),
+              kv_segment_ids=None if k_seg is None else jnp.asarray(k_seg), use_pallas=True)
+    want, want_lse = _ATT.attention_with_lse(jq, jk, jv, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), atol=1e-5, rtol=1e-6)
+    packed = _ATT.attention(jq, jk, jv, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(packed), atol=1e-5)
+
+
+@pytest.mark.parametrize("case", SEG_CASES[:2], ids=SEG_IDS[:2])
+def test_tf32x3_windowed_forward_equals_the_forward_over_every_tile(case):
+    """One id tensor for queries and keys: each 64-row block visits only its
+    window of key tiles, which changes no bit of out or LSE."""
+    (q, k, v), ids, causal, _ = _seg_case(case, seed=2)
+    args = (*map(torch.from_numpy, (q, k, v)), causal, *_torch_ids(ids))
+    got, got_lse = attention_tf32x3_tiled_reference(*args)
+    want, want_lse = attention_tf32x3_tiled_reference(*args, windows=False)
+    assert torch.equal(got, want) and torch.equal(got_lse, want_lse)
 
 
 @pytest.mark.parametrize("case", CASES, ids=IDS)

@@ -487,8 +487,9 @@ def tune_flash_fp32():
                 stream = torch.cuda.current_stream().cuda_stream
 
                 def run():
-                    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
-                              B, H, H, S, S, D, *strides, int(causal), 0, D ** -0.5, stream)
+                    code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None,
+                              out.data_ptr(), None, B, H, H, S, S, D, *strides, int(causal), 0,
+                              0, D ** -0.5, stream)
                     assert code == 0, code
 
                 ms = c.median_ms(run)

@@ -1,7 +1,8 @@
 // Flash-attention forward for Hopper (sm_90a), bf16 and fp32: the kernel for
-// head dim 128 and segment ids. At head dim 32 or 64 without segment ids
-// (every flash shape of the tokenizer, the discriminator, the prior and the
-// draft) bf16 runs csrc/flash_attn_fwd_sm90.cu (wgmma) and fp32
+// head dim 128. At head dim 32 or 64, with or without segment ids (every
+// flash shape of the tokenizers, the discriminator, the prior and the draft,
+// TiTok's packed sequences and the prior's prefill with `emb_masks` among
+// them) bf16 runs csrc/flash_attn_fwd_sm90.cu (wgmma) and fp32
 // csrc/flash_attn_fwd_tf32x3.cu (three TF32 products on the tensor cores)
 // instead, which compute the same function; ops/attention.py::flash_kernels
 // chooses, by dtype, head dim and masks only.
@@ -37,7 +38,7 @@
 // against 4 * S * D * sizeof(T) bytes of q/k/v/o, hundreds of flops per byte:
 // operations, at every shape it is given. With fp32 inputs those are fp32 FMAs
 // on the CUDA cores (67 TFLOP/s on this card). What this simple design leaves
-// on the table for the shapes it still takes (D = 128, segment ids): no
+// on the table for the shapes it still takes (D = 128): no
 // wgmma, no asynchronous tile ring (each tile load stalls the block), V
 // fragments gathered with 16-bit shared loads, expf instead of exp2 with a
 // folded log2(e): what csrc/flash_attn_fwd_sm90.cu does for its shapes.

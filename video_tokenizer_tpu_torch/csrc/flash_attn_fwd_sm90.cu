@@ -1,16 +1,17 @@
 // Flash-attention forward for Hopper (sm_90a), bf16, head dim 32 or 64, with
 // warpgroup matrix products (wgmma) and an asynchronous ring of K/V tiles.
 //
-// Replaces, for bf16 inputs without segment ids, the same two TPU kernels as
-// csrc/flash_attn_fwd.cu (which keeps fp32, D = 128 and segment ids):
+// Replaces, for bf16 inputs with or without segment ids, the same two TPU
+// kernels as csrc/flash_attn_fwd.cu (which keeps head dim 128):
 //   * video_tokenizer_tpu/ops/attention.py::_fwd_kernel_packed, and
 //   * video_tokenizer_tpu/ops/attention.py::_fwd_kernel (with the fp32 LSE).
 // The semantics are those stated at the head of csrc/flash_attn_fwd.cu and
 // held against attention_reference in ops/attention.py: fp32 scores, masked
 // pairs at -0.7 * FLT_MAX (a query that sees no key attends uniformly), keys
-// past Sk are no keys, causal with an offset, GQA, P rounded to bf16 for
-// P.V, fp32 running max / sum / accumulator, strided q/k/v read in place,
-// out [B, Sq, H, D] contiguous, LSE [B, H, Sq] in natural log.
+// past Sk are no keys, causal with an offset, segment ids (a pair attends iff
+// its ids are equal), GQA, P rounded to bf16 for P.V, fp32 running max / sum /
+// accumulator, strided q/k/v read in place, out [B, Sq, H, D] contiguous, LSE
+// [B, H, Sq] in natural log.
 //
 // What bounds it: at the flagship shape (S = 2048, D = 64) attention does
 // ~1000 flops per byte, so the tensor cores bound it, closely followed by the
@@ -18,6 +19,9 @@
 // flops at D = 64, and the card's exp rate is ~1/256 of its bf16 matmul rate;
 // the softmax's other fp32 work per score (max, scale, sum, rounding) is of
 // the same order again. A kernel is fast here only if the three overlap.
+// With segment ids the bound is the operations on the key tiles a block
+// visits (4 D flops a visible score pair, not 4 D Sq Sk): a packed sequence of
+// clips of L_i tokens has sum L_i^2 visible pairs of (sum L_i)^2.
 // What the design does about it:
 //   * a block owns 128 query rows, one warpgroup per 64 rows, and two blocks
 //     share an SM (at most 128 registers a thread, 65 KB of shared memory),
@@ -34,12 +38,27 @@
 //     O += P.V, with V read MN-major from the same row tile (no transpose);
 //   * the softmax runs on exp2 with log2(e) folded into the scale: one FMA
 //     and one ex2 per score on tiles that need no mask. Tiles that do (the
-//     causal diagonal, the ragged last tile) keep the mask value in the
-//     natural-log domain, (x - max) * log2(e), so that -0.7 * FLT_MAX never
-//     meets the folded scale (it would overflow to -inf and turn a row that
-//     sees no key into NaN);
+//     causal diagonal, the ragged last tile, keys whose segment id differs
+//     from a row's) keep the mask value in the natural-log domain, (x - max) *
+//     log2(e), so that -0.7 * FLT_MAX never meets the folded scale (it would
+//     overflow to -inf and turn a row that sees no key into NaN);
 //   * causal blocks skip key tiles past their last visible key (each
 //     warpgroup its own) and start with the longest rows.
+// Segment ids (the kSeg instance; the instance without them is the kernel as
+// it was before they came here): each key tile's ids come into shared memory
+// with the tile, through the same ring (4-byte cp.async copies). A tile takes
+// the masked path for a warpgroup unless every one of its keys has the id that
+// all the warpgroup's rows share, so a sequence with one id everywhere runs
+// the same tiles and the same arithmetic as without ids. Where one id tensor
+// serves queries and keys (`seg_window`, set by the wrapper: every query then
+// matches at least its own key), each block first reads all Sk key ids and
+// visits only the key tiles from the first to the last that holds a key whose
+// id lies in [min, max] of its rows' ids: the tiles it skips hold no key
+// equal to any of its rows, whose terms would be exp(mask - max) = 0 exactly,
+// so the result is the same bit for bit, and the ring stays a contiguous range
+// of tiles. Causal composes with it (every row sees its own key). With
+// distinct query and key ids (a row may match no key and then needs all Sk
+// keys) every tile is visited.
 // What was measured against it and lost (PERF.md has the numbers): 128-key
 // tiles and four-warpgroup blocks (one block per SM: fewer independent
 // warpgroups), one warpgroup per block (twice the tile traffic), Q read from
@@ -69,6 +88,8 @@ struct Params {
   const __nv_bfloat16* q;
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
+  const int* q_seg;    // [B, Sq] or null
+  const int* k_seg;    // [B, Sk] or null
   __nv_bfloat16* out;  // [B, Sq, H, D], contiguous
   float* lse;          // [B, H, Sq] or null
   int B, H, Hkv, Sq, Sk;
@@ -76,6 +97,7 @@ struct Params {
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
   int causal, causal_offset;
+  int seg_window;  // q_seg is k_seg: visit only the key tiles a block's ids can match
   float sm_scale;
 };
 
@@ -90,10 +112,15 @@ constexpr int kBlockM = kWG * 64;
 constexpr int kAhead = kStages - 1;  // tiles in flight ahead of the one being read
 constexpr int kTileBytes = kBlockN * kRowBytes;  // one K or V tile
 constexpr int kStageBytes = 2 * kTileBytes;
-// + kAtomBytes: the dynamic shared memory's start is aligned by hand
-constexpr int kSmemBytes = kStages * kStageBytes + kAtomBytes;
+// + kAtomBytes: the dynamic shared memory's start is aligned by hand; with
+// segment ids, each stage's kBlockN key ids and the prologue's per-warp
+// minima and maxima follow the ring
+constexpr int kRingBytes = kStages * kStageBytes + kAtomBytes;
+constexpr int kSegBytes = (kStages * kBlockN + 4 * kThreads / 32) * 4;
+template <bool kSeg>
+constexpr int smem_bytes() { return kRingBytes + (kSeg ? kSegBytes : 0); }
 
-template <int D>
+template <int D, bool kSeg>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 flash_fwd_sm90_kernel(const Params p) {
   constexpr int kSRegs = kBlockN / 2;  // score accumulator registers per thread
@@ -101,6 +128,9 @@ flash_fwd_sm90_kernel(const Params p) {
 
   extern __shared__ unsigned char smem_raw[];
   const uint32_t sKV = (smem_addr(smem_raw) + kAtomBytes - 1) & ~(uint32_t)(kAtomBytes - 1);
+  // segment ids: [kStages][kBlockN] key ids after the ring, then the prologue's scratch
+  int* const sSeg = reinterpret_cast<int*>(smem_raw + kRingBytes);
+  const uint32_t sSegAddr = smem_addr(sSeg);
 
   // causal: the blocks with the most visible keys start first
   const int q_tile = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
@@ -117,15 +147,27 @@ flash_fwd_sm90_kernel(const Params p) {
   const __nv_bfloat16* qb = p.q + b * p.q_sb + h * p.q_sh;
   const __nv_bfloat16* kb = p.k + b * p.k_sb + hk * p.k_sh;
   const __nv_bfloat16* vb = p.v + b * p.v_sb + hk * p.v_sh;
+  const int* ks = kSeg ? p.k_seg + (long long)b * p.Sk : nullptr;
 
-  int num_tiles = (p.Sk + kBlockN - 1) / kBlockN;
+  int t_begin = 0;
+  int t_end = (p.Sk + kBlockN - 1) / kBlockN;
+  // segment ids: this thread's rows' ids, the warpgroup's [min, max], the window
+  int qseg[2] = {0, 0};
+  int wg_lo = 0, wg_hi = -1;
+  if constexpr (kSeg) {
+    segment_prologue<kThreads / 32, 4, kBlockN>(
+        p.q_seg + (long long)b * p.Sq, ks, p.Sq, p.Sk, qr, p.seg_window,
+        sSeg + kStages * kBlockN, qseg, wg_lo, wg_hi, t_begin, t_end);
+  }
+  const bool wg_uniform = kSeg && wg_lo == wg_hi;  // one id for all the warpgroup's rows
   // Causal: skip key tiles past the block's last visible key, but only where
-  // every row of the block sees key 0, so that no fully masked row (which
-  // attends uniformly over ALL keys) loses keys it should average over.
-  const bool rows_see_key0 = p.causal && q0 + p.causal_offset >= 0;
-  if (rows_see_key0) {
+  // every row of the block sees a key that is kept (key 0 without segment
+  // ids, its own key in a window), so that no fully masked row (which attends
+  // uniformly over ALL keys) loses keys it should average over.
+  const bool causal_cap = p.causal && (kSeg ? p.seg_window != 0 : q0 + p.causal_offset >= 0);
+  if (causal_cap) {
     const int last_key = q0 + kBlockM - 1 + p.causal_offset;
-    num_tiles = min(num_tiles, last_key / kBlockN + 1);
+    t_end = min(t_end, last_key / kBlockN + 1);
   }
 
   const RowTileLoader<D, kBlockN, kThreads> k_loader(kb, p.k_ss, p.Sk), v_loader(vb, p.v_ss, p.Sk);
@@ -133,23 +175,30 @@ flash_fwd_sm90_kernel(const Params p) {
     const uint32_t dst = sKV + (t % kStages) * kStageBytes;
     k_loader.load(dst, t * kBlockN);
     v_loader.load(dst + kTileBytes, t * kBlockN);
+    if constexpr (kSeg) {
+      const int key = t * kBlockN + threadIdx.x;
+      if (threadIdx.x < kBlockN) {
+        cp_async4(sSegAddr + ((t % kStages) * kBlockN + threadIdx.x) * 4, key < p.Sk ? ks + key : ks,
+                  key < p.Sk ? 4 : 0);
+      }
+    }
   };
 
   // prologue: Q, this thread's share of its warp's 16 query rows as register A
   // fragments, and the first kAhead tiles, one commit group per tile
   uint32_t qf[D / 16][4];
 #pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks)
+  for (int ks_ = 0; ks_ < D / 16; ++ks_)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int row = qr[j & 1], col = ks * 16 + tig * 2 + (j >> 1) * 8;
-      qf[ks][j] = row < p.Sq
-                      ? *reinterpret_cast<const uint32_t*>(qb + (long long)row * p.q_ss + col)
-                      : 0u;
+      const int row = qr[j & 1], col = ks_ * 16 + tig * 2 + (j >> 1) * 8;
+      qf[ks_][j] = row < p.Sq
+                       ? *reinterpret_cast<const uint32_t*>(qb + (long long)row * p.q_ss + col)
+                       : 0u;
     }
 #pragma unroll
   for (int t = 0; t < kAhead; ++t) {
-    if (t < num_tiles) load_kv(t);
+    if (t_begin + t < t_end) load_kv(t_begin + t);
     cp_async_commit();
   }
 
@@ -166,10 +215,22 @@ flash_fwd_sm90_kernel(const Params p) {
   // Online softmax of the score tile at key k0, in place: s becomes P (fp32),
   // m_run and l_run move on, alpha is what O must be scaled by before this
   // tile's P.V is added. d[i]: row qr[(i >> 1) & 1], key k0 + 8 (i / 4) + 2 tig + (i & 1).
-  auto softmax_tile = [&](int k0, float (&alpha)[2]) {
-    const bool masked_tile =
+  // With segment ids, `kid` holds the tile's key ids.
+  auto softmax_tile = [&](int k0, const int* kid, float (&alpha)[2]) {
+    bool masked_tile =
         k0 + kBlockN > p.Sk || p.sm_scale <= 0.f ||
         (p.causal && k0 + kBlockN - 1 > wg_row0 + p.causal_offset);
+    if constexpr (kSeg) {
+      // the fast path only where every key of the tile has the warpgroup's one
+      // id (each quad reads all kBlockN ids, so the vote is the warpgroup's)
+      bool same = wg_uniform;
+#pragma unroll
+      for (int j = 0; j < kBlockN / 8; ++j) {
+        const int2 id = *reinterpret_cast<const int2*>(kid + 8 * j + 2 * tig);
+        same = same && id.x == wg_lo && id.y == wg_lo;
+      }
+      masked_tile = masked_tile || !__all_sync(0xffffffffu, same);
+    }
     float mx[2] = {-INFINITY, -INFINITY};
     if (masked_tile) {
 #pragma unroll
@@ -179,7 +240,8 @@ flash_fwd_sm90_kernel(const Params p) {
         float x = s[i] * p.sm_scale;
         if (key >= p.Sk) {
           x = -INFINITY;  // past the end: not a key at all
-        } else if (p.causal && qr[r] + p.causal_offset < key) {
+        } else if ((p.causal && qr[r] + p.causal_offset < key) ||
+                   (kSeg && qseg[r] != kid[8 * (i >> 2) + 2 * tig + (i & 1)])) {
           x = kMaskValue;
         }
         s[i] = x;
@@ -233,7 +295,8 @@ flash_fwd_sm90_kernel(const Params p) {
   };
   auto start_qk = [&](uint64_t desc_k) {
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) wgmma_rs<0>(s, qf[ks], desc_k + ks * kStepKMajor, ks > 0);
+    for (int ks_ = 0; ks_ < D / 16; ++ks_)
+      wgmma_rs<0>(s, qf[ks_], desc_k + ks_ * kStepKMajor, ks_ > 0);
   };
   auto start_pv = [&](uint64_t desc_v) {
 #pragma unroll
@@ -242,10 +305,10 @@ flash_fwd_sm90_kernel(const Params p) {
   };
 
   // tiles this warpgroup multiplies: those after its last visible key give P = 0
-  int wg_tiles = num_tiles;
-  if (rows_see_key0) wg_tiles = min(num_tiles, (wg_row0 + 63 + p.causal_offset) / kBlockN + 1);
+  int wg_tiles = t_end;
+  if (causal_cap) wg_tiles = min(t_end, (wg_row0 + 63 + p.causal_offset) / kBlockN + 1);
 
-  for (int t = 0; t < num_tiles; ++t) {
+  for (int t = t_begin; t < t_end; ++t) {
     // tile t has landed (this thread's copies), is published to the wgmma
     // proxy, and after the barrier every thread's copies have; the barrier
     // also says that the tiles before t are no longer read, so the oldest
@@ -253,7 +316,7 @@ flash_fwd_sm90_kernel(const Params p) {
     cp_async_wait<kAhead - 1>();
     fence_async_proxy();
     __syncthreads();
-    if (t + kAhead < num_tiles) load_kv(t + kAhead);
+    if (t + kAhead < t_end) load_kv(t + kAhead);
     cp_async_commit();
     if (t >= wg_tiles) continue;
 
@@ -265,7 +328,7 @@ flash_fwd_sm90_kernel(const Params p) {
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
-    softmax_tile(t * kBlockN, alpha);
+    softmax_tile(t * kBlockN, sSeg + (t % kStages) * kBlockN, alpha);
     rescale_and_pack(alpha);
     fence_regs(o);
     wgmma_fence();
@@ -301,31 +364,33 @@ flash_fwd_sm90_kernel(const Params p) {
   }
 }
 
-template <int D>
+template <int D, bool kSeg>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  auto kernel = flash_fwd_sm90_kernel<D>;
+  auto kernel = flash_fwd_sm90_kernel<D, kSeg>;
   // above 48 KB only as opted-in dynamic shared memory
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem_bytes<kSeg>());
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sq + kBlockM - 1) / kBlockM, p.H, p.B);
-  kernel<<<grid, kThreads, kSmemBytes, stream>>>(p);
+  kernel<<<grid, kThreads, smem_bytes<kSeg>(), stream>>>(p);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int vtt_flash_attn_fwd_sm90(
-    const void* q, const void* k, const void* v, void* out, float* lse,
-    int B, int H, int Hkv, int Sq, int Sk, int D,
+    const void* q, const void* k, const void* v, const int* q_seg, const int* k_seg, void* out,
+    float* lse, int B, int H, int Hkv, int Sq, int Sk, int D,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
-    int causal, int causal_offset, float sm_scale, void* stream) {
+    int causal, int causal_offset, int seg_window, float sm_scale, void* stream) {
   Params p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
   p.v = static_cast<const __nv_bfloat16*>(v);
+  p.q_seg = q_seg;
+  p.k_seg = k_seg;
   p.out = static_cast<__nv_bfloat16*>(out);
   p.lse = lse;
   p.B = B; p.H = H; p.Hkv = Hkv; p.Sq = Sq; p.Sk = Sk;
@@ -333,9 +398,12 @@ extern "C" int vtt_flash_attn_fwd_sm90(
   p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;
   p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
   p.causal = causal; p.causal_offset = causal_offset; p.sm_scale = sm_scale;
+  p.seg_window = seg_window;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool seg = q_seg != nullptr;
+  if ((q_seg == nullptr) != (k_seg == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaErrorInvalidValue;
-  if (D == 64) err = launch<64>(p, s);
-  if (D == 32) err = launch<32>(p, s);
+  if (D == 64) err = seg ? launch<64, true>(p, s) : launch<64, false>(p, s);
+  if (D == 32) err = seg ? launch<32, true>(p, s) : launch<32, false>(p, s);
   return static_cast<int>(err);
 }

@@ -2,14 +2,15 @@
 // tensor cores: both products as three TF32 products ("3xTF32", csrc/sm90.cuh)
 // with fp32 accumulation, and an asynchronous ring of K/V tiles.
 //
-// Replaces, for fp32 inputs without segment ids, the same two TPU kernels as
-// csrc/flash_attn_fwd.cu (which keeps D = 128 and segment ids):
+// Replaces, for fp32 inputs with or without segment ids, the same two TPU
+// kernels as csrc/flash_attn_fwd.cu (which keeps head dim 128):
 //   * video_tokenizer_tpu/ops/attention.py::_fwd_kernel_packed, and
 //   * video_tokenizer_tpu/ops/attention.py::_fwd_kernel (with the fp32 LSE).
 // The semantics are those stated at the head of csrc/flash_attn_fwd.cu and
 // held against attention_reference in ops/attention.py: fp32 scores, masked
 // pairs at -0.7 * FLT_MAX (a query that sees no key attends uniformly), keys
-// past Sk are no keys, causal with an offset, GQA, fp32 running max / sum /
+// past Sk are no keys, causal with an offset, segment ids (a pair attends iff
+// its ids are equal), GQA, fp32 running max / sum /
 // accumulator, strided q/k/v read in place, out [B, Sq, H, D] contiguous, LSE
 // [B, H, Sq] in natural log. fp32 stays fp32: every product is
 // lo.hi + hi.lo + hi.hi of the operands' TF32 parts, within ~2^-21 of the fp32
@@ -21,7 +22,10 @@
 // 494.7 TFLOP/s of dense TF32, a bound 2.4x below the 67 TFLOP/s of fp32 FMAs
 // that csrc/flash_attn_fwd.cu is held to. That kernel ran the products as
 // scalar FMA chains, one block of 4 warps per 64 query rows, and stalled the
-// block on every tile load.
+// block on every tile load. With segment ids the bound is the operations on
+// the key tiles a block visits (4 D flops, as three TF32 products each, a
+// visible score pair): a packed sequence of clips of L_i tokens has
+// sum L_i^2 visible pairs of (sum L_i)^2.
 // What the design does about it:
 //   * mma.sync m16n8k8 tf32 (the instruction of PyTorch's own fp32 attention,
 //     the memory-efficient kernel's OpMultiplyAddFastF32): a warp owns 16
@@ -46,10 +50,18 @@
 //     (Tile below) so that these reads hit every bank once;
 //   * the softmax is that of csrc/flash_attn_fwd_sm90.cu: exp2 with log2(e)
 //     folded into the scale, and on tiles that need a mask (the causal
-//     diagonal, the ragged last tile) the mask value kept in the natural-log
-//     domain so that it never meets the folded scale; causal blocks skip key
-//     tiles past their last visible key (each warp its own) and start with
-//     the longest rows.
+//     diagonal, the ragged last tile, keys whose segment id differs from a
+//     row's) the mask value kept in the natural-log domain so that it never
+//     meets the folded scale; causal blocks skip key tiles past their last
+//     visible key (each warp its own) and start with the longest rows;
+//   * segment ids (the kSeg instance; the one without them is the kernel as
+//     it was before they came here) as in csrc/flash_attn_fwd_sm90.cu: each
+//     tile's key ids come with the tile through the ring, a tile takes the
+//     masked path for a warp unless all its keys have the id all the warp's
+//     16 rows share, and where one id tensor serves queries and keys a block
+//     visits only the key tiles from the first to the last that holds a key
+//     whose id lies in [min, max] of its rows' ids (the skipped tiles' terms
+//     are exp(mask - max) = 0 exactly: the result is the same bit for bit).
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -69,13 +81,16 @@ struct Params {
   const float* q;
   const float* k;
   const float* v;
-  float* out;  // [B, Sq, H, D], contiguous
-  float* lse;  // [B, H, Sq] or null
+  const int* q_seg;  // [B, Sq] or null
+  const int* k_seg;  // [B, Sk] or null
+  float* out;        // [B, Sq, H, D], contiguous
+  float* lse;        // [B, H, Sq] or null
   int B, H, Hkv, Sq, Sk;
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
   int causal, causal_offset;
+  int seg_window;  // q_seg is k_seg: visit only the key tiles a block's ids can match
   float sm_scale;
 };
 
@@ -107,7 +122,14 @@ struct Tile {
   }
 };
 
-template <int D>
+// shared memory: the ring, then with segment ids each stage's kBlockN key ids
+// and the prologue's per-warp minima and maxima
+template <int D, bool kSeg>
+constexpr int smem_bytes() {
+  return kStages * Tile<D>::kStageBytes + (kSeg ? (kStages * kBlockN + 4 * kWarps) * 4 : 0);
+}
+
+template <int D, bool kSeg>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 flash_fwd_tf32x3_kernel(const Params p) {
   using T = Tile<D>;
@@ -116,6 +138,7 @@ flash_fwd_tf32x3_kernel(const Params p) {
   constexpr int kST = kBlockN / 8;   // 8-key score tiles = k-steps of P.V
 
   extern __shared__ __align__(128) unsigned char smem[];
+  int* const sSeg = reinterpret_cast<int*>(smem + kStages * T::kStageBytes);
 
   // causal: the blocks with the most visible keys start first
   const int q_tile = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
@@ -131,20 +154,33 @@ flash_fwd_tf32x3_kernel(const Params p) {
   const float* qb = p.q + b * p.q_sb + h * p.q_sh;
   const float* kb = p.k + b * p.k_sb + hk * p.k_sh;
   const float* vb = p.v + b * p.v_sb + hk * p.v_sh;
+  const int* ks = kSeg ? p.k_seg + (long long)b * p.Sk : nullptr;
 
-  int num_tiles = (p.Sk + kBlockN - 1) / kBlockN;
+  int t_begin = 0;
+  int t_end = (p.Sk + kBlockN - 1) / kBlockN;
+  // segment ids: this thread's rows' ids, the warp's [min, max], the window
+  int qseg[2] = {0, 0};
+  int w_lo = 0, w_hi = -1;
+  if constexpr (kSeg) {
+    segment_prologue<kWarps, 1, kBlockN>(p.q_seg + (long long)b * p.Sq, ks, p.Sq, p.Sk, qr,
+                                         p.seg_window, sSeg + kStages * kBlockN, qseg, w_lo,
+                                         w_hi, t_begin, t_end);
+  }
+  const bool w_uniform = kSeg && w_lo == w_hi;  // one id for all the warp's rows
   // Causal: skip key tiles past the block's last visible key, but only where
-  // every row of the block sees key 0, so that no fully masked row (which
-  // attends uniformly over ALL keys) loses keys it should average over.
-  const bool rows_see_key0 = p.causal && q0 + p.causal_offset >= 0;
-  if (rows_see_key0) {
-    num_tiles = min(num_tiles, (q0 + kBlockM - 1 + p.causal_offset) / kBlockN + 1);
+  // every row of the block sees a key that is kept (key 0 without segment
+  // ids, its own key in a window), so that no fully masked row (which attends
+  // uniformly over ALL keys) loses keys it should average over.
+  const bool causal_cap = p.causal && (kSeg ? p.seg_window != 0 : q0 + p.causal_offset >= 0);
+  if (causal_cap) {
+    t_end = min(t_end, (q0 + kBlockM - 1 + p.causal_offset) / kBlockN + 1);
   }
   // tiles this warp multiplies: those after its last visible key give P = 0
-  int warp_tiles = num_tiles;
-  if (rows_see_key0) warp_tiles = min(num_tiles, (w_row0 + 15 + p.causal_offset) / kBlockN + 1);
+  int warp_tiles = t_end;
+  if (causal_cap) warp_tiles = min(t_end, (w_row0 + 15 + p.causal_offset) / kBlockN + 1);
 
-  // one thread's 16-byte copies of tile t (rows past Sk zero-filled)
+  // one thread's 16-byte copies of tile t (rows past Sk zero-filled), and
+  // with segment ids the tile's key ids
   static_assert(kBlockN * T::kChunks % kThreads == 0, "every thread copies as many chunks");
   auto load_kv = [&](int t) {
     unsigned char* stage = smem + (t % kStages) * T::kStageBytes;
@@ -159,12 +195,19 @@ flash_fwd_tf32x3_kernel(const Params p) {
       cp_async16(smem_addr(stage + T::kBytes + T::v_at(r, c)), vb + row * p.v_ss + c * 4,
                  in ? 16 : 0);
     }
+    if constexpr (kSeg) {
+      const int key = key0 + threadIdx.x;
+      if (threadIdx.x < kBlockN) {
+        cp_async4(smem_addr(sSeg + (t % kStages) * kBlockN + threadIdx.x),
+                  key < p.Sk ? ks + key : ks, key < p.Sk ? 4 : 0);
+      }
+    }
   };
 
   // prologue: the first kAhead tiles in flight, one commit group per tile
 #pragma unroll
   for (int t = 0; t < kAhead; ++t) {
-    if (t < num_tiles) load_kv(t);
+    if (t_begin + t < t_end) load_kv(t_begin + t);
     cp_async_commit();
   }
 
@@ -200,13 +243,13 @@ flash_fwd_tf32x3_kernel(const Params p) {
   float l_run[2] = {0.f, 0.f};              // this thread's share of the running sum
   const float scale_log2 = p.sm_scale * kLog2e;
 
-  for (int t = 0; t < num_tiles; ++t) {
+  for (int t = t_begin; t < t_end; ++t) {
     // tile t has landed (this thread's copies, then everyone's after the
     // barrier); the barrier also says that tile t - 1 is no longer read, so
     // its stage is refilled
     cp_async_wait<kAhead - 1>();
     __syncthreads();
-    if (t + kAhead < num_tiles) load_kv(t + kAhead);
+    if (t + kAhead < t_end) load_kv(t + kAhead);
     cp_async_commit();
     if (t >= warp_tiles) continue;
 
@@ -240,8 +283,20 @@ flash_fwd_tf32x3_kernel(const Params p) {
     }
 
     // ---- online softmax of the tile, in place: sc becomes P
-    const bool masked_tile = k0 + kBlockN > p.Sk || p.sm_scale <= 0.f ||
-                             (p.causal && k0 + kBlockN - 1 > w_row0 + p.causal_offset);
+    const int* kid = sSeg + (t % kStages) * kBlockN;  // the tile's key ids (kSeg)
+    bool masked_tile = k0 + kBlockN > p.Sk || p.sm_scale <= 0.f ||
+                       (p.causal && k0 + kBlockN - 1 > w_row0 + p.causal_offset);
+    if constexpr (kSeg) {
+      // the fast path only where every key of the tile has the warp's one id
+      // (each quad reads all kBlockN ids)
+      bool same = w_uniform;
+#pragma unroll
+      for (int n = 0; n < kST; ++n) {
+        const int2 id = *reinterpret_cast<const int2*>(kid + 8 * n + 2 * tig);
+        same = same && id.x == w_lo && id.y == w_lo;
+      }
+      masked_tile = masked_tile || !__all_sync(0xffffffffu, same);
+    }
     float mx[2] = {-INFINITY, -INFINITY};
     if (masked_tile) {
 #pragma unroll
@@ -253,7 +308,8 @@ flash_fwd_tf32x3_kernel(const Params p) {
           float x = sc[n][e] * p.sm_scale;
           if (key >= p.Sk) {
             x = -INFINITY;  // past the end: not a key at all
-          } else if (p.causal && qr[r] + p.causal_offset < key) {
+          } else if ((p.causal && qr[r] + p.causal_offset < key) ||
+                     (kSeg && qseg[r] != kid[8 * n + 2 * tig + (e & 1)])) {
             x = kMaskValue;
           }
           sc[n][e] = x;
@@ -375,10 +431,10 @@ flash_fwd_tf32x3_kernel(const Params p) {
   }
 }
 
-template <int D>
+template <int D, bool kSeg>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  auto kernel = flash_fwd_tf32x3_kernel<D>;
-  constexpr int kSmemBytes = kStages * Tile<D>::kStageBytes;
+  auto kernel = flash_fwd_tf32x3_kernel<D, kSeg>;
+  constexpr int kSmemBytes = smem_bytes<D, kSeg>();
   // above 48 KB only as opted-in dynamic shared memory
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
@@ -391,22 +447,25 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 }  // namespace
 
 extern "C" int vtt_flash_attn_fwd_tf32x3(
-    const float* q, const float* k, const float* v, float* out, float* lse,
-    int B, int H, int Hkv, int Sq, int Sk, int D,
+    const float* q, const float* k, const float* v, const int* q_seg, const int* k_seg,
+    float* out, float* lse, int B, int H, int Hkv, int Sq, int Sk, int D,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
-    int causal, int causal_offset, float sm_scale, void* stream) {
+    int causal, int causal_offset, int seg_window, float sm_scale, void* stream) {
+  if ((q_seg == nullptr) != (k_seg == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   Params p;
-  p.q = q; p.k = k; p.v = v; p.out = out; p.lse = lse;
+  p.q = q; p.k = k; p.v = v; p.q_seg = q_seg; p.k_seg = k_seg; p.out = out; p.lse = lse;
   p.B = B; p.H = H; p.Hkv = Hkv; p.Sq = Sq; p.Sk = Sk;
   p.q_sb = q_sb; p.q_ss = q_ss; p.q_sh = q_sh;
   p.k_sb = k_sb; p.k_ss = k_ss; p.k_sh = k_sh;
   p.v_sb = v_sb; p.v_ss = v_ss; p.v_sh = v_sh;
   p.causal = causal; p.causal_offset = causal_offset; p.sm_scale = sm_scale;
+  p.seg_window = seg_window;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool seg = q_seg != nullptr;
   cudaError_t err = cudaErrorInvalidValue;
-  if (D == 64) err = launch<64>(p, s);
-  if (D == 32) err = launch<32>(p, s);
+  if (D == 64) err = seg ? launch<64, true>(p, s) : launch<64, false>(p, s);
+  if (D == 32) err = seg ? launch<32, true>(p, s) : launch<32, false>(p, s);
   return static_cast<int>(err);
 }

@@ -3,7 +3,8 @@
 // descriptors, and warpgroup matrix products (wgmma) with their fences; and,
 // for the kernels whose row count is far below a warpgroup's 64, the warp
 // matrix product (mma.sync) with its 8x8 matrix loads; and fp32 products on
-// the tensor cores as three TF32 products ("3xTF32").
+// the tensor cores as three TF32 products ("3xTF32"); the segment-id
+// prologue of the two flash forwards.
 // Used by flash_attn_fwd_sm90.cu, flash_attn_bwd_dkv_sm90.cu,
 // flash_attn_bwd_dq_sm90.cu, chunk_attention_sm90.cu,
 // decode_attention_sm90.cu, flash_attn_fwd_tf32x3.cu,
@@ -31,6 +32,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace sm90 {
@@ -770,6 +772,79 @@ __device__ __forceinline__ uint32_t int8_pair_to_bf16(uint32_t biased_lo, int by
   const float hi =
       __uint_as_float(__byte_perm(biased_hi, 0x4B000000u, 0x7650 + byte_hi)) - 8388736.f;
   return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// ---- segment ids in the flash forwards (flash_attn_fwd_sm90.cu,
+// flash_attn_fwd_tf32x3.cu): the prologue of a block of kWarps warps, each
+// thread holding query rows `rows` of the batch row's ids `q_seg` [Sq] and
+// `k_seg` [Sk]. It gives the ids of this thread's rows (`qseg`; INT_MIN for a
+// row past Sq, which takes no part), [min, max] of the ids of the rows of
+// this thread's group of kGroupWarps warps (`group_lo`, `group_hi`; lo > hi
+// for a group with no row) and, with `window`, the block's key tiles
+// [t_begin, t_end): the first to the last tile of kTileKeys keys that holds a
+// key whose id lies in [min, max] of the block's rows' ids. `red` is 4 kWarps
+// ints of shared memory. Every thread of the block calls it.
+template <int kWarps, int kGroupWarps, int kTileKeys>
+__device__ __forceinline__ void segment_prologue(const int* q_seg, const int* k_seg, int Sq,
+                                                 int Sk, const int (&rows)[2], bool window,
+                                                 int* red, int (&qseg)[2], int& group_lo,
+                                                 int& group_hi, int& t_begin, int& t_end) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  int lo = INT_MAX, hi = INT_MIN;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    qseg[r] = INT_MIN;
+    if (rows[r] < Sq) {
+      qseg[r] = q_seg[rows[r]];
+      lo = min(lo, qseg[r]);
+      hi = max(hi, qseg[r]);
+    }
+  }
+  lo = __reduce_min_sync(0xffffffffu, lo);
+  hi = __reduce_max_sync(0xffffffffu, hi);
+  if (lane == 0) {
+    red[2 * warp] = lo;
+    red[2 * warp + 1] = hi;
+  }
+  __syncthreads();
+  int block_lo = INT_MAX, block_hi = INT_MIN;
+  group_lo = INT_MAX;
+  group_hi = INT_MIN;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    block_lo = min(block_lo, red[2 * w]);
+    block_hi = max(block_hi, red[2 * w + 1]);
+    if (w / kGroupWarps == warp / kGroupWarps) {
+      group_lo = min(group_lo, red[2 * w]);
+      group_hi = max(group_hi, red[2 * w + 1]);
+    }
+  }
+  if (!window) return;
+  int first = INT_MAX, last = -1;
+  for (int j = threadIdx.x; j < Sk; j += kWarps * 32) {
+    const int id = k_seg[j];
+    if (block_lo <= id && id <= block_hi) {
+      first = min(first, j);
+      last = max(last, j);
+    }
+  }
+  first = __reduce_min_sync(0xffffffffu, first);
+  last = __reduce_max_sync(0xffffffffu, last);
+  int* win = red + 2 * kWarps;
+  if (lane == 0) {
+    win[2 * warp] = first;
+    win[2 * warp + 1] = last;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    first = min(first, win[2 * w]);
+    last = max(last, win[2 * w + 1]);
+  }
+  if (last >= 0) {  // always: each row matches its own key
+    t_begin = first / kTileKeys;
+    t_end = last / kTileKeys + 1;
+  }
 }
 
 }  // namespace sm90

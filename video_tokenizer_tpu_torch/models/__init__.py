@@ -8,6 +8,7 @@ from . import loss  # noqa: F401  (registers lpips_disc_loss)
 from . import model_new  # noqa: F401  (registers the ten model_new autoencoders)
 from . import model_basic  # noqa: F401  (registers the five basic / dual-patch autoencoders)
 from . import model_stat  # noqa: F401  (registers autoencoder_stat)
+from . import model_titok  # noqa: F401  (registers titok)
 
 from .bottleneck import Bottleneck, SimpleVectorQuantizer  # noqa: F401
 from .embed import LabelEmbedder, PatchEmbed3D, VideoPatchEmbed  # noqa: F401
@@ -18,4 +19,5 @@ from .larp_tokenizer import LARPTokenizer, OutputLayer  # noqa: F401
 from .model_basic import BasicAutoEncoder  # noqa: F401
 from .model_new import RoPEAutoEncoder  # noqa: F401
 from .model_stat import AutoEncoderStat  # noqa: F401
+from .model_titok import TiTok  # noqa: F401
 from .transformer import ViTBlock, ViTStack  # noqa: F401

@@ -5,13 +5,16 @@ Counterpart of `video_tokenizer_tpu/ops/attention.py`. Tensors are [B, S, H, D]
 attention: head h reads KV head h // (H // Hkv)).
 
 * `flash_attn_fwd` wraps `csrc/flash_attn_fwd_sm90.cu` (wgmma; bf16, head dim
-  32 or 64, no segment ids), `csrc/flash_attn_fwd_tf32x3.cu` (fp32, head dim
-  32 or 64, no segment ids: mma.sync with each product as three TF32
-  products) and `csrc/flash_attn_fwd.cu` (head dim 128, segment ids), which
-  replace both TPU forward kernels (`_fwd_kernel_packed` and `_fwd_kernel`).
-  On a CUDA tensor it launches the kernel that `flash_kernels` names or
-  raises; on a CPU tensor it runs `attention_reference`. Nothing else
-  chooses.
+  32 or 64), `csrc/flash_attn_fwd_tf32x3.cu` (fp32, head dim 32 or 64:
+  mma.sync with each product as three TF32 products), both with or without
+  segment ids, and `csrc/flash_attn_fwd.cu` (head dim 128), which replace
+  both TPU forward kernels (`_fwd_kernel_packed` and `_fwd_kernel`). On a
+  CUDA tensor it launches the kernel that `flash_kernels` names or raises; on
+  a CPU tensor it runs `attention_reference`. Nothing else chooses. With one
+  id tensor for queries and keys (`segment_window`) the two tensor-core
+  kernels visit only each query block's window of key tiles
+  (`segment_key_windows`): a packed sequence pays for its own clips' pairs,
+  not for all of them.
 * `attention_reference` is the plain version, the JAX package's
   `_xla_attention_lse`: fp32 logits, masked pairs at -0.7 * float32.max,
   LSE. One deliberate difference: a query that matches no key attends
@@ -23,8 +26,9 @@ attention: head h reads KV head h // (H // Hkv)).
   segment ids), `csrc/flash_attn_bwd_dq_tf32x3.cu` and
   `csrc/flash_attn_bwd_dkv_tf32x3.cu` (fp32, head dim 32 or 64, no segment
   ids: mma.sync with each product as three TF32 products) and
-  `csrc/flash_attn_bwd.cu` (both gradients for head dim 128 and segment
-  ids), which replace the TPU kernels `_bwd_dq_kernel` and
+  `csrc/flash_attn_bwd.cu` (both gradients for head dim 128 and for segment
+  ids, from the LSE of whichever forward ran), which replace the TPU kernels
+  `_bwd_dq_kernel` and
   `_bwd_dkv_kernel`; on a CPU tensor it runs `attention_bwd_reference`, the
   same recompute from the forward's LSE in plain PyTorch. Both give exactly
   the gradient of `attention_reference`, the no-match rows included.
@@ -58,21 +62,60 @@ def flash_kernels(dtype: torch.dtype, head_dim: int,
     """(forward kernel, dQ kernel, dK/dV kernel) that a call on the card launches.
 
     The one place where the choice is made, by dtype, head dim and masks
-    only: bf16 at D = 32 or 64 without segment ids runs the wgmma kernels
+    only. bf16 at D = 32 or 64 runs the wgmma kernels
     (`csrc/flash_attn_fwd_sm90.cu`, `csrc/flash_attn_bwd_dq_sm90.cu`,
-    `csrc/flash_attn_bwd_dkv_sm90.cu`); fp32 at D = 32 or 64 without segment
-    ids runs all three on the tensor cores as three TF32 products per
-    product (`csrc/flash_attn_fwd_tf32x3.cu`, `csrc/flash_attn_bwd_dq_tf32x3.cu`,
-    `csrc/flash_attn_bwd_dkv_tf32x3.cu`: fp32 accuracy, not TF32's); D = 128
-    and segment ids stay on the mma.sync / FMA kernels. No call falls back
-    from one to the other."""
-    if head_dim in _SM90_HEAD_DIMS and not has_segments:
-        if dtype == torch.bfloat16:
-            return "flash_fwd_sm90_kernel", "flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel"
-        if dtype == torch.float32:
-            return ("flash_fwd_tf32x3_kernel", "flash_bwd_dq_tf32x3_kernel",
-                    "flash_bwd_dkv_tf32x3_kernel")
-    return "flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"
+    `csrc/flash_attn_bwd_dkv_sm90.cu`); fp32 at D = 32 or 64 runs all three on
+    the tensor cores as three TF32 products per product
+    (`csrc/flash_attn_fwd_tf32x3.cu`, `csrc/flash_attn_bwd_dq_tf32x3.cu`,
+    `csrc/flash_attn_bwd_dkv_tf32x3.cu`: fp32 accuracy, not TF32's). The
+    forward takes segment ids there; the backward with segment ids stays on
+    the mma.sync / FMA kernels of `csrc/flash_attn_bwd.cu`, which read the
+    same natural-log LSE. D = 128 stays on the mma.sync / FMA kernels both
+    ways. No call falls back from one to the other."""
+    fwd, dq, dkv = "flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"
+    if head_dim in _SM90_HEAD_DIMS and dtype in (torch.bfloat16, torch.float32):
+        kind = "sm90" if dtype == torch.bfloat16 else "tf32x3"
+        fwd = f"flash_fwd_{kind}_kernel"
+        if not has_segments:
+            dq, dkv = f"flash_bwd_dq_{kind}_kernel", f"flash_bwd_dkv_{kind}_kernel"
+    return fwd, dq, dkv
+
+
+def segment_window(segment_ids, kv_segment_ids, causal: bool, causal_offset: int) -> bool:
+    """Whether the tensor-core forwards may visit only each query block's
+    window of key tiles: where one id tensor serves queries and keys
+    (`kv_segment_ids` None or the same tensor), every query matches at least
+    its own key, and under causal it also sees it where the offset is >= 0.
+    A row that matched no key would need all Sk keys (it attends uniformly)."""
+    return (segment_ids is not None
+            and (kv_segment_ids is None or kv_segment_ids is segment_ids)
+            and (not causal or causal_offset >= 0))
+
+
+def segment_key_windows(segment_ids: torch.Tensor, block_m: int,
+                        block_n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The key tiles a tensor-core forward visits under `segment_window`: for
+    each block of `block_m` query rows, the first to the last `block_n`-key
+    tile that holds a key whose id lies in [min, max] of the block's ids, as
+    (lo, hi) [B, ceil(S / block_m)] with hi one past the last tile (what
+    `csrc/sm90.cuh::segment_prologue` computes in each block on the card).
+    The tiles outside hold no key equal to any of the block's rows: their
+    terms are exp(mask - max) = 0 exactly."""
+    B, S = segment_ids.shape
+    ids = segment_ids.long()
+    nb = -(-S // block_m)
+    big = torch.iinfo(torch.int64).max
+
+    def blocks(fill):
+        pad = torch.full((B, nb * block_m - S), fill, dtype=torch.long, device=ids.device)
+        return torch.cat([ids, pad], dim=1).reshape(B, nb, block_m)
+
+    lo_id, hi_id = blocks(big).amin(-1), blocks(-big).amax(-1)
+    hit = (ids[:, None, :] >= lo_id[..., None]) & (ids[:, None, :] <= hi_id[..., None])
+    pos = torch.arange(S, device=ids.device)
+    first = torch.where(hit, pos, S).amin(-1)
+    last = torch.where(hit, pos, -1).amax(-1)
+    return first // block_n, last // block_n + 1
 
 
 def attention_reference(
@@ -160,7 +203,7 @@ def _expand_kv(k, v, H: int):
 def attention_tiled_reference(
     q, k, v, causal: bool = False, segment_ids=None, kv_segment_ids=None,
     sm_scale: Optional[float] = None, causal_offset: Optional[int] = None,
-    block_m: int = 128, block_n: int = 64,
+    block_m: int = 128, block_n: int = 64, windows: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The arithmetic of `flash_fwd_sm90_kernel`, tile by tile, in plain PyTorch
     (tests only). Same contract as `attention_reference`.
@@ -174,10 +217,13 @@ def attention_tiled_reference(
     the input dtype before P.V; fp32 max, sum and accumulator; the causal
     tile skip per `block_m`-row block and per warpgroup, only where every row
     sees key 0; LSE = max + ln(sum), the mask value on rows that see no key.
-    Segment ids (which the kernel leaves to `flash_fwd_kernel`) take the
-    masked path on every tile."""
+    With segment ids a tile takes the masked path for a warpgroup unless all
+    its keys have the id all the warpgroup's rows share, and under
+    `segment_window` each block visits only its window of key tiles
+    (`segment_key_windows`; `windows=False` visits every tile, for the tests
+    that hold the two equal bit for bit), with the causal skip inside it."""
     return _fwd_tiles(q, k, v, causal, segment_ids, kv_segment_ids, sm_scale, causal_offset,
-                      block_m, block_n, _WARPGROUP_ROWS, torch.einsum)
+                      block_m, block_n, _WARPGROUP_ROWS, torch.einsum, windows)
 
 
 def split_tf32(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -207,27 +253,40 @@ _TF32X3_WARP_ROWS = 16  # csrc/flash_attn_fwd_tf32x3.cu: query rows of a warp
 def attention_tf32x3_tiled_reference(
     q, k, v, causal: bool = False, segment_ids=None, kv_segment_ids=None,
     sm_scale: Optional[float] = None, causal_offset: Optional[int] = None,
-    block_m: int = 64, block_n: int = 64,
+    block_m: int = 64, block_n: int = 64, windows: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The arithmetic of `flash_fwd_tf32x3_kernel`, tile by tile, in plain
-    PyTorch (tests only): fp32 q, k, v, no segment ids (the kernel takes
-    none); otherwise the contract of `attention_reference`.
+    PyTorch (tests only): fp32 q, k, v (the kernel takes no other type);
+    otherwise the contract of `attention_reference`.
 
     What it repeats of the kernel: both products as three TF32 products of
     the operands' parts (`split_tf32`: Q, K, P and V split, lo.hi + hi.lo +
     hi.hi in fp32), key tiles of `block_n`, the softmax of
     `attention_tiled_reference` decided per 16-row warp (fast path on tiles
     that need no mask, the masked path with the mask value in the
-    natural-log domain on the others), the causal tile skip per
-    `block_m`-row block and per warp, only where every row sees key 0."""
-    if q.dtype != torch.float32 or segment_ids is not None:
-        raise ValueError("flash_fwd_tf32x3_kernel takes fp32 inputs without segment ids")
-    return _fwd_tiles(q, k, v, causal, None, None, sm_scale, causal_offset, block_m, block_n,
-                      _TF32X3_WARP_ROWS, _einsum_tf32x3)
+    natural-log domain on the others, segment ids included), the causal tile
+    skip per `block_m`-row block and per warp, only where every row sees key
+    0, and the segment windows per `block_m`-row block."""
+    if q.dtype != torch.float32:
+        raise ValueError("flash_fwd_tf32x3_kernel takes fp32 inputs")
+    return _fwd_tiles(q, k, v, causal, segment_ids, kv_segment_ids, sm_scale, causal_offset,
+                      block_m, block_n, _TF32X3_WARP_ROWS, _einsum_tf32x3, windows)
+
+
+def _group_ids(segment_ids: torch.Tensor, group_rows: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[min, max] of the query ids of each `group_rows`-row group, [B, groups]."""
+    B, S = segment_ids.shape
+    ng = -(-S // group_rows)
+    ids = segment_ids.long()
+    big = torch.iinfo(torch.int64).max
+    pad = ng * group_rows - S
+    lo = torch.cat([ids, ids.new_full((B, pad), big)], 1).reshape(B, ng, group_rows).amin(-1)
+    hi = torch.cat([ids, ids.new_full((B, pad), -big)], 1).reshape(B, ng, group_rows).amax(-1)
+    return lo, hi
 
 
 def _fwd_tiles(q, k, v, causal, segment_ids, kv_segment_ids, sm_scale, causal_offset,
-               block_m: int, block_n: int, group_rows: int, product):
+               block_m: int, block_n: int, group_rows: int, product, windows: bool = True):
     """The flash forward's online softmax over key tiles of `block_n`, decided
     per `group_rows` query rows (a warpgroup's or a warp's), with `product`
     for Q.K^T and P.V (P rounded to the input dtype first)."""
@@ -243,23 +302,37 @@ def _fwd_tiles(q, k, v, causal, segment_ids, kv_segment_ids, sm_scale, causal_of
     group_row0 = rows // group_rows * group_rows
     block_row0 = rows // block_m * block_m
     num_tiles = -(-Sk // block_n)
-    # tiles each row's group multiplies
-    tiles_row = torch.full((Sq,), num_tiles, device=q.device)
-    if causal and not has_seg:
-        visible = (group_row0 + group_rows - 1 + off) // block_n + 1
-        tiles_row = torch.where(block_row0 + off >= 0, visible.clamp(max=num_tiles), tiles_row)
+    # the tiles each row's group multiplies: [t_lo, t_hi)
+    t_lo = torch.zeros((B, Sq), dtype=torch.long, device=q.device)
+    t_hi = torch.full((B, Sq), num_tiles, device=q.device)
+    windowed = windows and segment_window(segment_ids, kv_segment_ids, causal, off)
+    if windowed:
+        lo, hi = segment_key_windows(segment_ids, block_m, block_n)
+        t_lo, t_hi = lo[:, rows // block_m], hi[:, rows // block_m]
+    if causal and (windowed or not has_seg):
+        # only where every row of the block sees a key that is kept (key 0,
+        # or its own key in a window)
+        visible = ((group_row0 + group_rows - 1 + off) // block_n + 1).clamp(max=num_tiles)
+        sees = torch.ones_like(rows, dtype=torch.bool) if has_seg else block_row0 + off >= 0
+        t_hi = torch.where(sees, torch.minimum(t_hi, visible), t_hi)
+    if has_seg:
+        kv_seg = (kv_segment_ids if kv_segment_ids is not None else segment_ids).long()
+        g_lo, g_hi = _group_ids(segment_ids, group_rows)
+        g_lo, uniform = g_lo[:, rows // group_rows], (g_lo == g_hi)[:, rows // group_rows]
     m = torch.full((B, H, Sq), float("-inf"), device=q.device)
     l = torch.zeros((B, H, Sq), device=q.device)
     o = torch.zeros((B, H, Sq, D), device=q.device)
     for t in range(num_tiles):
         k0, k1 = t * block_n, min((t + 1) * block_n, Sk)
         s = product("bqhd,bkhd->bhqk", qf, kf[:, k0:k1])  # raw scores, fp32
-        active = (t < tiles_row)[None, None, :]
-        masked_path = torch.full((Sq,), k0 + block_n > Sk or scale <= 0 or has_seg,
-                                 device=q.device)
+        active = ((t >= t_lo) & (t < t_hi))[:, None, :]
+        masked_path = torch.full((B, Sq), k0 + block_n > Sk or scale <= 0, device=q.device)
         if causal:
             masked_path = masked_path | (k0 + block_n - 1 > group_row0 + off)
-        masked_path = masked_path[None, None, :]
+        if has_seg:  # the fast path only where every key has the group's one id
+            same = uniform & (kv_seg[:, None, k0:k1] == g_lo[..., None]).all(-1)
+            masked_path = masked_path | ~same
+        masked_path = masked_path[:, None, :]
         x = torch.where(mask[:, :, :, k0:k1], s * scale, DEFAULT_MASK_VALUE)
         tile_max = torch.where(masked_path, x.amax(-1), s.amax(-1) * scale)
         m_new = torch.maximum(m, tile_max)
@@ -480,14 +553,18 @@ def _check_shapes(kernel: str, q, k, v) -> None:
 
 
 def _segments(kernel: str, seg, kv_seg, B: int, Sq: int, Sk: int, device):
-    """(query ids, key ids) as contiguous int32 on `device`, or (None, None)."""
+    """(query ids, key ids) as contiguous int32 on `device`, or (None, None);
+    one tensor for both where the keys' ids are the queries'."""
     if seg is None:
         return None, None
     kv_seg = kv_seg if kv_seg is not None else seg
     for ids, S in ((seg, Sq), (kv_seg, Sk)):
         if ids.shape != (B, S):
             raise ValueError(f"{kernel}: segment ids {tuple(ids.shape)} != {(B, S)}")
-    return tuple(x.to(device=device, dtype=torch.int32).contiguous() for x in (seg, kv_seg))
+    q_seg = seg.to(device=device, dtype=torch.int32).contiguous()
+    if kv_seg is seg:
+        return q_seg, q_seg
+    return q_seg, kv_seg.to(device=device, dtype=torch.int32).contiguous()
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -519,18 +596,22 @@ def flash_attn_fwd(
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if return_lse else None
     if out.numel() and Sk:
         kernel = flash_kernels(q.dtype, D, q_seg is not None)[0]
-        _fwd_launch(kernel, q, k, v, q_seg, k_seg, out, lse, causal, offset, scale)
+        window = segment_window(segment_ids, kv_segment_ids, causal, offset)
+        _fwd_launch(kernel, q, k, v, q_seg, k_seg, out, lse, causal, offset, scale, window)
         flash_attn_fwd.launches += 1
         flash_attn_fwd.launches_sm90 += kernel == "flash_fwd_sm90_kernel"
         flash_attn_fwd.launches_tf32x3 += kernel == "flash_fwd_tf32x3_kernel"
+        flash_attn_fwd.launches_segments += q_seg is not None
         flash_attn_fwd.last_kernel = kernel
     return (out, lse) if return_lse else out
 
 
 def _fwd_launch(kernel: str, q, k, v, q_seg, k_seg, out, lse, causal: bool, offset: int,
-                scale: float) -> None:
+                scale: float, window: bool = False) -> None:
     """Launches the named forward kernel on checked operands (see
-    `flash_attn_fwd`): out [B, Sq, H, D] and, if not None, lse [B, H, Sq]."""
+    `flash_attn_fwd`): out [B, Sq, H, D] and, if not None, lse [B, H, Sq].
+    `window` (the tensor-core kernels, with segment ids): `segment_window`
+    holds, so each block visits only its key tiles' window."""
     B, Sq, H, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     strides = (q.stride(0), q.stride(1), q.stride(2), k.stride(0), k.stride(1), k.stride(2),
@@ -541,8 +622,9 @@ def _fwd_launch(kernel: str, q, k, v, q_seg, k_seg, out, lse, causal: bool, offs
             entry = ("vtt_flash_attn_fwd_sm90" if kernel == "flash_fwd_sm90_kernel"
                      else "vtt_flash_attn_fwd_tf32x3")
             code = getattr(_build.library(), entry)(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse),
-                B, H, Hkv, Sq, Sk, D, *strides, int(causal), offset, scale, stream,
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(q_seg), _ptr(k_seg),
+                out.data_ptr(), _ptr(lse), B, H, Hkv, Sq, Sk, D, *strides, int(causal), offset,
+                int(window and q_seg is not None), scale, stream,
             )
         else:
             code = _build.library().vtt_flash_attn_fwd(
@@ -556,6 +638,7 @@ def _fwd_launch(kernel: str, q, k, v, q_seg, k_seg, out, lse, causal: bool, offs
 flash_attn_fwd.launches = 0  # kernel launches (any of the three), read by chip_smoke.py
 flash_attn_fwd.launches_sm90 = 0  # of which the wgmma kernel
 flash_attn_fwd.launches_tf32x3 = 0  # of which the 3xTF32 kernel
+flash_attn_fwd.launches_segments = 0  # of which with segment ids (any kernel)
 flash_attn_fwd.last_kernel = None  # name of the kernel the last call launched
 
 

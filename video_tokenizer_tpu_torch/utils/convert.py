@@ -32,6 +32,12 @@ It maps a model_basic `BasicAutoEncoder` too (`encoder`, `encoder1`,
 `decoder`: their projections, PEs, query tokens, unpatchify heads and
 `stack.blocks`), whose module names are the Flax names as well.
 
+`titok_state_dict_from_jax(params, model)` does the same for a `TiTok`
+(`encoder` and `decoder`: `mask_token`, `proj_in`, `ln_post` / `ln_pre`,
+`proj_out` and the packed stacks' `attn_{i}` (`pre_ln`, `to_qkv`, `q_norm`,
+`k_norm`, `out_proj`), `ffd_norm_{i}`, `ffd_in_{i}`, `ffd_out_{i}`), whose
+module names are the Flax names: the model_new mapping maps it as it is.
+
 `stat_state_dict_from_jax(params, model)` does the same for the STAT
 family's `AutoEncoderStat`, whose names are the Flax names too. The LARP
 tokenizer's `fsq` (`fsq_norm`, `fsq_in_linear`, `fsq_out_linear`) and `sq`
@@ -251,6 +257,14 @@ def stat_state_dict_from_jax(params: Dict[str, Any], model) -> Dict[str, torch.T
     `proj_in`, scalar `mask_token`, gated blocks, `prob_head.fc1/fc2` and
     `proj_out`, and the model_new decoder, all under the Flax names (the
     model_new mapping)."""
+    return model_new_state_dict_from_jax(params, model)
+
+
+def titok_state_dict_from_jax(params: Dict[str, Any], model) -> Dict[str, torch.Tensor]:
+    """Flax `TiTok` params -> `model`'s state_dict: the encoder's and
+    decoder's mask tokens, projections, LayerNorms and packed GQA stacks under
+    the Flax names (the model_new mapping; FSQ has no parameters and the
+    rotation tables are rebuilt by the model)."""
     return model_new_state_dict_from_jax(params, model)
 
 
