@@ -53,14 +53,15 @@ Phases, each of which raises on failure (exit code 1, no result line):
      the earlier kernel and cuBLAS on bf16 copies;
   6. tokenizer end to end in fp32 (TF32 off): the full-width flagship
      tokenizer, seeded and perturbed, on the card against the same weights
-     on the CPU through the plain versions;
+     on the CPU through the plain versions, at PARITY_DEPTH + PARITY_DEPTH
+     of its 12 + 12 layers;
   7. tokenizer end to end in bf16: batch-8 reconstruction throughput, with
      the launch counters showing that every attention and VQ call ran the
      kernels;
   8. AR prior in fp32 (TF32 off): the full-width 632M llama-abs-LP prior,
-     seeded and perturbed, prefill and 16 decode steps forced to the CPU's
-     greedy tokens, card against CPU, with fp32 weights, int8 weights, and
-     int8 weights + an int8 KV cache;
+     seeded and perturbed, at PARITY_DEPTH of its 30 layers, prefill and 16
+     decode steps forced to the CPU's greedy tokens, card against CPU, with
+     fp32 weights, int8 weights, and int8 weights + an int8 KV cache;
   9. AR sampling in bf16: class -> 1024 codes -> video at batch 8 with CFG
      1.5 and top-k 100 with bf16 weights, and 256 codes with int8 weights and
      int8 weights + int8 KV cache: tokens/s, device time per decode step (one step replayed
@@ -94,8 +95,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
      the plain Philox draw, and by frequency against softmax;
  11. tokenizer training in fp32 (TF32 off): one step of the full-width
      flagship generator, discriminator and LPIPS (`cfgs/larp_tokenizer.yaml`)
-     at batch 1, card against CPU from the same weights and generators:
-     losses, VQ indices, named gradients;
+     at batch 1, card against CPU from the same weights and generators, at
+     PARITY_DEPTH of each stack (generator and discriminator): losses, VQ
+     indices, named gradients;
  12. tokenizer training through the port's trainer at batch 8, bf16 and
      fp32: s/step, clips/s, peak memory, exact launch counts of the four
      training-path kernels (in bf16 every flash forward, dQ and dK/dV launch
@@ -136,7 +138,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
  18. the AR prior's two trainers (cfgs/larp_ar.yaml, larp_ar_fp.yaml) at the
      632M prior's full width, fed by the frozen flagship tokenizer from a
      checkpoint directory the tokenizer trainer wrote, fp32 (TF32 off): one
-     step at batch 1 and 4 of the prior's 30 layers, card against CPU (loss, top-1/top-5, named
+     step at batch 1 and PARITY_DEPTH of the prior's 30 layers, card against CPU (loss, top-1/top-5, named
      gradients); batch 8 with the configured dropouts: s/step, training
      tokens/s, clips/s, peak memory, idle share and time by kernel category,
      exact launch counts (42 flash forwards, 30 dQ, 30 dK/dV, all 3xTF32,
@@ -149,8 +151,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
      1e-5); bf16 reconstruction at batch 8 of autoencoder_large and
      f256t768 (clips/s, peak memory, 48 and 36 wgmma flash forwards a
      batch, device time by category); one fp32 training step of
-     cfgs/larp_tokenizer_large.yaml card against CPU (losses, FSQ indices,
-     named gradients); training throughput through the trainer, bf16 at
+     cfgs/larp_tokenizer_large.yaml card against CPU at PARITY_DEPTH +
+     PARITY_DEPTH of its 24 + 24 layers and PARITY_DEPTH of the
+     discriminator's 8 (losses, FSQ indices, named
+     gradients); training throughput through the trainer, bf16 at
      batch 8 and fp32 at batch 4 (72 flash forwards, 56 dQ + 56 dK/dV a
      step, 72 + 72 on a discriminator step, all wgmma / all 3xTF32); the
      train CLI with eval and vis, and the reconstruct CLI on its checkpoint.
@@ -163,7 +167,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
      and its clips/s at batch 16; the eval CLI on the flagship tokenizer
      (bf16, batch 16, null128: clips/s, device ms per batch by stage, peak
      memory, 192 wgmma flash forwards and 8 VQ searches), after the
-     evaluator's first 2 clips in fp32 card against CPU; the merge CLI on
+     evaluator's first 2 clips in fp32 card against CPU (the tokenizer at
+     PARITY_DEPTH of each stack); the merge CLI on
      its stats in two shards; the tokenizer trainer's eval rFVD and best
      checkpoint over two epochs; `sample.py --csv_file null128` as one job
      (shards, flags, the report row, 30,690 decode attentions).
@@ -172,22 +177,24 @@ Phases, each of which raises on failure (exit code 1, no result line):
      codebook's shape (M = 8192 and 1024, K = 196,560, d = 24, cos) against
      its plain version, timed beside `(z @ e.T).argmax`, planted ties;
      cfgs/larp_tokenizer.yaml with bottleneck_type sq and fsq at full width
-     (176,778,648 and 172,035,078 parameters), fp32 card vs CPU at 4 + 4 of
-     the 12 + 12 layers and bf16 reconstruction at batch 8 (one VQ search per
-     sq encode); the STAT model of cfgs/larp_tokenizer_stat.yaml (185,850,633
-     parameters): fp32 card vs CPU block by block at 4 + 4 of its 12 + 12
-     layers, bf16 reconstruction, one fp32 training step card vs CPU at 4 + 4
-     layers, bf16 training at batch 8 and
+     (176,778,648 and 172,035,078 parameters), fp32 card vs CPU at
+     PARITY_DEPTH of each stack's 12 layers and bf16 reconstruction at batch
+     8 (one VQ search per sq encode); the STAT model of
+     cfgs/larp_tokenizer_stat.yaml (185,850,633 parameters): fp32 card vs
+     CPU block by block at PARITY_DEPTH of each stack's 12 layers, bf16
+     reconstruction, one fp32 training step card vs CPU at PARITY_DEPTH of
+     each stack (and of the discriminator's 8), bf16 training at batch 8 and
      `train.py` through the vanilla, random_drop and adaptive stages; LARP-sq
      training through `train.py`, its frozen codebook unchanged and in no
      optimizer; exact launch counts throughout.
  22. LARP's learned AR prior co-trained as scripts/train_larp_tokenizer.sh
      trains it (`phase_prior`): gptc-S (12 layers of 384, 6 heads of 64) in
-     fp32 card against CPU at 4 of its layers (`compute_prior_loss` at B = 8
-     from 1024 latents and every gradient, exactly 4 3xTF32 forwards, 4 dQ
-     and 4 dK/dV; `decode_step` against the full forward); one fp32 step of the recipe
-     through the trainer, card against CPU, at 2 + 2 tokenizer layers with
-     gptc-S and the 512 / 8 / 12 discriminator at 4 of their 12 layers, `prior_lr_mult` 50 and
+     fp32 card against CPU at PARITY_DEPTH of its layers (`compute_prior_loss`
+     at B = 8 from 1024 latents and every gradient, exactly PARITY_DEPTH
+     3xTF32 forwards, dQ and dK/dV; `decode_step` against the full forward);
+     one fp32 step of the recipe through the trainer, card against CPU, at 2
+     + 2 tokenizer layers with gptc-S and the 512 / 8 / 12 discriminator at
+     PARITY_DEPTH of their 12 layers, `prior_lr_mult` 50 and
      `emb_lr_mult` 2 (losses, VQ indices, gradients, the parameters after the
      step per learning-rate group); a `grad_accum_steps` 2 step at batch 8
      against the plain one; bf16 training at full width, batch 8 (s/step,
@@ -211,13 +218,15 @@ Phases, each of which raises on failure (exit code 1, no result line):
      counts equal and parameters within the spread; the trace holds 2 steps
      with the wgmma flash and VQ kernels by name; the writer wrote `train/`
      scalars or said it is unavailable; (b) the flagship's discriminator
-     (384 wide, 12 heads, 8 layers, S = 1025) in fp32 card against CPU at
-     batch 2 with `spectral_norm`, R1 (0.01) and both: D loss, `r1_gp` and
+     (384 wide, 12 heads, S = 1025) at PARITY_DEPTH of its 8 layers in fp32
+     card against CPU at batch 2 with `spectral_norm`, R1 (0.01) and both:
+     D loss, `r1_gp` and
      every gradient within 1e-3 of their scale; bf16 trainer steps at
      batch 8 with each option alone beside the plain step, exact flash launches
      (with R1 none in the discriminator, the tokenizer's unchanged); (c) the
      five model_basic registrations at their full width (768 wide, 5 + 5
-     layers, 12 heads of 64) in fp32 card against CPU at batch 1 (FSQ
+     layers, 12 heads of 64) in fp32 card against CPU at batch 1 and
+     PARITY_DEPTH of each stack (FSQ
      indices >= 99%, the decode within phase 19's rule, exact 3xTF32 flash
      launches), bf16 reconstruction clips/s at batch 8 of `autoencoder` and
      `autoencoder_dualpatch`, and bf16 training of `autoencoder` through the
@@ -235,6 +244,23 @@ Phases, each of which raises on failure (exit code 1, no result line):
      device ms by category, peak memory; one fp32 trainer step card against
      CPU at cut depth (the backward with ids on csrc/flash_attn_bwd.cu) and
      bf16 training at batch 8 with exact launch counts.
+ 25. the Cosmos causal-CNN tokenizers at their registered width (`cosmos`
+     with SimVQ, 113,163,651 parameters; `cosmos_fsq`, 113,101,193;
+     `phase_cosmos`, last): (a) the wide-code VQ kernel (`vq_gemm_kernel`,
+     csrc/vq_gemm_sm90.cu) at SimVQ's d = 256, K = 16,384, M = 2048 and
+     8192, against its plain version with planted exact ties and near-ties,
+     timed beside `torch.addmm(bias, z, e.T).argmax(-1)` (TF32 off), its
+     bound, registers and spills; (b) both families in fp32 (TF32 off) card
+     against CPU at full width on one 9 x 64 x 64 clip: both index maps
+     >= 99% equal, `loss_q` within 1e-4, the decode of the CPU's indices
+     within 1e-3 of the scale or 5x the CPU's own change under a 1e-6 nudge
+     of the decoder's first convolution; (c) bf16 reconstruction at batch 8
+     of 17 x 128 x 128 through `reconstruct`: clips/s, exactly 2 launches of
+     the wide-code kernel per `cosmos` forward and none per `cosmos_fsq`,
+     peak memory, device time by category; (d) `encode_indices` then
+     `decode_indices` at batch 8 in bf16 against the forward: the same
+     indices, the decoder's inputs equal but for the straight-through
+     sum's rounding, the video within 5e-2 of the scale.
 Every kernel phase also times one PyTorch call that computes the same
 function (`library_ms`: SDPA and its autograd backward, a matmul + argmax,
 `index_put_`), which the port uses nowhere, and computes the kernel's bound
@@ -250,6 +276,7 @@ import copy
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -263,8 +290,14 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 
 
+_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """`msg` on stdout; its start on stderr after the run's elapsed seconds
+    (a timeline beside the trainers' own stamped lines there)."""
     print(msg, flush=True)
+    print(f"[{time.perf_counter() - _START:7.1f} s] {msg[:120]}", file=sys.stderr, flush=True)
 
 
 def require(ok: bool, what: str) -> None:
@@ -384,7 +417,7 @@ def phase_build() -> None:
     # dQ, dK/dV) per head dim, the chunk kernel per cache type and number of 16-row tiles, the
     # decode kernel per cache type and KV heads per block, the streaming int8
     # matmul per x type and number of 8-row tiles, the wgmma int8 matmul, the
-    # 3xTF32 VQ search per code dim and mode;
+    # 3xTF32 VQ search per code dim and mode and its wide-code kernel;
     # accumulators spilled to local memory would be re-read on every product
     expected = {f"flash_{k}_sm90_kernel<{d}>" for k in ("fwd", "bwd_dq", "bwd_dkv") for d in (32, 64)}
     # the two forwards' instances with segment ids
@@ -396,7 +429,7 @@ def phase_build() -> None:
     expected |= {f"flash_{k}_tf32x3_kernel<{d}>" for k in ("fwd", "bwd_dq", "bwd_dkv")
                  for d in (32, 64)} | {"w8_sm90_kernel"}
     expected |= {f"vq_tc_kernel<{d}, {mode}>" for d in (4, 8, 16, 24, 32)
-                 for mode in ("argmax", "gumbel")}
+                 for mode in ("argmax", "gumbel")} | {"vq_gemm_kernel"}
     types = {"13__nv_bfloat16": "bf16", "a": "int8", "f": "fp32"}
     seen = set()
     for name, (regs, spill) in sorted(_build.kernel_resources(build.log).items()):
@@ -405,6 +438,8 @@ def phase_build() -> None:
             kernel = f"{m.group(1)}<{m.group(2)}{', seg' if m.group(3) == '1' else ''}>"
         elif "w8_sm90_kernel" in name:
             kernel = "w8_sm90_kernel"
+        elif "vq_gemm_kernel" in name:
+            kernel = "vq_gemm_kernel"
         elif m := re.search(r"vq_tc_kernelILi(\d+)ELb([01])E", name):
             kernel = f"vq_tc_kernel<{m.group(1)}, {('argmax', 'gumbel')[int(m.group(2))]}>"
         elif m := re.search(r"(chunk_attn_sm90_kernel|w8_stream_kernel|decode_attn_sm90_kernel)"
@@ -2005,6 +2040,9 @@ def _perturb(model, seed: int) -> None:
 
 
 def phase_e2e_fp32():
+    """The flagship tokenizer at full width in fp32 (TF32 off), card against
+    CPU at PARITY_DEPTH + PARITY_DEPTH of its 12 + 12 layers (the run's
+    budget). Returns the fp32 card model at its whole depth."""
     import torch
 
     from video_tokenizer_tpu_torch import flagship_tokenizer
@@ -2013,6 +2051,7 @@ def phase_e2e_fp32():
     _perturb(model, SEED + 9)
     model.eval()
     n_params = sum(p.numel() for p in model.parameters())
+    put_back = _cut_depth(model, PARITY_DEPTH)
     x = torch.rand(1, 3, 16, 128, 128, generator=torch.Generator().manual_seed(SEED + 2))
     t0 = time.perf_counter()
     with torch.inference_mode():
@@ -2028,15 +2067,16 @@ def phase_e2e_fp32():
     dec_err = (got_dec.cpu() - ref_dec).abs().max().item()
     scale = ref_dec.abs().max().item()
     pred_err = (got["pred_frames"].cpu() - ref["pred_frames"]).abs().max().item()
-    log(f"[e2e fp32] flagship {n_params:,} params, S = 2048, batch 1, TF32 off; "
-        f"CPU plain path {cpu_s:.1f} s")
+    log(f"[e2e fp32] flagship {n_params:,} params, S = 2048, batch 1, {PARITY_DEPTH} + "
+        f"{PARITY_DEPTH} of the 12 + 12 layers, TF32 off; CPU plain path {cpu_s:.1f} s")
     log(f"[e2e fp32] bottleneck_rep agreement {agree:.4%} (tol >= 99%); "
         f"decode_from_bottleneck max|card-cpu| {dec_err:.3e} vs 1e-3 * max|ref| = {1e-3 * scale:.3e}; "
         f"pred_frames max|card-cpu| {pred_err:.3e}")
     require(tuple(got["pred_frames"].shape) == (1, 3, 16, 128, 128), "fp32 pred_frames shape")
     require(agree >= 0.99, f"bottleneck_rep agreement {agree}")
     require(dec_err <= 1e-3 * scale, f"decode_from_bottleneck error {dec_err} > {1e-3 * scale}")
-    return model
+    put_back()
+    return model.cuda()
 
 
 def phase_e2e_bf16(model_fp32, records: dict) -> None:
@@ -2095,12 +2135,13 @@ def phase_e2e_bf16(model_fp32, records: dict) -> None:
 
 
 def phase_ar_fp32(records: dict):
-    """Full-width prior in fp32, card vs CPU: prefill + 16 decode steps whose
-    inputs are the CPU's greedy tokens on both sides, so that a difference
-    in one step does not compound. Three ways: fp32 weights; int8 weights
-    (`quantize_model`, fp32 activations); int8 weights with an int8 KV
-    cache, whose rows are quantised on the device and written at a device
-    position. Returns the fp32 card model."""
+    """Full-width prior in fp32, card vs CPU at PARITY_DEPTH of its 30 layers
+    (the run's budget): prefill + 16 decode steps whose inputs are the CPU's
+    greedy tokens on both sides, so that a difference in one step does not
+    compound. Three ways: fp32 weights; int8 weights (`quantize_model`, fp32
+    activations); int8 weights with an int8 KV cache, whose rows are
+    quantised on the device and written at a device position. Returns the
+    fp32 card model at its whole depth."""
     import torch
 
     from video_tokenizer_tpu_torch import flagship_ar
@@ -2114,6 +2155,9 @@ def phase_ar_fp32(records: dict):
     _perturb(model, SEED + 21)
     qmodel = quantize_model(model)
     n_params = sum(p.numel() for p in model.parameters())
+    whole = [(m, m.layers) for m in (model, qmodel)]
+    for m, layers in whole:
+        m.layers = layers[:PARITY_DEPTH]
     cond = torch.tensor([3, 7, 50, 101])  # 101 is the null (CFG) class
     steps = 16
 
@@ -2153,8 +2197,9 @@ def phase_ar_fp32(records: dict):
         err = (got - ref).abs().max().item()
         scale = ref.abs().max().item()
         agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
-        log(f"[ar fp32] {name}: llama-abs-LP {n_params:,} params, batch {len(cond)}, prefill + "
-            f"{steps} forced decode steps, TF32 off; CPU plain path {cpu_s:.1f} s")
+        log(f"[ar fp32] {name}: llama-abs-LP {n_params:,} params at {PARITY_DEPTH} of its 30 "
+            f"layers, batch {len(cond)}, prefill + {steps} forced decode steps, TF32 off; CPU "
+            f"plain path {cpu_s:.1f} s")
         log(f"[ar fp32] {name}: max|card-cpu| logit {err:.3e} = {err / scale:.2e} of "
             f"max|logit| {scale:.3e} (tol {tol:g}); argmax agreement {agree:.2%} "
             f"(tol >= {min_agree:.0%})")
@@ -2185,15 +2230,18 @@ def phase_ar_fp32(records: dict):
     # kernel, each after its layer's row write by csrc/cache_update.cu
     n, n_sm90 = decode_attention.launches, decode_attention.launches_sm90
     n_rows, n_fused = write_rows_per_row.launches, decode_attention.launches_fused
+    want = 3 * steps * PARITY_DEPTH
     log(f"[ar fp32] {n} decode attentions on the card, {n_sm90} by decode_attn_sm90_kernel "
-        f"(expect {3 * steps * 30} and 0: fp32 queries); {n_rows} row writes by "
-        f"write_rows_per_row, {n_fused} fused (expect {3 * steps * 30} and 0)")
-    require(n == 3 * steps * 30 and n_sm90 == 0, "AR fp32: decode attention off the earlier kernel")
-    require(n_rows == 3 * steps * 30 and n_fused == 0, "AR fp32: row writes off write_rows_per_row")
+        f"(expect {want} and 0: fp32 queries); {n_rows} row writes by "
+        f"write_rows_per_row, {n_fused} fused (expect {want} and 0)")
+    require(n == want and n_sm90 == 0, "AR fp32: decode attention off the earlier kernel")
+    require(n_rows == want and n_fused == 0, "AR fp32: row writes off write_rows_per_row")
     records["decode_attention_split"]["launches"] = n
     records["cache_update"]["launches"] = n_rows
-    del qmodel
-    return model
+    for m, layers in whole:
+        m.layers = layers
+    del qmodel, whole
+    return model.cuda()
 
 
 def _kernels_in(fn) -> dict:
@@ -2824,19 +2872,25 @@ def _trainer(cfg: dict, device: str):
 
 
 def phase_train_fp32(tmp: Path) -> None:
-    """One train step of the full-width flagship generator, discriminator and
-    LPIPS in fp32 (TF32 off) at batch 1, on the card and on the CPU (the plain
-    versions) from the same perturbed weights and the same generators (so the
-    same VQ seed and label noise); the discriminator trains on this step."""
+    """One train step of the flagship generator, discriminator and LPIPS at
+    full width in fp32 (TF32 off) at batch 1, on the card and on the CPU (the
+    plain versions) from the same perturbed weights and the same generators
+    (so the same VQ seed and label noise), at PARITY_DEPTH + PARITY_DEPTH of
+    the generator's 12 + 12 layers and PARITY_DEPTH of the discriminator's 8
+    (the whole depth until the Cosmos phase took the script past its 1200 s:
+    a CPU side of 44.6 s on a slow host); the discriminator trains on this
+    step."""
     import numpy as np
     import torch
 
     cfg = _train_cfg(tmp, 1, False)
-    cfg["loss"]["args"]["d_update_freq"] = 1
+    cfg["loss"]["args"].update(d_update_freq=1, disc_tran_n_layers=PARITY_DEPTH)
     trainers = {}
     for device in ("cpu", "cuda"):
         cfg = {**cfg, "save_dir": str(tmp / f"fp32_{device}")}
         trainers[device] = _trainer(cfg, device)
+        _cut_depth(trainers[device].model, PARITY_DEPTH)
+        trainers[device].opt_g.param_groups[0]["params"] = list(trainers[device].model.parameters())
     cpu, gpu = trainers["cpu"], trainers["cuda"]
     _perturb(cpu.model, SEED + 40)
     _perturb(cpu.disc, SEED + 41)
@@ -2859,7 +2913,9 @@ def phase_train_fp32(tmp: Path) -> None:
                    for k in loss_keys)
     log(f"[train fp32] flagship generator {sum(p.numel() for p in cpu.model.parameters()):,} + "
         f"discriminator {sum(p.numel() for p in cpu.disc.parameters()):,} + LPIPS params, batch 1, "
-        f"TF32 off: CPU step (plain versions) {secs['cpu']:.1f} s, card step {secs['cuda']:.2f} s")
+        f"{PARITY_DEPTH} + {PARITY_DEPTH} of the 12 + 12 layers, {PARITY_DEPTH} of the "
+        f"discriminator's 8, TF32 off: CPU step (plain versions) {secs['cpu']:.1f} s, card step "
+        f"{secs['cuda']:.2f} s")
     log(f"[train fp32] VQ indices agree on {agree:.4%} (tol >= 99.9%); losses "
         + ", ".join(f"{k} {infos['cuda'][k]:.6g}/{infos['cpu'][k]:.6g}" for k in loss_keys)
         + f" (card/CPU; largest relative difference {loss_err:.2e}, tol 2e-4)")
@@ -2869,13 +2925,15 @@ def phase_train_fp32(tmp: Path) -> None:
     # bounds: ~10x the readings on an H100 (losses 1.6e-5 apart, gradients at
     # most 7.1e-5 of their scale, with 100% of the VQ indices equal)
     require(loss_err <= 2e-4, f"train fp32: losses differ by {loss_err}")
-    named = ("x_embedder.proj.weight", "encoder.blocks.6.attn.qkv.weight",
-             "bottleneck.regularizer.embedding.weight", "decoder.blocks.11.mlp.fc2.weight",
+    last = PARITY_DEPTH - 1
+    named = ("x_embedder.proj.weight", f"encoder.blocks.{last}.attn.qkv.weight",
+             "bottleneck.regularizer.embedding.weight", f"decoder.blocks.{last}.mlp.fc2.weight",
              "final_layer.linear.weight")
     worst = 0.0
     for mod, names in ((("model", gpu.model, cpu.model), named),
-                       (("disc", gpu.disc, cpu.disc), ("transformer_encoder.blocks.3.attn.qkv.weight",
-                                                       "x_embedder.proj.weight"))):
+                       (("disc", gpu.disc, cpu.disc), (
+                           f"transformer_encoder.blocks.{last}.attn.qkv.weight",
+                           "x_embedder.proj.weight"))):
         tag, gm, cm = mod
         gp, cp = dict(gm.named_parameters()), dict(cm.named_parameters())
         for name in names:
@@ -2896,7 +2954,7 @@ _KERNEL_CATEGORIES = (  # first match wins, on the kernel's lower-cased name
     ("flash_bwd_dq", ("flash_bwd_dq_kernel", "flash_bwd_dq_sm90_kernel",
                       "flash_bwd_dq_tf32x3_kernel")),
     ("flash_fwd", ("flash_fwd_kernel", "flash_fwd_sm90_kernel", "flash_fwd_tf32x3_kernel")),
-    ("vq_argmax", ("vq_tc_kernel", "vq_argmax_kernel")),
+    ("vq_argmax", ("vq_tc_kernel", "vq_argmax_kernel", "vq_gemm_kernel")),
     ("conv (LPIPS)", ("conv", "cudnn", "implicit", "winograd", "fprop", "dgrad", "wgrad")),
     ("gemm", ("gemm", "xmma", "cutlass", "nvjet", "sm90_")),
     ("layer_norm", ("layer_norm",)),
@@ -3119,6 +3177,11 @@ def _read_png(path: Path):
     return rows[:, 1:].reshape(h, w, 3)
 
 
+# the prior's depth in phase 18's train CLI run: its epoch, eval and 4 x 1024
+# sampled tokens (the run's budget: 58.6 s at the whole depth on a slow host)
+AR_CLI_DEPTH = 8
+
+
 def phase_ar_train(tmp: Path, records: dict, real_stats: Path) -> None:
     """The AR prior's two trainers (class-conditional and frame-prediction)
     at the 632M llama-abs-LP prior's full width, fed by the frozen flagship
@@ -3138,8 +3201,10 @@ def phase_ar_train(tmp: Path, records: dict, real_stats: Path) -> None:
       (d) exact launch counts per step: 42 flash forwards (12 in the frozen
           encoder, 30 in the prior), 30 dQ and 30 dK/dV, all on the 3xTF32
           kernels, 1 VQ search on vq_tc_kernel, no int8 matmul;
-      (e) the train CLI's entry (`train.main`) on cfgs/larp_ar.yaml at batch 8
-          through one epoch of null128 (16 steps), eval and `vis_epoch`: the
+      (e) the train CLI's entry (`train.main`) on cfgs/larp_ar.yaml at batch 8,
+          the prior at its full width and AR_CLI_DEPTH of its 30 layers (the
+          run's budget; (c) trains the whole depth), through one epoch of
+          null128 (16 steps), eval and `vis_epoch`: the
           sample grid decodes to 4 x 128 by 8 x 128 pixels and is not
           constant, the samples' FVD against `real_stats` (phase 20's reals,
           `fvd_real_stats_path` with `force_fvd`) is logged as
@@ -3314,6 +3379,9 @@ def phase_ar_train(tmp: Path, records: dict, real_stats: Path) -> None:
                      "-b", "8", "-j", "0", "--device", "cuda", "--manualSeed", str(SEED),
                      "--out_path", str(out), "--opts", "max_epoch", "1", "eval_epoch", "1",
                      "vis_epoch", "1", "vae.checkpoint", str(vae_dir),
+                     # llama-abs-LP's width and heads (the flat registration takes a depth)
+                     "model.name", "larp_ar", "model.args.n_layer", str(AR_CLI_DEPTH),
+                     "model.args.n_head", "20", "model.args.dim", "1280",
                      "test_dataset.csv_paths.ucf101_val", "null128",
                      "fvd_real_stats_path", str(real_stats), "force_fvd", "true"])
     torch.cuda.synchronize()
@@ -3333,7 +3401,8 @@ def phase_ar_train(tmp: Path, records: dict, real_stats: Path) -> None:
     seq = generate(model, torch.tensor([3, 40], device="cuda"), 16,
                    torch.Generator(device="cuda").manual_seed(SEED + 83))
     torch.cuda.synchronize()
-    log(f"[ar train cli] train.main on cfgs/larp_ar.yaml, batch 8, one epoch of null128: "
+    log(f"[ar train cli] train.main on cfgs/larp_ar.yaml, the prior at {AR_CLI_DEPTH} of its 30 "
+        f"layers, batch 8, one epoch of null128: "
         f"{wall:.1f} s; train and eval losses {losses}; visualize_epoch sampled 4 x 1024 tokens "
         f"with {n_decode} decode attentions and {n_rows} row writes (fp32 cache: the earlier "
         f"kernels), grid {grid_text}; sample gFVD {gfvd}; epoch-final loaded by "
@@ -3345,7 +3414,7 @@ def phase_ar_train(tmp: Path, records: dict, real_stats: Path) -> None:
             and all(math.isfinite(v) for v in losses), f"ar train cli: losses {losses}")
     require(grid is not None and grid.shape == (4 * 128, 8 * 128, 3) and grid.std() > 0,
             f"ar train cli: sample grid {grid_text}")
-    require(n_decode == 30 * 1023 and n_rows == 30 * 1023,
+    require(n_decode == AR_CLI_DEPTH * 1023 and n_rows == AR_CLI_DEPTH * 1023,
             f"ar train cli: {n_decode} decode attentions, {n_rows} row writes")
     require(tuple(seq.shape) == (2, 16) and int(seq.min()) >= 0 and int(seq.max()) < 8192,
             f"ar train cli: sampled codes {seq.tolist()}")
@@ -3359,8 +3428,6 @@ def phase_ar_train(tmp: Path, records: dict, real_stats: Path) -> None:
 
 _MODEL_NEW_CFGS = ("larp_tokenizer_large", "larp_tokenizerf256t1024", "larp_tokenizerf256t768",
                    "larp_tokenizerf256t512")
-_MODEL_NEW_PARITY_DEPTH = {"larp_tokenizer_large": 4, "larp_tokenizerf256t768": 4,
-                           "larp_tokenizerf256t512": 4}
 
 
 def _model_new(tmp: Path, name: str, dtype, seed: int, perturb: bool = True):
@@ -3385,9 +3452,9 @@ def phase_model_new(tmp: Path, records: dict) -> None:
       (a) fp32 (TF32 off), batch 1, the four shipped configs built through
           their yaml (cfgs/larp_tokenizer_large.yaml and
           larp_tokenizerf256t{1024,768,512}.yaml), card against the same
-          weights on the CPU through the plain versions, autoencoder_large at
-          4 + 4 of its 24 + 24 layers and f256t768 / t512 at 4 of each
-          stack's 12 (the run's budget; f256t1024a whole): FSQ indices (and the
+          weights on the CPU through the plain versions, each stack at
+          PARITY_DEPTH of its layers (24 in autoencoder_large's, 12 in
+          f256t768 / t512's, 6 in f256t1024a's; the run's budget): FSQ indices (and the
           first frame's) >= 99% equal; decode_from_bottleneck of the CPU's
           indices within 1e-3 of the scale, or 5x the CPU's own change under a
           1e-6 nudge of proj_in where these random weights amplify rounding
@@ -3403,8 +3470,9 @@ def phase_model_new(tmp: Path, records: dict) -> None:
           device time by kernel category;
       (c) one fp32 training step at batch 1 of cfgs/larp_tokenizer_large.yaml
           through the port's trainer (generator, transformer discriminator,
-          LPIPS), card against CPU from the same weights, at 8 + 8 of the
-          24 + 24 layers (`_model_new_train_parity` says why): losses, FSQ
+          LPIPS), card against CPU from the same weights, at PARITY_DEPTH +
+          PARITY_DEPTH of the 24 + 24 layers (`_model_new_train_parity` says
+          why): losses, FSQ
           indices, named gradients, with phase 11's bounds;
       (d) training throughput through the trainer (`_train_throughput`):
           bf16 at batch 8, the config's fp32 at batch 4; per step 72 flash
@@ -3440,9 +3508,8 @@ def _model_new_parity(tmp: Path, records: dict) -> dict:
     # that yardstick (measured here on the CPU; the card read 2.4x), and
     # each decoder's first and last blocks are held on the CPU's own inputs
     # to 1e-5 of their output's scale, where no depth amplifies anything
-    # (the budget: the CPU forwards of the three deep configs run at cut depth,
-    # 4 of autoencoder_large's 24 + 24 layers and 4 of each f256t768 / t512
-    # stack's 12, at full width; the bf16 phases below keep the whole depth)
+    # (the budget: the CPU forwards run at PARITY_DEPTH of each stack, at full
+    # width; the bf16 phases below keep the whole depth)
     weights, layers = {}, {}
     x = torch.rand(1, 3, 16, 128, 128, generator=torch.Generator().manual_seed(SEED + 100))
     for i, name in enumerate(_MODEL_NEW_CFGS):
@@ -3451,9 +3518,7 @@ def _model_new_parity(tmp: Path, records: dict) -> dict:
         n_params = sum(p.numel() for p in model.parameters())
         if name in ("larp_tokenizer_large", "larp_tokenizerf256t768"):
             weights[name] = {k: v.clone() for k, v in model.state_dict().items()}
-        depth = _MODEL_NEW_PARITY_DEPTH.get(name)
-        if depth is not None:
-            _cut_depth(model, depth)
+        _cut_depth(model, PARITY_DEPTH)
         stacks = (model.encoder, getattr(model, "encoder1", None), model.decoder)
         layers[name] = sum(m.blocks.depth for m in stacks if m is not None)
         blocks = model.decoder.blocks
@@ -3602,27 +3667,30 @@ def _cut_depth(model, depth: int):
     return lambda: [f() for f in reversed(undo)]
 
 
-# the depth of each stack in the card-vs-CPU comparisons of phases 21, 22 and
-# 24, of phase 18's two steps and of phase 19 (a)'s autoencoder_large, at full
-# width (the run's budget: the CPU side's time grows with depth, and
-# deep random stacks only amplify fp32 rounding, phase 19 (a)); the card's own
-# runs there keep the whole depth
-PARITY_DEPTH = 4
+# the depth of each stack in the card-vs-CPU comparisons, at full width: of
+# phases 6, 8, 11, 19 (a) / (c), 21, 22, 23 (b) / (c) and 24 and of phase
+# 18's two steps (the run's budget: the CPU side's time grows with depth,
+# and deep random stacks only amplify fp32 rounding, phase 19 (a); 4 until
+# the Cosmos phase took the script past its 1200 s); the card's own runs
+# there keep the whole depth
+PARITY_DEPTH = 2
 
 
 def _model_new_train_parity(tmp: Path, records: dict) -> None:
     """Phase 19 (c): one fp32 step of cfgs/larp_tokenizer_large.yaml, card
-    against CPU, at full width and 8 + 8 of the 24 + 24 layers: deep, these
-    random weights amplify fp32 rounding (phase (a)'s yardstick ~2e-3 of the
-    output at 24 + 24; in a 24 + 24 step 0.5% of the FSQ indices flipped and
-    the losses moved 6.5e-3; at 12 + 12 the indices and losses agreed, the
-    gradients to 7.6e-4 of their scale, near the 1e-3 bound)."""
+    against CPU, at full width and PARITY_DEPTH + PARITY_DEPTH of the 24 + 24
+    layers (8 + 8 before the run's budget took it to PARITY_DEPTH): deep,
+    these random weights amplify fp32 rounding (phase (a)'s yardstick ~2e-3
+    of the output at 24 + 24; in a 24 + 24 step 0.5% of the FSQ indices
+    flipped and the losses moved 6.5e-3; at 12 + 12 the indices and losses
+    agreed, the gradients to 7.6e-4 of their scale, near the 1e-3 bound)."""
+    last = PARITY_DEPTH - 1
     run = _train_step_parity(
         "model_new train fp32", tmp / "model_new_fp32", _load_cfg("larp_tokenizer_large", tmp, 1),
-        8, "24 + 24", SEED + 110, (
-            "encoder.proj_in.weight", "encoder.blocks.attn_4.to_qkv.weight",
-            "encoder.blocks.ffd_7.proj_out.weight", "decoder.blocks.attn_0.q_norm.weight",
-            "decoder.blocks.ffd_7.proj_in.weight", "decoder.proj_out.weight"))
+        PARITY_DEPTH, "24 + 24", SEED + 110, (
+            "encoder.proj_in.weight", f"encoder.blocks.attn_{last}.to_qkv.weight",
+            f"encoder.blocks.ffd_{last}.proj_out.weight", "decoder.blocks.attn_0.q_norm.weight",
+            f"decoder.blocks.ffd_{last}.proj_in.weight", "decoder.proj_out.weight"))
     records["model_new_larp_tokenizer_large"].update(
         train_parity_loss_rel=run["loss_rel"], train_parity_grad_rel=run["grad_rel"],
         train_parity_cpu_s=run["cpu_s"])
@@ -3632,13 +3700,14 @@ def _train_step_parity(tag: str, save_dir: Path, cfg: dict, depth: int, whole: s
                        model_grads: tuple) -> dict:
     """One fp32 step at batch 1 of `cfg` through the port's trainer (the
     discriminator trains on it), card against CPU from the same perturbed
-    weights, at `depth` of each stack's `whole` layers: FSQ indices >= 99.9%
+    weights, at `depth` of each stack's `whole` layers and `depth` of the
+    discriminator's 8: FSQ indices >= 99.9%
     equal, losses within 2e-4 of each other, the tokenizer's `model_grads`
     and two discriminator gradients within 1e-3 of their scale."""
     import numpy as np
     import torch
 
-    cfg["loss"]["args"]["d_update_freq"] = 1
+    cfg["loss"]["args"].update(d_update_freq=1, disc_tran_n_layers=depth)
     pair = {d: _trainer({**cfg, "save_dir": str(save_dir / d)}, d) for d in ("cpu", "cuda")}
     cpu, gpu = pair["cpu"], pair["cuda"]
     for tr in (cpu, gpu):
@@ -3665,7 +3734,8 @@ def _train_step_parity(tag: str, save_dir: Path, cfg: dict, depth: int, whole: s
                    for k in loss_keys)
     log(f"[{tag}] {cfg['model']['name']} {sum(p.numel() for p in cpu.model.parameters()):,} + "
         f"discriminator {sum(p.numel() for p in cpu.disc.parameters()):,} + LPIPS params, "
-        f"batch 1, {depth} + {depth} of the {whole} layers, TF32 off: CPU step (plain versions) "
+        f"batch 1, {depth} + {depth} of the {whole} layers, {depth} of the discriminator's 8, "
+        f"TF32 off: CPU step (plain versions) "
         f"{secs['cpu']:.1f} s, card step {secs['cuda']:.2f} s; FSQ indices agree on {agree:.4%} "
         f"(tol >= 99.9%); losses "
         + ", ".join(f"{k} {infos['cuda'][k]:.6g}/{infos['cpu'][k]:.6g}" for k in loss_keys)
@@ -3677,7 +3747,7 @@ def _train_step_parity(tag: str, save_dir: Path, cfg: dict, depth: int, whole: s
     worst = 0.0
     for part, gm, cm, names in (
             ("model", gpu.model, cpu.model, model_grads),
-            ("disc", gpu.disc, cpu.disc, ("transformer_encoder.blocks.3.attn.qkv.weight",
+            ("disc", gpu.disc, cpu.disc, (f"transformer_encoder.blocks.{depth - 1}.attn.qkv.weight",
                                           "x_embedder.proj.weight"))):
         gp, cp = dict(gm.named_parameters()), dict(cm.named_parameters())
         for pname in names:
@@ -3808,7 +3878,8 @@ def phase_fvd(tmp: Path, records: dict) -> Path:
           and 8 of the VQ search on vq_tc_kernel; FVD of the reals against
           themselves <= 1e-6 of trace(C), the reconstruction FVD finite and
           > 0; first, the evaluator on the first 2 clips in fp32 on the card
-          against the CPU: mse / psnr / lpips within 1e-3 of their scale;
+          against the CPU, the tokenizer at PARITY_DEPTH + PARITY_DEPTH of its
+          12 + 12 layers: mse / psnr / lpips within 1e-3 of their scale;
       (c) the merge CLI on (b)'s features saved as two shards (batches 0-3 and
           4-7) prints (b)'s FVD;
       (d) the tokenizer trainer (`train.main`, cfgs/larp_tokenizer.yaml, bf16,
@@ -3898,8 +3969,12 @@ def phase_fvd(tmp: Path, records: dict) -> Path:
     torch.save({"model": {"name": "larp_tokenizer", "args": FLAGSHIP_TOKENIZER,
                           "sd": model.state_dict()}}, pth)
 
-    # (b) first: 2 clips in fp32 through the evaluator, card against CPU
+    # (b) first: 2 clips in fp32 through the evaluator, card against CPU, the
+    # tokenizer at PARITY_DEPTH + PARITY_DEPTH of its 12 + 12 layers (the
+    # run's budget; the .pth above and the CLI below keep the whole depth)
     from video_tokenizer_tpu_torch.data import datasets
+
+    _cut_depth(model, PARITY_DEPTH)
 
     ds = datasets.make({"name": "video_dataset", "args": {
         "root_path": "data/metadata", "csv_file": "null128", "frame_num": 16, "crop_size": 128,
@@ -3914,7 +3989,8 @@ def phase_fvd(tmp: Path, records: dict) -> Path:
         secs[dev] = time.perf_counter() - t0
     rel = {k: abs(parity["cuda"][k] - parity["cpu"][k]) / abs(parity["cpu"][k])
            for k in ("mse", "psnr", "lpips")}
-    log(f"[fvd eval] fp32 evaluator, first 2 clips of null128: card {parity['cuda']} vs CPU "
+    log(f"[fvd eval] fp32 evaluator, first 2 clips of null128, the tokenizer at {PARITY_DEPTH} + "
+        f"{PARITY_DEPTH} of its 12 + 12 layers: card {parity['cuda']} vs CPU "
         f"{parity['cpu']}: relative {rel} (tol 1e-3); CPU {secs['cpu']:.1f} s")
     require(max(rel.values()) <= 1e-3, f"evaluator card vs CPU {rel}")
     del model, ev
@@ -4146,11 +4222,13 @@ def _rel_max(a, b) -> float:
     return (a.float().cpu() - b.float().cpu()).abs().max().item() / b.float().abs().max().item()
 
 
-def _reconstruction_rate(tag: str, model, n_flash: int, n_vq: int) -> dict:
-    """bf16 reconstruction at batch 8 through `reconstruct`: median of 5
-    batches after a warm-up, exact launch counts (every flash forward on the
-    wgmma kernel, every VQ on vq_tc_kernel), peak memory, device time by
-    kernel category over 3 profiled batches."""
+def _reconstruction_rate(tag: str, model, n_flash: int, n_vq: int, frames: int = 16,
+                         n_vq_gemm: int = 0) -> dict:
+    """bf16 reconstruction at batch 8 of `frames` x 128 x 128 through
+    `reconstruct`: median of 5 batches after a warm-up, exact launch counts
+    (every flash forward on the wgmma kernel, `n_vq` VQ searches on
+    vq_tc_kernel and `n_vq_gemm` on vq_gemm_kernel a batch), peak memory,
+    device time by kernel category over 3 profiled batches."""
     import numpy as np
     import torch
 
@@ -4159,13 +4237,13 @@ def _reconstruction_rate(tag: str, model, n_flash: int, n_vq: int) -> dict:
     from video_tokenizer_tpu_torch.reconstruct import make_clips, reconstruct
 
     B, iters = 8, 5
-    clips = torch.from_numpy(make_clips(np.random.default_rng(SEED), B, 16, 128)).cuda()
+    clips = torch.from_numpy(make_clips(np.random.default_rng(SEED), B, frames, 128)).cuda()
     reconstruct(model, clips)  # warm-up
     torch.cuda.synchronize()
     gc.collect()  # an earlier trainer in a reference cycle still holds its tensors
     torch.cuda.reset_peak_memory_stats()
     flash_attn_fwd.launches = flash_attn_fwd.launches_sm90 = 0
-    vq_argmax.launches = vq_argmax.launches_tc = 0
+    vq_argmax.launches = vq_argmax.launches_tc = vq_argmax.launches_gemm = 0
     times = []
     for _ in range(iters):
         t0 = time.perf_counter()
@@ -4173,14 +4251,15 @@ def _reconstruction_rate(tag: str, model, n_flash: int, n_vq: int) -> dict:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     n = {"flash": flash_attn_fwd.launches, "wgmma": flash_attn_fwd.launches_sm90,
-         "vq": vq_argmax.launches, "vq_tc": vq_argmax.launches_tc}
+         "vq": vq_argmax.launches, "vq_tc": vq_argmax.launches_tc,
+         "vq_gemm": vq_argmax.launches_gemm}
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     wall_ms, per_cat, n_events, _ = _profile_and_load(lambda: reconstruct(model, clips), 3)
     busy_ms = sum(per_cat.values()) / 1e3
     clips_per_s = B / statistics.median(times)
     mse = torch.mean((rec - clips) ** 2).item()
-    want = {"flash": n_flash * iters, "wgmma": n_flash * iters, "vq": n_vq * iters,
-            "vq_tc": n_vq * iters}
+    want = {"flash": n_flash * iters, "wgmma": n_flash * iters,
+            "vq": (n_vq + n_vq_gemm) * iters, "vq_tc": n_vq * iters, "vq_gemm": n_vq_gemm * iters}
     log(f"[{tag}] bf16 batch {B}: {', '.join(f'{t * 1e3:.1f}' for t in times)} ms; median "
         f"{statistics.median(times) * 1e3:.2f} ms = {clips_per_s:.2f} clips/s; peak memory "
         f"{peak_gb:.2f} GiB; mse {mse:.5f}; launches {n} (expect {want}); profiled 3 batches: "
@@ -4189,7 +4268,7 @@ def _reconstruction_rate(tag: str, model, n_flash: int, n_vq: int) -> dict:
         f"batch by category: " + ", ".join(
             f"{c} {us / 1e3 / 3:.2f} ({us / 1e3 / busy_ms:.1%})"
             for c, us in sorted(per_cat.items(), key=lambda kv: -kv[1])))
-    require(tuple(rec.shape) == (B, 3, 16, 128, 128) and torch.isfinite(rec).all().item(),
+    require(tuple(rec.shape) == (B, 3, frames, 128, 128) and torch.isfinite(rec).all().item(),
             f"{tag}: reconstruction")
     require(n == want, f"{tag}: launches {n}, expected {want}")
     return {"clips_per_s": clips_per_s, "peak_gib": peak_gb, "idle": 1 - busy_ms / wall_ms,
@@ -4200,7 +4279,7 @@ def _reconstruction_rate(tag: str, model, n_flash: int, n_vq: int) -> dict:
 def _larp_fsq_sq(tmp: Path, records: dict) -> None:
     """Phase 21 (b): cfgs/larp_tokenizer.yaml with `bottleneck_type` sq and
     fsq, seeded and perturbed (the frozen Leech codebook left as it is): fp32
-    card vs CPU at batch 1 at full width and 4 of the 12 + 12 layers (the
+    card vs CPU at batch 1 at full width and PARITY_DEPTH of each stack's 12 layers (the
     run's budget; deep random stacks only amplify rounding, phase 19 (a))
     (indices >= 99% equal, decode_from_bottleneck of the CPU's indices
     within 1e-3 of the scale, one VQ launch per encode on the sq path), then
@@ -4293,7 +4372,7 @@ def _centre_keep_head(model, x) -> None:
 def _stat_parity(tmp: Path, records: dict) -> None:
     """Phase 21 (c), first half: the STAT model, 185,850,633 parameters,
     perturbed; fp32 eval ('adaptive': probs > 0.5) card vs CPU at batch 1 at
-    full width and 4 of the 12 + 12 layers (the run's budget), the keep head
+    full width and PARITY_DEPTH of each stack's 12 layers (the run's budget), the keep head
     centred on that model: FSQ indices >= 99%, keep masks, the encoder's and
     the decoder's first and last blocks on the CPU's own inputs within 1e-5,
     decode_from_bottleneck of the CPU's indices within 1e-3 of the scale or
@@ -4381,13 +4460,15 @@ def _stat_train_parity(tmp: Path, records: dict) -> None:
     """Phase 21 (c): one fp32 step ('adaptive': Bernoulli masks, the STAT
     losses) of cfgs/larp_tokenizer_stat.yaml through the STAT trainer at
     batch 1, card vs CPU from the same weights and generators, at full width
-    and 4 + 4 of the 12 + 12 layers (`PARITY_DEPTH`): losses 2e-4, FSQ
-    indices >= 99.9%, gradients 1e-3."""
+    and PARITY_DEPTH + PARITY_DEPTH of the 12 + 12 layers, PARITY_DEPTH of
+    the discriminator's 8: losses 2e-4, FSQ indices >= 99.9%, gradients
+    1e-3."""
     import numpy as np
     import torch
 
+    last = PARITY_DEPTH - 1
     cfg = _load_cfg("larp_tokenizer_stat", tmp, 1)
-    cfg["loss"]["args"]["d_update_freq"] = 1
+    cfg["loss"]["args"].update(d_update_freq=1, disc_tran_n_layers=PARITY_DEPTH)
     pair = {d: _trainer({**cfg, "save_dir": str(tmp / f"stat_fp32_{d}")}, d)
             for d in ("cpu", "cuda")}
     cpu, gpu = pair["cpu"], pair["cuda"]
@@ -4419,8 +4500,8 @@ def _stat_train_parity(tmp: Path, records: dict) -> None:
     tokens = (infos["cuda"]["avg_tokens"], infos["cpu"]["avg_tokens"])
     log(f"[stat train fp32] autoencoder_stat {sum(p.numel() for p in cpu.model.parameters()):,} + "
         f"discriminator {sum(p.numel() for p in cpu.disc.parameters()):,} + LPIPS params, batch 1, "
-        f"{PARITY_DEPTH} + {PARITY_DEPTH} of the 12 + 12 layers, TF32 off, "
-        f"stage {cpu._stage}: CPU step {secs['cpu']:.1f} s, "
+        f"{PARITY_DEPTH} + {PARITY_DEPTH} of the 12 + 12 layers, {PARITY_DEPTH} of the "
+        f"discriminator's 8, TF32 off, stage {cpu._stage}: CPU step {secs['cpu']:.1f} s, "
         f"card step {secs['cuda']:.2f} s; FSQ indices agree on {agree:.4%} (tol >= 99.9%); "
         f"avg_tokens {tokens[0]:g}/{tokens[1]:g}; losses "
         + ", ".join(f"{k} {infos['cuda'][k]:.6g}/{infos['cpu'][k]:.6g}" for k in loss_keys)
@@ -4433,13 +4514,13 @@ def _stat_train_parity(tmp: Path, records: dict) -> None:
     worst = 0.0
     for tag, gm, cm, names in (
             ("model", gpu.model, cpu.model, ("encoder.proj_in.weight", "encoder.mask_token",
-                                             "encoder.blocks.attn_2.to_qkv.weight",
+                                             f"encoder.blocks.attn_{last}.to_qkv.weight",
                                              "encoder.prob_head.fc1.weight",
                                              "encoder.prob_head.fc2.weight",
                                              "encoder.proj_out.weight",
-                                             "decoder.blocks.ffd_3.proj_in.weight",
+                                             f"decoder.blocks.ffd_{last}.proj_in.weight",
                                              "decoder.proj_out.weight")),
-            ("disc", gpu.disc, cpu.disc, ("transformer_encoder.blocks.3.attn.qkv.weight",
+            ("disc", gpu.disc, cpu.disc, (f"transformer_encoder.blocks.{last}.attn.qkv.weight",
                                           "x_embedder.proj.weight"))):
         gp, cp = dict(gm.named_parameters()), dict(cm.named_parameters())
         for pname in names:
@@ -4636,8 +4717,8 @@ def phase_prior(tmp: Path, records: dict) -> None:
     the bf16 tokenizer, at 50x the learning rate:
       (a) gptc-S in fp32 (TF32 off), perturbed: `compute_prior_loss` from
           8 x 1024 latents and every gradient (its input's too), card against
-          CPU at 4 of its 12 layers (the run's budget); exactly 4 3xTF32
-          forwards, 4 dQ and 4 dK/dV; the whole model's forward and forward +
+          CPU at PARITY_DEPTH of its 12 layers (the run's budget); exactly
+          PARITY_DEPTH 3xTF32 forwards, dQ and dK/dV; the whole model's forward and forward +
           backward timed on the card; `decode_step` (6 rows, then 10 single
           steps) against the card's own full forward;
       (b) the recipe's attention shapes are phases 2 and 10's cases
@@ -4646,8 +4727,8 @@ def phase_prior(tmp: Path, records: dict) -> None:
           copied here;
       (c) one fp32 step of the recipe through the trainer at batch 1, card
           against CPU, the tokenizer at 2 + 2 of its 12 + 12 layers, gptc-S
-          and the 512 / 8 / 12 discriminator at 4 of their 12 layers
-          (`PARITY_DEPTH`), `prior_lr_mult` 50 and
+          and the 512 / 8 / 12 discriminator at PARITY_DEPTH of their 12
+          layers, `prior_lr_mult` 50 and
           `emb_lr_mult` 2 (three learning-rate groups): losses, VQ indices,
           named gradients, the parameters after the step per group; then a
           `grad_accum_steps` 2 step at batch 8 (deterministic VQ, the
@@ -4783,6 +4864,7 @@ def _recipe_step_parity(tmp: Path, rec: dict) -> None:
     import numpy as np
     import torch
 
+    last = PARITY_DEPTH - 1
     cfg = _recipe_cfg(tmp / "recipe_parity", 1, "use_amp", "false", "model.args.encoder_depth",
                       "2", "model.args.decoder_depth", "2", "loss.args.d_update_freq", "1",
                       "optimizer.emb_lr_mult", "2.0", "loss.args.disc_tran_n_layers",
@@ -4832,10 +4914,10 @@ def _recipe_step_parity(tmp: Path, rec: dict) -> None:
                 "x_embedder.proj.weight", "encoder.blocks.0.attn.qkv.weight",
                 "encoder.blocks.1.mlp.fc2.weight", "encoder_latent_query_embed",
                 "bottleneck.in_linear.weight", "prior.input_proj.weight", "prior.pos_emb",
-                "prior.blocks.0.query.weight", "prior.blocks.3.mlp_proj.weight",
+                "prior.blocks.0.query.weight", f"prior.blocks.{last}.mlp_proj.weight",
                 "prior.head.weight", "decoder.blocks.1.mlp.fc2.weight",
                 "final_layer.linear.weight")),
-            ("disc", gpu.disc, cpu.disc, ("transformer_encoder.blocks.3.attn.qkv.weight",
+            ("disc", gpu.disc, cpu.disc, (f"transformer_encoder.blocks.{last}.attn.qkv.weight",
                                           "x_embedder.proj.weight"))):
         gp, cp = dict(gm.named_parameters()), dict(cm.named_parameters())
         for pname in names:
@@ -5183,11 +5265,11 @@ R1_OPTIONS = {"spectral_norm": {"spectral_norm": True}, "r1": {"r1_gp_weight": 0
 
 def _r1_spectral(tmp: Path, rec: dict, records: dict) -> None:
     """Phase 23 (b). The discriminator of cfgs/larp_tokenizer.yaml (384 wide,
-    12 heads, 8 layers, temporal patch 4, patch 8: S = 1025), seeded and
-    perturbed, fp32 (TF32 off) at batch 2, card against CPU with each option:
-    the D loss, `r1_gp` and every discriminator gradient within 1e-3 of
-    their scale, 16 3xTF32 flash forwards, dQ and dK/dV without R1 and none
-    with it. Then bf16 trainer steps at batch 8 with each option alone
+    12 heads, temporal patch 4, patch 8: S = 1025) at PARITY_DEPTH of its 8
+    layers (the run's budget), seeded and perturbed, fp32 (TF32 off) at batch
+    2, card against CPU with each option: the D loss, `r1_gp` and every
+    discriminator gradient within 1e-3 of their scale, 2 x PARITY_DEPTH
+    3xTF32 flash forwards, dQ and dK/dV without R1 and none with it. Then bf16 trainer steps at batch 8 with each option alone
     (`_train_throughput`): s/step beside phase 12's plain step, exact launch
     counts: 48 forwards, 32 dQ and dK/dV, 16 more on a discriminator step
     without R1; 24, 24 and 0 with it (the tokenizer's 24 forwards and 24
@@ -5206,8 +5288,8 @@ def _r1_spectral(tmp: Path, rec: dict, records: dict) -> None:
     x = torch.from_numpy(rng.random((2, 3, 16, 128, 128), dtype=np.float32))
     y = torch.from_numpy(rng.random((2, 3, 16, 128, 128), dtype=np.float32))
     for i, (name, option) in enumerate(R1_OPTIONS.items()):
-        args = {**dict(loss_spec["args"]), **option, "dtype": torch.float32,
-                "generator": torch.Generator().manual_seed(SEED + 231)}
+        args = {**dict(loss_spec["args"]), **option, "disc_tran_n_layers": PARITY_DEPTH,
+                "dtype": torch.float32, "generator": torch.Generator().manual_seed(SEED + 231)}
         pair = {d: models.make({"name": loss_spec["name"], "args": args}) for d in ("cpu", "cuda")}
         _perturb(pair["cpu"].discriminator, SEED + 232 + i)
         pair["cuda"].load_state_dict(pair["cpu"].state_dict())
@@ -5234,8 +5316,9 @@ def _r1_spectral(tmp: Path, rec: dict, records: dict) -> None:
             rel = _rel_max(gp[pname].grad, c.grad)
             if not rel <= worst:
                 worst, worst_name = rel, pname
-        n = 0 if "r1_gp_weight" in option else 16
-        log(f"[disc {name}] the 384 / 12 / 8 discriminator (S = 1025) with {option}, fp32 batch 2, "
+        n = 0 if "r1_gp_weight" in option else 2 * PARITY_DEPTH
+        log(f"[disc {name}] the 384 / 12 / {PARITY_DEPTH} discriminator (S = 1025; 8 layers in "
+            f"the yaml) with {option}, fp32 batch 2, "
             f"TF32 off: CPU {secs['cpu']:.1f} s, card {secs['cuda']:.2f} s (first call); D loss "
             f"{out['cuda'][0]:.6g}/{out['cpu'][0]:.6g} (card/CPU, relative {loss_rel:.2e}), r1_gp "
             f"{out['cuda'][1]:.6g}/{out['cpu'][1]:.6g} ({r1_rel:.2e}); gradients max|card-cpu|/"
@@ -5265,11 +5348,12 @@ def _r1_spectral(tmp: Path, rec: dict, records: dict) -> None:
 def _model_basic(tmp: Path, rec: dict) -> None:
     """Phase 23 (c). Each of the five registrations at its full default
     width (small_thin: 768 wide, 5 + 5 layers, 12 heads of 64; FSQ), seeded
-    and perturbed, fp32 (TF32 off) at batch 1, card against CPU: FSQ indices
+    and perturbed, fp32 (TF32 off) at batch 1, card against CPU at
+    PARITY_DEPTH of each stack's 5 layers (the run's budget): FSQ indices
     (and the first frame's) >= 99% equal, decode_from_bottleneck of the CPU's
     indices within 1e-3 of the scale or 5x the CPU's own change under a 1e-6
     nudge of the decoder's proj_in (phase 19's rule), exact 3xTF32 flash
-    launches (10 a forward, 15 with the first-frame encoder); bf16
+    launches (one a layer); bf16
     reconstruction at batch 8 of `autoencoder` and `autoencoder_dualpatch`
     (`_reconstruction_rate`: 10 wgmma forwards a batch); one bf16 training
     run of `autoencoder` through the tokenizer trainer with
@@ -5291,6 +5375,11 @@ def _model_basic(tmp: Path, rec: dict) -> None:
         n_params = sum(p.numel() for p in model.parameters())
         if name in ("autoencoder", "autoencoder_dualpatch"):
             weights[name] = {k: v.clone() for k, v in model.state_dict().items()}
+        stacks = [m.stack for m in (model.encoder, getattr(model, "encoder1", None),
+                                    model.decoder) if m is not None]
+        for stack in stacks:
+            _cut_depth(stack, PARITY_DEPTH)
+        n_layers = sum(stack.blocks.depth for stack in stacks)
         t0 = time.perf_counter()
         with torch.inference_mode():
             ref = model(x)
@@ -5313,20 +5402,22 @@ def _model_basic(tmp: Path, rec: dict) -> None:
                  for g, r in zip(_fsq_indices(got), _fsq_indices(ref))]
         rec_err, rec_tol = _rel_max(dec, ref_dec), max(1e-3, 5 * yardstick)
         log(f"[model_basic fp32] {name} ({model.arch}, {n_params:,} params, "
-            f"{model.num_latent_tokens} latents, FSQ-{model.codebook_size}), batch 1, TF32 off: "
-            f"CPU plain path {cpu_s:.1f} s; FSQ indices agree "
+            f"{model.num_latent_tokens} latents, FSQ-{model.codebook_size}), batch 1, TF32 off, "
+            f"{n_layers} of its {BASIC_FLASH[name]} layers: CPU plain path {cpu_s:.1f} s; "
+            f"FSQ indices agree "
             f"{', '.join(f'{a:.4%}' for a in agree)} (tol >= 99%); decode_from_bottleneck(CPU "
             f"indices) {rec_err:.3e} of the scale (tol {rec_tol:.3e}: the CPU's own change under "
             f"proj_in x (1 + 1e-6) {yardstick:.3e}); pred_frames "
             f"{_rel_max(got['pred_frames'], ref['pred_frames']):.3e}; flash launches {n_fwd}, "
-            f"3xTF32 {n_tf32x3} (expect {BASIC_FLASH[name]})")
+            f"3xTF32 {n_tf32x3} (expect {n_layers})")
         require(tuple(got["pred_frames"].shape) == (1, 3, 16, 128, 128), f"{name}: shape")
         require(torch.isfinite(got["pred_frames"]).all().item(), f"{name}: non-finite output")
         require(min(agree) >= 0.99, f"{name}: FSQ index agreement {agree}")
         require(rec_err <= rec_tol, f"{name}: reconstruction error {rec_err} > {rec_tol}")
-        require(n_fwd == n_tf32x3 == BASIC_FLASH[name], f"{name}: flash {n_fwd}/{n_tf32x3}")
+        require(n_fwd == n_tf32x3 == n_layers, f"{name}: flash {n_fwd}/{n_tf32x3}")
         rec[name] = {"params": n_params, "cpu_s": cpu_s, "index_agree": min(agree),
-                     "rec_err_rel": rec_err, "yardstick": yardstick, "flash_per_forward": n_fwd}
+                     "rec_err_rel": rec_err, "yardstick": yardstick, "flash_per_forward": n_fwd,
+                     "layers": n_layers}
         del model, got, ref
         torch.cuda.empty_cache()
     for name, state in weights.items():
@@ -5629,6 +5720,228 @@ def _titok_train_throughput(tmp: Path, rec: dict, records: dict) -> None:
         records[k]["titok_launches"] = run["launches"][k]
 
 
+COSMOS_PARAMS = {"cosmos": 113_163_651, "cosmos_fsq": 113_101_193}  # the JAX init's counts
+COSMOS_FRAMES = 17  # 1 + 4k frames round-trip (16 give 13: tests/test_torch_cosmos.py)
+
+
+def phase_cosmos(records: dict) -> None:
+    """The Cosmos causal-CNN tokenizers at their registered width (base 128,
+    multipliers 1, 2, 4, 4, latent 256, strides 8 / 16, two temporal downs):
+      (a) the wide-code VQ kernel (`vq_gemm_kernel`) at SimVQ's d = 256,
+          K = 16,384 (codes of norm about one), M = 2048 and 8192 (one call
+          of a batch-8 forward, and four), against `vq_lookup_reference`:
+          indices equal but at fp64 score gaps under 1e-5, rows equal to a
+          planted code with exact copies (in one thread's pair of columns,
+          other n-tiles, tiles and splits) on the lowest copy, near-copies
+          within the gap rule; CUDA-graph times beside
+          `torch.addmm(bias, z, e.T).argmax(-1)` (TF32 off), the bound
+          (three TF32 products, and as fp32 FMAs), registers and spills;
+      (b) each family in fp32 (TF32 off), seeded, card against the same
+          weights on the CPU through the plain versions, on one 9 x 64 x 64
+          clip at full width (every width, the codebook and two motion
+          latents; 1/8 of a 17 x 128 x 128 clip's work): both index maps
+          >= 99% equal, `loss_q` within 1e-4 relative, `decode_indices` of the
+          CPU's indices within 1e-3 of the scale or 5x the CPU's own change
+          under a 1e-6 nudge of the decoder's first convolutions, exactly 2
+          wide-code VQ launches a `cosmos` forward and none a `cosmos_fsq`;
+      (c) bf16 reconstruction of batch 8 of 17 x 128 x 128 through
+          `reconstruct` (`_reconstruction_rate`): clips/s, exactly 2
+          `vq_gemm_kernel` launches a `cosmos` forward (10 in 5 batches) and
+          no VQ launch for `cosmos_fsq`, peak memory, device time by kernel
+          category;
+      (d) `encode_indices` then `decode_indices` at batch 8 in bf16 against
+          the forward: the same indices; the decoder's bf16 inputs by the two
+          routes (the forward's straight-through zc + (z_q - zc), the
+          codebook entry) within 2^-8 of their scale, one bf16 rounding
+          (the fp32 rounding of the straight-through sum moves some latents,
+          counted, to a neighbouring bf16 value); the video within 5e-2 of
+          the scale (the bf16 decoder carries those roundings to ~2e-2 of
+          it: 2.13e-2 measured at batch 8 of `cosmos`)."""
+    rec = records["cosmos"] = {}
+    _cosmos_vq(rec, records)
+    for name in COSMOS_PARAMS:
+        weights = _cosmos_parity(name, rec)
+        _cosmos_reconstruction(name, weights, rec, records)
+
+
+def _cosmos_vq(rec: dict, records: dict) -> None:
+    """Phase 25 (a)."""
+    import torch
+
+    from video_tokenizer_tpu_torch.ops import _build
+    from video_tokenizer_tpu_torch.ops.vq import vq_argmax, vq_kernel, vq_lookup_reference
+
+    regs = {n: r for n, r in _build.kernel_resources(_build.build().log).items()
+            if "vq_gemm_kernel" in n}
+    require(len(regs) == 1, f"vq_gemm_kernel in the build log: {regs}")
+    (n_regs, spill), = regs.values()
+    K, d = 16384, 256
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 500)
+    emb = torch.randn(K, d, generator=gen, device="cuda") / 16
+    # exact copies: within a thread's pair of columns (100, 101), other n-tiles
+    # and 64-code tiles of a split, other splits of the cluster (2048 codes each)
+    plants = {100: (101, 109, 130, 1100, 5000, K - 1), 2047: (2048, 12000), 8000: (8003,)}
+    for lo, dups in plants.items():
+        emb[list(dups)] = emb[lo].clone()
+    near = {300: 301, 9000: 15000}  # near-copies: score gaps far under 1e-5
+    for lo, hi in near.items():
+        emb[hi] = emb[lo] * (1 + 1e-7 * torch.randn(d, generator=gen, device="cuda"))
+    bias = -0.5 * (emb**2).sum(-1)
+    planted = torch.tensor([lo for lo in plants for _ in range(8)], device="cuda")
+    row = {"registers": n_regs, "spill_bytes": spill}
+    for M in (2048, 8192):
+        z = torch.randn(M, d, generator=gen, device="cuda") / 16
+        z[:len(planted)] = emb[planted]
+        z[len(planted):len(planted) + len(near)] = emb[list(near)]
+        got = vq_argmax(z, emb, bias)
+        torch.cuda.synchronize()
+        kernel = vq_argmax.last_kernel
+        require(kernel == vq_kernel(d, False) == "vq_gemm_kernel", f"vq simvq: ran {kernel}")
+        want = vq_lookup_reference(z, emb, bias)
+        diff = got != want
+        n_diff = int(diff.sum().item())
+        gap = _vq_gap(z[diff], emb, bias, got[diff], want[diff]).max().item() if n_diff else 0.0
+        ties_wrong = int((got[:len(planted)] != planted.to(torch.int32)).sum().item())
+        near_rows = got[len(planted):len(planted) + len(near)].tolist()
+        require(gap < 1e-5, f"vq simvq M={M}: an index differs at a score gap {gap}")
+        require(ties_wrong == 0, f"vq simvq M={M}: {ties_wrong} planted rows miss the lowest copy")
+        require(all(i in (lo, hi) for i, (lo, hi) in zip(near_rows, near.items())),
+                f"vq simvq M={M}: near-copies {near_rows}")
+        ms = min(graph_ms(lambda: vq_argmax(z, emb, bias), launches=10) for _ in range(2))
+        plain_ms = graph_ms(lambda: vq_lookup_reference(z, emb, bias), launches=3, replays=3)
+        # timed here, used nowhere (TF32 off: an fp32 product)
+        library_ms = graph_ms(lambda: torch.addmm(bias, z, emb.T).argmax(-1), launches=3,
+                              replays=3)
+        flops = 2 * M * K * d
+        bnd = bound(_nbytes(z, emb, bias, got), flops, "tf32x3")
+        fma = bound(_nbytes(z, emb, bias, got), flops, "fp32")
+        log(f"[cosmos vq] M={M} K={K} d={d} l2: {kernel} ({n_regs} registers, {spill} spill "
+            f"bytes) {n_diff} of {M} indices differ from plain (largest score gap {gap:.2e}, tol "
+            f"1e-5); {len(planted)} rows on planted exact copies, {ties_wrong} off the lowest; "
+            f"near-copies took {near_rows}; {ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+            f"({bnd['bound_by']}, three TF32 products; as fp32 FMAs {fma['bound_ms']:.4f} ms), "
+            f"plain {plain_ms:.4f} ms, library call (addmm + argmax, fp32) {library_ms:.4f} ms "
+            f"(device time, CUDA-graph replay)")
+        if M == 2048:
+            row.update(max_abs_err=gap, differ=n_diff, ms=ms, plain_ms=plain_ms,
+                       library_ms=library_ms, fma_bound_ms=fma["bound_ms"], **bnd)
+        else:
+            row.update(m8192_ms=ms, m8192_plain_ms=plain_ms, m8192_library_ms=library_ms,
+                       m8192_bound_ms=bnd["bound_ms"], m8192_fma_bound_ms=fma["bound_ms"],
+                       m8192_differ=n_diff, max_abs_err=max(row["max_abs_err"], gap))
+    records["vq_argmax_simvq"] = row
+    rec["vq"] = row
+
+
+def _cosmos_parity(name: str, rec: dict) -> dict:
+    """Phase 25 (b); returns the fp32 weights."""
+    import torch
+
+    from video_tokenizer_tpu_torch.ops.vq import vq_argmax
+    from video_tokenizer_tpu_torch.registry import models
+
+    model = models.make({"name": name}, args={
+        "generator": torch.Generator().manual_seed(SEED + 510)}).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    require(n_params == COSMOS_PARAMS[name],
+            f"{name}: {n_params:,} parameters, expected {COSMOS_PARAMS[name]:,}")
+    x = torch.rand(1, 3, 9, 64, 64, generator=torch.Generator().manual_seed(SEED + 511))
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        ref = model(x)
+        ref_dec = model.decode_indices(ref["ind_ref"], ref["ind_mot"])
+        # the yardstick: the decoder's first convolutions x (1 + 1e-6)
+        firsts = [model.decoder.ref_conv_in.conv3d.weight, model.decoder.mot_conv_in1.conv3d.weight]
+        kept = [w.clone() for w in firsts]
+        for w in firsts:
+            w.mul_(1 + 1e-6)
+        nudged = model.decode_indices(ref["ind_ref"], ref["ind_mot"])
+        for w, k in zip(firsts, kept):
+            w.copy_(k)
+    cpu_s = time.perf_counter() - t0
+    yardstick = _rel_max(nudged, ref_dec)
+    weights = {k: v.clone() for k, v in model.state_dict().items()}
+    gpu = model.cuda()
+    vq_argmax.launches = vq_argmax.launches_gemm = 0
+    with torch.inference_mode():
+        out = gpu(x.cuda())
+        n_vq = {"vq": vq_argmax.launches, "vq_gemm": vq_argmax.launches_gemm}
+        dec = gpu.decode_indices(ref["ind_ref"].cuda(), ref["ind_mot"].cuda())
+    torch.cuda.synchronize()
+    agree = {k: (out[k].cpu() == ref[k]).float().mean().item() for k in ("ind_ref", "ind_mot")}
+    loss_cpu = ref["loss_q"].item()
+    loss_err = abs(out["loss_q"].item() - loss_cpu) / max(abs(loss_cpu), 1e-12)
+    rec_err, rec_tol = _rel_max(dec, ref_dec), max(1e-3, 5 * yardstick)
+    want_vq = {"vq": 2, "vq_gemm": 2} if name == "cosmos" else {"vq": 0, "vq_gemm": 0}
+    log(f"[cosmos fp32] {name} ({n_params:,} params, full width, TF32 off) on 1 x 3 x 9 x 64 x 64:"
+        f" CPU plain path {cpu_s:.1f} s; indices agree ref {agree['ind_ref']:.4%}, motion "
+        f"{agree['ind_mot']:.4%} (tol >= 99%); loss_q {out['loss_q'].item():.7g} / {loss_cpu:.7g}"
+        f" (card/CPU, relative {loss_err:.2e}, tol 1e-4); decode of the CPU's indices "
+        f"max|card-cpu| {rec_err:.3e} of the scale (tol {rec_tol:.3e}: the CPU's own change under"
+        f" the first convolutions x (1 + 1e-6) {yardstick:.3e}); forward max|card-cpu| "
+        f"{_rel_max(out['pred_frames'], ref['pred_frames']):.3e} of the scale; VQ launches {n_vq} "
+        f"(expect {want_vq})")
+    require(tuple(out["pred_frames"].shape) == (1, 3, 9, 64, 64)
+            and torch.isfinite(out["pred_frames"]).all().item(), f"{name}: fp32 output")
+    require(min(agree.values()) >= 0.99, f"{name}: index agreement {agree}")
+    require(loss_err <= 1e-4, f"{name}: loss_q differs by {loss_err}")
+    require(rec_err <= rec_tol, f"{name}: decode error {rec_err} > {rec_tol}")
+    require(n_vq == want_vq, f"{name}: VQ launches {n_vq}, expected {want_vq}")
+    rec[f"{name}_fp32"] = {"params": n_params, "cpu_s": cpu_s, "index_agree": agree,
+                           "loss_rel": loss_err, "rec_err_rel": rec_err, "yardstick": yardstick,
+                           "vq_launches": n_vq}
+    del model, gpu
+    torch.cuda.empty_cache()
+    return weights
+
+
+def _cosmos_reconstruction(name: str, weights: dict, rec: dict, records: dict) -> None:
+    """Phase 25 (c) and (d)."""
+    import numpy as np
+    import torch
+
+    from video_tokenizer_tpu_torch.reconstruct import make_clips
+    from video_tokenizer_tpu_torch.registry import models
+
+    model = models.make({"name": name}, args={"dtype": torch.bfloat16})
+    model.load_state_dict(weights)
+    model.cuda().eval()
+    n_gemm = 2 if name == "cosmos" else 0
+    run = _reconstruction_rate(f"cosmos bf16 {name}", model, 0, 0, frames=COSMOS_FRAMES,
+                               n_vq_gemm=n_gemm)
+    rec[f"{name}_bf16_b8"] = run
+    if name == "cosmos":
+        records["vq_argmax_simvq"]["launches"] = run["launches"]["vq_gemm"]
+    x = torch.from_numpy(make_clips(np.random.default_rng(SEED + 2), 8, COSMOS_FRAMES, 128)).cuda()
+    with torch.inference_mode():
+        out = model(x)
+        ind_ref, ind_mot = model.encode_indices(x)
+        video = model.decode_indices(ind_ref, ind_mot)
+        # the decoder's bf16 inputs by the two routes: the forward's
+        # straight-through zc + (z_q - zc) and the codebook entry itself
+        z_ref, z_mot = model.encoder(x)
+        ins = [(model.quantizer(z)[0], model.quantizer.get_codebook_entry(i).to(torch.bfloat16))
+               for z, i in ((z_ref, ind_ref), (z_mot, ind_mot))]
+    same = torch.equal(ind_ref, out["ind_ref"]) and torch.equal(ind_mot, out["ind_mot"])
+    n_in = sum(a.numel() for a, _ in ins)
+    n_flip = sum(int((a != b).sum().item()) for a, b in ins)
+    lat_err = max(_rel_max(a, b) for a, b in ins)
+    err = _rel_max(video, out["pred_frames"])
+    log(f"[cosmos bf16] {name} batch 8: encode_indices {tuple(ind_ref.shape)} + "
+        f"{tuple(ind_mot.shape)} equal to the forward's: {same}; the decoder's bf16 inputs, "
+        f"straight-through against the codebook entries: {n_flip} of {n_in} differ, by at most "
+        f"{lat_err:.2e} of their scale (tol 2^-8, one bf16 rounding); decode_indices against the forward's "
+        f"pred_frames max|diff| {err:.3e} of the scale (tol 5e-2: the bf16 decoder carries "
+        f"those roundings to ~2e-2 of the scale)")
+    require(same, f"{name}: encode_indices differs from the forward's indices")
+    require(lat_err <= 2**-8, f"{name}: decoder inputs differ in {n_flip} of {n_in}, by up "
+                              f"to {lat_err} of their scale")
+    require(err <= 5e-2, f"{name}: decode_indices differs from the forward by {err}")
+    rec[f"{name}_decode_rel"] = err
+    del model
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not (ROOT / "video_tokenizer_tpu_torch").is_dir():
         print("chip_smoke.py: the video_tokenizer_tpu_torch package is not beside this script",
@@ -5645,7 +5958,8 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     log(smi)
-    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}, "
+        f"{torch.get_num_threads()} CPU threads of {os.cpu_count()} cores")
 
     # fp32 parity phases: full-precision matmuls and convolutions on the
     # card (cuDNN would round fp32 convolutions to TF32 by default)
@@ -5690,6 +6004,7 @@ def main() -> int:
         run(phase_prior, Path(tmp), records)
         run(phase_trainer_basic, Path(tmp), records)
         run(phase_titok, Path(tmp), records)
+        run(phase_cosmos, records)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 
     sources = {
@@ -5716,6 +6031,9 @@ def main() -> int:
                       "video_tokenizer_tpu/ops/vq.py:35"),
         # the same kernel at d = 24 over the Leech codebook (the sq bottleneck)
         "vq_argmax_leech": ("video_tokenizer_tpu_torch/csrc/vq_lookup_sm90.cu",
+                            "video_tokenizer_tpu/ops/vq.py:35"),
+        # the wide-code kernel at SimVQ's d = 256, K = 16,384 (the Cosmos tokenizer)
+        "vq_argmax_simvq": ("video_tokenizer_tpu_torch/csrc/vq_gemm_sm90.cu",
                             "video_tokenizer_tpu/ops/vq.py:35"),
         "decode_attention": ("video_tokenizer_tpu_torch/csrc/decode_attention_sm90.cu",
                              "video_tokenizer_tpu/ops/decode_attention.py:80"),
@@ -5754,6 +6072,7 @@ def main() -> int:
     print(json.dumps({"prior": records["prior"]}))
     print(json.dumps({"trainer_basic": records["trainer_basic"]}))
     print(json.dumps({"titok": records["titok"]}))
+    print(json.dumps({"cosmos": records["cosmos"]}))
     print(json.dumps({"sampling_tokens_per_s": records["sampling"],
                       "sampling_device_step_ms": records["sampling_device_step_ms"],
                       "sampling_kernels_per_step": records["sampling_kernels_per_step"],

@@ -16,6 +16,16 @@ order. Here it is held
   (c) in Gumbel-max mode: the noise as the kernel's threads draw it is
       `gumbel_noise` bit for bit, each Philox group drawn once;
 and `vq_kernel` names the kernel for every code dim and mode.
+
+The wide-code kernel (`csrc/vq_gemm_sm90.cu`, d % 32 == 0 with 64 <= d <=
+512: the Cosmos tokenizer's SimVQ at d = 256, K = 16,384) has its own
+`vq_argmax_gemm_tiled_reference`: per k-chunk of 32 dims an accumulator of
+its own for the chunk's four k-steps (the kernel's permuted slots,
+`gemm_chunk_dims`) and three TF32 products, joined to the score (the bias)
+by an fp32 add, tiles of 64 codes and the cluster's slices. It is held to
+(a) and (b) above at d = 64, 256, 384 and 512 (rows and codes of norm about
+one, as SimVQ's are), and `vq_kernel` names it for those d and refuses
+Gumbel-max there.
 """
 import sys
 
@@ -29,7 +39,8 @@ import _torch_port  # noqa: F401  (this test worker's share of the cores)
 import video_tokenizer_tpu.ops.attention  # noqa: F401
 import video_tokenizer_tpu.ops.vq  # noqa: F401
 from video_tokenizer_tpu_torch.ops.vq import (
-    _gumbel_by_thread, gumbel_noise, vq_argmax_tf32x3_tiled_reference, vq_kernel,
+    GEMM_CODE_DIMS, _gumbel_by_thread, gemm_chunk_dims, gumbel_noise,
+    vq_argmax_gemm_tiled_reference, vq_argmax_tf32x3_tiled_reference, vq_kernel,
     vq_lookup_reference, vq_tile_code,
 )
 
@@ -171,3 +182,77 @@ def test_the_kernel_follows_from_the_code_dim():
             assert vq_kernel(d, stochastic) == "vq_tc_kernel"
     with pytest.raises(ValueError):
         vq_kernel(12, False)
+    # the wide codes: the GEMM-shaped kernel, argmax only
+    assert GEMM_CODE_DIMS == tuple(range(64, 513, 32))
+    for d in GEMM_CODE_DIMS:
+        assert vq_kernel(d, False) == "vq_gemm_kernel"
+        with pytest.raises(ValueError, match="Gumbel-max"):
+            vq_kernel(d, True)
+    for d in (40, 48, 80, 544, 1024):
+        with pytest.raises(ValueError):
+            vq_kernel(d, False)
+
+
+def _wide_inputs(seed, M, K, d, metric):
+    """Rows and codes of norm about one (SimVQ's scale), where the kernel's
+    and cuBLAS's fp32 rounding stay far below the 1e-5 gate."""
+    z, emb, _ = _inputs(seed, M, K, d, metric)
+    if metric == "l2":
+        z, emb = z / np.sqrt(d), emb / np.sqrt(d)
+    bias = -0.5 * np.sum(emb**2, axis=-1) if metric == "l2" else None
+    return z, emb, bias
+
+
+# (M, K, d): ragged M and K (K not a multiple of 64 nor of the slices)
+WIDE = [(37, 300, 256), (64, 1000, 64), (20, 257, 384), (9, 2100, 256), (5, 130, 512)]
+
+
+def test_the_chunk_slots_cover_each_dim_once():
+    dims = [d for ks in range(4) for d in gemm_chunk_dims(ks)]
+    assert sorted(dims) == list(range(32))
+    for tig in range(4):  # a thread's slots tig and tig + 4 of the four k-steps
+        own = {gemm_chunk_dims(ks)[s] for ks in range(4) for s in (tig, tig + 4)}
+        assert own == set(range(8 * tig, 8 * tig + 8))
+
+
+@pytest.mark.parametrize("n_splits", [1, 3, 8])
+@pytest.mark.parametrize("metric", ["l2", "cos"])
+@pytest.mark.parametrize("shape", WIDE, ids=[f"M{m}_K{k}_d{d}" for m, k, d in WIDE])
+def test_gemm_tiled_vq_matches_plain(shape, metric, n_splits):
+    M, K, d = shape
+    z, emb, bias = _wide_inputs(M + K + d, M, K, d, metric)
+    bias_t = torch.from_numpy(bias) if bias is not None else None
+    got = vq_argmax_gemm_tiled_reference(torch.from_numpy(z), torch.from_numpy(emb), bias_t,
+                                         n_splits=n_splits)
+    want = vq_lookup_reference(torch.from_numpy(z), torch.from_numpy(emb), bias_t)
+    assert got.dtype == torch.int32 and got.shape == (M,)
+    _assert_close_indices(got.numpy(), want.numpy(), z, emb, bias)
+
+
+@pytest.mark.parametrize("shape,metric", [((37, 300, 256), "l2"), ((33, 130, 64), "cos")],
+                         ids=["M37_K300_d256_l2", "M33_K130_d64_cos"])
+def test_gemm_tiled_vq_matches_jax(shape, metric, interpret_mode):
+    M, K, d = shape
+    z, emb, bias = _wide_inputs(5 * M + d, M, K, d, metric)
+    bias_t = torch.from_numpy(bias) if bias is not None else None
+    got = vq_argmax_gemm_tiled_reference(torch.from_numpy(z), torch.from_numpy(emb), bias_t)
+    want = _VQ.vq_lookup_pallas(jnp.asarray(z), jnp.asarray(emb),
+                                jnp.asarray(bias) if bias is not None else None)
+    _assert_close_indices(got.numpy(), np.asarray(want), z, emb, bias)
+
+
+@pytest.mark.parametrize("n_splits", [1, 2, 8])
+def test_gemm_planted_ties_take_the_lowest_index(n_splits):
+    """Copies of a code in the same thread's pair of columns (codes 2 tig,
+    2 tig + 1 of an n-tile), in other n-tiles and tiles of 64 and in other
+    slices: the lowest index wins, at d = 256 by l2."""
+    K, d = 1024, 256
+    _, emb, _ = _wide_inputs(4, 1, K, d, "l2")
+    plants = {100: (101, 109, 130, 300, 700, 1023), 512: (513, 900), 40: (47,)}
+    for lo, dups in plants.items():
+        emb[list(dups)] = emb[lo]
+    bias = -0.5 * np.sum(emb**2, axis=-1)
+    z = emb[list(plants)]
+    got = vq_argmax_gemm_tiled_reference(torch.from_numpy(z), torch.from_numpy(emb),
+                                         torch.from_numpy(bias), n_splits=n_splits)
+    assert got.tolist() == list(plants)

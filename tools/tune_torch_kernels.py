@@ -1,7 +1,7 @@
 """Times tilings of the Hopper kernels whose tiling is a set of constants.
 
   python3 tools/tune_torch_kernels.py [chunk] [dq] [decode] [w8] [w8_step] [flash_fp32] [w8_large]
-      [flash_bwd_fp32] [vq] [parent=<csrc directory>]
+      [flash_bwd_fp32] [vq] [vq_gemm] [parent=<csrc directory>]
   (one CUDA device, nvcc)
 
 `csrc/chunk_attention_sm90.cu`, `csrc/flash_attn_bwd_dq_sm90.cu`,
@@ -39,7 +39,12 @@ backward (kernels by CUDA-graph replays, SDPA by CUDA events, two rounds).
 warps a block, blocks a cluster, and two diagnostic variants that leave out
 the index pick or the products) at the flagship shape (M = K = 8192, d = 8,
 argmax and Gumbel-max; CUDA-graph replays, two rounds) beside the earlier FMA
-kernel.
+kernel. `vq_gemm`: the wide-code VQ search (`csrc/vq_gemm_sm90.cu`: one block of 8
+warps over 128 rows an SM in place of two of 4 over 64, ring stages, and
+diagnostic variants that keep one of the three TF32 products or none) at SimVQ's
+d = 256, K = 16,384, M = 256, 2048 and 8192 (CUDA-graph replays, two rounds)
+beside `torch.addmm(bias, z, e.T).argmax(-1)`, with diagnostic variants that
+leave out the codes' TF32 split, the ring's block barrier or its loads.
 With `parent=DIR`, the decode and chunk attention kernels of DIR (the `csrc/`
 of a checkout from before their KV row write was fused in, built and bound
 with the entry points they had then) are timed beside this tree's, unfused
@@ -692,6 +697,61 @@ def tune_vq():
             print(f"[vq {'gumbel' if st else 'argmax'} round {rnd}] " + ", ".join(line), flush=True)
 
 
+def tune_vq_gemm():
+    VQ = importlib.import_module("video_tokenizer_tpu_torch.ops.vq")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    K, d = 16384, 256
+    emb = torch.randn(K, d, generator=gen, device="cuda") / 16
+    bias = -0.5 * (emb**2).sum(-1)
+    src = "vq_gemm_sm90.cu"
+    lo_hi = "      for (int n = 0; n < kNT; ++n) mma_m16n8k8_tf32(t[n], alo, bhi[n][0], bhi[n][1]);"
+    hi_lo = "      for (int n = 0; n < kNT; ++n) mma_m16n8k8_tf32(t[n], ahi, blo[n][0], blo[n][1]);"
+    hi_hi = "      for (int n = 0; n < kNT; ++n) mma_m16n8k8_tf32(t[n], ahi, bhi[n][0], bhi[n][1]);"
+    bsplit = ("        for (int h = 0; h < 2; ++h) split_tf32(b[n][h][ks], bhi[n][h], blo[n][h]);",
+              "        for (int h = 0; h < 2; ++h) { bhi[n][h] = __float_as_uint(b[n][h][ks]); "
+              "blo[n][h] = 0u; }")
+    # one block of 8 warps over 128 rows an SM (d <= 384 then fits 227 KB)
+    one_block = [("__launch_bounds__(kThreads, 2)", "__launch_bounds__(kThreads, 1)"),
+                 ('static_assert(2 * smem_bytes(256) <= 227 * 1024, "two blocks an SM at '
+                  'SimVQ\'s d = 256");', "")]
+    variants = {
+        "base": {},
+        "warps8": {"kWarps": 8, "kMaxDim": 384, "text": one_block},
+        "stages2": dict(kStages=2),
+        "one_product": {"text": [(lo_hi, "      {}"), (hi_lo, "      {}")]},
+        "no_mma": {"text": [(lo_hi, "      {}"), (hi_lo, "      {}"),
+                            (hi_hi, "      for (int n = 0; n < kNT; ++n) t[n][0] += "
+                                    "__uint_as_float(bhi[n][0] ^ ahi[0] ^ blo[n][1] ^ alo[1]);")]},
+        # diagnostics, wrong answers: no split of the codes, no barrier, no code loads
+        "no_bsplit": {"text": [bsplit]},
+        "no_sync": {"text": [("    __syncthreads();  // stage `it` is in", "    // stage `it` is in")]},
+        "no_load": {"text": [("    if (it + kStages - 1 < total) load(it + kStages - 1);",
+                              "    if (it + kStages - 1 < total && p.M < 0) load(it + kStages - 1);")]},
+    }
+    fns = compile_variants(src, variants, "vtt_vq_argmax_gemm")
+    for M in (256, 2048, 8192):
+        z = torch.randn(M, d, generator=gen, device="cuda") / 16
+        want = VQ.vq_lookup_reference(z, emb, bias)
+        idx = torch.empty(M, dtype=torch.int32, device="cuda")
+        for rnd in range(2):
+            lib = c.graph_ms(lambda: torch.addmm(bias, z, emb.T).argmax(-1), launches=5)
+            line = [f"library {lib:.4f}"]
+            for n, fn in fns.items():
+                if fn is None:
+                    continue
+
+                def run():
+                    code = fn(z.data_ptr(), emb.data_ptr(), bias.data_ptr(), idx.data_ptr(), M, K,
+                              d, torch.cuda.current_stream().cuda_stream)
+                    assert code == 0, code
+
+                ms = c.graph_ms(run, launches=10)
+                run()
+                wrong = int((idx != want).sum())
+                line.append(f"{n} {ms:.4f} ({wrong} differ)")
+            print(f"[vq_gemm M={M} round {rnd}] " + ", ".join(line), flush=True)
+
+
 # the decode and chunk kernels' entry points before the KV row write was fused in
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 PARENT_SIGNATURES = {
@@ -798,6 +858,8 @@ if __name__ == "__main__":
             compare_parent(arg.split("=", 1)[1])
     if "vq" in which:
         tune_vq()
+    if "vq_gemm" in which:
+        tune_vq_gemm()
     if "flash_bwd_fp32" in which:
         tune_flash_bwd_fp32()
     if "flash_fp32" in which:

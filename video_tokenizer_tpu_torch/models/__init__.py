@@ -9,8 +9,10 @@ from . import model_new  # noqa: F401  (registers the ten model_new autoencoders
 from . import model_basic  # noqa: F401  (registers the five basic / dual-patch autoencoders)
 from . import model_stat  # noqa: F401  (registers autoencoder_stat)
 from . import model_titok  # noqa: F401  (registers titok)
+from . import cosmos  # noqa: F401  (registers cosmos and cosmos_fsq)
 
 from .bottleneck import Bottleneck, SimpleVectorQuantizer  # noqa: F401
+from .cosmos import CosmosVideoTokenizer  # noqa: F401
 from .embed import LabelEmbedder, PatchEmbed3D, VideoPatchEmbed  # noqa: F401
 from .fsq import FSQ, LatticeVectorQuantizer  # noqa: F401
 from .gptc import GPTC, GPTCConfig  # noqa: F401

@@ -134,6 +134,7 @@ SIGNATURES = {
     "vtt_flash_attn_bwd_dkv_sm90": ([_P] * 8 + [_I] * 6 + [_LL] * 12 + [_I, _I, _F, _P], _I),
     "vtt_vq_argmax": ([_P] * 4 + [_I] * 4 + [_F, _LL, _P], _I),
     "vtt_vq_argmax_sm90": ([_P] * 4 + [_I] * 4 + [_F, _LL, _P], _I),
+    "vtt_vq_argmax_gemm": ([_P] * 4 + [_I] * 3 + [_P], _I),
     "vtt_decode_attention": ([_P] * 10 + [_I] * 8 + [_LL, _F, _P], _I),
     "vtt_decode_attention_sm90": ([_P] * 13 + [_I] * 9 + [_LL, _LL, _F, _P], _I),
     "vtt_w8_matmul": ([_P] * 4 + [_I] * 5 + [_P], _I),

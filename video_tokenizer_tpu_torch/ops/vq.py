@@ -1,20 +1,23 @@
-"""Codebook lookup for the VQ bottleneck: the CUDA kernel and its plain version.
+"""Codebook lookup for the VQ bottleneck: the CUDA kernels and their plain version.
 
-Counterpart of `video_tokenizer_tpu/ops/vq.py`.
-
-* `vq_argmax` wraps `csrc/vq_lookup_sm90.cu` (fp32 scores on the tensor
-  cores as three TF32 products, the codebook split over a thread-block
-  cluster; code dims 4, 8, 16, 24 and 32, 24 being the Leech codebook of
-  the sq bottleneck, K = 196,560), which replaces the TPU kernel
-  `_vq_kernel` in both of its modes;
-  `vq_kernel` names the kernel a call launches (that one, for every code dim
-  and mode). `csrc/vq_lookup.cu`, the earlier fp32-FMA kernel, stays built and
-  is launched only by name through `_vq_launch`, to be timed beside it. On a
-  CUDA tensor `vq_argmax` launches the kernel or raises; on a CPU tensor it
-  runs `vq_lookup_reference`.
-* `vq_argmax_tf32x3_tiled_reference` repeats the new kernel's arithmetic in
-  plain PyTorch, for the CPU tests (`tests/test_torch_vq_tiled.py`); nothing
-  else calls it.
+Counterpart of `video_tokenizer_tpu/ops/vq.py`. Two kernels replace the TPU
+kernel `_vq_kernel`, by code dim:
+* `csrc/vq_lookup_sm90.cu` (`vq_tc_kernel`): fp32 scores on the tensor cores
+  as three TF32 products, the codebook split over a thread-block cluster; code
+  dims 4, 8, 16, 24 and 32 (24 being the Leech codebook of the sq bottleneck,
+  K = 196,560), both modes;
+* `csrc/vq_gemm_sm90.cu` (`vq_gemm_kernel`): the search as a GEMM for wide
+  codes, d % 32 == 0 with 64 <= d <= 512 (the Cosmos tokenizer's SimVQ: d =
+  256, K = 16,384, l2), z and the codes streamed over d in k-chunks of 32,
+  three TF32 products, the codebook split over a cluster; deterministic mode
+  only (Gumbel-max at d > 32 is not ported: no JAX path draws it).
+`vq_kernel` names the kernel a call launches. `csrc/vq_lookup.cu`, the
+earlier fp32-FMA kernel, stays built and is launched only by name through
+`_vq_launch`, to be timed beside the first. On a CUDA tensor `vq_argmax`
+launches a kernel or raises; on a CPU tensor it runs `vq_lookup_reference`.
+* `vq_argmax_tf32x3_tiled_reference` and `vq_argmax_gemm_tiled_reference`
+  repeat the two kernels' arithmetic in plain PyTorch, for the CPU tests
+  (`tests/test_torch_vq_tiled.py`); nothing else calls them.
 * `vq_lookup_reference` is the plain version, the JAX package's
   `vq_lookup_xla`: fp32 scores, then argmax (the first maximum on ties).
 * Stochastic mode samples codes from softmax(score * inv_temp) by Gumbel-max:
@@ -36,6 +39,9 @@ from .attention import split_tf32
 
 _CODE_DIMS = (4, 8, 16, 24, 32)  # 24: the Leech codebook of the sq bottleneck
 _VQ_CLUSTER = 8  # csrc/vq_lookup_sm90.cu: blocks of a cluster, the codebook's splits
+# csrc/vq_gemm_sm90.cu: code dims (256: Cosmos's SimVQ), codes of a tile, dims of a k-chunk
+GEMM_CODE_DIMS = tuple(range(64, 513, 32))
+_GEMM_TILE, _GEMM_CHUNK = 64, 32
 _MASK32 = 0xFFFFFFFF
 # Philox4x32 multipliers and Weyl key increments (Salmon et al., SC 2011)
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -92,12 +98,18 @@ def vq_lookup_reference(z, emb, score_bias: Optional[torch.Tensor] = None, *,
 
 def vq_kernel(d: int, stochastic: bool) -> str:
     """The kernel a `vq_argmax` call on the card launches: the tensor-core
-    kernel of `csrc/vq_lookup_sm90.cu` for every code dim (4, 8, 16, 24, 32)
-    and both modes. The one place where the choice is made; no call falls back to
-    the earlier `vq_argmax_kernel`."""
-    if d not in _CODE_DIMS:
-        raise ValueError(f"vq_kernel: d {d} not in {_CODE_DIMS}")
-    return "vq_tc_kernel"
+    kernel of `csrc/vq_lookup_sm90.cu` for code dims 4, 8, 16, 24 and 32 in
+    both modes, that of `csrc/vq_gemm_sm90.cu` for `GEMM_CODE_DIMS` in
+    deterministic mode. The one place where the choice is made; no call falls
+    back to the earlier `vq_argmax_kernel` or to the plain version."""
+    if d in _CODE_DIMS:
+        return "vq_tc_kernel"
+    if d in GEMM_CODE_DIMS:
+        if stochastic:
+            raise ValueError(f"vq_kernel: Gumbel-max sampling at d = {d} is not ported "
+                             "(ROADMAP.md, queue 2)")
+        return "vq_gemm_kernel"
+    raise ValueError(f"vq_kernel: d {d} not in {_CODE_DIMS} or {GEMM_CODE_DIMS}")
 
 
 def vq_tile_codes(d: int) -> int:
@@ -171,6 +183,63 @@ def vq_argmax_tf32x3_tiled_reference(z, emb, score_bias: Optional[torch.Tensor] 
     return idx.to(torch.int32)
 
 
+def gemm_chunk_dims(k_step: int) -> list:
+    """The dims, within a k-chunk of `csrc/vq_gemm_sm90.cu`, of the eight
+    slots of k-step `k_step` (0-3): slot tig is dim 8 tig + k_step and slot
+    tig + 4 dim 8 tig + 4 + k_step, so a thread's dims 8 tig .. 8 tig + 7 of
+    the four k-steps are two 16-byte reads."""
+    return [8 * t + k_step for t in range(4)] + [8 * t + 4 + k_step for t in range(4)]
+
+
+def vq_argmax_gemm_tiled_reference(z, emb, score_bias: Optional[torch.Tensor] = None, *,
+                                   n_splits: int = _VQ_CLUSTER) -> torch.Tensor:
+    """The arithmetic of `vq_gemm_kernel`, in plain PyTorch (tests only).
+    Deterministic `vq_lookup_reference` contract, d % 32 == 0.
+
+    What it repeats of the kernel: z and the codes split into TF32 parts
+    (`split_tf32`); per k-chunk of 32 dims an accumulator of its own that
+    starts at zero, into which the chunk's four k-steps (`gemm_chunk_dims`)
+    add their three products in the kernel's order, lo.hi, hi.lo, hi.hi; the
+    chunk's sum joined by an fp32 add to the score, which starts at the bias;
+    the codebook cut into `n_splits` slices of ceil(K / n_splits) codes
+    rounded up to 64, each scanned in tiles of 64 codes (the argmax of a tile,
+    first maximum, replacing the running best only by a larger score), and
+    the merge of the slices in order, a later slice winning only by a larger
+    score."""
+    M, d = z.shape
+    K = emb.shape[0]
+    if d % _GEMM_CHUNK:
+        raise ValueError(f"vq_argmax_gemm_tiled_reference: d {d} is not a multiple of 32")
+    zh, zl = split_tf32(z.float())
+    eh, el = split_tf32(emb.float())
+    s = torch.zeros((M, K), device=z.device)
+    if score_bias is not None:
+        s = s + score_bias.float()[None, :]
+    for c in range(0, d, _GEMM_CHUNK):
+        acc = torch.zeros((M, K), device=z.device)
+        for ks in range(4):
+            dims = [c + i for i in gemm_chunk_dims(ks)]
+            for a, b in ((zl, eh), (zh, el), (zh, eh)):
+                acc = acc + a[:, dims] @ b[:, dims].T
+        s = s + acc
+    size = -(-K // n_splits)  # codes of a slice: ceil(K / n_splits), rounded up to 64
+    size = -(-size // _GEMM_TILE) * _GEMM_TILE
+    best = torch.full((M,), float("-inf"), device=z.device)
+    idx = torch.zeros((M,), dtype=torch.int64, device=z.device)
+    for lo in range(0, K, size):  # a split: its tiles in ascending order
+        hi = min(lo + size, K)
+        s_best, s_idx = torch.full_like(best, float("-inf")), torch.zeros_like(idx)
+        for t in range(lo, hi, _GEMM_TILE):
+            part = s[:, t : min(t + _GEMM_TILE, hi)]
+            i = torch.argmax(part, dim=-1)
+            v = part.gather(1, i[:, None])[:, 0]
+            take = v > s_best
+            s_best, s_idx = torch.where(take, v, s_best), torch.where(take, t + i, s_idx)
+        take = s_best > best
+        best, idx = torch.where(take, s_best, best), torch.where(take, s_idx, idx)
+    return idx.to(torch.int32)
+
+
 def _gumbel_by_thread(M: int, K: int, seed: int, device) -> torch.Tensor:
     """The kernel's noise, drawn as its threads draw it: for each pair of
     n-tiles p and thread column tig, one Philox call on the counter of the
@@ -208,18 +277,19 @@ def vq_argmax(z, emb, score_bias: Optional[torch.Tensor] = None, *, stochastic: 
             )
     M, d = z.shape
     K = emb.shape[0]
-    if emb.shape != (K, d) or d not in _CODE_DIMS or K < 1:
-        raise ValueError(f"vq_argmax: z {tuple(z.shape)}, emb {tuple(emb.shape)}; d in {_CODE_DIMS}")
+    if emb.shape != (K, d) or K < 1:
+        raise ValueError(f"vq_argmax: z {tuple(z.shape)}, emb {tuple(emb.shape)}")
     if score_bias is not None and score_bias.shape != (K,):
         raise ValueError(f"vq_argmax: bias {tuple(score_bias.shape)} != {(K,)}")
     if not 0 <= seed < 2**63:
         raise ValueError(f"vq_argmax: seed {seed} outside [0, 2**63)")
+    kernel = vq_kernel(d, stochastic)  # raises for a code dim or mode with no kernel
     idx = torch.empty((M,), dtype=torch.int32, device=z.device)
     if M:
-        kernel = vq_kernel(d, stochastic)
         _vq_launch(kernel, z, emb, score_bias, idx, stochastic, inv_temp, seed)
         vq_argmax.launches += 1
         vq_argmax.launches_tc += kernel == "vq_tc_kernel"
+        vq_argmax.launches_gemm += kernel == "vq_gemm_kernel"
         vq_argmax.last_kernel = kernel
     return idx
 
@@ -229,6 +299,15 @@ def _vq_launch(kernel: str, z, emb, score_bias, idx, stochastic: bool, inv_temp:
     """Launches the named VQ kernel on checked operands (see `vq_argmax`)."""
     M, d = z.shape
     lib = _build.library()
+    if kernel == "vq_gemm_kernel":
+        with torch.cuda.device(z.device):
+            code = lib.vtt_vq_argmax_gemm(
+                z.data_ptr(), emb.data_ptr(),
+                score_bias.data_ptr() if score_bias is not None else None,
+                idx.data_ptr(), M, emb.shape[0], d,
+                torch.cuda.current_stream(z.device).cuda_stream)
+        _build.check(code, kernel)
+        return
     entry = lib.vtt_vq_argmax_sm90 if kernel == "vq_tc_kernel" else lib.vtt_vq_argmax
     with torch.cuda.device(z.device):
         code = entry(
@@ -240,8 +319,9 @@ def _vq_launch(kernel: str, z, emb, score_bias, idx, stochastic: bool, inv_temp:
     _build.check(code, kernel)
 
 
-vq_argmax.launches = 0  # kernel launches (either kernel), read by chip_smoke.py
+vq_argmax.launches = 0  # kernel launches (any kernel), read by chip_smoke.py
 vq_argmax.launches_tc = 0  # of which vq_tc_kernel
+vq_argmax.launches_gemm = 0  # of which vq_gemm_kernel
 vq_argmax.last_kernel = None  # name of the kernel the last call launched
 
 

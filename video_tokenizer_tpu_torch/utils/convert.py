@@ -48,6 +48,12 @@ across in `state_dict_from_jax` under the JAX module's names.
 `InceptionI3D` (conv kernels (kT, kH, kW, Cin, Cout) -> (Cout, Cin, kT, kH,
 kW); BatchNorm scale, bias and `batch_stats` as they are).
 
+`cosmos_state_dict_from_jax(params, model)` does the same for a Cosmos
+tokenizer (`cosmos`, `cosmos_fsq`), whose module names are the Flax names:
+conv kernels [kt, kh, kw, in, out] -> [out, in, kt, kh, kw], Dense [in, out]
+-> [out, in], GroupNorm `scale` -> `weight`; each parameter of the model
+filled exactly once (the SimVQ anchors are a buffer the model computes).
+
 `ar_state_dict_from_jax(params, model)` does the same for a `LARP_AR` prior,
 under the names `export_larp_ar` writes: Dense kernels -> `weight` [out, in],
 RMSNorm `scale` -> `weight`, the token and class tables, `abs_pe`; a
@@ -266,6 +272,32 @@ def titok_state_dict_from_jax(params: Dict[str, Any], model) -> Dict[str, torch.
     the Flax names (the model_new mapping; FSQ has no parameters and the
     rotation tables are rebuilt by the model)."""
     return model_new_state_dict_from_jax(params, model)
+
+
+def cosmos_state_dict_from_jax(params: Dict[str, Any], model) -> Dict[str, torch.Tensor]:
+    """Flax `CosmosVideoTokenizer` params (nested dicts of arrays) ->
+    `model`'s state_dict. Raises unless the two hold the same parameters, of
+    the same shapes, each once."""
+    sd: Dict[str, np.ndarray] = {}
+
+    def walk(prefix: str, tree: Dict[str, Any]) -> None:
+        for name, sub in tree.items():
+            key = f"{prefix}.{name}" if prefix else name
+            if isinstance(sub, dict):
+                walk(key, sub)
+            elif name == "kernel":  # a conv kernel is 5-d, a Dense kernel 2-d
+                k = _f32(sub)
+                sd[f"{prefix}.weight"] = k.transpose(4, 3, 0, 1, 2) if k.ndim == 5 else k.T
+            else:
+                sd[f"{prefix}.weight" if name == "scale" else key] = _f32(sub)
+
+    walk("", params)
+    want = {k: tuple(v.shape) for k, v in model.named_parameters()}
+    got = {k: tuple(v.shape) for k, v in sd.items()}
+    if got != want:
+        raise ValueError(f"Flax tree and model differ in "
+                         f"{sorted(k for k in set(got) | set(want) if got.get(k) != want.get(k))}")
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
 
 
 def loss_state_dict_from_jax(loss_params: Dict[str, Any], loss_ema: Dict[str, Any],
