@@ -246,7 +246,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
      bf16 training at batch 8 with exact launch counts.
  25. the Cosmos causal-CNN tokenizers at their registered width (`cosmos`
      with SimVQ, 113,163,651 parameters; `cosmos_fsq`, 113,101,193;
-     `phase_cosmos`, last): (a) the wide-code VQ kernel (`vq_gemm_kernel`,
+     `phase_cosmos`): (a) the wide-code VQ kernel (`vq_gemm_kernel`,
      csrc/vq_gemm_sm90.cu) at SimVQ's d = 256, K = 16,384, M = 2048 and
      8192, against its plain version with planted exact ties and near-ties,
      timed beside `torch.addmm(bias, z, e.T).argmax(-1)` (TF32 off), its
@@ -261,6 +261,20 @@ Phases, each of which raises on failure (exit code 1, no result line):
      `decode_indices` at batch 8 in bf16 against the forward: the same
      indices, the decoder's inputs equal but for the straight-through
      sum's rounding, the video within 5e-2 of the scale.
+ 26. the V-JEPA2-teacher tokenizers and larp_tokenizer_sem at their
+     registered width (`phase_vfm`, last): (a) the flash forward at head dim
+     80 (the teacher's 1280 / 16) against its plain version, bf16 on the
+     wgmma kernel at the teacher's B = 8, S = 2048, H = 16 and the mask
+     cases, fp32 on csrc/flash_attn_fwd.cu's FMA path, timed beside SDPA and
+     its bound, registers and spills, the backward refused; (b) the
+     teacher's taps, its four fusions and both registrations card against
+     CPU in fp32 at full width on an 8 x 128 x 128 clip (the teacher at 4 of
+     its 32 layers, the rest at PARITY_DEPTH); (c) bf16 reconstruction of
+     16 x 256 x 256 at batch 8 with exact launch counts (32 at D = 80 a
+     forward); (d) one fp32 trainer step card against CPU with `align_loss`
+     and bf16 training at batch 8, the teacher unchanged bit for bit; (e)
+     larp_tokenizer_sem's train-mode forward card against CPU with one
+     k-means draw, and bf16 training steps.
 Every kernel phase also times one PyTorch call that computes the same
 function (`library_ms`: SDPA and its autograd backward, a matmul + argmax,
 `index_put_`), which the port uses nowhere, and computes the kernel's bound
@@ -422,6 +436,8 @@ def phase_build() -> None:
     expected = {f"flash_{k}_sm90_kernel<{d}>" for k in ("fwd", "bwd_dq", "bwd_dkv") for d in (32, 64)}
     # the two forwards' instances with segment ids
     expected |= {f"flash_fwd_{k}_kernel<{d}, seg>" for k in ("sm90", "tf32x3") for d in (32, 64)}
+    # the wgmma forward at the V-JEPA2 teacher's head dim 80 (one block an SM)
+    expected |= {"flash_fwd_sm90_kernel<80>", "flash_fwd_sm90_kernel<80, seg>"}
     expected |= {f"chunk_attn_sm90_kernel<{c}, {m}>" for c in ("bf16", "int8") for m in (1, 2)}
     expected |= {f"decode_attn_sm90_kernel<{c}, {h}>" for c in ("bf16", "int8") for h in (1, 2)}
     expected |= {f"w8_stream_kernel<{x}, {t}>" for x in ("bf16", "fp32")
@@ -2792,11 +2808,20 @@ def phase_speculative(target, draft, tokenizer, records: dict) -> None:
                                     "acceptance": hi if need < gamma + 1 else None}
 
 
+# the target's layers in phase 17 (the run's budget: its 5 refreshes sample
+# 256 tokens each from it, host-bound, a time that grows with the depth)
+DISTILL_TARGET_DEPTH = 8
+
+
 def phase_distill(target, draft, records: dict) -> None:
-    """Distillation of the full-width draft against the full-width target on
-    the card, short: 10 AdamW steps at batch 8 on 256-token sequences sampled
-    from the target, the targets refreshed every 2 steps. The draft's forward
-    and backward run the causal flash forward, dQ and dK/dV kernels."""
+    """Distillation of the full-width draft against the target at full width
+    and DISTILL_TARGET_DEPTH of its 30 layers on the card, short: 10 AdamW
+    steps at batch 8 on 256-token sequences sampled from the target, the
+    targets refreshed every 2 steps. The draft's forward and backward run the
+    causal flash forward, dQ and dK/dV kernels. The cut is made in place: the
+    target is not used after this phase."""
+    import dataclasses
+
     import torch
 
     from video_tokenizer_tpu_torch.ops.attention import (
@@ -2804,6 +2829,8 @@ def phase_distill(target, draft, records: dict) -> None:
     )
     from video_tokenizer_tpu_torch.tools.distill_draft import distill
 
+    target.layers = target.layers[:DISTILL_TARGET_DEPTH]
+    target.config = dataclasses.replace(target.config, n_layer=DISTILL_TARGET_DEPTH)
     kernels = (flash_attn_fwd, flash_attn_bwd_dq, flash_attn_bwd_dkv)
     steps, n_draft, n_target = 10, len(draft.layers), len(target.layers)
     for k in kernels:
@@ -2821,7 +2848,8 @@ def phase_distill(target, draft, records: dict) -> None:
     # generate) and its teacher-forcing forward
     want = {"flash_attn_fwd": n_draft * steps + 2 * n_target * refreshes,
             "flash_attn_bwd_dq": n_draft * steps, "flash_attn_bwd_dkv": n_draft * steps}
-    log(f"[distill] {steps} steps, batch 8, seq 256, {refreshes} refreshes of the targets: "
+    log(f"[distill] {steps} steps, batch 8, seq 256, the target at {n_target} of its 30 layers, "
+        f"{refreshes} refreshes of the targets: "
         f"{wall:.1f} s; soft-CE {stats['first_loss']:.4f} -> {stats['last_loss']:.4f}; launches "
         f"{launches} (expect {want}), of which the wgmma kernels {sm90} (expect all: bf16)")
     require(math.isfinite(stats["first_loss"]) and math.isfinite(stats["last_loss"]),
@@ -2834,14 +2862,14 @@ def phase_distill(target, draft, records: dict) -> None:
                           "last_loss": stats["last_loss"]}
 
 
-def _load_cfg(name: str, save_dir, batch: int) -> dict:
+def _load_cfg(name: str, save_dir, batch: int, size: int = 128, frames: int = 16) -> dict:
     """cfgs/<name>.yaml at full width, its $vars$ filled as the train CLI
-    fills them (16 frames of 128 x 128, fake null128 clips, no loader
-    workers), one epoch, seeded, for the port's trainers."""
+    fills them (16 frames of 128 x 128 unless said otherwise, fake null128
+    clips, no loader workers), one epoch, seeded, for the port's trainers."""
     import yaml
 
     text = (ROOT / "cfgs" / f"{name}.yaml").read_text()
-    for key, value in (("frame_num", 16), ("input_size", 128), ("csv_file", "null128"),
+    for key, value in (("frame_num", frames), ("input_size", size), ("csv_file", "null128"),
                        ("batch_size", batch), ("num_workers", 0)):
         text = text.replace(f"${key}$", str(value))
     cfg = yaml.safe_load(text)
@@ -3015,7 +3043,7 @@ def _profile_and_load(step, n: int, by_name: Optional[dict] = None):
 
 def _train_throughput(tag: str, cfg: dict, flash: tuple, vq: int, warm: int = 2,
                       timed: int = 5, fp32_flash: tuple = (0, 0),
-                      by_name: Optional[dict] = None) -> dict:
+                      by_name: Optional[dict] = None, inspect=None) -> dict:
     """Training through the port's trainer on the card from `cfg` (batch and
     dtype as it sets them), on fake null128 clips from its own loader: `warm`
     warm-up steps, `timed` timed steps (d_update_freq 5 puts one
@@ -3028,7 +3056,9 @@ def _train_throughput(tag: str, cfg: dict, flash: tuple, vq: int, warm: int = 2,
     `flash` must run the wgmma kernels, and `fp32_flash` = (forwards, dQ
     and dK/dV each) per step of an fp32 module inside it (the gptc prior)
     the 3xTF32 kernels; in fp32 every launch the 3xTF32 kernels (and so
-    none the FMA ones). Returns the numbers."""
+    none the FMA ones). `inspect(trainer)`, if given, is called on the new
+    trainer and returns a function called on it after the last step.
+    Returns the numbers."""
     import torch
 
     from video_tokenizer_tpu_torch.ops.attention import (
@@ -3039,6 +3069,7 @@ def _train_throughput(tag: str, cfg: dict, flash: tuple, vq: int, warm: int = 2,
     kernels = (flash_attn_fwd, flash_attn_bwd_dq, flash_attn_bwd_dkv, vq_argmax)
     use_amp, B = bool(cfg["use_amp"]), int(cfg["train_dataset"]["loader"]["batch_size"])
     tr = _trainer(cfg, "cuda")
+    after = inspect(tr) if inspect is not None else None
     batches = tr.train_loader(1)
     fetch_s = []  # host time in the loader, per step (read beside the idle share)
 
@@ -3087,7 +3118,9 @@ def _train_throughput(tag: str, cfg: dict, flash: tuple, vq: int, warm: int = 2,
     finite = all(torch.isfinite(packed).all().item() for _, packed in infos)
     keys, last = infos[-1]
     last = dict(zip(keys, last.tolist()))
-    log(f"[{tag}] batch {B} clips [{B},3,16,128,128], {timed} steps ({d_steps} with a "
+    data_args = cfg.get("train_dataset", {}).get("args", {})
+    size, frames = int(data_args.get("crop_size", 128)), int(data_args.get("frame_num", 16))
+    log(f"[{tag}] batch {B} clips [{B},3,{frames},{size},{size}], {timed} steps ({d_steps} with a "
         f"discriminator step): {', '.join(f'{t:.3f}' for t in times)} s; mean {mean_s:.3f} "
         f"s/step = {B / mean_s:.2f} clips/s (median {statistics.median(times):.3f} s); "
         f"loader {loader_s * 1e3:.1f} ms per step on the host ({loader_s / mean_s:.1%} of "
@@ -3115,6 +3148,8 @@ def _train_throughput(tag: str, cfg: dict, flash: tuple, vq: int, warm: int = 2,
     require(sm90 == want_sm90, f"{tag}: wgmma launches {sm90}, expected {want_sm90}")
     require(tf32x3 == want_tf32x3, f"{tag}: 3xTF32 launches {tf32x3}, expected {want_tf32x3}")
     require(vq_tc == vq * timed, f"{tag}: {vq_tc} of {vq * timed} VQ launches on vq_tc_kernel")
+    if after is not None:
+        after(tr)
     del tr, batches
     torch.cuda.empty_cache()
     return {"batch": B, "s_per_step": mean_s, "clips_per_s": B / mean_s, "peak_gib": peak_gb,
@@ -5942,6 +5977,522 @@ def _cosmos_reconstruction(name: str, weights: dict, rec: dict, records: dict) -
     torch.cuda.empty_cache()
 
 
+def _vfm_flash(rec: dict, records: dict) -> None:
+    """Phase 26 (a): the flash forward at head dim 80 (the V-JEPA2 ViT-H
+    teacher's 1280 / 16) against its plain version: bf16 on the wgmma kernel
+    (`flash_fwd_sm90_kernel<80>`: a 64-column row tile and a 16-column
+    32-byte-swizzled panel, Q in shared memory, two blocks an SM), fp32 on `csrc/flash_attn_fwd.cu`'s FMA path, as
+    `flash_kernels` names them; the teacher's B = 8, S = 2048, H = 16 from
+    strided qkv views (fp32 at B = 1), then the mask cases (ragged, causal
+    with an offset, GQA, segment ids with a no-match query, one id tensor
+    with its windows, rows that see no key). Tolerances as phase 2's: out
+    2e-2 of max|plain| in bf16, 1e-4 in fp32, the LSE 1e-4 absolute. The
+    teacher's shape timed by CUDA-graph replay beside SDPA and the bound
+    (4 B H S^2 D = 171.8 GFLOP). The backward at D = 80 raises."""
+    import torch
+    import torch.nn.functional as F
+
+    from video_tokenizer_tpu_torch.ops import _build
+    from video_tokenizer_tpu_torch.ops.attention import (
+        attention_reference, flash_attn_bwd, flash_attn_fwd, flash_kernels,
+    )
+
+    res = {n: r for n, r in _build.kernel_resources(_build.build().log).items()
+           if re.search(r"flash_fwd_sm90_kernelILi80E", n)}
+    for n, (regs, spill) in sorted(res.items()):
+        log(f"[vfm flash] {'<80, seg>' if 'Lb1E' in n else '<80>'}: {regs} registers, "
+            f"{spill} spill bytes")
+    require(len(res) == 2, f"flash_fwd_sm90_kernel<80> instances in the build log: {list(res)}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 600)
+    cases = [  # (name, B, Sq, Sk, H, Hkv, dtype, causal, offset, segments)
+        ("teacher", 8, 2048, 2048, 16, 16, torch.bfloat16, False, None, None),
+        ("fp32_teacher", 1, 2048, 2048, 16, 16, torch.float32, False, None, None),
+        ("cut_clip", 2, 256, 256, 16, 16, torch.bfloat16, False, None, None),  # (b)'s 8 x 128 x 128
+    ]
+    for dtype, tag in ((torch.bfloat16, ""), (torch.float32, "fp32_")):
+        cases += [
+            (f"{tag}ragged_sk", 2, 300, 1000, 4, 4, dtype, False, None, None),
+            (f"{tag}causal_offset", 2, 384, 512, 4, 4, dtype, True, 100, None),
+            (f"{tag}gqa_4_over_2", 2, 512, 512, 4, 2, dtype, False, None, None),
+            (f"{tag}segments_no_match", 2, 512, 512, 4, 4, dtype, False, None, "no_match"),
+            (f"{tag}segments_window", 2, 1000, 1000, 4, 4, dtype, True, None, "window"),
+            (f"{tag}edge_129_257", 2, 129, 257, 4, 4, dtype, False, None, None),
+            (f"{tag}causal_no_key_rows", 1, 300, 300, 2, 2, dtype, True, -70, None),
+        ]
+    D, worst, worst_fp32 = 80, 0.0, 0.0
+    n_launch = {"sm90": 0, "fma": 0}
+    for name, B, Sq, Sk, H, Hkv, dtype, causal, offset, with_seg in cases:
+        if Sq == Sk and H == Hkv:  # strided views of one qkv projection, as the teacher's
+            q, k, v = torch.randn(B, Sq, 3, H, D, generator=gen, device="cuda").to(dtype).unbind(2)
+        else:
+            q = torch.randn(B, Sq, H, D, generator=gen, device="cuda").to(dtype)
+            k, v = (torch.randn(B, Sk, Hkv, D, generator=gen, device="cuda").to(dtype)
+                    for _ in range(2))
+        q_seg = k_seg = None
+        if with_seg == "no_match":
+            k_seg = (torch.arange(Sk, device="cuda") >= Sk // 3).int().expand(B, Sk).contiguous()
+            q_seg = (torch.arange(Sq, device="cuda") >= Sq // 3).int().expand(B, Sq).contiguous()
+            q_seg[:, 5] = 7  # matches no key: uniform attention
+        elif with_seg == "window":  # one id tensor: clips of 300, 300 and 400 tokens
+            q_seg = (torch.arange(Sq, device="cuda") // 300).clamp(max=2).int().expand(B, Sq)
+            q_seg = q_seg.contiguous()
+        kw = dict(causal=causal, segment_ids=q_seg, kv_segment_ids=k_seg, causal_offset=offset)
+        before = flash_attn_fwd.launches_d80
+        got, got_lse = flash_attn_fwd(q, k, v, return_lse=True, **kw)
+        torch.cuda.synchronize()
+        kernel = flash_attn_fwd.last_kernel
+        want, want_lse = attention_reference(q, k, v, causal, q_seg, k_seg, None, offset)
+        err = (got.float() - want.float()).abs().max().item()
+        rel = err / want.float().abs().max().item()
+        lse_err = (got_lse - want_lse).abs().max().item()
+        tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+        expect = flash_kernels(dtype, D, q_seg is not None)[0]
+        log(f"[vfm flash] {name}: B={B} Sq={Sq} Sk={Sk} H={H} Hkv={Hkv} D=80 {str(dtype)[6:]} "
+            f"{kernel}: max|kernel-plain| {err:.3e} = {rel:.3e} of max|plain| (tol {tol:g}), lse "
+            f"{lse_err:.3e} (tol 1e-4)")
+        require(torch.isfinite(got).all().item(), f"vfm flash {name}: non-finite output")
+        require(kernel == expect and expect == ("flash_fwd_sm90_kernel" if dtype == torch.bfloat16
+                                                else "flash_fwd_kernel"),
+                f"vfm flash {name}: ran {kernel}, the rule names {expect}")
+        require(flash_attn_fwd.launches_d80 == before + 1, f"vfm flash {name}: launches_d80")
+        require(rel <= tol and lse_err <= 1e-4, f"vfm flash {name}: error {rel} or lse {lse_err}")
+        n_launch["sm90" if dtype == torch.bfloat16 else "fma"] += 1
+        if dtype == torch.bfloat16:
+            worst = max(worst, err)
+        else:
+            worst_fp32 = max(worst_fp32, err)
+        if name in ("teacher", "fp32_teacher"):
+            ms = min(graph_ms(lambda: flash_attn_fwd(q, k, v), launches=10) for _ in range(2))
+            plain_ms = median_ms(lambda: attention_reference(q, k, v), iters=3, warmup=1)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            library_ms = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), launches=10)
+            flops = 4 * B * H * Sq * Sk * D
+            bnd = bound(_nbytes(q, k, v, got), flops, "bf16" if dtype == torch.bfloat16 else "fp32")
+            log(f"[vfm flash] {name}: {kernel} {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), bound "
+                f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), plain {plain_ms:.3f} ms, library "
+                f"call (SDPA) {library_ms:.4f} ms: the kernel takes {ms / library_ms:.2f}x SDPA's "
+                f"time, {ms / bnd['bound_ms']:.2f}x its bound (CUDA-graph replays)")
+            rec[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                         "max_abs_err": err, **bnd}
+    q, k, v = (torch.randn(1, 128, 2, D, device="cuda", requires_grad=True) for _ in range(3))
+    out, lse = flash_attn_fwd(q, k, v, return_lse=True)
+    try:
+        flash_attn_bwd(q, k, v, out, lse, torch.ones_like(out))
+        raised = False
+    except NotImplementedError as e:
+        raised = "ROADMAP" in str(e)
+    require(raised, "vfm flash: the backward at D = 80 did not raise naming ROADMAP.md")
+    t = rec["teacher"]
+    records["flash_attn_fwd_d80"] = {
+        "max_abs_err": worst, "fp32_max_abs_err": worst_fp32, "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "fp32_ms": rec["fp32_teacher"]["ms"],
+        "fp32_library_ms": rec["fp32_teacher"]["library_ms"],
+        "fp32_bound_ms": rec["fp32_teacher"]["bound_ms"], "check_launches": n_launch,
+        "launches": 0,
+    }
+    log(f"[vfm flash] {sum(n_launch.values())} cases: {n_launch['sm90']} on the wgmma kernel "
+        f"(bf16), {n_launch['fma']} on the FMA kernel (fp32); the backward at D = 80 raises")
+
+
+# Phase 26's cut for the card-vs-CPU sides: full width, the teacher's clip at
+# 8 x 128 x 128 (4 x 8 x 8 = 256 teacher tokens, which keeps the CPU side
+# cheap) and 4 of its 32 layers tapped after each (the pyramid fusion
+# unpacks four taps), every other stack at PARITY_DEPTH
+VFM_CUT = dict(vjepa2_img_size=128, vjepa2_num_frames=8, teacher_depth=4,
+               out_layers=(0, 1, 2, 3), encoder_depth=PARITY_DEPTH, decoder_depth=PARITY_DEPTH,
+               imagedec_depth=PARITY_DEPTH, dec_depth=PARITY_DEPTH)
+# through cfgs/larp_tokenizer.yaml, by (name, bottleneck): the JAX init's counts
+# (tests/test_torch_vfm.py); `sq` has the class defaults' count
+VFM_PARAMS = {("larp_tokenizer_vfm", "vq"): 1_118_909_452,
+              ("larp_tokenizer_vfm", "sq"): 1_123_585_948,
+              ("larp_tokenizer_vfm_noquant", None): 753_746_176}
+VFM_TRAIN_PEAK_GIB = 70.0  # batch 8 trains within it (60.5 GiB on an H100 80GB)
+
+
+def phase_vfm(tmp: Path, records: dict) -> None:
+    """The V-JEPA2-teacher tokenizers and larp_tokenizer_sem at their
+    registered width (teacher 1280 wide, 32 layers, 16 heads of 80):
+      (a) the flash forward at head dim 80 (`_vfm_flash`);
+      (b) card against CPU in fp32 (TF32 off) at `VFM_CUT` on one
+          8 x 128 x 128 clip: the teacher's taps (4 FMA launches at D = 80),
+          each of the four fusions on them, then `larp_tokenizer_vfm` with
+          `sq` and with the flagship cfg's `vq` (gated) and
+          `larp_tokenizer_vfm_noquant` (concat) whole: indices >= 99% equal,
+          `align_loss` and `loss_q` within 1e-4 relative, the CPU's encoded
+          latents decoded on the card within 1e-3 of the scale, exact launch
+          counts;
+      (c) bf16 reconstruction at batch 8 of 16 x 256 x 256 through
+          `reconstruct.build_model` (`--opts model.name ...`): exactly 32
+          launches at D = 80 and 48 at D = 64 a `larp_tokenizer_vfm` forward
+          (every one on the wgmma kernel) and one VQ search, at d = 8 over
+          the cfg's `vq` codes and, with `model.args.bottleneck_type sq`, at
+          d = 24 over the Leech codebook (both on vq_tc_kernel); 32 and 16
+          and no VQ a `_noquant` one; clips/s, device ms by category, peak
+          memory, idle share;
+      (d) one fp32 trainer step of `larp_tokenizer_vfm` card against CPU at
+          `VFM_CUT` (losses 2e-4 with `align_loss` among them, VQ indices
+          99.9%, gradients 1e-3 of their scale, none for the teacher), then
+          2 + 5 bf16 steps through the trainer at batch 8 of 16 x 256 x 256
+          within `VFM_TRAIN_PEAK_GIB`: s/step, peak, idle share, launch
+          counts, the teacher's parameters unchanged bit for bit;
+      (e) `larp_tokenizer_sem`: a train-mode forward card against CPU in fp32
+          at PARITY_DEPTH (the teacher's too) with one k-means draw given to
+          both: the aligner's inputs (latents, the teacher's tap) within
+          1e-4 of the scale; `align_loss` and `gram_loss` of the whole
+          forward, and of the card's aligner on the CPU's inputs, within
+          max(1e-4, 3x what the card's inputs move the CPU's aligner: the
+          soft assignments at temperature 0.2 amplify fp32 rounding);
+          `loss_q` within 1e-4; then bf16 steps through the trainer at batch 8 of
+          the flagship's 16 x 128 x 128 clips."""
+    rec = records["vfm"] = {}
+    _vfm_flash(rec, records)
+    _vfm_parity(rec)
+    for name, bottleneck in (("larp_tokenizer_vfm", "vq"), ("larp_tokenizer_vfm", "sq"),
+                             ("larp_tokenizer_vfm_noquant", None)):
+        _vfm_reconstruction(name, bottleneck, rec, records)
+    _vfm_train(tmp, rec)
+    _sem(tmp, rec)
+
+
+def _vfm_cfg_args() -> dict:
+    """The model args of `cfgs/larp_tokenizer.yaml` (the flagship's `vq`
+    bottleneck among them; the registry filters what a model takes)."""
+    return dict(_load_cfg("larp_tokenizer", ROOT, 1)["model"]["args"])
+
+
+def _vfm_pair(name: str, args: dict, seed: int):
+    """The same seeded, perturbed fp32 model on the CPU and on the card (two
+    builds from one seed, so that every generator of theirs draws alike)."""
+    import torch
+
+    from video_tokenizer_tpu_torch.registry import models
+
+    pair = [models.make({"name": name, "args": args},
+                        args={"generator": torch.Generator().manual_seed(seed)}).eval()
+            for _ in range(2)]
+    _perturb(pair[0], seed + 1)
+    pair[1].load_state_dict(pair[0].state_dict())
+    return pair[0], pair[1].cuda()
+
+
+def _vfm_parity(rec: dict) -> None:
+    """Phase 26 (b)."""
+    import torch
+
+    from video_tokenizer_tpu_torch.models import vfm
+    from video_tokenizer_tpu_torch.ops.attention import flash_attn_fwd
+    from video_tokenizer_tpu_torch.ops.vq import vq_argmax
+
+    x = torch.rand(1, 3, 8, 128, 128, generator=torch.Generator().manual_seed(SEED + 610))
+    t0 = time.perf_counter()
+    cfg_args = _vfm_cfg_args()
+    cases = (("sq", "larp_tokenizer_vfm", dict(VFM_CUT)),
+             ("vq", "larp_tokenizer_vfm", {**cfg_args, **VFM_CUT}),
+             ("noquant", "larp_tokenizer_vfm_noquant", dict(VFM_CUT)))
+    out_rec = {}
+    for case, name, args in cases:
+        cpu, gpu = _vfm_pair(name, args, SEED + 620)
+        with torch.inference_mode():
+            ref = cpu(x)
+            flash_attn_fwd.launches = flash_attn_fwd.launches_d80 = 0
+            flash_attn_fwd.launches_tf32x3 = 0
+            vq_argmax.launches = 0
+            out = gpu(x.cuda())
+            n = {"d80": flash_attn_fwd.launches_d80, "tf32x3": flash_attn_fwd.launches_tf32x3,
+                 "flash": flash_attn_fwd.launches, "vq": vq_argmax.launches}
+            dec = gpu.decode(ref["encoded"].cuda())
+            dec = dec[0] if isinstance(dec, tuple) else dec
+            if case == "sq":  # the teacher once, and each fusion on its taps
+                taps = (cpu.teacher_taps(x), gpu.teacher_taps(x.cuda()))
+                tap_err = max(_rel_max(g, c) for g, c in zip(taps[1], taps[0]))
+                fusions = {"gated": (cpu.fusion_proj, gpu.fusion_proj), "last": None}
+                for fname, make in (("pyramid", lambda: vfm.SemanticPyramidFusion(
+                        1280, (4, 8, 8), generator=torch.Generator().manual_seed(SEED + 630))),
+                                    ("concat", lambda: vfm.ConcatLayerFusion(
+                        1280, 4, generator=torch.Generator().manual_seed(SEED + 630)))):
+                    f_cpu, f_gpu = make(), make()
+                    _perturb(f_cpu, SEED + 631)
+                    f_gpu.load_state_dict(f_cpu.state_dict())
+                    fusions[fname] = (f_cpu, f_gpu.cuda())
+                fusion_err = {}
+                for fname, mods in fusions.items():
+                    got = taps[1][-1] if mods is None else mods[1](list(taps[1]))
+                    want = taps[0][-1] if mods is None else mods[0](list(taps[0]))
+                    fusion_err[fname] = _rel_max(got, want)
+                log(f"[vfm fp32] teacher (1280 wide, 4 of 32 layers, 16 heads of 80) on "
+                    f"1 x 3 x 8 x 128 x 128 (256 tokens): taps max|card-cpu| {tap_err:.3e} of the "
+                    f"scale (tol 1e-4); fusions on them: " + ", ".join(
+                        f"{k} {v:.3e}" for k, v in fusion_err.items()) + " (tol 1e-4)")
+                require(tap_err <= 1e-4, f"vfm: taps differ by {tap_err}")
+                require(max(fusion_err.values()) <= 1e-4, f"vfm: fusions differ {fusion_err}")
+                out_rec.update(tap_err=tap_err, fusion_err=fusion_err)
+        torch.cuda.synchronize()
+        agree = ((out["bottleneck_rep"].cpu() == ref["bottleneck_rep"]).float().mean().item()
+                 if "bottleneck_rep" in ref else 1.0)
+        losses = {k: abs(out[k].item() - ref[k].item()) / max(abs(ref[k].item()), 1e-12)
+                  for k in ("align_loss", "loss_q") if k in ref}
+        dec_err = _rel_max(dec, ref["pred_frames"])
+        fwd_err = _rel_max(out["pred_frames"], ref["pred_frames"])
+        want = {"d80": 4, "tf32x3": 2 if case == "noquant" else 6,
+                "flash": 6 if case == "noquant" else 10, "vq": 0 if case == "noquant" else 1}
+        log(f"[vfm fp32] {name} {case} ({sum(p.numel() for p in cpu.parameters()):,} params at "
+            f"the cut): indices agree {agree:.4%} (tol >= 99%); " + ", ".join(
+                f"{k} {out[k].item():.7g}/{ref[k].item():.7g} (relative {v:.2e})"
+                for k, v in losses.items()) + f" (card/CPU, tol 1e-4); the CPU's latents decoded "
+            f"on the card max|card-cpu| {dec_err:.3e} of the scale (tol 1e-3); forward "
+            f"{fwd_err:.3e}; launches {n} (expect {want})")
+        require(tuple(out["pred_frames"].shape) == (1, 3, 8, 128, 128)
+                and torch.isfinite(out["pred_frames"]).all().item(), f"vfm {case}: output")
+        require(agree >= 0.99, f"vfm {case}: index agreement {agree}")
+        require(all(v <= 1e-4 for v in losses.values()), f"vfm {case}: losses {losses}")
+        require(dec_err <= 1e-3, f"vfm {case}: decode error {dec_err}")
+        require(n == want, f"vfm {case}: launches {n}, expected {want}")
+        out_rec[case] = {"index_agree": agree, "loss_rel": losses, "dec_err": dec_err,
+                         "launches": n}
+        del cpu, gpu
+        torch.cuda.empty_cache()
+    out_rec["cpu_and_card_s"] = time.perf_counter() - t0
+    rec["fp32"] = out_rec
+
+
+def _vfm_reconstruction(name: str, bottleneck: Optional[str], rec: dict, records: dict) -> None:
+    """Phase 26 (c): bf16 batch 8 of 16 x 256 x 256 through `reconstruct`,
+    `larp_tokenizer_vfm` with the cfg's `vq` or with `sq` (`--opts
+    model.args.bottleneck_type sq`)."""
+    import numpy as np
+    import torch
+
+    from video_tokenizer_tpu_torch.ops.attention import flash_attn_fwd
+    from video_tokenizer_tpu_torch.ops.vq import vq_argmax
+    from video_tokenizer_tpu_torch.reconstruct import build_model, make_clips, reconstruct
+
+    tag = name if bottleneck is None else f"{name} ({bottleneck})"
+    opts = ["model.name", name] + (["model.args.bottleneck_type", "sq"] if bottleneck == "sq" else [])
+    t0 = time.perf_counter()
+    model = build_model(str(ROOT / "cfgs" / "larp_tokenizer.yaml"), None, torch.bfloat16,
+                        torch.device("cuda"), SEED + 640, 256, 16, opts)
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    require(n_params == VFM_PARAMS[name, bottleneck]
+            and getattr(model, "bottleneck_type", None) == bottleneck,
+            f"{tag}: {n_params:,} parameters")
+    B, iters = 8, 5
+    clips = torch.from_numpy(make_clips(np.random.default_rng(SEED + 641), B, 16, 256)).cuda()
+    reconstruct(model, clips)  # warm-up
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attn_fwd.launches = flash_attn_fwd.launches_sm90 = flash_attn_fwd.launches_d80 = 0
+    vq_argmax.launches = vq_argmax.launches_tc = 0
+    times = []
+    for _ in range(iters):
+        t = time.perf_counter()
+        out = reconstruct(model, clips)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    n = {"d80": flash_attn_fwd.launches_d80,
+         "d64": flash_attn_fwd.launches - flash_attn_fwd.launches_d80,
+         "wgmma": flash_attn_fwd.launches_sm90, "vq": vq_argmax.launches,
+         "vq_tc": vq_argmax.launches_tc}
+    vq_kernel = vq_argmax.last_kernel if vq_argmax.launches else None
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    wall_ms, per_cat, n_events, under_load = _profile_and_load(lambda: reconstruct(model, clips), 3)
+    busy_ms = sum(per_cat.values()) / 1e3
+    d64 = 16 if "noquant" in name else 48
+    n_vq = 0 if "noquant" in name else 1
+    want = {"d80": 32 * iters, "d64": d64 * iters, "wgmma": (32 + d64) * iters,
+            "vq": n_vq * iters, "vq_tc": n_vq * iters}
+    clips_s = B / statistics.median(times)
+    log(f"[vfm bf16] {tag} ({n_params:,} params, built from the seed on the host in "
+        f"{build_s:.1f} s) batch {B} of 16 x 256 x 256: {', '.join(f'{t * 1e3:.1f}' for t in times)}"
+        f" ms; median {statistics.median(times) * 1e3:.1f} ms = {clips_s:.2f} clips/s; peak "
+        f"memory {peak:.2f} GiB; mse {torch.mean((out - clips) ** 2).item():.5f}; launches {n} "
+        f"(expect {want}; VQ kernel {vq_kernel}); profiled 3 batches: wall {wall_ms / 3:.1f} ms, "
+        f"device busy {busy_ms / 3:.1f} ms, idle {1 - busy_ms / wall_ms:.1%}, "
+        f"{n_events / 3:.0f} kernels a batch; device ms a batch by category: " + ", ".join(
+            f"{c} {us / 1e3 / 3:.2f} ({us / 1e3 / busy_ms:.1%})"
+            for c, us in sorted(per_cat.items(), key=lambda kv: -kv[1]))
+        + f"; the card under load: {under_load}")
+    require(tuple(out.shape) == (B, 3, 16, 256, 256) and torch.isfinite(out).all().item(),
+            f"{tag}: reconstruction")
+    require(n == want, f"{tag}: launches {n}, expected {want}")
+    if n_vq:  # d = 8 over the cfg's 8,192 codes, or 24 over the Leech codebook's 196,560
+        d = (model.sq_quantizer.embed_dim if bottleneck == "sq"
+             else model.bottleneck_module.regularizer.dim)
+        require(vq_kernel == "vq_tc_kernel" and d == (24 if bottleneck == "sq" else 8),
+                f"{tag}: the VQ search ran {vq_kernel} at d = {d}")
+    rec[f"{name}{'_sq' if bottleneck == 'sq' else ''}_bf16_b8"] = {
+        "params": n_params, "clips_per_s": clips_s, "peak_gib": peak,
+        "idle": 1 - busy_ms / wall_ms, "launches": n, "build_s": build_s,
+        "device_ms_per_batch": {c: us / 1e3 / 3 for c, us in per_cat.items()}}
+    if bottleneck == "vq":
+        records["flash_attn_fwd_d80"]["launches"] = n["d80"]
+    del model, clips, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _vfm_train(tmp: Path, rec: dict) -> None:
+    """Phase 26 (d)."""
+    import numpy as np
+    import torch
+
+    cfg = _load_cfg("larp_tokenizer", tmp / "vfm_fp32", 1, size=128, frames=8)
+    cfg["model"]["name"] = "larp_tokenizer_vfm"
+    cfg["model"]["args"].update(VFM_CUT)
+    cfg["loss"]["args"].update(d_update_freq=1, disc_tran_n_layers=PARITY_DEPTH)
+    pair = {d: _trainer({**cfg, "save_dir": str(tmp / f"vfm_fp32_{d}")}, d)
+            for d in ("cpu", "cuda")}
+    cpu, gpu = pair["cpu"], pair["cuda"]
+    _perturb(cpu.model, SEED + 650)
+    _perturb(cpu.disc, SEED + 651)
+    gpu.model.load_state_dict(cpu.model.state_dict())
+    gpu.loss_mod.load_state_dict(cpu.loss_mod.state_dict())
+    clip = np.random.default_rng(SEED + 652).integers(0, 256, (1, 3, 8, 128, 128), dtype=np.uint8)
+    reps, infos, secs = {}, {}, {}
+    for device, tr in pair.items():
+        hook = tr.model.bottleneck_module.register_forward_hook(
+            lambda m, i, o, d=device: reps.__setitem__(d, o["bottleneck_rep"].cpu()))
+        t0 = time.perf_counter()
+        keys, packed = tr.train_step({"gt": torch.from_numpy(clip)})
+        infos[device] = dict(zip(keys, packed.tolist()))
+        secs[device] = time.perf_counter() - t0
+        hook.remove()
+    agree = (reps["cuda"] == reps["cpu"]).float().mean().item()
+    loss_keys = ("loss", "rec_loss", "perceptual_loss", "g_loss", "d_loss", "loss_q",
+                 "align_loss", "logits_real", "logits_fake")
+    loss_err = max(abs(infos["cuda"][k] - infos["cpu"][k]) / max(abs(infos["cpu"][k]), 1e-6)
+                   for k in loss_keys)
+    log(f"[vfm train fp32] larp_tokenizer_vfm (cfg, vq) at the cut, batch 1 of 8 x 128 x 128, "
+        f"{PARITY_DEPTH} of the discriminator's 8, TF32 off: CPU step {secs['cpu']:.1f} s, card "
+        f"step {secs['cuda']:.2f} s; VQ indices agree {agree:.4%} (tol >= 99.9%); losses "
+        + ", ".join(f"{k} {infos['cuda'][k]:.6g}/{infos['cpu'][k]:.6g}" for k in loss_keys)
+        + f" (card/CPU; largest relative difference {loss_err:.2e}, tol 2e-4)")
+    require(set(infos["cuda"]) == set(infos["cpu"]), "vfm train fp32: info keys differ")
+    require(all(np.isfinite(v) for v in infos["cuda"].values()), "vfm train fp32: non-finite")
+    require(agree >= 0.999, f"vfm train fp32: VQ agreement {agree}")
+    require(loss_err <= 2e-4, f"vfm train fp32: losses differ by {loss_err}")
+    last = PARITY_DEPTH - 1
+    worst = 0.0
+    for part, gm, cm, names in (
+            ("model", gpu.model, cpu.model, (
+                "fusion_proj.proj_0.weight", "jepa_to_encoder.weight",
+                f"encoder.blocks.{last}.attn.qkv.weight", "bottleneck_module.in_linear.weight",
+                "aligner.weight", f"pixel_decoder.blocks.{last}.mlp.fc2.weight",
+                "final_layer.linear.weight")),
+            ("disc", gpu.disc, cpu.disc, (f"transformer_encoder.blocks.{last}.attn.qkv.weight",
+                                          "x_embedder.proj.weight"))):
+        gp, cp = dict(gm.named_parameters()), dict(cm.named_parameters())
+        for pname in names:
+            g, c = gp[pname].grad, cp[pname].grad
+            require(g is not None and c is not None, f"vfm train fp32: no gradient for {pname}")
+            rel = (g.cpu() - c).abs().max().item() / c.abs().max().item()
+            worst = max(worst, rel)
+            log(f"[vfm train fp32] grad {part} {pname}: max|card-cpu|/max|cpu| {rel:.2e} (tol 1e-3)")
+    require(worst <= 1e-3, f"vfm train fp32: gradients differ by {worst} of their scale")
+    require(all(p.grad is None for tr in pair.values()
+                for p in tr.model.teacher_model.parameters()), "vfm train fp32: teacher grads")
+    rec["train_fp32"] = {"loss_rel": loss_err, "grad_rel": worst, "index_agree": agree,
+                         "cpu_s": secs["cpu"]}
+    del pair, cpu, gpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def teacher_unchanged(tr):
+        before = [p.detach().clone() for p in tr.model.teacher_model.parameters()]
+        require(not any(p.requires_grad for p in tr.model.teacher_model.parameters()),
+                "vfm train bf16: the teacher requires a gradient")
+
+        def check(tr):
+            same = all(torch.equal(a, p) for a, p in zip(before, tr.model.teacher_model.parameters()))
+            log(f"[vfm train bf16] the teacher's {len(before)} tensors unchanged bit for bit: {same}")
+            require(same, "vfm train bf16: a teacher parameter moved")
+        return check
+
+    cfg = _load_cfg("larp_tokenizer", tmp / "vfm_bf16", 8, size=256)
+    cfg["model"]["name"] = "larp_tokenizer_vfm"
+    cfg["use_amp"] = True
+    # per step: 32 teacher forwards at D = 80 and 48 student ones at D = 64,
+    # 24 discriminator forwards; dQ / dK-dV for the 48 and the 8 the
+    # generator loss runs through the discriminator, 16 more on its step
+    run = _train_throughput("vfm train bf16", cfg, (104, 56, 16), 1, inspect=teacher_unchanged)
+    require(run["peak_gib"] <= VFM_TRAIN_PEAK_GIB,
+            f"vfm train bf16: batch 8 peaked at {run['peak_gib']:.1f} GiB")
+    rec["train_bf16"] = {k: run[k] for k in ("batch", "s_per_step", "clips_per_s", "peak_gib",
+                                             "idle", "loader_s", "device_ms_per_step")}
+
+
+def _sem(tmp: Path, rec: dict) -> None:
+    """Phase 26 (e)."""
+    import torch
+
+    from video_tokenizer_tpu_torch.models.vfm import preprocess_for_teacher
+
+    cut = {**_vfm_cfg_args(), "input_size": 128, "frame_num": 16,
+           "encoder_depth": PARITY_DEPTH, "decoder_depth": PARITY_DEPTH,
+           "teacher_depth": PARITY_DEPTH}
+    cpu, gpu = _vfm_pair("larp_tokenizer_sem", cut, SEED + 660)
+    gen = torch.Generator().manual_seed(SEED + 661)
+    draws = tuple(torch.randint(0, 1024, (1, 256), generator=gen) for _ in range(2))
+    x = torch.rand(1, 3, 16, 128, 128, generator=gen)
+    t0 = time.perf_counter()
+    ref = cpu(x, train=True, kmeans_draws=draws)
+    cpu_s = time.perf_counter() - t0
+    gpu_draws = tuple(d.cuda() for d in draws)
+    out = gpu(x.cuda(), train=True, kmeans_draws=gpu_draws)
+    with torch.no_grad():
+        # the aligner's inputs, the latents and the teacher's last tap, on both
+        lat = (ref["encoded"].detach(), out["encoded"].detach().cpu())
+        taps = (cpu.teacher_model(preprocess_for_teacher(x, cpu.vjepa2_img_size))[-1],
+                gpu.teacher_model(preprocess_for_teacher(x.cuda(), gpu.vjepa2_img_size))[-1].cpu())
+        # the card's aligner on the CPU's inputs, and the CPU's on the card's:
+        # the soft assignments at temperature 0.2 amplify fp32 rounding
+        # (tests/test_torch_sem.py: 1e-7 of their inputs to 1e-3 of
+        # gram_loss), so both the whole forward and the aligner on equal
+        # inputs are held within 3x what the inputs' card-vs-CPU difference
+        # moves the CPU's aligner
+        same = gpu.aligner(lat[0].cuda(), taps[0].cuda(), gpu.teacher_grid, gpu_draws)
+        moved = cpu.aligner(lat[1], taps[1], cpu.teacher_grid, draws)
+        base = cpu.aligner(lat[0], taps[0], cpu.teacher_grid, draws)
+    torch.cuda.synchronize()
+
+    def rel(a, b):
+        return abs(a.item() - b.item()) / max(abs(b.item()), 1e-12)
+
+    in_err = {"latents": _rel_max(lat[1], lat[0]), "teacher tap": _rel_max(taps[1], taps[0])}
+    same_err = max(rel(same[0], base[0]), rel(same[1]["gram_loss"], base[1]["gram_loss"]))
+    yard = max(rel(moved[0], base[0]), rel(moved[1]["gram_loss"], base[1]["gram_loss"]))
+    tol = {"align_loss": max(1e-4, 3 * yard), "gram_loss": max(1e-4, 3 * yard), "loss_q": 1e-4}
+    errs = {k: rel(out[k], ref[k]) for k in tol}
+    agree = (out["bottleneck_rep"].cpu() == ref["bottleneck_rep"]).float().mean().item()
+    log(f"[sem fp32] larp_tokenizer_sem train-mode forward at {PARITY_DEPTH} layers of each "
+        f"stack (the teacher's too), 1 x 3 x 16 x 128 x 128, one k-means draw given to both: CPU "
+        f"{cpu_s:.1f} s; the aligner's inputs max|card-cpu| " + ", ".join(
+            f"{k} {v:.3e}" for k, v in in_err.items()) + " of the scale (tol 1e-4); the card's "
+        f"aligner on the CPU's inputs: losses {same_err:.2e} apart (tol {tol['gram_loss']:.2e}); "
+        f"the CPU's aligner on the card's inputs moves them {yard:.2e}; the whole forward: " + ", ".join(
+            f"{k} {out[k].item():.7g}/{ref[k].item():.7g} (relative {v:.2e}, tol {tol[k]:.2e})"
+            for k, v in errs.items()) + f" (card/CPU; align_loss and gram_loss: 3x the inputs' "
+        f"move, at least 1e-4); VQ indices agree {agree:.4%} (tol >= 99%)")
+    require(max(in_err.values()) <= 1e-4, f"sem: the aligner's inputs differ {in_err}")
+    require(same_err <= tol["gram_loss"], f"sem: the aligner on equal inputs differs by {same_err}")
+    require(all(v <= tol[k] for k, v in errs.items()), f"sem: {errs} > {tol}")
+    require(agree >= 0.99, f"sem: index agreement {agree}")
+    rec["sem_fp32"] = {"rel": errs, "tol": tol, "inputs": in_err, "aligner_same_inputs": same_err,
+                       "yardstick": yard, "cpu_s": cpu_s}
+    del cpu, gpu
+    torch.cuda.empty_cache()
+    cfg = _load_cfg("larp_tokenizer", tmp / "sem_bf16", 8)
+    cfg["model"]["name"] = "larp_tokenizer_sem"
+    cfg["use_amp"] = True
+    # per step: 24 tokenizer, 8 teacher (D = 64, no grad) and 24 discriminator
+    # forwards; dQ / dK-dV for the tokenizer's 24 and the discriminator's 8
+    run = _train_throughput("sem train bf16", cfg, (56, 32, 16), 1, warm=2, timed=2)
+    rec["sem_train_bf16"] = {k: run[k] for k in ("batch", "s_per_step", "clips_per_s",
+                                                 "peak_gib", "idle")}
+
+
 def main() -> int:
     if not (ROOT / "video_tokenizer_tpu_torch").is_dir():
         print("chip_smoke.py: the video_tokenizer_tpu_torch package is not beside this script",
@@ -6005,6 +6556,7 @@ def main() -> int:
         run(phase_trainer_basic, Path(tmp), records)
         run(phase_titok, Path(tmp), records)
         run(phase_cosmos, records)
+        run(phase_vfm, Path(tmp), records)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 
     sources = {
@@ -6013,6 +6565,10 @@ def main() -> int:
         "flash_attn_fwd_tf32x3": ("video_tokenizer_tpu_torch/csrc/flash_attn_fwd_tf32x3.cu",
                                   "video_tokenizer_tpu/ops/attention.py:166"),
         "flash_attn_fwd_mma": ("video_tokenizer_tpu_torch/csrc/flash_attn_fwd.cu",
+                               "video_tokenizer_tpu/ops/attention.py:166"),
+        # the wgmma forward at the V-JEPA2 teacher's head dim 80 (bf16; fp32
+        # there runs flash_attn_fwd.cu's FMA path)
+        "flash_attn_fwd_d80": ("video_tokenizer_tpu_torch/csrc/flash_attn_fwd_sm90.cu",
                                "video_tokenizer_tpu/ops/attention.py:166"),
         "flash_attn_bwd_dq": ("video_tokenizer_tpu_torch/csrc/flash_attn_bwd_dq_sm90.cu",
                               "video_tokenizer_tpu/ops/attention.py:387"),
@@ -6073,6 +6629,7 @@ def main() -> int:
     print(json.dumps({"trainer_basic": records["trainer_basic"]}))
     print(json.dumps({"titok": records["titok"]}))
     print(json.dumps({"cosmos": records["cosmos"]}))
+    print(json.dumps({"vfm": records["vfm"]}))
     print(json.dumps({"sampling_tokens_per_s": records["sampling"],
                       "sampling_device_step_ms": records["sampling_device_step_ms"],
                       "sampling_kernels_per_step": records["sampling_kernels_per_step"],

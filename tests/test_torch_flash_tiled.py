@@ -401,3 +401,57 @@ def test_one_segment_id_runs_the_arithmetic_without_ids(causal, dtype):
 ])
 def test_the_chunk_kernel_is_chosen_by_cache_dtype_and_head_dim(cache_dtype, head_dim, want):
     assert chunk_kernel(cache_dtype, head_dim) == want
+
+
+# Head dim 80: the V-JEPA2 ViT-H teacher's 1280 / 16, forward only (its one
+# caller is frozen). The wgmma kernel holds a 64-column row tile and a
+# 16-column panel, which changes where products are summed, not what the
+# tiled reference computes; the JAX package runs the packed forward where
+# H * D is a multiple of 128 (H = 8) and the [B, H, S, D] one otherwise (H = 2).
+D80_CASES = [
+    ("d80_packed_h8", 1, 256, 256, 8, 8, 80, False, None, False),
+    ("d80_h2_ragged", 2, 200, 300, 2, 2, 80, False, None, False),
+    ("d80_causal_no_key_rows", 1, 256, 256, 2, 2, 80, True, -70, False),
+    ("d80_segments_no_match", 2, 256, 256, 2, 2, 80, False, None, "no_match"),
+    ("d80_segments_pack", 1, 256, 256, 8, 8, 80, False, None, "pack"),
+]
+D80_IDS = [c[0] for c in D80_CASES]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", D80_CASES, ids=D80_IDS)
+def test_tiled_forward_matches_plain_at_head_dim_80(case, dtype):
+    test_tiled_forward_matches_plain(case, dtype)
+
+
+@pytest.mark.parametrize("case", [c for c in D80_CASES if c[4] == 2], ids=lambda c: c[0])
+def test_tiled_forward_matches_jax_pallas_at_head_dim_80(case, interpret_mode):
+    """H = 2: 2 x 80 is no multiple of 128, so the JAX package runs its
+    [B, H, S, D] Pallas forward (with LSE): 1e-5."""
+    test_tiled_forward_matches_jax_pallas(case, interpret_mode)
+
+
+@pytest.mark.parametrize("case", [c for c in D80_CASES if c[4] == 8], ids=lambda c: c[0])
+def test_tiled_forward_matches_jax_packed_pallas_at_head_dim_80(case, interpret_mode):
+    """H = 8: 8 x 80 = 640 lanes, the JAX package's packed Pallas forward
+    (`_fwd_kernel_packed`, no LSE) in interpret mode, fp32: 1e-5."""
+    (q, k, v, _), args, seg, _ = _case(case, torch.float32)
+    assert _ATT._packed_eligible(jnp.asarray(q.numpy()), jnp.asarray(k.numpy()), 3072)
+    got, _ = attention_tiled_reference(q, k, v, *args)
+    q_seg = None if seg is None else jnp.asarray(seg[0])
+    want = np.asarray(_ATT.attention(jnp.asarray(q.numpy()), jnp.asarray(k.numpy()),
+                                     jnp.asarray(v.numpy()), causal=args[0], segment_ids=q_seg,
+                                     use_pallas=True))
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype, has_segments, want", [
+    (torch.bfloat16, False, ("flash_fwd_sm90_kernel", None, None)),  # the teacher, bf16
+    (torch.bfloat16, True, ("flash_fwd_sm90_kernel", None, None)),
+    (torch.float32, False, ("flash_fwd_kernel", None, None)),  # fp32 FMAs
+    (torch.float32, True, ("flash_fwd_kernel", None, None)),
+])
+def test_head_dim_80_is_forward_only(dtype, has_segments, want):
+    """The backward kernels are None: `flash_attn_bwd` raises on the card
+    (chip_smoke.py phase 26 (a) calls it there)."""
+    assert flash_kernels(dtype, 80, has_segments) == want

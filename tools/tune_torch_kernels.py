@@ -1,7 +1,7 @@
 """Times tilings of the Hopper kernels whose tiling is a set of constants.
 
   python3 tools/tune_torch_kernels.py [chunk] [dq] [decode] [w8] [w8_step] [flash_fp32] [w8_large]
-      [flash_bwd_fp32] [vq] [vq_gemm] [parent=<csrc directory>]
+      [flash_bwd_fp32] [vq] [vq_gemm] [flash_d80] [parent=<csrc directory>]
   (one CUDA device, nvcc)
 
 `csrc/chunk_attention_sm90.cu`, `csrc/flash_attn_bwd_dq_sm90.cu`,
@@ -39,7 +39,10 @@ backward (kernels by CUDA-graph replays, SDPA by CUDA events, two rounds).
 warps a block, blocks a cluster, and two diagnostic variants that leave out
 the index pick or the products) at the flagship shape (M = K = 8192, d = 8,
 argmax and Gumbel-max; CUDA-graph replays, two rounds) beside the earlier FMA
-kernel. `vq_gemm`: the wide-code VQ search (`csrc/vq_gemm_sm90.cu`: one block of 8
+kernel. `flash_d80`: the wgmma flash forward at D = 80 (`csrc/flash_attn_fwd_sm90.cu`:
+Q in shared memory or in registers, one or two blocks an SM) at the V-JEPA2
+teacher's B = 8, S = 2048, H = 16 beside SDPA (CUDA-graph replays, two
+rounds). `vq_gemm`: the wide-code VQ search (`csrc/vq_gemm_sm90.cu`: one block of 8
 warps over 128 rows an SM in place of two of 4 over 64, ring stages, and
 diagnostic variants that keep one of the three TF32 products or none) at SimVQ's
 d = 256, K = 16,384, M = 256, 2048 and 8192 (CUDA-graph replays, two rounds)
@@ -847,6 +850,51 @@ def compare_parent(csrc_dir):
         del lcs
 
 
+def tune_flash_d80():
+    """The wgmma forward at D = 80 (the V-JEPA2 teacher's B = 8, S = 2048,
+    H = 16 in bf16): Q read from shared memory (the source's `kQSmem`) or
+    held in registers as A fragments, each at two blocks an SM (the
+    source's; registers capped at 128) and at one, beside SDPA (CUDA-graph
+    replays, two rounds), with registers and spills. Three warpgroups a
+    block do not build: ptxas cannot fit the D = 64 instance in 85
+    registers."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    B, S, H, D = 8, 2048, 16, 80
+    q, k, v = torch.randn(B, S, 3, H, D, generator=gen, device="cuda").bfloat16().unbind(2)
+    want = A.attention_reference(q, k, v)[0].float()
+    q_regs = ("kQSmem = kTail != 0;", "kQSmem = false;")
+    variants = {
+        "q_smem_mb2": dict(),
+        "q_smem_mb1": dict(kMinBlocks=1),
+        "q_regs_mb2": dict(text=[q_regs]),
+        "q_regs_mb1": dict(kMinBlocks=1, text=[q_regs]),
+    }
+    fns = compile_variants("flash_attn_fwd_sm90.cu", variants, "vtt_flash_attn_fwd_sm90")
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    for rnd in range(2):
+        for n, fn in fns.items():
+            if fn is None:
+                continue
+            out = torch.empty(q.shape, dtype=torch.bfloat16, device="cuda")
+
+            def run():
+                code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None, out.data_ptr(),
+                          None, B, H, H, S, S, D, *strides, 0, 0, 0, D ** -0.5,
+                          torch.cuda.current_stream().cuda_stream)
+                assert code == 0, code
+
+            ms = c.graph_ms(run, launches=10)
+            err = (out.float() - want).abs().max().item() / want.abs().max().item()
+            print(f"[flash_d80 round {rnd}] {n}: {ms:.4f} ms (err {err:.1e})", flush=True)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib = c.graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), launches=10)
+        print(f"[flash_d80 round {rnd}] SDPA {lib:.4f} ms; bound "
+              f"{c.bound(4 * 2 * B * S * H * D, 4 * B * H * S * S * D)['bound_ms']:.4f} ms",
+              flush=True)
+
+
 if __name__ == "__main__":
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), flush=True)
@@ -860,6 +908,8 @@ if __name__ == "__main__":
         tune_vq()
     if "vq_gemm" in which:
         tune_vq_gemm()
+    if "flash_d80" in which:
+        tune_flash_d80()
     if "flash_bwd_fp32" in which:
         tune_flash_bwd_fp32()
     if "flash_fp32" in which:

@@ -1,5 +1,7 @@
 // Flash-attention forward for Hopper (sm_90a), bf16 and fp32: the kernel for
-// head dim 128. At head dim 32 or 64, with or without segment ids (every
+// head dim 128, and for fp32 at head dim 80 (the V-JEPA2 ViT-H teacher's
+// 1280 / 16: fp32 FMAs, the rows padded to 84 floats). At head dim 32 or 64,
+// and in bf16 at 80, with or without segment ids (every
 // flash shape of the tokenizers, the discriminator, the prior and the draft,
 // TiTok's packed sequences and the prior's prefill with `emb_masks` among
 // them) bf16 runs csrc/flash_attn_fwd_sm90.cu (wgmma) and fp32
@@ -382,6 +384,7 @@ cudaError_t dispatch_d(const Params& p, int D, cudaStream_t stream) {
   switch (D) {
     case 32: return launch<T, 32>(p, stream);
     case 64: return launch<T, 64>(p, stream);
+    case 80: return launch<T, 80>(p, stream);
     case 128: return launch<T, 128>(p, stream);
     default: return cudaErrorInvalidValue;
   }

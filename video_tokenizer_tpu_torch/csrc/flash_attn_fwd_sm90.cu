@@ -1,5 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), bf16, head dim 32 or 64, with
-// warpgroup matrix products (wgmma) and an asynchronous ring of K/V tiles.
+// Flash-attention forward for Hopper (sm_90a), bf16, head dim 32, 64 or 80,
+// with warpgroup matrix products (wgmma) and an asynchronous ring of K/V tiles.
 //
 // Replaces, for bf16 inputs with or without segment ids, the same two TPU
 // kernels as csrc/flash_attn_fwd.cu (which keeps head dim 128):
@@ -44,6 +44,15 @@
 //     overflow to -inf and turn a row that sees no key into NaN);
 //   * causal blocks skip key tiles past their last visible key (each
 //     warpgroup its own) and start with the longest rows.
+// Head dim 80 (the V-JEPA2 ViT-H teacher's 1280 / 16, `Tiles<80>`): a 160-byte
+// row is a 64-column row tile plus a 16-column panel with the 32-byte swizzle,
+// so S = Q.K^T is five k16 steps over two descriptors and P.V one N = 64 and
+// one N = 16 product per k16 step. Its 40 output registers a thread leave no
+// room under the 128 of two blocks an SM for Q's 20 fragment registers, so Q
+// comes into shared memory beside the ring (20 KB, both layouts) and every
+// S = Q.K^T step reads it by descriptor (wgmma with both operands in shared
+// memory): two blocks an SM and no spill, where Q in registers spilled at two
+// blocks or ran one block an SM, ~1.3x slower (PERF.md).
 // Segment ids (the kSeg instance; the instance without them is the kernel as
 // it was before they came here): each key tile's ids come into shared memory
 // with the tile, through the same ring (4-byte cp.async copies). A tile takes
@@ -62,7 +71,7 @@
 // What was measured against it and lost (PERF.md has the numbers): 128-key
 // tiles and four-warpgroup blocks (one block per SM: fewer independent
 // warpgroups), one warpgroup per block (twice the tile traffic), Q read from
-// shared memory by every product, and P.V started one iteration late behind
+// shared memory by every product at D = 64 (there Q fits in registers), and P.V started one iteration late behind
 // the next Q.K^T (no gain once four warpgroups overlap). The tiling is
 // therefore fixed in the constants below. What is left: no warp-specialised
 // producer (TMA), so every warp still spends issue slots on copies and all
@@ -110,26 +119,47 @@ constexpr int kMinBlocks = 2;
 constexpr int kThreads = kWG * 128;
 constexpr int kBlockM = kWG * 64;
 constexpr int kAhead = kStages - 1;  // tiles in flight ahead of the one being read
-constexpr int kTileBytes = kBlockN * kRowBytes;  // one K or V tile
-constexpr int kStageBytes = 2 * kTileBytes;
-// + kAtomBytes: the dynamic shared memory's start is aligned by hand; with
-// segment ids, each stage's kBlockN key ids and the prologue's per-warp
-// minima and maxima follow the ring
-constexpr int kRingBytes = kStages * kStageBytes + kAtomBytes;
 constexpr int kSegBytes = (kStages * kBlockN + 4 * kThreads / 32) * 4;
-template <bool kSeg>
-constexpr int smem_bytes() { return kRingBytes + (kSeg ? kSegBytes : 0); }
+
+// One K or V tile of kBlockN rows: the first kMain columns as a row tile
+// (128-byte swizzle); at D = 80 the last 16 columns follow as a 32-byte
+// panel (csrc/sm90.cuh), so that a 160-byte row costs 160 bytes of shared
+// memory and not the 256 of two row tiles. With kQSmem (D = 80) the block's
+// kBlockM query rows follow the ring in the same two layouts.
+template <int D>
+struct Tiles {
+  static constexpr int kMain = D < 64 ? D : 64;  // columns in the row tile
+  static constexpr int kTail = D - kMain;        // columns in the panel: 0 or 16
+  static_assert(kTail == 0 || kTail == 16, "head dim 32, 64 or 80");
+  static constexpr bool kQSmem = kTail != 0;     // Q read from shared memory
+  static constexpr int kPanel = kBlockN * kRowBytes;  // the panel's offset in a tile
+  static constexpr int kTileBytes = kPanel + kBlockN * kTail * 2;
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  static constexpr int kQPanel = kBlockM * kRowBytes;  // Q's panel's offset in its tile
+  static constexpr int kQBytes = kQSmem ? kQPanel + kBlockM * kTail * 2 : 0;
+  // + kAtomBytes: the dynamic shared memory's start is aligned by hand; with
+  // segment ids, each stage's kBlockN key ids and the prologue's per-warp
+  // minima and maxima follow the ring and Q
+  static constexpr int kRingBytes = kStages * kStageBytes + kQBytes + kAtomBytes;
+  static_assert(kTileBytes % kAtomBytes == 0, "every tile and panel stays aligned");
+};
+template <int D, bool kSeg>
+constexpr int smem_bytes() { return Tiles<D>::kRingBytes + (kSeg ? kSegBytes : 0); }
 
 template <int D, bool kSeg>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 flash_fwd_sm90_kernel(const Params p) {
+  using T = Tiles<D>;
   constexpr int kSRegs = kBlockN / 2;  // score accumulator registers per thread
-  constexpr int kORegs = D / 2;
+  constexpr int kORegs = T::kMain / 2;  // the row tile's columns
+  constexpr int kTRegs = T::kTail ? T::kTail / 2 : 1;  // the panel's (unused without one)
+  constexpr int kTileBytes = T::kTileBytes, kStageBytes = T::kStageBytes;
 
   extern __shared__ unsigned char smem_raw[];
   const uint32_t sKV = (smem_addr(smem_raw) + kAtomBytes - 1) & ~(uint32_t)(kAtomBytes - 1);
-  // segment ids: [kStages][kBlockN] key ids after the ring, then the prologue's scratch
-  int* const sSeg = reinterpret_cast<int*>(smem_raw + kRingBytes);
+  const uint32_t sQ = sKV + kStages * kStageBytes;  // with kQSmem
+  // segment ids: [kStages][kBlockN] key ids after the ring and Q, then the prologue's scratch
+  int* const sSeg = reinterpret_cast<int*>(smem_raw + T::kRingBytes);
   const uint32_t sSegAddr = smem_addr(sSeg);
 
   // causal: the blocks with the most visible keys start first
@@ -170,11 +200,18 @@ flash_fwd_sm90_kernel(const Params p) {
     t_end = min(t_end, last_key / kBlockN + 1);
   }
 
-  const RowTileLoader<D, kBlockN, kThreads> k_loader(kb, p.k_ss, p.Sk), v_loader(vb, p.v_ss, p.Sk);
+  const RowTileLoader<T::kMain, kBlockN, kThreads> k_loader(kb, p.k_ss, p.Sk),
+      v_loader(vb, p.v_ss, p.Sk);
+  const PanelLoader<kBlockN, kThreads> k_panel(kb, p.k_ss, p.Sk, T::kMain),
+      v_panel(vb, p.v_ss, p.Sk, T::kMain);
   auto load_kv = [&](int t) {
     const uint32_t dst = sKV + (t % kStages) * kStageBytes;
     k_loader.load(dst, t * kBlockN);
     v_loader.load(dst + kTileBytes, t * kBlockN);
+    if constexpr (T::kTail != 0) {
+      k_panel.load(dst + T::kPanel, t * kBlockN);
+      v_panel.load(dst + kTileBytes + T::kPanel, t * kBlockN);
+    }
     if constexpr (kSeg) {
       const int key = t * kBlockN + threadIdx.x;
       if (threadIdx.x < kBlockN) {
@@ -185,17 +222,24 @@ flash_fwd_sm90_kernel(const Params p) {
   };
 
   // prologue: Q, this thread's share of its warp's 16 query rows as register A
-  // fragments, and the first kAhead tiles, one commit group per tile
-  uint32_t qf[D / 16][4];
+  // fragments (or, with kQSmem, the block's rows into shared memory in the
+  // first tile's commit group), and the first kAhead tiles, one commit group
+  // per tile
+  uint32_t qf[T::kQSmem ? 1 : D / 16][4];
+  if constexpr (T::kQSmem) {
+    RowTileLoader<T::kMain, kBlockM, kThreads>(qb, p.q_ss, p.Sq).load(sQ, q0);
+    PanelLoader<kBlockM, kThreads>(qb, p.q_ss, p.Sq, T::kMain).load(sQ + T::kQPanel, q0);
+  } else {
 #pragma unroll
-  for (int ks_ = 0; ks_ < D / 16; ++ks_)
+    for (int ks_ = 0; ks_ < D / 16; ++ks_)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int row = qr[j & 1], col = ks_ * 16 + tig * 2 + (j >> 1) * 8;
-      qf[ks_][j] = row < p.Sq
-                       ? *reinterpret_cast<const uint32_t*>(qb + (long long)row * p.q_ss + col)
-                       : 0u;
-    }
+      for (int j = 0; j < 4; ++j) {
+        const int row = qr[j & 1], col = ks_ * 16 + tig * 2 + (j >> 1) * 8;
+        qf[ks_][j] = row < p.Sq
+                         ? *reinterpret_cast<const uint32_t*>(qb + (long long)row * p.q_ss + col)
+                         : 0u;
+      }
+  }
 #pragma unroll
   for (int t = 0; t < kAhead; ++t) {
     if (t_begin + t < t_end) load_kv(t_begin + t);
@@ -203,9 +247,12 @@ flash_fwd_sm90_kernel(const Params p) {
   }
 
   float s[kSRegs];
-  float o[kORegs];
+  float o[kORegs];   // O's row-tile columns, in the accumulator layout
+  float ot[kTRegs];  // O's panel columns (D = 80): columns kMain + 8 (i / 4) + 2 tig + (i & 1)
 #pragma unroll
   for (int i = 0; i < kORegs; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kTRegs; ++i) ot[i] = 0.f;
   uint32_t pf[kBlockN / 16][4];             // P of the last tile, bf16 A fragments
   float m_run[2] = {-INFINITY, -INFINITY};  // running max, natural-log domain
   float l_run[2] = {0.f, 0.f};              // this thread's share of the running sum
@@ -289,19 +336,41 @@ flash_fwd_sm90_kernel(const Params p) {
 #pragma unroll
     for (int i = 0; i < kORegs; ++i) o[i] *= alpha[(i >> 1) & 1];
 #pragma unroll
+    for (int i = 0; i < kTRegs; ++i) ot[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
     for (int kk = 0; kk < kBlockN / 16; ++kk)
 #pragma unroll
       for (int j = 0; j < 4; ++j) pf[kk][j] = pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
   };
-  auto start_qk = [&](uint64_t desc_k) {
+  // the row tile's k16 steps, then the panel's one (a descriptor of its own)
+  auto start_qk = [&](uint32_t sK) {
+    const uint64_t desc_k = row_tile_desc(sK);
+    if constexpr (T::kQSmem) {  // this warpgroup's 64 rows of Q
+      const uint64_t desc_q = row_tile_desc(sQ + wg * 64 * kRowBytes);
 #pragma unroll
-    for (int ks_ = 0; ks_ < D / 16; ++ks_)
-      wgmma_rs<0>(s, qf[ks_], desc_k + ks_ * kStepKMajor, ks_ > 0);
+      for (int ks_ = 0; ks_ < T::kMain / 16; ++ks_)
+        wgmma_ss(s, desc_q + ks_ * kStepKMajor, desc_k + ks_ * kStepKMajor, ks_ > 0);
+      wgmma_ss(s, panel_desc(sQ + T::kQPanel + wg * 64 * kPanelRowBytes),
+               panel_desc(sK + T::kPanel), 1);
+    } else {
+#pragma unroll
+      for (int ks_ = 0; ks_ < T::kMain / 16; ++ks_)
+        wgmma_rs<0>(s, qf[ks_], desc_k + ks_ * kStepKMajor, ks_ > 0);
+      if constexpr (T::kTail != 0) wgmma_rs<0>(s, qf[T::kMain / 16], panel_desc(sK + T::kPanel), 1);
+    }
   };
-  auto start_pv = [&](uint64_t desc_v) {
+  // O's row-tile columns, then its panel columns: N = kMain and N = 16
+  auto start_pv = [&](uint32_t sV) {
+    const uint64_t desc_v = row_tile_desc(sV);
 #pragma unroll
     for (int kk = 0; kk < kBlockN / 16; ++kk)
       wgmma_rs<1>(o, pf[kk], desc_v + kk * kStepMNMajor, 1);
+    if constexpr (T::kTail != 0) {
+      const uint64_t desc_p = panel_desc(sV + T::kPanel);
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk)
+        wgmma_rs<1>(ot, pf[kk], desc_p + kk * kStepPanelMNMajor, 1);
+    }
   };
 
   // tiles this warpgroup multiplies: those after its last visible key give P = 0
@@ -324,18 +393,20 @@ flash_fwd_sm90_kernel(const Params p) {
     float alpha[2];
     fence_regs(s);
     wgmma_fence();
-    start_qk(row_tile_desc(sK));
+    start_qk(sK);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
     softmax_tile(t * kBlockN, sSeg + (t % kStages) * kBlockN, alpha);
     rescale_and_pack(alpha);
     fence_regs(o);
+    fence_regs(ot);
     wgmma_fence();
-    start_pv(row_tile_desc(sK + kTileBytes));
+    start_pv(sK + kTileBytes);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
+    fence_regs(ot);
 #pragma unroll
     for (int kk = 0; kk < kBlockN / 16; ++kk) fence_regs(pf[kk]);
   }
@@ -354,9 +425,14 @@ flash_fwd_sm90_kernel(const Params p) {
     const float inv_l = 1.f / l_run[r];
     __nv_bfloat16* orow = p.out + (((long long)b * p.Sq + qr[r]) * p.H + h) * D;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < T::kMain / 8; ++n) {
       *reinterpret_cast<uint32_t*>(orow + n * 8 + tig * 2) =
           pack_bf16(o[4 * n + 2 * r] * inv_l, o[4 * n + 2 * r + 1] * inv_l);
+    }
+#pragma unroll
+    for (int n = 0; n < T::kTail / 8; ++n) {
+      *reinterpret_cast<uint32_t*>(orow + T::kMain + n * 8 + tig * 2) =
+          pack_bf16(ot[4 * n + 2 * r] * inv_l, ot[4 * n + 2 * r + 1] * inv_l);
     }
     if (p.lse != nullptr && tig == 0) {
       p.lse[((long long)b * p.H + h) * p.Sq + qr[r]] = m_run[r] + logf(l_run[r]);
@@ -369,10 +445,10 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   auto kernel = flash_fwd_sm90_kernel<D, kSeg>;
   // above 48 KB only as opted-in dynamic shared memory
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         smem_bytes<kSeg>());
+                                         smem_bytes<D, kSeg>());
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sq + kBlockM - 1) / kBlockM, p.H, p.B);
-  kernel<<<grid, kThreads, smem_bytes<kSeg>(), stream>>>(p);
+  kernel<<<grid, kThreads, smem_bytes<D, kSeg>(), stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -403,6 +479,7 @@ extern "C" int vtt_flash_attn_fwd_sm90(
   const bool seg = q_seg != nullptr;
   if ((q_seg == nullptr) != (k_seg == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaErrorInvalidValue;
+  if (D == 80) err = seg ? launch<80, true>(p, s) : launch<80, false>(p, s);
   if (D == 64) err = seg ? launch<64, true>(p, s) : launch<64, false>(p, s);
   if (D == 32) err = seg ? launch<32, true>(p, s) : launch<32, false>(p, s);
   return static_cast<int>(err);

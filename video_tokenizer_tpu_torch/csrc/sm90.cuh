@@ -21,7 +21,8 @@
 // c ^ (r & 7). That is the 128-byte swizzle of the wgmma descriptor, for which
 // the tile must start at a multiple of 1024 bytes. A head dim of 32 fills
 // chunks 0..3 of every row and leaves the rest unused, so one layout serves
-// D = 32 and D = 64. The same tile is read
+// D = 32 and D = 64 (and the first 64 columns of D = 80, whose last 16 sit in
+// a 32-byte swizzled panel, below). The same tile is read
 //   * K-major (the 64 values of a row are the product's inner dimension):
 //     Q.K^T reads Q and K this way, rows being the M or N index; a step of 16
 //     along the inner dimension is 32 bytes;
@@ -214,6 +215,59 @@ __device__ __forceinline__ uint64_t row_tile_desc(uint32_t addr) {
 constexpr uint64_t kStepKMajor = 32 >> 4;             // 16 bf16 along a row
 constexpr uint64_t kStepMNMajor = (16 * kRowBytes) >> 4;  // 16 rows
 
+// ---- the panel: R rows of 32 bytes (16 bf16), row r at byte r * 32, its
+// 16-byte chunk c at chunk position c ^ ((r >> 2) & 1): the 32-byte swizzle
+// of the wgmma descriptor (bit 4 of the address XOR bit 7), for which the
+// panel must start at a multiple of 256 bytes. It holds the 16 columns of a
+// 160-byte (D = 80) row past the row tile's 64, and is read, like the row
+// tile, K-major (one k16 step: the whole row) or MN-major (N = 16, a step of
+// 16 along the inner dimension is 16 rows, 512 bytes).
+constexpr int kPanelRowBytes = 32;
+
+__device__ __forceinline__ uint32_t panel_swizzled(int row, int chunk) {
+  return row * kPanelRowBytes + ((chunk ^ ((row >> 2) & 1)) << 4);
+}
+
+// The wgmma descriptor of a panel: 32-byte swizzle, 256 bytes from one group
+// of 8 rows to the next.
+__device__ __forceinline__ uint64_t panel_desc(uint32_t addr) {
+  uint64_t desc = (addr & 0x3FFFF) >> 4;
+  desc |= (uint64_t)1 << 16;                                 // leading offset (unused here)
+  desc |= (uint64_t)((8 * kPanelRowBytes) >> 4) << 32;       // stride between 8-row groups
+  desc |= (uint64_t)3 << 62;                                 // 32-byte swizzle
+  return desc;
+}
+
+constexpr uint64_t kStepPanelMNMajor = (16 * kPanelRowBytes) >> 4;  // 16 rows
+
+// One thread's share of copying the 16 columns from `col0` of kRows rows of a
+// [len, *] bf16 matrix (row stride `stride` elements) into a panel: the first
+// 2 kRows threads copy one 16-byte chunk each, the others nothing; rows at or
+// past `len` are zero-filled.
+template <int kRows, int kThreads>
+struct PanelLoader {
+  static_assert(kThreads >= 2 * kRows, "one chunk a thread");
+  const __nv_bfloat16* base;
+  const __nv_bfloat16* src;
+  long long row_stride;
+  int len, r;
+  uint32_t dst_off;
+
+  __device__ __forceinline__ PanelLoader(const __nv_bfloat16* matrix, long long stride, int rows,
+                                         int col0)
+      : base(matrix), row_stride(stride), len(rows) {
+    r = threadIdx.x / 2;
+    src = matrix + r * stride + col0 + (threadIdx.x % 2) * 8;
+    dst_off = panel_swizzled(r, threadIdx.x % 2);
+  }
+
+  __device__ __forceinline__ void load(uint32_t dst, int row0) const {
+    if (r >= kRows) return;
+    const bool in = row0 + r < len;
+    cp_async16(dst + dst_off, in ? src + row0 * row_stride : base, in ? 16 : 0);
+  }
+};
+
 // Orders earlier register writes (accumulators, A fragments) and shared-memory
 // writes of this warpgroup before the wgmma operations that follow.
 __device__ __forceinline__ void wgmma_fence() {
@@ -330,6 +384,26 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a, uint64
       "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
       "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64 x 16] = (scale_d ? D : 0) + A[64 x 16] B[16 x 16], A from registers, B
+// in shared memory, K-major (kTransB = 0) or MN-major (kTransB = 1).
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t desc_b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n"
+      "}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d),
+        "n"(kTransB));
 }
 
 // D[64 x 32] = (scale_d ? D : 0) + A[64 x 16] B[16 x 32], A from registers, B

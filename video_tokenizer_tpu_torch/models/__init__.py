@@ -10,6 +10,8 @@ from . import model_basic  # noqa: F401  (registers the five basic / dual-patch 
 from . import model_stat  # noqa: F401  (registers autoencoder_stat)
 from . import model_titok  # noqa: F401  (registers titok)
 from . import cosmos  # noqa: F401  (registers cosmos and cosmos_fsq)
+from . import vfm  # noqa: F401  (registers larp_tokenizer_vfm and larp_tokenizer_vfm_noquant)
+from . import sem  # noqa: F401  (registers larp_tokenizer_sem)
 
 from .bottleneck import Bottleneck, SimpleVectorQuantizer  # noqa: F401
 from .cosmos import CosmosVideoTokenizer  # noqa: F401

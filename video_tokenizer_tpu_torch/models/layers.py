@@ -22,6 +22,24 @@ from torch import nn
 _TRUNC_STD = 0.87962566103423978
 
 
+def trunc_normal_(weight: torch.Tensor, std: float,
+                  generator: Optional[torch.Generator]) -> None:
+    """A normal truncated at +-2 std (Flax's truncated normal) by the inverse
+    CDF of a uniform draw: op for op what `nn.init.trunc_normal_` does up to
+    torch 2.11, so that a generator gives the same weights there, and fast on
+    the host whatever the version (later versions draw by rejection, several
+    times slower, which counts for models of a billion parameters)."""
+    if weight.is_meta:
+        return
+    lo, hi = -2 * std, 2 * std
+    cdf_lo, cdf_hi = ((1.0 + math.erf(x / std / math.sqrt(2.0))) / 2.0 for x in (lo, hi))
+    weight.uniform_(2 * cdf_lo - 1, 2 * cdf_hi - 1, generator=generator)
+    weight.erfinv_()
+    weight.mul_(std * math.sqrt(2.0))
+    weight.add_(0.0)  # + the mean, as nn.init does: -0.0 becomes 0.0
+    weight.clamp_(min=lo, max=hi)
+
+
 def init_kernel(weight: torch.Tensor, init: str, fan_in: int, fan_out: int,
                 generator: Optional[torch.Generator]) -> None:
     """Initialises a kernel the way its Flax counterpart does."""
@@ -30,11 +48,9 @@ def init_kernel(weight: torch.Tensor, init: str, fan_in: int, fan_out: int,
             bound = math.sqrt(6.0 / (fan_in + fan_out))
             nn.init.uniform_(weight, -bound, bound, generator=generator)
         elif init == "lecun_normal":
-            std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
-            nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std, generator=generator)
+            trunc_normal_(weight, math.sqrt(1.0 / fan_in) / _TRUNC_STD, generator)
         elif init == "trunc02":  # Flax truncated_normal(0.02 / _TRUNC_STD): std 0.02
-            std = 0.02 / _TRUNC_STD
-            nn.init.trunc_normal_(weight, std=std, a=-2 * std, b=2 * std, generator=generator)
+            trunc_normal_(weight, 0.02 / _TRUNC_STD, generator)
         elif init == "normal02":  # Flax normal(0.02): not truncated
             nn.init.normal_(weight, std=0.02, generator=generator)
         elif init == "zeros":

@@ -5,9 +5,10 @@ Counterpart of `video_tokenizer_tpu/ops/attention.py`. Tensors are [B, S, H, D]
 attention: head h reads KV head h // (H // Hkv)).
 
 * `flash_attn_fwd` wraps `csrc/flash_attn_fwd_sm90.cu` (wgmma; bf16, head dim
-  32 or 64), `csrc/flash_attn_fwd_tf32x3.cu` (fp32, head dim 32 or 64:
+  32, 64 or 80), `csrc/flash_attn_fwd_tf32x3.cu` (fp32, head dim 32 or 64:
   mma.sync with each product as three TF32 products), both with or without
-  segment ids, and `csrc/flash_attn_fwd.cu` (head dim 128), which replace
+  segment ids, and `csrc/flash_attn_fwd.cu` (head dim 128, and fp32 at head
+  dim 80 on fp32 FMAs), which replace
   both TPU forward kernels (`_fwd_kernel_packed` and `_fwd_kernel`). On a
   CUDA tensor it launches the kernel that `flash_kernels` names or raises; on
   a CPU tensor it runs `attention_reference`. Nothing else chooses. With one
@@ -27,7 +28,9 @@ attention: head h reads KV head h // (H // Hkv)).
   `csrc/flash_attn_bwd_dkv_tf32x3.cu` (fp32, head dim 32 or 64, no segment
   ids: mma.sync with each product as three TF32 products) and
   `csrc/flash_attn_bwd.cu` (both gradients for head dim 128 and for segment
-  ids, from the LSE of whichever forward ran), which replace the TPU kernels
+  ids, from the LSE of whichever forward ran; head dim 80, whose only caller
+  is the frozen V-JEPA2 teacher, has no backward kernel and raises on the
+  card), which replace the TPU kernels
   `_bwd_dq_kernel` and
   `_bwd_dkv_kernel`; on a CPU tensor it runs `attention_bwd_reference`, the
   same recompute from the forward's LSE in plain PyTorch. Both give exactly
@@ -53,16 +56,27 @@ import torch
 from . import _build
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
-_HEAD_DIMS = (32, 64, 128)
-_SM90_HEAD_DIMS = (32, 64)  # head dims of the wgmma kernels (one 128-byte row per head)
+_HEAD_DIMS = (32, 64, 80, 128)
+# (forward, dQ, dK/dV) kernel by (dtype, head dim); a head dim not listed (128)
+# runs the mma.sync / FMA kernels both ways (`_EARLIER`). A None backward has
+# no kernel: head dim 80 is forward only (ROADMAP.md, queue 2)
+_EARLIER = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+_SM90 = ("flash_fwd_sm90_kernel", "flash_bwd_dq_sm90_kernel", "flash_bwd_dkv_sm90_kernel")
+_TF32X3 = ("flash_fwd_tf32x3_kernel", "flash_bwd_dq_tf32x3_kernel", "flash_bwd_dkv_tf32x3_kernel")
+_KERNELS = {
+    (torch.bfloat16, 32): _SM90, (torch.bfloat16, 64): _SM90,
+    (torch.float32, 32): _TF32X3, (torch.float32, 64): _TF32X3,
+    (torch.bfloat16, 80): ("flash_fwd_sm90_kernel", None, None),
+    (torch.float32, 80): ("flash_fwd_kernel", None, None),
+}
 
 
 def flash_kernels(dtype: torch.dtype, head_dim: int,
-                  has_segments: bool) -> Tuple[str, str, str]:
+                  has_segments: bool) -> Tuple[str, Optional[str], Optional[str]]:
     """(forward kernel, dQ kernel, dK/dV kernel) that a call on the card launches.
 
     The one place where the choice is made, by dtype, head dim and masks
-    only. bf16 at D = 32 or 64 runs the wgmma kernels
+    only (`_KERNELS`). bf16 at D = 32 or 64 runs the wgmma kernels
     (`csrc/flash_attn_fwd_sm90.cu`, `csrc/flash_attn_bwd_dq_sm90.cu`,
     `csrc/flash_attn_bwd_dkv_sm90.cu`); fp32 at D = 32 or 64 runs all three on
     the tensor cores as three TF32 products per product
@@ -71,13 +85,13 @@ def flash_kernels(dtype: torch.dtype, head_dim: int,
     forward takes segment ids there; the backward with segment ids stays on
     the mma.sync / FMA kernels of `csrc/flash_attn_bwd.cu`, which read the
     same natural-log LSE. D = 128 stays on the mma.sync / FMA kernels both
-    ways. No call falls back from one to the other."""
-    fwd, dq, dkv = "flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"
-    if head_dim in _SM90_HEAD_DIMS and dtype in (torch.bfloat16, torch.float32):
-        kind = "sm90" if dtype == torch.bfloat16 else "tf32x3"
-        fwd = f"flash_fwd_{kind}_kernel"
-        if not has_segments:
-            dq, dkv = f"flash_bwd_dq_{kind}_kernel", f"flash_bwd_dkv_{kind}_kernel"
+    ways. D = 80 (the V-JEPA2 teacher's) is forward only: bf16 on the wgmma
+    kernel, fp32 on `csrc/flash_attn_fwd.cu`'s FMA path; its dQ and dK/dV
+    are None, and `flash_attn_bwd` raises on the card. No call falls back
+    from one to the other."""
+    fwd, dq, dkv = _KERNELS.get((dtype, head_dim), _EARLIER)
+    if has_segments and dq is not None:
+        dq, dkv = _EARLIER[1:]
     return fwd, dq, dkv
 
 
@@ -602,6 +616,7 @@ def flash_attn_fwd(
         flash_attn_fwd.launches_sm90 += kernel == "flash_fwd_sm90_kernel"
         flash_attn_fwd.launches_tf32x3 += kernel == "flash_fwd_tf32x3_kernel"
         flash_attn_fwd.launches_segments += q_seg is not None
+        flash_attn_fwd.launches_d80 += D == 80
         flash_attn_fwd.last_kernel = kernel
     return (out, lse) if return_lse else out
 
@@ -639,6 +654,7 @@ flash_attn_fwd.launches = 0  # kernel launches (any of the three), read by chip_
 flash_attn_fwd.launches_sm90 = 0  # of which the wgmma kernel
 flash_attn_fwd.launches_tf32x3 = 0  # of which the 3xTF32 kernel
 flash_attn_fwd.launches_segments = 0  # of which with segment ids (any kernel)
+flash_attn_fwd.launches_d80 = 0  # of which at head dim 80 (wgmma in bf16, FMA in fp32)
 flash_attn_fwd.last_kernel = None  # name of the kernel the last call launched
 
 
@@ -756,6 +772,10 @@ def flash_attn_bwd(
         _check_operand("flash_attn_bwd", name, x, q.dtype)
     if lse.device != q.device or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError("flash_attn_bwd: lse must be contiguous fp32 on the card")
+    if flash_kernels(q.dtype, D, segment_ids is not None)[1] is None:
+        raise NotImplementedError(
+            f"flash_attn_bwd: no backward kernel at head dim {D} (its one caller, the frozen "
+            "V-JEPA2 teacher, runs without grad; ROADMAP.md, queue 2)")
     q_seg, k_seg = _segments("flash_attn_bwd", segment_ids, kv_segment_ids, B, Sq, Sk, q.device)
     scale = sm_scale if sm_scale is not None else D ** -0.5
     offset = causal_offset if causal_offset is not None else Sk - Sq

@@ -15,7 +15,8 @@ step, in the JAX package's order:
      (frozen) + adversarial, + loss_q (warmed up by epoch) + loss_kl (an
      skl bottleneck, weighted by `_kl_weight_for_step`: `loss_kl_weight`,
      decaying linearly to 0 over `kl_decay_epoch` epochs when that is > 0)
-     + loss_latent_ce x `loss_latent_ce_weight` (the gptc prior) + the
+     + align_loss x 0.2 (the teacher alignment of the V-JEPA2 tokenizers,
+     `models/vfm.py`, `models/sem.py`) + loss_latent_ce x `loss_latent_ce_weight` (the gptc prior) + the
      `_generator_extra_loss` hook (none here; the STAT trainer's
      adaptive-token losses), in training and in eval as in the JAX step.
      The discriminator's parameters are frozen for this backward, so its
@@ -76,7 +77,8 @@ from ..utils.convert import top_level_param_names
 from .base_trainer import BaseTrainer, ema_update, make_lr_schedule
 
 # the tokenizer's outputs that the generator loss takes (not logged as aux scalars)
-_DIFF_KEYS = ("pred_frames", "loss_q", "loss_kl", "loss_latent_ce")
+_DIFF_KEYS = ("pred_frames", "loss_q", "loss_kl", "loss_latent_ce", "align_loss")
+ALIGN_LOSS_WEIGHT = 0.2  # the teacher-alignment term of the VFM / sem tokenizers
 
 
 def make_optimizer(name: str, params, args) -> torch.optim.Optimizer:
@@ -240,6 +242,9 @@ class LARPTokenizerTrainer(BaseTrainer):
             klw = self._kl_weight_for_step(self.step)
             total = total + out["loss_kl"].float() * klw
             info["loss_kl"], info["kl_weight"] = out["loss_kl"], klw
+        if "align_loss" in out:
+            total = total + out["align_loss"].float() * ALIGN_LOSS_WEIGHT
+            info["align_loss"] = out["align_loss"]
         if "loss_q" in out:
             total = total + out["loss_q"].float() * self._loss_q_weight_for_epoch(epoch)
             info["loss_q"] = out["loss_q"]

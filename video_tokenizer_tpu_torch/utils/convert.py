@@ -54,6 +54,17 @@ conv kernels [kt, kh, kw, in, out] -> [out, in, kt, kh, kw], Dense [in, out]
 -> [out, in], GroupNorm `scale` -> `weight`; each parameter of the model
 filled exactly once (the SimVQ anchors are a buffer the model computes).
 
+`vfm_state_dict_from_jax(params, model)` does the same for the V-JEPA2-teacher
+tokenizers (`larp_tokenizer_vfm`, `larp_tokenizer_vfm_noquant`), whose names
+are the Flax names (`flax_tree_state_dict`: Dense kernels -> weight [out, in],
+LayerNorm and GroupNorm `scale` -> weight, the pyramid fusion's depthwise
+conv kernel [3, 3, 3, 1, C] -> [C, 1, 3, 3, 3], the ViT stacks' `blocks_{i}`
+-> `blocks.{i}`), the `vq` bottleneck's through `bottleneck_from_jax`;
+`sem_state_dict_from_jax(params, model)` for `larp_tokenizer_sem` (the LARP
+tokenizer under `tokenizer.` through `state_dict_from_jax`, the teacher and
+the aligner's two MLPs under the Flax names). Both raise unless the tree
+fills every parameter of the model, with its shape, once.
+
 `ar_state_dict_from_jax(params, model)` does the same for a `LARP_AR` prior,
 under the names `export_larp_ar` writes: Dense kernels -> `weight` [out, in],
 RMSNorm `scale` -> `weight`, the token and class tables, `abs_pe`; a
@@ -62,6 +73,7 @@ quantized tree {kernel int8 [in, out], scale [out]} -> a `QuantDense`'s int8
 """
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Optional, Set
 
 import numpy as np
@@ -276,28 +288,9 @@ def titok_state_dict_from_jax(params: Dict[str, Any], model) -> Dict[str, torch.
 
 def cosmos_state_dict_from_jax(params: Dict[str, Any], model) -> Dict[str, torch.Tensor]:
     """Flax `CosmosVideoTokenizer` params (nested dicts of arrays) ->
-    `model`'s state_dict. Raises unless the two hold the same parameters, of
-    the same shapes, each once."""
-    sd: Dict[str, np.ndarray] = {}
-
-    def walk(prefix: str, tree: Dict[str, Any]) -> None:
-        for name, sub in tree.items():
-            key = f"{prefix}.{name}" if prefix else name
-            if isinstance(sub, dict):
-                walk(key, sub)
-            elif name == "kernel":  # a conv kernel is 5-d, a Dense kernel 2-d
-                k = _f32(sub)
-                sd[f"{prefix}.weight"] = k.transpose(4, 3, 0, 1, 2) if k.ndim == 5 else k.T
-            else:
-                sd[f"{prefix}.weight" if name == "scale" else key] = _f32(sub)
-
-    walk("", params)
-    want = {k: tuple(v.shape) for k, v in model.named_parameters()}
-    got = {k: tuple(v.shape) for k, v in sd.items()}
-    if got != want:
-        raise ValueError(f"Flax tree and model differ in "
-                         f"{sorted(k for k in set(got) | set(want) if got.get(k) != want.get(k))}")
-    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+    `model`'s state_dict (`flax_tree_state_dict`). Raises unless the two hold
+    the same parameters, of the same shapes, each once."""
+    return _check_parameters(flax_tree_state_dict(params), model)
 
 
 def loss_state_dict_from_jax(loss_params: Dict[str, Any], loss_ema: Dict[str, Any],
@@ -396,3 +389,64 @@ def ar_state_dict_from_jax(params: Dict[str, Any], model) -> Dict[str, torch.Ten
     if "abs_pe" not in out:  # fixed sin-cos PE: the model's own buffer
         out["abs_pe"] = model.abs_pe.detach().cpu().float().clone()
     return out
+
+
+def flax_tree_state_dict(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A Flax tree whose module names are the port's: a Dense kernel [in, out]
+    -> `weight` [out, in], a conv kernel [k..., in / groups, out] -> [out, in /
+    groups, k...], a norm's `scale` -> `weight`, `blocks_{i}` -> `blocks.{i}`
+    (the ViT stacks' ModuleList), any other leaf as it is."""
+    sd: Dict[str, np.ndarray] = {}
+
+    def walk(pre: str, sub: Dict[str, Any]) -> None:
+        for name, leaf in sub.items():
+            key = f"{pre}.{name}" if pre else name
+            key = re.sub(r"(^|\.)blocks_(\d+)(?=\.|$)", r"\1blocks.\2", key)
+            if isinstance(leaf, dict):
+                walk(key, leaf)
+            elif name == "kernel":
+                k = _f32(leaf)
+                w = k.T if k.ndim == 2 else k.transpose(k.ndim - 1, k.ndim - 2, *range(k.ndim - 2))
+                sd[f"{key[:-len('.kernel')]}.weight"] = w
+            elif name == "scale":
+                sd[f"{key[:-len('.scale')]}.weight"] = _f32(leaf)
+            else:
+                sd[key] = _f32(leaf)
+
+    walk("", tree)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
+def _check_parameters(sd: Dict[str, torch.Tensor], model) -> Dict[str, torch.Tensor]:
+    want = {k: tuple(v.shape) for k, v in model.named_parameters()}
+    got = {k: tuple(v.shape) for k, v in sd.items()}
+    if got != want:
+        raise ValueError(f"Flax tree and model differ in "
+                         f"{sorted(k for k in set(got) | set(want) if got.get(k) != want.get(k))}")
+    return sd
+
+
+def vfm_state_dict_from_jax(params: Dict[str, Any], model) -> Dict[str, torch.Tensor]:
+    """Flax `LARPTokenizerVFM` / `LARPTokenizerVFMNoQuant` params -> `model`'s
+    parameters (the fixed sin-cos tables and the rotary tables are
+    non-persistent buffers, rebuilt by the model)."""
+    rest = {k: v for k, v in params.items() if k != "bottleneck_module"}
+    sd = flax_tree_state_dict(rest)
+    if "bottleneck_module" in params:
+        bn: Dict[str, np.ndarray] = {}
+        bottleneck_from_jax(bn, "bottleneck_module", params["bottleneck_module"])
+        sd.update({k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in bn.items()})
+    return _check_parameters(sd, model)
+
+
+def sem_state_dict_from_jax(params: Dict[str, Any], model) -> Dict[str, torch.Tensor]:
+    """Flax `LARPTokenizerSem` params -> `model`'s state_dict: `tokenizer`
+    through `state_dict_from_jax` (its persistent sin-cos buffers included),
+    `teacher_model` and `aligner` under the Flax names."""
+    sd = {f"tokenizer.{k}": v for k, v in state_dict_from_jax(
+        params["tokenizer"], model.tokenizer).items()}
+    rest = {k: v for k, v in params.items() if k != "tokenizer"}
+    sd.update(flax_tree_state_dict(rest))
+    buffers = dict(model.named_buffers())
+    _check_parameters({k: v for k, v in sd.items() if k not in buffers}, model)
+    return sd
