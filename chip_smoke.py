@@ -3677,16 +3677,20 @@ def _cut_depth(model, depth: int):
     """Keeps the first `depth` blocks of every block stack of `model`, at full
     width: the encoders and decoder of a LARP, model_new or TiTok tokenizer
     (a ModuleList, or a stack of numbered children, `attn_i`, `ffd_i`,
-    `ffd_norm_i`, ..., with `depth`) and a gptc prior's blocks. Returns a
-    function that puts the whole stacks back."""
+    `ffd_norm_i`, ..., with `depth`), a gptc prior's blocks, the two
+    `Tokenizer1D` stacks of an `autoencoder_vfm*` and the `enc_blocks` /
+    `dec_blocks` of a CNN-ViT. Returns a function that puts the whole stacks
+    back."""
     import torch
 
     undo = []
-    for stack in (model, *(getattr(model, n, None) for n in ("encoder", "encoder1", "decoder"))):
-        blocks = getattr(stack, "blocks", None)
+    owners = ("encoder", "encoder1", "decoder", "tokenizer_encoder", "tokenizer_decoder")
+    for stack, attr in ((s, a) for s in (model, *(getattr(model, n, None) for n in owners))
+                        for a in ("blocks", "enc_blocks", "dec_blocks")):
+        blocks = getattr(stack, attr, None)
         if isinstance(blocks, torch.nn.ModuleList):
-            stack.blocks = blocks[:depth]
-            undo.append(lambda s=stack, b=blocks: setattr(s, "blocks", b))
+            setattr(stack, attr, blocks[:depth])
+            undo.append(lambda s=stack, a=attr, b=blocks: setattr(s, a, b))
         elif blocks is not None and hasattr(blocks, "depth"):
             cut = {name: m for name, m in blocks.named_children()
                    if (i := re.fullmatch(r".*_(\d+)", name)) and int(i.group(1)) >= depth}
@@ -3732,13 +3736,15 @@ def _model_new_train_parity(tmp: Path, records: dict) -> None:
 
 
 def _train_step_parity(tag: str, save_dir: Path, cfg: dict, depth: int, whole: str, seed: int,
-                       model_grads: tuple) -> dict:
+                       model_grads: tuple, frames: int = 16, extra_losses: tuple = (),
+                       check=None) -> dict:
     """One fp32 step at batch 1 of `cfg` through the port's trainer (the
     discriminator trains on it), card against CPU from the same perturbed
     weights, at `depth` of each stack's `whole` layers and `depth` of the
-    discriminator's 8: FSQ indices >= 99.9%
-    equal, losses within 2e-4 of each other, the tokenizer's `model_grads`
-    and two discriminator gradients within 1e-3 of their scale."""
+    discriminator's 8, on a clip of `frames` x 128 x 128: FSQ indices >= 99.9%
+    equal, losses (and `extra_losses`) within 2e-4 of each other, the
+    tokenizer's `model_grads` and two discriminator gradients within 1e-3 of
+    their scale; `check({"cpu": trainer, "cuda": trainer})`, if given, last."""
     import numpy as np
     import torch
 
@@ -3752,7 +3758,8 @@ def _train_step_parity(tag: str, save_dir: Path, cfg: dict, depth: int, whole: s
     _perturb(cpu.disc, seed + 1)
     gpu.model.load_state_dict(cpu.model.state_dict())
     gpu.loss_mod.load_state_dict(cpu.loss_mod.state_dict())
-    clip = np.random.default_rng(seed + 2).integers(0, 256, (1, 3, 16, 128, 128), dtype=np.uint8)
+    clip = np.random.default_rng(seed + 2).integers(0, 256, (1, 3, frames, 128, 128),
+                                                    dtype=np.uint8)
     reps, infos, secs = {}, {}, {}
     for device, tr in pair.items():
         hook = tr.model.quantize.register_forward_hook(
@@ -3764,7 +3771,7 @@ def _train_step_parity(tag: str, save_dir: Path, cfg: dict, depth: int, whole: s
         hook.remove()
     agree = (reps["cuda"] == reps["cpu"]).float().mean().item()
     loss_keys = ("loss", "rec_loss", "perceptual_loss", "g_loss", "d_loss", "loss_q",
-                 "logits_real", "logits_fake")
+                 "logits_real", "logits_fake", *extra_losses)
     loss_err = max(abs(infos["cuda"][k] - infos["cpu"][k]) / max(abs(infos["cpu"][k]), 1e-6)
                    for k in loss_keys)
     log(f"[{tag}] {cfg['model']['name']} {sum(p.numel() for p in cpu.model.parameters()):,} + "
@@ -3793,6 +3800,8 @@ def _train_step_parity(tag: str, save_dir: Path, cfg: dict, depth: int, whole: s
             log(f"[{tag}] grad {part} {pname}: max|card-cpu|/max|cpu| {rel:.2e} "
                 f"(max|g| {c.abs().max().item():.3e}; tol 1e-3)")
     require(worst <= 1e-3, f"{tag}: gradients differ by {worst} of their scale")
+    if check is not None:
+        check(pair)
     del pair, cpu, gpu
     torch.cuda.empty_cache()
     return {"loss_rel": loss_err, "grad_rel": worst, "index_agree": agree, "cpu_s": secs["cpu"]}
@@ -4258,12 +4267,14 @@ def _rel_max(a, b) -> float:
 
 
 def _reconstruction_rate(tag: str, model, n_flash: int, n_vq: int, frames: int = 16,
-                         n_vq_gemm: int = 0) -> dict:
-    """bf16 reconstruction at batch 8 of `frames` x 128 x 128 through
+                         n_vq_gemm: int = 0, size: int = 128, n_d80: int = 0,
+                         rename: Optional[dict] = None) -> dict:
+    """bf16 reconstruction at batch 8 of `frames` x `size` x `size` through
     `reconstruct`: median of 5 batches after a warm-up, exact launch counts
-    (every flash forward on the wgmma kernel, `n_vq` VQ searches on
-    vq_tc_kernel and `n_vq_gemm` on vq_gemm_kernel a batch), peak memory,
-    device time by kernel category over 3 profiled batches."""
+    (every flash forward on the wgmma kernel, `n_d80` of the `n_flash` at
+    head dim 80, `n_vq` VQ searches on vq_tc_kernel and `n_vq_gemm` on
+    vq_gemm_kernel a batch), peak memory, device time by kernel category
+    (names changed by `rename`) over 3 profiled batches, the card under load."""
     import numpy as np
     import torch
 
@@ -4272,12 +4283,12 @@ def _reconstruction_rate(tag: str, model, n_flash: int, n_vq: int, frames: int =
     from video_tokenizer_tpu_torch.reconstruct import make_clips, reconstruct
 
     B, iters = 8, 5
-    clips = torch.from_numpy(make_clips(np.random.default_rng(SEED), B, frames, 128)).cuda()
+    clips = torch.from_numpy(make_clips(np.random.default_rng(SEED), B, frames, size)).cuda()
     reconstruct(model, clips)  # warm-up
     torch.cuda.synchronize()
     gc.collect()  # an earlier trainer in a reference cycle still holds its tensors
     torch.cuda.reset_peak_memory_stats()
-    flash_attn_fwd.launches = flash_attn_fwd.launches_sm90 = 0
+    flash_attn_fwd.launches = flash_attn_fwd.launches_sm90 = flash_attn_fwd.launches_d80 = 0
     vq_argmax.launches = vq_argmax.launches_tc = vq_argmax.launches_gemm = 0
     times = []
     for _ in range(iters):
@@ -4286,24 +4297,28 @@ def _reconstruction_rate(tag: str, model, n_flash: int, n_vq: int, frames: int =
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     n = {"flash": flash_attn_fwd.launches, "wgmma": flash_attn_fwd.launches_sm90,
-         "vq": vq_argmax.launches, "vq_tc": vq_argmax.launches_tc,
-         "vq_gemm": vq_argmax.launches_gemm}
+         "d80": flash_attn_fwd.launches_d80, "vq": vq_argmax.launches,
+         "vq_tc": vq_argmax.launches_tc, "vq_gemm": vq_argmax.launches_gemm}
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    wall_ms, per_cat, n_events, _ = _profile_and_load(lambda: reconstruct(model, clips), 3)
+    wall_ms, per_cat, n_events, under_load = _profile_and_load(lambda: reconstruct(model, clips), 3)
+    per_cat = {(rename or {}).get(c, c): us for c, us in per_cat.items()}
     busy_ms = sum(per_cat.values()) / 1e3
     clips_per_s = B / statistics.median(times)
     mse = torch.mean((rec - clips) ** 2).item()
-    want = {"flash": n_flash * iters, "wgmma": n_flash * iters,
+    want = {"flash": n_flash * iters, "wgmma": n_flash * iters, "d80": n_d80 * iters,
             "vq": (n_vq + n_vq_gemm) * iters, "vq_tc": n_vq * iters, "vq_gemm": n_vq_gemm * iters}
-    log(f"[{tag}] bf16 batch {B}: {', '.join(f'{t * 1e3:.1f}' for t in times)} ms; median "
+    log(f"[{tag}] bf16 batch {B} of {frames} x {size} x {size} "
+        f"({sum(p.numel() for p in model.parameters()):,} params): "
+        f"{', '.join(f'{t * 1e3:.1f}' for t in times)} ms; median "
         f"{statistics.median(times) * 1e3:.2f} ms = {clips_per_s:.2f} clips/s; peak memory "
         f"{peak_gb:.2f} GiB; mse {mse:.5f}; launches {n} (expect {want}); profiled 3 batches: "
         f"wall {wall_ms / 3:.1f} ms, device busy {busy_ms / 3:.1f} ms, idle "
         f"{1 - busy_ms / wall_ms:.1%}, {n_events / 3:.0f} kernels per batch; device ms per "
         f"batch by category: " + ", ".join(
             f"{c} {us / 1e3 / 3:.2f} ({us / 1e3 / busy_ms:.1%})"
-            for c, us in sorted(per_cat.items(), key=lambda kv: -kv[1])))
-    require(tuple(rec.shape) == (B, 3, frames, 128, 128) and torch.isfinite(rec).all().item(),
+            for c, us in sorted(per_cat.items(), key=lambda kv: -kv[1]))
+        + f"; the card under load: {under_load}")
+    require(tuple(rec.shape) == (B, 3, frames, size, size) and torch.isfinite(rec).all().item(),
             f"{tag}: reconstruction")
     require(n == want, f"{tag}: launches {n}, expected {want}")
     return {"clips_per_s": clips_per_s, "peak_gib": peak_gb, "idle": 1 - busy_ms / wall_ms,
@@ -6161,19 +6176,20 @@ def _vfm_cfg_args() -> dict:
     return dict(_load_cfg("larp_tokenizer", ROOT, 1)["model"]["args"])
 
 
-def _vfm_pair(name: str, args: dict, seed: int):
-    """The same seeded, perturbed fp32 model on the CPU and on the card (two
-    builds from one seed, so that every generator of theirs draws alike)."""
+def _vfm_pair(name: str, args: dict, seed: int, depth: Optional[int] = None):
+    """The same seeded, perturbed fp32 model on the CPU and on the card: one
+    host build and its copy (generators copied with their state), every
+    block stack first cut to `depth` (`_cut_depth`) if given."""
     import torch
 
     from video_tokenizer_tpu_torch.registry import models
 
-    pair = [models.make({"name": name, "args": args},
-                        args={"generator": torch.Generator().manual_seed(seed)}).eval()
-            for _ in range(2)]
-    _perturb(pair[0], seed + 1)
-    pair[1].load_state_dict(pair[0].state_dict())
-    return pair[0], pair[1].cuda()
+    cpu = models.make({"name": name, "args": args},
+                      args={"generator": torch.Generator().manual_seed(seed)}).eval()
+    if depth is not None:
+        _cut_depth(cpu, depth)
+    _perturb(cpu, seed + 1)
+    return cpu, copy.deepcopy(cpu).cuda()
 
 
 def _vfm_parity(rec: dict) -> None:
@@ -6333,6 +6349,28 @@ def _vfm_reconstruction(name: str, bottleneck: Optional[str], rec: dict, records
     torch.cuda.empty_cache()
 
 
+def _teacher_unchanged(tag: str, params: Optional[int] = None):
+    """A `_train_throughput` inspection: the trainer's frozen teacher takes no
+    gradient and its parameters are equal bit for bit after the last step
+    (and the model has `params` parameters, if given)."""
+    import torch
+
+    def inspect(tr):
+        teacher = tr.model.teacher_model
+        before = [p.detach().clone() for p in teacher.parameters()]
+        require(not any(p.requires_grad for p in teacher.parameters()),
+                f"{tag}: the teacher requires a gradient")
+        n = sum(p.numel() for p in tr.model.parameters())
+        require(params is None or n == params, f"{tag}: {n:,} parameters, not {params}")
+
+        def check(tr):
+            same = all(torch.equal(a, p) for a, p in zip(before, teacher.parameters()))
+            log(f"[{tag}] the teacher's {len(before)} tensors unchanged bit for bit: {same}")
+            require(same, f"{tag}: a teacher parameter moved")
+        return check
+    return inspect
+
+
 def _vfm_train(tmp: Path, rec: dict) -> None:
     """Phase 26 (d)."""
     import numpy as np
@@ -6399,24 +6437,14 @@ def _vfm_train(tmp: Path, rec: dict) -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    def teacher_unchanged(tr):
-        before = [p.detach().clone() for p in tr.model.teacher_model.parameters()]
-        require(not any(p.requires_grad for p in tr.model.teacher_model.parameters()),
-                "vfm train bf16: the teacher requires a gradient")
-
-        def check(tr):
-            same = all(torch.equal(a, p) for a, p in zip(before, tr.model.teacher_model.parameters()))
-            log(f"[vfm train bf16] the teacher's {len(before)} tensors unchanged bit for bit: {same}")
-            require(same, "vfm train bf16: a teacher parameter moved")
-        return check
-
     cfg = _load_cfg("larp_tokenizer", tmp / "vfm_bf16", 8, size=256)
     cfg["model"]["name"] = "larp_tokenizer_vfm"
     cfg["use_amp"] = True
     # per step: 32 teacher forwards at D = 80 and 48 student ones at D = 64,
     # 24 discriminator forwards; dQ / dK-dV for the 48 and the 8 the
     # generator loss runs through the discriminator, 16 more on its step
-    run = _train_throughput("vfm train bf16", cfg, (104, 56, 16), 1, inspect=teacher_unchanged)
+    run = _train_throughput("vfm train bf16", cfg, (104, 56, 16), 1,
+                            inspect=_teacher_unchanged("vfm train bf16"))
     require(run["peak_gib"] <= VFM_TRAIN_PEAK_GIB,
             f"vfm train bf16: batch 8 peaked at {run['peak_gib']:.1f} GiB")
     rec["train_bf16"] = {k: run[k] for k in ("batch", "s_per_step", "clips_per_s", "peak_gib",
@@ -6493,6 +6521,803 @@ def _sem(tmp: Path, rec: dict) -> None:
                                                  "peak_gib", "idle")}
 
 
+# the cut of phase 27 (a): phase 26's teacher geometry (8 x 128 x 128: 4 x 8
+# x 8 = 256 teacher tokens, 4 of its 32 layers tapped after each) and every
+# stack of the student at PARITY_DEPTH (the two Tokenizer1D stacks cut after
+# the build: their depth follows `model_size`)
+VFM_AUTO_CUT = dict(vjepa2_img_size=128, vjepa2_num_frames=8, teacher_depth=4,
+                    out_layers=(0, 1, 2, 3), pixel_dec_depth=PARITY_DEPTH)
+# the JAX inits' counts (tests/test_torch_vfm_auto.py, tests/test_torch_cnnvit.py)
+VFM_AUTO_PARAMS = {"autoencoder_vfm": 884_747_532,
+                   "autoencoder_vfm_fianllayer_noquant": 876_542_728}
+CNNVIT_PARAMS = {"autoencoder_cnnvit": 149_360_491, "autoencoder_cnnvit_resnaf": 4_649_222,
+                 "autoencoder_cnnvit_softalign_gram_vic_vjepa2": 252_753_771}
+# the cut of phase 28 (a): full width, 16 x 64 x 64 clips (the stem's 4 x 8 x
+# 8 = 256 grid tokens behind the 1024 latents), the teacher's clip at 8 x 8 x
+# 8 tokens of 128 x 128, every block stack at PARITY_DEPTH
+CNNVIT_CUT = dict(input_size=64, vjepa2_img_size=128, teacher_depth=PARITY_DEPTH)
+# the DINO depth of phase 28 (d)'s card-vs-CPU side: the least that keeps a
+# tap after a block (key depth 2), as 12 random blocks amplify the input
+# gradient's fp32 rounding to 2e-3 of its scale (an H100 against the CPU)
+DINO_PARITY_DEPTH = 3
+# the timed bf16 training steps of phases 27 and 28 (5 in the earlier
+# phases) and phase 28 (d)'s timed bf16 DINO calls: their budget is 110 s of
+# the whole run
+SLICE20_STEPS = 3
+DINO_BF16_CALLS = 3
+# phase 28 (a)'s `_softalign` probe: the pool's k-means temperature (0.5 in
+# the model) at which the prototypes of the cut model's unit tokens spread
+# (12% of their norm at 0.02, 2e-7 at 0.5), so that the Gram and PCA losses
+# are functions of them and not rounding noise
+SOFTALIGN_PROBE_TEMP = 0.02
+
+
+class _Built:
+    """`registry.models.make` hands out `model` for its registered name (the
+    next build of that name, as a trainer's `make_model` asks for it) while
+    the context is open: one full-width model serves reconstruction and
+    training."""
+
+    def __init__(self, name: str, model):
+        self.name, self.model = name, model
+
+    def __enter__(self):
+        from video_tokenizer_tpu_torch.registry import models
+
+        make = type(models).make
+
+        def built(spec, args=None):
+            if spec is not None and spec.get("name") == self.name and self.model is not None:
+                model, self.model = self.model, None
+                return model
+            return make(models, spec, args)
+
+        models.make = built
+        return self
+
+    def __exit__(self, *exc):
+        from video_tokenizer_tpu_torch.registry import models
+
+        del models.make
+        require(exc[0] is not None or self.model is None,
+                f"the prebuilt {self.name} was not asked for")
+
+
+def _build_cfg_model(name: str, size: int, seed: int):
+    """`name` through `reconstruct.build_model` on cfgs/larp_tokenizer.yaml
+    (`--opts model.name <name>`), bf16 on the card; (model, host build s)."""
+    import torch
+
+    from video_tokenizer_tpu_torch.reconstruct import build_model
+
+    t0 = time.perf_counter()
+    model = build_model(str(ROOT / "cfgs" / "larp_tokenizer.yaml"), None, torch.bfloat16,
+                        torch.device("cuda"), seed, size, 16, ["model.name", name])
+    return model, time.perf_counter() - t0
+
+
+def _losses_rel(out: dict, ref: dict, keys) -> dict:
+    return {k: abs(out[k].item() - ref[k].item()) / max(abs(ref[k].item()), 1e-12)
+            for k in keys if k in ref}
+
+
+def phase_vfm_auto(tmp: Path, records: dict) -> None:
+    """The teacher-space autoencoders (`autoencoder_vfm*`) at their registered
+    width: the V-JEPA2 teacher (1280 wide, 32 layers, 16 heads of 80), two
+    `Tokenizer1D` stacks (768 wide, 12 layers, 12 heads of 64, over 1024
+    latents and 2048 teacher tokens), the pixel decoder (768 wide, 8 layers):
+      (a) card against CPU in fp32 (TF32 off) at `VFM_AUTO_CUT` on one
+          8 x 128 x 128 clip, for `autoencoder_vfm` (gated),
+          `_vfm_fianllayer` (last, FSQ) and `_fianllayer_noquant` (the
+          pyramid fusion of `_vfm1` is held card against CPU in phase 26
+          (b); the whole `_vfm1` against JAX in tests/test_torch_vfm_auto.py):
+          FSQ indices >= 99% equal, `align_loss` within 1e-4 relative, the
+          CPU's codes decoded on the card within 1e-3 of the scale, exactly 4
+          launches at D = 80 (FMA) and 3 x PARITY_DEPTH at D = 64 (3xTF32) a
+          forward;
+      (b) bf16 reconstruction at batch 8 of 16 x 256 x 256 through
+          `reconstruct.build_model` (`--opts model.name autoencoder_vfm`, then
+          `autoencoder_vfm_fianllayer_noquant`): exactly 32 wgmma launches at
+          D = 80 and 32 at D = 64 a forward; clips/s, device ms by category,
+          peak memory, idle share;
+      (c) one fp32 trainer step of `autoencoder_vfm` card against CPU at the
+          cut (losses within 2e-4 with `align_loss` among them, FSQ indices
+          99.9%, gradients 1e-3 of their scale, none for the teacher), then 2
+          + `SLICE20_STEPS` bf16 steps through the trainer at batch 8 of 16 x
+          256 x 256 on (b)'s model (built once) within `VFM_TRAIN_PEAK_GIB`:
+          s/step, peak, idle share, launch counts, the teacher's parameters
+          unchanged bit for bit."""
+    rec = records["vfm_auto"] = {}
+    _vfm_auto_parity(rec)
+    model = _vfm_auto_reconstruction("autoencoder_vfm", rec, keep=True)
+    _vfm_auto_reconstruction("autoencoder_vfm_fianllayer_noquant", rec)
+    _vfm_auto_train(tmp, rec, model)
+
+
+def _vfm_auto_parity(rec: dict) -> None:
+    """Phase 27 (a)."""
+    import torch
+
+    from video_tokenizer_tpu_torch.ops.attention import flash_attn_fwd
+
+    x = torch.rand(1, 3, 8, 128, 128, generator=torch.Generator().manual_seed(SEED + 700))
+    t0 = time.perf_counter()
+    out_rec = {}
+    for name in ("autoencoder_vfm", "autoencoder_vfm_fianllayer",
+                 "autoencoder_vfm_fianllayer_noquant"):
+        cpu, gpu = _vfm_pair(name, VFM_AUTO_CUT, SEED + 710, PARITY_DEPTH)
+        with torch.inference_mode():
+            ref = cpu(x)
+            flash_attn_fwd.launches = flash_attn_fwd.launches_d80 = 0
+            flash_attn_fwd.launches_tf32x3 = 0
+            out = gpu(x.cuda())
+            n = {"d80": flash_attn_fwd.launches_d80, "tf32x3": flash_attn_fwd.launches_tf32x3,
+                 "flash": flash_attn_fwd.launches}
+            dec = gpu.decode(ref["encoded"].cuda())[0]
+        torch.cuda.synchronize()
+        agree = ((out["bottleneck_rep"].cpu() == ref["bottleneck_rep"]).float().mean().item()
+                 if "bottleneck_rep" in ref else 1.0)
+        losses = _losses_rel(out, ref, ("align_loss",))
+        dec_err = _rel_max(dec, ref["pred_frames"])
+        fwd_err = _rel_max(out["pred_frames"], ref["pred_frames"])
+        want = {"d80": 4, "tf32x3": 3 * PARITY_DEPTH, "flash": 4 + 3 * PARITY_DEPTH}
+        log(f"[vfm_auto fp32] {name} ({sum(p.numel() for p in cpu.parameters()):,} params at the "
+            f"cut: teacher 4 of 32 layers on 256 tokens, Tokenizer1D and pixel stacks "
+            f"{PARITY_DEPTH} layers each): FSQ indices agree {agree:.4%} (tol >= 99%); align_loss "
+            f"{out['align_loss'].item():.7g}/{ref['align_loss'].item():.7g} (card/CPU, relative "
+            f"{losses['align_loss']:.2e}, tol 1e-4); the CPU's codes decoded on the card "
+            f"max|card-cpu| {dec_err:.3e} of the scale (tol 1e-3); forward {fwd_err:.3e}; "
+            f"launches {n} (expect {want})")
+        require(tuple(out["pred_frames"].shape) == (1, 3, 8, 128, 128)
+                and torch.isfinite(out["pred_frames"]).all().item(), f"vfm_auto {name}: output")
+        require(agree >= 0.99, f"vfm_auto {name}: index agreement {agree}")
+        require(losses["align_loss"] <= 1e-4, f"vfm_auto {name}: align_loss {losses}")
+        require(dec_err <= 1e-3, f"vfm_auto {name}: decode error {dec_err}")
+        require(n == want, f"vfm_auto {name}: launches {n}, expected {want}")
+        out_rec[name] = {"index_agree": agree, "align_loss_rel": losses["align_loss"],
+                         "dec_err": dec_err, "fwd_err": fwd_err, "launches": n}
+        del cpu, gpu
+        torch.cuda.empty_cache()
+    out_rec["cpu_and_card_s"] = time.perf_counter() - t0
+    rec["fp32"] = out_rec
+
+
+def _vfm_auto_reconstruction(name: str, rec: dict, keep: bool = False):
+    """Phase 27 (b): the model back if `keep`."""
+    import torch
+
+    model, build_s = _build_cfg_model(name, 256, SEED + 720)
+    n_params = sum(p.numel() for p in model.parameters())
+    require(n_params == VFM_AUTO_PARAMS[name], f"{name}: {n_params:,} parameters")
+    log(f"[vfm_auto bf16] {name}: built from the seed on the host in {build_s:.1f} s")
+    run = _reconstruction_rate(name, model, 64, 0, size=256, n_d80=32)
+    rec[f"{name}_bf16_b8"] = {**run, "params": n_params, "build_s": build_s}
+    if keep:
+        return model
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return None
+
+
+def _vfm_auto_train(tmp: Path, rec: dict, model) -> None:
+    """Phase 27 (c)."""
+    cfg = _load_cfg("larp_tokenizer", tmp / "vfm_auto_fp32", 1, size=128, frames=8)
+    cfg["model"]["name"] = "autoencoder_vfm"
+    cfg["model"]["args"].update(VFM_AUTO_CUT)
+    last = PARITY_DEPTH - 1
+
+    def no_teacher_grads(pair):
+        require(all(p.grad is None for tr in pair.values()
+                    for p in tr.model.teacher_model.parameters()),
+                "vfm_auto train fp32: a gradient for the teacher")
+        log("[vfm_auto train fp32] no gradient for the teacher's parameters on either side")
+
+    rec["train_fp32"] = _train_step_parity(
+        "vfm_auto train fp32", tmp / "vfm_auto_fp32", cfg, PARITY_DEPTH, "12", SEED + 730,
+        ("fusion_proj.proj_0.weight", "fusion_proj.gate_fc2_3.weight",
+         "tokenizer_encoder.proj_in.weight", "tokenizer_encoder.mask_token",
+         f"tokenizer_encoder.blocks.attn_{last}.to_qkv.weight",
+         f"tokenizer_decoder.blocks.ffd_{last}.proj_out.weight", "tokenizer_decoder.proj_out.weight",
+         "dec_to_decimage.weight", f"pixel_decoder.blocks.{last}.mlp.fc2.weight",
+         "final_layer.linear.weight"),
+        frames=8, extra_losses=("align_loss",), check=no_teacher_grads)
+    cfg = _load_cfg("larp_tokenizer", tmp / "vfm_auto_bf16", 8, size=256)
+    cfg["model"]["name"] = "autoencoder_vfm"
+    cfg["use_amp"] = True
+    # per step: 32 teacher forwards at D = 80, 12 + 12 Tokenizer1D and 8 pixel
+    # decoder ones at D = 64, 24 discriminator forwards; dQ / dK-dV for the 32
+    # and the 8 the generator loss runs through the discriminator, 16 more on
+    # its step
+    with _Built("autoencoder_vfm", model):
+        del model
+        run = _train_throughput("vfm_auto train bf16", cfg, (88, 40, 16), 0, timed=SLICE20_STEPS,
+                                inspect=_teacher_unchanged("vfm_auto train bf16"))
+    require(run["peak_gib"] <= VFM_TRAIN_PEAK_GIB,
+            f"vfm_auto train bf16: batch 8 peaked at {run['peak_gib']:.1f} GiB")
+    rec["train_bf16"] = {k: run[k] for k in ("batch", "s_per_step", "clips_per_s", "peak_gib",
+                                             "idle", "loader_s", "launches",
+                                             "device_ms_per_step")}
+
+
+def phase_cnnvit(tmp: Path, records: dict) -> None:
+    """The CNN-ViT family, `dino_disc` and the three embedders at their
+    registered width (`autoencoder_cnnvit`: the 3D-ResNet stem at 32 channels
+    and `base_thin` trunks, 1024 wide, 7 + 7 layers of 16 heads of 64 over
+    1024 latents and 1024 grid tokens; the alignment variants' teacher 1024
+    wide, 8 layers, 16 heads of 64; ResNAF `tiny`, 256 wide, 4 + 4 layers):
+      (a) card against CPU in fp32 (TF32 off) at `CNNVIT_CUT` on one 16 x 64
+          x 64 clip, the CNN whole and the trunks (and the teacher) at
+          PARITY_DEPTH:
+          `autoencoder_cnnvit` in eval mode (FSQ indices >= 99%, the CPU's
+          codes decoded on the card within 1e-3 of the scale, 2 x PARITY_DEPTH
+          3xTF32 launches), `_softalign_gram_vic_vjepa2` and `_softalign` in
+          train mode with one k-means draw given to both (the alignment's
+          inputs within 1e-4 of the scale; `_gram_vic`'s `align_loss` and
+          its parts within max(1e-4, 3x what the card's inputs move the CPU's
+          alignment), as phase 26 (e) holds soft assignments; `_softalign`'s
+          prototypes nearly coincide at the pool's temperature 0.5, so its
+          Gram and PCA losses are rounding noise on either side there: its
+          prototypes are held by that rule, the losses finite, in range and
+          composed, and the card's whole alignment on the CPU's inputs at
+          `SOFTALIGN_PROBE_TEMP`, where the prototypes spread, by that rule
+          against a 1e-7 nudge of those inputs), and
+          `autoencoder_cnnvit_resnaf` whole (within 1e-4 of the scale, no
+          flash launch);
+      (b) bf16 reconstruction at batch 8 of 16 x 128 x 128 through
+          `reconstruct.build_model`: `autoencoder_cnnvit` (14 wgmma launches a
+          forward) and `autoencoder_cnnvit_resnaf` (none); clips/s, device ms
+          by category (the fp32 convolutions on their own line), peak memory,
+          idle share;
+      (c) bf16 training through the trainer at batch 8, 2 + `SLICE20_STEPS`
+          steps each: `autoencoder_cnnvit` on (b)'s model and
+          `_softalign_gram_vic_vjepa2` (its teacher unchanged bit for bit);
+          s/step, peak, idle share, launch counts;
+      (d) `dino_disc` (DINO-S, 384 wide, 12 blocks of 6 heads of 64, five
+          heads): an fp32 forward and input gradient card against CPU on the
+          16 frames of one 16 x 128 x 128 clip (S = 65) at
+          `DINO_PARITY_DEPTH` blocks (within 1e-3 of their scale, one 3xTF32
+          forward, dQ and dK/dV a block; a witness: the card's gap with the
+          plain attention in place of the kernels, which the kernels' may
+          pass by no more than 3x, at least 1e-4), `u` after `update_stats`
+          within 1e-4, then the whole model's bf16 forward + input gradient
+          on the 128 frames of a batch of 8 (12 wgmma forwards, dQ and dK/dV
+          a call; `DINO_BF16_CALLS` timed);
+      (e) the three embedders card against CPU on one batch;
+      (f) the flash kernels at this slice's new shapes (`SLICE20_FLASH`)
+          against their plain versions, one forward and backward each.
+    `_slice20_flash` times the flash kernels at those shapes; it runs alone
+    (PERF.md §6), outside the whole run's budget."""
+    rec = records["cnnvit"] = {}
+    _cnnvit_parity(rec)
+    model = _cnnvit_reconstruction("autoencoder_cnnvit", rec, keep=True)
+    _cnnvit_reconstruction("autoencoder_cnnvit_resnaf", rec)
+    _cnnvit_train(tmp, rec, model)
+    _dino_disc(rec)
+    _embedders(rec)
+    _slice20_flash_check(rec)
+
+
+def _record_alignment(model, seen: dict, tag: str) -> None:
+    """Keeps the inputs of `model.alignment` (latents, teacher tokens) in
+    `seen[tag]` on the host."""
+    inner = model.alignment
+
+    def alignment(latents, teacher, draws):
+        seen[tag] = (latents.detach().cpu(), teacher.detach().cpu())
+        return inner(latents, teacher, draws)
+
+    model.alignment = alignment
+
+
+def _cnnvit_parity(rec: dict) -> None:
+    """Phase 28 (a)."""
+    import torch
+
+    from video_tokenizer_tpu_torch.ops.attention import flash_attn_fwd
+
+    gen = torch.Generator().manual_seed(SEED + 800)
+    x = torch.rand(1, 3, 16, 64, 64, generator=gen)
+    t0 = time.perf_counter()
+    out_rec = {}
+    for name, train in (("autoencoder_cnnvit", False),
+                        ("autoencoder_cnnvit_softalign_gram_vic_vjepa2", True),
+                        ("autoencoder_cnnvit_softalign", True)):
+        cpu, gpu = _vfm_pair(name, CNNVIT_CUT, SEED + 810, PARITY_DEPTH)
+        draws = (torch.randint(0, 1024, (1, 256), generator=gen),  # latents, teacher tokens
+                 torch.randint(0, 512, (1, 256), generator=gen))
+        seen, protos = {}, {"cpu": [], "cuda": []}
+        if train:
+            _record_alignment(cpu, seen, "cpu")
+            _record_alignment(gpu, seen, "cuda")
+            for side, m in (("cpu", cpu), ("cuda", gpu)):  # the student's, then the teacher's
+                m.align_pool.register_forward_hook(
+                    lambda mod, i, o, side=side: protos[side].append(o.detach().cpu()))
+        kw = {"train": True, "kmeans_draws": draws} if train else {}
+        gpu_kw = ({"train": True, "kmeans_draws": tuple(d.cuda() for d in draws)}
+                  if train else {})
+        with torch.inference_mode():
+            ref = cpu(x, **kw)
+            flash_attn_fwd.launches = flash_attn_fwd.launches_tf32x3 = 0
+            out = gpu(x.cuda(), **gpu_kw)
+            n = {"flash": flash_attn_fwd.launches, "tf32x3": flash_attn_fwd.launches_tf32x3}
+            dec = gpu.decode(ref["encoded"].cuda())
+            if train:
+                # the card's alignment on the CPU's inputs, the CPU's on the
+                # card's: the soft k-means assignments amplify fp32 rounding
+                (lat, tap), (lat_g, tap_g) = seen["cpu"], seen["cuda"]
+                same = gpu.alignment(lat.cuda(), tap.cuda(), gpu_kw["kmeans_draws"])
+                moved = cpu.alignment(lat_g, tap_g, draws)
+                base = cpu.alignment(lat, tap, draws)
+        torch.cuda.synchronize()
+        agree = (out["bottleneck_rep"].cpu() == ref["bottleneck_rep"]).float().mean().item()
+        dec_err = _rel_max(dec, ref["pred_frames"])
+        fwd_err = _rel_max(out["pred_frames"], ref["pred_frames"])
+        steps = 2 * PARITY_DEPTH + (PARITY_DEPTH if train else 0)
+        want = {"flash": steps, "tf32x3": steps}
+        line = (f"[cnnvit fp32] {name} {'train' if train else 'eval'} mode on 1 x 3 x 16 x 64 "
+                f"x 64 ({sum(p.numel() for p in cpu.parameters()):,} params at the cut: the CNN "
+                f"whole, {PARITY_DEPTH} of the 7 + 7 trunk layers"
+                f"{f', {PARITY_DEPTH} of the teacher 8 on 512 tokens' if train else ''}): FSQ "
+                f"indices agree "
+                f"{agree:.4%} (tol >= 99%); the CPU's codes decoded on the card max|card-cpu| "
+                f"{dec_err:.3e} of the scale (tol 1e-3); forward {fwd_err:.3e}; launches {n} "
+                f"(expect {want})")
+        entry = {"index_agree": agree, "dec_err": dec_err, "fwd_err": fwd_err, "launches": n}
+        if train:
+            keys = sorted(k for k in base if k.endswith("_loss") or k.startswith("vic_"))
+            in_err = {"latents": _rel_max(lat_g, lat), "teacher tokens": _rel_max(tap_g, tap)}
+            yard = max(_losses_rel(moved, base, keys).values())
+            same_err = max(_losses_rel({k: v.cpu() for k, v in same.items()}, base, keys).values())
+            tol = max(1e-4, 3 * yard)
+            errs = _losses_rel(out, ref, keys)
+            # the student's and the teacher's prototypes of the whole forwards,
+            # of the card's alignment on the CPU's inputs, and of the CPU's on
+            # the card's inputs and on its own (in that order of the calls)
+            p_cpu, p_gpu = protos["cpu"], protos["cuda"]
+            require(len(p_cpu) == 6 and len(p_gpu) == 4, f"cnnvit {name}: pooling calls")
+            proto = {"forward": max(map(_rel_max, p_gpu[:2], p_cpu[:2])),
+                     "same inputs": max(map(_rel_max, p_gpu[2:], p_cpu[4:])),
+                     "yardstick": max(map(_rel_max, p_cpu[2:4], p_cpu[4:]))}
+            proto_tol = max(1e-4, 3 * proto["yardstick"])
+            line += (f"; the alignment's inputs max|card-cpu| " + ", ".join(
+                f"{k} {v:.3e}" for k, v in in_err.items()) + " of the scale (tol 1e-4); the "
+                "student's and the teacher's prototypes: " + ", ".join(
+                    f"{k} {v:.3e}" for k, v in proto.items()) + " of the scale; the card's "
+                f"alignment on the CPU's inputs {same_err:.2e} apart, the CPU's on the card's "
+                f"inputs moves {yard:.2e}; the whole forward: " + ", ".join(
+                    f"{k} {out[k].item():.7g}/{ref[k].item():.7g} ({v:.2e})"
+                    for k, v in errs.items()))
+            require(max(in_err.values()) <= 1e-4, f"cnnvit {name}: inputs differ {in_err}")
+            if "pca_loss" in keys:
+                # unit tokens at temperature 0.5 pool to prototypes near one
+                # point: the Gram and PCA losses are their small differences,
+                # rounding noise on either side (ROADMAP §3). The prototypes
+                # are held instead, by the rule of the losses: within
+                # max(1e-4, 3x what the card's inputs move the CPU's); the
+                # losses finite, in range and composed
+                line += (f" (prototypes: forward and equal inputs tol {proto_tol:.2e}, 3x the "
+                         "yardstick, at least 1e-4)")
+                require(max(proto["forward"], proto["same inputs"]) <= proto_tol,
+                        f"cnnvit {name}: prototypes differ {proto}")
+                parts = {side: (o["gram_loss"].item(), o["pca_loss"].item(),
+                                o["align_loss"].item()) for side, o in (("cuda", out),
+                                                                       ("cpu", ref))}
+                composed = all(abs(a - (g + 0.2 * p)) <= 1e-5 * max(abs(a), 1.0)
+                               and 0.0 <= p <= gpu.align_pca_rank + 1e-3
+                               for g, p, a in parts.values())
+                line += (" (the Gram / PCA losses of near-coincident prototypes: noise, held by "
+                         f"the prototypes; align_loss = gram + 0.2 pca, pca in [0, "
+                         f"{gpu.align_pca_rank}] on both sides: {composed})")
+                require(composed, f"cnnvit {name}: losses {parts}")
+                probe = _softalign_probe(cpu, gpu, lat, tap, draws)
+                line += ("; at k-means temperature " f"{SOFTALIGN_PROBE_TEMP:g} (prototype spread "
+                         f"{probe['spread']:.2e} of their norm) the card's alignment on the CPU's "
+                         "inputs: " + ", ".join(f"{k} {v:.2e}" for k, v in probe["errs"].items())
+                         + f" apart (tol {probe['tol']:.2e}: 3x the {probe['yardstick']:.2e} a "
+                         "1e-7 nudge of the inputs moves the CPU's, at least 1e-4)")
+                require(max(probe["errs"].values()) <= probe["tol"],
+                        f"cnnvit {name}: the spread alignment differs {probe}")
+                entry["spread_probe"] = probe
+            else:
+                line += f" (card/CPU, tol {tol:.2e}: 3x the inputs' move, at least 1e-4)"
+                require(same_err <= tol, f"cnnvit {name}: alignment on equal inputs {same_err}")
+                require(all(v <= tol for v in errs.values()), f"cnnvit {name}: {errs} > {tol}")
+            entry.update(loss_rel=errs, tol=tol, inputs=in_err, yardstick=yard,
+                         same_inputs=same_err, prototypes=proto)
+        log(line)
+        require(torch.isfinite(out["pred_frames"]).all().item(), f"cnnvit {name}: output")
+        require(agree >= 0.99, f"cnnvit {name}: index agreement {agree}")
+        require(dec_err <= 1e-3, f"cnnvit {name}: decode error {dec_err}")
+        require(n == want, f"cnnvit {name}: launches {n}, expected {want}")
+        out_rec[name] = entry
+        del cpu, gpu
+        torch.cuda.empty_cache()
+    cpu, gpu = _vfm_pair("autoencoder_cnnvit_resnaf", CNNVIT_CUT, SEED + 820)
+    with torch.inference_mode():
+        ref = cpu(x)
+        flash_attn_fwd.launches = 0
+        out = gpu(x.cuda())
+        dec = gpu.decode(ref["encoded"].cuda())
+    torch.cuda.synchronize()
+    agree = (out["bottleneck_rep"].cpu() == ref["bottleneck_rep"]).float().mean().item()
+    errs = {"forward": _rel_max(out["pred_frames"], ref["pred_frames"]),
+            "decode": _rel_max(dec, ref["pred_frames"])}
+    log(f"[cnnvit fp32] autoencoder_cnnvit_resnaf whole on 1 x 3 x 16 x 64 x 64 "
+        f"({sum(p.numel() for p in cpu.parameters()):,} params): FSQ indices agree {agree:.4%} (tol >= 99%); max|card-cpu| " + ", ".join(
+            f"{k} {v:.3e}" for k, v in errs.items()) + f" of the scale (tol 1e-4); flash "
+        f"launches {flash_attn_fwd.launches} (expect 0)")
+    require(agree >= 0.99 and max(errs.values()) <= 1e-4, f"resnaf: {agree}, {errs}")
+    require(flash_attn_fwd.launches == 0, "resnaf: a flash launch")
+    out_rec["autoencoder_cnnvit_resnaf"] = {"index_agree": agree, **errs}
+    out_rec["cpu_and_card_s"] = time.perf_counter() - t0
+    rec["fp32"] = out_rec
+    del cpu, gpu
+
+
+def _softalign_probe(cpu, gpu, lat, tap, draws) -> dict:
+    """`_softalign`'s alignment at `SOFTALIGN_PROBE_TEMP` on the CPU's inputs,
+    on the card and on the CPU, and on the CPU after a 1e-7 relative nudge of
+    the inputs (the yardstick); the pools' temperature put back after."""
+    import torch
+
+    keys = ("gram_loss", "pca_loss", "align_loss")
+    nudge = torch.Generator().manual_seed(SEED + 840)
+    temps = cpu.align_pool.temp, gpu.align_pool.temp
+    cpu.align_pool.temp = gpu.align_pool.temp = SOFTALIGN_PROBE_TEMP
+    seen = []
+    hook = cpu.align_pool.register_forward_hook(lambda m, i, o: seen.append(o))
+    try:
+        with torch.inference_mode():
+            base = cpu.alignment(lat, tap, draws)
+            card = gpu.alignment(lat.cuda(), tap.cuda(), tuple(d.cuda() for d in draws))
+            moved = cpu.alignment(*(t * (1 + 1e-7 * torch.randn(t.shape, generator=nudge))
+                                    for t in (lat, tap)), draws)
+    finally:
+        hook.remove()
+        cpu.align_pool.temp, gpu.align_pool.temp = temps
+    p = seen[0]
+    spread = ((p - p.mean(1, keepdim=True)).norm() / p.norm()).item()
+    yard = max(_losses_rel(moved, base, keys).values())
+    return {"spread": spread, "yardstick": yard, "tol": max(1e-4, 3 * yard),
+            "errs": _losses_rel({k: v.cpu() for k, v in card.items()}, base, keys)}
+
+
+def _cnnvit_reconstruction(name: str, rec: dict, keep: bool = False):
+    """Phase 28 (b): the model back if `keep`."""
+    import torch
+
+    model, build_s = _build_cfg_model(name, 128, SEED + 830)
+    n_params = sum(p.numel() for p in model.parameters())
+    require(n_params == CNNVIT_PARAMS[name], f"{name}: {n_params:,} parameters")
+    n = 0 if name.endswith("resnaf") else 14
+    run = _reconstruction_rate(name, model, n, 0, rename={"conv (LPIPS)": "conv (fp32)"})
+    rec[f"{name}_bf16_b8"] = {**run, "params": n_params, "build_s": build_s}
+    if keep:
+        return model
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return None
+
+
+def _cnnvit_train(tmp: Path, rec: dict, model) -> None:
+    """Phase 28 (c): per step 14 trunk forwards (+ 8 of the teacher, no
+    gradient) and 24 discriminator ones; dQ / dK-dV for the 14 and the 8 the
+    generator loss runs through the discriminator, 16 more on its step."""
+    cfg = _load_cfg("larp_tokenizer", tmp / "cnnvit_bf16", 8)
+    cfg["model"]["name"] = "autoencoder_cnnvit"
+    cfg["use_amp"] = True
+    with _Built("autoencoder_cnnvit", model):
+        del model
+        run = _train_throughput("cnnvit train bf16", cfg, (38, 22, 16), 0, timed=SLICE20_STEPS)
+    keys = ("batch", "s_per_step", "clips_per_s", "peak_gib", "idle", "loader_s", "launches",
+            "device_ms_per_step")
+    rec["train_bf16"] = {k: run[k] for k in keys}
+    name = "autoencoder_cnnvit_softalign_gram_vic_vjepa2"
+    cfg = _load_cfg("larp_tokenizer", tmp / "cnnvit_vic_bf16", 8)
+    cfg["model"]["name"] = name
+    cfg["use_amp"] = True
+    run = _train_throughput("cnnvit gram_vic train bf16", cfg, (46, 22, 16), 0,
+                            timed=SLICE20_STEPS,
+                            inspect=_teacher_unchanged("cnnvit gram_vic train bf16",
+                                                       CNNVIT_PARAMS[name]))
+    rec["gram_vic_train_bf16"] = {k: run[k] for k in keys}
+
+
+def _dino_disc(rec: dict) -> None:
+    """Phase 28 (d)."""
+    import torch
+
+    from video_tokenizer_tpu_torch.models import discriminators
+    from video_tokenizer_tpu_torch.models.discriminators import DinoDisc
+    from video_tokenizer_tpu_torch.ops.attention import (
+        attention_reference, flash_attn_bwd_dkv, flash_attn_bwd_dq, flash_attn_fwd,
+    )
+
+    kernels = (flash_attn_fwd, flash_attn_bwd_dq, flash_attn_bwd_dkv)
+
+    def reset():
+        for k in kernels:
+            k.launches = k.launches_sm90 = k.launches_tf32x3 = 0
+
+    def counts():
+        return {k.__name__: (k.launches, k.launches_sm90, k.launches_tf32x3) for k in kernels}
+
+    gen = torch.Generator().manual_seed(SEED + 850)
+    x = torch.rand(16, 3, 128, 128, generator=gen) * 2 - 1  # the frames of one clip
+    cpu = DinoDisc(img_size=128, depth=DINO_PARITY_DEPTH,
+                   generator=torch.Generator().manual_seed(SEED + 851))
+    _perturb(cpu, SEED + 852)  # the heads (the DINO part is frozen, left as drawn)
+    gpu = copy.deepcopy(cpu).cuda()
+    w = torch.randn(16, cpu.num_taps * 65, generator=gen)
+    xc = x.clone().requires_grad_()
+    logits_c = cpu(xc)
+    (logits_c * w).sum().backward()
+    reset()
+    xg = x.cuda().requires_grad_()
+    logits_g = gpu(xg)
+    (logits_g * w.cuda()).sum().backward()
+    torch.cuda.synchronize()
+    n = counts()
+    errs = {"logits": _rel_max(logits_g.detach(), logits_c.detach()),
+            "input grad": _rel_max(xg.grad, xc.grad)}
+    # the witness: the same card run with the plain attention (autograd
+    # through attention_reference) in place of the kernels
+    kernel_attention = discriminators.attention
+    discriminators.attention = lambda q, k, v: attention_reference(q, k, v)[0]
+    try:
+        xp = x.cuda().requires_grad_()
+        logits_p = gpu(xp)
+        (logits_p * w.cuda()).sum().backward()
+    finally:
+        discriminators.attention = kernel_attention
+    plain = {"logits": _rel_max(logits_p.detach(), logits_c.detach()),
+             "input grad": _rel_max(xp.grad, xc.grad)}
+    witness_tol = {k: max(1e-4, 3 * v) for k, v in plain.items()}
+    with torch.no_grad():
+        cpu(x, update_stats=True)
+        gpu(x.cuda(), update_stats=True)
+    bufs = dict(cpu.named_buffers())
+    u_err = max(_rel_max(b, bufs[name]) for name, b in gpu.named_buffers())
+    d = DINO_PARITY_DEPTH
+    want = {k.__name__: (d, 0, d) for k in kernels}
+    log(f"[dino_disc fp32] {sum(p.numel() for p in cpu.parameters()):,} params at {d} of the 12 "
+        f"blocks ({cpu.num_taps} heads; DINO {sum(p.numel() for p in cpu.dino.parameters()):,}, "
+        f"frozen), 16 frames of 128 x 128 (S = 65): max|card-cpu| " + ", ".join(
+            f"{k} {v:.3e}" for k, v in errs.items()) + " of the scale (tol 1e-3); with the "
+        "plain attention on the card in place of the kernels " + ", ".join(
+            f"{k} {v:.3e}" for k, v in plain.items()) + " (the kernels' tol: 3x that, at least "
+        f"1e-4); the "
+        f"{len(bufs)} power-iteration vectors after update_stats {u_err:.3e} (tol 1e-4); "
+        f"launches (all, wgmma, 3xTF32) {n} (expect {want})")
+    require(max(errs.values()) <= 1e-3, f"dino_disc: card and CPU differ {errs}")
+    require(all(errs[k] <= witness_tol[k] for k in errs),
+            f"dino_disc: the kernels {errs} against the plain attention {plain}")
+    require(u_err <= 1e-4, f"dino_disc: u differs by {u_err}")
+    require(n == want, f"dino_disc fp32: launches {n}, expected {want}")
+    rec["dino_fp32"] = {**errs, "plain_attention": plain, "u_err": u_err}
+    del cpu, gpu
+    m16 = DinoDisc(img_size=128, dtype=torch.bfloat16,
+                   generator=torch.Generator().manual_seed(SEED + 853)).cuda()
+    frames = (torch.rand(128, 3, 128, 128, device="cuda") * 2 - 1).requires_grad_()
+
+    def step():
+        frames.grad = None
+        m16(frames).sum().backward()
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    times = []
+    for _ in range(DINO_BF16_CALLS):
+        t = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    n = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {k.__name__: (12 * DINO_BF16_CALLS,) * 2 + (0,) for k in kernels}
+    ms = statistics.median(times) * 1e3
+    log(f"[dino_disc bf16] forward + input gradient on the 128 frames of a batch of 8 clips "
+        f"(128 x 128): {', '.join(f'{t * 1e3:.1f}' for t in times)} ms, median {ms:.2f} ms; "
+        f"peak memory {peak:.2f} GiB; launches over {DINO_BF16_CALLS} calls (all, wgmma, "
+        f"3xTF32) {n} (expect {want}); the input gradient finite: {torch.isfinite(frames.grad).all().item()}")
+    require(n == want and torch.isfinite(frames.grad).all().item(), f"dino_disc bf16: {n}")
+    rec["dino_bf16_128_frames"] = {"ms": ms, "peak_gib": peak, "launches": n}
+    del m16, frames
+    torch.cuda.empty_cache()
+
+
+def _embedders(rec: dict) -> None:
+    """Phase 28 (e): the 632M prior's width (1280) over the flagship's 1024
+    latents of a batch of 8; dropped rows forced."""
+    import torch
+
+    from video_tokenizer_tpu_torch.models.embed import (
+        LatentContEmbedder, LatentTokenEmbedder, TimestepEmbedder,
+    )
+
+    gen = torch.Generator().manual_seed(SEED + 860)
+    force = torch.tensor([1, 0, 0, 1, 0, 0, 0, 1])
+    inputs = {
+        "LatentTokenEmbedder": (LatentTokenEmbedder(64_000, 1280, 0.1, generator=gen),
+                                torch.randint(0, 64_000, (8, 1024), generator=gen)),
+        "LatentContEmbedder": (LatentContEmbedder(6, 1280, 0.1, generator=gen),
+                               torch.randn(8, 1024, 6, generator=gen)),
+        "TimestepEmbedder": (TimestepEmbedder(1280, generator=gen),
+                             torch.rand(8, generator=gen) * 1000),
+    }
+    errs = {}
+    with torch.no_grad():
+        for name, (m, x) in inputs.items():
+            kw = {} if name == "TimestepEmbedder" else {"train": True, "force_drop_ids": force}
+            ref = m(x, **kw)
+            out = copy.deepcopy(m).cuda()(x.cuda(), **({k: v.cuda() if torch.is_tensor(v) else v
+                                                        for k, v in kw.items()}))
+            torch.cuda.synchronize()
+            errs[name] = _rel_max(out, ref)
+    # t up to 1000 multiplies an ulp of the fp32 frequencies (tests/test_torch_embedders.py)
+    tol = {"LatentTokenEmbedder": 0.0, "LatentContEmbedder": 1e-5, "TimestepEmbedder": 1e-4}
+    log(f"[embedders fp32] card against CPU, batch 8, 1280 wide, 1024 latents (samples 0, 3 "
+        f"and 7 dropped), t in [0, 1000): max|card-cpu| " + ", ".join(
+            f"{k} {v:.3e} (tol {tol[k]:g})" for k, v in errs.items()) + " of the scale")
+    require(all(v <= tol[k] for k, v in errs.items()), f"embedders: {errs}")
+    rec["embedders"] = errs
+
+
+# this slice's new flash shapes (name, B, S, H, dtype, views, tol): the
+# forward and backward at D = 64 of `Tokenizer1D`, the CNN-ViT trunk and DINO
+# (one 64-row tile and a 1-row tail) on the bf16 (wgmma) kernels, and DINO's
+# card-vs-CPU shape of phase 28 (d) on the fp32 (3xTF32) ones; bounds relative
+# to max|plain|, as phase 10 holds them
+SLICE20_FLASH = (("tokenizer1d", 8, 3072, 12, "bfloat16", 4, 2e-2),
+                 ("cnnvit", 8, 2048, 16, "bfloat16", 4, 2e-2),
+                 ("dino", 128, 65, 6, "bfloat16", 3, 2e-2),
+                 ("dino_fp32", 16, 65, 6, "float32", 3, 1e-4))
+
+
+def _slice20_inputs(B: int, S: int, H: int, dtype, views: int, gen):
+    """q, k, v, do at D = 64 as the models give them: the gated stacks' q and
+    k fresh from LayerNorm + RoPE and v a view of the 4C-wide projection
+    (`views` 4); DINO's three views of one qkv projection (`views` 3)."""
+    import torch
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    if views == 4:
+        q, k, v = randn(B, S, H, 64), randn(B, S, H, 64), randn(B, S, 4, H, 64)[:, :, 2]
+    else:
+        q, k, v = randn(B, S, 3, H, 64).unbind(2)
+    return q, k, v, randn(B, S, H, 64)
+
+
+def _slice20_flash_check(rec: dict) -> None:
+    """Phase 28 (f): one forward and backward at each of `SLICE20_FLASH`'s
+    shapes against `attention_reference` / `attention_bwd_reference` (TF32
+    off), on the kernels the models' dtypes pick."""
+    import torch
+
+    from video_tokenizer_tpu_torch.ops.attention import (
+        attention_bwd_reference, attention_reference, flash_attn_bwd, flash_attn_bwd_dkv,
+        flash_attn_bwd_dq, flash_attn_fwd,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 870)
+    out_rec = {}
+    for name, B, S, H, dtype, views, tol in SLICE20_FLASH:
+        q, k, v, do = _slice20_inputs(B, S, H, getattr(torch, dtype), views, gen)
+        out, lse = flash_attn_fwd(q, k, v, return_lse=True)
+        got = flash_attn_bwd(q, k, v, out, lse, do)
+        torch.cuda.synchronize()
+        kernels = (flash_attn_fwd.last_kernel, flash_attn_bwd_dq.last_kernel,
+                   flash_attn_bwd_dkv.last_kernel)
+        want_out, want_lse = attention_reference(q, k, v)
+        want = attention_bwd_reference(q, k, v, out, lse, do)
+        errs = {"out": _rel_max(out, want_out), "lse": _rel_max(lse, want_lse),
+                **{g: _rel_max(a, b) for g, a, b in zip(("dq", "dk", "dv"), got, want)}}
+        del want, want_out, want_lse
+        torch.cuda.empty_cache()
+        log(f"[slice 20 flash] {name}: B={B} S={S} H={H} D=64 {dtype} on {kernels}: "
+            f"max|kernel-plain|/max|plain| " + ", ".join(f"{g} {e:.2e}" for g, e in errs.items())
+            + f" (tol {tol:g})")
+        expect = (("flash_fwd_sm90_kernel", "flash_bwd_dq_sm90_kernel",
+                   "flash_bwd_dkv_sm90_kernel") if dtype == "bfloat16" else
+                  ("flash_fwd_tf32x3_kernel", "flash_bwd_dq_tf32x3_kernel",
+                   "flash_bwd_dkv_tf32x3_kernel"))
+        require(kernels == expect, f"slice 20 flash {name}: {kernels}, expected {expect}")
+        require(max(errs.values()) <= tol, f"slice 20 flash {name}: errors {errs}")
+        out_rec[name] = errs
+    rec["flash_check"] = out_rec
+
+
+def _slice20_flash(rec: dict) -> None:
+    """The bf16 flash kernels at this slice's shapes (`SLICE20_FLASH`), timed
+    by CUDA-graph replay beside SDPA and their bounds (their correctness is
+    phase 28 (f)'s); and SDPA's backward with a dense mask at the earlier D =
+    128 kernel's segment-id case of phase 10. Alone, after the build:
+    `python3 -c "import chip_smoke as c; c.phase_build(); r = {};
+    c._slice20_flash(r); print(r)"`."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from video_tokenizer_tpu_torch.ops.attention import (
+        flash_attn_bwd_dkv, flash_attn_bwd_dq, flash_attn_fwd,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 870)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    out_rec = {}
+    D = 64
+    for name, B, S, H, dtype, views, _ in SLICE20_FLASH:
+        if dtype != "bfloat16":
+            continue
+        q, k, v, do = _slice20_inputs(B, S, H, torch.bfloat16, views, gen)
+        out, lse = flash_attn_fwd(q, k, v, return_lse=True)
+        delta = torch.einsum("bqhd,bqhd->bhq", out.float(), do.float()).contiguous()
+        args = (q, k, v, do, lse, delta, None, None, False, 0, D ** -0.5)
+        fwd_ms = graph_ms(lambda: flash_attn_fwd(q, k, v), launches=5, replays=5)
+        dq_ms = graph_ms(lambda: flash_attn_bwd_dq(*args), launches=5, replays=5)
+        dkv_ms = graph_ms(lambda: flash_attn_bwd_dkv(*args), launches=5, replays=5)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        sdpa_ms = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), launches=5,
+                           replays=5)
+        ql, kl, vl = (t.detach().requires_grad_() for t in (qt, kt, vt))
+        out_l = F.scaled_dot_product_attention(ql, kl, vl)
+        sdpa_bwd_ms = median_ms(lambda: torch.autograd.grad(out_l, (ql, kl, vl), do.transpose(1, 2),
+                                                            retain_graph=True))
+        del out_l
+        unit = 2 * B * H * S * S * D
+        read = _nbytes(q, k, v, do, lse, delta)
+        bnd = {"fwd": bound(_nbytes(q, k, v, out), 2 * unit),
+               "dq": bound(read + _nbytes(q), 3 * unit),
+               "dkv": bound(read + _nbytes(k, v), 4 * unit)}
+        log(f"[slice 20 flash] {name}: B={B} S={S} H={H} D={D} bf16: forward {fwd_ms:.4f} ms "
+            f"(bound {bnd['fwd']['bound_ms']:.4f}, {bnd['fwd']['bound_by']}; SDPA {sdpa_ms:.4f}); "
+            f"dQ {dq_ms:.4f} ms (bound {bnd['dq']['bound_ms']:.4f}), dK/dV {dkv_ms:.4f} ms (bound "
+            f"{bnd['dkv']['bound_ms']:.4f}); SDPA's autograd backward (dq + dk + dv) "
+            f"{sdpa_bwd_ms:.4f} ms against dQ + dK/dV {dq_ms + dkv_ms:.4f} (kernels and SDPA's "
+            f"forward: CUDA-graph replays; SDPA's backward: events)")
+        out_rec[name] = {"fwd_ms": fwd_ms, "dq_ms": dq_ms, "dkv_ms": dkv_ms,
+                         "sdpa_ms": sdpa_ms, "sdpa_bwd_ms": sdpa_bwd_ms,
+                         **{f"{k}_bound_ms": b["bound_ms"] for k, b in bnd.items()}}
+    # the earlier D = 128 backward's case of phase 10 (fp32, B = 2, 200 queries
+    # over 333 keys, 4 heads over 2, causal with offset 50, segment ids with a
+    # query in no key's segment): SDPA takes ids only as a dense mask
+    B, Sq, Sk, H, Hkv, D = 2, 200, 333, 4, 2, 128
+    q, do = randn(B, Sq, H, D, dtype=torch.float32), randn(B, Sq, H, D, dtype=torch.float32)
+    k, v = randn(B, Sk, Hkv, D, dtype=torch.float32), randn(B, Sk, Hkv, D, dtype=torch.float32)
+    k_seg = (torch.arange(Sk, device="cuda") >= Sk // 3).int().expand(B, Sk)
+    q_seg = (torch.arange(Sq, device="cuda") >= Sq // 3).int().expand(B, Sq).clone()
+    q_seg[:, 5] = 7
+    causal = (torch.arange(Sk, device="cuda")[None] <= torch.arange(Sq, device="cuda")[:, None] + 50)
+    mask = ((q_seg[:, :, None] == k_seg[:, None, :]) & causal)[:, None]
+    ql, kl, vl = (t.transpose(1, 2).repeat_interleave(H // t.shape[2], dim=1).detach()
+                  .requires_grad_() for t in (q, k, v))
+    try:
+        backend = "efficient"
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            out_l = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
+    except RuntimeError:  # no such kernel for the shape: SDPA's own choice
+        backend = "SDPA's choice"
+        out_l = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
+    seg_ms = median_ms(lambda: torch.autograd.grad(out_l, (ql, kl, vl), do.transpose(1, 2),
+                                                   retain_graph=True))
+    log(f"[slice 20 flash] the D = 128 segment-id case (fp32 B=2, 200 x 333, H 4 over 2, causal "
+        f"offset 50): SDPA's backward ({backend} backend, the ids and the causal rule as a dense "
+        f"boolean mask, K/V repeated to 4 heads; dq + dk + dv) {seg_ms:.4f} ms (events); the "
+        f"earlier kernels' own times and bounds are phase 10's")
+    out_rec["d128_segments_library_ms"] = seg_ms
+    rec["flash_shapes"] = out_rec
+
 def main() -> int:
     if not (ROOT / "video_tokenizer_tpu_torch").is_dir():
         print("chip_smoke.py: the video_tokenizer_tpu_torch package is not beside this script",
@@ -6557,6 +7382,8 @@ def main() -> int:
         run(phase_titok, Path(tmp), records)
         run(phase_cosmos, records)
         run(phase_vfm, Path(tmp), records)
+        run(phase_vfm_auto, Path(tmp), records)
+        run(phase_cnnvit, Path(tmp), records)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 
     sources = {
@@ -6630,6 +7457,7 @@ def main() -> int:
     print(json.dumps({"titok": records["titok"]}))
     print(json.dumps({"cosmos": records["cosmos"]}))
     print(json.dumps({"vfm": records["vfm"]}))
+    print(json.dumps({"vfm_auto": records["vfm_auto"], "cnnvit": records["cnnvit"]}))
     print(json.dumps({"sampling_tokens_per_s": records["sampling"],
                       "sampling_device_step_ms": records["sampling_device_step_ms"],
                       "sampling_kernels_per_step": records["sampling_kernels_per_step"],

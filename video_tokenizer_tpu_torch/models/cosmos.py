@@ -71,7 +71,7 @@ from ..ops.vq import vq_lookup
 from ..registry import models
 from ..utils.jax_random import normal as jax_normal
 from .fsq import FSQ
-from .layers import Dense, init_kernel
+from .layers import Dense, GroupNorm, init_kernel
 
 CROSS_ATTN_SCORES = 2**28  # fp32 scores of one chunk of frames (1 GiB)
 CL = torch.channels_last_3d
@@ -140,43 +140,10 @@ class CausalConv3d(nn.Module):
                         padding=(0, self.padding, self.padding))
 
 
-class _GroupNorm1(nn.Module):
-    """Flax `nn.GroupNorm(num_groups=1, epsilon=1e-6)` on [B, C, ...]: fp32
-    statistics and affine, the output in `dtype`.
-
-    The statistics are Flax's (`use_fast_variance`): mean and mean square
-    over all of C, T, H, W, each one fp32 reduction of the input as it lies in
-    memory (a reduction splits a row over many blocks; `F.group_norm` gives
-    one block to each of the B groups), var = max(0, E[x^2] - E[x]^2). The
-    affine, x * a + (bias - mean * a) with a = rsqrt(var + eps) * scale per
-    sample and channel, is one fp32 `addcmul` that writes the output dtype
-    (under autograd an fp32 `addcmul` and a cast)."""
-
-    def __init__(self, channels: int, dtype: torch.dtype):
-        super().__init__()
-        self.dtype = dtype
-        self.weight = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        B = x.shape[0]
-        rows = _bthwc(x.contiguous(memory_format=CL)).reshape(B, -1)  # a view
-        mean = torch.sum(rows, dim=1, dtype=torch.float32) / rows.shape[1]
-        mean_sq = torch.linalg.vector_norm(rows, dim=1, dtype=torch.float32) ** 2 / rows.shape[1]
-        var = torch.clamp(mean_sq - mean**2, min=0)
-        a = torch.rsqrt(var + 1e-6)[:, None] * self.weight  # [B, C]
-        shift = self.bias - mean[:, None] * a
-        view = (B, -1, 1, 1, 1)
-        if torch.is_grad_enabled():  # out= takes no gradient: the same values in two passes
-            return torch.addcmul(shift.view(view), x, a.view(view)).to(self.dtype)
-        out = torch.empty_like(x, dtype=self.dtype, memory_format=CL)
-        return torch.addcmul(shift.view(view), x, a.view(view), out=out)
-
-
 class CausalNormalize(nn.Module):
     def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.norm = _GroupNorm1(channels, dtype)
+        self.norm = GroupNorm(channels, 1, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.norm(x)

@@ -4,7 +4,14 @@ A stride == kernel Conv3d is a matmul over flattened tubelets, so the patch
 embedding is a rearrange and one GEMM. The weight keeps the upstream Conv3d
 shape [D, C, pt, p, p] (Conv2d [D, C, p, p] for per-frame patches), so an
 upstream checkpoint loads as it is; the forward reads it as [D, (pt p p c)].
-Video tensors are BCTHW. `LabelEmbedder` is the AR prior's class embedding.
+Video tensors are BCTHW. `LabelEmbedder` is the AR prior's class embedding;
+`LatentTokenEmbedder` (discrete latent tokens), `LatentContEmbedder`
+(continuous latents, a Dense) and `TimestepEmbedder` (sinusoidal timesteps
+through an MLP) are the JAX module's other three. Every embedder with a null
+entry always allocates it, `force_drop_ids == 1` drops exactly those samples
+whatever the dropout probability, and train-mode dropout draws its uniforms
+from an explicit `torch.Generator`. Parameter names are the Flax names
+(`utils.convert.embedder_state_dict_from_jax`).
 """
 from __future__ import annotations
 
@@ -12,9 +19,12 @@ import math
 from typing import Optional
 
 import einops
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .layers import Dense
 
 
 class PatchProjection(nn.Module):
@@ -85,6 +95,18 @@ class VideoPatchEmbed(nn.Module):
         return self.proj(tokens)
 
 
+def _drop_mask(n: int, dropout_prob: float, train: bool, force_drop_ids: Optional[torch.Tensor],
+               generator: Optional[torch.Generator], device) -> Optional[torch.Tensor]:
+    """[n] bool, the samples to replace by the null entry: `force_drop_ids ==
+    1` if given, else under `train` with p > 0 a uniform draw from
+    `generator` below p; None when nothing drops (and nothing is drawn)."""
+    if force_drop_ids is not None:
+        return force_drop_ids == 1
+    if train and dropout_prob > 0:
+        return torch.rand(n, generator=generator, device=device) < dropout_prob
+    return None
+
+
 class LabelEmbedder(nn.Module):
     """Class-label embedding with the class dropout of CFG training. The
     table always has num_classes + 1 rows: the last is the null class that
@@ -106,12 +128,85 @@ class LabelEmbedder(nn.Module):
         null class where a uniform draw from `generator` is below p;
         `force_drop_ids == 1` drops exactly those labels instead. Nothing is
         drawn otherwise."""
-        if (train and self.dropout_prob > 0) or force_drop_ids is not None:
-            if force_drop_ids is None:
-                drop = torch.rand(labels.shape[0], generator=generator,
-                                  device=labels.device) < self.dropout_prob
-            else:
-                drop = force_drop_ids == 1
+        drop = _drop_mask(labels.shape[0], self.dropout_prob, train, force_drop_ids, generator,
+                          labels.device)
+        if drop is not None:
             labels = torch.where(drop, self.num_classes, labels)
         # negative labels -> the unconditional class
         return self.embedding_table(torch.where(labels < 0, self.num_classes, labels))
+
+
+class LatentTokenEmbedder(nn.Module):
+    """Discrete latent-token embedding with CFG dropout over whole
+    sequences: a dropped sample's tokens all become the null row
+    (`codebook_size`, the table's last)."""
+
+    def __init__(self, codebook_size: int, hidden_size: int, dropout_prob: float = 0.0,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.codebook_size, self.dropout_prob = codebook_size, dropout_prob
+        self.embedding_table = nn.Embedding(codebook_size + 1, hidden_size, device=device)
+        with torch.no_grad():
+            nn.init.normal_(self.embedding_table.weight, std=0.02, generator=generator)
+
+    def forward(self, tokens: torch.Tensor, train: bool = False,
+                force_drop_ids: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """tokens [B, N] -> [B, N, hidden]."""
+        drop = _drop_mask(tokens.shape[0], self.dropout_prob, train, force_drop_ids, generator,
+                          tokens.device)
+        if drop is not None:
+            tokens = torch.where(drop[:, None], self.codebook_size, tokens)
+        return self.embedding_table(tokens)
+
+
+class LatentContEmbedder(nn.Module):
+    """Continuous latent embedding (a Dense) with a learned null embedding
+    (`uncond_embed`, zeros at init) that replaces a dropped sample's rows."""
+
+    def __init__(self, token_dim: int, hidden_size: int, dropout_prob: float = 0.0,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.dropout_prob = dropout_prob
+        self.embedding_map = Dense(token_dim, hidden_size, init="lecun_normal",
+                                   generator=generator, device=device)
+        self.uncond_embed = nn.Parameter(torch.zeros(hidden_size, device=device))
+
+    def forward(self, embs: torch.Tensor, train: bool = False,
+                force_drop_ids: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """embs [B, N, token_dim] -> [B, N, hidden]."""
+        x = self.embedding_map(embs)
+        drop = _drop_mask(x.shape[0], self.dropout_prob, train, force_drop_ids, generator,
+                          x.device)
+        if drop is not None:
+            x = torch.where(drop[:, None, None], self.uncond_embed.to(x.dtype), x)
+        return x
+
+
+class TimestepEmbedder(nn.Module):
+    """Sinusoidal timestep embedding -> Dense -> SiLU -> Dense."""
+
+    def __init__(self, hidden_size: int, frequency_embedding_size: int = 256,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.frequency_embedding_size = frequency_embedding_size
+        kw = dict(init="lecun_normal", generator=generator, device=device)
+        self.mlp_0 = Dense(frequency_embedding_size, hidden_size, **kw)
+        self.mlp_2 = Dense(hidden_size, hidden_size, **kw)
+
+    @staticmethod
+    def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:
+        """[B] -> [B, dim] fp32: cos then sin of t * exp(-ln(max_period) i / half)."""
+        half = dim // 2
+        neg_log = -float(np.float32(np.log(max_period)))  # JAX rounds the constant to fp32
+        freqs = torch.exp(neg_log * torch.arange(half, dtype=torch.float32, device=t.device) / half)
+        args = t[:, None].float() * freqs[None]
+        emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+        if dim % 2:
+            emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)
+        return emb
+
+    def forward(self, t: torch.Tensor) -> torch.Tensor:
+        x = self.timestep_embedding(t, self.frequency_embedding_size)
+        return self.mlp_2(F.silu(self.mlp_0(x)))

@@ -6,7 +6,8 @@ with `dtype=None` it computes in the promoted type of input and parameters.
 LayerNorm always takes its statistics in fp32 and casts only its output.
 Mirroring these casts one for one gives PyTorch the same promotions as JAX
 (a bf16 encoder residual stream, an fp32 bottleneck and decoder stream), so
-the port uses no autocast.
+the port uses no autocast. GroupNorm, the one of every family that has one,
+takes fp32 statistics too.
 """
 from __future__ import annotations
 
@@ -78,6 +79,50 @@ class Dense(nn.Module):
         dtype = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
         bias = self.bias.to(dtype) if self.bias is not None else None
         return F.linear(x.to(dtype), self.weight.to(dtype), bias)
+
+
+class GroupNorm(nn.Module):
+    """Flax `nn.GroupNorm(num_groups, epsilon=eps)` on [B, C, T, H, W] or, with
+    `channels_last`, on [B, ..., C]: each group of C / G channels normalised
+    over every axis but B.
+
+    The statistics are Flax's (`use_fast_variance`): mean and mean square of
+    each group, each one fp32 reduction of the input as it lies in memory (a
+    5D input is made channels-last first; a reduction splits a row over many
+    blocks, where `F.group_norm` gives one block to each of the B x G
+    groups), var = max(0, E[x^2] - E[x]^2). The affine, x * a + (bias - mean
+    * a) with a = rsqrt(var + eps) * scale per sample and channel, is one
+    fp32 `addcmul` that writes `dtype` (under autograd an fp32 `addcmul` and
+    a cast); `dtype` None: the promoted type of input and fp32 parameters,
+    as a Flax norm built without one computes."""
+
+    def __init__(self, channels: int, num_groups: int = 1, *, eps: float = 1e-6,
+                 channels_last: bool = False, dtype: Optional[torch.dtype] = None, device=None):
+        super().__init__()
+        self.num_groups, self.eps = num_groups, eps
+        self.channels_last, self.dtype = channels_last, dtype
+        self.weight = nn.Parameter(torch.ones(channels, device=device))
+        self.bias = nn.Parameter(torch.zeros(channels, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.channels_last:
+            x = x.contiguous(memory_format=torch.channels_last_3d).movedim(1, -1)  # a view
+        B, C, G = x.shape[0], x.shape[-1], self.num_groups
+        rows = x.reshape(B, -1, G, C // G)
+        n = rows.shape[1] * rows.shape[3]
+        mean = torch.sum(rows, dim=(1, 3), dtype=torch.float32) / n  # [B, G]
+        mean_sq = torch.linalg.vector_norm(rows, dim=(1, 3), dtype=torch.float32) ** 2 / n
+        var = torch.clamp(mean_sq - mean**2, min=0)
+        a = torch.rsqrt(var + self.eps).repeat_interleave(C // G, dim=1) * self.weight  # [B, C]
+        shift = self.bias - mean.repeat_interleave(C // G, dim=1) * a
+        view = (B,) + (1,) * (x.dim() - 2) + (C,)
+        dtype = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        if torch.is_grad_enabled():  # out= takes no gradient: the same values in two passes
+            y = torch.addcmul(shift.view(view), x, a.view(view)).to(dtype)
+        else:
+            y = torch.addcmul(shift.view(view), x, a.view(view),
+                              out=torch.empty_like(x, dtype=dtype))
+        return y if self.channels_last else y.movedim(-1, 1)
 
 
 class LayerNorm(nn.Module):

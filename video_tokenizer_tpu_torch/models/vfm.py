@@ -49,7 +49,7 @@ from ..registry import models
 from .bottleneck import Bottleneck
 from .fsq import LatticeVectorQuantizer
 from .larp_tokenizer import OutputLayer
-from .layers import Dense, LayerNorm, init_kernel
+from .layers import Dense, GroupNorm, LayerNorm, init_kernel
 from .transformer import ViTStack
 
 # the JAX package's constants (the port imports nothing of it)
@@ -171,26 +171,6 @@ class ConcatLayerFusion(nn.Module):
         return F.gelu(self.fusion_fc(torch.cat(normed, dim=-1)), approximate="none")
 
 
-class GroupNorm(nn.Module):
-    """Flax `nn.GroupNorm(num_groups)` on [B, N, D]: each group of D / G
-    channels normalised over N and its channels, fp32 statistics
-    (`use_fast_variance`: var = max(0, E[x^2] - E[x]^2)), eps 1e-6."""
-
-    def __init__(self, dim: int, num_groups: int = 32, eps: float = 1e-6, device=None):
-        super().__init__()
-        self.num_groups, self.eps = num_groups, eps
-        self.weight = nn.Parameter(torch.ones(dim, device=device))
-        self.bias = nn.Parameter(torch.zeros(dim, device=device))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        B, N, D = x.shape
-        xg = x.float().reshape(B, N, self.num_groups, D // self.num_groups)
-        mean = xg.mean(dim=(1, 3), keepdim=True)
-        var = torch.clamp((xg * xg).mean(dim=(1, 3), keepdim=True) - mean * mean, min=0.0)
-        y = (xg - mean) * torch.rsqrt(var + self.eps)
-        return y.reshape(B, N, D) * self.weight + self.bias
-
-
 class LightweightSemanticInjector(nn.Module):
     """AdaIN-style injection: deep -> proj_down + SiLU -> depthwise 3 x 3 x 3
     convolution over the token grid -> SiLU -> zero-initialised proj_up ->
@@ -212,13 +192,15 @@ class LightweightSemanticInjector(nn.Module):
                     generator)
         nn.init.zeros_(self.spatial_mix.bias)
         self.proj_up = Dense(hidden, 2 * dim, init="zeros", **kw)
-        self.norm_shallow = GroupNorm(dim, 32, device=device)
+        self.norm_shallow = GroupNorm(dim, 32, channels_last=True, device=device)
 
     def forward(self, x_shallow: torch.Tensor, x_deep: torch.Tensor) -> torch.Tensor:
         B, N, D = x_shallow.shape
         T, H, W = self.grid
         h = F.silu(self.proj_down(x_deep))
-        h3 = h.reshape(B, T, H, W, -1).permute(0, 4, 1, 2, 3)
+        # contiguous [B, C, T, H, W]: cuDNN runs a channels-last depthwise 3D
+        # convolution as one kernel for every pair of groups
+        h3 = h.reshape(B, T, H, W, -1).permute(0, 4, 1, 2, 3).contiguous()
         h = self.spatial_mix(h3).permute(0, 2, 3, 4, 1).reshape(B, N, -1)
         scale, shift = self.proj_up(F.silu(h)).chunk(2, dim=-1)
         return x_shallow + self.norm_shallow(x_shallow) * (scale + 1.0) + shift

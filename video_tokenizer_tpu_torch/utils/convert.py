@@ -65,6 +65,17 @@ tokenizer under `tokenizer.` through `state_dict_from_jax`, the teacher and
 the aligner's two MLPs under the Flax names). Both raise unless the tree
 fills every parameter of the model, with its shape, once.
 
+`vfm_auto_state_dict_from_jax(params, model)` does the same for the
+teacher-space autoencoders (`autoencoder_vfm*`), `cnnvit_state_dict_from_jax`
+for the CNN-ViT family and `ResNAFAutoEncoder` (conv kernels [kt, kh, kw,
+in / groups, out] -> [out, in / groups, kt, kh, kw]),
+`dino_disc_state_dict_from_jax(variables, model)` for `dino_disc` (its
+`params`, and the `spectral` collection's `u` as the heads' buffers), and
+`embedder_state_dict_from_jax(params, model)` for the latent-token,
+latent-continuous and timestep embedders (an `nn.Embed`'s `embedding` ->
+`weight`): all under the Flax names, each raising unless the tree fills every
+parameter of the model, with its shape, once.
+
 `ar_state_dict_from_jax(params, model)` does the same for a `LARP_AR` prior,
 under the names `export_larp_ar` writes: Dense kernels -> `weight` [out, in],
 RMSNorm `scale` -> `weight`, the token and class tables, `abs_pe`; a
@@ -287,10 +298,17 @@ def titok_state_dict_from_jax(params: Dict[str, Any], model) -> Dict[str, torch.
 
 
 def cosmos_state_dict_from_jax(params: Dict[str, Any], model) -> Dict[str, torch.Tensor]:
-    """Flax `CosmosVideoTokenizer` params (nested dicts of arrays) ->
-    `model`'s state_dict (`flax_tree_state_dict`). Raises unless the two hold
-    the same parameters, of the same shapes, each once."""
+    """Flax params (nested dicts of arrays) of a family whose module names are
+    the port's -> `model`'s parameters (`flax_tree_state_dict`): the Cosmos
+    tokenizers, the teacher-space autoencoders (`vfm_auto_state_dict_from_jax`)
+    and the CNN-ViT family with ResNAF (`cnnvit_state_dict_from_jax`); their
+    fixed tables and FSQ constants are non-persistent buffers, rebuilt by the
+    model. Raises unless the two hold the same parameters, of the same
+    shapes, each once."""
     return _check_parameters(flax_tree_state_dict(params), model)
+
+
+vfm_auto_state_dict_from_jax = cnnvit_state_dict_from_jax = cosmos_state_dict_from_jax
 
 
 def loss_state_dict_from_jax(loss_params: Dict[str, Any], loss_ema: Dict[str, Any],
@@ -450,3 +468,26 @@ def sem_state_dict_from_jax(params: Dict[str, Any], model) -> Dict[str, torch.Te
     buffers = dict(model.named_buffers())
     _check_parameters({k: v for k, v in sd.items() if k not in buffers}, model)
     return sd
+
+
+def dino_disc_state_dict_from_jax(variables: Dict[str, Any], model) -> Dict[str, torch.Tensor]:
+    """Flax `DinoDisc` variables {"params", "spectral"} -> `model`'s
+    state_dict: the parameters under the Flax names (the spectral-norm
+    kernels [k, in, out] -> [out, in, k]) and each `SpectralConv1d`'s
+    power-iteration vector `u` as its buffer."""
+    sd = _check_parameters(flax_tree_state_dict(variables["params"]), model)
+    sd.update(flax_tree_state_dict(variables.get("spectral", {})))
+    differ = sorted(set(sd) ^ set(model.state_dict()))
+    if differ:
+        raise ValueError(f"Flax variables and model differ in {differ}")
+    return sd
+
+
+def embedder_state_dict_from_jax(params: Dict[str, Any], model) -> Dict[str, torch.Tensor]:
+    """Flax `LatentTokenEmbedder`, `LatentContEmbedder` or `TimestepEmbedder`
+    params -> `model`'s parameters (`embedding_table.embedding` ->
+    `embedding_table.weight`)."""
+    sd = flax_tree_state_dict(params)
+    if "embedding_table.embedding" in sd:
+        sd["embedding_table.weight"] = sd.pop("embedding_table.embedding")
+    return _check_parameters(sd, model)
