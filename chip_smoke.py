@@ -41,7 +41,10 @@ Phases, each of which raises on failure (exit code 1, no result line):
      pos - 1 or pos + 1 exceeds; a bf16 query over bf16 and int8 caches on
      the tensor-core kernel, fp32 and D = 128 on the earlier one; the new
      kernel timed cold (30 layers' caches) at pos 0, 511 and 1024, with two
-     splits, beside the earlier kernel and SDPA;
+     splits, beside the earlier kernel and SDPA; and at frame prediction's
+     geometry (B = 8, S = 2176, pos 1025, 1536, 2047; bf16 and int8 caches,
+     the row written inside the launch) against the plain write + plain
+     version, timed cold beside SDPA with a mask;
   5. the int8 weight-matmul kernels against their plain version at every
      projection shape of the prior (M = 16 and 80) and its draft (M = 16),
      the NLL forward's M = 8192 and ragged M > 128 (200, 1000, 4097), bf16
@@ -63,7 +66,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
      decode steps forced to the CPU's greedy tokens, card against CPU, with
      fp32 weights, int8 weights, and int8 weights + an int8 KV cache;
   9. AR sampling in bf16: class -> 1024 codes -> video at batch 8 with CFG
-     1.5 and top-k 100 with bf16 weights, and 256 codes with int8 weights and
+     1.5 and top-k 100 with bf16 weights, and 128 codes with int8 weights and
      int8 weights + int8 KV cache: tokens/s, device time per decode step (one step replayed
      as a CUDA graph, timed by CUDA events) against host wall time, kernels
      per step (torch.profiler), the NLL forward and decode_from_bottleneck,
@@ -112,6 +115,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
      version at pos - 1 or pos + 1 exceeds; bf16 and int8 caches at head dim
      64 on the tensor-core kernel, timed beside the earlier kernel, which
      keeps fp32 caches and head dim 128;
+     and at frame prediction's geometry (B = 8, G = 5, S = 2176, rows at
+     1025..2043; bf16 and int8 caches, the rows written inside the launch),
+     timed beside SDPA with a mask;
  14. the per-row KV row-write kernel against its plain version: bf16, fp32
      and int8 caches, G = 1, 2, 5, uneven positions, strided row views: whole
      buffers equal bit for bit (the written rows and scales, and every other
@@ -124,9 +130,9 @@ Phases, each of which raises on failure (exit code 1, no result line):
      int8 KV caches; greedy fp32 speculative decoding against `generate`;
  16. speculative sampling with the full-width pair (632M target, 8 x 768
      draft), batch 8, CFG 1.5, top-k 100, gamma 4, bf16 and int8 weights +
-     int8 KV: the acceptance ceiling (zero heads, 1024 tokens: acceptance 1.0
-     in exactly 205 iterations), the floor (independent sharp heads, 64
-     tokens) and self-drafting with the prior's first 8 layers (64 tokens):
+     int8 KV: the acceptance ceiling (zero heads, 512 tokens: acceptance 1.0
+     in exactly 103 iterations), the floor (independent sharp heads, 32
+     tokens) and self-drafting with the prior's first 8 layers (32 tokens):
      tokens/s beside plain `generate`'s, acceptance, ms per iteration, device time of one
      iteration's forwards, exact launch counts (no one-token decode
      attention, every chunk attention on the tensor-core kernel with the row
@@ -171,7 +177,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
      PARITY_DEPTH of each stack); the merge CLI on
      its stats in two shards; the tokenizer trainer's eval rFVD and best
      checkpoint over two epochs; `sample.py --csv_file null128` as one job
-     (shards, flags, the report row, 30,690 decode attentions).
+     (shards, flags, the report row, 8,184 decode attentions: the prior at 8
+     of its 30 layers, SAMPLE_FVD_DEPTH).
  21. the STAT family and the LARP tokenizer's fsq and sq bottlenecks
      (`phase_stat_lattice`, after phase 19): the VQ kernel at the Leech
      codebook's shape (M = 8192 and 1024, K = 196,560, d = 24, cos) against
@@ -275,6 +282,16 @@ Phases, each of which raises on failure (exit code 1, no result line):
      and bf16 training at batch 8, the teacher unchanged bit for bit; (e)
      larp_tokenizer_sem's train-mode forward card against CPU with one
      k-means draw, and bf16 training steps.
+ 27-28. the teacher-space autoencoders, the CNN-ViT family, `dino_disc`
+     and the embedders (`phase_vfm_auto`, `phase_cnnvit`: their docstrings).
+ 29. frame prediction and the last metrics (`phase_frame_prediction`, last):
+     `sample.py --frame_prediction --csv_file null128` on a full-width
+     frame-prediction prior (bf16, batch 8) with exact launch counts and a
+     decode step's device time at pos 1536; the prior card against CPU on a
+     1025-token frame prompt at PARITY_DEPTH (fp32, int8 weights, int8 KV);
+     int8 + int8 KV and speculative generation from one prompt;
+     InceptionV3 / FID, JEDi (the V-JEPA2 teacher at D = 80) and MILO card
+     against CPU on the CLI's clips.
 Every kernel phase also times one PyTorch call that computes the same
 function (`library_ms`: SDPA and its autograd backward, a matmul + argmax,
 `index_put_`), which the port uses nowhere, and computes the kernel's bound
@@ -498,6 +515,9 @@ def phase_flash(records: dict) -> None:
         ("flagship", 8, 2048, 2048, 12, 12, 64, torch.bfloat16, False, None, False, 2e-2),
         ("discriminator", 8, 1025, 1025, 12, 12, 32, torch.bfloat16, False, None, False, 2e-2),
         ("ar_nll_causal", 8, 1024, 1024, 20, 20, 64, torch.bfloat16, True, None, False, 2e-2),
+        # frame prediction's prefill: the 1025-token prompt (1024 codes + the
+        # separator), 8 rows without CFG, a ragged last query and key tile
+        ("fp_prefill_causal", 8, 1025, 1025, 20, 20, 64, torch.bfloat16, True, None, False, 2e-2),
         ("causal_offset", 2, 384, 512, 4, 4, 64, torch.bfloat16, True, 100, False, 2e-2),
         ("segments_no_match", 2, 512, 512, 4, 4, 64, torch.bfloat16, False, None, "no_match",
          2e-2),
@@ -562,8 +582,8 @@ def phase_flash(records: dict) -> None:
     sm90_cases = {c[0] for c in cases if c[7] == torch.bfloat16 and c[6] != 128}
     tf32x3_cases = {c[0] for c in cases if c[7] == torch.float32 and c[6] != 128}
     mma_launches = 0
-    strided = {"flagship", "discriminator", "ar_nll_causal", "fp32_train", "fp32_discriminator",
-               "fp32_prior_causal", "fp32_ar_fp_train", "disc512"}
+    strided = {"flagship", "discriminator", "ar_nll_causal", "fp_prefill_causal", "fp32_train",
+               "fp32_discriminator", "fp32_prior_causal", "fp32_ar_fp_train", "disc512"}
     lse_tol = 1e-4
     for name, B, Sq, Sk, H, Hkv, D, dtype, causal, offset, with_seg, tol in cases:
         if name in strided:
@@ -1240,14 +1260,18 @@ def phase_vq(records: dict) -> None:
 
 def phase_decode_attention(records: dict) -> None:
     """The decode-attention kernels against their plain version at the 632M
-    prior's sampling geometry, then timed cold: a decode step's 30 layers
-    read 30 distinct caches, so the graph that times a kernel walks 30 of
-    them (2.5 GB in bf16) and no cache is in the 50 MB L2 when it is read."""
+    prior's sampling geometry and at frame prediction's (the step's K/V row
+    written inside the launch, `decode_attention_write`, against
+    `write_rows_reference` + the plain version, the written cache equal bit
+    for bit), then timed cold: a decode step's 30 layers read 30 distinct
+    caches, so the graph that times a kernel walks 30 of them (2.5 GB in
+    bf16) and no cache is in the 50 MB L2 when it is read."""
     import torch
-    import torch.nn.functional as F
 
+    from video_tokenizer_tpu_torch.ops.cache_update import write_rows_reference
     from video_tokenizer_tpu_torch.ops.decode_attention import (
-        _quantize_rows, decode_attention, decode_attention_reference, decode_kernel,
+        _quantize_rows, decode_attention, decode_attention_reference, decode_attention_write,
+        decode_kernel,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
@@ -1260,83 +1284,131 @@ def phase_decode_attention(records: dict) -> None:
     # It must be tight enough to fail a kernel that reads one key too few or
     # too many: the plain version at pos - 1 and pos + 1 has to miss it.
     tols = {torch.bfloat16: (2e-2, 1e-2), torch.int8: (5e-2, 1e-2), torch.float32: (1e-4, 1e-5)}
-    B, S = 16, 1152  # CFG-doubled batch 8, cache for 1 + 1024 positions
-    for name, H, Hkv, D, cache_dtype, key_valid, positions in (
-        ("lp_bf16", 20, 20, 64, torch.bfloat16, False, (0, 511, 1024)),
-        ("lp_int8", 20, 20, 64, torch.int8, False, (0, 511, 1024)),
-        ("lp_fp32", 20, 20, 64, torch.float32, False, (1024,)),
-        ("gqa_20_over_5", 20, 5, 64, torch.bfloat16, False, (0, 1024)),
-        ("key_valid", 20, 20, 64, torch.bfloat16, True, (3, 1024)),
-        ("d128_gqa_int8", 8, 2, 128, torch.int8, True, (700,)),
+    # B = 16: the CFG-doubled batch 8, S = 1152: a cache for 1 + 1024
+    # positions; "fp_*": frame prediction's, FP_B rows without CFG over an
+    # FP_S-row cache, the row written inside
+    for name, B, S, H, Hkv, D, cache_dtype, key_valid, fused, positions in (
+        ("lp_bf16", 16, 1152, 20, 20, 64, torch.bfloat16, False, False, (0, 511, 1024)),
+        ("lp_int8", 16, 1152, 20, 20, 64, torch.int8, False, False, (0, 511, 1024)),
+        ("lp_fp32", 16, 1152, 20, 20, 64, torch.float32, False, False, (1024,)),
+        ("gqa_20_over_5", 16, 1152, 20, 5, 64, torch.bfloat16, False, False, (0, 1024)),
+        ("key_valid", 16, 1152, 20, 20, 64, torch.bfloat16, True, False, (3, 1024)),
+        ("d128_gqa_int8", 16, 1152, 8, 2, 128, torch.int8, True, False, (700,)),
+        ("fp_bf16", FP_B, FP_S, 20, 20, 64, torch.bfloat16, False, True, FP_POSITIONS),
+        ("fp_int8", FP_B, FP_S, 20, 20, 64, torch.int8, False, True, FP_POSITIONS),
     ):
         q_dtype = torch.float32 if cache_dtype == torch.float32 else torch.bfloat16
         q = torch.randn(B, H, D, generator=gen, device="cuda").to(q_dtype)
         kf = torch.randn(B, S, Hkv * D, generator=gen, device="cuda")
         vf = torch.randn(B, S, Hkv * D, generator=gen, device="cuda")
-        ks = vs = None
         if cache_dtype == torch.int8:
             (k, ks), (v, vs) = _quantize_rows(kf), _quantize_rows(vf)
+            lc = {"k": k, "v": v, "ks": ks, "vs": vs}
         else:
-            k, v = kf.to(cache_dtype), vf.to(cache_dtype)
+            lc = {"k": kf.to(cache_dtype), "v": vf.to(cache_dtype)}
+        rows = (tuple(torch.randn(B, 1, Hkv * D, generator=gen, device="cuda").to(q_dtype)
+                      for _ in range(2)) if fused else None)
         valid = None
         if key_valid:
             valid = torch.rand(B, S, generator=gen, device="cuda") > 0.3
             valid[:, : max(positions) + 1 : 97] = True  # every row keeps valid keys
         for pos in positions:
             pos_t = torch.full((1,), pos, dtype=torch.int32, device="cuda")
-            kw = dict(key_valid=valid, k_scale=ks, v_scale=vs, kv_heads=Hkv)
             if valid is not None:
                 valid[:, pos] = True
-            got = decode_attention(q, k, v, pos_t, **kw)
+
+            def launch():  # the kernel under test; c: the caches the plain version reads
+                if not fused:
+                    return decode_attention(q, lc["k"], lc["v"], pos_t, key_valid=valid,
+                                            k_scale=lc.get("ks"), v_scale=lc.get("vs"),
+                                            kv_heads=Hkv), lc
+                mine = {n: t.clone() for n, t in lc.items()}
+                return decode_attention_write(q, *rows, mine, pos_t, key_valid=valid,
+                                              kv_heads=Hkv), mine
+
+            got, mine = launch()
             torch.cuda.synchronize()
             kernel = decode_attention.last_kernel
             require(kernel == decode_kernel(cache_dtype, q_dtype, D) == (
                 "decode_split_kernel" if cache_dtype == torch.float32 or D == 128
                 else "decode_attn_sm90_kernel"), f"decode {name}: ran {kernel}")
-            want = decode_attention_reference(q, k, v, pos_t, **kw)
+            c = lc
+            if fused:
+                c = {n: t.clone() for n, t in lc.items()}
+                write_rows_reference(c, *rows, pos_t.expand(B))
+            kw = dict(key_valid=valid, k_scale=c.get("ks"), v_scale=c.get("vs"), kv_heads=Hkv)
+            want = decode_attention_reference(q, c["k"], c["v"], pos_t, **kw)
             err = (got.float() - want.float()).abs().max().item()
             cap, rel = tols[cache_dtype]
             tol = min(cap, rel * want.float().abs().max().item())
             near = min(
-                (got.float() - decode_attention_reference(q, k, v, p, **kw).float()).abs().max().item()
-                for p in (pos - 1, pos + 1) if p >= 0
+                (got.float() - decode_attention_reference(q, c["k"], c["v"], p, **kw).float()
+                 ).abs().max().item() for p in (pos - 1, pos + 1) if p >= 0
             )
+            same = all(torch.equal(mine[n], c[n]) for n in lc)
             log(f"[decode] {name}: B={B} H={H} Hkv={Hkv} D={D} S={S} {str(cache_dtype)[6:]} cache, "
-                f"pos {pos}, {kernel}: max|kernel-plain| {err:.3e} (tol {tol:.3e}); the plain "
-                f"version at pos -/+ 1 misses by >= {near:.3e}")
+                f"pos {pos}, {kernel}{', row written inside' if fused else ''}: max|kernel-plain| "
+                f"{err:.3e} (tol {tol:.3e}); the plain version at pos -/+ 1 misses by >= "
+                f"{near:.3e}" + (f"; cache equal to the plain write: {same}" if fused else ""))
             require(torch.isfinite(got).all().item(), f"decode {name} pos {pos}: non-finite output")
             require(err <= tol, f"decode {name} pos {pos}: error {err} > {tol}")
             require(near > tol, f"decode {name} pos {pos}: the bound {tol} does not tell pos "
                                 f"from pos -/+ 1 ({near})")
+            require(same, f"decode {name} pos {pos}: the fused write differs from the plain one")
             if kernel == "decode_attn_sm90_kernel":
                 # the kernel repeats itself bit for bit (a split cache is merged
                 # in split order, whichever block comes last)
-                require(torch.equal(decode_attention(q, k, v, pos_t, **kw), got),
-                        f"decode {name} pos {pos}: two launches differ")
+                require(torch.equal(launch()[0], got), f"decode {name} pos {pos}: two launches "
+                                                       f"differ")
+            if fused:
+                records.setdefault("decode_fp", {})[f"{str(cache_dtype)[6:]}_pos_{pos}_err"] = err
         if name == "lp_fp32":
             # the earlier kernel, which keeps fp32 (the parity path) and D = 128
-            pos_t = torch.full((1,), 1024, dtype=torch.int32, device="cuda")
-            ms = graph_ms(lambda: decode_attention(q, k, v, pos_t, kv_heads=Hkv))
-            plain_ms = graph_ms(lambda: decode_attention_reference(q, k, v, pos_t, kv_heads=Hkv))
-            qt = q[:, :, None]
-            kt, vt = (t.view(B, S, Hkv, D).transpose(1, 2) for t in (k, v))
-            mask = (torch.arange(S, device="cuda") <= 1024).expand(B, 1, 1, S)
-            library_ms = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
-            bnd = bound(B * 1025 * Hkv * D * 2 * 4 + _nbytes(q, got), 4 * B * H * 1025 * D, "fp32")
-            log(f"[decode] lp_fp32 at pos 1024: decode_split_kernel {ms:.4f} ms, bound "
-                f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), plain {plain_ms:.4f} ms, library "
-                f"call (SDPA with a mask, fp32) {library_ms:.4f} ms (device time, CUDA-graph replay)")
-            records["decode_attention_split"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                                                 "library_ms": library_ms, **bnd}
-        if name in ("lp_bf16", "lp_int8"):
-            _decode_cold(records, name, q, k, v, ks, vs, Hkv)
+            _decode_split_times(records, q, lc["k"], lc["v"], err)
+        if name in ("lp_bf16", "lp_int8", "fp_bf16", "fp_int8"):
+            _decode_cold(records, name, q, lc, Hkv, positions, rows)
+    records["decode_attention"]["fp"] = records.pop("decode_fp")
 
 
-def _decode_cold(records: dict, name: str, q, k, v, ks, vs, Hkv: int) -> None:
-    """Cold times at the sampling shape: 30 layers' caches (copies of the
-    checked one: the same work per layer), one launch per layer in a graph,
-    time per launch; the new kernel, the earlier kernel and SDPA with a mask
-    on the same caches."""
+# frame prediction's decode geometry: a 1025-token prompt (1024 codes + the
+# separator), 1024 codes, init_cache(2049) rounded up to 2176 rows; batch 8
+# without CFG; the decode steps run at positions 1025..2047
+FP_B, FP_S, FP_POSITIONS = 8, 2176, (1025, 1536, 2047)
+
+
+def _decode_split_times(records: dict, q, k, v, err: float) -> None:
+    """The earlier split kernel (fp32 caches and D = 128) at pos 1024, beside
+    its bound, the plain version and SDPA with a mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from video_tokenizer_tpu_torch.ops.decode_attention import (
+        decode_attention, decode_attention_reference,
+    )
+
+    B, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2] // D
+    pos_t = torch.full((1,), 1024, dtype=torch.int32, device="cuda")
+    ms = graph_ms(lambda: decode_attention(q, k, v, pos_t, kv_heads=Hkv))
+    plain_ms = graph_ms(lambda: decode_attention_reference(q, k, v, pos_t, kv_heads=Hkv))
+    qt = q[:, :, None]
+    kt, vt = (t.view(B, S, Hkv, D).transpose(1, 2) for t in (k, v))
+    mask = (torch.arange(S, device="cuda") <= 1024).expand(B, 1, 1, S)
+    library_ms = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+    bnd = bound(B * 1025 * Hkv * D * 2 * 4 + _nbytes(q, q), 4 * B * H * 1025 * D, "fp32")
+    log(f"[decode] lp_fp32 at pos 1024: decode_split_kernel {ms:.4f} ms, bound "
+        f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), plain {plain_ms:.4f} ms, library "
+        f"call (SDPA with a mask, fp32) {library_ms:.4f} ms (device time, CUDA-graph replay)")
+    records["decode_attention_split"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                         "library_ms": library_ms, **bnd}
+
+
+def _decode_cold(records: dict, name: str, q, lc: dict, Hkv: int, positions, rows) -> None:
+    """Cold times at each of `positions`: 30 layers' caches (copies of the
+    checked one `lc`: the same work per layer), one launch per layer in a
+    graph, time per launch; the tensor-core kernel (with `rows` written
+    inside when given), the earlier split kernel (no fused write) and SDPA
+    with a mask (bf16 caches) on the same caches."""
     import torch
     import torch.nn.functional as F
 
@@ -1345,52 +1417,61 @@ def _decode_cold(records: dict, name: str, q, k, v, ks, vs, Hkv: int) -> None:
     )
 
     B, H, D = q.shape
-    S = k.shape[1]
+    S, tag, int8 = lc["k"].shape[1], str(lc["k"].dtype)[6:], "ks" in lc
     layers = 30
-    caches = [(k.clone(), v.clone(), None if ks is None else ks.clone(),
-               None if vs is None else vs.clone()) for _ in range(layers)]
+    caches = [{n: t.clone() for n, t in lc.items()} for _ in range(layers)]
+    views = [tuple(c[n].view(B, S, Hkv, D).transpose(1, 2) for n in ("k", "v")) for c in caches]
     out = torch.empty_like(q)
     rec: dict = {}
-    for pos in (0, 511, 1024):
+    for pos in positions:
         pos_t = torch.full((1,), pos, dtype=torch.int32, device="cuda")
 
-        def run(kernel):
+        def run(kernel, fused_rows=None):
             def step():
-                for kc, vc, ksc, vsc in caches:
-                    _decode_launch(kernel, q, kc, vc, pos_t, None, ksc, vsc, Hkv, out)
+                for c in caches:
+                    _decode_launch(kernel, q, c["k"], c["v"], pos_t, None, c.get("ks"),
+                                   c.get("vs"), Hkv, out, fused_rows)
             return graph_ms(step, launches=1, replays=5) / layers
 
-        ms = run("decode_attn_sm90_kernel")
-        earlier_ms = run("decode_split_kernel")
-        ms_again = run("decode_attn_sm90_kernel")
-        live = B * (pos + 1) * (Hkv * D * 2 * k.element_size() + (8 if ks is not None else 0))
-        bnd = bound(live + 2 * _nbytes(q))
-        log(f"[decode cold] {name} at pos {pos}, {layers} layers' caches: decode_attn_sm90_kernel "
-            f"{ms:.4f} / {ms_again:.4f} ms ({live / min(ms, ms_again) / 1e6:.0f} GB/s of live K+V), "
-            f"the earlier decode_split_kernel {earlier_ms:.4f} ms, bound "
-            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}) (device time per launch, CUDA-graph replay)")
-        rec[pos] = dict(ms=min(ms, ms_again), earlier_ms=earlier_ms, **bnd)
+        ms = min(run("decode_attn_sm90_kernel", rows), run("decode_attn_sm90_kernel", rows))
+        earlier_ms = None if rows is not None else run("decode_split_kernel")
+        live = B * (pos + 1) * (Hkv * D * 2 * lc["k"].element_size() + (8 if int8 else 0))
+        bnd = bound(live + 2 * _nbytes(q) + (_nbytes(*rows) if rows is not None else 0))
+        library_ms = None
+        if not int8:
+            # one PyTorch call for the same function: SDPA on [B, H, S, D] views
+            # of each layer's cache with a [B, 1, 1, S] boolean mask (none for
+            # an int8 cache); timed here, used nowhere in the port
+            qt = q[:, :, None]
+            mask = (torch.arange(S, device="cuda") <= pos).expand(B, 1, 1, S)
+
+            def sdpa():
+                for kt, vt in views:
+                    F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+            library_ms = graph_ms(sdpa, launches=1, replays=5) / layers
+        log(f"[decode cold] {name} at pos {pos}, {layers} layers' caches of {S} rows: "
+            f"decode_attn_sm90_kernel{' with the row write' if rows is not None else ''} "
+            f"{ms:.4f} ms ({live / ms / 1e6:.0f} GB/s of live K+V), "
+            + (f"the earlier decode_split_kernel {earlier_ms:.4f} ms, " if earlier_ms else "")
+            + f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), library call (SDPA with a "
+            f"mask, cold) {'none for int8' if library_ms is None else f'{library_ms:.4f} ms'} "
+            f"(device time per launch, CUDA-graph replay)")
+        rec[pos] = dict(ms=ms, earlier_ms=earlier_ms, library_ms=library_ms, **bnd)
+    del caches, views
+    if rows is not None:
+        fp = records.setdefault("decode_fp", {})
+        for pos, r in rec.items():
+            fp.update({f"{tag}_pos_{pos}_ms": r["ms"], f"{tag}_pos_{pos}_bound_ms": r["bound_ms"],
+                       f"{tag}_pos_{pos}_library_ms": r["library_ms"]})
+        return
+    k, v, ks, vs = lc["k"], lc["v"], lc.get("ks"), lc.get("vs")
     pos_t = torch.full((1,), 1024, dtype=torch.int32, device="cuda")
     kw = dict(k_scale=ks, v_scale=vs, kv_heads=Hkv)
     plain_ms = graph_ms(lambda: decode_attention_reference(q, k, v, pos_t, **kw))
     got = decode_attention(q, k, v, pos_t, **kw)
     err = (got.float() - decode_attention_reference(q, k, v, pos_t, **kw).float()).abs().max().item()
-    library_ms = None
-    if ks is None:
-        # one PyTorch call for the same function: SDPA on [B, H, S, D] views of
-        # each layer's cache with a [B, 1, 1, S] boolean mask (none for an int8
-        # cache); timed here, used nowhere in the port
-        qt = q[:, :, None]
-        mask = (torch.arange(S, device="cuda") <= 1024).expand(B, 1, 1, S)
-        views = [tuple(t.view(B, S, Hkv, D).transpose(1, 2) for t in c[:2]) for c in caches]
-
-        def sdpa():
-            for kt, vt in views:
-                F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
-
-        library_ms = graph_ms(sdpa, launches=1, replays=5) / layers
-    log(f"[decode cold] {name} at pos 1024: plain {plain_ms:.4f} ms (warm), library call (SDPA "
-        f"with a mask, cold) {'none for int8' if library_ms is None else f'{library_ms:.4f} ms'}")
+    log(f"[decode cold] {name} at pos 1024: plain {plain_ms:.4f} ms (warm)")
     top = rec[1024]
     if top["ms"] >= top["earlier_ms"]:
         log(f"[decode cold] {name}: decode_attn_sm90_kernel ({top['ms']:.4f} ms) is NOT faster than "
@@ -1398,7 +1479,7 @@ def _decode_cold(records: dict, name: str, q, k, v, ks, vs, Hkv: int) -> None:
     if name == "lp_bf16":
         records["decode_attention"] = {
             "max_abs_err": err, "ms": top["ms"], "earlier_ms": top["earlier_ms"],
-            "plain_ms": plain_ms, "library_ms": library_ms,
+            "plain_ms": plain_ms, "library_ms": top["library_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "pos_0_ms": rec[0]["ms"], "pos_511_ms": rec[511]["ms"],
             "pos_0_earlier_ms": rec[0]["earlier_ms"], "pos_511_earlier_ms": rec[511]["earlier_ms"]}
@@ -1408,19 +1489,24 @@ def _decode_cold(records: dict, name: str, q, k, v, ks, vs, Hkv: int) -> None:
             int8_plain_ms=plain_ms, int8_bound_ms=top["bound_ms"], int8_pos_0_ms=rec[0]["ms"],
             int8_pos_511_ms=rec[511]["ms"], int8_pos_0_earlier_ms=rec[0]["earlier_ms"],
             int8_pos_511_earlier_ms=rec[511]["earlier_ms"])
-    del caches
 
 
 def phase_chunk_attention(records: dict) -> None:
     """The chunk-attention kernel against its plain version at the verify and
     draft shapes of speculative decoding with the 632M prior: B = 16 rows at
     uneven positions, S = 1152, queries read in place from a fused qkv
-    projection."""
+    projection; and at frame prediction's (FP_B rows without CFG over an
+    FP_S-row cache at positions 1025..2043, the chunk's K/V rows written
+    inside the launch, `chunk_attention_write`, against
+    `write_rows_reference` + the plain version, the written cache equal bit
+    for bit)."""
     import torch
     import torch.nn.functional as F
 
+    from video_tokenizer_tpu_torch.ops.cache_update import write_rows_reference
     from video_tokenizer_tpu_torch.ops.decode_attention import (
-        _chunk_launch, _quantize_rows, chunk_attention, chunk_attention_reference, chunk_kernel,
+        _chunk_launch, _quantize_rows, chunk_attention, chunk_attention_reference,
+        chunk_attention_write, chunk_kernel,
     )
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
@@ -1432,75 +1518,111 @@ def phase_chunk_attention(records: dict) -> None:
     # row at pos 0, and its bound must still fail a kernel that reads one key
     # too few or too many (the plain version at pos - 1 and pos + 1 misses it).
     tols = {torch.bfloat16: (2e-2, 1e-2), torch.int8: (5e-2, 1e-2), torch.float32: (1e-4, 1e-5)}
-    B, S = 16, 1152
     # 0, around the 128-key splits, rows that differ by hundreds, the end
-    pos = torch.tensor([0, 1, 127, 128, 129, 255, 256, 300, 511, 512, 640, 767, 900, 1023, 1024,
-                        1024], dtype=torch.int32, device="cuda")
-    for name, G, H, Hkv, D, cache_dtype, key_valid in (
-        ("verify_bf16", 5, 20, 20, 64, torch.bfloat16, False),
-        ("verify_int8", 5, 20, 20, 64, torch.int8, False),
-        ("verify_fp32", 5, 20, 20, 64, torch.float32, False),
-        ("draft_g1_bf16", 1, 12, 12, 64, torch.bfloat16, False),
-        ("draft_g2_int8", 2, 12, 12, 64, torch.int8, False),
-        ("gqa_20_over_5", 5, 20, 5, 64, torch.bfloat16, False),
-        ("key_valid", 5, 20, 20, 64, torch.bfloat16, True),
-        ("d128_gqa_int8_valid", 3, 8, 2, 128, torch.int8, True),
+    lp = (1152, (0, 1, 127, 128, 129, 255, 256, 300, 511, 512, 640, 767, 900, 1023, 1024, 1024),
+          (1024,))
+    # frame prediction's: past the prompt, around a split, the end
+    fp = (FP_S, (1025, 1026, 1151, 1152, 1536, 1800, 2000, 2043), (1025, 1536, 2043))
+    # (name, G, H, Hkv, D, cache dtype, key_valid, rows written inside,
+    #  (S, each row's position, the positions every row is timed at))
+    for name, G, H, Hkv, D, cache_dtype, key_valid, fused, (S, rows_pos, timed_at) in (
+        ("verify_bf16", 5, 20, 20, 64, torch.bfloat16, False, False, lp),
+        ("verify_int8", 5, 20, 20, 64, torch.int8, False, False, lp),
+        ("verify_fp32", 5, 20, 20, 64, torch.float32, False, False, lp),
+        ("draft_g1_bf16", 1, 12, 12, 64, torch.bfloat16, False, False, lp),
+        ("draft_g2_int8", 2, 12, 12, 64, torch.int8, False, False, lp),
+        ("gqa_20_over_5", 5, 20, 5, 64, torch.bfloat16, False, False, lp),
+        ("key_valid", 5, 20, 20, 64, torch.bfloat16, True, False, lp),
+        ("d128_gqa_int8_valid", 3, 8, 2, 128, torch.int8, True, False, lp),
+        ("fp_bf16", 5, 20, 20, 64, torch.bfloat16, False, True, fp),
+        ("fp_int8", 5, 20, 20, 64, torch.int8, False, True, fp),
     ):
+        pos = torch.tensor(rows_pos, dtype=torch.int32, device="cuda")
+        B = len(rows_pos)
         q_dtype = torch.float32 if cache_dtype == torch.float32 else torch.bfloat16
         qkv = torch.randn(B, G, (H + 2 * Hkv) * D, generator=gen, device="cuda").to(q_dtype)
         q = qkv[..., : H * D].unflatten(-1, (H, D))  # a strided view, as the model gives it
+        rows = (qkv[..., H * D: (H + Hkv) * D], qkv[..., (H + Hkv) * D:]) if fused else None
         kf = torch.randn(B, S, Hkv * D, generator=gen, device="cuda")
         vf = torch.randn(B, S, Hkv * D, generator=gen, device="cuda")
-        ks = vs = None
         if cache_dtype == torch.int8:
             (k, ks), (v, vs) = _quantize_rows(kf), _quantize_rows(vf)
+            lc = {"k": k, "v": v, "ks": ks, "vs": vs}
         else:
-            k, v = kf.to(cache_dtype), vf.to(cache_dtype)
+            lc = {"k": kf.to(cache_dtype), "v": vf.to(cache_dtype)}
         valid = None
         if key_valid:
             valid = torch.rand(B, S, generator=gen, device="cuda") > 0.3
             own = pos[:, None].long() + torch.arange(G, device="cuda")
             valid.scatter_(1, own, True)  # the chunk's own keys stay valid
-        kw = dict(key_valid=valid, k_scale=ks, v_scale=vs, kv_heads=Hkv)
-        got = chunk_attention(q, k, v, pos, **kw)
+        # the caches the kernel reads and writes: the rows are written into
+        # `mine`, the plain write into `c`; both stay equal bit for bit
+        mine = {n: t.clone() for n, t in lc.items()} if fused else lc
+
+        def launch(p):
+            if fused:
+                return chunk_attention_write(q, *rows, mine, p, key_valid=valid, kv_heads=Hkv)
+            return chunk_attention(q, lc["k"], lc["v"], p, key_valid=valid, k_scale=lc.get("ks"),
+                                   v_scale=lc.get("vs"), kv_heads=Hkv)
+
+        def plain(p, c):
+            return chunk_attention_reference(q, c["k"], c["v"], p, key_valid=valid,
+                                             k_scale=c.get("ks"), v_scale=c.get("vs"),
+                                             kv_heads=Hkv)
+
+        got = launch(pos)
         torch.cuda.synchronize()
         kernel = chunk_attention.last_kernel
         require(kernel == chunk_kernel(cache_dtype, D) == (
             "chunk_split_kernel" if cache_dtype == torch.float32 or D == 128
             else "chunk_attn_sm90_kernel"), f"chunk {name}: ran {kernel}")
-        want = chunk_attention_reference(q, k, v, pos, **kw)
+        c = lc
+        if fused:
+            c = {n: t.clone() for n, t in lc.items()}
+            write_rows_reference(c, *rows, pos)
+        want = plain(pos, c)
         require(got.shape == want.shape and got.dtype == want.dtype, f"chunk {name}: shape or dtype")
         require(torch.isfinite(got).all().item(), f"chunk {name}: non-finite output")
         cap, rel = tols[cache_dtype]
         err = (got.float() - want.float()).abs().flatten(1).amax(1)  # [B]
         tol = torch.clamp(rel * want.float().abs().flatten(1).amax(1), max=cap)
         near = torch.minimum(*(
-            (got.float() - chunk_attention_reference(q, k, v, p, **kw).float()).abs().flatten(1).amax(1)
+            (got.float() - plain(p, c).float()).abs().flatten(1).amax(1)
             for p in ((pos - 1).clamp(min=0), pos + 1)))
         near = torch.where(pos > 0, near, torch.inf)  # pos - 1 of row 0 is row 0 itself
+        same = all(torch.equal(mine[n], c[n]) for n in lc)
         worst = int((err / tol).argmax())
         log(f"[chunk] {name}: B={B} G={G} H={H} Hkv={Hkv} D={D} S={S} {str(cache_dtype)[6:]} "
-            f"cache, {kernel}, pos {pos.min().item()}..{pos.max().item()} per row: max|kernel-plain| "
+            f"cache, {kernel}{', rows written inside' if fused else ''}, pos "
+            f"{pos.min().item()}..{pos.max().item()} per row: max|kernel-plain| "
             f"{err.max().item():.3e}; closest to its row's bound at pos {pos[worst].item()}: "
             f"{err[worst].item():.3e} (tol {tol[worst].item():.3e}); the plain version at pos "
-            f"-/+ 1 misses each row's bound by a factor >= {(near / tol).min().item():.1f}")
+            f"-/+ 1 misses each row's bound by a factor >= {(near / tol).min().item():.1f}"
+            + (f"; cache equal to the plain write: {same}" if fused else ""))
         require(bool((err <= tol).all()), f"chunk {name}: errors {err.tolist()} > {tol.tolist()}")
         require(bool((near > tol).all()), f"chunk {name}: a row's bound does not tell pos from pos -/+ 1")
-        if name in ("verify_bf16", "verify_int8", "verify_fp32", "draft_g1_bf16"):
-            # every row at the end of a 1024-token sample: pos + G = 1029 live keys
-            full = torch.full((B,), 1024, dtype=torch.int32, device="cuda")
-            ms = graph_ms(lambda: chunk_attention(q, k, v, full, **kw))
-            at_full = chunk_attention(q, k, v, full, **kw).float()
-            want_full = chunk_attention_reference(q, k, v, full, **kw).float()
+        require(same, f"chunk {name}: the fused write differs from the plain one")
+        if fused:
+            records.setdefault("chunk_fp", {})[f"{str(cache_dtype)[6:]}_err"] = err.max().item()
+        if name not in ("verify_bf16", "verify_int8", "verify_fp32", "draft_g1_bf16", "fp_bf16",
+                        "fp_int8"):
+            continue
+        for at in timed_at:
+            # every row at `at`: pos + G live keys (at 1024 the end of a 1024-token sample)
+            full = torch.full((B,), at, dtype=torch.int32, device="cuda")
+            ms = graph_ms(lambda: launch(full))
+            at_full = launch(full).float()
+            want_full = plain(full, mine).float()  # what the kernel read, its rows written
             err_full = ((at_full - want_full).abs().max() / want_full.abs().max()).item()
-            require(err_full <= rel, f"chunk {name}, every row at pos 1024: {err_full} of "
+            require(err_full <= rel, f"chunk {name}, every row at pos {at}: {err_full} of "
                                      f"max|plain| > {rel}")
             earlier_ms = None
-            if kernel != "chunk_split_kernel":
+            if kernel != "chunk_split_kernel" and not fused:
                 # the earlier kernel through its own entry, in the same run
                 earlier = torch.empty_like(got)
-                earlier_ms = graph_ms(lambda: _chunk_launch("chunk_split_kernel", q, k, v, full,
-                                                            valid, ks, vs, Hkv, earlier))
+                earlier_ms = graph_ms(lambda: _chunk_launch("chunk_split_kernel", q, lc["k"],
+                                                            lc["v"], full, valid, lc.get("ks"),
+                                                            lc.get("vs"), Hkv, earlier))
                 err_earlier = (earlier.float() - at_full).abs().max().item()
                 require(err_earlier <= 2e-2, f"chunk {name}: the two kernels differ by {err_earlier}")
                 require(ms < earlier_ms, f"chunk {name}: {kernel} ({ms} ms) is no faster than the "
@@ -1510,23 +1632,25 @@ def phase_chunk_attention(records: dict) -> None:
                     f"chunk_split_kernel {earlier_ms:.4f} ms (device time, CUDA-graph replay)")
                 records["chunk_attention"].update(draft_g1_ms=ms, draft_g1_earlier_ms=earlier_ms)
                 continue
-            plain_ms = graph_ms(lambda: chunk_attention_reference(q, k, v, full, **kw), launches=5)
-            live = B * (1024 + G) * (Hkv * D * 2 * k.element_size() + (8 if ks is not None else 0))
-            bnd = bound(live + _nbytes(got, got, full))  # + the queries and the output
+            plain_ms = graph_ms(lambda: plain(full, mine), launches=5)
+            live = B * (at + G) * (Hkv * D * 2 * lc["k"].element_size() + (8 if "ks" in lc else 0))
+            # + the queries and the output (and the rows written)
+            bnd = bound(live + _nbytes(got, got, full) + (_nbytes(*rows) if fused else 0))
             library_ms = None
             if cache_dtype != torch.int8:
                 # one PyTorch call for the same function: SDPA on [B, H, S, D]
                 # views of the cache with a [B, 1, G, S] boolean mask (there is
                 # none for an int8 cache); timed here, used nowhere in the port
                 qt = q.transpose(1, 2)
-                kt, vt = (t.view(B, S, Hkv, D).transpose(1, 2) for t in (k, v))
+                kt, vt = (mine[n].view(B, S, Hkv, D).transpose(1, 2) for n in ("k", "v"))
                 mask = (torch.arange(S, device="cuda") <=
                         (full[:, None] + torch.arange(G, device="cuda"))[:, :, None])[:, None]
                 lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask).transpose(1, 2)
                 lib_err = (lib.float() - at_full).abs().max().item()
                 require(lib_err <= 2e-2, f"chunk {name}: the library call computes another function ({lib_err})")
                 library_ms = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
-            log(f"[chunk] {name}, every row at pos 1024: {kernel} {ms:.4f} ms "
+            log(f"[chunk] {name}, every row at pos {at}: {kernel}"
+                f"{' with the rows written' if fused else ''} {ms:.4f} ms "
                 f"({live / ms / 1e6:.0f} GB/s of live K+V), "
                 + (f"the earlier chunk_split_kernel {earlier_ms:.4f} ms, " if earlier_ms else "")
                 + f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), plain {plain_ms:.4f} ms, "
@@ -1535,7 +1659,12 @@ def phase_chunk_attention(records: dict) -> None:
                 f"(device time, CUDA-graph replay)")
             rec = {"max_abs_err": err.max().item(), "ms": ms, "plain_ms": plain_ms,
                    "library_ms": library_ms, **bnd}
-            if name == "verify_bf16":
+            if fused:
+                tag = str(cache_dtype)[6:]
+                records["chunk_fp"].update({
+                    f"{tag}_pos_{at}_ms": ms, f"{tag}_pos_{at}_bound_ms": bnd["bound_ms"],
+                    f"{tag}_pos_{at}_plain_ms": plain_ms, f"{tag}_pos_{at}_library_ms": library_ms})
+            elif name == "verify_bf16":
                 records["chunk_attention"] = {**rec, "earlier_ms": earlier_ms}
             elif name == "verify_fp32":
                 # the kernel that keeps fp32 caches and D = 128
@@ -1544,6 +1673,7 @@ def phase_chunk_attention(records: dict) -> None:
                 records["chunk_attention"].update(int8_ms=ms, int8_earlier_ms=earlier_ms,
                                                   int8_plain_ms=plain_ms,
                                                   int8_bound_ms=bnd["bound_ms"])
+    records["chunk_attention"]["fp"] = records.pop("chunk_fp")
 
 
 def phase_cache_update(records: dict) -> None:
@@ -2043,16 +2173,17 @@ def _w8_step_cold(records: dict, name: str, M: int, proj, gen) -> None:
     del ws
 
 
-def _perturb(model, seed: int) -> None:
+def _perturb(model, seed: int, device: str = "cpu") -> None:
     """Bench-style: every weight of rank >= 2 += 0.02 * N(0, 1) (the output
-    layer is zero-initialised, so a fresh model would decode zeros)."""
+    layer is zero-initialised, so a fresh model would decode zeros), drawn
+    on `device` (a model already there draws without a host copy)."""
     import torch
 
-    gen = torch.Generator().manual_seed(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
     with torch.no_grad():
         for p in model.parameters():
             if p.ndim >= 2 and p.requires_grad:  # a frozen codebook stays as it is
-                p.add_(0.02 * torch.randn(p.shape, generator=gen).to(p.device))
+                p.add_(0.02 * torch.randn(p.shape, generator=gen, device=device).to(p.device))
 
 
 def phase_e2e_fp32():
@@ -2150,6 +2281,90 @@ def phase_e2e_bf16(model_fp32, records: dict) -> None:
     return model
 
 
+def _ar_parity(tag: str, what: str, model, qmodel, cond, steps: int = 16) -> dict:
+    """The prior card against CPU (phases 8 and 29 (b)), on `model` and its
+    int8 copy `qmodel` cut to PARITY_DEPTH layers: the prefill of `cond`
+    ([B] classes, or [B, T] frame tokens) and `steps` decode steps forced to
+    the CPU's greedy tokens on both sides, so that a difference in one step
+    does not compound; fp32 weights, int8 weights, and int8 weights + an int8
+    KV cache, whose rows are quantised on the device and written at a device
+    position. Each model is run on the CPU, then on the card. Returns the
+    errors per mode."""
+    import torch
+
+    T = cond.shape[1] if cond.ndim == 2 else 1
+
+    def run(m, device, cache_dtype, tokens=None):
+        logits_all, chosen = [], []
+        with torch.inference_mode():
+            cache = m.init_cache(len(cond), T + 1024, cache_dtype)
+            logits, _ = m.prefill(cond.to(device), cache)
+            logits_all.append(logits[:, -1].cpu())
+            for i in range(1, steps + 1):
+                tok = logits_all[-1].argmax(-1, keepdim=True).int() if tokens is None else tokens[i - 1]
+                chosen.append(tok)
+                logits, _ = m.decode_step(tok.to(device), T + i - 1, cache)
+                logits_all.append(logits[:, -1].cpu())
+        return torch.stack(logits_all), chosen, {k: t.cpu() for k, t in cache[0].items()}
+
+    # fp32 cache: the same sums in another order, 1e-3 of the logit scale
+    # and >= 99% argmax agreement. int8 cache: a ~1e-6 card-vs-CPU
+    # difference moves a few int8 K/V values across a rounding boundary, a
+    # step of 1/127 of the row's amax; the layers after it see inputs that
+    # differ by that much and flip more, so the two sides end up as two
+    # int8 quantisations of one computation (measured on an H100: 9.6e-3 of
+    # the logit scale, 98.5% argmax agreement). Bound 3e-2 and >= 95%; what
+    # the cascade hides is checked where it cannot reach, in layer 0's cache
+    # (its inputs are the same tokens on both sides), below.
+    out = {}
+    for name, m, cache_dtype, tol, min_agree in (
+        ("fp32", model, torch.float32, 1e-3, 0.99),
+        ("int8 weights", qmodel, torch.float32, 1e-3, 0.99),
+        ("int8 weights + int8 KV", qmodel, torch.int8, 3e-2, 0.95),
+    ):
+        t0 = time.perf_counter()
+        m.cpu()  # the cut model: its embeddings, PE, head and PARITY_DEPTH layers
+        ref, tokens, ref_lc = run(m, "cpu", cache_dtype)
+        cpu_s = time.perf_counter() - t0
+        m.cuda()
+        got, _, got_lc = run(m, "cuda", cache_dtype, tokens)
+        err = (got - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+        log(f"[{tag}] {name}: {what} at {PARITY_DEPTH} of its 30 layers, batch {len(cond)}, "
+            f"prefill of {T} + {steps} forced decode steps (positions {T}..{T + steps - 1}), "
+            f"TF32 off; CPU plain path {cpu_s:.1f} s")
+        log(f"[{tag}] {name}: max|card-cpu| logit {err:.3e} = {err / scale:.2e} of "
+            f"max|logit| {scale:.3e} (tol {tol:g}); argmax agreement {agree:.2%} "
+            f"(tol >= {min_agree:.0%})")
+        require(torch.isfinite(got).all().item(), f"{tag} {name}: non-finite logits")
+        require(err <= tol * scale, f"{tag} {name}: logit error {err} > {tol * scale}")
+        require(agree >= min_agree, f"{tag} {name}: argmax agreement {agree}")
+        out[name] = {"logit_rel": err / scale, "argmax_agree": agree, "cpu_s": cpu_s}
+        if cache_dtype == torch.int8:
+            # layer 0's int8 rows at positions 0..T + steps - 1, written on
+            # the card at a device position: the same int8 values but for
+            # rounding-boundary flips of one step, the same row scales to
+            # 1e-5, nothing past them
+            live = T + steps
+            flips = max_step = scale_err = 0.0
+            for q8, sname in (("k", "ks"), ("v", "vs")):
+                d = (got_lc[q8].int() - ref_lc[q8].int()).abs()
+                flips = max(flips, (d[:, :live] > 0).float().mean().item())
+                max_step = max(max_step, d.max().item())
+                rel = (got_lc[sname][:, :live] - ref_lc[sname][:, :live]).abs() / ref_lc[sname][:, :live]
+                scale_err = max(scale_err, rel.max().item())
+                require(not got_lc[q8][:, live:].any() and not got_lc[sname][:, live:].any(),
+                        f"{tag} {name}: layer 0's cache written past position {live - 1}")
+                require(bool((ref_lc[sname][:, :live] > 0).all()), f"{tag} {name}: a row scale is 0")
+            log(f"[{tag}] {name}: layer 0 cache rows 0..{live - 1}, card vs CPU: {flips:.2e} "
+                f"of int8 values differ, by at most {max_step:g} (tol 1e-3, 1); row scales "
+                f"{scale_err:.2e} (tol 1e-5); rows past {live - 1} untouched")
+            require(flips <= 1e-3 and max_step <= 1 and scale_err <= 1e-5,
+                    f"{tag} {name}: layer 0's int8 cache differs: {flips}, {max_step}, {scale_err}")
+    return out
+
+
 def phase_ar_fp32(records: dict):
     """Full-width prior in fp32, card vs CPU at PARITY_DEPTH of its 30 layers
     (the run's budget): prefill + 16 decode steps whose inputs are the CPU's
@@ -2167,8 +2382,10 @@ def phase_ar_fp32(records: dict):
 
     decode_attention.launches = decode_attention.launches_sm90 = 0
     decode_attention.launches_fused = write_rows_per_row.launches = 0
-    model = flagship_ar(torch.float32, torch.Generator().manual_seed(SEED + 20))
-    _perturb(model, SEED + 21)
+    # drawn on the card: a host generator draws its 632M values one by one
+    model = flagship_ar(torch.float32, torch.Generator(device="cuda").manual_seed(SEED + 20),
+                        "cuda")
+    _perturb(model, SEED + 21, "cuda")
     qmodel = quantize_model(model)
     n_params = sum(p.numel() for p in model.parameters())
     whole = [(m, m.layers) for m in (model, qmodel)]
@@ -2176,72 +2393,7 @@ def phase_ar_fp32(records: dict):
         m.layers = layers[:PARITY_DEPTH]
     cond = torch.tensor([3, 7, 50, 101])  # 101 is the null (CFG) class
     steps = 16
-
-    def run(m, device, cache_dtype, tokens=None):
-        logits_all, chosen = [], []
-        with torch.inference_mode():
-            cache = m.init_cache(len(cond), 1 + 1024, cache_dtype)
-            logits, _ = m.prefill(cond.to(device), cache)
-            logits_all.append(logits[:, -1].cpu())
-            for i in range(1, steps + 1):
-                tok = logits_all[-1].argmax(-1, keepdim=True).int() if tokens is None else tokens[i - 1]
-                chosen.append(tok)
-                logits, _ = m.decode_step(tok.to(device), i, cache)
-                logits_all.append(logits[:, -1].cpu())
-        return torch.stack(logits_all), chosen, {k: t.cpu() for k, t in cache[0].items()}
-
-    # fp32 cache: the same sums in another order, 1e-3 of the logit scale
-    # and >= 99% argmax agreement. int8 cache: a ~1e-6 card-vs-CPU
-    # difference moves a few int8 K/V values across a rounding boundary, a
-    # step of 1/127 of the row's amax; the layers after it see inputs that
-    # differ by that much and flip more, so the two sides end up as two
-    # int8 quantisations of one computation (measured on an H100: 9.6e-3 of
-    # the logit scale, 98.5% argmax agreement). Bound 3e-2 and >= 95%; what
-    # the cascade hides is checked where it cannot reach, in layer 0's cache
-    # (its inputs are the same tokens on both sides), below.
-    for name, m, cache_dtype, tol, min_agree in (
-        ("fp32", model, torch.float32, 1e-3, 0.99),
-        ("int8 weights", qmodel, torch.float32, 1e-3, 0.99),
-        ("int8 weights + int8 KV", qmodel, torch.int8, 3e-2, 0.95),
-    ):
-        t0 = time.perf_counter()
-        m.cpu()
-        ref, tokens, ref_lc = run(m, "cpu", cache_dtype)
-        cpu_s = time.perf_counter() - t0
-        m.cuda()
-        got, _, got_lc = run(m, "cuda", cache_dtype, tokens)
-        err = (got - ref).abs().max().item()
-        scale = ref.abs().max().item()
-        agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
-        log(f"[ar fp32] {name}: llama-abs-LP {n_params:,} params at {PARITY_DEPTH} of its 30 "
-            f"layers, batch {len(cond)}, prefill + {steps} forced decode steps, TF32 off; CPU "
-            f"plain path {cpu_s:.1f} s")
-        log(f"[ar fp32] {name}: max|card-cpu| logit {err:.3e} = {err / scale:.2e} of "
-            f"max|logit| {scale:.3e} (tol {tol:g}); argmax agreement {agree:.2%} "
-            f"(tol >= {min_agree:.0%})")
-        require(torch.isfinite(got).all().item(), f"AR {name}: non-finite logits")
-        require(err <= tol * scale, f"AR {name}: logit error {err} > {tol * scale}")
-        require(agree >= min_agree, f"AR {name}: argmax agreement {agree}")
-        if cache_dtype == torch.int8:
-            # layer 0's int8 rows at positions 0..16, written on the card at a
-            # device position: the same int8 values but for rounding-boundary
-            # flips of one step, the same row scales to 1e-5, nothing past 16
-            live = steps + 1
-            flips = max_step = scale_err = 0.0
-            for q8, sname in (("k", "ks"), ("v", "vs")):
-                d = (got_lc[q8].int() - ref_lc[q8].int()).abs()
-                flips = max(flips, (d[:, :live] > 0).float().mean().item())
-                max_step = max(max_step, d.max().item())
-                rel = (got_lc[sname][:, :live] - ref_lc[sname][:, :live]).abs() / ref_lc[sname][:, :live]
-                scale_err = max(scale_err, rel.max().item())
-                require(not got_lc[q8][:, live:].any() and not got_lc[sname][:, live:].any(),
-                        f"AR {name}: layer 0's cache written past position {live - 1}")
-                require(bool((ref_lc[sname][:, :live] > 0).all()), f"AR {name}: a row scale is 0")
-            log(f"[ar fp32] {name}: layer 0 cache rows 0..{live - 1}, card vs CPU: {flips:.2e} "
-                f"of int8 values differ, by at most {max_step:g} (tol 1e-3, 1); row scales "
-                f"{scale_err:.2e} (tol 1e-5); rows past {live - 1} untouched")
-            require(flips <= 1e-3 and max_step <= 1 and scale_err <= 1e-5,
-                    f"AR {name}: layer 0's int8 cache differs: {flips}, {max_step}, {scale_err}")
+    _ar_parity("ar fp32", f"llama-abs-LP {n_params:,} params", model, qmodel, cond, steps)
     # fp32 queries: every decode attention of the parity path on the earlier
     # kernel, each after its layer's row write by csrc/cache_update.cu
     n, n_sm90 = decode_attention.launches, decode_attention.launches_sm90
@@ -2365,10 +2517,11 @@ def phase_ar_sampling(model_fp32, tokenizer, records: dict) -> None:
     labels = torch.tensor([0, 5, 17, 33, 50, 64, 88, 100], device="cuda")
     kernels = (flash_attn_fwd, decode_attention, w8_matmul, write_rows_per_row)
     results, step_ms_of = {}, {}
-    # bf16 samples whole 1024-code videos; the int8 modes 256 codes each, the
-    # host setting the pace of every step (1024 before phase 21 ran)
-    for name, model, kv, new in (("bf16", bf16, None, 1024), ("int8", int8, None, 256),
-                                 ("int8_kv8", int8, torch.int8, 256)):
+    # bf16 samples whole 1024-code videos; the int8 modes 128 codes each, the
+    # host setting the pace of every step (1024 before phase 21 ran, 256
+    # before phase 29 did)
+    for name, model, kv, new in (("bf16", bf16, None, 1024), ("int8", int8, None, 128),
+                                 ("int8_kv8", int8, torch.int8, 128)):
         gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
         kw = dict(cfg_scale=1.5, top_k=100, cache_dtype=kv)
         generate(model, labels, 8, gen, **kw)  # warm-up
@@ -2634,19 +2787,29 @@ def phase_speculative_greedy(ar_fp32, draft_fp32, records: dict) -> None:
     records["chunk_attention_split"]["launches"] = launches
 
 
+# the acceptance ceiling's tokens in phase 16: 512 since phase 29 was added
+# (1024 before: the run's budget; every proposal is accepted whatever the
+# length); the floor's and the self-draft's, where the host sets each
+# iteration's pace: 32 since then (64 before)
+SPEC_CEILING_TOKENS, SPEC_HOST_TOKENS = 512, 32
+
+
 def phase_speculative(target, draft, tokenizer, records: dict) -> None:
     """Speculative sampling with the full-width pair (632M llama-abs-LP target,
     ~70M draft of 8 layers x 768), batch 8, CFG 1.5, top-k 100, 1024 tokens,
     gamma 4, in bf16 and with int8 weights + int8 KV, three constructions that
     bracket the acceptance rate a trained pair would have:
       ceiling     both output heads zero: both distributions uniform, every
-                  proposal accepted, ceil(1023 / 5) = 205 iterations;
+                  proposal accepted, SPEC_CEILING_TOKENS = 512 tokens in
+                  ceil(511 / 5) = 103 iterations (1024 in 205 before
+                  phase 29 was added);
       floor       independent sharp heads (std 0.11): uncorrelated peaked
-                  distributions, acceptance near 0 (64 tokens: one iteration
-                  per token, and the host sets each one's time; 512 before
-                  phase 19, 256 before phase 21);
-      self_draft  the target's own first 8 layers and its sharp head (64
-                  tokens, for the same reason; 256, then 128 before).
+                  distributions, acceptance near 0 (SPEC_HOST_TOKENS = 32
+                  tokens: one iteration per token, and the host sets each
+                  one's time; 512 before phase 19, 256 before phase 21, 64
+                  before phase 29);
+      self_draft  the target's own first 8 layers and its sharp head (32
+                  tokens, for the same reason; 256, 128, then 64 before).
     `target` and `draft` arrive on the card and are cast to bf16 in place.
     Also: two short runs under the CUDA sync debug mode (the loop reads one
     scalar per iteration on the host)."""
@@ -2669,7 +2832,8 @@ def phase_speculative(target, draft, tokenizer, records: dict) -> None:
     plain = records["sampling"]  # tokens/s of plain `generate` in this run (phase 9)
     out = {}
     for con in ("ceiling", "floor", "self_draft"):
-        new = {"ceiling": 1024, "floor": 64, "self_draft": 64}[con]
+        new = {"ceiling": SPEC_CEILING_TOKENS, "floor": SPEC_HOST_TOKENS,
+               "self_draft": SPEC_HOST_TOKENS}[con]
         _set_head(t_bf16, torch.zeros_like(sharp_t) if con == "ceiling" else sharp_t)
         _set_head(d_bf16, torch.zeros_like(sharp_d) if con == "ceiling" else sharp_d)
         for prec in ("bf16", "int8_kv8"):
@@ -2998,27 +3162,29 @@ def _category(name: str) -> str:
 
 def _profile_and_load(step, n: int, by_name: Optional[dict] = None):
     """(wall ms, {category: device us}, device events, the card under load)
-    of n steps under torch.profiler, then the card's clock, power and
-    temperature during two more steps with one nvidia-smi query in flight (a
-    step time read beside a lower clock is the card's, not the code's).
-    `by_name`, if given, receives {kernel name: device us}."""
+    of n steps under torch.profiler, with one nvidia-smi query of the card's
+    clock, power and temperature started with them (a step time read beside
+    a lower clock is the card's, not the code's); where the query has not
+    read by the end of the n steps, more steps run until it has. `by_name`,
+    if given, receives {kernel name: device us}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    smi = subprocess.Popen(
-        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu",
-         "--format=csv,noheader"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
-    for _ in range(2):
+    deadline = time.perf_counter() + 60
+    while smi.poll() is None and time.perf_counter() < deadline:
         step()
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
     try:
-        under_load = smi.communicate(timeout=60)[0].strip() or "not available"
+        under_load = smi.communicate(timeout=1)[0].strip() or "not available"
     except subprocess.TimeoutExpired:
         smi.kill()
         smi.communicate()
@@ -3041,8 +3207,55 @@ def _profile_and_load(step, n: int, by_name: Optional[dict] = None):
     return wall_ms, per_cat, n_events, under_load
 
 
+# timed steps of a training-throughput window (and as many profiled): 3
+# since phase 29 was added (5 before; the run's budget)
+TRAIN_TIMED = 3
+
+
+class _DrawnOnCard:
+    """While open, every `registry.models.make` whose arguments carry a host
+    generator builds its module under `torch.device("cuda")` and draws from
+    a card generator seeded as the host one was. The trainers draw their
+    models' random inits on the host, so that a seed gives the same weights
+    on every device, one value at a time; runs that no model on another
+    device is held against (timed windows, CLI runs, runs compared only with
+    each other, checkpoints' throw-away inits) need no particular weights,
+    so they draw on the card: other values of the same distributions."""
+
+    def __enter__(self):
+        import torch
+
+        from video_tokenizer_tpu_torch.registry import models
+
+        self.had = "make" in vars(models)
+        outer = models.make  # the registry's, or a `_Built`'s
+
+        def drawn(spec, args=None):
+            if spec is not None and "generator" in (spec.get("args") or {}):
+                # passed beside the spec (which the registry deep-copies)
+                inner = dict(spec["args"])
+                args = {"generator": inner.pop("generator"), **(args or {})}
+                spec = {**spec, "args": inner}
+            g = (args or {}).get("generator")
+            if isinstance(g, torch.Generator) and g.device.type == "cpu":
+                args = {**args, "generator": torch.Generator("cuda").manual_seed(g.initial_seed())}
+            with torch.device("cuda"):
+                return outer(spec, args)
+
+        self.outer, models.make = outer, drawn
+        return self
+
+    def __exit__(self, *exc):
+        from video_tokenizer_tpu_torch.registry import models
+
+        if self.had:
+            models.make = self.outer
+        else:
+            del models.make
+
+
 def _train_throughput(tag: str, cfg: dict, flash: tuple, vq: int, warm: int = 2,
-                      timed: int = 5, fp32_flash: tuple = (0, 0),
+                      timed: int = TRAIN_TIMED, fp32_flash: tuple = (0, 0),
                       by_name: Optional[dict] = None, inspect=None) -> dict:
     """Training through the port's trainer on the card from `cfg` (batch and
     dtype as it sets them), on fake null128 clips from its own loader: `warm`
@@ -3068,7 +3281,8 @@ def _train_throughput(tag: str, cfg: dict, flash: tuple, vq: int, warm: int = 2,
 
     kernels = (flash_attn_fwd, flash_attn_bwd_dq, flash_attn_bwd_dkv, vq_argmax)
     use_amp, B = bool(cfg["use_amp"]), int(cfg["train_dataset"]["loader"]["batch_size"])
-    tr = _trainer(cfg, "cuda")
+    with _DrawnOnCard():
+        tr = _trainer(cfg, "cuda")
     after = inspect(tr) if inspect is not None else None
     batches = tr.train_loader(1)
     fetch_s = []  # host time in the loader, per step (read beside the idle share)
@@ -3141,7 +3355,7 @@ def _train_throughput(tag: str, cfg: dict, flash: tuple, vq: int, warm: int = 2,
         f"kernels per step; device ms per step by category: "
         + ", ".join(f"{c} {us / 1e3 / timed:.1f} ({us / 1e3 / busy_ms:.1%})"
                     for c, us in sorted(per_cat.items(), key=lambda kv: -kv[1])))
-    log(f"[{tag}] the card during two further steps (SM clock, its maximum, power "
+    log(f"[{tag}] the card during the profiled steps (SM clock, its maximum, power "
         f"draw, temperature): {under_load}")
     require(finite, f"{tag}: non-finite losses")
     require(launches == want, f"{tag}: launch counts {launches}, expected {want}")
@@ -3213,8 +3427,9 @@ def _read_png(path: Path):
 
 
 # the prior's depth in phase 18's train CLI run: its epoch, eval and 4 x 1024
-# sampled tokens (the run's budget: 58.6 s at the whole depth on a slow host)
-AR_CLI_DEPTH = 8
+# sampled tokens (the run's budget: 58.6 s at the whole depth on a slow host;
+# 8 layers until phase 29 was added)
+AR_CLI_DEPTH = 4
 
 
 def phase_ar_train(tmp: Path, records: dict, real_stats: Path) -> None:
@@ -3322,9 +3537,10 @@ def phase_ar_train(tmp: Path, records: dict, real_stats: Path) -> None:
 
     # (c) throughput and (d) launch counts, batch 8, dropouts as configured
     kernels = (flash_attn_fwd, flash_attn_bwd_dq, flash_attn_bwd_dkv, vq_argmax, w8_matmul)
-    B, warm, timed = 8, 2, 5
+    B, warm, timed = 8, 2, TRAIN_TIMED
     for name in ("larp_ar", "larp_ar_fp"):
-        tr = _trainer(_ar_cfg(tmp / name, name, vae_dir, B), "cuda")
+        with _DrawnOnCard():
+            tr = _trainer(_ar_cfg(tmp / name, name, vae_dir, B), "cuda")
         mc = tr.model_cfg
         batches = tr.train_loader(1)
         fetch_s = []
@@ -3385,7 +3601,7 @@ def phase_ar_train(tmp: Path, records: dict, real_stats: Path) -> None:
             f"device events per step; device ms per step by category: "
             + ", ".join(f"{c} {us / 1e3 / timed:.1f} ({us / 1e3 / busy_ms:.1%})"
                         for c, us in sorted(per_cat.items(), key=lambda kv: -kv[1])))
-        log(f"[ar train {name}] the card during two further steps (SM clock, its maximum, power "
+        log(f"[ar train {name}] the card during the profiled steps (SM clock, its maximum, power "
             f"draw, temperature): {under_load}")
         require(finite, f"ar train {name}: non-finite losses")
         require(launches == want, f"ar train {name}: launch counts {launches}, expected {want}")
@@ -3410,15 +3626,16 @@ def phase_ar_train(tmp: Path, records: dict, real_stats: Path) -> None:
         k.launches = 0
     out = tmp / "cli"
     t0 = time.perf_counter()
-    tr = train_main(["--cfg", str(ROOT / "cfgs" / "larp_ar.yaml"), "--csv_file", "null128",
-                     "-b", "8", "-j", "0", "--device", "cuda", "--manualSeed", str(SEED),
-                     "--out_path", str(out), "--opts", "max_epoch", "1", "eval_epoch", "1",
-                     "vis_epoch", "1", "vae.checkpoint", str(vae_dir),
-                     # llama-abs-LP's width and heads (the flat registration takes a depth)
-                     "model.name", "larp_ar", "model.args.n_layer", str(AR_CLI_DEPTH),
-                     "model.args.n_head", "20", "model.args.dim", "1280",
-                     "test_dataset.csv_paths.ucf101_val", "null128",
-                     "fvd_real_stats_path", str(real_stats), "force_fvd", "true"])
+    with _DrawnOnCard():
+        tr = train_main(["--cfg", str(ROOT / "cfgs" / "larp_ar.yaml"), "--csv_file", "null128",
+                         "-b", "8", "-j", "0", "--device", "cuda", "--manualSeed", str(SEED),
+                         "--out_path", str(out), "--opts", "max_epoch", "1", "eval_epoch", "1",
+                         "vis_epoch", "1", "vae.checkpoint", str(vae_dir),
+                         # llama-abs-LP's width and heads (the flat registration takes a depth)
+                         "model.name", "larp_ar", "model.args.n_layer", str(AR_CLI_DEPTH),
+                         "model.args.n_head", "20", "model.args.dim", "1280",
+                         "test_dataset.csv_paths.ucf101_val", "null128",
+                         "fvd_real_stats_path", str(real_stats), "force_fvd", "true"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     run = out / "larp_ar"
@@ -3465,17 +3682,20 @@ _MODEL_NEW_CFGS = ("larp_tokenizer_large", "larp_tokenizerf256t1024", "larp_toke
                    "larp_tokenizerf256t512")
 
 
-def _model_new(tmp: Path, name: str, dtype, seed: int, perturb: bool = True):
+def _model_new(tmp: Path, name: str, dtype, seed: int, perturb: bool = True,
+               device: str = "cpu"):
     """cfgs/<name>.yaml's model_new autoencoder at full width, built from the
     yaml as the trainer builds it (the int `patch_size: 8` read as (4, 8, 8)),
-    seeded (and perturbed), on the host; and its attention layers per forward."""
+    seeded (and perturbed), drawn on `device`; and its attention layers per
+    forward."""
     import torch
 
     from video_tokenizer_tpu_torch.registry import models
 
     cfg = _load_cfg(name, tmp, 1)
-    model = models.make(cfg["model"], args={"dtype": dtype,
-                                            "generator": torch.Generator().manual_seed(seed)})
+    with torch.device(device):
+        model = models.make(cfg["model"], args={
+            "dtype": dtype, "generator": torch.Generator(device).manual_seed(seed)})
     if perturb:
         _perturb(model, seed + 1)
     stacks = (model.encoder, getattr(model, "encoder1", None), model.decoder)
@@ -3633,7 +3853,9 @@ def _model_new_reconstruction(tmp: Path, records: dict, weights: dict) -> None:
     B, iters = 8, 5
     clips = torch.from_numpy(make_clips(np.random.default_rng(SEED), B, 16, 128)).cuda()
     for name, state in weights.items():
-        model, n_layers = _model_new(tmp, name, torch.bfloat16, SEED, perturb=False)
+        # drawn on the card: (a)'s weights replace the draws
+        model, n_layers = _model_new(tmp, name, torch.bfloat16, SEED, perturb=False,
+                                     device="cuda")
         model.load_state_dict(state)
         model.cuda().eval()
         reconstruct(model, clips)  # warm-up
@@ -3832,11 +4054,12 @@ def _model_new_cli(tmp: Path, records: dict) -> None:
 
     out = tmp / "model_new_cli"
     t0 = time.perf_counter()
-    tr = train_main(["--cfg", str(ROOT / "cfgs" / "larp_tokenizer_large.yaml"), "--csv_file",
-                     "null128", "-b", "8", "-j", "0", "--device", "cuda", "--manualSeed", str(SEED),
-                     "--out_path", str(out), "--opts", "max_epoch", "1", "eval_epoch", "1",
-                     "vis_epoch", "1", "use_amp", "true",
-                     "test_dataset.csv_paths.ucf101_val", "null128"])
+    with _DrawnOnCard():
+        tr = train_main(["--cfg", str(ROOT / "cfgs" / "larp_tokenizer_large.yaml"), "--csv_file",
+                         "null128", "-b", "8", "-j", "0", "--device", "cuda", "--manualSeed",
+                         str(SEED), "--out_path", str(out), "--opts", "max_epoch", "1",
+                         "eval_epoch", "1", "vis_epoch", "1", "use_amp", "true",
+                         "test_dataset.csv_paths.ucf101_val", "null128"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     n_steps = tr.step
@@ -3850,8 +4073,9 @@ def _model_new_cli(tmp: Path, records: dict) -> None:
     grid = _read_png(grid_path) if grid_path.exists() else None
     grid_text = "missing" if grid is None else f"{grid.shape}, pixel std {grid.std():.4g}"
     t0 = time.perf_counter()
-    result = reconstruct_main(["--checkpoint", str(run_dir / "epoch-final"), "--device", "cuda",
-                               "--batch_size", "2", "--num_batches", "2"])
+    with _DrawnOnCard():
+        result = reconstruct_main(["--checkpoint", str(run_dir / "epoch-final"), "--device", "cuda",
+                                   "--batch_size", "2", "--num_batches", "2"])
     load_s = time.perf_counter() - t0
     log(f"[model_new cli] train.main on cfgs/larp_tokenizer_large.yaml, batch 8, one epoch of "
         f"null128 ({n_steps} bf16 steps), eval and vis: {wall:.1f} s; train and eval losses "
@@ -3905,6 +4129,12 @@ def _events_ms(marks: dict) -> dict:
     return {k: [s.elapsed_time(e) for s, e in v] for k, v in marks.items()}
 
 
+# phase 20 (e)'s sample.py job samples with the prior's first 8 of 30 layers
+# (the run's budget: phase 9 holds the whole prior's sampling, the host
+# sets each step's pace)
+SAMPLE_FVD_DEPTH = 8
+
+
 def phase_fvd(tmp: Path, records: dict) -> Path:
     """FVD on the card (phase 20). The I3D extractor is the port's seeded
     full Kinetics-400 I3D (12,697,264 parameters, `random_variables(0)`, what
@@ -3931,11 +4161,13 @@ def phase_fvd(tmp: Path, records: dict) -> Path:
           `eval rFVD:` each epoch, no failed FVD line, exactly one
           `best_fvd_*` directory, the lower FVD's (the AR trainer's
           `sample gFVD:` is checked in phase 18, against (b)'s real stats);
-      (e) `sample.py --csv_file null128` as one job at full width: bf16, CFG
-          1.5, top-k 100, batch 8, 8 samples: both shards, `done_0.flag`,
-          `merged.flag`, one `fvd_report.csv` row whose finite FVD is the
-          merge CLI's over the same shards; 30 x 1023 decode attentions on
-          the tensor-core kernel, each writing its row.
+      (e) `sample.py --csv_file null128` as one job: bf16, CFG 1.5, top-k
+          100, batch 8, 8 samples, the full-width prior's first
+          SAMPLE_FVD_DEPTH of 30 layers (`--ar_model`; phase 9 samples the
+          whole prior): both shards, `done_0.flag`, `merged.flag`, one
+          `fvd_report.csv` row whose finite FVD is the merge CLI's over the
+          same shards; SAMPLE_FVD_DEPTH x 1023 decode attentions on the
+          tensor-core kernel, each writing its row.
     Returns the path of (b)'s real stats."""
     import contextlib
     import csv
@@ -3944,7 +4176,7 @@ def phase_fvd(tmp: Path, records: dict) -> Path:
     import numpy as np
     import torch
 
-    from video_tokenizer_tpu_torch import FLAGSHIP_TOKENIZER, flagship_tokenizer
+    from video_tokenizer_tpu_torch import FLAGSHIP_TOKENIZER, flagship_ar, flagship_tokenizer
     from video_tokenizer_tpu_torch.eval import rfvd_evaluator
     from video_tokenizer_tpu_torch.eval.calc_fvd_from_multiple_feature_stats import (
         main as merge_main,
@@ -4112,11 +4344,12 @@ def phase_fvd(tmp: Path, records: dict) -> Path:
     # (d) the tokenizer trainer: eval rFVD each epoch, the best by FVD
     t0 = time.perf_counter()
     run_dir = tmp / "fvd" / "train"
-    train_main(["--cfg", str(ROOT / "cfgs" / "larp_tokenizer.yaml"), "--csv_file", "null128",
-                "-b", "8", "-j", "0", "--device", "cuda", "--manualSeed", str(SEED),
-                "--out_path", str(run_dir), "--opts", "max_epoch", "2", "eval_epoch", "1",
-                "vis_epoch", "99", "latest_interval", "1", "use_amp", "true", "force_fvd",
-                "true", "save_best", "true", "test_dataset.csv_paths.ucf101_val", "null128"])
+    with _DrawnOnCard():
+        train_main(["--cfg", str(ROOT / "cfgs" / "larp_tokenizer.yaml"), "--csv_file", "null128",
+                    "-b", "8", "-j", "0", "--device", "cuda", "--manualSeed", str(SEED),
+                    "--out_path", str(run_dir), "--opts", "max_epoch", "2", "eval_epoch", "1",
+                    "vis_epoch", "99", "latest_interval", "1", "use_amp", "true", "force_fvd",
+                    "true", "save_best", "true", "test_dataset.csv_paths.ucf101_val", "null128"])
     train_s = time.perf_counter() - t0
     text = (run_dir / "larp_tokenizer" / "log.txt").read_text()
     rfvd = [float(line.rsplit(" ", 1)[1]) for line in text.splitlines() if "eval rFVD:" in line]
@@ -4133,14 +4366,22 @@ def phase_fvd(tmp: Path, records: dict) -> Path:
     out["train_s"] = train_s
     torch.cuda.empty_cache()
 
-    # (e) sample.py with FVD: one job at full width
+    # (e) sample.py with FVD: one job, the prior at full width and cut depth
     samples = tmp / "fvd" / "sampling" / "run"
+    ar_pth = tmp / "fvd" / "prior.pth"
+    prior = flagship_ar(torch.float32, torch.Generator().manual_seed(SEED),
+                        n_layer=SAMPLE_FVD_DEPTH)
+    torch.save({"model": {"name": "larp_ar", "args": {
+        k: v for k, v in vars(prior.config).items() if k != "quantized"},
+        "sd": prior.state_dict()}}, ar_pth)
+    del prior
     decode_attention.launches = decode_attention.launches_sm90 = 0
     decode_attention.launches_fused = 0
     t0 = time.perf_counter()
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        result = sample_main(["--device", "cuda", "--dtype", "bfloat16", "--cfg_scale", "1.5",
+        result = sample_main(["--device", "cuda", "--ar_model", str(ar_pth), "--dtype",
+                              "bfloat16", "--cfg_scale", "1.5",
                               "--top_k", "100", "--batch_size", "8", "--num_samples", "8",
                               "--csv_file", "null128", "--seed", str(SEED), "--output_dir",
                               str(samples)])
@@ -4156,7 +4397,8 @@ def phase_fvd(tmp: Path, records: dict) -> Path:
     log(f"[fvd sample] sample.py --csv_file null128, bf16, CFG 1.5, top-k 100, batch 8, 8 "
         f"samples: {sample_s:.1f} s (the models' builds included); {buf.getvalue().strip()}; "
         f"files {files}; report {rows}; merge CLI {buf2.getvalue().strip()!r}; decode "
-        f"attentions {dec} (expect 30690 each)")
+        f"attentions {dec} (expect {SAMPLE_FVD_DEPTH * 1023} each: the prior's first "
+        f"{SAMPLE_FVD_DEPTH} of 30 layers)")
     require({"gen_stats_0.pkl", "real_stats_0.pkl", "done_0.flag", "merged.flag"} <= set(files),
             f"sample.py files {files}")
     require(len(rows) == 2 and rows[1][7] == "8", f"fvd_report.csv {rows}")
@@ -4164,7 +4406,9 @@ def phase_fvd(tmp: Path, records: dict) -> Path:
     require(math.isfinite(fvd_e) and result["fvd"] is not None
             and abs(result["fvd"] - merged_e) <= 1e-9 * max(merged_e, 1.0)
             and rows[1][-1] == f"{merged_e:.4f}", f"sample FVD {result['fvd']} vs merge {merged_e}")
-    require(dec == {"all": 30690, "sm90": 30690, "fused": 30690}, f"decode launches {dec}")
+    want_dec = SAMPLE_FVD_DEPTH * 1023
+    require(dec == {"all": want_dec, "sm90": want_dec, "fused": want_dec},
+            f"decode launches {dec}")
     records["decode_attention"]["launches"] += dec["sm90"]
     records["decode_attention"]["sample_fvd_launches"] = dec["sm90"]
     out["sample"] = {"fvd": result["fvd"], "seconds": sample_s,
@@ -4648,11 +4892,12 @@ def _stat_train(tmp: Path, records: dict) -> None:
     records["train_stat_bf16"] = {k: v for k, v in run.items() if k != "tf32x3"}
     out = tmp / "stat_cli"
     t0 = time.perf_counter()
-    tr, counts = _cli_counts(lambda: train_main([
-        "--cfg", str(ROOT / "cfgs" / "larp_tokenizer_stat.yaml"), "--csv_file", "null128", "-b",
-        "8", "-j", "0", "--device", "cuda", "--manualSeed", str(SEED), "--out_path", str(out),
-        "--opts", "max_epoch", "3", "eval_epoch", "99", "vis_epoch", "99", "use_amp", "true",
-        "model.args.vanilla_until_epoch", "2", "model.args.random_drop_until_epoch", "3"]))
+    with _DrawnOnCard():
+        tr, counts = _cli_counts(lambda: train_main([
+            "--cfg", str(ROOT / "cfgs" / "larp_tokenizer_stat.yaml"), "--csv_file", "null128", "-b",
+            "8", "-j", "0", "--device", "cuda", "--manualSeed", str(SEED), "--out_path", str(out),
+            "--opts", "max_epoch", "3", "eval_epoch", "99", "vis_epoch", "99", "use_amp", "true",
+            "model.args.vanilla_until_epoch", "2", "model.args.random_drop_until_epoch", "3"]))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     steps, d_freq = tr.step, tr.loss_mod.d_update_freq
@@ -4686,11 +4931,12 @@ def _sq_train(tmp: Path, records: dict) -> None:
 
     out = tmp / "sq_cli"
     t0 = time.perf_counter()
-    tr, counts = _cli_counts(lambda: train_main([
-        "--cfg", str(ROOT / "cfgs" / "larp_tokenizer.yaml"), "--csv_file", "null128", "-b", "8",
-        "-j", "0", "--device", "cuda", "--manualSeed", str(SEED), "--out_path", str(out),
-        "--opts", "max_epoch", "1", "eval_epoch", "99", "vis_epoch", "99", "use_amp", "true",
-        "model.args.bottleneck_type", "sq"]))
+    with _DrawnOnCard():
+        tr, counts = _cli_counts(lambda: train_main([
+            "--cfg", str(ROOT / "cfgs" / "larp_tokenizer.yaml"), "--csv_file", "null128", "-b", "8",
+            "-j", "0", "--device", "cuda", "--manualSeed", str(SEED), "--out_path", str(out),
+            "--opts", "max_epoch", "1", "eval_epoch", "99", "vis_epoch", "99", "use_amp", "true",
+            "model.args.bottleneck_type", "sq"]))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     emb = tr.model.sq_quantizer.embedding
@@ -5073,9 +5319,10 @@ def _recipe_cli(tmp: Path, rec: dict) -> None:
 
     out = tmp / "recipe_cli"
     t0 = time.perf_counter()
-    tr1 = train_main(["--device", "cuda", "--tag", "single_host",
-                      *_recipe_argv(out, 8, 66667, "max_epoch", "1", "optimizer.emb_lr_mult",
-                                    "2.0")])
+    with _DrawnOnCard():
+        tr1 = train_main(["--device", "cuda", "--tag", "single_host",
+                          *_recipe_argv(out, 8, 66667, "max_epoch", "1", "optimizer.emb_lr_mult",
+                                        "2.0")])
     cli_s = time.perf_counter() - t0
     run = Path(tr1.save_dir)
     log_text = (run / "log.txt").read_text()
@@ -5096,9 +5343,10 @@ def _recipe_cli(tmp: Path, rec: dict) -> None:
             "recipe cli: train loss not finite")
 
     # resume from epoch-last: the groups, the step and Adam's state
-    tr2 = trainers.make({"name": tr1.cfg["trainer"]}, args={"cfg": tr1.cfg, "device": "cuda"})
-    tr2.make_datasets()
-    tr2.make_model()
+    with _DrawnOnCard():
+        tr2 = trainers.make({"name": tr1.cfg["trainer"]}, args={"cfg": tr1.cfg, "device": "cuda"})
+        tr2.make_datasets()
+        tr2.make_model()
     require(tr2.try_resume(), "recipe cli: no epoch-last to resume from")
     same = tr2.step == tr1.step and len(tr2.opt_g.param_groups) == len(tr1.opt_g.param_groups)
     for g1, g2 in zip(tr1.opt_g.param_groups, tr2.opt_g.param_groups):
@@ -5118,7 +5366,8 @@ def _recipe_cli(tmp: Path, rec: dict) -> None:
 
     # epoch-final: reconstruct, and the AR trainer's frozen tokenizer
     final = run / "epoch-final"
-    model = load_tokenizer_checkpoint(str(final), dtype=torch.bfloat16, device="cuda")
+    with _DrawnOnCard():
+        model = load_tokenizer_checkpoint(str(final), dtype=torch.bfloat16, device="cuda")
     clips = torch.from_numpy(np.random.default_rng(SEED + 250).random(
         (2, 3, 16, 128, 128), dtype=np.float32)).cuda()
     recon = reconstruct(model, clips)
@@ -5128,7 +5377,8 @@ def _recipe_cli(tmp: Path, rec: dict) -> None:
     cfg = _ar_cfg(tmp / "recipe_ar", "larp_ar", final, 2)
     cfg["model"] = {"name": "larp_ar", "args": {**cfg["model"]["args"], "n_layer": 2,
                                                 "n_head": 20, "dim": 1280}}
-    ar = _trainer(cfg, "cuda")
+    with _DrawnOnCard():
+        ar = _trainer(cfg, "cuda")
     keys, packed = ar.train_step(next(ar.train_loader(1)))
     log(f"[recipe cli] epoch-final reconstructs (bf16, 2 clips, max {recon.max().item():.3f}) and "
         f"feeds the AR trainer as its frozen tokenizer (prior loaded: "
@@ -5251,15 +5501,16 @@ def _preempt_resume(tmp: Path, rec: dict) -> None:
         c["train_dataset"]["args"]["split"] = "val"
         return c
 
-    a = _basic_run(cfg("pre_a", profile_steps=2, enable_tb=True))
-    a2 = _basic_run(cfg("pre_a2", enable_tb=False))
-    b = _basic_run(cfg("pre_b", enable_tb=False), sigterm_at=(2, 1))
-    last = tmp / "pre_b" / "epoch-last"
-    state = ckpt_lib.restore_checkpoint(str(last))
-    meta = json.loads((last / "meta.json").read_text())
-    position = {k: (state.get(k), meta.get(k))
-                for k in ("epoch", "global_step", "resume_skip_steps", "preempted")}
-    c = _basic_run(cfg("pre_b", enable_tb=False))
+    with _DrawnOnCard():
+        a = _basic_run(cfg("pre_a", profile_steps=2, enable_tb=True))
+        a2 = _basic_run(cfg("pre_a2", enable_tb=False))
+        b = _basic_run(cfg("pre_b", enable_tb=False), sigterm_at=(2, 1))
+        last = tmp / "pre_b" / "epoch-last"
+        state = ckpt_lib.restore_checkpoint(str(last))
+        meta = json.loads((last / "meta.json").read_text())
+        position = {k: (state.get(k), meta.get(k))
+                    for k in ("epoch", "global_step", "resume_skip_steps", "preempted")}
+        c = _basic_run(cfg("pre_b", enable_tb=False))
     del state
     spread, gap = _state_gap(a2["trainer"], a["trainer"]), _state_gap(c["trainer"], a["trainer"])
     steps = {k: _adam_steps(r["trainer"]) for k, r in (("A", a), ("C", c))}
@@ -6320,7 +6571,7 @@ def _vfm_reconstruction(name: str, bottleneck: Optional[str], rec: dict, records
     want = {"d80": 32 * iters, "d64": d64 * iters, "wgmma": (32 + d64) * iters,
             "vq": n_vq * iters, "vq_tc": n_vq * iters}
     clips_s = B / statistics.median(times)
-    log(f"[vfm bf16] {tag} ({n_params:,} params, built from the seed on the host in "
+    log(f"[vfm bf16] {tag} ({n_params:,} params, built from the seed on the card in "
         f"{build_s:.1f} s) batch {B} of 16 x 256 x 256: {', '.join(f'{t * 1e3:.1f}' for t in times)}"
         f" ms; median {statistics.median(times) * 1e3:.1f} ms = {clips_s:.2f} clips/s; peak "
         f"memory {peak:.2f} GiB; mse {torch.mean((out - clips) ** 2).item():.5f}; launches {n} "
@@ -6585,7 +6836,7 @@ class _Built:
 
 def _build_cfg_model(name: str, size: int, seed: int):
     """`name` through `reconstruct.build_model` on cfgs/larp_tokenizer.yaml
-    (`--opts model.name <name>`), bf16 on the card; (model, host build s)."""
+    (`--opts model.name <name>`), bf16, drawn on the card; (model, build s)."""
     import torch
 
     from video_tokenizer_tpu_torch.reconstruct import build_model
@@ -6689,7 +6940,7 @@ def _vfm_auto_reconstruction(name: str, rec: dict, keep: bool = False):
     model, build_s = _build_cfg_model(name, 256, SEED + 720)
     n_params = sum(p.numel() for p in model.parameters())
     require(n_params == VFM_AUTO_PARAMS[name], f"{name}: {n_params:,} parameters")
-    log(f"[vfm_auto bf16] {name}: built from the seed on the host in {build_s:.1f} s")
+    log(f"[vfm_auto bf16] {name}: built from the seed on the card in {build_s:.1f} s")
     run = _reconstruction_rate(name, model, 64, 0, size=256, n_d80=32)
     rec[f"{name}_bf16_b8"] = {**run, "params": n_params, "build_s": build_s}
     if keep:
@@ -7318,6 +7569,420 @@ def _slice20_flash(rec: dict) -> None:
     out_rec["d128_segments_library_ms"] = seg_ms
     rec["flash_shapes"] = out_rec
 
+# ---------------------------------------------------------------- phase 29
+
+FP_PRIOR = dict(frame_prediction=True, cls_token_num=1025)  # 1024 prompt codes + the separator
+FP_RES = 64  # --fp_resolution: the clips are scored at 64 x 64
+INCEPTION_FRAMES = 128  # the frames of (a)'s 8 clips
+STEM_POOLED = ("Conv2d_3b_1x1", "Mixed_5b")  # a VALID 3 x 3 / 2 max pool before each
+
+
+def phase_frame_prediction(tmp: Path, records: dict) -> None:
+    """Frame prediction and the last metrics (`phase_frame_prediction`):
+      (a) `sample.py --frame_prediction --csv_file null128` at full width: a
+          seeded, perturbed 632M frame-prediction prior (`flagship_ar(...,
+          frame_prediction=True, cls_token_num=1025)`: the separator token's
+          row and 1025 PE rows) saved as a `.pth`, the flagship tokenizer,
+          bf16, batch 8, one batch, top-k 100, `--save_videos`: the shards,
+          flags and report row (cfg_scale 1.0), 8 videos [3, 16, 64, 64] in
+          [0, 1]; exact launch counts: 12 + 30 + 12 wgmma flash forwards
+          (encode, prefill, decode), 1 VQ search, 30 x 1023 decode attentions
+          on the tensor-core kernel with their row write, no separate row
+          write, no chunk attention; the generate loop's tokens/s beside the
+          device time of one decode step at pos 1536 (CUDA-graph replay);
+      (b) greedy frame prediction in fp32 (TF32 off), card against CPU at
+          PARITY_DEPTH of the prior's 30 layers: the 1025-token prefill and
+          16 decode steps forced to the CPU's greedy tokens, with fp32
+          weights, int8 weights and int8 weights + an int8 KV cache, phase
+          8's bounds and its check of layer 0's int8 cache;
+      (c) from one random 1025-token prompt at batch 8: `generate` of 256
+          tokens with int8 weights + int8 KV and `speculative_generate` of
+          64 tokens drafted by the prior's first 8 layers (bf16, gamma 4):
+          exact launch counts, every chunk attention on the tensor-core
+          kernel with its rows' write, the acceptance rate;
+      (d) the metrics on (a)'s generated and real clips: InceptionV3 at full
+          width in fp32, card against CPU block by block on the CPU's inputs
+          and whole, its images/s at batch 128, FID over 128 + 128 frames;
+          JEDi with the full-width seeded V-JEPA2 teacher (1280 x 32, 16
+          heads of 80: 32 D = 80 forwards a call) and the card against the
+          CPU at the cut teacher (4 of 32 layers, 8 x 128 x 128, phase 26's
+          cut); MILO at full width on the 128 frame pairs, card against CPU."""
+    import torch
+
+    from video_tokenizer_tpu_torch import flagship_ar
+
+    t_phase = time.perf_counter()
+    rec: dict = {}
+    # drawn on the card: a host generator draws its 633M values one by one
+    model = flagship_ar(torch.float32, torch.Generator(device="cuda").manual_seed(SEED + 90),
+                        "cuda", **FP_PRIOR)
+    _perturb(model, SEED + 91, "cuda")
+    rec["params"] = sum(p.numel() for p in model.parameters())
+    ar_pth = tmp / "fp_prior.pth"
+    args = {k: v for k, v in vars(model.config).items() if k != "quantized"}
+    torch.save({"model": {"name": "larp_ar", "args": args, "sd": {
+        k: v.to("cpu", torch.bfloat16) for k, v in model.state_dict().items()}}}, ar_pth)
+    rec["build_s"] = time.perf_counter() - t_phase
+    log(f"[fp] the frame-prediction prior: {rec['params']:,} parameters (vocab 8192 + the "
+        f"separator, {model.abs_pe.shape[1]} PE rows, no class table), drawn and perturbed on "
+        f"the card and saved as a bf16 .pth in {rec['build_s']:.1f} s")
+    _fp_parity(model, rec)
+    bf16 = model.cuda().to(torch.bfloat16)  # in place: the same perturbed weights
+    del model
+    _fp_generate(bf16, rec)
+    del bf16
+    torch.cuda.empty_cache()
+    clips = _fp_cli(tmp, ar_pth, rec, records)
+    _fp_metrics(tmp, clips, rec)
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"[fp] phase 29 in {rec['seconds']:.1f} s")
+    records["fp"] = rec
+
+
+def _fp_prompt(B: int, seed: int):
+    """[B, 1025] int32 on the card: 1024 random codes and the separator 8192."""
+    import torch
+
+    codes = torch.randint(0, 8192, (B, 1024), generator=torch.Generator().manual_seed(seed))
+    return torch.cat([codes, torch.full((B, 1), 8192)], dim=1).int()
+
+
+def _fp_parity(model, rec: dict) -> None:
+    """Phase 29 (b): phase 8's card-against-CPU check on a frame prompt."""
+    import torch
+
+    from video_tokenizer_tpu_torch.models.larp_ar import quantize_model
+    from video_tokenizer_tpu_torch.ops.attention import flash_attn_fwd
+    from video_tokenizer_tpu_torch.ops.cache_update import write_rows_per_row
+    from video_tokenizer_tpu_torch.ops.decode_attention import decode_attention
+
+    qmodel = quantize_model(model)
+    whole = [(m, m.layers) for m in (model, qmodel)]
+    for m, layers in whole:
+        m.layers = layers[:PARITY_DEPTH]
+    kernels = (flash_attn_fwd, decode_attention, write_rows_per_row)
+    for k in kernels:
+        k.launches = 0
+    flash_attn_fwd.launches_tf32x3 = decode_attention.launches_sm90 = 0
+    steps = 16
+    rec["parity"] = _ar_parity("fp parity", f"the frame-prediction prior ({FP_S}-row cache)",
+                                  model, qmodel, _fp_prompt(2, SEED + 92), steps)
+    # per mode: the prefill's causal fp32 flash forward and, per step, one
+    # decode attention on the earlier kernel after its layer's row write
+    n = {k.__name__: k.launches for k in kernels}
+    want = {"flash_attn_fwd": 3 * PARITY_DEPTH, "decode_attention": 3 * steps * PARITY_DEPTH,
+            "write_rows_per_row": 3 * steps * PARITY_DEPTH}
+    log(f"[fp parity] launches {n} (expect {want}), 3xTF32 forwards "
+        f"{flash_attn_fwd.launches_tf32x3}, decode_attn_sm90_kernel {decode_attention.launches_sm90} "
+        f"(expect all and 0: fp32 queries)")
+    require(n == want and flash_attn_fwd.launches_tf32x3 == want["flash_attn_fwd"]
+            and decode_attention.launches_sm90 == 0, f"fp parity: launches {n}")
+    for m, layers in whole:
+        m.layers = layers
+    del qmodel, whole
+
+
+def _fp_generate(bf16, rec: dict) -> None:
+    """Phase 29 (c), and (a)'s device time of one bf16 decode step at pos 1536."""
+    import torch
+
+    from video_tokenizer_tpu_torch.generation import generate, self_draft, speculative_generate
+    from video_tokenizer_tpu_torch.models.larp_ar import quantize_model
+    from video_tokenizer_tpu_torch.ops.attention import flash_attn_fwd
+    from video_tokenizer_tpu_torch.ops.cache_update import write_rows_per_row
+    from video_tokenizer_tpu_torch.ops.decode_attention import chunk_attention, decode_attention
+    from video_tokenizer_tpu_torch.ops.quant_matmul import w8_matmul
+
+    B = 8
+    prompt = _fp_prompt(B, SEED + 93).cuda()
+    kernels = (flash_attn_fwd, decode_attention, chunk_attention, w8_matmul, write_rows_per_row)
+
+    def reset():
+        for k in kernels:
+            k.launches = 0
+        decode_attention.launches_sm90 = decode_attention.launches_fused = 0
+        chunk_attention.launches_sm90 = chunk_attention.launches_fused = 0
+        flash_attn_fwd.launches_sm90 = 0
+
+    with torch.inference_mode():  # one bf16 step, batch 8 (no CFG), at pos 1536 of 2176 rows
+        cache = bf16.init_cache(B, 1025 + 1024, torch.bfloat16)
+        pos = torch.full((1,), 1536, dtype=torch.int32, device="cuda")
+        tok = prompt[:, :1]
+        rec["device_step_ms_pos_1536"] = graph_ms(lambda: bf16.decode_step(tok, pos, cache),
+                                                  launches=1)
+        del cache
+    log(f"[fp] one bf16 decode step of the frame-prediction prior, batch 8, pos 1536 of a 2176-row "
+        f"cache: {rec['device_step_ms_pos_1536']:.3f} ms of device time (CUDA-graph replay)")
+
+    int8 = quantize_model(bf16)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 94)
+    new = 256
+    reset()
+    t0 = time.perf_counter()
+    seq = generate(int8, prompt, new, gen, top_k=100, cache_dtype=torch.int8)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = {k.__name__: k.launches for k in kernels}
+    want = {"flash_attn_fwd": 30, "decode_attention": 30 * (new - 1), "chunk_attention": 0,
+            "w8_matmul": 151 * new, "write_rows_per_row": 0}
+    log(f"[fp generate int8_kv8] batch {B}, a 1025-token prompt, top-k 100, {new} tokens "
+        f"(positions 1025..{1024 + new}): {wall:.3f} s = {B * new / wall:.1f} tokens/s (host "
+        f"wall, the prefill included); launches {n} (expect {want}), decode attentions on "
+        f"decode_attn_sm90_kernel {decode_attention.launches_sm90}, with the row write "
+        f"{decode_attention.launches_fused}, flash on wgmma {flash_attn_fwd.launches_sm90}")
+    require(tuple(seq.shape) == (B, new) and int(seq.min()) >= 0 and int(seq.max()) < 8192,
+            f"fp generate int8_kv8: codes {tuple(seq.shape)}")
+    require(n == want and decode_attention.launches_sm90 == decode_attention.launches_fused
+            == want["decode_attention"] and flash_attn_fwd.launches_sm90 == 30,
+            f"fp generate int8_kv8: launches {n}")
+    rec["generate_int8_kv8"] = {"tokens": new, "tokens_per_s": B * new / wall}
+    del int8
+
+    gamma, new = 4, 64
+    draft = self_draft(bf16, 8)
+    reset()
+    t0 = time.perf_counter()
+    seq, stats = speculative_generate(bf16, draft, prompt, new, gen, gamma=gamma, top_k=100,
+                                      return_stats=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    iters, acc = int(stats["iterations"]), float(stats["acceptance_rate"])
+    n = {k.__name__: k.launches for k in kernels}
+    want = {"flash_attn_fwd": 30 + 8, "decode_attention": 0,
+            "chunk_attention": (gamma * 8 + 30) * iters, "w8_matmul": 0, "write_rows_per_row": 0}
+    log(f"[fp speculative] batch {B}, the prior's first 8 layers drafting, gamma {gamma}, "
+        f"top-k 100, {new} tokens: {wall:.3f} s = {B * new / wall:.1f} tokens/s; acceptance "
+        f"{acc:.4f} in {iters} iterations; launches {n} (expect {want}), chunk attentions on "
+        f"chunk_attn_sm90_kernel {chunk_attention.launches_sm90}, with the rows' write "
+        f"{chunk_attention.launches_fused}")
+    require(tuple(seq.shape) == (B, new) and int(seq.min()) >= 0 and int(seq.max()) < 8192,
+            f"fp speculative: codes {tuple(seq.shape)}")
+    require(0.0 <= acc <= 1.0 and -(-(new - 1) // (gamma + 1)) <= iters <= new - 1,
+            f"fp speculative: acceptance {acc} in {iters} iterations")
+    require(n == want and chunk_attention.launches_sm90 == chunk_attention.launches_fused
+            == want["chunk_attention"], f"fp speculative: launches {n}")
+    rec["speculative_self_draft"] = {"tokens": new, "tokens_per_s": B * new / wall,
+                                     "acceptance": acc, "iterations": iters}
+
+
+def _fp_cli(tmp: Path, ar_pth: Path, rec: dict, records: dict):
+    """Phase 29 (a). Returns the CLI's resized generated and real clips
+    ([8, 3, 16, 64, 64] fp32 on the card)."""
+    import contextlib
+    import csv
+    import io
+
+    import numpy as np
+    import torch
+
+    from video_tokenizer_tpu_torch import sample
+    from video_tokenizer_tpu_torch.ops.attention import flash_attn_fwd
+    from video_tokenizer_tpu_torch.ops.cache_update import write_rows_per_row
+    from video_tokenizer_tpu_torch.ops.decode_attention import chunk_attention, decode_attention
+    from video_tokenizer_tpu_torch.ops.vq import vq_argmax
+
+    out_dir = tmp / "fp" / "samples"
+    clips, timed = [], []
+    real_resize, real_generate = sample.resize_frames, sample.generate
+
+    def keep(v, res):  # the CLI's resized clips: generated, then real
+        clips.append(real_resize(v, res))
+        return clips[-1]
+
+    def timed_generate(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        seq = real_generate(*a, **kw)
+        torch.cuda.synchronize()
+        timed.append(time.perf_counter() - t)
+        return seq
+
+    kernels = (flash_attn_fwd, vq_argmax, decode_attention, chunk_attention, write_rows_per_row)
+    for k in kernels:
+        k.launches = 0
+    flash_attn_fwd.launches_sm90 = vq_argmax.launches_tc = 0
+    decode_attention.launches_sm90 = decode_attention.launches_fused = 0
+    sample.resize_frames, sample.generate = keep, timed_generate
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            result = sample.main(["--ar_model", str(ar_pth), "--device", "cuda", "--dtype",
+                                  "bfloat16", "--frame_prediction", "--csv_file", "null128",
+                                  "--batch_size", "8", "--num_samples", "8", "--top_k", "100",
+                                  "--fp_resolution", str(FP_RES), "--seed", str(SEED),
+                                  "--output_dir", str(out_dir), "--save_videos"])
+    finally:
+        sample.resize_frames, sample.generate = real_resize, real_generate
+    cli_s = time.perf_counter() - t0
+    n = {k.__name__: k.launches for k in kernels}
+    sm90 = {"flash_attn_fwd": flash_attn_fwd.launches_sm90, "vq_argmax": vq_argmax.launches_tc,
+            "decode_attention": decode_attention.launches_sm90,
+            "decode_attention_fused": decode_attention.launches_fused}
+    want = {"flash_attn_fwd": 12 + 30 + 12, "vq_argmax": 1, "decode_attention": 30 * 1023,
+            "chunk_attention": 0, "write_rows_per_row": 0}
+    with open(out_dir.parent / "fvd_report.csv") as f:
+        rows = list(csv.reader(f))
+    files = sorted(p.name for p in out_dir.iterdir() if p.is_file())
+    videos = sorted((out_dir / "videos").iterdir())
+    shapes = set()
+    for p in videos:
+        if p.suffix == ".npy":
+            v = np.load(p)
+        else:  # cv2 imports here: read the mp4 back with it
+            import cv2
+
+            cap, frames = cv2.VideoCapture(str(p)), []
+            ok, frame = cap.read()
+            while ok:
+                frames.append(frame)
+                ok, frame = cap.read()
+            cap.release()
+            v = np.stack(frames).transpose(3, 0, 1, 2) / 255.0
+        shapes.add((tuple(v.shape), bool(v.min() >= 0.0 and v.max() <= 1.0)))
+    tok_s = 8 * 1024 / timed[0] if len(timed) == 1 else float("nan")
+    step_ms = rec["device_step_ms_pos_1536"]
+    wall_step_ms = timed[0] * 1e3 / 1024 if timed else float("nan")
+    log(f"[fp cli] sample.py --frame_prediction --csv_file null128, bf16, batch 8, top-k 100, "
+        f"one batch: {cli_s:.1f} s with the models' builds; {buf.getvalue().strip()}")
+    log(f"[fp cli] files {files}; videos {[p.name for p in videos]} {sorted(shapes)}; report "
+        f"{rows}; launches {n} (expect {want}), on the tensor-core kernels {sm90}")
+    log(f"[fp cli] the generate loop: {timed[0] if timed else float('nan'):.3f} s = "
+        f"{tok_s:.1f} tokens/s, {wall_step_ms:.3f} ms per step of host wall against "
+        f"{step_ms:.3f} ms of device time at pos 1536: idle {1 - step_ms / wall_step_ms:.1%}; the "
+        f"class-conditional bf16 step (phase 9, batch 16 with CFG, pos 512) "
+        f"{records.get('sampling_device_step_ms', {}).get('bf16', float('nan')):.3f} ms")
+    require({"gen_stats_0.pkl", "real_stats_0.pkl", "done_0.flag", "merged.flag"} <= set(files),
+            f"fp cli files {files}")
+    require(len(rows) == 2 and rows[1][3] == "1.0" and rows[1][7] == "8" and rows[1][8] == ""
+            and math.isfinite(float(rows[1][-1])) and result["fvd"] is not None,
+            f"fp cli report {rows}")
+    require(result["frame_prediction"] and result["video_shape"] == [3, 16, FP_RES, FP_RES]
+            and len(videos) == 8 and all(p.name.startswith("fp_") for p in videos)
+            and shapes == {((3, 16, FP_RES, FP_RES), True)}, f"fp cli videos {shapes}")
+    require(n == want and sm90 == {"flash_attn_fwd": 54, "vq_argmax": 1,
+                                   "decode_attention": 30690, "decode_attention_fused": 30690},
+            f"fp cli launches {n}, tensor-core {sm90}")
+    require(len(clips) == 2 and all(tuple(c.shape) == (8, 3, 16, FP_RES, FP_RES) for c in clips),
+            f"fp cli clips {[tuple(c.shape) for c in clips]}")
+    # the frame-prediction batch is a main path of the decode kernel too
+    records["decode_attention"]["launches"] += sm90["decode_attention"]
+    records["decode_attention"]["fp_cli_launches"] = sm90["decode_attention"]
+    rec["cli"] = {"seconds": cli_s, "generate_s": timed[0], "tokens_per_s": tok_s,
+                  "cli_tokens_per_s": result["tokens_per_s"], "fvd": result["fvd"],
+                  "video_format": result["video_format"], "launches": n,
+                  "host_ms_per_step": wall_step_ms,
+                  "idle": 1 - step_ms / wall_step_ms}
+    return clips
+
+
+def _fp_metrics(tmp: Path, clips, rec: dict) -> None:
+    """Phase 29 (d)."""
+    import einops
+    import torch
+
+    from video_tokenizer_tpu_torch.metrics import FIDCalculator, JEDiCalculator
+    from video_tokenizer_tpu_torch.metrics import inception as tinc
+    from video_tokenizer_tpu_torch.metrics.jedi import make_vjepa_extractor
+    from video_tokenizer_tpu_torch.metrics.milo import MILO, MILOCalculator
+    from video_tokenizer_tpu_torch.ops.attention import flash_attn_fwd
+    from video_tokenizer_tpu_torch.utils.common import no_tf32
+
+    gen, real = clips
+    out: dict = {}
+    # InceptionV3, fp32: card against CPU block by block on the CPU's inputs
+    t0 = time.perf_counter()
+    cards, cpus = (tinc.InceptionFeatureExtractor(device=d) for d in ("cuda", "cpu"))
+    frames = gen[:1, :, :2].transpose(1, 2).flatten(0, 1).cpu()  # 2 frames
+    x = tinc.resize_299(frames) * 2.0 - 1.0
+    worst = 0.0
+    with torch.no_grad(), no_tf32():
+        for name in ("Conv2d_1a_3x3", "Conv2d_2a_3x3", "Conv2d_2b_3x3", "Conv2d_3b_1x1",
+                     "Conv2d_4a_3x3", *(b[0] for b in tinc.BLOCKS)):
+            if name in STEM_POOLED:
+                x = tinc.max_pool_valid(x)
+            want = getattr(cpus.model, name)(x)
+            got = getattr(cards.model, name)(x.cuda()).cpu()
+            err = ((got - want).abs().max() / want.abs().max()).item()
+            worst = max(worst, err)
+            require(err <= 1e-4, f"inception {name}: card vs CPU {err:.2e} of its scale")
+            x = want
+        whole = ((cards.features(frames).cpu() - cpus.features(frames)).abs().max()
+                 / cpus.features(frames).abs().max()).item()
+    require(whole <= 1e-4, f"inception whole: card vs CPU {whole:.2e}")
+    flat = einops.rearrange(gen, "b c t h w -> (b t) c h w")
+    cards.features(flat)  # warm-up
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        feats = cards.features(flat)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    fid_calc = FIDCalculator(device="cuda")
+    fid = fid_calc.calculate_fid(fid_calc.get_feature_stats_for_batch(gen),
+                                 fid_calc.get_feature_stats_for_batch(real))
+    ips = INCEPTION_FRAMES / statistics.median(times)
+    log(f"[fp inception] InceptionV3 (pytorch-fid variant, seeded), fp32, TF32 off: card vs CPU "
+        f"on 2 frames, each stem conv and Mixed block on the CPU's input <= {worst:.2e} of its "
+        f"output's scale, whole {whole:.2e} (tol 1e-4); batch {flat.shape[0]} of 64 x 64 frames "
+        f"resized to 299: {', '.join(f'{t * 1e3:.1f}' for t in times)} ms = {ips:.1f} images/s; "
+        f"FID over {INCEPTION_FRAMES} + {INCEPTION_FRAMES} frames {fid:.4f} ({time.perf_counter() - t0:.1f} s)")
+    require(tuple(feats.shape) == (INCEPTION_FRAMES, 2048) and math.isfinite(fid) and fid >= 0,
+            f"inception: features {tuple(feats.shape)}, FID {fid}")
+    out["inception"] = {"block_rel": worst, "whole_rel": whole, "images_per_s": ips, "fid": fid}
+    del cards, cpus, fid_calc
+    torch.cuda.empty_cache()
+
+    # JEDi: the full-width teacher (fp32: the FMA kernel at D = 80), then the
+    # card against the CPU at phase 26's cut
+    t0 = time.perf_counter()
+    extract, _ = make_vjepa_extractor(device="cuda")
+    build_s = time.perf_counter() - t0
+    calc = JEDiCalculator(extract)
+    before = flash_attn_fwd.launches_d80
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    calc.update(gen_videos=gen, real_videos=real)
+    torch.cuda.synchronize()
+    jedi_s = time.perf_counter() - t1
+    d80 = flash_attn_fwd.launches_d80 - before
+    jedi = calc.compute()
+    del extract, calc
+    torch.cuda.empty_cache()
+    cut = dict(depth=4, img_size=128, num_frames=8, out_layers=(3,))
+    on_card, on_cpu = (make_vjepa_extractor(device=d, **cut)[0] for d in ("cuda", "cpu"))
+    part = gen[:2, :, :8]
+    want = on_cpu(part.cpu())
+    jedi_rel = float(abs(on_card(part) - want).max() / abs(want).max())
+    log(f"[fp jedi] V-JEPA2 teacher 1280 x 32, 16 heads of 80, fp32, seeded ({build_s:.1f} s to "
+        f"build): 8 + 8 clips of 16 x 64 x 64 resized to 256 in {jedi_s:.2f} s, {d80} flash "
+        f"forwards at D = 80 (expect 64), JEDi {jedi:.6f}; the cut teacher (4 of 32 layers, "
+        f"8 x 128 x 128) card vs CPU {jedi_rel:.2e} of the features' scale (tol 1e-4)")
+    require(d80 == 64 and math.isfinite(jedi), f"jedi: {d80} D = 80 forwards, JEDi {jedi}")
+    require(jedi_rel <= 1e-4, f"jedi: card vs CPU {jedi_rel}")
+    out["jedi"] = {"value": jedi, "seconds": jedi_s, "d80_launches": d80, "cut_rel": jedi_rel}
+
+    # MILO on the frame pairs (the reference's MILO.pth keys, seeded), in [-1, 1]
+    torch.manual_seed(SEED + 95)
+    torch.save(MILO().state_dict(), tmp / "MILO.pth")
+    y, x = (einops.rearrange(c, "b c t h w -> (b t) c h w") * 2.0 - 1.0 for c in (gen, real))
+    on_card, on_cpu = (MILOCalculator(str(tmp / "MILO.pth"), device=d) for d in ("cuda", "cpu"))
+    on_card(y, x)  # warm-up
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    scores = on_card(y, x)
+    milo_s = time.perf_counter() - t1
+    want = on_cpu(y.cpu(), x.cpu())
+    milo_rel = float(abs(scores - want).max() / abs(want).max())
+    log(f"[fp milo] MILO (seeded, the reference's keys) on {len(scores)} frame pairs of 64 x 64: "
+        f"{milo_s * 1e3:.1f} ms on the card, mean score {scores.mean():.6f}; card vs CPU "
+        f"{milo_rel:.2e} of the scores' scale (tol 1e-4)")
+    require(scores.shape == (INCEPTION_FRAMES,) and milo_rel <= 1e-4, f"milo: card vs CPU {milo_rel}")
+    out["milo"] = {"mean": float(scores.mean()), "ms": milo_s * 1e3, "rel": milo_rel}
+    rec["metrics"] = out
+
+
 def main() -> int:
     if not (ROOT / "video_tokenizer_tpu_torch").is_dir():
         print("chip_smoke.py: the video_tokenizer_tpu_torch package is not beside this script",
@@ -7384,6 +8049,7 @@ def main() -> int:
         run(phase_vfm, Path(tmp), records)
         run(phase_vfm_auto, Path(tmp), records)
         run(phase_cnnvit, Path(tmp), records)
+        run(phase_frame_prediction, Path(tmp), records)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 
     sources = {
@@ -7458,6 +8124,7 @@ def main() -> int:
     print(json.dumps({"cosmos": records["cosmos"]}))
     print(json.dumps({"vfm": records["vfm"]}))
     print(json.dumps({"vfm_auto": records["vfm_auto"], "cnnvit": records["cnnvit"]}))
+    print(json.dumps({"frame_prediction": records["fp"]}))
     print(json.dumps({"sampling_tokens_per_s": records["sampling"],
                       "sampling_device_step_ms": records["sampling_device_step_ms"],
                       "sampling_kernels_per_step": records["sampling_kernels_per_step"],

@@ -147,6 +147,7 @@ tok_args = dict(bottleneck=dict(FLAGSHIP_VQ, args=dict(FLAGSHIP_VQ["args"], regu
 tok = flagship_tokenizer(torch.float32, gen, **tok_args)
 torch.save({{"model": {{"name": "larp_tokenizer", "args": tok_args, "sd": tok.state_dict()}}}},
            "{tmp_path}/tok.pth")
+sys.modules["cv2"] = None  # the .npy branch (cv2 writes .mp4)
 sys.argv = ["sample", "--device", "cpu", "--ar_model", "{tmp_path}/ar.pth",
             "--tokenizer", "{tmp_path}/tok.pth", "--dtype", "int8", "--kv_dtype", "int8",
             "--cfg_scale", "1.5", "--top_k", "10", "--batch_size", "2", "--num_samples", "3",
@@ -187,6 +188,7 @@ tok_args = dict(bottleneck=dict(FLAGSHIP_VQ, args=dict(FLAGSHIP_VQ["args"], regu
 tok = flagship_tokenizer(torch.float32, gen, **tok_args)
 torch.save({{"model": {{"name": "larp_tokenizer", "args": tok_args, "sd": tok.state_dict()}}}},
            "{tmp_path}/tok.pth")
+sys.modules["cv2"] = None  # the .npy branch (cv2 writes .mp4)
 sys.argv = ["sample", "--device", "cpu", "--ar_model", "{tmp_path}/ar.pth",
             "--tokenizer", "{tmp_path}/tok.pth", "--dtype", "float32", "--kv_dtype", "int8",
             "--cfg_scale", "1.5", "--top_k", "10", "--batch_size", "2", "--num_samples", "2",

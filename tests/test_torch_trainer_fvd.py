@@ -19,6 +19,7 @@ on both sides by `_torch_port.ProjectionFeatures` (the I3D itself is held by
 import csv
 import re
 import shutil
+import sys
 import types
 
 import jax
@@ -206,6 +207,8 @@ def test_sample_two_jobs_merge_like_jax(sample_checkpoints, tmp_path, monkeypatc
     from video_tokenizer_tpu_torch import sample
 
     _stand_in(monkeypatch, frames=8)
+    # the .npy branch: with cv2 the CLI writes .mp4 (tests/test_torch_sample_fp.py)
+    monkeypatch.setitem(sys.modules, "cv2", None)
     ar_pth, tok_pth = sample_checkpoints
     out = tmp_path / "run" / "samples"
     base = ["--ar_model", str(ar_pth), "--tokenizer", str(tok_pth), "--device", "cpu",

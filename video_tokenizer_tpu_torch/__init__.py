@@ -92,21 +92,26 @@ def flagship_ar(dtype: torch.dtype = torch.bfloat16,
     """The 632M `llama-abs-LP` prior at the geometry of the JAX package's AR
     sampling benchmark (`bench.py:394-398`): 30 layers, dim 1280, 20 heads of
     64 (MHA), SwiGLU hidden 3584, vocab 8192, 101 classes, max_seq_len 1024,
-    dropouts 0; 631,975,680 parameters. Built on the CPU from `generator`,
-    cast to `dtype` (bf16 serving casts every float tensor, as the JAX
-    `sample.py` does), then with `quantized=True` every projection is
-    converted to int8 weights + fp32 per-channel scales (`--dtype int8`),
-    and moved to `device`. Weights are random (the output head starts at
-    zero); load trained ones with `LARP_AR.from_checkpoint`."""
+    dropouts 0; 631,975,680 parameters. Built on `device` (the CPU when
+    None) from the draws of `generator`, which must live there: one seed
+    gives other weights on the card than on the host (the card's generator
+    draws its own sequence, in a fraction of the host's time). Cast to
+    `dtype` (bf16 serving casts every float tensor, as the JAX `sample.py`
+    does), then with `quantized=True` every projection is converted to int8
+    weights + fp32 per-channel scales (`--dtype int8`). Weights are random
+    (the output head starts at zero); load trained ones with
+    `LARP_AR.from_checkpoint`."""
     args = dict(n_layer=30, n_head=20, dim=1280, vocab_size=8192, num_classes=101,
                 max_seq_len=1024, token_dropout_p=0.0, resid_dropout_p=0.0,
                 ffn_dropout_p=0.0)
     args.update(overrides)
-    model = LARP_AR(ModelArgs(**args), generator=generator).to(dtype)
+    device = torch.device("cpu" if device is None else device)
+    if generator is not None and generator.device.type != device.type:
+        raise ValueError(f"flagship_ar: a generator on {generator.device} cannot draw a model "
+                         f"built on {device}")
+    model = LARP_AR(ModelArgs(**args), generator=generator, device=device).to(dtype)
     if quantized:
         model = quantize_model(model)
-    if device is not None:
-        model = model.to(device)
     return model.eval()
 
 

@@ -12,8 +12,11 @@ numpy; real clips with LPIPS and rFVD are `eval/eval_larp_tokenizer.py`'s.
       --dtype bf16 --device cuda [--opts model.args.encoder_depth 2 ...]
   python -m video_tokenizer_tpu_torch.reconstruct --cfg cfgs/larp_tokenizer_large.yaml --dtype bf16
 
-Without `--checkpoint` the weights are a seeded random init. The first batch
-warms up and is left out of clips/s when there is more than one.
+Without `--checkpoint` the weights are a seeded random init, drawn on the
+card by a card's generator when the model runs there (a host generator
+draws a billion values one by one), else on the host: one `--seed` gives
+other weights with `--device cuda` than with `--device cpu`. The first
+batch warms up and is left out of clips/s when there is more than one.
 """
 from __future__ import annotations
 
@@ -50,6 +53,9 @@ def make_clips(rng: np.random.Generator, batch: int, frames: int, size: int) -> 
 
 def build_model(cfg_path: str, checkpoint: Optional[str], dtype: torch.dtype, device,
                 seed: int, input_size: int, frame_num: int, opts: Sequence[str] = ()):
+    """The tokenizer of `checkpoint`, else of `cfg_path` with a random init
+    from `seed`, drawn where the model runs: on a card by the card's
+    generator, so the same seed gives other weights there than on the CPU."""
     if checkpoint:
         from .utils.model_io import load_tokenizer_checkpoint
 
@@ -57,10 +63,14 @@ def build_model(cfg_path: str, checkpoint: Optional[str], dtype: torch.dtype, de
     from .config import load_config
 
     cfg = load_config(cfg_path, {"input_size": input_size, "frame_num": frame_num}, list(opts))
-    model = models.make(
-        cfg.model.to_dict(),
-        args={"dtype": dtype, "generator": torch.Generator().manual_seed(seed)},
-    )
+    device = torch.device(device)
+    # on a card the parameters are made, and drawn, there; elsewhere on the host
+    where = device if device.type == "cuda" else torch.device("cpu")
+    with where:
+        model = models.make(
+            cfg.model.to_dict(),
+            args={"dtype": dtype, "generator": torch.Generator(where).manual_seed(seed)},
+        )
     return model.to(device).eval()
 
 
@@ -71,7 +81,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                     help="upstream-format .pth or a trainer's checkpoint directory")
     ap.add_argument("--batch_size", type=int, default=8)
     ap.add_argument("--num_batches", type=int, default=4)
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="clips, and the random init (its weights differ by --device)")
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="bf16")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--input_size", type=int, default=128)

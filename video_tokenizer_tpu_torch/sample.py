@@ -40,9 +40,25 @@ speculatively (`generation.speculative_generate`): the same distribution,
 directories (`epoch-final` of `train.py`). Without them the weights are a seeded random init of the 632M llama-abs-LP
 prior (`flagship_ar`, whose output head starts at zero: every code is then
 equally likely) and of the flagship tokenizer. Without `--csv_file` class
-labels are drawn from `--seed` over the prior's classes. Not here yet
-(ROADMAP.md, 'Still to port', item 2): mp4 writing, frame prediction from
-real clips and meshes.
+labels are drawn from `--seed` over the prior's classes.
+
+`--frame_prediction` (`--fp`) samples a frame-prediction prior (the JAX
+CLI's `predict_frames`); it needs `--csv_file`, whose clips make the prompt:
+per batch the clips' first `--num_cond_frames` frames, the last repeated up
+to `--frame_num`, are encoded deterministically (argmax VQ) into the
+tokenizer's codes, a separator token (`codebook_size`) is appended, and the
+prior generates the whole clip's codes from that prompt (CFG off: the
+printed row reports `cfg_scale` 1.0), plainly or speculatively; the decoded
+clips and the real ones are resized to `--fp_resolution` with JAX's
+antialiased bilinear resize (`utils/resize.py`) and scored by I3D as above;
+videos are saved as `fp_<index>`. The flag must match the checkpoint's
+`frame_prediction`.
+
+Videos go to `<output_dir>/videos` from a pool of 4 threads, joined before
+the shards are saved: `.mp4` (mp4v, 25 fps, the JAX CLI's writer) where
+`cv2` imports, else `.npy` arrays [3, T, H, W] in [0, 1]; the run says which
+it wrote, and a write that fails raises. Meshes (`--mesh_model` /
+`--mesh_data` above 1) are refused (ROADMAP.md, 'Still to port', item 8).
 """
 from __future__ import annotations
 
@@ -50,7 +66,9 @@ import argparse
 import csv
 import json
 import math
+import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional, Sequence
 
@@ -72,7 +90,7 @@ def build_models(args, device: torch.device):
     if args.ar_model:
         ar = load_ar_checkpoint(args.ar_model, dtype=dtype, device=device, quantized=quantized)
     else:
-        ar = flagship_ar(dtype, gen, device, quantized=quantized)
+        ar = flagship_ar(dtype, gen, quantized=quantized).to(device)  # drawn on the host
     if args.tokenizer:
         tok = load_tokenizer_checkpoint(args.tokenizer, dtype=dtype, device=device)
     else:
@@ -108,25 +126,130 @@ def build_draft(args, ar, device: torch.device):
     return draft
 
 
+def write_video_mp4(video_chw: np.ndarray, path: str, fps: int = 25) -> None:
+    """video [C, T, H, W] float in [0, 1] -> an mp4v file (RGB -> BGR, x 255
+    clipped to uint8), as the JAX CLI writes it; raises if cv2 cannot write
+    it."""
+    import cv2
+
+    c, t, h, w = video_chw.shape
+    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
+    if not vw.isOpened():
+        raise RuntimeError(f"cv2 cannot open {path} for mp4v at {w} x {h}")
+    try:
+        for i in range(t):
+            frame = np.clip(video_chw[:, i].transpose(1, 2, 0) * 255, 0, 255).astype(np.uint8)
+            vw.write(cv2.cvtColor(frame, cv2.COLOR_RGB2BGR))
+    finally:
+        vw.release()
+    if not os.path.getsize(path):
+        raise RuntimeError(f"cv2 wrote nothing to {path}")
+
+
+class VideoSaver:
+    """Saves videos from a pool of 4 threads: `.mp4` where cv2 imports, else
+    `.npy`. `join()` waits for every write, raising the first failure, and
+    says which format was written; the owner shuts `pool` down."""
+
+    def __init__(self, video_dir: Path):
+        try:
+            import cv2  # noqa: F401
+            self.suffix = ".mp4"
+        except ImportError:
+            self.suffix = ".npy"
+        self.video_dir = video_dir
+        self.pool = ThreadPoolExecutor(max_workers=4)
+        self.futures = []
+
+    def submit(self, video: np.ndarray, stem: str) -> None:
+        path = str(self.video_dir / f"{stem}{self.suffix}")
+        if self.suffix == ".mp4":
+            self.futures.append(self.pool.submit(write_video_mp4, video, path))
+        else:
+            self.futures.append(self.pool.submit(np.save, path, video))
+
+    def join(self) -> None:
+        for f in self.futures:
+            f.result()
+        if self.futures:
+            why = "mp4v, 25 fps" if self.suffix == ".mp4" else "cv2 does not import: no mp4"
+            print(f"saved {len(self.futures)} videos as {self.suffix} ({why}) in {self.video_dir}")
+
+
+def check_mode_args(args) -> None:
+    """Refuses the sampling flags this CLI cannot serve, before any model is
+    built."""
+    if args.mesh_model != 1 or args.mesh_data > 1:
+        raise SystemExit(f"--mesh_model {args.mesh_model} --mesh_data {args.mesh_data}: meshes "
+                         "are not ported (ROADMAP.md, 'Still to port', item 8); one device, "
+                         "--mesh_model 1")
+    if args.frame_prediction and not args.csv_file:
+        raise SystemExit("--frame_prediction needs --csv_file: the prompt is made from the "
+                         "first frames of real clips")
+
+
+def check_frame_prediction(args, ar) -> None:
+    """The flag must match the checkpoint (the JAX CLI's check and wording)."""
+    if args.frame_prediction != bool(ar.frame_prediction):
+        raise SystemExit(
+            f"--frame_prediction={args.frame_prediction} but the AR checkpoint was trained with "
+            f"frame_prediction={bool(ar.frame_prediction)} — a class-conditional model cannot "
+            "consume frame tokens (and vice versa); use the matching sampling mode or checkpoint "
+            "(a frame-prediction prior samples with --frame_prediction and --csv_file).")
+
+
+def _generate(args, ar, draft, cond: torch.Tensor, gen: torch.Generator, cfg_scale: float):
+    """cond -> (codes [B, max_seq_length], acceptance rate or None), plainly
+    or speculatively."""
+    cache_dtype = torch.int8 if args.kv_dtype == "int8" else None
+    if draft is None:
+        return generate(ar, cond, ar.max_seq_length, gen, cfg_scale=cfg_scale,
+                        cfg_interval=args.cfg_interval, temperature=args.temperature,
+                        top_k=args.top_k, top_p=args.top_p, cache_dtype=cache_dtype), None
+    seq, stats = speculative_generate(
+        ar, draft, cond, ar.max_seq_length, gen, gamma=args.gamma, cfg_scale=cfg_scale,
+        temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
+        cache_dtype=cache_dtype, draft_cache_dtype=cache_dtype, return_stats=True)
+    acceptance = float(stats["acceptance_rate"])
+    print(f"  speculative acceptance rate: {acceptance:.3f} "
+          f"({stats['iterations']} verify iterations)")
+    return seq, acceptance
+
+
+def resize_frames(videos: torch.Tensor, res: int) -> torch.Tensor:
+    """[B, C, T, H, W] -> [B, C, T, res, res] by JAX's antialiased bilinear
+    resize (`jax.image.resize(..., "bilinear")`); unchanged at res x res."""
+    from .utils.resize import resize
+
+    B, C, T, H, W = videos.shape
+    if (H, W) == (res, res):
+        return videos
+    return resize(videos, (B, C, T, res, res), "bilinear")
+
+
+def predict_batch(args, ar, tok, draft, reals: torch.Tensor, gen: torch.Generator):
+    """One frame-prediction batch: real clips [B, 3, T, H, W] fp32 in [0, 1]
+    on the device -> (predicted clips [B, 3, T, H, W] fp32 in [0, 1] on the
+    device, acceptance rate or None). The prompt is the codes of the first
+    `--num_cond_frames` frames (the last repeated to `--frame_num`) and a
+    separator token."""
+    from .utils.common import repeat_to_m_frames
+
+    with torch.inference_mode():
+        x_cond = repeat_to_m_frames(reals[:, :, :args.num_cond_frames], m=args.frame_num)
+        codes = tok.encode(x_cond)["bottleneck_rep"].to(torch.int32)
+        sep = torch.full((codes.shape[0], 1), tok.codebook_size, dtype=codes.dtype,
+                         device=codes.device)
+        seq, acceptance = _generate(args, ar, draft, torch.cat([codes, sep], dim=1), gen, 1.0)
+        videos = tok.decode_from_bottleneck(seq).float().clamp(0.0, 1.0)
+    return videos, acceptance
+
+
 def sample_batch(args, ar, tok, draft, labels: torch.Tensor, gen: torch.Generator):
     """One batch: labels -> (videos [B, 3, T, H, W] fp32 in [0, 1] on the
     device, teacher-forced NLL, acceptance rate or None)."""
-    cache_dtype = torch.int8 if args.kv_dtype == "int8" else None
-    acceptance = None
     with torch.inference_mode():
-        if draft is not None:
-            seq, stats = speculative_generate(
-                ar, draft, labels, ar.max_seq_length, gen, gamma=args.gamma,
-                cfg_scale=args.cfg_scale, temperature=args.temperature, top_k=args.top_k,
-                top_p=args.top_p, cache_dtype=cache_dtype, draft_cache_dtype=cache_dtype,
-                return_stats=True)
-            acceptance = float(stats["acceptance_rate"])
-            print(f"  speculative acceptance rate: {acceptance:.3f} "
-                  f"({stats['iterations']} verify iterations)")
-        else:
-            seq = generate(ar, labels, ar.max_seq_length, gen, cfg_scale=args.cfg_scale,
-                           cfg_interval=args.cfg_interval, temperature=args.temperature,
-                           top_k=args.top_k, top_p=args.top_p, cache_dtype=cache_dtype)
+        seq, acceptance = _generate(args, ar, draft, labels, gen, args.cfg_scale)
         _, nll = ar(seq[:, :-1], labels, targets=seq)  # teacher-forced NLL
         videos = tok.decode_from_bottleneck(seq).float().clamp(0.0, 1.0)
     return videos, nll.item(), acceptance
@@ -232,8 +355,17 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--replace", action="store_true",
                     help="clear a previous run's merged.flag, done flags and stats shards "
                          "before sampling")
+    ap.add_argument("--frame_prediction", "--fp", action="store_true",
+                    help="sample a frame-prediction prior, prompted by the first frames of "
+                         "--csv_file's clips")
+    ap.add_argument("--num_cond_frames", type=int, default=5)
+    ap.add_argument("--fp_resolution", type=int, default=64,
+                    help="frame prediction: generated and real clips are scored at this size")
+    ap.add_argument("--mesh_model", type=int, default=1, help="refused above 1 (not ported)")
+    ap.add_argument("--mesh_data", type=int, default=0, help="refused above 1 (not ported)")
     args = ap.parse_args(argv)
 
+    check_mode_args(args)
     speculative = check_draft_args(args)
     if args.num_samples_total is not None:
         if args.num_samples <= 0:
@@ -250,8 +382,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda, but torch sees no CUDA device")
     ar, tok = build_models(args, device)
-    if ar.frame_prediction:
-        raise SystemExit("frame-prediction priors need real clips: not in this CLI yet")
+    check_frame_prediction(args, ar)
+    if args.frame_prediction:
+        args.cfg_scale = 1.0  # the prompt is frames: no CFG, and the report says so
     draft = build_draft(args, ar, device) if speculative else None
     video_dir = out_dir / "videos"
     video_dir.mkdir(parents=True, exist_ok=True)
@@ -278,52 +411,73 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         labels_all = torch.randint(0, ar.num_classes, (args.num_samples,),
                                    generator=torch.Generator().manual_seed(args.seed))
 
+    saver = VideoSaver(video_dir)
     nlls, seconds, acceptance, n_done, sizes = [], [], [], 0, []
-    for start in range(0, len(indices), args.batch_size):
-        chunk = indices[start:start + args.batch_size]
-        t0 = time.perf_counter()
-        if args.csv_file:
-            # the ragged tail runs at its own size: no requested sample is dropped
-            items = [dataset[int(j)] for j in chunk]
-            labels = torch.tensor([it["label"] for it in items], device=device)
-        else:
-            labels = labels_all[start:start + args.batch_size].to(device)
-        videos, nll, acc = sample_batch(args, ar, tok, draft, labels, gen)
-        if args.csv_file:
-            gen_stats = fvd_calc.get_feature_stats_for_batch(videos, gen_stats)
-            reals = video_to_float(np.stack([it["gt"] for it in items]))
-            real_stats = fvd_calc.get_feature_stats_for_batch(reals, real_stats)
-        videos = videos.cpu().numpy()  # waits for the device
-        seconds.append(time.perf_counter() - t0)
-        sizes.append(len(labels))
-        nlls.append(nll)
-        if acc is not None:
-            acceptance.append(acc)
-        if save_videos:
-            for b, (j, label) in enumerate(zip(chunk.tolist(), labels.tolist())):
-                np.save(video_dir / f"sample_{j:06d}_cls{label}.npy", videos[b])
-        n_done += len(labels)
-        print(f"[{n_done}/{len(indices)}] Samples per second: "
-              f"{len(labels) / seconds[-1]:.3f} (NLL {nlls[-1]:.4f})", flush=True)
+    try:
+        for start in range(0, len(indices), args.batch_size):
+            chunk = indices[start:start + args.batch_size]
+            t0 = time.perf_counter()
+            nll = None
+            if args.csv_file:
+                # the ragged tail runs at its own size: no requested sample is dropped
+                items = [dataset[int(j)] for j in chunk]
+                reals = video_to_float(np.stack([it["gt"] for it in items]))
+            if args.frame_prediction:
+                reals = torch.from_numpy(reals).to(device)
+                videos, acc = predict_batch(args, ar, tok, draft, reals, gen)
+                videos = resize_frames(videos, args.fp_resolution)
+                reals = resize_frames(reals, args.fp_resolution)
+                stems = [f"fp_{j:06d}" for j in chunk.tolist()]
+            else:
+                if args.csv_file:
+                    labels = torch.tensor([it["label"] for it in items], device=device)
+                else:
+                    labels = labels_all[start:start + args.batch_size].to(device)
+                videos, nll, acc = sample_batch(args, ar, tok, draft, labels, gen)
+                stems = [f"sample_{j:06d}_cls{label}"
+                         for j, label in zip(chunk.tolist(), labels.tolist())]
+            if args.csv_file:
+                gen_stats = fvd_calc.get_feature_stats_for_batch(videos, gen_stats)
+                real_stats = fvd_calc.get_feature_stats_for_batch(reals, real_stats)
+            videos = videos.cpu().numpy()  # waits for the device
+            seconds.append(time.perf_counter() - t0)
+            sizes.append(len(chunk))
+            if nll is not None:
+                nlls.append(nll)
+            if acc is not None:
+                acceptance.append(acc)
+            if save_videos:
+                for b, stem in enumerate(stems):
+                    saver.submit(videos[b], stem)
+            n_done += len(chunk)
+            print(f"[{n_done}/{len(indices)}] Samples per second: "
+                  f"{len(chunk) / seconds[-1]:.3f}"
+                  + (f" (NLL {nll:.4f})" if nll is not None else ""), flush=True)
+        saver.join()  # every video written before the shards are saved
+    finally:
+        saver.pool.shutdown()
 
     # the first batch builds the kernels and warms up: leave it out when there are more
     timed = seconds[1:] if len(seconds) > 1 else seconds
     n_timed = sum(sizes[len(seconds) - len(timed):])
     result = {
         "samples": n_done,
-        "nll": float(np.mean(nlls)),
+        "nll": float(np.mean(nlls)) if nlls else None,
         "samples_per_s": n_timed / sum(timed),
         "tokens_per_s": n_timed * ar.max_seq_length / sum(timed),
         "video_shape": list(videos.shape[1:]),
+        "video_format": saver.suffix if save_videos else None,
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
         "dtype": args.dtype,
         "kv_dtype": args.kv_dtype,
+        "frame_prediction": args.frame_prediction,
     }
     if draft is not None:
         result["acceptance_rate"] = float(np.mean(acceptance))
-    if not math.isfinite(result["nll"]):
-        raise SystemExit(f"non-finite NLL: {result}")
-    print(f"NLL of sampled sequences: {result['nll']:.4f}")
+    if nlls:  # frame prediction scores no NLL, as the JAX CLI
+        if not math.isfinite(result["nll"]):
+            raise SystemExit(f"non-finite NLL: {result}")
+        print(f"NLL of sampled sequences: {result['nll']:.4f}")
     if args.csv_file:
         args.nll_sampled = result["nll"]
         tag = args.starting_index

@@ -48,6 +48,14 @@ across in `state_dict_from_jax` under the JAX module's names.
 `InceptionI3D` (conv kernels (kT, kH, kW, Cin, Cout) -> (Cout, Cin, kT, kH,
 kW); BatchNorm scale, bias and `batch_stats` as they are).
 
+`inception_state_dict_from_jax(variables)` does the same for FID's
+`InceptionV3` (conv kernels (kH, kW, Cin, Cout) -> (Cout, Cin, kH, kW);
+BatchNorm scale, bias and `batch_stats` as I3D's) and
+`milo_state_dict_from_jax(params)` for MILO (the Flax `conv{i}` of
+`mask_finder_1` / `scaler_network` -> the reference's `netBasic.{2i}` /
+`model.{2i}`); both raise unless the tree fills every tensor of the module
+once. JEDi's V-JEPA2 teacher comes across through `vfm_state_dict_from_jax`.
+
 `cosmos_state_dict_from_jax(params, model)` does the same for a Cosmos
 tokenizer (`cosmos`, `cosmos_fsq`), whose module names are the Flax names:
 conv kernels [kt, kh, kw, in, out] -> [out, in, kt, kh, kw], Dense [in, out]
@@ -369,6 +377,61 @@ def i3d_state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor
 
     walk("", variables["params"], variables.get("batch_stats", {}))
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
+def _state_dict_of(sd: Dict[str, np.ndarray], module_cls) -> Dict[str, torch.Tensor]:
+    """`sd` as tensors, if its keys and shapes are those of a `module_cls()`
+    state dict (built on the meta device); else ValueError."""
+    with torch.device("meta"):
+        want = {k: tuple(v.shape) for k, v in module_cls().state_dict().items()}
+    got = {k: tuple(v.shape) for k, v in sd.items()}
+    if got != want:
+        raise ValueError(f"Flax tree and {module_cls.__name__} differ in "
+                         f"{sorted(k for k in set(got) | set(want) if got.get(k) != want.get(k))}")
+    return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
+def inception_state_dict_from_jax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax `InceptionV3` variables {"params", "batch_stats"} -> the port's
+    `InceptionV3` state dict under the same module names: conv kernels (kH,
+    kW, Cin, Cout) -> `conv.weight` (Cout, Cin, kH, kW); BatchNorm `scale` /
+    `bias` -> `bn.weight` / `bn.bias`, `batch_stats` `mean` / `var` ->
+    `bn.running_mean` / `bn.running_var`."""
+    from ..metrics.inception import InceptionV3
+
+    sd: Dict[str, np.ndarray] = {}
+
+    def walk(prefix: str, params: Dict[str, Any], stats: Dict[str, Any]) -> None:
+        if "conv" in params:
+            sd[f"{prefix}conv.weight"] = _f32(params["conv"]["kernel"]).transpose(3, 2, 0, 1)
+            sd[f"{prefix}bn.weight"] = _f32(params["bn"]["scale"])
+            sd[f"{prefix}bn.bias"] = _f32(params["bn"]["bias"])
+            sd[f"{prefix}bn.running_mean"] = _f32(stats["bn"]["mean"])
+            sd[f"{prefix}bn.running_var"] = _f32(stats["bn"]["var"])
+            return
+        for name, sub in params.items():
+            walk(f"{prefix}{name}.", sub, stats.get(name, {}))
+
+    walk("", variables["params"], variables.get("batch_stats", {}))
+    return _state_dict_of(sd, InceptionV3)
+
+
+def milo_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax `MILO` params (`{"params": ...}` or the tree itself) -> the
+    reference's `MILO.pth` keys: `mask_finder_1.conv{i}` ->
+    `mask_finder_1.netBasic.{2i}`, `scaler_network.conv{i}` ->
+    `scaler_network.model.{2i}`; kernels HWIO -> OIHW, biases as they are."""
+    from ..metrics.milo import MILO
+
+    tree = params.get("params", params)
+    seq = {"mask_finder_1": "netBasic", "scaler_network": "model"}
+    sd: Dict[str, np.ndarray] = {}
+    for module, convs in tree.items():
+        for name, leaf in convs.items():
+            key = f"{module}.{seq.get(module, module)}.{2 * int(name[len('conv'):])}"
+            sd[f"{key}.weight"] = _f32(leaf["kernel"]).transpose(3, 2, 0, 1)
+            sd[f"{key}.bias"] = _f32(leaf["bias"])
+    return _state_dict_of(sd, MILO)
 
 
 def _ar_linear(sd: Dict[str, np.ndarray], prefix: str, tree: Dict[str, Any]) -> None:

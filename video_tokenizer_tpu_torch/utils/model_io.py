@@ -81,11 +81,12 @@ def load_ar_checkpoint(path: str, version: str = "sd", *,
     spec, sd = read_checkpoint(path, version)
     args = dict(spec.get("args") or {})
     args.pop("dtype", None)
+    # built on the meta device: every parameter and buffer comes from `sd`
     model = models.make(
         {"name": spec.get("name") or "larp_ar", "args": args},
-        args={"generator": generator or torch.Generator().manual_seed(0)},
+        args={"generator": generator or torch.Generator().manual_seed(0), "device": "meta"},
     )
-    model.load_state_dict(sd, strict=True)
+    model.load_state_dict(sd, strict=True, assign=True)
     model = model.to(dtype)
     if quantized:
         model = quantize_model(model)
