@@ -93,7 +93,8 @@ Phases, each of which raises on failure (exit code 1, no result line):
      earlier kernels at the tokenizer's, discriminator's and prior's shapes,
      the 3xTF32 kernels at the fp32 tokenizer's and discriminator's beside
      SDPA's fp32 backward (efficient backend); gradients
-     through `attention` under autograd; `attention_with_lse` refusing grad.
+     through `attention` under autograd; `attention_with_lse` under grad
+     giving a graph through both outputs (its backward: phase 30 (d)).
      The VQ kernel's stochastic mode (in phase 3): index for index against
      the plain Philox draw, and by frequency against softmax;
  11. tokenizer training in fp32 (TF32 off): one step of the full-width
@@ -284,7 +285,7 @@ Phases, each of which raises on failure (exit code 1, no result line):
      k-means draw, and bf16 training steps.
  27-28. the teacher-space autoencoders, the CNN-ViT family, `dino_disc`
      and the embedders (`phase_vfm_auto`, `phase_cnnvit`: their docstrings).
- 29. frame prediction and the last metrics (`phase_frame_prediction`, last):
+ 29. frame prediction and the last metrics (`phase_frame_prediction`):
      `sample.py --frame_prediction --csv_file null128` on a full-width
      frame-prediction prior (bf16, batch 8) with exact launch counts and a
      decode step's device time at pos 1536; the prior card against CPU on a
@@ -292,6 +293,18 @@ Phases, each of which raises on failure (exit code 1, no result line):
      int8 + int8 KV and speculative generation from one prompt;
      InceptionV3 / FID, JEDi (the V-JEPA2 teacher at D = 80) and MILO card
      against CPU on the CLI's clips.
+ 30. the multi-device slice on the one card (`phase_multi_device`, last):
+     remat against no remat on the 632M prior (fp32, batch 8, 3 steps from
+     one state: losses and gradients, peak memory, s/step, 60 forwards a
+     step), its batch-64 remat step, llama-abs-XXXL at batch 1 with remat;
+     the flagship tokenizer's bf16 remat step against no remat; the ring's
+     per-step bodies over 4 shards in one process against whole
+     FlashAttention (bf16 flagship shape, bf16 and fp32 prior causal) with
+     exact launch counts and the block kernels' times beside their bounds
+     and SDPA; `attention_with_lse`'s backward with both cotangents against
+     its plain version; both trainers with `param_placement: fsdp` on a
+     one-rank NCCL group against the replicated run. NCCL at more than one
+     rank needs more than one card and does not run here.
 Every kernel phase also times one PyTorch call that computes the same
 function (`library_ms`: SDPA and its autograd backward, a matmul + argmax,
 `index_put_`), which the port uses nowhere, and computes the kernel's bound
@@ -795,7 +808,7 @@ def phase_flash_bwd(records: dict) -> None:
     kernel forward's out and LSE (both sides read the same inputs), once
     against the plain backward of the plain forward's own out and LSE (so a
     wrong LSE from the forward kernel cannot pass). Plus the autograd path
-    and the refusal of attention_with_lse under grad."""
+    and attention_with_lse's graph under grad."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -1062,12 +1075,10 @@ def phase_flash_bwd(records: dict) -> None:
         f"dQ {launches[0]}, dK/dV {launches[1]}")
     require(out.grad_fn is not None and all(g > 0 for g in grads), "attention: no gradient")
     require(launches == (1, 1), f"attention backward launches {launches}")
-    try:
-        attention_with_lse(*qkv.unbind(2))
-    except NotImplementedError:
-        log("[flash bwd] attention_with_lse under grad on the card raises NotImplementedError")
-    else:
-        raise AssertionError("attention_with_lse under grad returned detached outputs")
+    out, lse = attention_with_lse(*qkv.unbind(2))  # its backward: phase 30 (d)
+    require(out.grad_fn is not None and lse.grad_fn is not None,
+            "attention_with_lse under grad returned detached outputs")
+    log("[flash bwd] attention_with_lse under grad on the card: a graph through both outputs")
 
 
 def _vq_gap(z, emb, bias, a, b):
@@ -7983,6 +7994,599 @@ def _fp_metrics(tmp: Path, clips, rec: dict) -> None:
     rec["metrics"] = out
 
 
+
+# ------------------------------------------------------- phase 30 (slice 22)
+
+# the rings of phase 30 (c), P = 4 shards in one process: (name, B, S, H,
+# dtype, causal); bounds (out, gradients) on max|ring - whole| / max|whole|
+# against whole FlashAttention: bf16 2e-2 (each block's out and gradients
+# leave the kernels rounded to bf16 before the fp32 merge and sums; the
+# whole kernel rounds once), fp32 1e-4 (phase 10's)
+SLICE22_RING = (
+    ("flagship", 8, 2048, 12, "bfloat16", False),
+    ("prior_bf16", 8, 1024, 20, "bfloat16", True),
+    ("prior_fp32", 8, 1024, 20, "float32", True),
+)
+RING_P = 4
+RING_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# the 632M prior (llama-abs-LP) and XXXL (llama-abs-XXXL) of phase 30 (a)
+LP_ARGS = dict(n_layer=30, n_head=20, dim=1280, vocab_size=8192, num_classes=101,
+               max_seq_len=1024)
+XXXL_ARGS = dict(n_layer=48, n_head=40, dim=2560, vocab_size=8192, num_classes=101,
+                 max_seq_len=1024)
+REMAT_STEPS = 3
+
+
+def _flash_counts():
+    from video_tokenizer_tpu_torch.ops.attention import (
+        flash_attn_bwd_dkv, flash_attn_bwd_dq, flash_attn_fwd,
+    )
+
+    return (flash_attn_fwd, flash_attn_bwd_dq, flash_attn_bwd_dkv)
+
+
+def _reset_counts() -> None:
+    for k in _flash_counts():
+        k.launches = k.launches_sm90 = k.launches_tf32x3 = 0
+
+
+def _read_counts() -> dict:
+    f, dq, dkv = _flash_counts()
+    return {"fwd": f.launches, "fwd_sm90": f.launches_sm90, "fwd_tf32x3": f.launches_tf32x3,
+            "dq": dq.launches, "dq_sm90": dq.launches_sm90, "dq_tf32x3": dq.launches_tf32x3,
+            "dkv": dkv.launches, "dkv_sm90": dkv.launches_sm90, "dkv_tf32x3": dkv.launches_tf32x3}
+
+
+def _add_main_path(records: dict, counts: dict) -> None:
+    """A slice-22 main-path run's launches into the kernels line's rows."""
+    for row, key in (("flash_attn_fwd", "fwd_sm90"), ("flash_attn_fwd_tf32x3", "fwd_tf32x3"),
+                     ("flash_attn_bwd_dq", "dq_sm90"), ("flash_attn_bwd_dq_tf32x3", "dq_tf32x3"),
+                     ("flash_attn_bwd_dkv", "dkv_sm90"),
+                     ("flash_attn_bwd_dkv_tf32x3", "dkv_tf32x3")):
+        r = records.setdefault(row, {})
+        r["launches"] = r.get("launches", 0) + counts[key]
+        r["slice22_launches"] = r.get("slice22_launches", 0) + counts[key]
+
+
+def _prior_steps(model, state0, batch, remat: bool, steps: int, keep_grads: bool = False):
+    """`steps` AdamW steps of `model` from `state0` (dropouts on, each step's
+    masks from its own seeded card generator): losses, the first step's
+    gradients, peak memory, s/step after the first step, launch counts."""
+    import dataclasses
+
+    import torch
+
+    if state0 is not None:
+        model.load_state_dict(state0)
+    model.config = dataclasses.replace(model.config, remat=remat)
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, betas=(0.9, 0.95), fused=True)
+    idx, cond, tgt = batch
+    losses, grads, times = [], None, []
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    for s in range(steps):
+        t0 = time.perf_counter()
+        g = torch.Generator("cuda").manual_seed(SEED + 2210 + s)
+        _, loss = model(idx, cond, targets=tgt, train=True, generator=g)
+        loss.backward()
+        if s == 0 and keep_grads:
+            grads = [p.grad.clone() for p in model.parameters()]
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        losses.append(loss.detach())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = _read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del opt
+    torch.cuda.empty_cache()
+    s_step = statistics.mean(times[1:]) if len(times) > 1 else times[0]
+    return [float(l) for l in losses], grads, peak, s_step, counts
+
+
+def _prior_batch(B: int, seed: int):
+    import torch
+
+    gen = torch.Generator("cuda").manual_seed(seed)
+    seq = torch.randint(0, 8192, (B, 1024), generator=gen, device="cuda")
+    cond = torch.randint(0, 101, (B,), generator=gen, device="cuda")
+    return seq[:, :-1], cond, seq
+
+
+def _slice22_remat_prior(rec: dict, records: dict) -> None:
+    """Phase 30 (a): remat against no remat on the 632M prior, fp32 (TF32
+    off), batch 8, REMAT_STEPS AdamW steps from one state with every dropout
+    at its default rate; then one remat step at batch 64 and two at batch 1
+    of llama-abs-XXXL."""
+    import torch
+
+    from video_tokenizer_tpu_torch.models.larp_ar import LARP_AR, ModelArgs
+
+    with torch.device("cuda"):
+        model = LARP_AR(ModelArgs(**LP_ARGS), generator=torch.Generator("cuda").manual_seed(SEED + 2200))
+    _perturb(model, SEED + 2201, "cuda")
+    state0 = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = _prior_batch(8, SEED + 2202)
+    plain = _prior_steps(model, state0, batch, False, REMAT_STEPS, keep_grads=True)
+    remat = _prior_steps(model, state0, batch, True, REMAT_STEPS, keep_grads=True)
+    gmax = max(a.abs().max().item() for a in plain[1])
+    gdiff = max((a - b).abs().max().item() for a, b in zip(plain[1], remat[1]))
+    ldiff = max(abs(a - b) / abs(a) for a, b in zip(plain[0], remat[0]))
+    del plain[1][:], remat[1][:]
+    torch.cuda.empty_cache()
+    per = {k: v // REMAT_STEPS for k, v in remat[4].items()}
+    log(f"[slice 22 remat] 632M prior fp32 batch 8, {REMAT_STEPS} steps: losses plain "
+        f"{plain[0]}, remat {remat[0]} (largest relative difference {ldiff:.3e}, bound 1e-5); "
+        f"first step's largest gradient difference {gdiff:.3e} of max|g| {gmax:.3e} (bound 1e-5 "
+        f"of it); peak {plain[2]:.2f} GiB plain, {remat[2]:.2f} GiB remat (bound: below plain); "
+        f"{plain[3]:.3f} s/step plain, {remat[3]:.3f} remat ({remat[3] / plain[3]:.2f}x, bound "
+        f"1.6x: one more forward); flash launches a step plain {plain[4]['fwd'] // REMAT_STEPS} "
+        f"fwd / {plain[4]['dq'] // REMAT_STEPS} dQ / {plain[4]['dkv'] // REMAT_STEPS} dK/dV, "
+        f"remat {per['fwd']} / {per['dq']} / {per['dkv']} (3xTF32 {per['fwd_tf32x3']} / "
+        f"{per['dq_tf32x3']} / {per['dkv_tf32x3']})")
+    require(ldiff <= 1e-5, f"remat losses {remat[0]} against {plain[0]}")
+    require(gdiff <= 1e-5 * gmax, f"remat gradient difference {gdiff} of {gmax}")
+    require(remat[2] < plain[2], f"remat peak {remat[2]} GiB not below {plain[2]}")
+    require(remat[3] <= 1.6 * plain[3], f"remat {remat[3]} s/step against {plain[3]}")
+    require(plain[4]["fwd"] == plain[4]["dq"] == plain[4]["dkv"] == 30 * REMAT_STEPS
+            and per["fwd"] == 60 and per["dq"] == per["dkv"] == 30
+            and per["fwd_tf32x3"] == 60 and per["dq_tf32x3"] == per["dkv_tf32x3"] == 30,
+            f"launches plain {plain[4]}, remat {remat[4]}")
+    _add_main_path(records, remat[4])
+    rec["remat_prior_b8"] = {
+        "losses_plain": plain[0], "losses_remat": remat[0], "loss_rel_diff": ldiff,
+        "grad_max_diff": gdiff, "grad_max": gmax, "peak_gib_plain": plain[2],
+        "peak_gib_remat": remat[2], "s_per_step_plain": plain[3], "s_per_step_remat": remat[3],
+        "launches_remat_per_step": per}
+
+    big = _prior_batch(64, SEED + 2203)
+    losses, _, peak, s64, counts = _prior_steps(model, state0, big, True, 1)
+    del big
+    log(f"[slice 22 remat] 632M prior fp32 batch 64, remat, one step: loss {losses[0]:.4f}, peak "
+        f"{peak:.2f} GiB (predicted 35-45), {s64:.3f} s, {counts['fwd']} forwards")
+    require(all(math.isfinite(l) for l in losses) and peak < 79.0, f"batch 64: {losses}, {peak}")
+    _add_main_path(records, counts)
+    rec["remat_prior_b64"] = {"loss": losses[0], "peak_gib": peak, "s_per_step": s64}
+    del model, state0, batch
+    torch.cuda.empty_cache()
+
+    # llama-abs-XXXL at batch 1 with remat: 3.9B fp32 parameters, their
+    # gradients and AdamW's two moments at 16 B a parameter (fused AdamW
+    # keeps no parameter-sized temporaries), plus 48 block inputs and one
+    # block's recompute: reckoned ~59-61 GiB of the card's 79.1
+    with torch.device("cuda"):
+        xxxl = LARP_AR(ModelArgs(**XXXL_ARGS), generator=torch.Generator("cuda").manual_seed(SEED + 2204))
+    n_params = sum(p.numel() for p in xxxl.parameters())
+    losses, _, peak, sx, counts = _prior_steps(xxxl, None, _prior_batch(1, SEED + 2205), True, 2)
+    log(f"[slice 22 remat] llama-abs-XXXL ({n_params:,} parameters) fp32 batch 1, remat, two "
+        f"AdamW steps: losses {losses}, peak {peak:.2f} GiB (reckoned {16 * n_params / 2**30:.1f} "
+        f"GiB of weights, gradients and moments), {sx:.3f} s/step")
+    require(all(math.isfinite(l) for l in losses) and counts["fwd"] == 2 * 96,
+            f"XXXL: {losses}, {counts}")
+    _add_main_path(records, counts)
+    rec["remat_xxxl_b1"] = {"params": n_params, "losses": losses, "peak_gib": peak,
+                            "s_per_step": sx}
+    del xxxl
+    torch.cuda.empty_cache()
+
+
+def _slice22_remat_tokenizer(tmp: Path, rec: dict, records: dict) -> None:
+    """Phase 30 (b): the flagship tokenizer's bf16 training step at batch 8
+    through the trainer, with and without remat from one state (the
+    trainer's whole state, generators included, restored in between). Two
+    gated steps under deterministic algorithms (the VQ's codebook gradient
+    and cuDNN's backward sums use atomics otherwise): both steps' losses,
+    and the generator's AdamW first moments after step 1 (its gradients,
+    scaled) and parameters after step 2, which only a right remat backward
+    leaves equal; then peak memory and s/step over TRAIN_TIMED steps."""
+    import copy
+
+    import torch
+
+    with _DrawnOnCard():
+        tr = _trainer(_train_cfg(tmp / "slice22_tok", 8, True), "cuda")
+    state0 = copy.deepcopy(tr.state_for_checkpoint())
+    batch = next(tr.train_loader(1))
+    out = {}
+    for remat in (False, True):
+        tr.load_state(copy.deepcopy(state0))
+        tr.step = 0
+        tr.model.encoder.remat = tr.model.decoder.remat = remat
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        infos = []
+        for s in range(2):
+            keys, packed = tr.train_step(batch)
+            infos.append(dict(zip(keys, packed.tolist())))
+            if s == 0:
+                moments = [tr.opt_g.state[p]["exp_avg"].float().cpu()
+                           for p in tr.model.parameters() if p in tr.opt_g.state]
+        params = [p.detach().float().cpu() for p in tr.model.parameters()]
+        torch.use_deterministic_algorithms(False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_TIMED):
+            tr.train_step(batch)
+        torch.cuda.synchronize()
+        out[remat] = {"infos": infos, "moments": moments, "params": params,
+                      "s_per_step": (time.perf_counter() - t0) / TRAIN_TIMED,
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "counts": _read_counts()}
+    p, r = out[False], out[True]
+    diff = max(abs(a[k] - b[k]) / max(abs(a[k]), 1e-6) for a, b in zip(p["infos"], r["infos"])
+               for k in ("loss", "rec_loss", "perceptual_loss", "g_loss", "d_loss"))
+    mdiff = max((a - b).abs().max().item() / max(a.abs().max().item(), 1e-30)
+                for a, b in zip(p["moments"], r["moments"]))
+    pdiff = max((a - b).abs().max().item() for a, b in zip(p["params"], r["params"]))
+    steps = TRAIN_TIMED + 2
+    log(f"[slice 22 remat] flagship tokenizer bf16 batch 8: losses plain "
+        f"{[round(i['loss'], 6) for i in p['infos']]}, remat "
+        f"{[round(i['loss'], 6) for i in r['infos']]} (largest relative difference of loss / "
+        f"rec / perceptual / g / d over both steps {diff:.3e}, bound 1e-3); the generator's "
+        f"first moments after step 1 within {mdiff:.3e} of each tensor's max (bound 1e-5), "
+        f"its parameters after step 2 within {pdiff:.3e} (bound 1e-6); peak {p['peak_gib']:.2f} "
+        f"GiB plain, {r['peak_gib']:.2f} remat; {p['s_per_step']:.4f} s/step plain, "
+        f"{r['s_per_step']:.4f} remat; forwards in {steps} steps {p['counts']['fwd']} plain, "
+        f"{r['counts']['fwd']} remat (+24 a step: both stacks recomputed), dQ {r['counts']['dq']}")
+    require(diff <= 1e-3, f"tokenizer remat: {p['infos']} against {r['infos']}")
+    require(len(p["moments"]) > 0 and mdiff <= 1e-5 and pdiff <= 1e-6,
+            f"tokenizer remat: moments {mdiff} ({len(p['moments'])} tensors), params {pdiff}")
+    require(r["peak_gib"] < p["peak_gib"], f"tokenizer remat peak {r['peak_gib']} >= {p['peak_gib']}")
+    require(r["counts"]["fwd"] - p["counts"]["fwd"] == 24 * steps
+            and r["counts"]["fwd_sm90"] == r["counts"]["fwd"]
+            and r["counts"]["dq"] == p["counts"]["dq"] == r["counts"]["dq_sm90"],
+            f"tokenizer launches {p['counts']} / {r['counts']}")
+    _add_main_path(records, r["counts"])
+    rec["remat_tokenizer_bf16_b8"] = {
+        name: {"s_per_step": v["s_per_step"], "peak_gib": v["peak_gib"], "counts": v["counts"],
+               "losses": [i["loss"] for i in v["infos"]]} for name, v in (("plain", p), ("remat", r))}
+    rec["remat_tokenizer_bf16_b8"].update(loss_rel_diff=diff, moment_rel_diff=mdiff,
+                                          param_max_diff=pdiff)
+    del tr, state0, out, p, r
+    torch.cuda.empty_cache()
+
+
+def _slice22_ring(rec: dict, records: dict) -> None:
+    """Phase 30 (c): the ring's per-step bodies (`parallel/ring.py`) over P =
+    4 shards in one process, against whole FlashAttention, with exact launch
+    counts; times of the rings, the whole kernels and SDPA, and the block
+    kernels at the shard shapes beside their bounds and SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from video_tokenizer_tpu_torch.ops.attention import (
+        flash_attn_bwd, flash_attn_bwd_dkv, flash_attn_bwd_dq, flash_attn_fwd,
+    )
+    from video_tokenizer_tpu_torch.parallel.ring import ring_backward_shards, ring_forward_shards
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2220)
+    D, P = 64, RING_P
+    out_rec = {}
+    for name, B, S, H, dtype_name, causal in SLICE22_RING:
+        dtype = getattr(torch, dtype_name)
+        q, k, v, do = (torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
+                       for _ in range(4))
+        parts = lambda t: [c.contiguous() for c in t.chunk(P, dim=1)]  # noqa: E731
+        qs, ks, vs, dos = parts(q), parts(k), parts(v), parts(do)
+        whole, lse = flash_attn_fwd(q, k, v, causal=causal, return_lse=True)
+        wgrads = flash_attn_bwd(q, k, v, whole, lse, do, causal=causal)
+        _reset_counts()
+        outs, lses = ring_forward_shards(qs, ks, vs, causal)
+        grads = ring_backward_shards(qs, ks, vs, outs, lses, dos, causal)
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        errs = {"out": _rel_max(torch.cat(outs, 1), whole),
+                **{g: _rel_max(torch.cat(a, 1), b) for g, a, b in zip(("dq", "dk", "dv"), grads,
+                                                                       wgrads)}}
+        blocks = P * (P + 1) // 2 if causal else P * P
+        kind = "sm90" if dtype == torch.bfloat16 else "tf32x3"
+        tol = RING_TOL[dtype_name]
+        ring_fwd_ms = graph_ms(lambda: ring_forward_shards(qs, ks, vs, causal), launches=2,
+                               replays=3)
+        ring_bwd_ms = graph_ms(lambda: ring_backward_shards(qs, ks, vs, outs, lses, dos, causal),
+                               launches=2, replays=3)
+        whole_fwd_ms = graph_ms(lambda: flash_attn_fwd(q, k, v, causal=causal), launches=3,
+                                replays=3)
+        whole_bwd_ms = graph_ms(lambda: flash_attn_bwd(q, k, v, whole, lse, do, causal=causal),
+                                launches=3, replays=3)
+        qw, kw, vw = (t.transpose(1, 2) for t in (q, k, v))
+        whole_sdpa_ms = graph_ms(lambda: F.scaled_dot_product_attention(qw, kw, vw,
+                                                                        is_causal=causal),
+                                 launches=3, replays=3)
+        visible = (S * (S + 1) / 2) if causal else S * S  # the pairs a causal mask leaves
+        whole_bnd = bound(_nbytes(q, k, v, whole), 4 * B * H * visible * D,
+                          "bf16" if dtype == torch.bfloat16 else "tf32x3")
+        # the block kernels at the shard shape [B, S / P, H, D]: a past
+        # (full) block, as most of a ring's blocks are
+        qb, kb, vb, db = qs[0], ks[1], vs[1], dos[0]
+        ob, lb = flash_attn_fwd(qb, kb, vb, return_lse=True)
+        delta = torch.einsum("bqhd,bqhd->bhq", ob.float(), db.float()).contiguous()
+        args = (qb, kb, vb, db, lb, delta, None, None, False, 0, D ** -0.5)
+        blk_fwd = graph_ms(lambda: flash_attn_fwd(qb, kb, vb, return_lse=True), launches=5,
+                           replays=5)
+        blk_dq = graph_ms(lambda: flash_attn_bwd_dq(*args), launches=5, replays=5)
+        blk_dkv = graph_ms(lambda: flash_attn_bwd_dkv(*args), launches=5, replays=5)
+        qt, kt, vt = (t.transpose(1, 2) for t in (qb, kb, vb))
+        sdpa_fwd = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), launches=5,
+                            replays=5)
+        ql, kl, vl = (t.detach().requires_grad_() for t in (qt, kt, vt))
+        out_l = F.scaled_dot_product_attention(ql, kl, vl)
+        sdpa_bwd = median_ms(lambda: torch.autograd.grad(out_l, (ql, kl, vl), db.transpose(1, 2),
+                                                         retain_graph=True))
+        del out_l
+        Sb = S // P
+        unit = 2 * B * H * Sb * Sb * D
+        kind_ops = "bf16" if dtype == torch.bfloat16 else "tf32x3"
+        read = _nbytes(qb, kb, vb, db, lb, delta)
+        bnd = {"fwd": bound(_nbytes(qb, kb, vb, ob, lb), 2 * unit, kind_ops),
+               "dq": bound(read + _nbytes(qb), 3 * unit, kind_ops),
+               "dkv": bound(read + _nbytes(kb, vb), 4 * unit, kind_ops)}
+        log(f"[slice 22 ring] {name}: B={B} S={S} H={H} D={D} {dtype_name} {'causal' if causal else 'full'}, "
+            f"P = {P} shards in one process: max|ring - whole| / max|whole| "
+            + ", ".join(f"{g} {e:.2e}" for g, e in errs.items()) + f" (bound {tol:g}); launches "
+            f"fwd {counts['fwd']} / dQ {counts['dq']} / dK/dV {counts['dkv']} (expected {blocks} "
+            f"each, on {kind}); ring forward {ring_fwd_ms:.4f} ms, backward {ring_bwd_ms:.4f} ms; "
+            f"whole kernels {whole_fwd_ms:.4f} / {whole_bwd_ms:.4f} ms (forward's bound "
+            f"{whole_bnd['bound_ms']:.4f}, {whole_bnd['bound_by']}; SDPA {whole_sdpa_ms:.4f}); "
+            f"block [B, {Sb}, H, D] "
+            f"forward {blk_fwd:.4f} ms (bound {bnd['fwd']['bound_ms']:.4f}, "
+            f"{bnd['fwd']['bound_by']}; SDPA {sdpa_fwd:.4f}), dQ {blk_dq:.4f} (bound "
+            f"{bnd['dq']['bound_ms']:.4f}), dK/dV {blk_dkv:.4f} (bound {bnd['dkv']['bound_ms']:.4f}); "
+            f"SDPA's backward {sdpa_bwd:.4f} ms (kernels: CUDA-graph replays; SDPA's backward: events)")
+        require(max(errs.values()) <= tol, f"ring {name}: {errs}")
+        require(counts["fwd"] == counts["dq"] == counts["dkv"] == blocks
+                and counts[f"fwd_{kind}"] == counts[f"dq_{kind}"] == counts[f"dkv_{kind}"] == blocks,
+                f"ring {name}: launches {counts}")
+        out_rec[name] = {"errs": errs, "launches": counts["fwd"], "ring_fwd_ms": ring_fwd_ms,
+                         "ring_bwd_ms": ring_bwd_ms, "whole_fwd_ms": whole_fwd_ms,
+                         "whole_fwd_bound_ms": whole_bnd["bound_ms"],
+                         "whole_sdpa_fwd_ms": whole_sdpa_ms,
+                         "whole_bwd_ms": whole_bwd_ms, "block_fwd_ms": blk_fwd,
+                         "block_dq_ms": blk_dq, "block_dkv_ms": blk_dkv,
+                         "block_fwd_bound_ms": bnd["fwd"]["bound_ms"],
+                         "block_dq_bound_ms": bnd["dq"]["bound_ms"],
+                         "block_dkv_bound_ms": bnd["dkv"]["bound_ms"],
+                         "block_sdpa_fwd_ms": sdpa_fwd, "block_sdpa_bwd_ms": sdpa_bwd}
+        row = "" if dtype == torch.bfloat16 else "_tf32x3"
+        for base, key in (("flash_attn_fwd", "fwd"), ("flash_attn_bwd_dq", "dq"),
+                          ("flash_attn_bwd_dkv", "dkv")):
+            r = records.setdefault(base + row, {})
+            r[f"slice22_{name}_block_ms"] = out_rec[name][f"block_{key}_ms"]
+            r[f"slice22_{name}_block_bound_ms"] = bnd[key]["bound_ms"]
+            r[f"slice22_{name}_block_sdpa_ms"] = sdpa_fwd if key == "fwd" else sdpa_bwd
+        del q, k, v, do, qs, ks, vs, dos, outs, lses, grads, whole, wgrads
+        torch.cuda.empty_cache()
+    rec["ring"] = out_rec
+
+
+def _slice22_lse_backward(rec: dict) -> None:
+    """Phase 30 (d): `attention_with_lse` under autograd with cotangents on
+    out and lse (the ring's merge differentiates through both) at the prior's
+    causal shape in bf16 and fp32, against the plain backward of the same out
+    and LSE with the same dlse (phase 10's bounds: 2e-2 / 1e-4 of max|plain|)."""
+    import torch
+
+    from video_tokenizer_tpu_torch.ops.attention import (
+        attention_bwd_reference, attention_with_lse, flash_attn_bwd_dkv, flash_attn_bwd_dq,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2230)
+    out_rec = {}
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4)):
+        q, k, v, do = (torch.randn(8, 1024, 20, 64, generator=gen, device="cuda").to(dtype)
+                       for _ in range(4))
+        dlse = torch.randn(8, 20, 1024, generator=gen, device="cuda")
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+        flash_attn_bwd_dq.launches = flash_attn_bwd_dkv.launches = 0
+        out, lse = attention_with_lse(ql, kl, vl, causal=True)
+        require(type(out.grad_fn).__name__ == "FlashAttentionLSEBackward",
+                f"attention_with_lse grad_fn {out.grad_fn}")
+        torch.autograd.backward([out, lse], [do, dlse])
+        torch.cuda.synchronize()
+        want = attention_bwd_reference(q, k, v, out.detach(), lse.detach(), do, causal=True,
+                                       dlse=dlse)
+        errs = {g: _rel_max(a.grad, b) for g, a, b in zip(("dq", "dk", "dv"), (ql, kl, vl), want)}
+        launches = (flash_attn_bwd_dq.launches, flash_attn_bwd_dkv.launches)
+        log(f"[slice 22 lse] attention_with_lse backward, B=8 S=1024 H=20 D=64 causal "
+            f"{str(dtype)[6:]}, cotangents on out and lse: max|kernel - plain| / max|plain| "
+            + ", ".join(f"{g} {e:.2e}" for g, e in errs.items())
+            + f" (bound {tol:g}); dQ / dK/dV launches {launches}")
+        require(max(errs.values()) <= tol and launches == (1, 1), f"lse backward {errs} {launches}")
+        out_rec[str(dtype)[6:]] = errs
+        del q, k, v, do, ql, kl, vl, out, lse, want
+    rec["lse_backward"] = out_rec
+
+
+def _slice22_fsdp_one_rank(tmp: Path, rec: dict, records: dict) -> None:
+    """Phase 30 (e): a one-rank NCCL group. Both trainers with
+    `param_placement: fsdp` take 2 steps from the seed's weights, equal to the
+    replicated run, each with the optimizer it builds on a card (the prior's
+    fused AdamW, the tokenizer's foreach Adam, over FSDP's DTensors and the
+    replicated tensors in one group: `parallel.fsdp.optimizer_step`): the AR
+    trainer (fp32, the 632M prior's width at PARITY_DEPTH layers, a frozen
+    flagship tokenizer at PARITY_DEPTH) and the tokenizer trainer (fp32, the
+    flagship at PARITY_DEPTH, batch 2). Then `_slice22_ring_remat`."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    gen = np.random.default_rng(SEED + 2240)
+    tok_cfg = _load_cfg("larp_tokenizer", tmp, 8)["model"]
+    tok_cfg["args"].update(encoder_depth=PARITY_DEPTH, decoder_depth=PARITY_DEPTH)
+
+    def ar_cfg(name, fsdp):
+        cfg = _load_cfg("larp_ar", tmp / name, 8)
+        cfg["vae"] = {"name": "larp_tokenizer", "checkpoint": "", "model": tok_cfg}
+        cfg["model"] = {"name": "larp_ar", "args": {**cfg["model"]["args"], **LP_ARGS,
+                                                     "n_layer": PARITY_DEPTH}}
+        if fsdp:
+            cfg["param_placement"] = "fsdp"
+        return cfg
+
+    def tok_cfg_(name, fsdp):
+        cfg = _train_cfg(tmp / name, 2, False)
+        cfg["model"]["args"].update(encoder_depth=PARITY_DEPTH, decoder_depth=PARITY_DEPTH)
+        if fsdp:
+            cfg["param_placement"] = "fsdp"
+        return cfg
+
+    clips = torch.from_numpy(gen.integers(0, 256, (8, 3, 16, 128, 128), dtype=np.uint8))
+    batches = [{"gt": clips, "label": torch.from_numpy(gen.integers(0, 101, 8))},
+               {"gt": clips.flip(0), "label": torch.from_numpy(gen.integers(0, 101, 8))}]
+    out_rec = {}
+    # deterministic algorithms: the VQ's codebook gradient (an indexed
+    # accumulation) and cuDNN's backward sum with atomics otherwise, which
+    # moves two runs of one layout apart
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    for name, make, bs in (("ar", ar_cfg, batches), ("tokenizer", tok_cfg_,
+                                                    [{"gt": b["gt"][:2], "label": b["label"][:2]}
+                                                     for b in batches])):
+        runs = {}
+        for fsdp in (False, True):
+            with _DrawnOnCard():
+                tr = _trainer(make(f"slice22_{name}_{fsdp}", fsdp), "cuda")
+            _reset_counts()
+            infos = []
+            for b in bs:
+                with tr.step_context(len(b["gt"])):
+                    keys, packed = tr.train_step(b)
+                infos.append(dict(zip(keys, packed.tolist())))
+            torch.cuda.synchronize()
+            counts = _read_counts()
+            state = tr.state_for_checkpoint()
+            opt = state["opt" if "opt" in state else "opt_g"]["state"]
+            moments = {(i, k): st[k].cpu() for i, st in opt.items()
+                       for k in ("exp_avg", "exp_avg_sq")}
+            runs[fsdp] = (infos, {n: t.cpu() for n, t in state["params"].items()}, counts,
+                          tr.layout.distributed, tr.placement, moments)
+            if fsdp:
+                _add_main_path(records, counts)
+            del tr, state
+            torch.cuda.empty_cache()
+            if dist.is_initialized():  # the next replicated run forms no group
+                dist.destroy_process_group()
+        (i0, p0, c0, d0, _, m0), (i1, p1, c1, d1, pl1, m1) = runs[False], runs[True]
+        ldiff = max(abs(a["loss"] - b["loss"]) / abs(a["loss"]) for a, b in zip(i0, i1))
+        pdiff = max((p0[n].float() - p1[n].float()).abs().max().item() for n in p0)
+        mdiff = max((m0[k] - m1[k]).abs().max().item() / max(m0[k].abs().max().item(), 1e-30)
+                    for k in m0)
+        log(f"[slice 22 fsdp] {name} trainer, one NCCL rank, param_placement {pl1}: 2 steps' "
+            f"losses {[round(i['loss'], 6) for i in i1]} against replicated "
+            f"{[round(i['loss'], 6) for i in i0]} (largest relative difference {ldiff:.3e}, bound "
+            f"1e-5); Adam's moments (the gradients' sums) within {mdiff:.3e} of each tensor's "
+            f"max (bound 1e-5); parameters after: largest difference {pdiff:.3e} (bound 1e-6); "
+            f"flash launches fwd {c1['fwd']} / dQ "
+            f"{c1['dq']} / dK/dV {c1['dkv']} (replicated {c0['fwd']} / {c0['dq']} / {c0['dkv']})")
+        require(d1 and not d0 and pl1 == "fsdp", f"{name}: fsdp run not on a mesh ({d1}, {pl1})")
+        require(ldiff <= 1e-5 and mdiff <= 1e-5 and pdiff <= 1e-6,
+                f"{name} fsdp: losses {ldiff}, moments {mdiff}, params {pdiff}")
+        require(c1 == c0 and c1["fwd"] > 0 and c1["dq"] > 0 and c1["dkv"] > 0,
+                f"{name} fsdp launches {c1} against {c0}")
+        out_rec[name] = {"loss_rel_diff": ldiff, "moment_rel_diff": mdiff,
+                         "param_max_diff": pdiff, "losses": [i["loss"] for i in i1]}
+    torch.use_deterministic_algorithms(False)
+    rec["fsdp_one_rank"] = out_rec
+    _slice22_ring_remat(rec, records)
+
+
+def _slice22_ring_remat(rec: dict, records: dict) -> None:
+    """Phase 30 (e), last: the prior with remat under `ring_sequence` on a
+    one-rank NCCL group (fp32, the 632M prior's width at PARITY_DEPTH layers,
+    batch 2, dropouts on). The card's autograd runs the backward, and so
+    remat's recompute, on a thread of its own: the recompute must ring as
+    the forward did (every block's attention rings twice) and give the
+    plain ring's gradients (bound 1e-6 of each tensor's max; the same
+    kernels on the same masks)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from video_tokenizer_tpu_torch.models.larp_ar import LARP_AR, ModelArgs
+    from video_tokenizer_tpu_torch.parallel import ring as ring_lib
+    from video_tokenizer_tpu_torch.parallel.mesh import init_distributed
+
+    init_distributed("cuda", force=True)
+    local, rang = ring_lib.ring_attention_local, []
+
+    def counted(*a, **k):
+        rang.append(1)
+        return local(*a, **k)
+
+    args = dict(LP_ARGS, n_layer=PARITY_DEPTH)
+    with torch.device("cuda"):
+        model = LARP_AR(ModelArgs(**args), generator=torch.Generator("cuda").manual_seed(SEED + 2250))
+    idx, cond, tgt = _prior_batch(2, SEED + 2251)
+    grads, rings, counts = {}, {}, {}
+    ring_lib.ring_attention_local = counted
+    try:
+        for remat in (False, True):
+            model.config = dataclasses.replace(model.config, remat=remat)
+            model.zero_grad(set_to_none=True)
+            rang.clear()
+            _reset_counts()
+            with ring_lib.ring_sequence(dist.group.WORLD):
+                _, loss = model(idx, cond, targets=tgt, train=True,
+                                generator=torch.Generator("cuda").manual_seed(SEED + 2252))
+            loss.backward()  # outside the ring, as the card's autograd thread sees it
+            torch.cuda.synchronize()
+            grads[remat] = [p.grad.clone() for p in model.parameters()]
+            rings[remat], counts[remat] = len(rang), _read_counts()
+    finally:
+        ring_lib.ring_attention_local = local
+        dist.destroy_process_group()
+    gdiff = max((a - b).abs().max().item() / max(a.abs().max().item(), 1e-30)
+                for a, b in zip(grads[False], grads[True]))
+    log(f"[slice 22 ring + remat] prior fp32, {PARITY_DEPTH} blocks at the 632M width, batch 2, "
+        f"one NCCL rank: attention calls through the ring {rings[False]} plain, {rings[True]} "
+        f"remat (bound {PARITY_DEPTH} / {2 * PARITY_DEPTH}); gradients within {gdiff:.3e} of "
+        f"each tensor's max (bound 1e-6); launches remat fwd {counts[True]['fwd']} / dQ "
+        f"{counts[True]['dq']} / dK/dV {counts[True]['dkv']}")
+    require(rings[False] == PARITY_DEPTH and rings[True] == 2 * PARITY_DEPTH,
+            f"ring calls {rings}")
+    require(gdiff <= 1e-6, f"ring + remat gradients {gdiff}")
+    require(counts[True]["fwd_tf32x3"] == 2 * PARITY_DEPTH
+            and counts[True]["dq_tf32x3"] == counts[True]["dkv_tf32x3"] == PARITY_DEPTH,
+            f"ring + remat launches {counts[True]}")
+    _add_main_path(records, counts[True])
+    rec["ring_remat_one_rank"] = {"rings": rings, "grad_rel_diff": gdiff,
+                                  "launches_remat": counts[True]}
+    del model, grads
+    torch.cuda.empty_cache()
+
+
+def phase_multi_device(tmp: Path, records: dict) -> None:
+    """Phase 30, the multi-device slice on the one card (NCCL at world > 1
+    is not run here: one card cannot hold two ranks of a communicator):
+      (a) remat on the 632M prior against no remat, fp32, then its batch-64
+          remat step and llama-abs-XXXL at batch 1 (`_slice22_remat_prior`);
+      (b) the flagship tokenizer's bf16 remat step against no remat
+          (`_slice22_remat_tokenizer`);
+      (c) the ring's per-step bodies over 4 shards in one process against
+          whole FlashAttention (`_slice22_ring`);
+      (d) `attention_with_lse`'s backward with both cotangents against its
+          plain version (`_slice22_lse_backward`);
+      (e) both trainers with `param_placement: fsdp` on a one-rank NCCL
+          group against the replicated run (`_slice22_fsdp_one_rank`), and
+          remat under the ring on that group (`_slice22_ring_remat`).
+    Alone, after the build: `python3 -c "import torch, chip_smoke as c,
+    tempfile, pathlib; torch.backends.cuda.matmul.allow_tf32 =
+    torch.backends.cudnn.allow_tf32 = False; c.phase_build(); r = {};
+    c.phase_multi_device(pathlib.Path(tempfile.mkdtemp()), r)"`."""
+    rec: dict = {}
+    _slice22_ring(rec, records)
+    _slice22_lse_backward(rec)
+    _slice22_remat_prior(rec, records)
+    _slice22_remat_tokenizer(tmp, rec, records)
+    _slice22_fsdp_one_rank(tmp, rec, records)
+    records["slice22"] = rec
+
+
 def main() -> int:
     if not (ROOT / "video_tokenizer_tpu_torch").is_dir():
         print("chip_smoke.py: the video_tokenizer_tpu_torch package is not beside this script",
@@ -8050,6 +8654,7 @@ def main() -> int:
         run(phase_vfm_auto, Path(tmp), records)
         run(phase_cnnvit, Path(tmp), records)
         run(phase_frame_prediction, Path(tmp), records)
+        run(phase_multi_device, Path(tmp), records)
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
 
     sources = {
@@ -8125,6 +8730,7 @@ def main() -> int:
     print(json.dumps({"vfm": records["vfm"]}))
     print(json.dumps({"vfm_auto": records["vfm_auto"], "cnnvit": records["cnnvit"]}))
     print(json.dumps({"frame_prediction": records["fp"]}))
+    print(json.dumps({"multi_device": records["slice22"]}))
     print(json.dumps({"sampling_tokens_per_s": records["sampling"],
                       "sampling_device_step_ms": records["sampling_device_step_ms"],
                       "sampling_kernels_per_step": records["sampling_kernels_per_step"],

@@ -293,13 +293,21 @@ def test_zoo_geometry():
 
 
 def test_training_is_not_ported(tiny):
-    """Of the prior's training forward only remat is not ported (it names its
-    ROADMAP item); with every dropout at 0 the training forward is the
-    inference forward, bit for bit."""
+    """The prior's training forward is ported whole, remat included (its
+    loss and gradients equal the plain forward's bit for bit: more in
+    tests/test_torch_remat.py); with every dropout at 0 the training forward
+    is the inference forward, bit for bit."""
     _, _, tm, seq, cond = tiny
     remat = LARP_AR(dataclasses.replace(tm.config, remat=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        remat(_t(seq[:, :-1]), _t(cond), train=True)
+    remat.load_state_dict(tm.state_dict(), strict=True)
+    grads = []
+    for m in (tm, remat):
+        m.zero_grad(set_to_none=True)
+        _, loss = m(_t(seq[:, :-1]), _t(cond), targets=_t(seq), train=True,
+                    generator=torch.Generator().manual_seed(3))
+        loss.backward()
+        grads.append([p.grad.clone() for p in m.parameters()])
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
     m0 = LARP_AR(dataclasses.replace(tm.config, class_dropout_prob=0.0))
     m0.load_state_dict(tm.state_dict(), strict=True)
     g = torch.Generator().manual_seed(0)

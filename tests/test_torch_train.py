@@ -117,8 +117,15 @@ def test_lr_schedule_follows_jax():
 
 
 def test_unported_options_raise(tmp_path):
-    for over in ({"mesh_model": 2}, {"param_placement": "fsdp"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # GPipe (mesh_pipe) is the one mesh knob still to port; a mesh that does
+    # not cover the ranks and an unknown placement are refused before any
+    # process group forms (meshes and fsdp: tests/test_torch_parallel_*.py)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        trainers.make({"name": "larp_tokenizer_trainer"},
+                      args={"cfg": trainer_cfg(tmp_path, mesh_pipe=2), "device": "cpu"})
+    for over, message in (({"mesh_model": 2}, "does not cover 1 devices"),
+                          ({"param_placement": "zero1"}, "param_placement")):
+        with pytest.raises(ValueError, match=message):
             trainers.make({"name": "larp_tokenizer_trainer"},
                           args={"cfg": trainer_cfg(tmp_path, **over), "device": "cpu"})
     # gradient accumulation and the per-group learning rates, ported since, build
@@ -135,13 +142,13 @@ def test_unported_options_raise(tmp_path):
     assert isinstance(trainers.make({"name": "larp_tokenizer_trainer_stat"},
                                     args={"cfg": trainer_cfg(tmp_path), "device": "cpu"}),
                       LARPTokenizerTrainerStat)
-    # the AR trainers: remat raises; sample FVD against real statistics builds
+    # the AR trainers: remat, ported since, builds; sample FVD against real statistics builds
     remat = ar_trainer_cfg(tmp_path)
     remat["model"]["args"]["remat"] = True
     tr = trainers.make({"name": "larp_ar_trainer"}, args={"cfg": remat, "device": "cpu"})
     tr.make_datasets()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tr.make_model()
+    tr.make_model()
+    assert tr.model.config.remat
     tr = trainers.make({"name": "larp_ar_trainer"}, args={
         "cfg": ar_trainer_cfg(tmp_path, fvd_real_stats_path="real_stats.pkl"), "device": "cpu"})
     tr.make_datasets()

@@ -32,6 +32,7 @@ import torch
 from torch import nn
 
 from ..ops.vq import vq_lookup
+from ..parallel.mesh import draw_normal, rank_seed
 from ..registry import models
 from .layers import Dense, LayerNorm
 
@@ -146,8 +147,9 @@ class SimpleVectorQuantizer(nn.Module):
         }
 
     def draw_seed(self) -> int:
-        """The next sampling seed (0 <= seed < 2**62) from `sample_generator`."""
-        return int(torch.randint(2**62, (), generator=self.sample_generator))
+        """The next sampling seed (0 <= seed < 2**62) from `sample_generator`,
+        mixed with the data index under a mesh (`parallel.mesh.rank_seed`)."""
+        return rank_seed(int(torch.randint(2**62, (), generator=self.sample_generator)))
 
     def decode(self, indices: torch.Tensor) -> torch.Tensor:
         return self.get_emb()[indices.long()]
@@ -172,7 +174,7 @@ class SummedKLDivergenceRegularizer(nn.Module):
         mean, logvar = z[..., ::2], z[..., 1::2]
         logvar = logvar.clamp(-30.0, 20.0)
         std, var = torch.exp(0.5 * logvar), torch.exp(logvar)
-        noise = torch.randn(mean.shape, generator=self.sample_generator, dtype=mean.dtype)
+        noise = draw_normal(mean.shape, self.sample_generator, mean.dtype)  # the global batch's
         z_sampled = mean + std * noise.to(mean.device)
         loss_kl = 0.5 * (mean**2 + var - 1.0 - logvar)
         loss_kl = loss_kl.reshape(loss_kl.shape[0], -1).sum(dim=1).mean()

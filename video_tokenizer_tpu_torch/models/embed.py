@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import draw_uniform
 from .layers import Dense
 
 
@@ -102,8 +103,8 @@ def _drop_mask(n: int, dropout_prob: float, train: bool, force_drop_ids: Optiona
     `generator` below p; None when nothing drops (and nothing is drawn)."""
     if force_drop_ids is not None:
         return force_drop_ids == 1
-    if train and dropout_prob > 0:
-        return torch.rand(n, generator=generator, device=device) < dropout_prob
+    if train and dropout_prob > 0:  # the global batch's draw under a mesh (parallel/mesh.py)
+        return draw_uniform((n,), generator, device) < dropout_prob
     return None
 
 

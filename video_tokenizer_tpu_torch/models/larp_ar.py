@@ -41,9 +41,24 @@ attention output (`resid_dropout_p`) and FFN output (`ffn_dropout_p`), and
 per-sample DropPath on both branches at rates `linspace(0, drop_path_rate,
 n_layer)`; `attn_dropout_p` is never applied, there either. Every mask is
 a bool tensor drawn from the one `torch.Generator` the caller passes, never
-from a default generator, so a run resumes exactly. Not here: remat
-(ROADMAP.md, 'Still to port', item 8: `torch.utils.checkpoint` would replay
-the default generators, not `g`) and the sequence-parallel constraints.
+from a default generator, so a run resumes exactly; under a mesh each draw
+is made for the global batch and each rank keeps its part
+(`parallel/mesh.py`).
+
+`remat=True` recomputes each block in the backward of `forward(train=True)`
+(`ops.attention.checkpoint_block`: `torch.utils.checkpoint`, non-reentrant,
+its recompute under the forward's ring), the JAX `nn.remat` of the
+teacher-forcing path; prefill and decode are never rematerialised.
+Checkpointing replays the default generators, not `g`, so each block's
+masks are drawn from `g` outside the checkpointed function, in the order
+of the plain forward (`TransformerBlock.draw_masks`), and passed in: the
+recompute applies the same masks.
+
+With `.tp` set (`parallel.tp.shard_larp_ar`, cfg `mesh_model: N`) the
+blocks are Megatron-split over the model axis, the embedding and head
+vocab-parallel, and with `sequence_parallel` the activations between
+blocks are sequence-sharded (`parallel/tp.py`); `forward`'s logits are then
+this rank's part of the vocabulary, and the loss is `vocab_parallel_nll`.
 """
 from __future__ import annotations
 
@@ -56,19 +71,17 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import sincos
-from ..ops.attention import attention
+from ..ops.attention import attention, checkpoint_block
 from ..ops.cache_update import write_rows_per_row
 from ..ops.decode_attention import (
     _quantize_rows, chunk_attention, chunk_attention_write, decode_attention,
     decode_attention_write, fuses_row_write,
 )
 from ..ops.quant_matmul import w8_matmul
+from ..parallel.mesh import draw_keep
 from ..registry import models
 from .embed import LabelEmbedder
 from .layers import Dense
-
-_REMAT = ("remat (recomputing blocks in the backward) is not ported yet: ROADMAP.md, 'Still to "
-          "port', item 8")
 
 Cache = List[Dict[str, torch.Tensor]]
 
@@ -169,26 +182,45 @@ def quantize_model(model: "LARP_AR") -> "LARP_AR":
     return qmodel.eval()
 
 
-def _dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Flax `nn.Dropout`: keep each element with probability 1 - p, scaled by
-    1 / (1 - p); the mask is bool, drawn from `generator`."""
+def _dropout_mask(shape, p: float, generator: Optional[torch.Generator], device,
+                  seq=None) -> Optional[torch.Tensor]:
+    """The bool keep mask of a dropout at rate p (None: nothing to draw)."""
+    if p <= 0.0:
+        return None
+    if p >= 1.0:
+        return torch.zeros(shape, dtype=torch.bool, device=device)
+    return draw_keep(shape, 1.0 - p, generator, device, seq)
+
+
+def _apply_dropout(x: torch.Tensor, p: float, keep: Optional[torch.Tensor]) -> torch.Tensor:
     if p <= 0.0:
         return x
     if p >= 1.0:
         return torch.zeros_like(x)
-    keep = torch.empty(x.shape, dtype=torch.bool, device=x.device).bernoulli_(1.0 - p,
-                                                                             generator=generator)
     return torch.where(keep, x / (1.0 - p), 0.0)
+
+
+def _dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Flax `nn.Dropout`: keep each element with probability 1 - p, scaled by
+    1 / (1 - p); the mask is bool, drawn from `generator`."""
+    return _apply_dropout(x, p, _dropout_mask(x.shape, p, generator, x.device))
+
+
+def _drop_path_mask(x_shape, rate: float, generator: Optional[torch.Generator],
+                    device) -> Optional[torch.Tensor]:
+    """The JAX `DropPath`'s keep draw, one per sample ([B, 1, 1])."""
+    if rate <= 0.0:
+        return None
+    return draw_keep((x_shape[0],) + (1,) * (len(x_shape) - 1), 1.0 - rate, generator, device)
+
+
+def _apply_drop_path(x: torch.Tensor, rate: float, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    return x if rate <= 0.0 else x * mask / (1.0 - rate)
 
 
 def _drop_path(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
     """The JAX `DropPath`: one keep draw per sample ([B, 1, 1]), x * mask / keep."""
-    if rate <= 0.0:
-        return x
-    keep = 1.0 - rate
-    mask = torch.empty((x.shape[0],) + (1,) * (x.ndim - 1), dtype=torch.bool,
-                       device=x.device).bernoulli_(keep, generator=generator)
-    return x * mask / keep
+    return _apply_drop_path(x, rate, _drop_path_mask(x.shape, rate, generator, x.device))
 
 
 class RMSNorm(nn.Module):
@@ -218,11 +250,21 @@ class FeedForward(nn.Module):
         self.w1 = _dense(cfg, cfg.dim, hidden, std, generator, device)
         self.w3 = _dense(cfg, cfg.dim, hidden, std, generator, device)
         self.w2 = _dense(cfg, hidden, cfg.dim, std, generator, device)
+        self.tp = None
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        out = self.w2(F.silu(self.w1(x)) * self.w3(x))
-        return _dropout(out, self.dropout_p, generator) if train else out
+                generator: Optional[torch.Generator] = None, *,
+                keep: Optional[torch.Tensor] = None, sp: bool = False) -> torch.Tensor:
+        """The output dropout in training: of mask `keep`, or drawn from
+        `generator` (None: no dropout)."""
+        if train and keep is None:
+            keep = _dropout_mask(x.shape, self.dropout_p, generator, x.device)
+        if self.tp is None:
+            out = self.w2(F.silu(self.w1(x)) * self.w3(x))
+        else:
+            x = self.tp.enter(x, sp)
+            out = self.tp.exit(self.w2(F.silu(self.w1(x)) * self.w3(x)), sp)
+        return out if keep is None else _apply_dropout(out, self.dropout_p, keep)
 
 
 def _write_rows(buf: torch.Tensor, rows: torch.Tensor, start: int) -> None:
@@ -241,6 +283,7 @@ class Attention(nn.Module):
         self.resid_dropout_p = cfg.resid_dropout_p
         self.wqkv = _dense(cfg, cfg.dim, total, std, generator, device)
         self.wo = _dense(cfg, cfg.dim, cfg.dim, std, generator, device)
+        self.tp = None
 
     def _split_qkv(self, x: torch.Tensor):
         """q [B,S,H,D], k and v [B,S,Hkv,D]: strided views of the wqkv output
@@ -253,12 +296,22 @@ class Attention(nn.Module):
         return q, k, v
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """Teacher forcing: full causal self-attention (+ residual dropout in training)."""
+                generator: Optional[torch.Generator] = None, *,
+                keep: Optional[torch.Tensor] = None, sp: bool = False) -> torch.Tensor:
+        """Teacher forcing: full causal self-attention (+ the residual dropout
+        in training: of mask `keep`, or drawn from `generator`). Under TP:
+        this rank's heads, the input entering and the output leaving the model
+        axis (`sp`: sequence-sharded)."""
+        if train and keep is None:
+            keep = _dropout_mask(x.shape, self.resid_dropout_p, generator, x.device)
+        if self.tp is not None:
+            x = self.tp.enter(x, sp)
         B, S, _ = x.shape
         q, k, v = self._split_qkv(x)
         out = self.wo(attention(q, k, v, causal=True).reshape(B, S, -1))
-        return _dropout(out, self.resid_dropout_p, generator) if train else out
+        if self.tp is not None:
+            out = self.tp.exit(out, sp)
+        return out if keep is None else _apply_dropout(out, self.resid_dropout_p, keep)
 
     def _store(self, lc: Dict[str, torch.Tensor], rows_k, rows_v, start_pos: int) -> None:
         """Writes [B, T, KV] K/V rows at row `start_pos` of the layer cache, in
@@ -358,13 +411,38 @@ class TransformerBlock(nn.Module):
         self.feed_forward = FeedForward(cfg, generator, device)
         self.attention_norm = RMSNorm(cfg.dim, cfg.norm_eps, device)
         self.ffn_norm = RMSNorm(cfg.dim, cfg.norm_eps, device)
+        self.tp = None
+
+    def draw_masks(self, x: torch.Tensor, train: bool, generator: Optional[torch.Generator],
+                   sp: bool = False):
+        """The block's training masks, drawn from `generator` in the order the
+        forward applies them: the attention output's dropout, its DropPath,
+        the FFN output's dropout, its DropPath (None outside training). Each
+        is this rank's part of the global draw (`sp`: x is sequence-sharded)."""
+        if not train:
+            return None
+        seq = self.tp.seq_part(sp) if self.tp is not None else None
+        att, ffn = self.attention.resid_dropout_p, self.feed_forward.dropout_p
+        return (_dropout_mask(x.shape, att, generator, x.device, seq),
+                _drop_path_mask(x.shape, self.drop_path_rate, generator, x.device),
+                _dropout_mask(x.shape, ffn, generator, x.device, seq),
+                _drop_path_mask(x.shape, self.drop_path_rate, generator, x.device))
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        rate = self.drop_path_rate if train else 0.0
-        h = x + _drop_path(self.attention(self.attention_norm(x), train, generator), rate, generator)
-        return h + _drop_path(self.feed_forward(self.ffn_norm(h), train, generator), rate,
-                              generator)
+                generator: Optional[torch.Generator] = None, *, masks=None,
+                sp: bool = False) -> torch.Tensor:
+        """The block; in training with the masks of `draw_masks` (drawn here
+        from `generator` when not given)."""
+        if masks is None:
+            masks = self.draw_masks(x, train, generator, sp)
+        m_att, dp_att, m_ffn, dp_ffn = masks if masks is not None else (None,) * 4
+        rate = self.drop_path_rate if masks is not None else 0.0
+        tp = self.tp
+        norm = (lambda mod, t: mod(t)) if tp is None else (lambda mod, t: tp.replicated(mod, t, sp))
+        a = self.attention(norm(self.attention_norm, x), keep=m_att, sp=sp)
+        h = x + _apply_drop_path(a, rate, dp_att)
+        f = self.feed_forward(norm(self.ffn_norm, h), keep=m_ffn, sp=sp)
+        return h + _apply_drop_path(f, rate, dp_ffn)
 
     def prefill(self, x, lc, cond_mask=None):
         a, lc = self.attention.prefill(self.attention_norm(x), lc, cond_mask)
@@ -409,6 +487,9 @@ class LARP_AR(nn.Module):
         self.norm = RMSNorm(cfg.dim, cfg.norm_eps, device)
         self.output = _dense(cfg, cfg.dim, cfg.vocab_size, 0.0, generator, device)  # zero init
 
+        self.tp = None  # parallel.tp.ModelParallel once shard_larp_ar has split the weights
+        self.vocab_parallel_embed = self.vocab_parallel_head = False
+
         pe_len = cfg.max_seq_len + cfg.cls_token_num - 1
         if cfg.use_fixed_pe:
             pe = torch.from_numpy(sincos.sincos_1d(cfg.dim, np.arange(pe_len))).float()
@@ -445,10 +526,21 @@ class LARP_AR(nn.Module):
     def num_classes(self) -> int:
         return self.config.num_classes
 
+    def _tokens(self, idx: torch.Tensor) -> torch.Tensor:
+        """Token embeddings; vocab-parallel under TP: this rank's rows looked
+        up, the others zero, summed over the model axis."""
+        if not self.vocab_parallel_embed:
+            return self.tok_embeddings(idx)
+        n = self.tok_embeddings.weight.shape[0]
+        lo = self.tp.rank * n
+        inside = (idx >= lo) & (idx < lo + n)
+        e = self.tok_embeddings(torch.where(inside, idx - lo, 0))
+        return self.tp.reduce(torch.where(inside.unsqueeze(-1), e, 0.0))
+
     def _cond_embeddings(self, cond_idx: torch.Tensor, train: bool = False,
                          generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.frame_prediction:
-            return self.tok_embeddings(cond_idx)  # [B, T] frame tokens
+            return self._tokens(cond_idx)  # [B, T] frame tokens
         emb = self.cls_embedding(cond_idx, train=train, generator=generator)
         return emb[:, None, :][:, : self.cls_token_num]
 
@@ -456,7 +548,7 @@ class LARP_AR(nn.Module):
                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Conditioning + token embeddings (+ token dropout in training) + absolute PE."""
         h = torch.cat([self._cond_embeddings(cond_idx, train, generator),
-                       self.tok_embeddings(idx)], dim=1)
+                       self._tokens(idx)], dim=1)
         if train:
             h = _dropout(h, self.config.token_dropout_p, generator)
         return h + self.abs_pe[:, : h.shape[1]].to(h.dtype)
@@ -468,18 +560,57 @@ class LARP_AR(nn.Module):
     def forward(self, idx, cond_idx, targets=None, valid=None, train: bool = False,
                 generator: Optional[torch.Generator] = None):
         """Teacher forcing: (logits [B, S, V], mean NLL of `targets` or None).
-        `train=True` applies the dropouts, drawing from `generator`."""
-        if train and self.config.remat:
-            raise NotImplementedError(_REMAT)
+        `train=True` applies the dropouts, drawing from `generator`; with
+        `remat` each block is recomputed in the backward. Under TP the
+        logits are this rank's vocabulary columns where the head is split."""
         h = self.embed_inputs(idx, cond_idx, train, generator)
+        tp = self.tp
+        sp = tp is not None and tp.seq_sharded(h.shape[1])
+        if sp:
+            h = tp.scatter_seq(h)
+        remat = train and self.config.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            h = layer(h, train, generator)
-        logits = self.head(h)
+            masks = layer.draw_masks(h, train, generator, sp)  # outside the recompute
+            if remat:
+                h = checkpoint_block(layer, h, masks=masks, sp=sp)
+            else:
+                h = layer(h, masks=masks, sp=sp)
+        if tp is None:
+            logits = self.head(h)
+        else:
+            h = tp.replicated(self.norm, h, sp)
+            if self.vocab_parallel_head:  # column-parallel: partial input gradients
+                logits = self.output(tp.enter(h, sp))
+            else:  # replicated: every rank computes the whole head alike
+                logits = self.output(tp.gather_seq(h) if sp else h)
+            logits = logits[:, self.cls_token_num - 1:]
         loss = None
         if targets is not None:
-            nll_sum, n = ar_sequence_loss(logits, targets, valid)
+            if self.vocab_parallel_head:
+                from ..parallel.tp import vocab_parallel_nll
+
+                nll = vocab_parallel_nll(logits, targets, tp)
+                if valid is not None:
+                    v = valid[:, None].to(nll.dtype).expand_as(nll)
+                    nll_sum, n = torch.sum(nll * v), torch.sum(v)
+                else:
+                    nll_sum = torch.sum(nll)
+                    n = torch.tensor(float(nll.numel()), device=nll.device)
+            else:
+                nll_sum, n = ar_sequence_loss(logits, targets, valid)
             loss = nll_sum / torch.clamp(n, min=1)
         return logits, loss
+
+    def topk_accuracy(self, logits: torch.Tensor, targets: torch.Tensor) -> dict:
+        """Top-1 / top-5 accuracy of `forward`'s logits (over the shards of a
+        vocab-parallel head)."""
+        if self.vocab_parallel_head:
+            from ..parallel.tp import vocab_parallel_topk_accuracy
+
+            return vocab_parallel_topk_accuracy(logits, targets, self.tp)
+        from ..metrics.statistics import topk_accuracy
+
+        return topk_accuracy(logits, targets)
 
     # ------------------------------------------------------------ sampling
 

@@ -21,7 +21,9 @@ Counterpart of `video_tokenizer_tpu/models/larp_tokenizer.py`:
   * decoder: latents + 1D sin-cos PE attend together with 3D-PE patch
     queries; `OutputLayer` (LN eps 1e-6 + zero-initialised Linear);
     unpatchify to BCTHW.
-`dtype` is the compute dtype of the patch embed, the ViT stacks and the
+`remat=True` recomputes each block of both ViT stacks in the backward
+(the JAX module's `remat`, `models/transformer.py`). `dtype` is the
+compute dtype of the patch embed, the ViT stacks and the
 output layer (parameters stay fp32), mirroring the JAX module's casts one
 for one. Parameter and buffer names are the upstream torch checkpoint's,
 the fixed sin-cos PEs included (persistent buffers), so an upstream `.pth`
@@ -112,6 +114,7 @@ class LARPTokenizer(nn.Module):
         sq_embed_dim: int = 24,
         fsq_norm_after_proj: bool = False,
         vq_eval_deterministic: bool = True,
+        remat: bool = False,
         dtype: torch.dtype = torch.float32,
         generator: Optional[torch.Generator] = None,
         device=None,
@@ -203,8 +206,8 @@ class LARPTokenizer(nn.Module):
         if use_decoder_patch_query_token_type_embed:
             self.decoder_patch_query_token_type_embed = param(1, 1, dec_d)
 
-        self.encoder = ViTStack(enc_d, encoder_depth, encoder_num_heads, **kw)
-        self.decoder = ViTStack(dec_d, decoder_depth, decoder_num_heads, **kw)
+        self.encoder = ViTStack(enc_d, encoder_depth, encoder_num_heads, remat=remat, **kw)
+        self.decoder = ViTStack(dec_d, decoder_depth, decoder_num_heads, remat=remat, **kw)
 
         self.fsq_norm_after_proj = fsq_norm_after_proj
         if bottleneck_type == "vq":

@@ -48,6 +48,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import sincos
+from ..parallel.mesh import batch_mean, draw_normal
 from ..registry import models
 from .embed import PatchEmbed3D, PatchProjection, VideoPatchEmbed
 from .layers import Dense, LayerNorm
@@ -76,7 +77,7 @@ def ns_d_loss(logits_real, logits_fake):
 
 def smooth_targets(shape, generator: torch.Generator, device=None):
     """One-side smoothed labels: real 1 - 0.15 |N| (>= 0.7), fake 0.15 |N| (<= 0.3)."""
-    n = torch.randn((2, *shape), generator=generator).to(device)
+    n = draw_normal((2, *shape), generator, batch_dim=1).to(device)  # the global batch's
     return (torch.clamp(1.0 - n[0].abs() * 0.15, min=0.7),
             torch.clamp(n[1].abs() * 0.15, max=0.3))
 
@@ -287,7 +288,9 @@ class VQLPIPSWithDiscriminator(nn.Module):
             logits_real = self._discriminate(inputs, weights)
             r1_gp = torch.zeros((), device=inputs.device)
         logits_fake = self._discriminate(reconstructions.detach(), weights)
-        real_mean, fake_mean = torch.mean(logits_real.float()), torch.mean(logits_fake.float())
+        # the global batch's means under a data axis (LeCam is nonlinear in them)
+        real_mean = batch_mean(torch.mean(logits_real.float()))
+        fake_mean = batch_mean(torch.mean(logits_fake.float()))
         if self.lecam_weight > 0.0:
             lecam_loss = self.lecam_weight * lecam_reg(
                 real_mean, fake_mean, self.lecam_ema_real, self.lecam_ema_fake)

@@ -44,11 +44,22 @@ attention: head h reads KV head h // (H // Hkv)).
   `tests/test_torch_tf32x3.py`); nothing else calls them.
 * `attention` is differentiable through `FlashAttention`, a
   `torch.autograd.Function` whose forward is the flash forward with LSE and
-  whose backward is `flash_attn_bwd`. `attention_with_lse` has no backward
-  yet (only ring attention needs one): under grad on a card it raises.
+  whose backward is `flash_attn_bwd`. `attention_with_lse` is differentiable
+  in both outputs through `FlashAttentionLSE`: since d lse_i / d s_ij =
+  p_ij, the LSE's cotangent enters the same kernels as delta - dlse
+  (`flash_attn_bwd(..., dlse=...)`), the JAX `_pallas_attention_lse` VJP.
+* Inside `parallel.ring.ring_sequence` (cfg `mesh_seq: N`) every `attention`
+  call with no segment ids, Sq == Sk, no other causal offset than 0 and S
+  divisible by the ring routes through ring attention
+  (`parallel/ring.py`); every other call runs as here. A block under
+  remat goes through `checkpoint_block`, whose recompute re-enters the ring
+  that its forward ran under (on a card autograd recomputes on a thread of
+  its own, which sees no `ring_sequence`).
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -170,11 +181,13 @@ def _mask(B: int, Sq: int, Sk: int, causal: bool, segment_ids, kv_segment_ids,
 def attention_bwd_reference(
     q, k, v, out, lse, do, causal: bool = False, segment_ids=None, kv_segment_ids=None,
     sm_scale: Optional[float] = None, causal_offset: Optional[int] = None,
+    dlse: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain backward of `attention_reference`: (dq, dk, dv) in the inputs' dtypes.
 
     The recompute the kernels do, in fp32: P = exp(s - lse) on visible pairs,
-    dS = P * (dP - delta) with delta = rowsum(out * do), dq = dS k * scale,
+    dS = P * (dP - delta) with delta = rowsum(out * do) (minus `dlse`
+    [B, H, Sq], the LSE's cotangent, when given), dq = dS k * scale,
     dk = dS^T q * scale, dv = P^T do, then the GQA group sums. A query row
     that sees no key has lse = the mask value; its forward is the mean of V,
     so it gets P = 1/Sk on every key (and no dS), not exp(s - lse)."""
@@ -193,8 +206,10 @@ def attention_bwd_reference(
     p = torch.where(lse < 0.5 * DEFAULT_MASK_VALUE, 1.0 / Sk, p)  # rows that see no key
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
-    delta = torch.einsum("bqhd,bqhd->bhq", out.float(), dof)[..., None]
-    ds = torch.where(mask, p * (dp - delta), 0.0)
+    delta = torch.einsum("bqhd,bqhd->bhq", out.float(), dof)
+    if dlse is not None:
+        delta = delta - dlse.float()
+    ds = torch.where(mask, p * (dp - delta[..., None]), 0.0)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
     if rep > 1:
@@ -754,12 +769,17 @@ for _kernel in (flash_attn_bwd_dq, flash_attn_bwd_dkv):
 def flash_attn_bwd(
     q, k, v, out, lse, do, *, causal: bool = False, segment_ids=None, kv_segment_ids=None,
     sm_scale: Optional[float] = None, causal_offset: Optional[int] = None,
+    dlse: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Flash backward: (dq, dk, dv) from the forward's out and fp32 lse [B,H,Sq]
-    and the output gradient do [B,Sq,H,D]. q, k, v, do may be strided views."""
+    and the output gradient do [B,Sq,H,D]. q, k, v, do may be strided views.
+    `dlse` [B,H,Sq], the cotangent of the LSE (`attention_with_lse`), enters
+    as delta - dlse: the kernels take delta as an input. `out` and `lse` may
+    be statistics of a larger softmax than these keys' (ring attention's
+    block gradients): the kernels never renormalise."""
     if q.device.type == "cpu":
         return attention_bwd_reference(q, k, v, out, lse, do, causal, segment_ids,
-                                       kv_segment_ids, sm_scale, causal_offset)
+                                       kv_segment_ids, sm_scale, causal_offset, dlse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attn_bwd: no kernel for device {q.device}")
     _check_shapes("flash_attn_bwd", q, k, v)
@@ -780,7 +800,10 @@ def flash_attn_bwd(
     scale = sm_scale if sm_scale is not None else D ** -0.5
     offset = causal_offset if causal_offset is not None else Sk - Sq
     # delta = rowsum(out * do) in fp32, as the JAX package computes it outside its kernels
-    delta = torch.einsum("bqhd,bqhd->bhq", out.float(), do.float()).contiguous()
+    delta = torch.einsum("bqhd,bqhd->bhq", out.float(), do.float())
+    if dlse is not None:
+        delta = delta - dlse.float()
+    delta = delta.contiguous()
     if not (q.numel() and Sk):
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     dq = flash_attn_bwd_dq(q, k, v, do, lse, delta, q_seg, k_seg, causal, offset, scale)
@@ -823,6 +846,79 @@ def _needs_grad(*xs) -> bool:
     return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
 
 
+class FlashAttentionLSE(torch.autograd.Function):
+    """Differentiable (out, lse) flash attention: the backward takes the
+    cotangents of both outputs and runs `flash_attn_bwd` with delta - dlse
+    (the JAX `_pallas_attention_lse` VJP, there a recompute through XLA)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, segment_ids, kv_segment_ids, causal, sm_scale, causal_offset):
+        out, lse = flash_attn_fwd(
+            q, k, v, causal=causal, segment_ids=segment_ids, kv_segment_ids=kv_segment_ids,
+            sm_scale=sm_scale, causal_offset=causal_offset, return_lse=True,
+        )
+        ctx.save_for_backward(q, k, v, out, lse, segment_ids, kv_segment_ids)
+        ctx.causal, ctx.sm_scale, ctx.causal_offset = causal, sm_scale, causal_offset
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, out, lse, seg, kv_seg = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(out)
+        elif do.stride(-1) != 1:
+            do = do.contiguous()
+        dq, dk, dv = flash_attn_bwd(
+            q, k, v, out, lse, do, causal=ctx.causal, segment_ids=seg, kv_segment_ids=kv_seg,
+            sm_scale=ctx.sm_scale, causal_offset=ctx.causal_offset, dlse=dlse,
+        )
+        return dq, dk, dv, None, None, None, None, None
+
+
+class _RingAmbient(threading.local):
+    cfg = None  # a parallel.ring.RingGroup while `ring_sequence` is entered
+
+
+_ring_ambient = _RingAmbient()
+
+
+class ring_as:
+    """Context: `attention` calls ring over `ring` (a `parallel.ring.RingGroup`,
+    or None: no ring) on this thread until it exits."""
+
+    def __init__(self, ring):
+        self.ring = ring
+
+    def __enter__(self):
+        self.saved, _ring_ambient.cfg = _ring_ambient.cfg, self.ring
+        return self
+
+    def __exit__(self, *exc):
+        _ring_ambient.cfg = self.saved
+
+
+def checkpoint_block(fn, *args, **kwargs):
+    """`torch.utils.checkpoint` (non-reentrant) of a block that may call
+    `attention`: the recompute runs under the ring that the forward saw. On
+    a card autograd runs the backward, and so the recompute, on a thread of
+    its own, where no `ring_sequence` is entered; without this the recompute
+    would take the one-device attention and save other tensors than the
+    forward did. The ring is the only ambient state that a block reads (the
+    blocks' masks are drawn outside the checkpoint and passed in)."""
+    from torch.utils.checkpoint import checkpoint
+
+    ring = _ring_ambient.cfg
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(), ring_as(ring)), **kwargs)
+
+
+def _rings(q, k, segment_ids, kv_segment_ids, causal_offset) -> bool:
+    ring = _ring_ambient.cfg
+    return (ring is not None and segment_ids is None and kv_segment_ids is None
+            and q.shape[1] == k.shape[1] and not causal_offset
+            and q.shape[1] % ring.size == 0)
+
+
 def attention(
     q, k, v, *, causal: bool = False, segment_ids=None, kv_segment_ids=None,
     sm_scale: Optional[float] = None, causal_offset: Optional[int] = None,
@@ -831,7 +927,13 @@ def attention(
 
     `causal_offset` (default Sk - Sq): query i attends keys j <= i + offset.
     `segment_ids` [B,Sq] (and `kv_segment_ids` [B,Sk], default the same):
-    pairs attend iff their ids are equal. Differentiable in q, k and v."""
+    pairs attend iff their ids are equal. Differentiable in q, k and v.
+    Inside `parallel.ring.ring_sequence`, an eligible call rings (module
+    docstring)."""
+    if _rings(q, k, segment_ids, kv_segment_ids, causal_offset):
+        from ..parallel.ring import ring_attention
+
+        return ring_attention(q, k, v, _ring_ambient.cfg, causal=causal, sm_scale=sm_scale)
     if _needs_grad(q, k, v):
         return FlashAttention.apply(q, k, v, segment_ids, kv_segment_ids, causal, sm_scale,
                                     causal_offset)
@@ -847,15 +949,10 @@ def attention_with_lse(
     sm_scale: Optional[float] = None, causal_offset: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Like `attention`, plus the fp32 log-sum-exp of every query row [B,H,Sq].
-
-    No backward yet: on a card, under grad, it raises rather than return
-    outputs that are silently cut from the graph (ring attention, which needs
-    the gradient of both outputs, is ROADMAP.md 'Still to port', item 8)."""
-    if q.device.type == "cuda" and _needs_grad(q, k, v):
-        raise NotImplementedError(
-            "attention_with_lse has no backward on the card yet "
-            "(ROADMAP.md, 'Still to port', item 8)"
-        )
+    Differentiable in q, k and v through both outputs (`FlashAttentionLSE`)."""
+    if _needs_grad(q, k, v):
+        return FlashAttentionLSE.apply(q, k, v, segment_ids, kv_segment_ids, causal, sm_scale,
+                                       causal_offset)
     return flash_attn_fwd(
         q, k, v, causal=causal, segment_ids=segment_ids,
         kv_segment_ids=kv_segment_ids, sm_scale=sm_scale,

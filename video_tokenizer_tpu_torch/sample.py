@@ -58,7 +58,8 @@ Videos go to `<output_dir>/videos` from a pool of 4 threads, joined before
 the shards are saved: `.mp4` (mp4v, 25 fps, the JAX CLI's writer) where
 `cv2` imports, else `.npy` arrays [3, T, H, W] in [0, 1]; the run says which
 it wrote, and a write that fails raises. Meshes (`--mesh_model` /
-`--mesh_data` above 1) are refused (ROADMAP.md, 'Still to port', item 8).
+`--mesh_data` above 1) are refused: serving over a mesh is ROADMAP.md item 8b
+(slice 23).
 """
 from __future__ import annotations
 
@@ -180,9 +181,9 @@ def check_mode_args(args) -> None:
     """Refuses the sampling flags this CLI cannot serve, before any model is
     built."""
     if args.mesh_model != 1 or args.mesh_data > 1:
-        raise SystemExit(f"--mesh_model {args.mesh_model} --mesh_data {args.mesh_data}: meshes "
-                         "are not ported (ROADMAP.md, 'Still to port', item 8); one device, "
-                         "--mesh_model 1")
+        raise SystemExit(f"--mesh_model {args.mesh_model} --mesh_data {args.mesh_data}: serving "
+                         "over a mesh is not ported (ROADMAP.md, item 8b: slice 23); one "
+                         "device, --mesh_model 1")
     if args.frame_prediction and not args.csv_file:
         raise SystemExit("--frame_prediction needs --csv_file: the prompt is made from the "
                          "first frames of real clips")

@@ -8,9 +8,19 @@ same `$var$` substitution and dotted `--opts` merge (`load_config` of
 (default `cuda`; there is no CPU fallback: a missing card is an error, and
 `--device cpu` must be asked for).
 
+Several devices: one process per device under `torchrun` (`RANK`,
+`WORLD_SIZE`, `LOCAL_RANK`; each process on `cuda:LOCAL_RANK` over NCCL, or
+over gloo with `--device cpu`); `-b` stays the global batch, and the
+config's `mesh_model`, `mesh_seq`, `sequence_parallel` and
+`param_placement` lay the ranks out (`trainers/base_trainer.py`).
+`--dist_url` replaces torchrun's `env://` rendezvous (a `file://` path, or
+`tcp://host:port`).
+
 Usage:
   python -m video_tokenizer_tpu_torch.train --cfg cfgs/larp_tokenizer.yaml \
       --csv_file null128 -b 8 -j 0 --device cuda --opts max_epoch 1 eval_epoch 99 vis_epoch 99
+  torchrun --nproc_per_node 4 -m video_tokenizer_tpu_torch.train --cfg cfgs/larp_ar_xxxl.yaml \
+      --csv_file null128 -b 8 -j 0 --opts vae.checkpoint <tokenizer run>/epoch-final
 """
 from __future__ import annotations
 
@@ -36,6 +46,8 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     parser.add_argument("--opts", type=str, nargs="*", default=[])
     parser.add_argument("--manualSeed", type=int, default=-1)
     parser.add_argument("--device", default="cuda", help="cuda, cuda:N or cpu")
+    parser.add_argument("--dist_url", default=None,
+                        help="rendezvous of a multi-process run (default: torchrun's env://)")
     return parser.parse_args(argv)
 
 
@@ -57,6 +69,8 @@ def make_cfg(args):
     tag = f"_{args.tag}" if args.tag else ""
     cfg["save_dir"] = os.path.join(args.out_path, f"{name}{tag}")
     cfg["batch_size"] = args.batch_size
+    if args.dist_url:
+        cfg["dist_url"] = args.dist_url
     return cfg
 
 

@@ -26,9 +26,16 @@ function (the replicated layout only):
   * the epoch loop, preemption, `profile_steps` and the writers are the
     base trainer's (this trainer keeps its `train_epoch`).
 The JAX trainer computes in fp32 whatever `use_amp` says (it sets a compute
-dtype that nothing reads), and so does this one. Not ported (each raises
-NotImplementedError): meshes and sharded placements (in `BaseTrainer`),
-remat (ROADMAP.md, 'Still to port', item 8).
+dtype that nothing reads), and so does this one. `model.args.remat`
+recomputes the prior's blocks in the backward (`models/larp_ar.py`).
+Under a mesh (`BaseTrainer`): `mesh_model` splits the prior Megatron-style
+(`parallel.tp.shard_larp_ar`, with `sequence_parallel`), `param_placement:
+fsdp` shards its parameters, AdamW moments and EMAs over the data axis, and
+the replicated gradients are averaged over the data axis; the loss and the
+top-k accuracy run over a vocab-parallel head without gathering logits
+(`LARP_AR.topk_accuracy`). `visualize_epoch` samples on rank 0 under plain
+data parallelism; over split or sharded weights it logs that sampling over
+a mesh is ROADMAP.md item 8b and skips.
 """
 from __future__ import annotations
 
@@ -41,8 +48,8 @@ import torch
 
 from .. import registry
 from ..generation import generate
-from ..metrics import statistics as stats
 from ..models.layers import Dense
+from ..parallel import fsdp as fsdp_lib
 from ..registry import trainers
 from ..utils import common
 from ..utils.model_io import load_tokenizer_checkpoint
@@ -112,15 +119,15 @@ class _ARTrainerBase(BaseTrainer):
             num_classes = getattr(self.train_dataset, "num_classes", None)
             if num_classes:
                 args["num_classes"] = num_classes
-        if args.get("remat", False):
-            raise NotImplementedError(
-                "remat is not ported yet (ROADMAP.md, 'Still to port', item 8)")
         # built on the host from the seed, then moved (the init draws on the CPU)
         self.model = registry.models.make(
             {"name": self.cfg["model"]["name"], "args": args},
             args={"generator": torch.Generator().manual_seed(self.seed)}).to(self.device)
         self.model_cfg = self.model.config
         self.log(f"AR model params: {common.compute_num_params(self.model)}")
+        from ..parallel.tp import shard_larp_ar
+
+        self.place_model(self.model, self.model.layers, shard_larp_ar)
 
         opt_cfg = self.cfg["optimizer"]
         self.sched = make_lr_schedule(opt_cfg, float(opt_cfg["args"]["lr"]),
@@ -159,7 +166,7 @@ class _ARTrainerBase(BaseTrainer):
         cond, z = self._make_cond_and_targets(batch)
         logits, loss = self.model(z[:, :-1], cond, targets=z, train=train,
                                   generator=self.dropout_gen if train else None)
-        return loss, {"loss": loss.detach(), **stats.topk_accuracy(logits.detach(), z)}
+        return loss, {"loss": loss.detach(), **self.model.topk_accuracy(logits.detach(), z)}
 
     def _pack(self, info: Dict[str, torch.Tensor]) -> Tuple[List[str], torch.Tensor]:
         keys = sorted(info)
@@ -186,9 +193,10 @@ class _ARTrainerBase(BaseTrainer):
                 if p.grad is not None:
                     p.grad.div_(A)
             info = {k: v / A for k, v in info.items()}
+        self.sync_grads()
         for group in self.opt.param_groups:
             group["lr"] = self.sched(self.step)
-        self.opt.step()
+        fsdp_lib.optimizer_step(self.opt)
         if self.ema_params:
             params = dict(self.model.named_parameters())
             for d, ema in self.ema_params.items():
@@ -231,6 +239,12 @@ class _ARTrainerBase(BaseTrainer):
         """`vis/samples_ep<epoch>.png`: min(sample_batch_size, 4) sampled
         videos, one row of frames each. A failure is logged: visualization
         never stops training (the JAX trainer's rule)."""
+        if self.placement == "fsdp" or self.tp is not None:
+            self.log("visualize_epoch: sampling over split or sharded weights is ROADMAP.md "
+                     "item 8b (slice 23); skipped")
+            return
+        if not self.is_master:
+            return
         try:
             cond = self._sample_conditions(min(self.sample_batch_size, 4))
             gen = torch.Generator(device=self.device).manual_seed(
@@ -275,20 +289,23 @@ class _ARTrainerBase(BaseTrainer):
         meta["vae"] = _plain(self.cfg["vae"])
         return meta
 
-    def state_for_checkpoint(self) -> Dict[str, Any]:
+    def state_for_checkpoint(self, on_every_rank: bool = False) -> Dict[str, Any]:
+        lay, keep = self.layout, on_every_rank
         return {
-            "params": self.model.state_dict(),
-            "opt": self.opt.state_dict(),
-            "ema_params": self.ema_params,
+            "params": fsdp_lib.full_state_dict(self.model, lay, keep),
+            "opt": fsdp_lib.full_optimizer_state(self.opt, self.model, lay, keep),
+            "ema_params": {d: fsdp_lib.full_tensors(e, self.model, lay, keep)
+                           for d, e in self.ema_params.items()},
             "step": self.step,
             "rng": {k: g.get_state() for k, g in self._generators().items()},
         }
 
     def load_state(self, state: Dict[str, Any]):
-        self.model.load_state_dict(state["params"])
-        self.opt.load_state_dict(state["opt"])
-        self.ema_params = {d: {n: t.to(self.device) for n, t in ema.items()}
-                           for d, ema in state["ema_params"].items()}
+        lay = self.layout
+        fsdp_lib.load_full_state_dict(self.model, state["params"], lay)
+        fsdp_lib.load_optimizer_state(self.opt, self.model, state["opt"], lay)
+        self.ema_params = {d: fsdp_lib.placed_tensors(e, self.model, lay)
+                           for d, e in state["ema_params"].items()}
         self.step = int(state["step"])
         gens = self._generators()
         for k, s in state.get("rng", {}).items():

@@ -34,12 +34,39 @@ Counterpart of `video_tokenizer_tpu/trainers/base_trainer.py`:
     epoch means as `train/<key>`, each eval set's as `eval_<name>/<key>`.
 The step's telemetry stays on the device and is fetched once per epoch.
 One process drives one device (`device`, explicit; there is no CPU
-fallback when it is a card that is missing). Not ported: meshes, FSDP and
-TP (`mesh_model`, `mesh_pipe`, `mesh_seq`, `param_placement`: ROADMAP.md,
-'Still to port', item 8).
+fallback when it is a card that is missing).
+
+Multi-device training (the JAX `base_trainer.py:81-102`): under `torchrun`
+(or with `mesh_model`, `mesh_seq` or `param_placement: fsdp` at one rank)
+the trainer joins the process group (`parallel.mesh.init_distributed`:
+NCCL on `cuda:LOCAL_RANK`, gloo for `--device cpu`) and builds the
+("data", "seq", "model") mesh from `mesh_model` and `mesh_seq`; at one
+process with none of these the path is the one-device one. Then:
+  * the batch size is the global batch, as in the JAX package: each data
+    index loads only its rows of each global batch, in the order one
+    process loads them (`make_loader`'s `rows`), and every random draw of
+    a step is made for the global batch (`parallel.mesh.global_batch`
+    around the step), so N ranks draw the masks of one process at the same
+    seed;
+  * `place_model` splits a model over the model axis, shards it with FSDP2
+    over the data axis (`param_placement: fsdp`, `fsdp_min_size`) and
+    records which gradients `sync_grads` averages itself;
+  * the step runs inside `ring_sequence` when `mesh_seq` > 1;
+  * only rank 0 writes logs, TensorBoard, wandb, the CSV and checkpoints;
+    checkpoints hold whole state dicts in the one-device format (gathered
+    one tensor at a time by every rank, kept on rank 0's host only), so a
+    run saved at N ranks resumes at any count;
+  * the SIGTERM flag is all-reduced at each boundary over a gloo group
+    (host memory: the card's queue does not wait), so every rank stops at
+    the same step;
+  * the step's scalars are averaged over the data axis once per epoch;
+    eval batches are computed whole on every rank.
+`mesh_pipe` > 1 (GPipe, `parallel/pp.py`) is not ported (ROADMAP.md, item
+8b, slice 23).
 """
 from __future__ import annotations
 
+import contextlib
 import csv as _csv
 import glob
 import math
@@ -55,10 +82,13 @@ from typing import Any, Callable, Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import yaml
 
 from .. import registry
 from ..data.loader import make_loader
+from ..parallel import fsdp as fsdp_lib
+from ..parallel.mesh import Layout, MeshConfig, create_mesh, global_batch, init_distributed
 from ..utils import checkpoint as ckpt_lib
 from ..utils import common
 
@@ -118,19 +148,40 @@ class BaseTrainer:
         self.device = torch.device(device if device is not None else cfg.get("device", "cuda"))
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {self.device} requested, but torch sees no CUDA device")
-        for knob in ("mesh_model", "mesh_pipe", "mesh_seq"):
-            if int(cfg.get(knob, 1)) > 1:
-                raise NotImplementedError(
-                    f"{knob} > 1 is not ported yet (ROADMAP.md, 'Still to port', item 8)")
-        if str(cfg.get("param_placement", "replicated")) != "replicated":
+        if int(cfg.get("mesh_pipe", 1)) > 1:
             raise NotImplementedError(
-                "param_placement other than 'replicated' is not ported yet "
-                "(ROADMAP.md, 'Still to port', item 8)")
+                "mesh_pipe > 1 (GPipe) is not ported yet (ROADMAP.md, item 8b: slice 23)")
+        self.placement = str(cfg.get("param_placement", "replicated"))
+        if self.placement not in ("replicated", "fsdp"):
+            raise ValueError(f"param_placement {self.placement!r}: 'replicated' or 'fsdp'")
+        n_model, n_seq = int(cfg.get("mesh_model", 1)), int(cfg.get("mesh_seq", 1))
+        mesh_cfg = MeshConfig(model=n_model, seq=n_seq)
+        world = int(os.environ.get("WORLD_SIZE", "1"))
+        mesh_cfg.resolve(dist.get_world_size() if dist.is_initialized() else world)  # refuse early
+        mesh = None
+        if dist.is_initialized() or world > 1 or n_model > 1 or n_seq > 1 or self.placement == "fsdp":
+            _, _, self.device = init_distributed(str(self.device), cfg.get("dist_url"), force=True)
+            mesh = create_mesh(mesh_cfg, self.device.type)
+        self.layout = Layout(mesh)
+        self.is_master = self.layout.is_master
+        # the SIGTERM flag's group: on the host, whatever the device's backend
+        self._flag_group = (dist.new_group(backend="gloo")
+                            if self.layout.distributed and dist.get_world_size() > 1 else None)
+        if self.layout.distributed:  # one seed for every rank (the CLI draws one when none is given)
+            seed = [int(cfg.get("manualSeed", 0) or 0)]
+            dist.broadcast_object_list(seed, src=0)
+            cfg["manualSeed"] = seed[0]
         self.save_dir = cfg.get("save_dir", cfg.get("out_path", "save/run"))
-        common.ensure_path(self.save_dir)
-        with open(os.path.join(self.save_dir, "cfg.yaml"), "w") as f:
-            yaml.safe_dump(_plain(cfg), f, sort_keys=False)
-        self.logger = common.set_logger(os.path.join(self.save_dir, "log.txt"))
+        if self.is_master:
+            common.ensure_path(self.save_dir)
+            with open(os.path.join(self.save_dir, "cfg.yaml"), "w") as f:
+                yaml.safe_dump(_plain(cfg), f, sort_keys=False)
+        self.logger = common.set_logger(os.path.join(self.save_dir, "log.txt")
+                                        if self.is_master else None)
+        if self.layout.distributed:
+            lay = self.layout
+            self.log(f"mesh data {lay.data_size} x seq {lay.seq_size} x model {lay.model_size} "
+                     f"on {self.device}, placement {self.placement}")
         self.writer = self._make_tb_writer()
         self.wandb = self._make_wandb()
 
@@ -149,7 +200,7 @@ class BaseTrainer:
     # ------------------------------------------------------------------ infra
 
     def _make_tb_writer(self):
-        if not self.cfg.get("enable_tb", True):
+        if not self.is_master or not self.cfg.get("enable_tb", True):
             return None
         # tensorboard's own stub does the event files' I/O: tensorboard picks
         # its TF API once, when the first writer opens, and without the `notf`
@@ -172,7 +223,7 @@ class BaseTrainer:
                 del sys.modules[notf]
 
     def _make_wandb(self):
-        if not self.cfg.get("wandb_upload", False):
+        if not self.is_master or not self.cfg.get("wandb_upload", False):
             return None
         try:
             import wandb
@@ -191,7 +242,8 @@ class BaseTrainer:
             return None
 
     def log(self, msg: str):
-        self.logger.info(msg)
+        if self.is_master:
+            self.logger.info(msg)
 
     def log_temp_scalar(self, k: str, v: float, t=None):
         """A scalar to TensorBoard and wandb at step `t` (default: the epoch)."""
@@ -226,12 +278,14 @@ class BaseTrainer:
             self.test_workers = int(loader.get("num_workers", 0))
 
     def train_loader(self, epoch: int):
-        """One epoch of batches; the order is a function of (manualSeed, epoch)."""
+        """One epoch of batches; the order is a function of (manualSeed, epoch).
+        Under a data axis each rank loads its rows of each global batch: the
+        batch sampler of one process, each batch cut to those rows."""
         if getattr(self, "_train_loader", None) is None:
             self._train_gen = torch.Generator()
-            self._train_loader = make_loader(self.train_dataset, self.train_batch_size,
-                                             self.train_workers, shuffle=True,
-                                             generator=self._train_gen)
+            self._train_loader = make_loader(
+                self.train_dataset, self.train_batch_size, self.train_workers, shuffle=True,
+                generator=self._train_gen, rows=self.layout.batch_rows(self.train_batch_size))
         self._train_gen.manual_seed(self.seed * 1_000_003 + epoch)
         return iter(self._train_loader)
 
@@ -257,8 +311,63 @@ class BaseTrainer:
     def visualize_epoch(self):
         pass
 
-    def state_for_checkpoint(self) -> Dict[str, Any]:
+    def state_for_checkpoint(self, on_every_rank: bool = False) -> Dict[str, Any]:
+        """The trainer's state, whole (one-device format), on the host: under
+        a mesh a collective that every rank calls, whose sharded parts rank 0
+        keeps (every rank with `on_every_rank`)."""
         raise NotImplementedError
+
+    # ------------------------------------------------------------ the mesh
+
+    def place_model(self, model: torch.nn.Module, blocks, tp_shard=None) -> None:
+        """Splits `model` over the model axis (`tp_shard(model, tp)`, with
+        `sequence_parallel`) and shards it with FSDP2 over the data axis under
+        `param_placement: fsdp` (`blocks`: the modules sharded one by one).
+        Before any optimizer is built. Records `replicated_params` (averaged
+        by `sync_grads`) and `tp_params` (split over the model axis)."""
+        from ..parallel.tp import ModelParallel
+
+        lay = self.layout
+        self.tp = None
+        if lay.model_size > 1:
+            if tp_shard is None:
+                raise NotImplementedError(f"mesh_model > 1: no tensor-parallel split of "
+                                          f"{type(model).__name__}")
+            self.tp = ModelParallel(lay.model_group, bool(self.cfg.get("sequence_parallel", False)))
+            tp_shard(model, self.tp)
+        if self.placement == "fsdp":
+            min_size = int(self.cfg.get("fsdp_min_size", fsdp_lib.FSDP_MIN_SIZE))
+            self.replicated_params = fsdp_lib.shard_module(model, list(blocks), lay.mesh["data"],
+                                                           min_size)
+        else:
+            self.replicated_params = list(model.parameters())
+        specs = getattr(model, "_tp_specs", {})
+        self.tp_params = {p for n, p in model.named_parameters() if n in specs}
+
+    def sync_grads(self, params=None) -> None:
+        """Averages the replicated gradients over the data axis (FSDP2
+        reduce-scatters its own)."""
+        if self.layout.data_size > 1:
+            fsdp_lib.sync_grads(self.replicated_params if params is None else params,
+                                self.layout.data_group, self.layout.data_size)
+
+    def step_context(self, n_rows: int):
+        """Around a step (forward and backward): the global-batch draws and,
+        with `mesh_seq` > 1, the ring."""
+        stack = contextlib.ExitStack()
+        lay = self.layout
+        if lay.distributed:
+            stack.enter_context(global_batch(lay.batch_rows(n_rows), n_rows, lay.data_rank,
+                                             lay.data_size, lay.data_group))
+            if lay.seq_size > 1:
+                from ..parallel.ring import ring_sequence
+
+                stack.enter_context(ring_sequence(lay.seq_group))
+        return stack
+
+    def barrier(self) -> None:
+        if self.layout.distributed:
+            dist.barrier()
 
     def load_state(self, state: Dict[str, Any]):
         raise NotImplementedError
@@ -277,16 +386,19 @@ class BaseTrainer:
     def save_checkpoint(self, name: str, save_best: bool = False):
         path = os.path.join(self.save_dir, name)
         t0 = time.time()
-        ckpt_lib.save_checkpoint(path, self._full_state(), self.checkpoint_meta())
+        state = self._full_state()  # every rank gathers
+        if self.is_master:
+            ckpt_lib.save_checkpoint(path, state, self.checkpoint_meta())
+        self.barrier()
         self.log(f"checkpoint saved to {path} ({time.time() - t0:.1f}s)")
         if save_best:
-            self._maybe_save_best()
+            self._maybe_save_best(state)
 
-    def _maybe_save_best(self):
+    def _maybe_save_best(self, state: Dict[str, Any]):
         """Keeps a single `best_fvd_<value>` checkpoint: written when this
         eval's FVD is below the value in the existing directory's name (or
         there is none), which it then replaces."""
-        if self.current_fvd >= 99999.0:
+        if self.current_fvd >= 99999.0 or not self.is_master:
             return
         existing = glob.glob(os.path.join(self.save_dir, "best_fvd_*"))
         best_prev = None
@@ -300,7 +412,7 @@ class BaseTrainer:
         for p in existing:
             shutil.rmtree(p, ignore_errors=True)
         name = f"best_fvd_{self.current_fvd:.2f}"
-        ckpt_lib.save_checkpoint(os.path.join(self.save_dir, name), self._full_state(),
+        ckpt_lib.save_checkpoint(os.path.join(self.save_dir, name), state,
                                  self.checkpoint_meta())
         self.best_fvd = self.current_fvd
         self.log(f"new best checkpoint: {name}")
@@ -312,7 +424,9 @@ class BaseTrainer:
         keep = {k: v for k, v in state.items()
                 if k in ("params", "ema_params", "loss_params", "step")}
         path = os.path.join(self.save_dir, "epoch-final")
-        ckpt_lib.save_checkpoint(path, keep, self.checkpoint_meta())
+        if self.is_master:
+            ckpt_lib.save_checkpoint(path, keep, self.checkpoint_meta())
+        self.barrier()
         self.log(f"final slim checkpoint saved to {path}")
 
     def try_resume(self) -> bool:
@@ -337,7 +451,7 @@ class BaseTrainer:
         if not path or not ckpt_lib.checkpoint_exists(path):
             return
         state = ckpt_lib.restore_checkpoint(path)
-        warm = self.state_for_checkpoint()
+        warm = self.state_for_checkpoint(on_every_rank=True)  # every rank loads it back
         for k in ("params", "loss_params", "ema_params"):
             if k in state and k in warm:
                 warm[k] = state[k]
@@ -386,8 +500,14 @@ class BaseTrainer:
 
     def _maybe_preempt(self):
         """Checkpoint and exit if a SIGTERM is pending: called after every
-        step, after every eval step and between the epoch's phases."""
-        if getattr(self, "_preempt_requested", False):
+        step, after every eval step and between the epoch's phases. Under a
+        mesh the flag is all-reduced, so every rank stops at this boundary."""
+        requested = getattr(self, "_preempt_requested", False)
+        if self._flag_group is not None:  # a host all-reduce: no wait for the card
+            flag = torch.tensor([int(requested)])
+            dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self._flag_group)
+            requested = bool(flag.item())
+        if requested:
             self._checkpoint_on_preempt()
 
     def _checkpoint_on_preempt(self):
@@ -401,8 +521,11 @@ class BaseTrainer:
         if not epoch_done:
             position["resume_skip_steps"] = getattr(self, "_epoch_step", 0)
         path = os.path.join(self.save_dir, "epoch-last")
-        ckpt_lib.save_checkpoint(path, {**self._full_state(), **position},
-                                 {**self.checkpoint_meta(), **position})
+        state = self._full_state()
+        if self.is_master:
+            ckpt_lib.save_checkpoint(path, {**state, **position},
+                                     {**self.checkpoint_meta(), **position})
+        self.barrier()
         if self.writer is not None:
             self.writer.flush()
         self.log(f"preempted: checkpoint saved to {path}; exiting")
@@ -470,6 +593,8 @@ class BaseTrainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         prof.stop()
+        if not self.is_master:
+            return
         out = common.ensure_path(os.path.join(self.save_dir, "profile"))
         prof.export_chrome_trace(os.path.join(out, "trace.json"))
         self.log(f"profiler trace ({n_steps} steps) -> {out}")
@@ -502,11 +627,12 @@ class BaseTrainer:
                         prof = None
                 t0 = time.time()
                 self.t_data += t0 - t1
-                if prof is not None:
-                    with torch.profiler.record_function(f"train_step#{self.global_step}"):
+                with self.step_context(self.train_batch_size):
+                    if prof is not None:
+                        with torch.profiler.record_function(f"train_step#{self.global_step}"):
+                            deferred.append(self.train_step(batch))
+                    else:
                         deferred.append(self.train_step(batch))
-                else:
-                    deferred.append(self.train_step(batch))
                 self.t_model += time.time() - t0
                 self._maybe_preempt()
                 t1 = time.time()
@@ -514,6 +640,11 @@ class BaseTrainer:
             if prof is not None:  # the epoch ended (or was preempted) inside the window
                 self._stop_profile(prof, epoch_step - 1)
         ave: Dict[str, common.Averager] = {}
+        if deferred and self.layout.data_size > 1:  # the data axis's means, one all-reduce
+            stacked = torch.stack([packed for _, packed in deferred])
+            dist.all_reduce(stacked, group=self.layout.data_group)
+            deferred = [(keys, row / self.layout.data_size)
+                        for (keys, _), row in zip(deferred, stacked)]
         for keys, packed in deferred:
             for k, v in zip(keys, packed.tolist()):
                 ave.setdefault(k, common.Averager()).add(v)
@@ -529,7 +660,8 @@ class BaseTrainer:
         for name in self.test_datasets:
             ave: Dict[str, common.Averager] = {}
             for batch in self.test_loader(name):
-                ret = self.evaluate_step(batch)
+                with self.step_context(len(batch["gt"])):  # whole batches, on every rank
+                    ret = self.evaluate_step(batch)
                 self._maybe_preempt()
                 for k, v in ret.items():
                     ave.setdefault(k, common.Averager()).add(float(v), n=len(batch["gt"]))
@@ -540,6 +672,8 @@ class BaseTrainer:
             self.log(logtext)
 
     def dump_csv(self):
+        if not self.is_master:
+            return
         with open(os.path.join(self.save_dir, "results.csv"), "w", newline="") as f:
             w = _csv.writer(f)
             w.writerow(["epoch", "train_psnr", "train_loss"])

@@ -60,6 +60,17 @@ A checkpoint holds the parameters with the BatchNorm statistics (buffers of
 the model), both optimizers with their groups, the EMAs, the step and every
 generator's state, so a resumed run takes the steps an uninterrupted one
 takes.
+Under a mesh (`BaseTrainer`, the JAX `tokenizer_trainer.py:208-247`):
+`mesh_model` splits the tokenizer's ViT stacks Megatron-style
+(`parallel.tp.shard_vit`), `param_placement: fsdp` shards the generator's
+parameters, moments and EMAs over the data axis, and the discriminator stays
+replicated, its gradients averaged over the data axis; the D update's gate
+reads the data axis's mean D loss, LeCam reads the global batch's mean
+logits (`parallel.mesh.batch_mean`), the code statistics the global batch's
+indices (`parallel.mesh.gather_rows`), and the generator is clipped by its
+global norm (`parallel.fsdp.clip_grad_norm_`). A bottleneck with batch
+statistics (BatchNorm) would see only this rank's rows and is refused
+there.
 """
 from __future__ import annotations
 
@@ -68,9 +79,12 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import registry
 from ..metrics import statistics as stats
+from ..parallel import fsdp as fsdp_lib
+from ..parallel.mesh import gather_rows
 from ..registry import trainers
 from ..utils import common
 from ..utils.convert import top_level_param_names
@@ -130,6 +144,7 @@ class LARPTokenizerTrainer(BaseTrainer):
         # built on the host from the seed, then moved (the init draws on the CPU)
         self.model = registry.models.make({"name": model_spec["name"], "args": model_args})
         self.model.to(self.device)
+        self._place_generator()
         loss_spec = dict(cfg["loss"])
         self.loss_mod = registry.models.make({
             "name": loss_spec["name"],
@@ -168,6 +183,34 @@ class LARPTokenizerTrainer(BaseTrainer):
         }
         self.step = 0
         self._setup_fvd()
+
+    def _place_generator(self) -> None:
+        """The generator over the mesh: its ViT stacks split over the model
+        axis, its blocks sharded over the data axis under fsdp."""
+        from ..models.transformer import ViTBlock
+        from ..parallel.tp import shard_vit
+
+        if self.layout.data_size > 1 and any(
+                isinstance(m, torch.nn.modules.batchnorm._BatchNorm) for m in self.model.modules()):
+            raise NotImplementedError("a BatchNorm bottleneck under a data axis would normalise "
+                                      "by this rank's rows only: not ported")
+        blocks = [m for m in self.model.modules() if isinstance(m, ViTBlock)]
+        self.place_model(self.model, blocks, shard_vit)
+
+    def _data_mean(self, t: torch.Tensor) -> torch.Tensor:
+        """The mean of a per-rank scalar over the data axis."""
+        if self.layout.data_size <= 1:
+            return t
+        t = t.detach().clone()
+        dist.all_reduce(t, group=self.layout.data_group)
+        return t / self.layout.data_size
+
+    def _clip_generator(self) -> None:
+        if self.layout.distributed:
+            fsdp_lib.clip_grad_norm_(self.model.parameters(), self.clip_grad_max_norm,
+                                     self.layout, self.tp_params)
+        else:
+            torch.nn.utils.clip_grad_norm_(self.model.parameters(), self.clip_grad_max_norm)
 
     def _param_groups(self, named, prior_mult: float, emb_mult: float) -> List[Dict[str, Any]]:
         """The JAX trainer's labels as torch param groups: `prior` (under the
@@ -265,6 +308,7 @@ class LARPTokenizerTrainer(BaseTrainer):
         info["loss"] = total
         rep = out.get("bottleneck_rep")
         if rep is not None and rep.dtype in (torch.int32, torch.int64):
+            rep = gather_rows(rep)  # the global batch's codes under a data axis
             cb = self.model.codebook_size
             hist_first = stats.index_histogram(rep[0], cb)
             info["index_usage"] = stats.index_usage_percentage(hist_first)
@@ -297,9 +341,10 @@ class LARPTokenizerTrainer(BaseTrainer):
         with torch.set_grad_enabled(should_run):
             d_loss, d_info = lm.discriminator_loss(data, pred.detach(), epoch, train=True,
                                                    update_ema=should_run)
-        if should_run and float(d_loss.detach()) > lm.d_update_loss_threshold:
+        if should_run and float(self._data_mean(d_loss.detach())) > lm.d_update_loss_threshold:
             self.opt_d.zero_grad(set_to_none=True)
             d_loss.backward()
+            self.sync_grads(self.disc.parameters())
             if self.clip_grad_max_norm > 0:
                 torch.nn.utils.clip_grad_norm_(self.disc.parameters(), self.clip_grad_max_norm)
             _set_lr(self.opt_d, self.d_sched(step))
@@ -321,12 +366,14 @@ class LARPTokenizerTrainer(BaseTrainer):
         return self._pack(info)
 
     def _generator_update(self, step: int) -> None:
-        """One global clip over every generator parameter, the G optimizer's
-        step at each group's learning rate, then the EMAs."""
+        """The data axis's gradient mean, one global clip over every generator
+        parameter, the G optimizer's step at each group's learning rate, then
+        the EMAs."""
+        self.sync_grads()
         if self.clip_grad_max_norm > 0:
-            torch.nn.utils.clip_grad_norm_(self.model.parameters(), self.clip_grad_max_norm)
+            self._clip_generator()
         _set_lr(self.opt_g, self.g_sched(step))
-        self.opt_g.step()
+        fsdp_lib.optimizer_step(self.opt_g)
         if self.ema_params:
             params = dict(self.model.named_parameters())
             for d, ema in self.ema_params.items():
@@ -364,7 +411,9 @@ class LARPTokenizerTrainer(BaseTrainer):
             self._metrics(info, data, pred, out, total)
             d_losses.append(d_loss.detach())
             infos.append(info)
-        if should_run and float(torch.stack(d_losses).mean()) > lm.d_update_loss_threshold:
+        if (should_run and float(self._data_mean(torch.stack(d_losses).mean()))
+                > lm.d_update_loss_threshold):
+            self.sync_grads(self.disc.parameters())
             for p in self.disc.parameters():
                 p.grad.div_(A)
             if self.clip_grad_max_norm > 0:
@@ -431,8 +480,10 @@ class LARPTokenizerTrainer(BaseTrainer):
         try:
             batch = next(iter(self.test_loader(next(iter(self.test_datasets)))))
             data = common.video_to_float(batch["gt"][:4].to(self.device))
-            with torch.no_grad():
+            with torch.no_grad():  # every rank: the forward may be split over the mesh
                 pred = self._model_forward(data, train=False)["pred_frames"].float()
+            if not self.is_master:
+                return
             vis_dir = common.ensure_path(os.path.join(self.save_dir, "vis"))
             gt, pred = data.cpu().numpy(), pred.cpu().numpy()
             grid = common.save_video_grid(os.path.join(vis_dir, f"epoch_{self.epoch}.png"),
@@ -458,24 +509,27 @@ class LARPTokenizerTrainer(BaseTrainer):
         meta["model"] = meta["cfg"]["model"]
         return meta
 
-    def state_for_checkpoint(self) -> Dict[str, Any]:
+    def state_for_checkpoint(self, on_every_rank: bool = False) -> Dict[str, Any]:
+        lay, keep = self.layout, on_every_rank
         return {
-            "params": self.model.state_dict(),
+            "params": fsdp_lib.full_state_dict(self.model, lay, keep),
             "loss_params": self.loss_mod.state_dict(),  # the LeCam EMAs are its buffers
-            "opt_g": self.opt_g.state_dict(),
+            "opt_g": fsdp_lib.full_optimizer_state(self.opt_g, self.model, lay, keep),
             "opt_d": self.opt_d.state_dict(),
-            "ema_params": self.ema_params,
+            "ema_params": {d: fsdp_lib.full_tensors(e, self.model, lay, keep)
+                           for d, e in self.ema_params.items()},
             "step": self.step,
             "rng": {k: g.get_state() for k, g in self._generators().items()},
         }
 
     def load_state(self, state: Dict[str, Any]):
-        self.model.load_state_dict(state["params"])
+        lay = self.layout
+        fsdp_lib.load_full_state_dict(self.model, state["params"], lay)
+        fsdp_lib.load_optimizer_state(self.opt_g, self.model, state["opt_g"], lay)
+        self.ema_params = {d: fsdp_lib.placed_tensors(e, self.model, lay)
+                           for d, e in state["ema_params"].items()}
         self.loss_mod.load_state_dict(state["loss_params"])
-        self.opt_g.load_state_dict(state["opt_g"])
         self.opt_d.load_state_dict(state["opt_d"])
-        self.ema_params = {d: {n: t.to(self.device) for n, t in ema.items()}
-                           for d, ema in state["ema_params"].items()}
         self.step = int(state["step"])
         gens = self._generators()
         for k, s in state.get("rng", {}).items():
